@@ -1,0 +1,224 @@
+"""MIDI: binary piano-roll <-> Standard MIDI File bytes (pure NumPy).
+
+Copy of what serving needs from ``classifying_vae_lstm_tpu/data/midi.py``:
+:class:`MidiWriter` (the reference's event semantics: format-1 file, 4/4
+meta track, NoteOn/NoteOff diffing, pitch offset +21, tick step 120,
+resolution 480, velocity 100) and the general SMF input path
+(:func:`parse_smf`, :func:`quantize_notes`, :func:`roll_from_smf_bytes`) that
+seeds generation from a user's MIDI file.
+"""
+
+from __future__ import annotations
+
+import struct
+
+import numpy as np
+
+RANGE = 128
+
+
+def _vlq(value: int) -> bytes:
+    """Encode a variable-length quantity (SMF delta time)."""
+    if value < 0:
+        raise ValueError(f"negative delta time: {value}")
+    out = [value & 0x7F]
+    value >>= 7
+    while value:
+        out.append(0x80 | (value & 0x7F))
+        value >>= 7
+    return bytes(reversed(out))
+
+
+def _read_vlq(data: bytes, pos: int):
+    value = 0
+    while True:
+        b = data[pos]
+        pos += 1
+        value = (value << 7) | (b & 0x7F)
+        if not b & 0x80:
+            return value, pos
+
+
+def _chunk(tag: bytes, payload: bytes) -> bytes:
+    return tag + struct.pack(">I", len(payload)) + payload
+
+
+class MidiWriter:
+    """Dump a binary piano-roll sequence to a .mid file.
+
+    Mirrors the reference ``MidiWriter`` (``utils/midi_utils.py:11-98``).
+    """
+
+    def __init__(self, verbose: bool = False, default_vel: int = 100):
+        self.verbose = verbose
+        self.note_range = RANGE
+        self.default_velocity = default_vel
+
+    def _event(self, tick: int, status: int, *data: int) -> None:
+        self._track.append(_vlq(tick) + bytes([status, *data]))
+
+    def note_off(self, val: int, tick: int) -> int:
+        self._event(tick, 0x80, val, 0)
+        return 0
+
+    def note_on(self, val: int, tick: int) -> int:
+        self._event(tick, 0x90, val, self.default_velocity)
+        return 0
+
+    def dump_sequence_to_midi(
+        self,
+        seq,
+        output_filename,
+        time_step: int = 120,
+        resolution: int = 480,
+        metronome: int = 24,
+        offset: int = 21,
+        format: str = "final",
+    ) -> None:
+        if format == "icml":
+            # seq is a list of lists of active MIDI notes per timestep
+            sequence = np.zeros([len(seq), self.note_range])
+            for t, tmstp in enumerate(seq):
+                sequence[t, list(tmstp)] = 1
+        elif format == "flat":
+            sequence = np.reshape(seq, [-1, self.note_range])
+        else:
+            sequence = np.asarray(seq)
+
+        # meta track: 4/4 time signature + end of track
+        meta = _vlq(0) + bytes([0xFF, 0x58, 0x04, 4, 2, metronome, 8])
+        meta += _vlq(0) + bytes([0xFF, 0x2F, 0x00])
+
+        self._track: list[bytes] = []
+        tick = time_step
+        self.notes_on = {n: False for n in range(self.note_range)}
+        for frame in sequence:
+            notes = [int(n) + offset for n in np.nonzero(frame)[0]]
+            # NoteOffs first; the first event in the frame consumes the tick
+            for n in self.notes_on:
+                if self.notes_on[n] and n not in notes:
+                    tick = self.note_off(n, tick)
+                    self.notes_on[n] = False
+            for note in notes:
+                if not self.notes_on[note]:
+                    tick = self.note_on(note, tick)
+                    self.notes_on[note] = True
+            tick += time_step
+
+        # flush out notes still sounding
+        for n in self.notes_on:
+            if self.notes_on[n]:
+                self.note_off(n, tick)
+                tick = 0
+                self.notes_on[n] = False
+        self._track.append(_vlq(0) + bytes([0xFF, 0x2F, 0x00]))
+
+        header = _chunk(b"MThd", struct.pack(">HHH", 1, 2, resolution))
+        data = header + _chunk(b"MTrk", meta) + _chunk(b"MTrk", b"".join(self._track))
+        with open(output_filename, "wb") as f:
+            f.write(data)
+
+
+def parse_smf(data: bytes):
+    """General SMF parser: returns (division, notes, key_sig).
+
+    ``notes`` is a list of (start_tick, end_tick, pitch) merged across all
+    tracks (percussion channel 10 skipped); ``key_sig`` is the first key
+    signature meta event as (sf, mi) or None. Handles running status, meta
+    and sysex events, and all channel voice messages — the general MIDI
+    *input* path the reference delegated to the py2 ``midi`` package.
+    """
+    if data[:4] != b"MThd":
+        raise ValueError("not a MIDI file (missing MThd)")
+    (hlen,) = struct.unpack(">I", data[4:8])
+    _fmt, ntracks, division = struct.unpack(">HHH", data[8:14])
+    if division & 0x8000:
+        raise ValueError("SMPTE time division not supported")
+    pos = 8 + hlen
+    notes = []
+    key_sig = None
+    for _ in range(ntracks):
+        if data[pos : pos + 4] != b"MTrk":
+            raise ValueError("bad track chunk")
+        (length,) = struct.unpack(">I", data[pos + 4 : pos + 8])
+        i, end = pos + 8, pos + 8 + length
+        tick = 0
+        status = 0
+        active: dict = {}  # (channel, pitch) -> start tick
+        while i < end:
+            delta, i = _read_vlq(data, i)
+            tick += delta
+            b = data[i]
+            if b & 0x80:
+                status = b
+                i += 1
+            # else running status: reuse the previous status byte
+            if status == 0xFF:  # meta
+                mtype = data[i]
+                mlen, i = _read_vlq(data, i + 1)
+                if mtype == 0x59 and key_sig is None and mlen >= 2:
+                    sf = struct.unpack("b", data[i : i + 1])[0]
+                    key_sig = (sf, data[i + 1])
+                i += mlen
+                if mtype == 0x2F:
+                    break
+            elif status in (0xF0, 0xF7):  # sysex
+                slen, i = _read_vlq(data, i)
+                i += slen
+            else:
+                kind = status & 0xF0
+                ch = status & 0x0F
+                if kind in (0x80, 0x90, 0xA0, 0xB0, 0xE0):
+                    d1, d2 = data[i], data[i + 1]
+                    i += 2
+                    if ch != 9:  # skip percussion
+                        if kind == 0x90 and d2 > 0:
+                            active.setdefault((ch, d1), tick)
+                        elif kind == 0x80 or (kind == 0x90 and d2 == 0):
+                            start = active.pop((ch, d1), None)
+                            if start is not None and tick > start:
+                                notes.append((start, tick, d1))
+                elif kind in (0xC0, 0xD0):
+                    i += 1
+                else:
+                    raise ValueError(f"unexpected status {status:#x}")
+        for (ch, pitch), start in active.items():  # close hanging notes
+            if tick > start:
+                notes.append((start, tick, pitch))
+        pos = end
+    return division, notes, key_sig
+
+
+def quantize_notes(division: int, notes, frames_per_beat: int = 2):
+    """Sample note intervals onto a frame grid (eighth notes by default — the
+    pickled-corpus convention); returns a list of per-frame pitch lists."""
+    if not notes:
+        return []
+    fl = division / frames_per_beat
+    n_frames = int(np.ceil(max(e for _, e, _ in notes) / fl))
+    frames = [set() for _ in range(n_frames)]
+    for start, endt, pitch in notes:
+        f0 = int(np.ceil(start / fl - 1e-9))
+        f1 = max(f0 + 1, int(np.ceil(endt / fl - 1e-9)))
+        for f in range(f0, min(f1, n_frames)):
+            frames[f].add(pitch)
+    return [sorted(f) for f in frames]
+
+
+def roll_from_smf_bytes(data: bytes, frames_per_beat: int = 2, offset: int = 21,
+                        note_range: int = 88) -> np.ndarray:
+    """SMF bytes -> binary [T, 88] piano roll; out-of-range pitches are
+    octave-shifted into range like the reference's ``song_to_pianoroll``
+    (utils/pianoroll.py:31-47)."""
+    division, notes, _ = parse_smf(data)
+    song = quantize_notes(division, notes, frames_per_beat)
+    roll = np.zeros((len(song), note_range), dtype=np.float32)
+    for t, frame in enumerate(song):
+        for p in frame:
+            q = p - offset
+            while q < 0:
+                q += 12
+            while q >= note_range:
+                q -= 12
+            roll[t, q] = 1.0
+    return roll

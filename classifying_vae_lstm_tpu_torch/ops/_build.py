@@ -1,0 +1,89 @@
+"""Build the CUDA sources under ``csrc/`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/torch_kernels/lib<name>-<hash>.so csrc/<name>.cu
+
+into ``build/torch_kernels/`` beside the package, at first use. The library
+name carries a hash of the source, so an edited source is rebuilt and an
+unchanged one is reused. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> list[str]:
+    """Names of every kernel source (``csrc/<name>.cu``)."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels are built at first use")
+
+
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start(name: str, extra_flags=()):
+    """Start nvcc for one source; returns (process, temp path, final path),
+    or None when the library is already built."""
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, job) -> str:
+    proc, tmp, out = job
+    log = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu (exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)  # atomic: another process never loads a partial file
+    return log
+
+
+def build_all(extra_flags=()) -> dict[str, str]:
+    """Build every source that is not built yet, one nvcc per source, all
+    started together. Returns the compiler output per source built."""
+    with _lock:
+        jobs = {n: _start(n, extra_flags) for n in sources()}
+        return {n: _finish(n, j) for n, j in jobs.items() if j is not None}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            job = _start(name)
+            if job is not None:
+                _finish(name, job)
+            lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+        return lib

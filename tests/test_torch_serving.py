@@ -1,0 +1,210 @@
+"""The port's serving engine and HTTP frontend on the CPU (plain sampler),
+and its data pipeline against the JAX package's."""
+
+import base64
+import json
+import socket
+import tempfile
+import threading
+import urllib.error
+import urllib.request
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import jax
+import numpy as np
+import pytest
+
+from classifying_vae_lstm_tpu.data import PianoData as JPianoData
+from classifying_vae_lstm_tpu.data.midi import MidiWriter as JMidiWriter
+from classifying_vae_lstm_tpu.data.midi import roll_from_smf_bytes as j_roll_from_smf_bytes
+from classifying_vae_lstm_tpu.models import cl_vrnn as jcl
+from classifying_vae_lstm_tpu_torch.cli import serve
+from classifying_vae_lstm_tpu_torch.data import MidiWriter, PianoData, roll_from_smf_bytes
+from classifying_vae_lstm_tpu_torch.models import cl_vrnn as tcl
+from classifying_vae_lstm_tpu_torch.serving import GenerationEngine
+from classifying_vae_lstm_tpu_torch.serving.engine import _bucket
+
+
+def _engine(dynamic_batching=False, window_ms=25.0, D=16):
+    jcfg = jcl.Config(original_dim=D, intermediate_dim=12, latent_dim=2, seq_length=4,
+                      n_classes=3)
+    params = jax.tree.map(np.asarray, jcl.init(jax.random.PRNGKey(0), jcfg))
+    rng = np.random.default_rng(0)
+    bank = (rng.random((6, 8, D)) < 0.2).astype(np.float32)
+    cfg = tcl.Config(original_dim=D, intermediate_dim=12, latent_dim=2, seq_length=4,
+                     n_classes=3)
+    return GenerationEngine(params, cfg, bank, np.arange(6) % 3, device="cpu",
+                            dynamic_batching=dynamic_batching, batch_window_ms=window_ms)
+
+
+def _binary(a):
+    return set(np.unique(a).tolist()) <= {0.0, 1.0}
+
+
+def test_bucketing_and_shapes():
+    assert _bucket(1, (1, 4, 16)) == 1 and _bucket(3, (1, 4, 16)) == 4
+    assert _bucket(17, (1, 4, 16)) == 16
+    eng = _engine()
+    out = eng.generate(n=3, nsteps=40)  # pads to bucket (4, 64), slices back
+    assert out.shape == (3, 40, 16) and _binary(out)
+    assert eng.stats["requests"] == 1 and eng.stats["songs"] == 3
+    assert eng.generate(n=2, nsteps=32, infer_w=False).shape == (2, 32, 16)
+    assert eng.generate(n=2, nsteps=32, key_name_index=1).shape == (2, 32, 16)
+    assert eng.generate(n=2, nsteps=32, seed_indices=[0, 3]).shape == (2, 32, 16)
+    with pytest.raises(ValueError):
+        eng.generate(n=1, nsteps=32, key_name_index=99)
+    roll = np.zeros((5, 16), np.float32)
+    roll[:, 3] = 1.0
+    assert eng.generate(n=2, nsteps=16, seed_rolls=roll, key_name_index=1).shape == (2, 16, 16)
+
+
+def test_warmup_covers_the_bucket_grid_and_chunks_oversized_requests():
+    eng = _engine()
+    eng.BATCH_BUCKETS = (1, 2)
+    eng.STEP_BUCKETS = (8, 16)
+    eng.warmup()
+    assert eng.stats["warm_buckets"] == 4  # the full grid
+    out = eng.generate(n=5, nsteps=16)  # > largest bucket: chunked 2 + 2 + 1
+    assert out.shape == (5, 16, 16) and _binary(out)
+    # each chunk is a request of its own, on a warm bucket
+    assert eng.stats["warm_buckets"] == 4 and eng.stats["requests"] == 3
+    th = _engine().warmup(batch_buckets=(1,), step_buckets=(8,), background=True)
+    th.join(timeout=120)
+    assert not th.is_alive()
+
+
+def test_dynamic_batching_coalesces_a_burst():
+    eng = _engine(dynamic_batching=True, window_ms=2000.0)
+    eng.warmup(step_buckets=(32,))
+    eng._batcher.max_songs = 8  # four 2-song requests complete a group
+    results, errors = [None] * 5, []
+    barrier = threading.Barrier(5)
+
+    def client(i):
+        try:
+            barrier.wait(timeout=30)
+            results[i] = eng.generate(n=2, nsteps=32)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(5)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not errors and not any(th.is_alive() for th in threads)
+    for r in results:
+        assert r.shape == (2, 32, 16) and _binary(r)
+    # at most one request bypasses solo; the rest coalesce into groups
+    assert eng.stats["batches"] >= 1
+    assert eng.stats["batched_songs"] > 2 * eng.stats["batches"]
+    ls = eng.latency_stats()
+    assert ls["p95_ms"] > 0 and ls["songs_per_sec"] is not None
+
+
+def test_dynamic_batching_mixed_step_buckets_and_solo_bypass():
+    eng = _engine(dynamic_batching=True, window_ms=10.0)
+    outs = {}
+    a = threading.Thread(target=lambda: outs.setdefault("a", eng.generate(n=2, nsteps=20)))
+    b = threading.Thread(target=lambda: outs.setdefault("b", eng.generate(n=2, nsteps=60)))
+    a.start(); b.start(); a.join(timeout=120); b.join(timeout=120)
+    assert outs["a"].shape == (2, 20, 16) and outs["b"].shape == (2, 60, 16)
+    base = eng.stats["batches"]
+    eng.generate(n=2, nsteps=20)  # warm bucket, empty queue: bypasses the batcher
+    assert eng.stats["batches"] == base
+
+
+def _post(port, body, raw=False):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/generate",
+                                 data=body if raw else json.dumps(body).encode())
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, json.load(r)
+    except urllib.error.HTTPError as e:
+        return e.code, json.load(e)
+
+
+def test_http_frontend_on_an_ephemeral_port(tmp_path):
+    eng = _engine()
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0),
+                                serve.make_handler(eng, {"C": 0, "E-": 1}, True))
+    port = httpd.server_address[1]
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=30) as r:
+            assert json.load(r)["ok"]
+        code, out = _post(port, {"n": 2, "t": 16})
+        assert code == 200 and np.asarray(out["rolls"]).shape == (2, 16, 16)
+        code, out = _post(port, {"n": 1, "t": 8, "format": "midi_base64", "key": "C"})
+        assert code == 200 and base64.b64decode(out["midi_base64"][0])[:4] == b"MThd"
+        roll = np.zeros((6, 88), np.float32)
+        roll[:, [39, 43]] = 1.0
+        MidiWriter().dump_sequence_to_midi(roll, str(tmp_path / "s.mid"))
+        seed_b64 = base64.b64encode((tmp_path / "s.mid").read_bytes()).decode()
+        assert _post(port, {"n": 1, "t": 8, "seed_midi_base64": seed_b64})[0] == 200
+        assert _post(port, {"n": 1, "t": 8, "seed_midi_base64": "bm90IG1pZGk="})[0] == 400
+        assert _post(port, {"n": 0, "t": 8})[0] == 400
+        assert _post(port, {"n": 1, "t": 99999})[0] == 400
+        assert _post(port, {"n": 1, "t": 8, "format": "nope"})[0] == 400
+        assert _post(port, {"n": 1, "t": 8, "key": "Q"})[0] == 400
+        assert _post(port, b"{not json", raw=True)[0] == 400
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats", timeout=30) as r:
+            stats = json.load(r)
+        assert stats["requests"] == 3 and stats["p50_ms"] > 0
+        assert stats["device"] == "cpu" and stats["gen_path"] == "plain"
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+
+def test_listen_backlog_holds_a_burst():
+    """32 clients connect before the server accepts any, and none is dropped
+    (with socketserver's backlog of 5 the 7th connection request is dropped,
+    and its client retries only after 1 s)."""
+    httpd = serve.Server(("127.0.0.1", 0), BaseHTTPRequestHandler)
+    socks = []
+    try:
+        for _ in range(32):
+            socks.append(socket.create_connection(httpd.server_address, timeout=0.5))
+    finally:
+        for s in socks:
+            s.close()
+        httpd.server_close()
+
+
+def test_make_server_on_the_trained_checkpoint():
+    """The CLI entry point end to end on the CPU: jsball_vrnn4 behind the
+    HTTP server, Piano-midi_all seeds."""
+    args = serve.build_parser().parse_args(
+        ["-i", "artifacts/jsball_vrnn4.npz", "--train_file", "data/input/Piano-midi_all.pickle",
+         "--device", "cpu", "--warmup", "off", "--port", "0"])
+    httpd, eng = serve.make_server(args)
+    port = httpd.server_address[1]
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        code, out = _post(port, {"n": 1, "t": 8, "key": "C"})
+        assert code == 200
+        rolls = np.asarray(out["rolls"])
+        assert rolls.shape == (1, 8, 88) and _binary(rolls)
+        assert eng.seed_bank.shape == (4180, 32, 88)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+
+def test_pianodata_and_midi_match_jax():
+    kw = dict(batch_size=1, seq_length=32, squeeze_x=False)
+    got = PianoData("data/input/Piano-midi_Cs.pickle", **kw)
+    ref = JPianoData("data/input/Piano-midi_Cs.pickle", **kw)
+    for split in ("train", "valid", "test"):
+        for attr in (f"x_{split}", f"y_{split}", f"{split}_song_inds", f"{split}_song_keys"):
+            np.testing.assert_array_equal(getattr(got, attr), getattr(ref, attr), err_msg=attr)
+    assert got.key_map == ref.key_map
+    roll = (np.random.default_rng(0).random((12, 88)) < 0.1).astype(np.float32)
+    with tempfile.TemporaryDirectory() as d:
+        MidiWriter().dump_sequence_to_midi(roll, f"{d}/a.mid")
+        JMidiWriter().dump_sequence_to_midi(roll, f"{d}/b.mid")
+        with open(f"{d}/a.mid", "rb") as fa, open(f"{d}/b.mid", "rb") as fb:
+            a, b = fa.read(), fb.read()
+    assert a == b  # byte-identical MIDI files
+    np.testing.assert_array_equal(roll_from_smf_bytes(a), j_roll_from_smf_bytes(a))
