@@ -17,10 +17,25 @@ failure:
    times with CUDA events;
 3. kernel vs plain version, bf16 weights, at hidden 512 (seeded glorot-scale
    weights): probabilities with u=1, max within 2e-2, mean within 2e-3;
-4. the main path: the port's ``cli.serve`` server with ``--dynamic_batching
-   --warmup full`` answers /generate requests (a burst among them) over HTTP;
-   the launch counts are set to 0 just before and read just after, and the
-   plain version must not run on a CUDA tensor.
+4. the serving path: the port's ``cli.serve`` server with
+   ``--dynamic_batching --warmup full`` answers /generate requests (a burst
+   among them) over HTTP; the launch counts are set to 0 just before and read
+   just after, and the plain version must not run on a CUDA tensor;
+5. the two-cell training kernels vs their plain versions at the full
+   training shape (B=200, T=16, H=256, L=8, K=13, use_x_prev; the
+   ``jsball_vrnn4`` weights with seeded rows for 13 keys): forward hd and
+   zargs within 1e-5, every backward output within 1e-4 * max|plain| + 1e-6;
+   kernel and plain times with CUDA events beside each kernel's bound;
+6. the training path: the port's ``cli.cl_vrnn_train`` trains 3 epochs on
+   the committed corpus at the jsball_vrnn4 width through
+   ``--lstm_backend pallas``; the two-cell counts are set to 0 just before and
+   read just after and must equal the run's own steps (one forward launch per
+   train and eval batch, two backward launches per train batch), losses must
+   be finite and fall, and the plain versions must not run on CUDA tensors;
+   then a training step's time split (forward, backward, optimizer; a
+   profiler's per-kernel device time where it records one);
+7. the checkpoint that run wrote loads into the port's ``GenerationEngine``
+   and generates songs through the generation kernel.
 
 The last lines are the kernel table (one JSON object), the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -29,8 +44,11 @@ power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -40,6 +58,7 @@ MODEL = "artifacts/jsball_vrnn4.npz"
 CORPUS = "data/input/Piano-midi_all.pickle"
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
+TRAIN_B, TRAIN_T, TRAIN_K = 200, 16, 13  # the training path's batch, window, key classes
 
 
 def require(cond, msg):
@@ -78,6 +97,13 @@ def seed_windows(n: int):
     return P.x_test[idx]
 
 
+def roofline_ms(fmas: float, nbytes: float) -> tuple[float, str]:
+    """Least time for a call: the larger of its f32 operations (2 per FMA)
+    over the card's f32 rate and its bytes over HBM bandwidth."""
+    t_ops, t_bytes = 2 * fmas / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def bound_ms(cfg, B, Tseed, nsteps, weight_bytes) -> tuple[float, str]:
     """Least time for one call: the larger of its f32 FMAs over the card's f32
     rate and its bytes (each input read once, the output written once) over
@@ -102,7 +128,8 @@ def phase_build():
     for name, log in logs.items():
         print(f"--- nvcc csrc/{name}.cu ---\n{log.strip()}")
     print(f"kernel build: {build_s:.2f} s for {sorted(logs) or 'no sources (already built)'}")
-    require(set(_build.sources()) == {"generate_cl_vrnn"}, f"sources {_build.sources()}")
+    require(set(_build.sources()) == {"generate_cl_vrnn", "two_cell"},
+            f"sources {_build.sources()}")
 
 
 def phase_f32(dev):
@@ -319,6 +346,263 @@ def phase_serve():
     return launches
 
 
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase_two_cell(dev):
+    """Both two-cell kernels against their plain versions at the training
+    shape; returns the kernel-table fields of each."""
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.cli import common
+    from classifying_vae_lstm_tpu_torch.models import cl_vrnn
+    from classifying_vae_lstm_tpu_torch.ops import two_cell as tc
+    from classifying_vae_lstm_tpu_torch.weights import params_from_numpy
+
+    raw, cfg0, _ = common.load_model(MODEL, "cl_vrnn")
+    B, T, K = TRAIN_B, TRAIN_T, TRAIN_K
+    D, H, L, K0 = cfg0.original_dim, cfg0.intermediate_dim, cfg0.latent_dim, cfg0.n_classes
+    rng = np.random.default_rng(SEED + 2)
+    lim = np.sqrt(6.0 / (K + 4 * H))
+    w_rows = lambda: rng.uniform(-lim, lim, (K, 4 * H)).astype(np.float32)
+    enc, dec = raw["encoder_h"], raw["decoder_h"]
+    # the trained weights with fresh rows for 13 key classes (the corpus's)
+    enc["kernel"] = np.concatenate([enc["kernel"][:-K0], w_rows()])
+    dec["kernel"] = np.concatenate([dec["kernel"][:-K0], w_rows()])
+    cfg = cl_vrnn.Config(original_dim=D, intermediate_dim=H, latent_dim=L, seq_length=T,
+                         n_classes=K, use_x_prev=True, lstm_backend="pallas", two_cell=True)
+    params = params_from_numpy(raw, dev)
+    f = lambda a: torch.from_numpy(a).to(dev)
+    x = f((rng.random((B, T, D)) < 0.1).astype(np.float32))
+    xp = f((rng.random((B, T, D)) < 0.1).astype(np.float32))
+    W = torch.softmax(f(rng.standard_normal((B, K)).astype(np.float32)), -1)
+    eps = f(rng.standard_normal((B, T, L)).astype(np.float32))
+    ins = tc.pack_inputs(params, cfg, x, xp, W, eps)
+
+    outs = tc.two_cell_fwd(*ins)
+    ref = tc.two_cell_fwd_plain(*ins)
+    torch.cuda.synchronize()
+    names = ("hd", "zargs", "ze", "zd", "hpe", "cpe", "ce", "he", "hpd", "cpd", "cd")
+    errs = {n: (k - p).abs().max().item() for n, k, p in zip(names, outs, ref)}
+    require(all(torch.isfinite(o).all().item() for o in outs), "forward kernel output not finite")
+    fwd_err = max(errs["hd"], errs["zargs"])
+    print(f"two-cell forward, B={B} T={T} H={H} L={L} K={K}: max |kernel - plain| hd "
+          f"{errs['hd']:.3e}, zargs {errs['zargs']:.3e} (limit 1e-5); residual streams "
+          + ", ".join(f"{n} {errs[n]:.3e}" for n in names[2:]))
+    require(fwd_err <= 1e-5, f"two-cell forward differs: {errs}")
+
+    (xe, xd, eps_t, we, be, rke, wdx, bd, rkd, kz, wz, bz, *_) = ins
+    hd, zargs, ze, zd, hpe, cpe, ce, he, hpd, cpd, cd = ref
+    dhd = f((1e-2 * rng.standard_normal(tuple(hd.shape))).astype(np.float32))
+    dza = f((1e-2 * rng.standard_normal(tuple(zargs.shape))).astype(np.float32))
+    res = (ze, zd, cpe, ce, cpd, cd, hpe, he, hpd, eps_t, zargs, xe, xd, dhd, dza,
+           we, rke, wdx, rkd, kz, wz)
+    got = tc.two_cell_bwd(*res)
+    want = tc.two_cell_bwd_plain(*res)
+    torch.cuda.synchronize()
+    gnames = ("dxe", "dxd", "dh0e", "dc0e", "dh0d", "dc0d", "drke", "drkd", "dwe", "dwdx", "dkz",
+              "dwz", "dbe", "dbd", "dbz")
+    bad, rel = [], {}
+    for n, g, w in zip(gnames, got, want):
+        err, scale = (g - w).abs().max().item(), w.abs().max().item()
+        rel[n] = err / max(scale, 1e-30)
+        if not (err <= 1e-4 * scale + 1e-6 and math.isfinite(err)):
+            bad.append((n, err, scale))
+    bwd_err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    print("two-cell backward: max |kernel - plain| / max|plain| per output: "
+          + ", ".join(f"{n} {rel[n]:.2e}" for n in gnames)
+          + f" (limit 1e-4 + 1e-6 abs); largest abs error {bwd_err:.3e}")
+    require(not bad, f"two-cell backward differs: {bad}")
+
+    fk_ms = time_ms(lambda: tc.two_cell_fwd(*ins), reps=20, warm=2)
+    fp_ms = time_ms(lambda: tc.two_cell_fwd_plain(*ins), reps=5, warm=1)
+    bk_ms = time_ms(lambda: tc.two_cell_bwd(*res), reps=20, warm=2)
+    bp_ms = time_ms(lambda: tc.two_cell_bwd_plain(*res), reps=5, warm=1)
+    INe, INd, R = xe.shape[-1], xd.shape[-1], T * B
+    weights = (we, be, rke, wdx, bd, rkd, kz, wz, bz)
+    fwd_fmas = R * ((INe + H) * 4 * H + H * 2 * L + (INd + L + H) * 4 * H)
+    fb_ms, fb_by = roofline_ms(fwd_fmas, _nbytes(ins) + _nbytes(outs))
+    # serial chain (dz @ W^T for both cells, z head) + weight gradients and
+    # column sums over the B*T rows
+    bwd_fmas = R * (4 * H * (H + INd + L) + 2 * L * H + 4 * H * (H + INe)
+                    + 4 * H * (2 * H + INe + INd + L + 2) + 2 * L * (H + 1))
+    bb_ms, bb_by = roofline_ms(bwd_fmas, _nbytes(res) + _nbytes(got))
+    print(f"two-cell forward kernel {fk_ms:.3f} ms, plain {fp_ms:.3f} ms, bound {fb_ms:.4f} ms "
+          f"({fb_by}); backward kernel (2 launches) {bk_ms:.3f} ms, plain {bp_ms:.3f} ms, "
+          f"bound {bb_ms:.4f} ms ({bb_by})")
+    return ({"max_abs_err": fwd_err, "ms": fk_ms, "plain_ms": fp_ms, "bound_ms": fb_ms,
+             "bound_by": fb_by},
+            {"max_abs_err": bwd_err, "ms": bk_ms, "plain_ms": bp_ms, "bound_ms": bb_ms,
+             "bound_by": bb_by})
+
+
+def phase_train(model_dir):
+    """The training path through ``cli.cl_vrnn_train``; returns the launch
+    counts, the checkpoint written and what the time split needs."""
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.cli import cl_vrnn_train
+    from classifying_vae_lstm_tpu_torch.ops import two_cell as tc
+    from classifying_vae_lstm_tpu_torch.train import loop
+
+    plain_on_cuda = []
+    real = {n: getattr(tc, n) for n in ("two_cell_fwd_plain", "two_cell_bwd_plain")}
+
+    def guard(name):
+        def guarded(*a):
+            if a[0].is_cuda:
+                plain_on_cuda.append(name)
+            return real[name](*a)
+        return guarded
+
+    seen, epoch_s = {}, []
+    real_fit, real_epoch = cl_vrnn_train.fit, loop.Trainer.train_epoch
+
+    def fit(trainer, params, train_data, val_data, **kw):
+        seen.update(trainer=trainer, train=train_data, val=val_data)
+        out = real_fit(trainer, params, train_data, val_data, **kw)
+        seen.update(best_params=out[1], history=out[2])
+        return out
+
+    def train_epoch(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = real_epoch(self, *a, **k)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+        return m
+
+    args = cl_vrnn_train.build_parser().parse_args(
+        ["smoke", "--train_file", CORPUS, "--intermediate_dim", "256", "--latent_dim", "8",
+         "--seq_length", "16", "--batch_size", "200", "--use_x_prev", "--class_weight", "0.3",
+         "--num_epochs", "3", "--patience", "0", "--lstm_backend", "pallas",
+         "--model_dir", model_dir])
+    for n in real:
+        setattr(tc, n, guard(n))
+    cl_vrnn_train.fit, loop.Trainer.train_epoch = fit, train_epoch
+    tc.FWD_LAUNCHES = tc.BWD_LAUNCHES = 0  # counts from here on are the training path's
+    t0 = time.perf_counter()
+    try:
+        cl_vrnn_train.train(args)
+    finally:
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fwd, bwd = tc.FWD_LAUNCHES, tc.BWD_LAUNCHES
+        for n, fn in real.items():
+            setattr(tc, n, fn)
+        cl_vrnn_train.fit, loop.Trainer.train_epoch = real_fit, real_epoch
+    hist, B, E = seen["history"], args.batch_size, args.num_epochs
+    n_train, n_val = (len(seen[k]["x"]) // B for k in ("train", "val"))
+    print(f"training path: {E} epochs x ({n_train} train + {n_val} eval steps) in {wall:.2f} s; "
+          f"loss per epoch {[round(v, 4) for v in hist['loss']]}, val_loss "
+          f"{[round(v, 4) for v in hist['val_loss']]}")
+    print(f"ms per training step (host clock, epoch synchronised): "
+          f"{[round(s * 1e3 / n_train, 3) for s in epoch_s]} per epoch")
+    print(f"training path launches: forward {fwd} (expected {E * (n_train + n_val)}), "
+          f"backward {bwd} (expected {2 * E * n_train}: the reverse walk and the "
+          f"weight-gradient pass per step)")
+    require(all(math.isfinite(v) for vals in hist.values() for v in vals), "non-finite loss")
+    require(hist["loss"][-1] < hist["loss"][0], f"train loss did not fall: {hist['loss']}")
+    require(fwd == E * (n_train + n_val), f"forward launches {fwd}")
+    require(bwd == 2 * E * n_train, f"backward launches {bwd}")
+    require(not plain_on_cuda, f"plain two-cell versions ran on CUDA tensors: {plain_on_cuda}")
+    seen.update(step_ms=epoch_s[-1] * 1e3 / n_train, ckpt=os.path.join(model_dir, "smoke.npz"))
+    return fwd, bwd, seen
+
+
+def phase_train_breakdown(seen):
+    """Where a training step's time goes: CUDA events around the forward
+    (loss), the backward and the optimizer step; then a profiler's device
+    time per kernel, where it records one. Informational."""
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.train.loop import copy_params
+
+    trainer = seen["trainer"]
+    params = copy_params(seen["best_params"], requires_grad=True)
+    opt = trainer.init_optimizer(params)
+    B = trainer.batch_size
+    batch = {k: v[:B] for k, v in seen["train"].items()}
+    gen = torch.Generator(device=batch["x"].device).manual_seed(SEED)
+
+    def step(ev=None):
+        opt.zero_grad(set_to_none=True)
+        if ev:
+            ev[0].record()
+        loss, _ = trainer.loss_fn(params, batch, gen, 1.0, 0.3, 1.0)
+        if ev:
+            ev[1].record()
+        loss.backward()
+        if ev:
+            ev[2].record()
+        opt.step()
+        if ev:
+            ev[3].record()
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    n, parts = 10, [0.0, 0.0, 0.0]
+    t0 = time.perf_counter()
+    for _ in range(n):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        step(ev)
+        torch.cuda.synchronize()
+        for i in range(3):
+            parts[i] += ev[i].elapsed_time(ev[i + 1]) / n
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    print(f"training step at B={B}: {wall:.3f} ms (host clock, synchronised); CUDA events: "
+          f"forward + loss {parts[0]:.3f} ms, backward {parts[1]:.3f} ms, optimizer "
+          f"{parts[2]:.3f} ms")
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                step()
+            torch.cuda.synchronize()
+        # device-side events only (kernels, copies): host ranges and their
+        # device-side annotations report the same device time again
+        dev_us = lambda e: getattr(e, "self_device_time_total", 0.0) or 0.0
+        rows = sorted((e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
+                       and not getattr(e, "is_user_annotation", False)),
+                      key=dev_us, reverse=True)
+        if not rows:
+            print("profiler: no device time recorded (device busy share not measured)")
+            return
+        busy = sum(dev_us(e) for e in rows) / 5e3
+        two_cell = sum(dev_us(e) for e in rows if "two_cell" in e.key) / 5e3
+        print(f"profiler, per step: device busy {busy:.3f} ms of {wall:.3f} ms "
+              f"({100 * (1 - busy / wall):.1f}% idle), two-cell kernels {two_cell:.3f} ms, "
+              f"{sum(e.count for e in rows) // 5} device events; top: "
+              + "; ".join(f"{e.key[:48]} {dev_us(e) / 5e3:.3f} ms x{e.count // 5}"
+                          for e in rows[:8]))
+    except Exception as e:  # noqa: BLE001 — the split above stands without it
+        print(f"profiler: not measured ({e!r})")
+
+
+def phase_checkpoint_serves(ckpt):
+    """The trained checkpoint serves through the generation kernel."""
+    import numpy as np
+
+    from classifying_vae_lstm_tpu_torch.cli import serve
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate as cg
+
+    args = serve.build_parser().parse_args(["-i", ckpt, "--train_file", CORPUS,
+                                            "--warmup", "off"])
+    engine, _ = serve.build_engine(args)
+    before = cg.LAUNCHES
+    rolls = engine.generate(n=4, nsteps=64)
+    require(rolls.shape == (4, 64, 88) and set(np.unique(rolls).tolist()) <= {0, 1},
+            f"songs from the trained checkpoint: shape {rolls.shape}")
+    require(cg.LAUNCHES > before, "the trained checkpoint did not generate through the kernel")
+    print(f"trained checkpoint {ckpt}: 4 songs x 64 frames through the generation kernel, "
+          f"{int(rolls.sum())} notes on")
+
+
 def main() -> int:
     import torch
 
@@ -335,11 +619,25 @@ def main() -> int:
     f32 = phase_f32(dev)
     phase_bf16(dev)
     launches = phase_serve()
+    fwd, bwd = phase_two_cell(dev)
+    with tempfile.TemporaryDirectory() as model_dir:
+        fwd_launches, bwd_launches, seen = phase_train(model_dir)
+        phase_train_breakdown(seen)
+        phase_checkpoint_serves(seen["ckpt"])
+    source = "classifying_vae_lstm_tpu_torch/csrc/two_cell.cu"
     kernels = [{
         "name": "generate_cl_vrnn", "route": "cuda",
         "source": "classifying_vae_lstm_tpu_torch/csrc/generate_cl_vrnn.cu",
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_generate.py:153",
         "launches": launches, **f32, "library_ms": None,
+    }, {
+        "name": "two_cell_fwd", "route": "cuda", "source": source,
+        "replaces": "classifying_vae_lstm_tpu/ops/pallas_two_cell.py:129",
+        "launches": fwd_launches, **fwd, "library_ms": None,
+    }, {
+        "name": "two_cell_bwd", "route": "cuda", "source": source,
+        "replaces": "classifying_vae_lstm_tpu/ops/pallas_two_cell.py:295",
+        "launches": bwd_launches, **bwd, "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))
     print(line)

@@ -7,7 +7,10 @@ the standard library only — never ``jax`` and never the JAX package.
 Ported so far: the cl_vrnn serving path (checkpoint loading, the model's
 step functions, noise-explicit batched generation through the hand-written
 whole-generation CUDA kernel ``csrc/generate_cl_vrnn.cu``, the bucketed
-serving engine and its HTTP frontend).
+serving engine and its HTTP frontend) and its training path (the model's
+``apply`` and losses, the optimizers, the epoch trainer, checkpoint saving
+and the ``cl_vrnn_train`` CLI, whose ``pallas`` backend runs the two-cell
+CUDA kernels of ``csrc/two_cell.cu``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 ``cuda`` requested and no card present they raise (:func:`resolve_device`).

@@ -1,4 +1,4 @@
-"""Shared CLI plumbing: model (re)construction and loading.
+"""Shared CLI plumbing: dataset assembly, model (re)construction, loading.
 
 The checkpoint contract is the JAX package's: ``<run>.json`` is the
 training run's argparse namespace and becomes the model config, ``<run>.npz``
@@ -9,13 +9,31 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
+from ..data import PianoData
+from ..data.pianoroll import to_categorical
 from ..models import cl_vrnn
 from ..train.checkpoint import load_checkpoint, load_model_args
 
-# the corpus shipped with the repository (seed windows for serving)
+# the corpus shipped with the repository (training data, seed windows for serving)
 DEFAULT_TRAIN_FILE = "data/input/Piano-midi_all.pickle"
 
 CL_VAE_TODO = "the cl_vae family is not ported yet (ROADMAP Queue 1 item 11)"
+
+
+def build_cl_vrnn_datasets(P: PianoData, n_classes: int, use_x_prev: bool, device) -> dict:
+    """Per-split dicts of tensors on ``device``: ``x``/``y`` [N, T, 88] and
+    the one-hot key ``w``; with ``use_x_prev`` the model reads the next
+    frames ``y`` as ``x`` and the current ones as ``x_prev``."""
+    out = {}
+    for split in ("train", "valid", "test"):
+        x = getattr(P, f"x_{split}")
+        y = getattr(P, f"y_{split}")
+        w = to_categorical(getattr(P, f"{split}_song_keys"), n_classes)
+        arrays = {"y": y, "w": w, **({"x": y, "x_prev": x} if use_x_prev else {"x": x})}
+        out[split] = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+    return out
 
 
 def cl_vrnn_config_from_args(margs: dict) -> cl_vrnn.Config:
@@ -36,13 +54,15 @@ def cl_vrnn_config_from_args(margs: dict) -> cl_vrnn.Config:
 
 
 def resolve_lstm_backend(cfg, choice: str = "auto"):
-    """The ``--lstm_backend`` flag. ``auto`` and ``keep`` keep the
-    checkpoint's numerics (f32 unless it trained with ``bf16_compute``); an
-    explicit name is recorded in the config. Generation on the card always
-    runs the CUDA kernel whatever the name, and the CPU its plain version."""
-    if choice in ("auto", "keep"):
+    """The ``--lstm_backend`` flag. ``keep`` leaves the checkpoint's setting;
+    ``auto`` resolves as the JAX package does off a TPU, to ``xla`` with the
+    config's numerics (the JAX gate to the kernels and bf16 is a TPU
+    measurement, which the port does not read); an explicit name is taken
+    as it is. Generation on the card always runs its CUDA kernel whatever
+    the name, and the CPU its plain version."""
+    if choice == "keep":
         return cfg
-    return dataclasses.replace(cfg, lstm_backend=choice)
+    return dataclasses.replace(cfg, lstm_backend="xla" if choice == "auto" else choice)
 
 
 def load_model(model_file: str, family: str, no_x_prev: bool = False):

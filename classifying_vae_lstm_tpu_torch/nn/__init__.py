@@ -1,4 +1,11 @@
-from .core import dense, hard_sigmoid
-from .distributions import logistic_normal_from_eps, sample_w_discrete_from_u
+from .core import dense, glorot_uniform, hard_sigmoid, init_dense, init_lstm, orthogonal
+from .distributions import (
+    logistic_normal_from_eps,
+    sample_gaussian,
+    sample_logistic_normal,
+    sample_w_discrete_from_u,
+)
 
-__all__ = ["dense", "hard_sigmoid", "logistic_normal_from_eps", "sample_w_discrete_from_u"]
+__all__ = ["dense", "glorot_uniform", "hard_sigmoid", "init_dense", "init_lstm", "orthogonal",
+           "logistic_normal_from_eps", "sample_gaussian", "sample_logistic_normal",
+           "sample_w_discrete_from_u"]

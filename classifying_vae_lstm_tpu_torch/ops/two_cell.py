@@ -1,0 +1,400 @@
+"""Two-cell (encoder + decoder) cl_vrnn training core: CUDA wrappers, plain
+versions and the autograd function.
+
+Counterpart of ``classifying_vae_lstm_tpu/ops/pallas_two_cell.py``. The
+whole recurrent core of the cl_vrnn model — encoder LSTM, z heads, z sample,
+decoder LSTM — runs forward in one kernel and backward in one kernel of two
+launches (``csrc/two_cell.cu``). Each has a plain PyTorch version with the
+same signature, written out step by step: :func:`two_cell_fwd_plain`, and
+:func:`two_cell_bwd_plain`, which mirrors the TPU backward kernel (it is not
+autograd of the plain forward), so the backward kernel can be held against
+it on identical residuals.
+
+Layouts are time-major, as in the TPU kernels: xe ``[T, B, INe]`` (x ‖ w),
+xd ``[T, B, INd]`` ([x_prev ‖] w), eps ``[T, B, L]``; kernels ``[in, out]``;
+the z heads packed to ``wz [H, 2L]`` / ``bz [2L]`` (no lane padding).
+
+:func:`two_cell_fwd` / :func:`two_cell_bwd` launch the kernels for CUDA
+tensors (or raise: there is no fallback) and take the plain versions only
+for CPU tensors. :func:`two_cell_sequence` is the model's entry; it packs
+the weights and inputs outside the autograd function, so autograd routes
+the cotangents of W and of the parameters back through the packing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from . import _build
+from .lstm import _gates
+
+# launches since the counts were last set to 0: one per forward call, two per
+# backward call (the serial reverse walk, then the weight-gradient pass)
+FWD_LAUNCHES = 0
+BWD_LAUNCHES = 0
+_launch_lock = threading.Lock()
+
+_ROWS_PER_BLOCK = 4      # kRows in csrc/two_cell.cu
+_UNITS_PER_PASS = 256    # kUnits in csrc/two_cell.cu
+_SMEM_LIMIT = 232448     # dynamic shared memory one Hopper block can use
+BF16_TODO = ("the bf16 stream mode of the two-cell kernels is not ported yet "
+             "(ROADMAP Queue 2 item 2)")
+
+
+def fwd_smem_bytes(in_e: int, in_d: int, H: int, L: int) -> int:
+    """Shared memory of one forward block: both step inputs, h (two buffers)
+    and c of both cells and z for each row of the tile, plus the gate stages'
+    partial sums."""
+    return ((in_e + in_d + 6 * H + L) * _ROWS_PER_BLOCK
+            + 4 * _ROWS_PER_BLOCK * _UNITS_PER_PASS) * 4
+
+
+def bwd_smem_bytes(H: int, L: int) -> int:
+    """Shared memory of one backward block: dz (4H), the four carries and
+    the incoming dh (H each), dz and dzargs (3L) per row, plus partial sums."""
+    return ((9 * H + 3 * L) * _ROWS_PER_BLOCK + _ROWS_PER_BLOCK * _UNITS_PER_PASS) * 4
+
+
+def _widths(cfg):
+    D, K = cfg.original_dim, cfg.n_classes
+    return D + K, (D if cfg.use_x_prev else 0) + K
+
+
+def fits(cfg) -> bool:
+    """Does one block's carried state fit Hopper's shared memory, forward and
+    backward?"""
+    in_e, in_d = _widths(cfg)
+    H, L = cfg.intermediate_dim, cfg.latent_dim
+    return max(fwd_smem_bytes(in_e, in_d, H, L), bwd_smem_bytes(H, L)) <= _SMEM_LIMIT
+
+
+def should_use(cfg, two_cell=None) -> bool:
+    """Route ``lstm_backend='pallas'`` through the two-cell kernel?
+
+    An explicit ``two_cell`` (or ``cfg.two_cell``) decides. Unset, the port
+    takes the kernel whenever it accepts the config: no dropout, no remat,
+    and the state of one block fits shared memory. The JAX package's gate
+    (256 <= H < 1024, VMEM residency) is a TPU measurement and is not read
+    here. ``two_cell=False`` sends ``pallas`` to the whole-sequence LSTM
+    kernels, which are not ported yet (that path raises)."""
+    if two_cell is None:
+        two_cell = getattr(cfg, "two_cell", None)
+    if two_cell is not None:
+        return bool(two_cell)
+    return cfg.dropout == 0.0 and not cfg.remat and fits(cfg)
+
+
+# ------------------------------------------------------------ plain versions
+
+
+def two_cell_fwd_plain(xe, xd, eps, we, be, rke, wdx, bd, rkd, kz, wz, bz, h0e, c0e, h0d, c0d):
+    """The forward kernel's function in torch ops.
+
+    Returns ``(hd, zargs, ze, zd, hpe, cpe, ce, he, hpd, cpd, cd)``, all
+    ``[T, B, ...]``: the decoder's h, the packed z heads, both cells'
+    pre-activations, and h / c before and after each cell (the backward's
+    residuals)."""
+    T = xe.shape[0]
+    H, L = rke.shape[0], kz.shape[0]
+    h_e, c_e, h_d, c_d = h0e, c0e, h0d, c0d
+    outs = [[] for _ in range(11)]
+    for t in range(T):
+        ze = xe[t] @ we + be + h_e @ rke
+        hpe, cpe = h_e, c_e
+        h_e, c_e = _gates(ze, c_e, H)
+        zargs = h_e @ wz + bz
+        z = zargs[:, :L] + torch.exp(zargs[:, L:] / 2) * eps[t]
+        zd = xd[t] @ wdx + bd + z @ kz + h_d @ rkd
+        hpd, cpd = h_d, c_d
+        h_d, c_d = _gates(zd, c_d, H)
+        for acc, v in zip(outs, (h_d, zargs, ze, zd, hpe, cpe, c_e, h_e, hpd, cpd, c_d)):
+            acc.append(v)
+    return tuple(torch.stack(o) for o in outs)
+
+
+def _gate_grads(z, c, c_prev, dh, dc_in):
+    """BPTT through the Keras-2.0 gates (``pallas_lstm._bwd_gate_grads``):
+    returns the pre-activation cotangent dz and the next carry dc * f. The
+    hard-sigmoid derivative is 0.2 strictly inside (0, 1), 0 at the clip
+    points (torch's autograd of ``clamp`` passes them)."""
+    H = c.shape[-1]
+    hs = lambda v: torch.clamp(0.2 * v + 0.5, 0.0, 1.0)
+    i, f, o = hs(z[:, :H]), hs(z[:, H:2 * H]), hs(z[:, 3 * H:])
+    g = torch.tanh(z[:, 2 * H:3 * H])
+    tanh_c = torch.tanh(c)
+    hsd = lambda gate: torch.where((gate > 0.0) & (gate < 1.0), 0.2, 0.0)
+    dc = dc_in + dh * o * (1 - tanh_c ** 2)
+    dz = torch.cat([dc * g * hsd(i), dc * c_prev * hsd(f), dc * i * (1 - g ** 2),
+                    dh * tanh_c * hsd(o)], dim=-1)
+    return dz, dc * f
+
+
+def two_cell_bwd_plain(ze, zd, cpe, ce, cpd, cd, hpe, he, hpd, eps, zargs, xe, xd, dhd, dzargs,
+                       we, rke, wdx, rkd, kz, wz):
+    """The backward kernel's function in torch ops, step by step.
+
+    Walks time in reverse: decoder step t (its dh is the carry plus
+    ``dhd[t]``; z-sample and z-head backward), then encoder step t (its dh
+    is the carry plus the z heads' cotangent from decoder step t — the TPU
+    kernel's ``dhez`` hand-off). Weight gradients accumulate step by step.
+    Returns ``(dxe, dxd, dh0e, dc0e, dh0d, dc0d, drke, drkd, dwe, dwdx, dkz,
+    dwz, dbe, dbd, dbz)``, the order of ``pallas_two_cell._bwd_call``."""
+    T, B, H4 = ze.shape
+    H, L = H4 // 4, kz.shape[0]
+    zeros = lambda *s: ze.new_zeros(s)
+    dh_e, dc_e, dh_d, dc_d = (zeros(B, H) for _ in range(4))
+    drke, drkd, dwe, dwdx, dkz, dwz = (torch.zeros_like(w) for w in (rke, rkd, we, wdx, kz, wz))
+    dbe, dbd, dbz = zeros(H4), zeros(H4), zeros(2 * L)
+    dxe, dxd = torch.zeros_like(xe), torch.zeros_like(xd)
+    for t in reversed(range(T)):
+        dz_d, dc_d = _gate_grads(zd[t], cd[t], cpd[t], dh_d + dhd[t], dc_d)
+        dh_d = dz_d @ rkd.T
+        dxd[t] = dz_d @ wdx.T
+        drkd += hpd[t].T @ dz_d
+        dwdx += xd[t].T @ dz_d
+        dbd += dz_d.sum(0)
+        sig = torch.exp(zargs[t][:, L:] / 2)
+        dz = dz_d @ kz.T
+        dza = torch.cat([dz + dzargs[t][:, :L], dz * eps[t] * sig * 0.5 + dzargs[t][:, L:]], -1)
+        z = zargs[t][:, :L] + sig * eps[t]
+        dkz += z.T @ dz_d
+        dwz += he[t].T @ dza
+        dbz += dza.sum(0)
+        dhez = dza @ wz.T
+        dz_e, dc_e = _gate_grads(ze[t], ce[t], cpe[t], dh_e + dhez, dc_e)
+        dh_e = dz_e @ rke.T
+        dxe[t] = dz_e @ we.T
+        drke += hpe[t].T @ dz_e
+        dwe += xe[t].T @ dz_e
+        dbe += dz_e.sum(0)
+    return (dxe, dxd, dh_e, dc_e, dh_d, dc_d, drke, drkd, dwe, dwdx, dkz, dwz, dbe, dbd, dbz)
+
+
+# ------------------------------------------------------------ CUDA wrappers
+
+_lib_lock = threading.Lock()
+_lib = None
+
+
+def _kernels():
+    """The built library with its ctypes signatures."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = _build.load("two_cell")
+            P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.cvl_two_cell_fwd_smem_bytes.argtypes = [I] * 4
+            lib.cvl_two_cell_fwd_smem_bytes.restype = LL
+            lib.cvl_two_cell_bwd_smem_bytes.argtypes = [I] * 2
+            lib.cvl_two_cell_bwd_smem_bytes.restype = LL
+            if (lib.cvl_two_cell_fwd_smem_bytes(101, 101, 256, 8) != fwd_smem_bytes(101, 101, 256, 8)
+                    or lib.cvl_two_cell_bwd_smem_bytes(256, 8) != bwd_smem_bytes(256, 8)):
+                raise RuntimeError("shared-memory layout of csrc/two_cell.cu differs from "
+                                   "fwd_smem_bytes / bwd_smem_bytes")
+            lib.cvl_two_cell_fwd.argtypes = [P] * 27 + [I] * 6 + [P]
+            lib.cvl_two_cell_bwd.argtypes = [P] * 23 + [I] * 6 + [P]
+            lib.cvl_two_cell_wgrad.argtypes = [P] * 18 + [I] * 5 + [P]
+            for fn in (lib.cvl_two_cell_fwd, lib.cvl_two_cell_bwd, lib.cvl_two_cell_wgrad):
+                fn.restype = I
+            _lib = lib
+        return _lib
+
+
+def _check(dev, named_shapes: dict):
+    """Raise on anything the kernels do not take."""
+    for name, (t, shape) in named_shapes.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _count(which: str, n: int):
+    global FWD_LAUNCHES, BWD_LAUNCHES
+    with _launch_lock:
+        if which == "fwd":
+            FWD_LAUNCHES += n
+        else:
+            BWD_LAUNCHES += n
+
+
+def _device_of(t):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device
+
+
+def two_cell_fwd(xe, xd, eps, we, be, rke, wdx, bd, rkd, kz, wz, bz, h0e, c0e, h0d, c0d):
+    """The forward kernel (signature and results of :func:`two_cell_fwd_plain`).
+
+    CUDA tensors launch ``two_cell_fwd_kernel`` on the current stream (or
+    raise); CPU tensors take the plain version."""
+    args = (xe, xd, eps, we, be, rke, wdx, bd, rkd, kz, wz, bz, h0e, c0e, h0d, c0d)
+    dev = _device_of(xe)
+    if dev.type == "cpu":
+        return two_cell_fwd_plain(*args)
+    if xe.dim() != 3 or rke.dim() != 2:
+        raise ValueError("xe must be [T, B, INe] and rke [H, 4H]")
+    T, B, in_e = xe.shape
+    H, L, in_d = rke.shape[0], kz.shape[0], xd.shape[-1]
+    if T < 1 or B < 1:
+        raise ValueError(f"need T, B >= 1 (got {T}, {B})")
+    if max(fwd_smem_bytes(in_e, in_d, H, L), bwd_smem_bytes(H, L)) > _SMEM_LIMIT:
+        raise ValueError(f"hidden {H} is too wide for the two-cell kernels' shared memory")
+    H4 = 4 * H
+    _check(dev, {"xe": (xe, (T, B, in_e)), "xd": (xd, (T, B, in_d)), "eps": (eps, (T, B, L)),
+                 "we": (we, (in_e, H4)), "be": (be, (H4,)), "rke": (rke, (H, H4)),
+                 "wdx": (wdx, (in_d, H4)), "bd": (bd, (H4,)), "rkd": (rkd, (H, H4)),
+                 "kz": (kz, (L, H4)), "wz": (wz, (H, 2 * L)), "bz": (bz, (2 * L,)),
+                 "h0e": (h0e, (B, H)), "c0e": (c0e, (B, H)), "h0d": (h0d, (B, H)),
+                 "c0d": (c0d, (B, H))})
+    lib = _kernels()
+    with torch.cuda.device(dev):
+        wz_t = wz.T.contiguous()
+        new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+        outs = (new(T, B, H), new(T, B, 2 * L), new(T, B, H4), new(T, B, H4),
+                *(new(T, B, H) for _ in range(7)))
+        ins = (xe, xd, eps, we, be, rke, wdx, bd, rkd, kz, wz_t, bz, h0e, c0e, h0d, c0d)
+        err = lib.cvl_two_cell_fwd(*(t.data_ptr() for t in ins + outs), T, B, in_e, in_d, H, L,
+                                   torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"two_cell forward kernel launch failed: CUDA error {err}")
+    _count("fwd", 1)
+    return outs
+
+
+def two_cell_bwd(ze, zd, cpe, ce, cpd, cd, hpe, he, hpd, eps, zargs, xe, xd, dhd, dzargs,
+                 we, rke, wdx, rkd, kz, wz):
+    """The backward kernel (signature and results of :func:`two_cell_bwd_plain`).
+
+    CUDA tensors launch ``two_cell_bwd_kernel`` (the serial reverse walk,
+    which writes dz and z per step to scratch) and then
+    ``two_cell_wgrad_kernel`` (the weight gradients over all B*T rows, in a
+    fixed order), or raise; CPU tensors take the plain version."""
+    args = (ze, zd, cpe, ce, cpd, cd, hpe, he, hpd, eps, zargs, xe, xd, dhd, dzargs,
+            we, rke, wdx, rkd, kz, wz)
+    dev = _device_of(ze)
+    if dev.type == "cpu":
+        return two_cell_bwd_plain(*args)
+    T, B, H4 = ze.shape
+    H, L = H4 // 4, kz.shape[0]
+    in_e, in_d = xe.shape[-1], xd.shape[-1]
+    if bwd_smem_bytes(H, L) > _SMEM_LIMIT:
+        raise ValueError(f"hidden {H} is too wide for the two-cell kernels' shared memory")
+    s3 = lambda w: (T, B, w)
+    _check(dev, {"ze": (ze, s3(H4)), "zd": (zd, s3(H4)), "cpe": (cpe, s3(H)), "ce": (ce, s3(H)),
+                 "cpd": (cpd, s3(H)), "cd": (cd, s3(H)), "hpe": (hpe, s3(H)), "he": (he, s3(H)),
+                 "hpd": (hpd, s3(H)), "eps": (eps, s3(L)), "zargs": (zargs, s3(2 * L)),
+                 "xe": (xe, s3(in_e)), "xd": (xd, s3(in_d)), "dhd": (dhd, s3(H)),
+                 "dzargs": (dzargs, s3(2 * L)), "we": (we, (in_e, H4)), "rke": (rke, (H, H4)),
+                 "wdx": (wdx, (in_d, H4)), "rkd": (rkd, (H, H4)), "kz": (kz, (L, H4)),
+                 "wz": (wz, (H, 2 * L))})
+    lib = _kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        # the serial pass reads each transposed weight row-wise: dz @ Wᵀ for
+        # the decoder's (Rk_d | Wdx | Kz) and the encoder's (Rk_e | We)
+        wd_t = torch.cat([rkd, wdx, kz], 0).T.contiguous()
+        we_t = torch.cat([rke, we], 0).T.contiguous()
+        new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+        dxe, dxd = new(T, B, in_e), new(T, B, in_d)
+        dh0 = [new(B, H) for _ in range(4)]
+        dz_e, dz_d, dza, zs = new(T, B, H4), new(T, B, H4), new(T, B, 2 * L), new(T, B, L)
+        ptrs = [t.data_ptr() for t in (ze, zd, cpe, ce, cpd, cd, eps, zargs, dhd, dzargs,
+                                       wd_t, we_t, wz, dxe, dxd, *dh0, dz_e, dz_d, dza, zs)]
+        err = lib.cvl_two_cell_bwd(*ptrs, T, B, in_e, in_d, H, L, stream)
+        if err != 0:
+            raise RuntimeError(f"two_cell backward kernel launch failed: CUDA error {err}")
+        _count("bwd", 1)
+        wgrads = (new(H, H4), new(in_e, H4), new(H4), new(H, H4), new(in_d, H4), new(L, H4),
+                  new(H4), new(H, 2 * L), new(2 * L))
+        ptrs = [t.data_ptr() for t in (hpe, xe, dz_e, hpd, xd, zs, dz_d, he, dza, *wgrads)]
+        err = lib.cvl_two_cell_wgrad(*ptrs, T * B, in_e, in_d, H, L, stream)
+    if err != 0:
+        raise RuntimeError(f"two_cell weight-gradient kernel launch failed: CUDA error {err}")
+    _count("bwd", 1)
+    drke, dwe, dbe, drkd, dwdx, dkz, dbd, dwz, dbz = wgrads
+    return (dxe, dxd, *dh0, drke, drkd, dwe, dwdx, dkz, dwz, dbe, dbd, dbz)
+
+
+# ------------------------------------------------------------ autograd
+
+
+class TwoCellCore(torch.autograd.Function):
+    """``_two_cell_core`` of the JAX package: forward and backward kernels
+    (or their plain versions on the CPU) behind one autograd node.
+
+    Inputs: xe, xd, eps, we, be, rke, wdx, bd, rkd, kz, wz, bz, h0e, c0e,
+    h0d, c0d; outputs: hd ``[T, B, H]`` and zargs ``[T, B, 2L]``. eps gets
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, xe, xd, eps, we, be, rke, wdx, bd, rkd, kz, wz, bz, h0e, c0e, h0d, c0d):
+        (hd, zargs, ze, zd, hpe, cpe, ce, he, hpd, cpd, cd) = two_cell_fwd(
+            xe, xd, eps, we, be, rke, wdx, bd, rkd, kz, wz, bz, h0e, c0e, h0d, c0d)
+        ctx.save_for_backward(ze, zd, cpe, ce, cpd, cd, hpe, he, hpd, eps, zargs, xe, xd,
+                              we, rke, wdx, rkd, kz, wz)
+        return hd, zargs
+
+    @staticmethod
+    def backward(ctx, dhd, dzargs):
+        res = ctx.saved_tensors
+        (dxe, dxd, dh0e, dc0e, dh0d, dc0d, drke, drkd, dwe, dwdx, dkz, dwz, dbe, dbd,
+         dbz) = two_cell_bwd(*res[:13], dhd.contiguous(), dzargs.contiguous(), *res[13:])
+        return (dxe, dxd, None, dwe, dbe, drke, dwdx, dbd, drkd, dkz, dwz, dbz,
+                dh0e, dc0e, dh0d, dc0d)
+
+
+def pack_inputs(params, cfg, x, x_prev, W, eps) -> tuple:
+    """The core's 16 inputs from the model's parameters and a window batch:
+    time-major streams xe = x ‖ w and xd = [x_prev ‖] w, the decoder kernel
+    split into its x/w rows (``wdx``) and z rows (``kz``), the z heads packed
+    side by side, zero initial states. Differentiable torch ops, so autograd
+    routes the cotangents of W and of the parameters back through them."""
+    B, T, D = x.shape
+    H, L, K = cfg.intermediate_dim, cfg.latent_dim, cfg.n_classes
+    enc, dec = params["encoder_h"], params["decoder_h"]
+    w_rep = W[:, None, :].expand(B, T, K)
+    n_xp = D if cfg.use_x_prev else 0
+    xe = torch.cat([x, w_rep], dim=-1)
+    if cfg.use_x_prev:
+        xdc = torch.cat([x_prev, w_rep], dim=-1)
+        wdx = torch.cat([dec["kernel"][:n_xp], dec["kernel"][n_xp + L:]], dim=0)
+    else:
+        xdc = w_rep
+        wdx = dec["kernel"][n_xp + L:]
+    kz = dec["kernel"][n_xp:n_xp + L]
+    wz = torch.cat([params["Z_mean"]["kernel"], params["Z_log_var"]["kernel"]], dim=-1)
+    bz = torch.cat([params["Z_mean"]["bias"], params["Z_log_var"]["bias"]])
+    tm = lambda a: a.transpose(0, 1).contiguous()
+    zeros = x.new_zeros((B, H))
+    return (tm(xe), tm(xdc), tm(eps), enc["kernel"].contiguous(), enc["bias"].contiguous(),
+            enc["recurrent_kernel"].contiguous(), wdx.contiguous(), dec["bias"].contiguous(),
+            dec["recurrent_kernel"].contiguous(), kz.contiguous(), wz.contiguous(),
+            bz.contiguous(), zeros, zeros, zeros, zeros)
+
+
+def two_cell_sequence(params, cfg, x, x_prev, W, eps, compute_dtype=None):
+    """Fused encoder -> z -> decoder core over a window batch.
+
+    Drop-in for the encode_z_sequence + sample + decode_sequence composition
+    at ``dropout == 0``: x ``[B, T, D]``, x_prev ``[B, T, D]`` (with
+    ``use_x_prev``), W ``[B, K]``, eps ``[B, T, L]``; returns ``(h_d_seq [B,
+    T, H], Z_mean [B, T, L], Z_log_var [B, T, L], Z [B, T, L])``. The X head
+    stays outside. The bf16 stream mode is not ported yet and raises.
+    """
+    if compute_dtype is not None and compute_dtype != torch.float32:
+        raise NotImplementedError(BF16_TODO)
+    L = cfg.latent_dim
+    hd, zargs = TwoCellCore.apply(*pack_inputs(params, cfg, x, x_prev, W, eps))
+    hd = hd.transpose(0, 1)
+    zargs = zargs.transpose(0, 1)
+    zm, zlv = zargs[..., :L], zargs[..., L:]
+    return hd, zm, zlv, zm + torch.exp(zlv / 2) * eps

@@ -1,0 +1,213 @@
+"""Weight-normalized optimizers (Salimans & Kingma) and Keras Adam / RMSprop.
+
+The JAX package's ``optim/adamwn.py`` as ``torch.optim.Optimizer``
+subclasses with per-parameter state:
+
+* every rank >= 2 weight W is implicitly ``W = g * V / ||V||`` through a
+  persistent per-column scaler ``v_scaler = g / ||V||`` (init ones); the
+  gradient on W is split into ``(grad_g, grad_V)`` (:func:`_split_wn_grads`),
+  the moments are kept for g (per column) and V (full shape), the update runs
+  in (g, V) space and the new W is written back (:func:`_write_back`);
+* rank-1 parameters (biases) get the plain update;
+* Adam folds the Keras-2.0 bias correction into the learning rate,
+  ``lr_t = lr * sqrt(1 - b2^t) / (1 - b1^t)``, computed in float32.
+
+Every update is applied as ``p += update`` with ``update = new - p``, as
+``optax.apply_updates`` does, so both packages round alike. A parameter
+without a gradient is updated with a zero gradient, as the JAX
+transformations see one. The ``*`` factory functions keep the JAX names and
+hyper-defaults and return a constructor that takes the parameters.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+def _decayed_lr(lr, decay, step: int) -> float:
+    """Keras's pre-increment decay, ``lr / (1 + decay * (t - 1))``, in float32."""
+    if decay <= 0:
+        return lr
+    f = np.float32
+    return float(f(lr) / (f(1.0) + f(decay) * (f(step) - f(1.0))))
+
+
+def _keras_lr_t(lr, b1, b2, step: int) -> float:
+    """``lr * sqrt(1 - b2^t) / (1 - b1^t)`` in float32, as the JAX package
+    computes it from its int32 step count."""
+    t, one = np.float32(step), np.float32(1.0)
+    return float(np.float32(lr) * np.sqrt(one - np.float32(b2) ** t)
+                 / (one - np.float32(b1) ** t))
+
+
+class LeafOptimizer(torch.optim.Optimizer):
+    """Base of the port's optimizers: per-parameter state made by
+    :meth:`_init_state`, one :meth:`_update` per parameter and step; the
+    state's ``step`` counts the steps taken (the JAX ``count``)."""
+
+    def __init__(self, params, **defaults):
+        super().__init__(params, defaults)
+
+    def _init_state(self, p) -> dict:
+        raise NotImplementedError
+
+    def _update(self, p, g, st: dict, group: dict) -> None:
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            for p in group["params"]:
+                st = self.state[p]
+                if not st:
+                    st.update(step=0, **self._init_state(p))
+                st["step"] += 1
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                self._update(p, g, st, group)
+        return loss
+
+
+def _g_shaped(p):
+    return p.new_zeros((p.shape[-1],) if p.dim() > 1 else (0,))
+
+
+def _scaler_init(p):
+    return p.new_ones((p.shape[-1],)) if p.dim() > 1 else p.new_zeros((0,))
+
+
+def _split_wn_grads(p, g, v_scaler):
+    """W-space (param, grad) -> (V, V_norm, g_param, grad_g, grad_V)."""
+    axes = tuple(range(p.dim() - 1))
+    scaler = v_scaler.reshape((1,) * len(axes) + (-1,))
+    V = p / scaler
+    V_norm = torch.sqrt(torch.sum(torch.square(V), axes))
+    g_param = v_scaler * V_norm
+    grad_g = torch.sum(g * V, axes) / V_norm
+    grad_V = scaler * (g - (grad_g / V_norm).reshape(scaler.shape) * V)
+    return V, V_norm, g_param, grad_g, grad_V
+
+
+def _write_back(new_V, new_g):
+    """(V, g) -> (W, v_scaler)."""
+    axes = tuple(range(new_V.dim() - 1))
+    new_V_norm = torch.sqrt(torch.sum(torch.square(new_V), axes))
+    new_scaler = new_g / new_V_norm
+    return new_scaler.reshape((1,) * len(axes) + (-1,)) * new_V, new_scaler
+
+
+class AdamWithWeightnorm(LeafOptimizer):
+    """AdamWithWeightnorm with the Keras Adam hyper-defaults. State per
+    parameter: ``m``, ``v`` (V-space for rank >= 2), ``m_g``, ``v_g`` (per
+    column; empty for rank < 2) and ``v_scaler``."""
+
+    def __init__(self, params, lr=0.001, b1=0.9, b2=0.999, eps=1e-8, decay=0.0):
+        super().__init__(params, lr=lr, b1=b1, b2=b2, eps=eps, decay=decay)
+
+    def _init_state(self, p):
+        return dict(m=torch.zeros_like(p), v=torch.zeros_like(p), m_g=_g_shaped(p),
+                    v_g=_g_shaped(p), v_scaler=_scaler_init(p))
+
+    def _update(self, p, g, st, group):
+        b1, b2, eps = group["b1"], group["b2"], group["eps"]
+        lr_t = _keras_lr_t(_decayed_lr(group["lr"], group["decay"], st["step"]), b1, b2,
+                           st["step"])
+        if p.dim() > 1:
+            V, _, g_param, grad_g, grad_V = _split_wn_grads(p, g, st["v_scaler"])
+            st["m_g"] = b1 * st["m_g"] + (1 - b1) * grad_g
+            st["v_g"] = b2 * st["v_g"] + (1 - b2) * torch.square(grad_g)
+            new_g = g_param - lr_t * st["m_g"] / (torch.sqrt(st["v_g"]) + eps)
+            st["m"] = b1 * st["m"] + (1 - b1) * grad_V
+            st["v"] = b2 * st["v"] + (1 - b2) * torch.square(grad_V)
+            new_V = V - lr_t * st["m"] / (torch.sqrt(st["v"]) + eps)
+            new_W, st["v_scaler"] = _write_back(new_V, new_g)
+            p.add_(new_W - p)
+        else:
+            st["m"] = b1 * st["m"] + (1 - b1) * g
+            st["v"] = b2 * st["v"] + (1 - b2) * torch.square(g)
+            p.add_(-lr_t * st["m"] / (torch.sqrt(st["v"]) + eps))
+
+
+class SGDWithWeightnorm(LeafOptimizer):
+    """SGDWithWeightnorm. State per parameter: ``momentum`` (V-space for
+    rank >= 2), ``momentum_g`` (per column) and ``v_scaler``."""
+
+    def __init__(self, params, lr=0.01, momentum=0.0, decay=0.0, nesterov=False):
+        super().__init__(params, lr=lr, momentum=momentum, decay=decay, nesterov=nesterov)
+
+    def _init_state(self, p):
+        return dict(momentum=torch.zeros_like(p), momentum_g=_g_shaped(p),
+                    v_scaler=_scaler_init(p))
+
+    def _update(self, p, g, st, group):
+        mu, nesterov = group["momentum"], group["nesterov"]
+        lr = _decayed_lr(group["lr"], group["decay"], st["step"])
+        if p.dim() > 1:
+            V, _, g_param, grad_g, grad_V = _split_wn_grads(p, g, st["v_scaler"])
+            v_g = mu * st["momentum_g"] - lr * grad_g
+            new_g = g_param + mu * v_g - lr * grad_g if nesterov else g_param + v_g
+            v_v = mu * st["momentum"] - lr * grad_V
+            new_V = V + mu * v_v - lr * grad_V if nesterov else V + v_v
+            new_W, st["v_scaler"] = _write_back(new_V, new_g)
+            st["momentum"], st["momentum_g"] = v_v, v_g
+            p.add_(new_W - p)
+        else:
+            v = mu * st["momentum"] - lr * g
+            st["momentum"] = v
+            p.add_(mu * v - lr * g if nesterov else v)
+
+
+class KerasAdam(LeafOptimizer):
+    """Plain Adam with Keras 2.0 semantics (lr-folded bias correction)."""
+
+    def __init__(self, params, lr=0.001, b1=0.9, b2=0.999, eps=1e-8):
+        super().__init__(params, lr=lr, b1=b1, b2=b2, eps=eps)
+
+    def _init_state(self, p):
+        return dict(m=torch.zeros_like(p), v=torch.zeros_like(p))
+
+    def _update(self, p, g, st, group):
+        b1, b2 = group["b1"], group["b2"]
+        lr_t = _keras_lr_t(group["lr"], b1, b2, st["step"])
+        st["m"] = b1 * st["m"] + (1 - b1) * g
+        st["v"] = b2 * st["v"] + (1 - b2) * torch.square(g)
+        p.add_(-lr_t * st["m"] / (torch.sqrt(st["v"]) + group["eps"]))
+
+
+class KerasRMSprop(LeafOptimizer):
+    """RMSprop with Keras 2.0 defaults. State per parameter: ``acc``."""
+
+    def __init__(self, params, lr=0.001, rho=0.9, eps=1e-8):
+        super().__init__(params, lr=lr, rho=rho, eps=eps)
+
+    def _init_state(self, p):
+        return dict(acc=torch.zeros_like(p))
+
+    def _update(self, p, g, st, group):
+        rho = group["rho"]
+        st["acc"] = rho * st["acc"] + (1 - rho) * torch.square(g)
+        p.add_(-group["lr"] * g / (torch.sqrt(st["acc"]) + group["eps"]))
+
+
+def adam_with_weightnorm(learning_rate=0.001, b1=0.9, b2=0.999, eps=1e-8, decay=0.0):
+    return functools.partial(AdamWithWeightnorm, lr=learning_rate, b1=b1, b2=b2, eps=eps,
+                             decay=decay)
+
+
+def sgd_with_weightnorm(learning_rate=0.01, momentum=0.0, decay=0.0, nesterov=False):
+    return functools.partial(SGDWithWeightnorm, lr=learning_rate, momentum=momentum,
+                             decay=decay, nesterov=nesterov)
+
+
+def keras_adam(learning_rate=0.001, b1=0.9, b2=0.999, eps=1e-8):
+    return functools.partial(KerasAdam, lr=learning_rate, b1=b1, b2=b2, eps=eps)
+
+
+def keras_rmsprop(learning_rate=0.001, rho=0.9, eps=1e-8):
+    return functools.partial(KerasRMSprop, lr=learning_rate, rho=rho, eps=eps)

@@ -1,3 +1,6 @@
-from .checkpoint import load_checkpoint, load_model_args
+from .callbacks import AnnealSchedule, CheckpointPolicy, EarlyStoppingAfterEpoch
+from .checkpoint import load_checkpoint, load_model_args, save_checkpoint, save_model_in_pieces
+from .loop import Trainer, fit
 
-__all__ = ["load_checkpoint", "load_model_args"]
+__all__ = ["AnnealSchedule", "CheckpointPolicy", "EarlyStoppingAfterEpoch", "Trainer", "fit",
+           "load_checkpoint", "load_model_args", "save_checkpoint", "save_model_in_pieces"]

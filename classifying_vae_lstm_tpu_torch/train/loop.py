@@ -1,0 +1,160 @@
+"""Training loop: eager minibatch steps inside host-driven epochs.
+
+Counterpart of the JAX package's ``train/loop.py``. There an epoch is one
+jitted program (on-device shuffle, a ``lax.scan`` of value_and_grad +
+optimizer update, a scanned validation pass); here each minibatch is one
+eager step (``loss_and_metrics``, ``backward()``, ``optimizer.step()``),
+with the data, the shuffle and the metrics on the run's device, so the host
+reads the device once per epoch. The semantics are the JAX package's: a
+fresh permutation every epoch, the ``N % batch_size`` remainder dropped
+after it, validation in order without shuffling.
+
+:func:`fit` reproduces the reference driver: annealing, save-best
+checkpointing and early stopping inert until ``min_epoch``, the Keras-style
+history dict and best-epoch selection. The JAX package's whole-run program
+(``train_epochs``), host streaming, data parallelism, mid-training resume
+(``save_last``, ``opt_state``) and profiler tracing are not ported yet.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from .callbacks import AnnealSchedule, CheckpointPolicy, EarlyStoppingAfterEpoch
+from .checkpoint import save_checkpoint
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _leaves(v)]
+    return [tree]
+
+
+def copy_params(tree, requires_grad: bool = False):
+    """A deep copy of a parameter tree (detached; leaves optionally
+    requiring grad)."""
+    if isinstance(tree, dict):
+        return {k: copy_params(v, requires_grad) for k, v in tree.items()}
+    return tree.detach().clone().requires_grad_(requires_grad)
+
+
+def _mean(metrics: list[dict]) -> dict:
+    return {k: torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]}
+
+
+class Trainer:
+    """Train and eval epochs for one model family.
+
+    ``loss_fn(params, batch, generator, kl_w, class_w, w_kl_w) -> (loss,
+    metrics)`` is the model's ``loss_and_metrics`` applied to its config;
+    ``optimizer`` is a constructor taking the parameter tensors (the first
+    element of :func:`..optim.init_optimizer`). Parameters are updated in
+    place; ``generator`` (on the data's device) draws the shuffles and the
+    model's noise.
+    """
+
+    def __init__(self, loss_fn: Callable, optimizer: Callable, batch_size: int):
+        self.loss_fn = loss_fn
+        self.optimizer = optimizer
+        self.batch_size = batch_size
+
+    def init_optimizer(self, params) -> torch.optim.Optimizer:
+        return self.optimizer(_leaves(params))
+
+    def train_step(self, params, opt, batch, generator, kl_w, class_w, w_kl_w) -> dict:
+        opt.zero_grad(set_to_none=True)
+        loss, metrics = self.loss_fn(params, batch, generator, kl_w, class_w, w_kl_w)
+        loss.backward()
+        opt.step()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def train_epoch(self, params, opt, data: dict, generator, kl_w, class_w, w_kl_w) -> dict:
+        """One shuffled pass over ``data`` (dict of [N, ...] tensors); returns
+        the mean of each metric, as device scalars."""
+        n = next(iter(data.values())).shape[0]
+        perm = torch.randperm(n, generator=generator, device=generator.device)
+        B = self.batch_size
+        metrics = []
+        for i in range(n // B):
+            idx = perm[i * B:(i + 1) * B]
+            batch = {k: v.index_select(0, idx) for k, v in data.items()}
+            metrics.append(self.train_step(params, opt, batch, generator, kl_w, class_w,
+                                           w_kl_w))
+        return _mean(metrics)
+
+    @torch.no_grad()
+    def eval_epoch(self, params, data: dict, generator, kl_w, class_w, w_kl_w) -> dict:
+        n = next(iter(data.values())).shape[0]
+        B = self.batch_size
+        metrics = []
+        for i in range(n // B):
+            batch = {k: v[i * B:(i + 1) * B] for k, v in data.items()}
+            metrics.append(self.loss_fn(params, batch, generator, kl_w, class_w, w_kl_w)[1])
+        return _mean(metrics)
+
+
+def fit(
+    trainer: Trainer,
+    params,
+    train_data: dict,
+    val_data: dict,
+    num_epochs: int,
+    generator: torch.Generator,
+    kl_anneal: int = 0,
+    w_kl_anneal: int = 0,
+    class_weight: float = 1.0,
+    patience: int = 5,
+    min_epoch: int = 0,
+    checkpoint_path: str | None = None,
+    verbose: bool = True,
+    log_fn: Callable | None = None,
+):
+    """Run the full training schedule; returns (params, best_params,
+    history, best_loss).
+
+    ``min_epoch`` gates checkpointing and early stopping (the CLI passes
+    ``max(kl_anneal, w_kl_anneal) + 1``); the best epoch minimizes val_loss
+    over epochs >= ``min_epoch``. The caller's ``params`` are not changed.
+    """
+    params = copy_params(params, requires_grad=True)
+    opt = trainer.init_optimizer(params)
+    kl_sched = AnnealSchedule(0.1, 1.0, kl_anneal)
+    w_kl_sched = AnnealSchedule(0.0, 1.0, w_kl_anneal)
+    stopper = EarlyStoppingAfterEpoch(min_epoch=min_epoch, patience=patience)
+    ckpt = CheckpointPolicy(min_epoch=min_epoch)
+    history: dict[str, list] = {}
+    best_params = params
+
+    for epoch in range(num_epochs):
+        t0 = time.perf_counter()
+        kl_w = float(np.float32(kl_sched(epoch)))
+        w_kl_w = float(np.float32(w_kl_sched(epoch)))
+        class_w = float(np.float32(class_weight))
+        m = trainer.train_epoch(params, opt, train_data, generator, kl_w, class_w, w_kl_w)
+        vm = trainer.eval_epoch(params, val_data, generator, kl_w, class_w, w_kl_w)
+        logs = {k: float(v) for k, v in m.items()}
+        logs.update({f"val_{k}": float(v) for k, v in vm.items()})
+        for k, v in logs.items():
+            history.setdefault(k, []).append(v)
+        if verbose:
+            print(f"epoch {epoch + 1}/{num_epochs} loss={logs['loss']:.3f} "
+                  f"val_loss={logs['val_loss']:.3f} w_acc={logs.get('w_acc', 0):.3f} "
+                  f"kl_w={kl_w:.2f} ({time.perf_counter() - t0:.2f}s)")
+        if log_fn is not None:
+            log_fn(epoch, logs)
+        if ckpt.should_save(epoch, logs["val_loss"]):
+            best_params = copy_params(params)
+            if checkpoint_path is not None:
+                save_checkpoint(checkpoint_path, best_params)
+        if patience > 0 and stopper.should_stop(epoch, logs["val_loss"]):
+            break
+
+    val_losses = history.get("val_loss", [])
+    masked = [v if i >= min_epoch else np.inf for i, v in enumerate(val_losses)]
+    best_ind = int(np.argmin(masked)) if masked else 0
+    best_loss = {k: v[best_ind] for k, v in history.items() if v}
+    return params, best_params, history, best_loss

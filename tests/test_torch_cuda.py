@@ -116,3 +116,113 @@ def test_wrapper_raises_instead_of_falling_back(dev):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cg.generate_cl_vrnn_batch_cuda(params, cfg, seeds, nsteps, eps, u, ws, mode="int8")
     assert cg.LAUNCHES == before
+
+
+# ---- the two-cell training kernels (csrc/two_cell.cu)
+#
+# Forward outputs within 1e-5 (same f32 products, other summation order);
+# backward outputs within max|a - b| <= 1e-4 * max|b| + 1e-6 (the weight
+# gradients sum B*T rows in another order).
+
+from classifying_vae_lstm_tpu_torch.ops import two_cell as tc  # noqa: E402
+
+TWO_CELL_CASES = {
+    "ragged_tile": dict(B=7, T=5, H=40, L=3),
+    "no_x_prev": dict(B=8, T=4, H=32, L=2, use_x_prev=False),
+    "two_unit_passes": dict(B=9, T=3, H=300, L=4),
+    "one_step": dict(B=6, T=1, H=24, L=2),
+}
+
+
+def _two_cell_inputs(dev, B, T, H, L, use_x_prev=True, D=12, K=3, seed=0):
+    rng = np.random.default_rng(seed)
+    in_e, in_d = D + K, (D if use_x_prev else 0) + K
+    f = lambda *s, scale=1.0: torch.from_numpy(
+        (scale * rng.standard_normal(s)).astype(np.float32)).to(dev)
+    return (f(T, B, in_e), f(T, B, in_d), f(T, B, L), f(in_e, 4 * H, scale=0.3),
+            f(4 * H, scale=0.3), f(H, 4 * H, scale=0.2), f(in_d, 4 * H, scale=0.3),
+            f(4 * H, scale=0.3), f(H, 4 * H, scale=0.2), f(L, 4 * H, scale=0.3),
+            f(H, 2 * L, scale=0.2), f(2 * L, scale=0.2), f(B, H, scale=0.5),
+            f(B, H, scale=0.5), f(B, H, scale=0.5), f(B, H, scale=0.5))
+
+
+def _assert_bwd_close(got, ref, name):
+    err = (got - ref).abs().max().item()
+    limit = 1e-4 * ref.abs().max().item() + 1e-6
+    assert err <= limit, f"{name}: max |kernel - plain| {err} > {limit}"
+
+
+@pytest.mark.parametrize("case", sorted(TWO_CELL_CASES))
+def test_two_cell_kernels_match_plain(dev, case):
+    ins = _two_cell_inputs(dev, **TWO_CELL_CASES[case])
+    before = (tc.FWD_LAUNCHES, tc.BWD_LAUNCHES)
+    outs = tc.two_cell_fwd(*ins)
+    torch.cuda.synchronize()
+    ref = tc.two_cell_fwd_plain(*ins)
+    names = ("hd", "zargs", "ze", "zd", "hpe", "cpe", "ce", "he", "hpd", "cpd", "cd")
+    for name, k, p in zip(names, outs, ref):
+        torch.testing.assert_close(k, p, rtol=0, atol=1e-5, msg=name)
+    (xe, xd, eps, we, be, rke, wdx, bd, rkd, kz, wz, bz, *_) = ins
+    hd, zargs, ze, zd, hpe, cpe, ce, he, hpd, cpd, cd = ref
+    rng = np.random.default_rng(1)
+    dhd = torch.from_numpy(rng.standard_normal(hd.shape).astype(np.float32)).to(dev)
+    dza = torch.from_numpy(rng.standard_normal(zargs.shape).astype(np.float32)).to(dev)
+    res = (ze, zd, cpe, ce, cpd, cd, hpe, he, hpd, eps, zargs, xe, xd, dhd, dza,
+           we, rke, wdx, rkd, kz, wz)
+    got = tc.two_cell_bwd(*res)
+    torch.cuda.synchronize()
+    want = tc.two_cell_bwd_plain(*res)
+    names = ("dxe", "dxd", "dh0e", "dc0e", "dh0d", "dc0d", "drke", "drkd", "dwe", "dwdx", "dkz",
+             "dwz", "dbe", "dbd", "dbz")
+    for name, g, w in zip(names, got, want):
+        assert g.shape == w.shape, name
+        _assert_bwd_close(g, w, name)
+    assert (tc.FWD_LAUNCHES, tc.BWD_LAUNCHES) == (before[0] + 1, before[1] + 2)
+
+
+def test_two_cell_gradients_on_cuda_match_cpu_plain(dev):
+    """Every gradient of the model's two-cell entry through the
+    autograd.Function: kernels on the card against the plain versions on
+    the CPU, from the same weights and inputs."""
+    D, H, L, K, B, T = 12, 40, 3, 4, 10, 6
+    cfg = cl_vrnn.Config(original_dim=D, intermediate_dim=H, latent_dim=L, seq_length=T,
+                         n_classes=K, use_x_prev=True, lstm_backend="pallas")
+    raw = cl_vrnn.init(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(2)
+    arrays = {"x": (rng.random((B, T, D)) < 0.3).astype(np.float32),
+              "x_prev": (rng.random((B, T, D)) < 0.3).astype(np.float32),
+              "W": np.eye(K, dtype=np.float32)[np.arange(B) % K] * 0.7 + 0.075,
+              "eps": rng.standard_normal((B, T, L)).astype(np.float32)}
+
+    def grads(device):
+        params = params_from_numpy({k: {n: v.numpy() for n, v in d.items()}
+                                    for k, d in raw.items()}, device)
+        leaves = [v.requires_grad_(True) for d in params.values() for v in d.values()]
+        t = {k: torch.from_numpy(v).to(device).requires_grad_(k != "eps")
+             for k, v in arrays.items()}
+        hd, zm, zlv, z = tc.two_cell_sequence(params, cfg, t["x"], t["x_prev"], t["W"], t["eps"])
+        loss = (hd ** 2).sum() + zm.sin().sum() + (zlv ** 2).sum() + (z * z.cos()).sum()
+        loss.backward()
+        return [v.grad for v in leaves if v.grad is not None] + [t[k].grad
+                                                                 for k in ("x", "x_prev", "W")]
+
+    before = (tc.FWD_LAUNCHES, tc.BWD_LAUNCHES)
+    on_card = grads(dev)
+    torch.cuda.synchronize()
+    assert (tc.FWD_LAUNCHES, tc.BWD_LAUNCHES) == (before[0] + 1, before[1] + 2)
+    on_cpu = grads("cpu")
+    assert len(on_card) == len(on_cpu) == 10 + 3  # 2 LSTMs x 3, 2 z heads x 2; x, x_prev, W
+    for i, (g, w) in enumerate(zip(on_card, on_cpu)):
+        _assert_bwd_close(g.cpu(), w, f"gradient {i}")
+
+
+def test_two_cell_wrapper_raises_instead_of_falling_back(dev):
+    ins = list(_two_cell_inputs(dev, B=4, T=2, H=16, L=2))
+    before = (tc.FWD_LAUNCHES, tc.BWD_LAUNCHES)
+    with pytest.raises(ValueError, match="cpu"):
+        tc.two_cell_fwd(*ins[:3], ins[3].cpu(), *ins[4:])
+    with pytest.raises(ValueError, match="contiguous"):
+        tc.two_cell_fwd(*ins[:5], ins[5].T.contiguous().T, *ins[6:])
+    with pytest.raises(ValueError, match="float32"):
+        tc.two_cell_fwd(ins[0].double(), *ins[1:])
+    assert (tc.FWD_LAUNCHES, tc.BWD_LAUNCHES) == before

@@ -20,13 +20,11 @@ def _imports(path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    files = sorted(PORT.rglob("*.py"))
-    assert len(files) >= 15
-    bad = [(str(f.relative_to(PORT)), m) for f in files for m in _imports(f)
+    files = sorted(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"]
+    assert len(files) >= 25
+    bad = [(str(f.relative_to(PORT.parent)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "classifying_vae_lstm_tpu")]
     assert not bad, bad
-    chip_smoke = PORT.parent / "chip_smoke.py"
-    assert not [m for m in _imports(chip_smoke) if m.split(".")[0] in ("jax", "jaxlib")]
 
 
 def test_cuda_requested_without_a_card_raises():
@@ -57,3 +55,24 @@ def test_unported_paths_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PianoData("data/input")
     assert serve.build_parser().parse_args(["-i", "m.npz"]).device == "cuda"
+
+    # training: the bf16 two-cell mode, the pallas backend without the
+    # two-cell kernels, and the train flags whose modules are not ported
+    import dataclasses
+
+    from classifying_vae_lstm_tpu_torch.cli import cl_vrnn_train
+    from classifying_vae_lstm_tpu_torch.models import cl_vrnn
+
+    cfg = cl_vrnn.Config(original_dim=6, intermediate_dim=8, latent_dim=2, seq_length=3,
+                         n_classes=3, lstm_backend="pallas", two_cell=True)
+    params = cl_vrnn.init(torch.Generator().manual_seed(0), cfg)
+    x = torch.zeros((2, 3, 6))
+    for bad in (dataclasses.replace(cfg, bf16_compute=True),
+                dataclasses.replace(cfg, two_cell=False)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cl_vrnn.apply(params, bad, x, torch.Generator().manual_seed(1))
+    for flag in cl_vrnn_train.UNPORTED_FLAGS:
+        extra = {"dp": ["--dp", "2"], "trace_dir": ["--trace_dir", "t"]}.get(flag, [f"--{flag}"])
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cl_vrnn_train.train(cl_vrnn_train.build_parser().parse_args(["r", *extra]))
+    assert cl_vrnn_train.build_parser().parse_args(["r"]).device == "cuda"
