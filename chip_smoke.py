@@ -35,7 +35,27 @@ failure:
    then a training step's time split (forward, backward, optimizer; a
    profiler's per-kernel device time where it records one);
 7. the checkpoint that run wrote loads into the port's ``GenerationEngine``
-   and generates songs through the generation kernel.
+   and generates songs through the generation kernel;
+8. the whole-sequence LSTM kernels (inference forward, training forward,
+   backward) vs their plain versions: all three at the training shape
+   (B=200, T=16, H=256, the ``jsball_vrnn4`` encoder and decoder weights with
+   seeded rows for 13 keys), the inference forward at the evaluation shape
+   (64 importance samples x 200 windows = 12,800 rows, the trained weights);
+   forward outputs within 1e-5, backward outputs within 1e-4 * max|plain| +
+   1e-6; kernel and plain times with CUDA events beside each kernel's bound;
+9. the ``--two_cell off`` training path: ``cli.cl_vrnn_train --lstm_backend
+   pallas --two_cell off`` for 2 epochs from phase 6's seed; the LSTM kernel
+   counts are set to 0 just before and read just after and must equal the
+   run's own steps (per train batch 2 training-forward and 4 backward
+   launches, per eval batch 2 inference-forward launches; two-cell counts
+   0), losses finite and falling, the first epoch's train loss equal to
+   phase 6's within 1e-3 relative, and no plain version on CUDA tensors;
+10. the evaluation path: ``cli.evaluate`` of ``artifacts/jsball_vrnn4`` on
+   ``Piano-midi_Cs`` (4,468 test windows, 64 samples, batches of 200)
+   through ``--lstm_backend pallas`` (46 inference-forward launches, counts
+   set to 0 just before), then ``xla`` (plain PyTorch on the card, same
+   seed): the two NLLs within 1e-4; a profile of one evaluation batch; then
+   phase 9's checkpoint evaluated on ``Piano-midi_all``.
 
 The last lines are the kernel table (one JSON object), the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -43,6 +63,7 @@ power limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -56,9 +77,12 @@ import urllib.request
 SEED = 0
 MODEL = "artifacts/jsball_vrnn4.npz"
 CORPUS = "data/input/Piano-midi_all.pickle"
+EVAL_CORPUS = "data/input/Piano-midi_Cs.pickle"  # keys 0 and 1: jsball_vrnn4 has 10
+EVAL_WINDOWS, EVAL_SAMPLES, EVAL_B = 4468, 64, 200  # its test split at T=16
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 TRAIN_B, TRAIN_T, TRAIN_K = 200, 16, 13  # the training path's batch, window, key classes
+LSTM_SEQ_PLAIN = ("lstm_seq_fwd_plain", "lstm_seq_train_fwd_plain", "lstm_seq_bwd_plain")
 
 
 def require(cond, msg):
@@ -128,7 +152,7 @@ def phase_build():
     for name, log in logs.items():
         print(f"--- nvcc csrc/{name}.cu ---\n{log.strip()}")
     print(f"kernel build: {build_s:.2f} s for {sorted(logs) or 'no sources (already built)'}")
-    require(set(_build.sources()) == {"generate_cl_vrnn", "two_cell"},
+    require(set(_build.sources()) == {"generate_cl_vrnn", "lstm_seq", "two_cell"},
             f"sources {_build.sources()}")
 
 
@@ -350,27 +374,36 @@ def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def train_shape_weights(rng):
+    """The trained ``jsball_vrnn4`` weights (as NumPy) with fresh glorot rows
+    for the 13 key classes of the training corpus, and its config."""
+    import numpy as np
+
+    from classifying_vae_lstm_tpu_torch.cli import common
+
+    raw, cfg0, _ = common.load_model(MODEL, "cl_vrnn")
+    K, K0, H = TRAIN_K, cfg0.n_classes, cfg0.intermediate_dim
+    lim = np.sqrt(6.0 / (K + 4 * H))
+    w_rows = lambda: rng.uniform(-lim, lim, (K, 4 * H)).astype(np.float32)
+    for cell in ("encoder_h", "decoder_h"):
+        raw[cell]["kernel"] = np.concatenate([raw[cell]["kernel"][:-K0], w_rows()])
+    return raw, cfg0
+
+
 def phase_two_cell(dev):
     """Both two-cell kernels against their plain versions at the training
     shape; returns the kernel-table fields of each."""
     import numpy as np
     import torch
 
-    from classifying_vae_lstm_tpu_torch.cli import common
     from classifying_vae_lstm_tpu_torch.models import cl_vrnn
     from classifying_vae_lstm_tpu_torch.ops import two_cell as tc
     from classifying_vae_lstm_tpu_torch.weights import params_from_numpy
 
-    raw, cfg0, _ = common.load_model(MODEL, "cl_vrnn")
     B, T, K = TRAIN_B, TRAIN_T, TRAIN_K
-    D, H, L, K0 = cfg0.original_dim, cfg0.intermediate_dim, cfg0.latent_dim, cfg0.n_classes
     rng = np.random.default_rng(SEED + 2)
-    lim = np.sqrt(6.0 / (K + 4 * H))
-    w_rows = lambda: rng.uniform(-lim, lim, (K, 4 * H)).astype(np.float32)
-    enc, dec = raw["encoder_h"], raw["decoder_h"]
-    # the trained weights with fresh rows for 13 key classes (the corpus's)
-    enc["kernel"] = np.concatenate([enc["kernel"][:-K0], w_rows()])
-    dec["kernel"] = np.concatenate([dec["kernel"][:-K0], w_rows()])
+    raw, cfg0 = train_shape_weights(rng)
+    D, H, L = cfg0.original_dim, cfg0.intermediate_dim, cfg0.latent_dim
     cfg = cl_vrnn.Config(original_dim=D, intermediate_dim=H, latent_dim=L, seq_length=T,
                          n_classes=K, use_x_prev=True, lstm_backend="pallas", two_cell=True)
     params = params_from_numpy(raw, dev)
@@ -438,24 +471,40 @@ def phase_two_cell(dev):
              "bound_by": bb_by})
 
 
-def phase_train(model_dir):
-    """The training path through ``cli.cl_vrnn_train``; returns the launch
-    counts, the checkpoint written and what the time split needs."""
-    import torch
+TRAIN_FLAGS = ["--train_file", CORPUS, "--intermediate_dim", "256", "--latent_dim", "8",
+               "--seq_length", "16", "--batch_size", "200", "--use_x_prev", "--class_weight",
+               "0.3", "--patience", "0", "--lstm_backend", "pallas"]
 
-    from classifying_vae_lstm_tpu_torch.cli import cl_vrnn_train
-    from classifying_vae_lstm_tpu_torch.ops import two_cell as tc
-    from classifying_vae_lstm_tpu_torch.train import loop
 
-    plain_on_cuda = []
-    real = {n: getattr(tc, n) for n in ("two_cell_fwd_plain", "two_cell_bwd_plain")}
+@contextlib.contextmanager
+def plain_guard(module, names, record):
+    """Record every call of the named plain versions on a CUDA tensor."""
+    real = {n: getattr(module, n) for n in names}
 
     def guard(name):
         def guarded(*a):
             if a[0].is_cuda:
-                plain_on_cuda.append(name)
+                record.append(name)
             return real[name](*a)
         return guarded
+
+    for n in names:
+        setattr(module, n, guard(n))
+    try:
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(module, n, fn)
+
+
+def run_train(run, flags, model_dir, reset, read):
+    """One run of ``cli.cl_vrnn_train`` at the jsball_vrnn4 width. ``reset``
+    sets the launch counts to 0 just before the run, ``read`` returns them
+    just after. Returns (args, counts, seen, per-epoch seconds, wall)."""
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.cli import cl_vrnn_train
+    from classifying_vae_lstm_tpu_torch.train import loop
 
     seen, epoch_s = {}, []
     real_fit, real_epoch = cl_vrnn_train.fit, loop.Trainer.train_epoch
@@ -475,47 +524,102 @@ def phase_train(model_dir):
         return m
 
     args = cl_vrnn_train.build_parser().parse_args(
-        ["smoke", "--train_file", CORPUS, "--intermediate_dim", "256", "--latent_dim", "8",
-         "--seq_length", "16", "--batch_size", "200", "--use_x_prev", "--class_weight", "0.3",
-         "--num_epochs", "3", "--patience", "0", "--lstm_backend", "pallas",
-         "--model_dir", model_dir])
-    for n in real:
-        setattr(tc, n, guard(n))
+        [run, *TRAIN_FLAGS, *flags, "--model_dir", model_dir])
     cl_vrnn_train.fit, loop.Trainer.train_epoch = fit, train_epoch
-    tc.FWD_LAUNCHES = tc.BWD_LAUNCHES = 0  # counts from here on are the training path's
+    reset()  # counts from here on are this training path's
     t0 = time.perf_counter()
     try:
         cl_vrnn_train.train(args)
     finally:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        fwd, bwd = tc.FWD_LAUNCHES, tc.BWD_LAUNCHES
-        for n, fn in real.items():
-            setattr(tc, n, fn)
+        counts = read()
         cl_vrnn_train.fit, loop.Trainer.train_epoch = real_fit, real_epoch
+    seen["ckpt"] = os.path.join(model_dir, f"{run}.npz")
+    return args, counts, seen, epoch_s, wall
+
+
+def _report_train(label, args, seen, epoch_s, wall):
     hist, B, E = seen["history"], args.batch_size, args.num_epochs
     n_train, n_val = (len(seen[k]["x"]) // B for k in ("train", "val"))
-    print(f"training path: {E} epochs x ({n_train} train + {n_val} eval steps) in {wall:.2f} s; "
+    print(f"{label}: {E} epochs x ({n_train} train + {n_val} eval steps) in {wall:.2f} s; "
           f"loss per epoch {[round(v, 4) for v in hist['loss']]}, val_loss "
           f"{[round(v, 4) for v in hist['val_loss']]}")
-    print(f"ms per training step (host clock, epoch synchronised): "
+    print(f"{label}: ms per training step (host clock, epoch synchronised): "
           f"{[round(s * 1e3 / n_train, 3) for s in epoch_s]} per epoch")
+    require(all(math.isfinite(v) for vals in hist.values() for v in vals), "non-finite loss")
+    require(hist["loss"][-1] < hist["loss"][0], f"train loss did not fall: {hist['loss']}")
+    return E, n_train, n_val
+
+
+def phase_train(model_dir):
+    """The training path through ``cli.cl_vrnn_train``; returns the launch
+    counts, the checkpoint written and what the time split needs."""
+    from classifying_vae_lstm_tpu_torch.ops import two_cell as tc
+
+    def reset():
+        tc.FWD_LAUNCHES = tc.BWD_LAUNCHES = 0
+
+    plain_on_cuda = []
+    with plain_guard(tc, ("two_cell_fwd_plain", "two_cell_bwd_plain"), plain_on_cuda):
+        args, (fwd, bwd), seen, epoch_s, wall = run_train(
+            "smoke", ["--num_epochs", "3"], model_dir, reset,
+            lambda: (tc.FWD_LAUNCHES, tc.BWD_LAUNCHES))
+    E, n_train, n_val = _report_train("training path", args, seen, epoch_s, wall)
     print(f"training path launches: forward {fwd} (expected {E * (n_train + n_val)}), "
           f"backward {bwd} (expected {2 * E * n_train}: the reverse walk and the "
           f"weight-gradient pass per step)")
-    require(all(math.isfinite(v) for vals in hist.values() for v in vals), "non-finite loss")
-    require(hist["loss"][-1] < hist["loss"][0], f"train loss did not fall: {hist['loss']}")
     require(fwd == E * (n_train + n_val), f"forward launches {fwd}")
     require(bwd == 2 * E * n_train, f"backward launches {bwd}")
     require(not plain_on_cuda, f"plain two-cell versions ran on CUDA tensors: {plain_on_cuda}")
-    seen.update(step_ms=epoch_s[-1] * 1e3 / n_train, ckpt=os.path.join(model_dir, "smoke.npz"))
+    seen.update(step_ms=epoch_s[-1] * 1e3 / n_train)
     return fwd, bwd, seen
 
 
-def phase_train_breakdown(seen):
+def phase_train_two_loop(model_dir, first_loss):
+    """The ``--two_cell off`` training path: both LSTMs through the
+    whole-sequence kernels. Returns the training-forward and backward
+    launch counts and what the run left (its checkpoint among them)."""
+    from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
+    from classifying_vae_lstm_tpu_torch.ops import two_cell as tc
+    from classifying_vae_lstm_tpu_torch.train.checkpoint import load_model_args
+
+    def reset():
+        ls.FWD_LAUNCHES = ls.TRAIN_FWD_LAUNCHES = ls.BWD_LAUNCHES = 0
+        tc.FWD_LAUNCHES = tc.BWD_LAUNCHES = 0
+
+    read = lambda: (ls.FWD_LAUNCHES, ls.TRAIN_FWD_LAUNCHES, ls.BWD_LAUNCHES, tc.FWD_LAUNCHES,
+                    tc.BWD_LAUNCHES)
+    plain_on_cuda = []
+    with plain_guard(ls, LSTM_SEQ_PLAIN, plain_on_cuda), \
+            plain_guard(tc, ("two_cell_fwd_plain", "two_cell_bwd_plain"), plain_on_cuda):
+        args, counts, seen, epoch_s, wall = run_train(
+            "smoke_off", ["--num_epochs", "2", "--two_cell", "off"], model_dir, reset, read)
+    E, n_train, n_val = _report_train("--two_cell off path", args, seen, epoch_s, wall)
+    fwd, train_fwd, bwd, tc_fwd, tc_bwd = counts
+    expected = (2 * E * n_val, 2 * E * n_train, 4 * E * n_train, 0, 0)
+    print(f"--two_cell off launches: inference forward {fwd}, training forward {train_fwd}, "
+          f"backward {bwd}, two-cell {tc_fwd} + {tc_bwd} (expected {expected}: 2 training "
+          f"forwards and 2 x 2 backward launches per train batch, 2 inference forwards per "
+          f"eval batch)")
+    require(counts == expected, f"--two_cell off launches {counts} != {expected}")
+    require(not plain_on_cuda, f"plain versions ran on CUDA tensors: {plain_on_cuda}")
+    loss0 = seen["history"]["loss"][0]
+    rel = abs(loss0 - first_loss) / abs(first_loss)
+    print(f"first epoch train loss: two-loop {loss0!r}, two-cell (phase 6) {first_loss!r}, "
+          f"relative difference {rel:.3e} (limit 1e-3)")
+    require(rel <= 1e-3, f"first-epoch losses differ by {rel}")
+    margs = load_model_args(seen["ckpt"])
+    require((margs["lstm_backend"], margs["two_cell"], margs["fusion"])
+            == ("pallas", False, [True, True, True]), f"args.json {margs}")
+    return train_fwd, bwd, seen
+
+
+def phase_train_breakdown(seen, label="two-cell kernels", key="two_cell"):
     """Where a training step's time goes: CUDA events around the forward
     (loss), the backward and the optimizer step; then a profiler's device
-    time per kernel, where it records one. Informational."""
+    time per kernel, where it records one (``label``: the kernels whose
+    name holds ``key``). Informational."""
     import torch
 
     from classifying_vae_lstm_tpu_torch.train.loop import copy_params
@@ -556,12 +660,22 @@ def phase_train_breakdown(seen):
     print(f"training step at B={B}: {wall:.3f} ms (host clock, synchronised); CUDA events: "
           f"forward + loss {parts[0]:.3f} ms, backward {parts[1]:.3f} ms, optimizer "
           f"{parts[2]:.3f} ms")
+    device_profile(step, 5, wall, "step", label, key)
+
+
+def device_profile(fn, n, wall_ms, unit, label, key):
+    """Device time per call of ``fn`` from ``torch.profiler`` over n calls:
+    busy share against ``wall_ms`` and the time of the kernels whose name
+    holds ``key``. Informational: prints "not measured" where the profiler
+    records no device time."""
+    import torch
+
     try:
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                step()
+            for _ in range(n):
+                fn()
             torch.cuda.synchronize()
         # device-side events only (kernels, copies): host ranges and their
         # device-side annotations report the same device time again
@@ -573,14 +687,14 @@ def phase_train_breakdown(seen):
         if not rows:
             print("profiler: no device time recorded (device busy share not measured)")
             return
-        busy = sum(dev_us(e) for e in rows) / 5e3
-        two_cell = sum(dev_us(e) for e in rows if "two_cell" in e.key) / 5e3
-        print(f"profiler, per step: device busy {busy:.3f} ms of {wall:.3f} ms "
-              f"({100 * (1 - busy / wall):.1f}% idle), two-cell kernels {two_cell:.3f} ms, "
-              f"{sum(e.count for e in rows) // 5} device events; top: "
-              + "; ".join(f"{e.key[:48]} {dev_us(e) / 5e3:.3f} ms x{e.count // 5}"
+        busy = sum(dev_us(e) for e in rows) / (n * 1e3)
+        ours = sum(dev_us(e) for e in rows if key in e.key) / (n * 1e3)
+        print(f"profiler, per {unit}: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
+              f"({100 * (1 - busy / wall_ms):.1f}% idle), {label} {ours:.3f} ms, "
+              f"{sum(e.count for e in rows) // n} device events; top: "
+              + "; ".join(f"{e.key[:48]} {dev_us(e) / (n * 1e3):.3f} ms x{e.count // n}"
                           for e in rows[:8]))
-    except Exception as e:  # noqa: BLE001 — the split above stands without it
+    except Exception as e:  # noqa: BLE001 — the caller's numbers stand without it
         print(f"profiler: not measured ({e!r})")
 
 
@@ -603,6 +717,246 @@ def phase_checkpoint_serves(ckpt):
           f"{int(rolls.sum())} notes on")
 
 
+FWD_LIMIT = 1e-5
+
+
+def fwd_outside(errs, ref):
+    """The forward outputs whose kernel-vs-plain error exceeds the limit: h
+    (|h| < 1) within 1e-5; c and z, which grow without bound over the steps,
+    within 1e-5 x max(1, max|plain|), the same f32 rounding at their scale."""
+    bad = {}
+    for name, err in errs.items():
+        key = name.split()[-1]
+        scale = 1.0 if key in ("h", "h_prev") else max(1.0, ref[key].abs().max().item())
+        if not (err <= FWD_LIMIT * scale and math.isfinite(err)):
+            bad[name] = (err, scale)
+    return bad
+
+
+def _lstm_inputs(rng, dev, raw_cell, B, T, D, H):
+    """A cell's weights and a time-major input batch: binary frames in the
+    first D columns (the corpus's density), the rest (key weights, z)
+    Gaussian; zero initial state, as the model runs it."""
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.weights import params_from_numpy
+
+    p = params_from_numpy(raw_cell, dev)
+    IN = p["kernel"].shape[0]
+    x = np.concatenate([(rng.random((T, B, D)) < 0.1).astype(np.float32),
+                        (0.5 * rng.standard_normal((T, B, IN - D))).astype(np.float32)], -1)
+    zeros = torch.zeros((B, H), device=dev)
+    return (torch.from_numpy(x).to(dev), p["kernel"], p["bias"], p["recurrent_kernel"], zeros,
+            zeros)
+
+
+def phase_lstm_seq(dev):
+    """The three whole-sequence LSTM kernels against their plain versions:
+    all three at the training shape (both cells), the inference forward at
+    the evaluation shape (both cells). Returns the kernel-table fields of
+    each, from the encoder cell."""
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.cli import common
+    from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
+
+    rng = np.random.default_rng(SEED + 3)
+    raw13, cfg = train_shape_weights(rng)
+    raw10, _, _ = common.load_model(MODEL, "cl_vrnn")
+    D, H = cfg.original_dim, cfg.intermediate_dim
+    H4 = 4 * H
+    fwd_fmas = lambda T, B, IN: T * B * (IN + H) * H4
+    table = {}
+    for cell in ("encoder_h", "decoder_h"):
+        B, T = TRAIN_B, TRAIN_T
+        ins = _lstm_inputs(rng, dev, raw13[cell], B, T, D, H)
+        x, w, b, rk, _, _ = ins
+        IN = x.shape[-1]
+        got = ls.lstm_seq_train_fwd(*ins)
+        inf = ls.lstm_seq_fwd(*ins)
+        ref = ls.lstm_seq_train_fwd_plain(*ins)
+        torch.cuda.synchronize()
+        names = ("h", "c", "z", "h_prev", "c_prev")
+        errs = {n: (k - p).abs().max().item() for n, k, p in zip(names, got, ref)}
+        errs.update({f"inference {n}": (k - p).abs().max().item()
+                     for n, k, p in zip(names, inf, ref)})
+        require(all(torch.isfinite(o).all().item() for o in got + inf),
+                "LSTM forward kernel output not finite")
+        bad = fwd_outside(errs, dict(zip(names, ref)))
+        print(f"lstm_seq {cell} at B={B} T={T} IN={IN} H={H}: max |kernel - plain| "
+              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+              + f" (limit {FWD_LIMIT}, for c and z {FWD_LIMIT} x max(1, max|plain|): max|plain| "
+              f"c {ref[1].abs().max().item():.3f}, z {ref[2].abs().max().item():.3f})")
+        require(not bad, f"LSTM forward differs: {bad}")
+        h, c, z, hp, cp = ref
+        dh = torch.from_numpy((1e-2 * rng.standard_normal(tuple(h.shape))).astype(np.float32))
+        dc = torch.zeros_like(dh)
+        dc[-1] = torch.from_numpy((1e-2 * rng.standard_normal((B, H))).astype(np.float32))
+        res = (z, cp, c, hp, x, dh.to(dev), dc.to(dev), rk.T.contiguous(), w.T.contiguous())
+        bgot = ls.lstm_seq_bwd(*res)
+        bwant = ls.lstm_seq_bwd_plain(*res)
+        torch.cuda.synchronize()
+        bad, rel = [], {}
+        for n, g, wv in zip(("dx", "dh0", "dc0", "drk", "dw", "db"), bgot, bwant):
+            err, scale = (g - wv).abs().max().item(), wv.abs().max().item()
+            rel[n] = err / max(scale, 1e-30)
+            if not (err <= 1e-4 * scale + 1e-6 and math.isfinite(err)):
+                bad.append((n, err, scale))
+        bwd_err = max((g - wv).abs().max().item() for g, wv in zip(bgot, bwant))
+        print(f"lstm_seq {cell} backward: max |kernel - plain| / max|plain| "
+              + ", ".join(f"{n} {v:.2e}" for n, v in rel.items())
+              + f" (limit 1e-4 + 1e-6 abs); largest abs error {bwd_err:.3e}")
+        require(not bad, f"LSTM backward differs: {bad}")
+
+        # the two forwards in turns (inference, training, training, inference)
+        ik = time_ms(lambda: ls.lstm_seq_fwd(*ins), reps=20, warm=2)
+        tk = time_ms(lambda: ls.lstm_seq_train_fwd(*ins), reps=20, warm=2)
+        tk2 = time_ms(lambda: ls.lstm_seq_train_fwd(*ins), reps=20, warm=2)
+        ik2 = time_ms(lambda: ls.lstm_seq_fwd(*ins), reps=20, warm=2)
+        tp = time_ms(lambda: ls.lstm_seq_train_fwd_plain(*ins), reps=5)
+        bk = time_ms(lambda: ls.lstm_seq_bwd(*res), reps=20, warm=2)
+        bp = time_ms(lambda: ls.lstm_seq_bwd_plain(*res), reps=5)
+        tb_ms, tb_by = roofline_ms(fwd_fmas(T, B, IN), _nbytes(ins) + _nbytes(got))
+        # the serial chain dz @ [Rk | W]ᵀ, then dRk, dW and db over T*B rows
+        bb_ms, bb_by = roofline_ms(T * B * H4 * (2 * (H + IN) + 1), _nbytes(res) + _nbytes(bgot))
+        print(f"lstm_seq {cell} at the training shape: training forward {tk:.3f} / {tk2:.3f} ms "
+              f"(plain {tp:.3f}, bound {tb_ms:.4f} {tb_by}); inference forward {ik:.3f} / "
+              f"{ik2:.3f} ms; backward "
+              f"(2 launches) {bk:.3f} ms (plain {bp:.3f}, bound {bb_ms:.4f} {bb_by})")
+        if cell == "encoder_h":
+            table["train_fwd"] = {"max_abs_err": max(errs.values()), "ms": tk, "plain_ms": tp,
+                                  "bound_ms": tb_ms, "bound_by": tb_by}
+            table["bwd"] = {"max_abs_err": bwd_err, "ms": bk, "plain_ms": bp, "bound_ms": bb_ms,
+                            "bound_by": bb_by}
+
+    for cell in ("encoder_h", "decoder_h"):
+        B, T = EVAL_SAMPLES * EVAL_B, TRAIN_T
+        ins = _lstm_inputs(rng, dev, raw10[cell], B, T, D, H)
+        IN = ins[0].shape[-1]
+        got = ls.lstm_seq_fwd(*ins)
+        ref = ls.lstm_seq_fwd_plain(*ins)
+        torch.cuda.synchronize()
+        errs = {n: (k - p).abs().max().item() for n, k, p in zip(("h", "c"), got, ref)}
+        err = max(errs.values())
+        require(all(torch.isfinite(o).all().item() for o in got), "LSTM forward not finite")
+        bad = fwd_outside(errs, {"h": ref[0], "c": ref[1]})
+        require(not bad, f"LSTM inference forward differs at the evaluation shape: {bad}")
+        k_ms = time_ms(lambda: ls.lstm_seq_fwd(*ins), reps=5, warm=1)
+        p_ms = time_ms(lambda: ls.lstm_seq_fwd_plain(*ins), reps=3, warm=1)
+        b_ms, b_by = roofline_ms(fwd_fmas(T, B, IN), _nbytes(ins) + _nbytes(got))
+        print(f"lstm_seq {cell} inference forward at the evaluation shape (B={B} T={T} IN={IN} "
+              f"H={H}): max |kernel - plain| h {errs['h']:.3e}, c {errs['c']:.3e} (max|plain| c "
+              f"{ref[1].abs().max().item():.3f}); kernel {k_ms:.3f} ms, "
+              f"plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        if cell == "encoder_h":
+            table["fwd"] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                            "bound_by": b_by}
+    return table
+
+
+def phase_evaluate(ckpt):
+    """The evaluation path through ``cli.evaluate``: the trained model on
+    ``Piano-midi_Cs`` through the inference kernel, then plain PyTorch on
+    the card with the same seed, then the ``--two_cell off`` checkpoint on
+    the training corpus. Returns the first run's inference-forward
+    launches."""
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.cli import evaluate
+    from classifying_vae_lstm_tpu_torch.data import PianoData
+    from classifying_vae_lstm_tpu_torch.evaluation.nll import iw_nll_cl_vrnn
+    from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
+    from classifying_vae_lstm_tpu_torch.ops import two_cell as tc
+
+    calls, real_nll = [], evaluate.iw_nll_dataset
+
+    def spy(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_nll(*a, **k)
+        torch.cuda.synchronize()
+        calls.append({"args": a, "nlls": out, "s": time.perf_counter() - t0})
+        return out
+
+    def run(model, corpus, backend):
+        args = evaluate.build_parser().parse_args(
+            ["-i", model, "--train_file", corpus, "--lstm_backend", backend, "--n_samples",
+             str(EVAL_SAMPLES), "--batch_size", str(EVAL_B)])
+        ls.FWD_LAUNCHES = ls.TRAIN_FWD_LAUNCHES = ls.BWD_LAUNCHES = 0  # this run's counts
+        tc.FWD_LAUNCHES = tc.BWD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = evaluate.evaluate(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = (ls.FWD_LAUNCHES, ls.TRAIN_FWD_LAUNCHES, ls.BWD_LAUNCHES, tc.FWD_LAUNCHES,
+                  tc.BWD_LAUNCHES)
+        return out, counts, calls[-1], wall
+
+    plain_on_cuda = []
+    evaluate.iw_nll_dataset = spy
+    try:
+        with plain_guard(ls, LSTM_SEQ_PLAIN, plain_on_cuda):
+            out_k, counts_k, est_k, wall_k = run(MODEL, EVAL_CORPUS, "pallas")
+            out_x, counts_x, est_x, wall_x = run(MODEL, EVAL_CORPUS, "xla")
+            out_c, counts_c, est_c, wall_c = run(ckpt, CORPUS, "keep")
+    finally:
+        evaluate.iw_nll_dataset = real_nll
+    n_batches = -(-EVAL_WINDOWS // EVAL_B)
+    nll_k = est_k["nlls"].double().mean().item()
+    nll_x = est_x["nlls"].double().mean().item()
+    print(f"evaluate jsball_vrnn4 on {EVAL_CORPUS} ({out_k['n_test_examples']} windows, "
+          f"{EVAL_SAMPLES} samples, batches of {EVAL_B}): --lstm_backend pallas NLL "
+          f"{nll_k!r} nats/frame (printed {out_k['test_nll_nats_per_frame']}), wall "
+          f"{wall_k:.3f} s, estimator {est_k['s']:.3f} s; --lstm_backend xla NLL {nll_x!r} "
+          f"(printed {out_x['test_nll_nats_per_frame']}), wall {wall_x:.3f} s, estimator "
+          f"{est_x['s']:.3f} s; |difference| {abs(nll_k - nll_x):.3e} (limit 1e-4)")
+    print(f"evaluation launches (inference forward, training forward, backward, two-cell "
+          f"forward, two-cell backward): pallas {counts_k}, xla {counts_x} (expected "
+          f"{(2 * n_batches, 0, 0, 0, 0)} and zeros)")
+    require(out_k["n_test_examples"] == out_x["n_test_examples"] == EVAL_WINDOWS,
+            f"test windows {out_k['n_test_examples']}, {out_x['n_test_examples']}")
+    require(counts_k == (2 * n_batches, 0, 0, 0, 0), f"evaluation launches {counts_k}")
+    require(counts_x == (0, 0, 0, 0, 0), f"xla evaluation launched kernels: {counts_x}")
+    require(math.isfinite(nll_k) and abs(nll_k - nll_x) <= 1e-4,
+            f"pallas and xla NLLs differ: {nll_k} vs {nll_x}")
+
+    P = PianoData(CORPUS, batch_size=1, seq_length=TRAIN_T, return_y_next=True,
+                  return_y_hist=True, squeeze_x=False, squeeze_y=False)
+    n = len(P.x_test)
+    nll_c = est_c["nlls"].double().mean().item()
+    print(f"evaluate the --two_cell off checkpoint on {CORPUS}: {out_c} (NLL {nll_c!r}), "
+          f"wall {wall_c:.3f} s, launches {counts_c}")
+    require(out_c["n_test_examples"] == n, f"test windows {out_c['n_test_examples']} != {n}")
+    require(counts_c == (2 * -(-n // EVAL_B), 0, 0, 0, 0), f"launches {counts_c}")
+    require(math.isfinite(nll_c), "non-finite NLL")
+    require(not plain_on_cuda, f"plain LSTM versions ran on CUDA tensors: {plain_on_cuda}")
+
+    # where one evaluation batch's time goes
+    params, cfg, data = est_k["args"][:3]
+    batch = {k: v[:EVAL_B] for k, v in data.items()}
+    gen = torch.Generator(device=batch["x"].device).manual_seed(SEED)
+
+    def one_batch():
+        with torch.no_grad():
+            iw_nll_cl_vrnn(params, cfg, batch["x"], batch["y"], gen, EVAL_SAMPLES,
+                           batch["x_prev"])
+
+    one_batch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        one_batch()
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3 / 3
+    print(f"one evaluation batch ({EVAL_SAMPLES} x {EVAL_B} rows): {batch_ms:.3f} ms (host "
+          f"clock, synchronised)")
+    device_profile(one_batch, 3, batch_ms, "evaluation batch", "LSTM kernels", "lstm_seq")
+    return counts_k[0]
+
+
 def main() -> int:
     import torch
 
@@ -620,11 +974,18 @@ def main() -> int:
     phase_bf16(dev)
     launches = phase_serve()
     fwd, bwd = phase_two_cell(dev)
+    lstm = phase_lstm_seq(dev)
     with tempfile.TemporaryDirectory() as model_dir:
         fwd_launches, bwd_launches, seen = phase_train(model_dir)
         phase_train_breakdown(seen)
         phase_checkpoint_serves(seen["ckpt"])
+        train_fwd_launches, lstm_bwd_launches, seen_off = phase_train_two_loop(
+            model_dir, seen["history"]["loss"][0])
+        phase_train_breakdown(seen_off, "LSTM kernels", "lstm_seq")
+        eval_launches = phase_evaluate(seen_off["ckpt"])
     source = "classifying_vae_lstm_tpu_torch/csrc/two_cell.cu"
+    lstm_source = "classifying_vae_lstm_tpu_torch/csrc/lstm_seq.cu"
+    pallas_lstm = "classifying_vae_lstm_tpu/ops/pallas_lstm.py"
     kernels = [{
         "name": "generate_cl_vrnn", "route": "cuda",
         "source": "classifying_vae_lstm_tpu_torch/csrc/generate_cl_vrnn.cu",
@@ -638,6 +999,18 @@ def main() -> int:
         "name": "two_cell_bwd", "route": "cuda", "source": source,
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_two_cell.py:295",
         "launches": bwd_launches, **bwd, "library_ms": None,
+    }, {
+        "name": "lstm_seq_fwd", "route": "cuda", "source": lstm_source,
+        "replaces": f"{pallas_lstm}:632", "launches": eval_launches, **lstm["fwd"],
+        "library_ms": None,
+    }, {
+        "name": "lstm_seq_train_fwd", "route": "cuda", "source": lstm_source,
+        "replaces": f"{pallas_lstm}:730", "launches": train_fwd_launches, **lstm["train_fwd"],
+        "library_ms": None,
+    }, {
+        "name": "lstm_seq_bwd", "route": "cuda", "source": lstm_source,
+        "replaces": f"{pallas_lstm}:986", "launches": lstm_bwd_launches, **lstm["bwd"],
+        "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))
     print(line)

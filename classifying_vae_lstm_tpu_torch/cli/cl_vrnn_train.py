@@ -7,7 +7,10 @@ exceptions: ``--train_file`` defaults to the corpus shipped with the
 repository, and ``--device`` (``cuda``, the default, or ``cpu``) picks
 where the run goes. ``--lstm_backend pallas`` trains through the two-cell
 CUDA kernels on the card (``ops/two_cell.py``; their plain versions on the
-CPU), ``xla`` (and ``auto``, which resolves to it) through plain PyTorch.
+CPU), or with ``--two_cell off`` through the whole-sequence LSTM kernels
+(``ops/lstm_seq.py``: training forward and backward per step, the
+inference forward for the eval batches); ``xla`` (and ``auto``, which
+resolves to it) trains through plain PyTorch.
 The checkpoint triple ``<model_dir>/<run>.{json,yaml,npz}`` loads in both
 packages. Flags whose modules are not ported yet raise.
 """
@@ -24,7 +27,7 @@ import torch
 from .. import resolve_device
 from ..data import PianoData
 from ..models import cl_vrnn
-from ..ops.lstm import PALLAS_LSTM_TODO, resolve_fusion
+from ..ops.lstm import resolve_fusion
 from ..ops.two_cell import should_use
 from ..optim import init_optimizer
 from ..train import Trainer, fit, save_model_in_pieces
@@ -97,8 +100,6 @@ def train(args):
         if cfg.two_cell is None:
             cfg = dataclasses.replace(cfg, two_cell=bool(should_use(cfg)))
         print(f"two_cell={cfg.two_cell}")
-        if not cfg.two_cell:
-            raise NotImplementedError(PALLAS_LSTM_TODO)
     args.two_cell = cfg.two_cell
     if cfg.fusion is not None:
         args.fusion = list(cfg.fusion)
@@ -174,16 +175,15 @@ def build_parser():
     parser.add_argument("--check_numerics", action="store_true", help="not ported: raises")
     parser.add_argument("--lstm_backend", type=str, default="xla",
                         choices=["xla", "pallas", "auto"],
-                        help="xla: plain PyTorch; pallas: the two-cell CUDA kernels "
-                             "(plain versions on the CPU); auto: xla")
+                        help="xla: plain PyTorch; pallas: the CUDA kernels (plain "
+                             "versions on the CPU); auto: xla")
     parser.add_argument("--streaming", action="store_true", help="not ported: raises")
     parser.add_argument("--data_init", action="store_true", help="not ported: raises")
     parser.add_argument("--dp", type=int, default=0, help="not ported: nonzero raises")
     parser.add_argument("--two_cell", type=str, default="auto", choices=["auto", "on", "off"],
                         help="pallas backend: 'auto' takes the two-cell kernels wherever "
-                             "they accept the config ('off' needs the unported LSTM "
-                             "kernels and raises); the resolved value is recorded in "
-                             "args.json")
+                             "they accept the config, 'off' the whole-sequence LSTM "
+                             "kernels; the resolved value is recorded in args.json")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                         help="cuda: the card (raises without one); cpu: plain PyTorch")
     return parser

@@ -1,0 +1,462 @@
+// Whole-sequence Keras-2.0 LSTM kernels for Hopper (sm_90a), f32.
+//
+// Replaces: classifying_vae_lstm_tpu/ops/pallas_lstm.py, the default fusion
+// rung (proj, drk, full) = (T, T, T) of `lstm_sequence_pallas` :1553:
+//   * :1203 `_forward_kernel_call_fp` -> `_lstm_seq_kernel_tblocked_fp` :632
+//     (and its interleaved twin `_tblocked_fp_ilv` :676, the same math
+//     pipelined for the TPU's MXU/VPU) with `lstm_seq_fwd_kernel<R, false>`,
+//     the inference forward;
+//   * :1146 `_forward_train_call_fp` -> `_lstm_seq_train_kernel_fp` :730 with
+//     `lstm_seq_fwd_kernel<R, true>`, the training forward;
+//   * :1378 `_backward_call_full` -> `_lstm_bwd_kernel_full` :986 with
+//     `lstm_seq_bwd_kernel` (the serial reverse walk) followed by
+//     `lstm_seq_wgrad_kernel` (the weight gradients): one ported kernel, two
+//     launches.
+//
+// What it computes, per batch row and time step t = 0 .. T-1:
+//   xz = x[t] @ W + b;  z = xz + h @ Rk;  (h, c) = gates(z, c)
+// with Keras-2.0 gates (i, f, c, o): hard sigmoid clip(0.2x + 0.5, 0, 1) for
+// i, f, o, tanh for g and for the cell output. The forward emits h and c per
+// step; the training forward also emits z, h_prev and c_prev, the backward's
+// residuals. The backward walks time in reverse from the cotangents of h and
+// c per step and emits dx, dh0, dc0, dRk = sum h_prevᵀdz, dW = sum xᵀdz and
+// db = sum dz.
+//
+// What bounds it on this card. Per row-step the forward is (IN + H) * 4H f32
+// FMAs against IN + 2H floats of streams: at H=256 that is ~1,000 FMAs per
+// float moved, so the operations bound it (67 TFLOP/s without tensor cores).
+// At the training shape (B=200, T=16, H=256, IN~105) a forward is ~2.4 GFLOP,
+// ~0.036 ms; at the evaluation shape (12,800 rows) ~151 GFLOP, ~2.2 ms. The
+// backward is about twice the forward. Each step depends on the one before,
+// so the T steps run in series.
+//
+// What the design does about it.
+// * Time is serial, rows are independent: one block owns a tile of R batch
+//   rows and runs the whole time loop itself (the TPU grid walked time in
+//   order with (h, c) in VMEM scratch; CUDA blocks run in no order and carry
+//   nothing between them). h (double-buffered), c and the step's x live in
+//   shared memory, stored [unit][row] so that one float4 load gives four
+//   rows' operands.
+// * The weights do not fit one SM: W and Rk are 1.4 MB at f32, H=256 (the
+//   TPU kernel keeps them resident in VMEM). They stream from global memory
+//   each step, stay resident in the 50 MB L2, and are stored so that
+//   neighbouring threads read neighbouring gate columns.
+// * Each weight load serves the whole row tile. A thread owns one hidden unit
+//   (its four gate columns) for all R rows, so per K step it issues 4 weight
+//   loads for 4R FMAs. The tile is R=16 when the batch fills every SM with
+//   16-row blocks (the evaluation shape: 12,800 rows, 800 blocks, a quarter
+//   of the L2 traffic of a 4-row tile) and R=4 otherwise (the training shape:
+//   B=200 gives 50 blocks, where 16-row tiles would leave 119 of 132 SMs idle).
+// * The input projection x @ W + b is computed here, as in the TPU kernel's
+//   body, ahead of h @ Rk in the same accumulators; it is not a library matmul.
+// * The weight gradients cross blocks. The TPU grid accumulated them in
+//   resident blocks over a sequential grid; concurrent CUDA blocks would need
+//   atomics, which make the sums depend on launch order. So the reverse walk
+//   writes dz per (t, row) to scratch, and a second, deterministic pass forms
+//   sum h_prevᵀdz, sum xᵀdz and the column sums over the T*B rows, each output
+//   element summed in row order by one thread.
+// * The hard-sigmoid derivative is 0.2 strictly inside (0, 1) and 0 at and
+//   beyond the clip points, the TPU kernel's rule (`_bwd_gate_grads` :786).
+// Known limits of this simple form: every block streams all weights from L2
+// every step, and the products run on FFMA, not the tensor cores. Plain FFMA
+// keeps f32 exact to the JAX side's precision="highest" (no TF32).
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+namespace {
+
+constexpr int kFwdThreads = 256;  // forward: one hidden unit per thread and pass
+constexpr int kBwdRows = 4;       // backward: batch rows per block
+constexpr int kBwdThreads = 512;  // backward: threads per block
+constexpr int kSlices = 2;        // backward: a product's K is split between two groups
+constexpr int kUnits = kBwdThreads / kSlices;  // backward: output columns per pass
+
+struct FwdArgs {
+  const float* x;         // [T, B, IN]
+  const float* w;         // [IN, 4H]
+  const float* b;         // [4H]
+  const float* rk;        // [H, 4H]
+  const float *h0, *c0;   // [B, H]
+  float *h, *c;           // [T, B, H]
+  float* z;               // [T, B, 4H]  training forward only
+  float *hp, *cp;         // [T, B, H]   training forward only
+  int T, B, IN, H;
+};
+
+struct BwdArgs {
+  const float* z;         // [T, B, 4H]
+  const float *cp, *c;    // [T, B, H]
+  const float *dh, *dc;   // [T, B, H]  cotangents of the h and c sequences
+  const float* wt;        // [4H, H + IN]  (Rk | W) transposed
+  float* dx;              // [T, B, IN]
+  float *dh0, *dc0;       // [B, H]
+  float* dz;              // scratch [T, B, 4H]
+  int T, B, IN, H;
+};
+
+__host__ __device__ constexpr size_t fwd_smem_floats(int IN, int H, int rows) {
+  return (size_t)(IN + 3 * H) * rows;
+}
+
+__host__ __device__ constexpr size_t bwd_smem_floats(int H) {
+  return (size_t)6 * H * kBwdRows + (size_t)kBwdRows * kUnits;
+}
+
+__device__ __forceinline__ float hard_sigmoid(float x) {
+  return fminf(fmaxf(0.2f * x + 0.5f, 0.f), 1.f);
+}
+
+// d hard_sigmoid / dx expressed through the gate's value, as `_bwd_gate_grads`
+__device__ __forceinline__ float hard_sigmoid_grad(float gate) {
+  return (gate > 0.f && gate < 1.f) ? 0.2f : 0.f;
+}
+
+// rows s0 .. s0+R-1 of a [B, W] matrix into a [W][R] shared tile (rows >= B
+// are zero)
+template <int R>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int B, int s0, int W) {
+  for (int i = threadIdx.x; i < W * R; i += blockDim.x) {
+    const int b = i / W, k = i - b * W, s = s0 + b;
+    dst[k * R + b] = s < B ? src[(size_t)s * W + k] : 0.f;
+  }
+}
+
+// one K step: operand row a[k][0..R) times the four gate weights
+template <int R>
+__device__ __forceinline__ void fma_row(float (&acc)[4][R], const float* ak, const float (&w)[4]) {
+#pragma unroll
+  for (int q = 0; q < R / 4; ++q) {
+    const float4 v = *reinterpret_cast<const float4*>(ak + 4 * q);
+    const float av[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int g = 0; g < 4; ++g) acc[g][4 * q + j] = fmaf(av[j], w[g], acc[g][4 * q + j]);
+  }
+}
+
+// a [K][R] shared-memory operand times a [K, 4H] weight, accumulated into the
+// four gate columns (i, f, c, o) of unit u for all R rows. The weights of U
+// consecutive K steps are loaded before their FMAs, so that 4U loads from L2
+// are in flight per thread: a 4-row tile has few FMAs per load to hide their
+// latency behind (U = 8), a 16-row tile many (U = 2, at 128 registers).
+template <int R>
+__device__ __forceinline__ void mac_gates(float (&acc)[4][R], const float* a,
+                                          const float* __restrict__ w, int K, int u, int H) {
+  constexpr int U = R >= 16 ? 2 : 8;
+  const float* wp = w + u;
+  int k = 0;
+  for (; k + U <= K; k += U, wp += (size_t)U * 4 * H) {
+    float wv[U][4];
+#pragma unroll
+    for (int s = 0; s < U; ++s)
+#pragma unroll
+      for (int g = 0; g < 4; ++g) wv[s][g] = __ldg(wp + (size_t)s * 4 * H + g * H);
+#pragma unroll
+    for (int s = 0; s < U; ++s) fma_row<R>(acc, a + (k + s) * R, wv[s]);
+  }
+  for (; k < K; ++k, wp += 4 * H) {
+    const float wv[4] = {__ldg(wp), __ldg(wp + H), __ldg(wp + 2 * H), __ldg(wp + 3 * H)};
+    fma_row<R>(acc, a + k * R, wv);
+  }
+}
+
+template <int R, bool kTrain>
+__global__ void __launch_bounds__(kFwdThreads) lstm_seq_fwd_kernel(const FwdArgs a) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int T = a.T, B = a.B, H = a.H, IN = a.IN;
+  float* xs = sm;                  // [IN][R]
+  float* h_cur = xs + IN * R;      // [H][R] each
+  float* h_nxt = h_cur + H * R;
+  float* cs = h_nxt + H * R;
+  const int s0 = blockIdx.x * R;   // rows >= B are masked
+
+  load_rows<R>(h_cur, a.h0, B, s0, H);
+  load_rows<R>(cs, a.c0, B, s0, H);
+  for (int t = 0; t < T; ++t) {
+    const size_t tb = (size_t)t * B;
+    load_rows<R>(xs, a.x + tb * IN, B, s0, IN);
+    __syncthreads();
+    for (int u = threadIdx.x; u < H; u += kFwdThreads) {  // no syncs inside
+      float acc[4][R];
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[g][r] = 0.f;
+      mac_gates<R>(acc, xs, a.w, IN, u, H);  // xz = x[t] @ W ...
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float bg = a.b[g * H + u];     // ... + b
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[g][r] += bg;
+      }
+      mac_gates<R>(acc, h_cur, a.rk, H, u, H);  // z = xz + h @ Rk
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float i = hard_sigmoid(acc[0][r]);
+        const float f = hard_sigmoid(acc[1][r]);
+        const float g = tanhf(acc[2][r]);
+        const float o = hard_sigmoid(acc[3][r]);
+        const float cp = cs[u * R + r];
+        const float cn = f * cp + i * g;
+        const float hn = o * tanhf(cn);
+        cs[u * R + r] = cn;
+        h_nxt[u * R + r] = hn;
+        const int s = s0 + r;
+        if (s < B) {
+          const size_t row = tb + s;
+          a.h[row * H + u] = hn;
+          a.c[row * H + u] = cn;
+          if (kTrain) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) a.z[row * 4 * H + q * H + u] = acc[q][r];
+            a.hp[row * H + u] = h_cur[u * R + r];
+            a.cp[row * H + u] = cp;
+          }
+        }
+      }
+    }
+    __syncthreads();
+    float* tmp = h_cur;
+    h_cur = h_nxt;
+    h_nxt = tmp;
+  }
+}
+
+// out(n, b) = sum_k a[k][b] * wt[k * N + n] for n in [0, N): a [K][kBwdRows]
+// in shared memory times a [K, N] weight; neighbouring threads read
+// neighbouring columns, and the two slices of the block split K.
+// `store(n, b, value)` receives each result.
+template <typename Store>
+__device__ __forceinline__ void matvec_t(const float* a, const float* __restrict__ wt, int K,
+                                         int N, float* part, Store store) {
+  const int slice = threadIdx.x / kUnits, ln = threadIdx.x % kUnits;
+  const int k0 = slice ? K / 2 : 0, k1 = slice ? K : K / 2;
+  for (int n0 = 0; n0 < N; n0 += kUnits) {  // uniform trip count: syncs inside
+    const int n = n0 + ln;
+    float acc[kBwdRows] = {0.f, 0.f, 0.f, 0.f};
+    if (n < N) {
+      const float* wp = wt + (size_t)k0 * N + n;
+#pragma unroll 8
+      for (int k = k0; k < k1; ++k, wp += N) {
+        const float w = __ldg(wp);
+        const float4 v = *reinterpret_cast<const float4*>(a + k * kBwdRows);
+        acc[0] = fmaf(v.x, w, acc[0]);
+        acc[1] = fmaf(v.y, w, acc[1]);
+        acc[2] = fmaf(v.z, w, acc[2]);
+        acc[3] = fmaf(v.w, w, acc[3]);
+      }
+      if (slice == 1) {
+#pragma unroll
+        for (int b = 0; b < kBwdRows; ++b) part[b * kUnits + ln] = acc[b];
+      }
+    }
+    __syncthreads();
+    if (slice == 0 && n < N) {
+#pragma unroll
+      for (int b = 0; b < kBwdRows; ++b) store(n, b, acc[b] + part[b * kUnits + ln]);
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(kBwdThreads) lstm_seq_bwd_kernel(const BwdArgs a) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  constexpr int R = kBwdRows;
+  const int T = a.T, B = a.B, H = a.H, IN = a.IN;
+  float* dzs = sm;                 // [4H][R]
+  float* dh_c = dzs + 4 * H * R;   // [H][R]  carry of dh
+  float* dc_c = dh_c + H * R;      // [H][R]  carry of dc
+  float* part = dc_c + H * R;      // [R][kUnits]
+  const int s0 = blockIdx.x * R;
+  for (int i = threadIdx.x; i < 2 * H * R; i += kBwdThreads) dh_c[i] = 0.f;  // both carries
+  __syncthreads();
+
+  const int N = H + IN;
+  for (int t = T - 1; t >= 0; --t) {
+    const size_t tb = (size_t)t * B;
+    // gate gradients (`_bwd_gate_grads`): dh = carry + dh[t], dc = carry + dc[t]
+    for (int i = threadIdx.x; i < H * R; i += kBwdThreads) {
+      const int u = i / R, r = i - u * R, s = s0 + r;
+      float dz[4] = {0.f, 0.f, 0.f, 0.f};
+      if (s < B) {
+        const size_t row = tb + s;
+        const float* zr = a.z + row * 4 * H;
+        const float ig = hard_sigmoid(zr[u]);
+        const float fg = hard_sigmoid(zr[H + u]);
+        const float gg = tanhf(zr[2 * H + u]);
+        const float og = hard_sigmoid(zr[3 * H + u]);
+        const float tc = tanhf(a.c[row * H + u]);
+        const float dh = dh_c[i] + a.dh[row * H + u];
+        const float dc = (dc_c[i] + a.dc[row * H + u]) + dh * og * (1.f - tc * tc);
+        dz[0] = dc * gg * hard_sigmoid_grad(ig);
+        dz[1] = dc * a.cp[row * H + u] * hard_sigmoid_grad(fg);
+        dz[2] = dc * ig * (1.f - gg * gg);
+        dz[3] = dh * tc * hard_sigmoid_grad(og);
+        dc_c[i] = dc * fg;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) a.dz[row * 4 * H + g * H + u] = dz[g];
+      }
+#pragma unroll
+      for (int g = 0; g < 4; ++g) dzs[(g * H + u) * R + r] = dz[g];
+    }
+    __syncthreads();
+    // dz @ (Rk | W)ᵀ: the new dh carry and dx[t], the only serial product
+    matvec_t(dzs, a.wt, 4 * H, N, part, [&](int n, int r, float v) {
+      const int s = s0 + r;
+      if (n < H) {
+        dh_c[n * R + r] = v;
+      } else if (s < B) {
+        a.dx[(tb + s) * IN + (n - H)] = v;
+      }
+    });
+  }
+  for (int i = threadIdx.x; i < H * R; i += kBwdThreads) {
+    const int u = i / R, r = i - u * R, s = s0 + r;
+    if (s < B) {
+      a.dh0[(size_t)s * H + u] = dh_c[i];
+      a.dc0[(size_t)s * H + u] = dc_c[i];
+    }
+  }
+}
+
+// ---- weight gradients: C[M, N] = sum over rows r of A[r, :M]ᵀ Bm[r, :N]
+
+constexpr int kTile = 64;        // C tile is kTile x kTile
+constexpr int kChunk = 16;       // rows per shared-memory stage
+constexpr int kWgThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
+constexpr int kJobs = 3;         // dRk, dW, db
+
+struct Job {
+  const float* A;   // [R, M] (lda = M); null: a column of ones (M = 1), i.e. column sums
+  const float* Bm;  // [R, N]
+  float* C;         // [M, N]
+  int M, N, tiles_n, first_block;
+};
+
+struct WgradArgs {
+  Job jobs[kJobs];
+  int R;
+};
+
+__global__ void __launch_bounds__(kWgThreads) lstm_seq_wgrad_kernel(const WgradArgs args) {
+  __shared__ __align__(16) float As[kChunk][kTile];
+  __shared__ __align__(16) float Bs[kChunk][kTile];
+  int j = 0;
+  while (j + 1 < kJobs && (int)blockIdx.x >= args.jobs[j + 1].first_block) ++j;
+  const Job jb = args.jobs[j];
+  const int local = blockIdx.x - jb.first_block;
+  const int m0 = (local / jb.tiles_n) * kTile, n0 = (local % jb.tiles_n) * kTile;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
+  for (int r0 = 0; r0 < args.R; r0 += kChunk) {
+    for (int i = threadIdx.x; i < kChunk * kTile; i += kWgThreads) {
+      const int rr = i / kTile, c = i - rr * kTile, r = r0 + rr;
+      const int m = m0 + c, n = n0 + c;
+      As[rr][c] = (r < args.R && m < jb.M) ? (jb.A ? jb.A[(size_t)r * jb.M + m] : 1.f) : 0.f;
+      Bs[rr][c] = (r < args.R && n < jb.N) ? jb.Bm[(size_t)r * jb.N + n] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int rr = 0; rr < kChunk; ++rr) {
+      const float4 av = *reinterpret_cast<const float4*>(&As[rr][ty * 4]);
+      const float4 bv = *reinterpret_cast<const float4*>(&Bs[rr][tx * 4]);
+      const float am[4] = {av.x, av.y, av.z, av.w};
+      const float bn[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(am[i], bn[q], acc[i][q]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int n = n0 + tx * 4 + q;
+      if (m < jb.M && n < jb.N) jb.C[(size_t)m * jb.N + n] = acc[i][q];
+    }
+  }
+}
+
+int set_smem(const void* fn, size_t bytes) {
+  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int R, bool kTrain>
+int launch_fwd(const FwdArgs& a, cudaStream_t stream) {
+  const size_t smem = fwd_smem_floats(a.IN, a.H, R) * sizeof(float);
+  int err = set_smem((const void*)lstm_seq_fwd_kernel<R, kTrain>, smem);
+  if (err) return err;
+  lstm_seq_fwd_kernel<R, kTrain><<<(a.B + R - 1) / R, kFwdThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Bytes of dynamic shared memory one block of each serial kernel needs (the
+// wrapper checks them against the card's limit).
+extern "C" long long cvl_lstm_seq_fwd_smem_bytes(int IN, int H, int rows) {
+  return (long long)(fwd_smem_floats(IN, H, rows) * sizeof(float));
+}
+extern "C" long long cvl_lstm_seq_bwd_smem_bytes(int H) {
+  return (long long)(bwd_smem_floats(H) * sizeof(float));
+}
+
+// The forward on `stream`, with a tile of `rows` (4 or 16) batch rows per
+// block; `train` != 0 also writes z, hp and cp (null otherwise). Returns the
+// cudaError_t of the launch.
+extern "C" int cvl_lstm_seq_fwd(const float* x, const float* w, const float* b, const float* rk,
+                                const float* h0, const float* c0, float* h, float* c, float* z,
+                                float* hp, float* cp, int T, int B, int IN, int H, int rows,
+                                int train, void* stream) {
+  const FwdArgs a{x, w, b, rk, h0, c0, h, c, z, hp, cp, T, B, IN, H};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rows == 16) return train ? launch_fwd<16, true>(a, st) : launch_fwd<16, false>(a, st);
+  if (rows == 4) return train ? launch_fwd<4, true>(a, st) : launch_fwd<4, false>(a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward's serial reverse walk on `stream`; fills dx, dh0, dc0 and the
+// dz scratch that cvl_lstm_seq_wgrad reduces. Returns the cudaError_t of the
+// launch.
+extern "C" int cvl_lstm_seq_bwd(const float* z, const float* cp, const float* c, const float* dh,
+                                const float* dc, const float* wt, float* dx, float* dh0,
+                                float* dc0, float* dz, int T, int B, int IN, int H,
+                                void* stream) {
+  const BwdArgs a{z, cp, c, dh, dc, wt, dx, dh0, dc0, dz, T, B, IN, H};
+  const size_t smem = bwd_smem_floats(H) * sizeof(float);
+  int err = set_smem((const void*)lstm_seq_bwd_kernel, smem);
+  if (err) return err;
+  lstm_seq_bwd_kernel<<<(B + kBwdRows - 1) / kBwdRows, kBwdThreads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The backward's weight gradients over the R = T*B rows: dRk = hpᵀdz,
+// dW = xᵀdz, db = column sums of dz, one launch. Returns the cudaError_t of
+// the launch.
+extern "C" int cvl_lstm_seq_wgrad(const float* hp, const float* x, const float* dz, float* drk,
+                                  float* dw, float* db, int R, int IN, int H, void* stream) {
+  WgradArgs args{};
+  const struct { const float* A; float* C; int M; } spec[kJobs] = {
+      {hp, drk, H}, {x, dw, IN}, {nullptr, db, 1}};
+  int blocks = 0;
+  for (int j = 0; j < kJobs; ++j) {
+    const int tm = (spec[j].M + kTile - 1) / kTile, tn = (4 * H + kTile - 1) / kTile;
+    args.jobs[j] = Job{spec[j].A, dz, spec[j].C, spec[j].M, 4 * H, tn, blocks};
+    blocks += tm * tn;
+  }
+  args.R = R;
+  lstm_seq_wgrad_kernel<<<blocks, kWgThreads, 0, static_cast<cudaStream_t>(stream)>>>(args);
+  return (int)cudaGetLastError();
+}

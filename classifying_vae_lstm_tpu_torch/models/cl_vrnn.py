@@ -11,9 +11,11 @@ Architecture (as ``classifying_vae_lstm_tpu/models/cl_vrnn.py``):
 :func:`apply` routes as the JAX package does: the ``xla`` backend runs the
 fused single loop (:func:`_apply_fused`, plain PyTorch), the ``pallas``
 backend the two-cell kernel (:func:`_apply_two_cell`, ``ops/two_cell.py``:
-hand-written CUDA on the card, its plain version on the CPU), and dropout
-or remat the two-loop path. Noise comes from a ``torch.Generator`` or, for
-parity with the JAX package, from the batch (``eps_w``/``eps_z``).
+hand-written CUDA on the card, its plain version on the CPU), and dropout,
+remat or ``two_cell=False`` the two-loop path, whose two LSTMs on
+``pallas`` run the whole-sequence kernels (``ops/lstm_seq.py``). Noise comes
+from a ``torch.Generator`` or, for parity with the JAX package, from the
+batch (``eps_w``/``eps_z``).
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ class Config:
     """The JAX package's ``cl_vrnn.Config``, field for field, so a
     checkpoint's args load into an equal config. ``lstm_backend`` picks the
     training path (``xla``: plain PyTorch; ``pallas``: the two-cell CUDA
-    kernel); generation on the card always runs its own CUDA kernel."""
+    kernels, or with ``two_cell=False`` the whole-sequence LSTM kernels);
+    generation on the card always runs its own CUDA kernel."""
 
     original_dim: int = 88
     intermediate_dim: int = 88
@@ -216,9 +219,10 @@ def apply(params, cfg: Config, x, generator=None, x_prev=None, noise=None):
     The fused single loop when there is no dropout and the backend is
     ``xla``; the two-cell kernel when the backend is ``pallas`` and
     :func:`..ops.two_cell.should_use` holds; otherwise the two-loop path
-    (whose ``pallas`` backend is not ported and raises). ``noise``: the
-    pre-drawn dict of :func:`draw_apply_noise`; without it the noise is
-    drawn from ``generator``.
+    (encoder sequence, z sample, decoder sequence), whose ``pallas`` backend
+    runs each LSTM through :func:`..ops.lstm_seq.lstm_sequence_kernel`.
+    ``noise``: the pre-drawn dict of :func:`draw_apply_noise`; without it the
+    noise is drawn from ``generator``.
     """
     if cfg.dropout == 0.0 and cfg.lstm_backend == "xla" and not cfg.remat:
         return _apply_fused(params, cfg, x, generator, x_prev, noise)

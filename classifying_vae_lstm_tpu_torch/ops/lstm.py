@@ -2,10 +2,10 @@
 
 Gate order (i, f, c, o), ``tanh`` activation, hard-sigmoid recurrent
 activation. :func:`lstm_step` is the plain twin of the cells inside the CUDA
-kernels; :func:`lstm_sequence` runs a whole sequence with the input
-projection hoisted into one product (the ``xla`` backend). The JAX
-package's ``pallas`` backend of the sequence (``ops/pallas_lstm.py``) is not
-ported yet and raises.
+kernels; :func:`lstm_sequence` runs a whole sequence: its ``xla`` backend in
+plain PyTorch with the input projection hoisted into one product, its
+``pallas`` backend through the whole-sequence CUDA kernels of
+``ops/lstm_seq.py`` (their plain versions for CPU tensors).
 """
 
 from __future__ import annotations
@@ -13,11 +13,6 @@ from __future__ import annotations
 import torch
 
 from ..nn.core import hard_sigmoid
-
-PALLAS_LSTM_TODO = ("the whole-sequence LSTM kernels (ops/pallas_lstm.py: --two_cell off, "
-                    "hidden >= 1024, the two-scan path) are not ported yet: ROADMAP Queue 2 "
-                    "item 1")
-
 
 def _gates(z, c_prev, hidden_dim, recurrent_activation=hard_sigmoid, activation=torch.tanh):
     H = hidden_dim
@@ -27,6 +22,23 @@ def _gates(z, c_prev, hidden_dim, recurrent_activation=hard_sigmoid, activation=
     o = recurrent_activation(z[..., 3 * H :])
     c = f * c_prev + i * g
     return o * activation(c), c
+
+
+def _gate_grads(z, c, c_prev, dh, dc_in):
+    """BPTT through the Keras-2.0 gates (``pallas_lstm._bwd_gate_grads``):
+    returns the pre-activation cotangent dz and the next carry dc * f. The
+    hard-sigmoid derivative is 0.2 strictly inside (0, 1), 0 at the clip
+    points (torch's autograd of ``clamp`` passes them)."""
+    H = c.shape[-1]
+    hs = lambda v: torch.clamp(0.2 * v + 0.5, 0.0, 1.0)
+    i, f, o = hs(z[:, :H]), hs(z[:, H:2 * H]), hs(z[:, 3 * H:])
+    g = torch.tanh(z[:, 2 * H:3 * H])
+    tanh_c = torch.tanh(c)
+    hsd = lambda gate: torch.where((gate > 0.0) & (gate < 1.0), 0.2, 0.0)
+    dc = dc_in + dh * o * (1 - tanh_c ** 2)
+    dz = torch.cat([dc * g * hsd(i), dc * c_prev * hsd(f), dc * i * (1 - g ** 2),
+                    dh * tanh_c * hsd(o)], dim=-1)
+    return dz, dc * f
 
 
 def lstm_step(params, x, h_prev, c_prev, recurrent_activation=hard_sigmoid,
@@ -50,7 +62,8 @@ def resolve_fusion(fusion, hidden_dim: int | None = None) -> tuple[bool, bool, b
     ``pallas_lstm.resolve_fusion`` with its policy defaults (all on), dropped
     to proj-only above the drk accumulator's ceiling (16·H² bytes > 38 MiB).
     The port records it in args.json so that a checkpoint names the same
-    triple in both packages; no kernel of the port reads it yet."""
+    triple in both packages, and :func:`.lstm_seq.lstm_sequence_kernel` reads
+    it: the default triple runs the ported kernels, any other raises."""
     proj, drk, full = (True, True, True) if fusion is None else (bool(f) for f in fusion)
     if hidden_dim is not None and hidden_dim * 4 * hidden_dim * 4 > 38 * 2**20:
         drk = full = False
@@ -80,8 +93,9 @@ def lstm_sequence(params, x, h0=None, c0=None, recurrent_activation=hard_sigmoid
     ``dropout``/``dropout_generator`` apply the Keras-2.0 per-gate input masks
     (:func:`keras_lstm_dropout_masks`). ``remat`` changes memory, not values,
     in the JAX package; eager PyTorch keeps every step's activations either
-    way, so the flag is accepted and has no effect here. ``backend="pallas"``
-    raises until the whole-sequence LSTM kernels are ported.
+    way, so the flag is accepted and has no effect on ``xla``.
+    ``backend="pallas"`` runs :func:`.lstm_seq.lstm_sequence_kernel`; as in
+    the JAX package it refuses dropout masks and ``remat`` (``ValueError``).
     """
     B, T, _ = x.shape
     H = params["recurrent_kernel"].shape[0]
@@ -90,7 +104,15 @@ def lstm_sequence(params, x, h0=None, c0=None, recurrent_activation=hard_sigmoid
     if c0 is None:
         c0 = x.new_zeros((B, H))
     if backend == "pallas":
-        raise NotImplementedError(PALLAS_LSTM_TODO)
+        if dropout > 0 and dropout_generator is not None:
+            raise ValueError("dropout is not supported on the pallas backend")
+        if remat:
+            # the kernels' residuals (z/h/c streams) are their memory plan
+            raise ValueError("remat is not supported on the pallas backend")
+        from .lstm_seq import lstm_sequence_kernel
+
+        return lstm_sequence_kernel(params, x, h0, c0, compute_dtype=compute_dtype,
+                                    fusion=fusion)
     if backend != "xla":
         raise ValueError(f"unknown LSTM backend {backend!r} (xla or pallas)")
     if fusion is not None:

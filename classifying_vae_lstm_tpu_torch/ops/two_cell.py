@@ -29,7 +29,7 @@ import threading
 import torch
 
 from . import _build
-from .lstm import _gates
+from .lstm import _gate_grads, _gates
 
 # launches since the counts were last set to 0: one per forward call, two per
 # backward call (the serial reverse walk, then the weight-gradient pass)
@@ -78,8 +78,8 @@ def should_use(cfg, two_cell=None) -> bool:
     takes the kernel whenever it accepts the config: no dropout, no remat,
     and the state of one block fits shared memory. The JAX package's gate
     (256 <= H < 1024, VMEM residency) is a TPU measurement and is not read
-    here. ``two_cell=False`` sends ``pallas`` to the whole-sequence LSTM
-    kernels, which are not ported yet (that path raises)."""
+    here. ``two_cell=False`` sends ``pallas`` to the two-loop path, whose
+    LSTMs run the whole-sequence kernels of ``ops/lstm_seq.py``."""
     if two_cell is None:
         two_cell = getattr(cfg, "two_cell", None)
     if two_cell is not None:
@@ -113,23 +113,6 @@ def two_cell_fwd_plain(xe, xd, eps, we, be, rke, wdx, bd, rkd, kz, wz, bz, h0e, 
         for acc, v in zip(outs, (h_d, zargs, ze, zd, hpe, cpe, c_e, h_e, hpd, cpd, c_d)):
             acc.append(v)
     return tuple(torch.stack(o) for o in outs)
-
-
-def _gate_grads(z, c, c_prev, dh, dc_in):
-    """BPTT through the Keras-2.0 gates (``pallas_lstm._bwd_gate_grads``):
-    returns the pre-activation cotangent dz and the next carry dc * f. The
-    hard-sigmoid derivative is 0.2 strictly inside (0, 1), 0 at the clip
-    points (torch's autograd of ``clamp`` passes them)."""
-    H = c.shape[-1]
-    hs = lambda v: torch.clamp(0.2 * v + 0.5, 0.0, 1.0)
-    i, f, o = hs(z[:, :H]), hs(z[:, H:2 * H]), hs(z[:, 3 * H:])
-    g = torch.tanh(z[:, 2 * H:3 * H])
-    tanh_c = torch.tanh(c)
-    hsd = lambda gate: torch.where((gate > 0.0) & (gate < 1.0), 0.2, 0.0)
-    dc = dc_in + dh * o * (1 - tanh_c ** 2)
-    dz = torch.cat([dc * g * hsd(i), dc * c_prev * hsd(f), dc * i * (1 - g ** 2),
-                    dh * tanh_c * hsd(o)], dim=-1)
-    return dz, dc * f
 
 
 def two_cell_bwd_plain(ze, zd, cpe, ce, cpd, cd, hpe, he, hpd, eps, zargs, xe, xd, dhd, dzargs,

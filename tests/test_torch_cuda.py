@@ -226,3 +226,115 @@ def test_two_cell_wrapper_raises_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="float32"):
         tc.two_cell_fwd(ins[0].double(), *ins[1:])
     assert (tc.FWD_LAUNCHES, tc.BWD_LAUNCHES) == before
+
+
+# ---- the whole-sequence LSTM kernels (csrc/lstm_seq.cu)
+#
+# Forward outputs within 1e-5 (same f32 products, other summation order);
+# backward outputs within max|a - b| <= 1e-4 * max|b| + 1e-6 (the weight
+# gradients sum T*B rows in another order).
+
+from classifying_vae_lstm_tpu_torch.ops import lstm as lstm_ops  # noqa: E402
+from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls  # noqa: E402
+
+LSTM_SEQ_CASES = {
+    "ragged_tile": dict(B=7, T=5, H=40, IN=13),
+    "one_step": dict(B=6, T=1, H=24, IN=9),
+    "two_unit_passes": dict(B=9, T=3, H=300, IN=21),
+    "wide_tile_ragged": dict(B=None, T=3, H=32, IN=11),  # B = 16 * SMs + 8: 16-row tiles
+}
+
+
+def _lstm_seq_inputs(dev, B, T, H, IN, seed=0):
+    rng = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0: torch.from_numpy(
+        (scale * rng.standard_normal(s)).astype(np.float32)).to(dev)
+    return (f(T, B, IN), f(IN, 4 * H, scale=0.3), f(4 * H, scale=0.3), f(H, 4 * H, scale=0.2),
+            f(B, H, scale=0.5), f(B, H, scale=0.5))
+
+
+def _launches():
+    return ls.FWD_LAUNCHES, ls.TRAIN_FWD_LAUNCHES, ls.BWD_LAUNCHES
+
+
+@pytest.mark.parametrize("case", sorted(LSTM_SEQ_CASES))
+def test_lstm_seq_kernels_match_plain(dev, case):
+    kw = dict(LSTM_SEQ_CASES[case])
+    if kw["B"] is None:
+        kw["B"] = 16 * torch.cuda.get_device_properties(dev).multi_processor_count + 8
+    ins = _lstm_seq_inputs(dev, **kw)
+    before = _launches()
+    h, c = ls.lstm_seq_fwd(*ins)
+    outs = ls.lstm_seq_train_fwd(*ins)
+    torch.cuda.synchronize()
+    ref = ls.lstm_seq_train_fwd_plain(*ins)
+    torch.testing.assert_close(h, ref[0], rtol=0, atol=1e-5, msg="inference h")
+    torch.testing.assert_close(c, ref[1], rtol=0, atol=1e-5, msg="inference c")
+    for name, k, p in zip(("h", "c", "z", "h_prev", "c_prev"), outs, ref):
+        torch.testing.assert_close(k, p, rtol=0, atol=1e-5, msg=name)
+    x, w, _, rk, _, _ = ins
+    h, c, z, hp, cp = ref
+    rng = np.random.default_rng(1)
+    dh = torch.from_numpy(rng.standard_normal(tuple(h.shape)).astype(np.float32)).to(dev)
+    dc = torch.from_numpy(rng.standard_normal(tuple(c.shape)).astype(np.float32)).to(dev)
+    res = (z, cp, c, hp, x, dh, dc, rk.T.contiguous(), w.T.contiguous())
+    got = ls.lstm_seq_bwd(*res)
+    torch.cuda.synchronize()
+    want = ls.lstm_seq_bwd_plain(*res)
+    for name, g, wv in zip(("dx", "dh0", "dc0", "drk", "dw", "db"), got, want):
+        assert g.shape == wv.shape, name
+        _assert_bwd_close(g, wv, name)
+    assert _launches() == (before[0] + 1, before[1] + 1, before[2] + 2)
+
+
+def test_lstm_seq_gradients_on_cuda_match_cpu_plain(dev):
+    """Every gradient of ``lstm_sequence(backend="pallas")`` through the
+    autograd.Function, with nonzero h0/c0 and a cotangent on c_T: kernels on
+    the card against the plain versions on the CPU; under ``no_grad`` the
+    inference kernel alone."""
+    B, T, IN, H = 10, 6, 14, 40
+    rng = np.random.default_rng(3)
+    arrays = {"x": rng.standard_normal((B, T, IN)), "h0": 0.5 * rng.standard_normal((B, H)),
+              "c0": 0.5 * rng.standard_normal((B, H)),
+              "kernel": 0.3 * rng.standard_normal((IN, 4 * H)),
+              "recurrent_kernel": 0.2 * rng.standard_normal((H, 4 * H)),
+              "bias": 0.3 * rng.standard_normal(4 * H)}
+
+    def grads(device):
+        t = {k: torch.from_numpy(v.astype(np.float32)).to(device).requires_grad_(True)
+             for k, v in arrays.items()}
+        params = {k: t[k] for k in ("kernel", "recurrent_kernel", "bias")}
+        h, (hT, cT) = lstm_ops.lstm_sequence(params, t["x"], t["h0"], t["c0"], backend="pallas")
+        ((h ** 2).sum() + (cT * hT).sum()).backward()
+        return [t[k].grad for k in sorted(t)]
+
+    before = _launches()
+    on_card = grads(dev)
+    torch.cuda.synchronize()
+    assert _launches() == (before[0], before[1] + 1, before[2] + 2)
+    for i, (g, w) in enumerate(zip(on_card, grads("cpu"))):
+        _assert_bwd_close(g.cpu(), w, f"gradient {sorted(arrays)[i]}")
+    x = torch.from_numpy(arrays["x"].astype(np.float32)).to(dev)
+    params = {k: torch.from_numpy(arrays[k].astype(np.float32)).to(dev)
+              for k in ("kernel", "recurrent_kernel", "bias")}
+    with torch.no_grad():
+        h, _ = lstm_ops.lstm_sequence(params, x, backend="pallas")
+    assert _launches() == (before[0] + 1, before[1] + 1, before[2] + 2)
+    torch.testing.assert_close(h.cpu(), lstm_ops.lstm_sequence(
+        {k: v.cpu() for k, v in params.items()}, x.cpu())[0], rtol=0, atol=1e-5)
+
+
+def test_lstm_seq_wrappers_raise_instead_of_falling_back(dev):
+    ins = list(_lstm_seq_inputs(dev, B=4, T=2, H=16, IN=5))
+    before = _launches()
+    with pytest.raises(ValueError, match="cpu"):
+        ls.lstm_seq_fwd(*ins[:1], ins[1].cpu(), *ins[2:])
+    with pytest.raises(ValueError, match="contiguous"):
+        ls.lstm_seq_train_fwd(*ins[:3], ins[3].T.contiguous().T, *ins[4:])
+    with pytest.raises(ValueError, match="float32"):
+        ls.lstm_seq_fwd(ins[0].double(), *ins[1:])
+    with pytest.raises(ValueError, match="must be"):
+        ls.lstm_seq_fwd(ins[0], ins[1][:-1].contiguous(), *ins[2:])
+    with pytest.raises(ValueError, match="shared memory"):
+        ls.lstm_seq_bwd(*(torch.zeros(1, 1, 4 * 4096, device=dev),) * 9)
+    assert _launches() == before

@@ -56,8 +56,8 @@ def test_unported_paths_raise_naming_the_roadmap():
         PianoData("data/input")
     assert serve.build_parser().parse_args(["-i", "m.npz"]).device == "cuda"
 
-    # training: the bf16 two-cell mode, the pallas backend without the
-    # two-cell kernels, and the train flags whose modules are not ported
+    # training: the bf16 modes of the two-cell and whole-sequence LSTM
+    # kernels, and the train flags whose modules are not ported
     import dataclasses
 
     from classifying_vae_lstm_tpu_torch.cli import cl_vrnn_train
@@ -68,7 +68,7 @@ def test_unported_paths_raise_naming_the_roadmap():
     params = cl_vrnn.init(torch.Generator().manual_seed(0), cfg)
     x = torch.zeros((2, 3, 6))
     for bad in (dataclasses.replace(cfg, bf16_compute=True),
-                dataclasses.replace(cfg, two_cell=False)):
+                dataclasses.replace(cfg, bf16_compute=True, two_cell=False)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cl_vrnn.apply(params, bad, x, torch.Generator().manual_seed(1))
     for flag in cl_vrnn_train.UNPORTED_FLAGS:

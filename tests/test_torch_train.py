@@ -130,10 +130,22 @@ def test_unported_flags_raise(flag):
 
 
 def test_two_cell_off_on_pallas_raises(tmp_path):
-    args = tcli.build_parser().parse_args(
-        ["r", "--device", "cpu", "--train_file", CORPUS, "--seq_length", "4",
-         "--lstm_backend", "pallas", "--two_cell", "off", "--model_dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 1"):
+    """``--two_cell off`` on ``pallas`` trains through the whole-sequence LSTM
+    kernels (their plain versions here) at the default fusion triple and
+    records it in args.json; a run whose args name another triple raises,
+    naming the ROADMAP item of the unported rungs."""
+    argv = ["r", "--device", "cpu", "--train_file", CORPUS, "--seq_length", "4",
+            "--intermediate_dim", "8", "--latent_dim", "2", "--batch_size", "1000",
+            "--num_epochs", "1", "--patience", "0", "--lstm_backend", "pallas",
+            "--two_cell", "off", "--model_dir", str(tmp_path)]
+    _, best_loss = tcli.train(tcli.build_parser().parse_args(argv))
+    assert np.isfinite(best_loss["loss"]) and np.isfinite(best_loss["val_loss"])
+    margs = jcommon.load_model_args(str(tmp_path / "r.npz"))
+    assert (margs["lstm_backend"], margs["two_cell"], margs["fusion"]) == (
+        "pallas", False, [True, True, True])
+    args = tcli.build_parser().parse_args(argv)
+    args.fusion = [True, False, False]
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 6"):
         tcli.train(args)
 
 

@@ -151,8 +151,14 @@ def test_lstm_dropout_masks_and_unported_backend():
     h, _ = tlstm.lstm_sequence(params_from_numpy(p, "cpu"), T_(x), dropout=0.5,
                                dropout_generator=g)
     assert h.shape == (5, 6, 9) and torch.isfinite(h).all()
+    # the pallas backend runs the whole-sequence kernels' plain versions on
+    # the CPU; it refuses dropout masks, and its bf16 streams are not ported
+    with pytest.raises(ValueError, match="dropout"):
+        tlstm.lstm_sequence(params_from_numpy(p, "cpu"), T_(x), backend="pallas", dropout=0.5,
+                            dropout_generator=g)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlstm.lstm_sequence(params_from_numpy(p, "cpu"), T_(x), backend="pallas")
+        tlstm.lstm_sequence(params_from_numpy(p, "cpu"), T_(x), backend="pallas",
+                            compute_dtype=torch.bfloat16)
 
 
 def _model_problem(backend, B=6, seed=0):
@@ -160,6 +166,8 @@ def _model_problem(backend, B=6, seed=0):
                       n_classes=4, use_x_prev=True)
     if backend == "pallas":
         jcfg = dataclasses.replace(jcfg, lstm_backend="pallas", two_cell=True)
+    elif backend == "pallas_two_loop":  # the whole-sequence LSTM kernels
+        jcfg = dataclasses.replace(jcfg, lstm_backend="pallas", two_cell=False)
     elif backend == "two_loop":  # remat sends both packages to the two-loop path
         jcfg = dataclasses.replace(jcfg, remat=True)
     params = jax.tree.map(np.asarray, jcl.init(jax.random.PRNGKey(seed), jcfg))
@@ -174,7 +182,7 @@ def _model_problem(backend, B=6, seed=0):
     return jcfg, tcl.Config(**dataclasses.asdict(jcfg)), params, batch
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas", "two_loop"])
+@pytest.mark.parametrize("backend", ["xla", "pallas", "two_loop", "pallas_two_loop"])
 def test_apply_and_loss_match_jax(backend):
     jcfg, tcfg, params, batch = _model_problem(backend)
     noise = {k: batch[k] for k in ("eps_w", "eps_z")}
@@ -214,3 +222,27 @@ def test_generator_noise_equals_pre_drawn_noise():
     b = tcl.apply(tp, tcfg, x, None, xp, noise=noise)
     for k in a:
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
+
+
+def test_two_loop_pallas_gradients_match_the_two_cell_path():
+    """``loss_and_metrics`` gradients on the ``pallas`` two-loop path (the
+    whole-sequence kernels' plain versions) against the port's own two-cell
+    path, same weights and noise: two routes through the same model."""
+    _, tcfg, params, batch = _model_problem("pallas_two_loop", B=7, seed=4)
+    grads = {}
+    for two_cell in (False, True):
+        tp = params_from_numpy(params, "cpu")
+        for v in tp.values():
+            for leaf in v.values():
+                leaf.requires_grad_(True)
+        cfg = dataclasses.replace(tcfg, two_cell=two_cell)
+        total, _ = tcl.loss_and_metrics(tp, cfg, {k: T_(v) for k, v in batch.items()}, None,
+                                        0.5, 0.3, 0.7)
+        total.backward()
+        grads[two_cell] = (float(total.detach()), {(n, k): v.grad for n, d in tp.items()
+                                          for k, v in d.items()})
+    np.testing.assert_allclose(grads[False][0], grads[True][0], rtol=1e-5)
+    assert set(grads[False][1]) == set(grads[True][1])
+    for key, g in grads[False][1].items():
+        np.testing.assert_allclose(g.numpy(), grads[True][1][key].numpy(), err_msg=str(key),
+                                   **GRAD)
