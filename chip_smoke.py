@@ -55,7 +55,24 @@ failure:
    through ``--lstm_backend pallas`` (46 inference-forward launches, counts
    set to 0 just before), then ``xla`` (plain PyTorch on the card, same
    seed): the two NLLs within 1e-4; a profile of one evaluation batch; then
-   phase 9's checkpoint evaluated on ``Piano-midi_all``.
+   phase 9's checkpoint evaluated on ``Piano-midi_all``;
+11. the cl_vae generation kernel vs its plain version, f32, on the trained
+   ``artifacts/jsball_vae`` weights (D=H=88, L=4, K=10, use_x_prev) at the
+   largest serving bucket (64 single-frame seeds, 256 steps), with and
+   without ``use_z_prior``: probabilities with u=1 within 1e-5, frames equal
+   up to each song's first near-tie; kernel and plain times with CUDA events
+   beside the bound; then bf16 weights at hidden 256 (seeded glorot-scale
+   weights, where f32 ones would not fit shared memory): probabilities with
+   u=1, max within 2e-2, mean within 2e-3;
+12. cl_vae serving: the port's ``cli.serve`` on ``jsball_vae`` with
+   ``--dynamic_batching --warmup full`` answers /generate over HTTP (solo,
+   key-filtered and MIDI-seeded requests, a burst of 8); the cl_vae launch
+   count, set to 0 just before and read just after, must equal the engine's
+   device calls, and the plain version must not run on a CUDA tensor;
+13. both sample CLIs: ``cli.cl_vae_sample`` (``jsbcs_vae`` on
+   ``Piano-midi_Cs``, true keys, 8 songs x 64 frames) and
+   ``cli.cl_vrnn_sample`` (``jsball_vrnn4``, ``--infer_w``, 4 songs) write
+   their MIDI files with exactly one launch of their kernel each.
 
 The last lines are the kernel table (one JSON object), the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -76,6 +93,7 @@ import urllib.request
 
 SEED = 0
 MODEL = "artifacts/jsball_vrnn4.npz"
+VAE_MODEL = "artifacts/jsball_vae.npz"
 CORPUS = "data/input/Piano-midi_all.pickle"
 EVAL_CORPUS = "data/input/Piano-midi_Cs.pickle"  # keys 0 and 1: jsball_vrnn4 has 10
 EVAL_WINDOWS, EVAL_SAMPLES, EVAL_B = 4468, 64, 200  # its test split at T=16
@@ -121,6 +139,28 @@ def seed_windows(n: int):
     return P.x_test[idx]
 
 
+def frames_agree_to_near_tie(label, fk, fp, u, probs):
+    """Kernel frames ``fk`` equal the plain frames ``fp`` ([B, nsteps, D])
+    in every song up to its first near-tie, a step where some |u - p| < 1e-4
+    in the plain run (``probs``): there the two summation orders may rightly
+    draw another frame, and the songs part."""
+    import torch
+
+    B, nsteps = fk.shape[:2]
+    require(set(torch.unique(fk).tolist()) <= {0.0, 1.0}, "kernel frames not binary")
+    near = ((u - probs).abs() < 1e-4).any(dim=2)  # [B, nsteps]
+    diff = (fk != fp).any(dim=2)
+    first = lambda m: torch.where(m.any(1), m.float().argmax(1), torch.full_like(m[:, 0], nsteps,
+                                                                                 dtype=torch.long))
+    t_tie, t_diff = first(near), first(diff)
+    bad = (t_diff < t_tie).nonzero().flatten().tolist()
+    whole = int((t_diff == nsteps).sum().item())
+    print(f"{label}: {whole}/{B} songs agree wholly; {int((t_tie < nsteps).sum())} songs "
+          f"have a near-tie (median first near-tie at step {int(t_tie.median())}); "
+          f"songs diverging before their first near-tie: {bad}")
+    require(not bad, f"songs {bad} diverge before a near-tie")
+
+
 def roofline_ms(fmas: float, nbytes: float) -> tuple[float, str]:
     """Least time for a call: the larger of its f32 operations (2 per FMA)
     over the card's f32 rate and its bytes over HBM bandwidth."""
@@ -152,8 +192,8 @@ def phase_build():
     for name, log in logs.items():
         print(f"--- nvcc csrc/{name}.cu ---\n{log.strip()}")
     print(f"kernel build: {build_s:.2f} s for {sorted(logs) or 'no sources (already built)'}")
-    require(set(_build.sources()) == {"generate_cl_vrnn", "lstm_seq", "two_cell"},
-            f"sources {_build.sources()}")
+    require(set(_build.sources()) == {"generate_cl_vae", "generate_cl_vrnn", "lstm_seq",
+                                      "two_cell"}, f"sources {_build.sources()}")
 
 
 def phase_f32(dev):
@@ -195,18 +235,7 @@ def phase_f32(dev):
 
     fk, fp, probs = kern(u, False), plain(u, False), plain(u, True)
     torch.cuda.synchronize()
-    require(set(torch.unique(fk).tolist()) <= {0.0, 1.0}, "kernel frames not binary")
-    near = ((u[:, Tseed:] - probs).abs() < 1e-4).any(dim=2)  # [B, nsteps]
-    diff = (fk != fp).any(dim=2)
-    first = lambda m: torch.where(m.any(1), m.float().argmax(1), torch.full_like(m[:, 0], nsteps,
-                                                                                 dtype=torch.long))
-    t_tie, t_diff = first(near), first(diff)
-    bad = (t_diff < t_tie).nonzero().flatten().tolist()
-    whole = int((t_diff == nsteps).sum().item())
-    print(f"f32 frames: {whole}/{B} songs agree wholly; {int((t_tie < nsteps).sum())} songs "
-          f"have a near-tie (median first near-tie at step {int(t_tie.median())}); "
-          f"songs diverging before their first near-tie: {bad}")
-    require(not bad, f"songs {bad} diverge before a near-tie")
+    frames_agree_to_near_tie("f32 frames", fk, fp, u[:, Tseed:], probs)
 
     k_ms = time_ms(lambda: kern(u, False), reps=10, warm=2)
     p_ms = time_ms(lambda: plain(u, False), reps=3, warm=1)
@@ -271,47 +300,28 @@ def phase_bf16(dev):
     require(mx <= 2e-2 and mean <= 2e-3, f"bf16 probabilities differ: max {mx}, mean {mean}")
 
 
-def phase_serve():
+def exercise_server(httpd, extra=()):
+    """Serve ``httpd`` in a thread and drive /generate as a client would:
+    /healthz, a rolls, a MIDI and a key-filtered request, the ``extra``
+    (label, body) rolls requests, then a burst of 8 concurrent requests.
+    Returns /stats and each request's ms on the client's clock (HTTP and
+    JSON included); shuts the server down."""
     import base64
 
     import numpy as np
 
-    from classifying_vae_lstm_tpu_torch.cli import serve
-    from classifying_vae_lstm_tpu_torch.ops import cuda_generate as cg
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    client_ms = {}
 
-    plain_on_cuda = []
-    plain = cg.generate_cl_vrnn_batch_plain
-
-    def guarded_plain(params, cfg, x_seeds, *a, **k):
-        if x_seeds.is_cuda:
-            plain_on_cuda.append(tuple(x_seeds.shape))
-        return plain(params, cfg, x_seeds, *a, **k)
-
-    cg.generate_cl_vrnn_batch_plain = guarded_plain
-    args = serve.build_parser().parse_args(
-        ["-i", MODEL, "--train_file", CORPUS, "--dynamic_batching", "--warmup", "full",
-         "--port", "0"])
-    cg.LAUNCHES = 0  # counts from here on are the main path's
-    t0 = time.perf_counter()
-    httpd, engine = serve.make_server(args)
-    print(f"engine built and warmed in {time.perf_counter() - t0:.2f} s "
-          f"({cg.LAUNCHES} warm-up launches)")
-    warm_launches = cg.LAUNCHES
-    port = httpd.server_address[1]
-    th = threading.Thread(target=httpd.serve_forever, daemon=True)
-    th.start()
-    url = f"http://127.0.0.1:{port}"
-
-    client_ms = {}  # request -> ms on the client's clock, HTTP and JSON included
-
-    def post(body, label=None):
+    def post(body, label):
         req = urllib.request.Request(f"{url}/generate", data=json.dumps(body).encode(),
                                      headers={"Content-Type": "application/json"})
         t0 = time.perf_counter()
         with urllib.request.urlopen(req, timeout=120) as r:
-            require(r.status == 200, f"{body} -> HTTP {r.status}")
+            require(r.status == 200, f"{label} -> HTTP {r.status}")
             out = json.load(r)
-        client_ms[label or json.dumps(body)] = (time.perf_counter() - t0) * 1e3
+        client_ms[label] = (time.perf_counter() - t0) * 1e3
         return out
 
     def check_rolls(out, n, t):
@@ -322,19 +332,21 @@ def phase_serve():
     try:
         with urllib.request.urlopen(f"{url}/healthz", timeout=30) as r:
             require(json.load(r)["ok"], "/healthz")
-        check_rolls(post({"n": 4, "t": 64}), 4, 64)
-        out = post({"n": 16, "t": 128, "format": "midi_base64"})
+        check_rolls(post({"n": 4, "t": 64}, "4x64"), 4, 64)
+        out = post({"n": 16, "t": 128, "format": "midi_base64"}, "16x128 midi")
         require(len(out["midi_base64"]) == 16
                 and all(base64.b64decode(m)[:4] == b"MThd" for m in out["midi_base64"]),
                 "midi_base64 response")
-        check_rolls(post({"n": 1, "t": 32, "key": "C"}), 1, 32)
+        check_rolls(post({"n": 1, "t": 32, "key": "C"}, "1x32 key C"), 1, 32)
+        for label, body in extra:
+            check_rolls(post(body, label), body["n"], body["t"])
         results, errors = [None] * 8, []
         barrier = threading.Barrier(8)
 
         def client(i):
             try:
                 barrier.wait(timeout=30)
-                results[i] = post({"n": 2, "t": 64}, label=f"burst {i}")
+                results[i] = post({"n": 2, "t": 64}, f"burst {i}")
             except Exception as e:  # noqa: BLE001 — reported below
                 errors.append(repr(e))
 
@@ -351,18 +363,36 @@ def phase_serve():
     finally:
         httpd.shutdown()
         httpd.server_close()
-        cg.generate_cl_vrnn_batch_plain = plain
-    launches = cg.LAUNCHES
+    solo = [f"{k} {v:.3f} ms" for k, v in client_ms.items() if not k.startswith("burst")]
+    burst = sorted(v for k, v in client_ms.items() if k.startswith("burst"))
+    print(f"client latency: {'; '.join(solo)}; burst of 8 x {{n: 2, t: 64}}: min "
+          f"{burst[0]:.3f} ms, median {burst[4]:.3f} ms, max {burst[-1]:.3f} ms")
+    return stats
+
+
+def phase_serve():
+    from classifying_vae_lstm_tpu_torch.cli import serve
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate as cg
+
+    plain_on_cuda = []
+    args = serve.build_parser().parse_args(
+        ["-i", MODEL, "--train_file", CORPUS, "--dynamic_batching", "--warmup", "full",
+         "--port", "0"])
+    with sampler_plain_guard(cg, "generate_cl_vrnn_batch_plain", plain_on_cuda):
+        cg.LAUNCHES = 0  # counts from here on are the main path's
+        t0 = time.perf_counter()
+        httpd, engine = serve.make_server(args)
+        print(f"engine built and warmed in {time.perf_counter() - t0:.2f} s "
+              f"({cg.LAUNCHES} warm-up launches)")
+        warm_launches = cg.LAUNCHES
+        stats = exercise_server(httpd)
+        launches = cg.LAUNCHES
     lat = engine.latency_stats()
     print(f"/stats: requests {stats['requests']}, batches {stats['batches']}, batched_songs "
           f"{stats['batched_songs']}, gen_path {stats['gen_path']}, device {stats['device']}")
     print(f"main path launches: {launches} ({warm_launches} warm-up, "
           f"{launches - warm_launches} for {stats['requests']} requests); "
-          f"latency p50 {lat['p50_ms']:.3f} ms, p95 {lat['p95_ms']:.3f} ms")
-    solo = [f"{k} {v:.3f} ms" for k, v in client_ms.items() if not k.startswith("burst")]
-    burst = sorted(v for k, v in client_ms.items() if k.startswith("burst"))
-    print(f"client latency: {'; '.join(solo)}; burst of 8 x {{n: 2, t: 64}}: min "
-          f"{burst[0]:.3f} ms, median {burst[4]:.3f} ms, max {burst[-1]:.3f} ms "
+          f"latency p50 {lat['p50_ms']:.3f} ms, p95 {lat['p95_ms']:.3f} ms "
           f"(window {args.batch_window_ms} ms)")
     require(launches > warm_launches, "requests did not launch the kernel")
     require(stats["batches"] > 0, "the burst was not coalesced (batches == 0)")
@@ -495,6 +525,24 @@ def plain_guard(module, names, record):
     finally:
         for n, fn in real.items():
             setattr(module, n, fn)
+
+
+@contextlib.contextmanager
+def sampler_plain_guard(module, name, record):
+    """Record every call of a sampler's plain version (``fn(params, cfg,
+    x_seeds, ...)``) on a CUDA tensor."""
+    real = getattr(module, name)
+
+    def guarded(params, cfg, x_seeds, *a, **k):
+        if x_seeds.is_cuda:
+            record.append((name, tuple(x_seeds.shape)))
+        return real(params, cfg, x_seeds, *a, **k)
+
+    setattr(module, name, guarded)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
 
 
 def run_train(run, flags, model_dir, reset, read):
@@ -957,6 +1005,218 @@ def phase_evaluate(ckpt):
     return counts_k[0]
 
 
+def vae_bound_ms(cfg, B, nsteps, weight_bytes) -> tuple[float, str]:
+    """Least time for one cl_vae generation call: its f32 FMAs (encoder x
+    rows, z heads, decoder z and x_prev rows, frame head, per song-step)
+    against its bytes (seeds, eps, u, the per-song folds, the weights and the
+    output, each once)."""
+    D, H, L = cfg.original_dim, cfg.intermediate_dim, cfg.latent_dim
+    n_xp = D if cfg.use_x_prev else 0
+    fmas = B * nsteps * (D * H + H * 2 * L + L * H + n_xp * H + H * D)
+    stream_bytes = 4 * (B * D + B * nsteps * (L + D) + 2 * B * H + B * nsteps * D)
+    return roofline_ms(fmas, stream_bytes + weight_bytes)
+
+
+def phase_vae(dev):
+    """The cl_vae generation kernel against its plain version: f32 on the
+    trained jsball_vae weights at the largest serving bucket, then bf16 at
+    a seeded width where f32 weights would not fit. Returns the kernel-table
+    fields of the f32 run."""
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.cli import common
+    from classifying_vae_lstm_tpu_torch.models import cl_vae
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae as cgv
+    from classifying_vae_lstm_tpu_torch.sampling import infer_w_cl_vae
+    from classifying_vae_lstm_tpu_torch.weights import params_from_numpy
+
+    raw, cfg, _ = common.load_model(VAE_MODEL, "cl_vae")
+    params = params_from_numpy(raw, dev)
+    B, nsteps = 64, 256
+    D, L = cfg.original_dim, cfg.latent_dim
+    seeds = torch.from_numpy(np.ascontiguousarray(seed_windows(B)[:, 0])).to(dev)
+    ws = infer_w_cl_vae(params, seeds)
+    rng = np.random.default_rng(SEED + 4)
+    eps = torch.from_numpy(rng.standard_normal((B, nsteps, L), dtype=np.float32)).to(dev)
+    u = torch.from_numpy(rng.random((B, nsteps, D), dtype=np.float32)).to(dev)
+    u1 = torch.ones_like(u)
+    errs, times = {}, {}
+    for zp in (False, True):
+        kern = lambda uu, rp: cgv.generate_cl_vae_batch_cuda(
+            params, cfg, seeds, nsteps, eps, uu, ws, use_z_prior=zp, return_probs=rp)
+        plain = lambda uu, rp: cgv.generate_cl_vae_batch_plain(
+            params, cfg, seeds, nsteps, eps, uu, ws, use_z_prior=zp, return_probs=rp)
+        pk, pp = kern(u1, True), plain(u1, True)
+        torch.cuda.synchronize()
+        require(torch.isfinite(pk).all().item() and pk.shape == (B, nsteps, D),
+                "cl_vae kernel probabilities not finite or misshapen")
+        errs[zp] = (pk - pp).abs().max().item()
+        print(f"cl_vae f32 probs, u=1, use_z_prior={zp}: max |kernel - plain| = "
+              f"{errs[zp]:.3e} (limit 1e-5)")
+        require(errs[zp] <= 1e-5, f"cl_vae f32 probabilities differ by {errs[zp]}")
+        fk, fp, probs = kern(u, False), plain(u, False), plain(u, True)
+        torch.cuda.synchronize()
+        frames_agree_to_near_tie(f"cl_vae f32 frames, use_z_prior={zp}", fk, fp, u, probs)
+        # kernel, plain, plain, kernel
+        times[zp] = (time_ms(lambda: kern(u, False), reps=20, warm=2),
+                     time_ms(lambda: plain(u, False), reps=3, warm=1),
+                     time_ms(lambda: plain(u, False), reps=3),
+                     time_ms(lambda: kern(u, False), reps=20))
+    w = cgv._pack(params, cfg, ws, "f32")
+    wbytes = sum(w[k].numel() * w[k].element_size()
+                 for k in ("wke", "wz_t", "bz", "wkd_x", "wkd_z", "wx", "bx") if w[k] is not None)
+    b_ms, b_by = vae_bound_ms(cfg, B, nsteps, wbytes)
+    for zp, (k1, p1, p2, k2) in times.items():
+        print(f"cl_vae f32 kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.3f} / {p2:.3f} ms "
+              f"(use_z_prior={zp}), bound {b_ms:.4f} ms ({b_by}) at B={B} nsteps={nsteps} "
+              f"H={cfg.intermediate_dim}; shared memory {cgv.smem_bytes(cfg)} B per block")
+    grid = {}  # the serving buckets (songs x steps), each after a warm-up launch
+    for b in (1, 4, 16, 64):
+        for t in (32, 64, 128, 256):
+            args = [x[:b, :t].contiguous() for x in (eps, u)]
+            sb, wb = seeds[:b].contiguous(), ws[:b].contiguous()
+            grid[f"{b}x{t}"] = round(time_ms(lambda: cgv.generate_cl_vae_batch_cuda(
+                params, cfg, sb, t, args[0], args[1], wb), reps=5), 4)
+    print(f"cl_vae f32 kernel ms per serving bucket (songs x steps): {json.dumps(grid)}")
+
+    # bf16 weights at H=256, where the f32 ones would overflow shared memory
+    H, K = 256, cfg.n_classes
+    bcfg = cl_vae.Config(original_dim=D, intermediate_dim=H, latent_dim=L,
+                         intermediate_class_dim=88, n_classes=K, use_x_prev=True,
+                         bf16_compute=True)
+    require(not cgv.fits(bcfg, "f32") and cgv.fits(bcfg, "bf16"), "bf16 width choice")
+    brng = np.random.default_rng(SEED + 5)
+
+    def glorot(i, o):
+        lim = np.sqrt(6.0 / (i + o))
+        return brng.uniform(-lim, lim, (i, o)).astype(np.float32)
+
+    dense = lambda i, o: {"kernel": glorot(i, o), "bias": np.zeros(o, np.float32)}
+    bparams = params_from_numpy({"h": dense(D + K, H), "z_mean": dense(H, L),
+                                 "z_log_var": dense(H, L), "decoder_h": dense(K + D + L, H),
+                                 "x_decoded_mean": dense(H, D)}, dev)
+    bws = torch.eye(K, device=dev)[torch.arange(B, device=dev) % K]
+    run = lambda f: f(bparams, bcfg, seeds, nsteps, eps, u1, bws, return_probs=True)
+    pk, pp = run(cgv.generate_cl_vae_batch_cuda), run(cgv.generate_cl_vae_batch_plain)
+    torch.cuda.synchronize()
+    d = (pk - pp).abs()
+    mx, mean = d.max().item(), d.mean().item()
+    k_ms = time_ms(lambda: run(cgv.generate_cl_vae_batch_cuda), reps=10, warm=1)
+    print(f"cl_vae bf16 H={H} probs, u=1: max {mx:.3e} (limit 2e-2), mean {mean:.3e} (limit "
+          f"2e-3); kernel {k_ms:.4f} ms at B={B} nsteps={nsteps}; shared memory "
+          f"{cgv.smem_bytes(bcfg)} B per block")
+    require(torch.isfinite(pk).all().item(), "cl_vae bf16 kernel probabilities not finite")
+    require(mx <= 2e-2 and mean <= 2e-3, f"cl_vae bf16 probabilities differ: max {mx}, "
+                                        f"mean {mean}")
+    k_ms, p_ms = times[False][0], times[False][1]
+    return {"max_abs_err": max(errs.values()), "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def phase_vae_serve():
+    """cl_vae serving through ``cli.serve``: one kernel launch per engine
+    device call. Returns the launches."""
+    import base64
+
+    import numpy as np
+
+    from classifying_vae_lstm_tpu_torch.cli import serve
+    from classifying_vae_lstm_tpu_torch.data import MidiWriter
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae as cgv
+    from classifying_vae_lstm_tpu_torch.serving import GenerationEngine
+
+    runs, runs_lock = [0], threading.Lock()
+    real_run = GenerationEngine._run
+
+    def counted_run(self, *a, **k):
+        with runs_lock:
+            runs[0] += 1
+        return real_run(self, *a, **k)
+
+    with tempfile.TemporaryDirectory() as d:
+        roll = np.zeros((12, 88), np.float32)
+        roll[:, [39, 43, 46]] = 1.0
+        MidiWriter().dump_sequence_to_midi(roll, os.path.join(d, "seed.mid"))
+        with open(os.path.join(d, "seed.mid"), "rb") as f:
+            seed_b64 = base64.b64encode(f.read()).decode()
+    args = serve.build_parser().parse_args(
+        ["-i", VAE_MODEL, "--train_file", CORPUS, "--dynamic_batching", "--warmup", "full",
+         "--port", "0"])
+    plain_on_cuda = []
+    GenerationEngine._run = counted_run
+    try:
+        with sampler_plain_guard(cgv, "generate_cl_vae_batch_plain", plain_on_cuda):
+            cgv.LAUNCHES = 0  # counts from here on are this path's
+            t0 = time.perf_counter()
+            httpd, engine = serve.make_server(args)
+            warm = (cgv.LAUNCHES, runs[0])
+            print(f"cl_vae engine built and warmed in {time.perf_counter() - t0:.2f} s "
+                  f"({warm[0]} warm-up launches for {warm[1]} device calls)")
+            stats = exercise_server(httpd, [("2x64 seed_midi", {
+                "n": 2, "t": 64, "seed_midi_base64": seed_b64})])
+            launches, calls = cgv.LAUNCHES, runs[0]
+    finally:
+        GenerationEngine._run = real_run
+    lat = engine.latency_stats()
+    print(f"cl_vae /stats: family {stats['family']}, gen_backend {stats['gen_backend']}, "
+          f"requests {stats['requests']}, batches {stats['batches']}, batched_songs "
+          f"{stats['batched_songs']}, gen_path {stats['gen_path']}")
+    print(f"cl_vae main path: {launches} launches for {calls} engine device calls "
+          f"({warm[0]} warm-up); latency p50 {lat['p50_ms']:.3f} ms, p95 {lat['p95_ms']:.3f} ms")
+    require(stats["family"] == "cl_vae", f"/stats family {stats['family']}")
+    require(launches == calls and launches > warm[0],
+            f"cl_vae launches {launches} != engine device calls {calls}")
+    require(stats["batches"] > 0, "the cl_vae burst was not coalesced (batches == 0)")
+    require(not plain_on_cuda, f"plain version ran on CUDA tensors: {plain_on_cuda}")
+    return launches
+
+
+def phase_sample_clis(out_dir):
+    """Both sample CLIs on the card, each with exactly one launch of its
+    kernel. Returns the cl_vae launches."""
+    import numpy as np
+
+    from classifying_vae_lstm_tpu_torch.cli import cl_vae_sample, cl_vrnn_sample
+    from classifying_vae_lstm_tpu_torch.data import read_midi_roll
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate as cg
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae as cgv
+
+    runs = (
+        ("cl_vae_sample", cl_vae_sample, cgv, "generate_cl_vae_batch_plain",
+         ["smoke_vae", "-i", "artifacts/jsbcs_vae.npz", "-n", "8", "-t", "64"], (8, 64), True),
+        ("cl_vrnn_sample", cl_vrnn_sample, cg, "generate_cl_vrnn_batch_plain",
+         ["smoke_vrnn", "-i", MODEL, "--infer_w", "-n", "4"], (4, 32), False),
+    )
+    vae_launches = 0
+    for name, cli, kmod, plain_name, argv, (n, t), doubled in runs:
+        args = cli.build_parser().parse_args(
+            [*argv, "--train_file", EVAL_CORPUS, "--sample_dir", out_dir])
+        plain_on_cuda = []
+        with sampler_plain_guard(kmod, plain_name, plain_on_cuda):
+            kmod.LAUNCHES = 0  # counts from here on are this CLI's
+            t0 = time.perf_counter()
+            samples = cli.sample(args)
+            wall = time.perf_counter() - t0
+            launches = kmod.LAUNCHES
+        require(samples.shape == (n, t, 88) and set(np.unique(samples).tolist()) <= {0, 1},
+                f"{name} samples {samples.shape}")
+        for j in range(n):
+            roll = read_midi_roll(os.path.join(out_dir, f"{args.run_name}_{j}.mid"))
+            want = np.repeat(samples[j], 2, axis=0) if doubled else samples[j]
+            require(np.array_equal(roll, want[: len(roll)]) and not want[len(roll):].any(),
+                    f"{name}: song {j}'s MIDI does not parse back into its frames")
+        files = sorted(f for f in os.listdir(out_dir) if f.startswith(args.run_name))
+        print(f"{name}: {n} songs x {t} frames in {wall:.3f} s (host clock, checkpoint and "
+              f"corpus included), {launches} launch, {int(samples.sum())} notes on; files "
+              f"{len(files)} ({files[0]} .. {files[-1]})")
+        require(launches == 1, f"{name} launched its kernel {launches} times")
+        require(not plain_on_cuda, f"{name}: plain version ran on CUDA tensors")
+        if cli is cl_vae_sample:
+            vae_launches = launches
+    return vae_launches
+
+
 def main() -> int:
     import torch
 
@@ -983,6 +1243,10 @@ def main() -> int:
             model_dir, seen["history"]["loss"][0])
         phase_train_breakdown(seen_off, "LSTM kernels", "lstm_seq")
         eval_launches = phase_evaluate(seen_off["ckpt"])
+    vae = phase_vae(dev)
+    vae_launches = phase_vae_serve()
+    with tempfile.TemporaryDirectory() as sample_dir:
+        vae_launches += phase_sample_clis(sample_dir)
     source = "classifying_vae_lstm_tpu_torch/csrc/two_cell.cu"
     lstm_source = "classifying_vae_lstm_tpu_torch/csrc/lstm_seq.cu"
     pallas_lstm = "classifying_vae_lstm_tpu/ops/pallas_lstm.py"
@@ -1011,6 +1275,11 @@ def main() -> int:
         "name": "lstm_seq_bwd", "route": "cuda", "source": lstm_source,
         "replaces": f"{pallas_lstm}:986", "launches": lstm_bwd_launches, **lstm["bwd"],
         "library_ms": None,
+    }, {
+        "name": "generate_cl_vae", "route": "cuda",
+        "source": "classifying_vae_lstm_tpu_torch/csrc/generate_cl_vae.cu",
+        "replaces": "classifying_vae_lstm_tpu/ops/pallas_generate_vae.py:141",
+        "launches": vae_launches, **vae, "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))
     print(line)

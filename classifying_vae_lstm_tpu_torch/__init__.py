@@ -7,10 +7,12 @@ the standard library only — never ``jax`` and never the JAX package.
 Ported so far: the cl_vrnn serving path (checkpoint loading, the model's
 step functions, noise-explicit batched generation through the hand-written
 whole-generation CUDA kernel ``csrc/generate_cl_vrnn.cu``, the bucketed
-serving engine and its HTTP frontend) and its training path (the model's
+serving engine and its HTTP frontend), its training path (the model's
 ``apply`` and losses, the optimizers, the epoch trainer, checkpoint saving
 and the ``cl_vrnn_train`` CLI, whose ``pallas`` backend runs the two-cell
-CUDA kernels of ``csrc/two_cell.cu``).
+CUDA kernels of ``csrc/two_cell.cu``), its IW-NLL evaluation and
+``--two_cell off`` training (``csrc/lstm_seq.cu``), cl_vae generation and
+serving (``csrc/generate_cl_vae.cu``), and both sample CLIs.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 ``cuda`` requested and no card present they raise (:func:`resolve_device`).

@@ -13,13 +13,11 @@ import torch
 
 from ..data import PianoData
 from ..data.pianoroll import to_categorical
-from ..models import cl_vrnn
+from ..models import cl_vae, cl_vrnn
 from ..train.checkpoint import load_checkpoint, load_model_args
 
 # the corpus shipped with the repository (training data, seed windows for serving)
 DEFAULT_TRAIN_FILE = "data/input/Piano-midi_all.pickle"
-
-CL_VAE_TODO = "the cl_vae family is not ported yet (ROADMAP Queue 1 item 11)"
 
 
 def build_cl_vrnn_datasets(P: PianoData, n_classes: int, use_x_prev: bool, device) -> dict:
@@ -34,6 +32,21 @@ def build_cl_vrnn_datasets(P: PianoData, n_classes: int, use_x_prev: bool, devic
         arrays = {"y": y, "w": w, **({"x": y, "x_prev": x} if use_x_prev else {"x": x})}
         out[split] = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
     return out
+
+
+def cl_vae_config_from_args(margs: dict) -> cl_vae.Config:
+    return cl_vae.Config(
+        original_dim=margs["original_dim"],
+        intermediate_dim=margs["intermediate_dim"],
+        latent_dim=margs["latent_dim"],
+        intermediate_class_dim=margs["intermediate_class_dim"],
+        n_classes=margs["n_classes"],
+        use_x_prev=margs.get("use_x_prev", False),
+        w_log_var_prior=margs.get("w_log_var_prior", 0.0),
+        gen_backend=margs.get("gen_backend", "xla"),
+        bf16_compute=margs.get("bf16_compute", False),
+        train_backend=margs.get("train_backend", "xla"),
+    )
 
 
 def cl_vrnn_config_from_args(margs: dict) -> cl_vrnn.Config:
@@ -65,13 +78,27 @@ def resolve_lstm_backend(cfg, choice: str = "auto"):
     return dataclasses.replace(cfg, lstm_backend="xla" if choice == "auto" else choice)
 
 
+def resolve_gen_backend(cfg, choice: str = "auto"):
+    """The cl_vae ``--gen_backend`` flag, parsed as the JAX package parses
+    it: ``keep`` leaves the checkpoint's setting, ``auto`` resolves as it
+    does off a TPU, to ``xla`` (the JAX gate to its kernel is a TPU
+    measurement, which the port does not read), and an explicit name is
+    taken as it is. The choice is recorded only: generation on the card
+    always runs the CUDA kernel, whose f32 mode gives the same frames as the
+    scan, and the CPU its plain version."""
+    if choice == "keep":
+        return cfg
+    return dataclasses.replace(cfg, gen_backend="xla" if choice == "auto" else choice)
+
+
 def load_model(model_file: str, family: str, no_x_prev: bool = False):
     """args.json + weights -> (params as nested NumPy dicts, cfg, margs)."""
-    if family != "cl_vrnn":
-        raise NotImplementedError(CL_VAE_TODO)
     margs = load_model_args(model_file)
     if no_x_prev or "use_x_prev" not in margs:
         margs["use_x_prev"] = False
-    cfg = cl_vrnn_config_from_args(margs)
+    if family == "cl_vae":
+        cfg = cl_vae_config_from_args(margs)
+    else:
+        cfg = cl_vrnn_config_from_args(margs)
     weights_file = model_file if model_file.endswith(".npz") else model_file.replace(".h5", ".npz")
     return load_checkpoint(weights_file), cfg, margs

@@ -8,7 +8,8 @@ Flag for flag the JAX package's ``cli/evaluate.py``, with two exceptions:
 ``--lstm_backend pallas`` runs both LSTMs through the whole-sequence
 inference kernel (``ops/lstm_seq.py``; its plain version on the CPU),
 ``xla`` through plain PyTorch, ``keep`` (the default) as the checkpoint
-trained. The cl_vae family and ``--dp > 1`` are not ported yet and raise.
+trained. The cl_vae family (its IW-NLL comes with the cl_vae training
+slice) and ``--dp > 1`` are not ported yet and raise.
 Prints one JSON line, the JAX package's.
 """
 
@@ -21,7 +22,7 @@ import torch
 
 from .. import resolve_device
 from ..data import PianoData
-from ..evaluation.nll import DP_TODO, iw_nll_dataset
+from ..evaluation.nll import CL_VAE_TODO, DP_TODO, iw_nll_dataset
 from ..train.checkpoint import load_model_args
 from ..weights import params_from_numpy
 from . import common
@@ -34,7 +35,9 @@ def evaluate(args):
         # cl_vae checkpoints carry intermediate_class_dim; cl_vrnn ones don't
         margs_probe = load_model_args(args.model_file)
         args.family = "cl_vae" if "intermediate_class_dim" in margs_probe else "cl_vrnn"
-    raw, cfg, margs = common.load_model(args.model_file, args.family)  # cl_vae raises
+    if args.family == "cl_vae":
+        raise NotImplementedError(CL_VAE_TODO)
+    raw, cfg, margs = common.load_model(args.model_file, args.family)
     device = resolve_device(args.device)
     cfg = common.resolve_lstm_backend(cfg, args.lstm_backend)
     # batch_size=1: PianoData truncates every split to a multiple of its

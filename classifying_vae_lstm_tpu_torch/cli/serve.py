@@ -1,6 +1,8 @@
-"""HTTP serving frontend for trained cl_vrnn models, on the card.
+"""HTTP serving frontend for trained models of either family, on the card.
 
     python -m classifying_vae_lstm_tpu_torch.cli.serve -i artifacts/jsball_vrnn4.npz \\
+        --train_file data/input/Piano-midi_all.pickle --port 8787
+    python -m classifying_vae_lstm_tpu_torch.cli.serve -i artifacts/jsball_vae.npz \\
         --train_file data/input/Piano-midi_all.pickle --port 8787
 
 Endpoints (JSON):
@@ -11,9 +13,12 @@ Endpoints (JSON):
                              "seed_midi_base64": "..."}
                             returns rolls (nested lists) or base64 .mid files
 
-Generation runs on ``--device`` (``cuda`` by default, where every request is
-one launch of the whole-generation CUDA kernel; ``cpu`` runs its plain
-version). The flags are the JAX frontend's, plus ``--device``.
+The family (``--family auto``) is read from the checkpoint's args: cl_vae
+checkpoints carry ``intermediate_class_dim``. A cl_vrnn engine seeds from
+corpus windows, a cl_vae engine from their first frames. Generation runs on
+``--device`` (``cuda`` by default, where every request is one launch of the
+family's whole-generation CUDA kernel; ``cpu`` runs its plain version). The
+flags are the JAX frontend's, plus ``--device``.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from ..data import MidiWriter, PianoData, roll_from_smf_bytes
-from ..ops import cuda_generate
+from ..ops import cuda_generate, cuda_generate_vae
 from ..serving import DynamicBatcher, GenerationEngine
 from ..train.checkpoint import load_model_args
 from . import common
@@ -49,15 +54,21 @@ def build_engine(args) -> tuple[GenerationEngine, dict]:
     family = args.family
     if family == "auto":
         family = "cl_vae" if "intermediate_class_dim" in load_model_args(args.model_file) else "cl_vrnn"
-    if family == "cl_vae":
-        raise NotImplementedError(common.CL_VAE_TODO)
     if getattr(args, "dp", 1) > 1:
         raise NotImplementedError("--dp > 1 (songs sharded over several cards) is not "
                                   "ported yet (ROADMAP Queue 1 item 14)")
     params, cfg, _ = common.load_model(args.model_file, family)
-    cfg = common.resolve_lstm_backend(cfg, getattr(args, "lstm_backend", "auto"))
-    P = PianoData(args.train_file, batch_size=1, seq_length=args.seed_len, squeeze_x=False)
-    engine = GenerationEngine(params, cfg, P.x_test, P.test_song_keys,
+    if family == "cl_vae":
+        choice = getattr(args, "gen_backend", "auto")
+        cfg = common.resolve_gen_backend(cfg, choice)
+        if choice == "auto":
+            print(f"gen_backend=auto -> {cfg.gen_backend}")
+    else:
+        cfg = common.resolve_lstm_backend(cfg, getattr(args, "lstm_backend", "auto"))
+    squeeze = family == "cl_vae"
+    P = PianoData(args.train_file, batch_size=1, seq_length=args.seed_len, squeeze_x=squeeze)
+    seeds = P.x_test[:, 0] if squeeze and P.x_test.ndim == 3 else P.x_test
+    engine = GenerationEngine(params, cfg, seeds, P.test_song_keys,
                               device=getattr(args, "device", "cuda"),
                               dynamic_batching=getattr(args, "dynamic_batching", False),
                               batch_window_ms=getattr(args, "batch_window_ms",
@@ -95,10 +106,16 @@ def make_handler(engine: GenerationEngine, key_map: dict, is_jsb: bool):
             if self.path == "/healthz":
                 self._send(200, {"ok": True})
             elif self.path == "/stats":
+                vae = engine.family == "cl_vae"
                 resolved = {"family": engine.family, "device": str(engine.device),
                             "mode": engine.mode,
                             "gen_path": "cuda_kernel" if engine.device.type == "cuda" else "plain",
-                            "kernel_launches": cuda_generate.LAUNCHES}
+                            "kernel_launches": (cuda_generate_vae if vae
+                                                else cuda_generate).LAUNCHES}
+                if vae:
+                    resolved["gen_backend"] = engine.cfg.gen_backend
+                else:
+                    resolved["lstm_backend"] = engine.cfg.lstm_backend
                 self._send(200, {**engine.stats, **engine.latency_stats(), **resolved})
             else:
                 self._send(404, {"error": "not found"})
@@ -189,19 +206,21 @@ def build_parser():
     parser.add_argument("--seed_len", type=int, default=32, help="seed window length")
     parser.add_argument("--family", type=str, default="auto",
                         choices=["auto", "cl_vae", "cl_vrnn"],
-                        help="cl_vae is not ported yet and raises")
+                        help="'auto' reads the family from the checkpoint's args")
     parser.add_argument("--host", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8787)
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                         help="cuda: the whole-generation CUDA kernel; cpu: its plain version")
     parser.add_argument("--lstm_backend", type=str, default="auto",
                         choices=["auto", "keep", "xla", "pallas"],
-                        help="recorded in the config only: 'auto'/'keep' keep the "
-                             "checkpoint's numerics; generation on cuda always runs "
+                        help="cl_vrnn: recorded in the config only: 'auto'/'keep' keep "
+                             "the checkpoint's numerics; generation on cuda always runs "
                              "the CUDA kernel")
     parser.add_argument("--gen_backend", type=str, default="auto",
                         choices=["auto", "keep", "xla", "pallas"],
-                        help="cl_vae generation backend (cl_vae is not ported yet)")
+                        help="cl_vae: recorded in the config only ('auto' resolves to "
+                             "'xla'); generation on cuda always runs the CUDA kernel, "
+                             "whose f32 frames equal the scan's")
     parser.add_argument("--dp", type=int, default=1,
                         help="shard generation over N cards (not ported yet: > 1 raises)")
     parser.add_argument("--dynamic_batching", action="store_true",

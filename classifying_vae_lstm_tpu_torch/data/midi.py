@@ -1,15 +1,18 @@
 """MIDI: binary piano-roll <-> Standard MIDI File bytes (pure NumPy).
 
-Copy of what serving needs from ``classifying_vae_lstm_tpu/data/midi.py``:
-:class:`MidiWriter` (the reference's event semantics: format-1 file, 4/4
-meta track, NoteOn/NoteOff diffing, pitch offset +21, tick step 120,
-resolution 480, velocity 100) and the general SMF input path
-(:func:`parse_smf`, :func:`quantize_notes`, :func:`roll_from_smf_bytes`) that
-seeds generation from a user's MIDI file.
+Copy of what serving and the sample CLIs need from
+``classifying_vae_lstm_tpu/data/midi.py``: :class:`MidiWriter` (the
+reference's event semantics: format-1 file, 4/4 meta track, NoteOn/NoteOff
+diffing, pitch offset +21, tick step 120, resolution 480, velocity 100),
+:func:`write_sample` (``<fnm>.mid``, frames doubled for JSB corpora), the
+round-trip parser :func:`read_midi_roll`, and the general SMF input path
+(:func:`parse_smf`, :func:`quantize_notes`, :func:`roll_from_smf_bytes`,
+:func:`midi_to_roll`) that seeds generation from a user's MIDI file.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 
 import numpy as np
@@ -119,6 +122,66 @@ class MidiWriter:
             f.write(data)
 
 
+def write_sample(sample, outdir, fnm, isHalfAsSlow: bool = False) -> str:
+    """Write a generated roll as ``<outdir>/<fnm>.mid``; ``isHalfAsSlow``
+    doubles every frame (the JSB corpora's frame rate)."""
+    sample = np.asarray(sample)
+    if isHalfAsSlow:
+        sample = np.repeat(sample, 2, axis=0)
+    path = os.path.join(outdir, fnm + ".mid")
+    MidiWriter().dump_sequence_to_midi(sample, path)
+    return path
+
+
+def read_midi_roll(path, time_step: int = 120, offset: int = 21, note_range: int = 88):
+    """Parse a .mid written by :class:`MidiWriter` back into a binary roll
+    (assumes the writer's fixed grid; trailing silent frames are not
+    representable in the format and come back missing)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:4] != b"MThd":
+        raise ValueError(f"{path} is not a MIDI file (missing MThd)")
+    (ntracks,) = struct.unpack(">H", data[10:12])
+    pos = 8 + struct.unpack(">I", data[4:8])[0]
+    events = []  # (abs_tick, on/off, pitch)
+    for _ in range(ntracks):
+        if data[pos : pos + 4] != b"MTrk":
+            raise ValueError(f"{path}: bad track chunk")
+        (length,) = struct.unpack(">I", data[pos + 4 : pos + 8])
+        tpos, end = pos + 8, pos + 8 + length
+        abs_tick = 0
+        while tpos < end:
+            delta, tpos = _read_vlq(data, tpos)
+            abs_tick += delta
+            status = data[tpos]
+            if status == 0xFF:  # meta
+                mlen, mpos = _read_vlq(data, tpos + 2)
+                tpos = mpos + mlen
+            elif status in (0x80, 0x90):
+                pitch, vel = data[tpos + 1], data[tpos + 2]
+                events.append((abs_tick, status == 0x90 and vel > 0, pitch))
+                tpos += 3
+            else:
+                raise ValueError(f"unexpected status byte {status:#x}")
+        pos = end
+    if not events:
+        return np.zeros((0, note_range))
+    # frame f's events sit at absolute tick (f+1)*time_step, and a final
+    # flush of NoteOffs one frame past the end
+    by_frame: dict[int, list] = {}
+    for t, on, pitch in events:
+        by_frame.setdefault(t // time_step - 1, []).append((on, pitch))
+    last = max(by_frame)
+    n_frames = last if all(not on for on, _ in by_frame[last]) else last + 1
+    roll = np.zeros((n_frames, note_range))
+    state = np.zeros(note_range, dtype=bool)
+    for f in range(n_frames):
+        for on, pitch in by_frame.get(f, []):
+            state[pitch - offset] = on
+        roll[f] = state
+    return roll
+
+
 def parse_smf(data: bytes):
     """General SMF parser: returns (division, notes, key_sig).
 
@@ -222,3 +285,11 @@ def roll_from_smf_bytes(data: bytes, frames_per_beat: int = 2, offset: int = 21,
                 q -= 12
             roll[t, q] = 1.0
     return roll
+
+
+def midi_to_roll(path: str, frames_per_beat: int = 2, offset: int = 21,
+                 note_range: int = 88) -> np.ndarray:
+    """Parse any .mid file into a binary [T, 88] piano roll (the general
+    MIDI-input path: seeding generation from a user's MIDI)."""
+    with open(path, "rb") as f:
+        return roll_from_smf_bytes(f.read(), frames_per_beat, offset, note_range)

@@ -27,7 +27,8 @@ import torch
 from ..models import cl_vrnn
 
 _LOG2PI = math.log(2 * math.pi)
-CL_VAE_TODO = "iw_nll_cl_vae: the cl_vae family is not ported yet (ROADMAP Queue 1 item 11)"
+CL_VAE_TODO = ("iw_nll_cl_vae is not ported yet: it comes with the cl_vae training slice "
+               "(ROADMAP Queue 1 item 11)")
 DP_TODO = "data-parallel evaluation is not ported yet (ROADMAP Queue 1 item 14)"
 
 

@@ -1,3 +1,3 @@
-from . import cl_vrnn
+from . import cl_vae, cl_vrnn
 
-__all__ = ["cl_vrnn"]
+__all__ = ["cl_vae", "cl_vrnn"]

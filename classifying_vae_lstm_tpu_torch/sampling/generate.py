@@ -1,23 +1,26 @@
-"""Batched autoregressive cl_vrnn generation with explicit noise.
+"""Batched autoregressive generation with explicit noise, both families.
 
-Counterpart of the cl_vrnn half of ``classifying_vae_lstm_tpu/sampling/generate.py``.
-The sampler is a pure function of its draws: ``eps [B, total, L]`` Gaussian
-for z and ``u [B, total, D]`` uniforms for the Bernoulli frames
-(``x_t = (u_t < x_mean)``). :func:`draw_generation_noise` makes them with a
-``torch.Generator``; the tests make them with NumPy and hand the same arrays
-to both packages.
+Counterpart of ``classifying_vae_lstm_tpu/sampling/generate.py``. Each
+sampler is a pure function of its draws: ``eps`` Gaussian for z and ``u``
+uniforms for the Bernoulli frames (``x_t = (u_t < x_mean)``).
+:func:`draw_generation_noise` makes them with a ``torch.Generator``; the
+tests make them with NumPy and hand the same arrays to both packages.
 
-The key latent w is the mean of Logistic-Normal points over seq_length-sized
-chunks of the seed's time axis.
+cl_vrnn: the seed is a window, teacher-forced, and the key latent w is the
+mean of Logistic-Normal points over seq_length-sized chunks of its time
+axis. cl_vae: the seed is one frame, w is inferred once from it (the
+deterministic mean-logit point unless ``w_sample``), and the decoder's
+history input lags one step.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..models import cl_vrnn
+from ..models import cl_vae, cl_vrnn
 from ..nn.distributions import logistic_normal_from_eps, sample_w_discrete_from_u
 from ..ops.cuda_generate import generate_cl_vrnn_batch_cuda
+from ..ops.cuda_generate_vae import generate_cl_vae_batch_cuda
 
 
 def draw_generation_noise(generator: torch.Generator, B: int, total: int, latent_dim: int,
@@ -107,3 +110,59 @@ def generate_cl_vrnn_batch(params, cfg: cl_vrnn.Config, x_seeds, nsteps: int,
     eps, u = draw_generation_noise(generator, B, Tseed + nsteps, cfg.latent_dim, D,
                                    device=x_seeds.device)
     return generate_cl_vrnn_batch_cuda(params, cfg, x_seeds, nsteps, eps, u, ws)
+
+
+def generate_cl_vae_batch_noise(params, cfg: cl_vae.Config, x_seeds, nsteps: int, eps, u, ws,
+                                use_z_prior: bool = False, return_probs: bool = False):
+    """Batched cl_vae generation with explicit noise, through the model's
+    ``encode_z``/``decode`` (the model-function reference of the sampler).
+
+    ``x_seeds [B, D]``, ``eps [B, nsteps, L]`` Gaussian draws for z (the
+    prior sample itself under ``use_z_prior``), ``u [B, nsteps, D]``,
+    ``ws [B, K]``; returns ``[B, nsteps, D]`` (probabilities with
+    ``return_probs``). The decoder's history input is one step behind.
+    """
+    if eps.shape[1] != nsteps or u.shape[1] != nsteps:
+        raise ValueError(f"noise drawn for {eps.shape[1]}/{u.shape[1]} steps, nsteps={nsteps}")
+    x_prev = x_prev_t = x_seeds
+    outs = []
+    for s in range(nsteps):
+        z_mean, z_log_var = cl_vae.encode_z(params, cfg, x_prev, ws)
+        z = eps[:, s] if use_z_prior else z_mean + torch.exp(z_log_var / 2) * eps[:, s]
+        x_mean = cl_vae.decode(params, cfg, ws, z, x_prev_t if cfg.use_x_prev else None)
+        x_t = (u[:, s] < x_mean).to(x_mean.dtype)
+        x_prev_t, x_prev = x_prev, x_t
+        outs.append(x_mean if return_probs else x_t)
+    return torch.stack(outs, dim=1)
+
+
+def infer_w_cl_vae(params, x_seeds):
+    """The deterministic mean-logit key point of seed frames ``[..., D]`` ->
+    ``[..., K]``: what the JAX sampler uses when no w is given (its
+    ``w_sample=False`` default, and its serving engine's w-inference)."""
+    w_mean, w_log_var = cl_vae.encode_w(params, x_seeds)
+    return logistic_normal_from_eps(w_mean, w_log_var, None, add_noise=False)
+
+
+def generate_cl_vae_batch(params, cfg: cl_vae.Config, x_seeds, nsteps: int,
+                          generator: torch.Generator, w_vals=None, use_z_prior: bool = False,
+                          w_sample: bool = False, return_probs: bool = False):
+    """Batched cl_vae generation: [N, D] -> [N, nsteps, D] binary frames.
+
+    ``w_vals [N, K]`` conditions each song (one-hot true keys, or simplex
+    points); ``None`` infers w from each seed frame — the mean-logit point,
+    or with ``w_sample`` a Logistic-Normal draw whose logit noise comes from
+    ``generator``. Then draws eps and u for the ``nsteps`` steps (the seed is
+    one frame, so it takes no draws) and runs the whole-generation sampler:
+    the CUDA kernel for CUDA tensors, its plain version for CPU tensors.
+    """
+    B, D = x_seeds.shape
+    if w_vals is None:
+        w_mean, w_log_var = cl_vae.encode_w(params, x_seeds)
+        eps_w = (torch.randn(w_mean.shape, generator=generator, device=x_seeds.device)
+                 if w_sample else None)
+        w_vals = logistic_normal_from_eps(w_mean, w_log_var, eps_w, add_noise=w_sample)
+    eps, u = draw_generation_noise(generator, B, nsteps, cfg.latent_dim, D,
+                                   device=x_seeds.device)
+    return generate_cl_vae_batch_cuda(params, cfg, x_seeds, nsteps, eps, u, w_vals,
+                                      use_z_prior=use_z_prior, return_probs=return_probs)

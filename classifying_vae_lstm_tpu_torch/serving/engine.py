@@ -1,12 +1,14 @@
-"""Serving engine: bucketed, batched cl_vrnn music generation on the card.
+"""Serving engine: bucketed, batched music generation on the card.
 
-Counterpart of ``classifying_vae_lstm_tpu/serving/engine.py`` for the cl_vrnn
-family. Requests round up to a fixed grid of (songs, steps) buckets and
-pad/slice at the edges, so the device sees a handful of shapes, all touched
-by :meth:`GenerationEngine.warmup` before traffic (on the card the first call
-also builds the CUDA kernel). Each request is one launch of the
-whole-generation kernel (:mod:`..ops.cuda_generate`) on the engine's device;
-on the CPU, its plain version.
+Counterpart of ``classifying_vae_lstm_tpu/serving/engine.py``, for both
+families: cl_vrnn (the seed is a window, teacher-forced) and cl_vae (the
+seed is one frame). Requests round up to a fixed grid of (songs, steps)
+buckets and pad/slice at the edges, so the device sees a handful of shapes,
+all touched by :meth:`GenerationEngine.warmup` before traffic (on the card
+the first call also builds the CUDA kernel). Each request is one launch of
+the family's whole-generation kernel (:mod:`..ops.cuda_generate`,
+:mod:`..ops.cuda_generate_vae`) on the engine's device; on the CPU, its
+plain version.
 
 :class:`DynamicBatcher` coalesces concurrent requests into one bucketed
 launch: the oldest request's arrival anchors the coalescing window, groups
@@ -25,10 +27,14 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..cli.common import CL_VAE_TODO
-from ..models import cl_vrnn
-from ..ops.cuda_generate import fits, pick_mode, smem_bytes
-from ..sampling.generate import generate_cl_vrnn_batch, infer_w_cl_vrnn
+from ..models import cl_vae
+from ..ops import cuda_generate, cuda_generate_vae
+from ..sampling.generate import (
+    generate_cl_vae_batch,
+    generate_cl_vrnn_batch,
+    infer_w_cl_vae,
+    infer_w_cl_vrnn,
+)
 from ..weights import params_from_numpy
 
 
@@ -45,7 +51,7 @@ class _PendingRequest:
     __slots__ = ("seeds", "ws", "t", "event", "result", "error", "arrival")
 
     def __init__(self, seeds, ws, t):
-        self.seeds = seeds  # np [k, Tseed, D]
+        self.seeds = seeds  # np [k, Tseed, D] (cl_vrnn) or [k, D] (cl_vae)
         self.ws = ws        # np [k, K], or None -> infer w in the batch
         self.t = t          # step bucket
         self.event = threading.Event()
@@ -184,14 +190,15 @@ class DynamicBatcher:
 
 
 class GenerationEngine:
-    """Thread-safe cl_vrnn generation service over loaded weights.
+    """Thread-safe generation service over loaded weights; the family is
+    the config's type.
 
     ``params``: the parameter tree (NumPy arrays or tensors, JAX layout);
-    ``seed_bank``: [N, Tseed, D] seed windows; ``seed_keys``: optional key
-    index per seed (key-filtered and true-key requests); ``seed``: seeds the
-    engine's ``torch.Generator`` (sampling noise) and its host RNG (seed
-    choice); ``device``: ``"cuda"`` (the default; raises without a card) or
-    ``"cpu"``.
+    ``seed_bank``: [N, Tseed, D] seed windows (cl_vrnn) or [N, D] seed
+    frames (cl_vae); ``seed_keys``: optional key index per seed
+    (key-filtered and true-key requests); ``seed``: seeds the engine's
+    ``torch.Generator`` (sampling noise) and its host RNG (seed choice);
+    ``device``: ``"cuda"`` (the default; raises without a card) or ``"cpu"``.
     """
 
     BATCH_BUCKETS = (1, 4, 16, 64)
@@ -201,15 +208,14 @@ class GenerationEngine:
                  seed_keys: np.ndarray | None = None, seed: int = 0, device="cuda",
                  dynamic_batching: bool = False,
                  batch_window_ms: float = DynamicBatcher.DEFAULT_WINDOW_MS):
-        if not isinstance(cfg, cl_vrnn.Config):
-            raise NotImplementedError(CL_VAE_TODO)
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and not fits(cfg):
-            raise ValueError(f"hidden {cfg.intermediate_dim} needs {smem_bytes(cfg)} B of "
-                             "shared memory per block: too wide for the generation kernel")
+        self.family = "cl_vae" if isinstance(cfg, cl_vae.Config) else "cl_vrnn"
+        kernel = cuda_generate_vae if self.family == "cl_vae" else cuda_generate
+        if self.device.type == "cuda" and not kernel.fits(cfg):
+            raise ValueError(f"hidden {cfg.intermediate_dim} needs {kernel.smem_bytes(cfg)} B "
+                             "of shared memory per block: too wide for the generation kernel")
         self.cfg = cfg
-        self.family = "cl_vrnn"
-        self.mode = pick_mode(cfg)
+        self.mode = kernel.pick_mode(cfg)
         self.params = params_from_numpy(params, self.device)
         self.seed_bank = np.asarray(seed_bank, dtype=np.float32)
         self.seed_keys = seed_keys
@@ -270,10 +276,17 @@ class GenerationEngine:
         ws = torch.full((b, K), 1.0 / K, dtype=torch.float32, device=self.device)
         self._mark_bucket(b, t)
         out = self._run(seeds, t, ws)
+        if self.family == "cl_vae":
+            # a solo inferred-w request runs the sampler with ws=None (w
+            # inferred inside it), as the JAX engine does: warm that entry too
+            out = (out, self._run(seeds, t, None))
         self._sync()
         return out
 
     def _run(self, seeds, t, ws):
+        if self.family == "cl_vae":
+            return generate_cl_vae_batch(self.params, self.cfg, seeds, t, self._generator,
+                                         w_vals=ws)
         return generate_cl_vrnn_batch(self.params, self.cfg, seeds, t, self._generator, ws)
 
     def _infer_ws(self, seeds, m: int):
@@ -282,13 +295,18 @@ class GenerationEngine:
         pad = b - seeds.shape[0]
         if pad > 0:
             seeds = torch.cat([seeds, seeds[:1].expand(pad, *seeds.shape[1:])], dim=0)
+        if self.family == "cl_vae":
+            return infer_w_cl_vae(self.params, seeds)[:m]
         return infer_w_cl_vrnn(self.params, self.cfg, seeds)[:m]
 
     def _coerce_seed_rolls(self, rolls: np.ndarray) -> np.ndarray:
-        """Fit user rolls to the seed-bank shape (front-pad/trim the time axis)."""
+        """Fit user rolls to the seed-bank shape: cl_vrnn front-pads/trims
+        the time axis, cl_vae takes each roll's last frame."""
         rolls = np.asarray(rolls, dtype=np.float32)
         if rolls.ndim == 2:  # single roll [T, D]
             rolls = rolls[None]
+        if self.family == "cl_vae":
+            return rolls[:, -1] if rolls.ndim == 3 else rolls
         t_seed = self.seed_bank.shape[1]
         out = np.zeros((len(rolls), t_seed, self.seed_bank.shape[2]), np.float32)
         for i, r in enumerate(rolls):
@@ -358,10 +376,12 @@ class GenerationEngine:
         eye = np.eye(self.cfg.n_classes, dtype=np.float32)
         seeds_dev = None
         if user_seeds is not None and key_name_index is not None:
-            ws = np.broadcast_to(eye[key_name_index], (m, self.cfg.n_classes))
+            ws = np.tile(eye[key_name_index], (m, 1))
         elif infer_w or user_seeds is not None:
-            if batcher is not None:
-                ws = None  # inferred once for the whole coalesced group
+            if batcher is not None or self.family == "cl_vae":
+                # the batcher infers w once per coalesced group; a solo cl_vae
+                # request leaves it to the sampler (w_vals=None)
+                ws = None
             else:
                 seeds_dev = self._to_device(seeds)
                 ws = self._infer_ws(seeds_dev, m)
@@ -377,7 +397,8 @@ class GenerationEngine:
                 self._mark_bucket(b, t)
                 if seeds_dev is None:
                     seeds_dev = self._to_device(seeds)
-                ws_dev = ws if isinstance(ws, torch.Tensor) else self._to_device(ws)
+                ws_dev = (ws if ws is None or isinstance(ws, torch.Tensor)
+                          else self._to_device(ws))
                 out = self._run(seeds_dev, t, ws_dev)[:n, :nsteps].cpu().numpy()
         finally:
             if solo_claim:

@@ -338,3 +338,83 @@ def test_lstm_seq_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="shared memory"):
         ls.lstm_seq_bwd(*(torch.zeros(1, 1, 4 * 4096, device=dev),) * 9)
     assert _launches() == before
+
+
+# ---- the whole-generation cl_vae kernel (csrc/generate_cl_vae.cu)
+#
+# f32 probabilities within 1e-5 and frames equal (same f32 products, other
+# summation order; these fixed seeds have no near-tie); bf16 probabilities
+# within 2e-3 of the plain bf16 version (bf16 rounding at the same places).
+
+from classifying_vae_lstm_tpu_torch.models import cl_vae  # noqa: E402
+from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae as cgv  # noqa: E402
+
+
+def _vae_problem(dev, B, nsteps, H, use_x_prev=True, D=12, L=3, K=3, seed=0, bf16=False):
+    cfg = cl_vae.Config(original_dim=D, intermediate_dim=H, latent_dim=L,
+                        intermediate_class_dim=H, n_classes=K, use_x_prev=use_x_prev,
+                        bf16_compute=bf16)
+    params = cl_vae.init(torch.Generator().manual_seed(seed), cfg)
+    params["x_decoded_mean"]["bias"] -= 1.0  # sparse frames, as the trained models give
+    rng = np.random.default_rng(seed)
+    T = lambda a: torch.from_numpy(a).to(dev)
+    arrays = (T((rng.random((B, D)) < 0.3).astype(np.float32)), nsteps,
+              T(rng.standard_normal((B, nsteps, L)).astype(np.float32)),
+              T(rng.random((B, nsteps, D)).astype(np.float32)),
+              T(np.eye(K, dtype=np.float32)[np.arange(B) % K]))
+    return params_from_numpy(params, dev), cfg, arrays
+
+
+VAE_CASES = {
+    "one_song": dict(B=1, nsteps=20, H=40),
+    "ragged_no_x_prev": dict(B=5, nsteps=16, H=40, use_x_prev=False),
+    "two_column_passes": dict(B=6, nsteps=12, H=200, seed=1),  # H > the block's threads
+    "vanilla_k1": dict(B=4, nsteps=10, H=24, K=1, use_x_prev=False, seed=2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(VAE_CASES))
+@pytest.mark.parametrize("zp", [False, True])
+def test_vae_kernel_matches_plain_f32(dev, case, zp):
+    params, cfg, (seeds, nsteps, eps, u, ws) = _vae_problem(dev, **VAE_CASES[case])
+    u1 = torch.ones_like(u)
+    before = cgv.LAUNCHES
+    run = lambda f, uu, rp: f(params, cfg, seeds, nsteps, eps, uu, ws, use_z_prior=zp,
+                              return_probs=rp)
+    pk, fk = run(cgv.generate_cl_vae_batch_cuda, u1, True), run(cgv.generate_cl_vae_batch_cuda,
+                                                                 u, False)
+    torch.cuda.synchronize()
+    assert cgv.LAUNCHES == before + 2
+    pp, fp = run(cgv.generate_cl_vae_batch_plain, u1, True), run(cgv.generate_cl_vae_batch_plain,
+                                                                  u, False)
+    assert pk.shape == fk.shape == (seeds.shape[0], nsteps, cfg.original_dim)
+    torch.testing.assert_close(pk, pp, rtol=0, atol=1e-5)
+    assert 0 < fk.mean().item() < 1
+    torch.testing.assert_close(fk, fp, rtol=0, atol=0)
+
+
+def test_vae_kernel_matches_plain_bf16(dev):
+    params, cfg, (seeds, nsteps, eps, u, ws) = _vae_problem(dev, B=7, nsteps=16, H=64, seed=3,
+                                                            bf16=True)
+    run = lambda f, **k: f(params, cfg, seeds, nsteps, eps, u, ws, return_probs=True, **k)
+    pk, pp = run(cgv.generate_cl_vae_batch_cuda), run(cgv.generate_cl_vae_batch_plain)
+    torch.testing.assert_close(pk, pp, rtol=0, atol=2e-3)
+    pf = run(cgv.generate_cl_vae_batch_cuda, mode="f32")
+    assert (pk - pf).abs().max().item() > 1e-6  # bf16 really ran
+
+
+def test_vae_wrapper_raises_instead_of_falling_back(dev):
+    params, cfg, (seeds, nsteps, eps, u, ws) = _vae_problem(dev, B=4, nsteps=4, H=16)
+    before = cgv.LAUNCHES
+    with pytest.raises(ValueError, match="cpu"):
+        cgv.generate_cl_vae_batch_cuda(params, cfg, seeds, nsteps, eps.cpu(), u, ws)
+    with pytest.raises(ValueError, match="contiguous"):
+        cgv.generate_cl_vae_batch_cuda(params, cfg, seeds, nsteps, eps,
+                                       u.transpose(0, 1).contiguous().transpose(0, 1), ws)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cgv.generate_cl_vae_batch_cuda(params, cfg, seeds, nsteps, eps, u, ws, mode="int8")
+    wide = cl_vae.Config(original_dim=12, intermediate_dim=4096, latent_dim=3, n_classes=3,
+                         use_x_prev=True)
+    with pytest.raises(ValueError, match="shared memory"):
+        cgv.generate_cl_vae_batch_cuda(params, wide, seeds, nsteps, eps, u, ws)
+    assert cgv.LAUNCHES == before

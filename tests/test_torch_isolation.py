@@ -44,17 +44,18 @@ def test_cuda_requested_without_a_card_raises():
 
 
 def test_unported_paths_raise_naming_the_roadmap():
-    from classifying_vae_lstm_tpu_torch.cli import serve
+    from classifying_vae_lstm_tpu_torch.cli import cl_vae_sample, cl_vrnn_sample, serve
     from classifying_vae_lstm_tpu_torch.data import PianoData
 
-    for extra in (["--family", "cl_vae"], ["--dp", "2"]):
-        args = serve.build_parser().parse_args(
-            ["-i", "artifacts/jsball_vrnn4.npz", "--device", "cpu", *extra])
+    for model in ("artifacts/jsball_vrnn4.npz", "artifacts/jsball_vae.npz"):
+        args = serve.build_parser().parse_args(["-i", model, "--device", "cpu", "--dp", "2"])
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             serve.build_engine(args)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PianoData("data/input")
     assert serve.build_parser().parse_args(["-i", "m.npz"]).device == "cuda"
+    for cli in (cl_vae_sample, cl_vrnn_sample):
+        assert cli.build_parser().parse_args(["r"]).device == "cuda"
 
     # training: the bf16 modes of the two-cell and whole-sequence LSTM
     # kernels, and the train flags whose modules are not ported

@@ -1,5 +1,5 @@
-"""The port's serving engine and HTTP frontend on the CPU (plain sampler),
-and its data pipeline against the JAX package's."""
+"""The port's serving engine and HTTP frontend on the CPU (plain samplers of
+both families), and its data pipeline against the JAX package's."""
 
 import base64
 import json
@@ -13,13 +13,15 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import jax
 import numpy as np
 import pytest
+import torch
 
 from classifying_vae_lstm_tpu.data import PianoData as JPianoData
 from classifying_vae_lstm_tpu.data.midi import MidiWriter as JMidiWriter
 from classifying_vae_lstm_tpu.data.midi import roll_from_smf_bytes as j_roll_from_smf_bytes
 from classifying_vae_lstm_tpu.models import cl_vrnn as jcl
-from classifying_vae_lstm_tpu_torch.cli import serve
+from classifying_vae_lstm_tpu_torch.cli import common, serve
 from classifying_vae_lstm_tpu_torch.data import MidiWriter, PianoData, roll_from_smf_bytes
+from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae
 from classifying_vae_lstm_tpu_torch.models import cl_vrnn as tcl
 from classifying_vae_lstm_tpu_torch.serving import GenerationEngine
 from classifying_vae_lstm_tpu_torch.serving.engine import _bucket
@@ -208,3 +210,124 @@ def test_pianodata_and_midi_match_jax():
             a, b = fa.read(), fb.read()
     assert a == b  # byte-identical MIDI files
     np.testing.assert_array_equal(roll_from_smf_bytes(a), j_roll_from_smf_bytes(a))
+
+
+# ---- the cl_vae family: the trained jsball_vae (K=10) and jsbcs_vae (K=2)
+
+_VAE_BANKS = {}
+
+
+def _vae_engine(name="jsball_vae", corpus="data/input/Piano-midi_all.pickle", **kw):
+    """A CPU engine over a trained cl_vae checkpoint, seeded from the first
+    frames of the corpus's test windows (as ``cli.serve`` seeds it)."""
+    if corpus not in _VAE_BANKS:
+        P = PianoData(corpus, batch_size=1, seq_length=32, squeeze_x=True)
+        _VAE_BANKS[corpus] = (P.x_test[:, 0], P.test_song_keys, dict(P.key_map))
+    bank, keys, key_map = _VAE_BANKS[corpus]
+    params, cfg, _ = common.load_model(f"artifacts/{name}.npz", "cl_vae")
+    return GenerationEngine(params, cfg, bank, keys, device="cpu", **kw), key_map
+
+
+def test_cl_vae_engine_requests():
+    """jsball_vae on Piano-midi_all: inferred-w, key-filtered and
+    user-seeded requests (its 10 key classes cannot one-hot the corpus's 13
+    keys, so true-key requests go to jsbcs_vae below)."""
+    eng, key_map = _vae_engine()
+    assert eng.family == "cl_vae" and eng.mode == "f32"
+    assert eng.seed_bank.shape == (4180, 88)
+    before = cuda_generate_vae.LAUNCHES
+    out = eng.generate(n=3, nsteps=40)  # pads to bucket (4, 64), slices back
+    assert out.shape == (3, 40, 88) and _binary(out) and out.any()
+    out = eng.generate(n=2, nsteps=16, key_name_index=key_map["C"])
+    assert out.shape == (2, 16, 88) and _binary(out)
+    roll = np.zeros((5, 88), np.float32)
+    roll[-1, [39, 43, 46]] = 1.0
+    assert eng._coerce_seed_rolls(roll).shape == (1, 88)
+    np.testing.assert_array_equal(eng._coerce_seed_rolls(roll)[0], roll[-1])
+    assert eng.generate(n=2, nsteps=8, seed_rolls=roll).shape == (2, 8, 88)
+    assert eng.generate(n=1, nsteps=8, seed_rolls=roll, key_name_index=3).shape == (1, 8, 88)
+    assert eng.stats["requests"] == 4 and eng.stats["songs"] == 8
+    assert cuda_generate_vae.LAUNCHES == before  # the plain version, on the CPU
+    # the engine's w-inference is the sampler's mean-logit point
+    seeds = torch.from_numpy(eng.seed_bank[:3])
+    ws = eng._infer_ws(seeds, 3)
+    assert ws.shape == (3, 10)
+    torch.testing.assert_close(ws.sum(-1), torch.ones(3))
+
+
+def test_cl_vae_true_key_conditioning():
+    """jsbcs_vae on Piano-midi_Cs, whose keys (C, E-) are the model's two:
+    true-key requests condition on each seed's key; seeded requests and a
+    warm-up over a small grid, explicit-w and inferred-w entries alike."""
+    eng, _ = _vae_engine("jsbcs_vae", "data/input/Piano-midi_Cs.pickle")
+    eng.BATCH_BUCKETS = (1, 4)
+    eng.STEP_BUCKETS = (8, 16)
+    calls = []
+    real_run = eng._run
+    eng._run = lambda seeds, t, ws: calls.append(ws is None) or real_run(seeds, t, ws)
+    eng.warmup()
+    assert eng.stats["warm_buckets"] == 4 and sorted(calls) == [False] * 4 + [True] * 4
+    out = eng.generate(n=3, nsteps=16, infer_w=False)
+    assert out.shape == (3, 16, 88) and _binary(out)
+    out = eng.generate(n=2, nsteps=8, infer_w=False, seed_indices=[0, 5])
+    assert out.shape == (2, 8, 88)
+    with pytest.raises(ValueError):
+        eng.generate(n=1, nsteps=8, key_name_index=7)  # no seed has key 7
+
+
+def test_cl_vae_dynamic_batching_coalesces_a_burst():
+    eng, _ = _vae_engine(dynamic_batching=True, batch_window_ms=2000.0)
+    eng.warmup(batch_buckets=(1, 4, 16), step_buckets=(32,))
+    eng._batcher.max_songs = 8  # four 2-song requests complete a group
+    results, errors = [None] * 5, []
+    barrier = threading.Barrier(5)
+
+    def client(i):
+        try:
+            barrier.wait(timeout=30)
+            results[i] = eng.generate(n=2, nsteps=32)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(5)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not errors and not any(th.is_alive() for th in threads)
+    for r in results:
+        assert r.shape == (2, 32, 88) and _binary(r)
+    assert eng.stats["batches"] >= 1
+    assert eng.stats["batched_songs"] > 2 * eng.stats["batches"]
+
+
+def test_make_server_on_the_trained_cl_vae_checkpoint(tmp_path):
+    """``cli.serve --family auto --device cpu`` on jsball_vae answers
+    /generate with rolls and with MIDI, seeded by the bank or by MIDI."""
+    args = serve.build_parser().parse_args(
+        ["-i", "artifacts/jsball_vae.npz", "--train_file", "data/input/Piano-midi_all.pickle",
+         "--device", "cpu", "--warmup", "off", "--port", "0", "--family", "auto"])
+    httpd, eng = serve.make_server(args)
+    port = httpd.server_address[1]
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        assert eng.family == "cl_vae" and eng.seed_bank.shape == (4180, 88)
+        code, out = _post(port, {"n": 2, "t": 8, "key": "C"})
+        assert code == 200
+        rolls = np.asarray(out["rolls"])
+        assert rolls.shape == (2, 8, 88) and _binary(rolls)
+        code, out = _post(port, {"n": 2, "t": 12, "format": "midi_base64"})
+        assert code == 200 and len(out["midi_base64"]) == 2
+        assert all(base64.b64decode(m)[:4] == b"MThd" for m in out["midi_base64"])
+        roll = np.zeros((6, 88), np.float32)
+        roll[:, [39, 43]] = 1.0
+        MidiWriter().dump_sequence_to_midi(roll, str(tmp_path / "s.mid"))
+        seed_b64 = base64.b64encode((tmp_path / "s.mid").read_bytes()).decode()
+        assert _post(port, {"n": 1, "t": 8, "seed_midi_base64": seed_b64})[0] == 200
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats", timeout=30) as r:
+            stats = json.load(r)
+        assert stats["family"] == "cl_vae" and stats["gen_backend"] == "xla"
+        assert stats["requests"] == 3 and stats["gen_path"] == "plain"
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
