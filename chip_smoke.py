@@ -72,7 +72,27 @@ failure:
 13. both sample CLIs: ``cli.cl_vae_sample`` (``jsbcs_vae`` on
    ``Piano-midi_Cs``, true keys, 8 songs x 64 frames) and
    ``cli.cl_vrnn_sample`` (``jsball_vrnn4``, ``--infer_w``, 4 songs) write
-   their MIDI files with exactly one launch of their kernel each.
+   their MIDI files with exactly one launch of their kernel each;
+14. the dense-stack cl_vae training kernels (forward; backward = row pass +
+   weight-gradient pass) vs their plain versions at the training shape
+   (B=100, the ``jsball_vae`` weights with seeded rows for 13 keys,
+   use_x_prev) and at the seq-concat width (D=976, Cw=256, H=1024, L=16,
+   K=13, B=1024, seeded glorot weights): forward outputs within 1e-5 x
+   max(1, max|plain|), every backward output within 1e-4 * max|plain| +
+   1e-6; kernel and plain (cuBLAS products) times with CUDA events beside
+   each kernel's bound;
+15. the cl_vae training path: ``cli.cl_vae_train --train_backend pallas``
+   for 3 epochs on the committed corpus (13 keys) at the jsball_vae width;
+   the dense-stack counts are set to 0 just before and read just after and
+   must equal the run's own steps (per train batch one forward and two
+   backward launches, per eval batch one forward), losses finite and
+   falling, no plain version on CUDA tensors; a step's time split; then one
+   ``xla`` epoch from the same seed, its first-epoch loss within 1e-3
+   relative of the kernel run's;
+16. ``cli.evaluate --family cl_vae`` of ``artifacts/jsbcs_vae`` on
+   ``Piano-midi_Cs`` (its whole test split, 64 samples, batches of 200) and
+   of phase 15's checkpoint on the training corpus; ``cli.cl_vae_sample`` on
+   that checkpoint with true keys, one generation launch.
 
 The last lines are the kernel table (one JSON object), the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -81,6 +101,7 @@ power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -193,7 +214,7 @@ def phase_build():
         print(f"--- nvcc csrc/{name}.cu ---\n{log.strip()}")
     print(f"kernel build: {build_s:.2f} s for {sorted(logs) or 'no sources (already built)'}")
     require(set(_build.sources()) == {"generate_cl_vae", "generate_cl_vrnn", "lstm_seq",
-                                      "two_cell"}, f"sources {_build.sources()}")
+                                      "two_cell", "vae_dense"}, f"sources {_build.sources()}")
 
 
 def phase_f32(dev):
@@ -545,17 +566,19 @@ def sampler_plain_guard(module, name, record):
         setattr(module, name, real)
 
 
-def run_train(run, flags, model_dir, reset, read):
-    """One run of ``cli.cl_vrnn_train`` at the jsball_vrnn4 width. ``reset``
-    sets the launch counts to 0 just before the run, ``read`` returns them
-    just after. Returns (args, counts, seen, per-epoch seconds, wall)."""
+def run_train(run, flags, model_dir, reset, read, cli=None, base_flags=TRAIN_FLAGS):
+    """One run of a train CLI (``cli.cl_vrnn_train`` at the jsball_vrnn4
+    width unless ``cli`` and ``base_flags`` say otherwise). ``reset`` sets
+    the launch counts to 0 just before the run, ``read`` returns them just
+    after. Returns (args, counts, seen, per-epoch seconds, wall)."""
     import torch
 
     from classifying_vae_lstm_tpu_torch.cli import cl_vrnn_train
     from classifying_vae_lstm_tpu_torch.train import loop
 
+    cli = cli or cl_vrnn_train
     seen, epoch_s = {}, []
-    real_fit, real_epoch = cl_vrnn_train.fit, loop.Trainer.train_epoch
+    real_fit, real_epoch = cli.fit, loop.Trainer.train_epoch
 
     def fit(trainer, params, train_data, val_data, **kw):
         seen.update(trainer=trainer, train=train_data, val=val_data)
@@ -571,18 +594,17 @@ def run_train(run, flags, model_dir, reset, read):
         epoch_s.append(time.perf_counter() - t0)
         return m
 
-    args = cl_vrnn_train.build_parser().parse_args(
-        [run, *TRAIN_FLAGS, *flags, "--model_dir", model_dir])
-    cl_vrnn_train.fit, loop.Trainer.train_epoch = fit, train_epoch
+    args = cli.build_parser().parse_args([run, *base_flags, *flags, "--model_dir", model_dir])
+    cli.fit, loop.Trainer.train_epoch = fit, train_epoch
     reset()  # counts from here on are this training path's
     t0 = time.perf_counter()
     try:
-        cl_vrnn_train.train(args)
+        cli.train(args)
     finally:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = read()
-        cl_vrnn_train.fit, loop.Trainer.train_epoch = real_fit, real_epoch
+        cli.fit, loop.Trainer.train_epoch = real_fit, real_epoch
     seen["ckpt"] = os.path.join(model_dir, f"{run}.npz")
     return args, counts, seen, epoch_s, wall
 
@@ -596,7 +618,8 @@ def _report_train(label, args, seen, epoch_s, wall):
     print(f"{label}: ms per training step (host clock, epoch synchronised): "
           f"{[round(s * 1e3 / n_train, 3) for s in epoch_s]} per epoch")
     require(all(math.isfinite(v) for vals in hist.values() for v in vals), "non-finite loss")
-    require(hist["loss"][-1] < hist["loss"][0], f"train loss did not fall: {hist['loss']}")
+    require(E < 2 or hist["loss"][-1] < hist["loss"][0],
+            f"train loss did not fall: {hist['loss']}")
     return E, n_train, n_val
 
 
@@ -711,27 +734,31 @@ def phase_train_breakdown(seen, label="two-cell kernels", key="two_cell"):
     device_profile(step, 5, wall, "step", label, key)
 
 
+def _device_rows(fn, n):
+    """``torch.profiler``'s device-side events over n calls of ``fn`` (host
+    ranges and their device-side annotations report the same device time
+    again, so they are left out) and their device time in µs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = lambda e: getattr(e, "self_device_time_total", 0.0) or 0.0
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
+            and not getattr(e, "is_user_annotation", False)]
+    return sorted(rows, key=dev_us, reverse=True), dev_us
+
+
 def device_profile(fn, n, wall_ms, unit, label, key):
     """Device time per call of ``fn`` from ``torch.profiler`` over n calls:
     busy share against ``wall_ms`` and the time of the kernels whose name
     holds ``key``. Informational: prints "not measured" where the profiler
     records no device time."""
-    import torch
-
     try:
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        # device-side events only (kernels, copies): host ranges and their
-        # device-side annotations report the same device time again
-        dev_us = lambda e: getattr(e, "self_device_time_total", 0.0) or 0.0
-        rows = sorted((e for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
-                       and not getattr(e, "is_user_annotation", False)),
-                      key=dev_us, reverse=True)
+        rows, dev_us = _device_rows(fn, n)
         if not rows:
             print("profiler: no device time recorded (device busy share not measured)")
             return
@@ -744,6 +771,25 @@ def device_profile(fn, n, wall_ms, unit, label, key):
                           for e in rows[:8]))
     except Exception as e:  # noqa: BLE001 — the caller's numbers stand without it
         print(f"profiler: not measured ({e!r})")
+
+
+def device_ms_per_call(fn, n, key):
+    """(device ms per call of the kernels whose name holds ``key``, device
+    ms per call of all kernels) from ``torch.profiler`` over n calls of
+    ``fn`` after one warm-up call; None where it records no device time."""
+    import torch
+
+    try:
+        fn()
+        torch.cuda.synchronize()
+        rows, dev_us = _device_rows(fn, n)
+        if not rows:
+            return None
+        per = lambda es: sum(dev_us(e) for e in es) / (n * 1e3)
+        return per(e for e in rows if key in e.key), per(rows)
+    except Exception as e:  # noqa: BLE001 — the CUDA-event times stand without it
+        print(f"profiler: not measured ({e!r})")
+        return None
 
 
 def phase_checkpoint_serves(ckpt):
@@ -1217,6 +1263,265 @@ def phase_sample_clis(out_dir):
     return vae_launches
 
 
+VAE_TRAIN_B, VAE_WIDE = 100, dict(D=976, Cw=256, H=1024, L=16, K=TRAIN_K, B=1024)
+VAE_DENSE_PLAIN = ("vae_dense_fwd_plain", "vae_dense_bwd_plain")
+
+
+def vae_train_shape_params(rng, dev):
+    """The trained ``jsball_vae`` weights (D=H=Cw=88, L=4) with fresh glorot
+    rows and heads for the 13 key classes of the training corpus, and the
+    matching config on the ``pallas`` route."""
+    import numpy as np
+
+    from classifying_vae_lstm_tpu_torch.cli import common
+    from classifying_vae_lstm_tpu_torch.weights import params_from_numpy
+
+    raw, cfg0, _ = common.load_model(VAE_MODEL, "cl_vae")
+    K, K0, D = TRAIN_K, cfg0.n_classes, cfg0.original_dim
+    glorot = lambda i, o: rng.uniform(-np.sqrt(6.0 / (i + o)), np.sqrt(6.0 / (i + o)),
+                                      (i, o)).astype(np.float32)
+    Cw, H = cfg0.intermediate_class_dim, cfg0.intermediate_dim
+    for head in ("w_mean", "w_log_var"):
+        raw[head] = {"kernel": glorot(Cw, K - 1), "bias": np.zeros(K - 1, np.float32)}
+    raw["h"]["kernel"] = np.concatenate([raw["h"]["kernel"][:D], glorot(K, H)])
+    raw["decoder_h"]["kernel"] = np.concatenate([glorot(K, H), raw["decoder_h"]["kernel"][K0:]])
+    cfg = dataclasses.replace(cfg0, n_classes=K, train_backend="pallas")
+    return params_from_numpy(raw, dev), cfg
+
+
+def vae_wide_params(rng, dev):
+    """Seeded glorot weights at the seq-concat width the JAX kernel was
+    written for (D=976, Cw=256, H=1024, L=16, K=13), and its config."""
+    import numpy as np
+
+    from classifying_vae_lstm_tpu_torch.models import cl_vae
+    from classifying_vae_lstm_tpu_torch.weights import params_from_numpy
+
+    w = VAE_WIDE
+    cfg = cl_vae.Config(original_dim=w["D"], intermediate_dim=w["H"], latent_dim=w["L"],
+                        intermediate_class_dim=w["Cw"], n_classes=w["K"], use_x_prev=True,
+                        train_backend="pallas")
+
+    def dense(i, o):
+        lim = np.sqrt(6.0 / (i + o))
+        return {"kernel": rng.uniform(-lim, lim, (i, o)).astype(np.float32),
+                "bias": np.zeros(o, np.float32)}
+
+    D, Cw, H, L, K = w["D"], w["Cw"], w["H"], w["L"], w["K"]
+    raw = {"h_w": dense(D, Cw), "w_mean": dense(Cw, K - 1), "w_log_var": dense(Cw, K - 1),
+           "h": dense(D + K, H), "z_mean": dense(H, L), "z_log_var": dense(H, L),
+           "decoder_h": dense(K + D + L, H), "x_decoded_mean": dense(H, D)}
+    return params_from_numpy(raw, dev), cfg
+
+
+def vae_dense_fmas(cfg) -> int:
+    """FMAs of one row of the dense-stack forward: every weight once."""
+    D, Cw, H, L, K = (cfg.original_dim, cfg.intermediate_class_dim, cfg.intermediate_dim,
+                      cfg.latent_dim, cfg.n_classes)
+    n_xp = D if cfg.use_x_prev else 0
+    return D * Cw + Cw * 2 * (K - 1) + (D + K) * H + H * 2 * L + (K + n_xp + L) * H + H * D
+
+
+def phase_vae_dense(dev):
+    """Both dense-stack kernels against their plain versions at the training
+    shape and at the seq-concat width. Returns the kernel-table fields of
+    each at the training shape."""
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.ops import vae_dense as vd
+
+    rng = np.random.default_rng(SEED + 6)
+    shapes = {"training": (*vae_train_shape_params(rng, dev), VAE_TRAIN_B),
+              "wide": (*vae_wide_params(rng, dev), VAE_WIDE["B"])}
+    table = {}
+    for label, (params, cfg, B) in shapes.items():
+        D, K, L = cfg.original_dim, cfg.n_classes, cfg.latent_dim
+        f = lambda a: torch.from_numpy(a).to(dev)
+        x = f((rng.random((B, D)) < 0.1).astype(np.float32))
+        xp = f((rng.random((B, D)) < 0.1).astype(np.float32))
+        eps_w = f(rng.standard_normal((B, K - 1)).astype(np.float32))
+        eps_z = f(rng.standard_normal((B, L)).astype(np.float32))
+        ins = vd.pack_inputs(params, cfg, x, xp, eps_w, eps_z)
+        outs = vd.vae_dense_fwd(*ins)
+        ref = vd.vae_dense_fwd_plain(*ins)
+        torch.cuda.synchronize()
+        names = ("xhat", "wargs", "zargs", "w", "a1", "a2", "a3")
+        errs = {n: (k - p).abs().max().item() for n, k, p in zip(names, outs, ref)}
+        scale = {n: max(1.0, p.abs().max().item()) for n, p in zip(names, ref)}
+        require(all(torch.isfinite(o).all().item() for o in outs),
+                "dense-stack forward kernel output not finite")
+        bad = {n: (e, scale[n]) for n, e in errs.items()
+               if not (e <= FWD_LIMIT * scale[n] and math.isfinite(e))}
+        print(f"vae_dense forward, {label} shape (B={B} D={D} Cw={cfg.intermediate_class_dim} "
+              f"H={cfg.intermediate_dim} L={L} K={K}): max |kernel - plain| "
+              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+              + f" (limit {FWD_LIMIT} x max(1, max|plain|))")
+        require(not bad, f"dense-stack forward differs: {bad}")
+
+        (x_, xp_, ew, ez, whw, _, wwz, _, whx, whw2, _, wzz, _, wdw, wdxp, wdz, _, wxh, _) = ins
+        xhat, wargs, zargs, w, a1, a2, a3 = ref
+        cot = [f((1e-2 * rng.standard_normal(tuple(o.shape))).astype(np.float32))
+               for o in (xhat, wargs, zargs, w)]
+        res = (x_, xp_, ew, ez, a1, a2, a3, xhat, wargs, zargs, w, *cot,
+               whw, wwz, whx, whw2, wzz, wdw, wdxp, wdz, wxh)
+        got = vd.vae_dense_bwd(*res)
+        want = vd.vae_dense_bwd_plain(*res)
+        torch.cuda.synchronize()
+        gnames = ("dx", "dxp", "dwhw", "dbhw", "dwwz", "dbwz", "dwhx", "dwhw2", "dbh", "dwzz",
+                  "dbzz", "dwdw", "dwdxp", "dwdz", "dbd", "dwxh", "dbxh")
+        bad, rel = [], {}
+        for n, g, wv in zip(gnames, got, want):
+            err, sc = (g - wv).abs().max().item(), wv.abs().max().item()
+            rel[n] = err / max(sc, 1e-30)
+            if not (err <= 1e-4 * sc + 1e-6 and math.isfinite(err)):
+                bad.append((n, err, sc))
+        bwd_err = max((g - wv).abs().max().item() for g, wv in zip(got, want))
+        print(f"vae_dense backward, {label} shape: max |kernel - plain| / max|plain| "
+              + ", ".join(f"{n} {v:.2e}" for n, v in rel.items())
+              + f" (limit 1e-4 + 1e-6 abs); largest abs error {bwd_err:.3e}")
+        require(not bad, f"dense-stack backward differs: {bad}")
+
+        # kernel, plain, plain, kernel for each direction
+        reps = 50 if label == "training" else 10
+        fk = (time_ms(lambda: vd.vae_dense_fwd(*ins), reps=reps, warm=2),
+              time_ms(lambda: vd.vae_dense_fwd_plain(*ins), reps=reps, warm=2),
+              time_ms(lambda: vd.vae_dense_fwd_plain(*ins), reps=reps),
+              time_ms(lambda: vd.vae_dense_fwd(*ins), reps=reps))
+        bk = (time_ms(lambda: vd.vae_dense_bwd(*res), reps=reps, warm=2),
+              time_ms(lambda: vd.vae_dense_bwd_plain(*res), reps=reps, warm=2),
+              time_ms(lambda: vd.vae_dense_bwd_plain(*res), reps=reps),
+              time_ms(lambda: vd.vae_dense_bwd(*res), reps=reps))
+        F = vae_dense_fmas(cfg)
+        n_bias = (cfg.intermediate_class_dim + 2 * (K - 1) + 2 * cfg.intermediate_dim + 2 * L
+                  + D)
+        live = lambda ts: [t for t in ts if t is not None]
+        fb_ms, fb_by = roofline_ms(B * F, _nbytes(live(ins)) + _nbytes(outs))
+        # the row pass (every weight once, transposed) + every dW and bias sum
+        bb_ms, bb_by = roofline_ms(B * (2 * F + n_bias), _nbytes(live(res)) + _nbytes(live(got)))
+        print(f"vae_dense {label} shape: forward kernel {fk[0]:.4f} / {fk[3]:.4f} ms, plain "
+              f"(cuBLAS products) {fk[1]:.4f} / {fk[2]:.4f} ms, kernel/plain "
+              f"{fk[0] / fk[1]:.2f}, bound {fb_ms:.5f} ms ({fb_by}); backward kernel (2 launches) "
+              f"{bk[0]:.4f} / {bk[3]:.4f} ms, plain {bk[1]:.4f} / {bk[2]:.4f} ms, kernel/plain "
+              f"{bk[0] / bk[1]:.2f}, bound {bb_ms:.5f} ms ({bb_by}); shared memory "
+              f"{vd.smem_bytes(cfg)} B per block")
+        # device time alone (the CUDA-event times above include the
+        # wrappers' host work, which sets them at the training shape)
+        dt = {n: device_ms_per_call(fn, 20, "vae_dense")
+              for n, fn in (("forward", lambda: vd.vae_dense_fwd(*ins)),
+                            ("plain forward", lambda: vd.vae_dense_fwd_plain(*ins)),
+                            ("backward", lambda: vd.vae_dense_bwd(*res)),
+                            ("plain backward", lambda: vd.vae_dense_bwd_plain(*res)))}
+        print(f"vae_dense {label} shape, profiler device ms per call: "
+              + "; ".join(f"{n} " + ("not measured" if v is None else
+                                     f"{v[1]:.4f} (dense-stack kernels {v[0]:.4f})")
+                          for n, v in dt.items()))
+        if label == "training":
+            table["fwd"] = {"max_abs_err": max(errs.values()), "ms": fk[0], "plain_ms": fk[1],
+                            "bound_ms": fb_ms, "bound_by": fb_by}
+            table["bwd"] = {"max_abs_err": bwd_err, "ms": bk[0], "plain_ms": bk[1],
+                            "bound_ms": bb_ms, "bound_by": bb_by}
+    return table
+
+
+VAE_TRAIN_FLAGS = ["--train_file", CORPUS, "--intermediate_dim", "88",
+                   "--intermediate_class_dim", "88", "--latent_dim", "4", "--batch_size",
+                   str(VAE_TRAIN_B), "--use_x_prev", "--patience", "0"]
+
+
+def phase_vae_train(model_dir):
+    """The cl_vae training path through ``cli.cl_vae_train --train_backend
+    pallas`` (3 epochs), then 1 epoch of ``xla`` from the same seed. Returns
+    the forward and backward launch counts and what the run left."""
+    from classifying_vae_lstm_tpu_torch.cli import cl_vae_train
+    from classifying_vae_lstm_tpu_torch.ops import vae_dense as vd
+    from classifying_vae_lstm_tpu_torch.train.checkpoint import load_model_args
+
+    def reset():
+        vd.FWD_LAUNCHES = vd.BWD_LAUNCHES = 0
+
+    read = lambda: (vd.FWD_LAUNCHES, vd.BWD_LAUNCHES)
+    plain_on_cuda = []
+    with plain_guard(vd, VAE_DENSE_PLAIN, plain_on_cuda):
+        args, (fwd, bwd), seen, epoch_s, wall = run_train(
+            "smoke_vae", ["--num_epochs", "3", "--train_backend", "pallas"], model_dir, reset,
+            read, cli=cl_vae_train, base_flags=VAE_TRAIN_FLAGS)
+        E, n_train, n_val = _report_train("cl_vae training path", args, seen, epoch_s, wall)
+        print(f"cl_vae training path launches: forward {fwd} (expected {E * (n_train + n_val)}), "
+              f"backward {bwd} (expected {2 * E * n_train}: the row pass and the "
+              f"weight-gradient pass per step)")
+        require(fwd == E * (n_train + n_val), f"dense-stack forward launches {fwd}")
+        require(bwd == 2 * E * n_train, f"dense-stack backward launches {bwd}")
+        margs = load_model_args(seen["ckpt"])
+        require((margs["train_backend"], margs["n_classes"]) == ("pallas", TRAIN_K),
+                f"args.json {margs}")
+        seen.update(step_ms=epoch_s[-1] * 1e3 / n_train)
+
+        args_x, counts_x, seen_x, epoch_x, wall_x = run_train(
+            "smoke_vae_xla", ["--num_epochs", "1", "--train_backend", "xla"], model_dir, reset,
+            read, cli=cl_vae_train, base_flags=VAE_TRAIN_FLAGS)
+    _report_train("cl_vae --train_backend xla", args_x, seen_x, epoch_x, wall_x)
+    require(counts_x == (0, 0), f"the xla route launched dense-stack kernels: {counts_x}")
+    require(not plain_on_cuda, f"plain dense-stack versions ran on CUDA tensors: {plain_on_cuda}")
+    loss_k, loss_x = seen["history"]["loss"][0], seen_x["history"]["loss"][0]
+    rel = abs(loss_k - loss_x) / abs(loss_x)
+    print(f"cl_vae first epoch train loss: pallas {loss_k!r}, xla {loss_x!r}, relative "
+          f"difference {rel:.3e} (limit 1e-3); ms per step, first epoch: pallas "
+          f"{epoch_s[0] * 1e3 / n_train:.3f}, xla {epoch_x[0] * 1e3 / n_train:.3f}; epoch s: "
+          f"pallas {[round(v, 3) for v in epoch_s]}, xla {[round(v, 3) for v in epoch_x]}")
+    require(rel <= 1e-3, f"first-epoch losses differ by {rel}")
+    return fwd, bwd, seen
+
+
+def phase_vae_evaluate(ckpt, out_dir):
+    """``cli.evaluate --family cl_vae``: jsbcs_vae over the whole test split
+    of ``Piano-midi_Cs``, then phase 15's checkpoint on the training corpus;
+    then ``cli.cl_vae_sample`` on that checkpoint with true keys, one
+    generation launch."""
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.cli import cl_vae_sample, evaluate
+    from classifying_vae_lstm_tpu_torch.data import PianoData
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae as cgv
+    from classifying_vae_lstm_tpu_torch.ops import vae_dense as vd
+
+    for model, corpus in (("artifacts/jsbcs_vae.npz", EVAL_CORPUS), (ckpt, CORPUS)):
+        args = evaluate.build_parser().parse_args(
+            ["-i", model, "--family", "cl_vae", "--train_file", corpus, "--n_samples",
+             str(EVAL_SAMPLES), "--batch_size", str(EVAL_B)])
+        vd.FWD_LAUNCHES = vd.BWD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = evaluate.evaluate(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = len(PianoData(corpus, batch_size=1, seq_length=1, return_y_next=True).x_test)
+        print(f"evaluate {model} on {corpus}: NLL {out['test_nll_nats_per_frame']} nats/frame "
+              f"over {out['n_test_examples']} frames ({EVAL_SAMPLES} samples, batches of "
+              f"{EVAL_B}), wall {wall:.3f} s (host clock, checkpoint and corpus loads included); "
+              f"dense-stack launches {(vd.FWD_LAUNCHES, vd.BWD_LAUNCHES)} (the estimator runs "
+              "plain dense layers, as the JAX one does)")
+        require(out["family"] == "cl_vae" and out["n_test_examples"] == n,
+                f"evaluation covered {out['n_test_examples']} of {n} frames")
+        require(math.isfinite(out["test_nll_nats_per_frame"]), "non-finite NLL")
+
+    args = cl_vae_sample.build_parser().parse_args(
+        ["smoke_trained_vae", "-i", ckpt, "-n", "4", "-t", "32", "--train_file", CORPUS,
+         "--sample_dir", out_dir])
+    plain_on_cuda = []
+    with sampler_plain_guard(cgv, "generate_cl_vae_batch_plain", plain_on_cuda):
+        cgv.LAUNCHES = 0
+        samples = cl_vae_sample.sample(args)
+        launches = cgv.LAUNCHES
+    files = sorted(f for f in os.listdir(out_dir) if f.startswith("smoke_trained_vae"))
+    print(f"cl_vae_sample on the trained checkpoint: 4 songs x 32 frames, {launches} launch, "
+          f"{int(samples.sum())} notes on, {len(files)} MIDI files")
+    require(samples.shape == (4, 32, 88) and set(np.unique(samples).tolist()) <= {0, 1},
+            f"samples {samples.shape}")
+    require(launches == 1 and len(files) == 4 and not plain_on_cuda,
+            f"cl_vae_sample: {launches} launches, files {files}, plain {plain_on_cuda}")
+
+
 def main() -> int:
     import torch
 
@@ -1247,9 +1552,16 @@ def main() -> int:
     vae_launches = phase_vae_serve()
     with tempfile.TemporaryDirectory() as sample_dir:
         vae_launches += phase_sample_clis(sample_dir)
+    dense = phase_vae_dense(dev)
+    with tempfile.TemporaryDirectory() as model_dir:
+        dense_fwd, dense_bwd, seen_vae = phase_vae_train(model_dir)
+        phase_train_breakdown(seen_vae, "dense-stack kernels", "vae_dense")
+        with tempfile.TemporaryDirectory() as sample_dir:
+            phase_vae_evaluate(seen_vae["ckpt"], sample_dir)
     source = "classifying_vae_lstm_tpu_torch/csrc/two_cell.cu"
     lstm_source = "classifying_vae_lstm_tpu_torch/csrc/lstm_seq.cu"
     pallas_lstm = "classifying_vae_lstm_tpu/ops/pallas_lstm.py"
+    dense_source = "classifying_vae_lstm_tpu_torch/csrc/vae_dense.cu"
     kernels = [{
         "name": "generate_cl_vrnn", "route": "cuda",
         "source": "classifying_vae_lstm_tpu_torch/csrc/generate_cl_vrnn.cu",
@@ -1280,6 +1592,14 @@ def main() -> int:
         "source": "classifying_vae_lstm_tpu_torch/csrc/generate_cl_vae.cu",
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_generate_vae.py:141",
         "launches": vae_launches, **vae, "library_ms": None,
+    }, {
+        "name": "vae_dense_fwd", "route": "cuda", "source": dense_source,
+        "replaces": "classifying_vae_lstm_tpu/ops/pallas_vae.py:133", "launches": dense_fwd,
+        **dense["fwd"], "library_ms": None,
+    }, {
+        "name": "vae_dense_bwd", "route": "cuda", "source": dense_source,
+        "replaces": "classifying_vae_lstm_tpu/ops/pallas_vae.py:230", "launches": dense_bwd,
+        **dense["bwd"], "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))
     print(line)

@@ -33,32 +33,10 @@ from ..optim import init_optimizer
 from ..train import Trainer, fit, save_model_in_pieces
 from . import common
 
-# flags of the JAX CLI whose modules the port does not have yet
-UNPORTED_FLAGS = {
-    "dp": "--dp (data parallelism) is not ported yet: ROADMAP Queue 1 item 14",
-    "streaming": "--streaming (host-streamed batches, data/loader.py) is not ported yet: "
-                 "ROADMAP Queue 1 item 7",
-    "resume": "--resume (optimizer state in <run>.opt.npz) is not ported yet: "
-              "ROADMAP Queue 1 item 7",
-    "save_last": "--save_last (<run>.last.npz with optimizer state) is not ported yet: "
-                 "ROADMAP Queue 1 item 7",
-    "data_init": "--data_init (optim/data_init.py) is not ported yet: ROADMAP Queue 1 item 6",
-    "check_numerics": "--check_numerics (train/debug.py) is not ported yet: "
-                      "ROADMAP Queue 1 item 7",
-    "do_log": "--do_log (utils/tb_events.py) is not ported yet: ROADMAP Queue 1 item 12",
-    "trace_dir": "--trace_dir (profiler traces) is not ported yet: ROADMAP Queue 1 item 7",
-}
-
-
-def _check_ported(args):
-    for flag, msg in UNPORTED_FLAGS.items():
-        if getattr(args, flag):
-            raise NotImplementedError(msg)
-
 
 def train(args):
     """Train from parsed flags; returns (best_params, best_loss)."""
-    _check_ported(args)
+    common.check_ported(args)
     device = resolve_device(args.device)
     P = PianoData(
         args.train_file,

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..data import PianoData
@@ -18,6 +19,50 @@ from ..train.checkpoint import load_checkpoint, load_model_args
 
 # the corpus shipped with the repository (training data, seed windows for serving)
 DEFAULT_TRAIN_FILE = "data/input/Piano-midi_all.pickle"
+
+
+# flags of the JAX train CLIs whose modules the port does not have yet
+UNPORTED_FLAGS = {
+    "dp": "--dp (data parallelism) is not ported yet: ROADMAP Queue 1 item 14",
+    "streaming": "--streaming (host-streamed batches, data/loader.py) is not ported yet: "
+                 "ROADMAP Queue 1 item 7",
+    "resume": "--resume (optimizer state in <run>.opt.npz) is not ported yet: "
+              "ROADMAP Queue 1 item 7",
+    "save_last": "--save_last (<run>.last.npz with optimizer state) is not ported yet: "
+                 "ROADMAP Queue 1 item 7",
+    "data_init": "--data_init (optim/data_init.py) is not ported yet: ROADMAP Queue 1 item 6",
+    "check_numerics": "--check_numerics (train/debug.py) is not ported yet: "
+                      "ROADMAP Queue 1 item 7",
+    "do_log": "--do_log (utils/tb_events.py) is not ported yet: ROADMAP Queue 1 item 12",
+    "trace_dir": "--trace_dir (profiler traces) is not ported yet: ROADMAP Queue 1 item 7",
+}
+
+
+def check_ported(args):
+    """Raise ``NotImplementedError`` for a set flag of :data:`UNPORTED_FLAGS`."""
+    for flag, msg in UNPORTED_FLAGS.items():
+        if getattr(args, flag):
+            raise NotImplementedError(msg)
+
+
+def active_pitch_mask(P: PianoData) -> np.ndarray:
+    """Boolean [88] mask of the pitch columns played anywhere in all splits'
+    x and y."""
+    X = np.vstack([P.x_train, P.x_valid, P.x_test, P.y_train, P.y_valid, P.y_test])
+    return X.sum(axis=0).sum(axis=0) > 0
+
+
+def prune_and_flatten_cl_vae(P: PianoData, seq_length: int, ix: np.ndarray | None = None) -> int:
+    """The cl_vae seq-concat mode: drop never-played pitch columns and
+    flatten each window into one row; returns the new ``original_dim``.
+    Evaluation passes ``ix``, the mask of the training-time batching (its
+    truncation to the batch size changes which windows vote)."""
+    if ix is None:
+        ix = active_pitch_mask(P)
+    for attr in ("x_train", "x_valid", "x_test", "y_train", "y_valid", "y_test"):
+        a = getattr(P, attr)
+        setattr(P, attr, np.ascontiguousarray(a[:, :, ix].reshape((len(a), -1))))
+    return int(ix.sum()) * seq_length
 
 
 def build_cl_vrnn_datasets(P: PianoData, n_classes: int, use_x_prev: bool, device) -> dict:
@@ -32,6 +77,11 @@ def build_cl_vrnn_datasets(P: PianoData, n_classes: int, use_x_prev: bool, devic
         arrays = {"y": y, "w": w, **({"x": y, "x_prev": x} if use_x_prev else {"x": x})}
         out[split] = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
     return out
+
+
+def build_cl_vae_datasets(P: PianoData, n_classes: int, use_x_prev: bool, device) -> dict:
+    """The same dicts for cl_vae's single frames: ``x``/``y`` [N, D]."""
+    return build_cl_vrnn_datasets(P, n_classes, use_x_prev, device)
 
 
 def cl_vae_config_from_args(margs: dict) -> cl_vae.Config:

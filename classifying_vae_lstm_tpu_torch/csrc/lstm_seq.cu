@@ -10,8 +10,8 @@
 //     `lstm_seq_fwd_kernel<R, true>`, the training forward;
 //   * :1378 `_backward_call_full` -> `_lstm_bwd_kernel_full` :986 with
 //     `lstm_seq_bwd_kernel` (the serial reverse walk) followed by
-//     `lstm_seq_wgrad_kernel` (the weight gradients): one ported kernel, two
-//     launches.
+//     `wgrad_kernel<lstm_seq_wgrad>` (the weight gradients, csrc/wgrad.cuh):
+//     one ported kernel, two launches.
 //
 // What it computes, per batch row and time step t = 0 .. T-1:
 //   xz = x[t] @ W + b;  z = xz + h @ Rk;  (h, c) = gates(z, c)
@@ -63,6 +63,8 @@
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "wgrad.cuh"
 
 namespace {
 
@@ -323,70 +325,7 @@ __global__ void __launch_bounds__(kBwdThreads) lstm_seq_bwd_kernel(const BwdArgs
   }
 }
 
-// ---- weight gradients: C[M, N] = sum over rows r of A[r, :M]ᵀ Bm[r, :N]
-
-constexpr int kTile = 64;        // C tile is kTile x kTile
-constexpr int kChunk = 16;       // rows per shared-memory stage
-constexpr int kWgThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kJobs = 3;         // dRk, dW, db
-
-struct Job {
-  const float* A;   // [R, M] (lda = M); null: a column of ones (M = 1), i.e. column sums
-  const float* Bm;  // [R, N]
-  float* C;         // [M, N]
-  int M, N, tiles_n, first_block;
-};
-
-struct WgradArgs {
-  Job jobs[kJobs];
-  int R;
-};
-
-__global__ void __launch_bounds__(kWgThreads) lstm_seq_wgrad_kernel(const WgradArgs args) {
-  __shared__ __align__(16) float As[kChunk][kTile];
-  __shared__ __align__(16) float Bs[kChunk][kTile];
-  int j = 0;
-  while (j + 1 < kJobs && (int)blockIdx.x >= args.jobs[j + 1].first_block) ++j;
-  const Job jb = args.jobs[j];
-  const int local = blockIdx.x - jb.first_block;
-  const int m0 = (local / jb.tiles_n) * kTile, n0 = (local % jb.tiles_n) * kTile;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
-  for (int r0 = 0; r0 < args.R; r0 += kChunk) {
-    for (int i = threadIdx.x; i < kChunk * kTile; i += kWgThreads) {
-      const int rr = i / kTile, c = i - rr * kTile, r = r0 + rr;
-      const int m = m0 + c, n = n0 + c;
-      As[rr][c] = (r < args.R && m < jb.M) ? (jb.A ? jb.A[(size_t)r * jb.M + m] : 1.f) : 0.f;
-      Bs[rr][c] = (r < args.R && n < jb.N) ? jb.Bm[(size_t)r * jb.N + n] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int rr = 0; rr < kChunk; ++rr) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[rr][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[rr][tx * 4]);
-      const float am[4] = {av.x, av.y, av.z, av.w};
-      const float bn[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(am[i], bn[q], acc[i][q]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int n = n0 + tx * 4 + q;
-      if (m < jb.M && n < jb.N) jb.C[(size_t)m * jb.N + n] = acc[i][q];
-    }
-  }
-}
+struct lstm_seq_wgrad {};  // names this source's copy of cvl::wgrad_kernel
 
 int set_smem(const void* fn, size_t bytes) {
   return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -447,16 +386,7 @@ extern "C" int cvl_lstm_seq_bwd(const float* z, const float* cp, const float* c,
 // the launch.
 extern "C" int cvl_lstm_seq_wgrad(const float* hp, const float* x, const float* dz, float* drk,
                                   float* dw, float* db, int R, int IN, int H, void* stream) {
-  WgradArgs args{};
-  const struct { const float* A; float* C; int M; } spec[kJobs] = {
-      {hp, drk, H}, {x, dw, IN}, {nullptr, db, 1}};
-  int blocks = 0;
-  for (int j = 0; j < kJobs; ++j) {
-    const int tm = (spec[j].M + kTile - 1) / kTile, tn = (4 * H + kTile - 1) / kTile;
-    args.jobs[j] = Job{spec[j].A, dz, spec[j].C, spec[j].M, 4 * H, tn, blocks};
-    blocks += tm * tn;
-  }
-  args.R = R;
-  lstm_seq_wgrad_kernel<<<blocks, kWgThreads, 0, static_cast<cudaStream_t>(stream)>>>(args);
-  return (int)cudaGetLastError();
+  const cvl::WgradJob jobs[] = {{hp, dz, drk, H, 4 * H}, {x, dz, dw, IN, 4 * H},
+                                {nullptr, dz, db, 1, 4 * H}};
+  return cvl::launch_wgrad<lstm_seq_wgrad>(jobs, 3, R, static_cast<cudaStream_t>(stream));
 }

@@ -3,8 +3,8 @@
 // Replaces: classifying_vae_lstm_tpu/ops/pallas_two_cell.py
 //   * :272 `_fwd_call` -> `_fwd_kernel` :129 with `two_cell_fwd_kernel` below;
 //   * :408 `_bwd_call` -> `_bwd_kernel` :295 with `two_cell_bwd_kernel` (the
-//     serial reverse walk) followed by `two_cell_wgrad_kernel` (the weight
-//     gradients): one ported kernel, two launches.
+//     serial reverse walk) followed by `wgrad_kernel<two_cell_wgrad>` (the
+//     weight gradients, csrc/wgrad.cuh): one ported kernel, two launches.
 //
 // What it computes, per batch row and time step t = 0 .. T-1:
 //   ze = xe[t] @ We + be + h_e @ Rk_e;  (h_e, c_e) = gates(ze, c_e)
@@ -55,6 +55,8 @@
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "wgrad.cuh"
 
 namespace {
 
@@ -468,70 +470,7 @@ __global__ void __launch_bounds__(kThreads) two_cell_bwd_kernel(const BwdArgs a)
   }
 }
 
-// ---- weight gradients: C[M, N] = sum over rows r of A[r, :M]ᵀ Bm[r, :N]
-
-constexpr int kTile = 64;      // C tile is kTile x kTile
-constexpr int kChunk = 16;     // rows per shared-memory stage
-constexpr int kWgThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kMaxJobs = 9;
-
-struct Job {
-  const float* A;   // [R, M] (lda = M); null: a column of ones (M = 1), i.e. column sums
-  const float* Bm;  // [R, N]
-  float* C;         // [M, N]
-  int M, N, tiles_n, first_block;
-};
-
-struct WgradArgs {
-  Job jobs[kMaxJobs];
-  int njobs, R;
-};
-
-__global__ void __launch_bounds__(kWgThreads) two_cell_wgrad_kernel(const WgradArgs args) {
-  __shared__ __align__(16) float As[kChunk][kTile];
-  __shared__ __align__(16) float Bs[kChunk][kTile];
-  int j = 0;
-  while (j + 1 < args.njobs && (int)blockIdx.x >= args.jobs[j + 1].first_block) ++j;
-  const Job jb = args.jobs[j];
-  const int local = blockIdx.x - jb.first_block;
-  const int m0 = (local / jb.tiles_n) * kTile, n0 = (local % jb.tiles_n) * kTile;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
-  for (int r0 = 0; r0 < args.R; r0 += kChunk) {
-    for (int i = threadIdx.x; i < kChunk * kTile; i += kWgThreads) {
-      const int rr = i / kTile, c = i - rr * kTile, r = r0 + rr;
-      const int m = m0 + c, n = n0 + c;
-      As[rr][c] = (r < args.R && m < jb.M) ? (jb.A ? jb.A[(size_t)r * jb.M + m] : 1.f) : 0.f;
-      Bs[rr][c] = (r < args.R && n < jb.N) ? jb.Bm[(size_t)r * jb.N + n] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int rr = 0; rr < kChunk; ++rr) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[rr][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[rr][tx * 4]);
-      const float am[4] = {av.x, av.y, av.z, av.w};
-      const float bn[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(am[i], bn[q], acc[i][q]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int n = n0 + tx * 4 + q;
-      if (m < jb.M && n < jb.N) jb.C[(size_t)m * jb.N + n] = acc[i][q];
-    }
-  }
-}
+struct two_cell_wgrad {};  // names this source's copy of cvl::wgrad_kernel
 
 int set_smem(const void* fn, size_t bytes) {
   return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -592,20 +531,11 @@ extern "C" int cvl_two_cell_wgrad(
     const float* zs, const float* dz_d, const float* he, const float* dza, float* drke,
     float* dwe, float* dbe, float* drkd, float* dwdx, float* dkz, float* dbd, float* dwz,
     float* dbz, int R, int INe, int INd, int H, int L, void* stream) {
-  WgradArgs args{};
-  const struct { const float* A; const float* Bm; float* C; int M, N; } spec[kMaxJobs] = {
+  const cvl::WgradJob jobs[] = {
       {hpe, dz_e, drke, H, 4 * H},   {xe, dz_e, dwe, INe, 4 * H}, {nullptr, dz_e, dbe, 1, 4 * H},
       {hpd, dz_d, drkd, H, 4 * H},   {xd, dz_d, dwdx, INd, 4 * H}, {zs, dz_d, dkz, L, 4 * H},
       {nullptr, dz_d, dbd, 1, 4 * H}, {he, dza, dwz, H, 2 * L},    {nullptr, dza, dbz, 1, 2 * L},
   };
-  int blocks = 0;
-  for (int j = 0; j < kMaxJobs; ++j) {
-    const int tm = (spec[j].M + kTile - 1) / kTile, tn = (spec[j].N + kTile - 1) / kTile;
-    args.jobs[j] = Job{spec[j].A, spec[j].Bm, spec[j].C, spec[j].M, spec[j].N, tn, blocks};
-    blocks += tm * tn;
-  }
-  args.njobs = kMaxJobs;
-  args.R = R;
-  two_cell_wgrad_kernel<<<blocks, kWgThreads, 0, static_cast<cudaStream_t>(stream)>>>(args);
-  return (int)cudaGetLastError();
+  return cvl::launch_wgrad<two_cell_wgrad>(jobs, (int)(sizeof(jobs) / sizeof(jobs[0])), R,
+                                           static_cast<cudaStream_t>(stream));
 }

@@ -15,9 +15,18 @@ import numpy as np
 import torch
 
 
-def dense(params, x, activation=None):
-    """y = act(x @ kernel + bias) in float32."""
-    y = torch.matmul(x, params["kernel"]) + params["bias"]
+def dense(params, x, activation=None, dtype=None):
+    """y = act(x @ kernel + bias) in float32.
+
+    ``dtype=torch.bfloat16`` rounds x, the kernel and the bias to bf16 and
+    multiplies in f32, as the JAX ``dense(dtype=bf16)`` does with
+    ``preferred_element_type=f32`` (a CPU bf16 matmul would round its output
+    to bf16)."""
+    kernel, bias = params["kernel"], params["bias"]
+    if dtype is not None:
+        op = lambda a: a.to(dtype).to(torch.float32)
+        x, kernel, bias = op(x), op(kernel), op(bias)
+    y = torch.matmul(x, kernel) + bias
     if activation is not None:
         y = activation(y)
     return y

@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o build/torch_kernels/lib<name>-<hash>.so csrc/<name>.cu
 
-into ``build/torch_kernels/`` beside the package, at first use. The library
-name carries a hash of the source, so an edited source is rebuilt and an
+into ``build/torch_kernels/`` beside the package, at first use; the sources
+share the headers ``csrc/*.cuh``. The library name carries a hash of the
+source and the headers, so an edited source or header is rebuilt and an
 unchanged one is reused. Nothing here runs at import time.
 """
 
@@ -43,7 +44,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -254,9 +254,9 @@ def lstm_seq_bwd(z, c_prev, c, h_prev, x, dh_seq, dc_seq, rk_t, w_t):
     """The backward (signature and results of :func:`lstm_seq_bwd_plain`).
 
     CUDA tensors launch ``lstm_seq_bwd_kernel`` (the serial reverse walk,
-    which writes dz per step to scratch) and then ``lstm_seq_wgrad_kernel``
-    (dRk, dW and db over all T*B rows, in a fixed order), or raise; CPU
-    tensors take the plain version."""
+    which writes dz per step to scratch) and then
+    ``wgrad_kernel<lstm_seq_wgrad>`` (dRk, dW and db over all T*B rows, in a
+    fixed order), or raise; CPU tensors take the plain version."""
     args = (z, c_prev, c, h_prev, x, dh_seq, dc_seq, rk_t, w_t)
     dev = _device_of(z)
     if dev.type == "cpu":

@@ -187,8 +187,10 @@ def _kernels():
 
 
 def _check(dev, named_shapes: dict):
-    """Raise on anything the kernels do not take."""
+    """Raise on anything the kernels do not take (``None`` entries skip)."""
     for name, (t, shape) in named_shapes.items():
+        if t is None:
+            continue
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
         if t.dtype != torch.float32:
@@ -259,8 +261,8 @@ def two_cell_bwd(ze, zd, cpe, ce, cpd, cd, hpe, he, hpd, eps, zargs, xe, xd, dhd
 
     CUDA tensors launch ``two_cell_bwd_kernel`` (the serial reverse walk,
     which writes dz and z per step to scratch) and then
-    ``two_cell_wgrad_kernel`` (the weight gradients over all B*T rows, in a
-    fixed order), or raise; CPU tensors take the plain version."""
+    ``wgrad_kernel<two_cell_wgrad>`` (the weight gradients over all B*T rows,
+    in a fixed order), or raise; CPU tensors take the plain version."""
     args = (ze, zd, cpe, ce, cpd, cd, hpe, he, hpd, eps, zargs, xe, xd, dhd, dzargs,
             we, rke, wdx, rkd, kz, wz)
     dev = _device_of(ze)

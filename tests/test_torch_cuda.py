@@ -418,3 +418,117 @@ def test_vae_wrapper_raises_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="shared memory"):
         cgv.generate_cl_vae_batch_cuda(params, wide, seeds, nsteps, eps, u, ws)
     assert cgv.LAUNCHES == before
+
+
+# ---- the dense-stack cl_vae training kernels (csrc/vae_dense.cu)
+#
+# Forward outputs within 1e-5 (same f32 products, other summation order);
+# backward outputs within max|a - b| <= 1e-4 * max|b| + 1e-6 (the weight
+# gradients sum the B rows in another order).
+
+from classifying_vae_lstm_tpu_torch.ops import vae_dense as vd  # noqa: E402
+
+VAE_DENSE_CASES = {
+    "ragged_tile": dict(B=11, D=16, Cw=8, H=24, L=3, K=4),  # B not a multiple of 4 rows
+    "no_x_prev": dict(B=12, D=16, Cw=8, H=24, L=3, K=4, use_xp=False),
+    "two_column_passes": dict(B=9, D=300, Cw=40, H=280, L=5, K=13),  # D, H > 256 threads
+    "one_row": dict(B=1, D=12, Cw=6, H=10, L=2, K=2),
+}
+
+
+def _vae_dense_inputs(dev, B, D, Cw, H, L, K, use_xp=True, seed=0):
+    """Binary frames, Gaussian noise, weights of std 1/sqrt(fan_in) (the
+    scale of a trained or glorot-initialised model: pre-activations O(1))."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0: torch.from_numpy(
+        (scale * rng.standard_normal(s)).astype(np.float32)).to(dev)
+    m = lambda i, o: f(i, o, scale=i ** -0.5)
+    bits = lambda: torch.from_numpy((rng.random((B, D)) < 0.3).astype(np.float32)).to(dev)
+    K2 = 2 * (K - 1)
+    return (bits(), bits() if use_xp else None, f(B, K - 1), f(B, L), m(D, Cw),
+            f(Cw, scale=0.2), m(Cw, K2), f(K2, scale=0.2), m(D, H), m(K, H), f(H, scale=0.2),
+            m(H, 2 * L), f(2 * L, scale=0.2), m(K, H), m(D, H) if use_xp else None, m(L, H),
+            f(H, scale=0.2), m(H, D), f(D, scale=0.2))
+
+
+@pytest.mark.parametrize("case", sorted(VAE_DENSE_CASES))
+def test_vae_dense_kernels_match_plain(dev, case):
+    ins = _vae_dense_inputs(dev, **VAE_DENSE_CASES[case])
+    before = (vd.FWD_LAUNCHES, vd.BWD_LAUNCHES)
+    outs = vd.vae_dense_fwd(*ins)
+    torch.cuda.synchronize()
+    ref = vd.vae_dense_fwd_plain(*ins)
+    for name, k, p in zip(("xhat", "wargs", "zargs", "w", "a1", "a2", "a3"), outs, ref):
+        torch.testing.assert_close(k, p, rtol=0, atol=1e-5, msg=name)
+    (x, xp, eps_w, eps_z, whw, _, wwz, _, whx, whw2, _, wzz, _, wdw, wdxp, wdz, _, wxh, _) = ins
+    xhat, wargs, zargs, w, a1, a2, a3 = ref
+    rng = np.random.default_rng(1)
+    cot = [torch.from_numpy(rng.standard_normal(tuple(o.shape)).astype(np.float32)).to(dev)
+           for o in (xhat, wargs, zargs, w)]
+    res = (x, xp, eps_w, eps_z, a1, a2, a3, xhat, wargs, zargs, w, *cot,
+           whw, wwz, whx, whw2, wzz, wdw, wdxp, wdz, wxh)
+    got = vd.vae_dense_bwd(*res)
+    torch.cuda.synchronize()
+    want = vd.vae_dense_bwd_plain(*res)
+    names = ("dx", "dxp", "dwhw", "dbhw", "dwwz", "dbwz", "dwhx", "dwhw2", "dbh", "dwzz", "dbzz",
+             "dwdw", "dwdxp", "dwdz", "dbd", "dwxh", "dbxh")
+    for name, g, wv in zip(names, got, want):
+        if wv is None:
+            assert g is None, name
+            continue
+        assert g.shape == wv.shape, name
+        _assert_bwd_close(g, wv, name)
+    assert (vd.FWD_LAUNCHES, vd.BWD_LAUNCHES) == (before[0] + 1, before[1] + 2)
+
+
+def test_vae_dense_gradients_on_cuda_match_cpu_plain(dev):
+    """The loss and every parameter gradient of ``cl_vae.loss_and_metrics``
+    on the ``pallas`` route: kernels on the card against the plain versions
+    on the CPU, from the same weights, batch and noise."""
+    D, H, L, K, B = 12, 20, 3, 4, 10
+    cfg = cl_vae.Config(original_dim=D, intermediate_dim=H, latent_dim=L,
+                        intermediate_class_dim=10, n_classes=K, use_x_prev=True,
+                        train_backend="pallas")
+    raw = cl_vae.init(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(2)
+    arrays = {"x": (rng.random((B, D)) < 0.3).astype(np.float32),
+              "x_prev": (rng.random((B, D)) < 0.3).astype(np.float32),
+              "y": (rng.random((B, D)) < 0.3).astype(np.float32),
+              "w": np.eye(K, dtype=np.float32)[np.arange(B) % K],
+              "eps_w": rng.standard_normal((B, K - 1)).astype(np.float32),
+              "eps_z": rng.standard_normal((B, L)).astype(np.float32)}
+
+    def grads(device):
+        params = params_from_numpy({k: {n: v.numpy() for n, v in d.items()}
+                                    for k, d in raw.items()}, device)
+        leaves = [v.requires_grad_(True) for d in params.values() for v in d.values()]
+        batch = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+        loss, _ = cl_vae.loss_and_metrics(params, cfg, batch, None, 0.5, 0.7, 0.9)
+        loss.backward()
+        return [loss.detach()] + [v.grad for v in leaves]
+
+    before = (vd.FWD_LAUNCHES, vd.BWD_LAUNCHES)
+    on_card = grads(dev)
+    torch.cuda.synchronize()
+    assert (vd.FWD_LAUNCHES, vd.BWD_LAUNCHES) == (before[0] + 1, before[1] + 2)
+    on_cpu = grads("cpu")
+    assert len(on_card) == len(on_cpu) == 1 + 16  # the loss; 8 dense layers x 2
+    for i, (g, wv) in enumerate(zip(on_card, on_cpu)):
+        _assert_bwd_close(g.cpu(), wv, f"loss / gradient {i}")
+
+
+def test_vae_dense_wrappers_raise_instead_of_falling_back(dev):
+    ins = list(_vae_dense_inputs(dev, B=4, D=8, Cw=6, H=10, L=2, K=3))
+    before = (vd.FWD_LAUNCHES, vd.BWD_LAUNCHES)
+    with pytest.raises(ValueError, match="cpu"):
+        vd.vae_dense_fwd(*ins[:4], ins[4].cpu(), *ins[5:])
+    with pytest.raises(ValueError, match="contiguous"):
+        vd.vae_dense_fwd(*ins[:8], ins[8].T.contiguous().T, *ins[9:])
+    with pytest.raises(ValueError, match="float32"):
+        vd.vae_dense_fwd(ins[0].double(), *ins[1:])
+    with pytest.raises(ValueError, match="together"):
+        vd.vae_dense_fwd(ins[0], None, *ins[2:])
+    wide = _vae_dense_inputs(dev, B=4, D=8, Cw=6, H=8192, L=2, K=3)
+    with pytest.raises(ValueError, match="shared memory"):
+        vd.vae_dense_fwd(*wide)
+    assert (vd.FWD_LAUNCHES, vd.BWD_LAUNCHES) == before

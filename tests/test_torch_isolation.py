@@ -61,7 +61,7 @@ def test_unported_paths_raise_naming_the_roadmap():
     # kernels, and the train flags whose modules are not ported
     import dataclasses
 
-    from classifying_vae_lstm_tpu_torch.cli import cl_vrnn_train
+    from classifying_vae_lstm_tpu_torch.cli import cl_vrnn_train, common
     from classifying_vae_lstm_tpu_torch.models import cl_vrnn
 
     cfg = cl_vrnn.Config(original_dim=6, intermediate_dim=8, latent_dim=2, seq_length=3,
@@ -72,7 +72,7 @@ def test_unported_paths_raise_naming_the_roadmap():
                 dataclasses.replace(cfg, bf16_compute=True, two_cell=False)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cl_vrnn.apply(params, bad, x, torch.Generator().manual_seed(1))
-    for flag in cl_vrnn_train.UNPORTED_FLAGS:
+    for flag in common.UNPORTED_FLAGS:
         extra = {"dp": ["--dp", "2"], "trace_dir": ["--trace_dir", "t"]}.get(flag, [f"--{flag}"])
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cl_vrnn_train.train(cl_vrnn_train.build_parser().parse_args(["r", *extra]))

@@ -1,4 +1,5 @@
-"""The port's IW-NLL estimator and ``cli/evaluate.py`` vs the JAX package.
+"""The port's IW-NLL estimators (cl_vrnn and cl_vae) and ``cli/evaluate.py``
+vs the JAX package.
 
 ``iw_nll_cl_vrnn_noise`` is held against the JAX ``iw_nll_cl_vrnn`` fed
 the same key: the test rebuilds the JAX draws (``split(key, S)``, then per
@@ -126,17 +127,13 @@ def test_cli_evaluates_a_port_checkpoint_on_every_test_window(tmp_path, capsys):
 
 
 def test_unported_options_raise_naming_the_roadmap():
-    for extra in (["--dp", "2"], ["--family", "cl_vae"]):
-        args = teval.build_parser().parse_args(
-            ["-i", "artifacts/jsball_vrnn4.npz", "--device", "cpu", *extra])
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1[14]"):
+    for model in ("artifacts/jsball_vrnn4.npz", "artifacts/jsbcs_vae.npz"):
+        args = teval.build_parser().parse_args(["-i", model, "--device", "cpu", "--dp", "2"])
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
             teval.evaluate(args)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        tnll.iw_nll_cl_vae()
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
         tnll.iw_nll_dataset_dp()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        tnll.iw_nll_dataset({}, None, {"x": torch.zeros(1)}, None, 1, 1)  # family cl_vae
+    assert not hasattr(tnll, "CL_VAE_TODO")  # the cl_vae estimator is ported
     assert teval.build_parser().parse_args(["-i", "m.npz"]).device == "cuda"
 
 
@@ -152,3 +149,84 @@ def test_log_densities_match_jax():
     np.testing.assert_allclose(tnll._log_bernoulli(t(y), t(p)).numpy(),
                                np.asarray(jnll._log_bernoulli(jnp.asarray(y), jnp.asarray(p))),
                                rtol=1e-6, atol=1e-5)
+
+
+# ---- the cl_vae estimator
+#
+# iw_nll_cl_vae_noise against the JAX iw_nll_cl_vae fed the same key: the
+# draws are rebuilt from JAX's own splits (split(key, S), then per sample
+# ku, kz = split(k), normal(ku, [B, K-1]), normal(kz, [B, L])). Both run the
+# plain dense layers; tolerance 1e-5 nats/frame (f32 sums in another order).
+
+from classifying_vae_lstm_tpu.cli import common as jcommon  # noqa: E402
+
+
+def _vae_draws(key, S, B, L, K):
+    eps_u, eps_z = [], []
+    for k in jax.random.split(key, S):
+        ku, kz = jax.random.split(k)
+        eps_u.append(np.asarray(jax.random.normal(ku, (B, K - 1))))
+        eps_z.append(np.asarray(jax.random.normal(kz, (B, L))))
+    return np.stack(eps_u), np.stack(eps_z)
+
+
+def _vae_windows(n, seed=0):
+    P = PianoData(CORPUS, batch_size=1, seq_length=1, return_y_next=True)
+    idx = np.random.default_rng(seed).choice(len(P.x_test), size=n, replace=False)
+    return P.y_test[idx], P.x_test[idx]  # x (= the next frame) and x_prev
+
+
+@pytest.mark.parametrize("name", ["jsbcs_vae", "jsball_vanilla"])
+def test_iw_nll_cl_vae_noise_matches_jax(name):
+    jp, jcfg, _ = jcommon.load_model(f"artifacts/{name}.npz", "cl_vae")
+    raw, tcfg, _ = tcommon.load_model(f"artifacts/{name}.npz", "cl_vae")
+    S, B = 4, 11
+    x, xp = _vae_windows(B)
+    xp_in = xp if tcfg.use_x_prev else None
+    key = jax.random.PRNGKey(5)
+    ref = jnll.iw_nll_cl_vae(jp, jcfg, x, x, key, n_samples=S, x_prev=xp_in)
+    eps_u, eps_z = _vae_draws(key, S, B, tcfg.latent_dim, tcfg.n_classes)
+    t = torch.from_numpy
+    with torch.no_grad():
+        got = tnll.iw_nll_cl_vae_noise(params_from_numpy(raw, "cpu"), tcfg, t(x), t(x),
+                                       t(eps_u), t(eps_z), t(xp) if tcfg.use_x_prev else None)
+    assert got.shape == (B,) and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
+
+
+def test_iw_nll_dataset_cl_vae_covers_every_example():
+    """N % batch_size != 0: the last batch wraps around and its pad rows are
+    dropped; the first batch draws what ``iw_nll_cl_vae`` draws from a
+    generator in the same state."""
+    raw, tcfg, _ = tcommon.load_model("artifacts/jsbcs_vae.npz", "cl_vae")
+    tp = params_from_numpy(raw, "cpu")
+    x, xp = _vae_windows(7, seed=1)
+    data = {"x": torch.from_numpy(x), "y": torch.from_numpy(x), "x_prev": torch.from_numpy(xp)}
+    nlls = tnll.iw_nll_dataset(tp, tcfg, data, torch.Generator().manual_seed(3), n_samples=S,
+                               batch_size=3, family="cl_vae")
+    assert nlls.shape == (7,) and torch.isfinite(nlls).all()
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        batches = [tnll.iw_nll_cl_vae(tp, tcfg, data["x"][i], data["y"][i], gen, S,
+                                      data["x_prev"][i])
+                   for i in ([0, 1, 2], [3, 4, 5], [6, 0, 1])]
+    torch.testing.assert_close(nlls, torch.cat(batches)[:7], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", ["jsbcs_vae", "jsball_vanilla"])
+def test_cli_evaluates_cl_vae_checkpoints(name, capsys):
+    """``cli.evaluate --family auto --device cpu`` on a cl_vae checkpoint
+    prints the JAX package's JSON line over every test frame; the vanilla
+    model (K=1, no x_prev) has its key labels collapsed as in JAX."""
+    out = teval.evaluate(teval.build_parser().parse_args(
+        ["-i", f"artifacts/{name}.npz", "--train_file", CORPUS, "--device", "cpu",
+         "--n_samples", "4", "--batch_size", "1000"]))
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == out
+    assert set(line) == {"test_nll_nats_per_frame", "n_importance_samples", "n_test_examples",
+                         "family", "train_file"}
+    assert line["family"] == "cl_vae" and line["n_importance_samples"] == 4
+    P = PianoData(CORPUS, batch_size=1, seq_length=1,
+                  return_y_next=name == "jsbcs_vae")
+    assert line["n_test_examples"] == len(P.x_test) > 1000  # the last batch is ragged
+    assert np.isfinite(line["test_nll_nats_per_frame"]) and line["test_nll_nats_per_frame"] > 0

@@ -121,7 +121,7 @@ def test_cli_run_checkpoint_loads_in_both_packages(tmp_path):
     assert rolls.shape == (2, 8, 88) and set(np.unique(rolls).tolist()) <= {0.0, 1.0}
 
 
-@pytest.mark.parametrize("flag", sorted(tcli.UNPORTED_FLAGS))
+@pytest.mark.parametrize("flag", sorted(tcommon.UNPORTED_FLAGS))
 def test_unported_flags_raise(flag):
     extra = {"dp": ["--dp", "2"], "trace_dir": ["--trace_dir", "t"]}.get(flag, [f"--{flag}"])
     args = tcli.build_parser().parse_args(["r", "--device", "cpu", *extra])
