@@ -92,7 +92,37 @@ failure:
 16. ``cli.evaluate --family cl_vae`` of ``artifacts/jsbcs_vae`` on
    ``Piano-midi_Cs`` (its whole test split, 64 samples, batches of 200) and
    of phase 15's checkpoint on the training corpus; ``cli.cl_vae_sample`` on
-   that checkpoint with true keys, one generation launch.
+   that checkpoint with true keys, one generation launch;
+17. the wide cl_vae generation kernel (every config the shared-memory one
+   refuses) vs its plain version at 64 single-frame seeds x 256 steps, on
+   seeded glorot weights with 13 keys: f32 at H=256 and 512 (D=88, L=4,
+   use_x_prev, with and without use_z_prior) and without hidden layers,
+   probabilities with u=1 within 1e-5 and frames equal up to each song's
+   first near-tie; bf16 at H=512 and at the seq-concat width (D=H=1024,
+   L=16, no x_prev), probabilities within max 2e-2 / mean 2e-3; the wide
+   count equals the phase's launches, and jsball_vae's width still takes
+   the shared-memory kernel; kernel and plain times beside each bound;
+18. the bf16 mode of both dense-stack kernels vs their bf16 plain versions
+   at phase 19's training shape (D=1024, Cw=256, H=1024, L=16, K=13, B=100)
+   and at phase 14's seq-concat shape: forward within 1e-2 x max(1,
+   max|plain|) and 1e-3 relative Frobenius, backward within 1e-2 relative
+   Frobenius (same rounding points, f32 sums in another order); each
+   parameter gradient of the loss on the kernel route within 3x the plain
+   bf16 route's error against the f32 truth + 2% of its norm, the weight
+   gradients bf16-representable and the bias gradients not rounded; times
+   beside the bound at the bf16 rate;
+19. the bf16 paths: ``cli.cl_vae_train --seq_length 16 --intermediate_dim
+   1024 --intermediate_class_dim 256 --latent_dim 16 --bf16_compute
+   --train_backend pallas`` for 2 epochs on the committed corpus (D=1,024;
+   bf16 counts set to 0 just before and read just after, equal to the run's
+   steps), then 1 epoch of ``xla`` from the same seed (first-epoch loss
+   within 1e-2 relative), a step's time split, ``cli.evaluate --family
+   cl_vae`` of the checkpoint; then a bf16 H=512 model at D=88 trained
+   through the kernels, sampled by ``cli.cl_vae_sample`` and served by
+   ``cli.serve`` through the wide kernel (launches equal to the engine's
+   device calls), and a model without hidden layers sampled through it.
+
+The run fails if a thread it started is still running at the end.
 
 The last lines are the kernel table (one JSON object), the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -119,6 +149,7 @@ CORPUS = "data/input/Piano-midi_all.pickle"
 EVAL_CORPUS = "data/input/Piano-midi_Cs.pickle"  # keys 0 and 1: jsball_vrnn4 has 10
 EVAL_WINDOWS, EVAL_SAMPLES, EVAL_B = 4468, 64, 200  # its test split at T=16
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 TRAIN_B, TRAIN_T, TRAIN_K = 200, 16, 13  # the training path's batch, window, key classes
 LSTM_SEQ_PLAIN = ("lstm_seq_fwd_plain", "lstm_seq_train_fwd_plain", "lstm_seq_bwd_plain")
@@ -182,10 +213,11 @@ def frames_agree_to_near_tie(label, fk, fp, u, probs):
     require(not bad, f"songs {bad} diverge before a near-tie")
 
 
-def roofline_ms(fmas: float, nbytes: float) -> tuple[float, str]:
-    """Least time for a call: the larger of its f32 operations (2 per FMA)
-    over the card's f32 rate and its bytes over HBM bandwidth."""
-    t_ops, t_bytes = 2 * fmas / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+def roofline_ms(fmas: float, nbytes: float, peak: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    """Least time for a call: the larger of its operations (2 per FMA) over
+    the card's rate for their type (f32 by default; ``PEAK_BF16_FLOPS`` for
+    products of bf16 operands) and its bytes over HBM bandwidth."""
+    t_ops, t_bytes = 2 * fmas / peak, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -1051,16 +1083,22 @@ def phase_evaluate(ckpt):
     return counts_k[0]
 
 
-def vae_bound_ms(cfg, B, nsteps, weight_bytes) -> tuple[float, str]:
-    """Least time for one cl_vae generation call: its f32 FMAs (encoder x
-    rows, z heads, decoder z and x_prev rows, frame head, per song-step)
+def vae_bound_ms(cfg, B, nsteps, weight_bytes, peak=PEAK_F32_FLOPS) -> tuple[float, str]:
+    """Least time for one cl_vae generation call: its FMAs per song-step
+    (encoder x rows, z heads, decoder z and x_prev rows, frame head; without
+    hidden layers the z heads' and the frame head's x_prev and z rows)
     against its bytes (seeds, eps, u, the per-song folds, the weights and the
-    output, each once)."""
+    output, each once); ``peak`` is the rate of the products' type."""
     D, H, L = cfg.original_dim, cfg.intermediate_dim, cfg.latent_dim
     n_xp = D if cfg.use_x_prev else 0
-    fmas = B * nsteps * (D * H + H * 2 * L + L * H + n_xp * H + H * D)
-    stream_bytes = 4 * (B * D + B * nsteps * (L + D) + 2 * B * H + B * nsteps * D)
-    return roofline_ms(fmas, stream_bytes + weight_bytes)
+    if cfg.has_hidden:
+        fmas = B * nsteps * (D * H + H * 2 * L + L * H + n_xp * H + H * D)
+        folds = 2 * B * H
+    else:
+        fmas = B * nsteps * (D * 2 * L + L * D + n_xp * D)
+        folds = B * (2 * L + D)
+    stream_bytes = 4 * (B * D + B * nsteps * (L + D) + folds + B * nsteps * D)
+    return roofline_ms(fmas, stream_bytes + weight_bytes, peak)
 
 
 def phase_vae(dev):
@@ -1161,24 +1199,13 @@ def phase_vae(dev):
 
 
 def phase_vae_serve():
-    """cl_vae serving through ``cli.serve``: one kernel launch per engine
-    device call. Returns the launches."""
+    """cl_vae serving through ``cli.serve``: one launch of the shared-memory
+    kernel per engine device call. Returns the launches."""
     import base64
 
     import numpy as np
 
-    from classifying_vae_lstm_tpu_torch.cli import serve
     from classifying_vae_lstm_tpu_torch.data import MidiWriter
-    from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae as cgv
-    from classifying_vae_lstm_tpu_torch.serving import GenerationEngine
-
-    runs, runs_lock = [0], threading.Lock()
-    real_run = GenerationEngine._run
-
-    def counted_run(self, *a, **k):
-        with runs_lock:
-            runs[0] += 1
-        return real_run(self, *a, **k)
 
     with tempfile.TemporaryDirectory() as d:
         roll = np.zeros((12, 88), np.float32)
@@ -1186,24 +1213,9 @@ def phase_vae_serve():
         MidiWriter().dump_sequence_to_midi(roll, os.path.join(d, "seed.mid"))
         with open(os.path.join(d, "seed.mid"), "rb") as f:
             seed_b64 = base64.b64encode(f.read()).decode()
-    args = serve.build_parser().parse_args(
+    launches, wide, calls, warm, stats, engine = counted_serve(
         ["-i", VAE_MODEL, "--train_file", CORPUS, "--dynamic_batching", "--warmup", "full",
-         "--port", "0"])
-    plain_on_cuda = []
-    GenerationEngine._run = counted_run
-    try:
-        with sampler_plain_guard(cgv, "generate_cl_vae_batch_plain", plain_on_cuda):
-            cgv.LAUNCHES = 0  # counts from here on are this path's
-            t0 = time.perf_counter()
-            httpd, engine = serve.make_server(args)
-            warm = (cgv.LAUNCHES, runs[0])
-            print(f"cl_vae engine built and warmed in {time.perf_counter() - t0:.2f} s "
-                  f"({warm[0]} warm-up launches for {warm[1]} device calls)")
-            stats = exercise_server(httpd, [("2x64 seed_midi", {
-                "n": 2, "t": 64, "seed_midi_base64": seed_b64})])
-            launches, calls = cgv.LAUNCHES, runs[0]
-    finally:
-        GenerationEngine._run = real_run
+         "--port", "0"], [("2x64 seed_midi", {"n": 2, "t": 64, "seed_midi_base64": seed_b64})])
     lat = engine.latency_stats()
     print(f"cl_vae /stats: family {stats['family']}, gen_backend {stats['gen_backend']}, "
           f"requests {stats['requests']}, batches {stats['batches']}, batched_songs "
@@ -1213,8 +1225,8 @@ def phase_vae_serve():
     require(stats["family"] == "cl_vae", f"/stats family {stats['family']}")
     require(launches == calls and launches > warm[0],
             f"cl_vae launches {launches} != engine device calls {calls}")
+    require(wide == 0, f"jsball_vae took the wide kernel {wide} times")
     require(stats["batches"] > 0, "the cl_vae burst was not coalesced (batches == 0)")
-    require(not plain_on_cuda, f"plain version ran on CUDA tensors: {plain_on_cuda}")
     return launches
 
 
@@ -1241,6 +1253,7 @@ def phase_sample_clis(out_dir):
         plain_on_cuda = []
         with sampler_plain_guard(kmod, plain_name, plain_on_cuda):
             kmod.LAUNCHES = 0  # counts from here on are this CLI's
+            cgv.WIDE_LAUNCHES = 0
             t0 = time.perf_counter()
             samples = cli.sample(args)
             wall = time.perf_counter() - t0
@@ -1257,6 +1270,7 @@ def phase_sample_clis(out_dir):
               f"corpus included), {launches} launch, {int(samples.sum())} notes on; files "
               f"{len(files)} ({files[0]} .. {files[-1]})")
         require(launches == 1, f"{name} launched its kernel {launches} times")
+        require(kmod is not cgv or cgv.WIDE_LAUNCHES == 0, f"{name} took the wide kernel")
         require(not plain_on_cuda, f"{name}: plain version ran on CUDA tensors")
         if cli is cl_vae_sample:
             vae_launches = launches
@@ -1322,6 +1336,48 @@ def vae_dense_fmas(cfg) -> int:
     return D * Cw + Cw * 2 * (K - 1) + (D + K) * H + H * 2 * L + (K + n_xp + L) * H + H * D
 
 
+def dense_times(vd, label, cfg, B, ins, outs, res, got, reps, peak=PEAK_F32_FLOPS):
+    """Both dense-stack kernels and their plain versions timed in turns
+    (kernel, plain, plain, kernel) with CUDA events, beside each direction's
+    bound, then the profiler's device time per call. Returns each
+    direction's kernel-table fields but the error."""
+    D, K, L = cfg.original_dim, cfg.n_classes, cfg.latent_dim
+    fk = (time_ms(lambda: vd.vae_dense_fwd(*ins), reps=reps, warm=2),
+          time_ms(lambda: vd.vae_dense_fwd_plain(*ins), reps=reps, warm=2),
+          time_ms(lambda: vd.vae_dense_fwd_plain(*ins), reps=reps),
+          time_ms(lambda: vd.vae_dense_fwd(*ins), reps=reps))
+    bk = (time_ms(lambda: vd.vae_dense_bwd(*res), reps=reps, warm=2),
+          time_ms(lambda: vd.vae_dense_bwd_plain(*res), reps=reps, warm=2),
+          time_ms(lambda: vd.vae_dense_bwd_plain(*res), reps=reps),
+          time_ms(lambda: vd.vae_dense_bwd(*res), reps=reps))
+    F = vae_dense_fmas(cfg)
+    n_bias = (cfg.intermediate_class_dim + 2 * (K - 1) + 2 * cfg.intermediate_dim + 2 * L + D)
+    live = lambda ts: [t for t in ts if t is not None]
+    fb_ms, fb_by = roofline_ms(B * F, _nbytes(live(ins)) + _nbytes(outs), peak)
+    # the row pass (every weight once, transposed) + every dW and bias sum
+    bb_ms, bb_by = roofline_ms(B * (2 * F + n_bias), _nbytes(live(res)) + _nbytes(live(got)),
+                               peak)
+    print(f"vae_dense {label} shape: forward kernel {fk[0]:.4f} / {fk[3]:.4f} ms, plain "
+          f"(cuBLAS products) {fk[1]:.4f} / {fk[2]:.4f} ms, kernel/plain "
+          f"{fk[0] / fk[1]:.2f}, bound {fb_ms:.5f} ms ({fb_by}); backward kernel (2 launches) "
+          f"{bk[0]:.4f} / {bk[3]:.4f} ms, plain {bk[1]:.4f} / {bk[2]:.4f} ms, kernel/plain "
+          f"{bk[0] / bk[1]:.2f}, bound {bb_ms:.5f} ms ({bb_by}); shared memory "
+          f"{vd.smem_bytes(cfg)} B per block")
+    # device time alone (the CUDA-event times above include the wrappers'
+    # host work, which sets them at the training shape)
+    dt = {n: device_ms_per_call(fn, 20, "vae_dense")
+          for n, fn in (("forward", lambda: vd.vae_dense_fwd(*ins)),
+                        ("plain forward", lambda: vd.vae_dense_fwd_plain(*ins)),
+                        ("backward", lambda: vd.vae_dense_bwd(*res)),
+                        ("plain backward", lambda: vd.vae_dense_bwd_plain(*res)))}
+    print(f"vae_dense {label} shape, profiler device ms per call: "
+          + "; ".join(f"{n} " + ("not measured" if v is None else
+                                 f"{v[1]:.4f} (dense-stack kernels {v[0]:.4f})")
+                      for n, v in dt.items()))
+    return {"fwd": {"ms": fk[0], "plain_ms": fk[1], "bound_ms": fb_ms, "bound_by": fb_by},
+            "bwd": {"ms": bk[0], "plain_ms": bk[1], "bound_ms": bb_ms, "bound_by": bb_by}}
+
+
 def phase_vae_dense(dev):
     """Both dense-stack kernels against their plain versions at the training
     shape and at the seq-concat width. Returns the kernel-table fields of
@@ -1382,45 +1438,11 @@ def phase_vae_dense(dev):
               + f" (limit 1e-4 + 1e-6 abs); largest abs error {bwd_err:.3e}")
         require(not bad, f"dense-stack backward differs: {bad}")
 
-        # kernel, plain, plain, kernel for each direction
-        reps = 50 if label == "training" else 10
-        fk = (time_ms(lambda: vd.vae_dense_fwd(*ins), reps=reps, warm=2),
-              time_ms(lambda: vd.vae_dense_fwd_plain(*ins), reps=reps, warm=2),
-              time_ms(lambda: vd.vae_dense_fwd_plain(*ins), reps=reps),
-              time_ms(lambda: vd.vae_dense_fwd(*ins), reps=reps))
-        bk = (time_ms(lambda: vd.vae_dense_bwd(*res), reps=reps, warm=2),
-              time_ms(lambda: vd.vae_dense_bwd_plain(*res), reps=reps, warm=2),
-              time_ms(lambda: vd.vae_dense_bwd_plain(*res), reps=reps),
-              time_ms(lambda: vd.vae_dense_bwd(*res), reps=reps))
-        F = vae_dense_fmas(cfg)
-        n_bias = (cfg.intermediate_class_dim + 2 * (K - 1) + 2 * cfg.intermediate_dim + 2 * L
-                  + D)
-        live = lambda ts: [t for t in ts if t is not None]
-        fb_ms, fb_by = roofline_ms(B * F, _nbytes(live(ins)) + _nbytes(outs))
-        # the row pass (every weight once, transposed) + every dW and bias sum
-        bb_ms, bb_by = roofline_ms(B * (2 * F + n_bias), _nbytes(live(res)) + _nbytes(live(got)))
-        print(f"vae_dense {label} shape: forward kernel {fk[0]:.4f} / {fk[3]:.4f} ms, plain "
-              f"(cuBLAS products) {fk[1]:.4f} / {fk[2]:.4f} ms, kernel/plain "
-              f"{fk[0] / fk[1]:.2f}, bound {fb_ms:.5f} ms ({fb_by}); backward kernel (2 launches) "
-              f"{bk[0]:.4f} / {bk[3]:.4f} ms, plain {bk[1]:.4f} / {bk[2]:.4f} ms, kernel/plain "
-              f"{bk[0] / bk[1]:.2f}, bound {bb_ms:.5f} ms ({bb_by}); shared memory "
-              f"{vd.smem_bytes(cfg)} B per block")
-        # device time alone (the CUDA-event times above include the
-        # wrappers' host work, which sets them at the training shape)
-        dt = {n: device_ms_per_call(fn, 20, "vae_dense")
-              for n, fn in (("forward", lambda: vd.vae_dense_fwd(*ins)),
-                            ("plain forward", lambda: vd.vae_dense_fwd_plain(*ins)),
-                            ("backward", lambda: vd.vae_dense_bwd(*res)),
-                            ("plain backward", lambda: vd.vae_dense_bwd_plain(*res)))}
-        print(f"vae_dense {label} shape, profiler device ms per call: "
-              + "; ".join(f"{n} " + ("not measured" if v is None else
-                                     f"{v[1]:.4f} (dense-stack kernels {v[0]:.4f})")
-                          for n, v in dt.items()))
+        t = dense_times(vd, label, cfg, B, ins, outs, res, got,
+                        reps=50 if label == "training" else 10)
         if label == "training":
-            table["fwd"] = {"max_abs_err": max(errs.values()), "ms": fk[0], "plain_ms": fk[1],
-                            "bound_ms": fb_ms, "bound_by": fb_by}
-            table["bwd"] = {"max_abs_err": bwd_err, "ms": bk[0], "plain_ms": bk[1],
-                            "bound_ms": bb_ms, "bound_by": bb_by}
+            table["fwd"] = {"max_abs_err": max(errs.values()), **t["fwd"]}
+            table["bwd"] = {"max_abs_err": bwd_err, **t["bwd"]}
     return table
 
 
@@ -1437,15 +1459,13 @@ def phase_vae_train(model_dir):
     from classifying_vae_lstm_tpu_torch.ops import vae_dense as vd
     from classifying_vae_lstm_tpu_torch.train.checkpoint import load_model_args
 
-    def reset():
-        vd.FWD_LAUNCHES = vd.BWD_LAUNCHES = 0
-
-    read = lambda: (vd.FWD_LAUNCHES, vd.BWD_LAUNCHES)
+    reset, read = _reset_dense_counts, lambda: _dense_counts()[:2]
     plain_on_cuda = []
     with plain_guard(vd, VAE_DENSE_PLAIN, plain_on_cuda):
         args, (fwd, bwd), seen, epoch_s, wall = run_train(
             "smoke_vae", ["--num_epochs", "3", "--train_backend", "pallas"], model_dir, reset,
             read, cli=cl_vae_train, base_flags=VAE_TRAIN_FLAGS)
+        require(_dense_counts()[2:] == (0, 0), f"f32 training ran the bf16 mode: {_dense_counts()}")
         E, n_train, n_val = _report_train("cl_vae training path", args, seen, epoch_s, wall)
         print(f"cl_vae training path launches: forward {fwd} (expected {E * (n_train + n_val)}), "
               f"backward {bwd} (expected {2 * E * n_train}: the row pass and the "
@@ -1510,7 +1530,7 @@ def phase_vae_evaluate(ckpt, out_dir):
          "--sample_dir", out_dir])
     plain_on_cuda = []
     with sampler_plain_guard(cgv, "generate_cl_vae_batch_plain", plain_on_cuda):
-        cgv.LAUNCHES = 0
+        cgv.LAUNCHES = cgv.WIDE_LAUNCHES = 0
         samples = cl_vae_sample.sample(args)
         launches = cgv.LAUNCHES
     files = sorted(f for f in os.listdir(out_dir) if f.startswith("smoke_trained_vae"))
@@ -1518,8 +1538,428 @@ def phase_vae_evaluate(ckpt, out_dir):
           f"{int(samples.sum())} notes on, {len(files)} MIDI files")
     require(samples.shape == (4, 32, 88) and set(np.unique(samples).tolist()) <= {0, 1},
             f"samples {samples.shape}")
-    require(launches == 1 and len(files) == 4 and not plain_on_cuda,
-            f"cl_vae_sample: {launches} launches, files {files}, plain {plain_on_cuda}")
+    require(launches == 1 and len(files) == 4 and not plain_on_cuda and cgv.WIDE_LAUNCHES == 0,
+            f"cl_vae_sample: {launches} launches ({cgv.WIDE_LAUNCHES} wide), files {files}, "
+            f"plain {plain_on_cuda}")
+
+
+# ---- phases 17-19: the wide cl_vae generation kernel, the bf16 mode of the
+# dense-stack kernels, and the paths through both
+
+WIDE_GEN = (  # label, (D, H, L, use_x_prev), weight mode
+    ("f32 H=256", (88, 256, 4, True), "f32"),
+    ("f32 H=512", (88, 512, 4, True), "f32"),
+    ("bf16 H=512", (88, 512, 4, True), "bf16"),
+    ("bf16 seq-concat", (1024, 1024, 16, False), "bf16"),
+    ("f32 no hidden", (88, 0, 4, True), "f32"),
+)
+
+
+def glorot_vae_raw(rng, D, H, L, K, use_x_prev, Cw=88):
+    """Seeded glorot-scale cl_vae weights with zero biases (NumPy), with or
+    without hidden layers (``H = 0``)."""
+    import numpy as np
+
+    def dense(i, o):
+        lim = np.sqrt(6.0 / (i + o))
+        return {"kernel": rng.uniform(-lim, lim, (i, o)).astype(np.float32),
+                "bias": np.zeros(o, np.float32)}
+
+    n_xp = D if use_x_prev else 0
+    raw = {"h_w": dense(D, Cw), "w_mean": dense(Cw, K - 1), "w_log_var": dense(Cw, K - 1)}
+    if H:
+        raw.update(h=dense(D + K, H), z_mean=dense(H, L), z_log_var=dense(H, L),
+                   decoder_h=dense(K + n_xp + L, H), x_decoded_mean=dense(H, D))
+    else:
+        raw.update(z_mean=dense(D + K, L), z_log_var=dense(D + K, L),
+                   x_decoded_mean=dense(K + n_xp + L, D))
+    return raw
+
+
+def phase_vae_wide(dev):
+    """The wide cl_vae generation kernel against its plain version at 64
+    single-frame seeds x 256 steps: f32 at H=256 and 512 (with and without
+    use_z_prior), bf16 at H=512 and at the seq-concat width, f32 without
+    hidden layers. Returns the kernel-table fields of the bf16 H=512 run
+    (the width phase 19 trains and samples)."""
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.cli import common
+    from classifying_vae_lstm_tpu_torch.models import cl_vae
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae as cgv
+    from classifying_vae_lstm_tpu_torch.weights import params_from_numpy
+
+    B, nsteps, K = 64, 256, TRAIN_K
+    rng = np.random.default_rng(SEED + 7)
+    seeds88 = torch.from_numpy(np.ascontiguousarray(seed_windows(B)[:, 0])).to(dev)
+    ws = torch.eye(K, device=dev)[torch.arange(B, device=dev) % K]
+    calls = [0]
+
+    def kern(*a, **k):
+        calls[0] += 1
+        return cgv.generate_cl_vae_batch_cuda(*a, **k)
+
+    cgv.LAUNCHES = cgv.WIDE_LAUNCHES = 0  # this phase's launches
+    rows = {}
+    for label, (D, H, L, use_xp), mode in WIDE_GEN:
+        cfg = cl_vae.Config(original_dim=D, intermediate_dim=H, latent_dim=L,
+                            intermediate_class_dim=88, n_classes=K, use_x_prev=use_xp,
+                            bf16_compute=mode == "bf16")
+        require(cgv.kernel_for(cfg) == "generate_cl_vae_wide" and cgv.pick_mode(cfg) == mode,
+                f"{label}: routed to {cgv.kernel_for(cfg)} in mode {cgv.pick_mode(cfg)}")
+        params = params_from_numpy(glorot_vae_raw(rng, D, H, L, K, use_xp), dev)
+        seeds = (seeds88 if D == 88 else
+                 torch.from_numpy((rng.random((B, D)) < 0.1).astype(np.float32)).to(dev))
+        eps = torch.from_numpy(rng.standard_normal((B, nsteps, L), dtype=np.float32)).to(dev)
+        u = torch.from_numpy(rng.random((B, nsteps, D), dtype=np.float32)).to(dev)
+        u1 = torch.ones_like(u)
+        errs = []
+        for zp in ((False, True) if mode == "f32" else (False,)):
+            k = lambda uu, rp: kern(params, cfg, seeds, nsteps, eps, uu, ws, use_z_prior=zp,
+                                    return_probs=rp)
+            p = lambda uu, rp: cgv.generate_cl_vae_batch_plain(
+                params, cfg, seeds, nsteps, eps, uu, ws, use_z_prior=zp, return_probs=rp)
+            pk, pp = k(u1, True), p(u1, True)
+            torch.cuda.synchronize()
+            require(torch.isfinite(pk).all().item() and pk.shape == (B, nsteps, D),
+                    f"wide {label}: probabilities not finite or misshapen")
+            d = (pk - pp).abs()
+            mx, mean = d.max().item(), d.mean().item()
+            errs.append(mx)
+            if mode == "f32":
+                print(f"wide {label} probs, u=1, use_z_prior={zp}: max |kernel - plain| = "
+                      f"{mx:.3e} (limit 1e-5)")
+                require(mx <= 1e-5, f"wide {label} f32 probabilities differ by {mx}")
+                fk, fp, probs = k(u, False), p(u, False), p(u, True)
+                torch.cuda.synchronize()
+                frames_agree_to_near_tie(f"wide {label} frames, use_z_prior={zp}", fk, fp, u,
+                                         probs)
+            else:
+                print(f"wide {label} probs, u=1: max {mx:.3e} (limit 2e-2), mean {mean:.3e} "
+                      "(limit 2e-3)")
+                require(mx <= 2e-2 and mean <= 2e-3, f"wide {label} bf16 probabilities differ: "
+                                                     f"max {mx}, mean {mean}")
+        k = lambda: kern(params, cfg, seeds, nsteps, eps, u, ws)
+        p = lambda: cgv.generate_cl_vae_batch_plain(params, cfg, seeds, nsteps, eps, u, ws)
+        t = (time_ms(k, reps=3, warm=1), time_ms(p, reps=2, warm=1), time_ms(p, reps=2),
+             time_ms(k, reps=3))
+        w = cgv._pack(params, cfg, ws, mode)
+        wbytes = sum(v.numel() * v.element_size() for n, v in w.items()
+                     if v is not None and n not in ("encb", "decb", "zb", "xb"))
+        b_ms, b_by = vae_bound_ms(cfg, B, nsteps, wbytes,
+                                  PEAK_BF16_FLOPS if mode == "bf16" else PEAK_F32_FLOPS)
+        print(f"wide {label} (D={D} H={H} L={L} use_x_prev={use_xp}): kernel {t[0]:.3f} / "
+              f"{t[3]:.3f} ms, plain {t[1]:.3f} / {t[2]:.3f} ms, bound {b_ms:.4f} ms ({b_by}) "
+              f"at B={B} nsteps={nsteps}; {wbytes / 1e6:.3f} MB of weights read per block-step")
+        rows[label] = {"max_abs_err": max(errs), "ms": t[0], "plain_ms": t[1], "bound_ms": b_ms,
+                       "bound_by": b_by}
+    require(cgv.WIDE_LAUNCHES == cgv.LAUNCHES == calls[0],
+            f"wide launches {cgv.WIDE_LAUNCHES}, all {cgv.LAUNCHES}, calls {calls[0]}")
+    # the jsball_vae width still takes the shared-memory kernel
+    raw, jcfg, _ = common.load_model(VAE_MODEL, "cl_vae")
+    jp = params_from_numpy(raw, dev)
+    jws = torch.eye(jcfg.n_classes, device=dev)[:4]
+    jeps = torch.zeros((4, 8, jcfg.latent_dim), device=dev)
+    cgv.generate_cl_vae_batch_cuda(jp, jcfg, seeds88[:4].contiguous(), 8, jeps,
+                                   torch.ones((4, 8, 88), device=dev), jws)
+    torch.cuda.synchronize()
+    require(cgv.kernel_for(jcfg) == "generate_cl_vae" and cgv.LAUNCHES == calls[0] + 1
+            and cgv.WIDE_LAUNCHES == calls[0], "jsball_vae did not take the shared-memory kernel")
+    print(f"wide kernel: {calls[0]} launches in this phase, all counted by WIDE_LAUNCHES; "
+          "jsball_vae's width still launches generate_cl_vae")
+    return rows["bf16 H=512"]
+
+
+SEQ_DENSE = dict(D=1024, Cw=256, H=1024, L=16, K=TRAIN_K, B=VAE_TRAIN_B, use_x_prev=False)
+
+
+def phase_vae_dense_bf16(dev):
+    """The bf16 mode of both dense-stack kernels against their bf16 plain
+    versions at phase 19's training shape and at phase 14's seq-concat
+    shape; then each parameter gradient of the loss on the kernel route in
+    bf16 against the f32 truth, within the JAX test's bound. Returns the
+    kernel-table fields of each direction at the training shape."""
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.models import cl_vae
+    from classifying_vae_lstm_tpu_torch.ops import vae_dense as vd
+    from classifying_vae_lstm_tpu_torch.weights import params_from_numpy
+
+    rng = np.random.default_rng(SEED + 8)
+    shapes = {"seq-concat training": SEQ_DENSE, "seq-concat wide": {**VAE_WIDE, "use_x_prev": True}}
+    rel = lambda a, b: ((a.float() - b.float()).norm() / (b.float().norm() + 1e-30)).item()
+    table = {}
+    for label, sh in shapes.items():
+        D, Cw, H, L, K, B, use_xp = (sh[k] for k in ("D", "Cw", "H", "L", "K", "B", "use_x_prev"))
+        cfg = cl_vae.Config(original_dim=D, intermediate_dim=H, latent_dim=L,
+                            intermediate_class_dim=Cw, n_classes=K, use_x_prev=use_xp,
+                            train_backend="pallas", bf16_compute=True)
+        params = params_from_numpy(glorot_vae_raw(rng, D, H, L, K, use_xp, Cw), dev)
+        f = lambda a: torch.from_numpy(a).to(dev)
+        x = f((rng.random((B, D)) < 0.1).astype(np.float32))
+        xp = f((rng.random((B, D)) < 0.1).astype(np.float32))
+        y = f((rng.random((B, D)) < 0.1).astype(np.float32))
+        eps_w = f(rng.standard_normal((B, K - 1)).astype(np.float32))
+        eps_z = f(rng.standard_normal((B, L)).astype(np.float32))
+        ins = vd.pack_inputs(params, cfg, x, xp, eps_w, eps_z)
+        outs = vd.vae_dense_fwd(*ins)
+        ref = vd.vae_dense_fwd_plain(*ins)
+        torch.cuda.synchronize()
+        names = ("xhat", "wargs", "zargs", "w", "a1", "a2", "a3")
+        errs = {n: (k - p).abs().max().item() for n, k, p in zip(names, outs, ref)}
+        rels = {n: rel(k, p) for n, k, p in zip(names, outs, ref)}
+        scale = {n: max(1.0, p.abs().max().item()) for n, p in zip(names, ref)}
+        print(f"vae_dense bf16 forward, {label} shape (B={B} D={D} Cw={Cw} H={H} L={L} K={K} "
+              f"use_x_prev={use_xp}): max |kernel - plain| "
+              + ", ".join(f"{n} {e:.3e} (rel. Frobenius {rels[n]:.2e})" for n, e in errs.items())
+              + " (limits 1e-2 x max(1, max|plain|), 1e-3)")
+        require(all(torch.isfinite(o).all().item() for o in outs), "bf16 forward not finite")
+        require(all(errs[n] <= 1e-2 * scale[n] and rels[n] <= 1e-3 for n in names),
+                f"bf16 dense-stack forward differs: {errs} {rels}")
+        (x_, xp_, ew, ez, whw, _, wwz, _, whx, whw2, _, wzz, _, wdw, wdxp, wdz, _, wxh, _) = ins
+        xhat, wargs, zargs, w, a1, a2, a3 = ref
+        cot = [f((1e-2 * rng.standard_normal(tuple(o.shape))).astype(np.float32))
+               for o in (xhat, wargs, zargs, w)]
+        res = (x_, xp_, ew, ez, a1, a2, a3, xhat, wargs, zargs, w, *cot,
+               whw, wwz, whx, whw2, wzz, wdw, wdxp, wdz, wxh)
+        got = vd.vae_dense_bwd(*res)
+        want = vd.vae_dense_bwd_plain(*res)
+        torch.cuda.synchronize()
+        gnames = ("dx", "dxp", "dwhw", "dbhw", "dwwz", "dbwz", "dwhx", "dwhw2", "dbh", "dwzz",
+                  "dbzz", "dwdw", "dwdxp", "dwdz", "dbd", "dwxh", "dbxh")
+        brel = {n: rel(g, wv) for n, g, wv in zip(gnames, got, want) if wv is not None}
+        types = {n: g.dtype for n, g in zip(gnames, got) if g is not None}
+        print(f"vae_dense bf16 backward, {label} shape: relative Frobenius |kernel - plain| "
+              + ", ".join(f"{n} {v:.2e}" for n, v in brel.items()) + " (limit 1e-2)")
+        require(all(v <= 1e-2 and math.isfinite(v) for v in brel.values()),
+                f"bf16 dense-stack backward differs: {brel}")
+        require(all(t == (torch.float32 if n.startswith("db") else torch.bfloat16)
+                    for n, t in types.items()), f"gradient types {types}")
+        bwd_err = max((g.float() - wv.float()).abs().max().item()
+                      for g, wv in zip(got, want) if wv is not None)
+
+        # each parameter gradient of the loss against the f32 truth: kernel
+        # route bf16 vs plain route bf16 (the JAX test's bound)
+        batch = {"x": x, "y": y, "w": torch.eye(K, device=dev)[torch.arange(B, device=dev) % K],
+                 "eps_w": eps_w, "eps_z": eps_z}
+        if use_xp:
+            batch["x_prev"] = xp
+
+        def grads(c):
+            p = {k: {n: v.detach().clone().requires_grad_(True) for n, v in d.items()}
+                 for k, d in params.items()}
+            loss, _ = cl_vae.loss_and_metrics(p, c, batch, None, 1.0, 1.0, 1.0)
+            loss.backward()
+            return {f"{k}/{n}": v.grad for k, d in p.items() for n, v in d.items()}
+
+        g_k = grads(cfg)
+        g_x = grads(dataclasses.replace(cfg, train_backend="xla"))
+        g_f = grads(dataclasses.replace(cfg, train_backend="xla", bf16_compute=False))
+        bad = []
+        for n, g in g_k.items():
+            ek, ex = (g - g_f[n]).norm().item(), (g_x[n] - g_f[n]).norm().item()
+            rounded = torch.equal(g, g.bfloat16().float())
+            if not (ek <= 3 * ex + 0.02 * (g_f[n].norm().item() + 1e-3)
+                    and rounded == n.endswith("kernel")):
+                bad.append((n, ek, ex, rounded))
+        print(f"vae_dense bf16, {label} shape, loss gradients vs the f32 truth: kernel route "
+              f"{max((g - g_f[n]).norm().item() / (g_f[n].norm().item() + 1e-30) for n, g in g_k.items()):.3e}, "
+              f"plain bf16 route {max((g - g_f[n]).norm().item() / (g_f[n].norm().item() + 1e-30) for n, g in g_x.items()):.3e} "
+              "largest relative error per leaf; every kernel gradient bf16-representable, no "
+              "bias gradient rounded")
+        require(not bad, f"bf16 gradients outside the JAX bound or wrongly rounded: {bad}")
+
+        t = dense_times(vd, f"bf16 {label}", cfg, B, ins, outs, res, got,
+                        reps=20 if B <= VAE_TRAIN_B else 10, peak=PEAK_BF16_FLOPS)
+        if label == "seq-concat training":
+            table["fwd"] = {"max_abs_err": max(errs.values()), **t["fwd"]}
+            table["bwd"] = {"max_abs_err": bwd_err, **t["bwd"]}
+    return table
+
+
+SEQ_TRAIN_FLAGS = ["--train_file", CORPUS, "--seq_length", "16", "--intermediate_dim", "1024",
+                   "--intermediate_class_dim", "256", "--latent_dim", "16", "--batch_size",
+                   str(VAE_TRAIN_B), "--bf16_compute", "--patience", "0"]
+
+
+def _dense_counts():
+    from classifying_vae_lstm_tpu_torch.ops import vae_dense as vd
+
+    return (vd.FWD_LAUNCHES, vd.BWD_LAUNCHES, vd.BF16_FWD_LAUNCHES, vd.BF16_BWD_LAUNCHES)
+
+
+def _reset_dense_counts():
+    from classifying_vae_lstm_tpu_torch.ops import vae_dense as vd
+
+    vd.FWD_LAUNCHES = vd.BWD_LAUNCHES = vd.BF16_FWD_LAUNCHES = vd.BF16_BWD_LAUNCHES = 0
+
+
+def phase_vae_bf16_train(model_dir):
+    """Seq-concat cl_vae training in bf16 through the dense-stack kernels'
+    bf16 mode (2 epochs of ``cli.cl_vae_train --bf16_compute --train_backend
+    pallas``), then 1 epoch of ``xla`` from the same seed. Returns the bf16
+    launch counts and what the run left."""
+    from classifying_vae_lstm_tpu_torch.cli import cl_vae_train
+    from classifying_vae_lstm_tpu_torch.ops import vae_dense as vd
+    from classifying_vae_lstm_tpu_torch.train.checkpoint import load_model_args
+
+    plain_on_cuda = []
+    with plain_guard(vd, VAE_DENSE_PLAIN, plain_on_cuda):
+        args, counts, seen, epoch_s, wall = run_train(
+            "seq_bf16", ["--num_epochs", "2", "--train_backend", "pallas"], model_dir,
+            _reset_dense_counts, _dense_counts, cli=cl_vae_train, base_flags=SEQ_TRAIN_FLAGS)
+        E, n_train, n_val = _report_train("bf16 seq-concat training path", args, seen, epoch_s,
+                                          wall)
+        fwd, bwd = E * (n_train + n_val), 2 * E * n_train
+        print(f"bf16 seq-concat training: D={args.original_dim}, launches (forward, backward, "
+              f"bf16 forward, bf16 backward) {counts} (expected {(fwd, bwd, fwd, bwd)})")
+        require(counts == (fwd, bwd, fwd, bwd), f"bf16 dense-stack launches {counts}")
+        margs = load_model_args(seen["ckpt"])
+        require((margs["train_backend"], margs["bf16_compute"], margs["original_dim"])
+                == ("pallas", True, args.original_dim), f"args.json {margs}")
+        seen.update(step_ms=epoch_s[-1] * 1e3 / n_train)
+        args_x, counts_x, seen_x, epoch_x, wall_x = run_train(
+            "seq_bf16_xla", ["--num_epochs", "1", "--train_backend", "xla"], model_dir,
+            _reset_dense_counts, _dense_counts, cli=cl_vae_train, base_flags=SEQ_TRAIN_FLAGS)
+    _report_train("bf16 seq-concat --train_backend xla", args_x, seen_x, epoch_x, wall_x)
+    require(counts_x == (0, 0, 0, 0), f"the xla route launched dense-stack kernels: {counts_x}")
+    require(not plain_on_cuda, f"plain dense-stack versions ran on CUDA tensors: {plain_on_cuda}")
+    loss_k, loss_x = seen["history"]["loss"][0], seen_x["history"]["loss"][0]
+    rel = abs(loss_k - loss_x) / abs(loss_x)
+    print(f"bf16 seq-concat first epoch train loss: pallas {loss_k!r}, xla {loss_x!r}, relative "
+          f"difference {rel:.3e} (limit 1e-2: the routes round at different places); ms per "
+          f"step, first epoch: pallas {epoch_s[0] * 1e3 / n_train:.3f}, xla "
+          f"{epoch_x[0] * 1e3 / n_train:.3f}; epoch s: pallas {[round(v, 3) for v in epoch_s]}, "
+          f"xla {[round(v, 3) for v in epoch_x]}")
+    require(rel <= 1e-2, f"first-epoch losses differ by {rel}")
+    return counts[2], counts[3], seen
+
+
+def counted_serve(argv, extra=()):
+    """``cli.serve`` built from ``argv`` and driven by :func:`exercise_server`;
+    the cl_vae launch counts are set to 0 just before. Returns (launches,
+    wide launches, engine device calls, warm-up (launches, calls), /stats,
+    the engine)."""
+    from classifying_vae_lstm_tpu_torch.cli import serve
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae as cgv
+    from classifying_vae_lstm_tpu_torch.serving import GenerationEngine
+
+    runs, runs_lock = [0], threading.Lock()
+    real_run = GenerationEngine._run
+
+    def counted_run(self, *a, **k):
+        with runs_lock:
+            runs[0] += 1
+        return real_run(self, *a, **k)
+
+    args = serve.build_parser().parse_args(argv)
+    plain_on_cuda = []
+    GenerationEngine._run = counted_run
+    try:
+        with sampler_plain_guard(cgv, "generate_cl_vae_batch_plain", plain_on_cuda):
+            cgv.LAUNCHES = cgv.WIDE_LAUNCHES = 0  # counts from here on are this path's
+            t0 = time.perf_counter()
+            httpd, engine = serve.make_server(args)
+            warm = (cgv.LAUNCHES, runs[0])
+            print(f"cl_vae engine built and warmed in {time.perf_counter() - t0:.2f} s "
+                  f"({warm[0]} warm-up launches for {warm[1]} device calls)")
+            stats = exercise_server(httpd, extra)
+            launches, wide, calls = cgv.LAUNCHES, cgv.WIDE_LAUNCHES, runs[0]
+    finally:
+        GenerationEngine._run = real_run
+    require(not plain_on_cuda, f"plain version ran on CUDA tensors: {plain_on_cuda}")
+    return launches, wide, calls, warm, stats, engine
+
+
+def sample_one_launch(ckpt, run_name, out_dir, n=4, t=32):
+    """``cli.cl_vae_sample`` of ``ckpt`` with true keys: one launch, of the
+    wide kernel; MIDI files written. Returns the launches."""
+    import numpy as np
+
+    from classifying_vae_lstm_tpu_torch.cli import cl_vae_sample
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae as cgv
+
+    args = cl_vae_sample.build_parser().parse_args(
+        [run_name, "-i", ckpt, "-n", str(n), "-t", str(t), "--train_file", CORPUS,
+         "--sample_dir", out_dir])
+    plain_on_cuda = []
+    with sampler_plain_guard(cgv, "generate_cl_vae_batch_plain", plain_on_cuda):
+        cgv.LAUNCHES = cgv.WIDE_LAUNCHES = 0
+        samples = cl_vae_sample.sample(args)
+        launches, wide = cgv.LAUNCHES, cgv.WIDE_LAUNCHES
+    files = sorted(f for f in os.listdir(out_dir) if f.startswith(run_name))
+    print(f"cl_vae_sample {ckpt}: {n} songs x {t} frames, {launches} launch ({wide} of the wide "
+          f"kernel), {int(samples.sum())} notes on, {len(files)} MIDI files")
+    require(samples.shape == (n, t, 88) and set(np.unique(samples).tolist()) <= {0, 1},
+            f"samples {samples.shape}")
+    require(launches == wide == 1 and len(files) == n and not plain_on_cuda,
+            f"cl_vae_sample: {launches} launches ({wide} wide), files {files}, plain "
+            f"{plain_on_cuda}")
+    return wide
+
+
+REPAIR_FLAGS = ["--train_file", CORPUS, "--latent_dim", "4", "--batch_size", str(VAE_TRAIN_B),
+                "--use_x_prev", "--patience", "0", "--num_epochs", "2"]
+
+
+def phase_vae_repair(model_dir, out_dir):
+    """Checkpoints the shared-memory kernel refuses, trained by the port on
+    the card, sample and serve through the wide kernel: a bf16 H=512 model
+    (``--bf16_compute --train_backend pallas``) through ``cli.cl_vae_sample``
+    and ``cli.serve``, then a model without hidden layers (``xla``) through
+    ``cli.cl_vae_sample``. Two epochs each: the first epoch saves no
+    checkpoint. Returns the wide kernel's launches."""
+    from classifying_vae_lstm_tpu_torch.cli import cl_vae_train, common
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae as cgv
+
+    args, counts, seen, epoch_s, wall = run_train(
+        "wide_bf16", ["--intermediate_dim", "512", "--bf16_compute", "--train_backend", "pallas"],
+        model_dir, _reset_dense_counts, _dense_counts, cli=cl_vae_train, base_flags=REPAIR_FLAGS)
+    E, n_train, n_val = _report_train("bf16 H=512 training", args, seen, epoch_s, wall)
+    require(counts[2:] == (E * (n_train + n_val), 2 * E * n_train), f"launches {counts}")
+    _, cfg, _ = common.load_model(seen["ckpt"], "cl_vae")
+    require(cgv.kernel_for(cfg) == "generate_cl_vae_wide" and cgv.pick_mode(cfg) == "bf16",
+            f"the H=512 checkpoint routes to {cgv.kernel_for(cfg)}, {cgv.pick_mode(cfg)}")
+    wide = sample_one_launch(seen["ckpt"], "smoke_wide_bf16", out_dir)
+    launches, w, calls, warm, stats, engine = counted_serve(
+        ["-i", seen["ckpt"], "--train_file", CORPUS, "--dynamic_batching", "--warmup", "off",
+         "--port", "0"])
+    lat = engine.latency_stats()
+    print(f"cl_vae serving of the bf16 H=512 checkpoint: {launches} launches ({w} of the wide "
+          f"kernel) for {calls} engine device calls; requests {stats['requests']}, batches "
+          f"{stats['batches']}; latency p50 {lat['p50_ms']:.3f} ms, p95 {lat['p95_ms']:.3f} ms")
+    require(launches == w == calls > 0, f"wide launches {w}, all {launches}, calls {calls}")
+    require(stats["batches"] > 0, "the burst was not coalesced (batches == 0)")
+    wide += w
+    args, counts, seen, epoch_s, wall = run_train(
+        "no_hidden", ["--intermediate_dim", "0"], model_dir, _reset_dense_counts, _dense_counts,
+        cli=cl_vae_train, base_flags=REPAIR_FLAGS)
+    _report_train("no-hidden training (xla)", args, seen, epoch_s, wall)
+    require(counts == (0, 0, 0, 0), f"no-hidden training launched dense-stack kernels: {counts}")
+    wide += sample_one_launch(seen["ckpt"], "smoke_no_hidden", out_dir)
+    return wide
+
+
+def phase_vae_bf16_evaluate(ckpt):
+    """``cli.evaluate --family cl_vae`` of the bf16 seq-concat checkpoint on
+    the training corpus: a finite NLL over every test window."""
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.cli import evaluate
+
+    args = evaluate.build_parser().parse_args(
+        ["-i", ckpt, "--family", "cl_vae", "--train_file", CORPUS, "--n_samples",
+         str(EVAL_SAMPLES), "--batch_size", str(EVAL_B)])
+    t0 = time.perf_counter()
+    out = evaluate.evaluate(args)
+    torch.cuda.synchronize()
+    print(f"evaluate the bf16 seq-concat checkpoint on {CORPUS}: NLL "
+          f"{out['test_nll_nats_per_frame']} nats/frame over {out['n_test_examples']} windows, "
+          f"wall {time.perf_counter() - t0:.3f} s")
+    require(math.isfinite(out["test_nll_nats_per_frame"]) and out["n_test_examples"] > 0,
+            f"evaluation {out}")
 
 
 def main() -> int:
@@ -1531,6 +1971,7 @@ def main() -> int:
         return 1
     import classifying_vae_lstm_tpu_torch  # noqa: F401 — fails without the checkout
 
+    t_start = time.perf_counter()
     line = gpu_line()
     print(f"card: {line}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     dev = torch.device("cuda", 0)
@@ -1558,6 +1999,13 @@ def main() -> int:
         phase_train_breakdown(seen_vae, "dense-stack kernels", "vae_dense")
         with tempfile.TemporaryDirectory() as sample_dir:
             phase_vae_evaluate(seen_vae["ckpt"], sample_dir)
+    wide = phase_vae_wide(dev)
+    dense16 = phase_vae_dense_bf16(dev)
+    with tempfile.TemporaryDirectory() as model_dir, tempfile.TemporaryDirectory() as sample_dir:
+        bf16_fwd, bf16_bwd, seen_seq = phase_vae_bf16_train(model_dir)
+        phase_train_breakdown(seen_seq, "dense-stack kernels", "vae_dense")
+        phase_vae_bf16_evaluate(seen_seq["ckpt"])
+        wide_launches = phase_vae_repair(model_dir, sample_dir)
     source = "classifying_vae_lstm_tpu_torch/csrc/two_cell.cu"
     lstm_source = "classifying_vae_lstm_tpu_torch/csrc/lstm_seq.cu"
     pallas_lstm = "classifying_vae_lstm_tpu/ops/pallas_lstm.py"
@@ -1600,7 +2048,26 @@ def main() -> int:
         "name": "vae_dense_bwd", "route": "cuda", "source": dense_source,
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_vae.py:230", "launches": dense_bwd,
         **dense["bwd"], "library_ms": None,
+    }, {
+        "name": "generate_cl_vae_wide", "route": "cuda",
+        "source": "classifying_vae_lstm_tpu_torch/csrc/generate_cl_vae.cu",
+        "replaces": "classifying_vae_lstm_tpu/ops/pallas_generate_vae.py:141",
+        "launches": wide_launches, **wide, "library_ms": None,
+    }, {
+        "name": "vae_dense_fwd_bf16", "route": "cuda", "source": dense_source,
+        "replaces": "classifying_vae_lstm_tpu/ops/pallas_vae.py:133", "launches": bf16_fwd,
+        **dense16["fwd"], "library_ms": None,
+    }, {
+        "name": "vae_dense_bwd_bf16", "route": "cuda", "source": dense_source,
+        "replaces": "classifying_vae_lstm_tpu/ops/pallas_vae.py:230", "launches": bf16_bwd,
+        **dense16["bwd"], "library_ms": None,
     }]
+    # every thread this run started has ended (the servers' threads are
+    # daemons and shut down), so the interpreter exits with main's code
+    alive = [t.name for t in threading.enumerate()
+             if t is not threading.main_thread() and not t.daemon]
+    require(not alive, f"threads still running: {alive}")
+    print(f"chip_smoke: all 19 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,10 +12,12 @@ serving engine and its HTTP frontend), its training path (the model's
 and the ``cl_vrnn_train`` CLI, whose ``pallas`` backend runs the two-cell
 CUDA kernels of ``csrc/two_cell.cu``), its IW-NLL evaluation and
 ``--two_cell off`` training (``csrc/lstm_seq.cu``), cl_vae generation and
-serving (``csrc/generate_cl_vae.cu``), both sample CLIs, and cl_vae
-training and evaluation (the model's ``apply`` and losses, the
-``cl_vae_train`` CLI, whose ``pallas`` backend runs the dense-stack CUDA
-kernels of ``csrc/vae_dense.cu``, and ``evaluate --family cl_vae``).
+serving at every width and without hidden layers (the two kernels of
+``csrc/generate_cl_vae.cu``), both sample CLIs, and cl_vae training and
+evaluation (the model's ``apply`` and losses, the ``cl_vae_train`` CLI,
+whose ``pallas`` backend runs the dense-stack CUDA kernels of
+``csrc/vae_dense.cu``, in f32 or, with ``--bf16_compute``, in their bf16
+mode, and ``evaluate --family cl_vae``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 ``cuda`` requested and no card present they raise (:func:`resolve_device`).

@@ -140,9 +140,9 @@ def build_parser():
     parser.add_argument("--check_numerics", action="store_true", help="not ported: raises")
     parser.add_argument("--streaming", action="store_true", help="not ported: raises")
     parser.add_argument("--bf16_compute", action="store_true",
-                        help="bf16 matmul operands (f32 accumulation) on the hidden layers and "
-                             "the frame head; plain PyTorch only (the kernels' bf16 mode is "
-                             "not ported and raises)")
+                        help="bf16 matmul operands (f32 accumulation): on xla the hidden "
+                             "layers and the frame head; on pallas every layer, through the "
+                             "dense-stack kernels' bf16 mode")
     parser.add_argument("--data_init", action="store_true", help="not ported: raises")
     parser.add_argument("--vanilla", action="store_true",
                         help="vanilla VAE: drop the key latent (trains on xla)")

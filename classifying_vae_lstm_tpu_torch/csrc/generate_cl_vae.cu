@@ -37,6 +37,42 @@
 // operands (the frames, h_e, h_d) are rounded to bf16, stored rounded as
 // they are only ever read as operands; the decoder z rows, z and every bias
 // stay f32, and every product accumulates in f32.
+//
+// The second kernel, `generate_wide_kernel`, takes every config the first
+// one refuses: models whose weights do not fit one block's shared memory
+// (f32 from H ~ 204, bf16 from H ~ 390 at D=88, L=4, use_x_prev), and models
+// without hidden layers. It replaces the same `_make_kernel` at the widths
+// where the TPU kernel kept its weights in VMEM, and the JAX package's XLA
+// scan (sampling/generate.py `generate_cl_vae_batch_noise`) for configs
+// without hidden layers, which no Pallas kernel takes. It computes exactly
+// what the first kernel computes: the same operands (the wrapper's `_pack`),
+// the same rounding in bf16 mode, the same step order. Without hidden layers
+// the z heads read x_prev (and the folded w rows) and the frame head reads z
+// as L rank-1 terms and x_prev_t (and the folded w rows).
+//
+// What bounds the wide kernel. Per song-step it does D*H*(1 + use_x_prev) +
+// 3*L*H + H*D FMAs; at the seq-concat width without x_prev (D = H = 1024,
+// L = 16) that is ~2.1 M FMAs, ~69 GFLOP for 64 songs x 256 steps, ~1.0 ms
+// at 67 TFLOP/s of f32 FMAs (chip_smoke.py's `roofline_ms` gives the bound
+// with the bf16 rate where the weights are bf16). But every block reads all
+// the weights from L2 every step (~4 MB in bf16 at that width), so a step
+// costs about the L2-to-SM transfer of the weights, and the steps run in
+// series: the kernel sits far above its bound.
+//
+// What the design does about it, simply. One block owns a tile of kSongs
+// songs and runs every step; the per-song state (both frames, the step's
+// probabilities, z, h_e, h_d) lives in shared memory, or, past one block's
+// shared memory, in a global scratch the wrapper allocates (the same code
+// through a generic pointer). The weights are read from global memory (L2)
+// every step, as generate_cl_vrnn.cu does; the folds of the w rows stay in
+// global memory and are read in each layer's epilogue. A layer with few
+// output columns splits its K rows across up to kMaxSlices groups of threads
+// so that every thread has loads in flight; the groups' partial sums meet in
+// shared memory and are added in a fixed order. Two songs per block give 32
+// blocks at the largest serving bucket: more blocks pull more aggregate L2
+// bandwidth, and each block's time is set by its own weight stream. Later
+// work, not done here: a thread-block cluster that splits the columns so
+// that each SM keeps its slice of the weights in shared memory, and wgmma.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -240,6 +276,228 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ the wide kernel
+
+constexpr int kWideThreads = 512;
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kMaxSlices = 16;  // K-split groups of a layer with few columns
+constexpr size_t kPartialFloats = (size_t)kWideThreads * kSongs;
+
+struct WideArgs {
+  const float* seed;   // [B, D]
+  const float* eps;    // [B, nsteps, L]
+  const float* u;      // [B, nsteps, D]
+  const void* wke;     // [D, H]  encoder x rows (hidden layers only)
+  const float* encb;   // [B, H]  w rows . w + bias, per song
+  const void* wkd_x;   // [D, H]  decoder x_prev rows (hidden layers and use_x_prev)
+  const float* wkd_z;  // [L, H]  decoder z rows, f32
+  const float* decb;   // [B, H]
+  const void* wz_t;    // [2L, E] z heads over e (h_e, E = H; without hidden layers x_prev, E = D)
+  const float* zb;     // z-head bias: [2L] (zb_stride 0) or the per-song fold [B, 2L]
+  const void* wx;      // [H, D]  frame head (hidden layers only)
+  const float* wx_z;   // [L, D]  frame head z rows, f32 (no hidden layers)
+  const void* wx_xp;   // [D, D]  frame head x_prev rows (no hidden layers, use_x_prev)
+  const float* xb;     // frame-head bias: [D] (xb_stride 0) or the per-song fold [B, D]
+  float* out;          // [B, nsteps, D]
+  float* state;        // null: per-song state in shared memory; else [grid, state floats]
+  int zb_stride, xb_stride;
+  int B, nsteps, D, H, L, has_hidden, use_x_prev, use_z_prior, return_probs;
+};
+
+// per-song state of one block: x_prev, x_prev_t and the step's probabilities
+// ([D][kSongs] each), z ([L][kSongs]), and with hidden layers h_e and h_d
+// ([H][kSongs] each)
+__host__ __device__ constexpr size_t wide_state_floats(int D, int H, int L, int has_hidden) {
+  return (size_t)kSongs * (3 * D + L + (has_hidden ? 2 * H : 0));
+}
+
+__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+// One operand of a layer: a [k][kSongs] tile (shared or scratch memory)
+// times a [k, N] row-major weight in global memory; k = 0 skips it.
+template <typename W>
+struct Op {
+  const float* a;
+  const W* w;
+  int k;
+};
+
+// acc[b] += sum_{k0 <= k < k1} a[k][b] * w[k * N + n]
+template <typename W>
+__device__ __forceinline__ void mac_rows(float (&acc)[kSongs], const Op<W>& o, int N, int n,
+                                         int k0, int k1) {
+  if (k0 >= k1) return;
+  const W* wp = o.w + (size_t)k0 * N + n;
+#pragma unroll 16
+  for (int k = k0; k < k1; ++k, wp += N) {
+    const float wv = ldg(wp);
+#pragma unroll
+    for (int b = 0; b < kSongs; ++b) acc[b] = fmaf(o.a[k * kSongs + b], wv, acc[b]);
+  }
+}
+
+// K-split groups for a layer of N columns: all threads busy, at most kMaxSlices
+__device__ __forceinline__ int slices_for(int N) {
+  const int s = kWideThreads / N;
+  return s < 1 ? 1 : (s > kMaxSlices ? kMaxSlices : s);
+}
+
+// out(n, b) = sum over both operands of sum_k a[k][b] * w[k * N + n], handed
+// to epi(n, b, value) exactly once for each column n < N and song b. Wide
+// layers give each thread whole columns; narrow ones split the K rows of each
+// operand across S groups, whose partial sums meet in `partial` after a
+// barrier and are added in group order. The caller syncs before the next
+// layer reads what epi stored.
+template <typename W1, typename W2, typename Epi>
+__device__ __forceinline__ void cols_layer(const Op<W1>& o1, const Op<W2>& o2, int N,
+                                           float* partial, Epi epi) {
+  const int S = slices_for(N);
+  if (S == 1) {
+    for (int n = threadIdx.x; n < N; n += kWideThreads) {
+      float acc[kSongs];
+#pragma unroll
+      for (int b = 0; b < kSongs; ++b) acc[b] = 0.f;
+      mac_rows(acc, o1, N, n, 0, o1.k);
+      mac_rows(acc, o2, N, n, 0, o2.k);
+#pragma unroll
+      for (int b = 0; b < kSongs; ++b) epi(n, b, acc[b]);
+    }
+    return;
+  }
+  const int s = threadIdx.x / N, n = threadIdx.x - s * N;
+  if (s < S) {
+    float acc[kSongs];
+#pragma unroll
+    for (int b = 0; b < kSongs; ++b) acc[b] = 0.f;
+    mac_rows(acc, o1, N, n, o1.k * s / S, o1.k * (s + 1) / S);
+    mac_rows(acc, o2, N, n, o2.k * s / S, o2.k * (s + 1) / S);
+#pragma unroll
+    for (int b = 0; b < kSongs; ++b) partial[(s * N + n) * kSongs + b] = acc[b];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < N * kSongs; i += kWideThreads) {
+    const int col = i / kSongs, b = i - col * kSongs;
+    float v = 0.f;
+    for (int q = 0; q < S; ++q) v += partial[(q * N + col) * kSongs + b];
+    epi(col, b, v);
+  }
+}
+
+// z = m + exp(v/2) * eps (or eps under use_z_prior) for the tile's songs,
+// the heads over e [E][kSongs]; one warp per latent, its lanes splitting E
+template <typename WT>
+__device__ __forceinline__ void z_draw(const WideArgs& a, const float* e, int E, float* zs,
+                                       int t, int s0) {
+  const WT* wz = static_cast<const WT*>(a.wz_t);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, L = a.L;
+  for (int l = warp; l < L; l += kWideWarps) {
+    const float zm = warp_dot(e, wz + (size_t)l * E, E, lane);
+    const float zv = warp_dot(e, wz + (size_t)(L + l) * E, E, lane);
+    const int s = s0 + lane;
+    if (lane < kSongs) {
+      float z = 0.f;
+      if (s < a.B) {
+        const float* zb = a.zb + (size_t)s * a.zb_stride;
+        const float ep = a.eps[((size_t)s * a.nsteps + t) * L + l];
+        z = a.use_z_prior ? ep : (zm + zb[l]) + expf((zv + zb[L + l]) / 2.f) * ep;
+      }
+      zs[l * kSongs + lane] = z;
+    }
+  }
+}
+
+template <typename WT>
+__global__ void __launch_bounds__(kWideThreads) generate_wide_kernel(const WideArgs a) {
+  extern __shared__ float4 smem4[];
+  float* partial = reinterpret_cast<float*>(smem4);  // [kPartialFloats]
+  const int D = a.D, H = a.H, L = a.L;
+  float* st = a.state ? a.state + (size_t)blockIdx.x * wide_state_floats(D, H, L, a.has_hidden)
+                      : partial + kPartialFloats;
+  float* xp = st;                 // [D][kSongs]  x_prev (the encoder's input)
+  float* xpt = xp + D * kSongs;   // [D][kSongs]  x_prev_t (the decoder's, one step behind)
+  float* pm = xpt + D * kSongs;   // [D][kSongs]  the step's frame probabilities
+  float* zs = pm + D * kSongs;    // [L][kSongs]
+  float* he = zs + L * kSongs;    // [H][kSongs]  with hidden layers
+  float* hd = he + H * kSongs;    // [H][kSongs]  with hidden layers
+  const int s0 = blockIdx.x * kSongs;
+  const auto fold = [&](const float* f, int stride, int b, int n) {
+    const int s = s0 + b;
+    return s < a.B ? f[(size_t)s * stride + n] : 0.f;
+  };
+
+  for (int i = threadIdx.x; i < D * kSongs; i += kWideThreads) {
+    const int d = i / kSongs, b = i % kSongs, s = s0 + b;
+    const float x = s < a.B ? operand<WT>(a.seed[(size_t)s * D + d]) : 0.f;
+    xp[i] = x;
+    xpt[i] = x;
+  }
+  __syncthreads();
+
+  const Op<float> none{nullptr, nullptr, 0};
+  const auto prob = [&](int d, int b, float acc) {
+    pm[d * kSongs + b] = 1.f / (1.f + expf(-(acc + fold(a.xb, a.xb_stride, b, d))));
+  };
+  for (int t = 0; t < a.nsteps; ++t) {
+    if (a.has_hidden) {
+      // z-encoder hidden: h_e = relu(x_prev @ Wke + encb)
+      cols_layer(Op<WT>{xp, static_cast<const WT*>(a.wke), D}, none, H, partial,
+                 [&](int n, int b, float acc) {
+                   he[n * kSongs + b] = operand<WT>(fmaxf(acc + fold(a.encb, H, b, n), 0.f));
+                 });
+      __syncthreads();
+      z_draw<WT>(a, he, H, zs, t, s0);
+      __syncthreads();
+      // decoder hidden: h_d = relu(decb + sum_l z_l Wkd_z[l] (+ x_prev_t @ Wkd_x))
+      cols_layer(Op<float>{zs, a.wkd_z, L},
+                 Op<WT>{xpt, static_cast<const WT*>(a.wkd_x), a.use_x_prev ? D : 0}, H, partial,
+                 [&](int n, int b, float acc) {
+                   hd[n * kSongs + b] = operand<WT>(fmaxf(acc + fold(a.decb, H, b, n), 0.f));
+                 });
+      __syncthreads();
+      // frame head: p = sigmoid(h_d @ Wx + bx)
+      cols_layer(Op<WT>{hd, static_cast<const WT*>(a.wx), H}, none, D, partial, prob);
+    } else {
+      // z heads over x_prev (w rows folded into zb)
+      z_draw<WT>(a, xp, D, zs, t, s0);
+      __syncthreads();
+      // frame head: p = sigmoid(xb + sum_l z_l Wx_z[l] (+ x_prev_t @ Wx_xp))
+      cols_layer(Op<float>{zs, a.wx_z, L},
+                 Op<WT>{xpt, static_cast<const WT*>(a.wx_xp), a.use_x_prev ? D : 0}, D,
+                 partial, prob);
+    }
+    __syncthreads();
+    // Bernoulli draw, both carries (the lagged frame takes the old x_prev
+    // first), output
+    for (int i = threadIdx.x; i < D * kSongs; i += kWideThreads) {
+      const int d = i / kSongs, b = i % kSongs, s = s0 + b;
+      if (s >= a.B) continue;
+      const float xm = pm[i];
+      const float xt = a.u[((size_t)s * a.nsteps + t) * D + d] < xm ? 1.f : 0.f;
+      xpt[i] = xp[i];
+      xp[i] = xt;
+      a.out[((size_t)s * a.nsteps + t) * D + d] = a.return_probs ? xm : xt;
+    }
+    __syncthreads();
+  }
+}
+
+size_t wide_smem_bytes(int D, int H, int L, int has_hidden, int state_in_smem) {
+  return (kPartialFloats + (state_in_smem ? wide_state_floats(D, H, L, has_hidden) : 0)) *
+         sizeof(float);
+}
+
+template <typename WT>
+int launch_wide(const WideArgs& a, cudaStream_t stream) {
+  const size_t smem = wide_smem_bytes(a.D, a.H, a.L, a.has_hidden, a.state == nullptr);
+  cudaError_t err = cudaFuncSetAttribute(
+      generate_wide_kernel<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.B + kSongs - 1) / kSongs);
+  generate_wide_kernel<WT><<<grid, kWideThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Bytes of dynamic shared memory one block needs (the wrapper checks the limit).
@@ -260,4 +518,34 @@ extern "C" int cvl_generate_cl_vae(
                B, nsteps, D, H, L, use_x_prev, use_z_prior, return_probs};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16_weights ? launch<__nv_bfloat16>(a, st) : launch<float>(a, st);
+}
+
+// Floats of per-song state one block of the wide kernel keeps (in shared
+// memory, or in the global scratch the wrapper passes when it does not fit).
+extern "C" long long cvl_generate_cl_vae_wide_state_floats(int D, int H, int L, int has_hidden) {
+  return (long long)wide_state_floats(D, H, L, has_hidden);
+}
+
+// Bytes of dynamic shared memory one block of the wide kernel needs.
+extern "C" long long cvl_generate_cl_vae_wide_smem_bytes(int D, int H, int L, int has_hidden,
+                                                         int state_in_smem) {
+  return (long long)wide_smem_bytes(D, H, L, has_hidden, state_in_smem);
+}
+
+// Launches the wide sampler on `stream`; returns the cudaError_t of the
+// launch. Pointers a structure does not use are null; `state` is null when
+// the per-song state fits shared memory.
+extern "C" int cvl_generate_cl_vae_wide(
+    int bf16_weights, const float* seed, const float* eps, const float* u, const void* wke,
+    const float* encb, const void* wkd_x, const float* wkd_z, const float* decb,
+    const void* wz_t, const float* zb, const void* wx, const float* wx_z, const void* wx_xp,
+    const float* xb, float* out, float* state, int zb_stride, int xb_stride, int B, int nsteps,
+    int D, int H, int L, int has_hidden, int use_x_prev, int use_z_prior, int return_probs,
+    void* stream) {
+  const WideArgs a{seed, eps,   u,         wke,        encb,        wkd_x, wkd_z,
+                   decb, wz_t,  zb,        wx,         wx_z,        wx_xp, xb,
+                   out,  state, zb_stride, xb_stride,  B,           nsteps, D,
+                   H,    L,     has_hidden, use_x_prev, use_z_prior, return_probs};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16_weights ? launch_wide<__nv_bfloat16>(a, st) : launch_wide<float>(a, st);
 }

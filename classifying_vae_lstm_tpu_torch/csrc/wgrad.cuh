@@ -12,9 +12,18 @@
 // The kernel is a template on a tag type so that each source's copy carries
 // its own name (`wgrad_kernel<two_cell_wgrad>` and so on), which a profiler's
 // kernel table shows beside the source's other kernels.
+//
+// A job with `bf16` set is the weight gradient of a bf16-mode product (the
+// TPU kernels' `acc` with bf16 operands, then the cast of the result): A and
+// Bm are rounded to bf16 as they are staged, the sum is taken in f32, and C
+// is stored rounded, as bf16. `a_bf16` says that A itself is stored in bf16.
+// Both default to 0. Testing the flags per staged element cost the f32 jobs
+// 60-80% more time on an H100, so a launch whose jobs set neither runs the
+// instance without the tests (kFlags false).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -26,11 +35,17 @@ constexpr int kWgThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
 constexpr int kWgMaxJobs = 15;
 
 struct WgradJob {
-  const float* A;   // [R, M] (lda = M); null: a column of ones (M = 1)
+  const void* A;    // [R, M] (lda = M), f32 (bf16 with a_bf16); null: a column of ones (M = 1)
   const float* Bm;  // [R, N]
-  float* C;         // [M, N]
+  void* C;          // [M, N], f32 (bf16 with bf16)
   int M, N;
+  int bf16 = 0;     // round A and Bm to bf16 as staged; store C rounded, as bf16
+  int a_bf16 = 0;   // A is stored in bf16
 };
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 struct WgradTile {
   WgradJob job;
@@ -42,7 +57,7 @@ struct WgradArgs {
   int njobs, R;
 };
 
-template <typename Tag>
+template <typename Tag, bool kFlags>
 __global__ void __launch_bounds__(kWgThreads) wgrad_kernel(const WgradArgs args) {
   __shared__ __align__(16) float As[kWgChunk][kWgTile];
   __shared__ __align__(16) float Bs[kWgChunk][kWgTile];
@@ -62,8 +77,22 @@ __global__ void __launch_bounds__(kWgThreads) wgrad_kernel(const WgradArgs args)
     for (int i = threadIdx.x; i < kWgChunk * kWgTile; i += kWgThreads) {
       const int rr = i / kWgTile, c = i - rr * kWgTile, r = r0 + rr;
       const int m = m0 + c, n = n0 + c;
-      As[rr][c] = (r < args.R && m < jb.M) ? (jb.A ? jb.A[(size_t)r * jb.M + m] : 1.f) : 0.f;
-      Bs[rr][c] = (r < args.R && n < jb.N) ? jb.Bm[(size_t)r * jb.N + n] : 0.f;
+      if constexpr (kFlags) {
+        float av = 0.f, bv = 0.f;
+        if (r < args.R && m < jb.M) {
+          const size_t ia = (size_t)r * jb.M + m;
+          av = !jb.A     ? 1.f
+               : jb.a_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(jb.A)[ia])
+                           : static_cast<const float*>(jb.A)[ia];
+        }
+        if (r < args.R && n < jb.N) bv = jb.Bm[(size_t)r * jb.N + n];
+        As[rr][c] = jb.bf16 ? round_bf16(av) : av;
+        Bs[rr][c] = jb.bf16 ? round_bf16(bv) : bv;
+      } else {
+        const float* A = static_cast<const float*>(jb.A);
+        As[rr][c] = (r < args.R && m < jb.M) ? (A ? A[(size_t)r * jb.M + m] : 1.f) : 0.f;
+        Bs[rr][c] = (r < args.R && n < jb.N) ? jb.Bm[(size_t)r * jb.N + n] : 0.f;
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -85,7 +114,12 @@ __global__ void __launch_bounds__(kWgThreads) wgrad_kernel(const WgradArgs args)
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int n = n0 + tx * 4 + q;
-      if (m < jb.M && n < jb.N) jb.C[(size_t)m * jb.N + n] = acc[i][q];
+      if (m >= jb.M || n >= jb.N) continue;
+      const size_t ic = (size_t)m * jb.N + n;
+      if (kFlags && jb.bf16)
+        static_cast<__nv_bfloat16*>(jb.C)[ic] = __float2bfloat16_rn(acc[i][q]);
+      else
+        static_cast<float*>(jb.C)[ic] = acc[i][q];
     }
   }
 }
@@ -99,12 +133,17 @@ int launch_wgrad(const WgradJob* jobs, int njobs, int R, cudaStream_t stream) {
   args.njobs = njobs;
   args.R = R;
   int blocks = 0;
+  bool flags = false;
   for (int j = 0; j < njobs; ++j) {
     const int tm = (jobs[j].M + kWgTile - 1) / kWgTile, tn = (jobs[j].N + kWgTile - 1) / kWgTile;
     args.jobs[j] = WgradTile{jobs[j], tn, blocks};
     blocks += tm * tn;
+    flags = flags || jobs[j].bf16 || jobs[j].a_bf16;
   }
-  wgrad_kernel<Tag><<<blocks, kWgThreads, 0, stream>>>(args);
+  if (flags)
+    wgrad_kernel<Tag, true><<<blocks, kWgThreads, 0, stream>>>(args);
+  else
+    wgrad_kernel<Tag, false><<<blocks, kWgThreads, 0, stream>>>(args);
   return (int)cudaGetLastError();
 }
 

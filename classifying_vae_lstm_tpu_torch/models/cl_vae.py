@@ -122,7 +122,9 @@ def apply(params, cfg: Config, x, generator=None, x_prev=None, noise=None):
     The dense-stack kernels when :func:`..ops.vae_dense.should_use` holds;
     otherwise the model functions, whose hidden layers and frame head take
     bf16 operands with f32 accumulation under ``cfg.bf16_compute`` (the heads
-    stay f32). ``noise``: the pre-drawn dict of :func:`draw_apply_noise`;
+    stay f32). Under ``cfg.bf16_compute`` the kernels run in their bf16 mode,
+    which rounds every kernel, the heads' too, as the JAX kernel route does,
+    so the two routes round at different places. ``noise``: the pre-drawn dict of :func:`draw_apply_noise`;
     without it both routes draw the same noise from ``generator``.
     """
     if noise is None:

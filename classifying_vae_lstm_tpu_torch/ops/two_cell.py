@@ -186,15 +186,17 @@ def _kernels():
         return _lib
 
 
-def _check(dev, named_shapes: dict):
-    """Raise on anything the kernels do not take (``None`` entries skip)."""
+def _check(dev, named_shapes: dict, bf16=frozenset()):
+    """Raise on anything the kernels do not take (``None`` entries skip).
+    The tensors named in ``bf16`` must be bfloat16, the others float32."""
     for name, (t, shape) in named_shapes.items():
         if t is None:
             continue
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        dtype = torch.bfloat16 if name in bf16 else torch.float32
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {str(dtype)[6:]}, got {t.dtype}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
         if not t.is_contiguous():

@@ -11,6 +11,17 @@ autograd of the plain forward: it recomputes z and the exp factors from the
 zargs / wargs residuals and takes the relu masks from the post-activations),
 so the backward kernel can be held against it on identical residuals.
 
+Both directions have a bf16 mode, the JAX kernels' ``compute_dtype=bf16``,
+chosen by the operands' type: x, x_prev and every kernel (weight matrix)
+bf16; the biases and the noise f32. Each product rounds its left operand to
+bf16 where the TPU kernels' ``mm`` does and accumulates in f32; the
+residuals a1, a2, a3 come out as f32 tensors holding bf16-rounded values;
+the weight gradients are products of bf16-rounded operands, rounded and
+returned as bf16; the bias gradients are f32 column sums of the unrounded
+cotangents; dx and dx_prev are bf16. :func:`pack_inputs` casts under
+``cfg.bf16_compute`` (differentiably, as JAX ``padm`` does), so autograd
+hands the f32 parameters bf16-valued weight gradients, as JAX's does.
+
 Layouts: rows ``[B, ...]``; kernels ``[in, out]``; the w heads packed to
 ``wwz [Cw, 2(K-1)]`` / ``bwz``, the z heads to ``wzz [H, 2L]`` / ``bzz`` (no
 lane padding); the latent encoder's kernel split into its x rows ``whx`` and
@@ -35,9 +46,12 @@ from . import _build
 from .two_cell import _check, _device_of
 
 # launches since the counts were last set to 0: one per forward call, two per
-# backward call (the row pass, then the weight-gradient pass)
+# backward call (the row pass, then the weight-gradient pass); the BF16_
+# counts are the bf16-mode share of each
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+BF16_FWD_LAUNCHES = 0
+BF16_BWD_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
 _ROWS_PER_BLOCK = 4     # kRows in csrc/vae_dense.cu
@@ -45,8 +59,9 @@ _SMEM_LIMIT = 232448    # dynamic shared memory one Hopper block can use
 # the JAX kernel's lane width: K and L up to it, so both packages route the
 # same configs to their kernels
 _MAX_WIDTH = 128
-BF16_TODO = ("the bf16 mode of the dense-stack kernels is not ported yet "
-             "(ROADMAP Queue 2 item 7)")
+# the operands that are bf16 in the bf16 mode: x, x_prev and the kernels
+_BF16_OPERANDS = frozenset({"x", "xp", "whw", "wwz", "whx", "whw2", "wzz", "wdw", "wdxp",
+                            "wdz", "wxh"})
 
 
 def _smem_bytes(D: int, Cw: int, H: int, L: int, K: int, use_xp: bool) -> int:
@@ -85,25 +100,43 @@ def should_use(cfg, train_backend=None) -> bool:
 # ------------------------------------------------------------ plain versions
 
 
+def _mode(whw):
+    """(is the call in bf16 mode, the left-operand rounding of its products)."""
+    bf16 = whw.dtype == torch.bfloat16
+    return bf16, (lambda a: a.bfloat16().float()) if bf16 else (lambda a: a)
+
+
+def _f32(*ts):
+    return tuple(None if t is None else t.float() for t in ts)
+
+
 def vae_dense_fwd_plain(x, xp, eps_w, eps_z, whw, bhw, wwz, bwz, whx, whw2, bh, wzz, bzz,
                         wdw, wdxp, wdz, bd, wxh, bxh):
     """The forward kernel's function in torch ops.
 
     Returns ``(xhat [B, D], wargs [B, 2(K-1)], zargs [B, 2L], w [B, K], a1
-    [B, Cw], a2 [B, H], a3 [B, H])``: the outputs and the residuals. The w
-    softmax runs over K lanes whose last is the appended zero logit."""
+    [B, Cw], a2 [B, H], a3 [B, H])``: the outputs and the residuals, all
+    f32. The w softmax runs over K lanes whose last is the appended zero
+    logit. In bf16 mode (bf16 ``whw``) each product's left operand is
+    rounded to bf16 and multiplied in f32 — ``a.bfloat16().float() @
+    w.float()`` — since a CPU bf16 matmul would round its output to bf16,
+    which the TPU kernel's f32-accumulating product does not; a1, a2, a3
+    hold their rounded values."""
     K1, L = eps_w.shape[-1], eps_z.shape[-1]
-    a1 = torch.relu(x @ whw + bhw)
+    _, op = _mode(whw)
+    x, xp, whw, wwz, whx, whw2, wzz, wdw, wdxp, wdz, wxh = _f32(
+        x, xp, whw, wwz, whx, whw2, wzz, wdw, wdxp, wdz, wxh)
+    a1 = op(torch.relu(x @ whw + bhw))
     wargs = a1 @ wwz + bwz
     wn = wargs[:, :K1] + torch.exp(wargs[:, K1:] / 2) * eps_w
     w = torch.softmax(torch.cat([wn, wn.new_zeros((wn.shape[0], 1))], dim=-1), dim=-1)
-    a2 = torch.relu(x @ whx + w @ whw2 + bh)
+    a2 = op(torch.relu(x @ whx + op(w) @ whw2 + bh))
     zargs = a2 @ wzz + bzz
     z = zargs[:, :L] + torch.exp(zargs[:, L:] / 2) * eps_z
-    d = w @ wdw + z @ wdz + bd
+    d = op(w) @ wdw + op(z) @ wdz + bd
     if xp is not None:
         d = d + xp @ wdxp
-    a3 = torch.relu(d)
+    a3 = op(torch.relu(d))
     xhat = torch.sigmoid(a3 @ wxh + bxh)
     return xhat, wargs, zargs, w, a1, a2, a3
 
@@ -115,28 +148,36 @@ def vae_dense_bwd_plain(x, xp, eps_w, eps_z, a1, a2, a3, xhat, wargs, zargs, w,
 
     Returns ``(dx, dxp, dwhw, dbhw, dwwz, dbwz, dwhx, dwhw2, dbh, dwzz, dbzz,
     dwdw, dwdxp, dwdz, dbd, dwxh, dbxh)``; ``dxp`` and ``dwdxp`` are ``None``
-    without ``xp``."""
+    without ``xp``. In bf16 mode (bf16 ``whw``) each cotangent is rounded to
+    bf16 before its transposed product, both operands of each weight
+    gradient are rounded and the gradient is returned as bf16 (the TPU
+    kernel's ``acc``, then ``_core_bwd``'s cast), the bias gradients are
+    sums of the unrounded f32 cotangents, and dx, dx_prev are bf16."""
     K1, L = eps_w.shape[-1], eps_z.shape[-1]
+    bf16, op = _mode(whw)
+    x, xp, whw, wwz, whx, whw2, wzz, wdw, wdxp, wdz, wxh = _f32(
+        x, xp, whw, wwz, whx, whw2, wzz, wdw, wdxp, wdz, wxh)
+    wgrad = lambda a, g: op(a).T @ op(g)
     # frame head: sigmoid backward
     dxh_pre = dxhat * xhat * (1.0 - xhat)
-    dwxh, dbxh = a3.T @ dxh_pre, dxh_pre.sum(0)
-    dd_pre = (dxh_pre @ wxh.T) * (a3 > 0)
+    dwxh, dbxh = wgrad(a3, dxh_pre), dxh_pre.sum(0)
+    dd_pre = (op(dxh_pre) @ wxh.T) * (a3 > 0)
     # decoder: z recomputed from the zargs residual
     sig_z = torch.exp(zargs[:, L:] / 2)
     z = zargs[:, :L] + sig_z * eps_z
-    dwdw, dwdz, dbd = w.T @ dd_pre, z.T @ dd_pre, dd_pre.sum(0)
-    dwdxp = xp.T @ dd_pre if xp is not None else None
-    dxp = dd_pre @ wdxp.T if xp is not None else None
-    dw_tot = dw + dd_pre @ wdw.T
-    dz = dd_pre @ wdz.T
+    dwdw, dwdz, dbd = wgrad(w, dd_pre), wgrad(z, dd_pre), dd_pre.sum(0)
+    dwdxp = wgrad(xp, dd_pre) if xp is not None else None
+    dxp = op(dd_pre) @ wdxp.T if xp is not None else None
+    dw_tot = dw + op(dd_pre) @ wdw.T
+    dz = op(dd_pre) @ wdz.T
     # z sample + z heads backward
     dza = torch.cat([dz + dzargs[:, :L], dz * eps_z * sig_z * 0.5 + dzargs[:, L:]], dim=-1)
-    dwzz, dbzz = a2.T @ dza, dza.sum(0)
-    dh_pre = (dza @ wzz.T) * (a2 > 0)
+    dwzz, dbzz = wgrad(a2, dza), dza.sum(0)
+    dh_pre = (op(dza) @ wzz.T) * (a2 > 0)
     # latent encoder backward
-    dwhx, dwhw2, dbh = x.T @ dh_pre, w.T @ dh_pre, dh_pre.sum(0)
-    dx = dh_pre @ whx.T
-    dw_tot = dw_tot + dh_pre @ whw2.T
+    dwhx, dwhw2, dbh = wgrad(x, dh_pre), wgrad(w, dh_pre), dh_pre.sum(0)
+    dx = op(dh_pre) @ whx.T
+    dw_tot = dw_tot + op(dh_pre) @ whw2.T
     # logistic-normal sample backward: softmax vjp, the pinned zero logit dropped
     dlogits = w * (dw_tot - torch.sum(dw_tot * w, dim=-1, keepdim=True))
     dw_norm = dlogits[:, :K1]
@@ -144,10 +185,14 @@ def vae_dense_bwd_plain(x, xp, eps_w, eps_z, a1, a2, a3, xhat, wargs, zargs, w,
     dwa = torch.cat([dw_norm + dwargs[:, :K1], dw_norm * eps_w * sig_w * 0.5 + dwargs[:, K1:]],
                     dim=-1)
     # w heads + key encoder backward
-    dwwz, dbwz = a1.T @ dwa, dwa.sum(0)
-    dhw_pre = (dwa @ wwz.T) * (a1 > 0)
-    dwhw, dbhw = x.T @ dhw_pre, dhw_pre.sum(0)
-    dx = dx + dhw_pre @ whw.T
+    dwwz, dbwz = wgrad(a1, dwa), dwa.sum(0)
+    dhw_pre = (op(dwa) @ wwz.T) * (a1 > 0)
+    dwhw, dbhw = wgrad(x, dhw_pre), dhw_pre.sum(0)
+    dx = dx + op(dhw_pre) @ whw.T
+    if bf16:
+        b = lambda t: None if t is None else t.bfloat16()
+        dx, dxp, dwhw, dwwz, dwhx, dwhw2, dwzz, dwdw, dwdxp, dwdz, dwxh = (
+            b(t) for t in (dx, dxp, dwhw, dwwz, dwhx, dwhw2, dwzz, dwdw, dwdxp, dwdz, dwxh))
     return (dx, dxp, dwhw, dbhw, dwwz, dbwz, dwhx, dwhw2, dbh, dwzz, dbzz, dwdw, dwdxp, dwdz,
             dbd, dwxh, dbxh)
 
@@ -172,22 +217,24 @@ def _kernels():
                 if smem(*shape) != _smem_bytes(*shape):
                     raise RuntimeError("shared-memory layout of csrc/vae_dense.cu differs from "
                                        f"_smem_bytes at {shape}")
-            lib.cvl_vae_dense_fwd.argtypes = [P] * 26 + [I] * 7 + [P]
-            lib.cvl_vae_dense_bwd.argtypes = [P] * 28 + [I] * 7 + [P]
-            lib.cvl_vae_dense_wgrad.argtypes = [P] * 28 + [I] * 7 + [P]
+            lib.cvl_vae_dense_fwd.argtypes = [I] + [P] * 26 + [I] * 7 + [P]
+            lib.cvl_vae_dense_bwd.argtypes = [I] + [P] * 28 + [I] * 7 + [P]
+            lib.cvl_vae_dense_wgrad.argtypes = [I] + [P] * 28 + [I] * 7 + [P]
             for fn in (lib.cvl_vae_dense_fwd, lib.cvl_vae_dense_bwd, lib.cvl_vae_dense_wgrad):
                 fn.restype = I
             _lib = lib
         return _lib
 
 
-def _count(which: str, n: int):
-    global FWD_LAUNCHES, BWD_LAUNCHES
+def _count(which: str, n: int, bf16: bool):
+    global FWD_LAUNCHES, BWD_LAUNCHES, BF16_FWD_LAUNCHES, BF16_BWD_LAUNCHES
     with _launch_lock:
         if which == "fwd":
             FWD_LAUNCHES += n
+            BF16_FWD_LAUNCHES += n * bf16
         else:
             BWD_LAUNCHES += n
+            BF16_BWD_LAUNCHES += n * bf16
 
 
 def _dims(x, xp, whw, whx, whw2, wdz, wdxp):
@@ -221,30 +268,33 @@ def vae_dense_fwd(x, xp, eps_w, eps_z, whw, bhw, wwz, bwz, whx, whw2, bh, wzz, b
     """The forward kernel (signature and results of :func:`vae_dense_fwd_plain`).
 
     CUDA tensors launch ``vae_dense_fwd_kernel`` on the current stream (or
-    raise); CPU tensors take the plain version."""
+    raise), in bf16 mode where ``whw`` is bf16; CPU tensors take the plain
+    version."""
     args = (x, xp, eps_w, eps_z, whw, bhw, wwz, bwz, whx, whw2, bh, wzz, bzz, wdw, wdxp, wdz,
             bd, wxh, bxh)
     dev = _device_of(x)
     if dev.type == "cpu":
         return vae_dense_fwd_plain(*args)
     B, D, Cw, H, L, K, use_xp = _dims(x, xp, whw, whx, whw2, wdz, wdxp)
+    bf16 = whw.dtype == torch.bfloat16
     K2 = 2 * (K - 1)
     _check(dev, {"x": (x, (B, D)), "xp": (xp, (B, D)), "eps_w": (eps_w, (B, K - 1)),
                  "eps_z": (eps_z, (B, L)), "whw": (whw, (D, Cw)), "bhw": (bhw, (Cw,)),
                  "wwz": (wwz, (Cw, K2)), "bwz": (bwz, (K2,)), "whx": (whx, (D, H)),
                  "whw2": (whw2, (K, H)), "bh": (bh, (H,)), "wzz": (wzz, (H, 2 * L)),
                  "bzz": (bzz, (2 * L,)), "wdw": (wdw, (K, H)), "wdxp": (wdxp, (D, H)),
-                 "wdz": (wdz, (L, H)), "bd": (bd, (H,)), "wxh": (wxh, (H, D)), "bxh": (bxh, (D,))})
+                 "wdz": (wdz, (L, H)), "bd": (bd, (H,)), "wxh": (wxh, (H, D)), "bxh": (bxh, (D,))},
+           bf16=_BF16_OPERANDS if bf16 else frozenset())
     lib = _kernels()
     with torch.cuda.device(dev):
         new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
         outs = (new(B, D), new(B, K2), new(B, 2 * L), new(B, K), new(B, Cw), new(B, H),
                 new(B, H))
-        err = lib.cvl_vae_dense_fwd(*(_ptr(t) for t in args + outs), B, D, Cw, H, L, K,
-                                    int(use_xp), torch.cuda.current_stream(dev).cuda_stream)
+        err = lib.cvl_vae_dense_fwd(int(bf16), *(_ptr(t) for t in args + outs), B, D, Cw, H, L,
+                                    K, int(use_xp), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"vae_dense forward kernel launch failed: CUDA error {err}")
-    _count("fwd", 1)
+    _count("fwd", 1, bf16)
     return outs
 
 
@@ -255,14 +305,15 @@ def vae_dense_bwd(x, xp, eps_w, eps_z, a1, a2, a3, xhat, wargs, zargs, w,
     CUDA tensors launch ``vae_dense_bwd_kernel`` (the row pass, which writes
     dx, dxp and each layer's pre-activation cotangent to scratch) and then
     ``wgrad_kernel<vae_dense_wgrad>`` (every weight and bias gradient, summed over
-    the B rows in a fixed order), or raise; CPU tensors take the plain
-    version."""
+    the B rows in a fixed order), or raise, in bf16 mode where ``whw`` is
+    bf16; CPU tensors take the plain version."""
     args = (x, xp, eps_w, eps_z, a1, a2, a3, xhat, wargs, zargs, w, dxhat, dwargs, dzargs, dw,
             whw, wwz, whx, whw2, wzz, wdw, wdxp, wdz, wxh)
     dev = _device_of(x)
     if dev.type == "cpu":
         return vae_dense_bwd_plain(*args)
     B, D, Cw, H, L, K, use_xp = _dims(x, xp, whw, whx, whw2, wdz, wdxp)
+    bf16 = whw.dtype == torch.bfloat16
     K2 = 2 * (K - 1)
     _check(dev, {"x": (x, (B, D)), "xp": (xp, (B, D)), "eps_w": (eps_w, (B, K - 1)),
                  "eps_z": (eps_z, (B, L)), "a1": (a1, (B, Cw)), "a2": (a2, (B, H)),
@@ -271,7 +322,8 @@ def vae_dense_bwd(x, xp, eps_w, eps_z, a1, a2, a3, xhat, wargs, zargs, w,
                  "dwargs": (dwargs, (B, K2)), "dzargs": (dzargs, (B, 2 * L)), "dw": (dw, (B, K)),
                  "whw": (whw, (D, Cw)), "wwz": (wwz, (Cw, K2)), "whx": (whx, (D, H)),
                  "whw2": (whw2, (K, H)), "wzz": (wzz, (H, 2 * L)), "wdw": (wdw, (K, H)),
-                 "wdxp": (wdxp, (D, H)), "wdz": (wdz, (L, H)), "wxh": (wxh, (H, D))})
+                 "wdxp": (wdxp, (D, H)), "wdz": (wdz, (L, H)), "wxh": (wxh, (H, D))},
+           bf16=_BF16_OPERANDS if bf16 else frozenset())
     lib = _kernels()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -280,26 +332,28 @@ def vae_dense_bwd(x, xp, eps_w, eps_z, a1, a2, a3, xhat, wargs, zargs, w,
         t = lambda m: m.T.contiguous()
         wd = torch.cat([wdw, wdxp, wdz] if use_xp else [wdw, wdz], 0)
         w_t = (t(wxh), t(wd), t(wzz), t(torch.cat([whx, whw2], 0)), t(wwz), t(whw))
-        new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
-        dx, dxp = new(B, D), (new(B, D) if use_xp else None)
+        new = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt, device=dev)
+        wt = torch.bfloat16 if bf16 else torch.float32
+        dx, dxp = new(B, D, dt=wt), (new(B, D, dt=wt) if use_xp else None)
         scratch = (new(B, D), new(B, H), new(B, 2 * L), new(B, H), new(B, K2), new(B, Cw),
                    new(B, L))  # dxh_pre, dd_pre, dza, dh_pre, dwa, dhw_pre, zs
         ptrs = [_ptr(v) for v in (eps_w, eps_z, a1, a2, a3, xhat, wargs, zargs, w, dxhat,
                                   dwargs, dzargs, dw, *w_t, dx, dxp, *scratch)]
-        err = lib.cvl_vae_dense_bwd(*ptrs, B, D, Cw, H, L, K, int(use_xp), stream)
+        err = lib.cvl_vae_dense_bwd(int(bf16), *ptrs, B, D, Cw, H, L, K, int(use_xp), stream)
         if err != 0:
             raise RuntimeError(f"vae_dense backward kernel launch failed: CUDA error {err}")
-        _count("bwd", 1)
-        wgrads = (new(D, Cw), new(Cw), new(Cw, K2), new(K2), new(D, H), new(K, H), new(H),
-                  new(H, 2 * L), new(2 * L), new(K, H), new(D, H) if use_xp else None, new(L, H),
-                  new(H), new(H, D), new(D))
+        _count("bwd", 1, bf16)
+        g = lambda *s: new(*s, dt=wt)  # a weight gradient: the mode's type
+        wgrads = (g(D, Cw), new(Cw), g(Cw, K2), new(K2), g(D, H), g(K, H), new(H),
+                  g(H, 2 * L), new(2 * L), g(K, H), g(D, H) if use_xp else None, g(L, H),
+                  new(H), g(H, D), new(D))
         dxh_pre, dd_pre, dza, dh_pre, dwa, dhw_pre, zs = scratch
         ptrs = [_ptr(v) for v in (x, xp, a1, a2, a3, w, zs, dxh_pre, dd_pre, dza, dh_pre, dwa,
                                   dhw_pre, *wgrads)]
-        err = lib.cvl_vae_dense_wgrad(*ptrs, B, D, Cw, H, L, K, int(use_xp), stream)
+        err = lib.cvl_vae_dense_wgrad(int(bf16), *ptrs, B, D, Cw, H, L, K, int(use_xp), stream)
     if err != 0:
         raise RuntimeError(f"vae_dense weight-gradient kernel launch failed: CUDA error {err}")
-    _count("bwd", 1)
+    _count("bwd", 1, bf16)
     return (dx, dxp, *wgrads)
 
 
@@ -312,7 +366,9 @@ class VaeDenseCore(torch.autograd.Function):
 
     Inputs: x, xp, eps_w, eps_z and the fifteen packed weights and biases
     (the signature of :func:`vae_dense_fwd`); outputs: xhat, wargs, zargs, w.
-    The noise gets no gradient."""
+    The mode follows the inputs' type (bf16 kernels: the bf16 mode), and
+    each gradient comes back in its input's type. The noise gets no
+    gradient."""
 
     @staticmethod
     def forward(ctx, x, xp, eps_w, eps_z, whw, bhw, wwz, bwz, whx, whw2, bh, wzz, bzz,
@@ -337,22 +393,25 @@ class VaeDenseCore(torch.autograd.Function):
 def pack_inputs(params, cfg, x, x_prev, eps_w, eps_z) -> tuple:
     """The core's 19 inputs from the model's parameters and a batch: the w
     and z heads packed side by side, the latent encoder's kernel split into
-    its x and w rows, the decoder's into its w, x_prev and z rows.
+    its x and w rows, the decoder's into its w, x_prev and z rows. Under
+    ``cfg.bf16_compute`` x, x_prev and every kernel are cast to bf16 (the
+    biases and the noise stay f32), as JAX ``padm``/``padx`` cast them.
     Differentiable torch ops, so autograd routes the parameter cotangents
-    back through them."""
+    back through them (a bf16 gradient reaches its f32 parameter as f32)."""
     D, K = cfg.original_dim, cfg.n_classes
     n_xp = D if cfg.use_x_prev else 0
     c = lambda t: t.contiguous()
-    heads = lambda m, v: (c(torch.cat([params[m]["kernel"], params[v]["kernel"]], dim=1)),
-                          c(torch.cat([params[m]["bias"], params[v]["bias"]])))
+    m = (lambda t: t.to(torch.bfloat16).contiguous()) if cfg.bf16_compute else c
+    heads = lambda a, b: (m(torch.cat([params[a]["kernel"], params[b]["kernel"]], dim=1)),
+                          c(torch.cat([params[a]["bias"], params[b]["bias"]])))
     wwz, bwz = heads("w_mean", "w_log_var")
     wzz, bzz = heads("z_mean", "z_log_var")
     hk, dk = params["h"]["kernel"], params["decoder_h"]["kernel"]
-    return (c(x), c(x_prev) if cfg.use_x_prev else None, c(eps_w), c(eps_z),
-            c(params["h_w"]["kernel"]), c(params["h_w"]["bias"]), wwz, bwz,
-            c(hk[:D]), c(hk[D:]), c(params["h"]["bias"]), wzz, bzz,
-            c(dk[:K]), c(dk[K:K + D]) if cfg.use_x_prev else None, c(dk[K + n_xp:]),
-            c(params["decoder_h"]["bias"]), c(params["x_decoded_mean"]["kernel"]),
+    return (m(x), m(x_prev) if cfg.use_x_prev else None, c(eps_w), c(eps_z),
+            m(params["h_w"]["kernel"]), c(params["h_w"]["bias"]), wwz, bwz,
+            m(hk[:D]), m(hk[D:]), c(params["h"]["bias"]), wzz, bzz,
+            m(dk[:K]), m(dk[K:K + D]) if cfg.use_x_prev else None, m(dk[K + n_xp:]),
+            c(params["decoder_h"]["bias"]), m(params["x_decoded_mean"]["kernel"]),
             c(params["x_decoded_mean"]["bias"]))
 
 
@@ -364,9 +423,7 @@ def vae_apply_core(params, cfg, x, x_prev, eps_w, eps_z) -> dict:
     -> Gaussian sample -> ``decode`` composition at ``cfg.has_hidden``, with
     the noise given (``eps_w [B, K-1]``, ``eps_z [B, L]``); returns the named
     tensors of :func:`..models.cl_vae.apply`, z recomputed outside the core.
-    The bf16 mode is not ported yet and raises."""
-    if cfg.bf16_compute:
-        raise NotImplementedError(BF16_TODO)
+    Under ``cfg.bf16_compute`` the core runs in its bf16 mode."""
     if not fits(cfg):
         raise ValueError(f"the dense-stack kernels do not take this config ({cfg})")
     K1, L = cfg.n_classes - 1, cfg.latent_dim

@@ -12,6 +12,12 @@
   same f32 arithmetic in another order, ten AdamWN steps). The checkpoint
   triple loads in the JAX package, whose ``apply`` on it equals the port's
   (rtol 1e-5), and args.json records the resolved ``train_backend``.
+* ``--bf16_compute --train_backend pallas`` trains two epochs through the
+  bf16 mode of the dense-stack kernels' plain versions; args.json records
+  both flags, and the checkpoint loads in the JAX package, whose bf16 kernel
+  route on it equals the port's (1e-5: the same rounding points). Its IW-NLL
+  rounds no layer, in either package (JAX ``iw_nll_cl_vae`` passes no
+  dtype).
 * ``--vanilla`` resolves ``pallas`` to ``xla``; every flag whose module is
   not ported raises, naming the ROADMAP.
 """
@@ -129,6 +135,44 @@ def test_pallas_and_xla_train_alike_and_the_checkpoint_loads_in_jax(tmp_path, mo
     for k in ref:
         np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), rtol=1e-5, atol=1e-6,
                                    err_msg=k)
+
+
+def test_bf16_pallas_trains_and_the_checkpoint_loads_in_jax(tmp_path, monkeypatch, capsys):
+    from classifying_vae_lstm_tpu.evaluation import nll as jnll
+    from classifying_vae_lstm_tpu_torch.evaluation import nll as tnll
+
+    args, hist = _train(tmp_path, monkeypatch, "bf", "pallas", ["--bf16_compute"])
+    assert "train_backend=pallas" in capsys.readouterr().out
+    assert hist["loss"][1] < hist["loss"][0]
+    ckpt = str(tmp_path / "bf.npz")
+    jparams, jcfg, margs = jcommon.load_model(ckpt, "cl_vae")
+    raw, tcfg, _ = tcommon.load_model(ckpt, "cl_vae")
+    assert (margs["train_backend"], margs["bf16_compute"]) == ("pallas", True)
+    assert jcfg.bf16_compute and jcfg == jvae.Config(**dataclasses.asdict(tcfg))
+    rng = np.random.default_rng(5)
+    B = 6
+    x, xp = ((rng.random((B, 88)) < 0.1).astype(np.float32) for _ in range(2))
+    noise = {"eps_w": rng.standard_normal((B, 1)).astype(np.float32),
+             "eps_z": rng.standard_normal((B, 2)).astype(np.float32)}
+    ref = jvae.apply(jparams, jcfg, x, jax.random.PRNGKey(0), xp, noise=noise)
+    t = torch.from_numpy
+    tp = params_from_numpy(raw, "cpu")
+    got = tvae.apply(tp, tcfg, t(x), x_prev=t(xp), noise={k: t(v) for k, v in noise.items()})
+    for k in ref:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), rtol=1e-5, atol=1e-5,
+                                   err_msg=k)
+    # the estimator: no layer rounded under bf16_compute, as in JAX
+    eps_u, eps_z = rng.standard_normal((2, 3, B, 1)), rng.standard_normal((2, 3, B, 2))
+    nll = lambda c: tnll.iw_nll_cl_vae_noise(tp, c, t(x), t(x), t(eps_u[0]).float(),
+                                             t(eps_z[0]).float(), t(xp))
+    with torch.no_grad():
+        torch.testing.assert_close(nll(tcfg), nll(dataclasses.replace(tcfg, bf16_compute=False)),
+                                   rtol=0, atol=0)
+    key = jax.random.PRNGKey(1)
+    np.testing.assert_array_equal(
+        np.asarray(jnll.iw_nll_cl_vae(jparams, jcfg, x, x, key, n_samples=3, x_prev=xp)),
+        np.asarray(jnll.iw_nll_cl_vae(jparams, dataclasses.replace(jcfg, bf16_compute=False), x,
+                                      x, key, n_samples=3, x_prev=xp)))
 
 
 @pytest.mark.parametrize("choice", ["auto", "xla"])

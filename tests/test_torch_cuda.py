@@ -1,4 +1,4 @@
-"""The whole-generation CUDA kernel against its plain version, on the card.
+"""The port's CUDA kernels against their plain versions, on the card.
 
 These tests need an NVIDIA GPU with ``nvcc`` (the kernel has no CPU mode)
 and skip without one. They cover what ``chip_smoke.py`` does not: ragged
@@ -352,7 +352,7 @@ from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae as cgv  # noqa:
 
 def _vae_problem(dev, B, nsteps, H, use_x_prev=True, D=12, L=3, K=3, seed=0, bf16=False):
     cfg = cl_vae.Config(original_dim=D, intermediate_dim=H, latent_dim=L,
-                        intermediate_class_dim=H, n_classes=K, use_x_prev=use_x_prev,
+                        intermediate_class_dim=H or 8, n_classes=K, use_x_prev=use_x_prev,
                         bf16_compute=bf16)
     params = cl_vae.init(torch.Generator().manual_seed(seed), cfg)
     params["x_decoded_mean"]["bias"] -= 1.0  # sparse frames, as the trained models give
@@ -413,11 +413,65 @@ def test_vae_wrapper_raises_instead_of_falling_back(dev):
                                        u.transpose(0, 1).contiguous().transpose(0, 1), ws)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cgv.generate_cl_vae_batch_cuda(params, cfg, seeds, nsteps, eps, u, ws, mode="int8")
+    # a width the wide kernel takes, with weights of another width
     wide = cl_vae.Config(original_dim=12, intermediate_dim=4096, latent_dim=3, n_classes=3,
                          use_x_prev=True)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="must be"):
         cgv.generate_cl_vae_batch_cuda(params, wide, seeds, nsteps, eps, u, ws)
     assert cgv.LAUNCHES == before
+
+
+# ---- the wide cl_vae generation kernel (generate_wide_kernel)
+#
+# The same tolerances: f32 frames equal and probabilities within 1e-5; bf16
+# probabilities within 2e-3 of the plain bf16 version.
+
+WIDE_CASES = {
+    "h256": dict(B=5, nsteps=12, H=256, D=88, L=4, K=13, seed=4),
+    "no_hidden": dict(B=5, nsteps=12, H=0, D=88, L=4, K=13, seed=5),
+    "no_hidden_no_x_prev": dict(B=3, nsteps=10, H=0, use_x_prev=False, seed=6),
+    "h1100_k_split": dict(B=3, nsteps=6, H=1100, D=40, L=20, K=5, seed=7),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WIDE_CASES) + ["state_in_global_memory"])
+@pytest.mark.parametrize("zp", [False, True])
+def test_vae_wide_kernel_matches_plain_f32(dev, case, zp, monkeypatch):
+    if case == "state_in_global_memory":
+        # no shared memory to spare: the narrow config takes the wide kernel,
+        # its per-song state in the global scratch
+        monkeypatch.setattr(cgv, "_SMEM_LIMIT", 0)
+        kw = dict(B=5, nsteps=12, H=40, seed=8)
+    else:
+        kw = WIDE_CASES[case]
+    params, cfg, (seeds, nsteps, eps, u, ws) = _vae_problem(dev, **kw)
+    assert cgv.kernel_for(cfg) == "generate_cl_vae_wide"
+    u1 = torch.ones_like(u)
+    before = (cgv.LAUNCHES, cgv.WIDE_LAUNCHES)
+    run = lambda f, uu, rp: f(params, cfg, seeds, nsteps, eps, uu, ws, use_z_prior=zp,
+                              return_probs=rp)
+    pk, fk = (run(cgv.generate_cl_vae_batch_cuda, u1, True),
+              run(cgv.generate_cl_vae_batch_cuda, u, False))
+    torch.cuda.synchronize()
+    assert (cgv.LAUNCHES, cgv.WIDE_LAUNCHES) == (before[0] + 2, before[1] + 2)
+    pp, fp = (run(cgv.generate_cl_vae_batch_plain, u1, True),
+              run(cgv.generate_cl_vae_batch_plain, u, False))
+    torch.testing.assert_close(pk, pp, rtol=0, atol=1e-5)
+    assert 0 < fk.mean().item() < 1
+    torch.testing.assert_close(fk, fp, rtol=0, atol=0)
+
+
+def test_vae_wide_kernel_matches_plain_bf16(dev):
+    params, cfg, (seeds, nsteps, eps, u, ws) = _vae_problem(dev, B=5, nsteps=12, H=512, D=88,
+                                                            L=4, K=13, seed=9, bf16=True)
+    assert cgv.kernel_for(cfg) == "generate_cl_vae_wide"
+    run = lambda f, **k: f(params, cfg, seeds, nsteps, eps, u, ws, return_probs=True, **k)
+    before = cgv.WIDE_LAUNCHES
+    pk, pp = run(cgv.generate_cl_vae_batch_cuda), run(cgv.generate_cl_vae_batch_plain)
+    torch.testing.assert_close(pk, pp, rtol=0, atol=2e-3)
+    pf = run(cgv.generate_cl_vae_batch_cuda, mode="f32")
+    assert (pk - pf).abs().max().item() > 1e-6  # bf16 really ran
+    assert cgv.WIDE_LAUNCHES == before + 2
 
 
 # ---- the dense-stack cl_vae training kernels (csrc/vae_dense.cu)
@@ -515,6 +569,96 @@ def test_vae_dense_gradients_on_cuda_match_cpu_plain(dev):
     assert len(on_card) == len(on_cpu) == 1 + 16  # the loss; 8 dense layers x 2
     for i, (g, wv) in enumerate(zip(on_card, on_cpu)):
         _assert_bwd_close(g.cpu(), wv, f"loss / gradient {i}")
+
+
+def _bf16_inputs(ins):
+    """The bf16 mode's operands: x, x_prev and the kernels in bf16."""
+    ins = list(ins)
+    for i in (0, 1, 4, 6, 8, 9, 11, 13, 14, 15, 17):
+        ins[i] = None if ins[i] is None else ins[i].bfloat16()
+    return ins
+
+
+@pytest.mark.parametrize("case", sorted(VAE_DENSE_CASES))
+def test_vae_dense_bf16_kernels_match_plain(dev, case):
+    """The bf16 mode against the plain bf16 version: the same rounding
+    points, f32 sums in another order, so a value near a bf16 rounding
+    boundary may round the other way. Forward within 1e-2 x max(1,
+    max|plain|) and 1e-3 relative Frobenius; backward within 1e-2 relative
+    Frobenius; the weight gradients bf16, the bias gradients f32 and not
+    rounded."""
+    ins = _bf16_inputs(_vae_dense_inputs(dev, **VAE_DENSE_CASES[case]))
+    before = (vd.BF16_FWD_LAUNCHES, vd.BF16_BWD_LAUNCHES)
+    outs = vd.vae_dense_fwd(*ins)
+    torch.cuda.synchronize()
+    ref = vd.vae_dense_fwd_plain(*ins)
+    rel = lambda a, b: ((a.float() - b.float()).norm() / (b.float().norm() + 1e-30)).item()
+    for name, k, p in zip(("xhat", "wargs", "zargs", "w", "a1", "a2", "a3"), outs, ref):
+        assert k.dtype == torch.float32, name
+        scale = max(1.0, p.abs().max().item())
+        assert (k - p).abs().max().item() <= 1e-2 * scale, name
+        assert rel(k, p) <= 1e-3, name
+    xhat, wargs, zargs, w, a1, a2, a3 = ref
+    assert all(torch.equal(a, a.bfloat16().float()) for a in (a1, a2, a3))
+    (x, xp, eps_w, eps_z, whw, _, wwz, _, whx, whw2, _, wzz, _, wdw, wdxp, wdz, _, wxh, _) = ins
+    rng = np.random.default_rng(1)
+    cot = [torch.from_numpy(rng.standard_normal(tuple(o.shape)).astype(np.float32)).to(dev)
+           for o in (xhat, wargs, zargs, w)]
+    res = (x, xp, eps_w, eps_z, a1, a2, a3, xhat, wargs, zargs, w, *cot,
+           whw, wwz, whx, whw2, wzz, wdw, wdxp, wdz, wxh)
+    got = vd.vae_dense_bwd(*res)
+    torch.cuda.synchronize()
+    want = vd.vae_dense_bwd_plain(*res)
+    names = ("dx", "dxp", "dwhw", "dbhw", "dwwz", "dbwz", "dwhx", "dwhw2", "dbh", "dwzz", "dbzz",
+             "dwdw", "dwdxp", "dwdz", "dbd", "dwxh", "dbxh")
+    for name, g, wv in zip(names, got, want):
+        if wv is None:
+            assert g is None, name
+            continue
+        assert g.shape == wv.shape and g.dtype == wv.dtype, name
+        assert g.dtype == (torch.float32 if name.startswith("db") else torch.bfloat16), name
+        assert rel(g, wv) <= 1e-2, (name, rel(g, wv))
+    assert (vd.BF16_FWD_LAUNCHES, vd.BF16_BWD_LAUNCHES) == (before[0] + 1, before[1] + 2)
+
+
+def test_vae_dense_bf16_gradients_on_cuda_match_cpu_plain(dev):
+    """``cl_vae.loss_and_metrics`` on the ``pallas`` route with
+    ``bf16_compute``: the loss and every parameter gradient, kernels on the
+    card against the plain versions on the CPU, within 1e-2 relative
+    Frobenius; every weight gradient bf16-representable."""
+    D, H, L, K, B = 40, 48, 3, 4, 64
+    cfg = cl_vae.Config(original_dim=D, intermediate_dim=H, latent_dim=L,
+                        intermediate_class_dim=24, n_classes=K, use_x_prev=True,
+                        train_backend="pallas", bf16_compute=True)
+    raw = cl_vae.init(torch.Generator().manual_seed(1), cfg)
+    rng = np.random.default_rng(3)
+    arrays = {"x": (rng.random((B, D)) < 0.3).astype(np.float32),
+              "x_prev": (rng.random((B, D)) < 0.3).astype(np.float32),
+              "y": (rng.random((B, D)) < 0.3).astype(np.float32),
+              "w": np.eye(K, dtype=np.float32)[np.arange(B) % K],
+              "eps_w": rng.standard_normal((B, K - 1)).astype(np.float32),
+              "eps_z": rng.standard_normal((B, L)).astype(np.float32)}
+
+    def grads(device):
+        params = params_from_numpy({k: {n: v.numpy() for n, v in d.items()}
+                                    for k, d in raw.items()}, device)
+        leaves = [(n, v.requires_grad_(True)) for d in params.values() for n, v in d.items()]
+        batch = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+        loss, _ = cl_vae.loss_and_metrics(params, cfg, batch, None, 0.5, 0.7, 0.9)
+        loss.backward()
+        return [("loss", loss.detach())] + [(n, v.grad) for n, v in leaves]
+
+    before = (vd.BF16_FWD_LAUNCHES, vd.BF16_BWD_LAUNCHES)
+    on_card = grads(dev)
+    torch.cuda.synchronize()
+    assert (vd.BF16_FWD_LAUNCHES, vd.BF16_BWD_LAUNCHES) == (before[0] + 1, before[1] + 2)
+    on_cpu = grads("cpu")
+    for i, ((name, g), (_, wv)) in enumerate(zip(on_card, on_cpu)):
+        g = g.cpu()
+        err = ((g - wv).norm() / (wv.norm() + 1e-30)).item()
+        assert err <= 1e-2, (i, name, err)
+        if name == "kernel":
+            assert torch.equal(g, g.bfloat16().float()), i
 
 
 def test_vae_dense_wrappers_raise_instead_of_falling_back(dev):

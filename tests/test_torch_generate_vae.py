@@ -1,6 +1,9 @@
 """The port's cl_vae whole-generation sampler (the plain version of its CUDA
-kernel, and the model-function reference) against the JAX package: the
-Pallas kernel in interpret mode and the noise-explicit scan.
+kernels, and the model-function reference) against the JAX package: the
+Pallas kernel in interpret mode and the noise-explicit scan. The cases cover
+the shared-memory kernel's widths, the wide kernel's (hidden 256 and 512 at
+D=88, where f32 weights overflow one block's shared memory) and configs
+without hidden layers, which the JAX kernel refuses and its scan samples.
 
 Both sides get the same weights (the JAX init or a trained checkpoint, as
 NumPy arrays) and the same noise from ``np.random.default_rng``. f32: frames
@@ -61,10 +64,10 @@ def _run_all(jcfg, params, tcfg, tparams, a, nsteps, rp, zp=False, mode=None):
     targs = (_t(a["seeds"]), nsteps, _t(a["eps"]), _t(a["u"]), _t(a["ws"]))
     kw = dict(use_z_prior=zp, return_probs=rp)
     out = {
-        "plain": cgv.generate_cl_vae_batch_plain(tparams, tcfg, *targs, mode=mode, **kw).numpy(),
-        "jax_pallas": np.asarray(pallas_generate_vae.generate_cl_vae_batch_pallas(
-            params, jcfg, *args, mode=mode, **kw)),
-    }
+        "plain": cgv.generate_cl_vae_batch_plain(tparams, tcfg, *targs, mode=mode, **kw).numpy()}
+    if jcfg.has_hidden:  # the JAX kernel refuses configs without hidden layers
+        out["jax_pallas"] = np.asarray(pallas_generate_vae.generate_cl_vae_batch_pallas(
+            params, jcfg, *args, mode=mode, **kw))
     if mode is None:
         out["jax_noise"] = np.asarray(jax_noise(params, jcfg, *args, **kw))
         out["port_noise"] = tgen.generate_cl_vae_batch_noise(tparams, tcfg, *targs, **kw).numpy()
@@ -79,6 +82,12 @@ CASES = {
     "vanilla_k1": dict(K=1, use_x_prev=False),
     "ragged_batch": dict(B=11, seed=1),  # not a multiple of the kernel's 2-song tile
     "jsbcs_vae": dict(ckpt="jsbcs_vae", B=5, nsteps=8, seed=2),
+    # the wide kernel's widths (f32 weights past one block's shared memory)
+    "wide_h256": dict(D=88, H=256, L=4, K=13, B=4, nsteps=8, seed=4),
+    "wide_h512": dict(D=88, H=512, L=4, K=13, B=4, nsteps=8, seed=5),
+    # no hidden layers: the JAX package samples these through its scan only
+    "no_hidden": dict(D=88, H=0, L=4, K=13, B=4, nsteps=8, seed=6),
+    "no_hidden_no_x_prev": dict(D=12, H=0, L=2, K=3, use_x_prev=False, seed=7),
 }
 
 
@@ -90,10 +99,12 @@ def test_plain_matches_jax_pallas_and_scan(case):
     frames = _run_all(jcfg, params, tcfg, tparams, a, nsteps, rp=False, zp=zp)
     assert frames["plain"].shape == (a["seeds"].shape[0], nsteps, a["seeds"].shape[1])
     assert 0 < frames["plain"].mean() < 1
-    for name in ("jax_pallas", "jax_noise", "port_noise"):
+    refs = [n for n in ("jax_pallas", "jax_noise", "port_noise") if n in frames]
+    assert len(refs) == (3 if jcfg.has_hidden else 2)
+    for name in refs:
         np.testing.assert_array_equal(frames["plain"], frames[name], err_msg=name)
     probs = _run_all(jcfg, params, tcfg, tparams, a, nsteps, rp=True, zp=zp)
-    for name in ("jax_pallas", "jax_noise", "port_noise"):
+    for name in refs:
         np.testing.assert_allclose(probs["plain"], probs[name], rtol=0, atol=1e-5, err_msg=name)
 
 
@@ -108,6 +119,23 @@ def test_bf16_mode_matches_jax_bf16_kernel():
     assert d32.max() > 0.0  # bf16 really ran
     frames = _run_all(jcfg, params, tcfg, tparams, a, nsteps, rp=False, mode="bf16")
     assert set(np.unique(frames["plain"])) <= {0.0, 1.0}
+
+
+def test_bf16_wide_mode_matches_jax_bf16_kernel():
+    """bf16 at hidden 512 (D=88, L=4, K=13), the width of a bf16 checkpoint
+    that only the wide kernel takes: probabilities with u=1 within max 2e-2 /
+    mean 2e-3 of the JAX bf16 kernel, as at the narrow width."""
+    jcfg, params, tcfg, tparams, a, nsteps = _setup(D=88, H=512, L=4, K=13, B=4, nsteps=8,
+                                                    seed=8)
+    bcfg = dataclasses.replace(tcfg, bf16_compute=True)
+    assert not cgv.fits(bcfg) and cgv.kernel_for(bcfg) == "generate_cl_vae_wide"
+    a["u"] = np.ones_like(a["u"])
+    bf16 = _run_all(jcfg, params, bcfg, tparams, a, nsteps, rp=True, mode="bf16")
+    d = np.abs(bf16["plain"] - bf16["jax_pallas"])
+    assert d.max() <= 2e-2 and d.mean() <= 2e-3, (d.max(), d.mean())
+    f32 = cgv.generate_cl_vae_batch_plain(tparams, tcfg, _t(a["seeds"]), nsteps, _t(a["eps"]),
+                                          _t(a["u"]), _t(a["ws"]), return_probs=True).numpy()
+    assert np.abs(bf16["plain"] - f32).max() > 0.0  # bf16 really ran
 
 
 @pytest.mark.parametrize("ckpt", ["jsball_vae", "jsball_vanilla"])
@@ -155,13 +183,19 @@ def test_modes_and_kernel_input_checks():
     targs = (_t(a["seeds"]), nsteps, _t(a["eps"]), _t(a["u"]), _t(a["ws"]))
     assert cgv.pick_mode(tcfg) == "f32"
     assert cgv.pick_mode(dataclasses.replace(tcfg, bf16_compute=True)) == "bf16"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 4"):
         cgv.generate_cl_vae_batch_cuda(tparams, tcfg, *targs, mode="int8")
+    # no hidden layers: the wide kernel, in f32 as the JAX scan samples them
     no_hidden = dataclasses.replace(tcfg, intermediate_dim=0)
-    assert not cgv.fits(no_hidden)
-    with pytest.raises(ValueError, match="hidden layers"):
-        cgv.generate_cl_vae_batch_cuda(tparams, no_hidden, *targs)
+    assert not cgv.fits(no_hidden) and cgv.kernel_for(no_hidden) == "generate_cl_vae_wide"
+    assert cgv.pick_mode(dataclasses.replace(no_hidden, bf16_compute=True)) == "f32"
+    _, _, _, nh_params, nh, _ = _setup(H=0)
+    nh_args = (_t(nh["seeds"]), nsteps, _t(nh["eps"]), _t(nh["u"]), _t(nh["ws"]))
+    cgv._check(nh_params, no_hidden, *nh_args, "f32")
+    got = cgv.generate_cl_vae_batch_cuda(nh_params, no_hidden, *nh_args)
+    assert got.shape == (8, nsteps, 12)
     # what the wrapper checks before a launch (the launch itself needs a card)
+    assert cgv.kernel_for(tcfg) == "generate_cl_vae"
     cgv._check(tparams, tcfg, *targs, "f32")
     with pytest.raises(ValueError, match="eps"):
         cgv._check(tparams, tcfg, targs[0], nsteps, targs[2][:, :-1], *targs[3:], "f32")
@@ -172,10 +206,20 @@ def test_modes_and_kernel_input_checks():
     with pytest.raises(ValueError, match="contiguous"):
         u_t = _t(np.ascontiguousarray(a["u"].transpose(1, 0, 2))).transpose(0, 1)
         cgv._check(tparams, tcfg, targs[0], nsteps, targs[2], u_t, targs[4], "f32")
-    # shared memory: f32 weights fit up to H ~ 200 at D=88, L=4; bf16 doubles that
+    # shared memory: f32 weights fit up to H ~ 200 at D=88, L=4; bf16 doubles
+    # that; wider models take the wide kernel, whose per-song state leaves
+    # shared memory for a global scratch only past D + H ~ 14,000
     wide = lambda h: tvae.Config(original_dim=88, intermediate_dim=h, latent_dim=4,
                                  n_classes=10, use_x_prev=True)
     assert cgv.fits(wide(200)) and not cgv.fits(wide(210))
     assert cgv.fits(wide(384), "bf16") and not cgv.fits(wide(400), "bf16")
-    with pytest.raises(ValueError, match="shared memory"):
-        cgv._check(tparams, dataclasses.replace(tcfg, intermediate_dim=4096), *targs, "f32")
+    for h, mode, kernel in ((200, "f32", "generate_cl_vae"), (210, "f32", "generate_cl_vae_wide"),
+                            (384, "bf16", "generate_cl_vae"),
+                            (400, "bf16", "generate_cl_vae_wide")):
+        assert cgv.kernel_for(wide(h), mode) == kernel, (h, mode)
+    assert cgv._wide_smem_bytes(88, 4096, 4, True, True) <= cgv._SMEM_LIMIT
+    assert cgv._wide_smem_bytes(88, 16384, 4, True, True) > cgv._SMEM_LIMIT
+    w4096 = dataclasses.replace(tcfg, intermediate_dim=4096)
+    assert cgv.kernel_for(w4096) == "generate_cl_vae_wide"
+    with pytest.raises(ValueError, match=r"kernel must be \(4096, 2\)"):
+        cgv._check(tparams, w4096, *targs, "f32")

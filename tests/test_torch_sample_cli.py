@@ -13,8 +13,10 @@ from classifying_vae_lstm_tpu.cli import cl_vrnn_sample as j_vrnn_cli
 from classifying_vae_lstm_tpu.data.midi import midi_to_roll as j_midi_to_roll
 from classifying_vae_lstm_tpu.data.midi import read_midi_roll as j_read_midi_roll
 from classifying_vae_lstm_tpu.data.wav import render_roll as j_render_roll
-from classifying_vae_lstm_tpu_torch.cli import cl_vae_sample, cl_vrnn_sample
+from classifying_vae_lstm_tpu_torch.cli import cl_vae_sample, cl_vae_train, cl_vrnn_sample
+from classifying_vae_lstm_tpu_torch.cli import common
 from classifying_vae_lstm_tpu_torch.data import PianoData, read_midi_roll, render_roll, write_sample
+from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae
 
 CS = "data/input/Piano-midi_Cs.pickle"
 
@@ -63,6 +65,33 @@ def test_cl_vae_sample_writes_midi(tmp_path, extra):
             assert f.getnframes() == 2 * 16 * int(round(0.25 * f.getframerate()))
     else:
         assert not list(tmp_path.glob("*.wav"))
+
+
+def train_cl_vae(model_dir, hidden, run="ckpt"):
+    """A two-epoch cl_vae checkpoint (the first epoch saves none) of the port's CLI on the CPU (hidden
+    ``hidden``, 2 keys); returns its path."""
+    cl_vae_train.train(cl_vae_train.build_parser().parse_args(
+        [run, "--device", "cpu", "--train_file", CS, "--intermediate_dim", str(hidden),
+         "--intermediate_class_dim", "16", "--latent_dim", "2", "--batch_size", "2000",
+         "--num_epochs", "2", "--patience", "0", "--use_x_prev", "--model_dir", str(model_dir)]))
+    return str(model_dir / f"{run}.npz")
+
+
+@pytest.mark.parametrize("hidden", [256, 0])
+def test_cl_vae_sample_takes_wide_and_no_hidden_checkpoints(tmp_path, hidden):
+    """Checkpoints the shared-memory kernel refuses (hidden 256 in f32, and no
+    hidden layers) sample through the wide kernel's route; on the CPU, its
+    plain version."""
+    ckpt = train_cl_vae(tmp_path, hidden)
+    _, cfg, _ = common.load_model(ckpt, "cl_vae")
+    assert cuda_generate_vae.kernel_for(cfg) == "generate_cl_vae_wide"
+    out = tmp_path / "samples"
+    args = cl_vae_sample.build_parser().parse_args(
+        ["run", "-i", ckpt, "--train_file", CS, "-n", "2", "-t", "12", "--sample_dir", str(out),
+         "--device", "cpu"])
+    samples = cl_vae_sample.sample(args)
+    assert samples.shape == (2, 12, 88) and set(np.unique(samples)) <= {0.0, 1.0}
+    _check_files(samples, out, ["run_0", "run_1"])
 
 
 def test_cl_vae_sample_from_midi_and_wav_matches_jax(tmp_path):

@@ -301,6 +301,47 @@ def test_cl_vae_dynamic_batching_coalesces_a_burst():
     assert eng.stats["batched_songs"] > 2 * eng.stats["batches"]
 
 
+@pytest.mark.parametrize("hidden", [256, 0])
+def test_cl_vae_engine_takes_wide_and_no_hidden_checkpoints(tmp_path, hidden, monkeypatch):
+    """A cl_vae checkpoint the shared-memory kernel refuses (hidden 256 in
+    f32, or no hidden layers) serves on the CPU, and on a card the engine no
+    longer refuses it before any request (the cl_vrnn engine still refuses a
+    model too wide for its kernel)."""
+    from classifying_vae_lstm_tpu_torch.cli import cl_vae_train
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate
+    from classifying_vae_lstm_tpu_torch.serving import engine as engine_mod
+
+    corpus = "data/input/Piano-midi_Cs.pickle"
+    cl_vae_train.train(cl_vae_train.build_parser().parse_args(
+        ["w", "--device", "cpu", "--train_file", corpus, "--intermediate_dim", str(hidden),
+         "--intermediate_class_dim", "16", "--latent_dim", "2", "--batch_size", "2000",
+         "--num_epochs", "2", "--patience", "0", "--use_x_prev", "--model_dir", str(tmp_path)]))
+    args = serve.build_parser().parse_args(
+        ["-i", str(tmp_path / "w.npz"), "--train_file", corpus, "--device", "cpu",
+         "--warmup", "off", "--port", "0"])
+    httpd, eng = serve.make_server(args)
+    port = httpd.server_address[1]
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        assert eng.family == "cl_vae" and not cuda_generate_vae.fits(eng.cfg)
+        code, out = _post(port, {"n": 2, "t": 8, "key": "C", "infer_w": False})
+        assert code == 200 and np.asarray(out["rolls"]).shape == (2, 8, 88)
+        assert _binary(np.asarray(out["rolls"]))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    # on a card: the engine gets past its width check (and here, without a
+    # card, fails only where it moves the weights to the device)
+    monkeypatch.setattr(engine_mod, "resolve_device", lambda d: torch.device("cuda"))
+    with pytest.raises(Exception) as e:
+        GenerationEngine(eng.params, eng.cfg, eng.seed_bank, device="cuda")
+    assert "too wide" not in str(e.value)
+    wide_vrnn = tcl.Config(original_dim=88, intermediate_dim=4096, latent_dim=2, n_classes=2)
+    assert not cuda_generate.fits(wide_vrnn)
+    with pytest.raises(ValueError, match="too wide"):
+        GenerationEngine({}, wide_vrnn, eng.seed_bank, device="cuda")
+
+
 def test_make_server_on_the_trained_cl_vae_checkpoint(tmp_path):
     """``cli.serve --family auto --device cpu`` on jsball_vae answers
     /generate with rolls and with MIDI, seeded by the bank or by MIDI."""

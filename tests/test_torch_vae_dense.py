@@ -15,6 +15,17 @@ another order); gradients rtol 2e-4 / atol 1e-5 (the bound of
 ``tests/test_pallas_vae.py``); the plain backward against autograd of the
 plain forward rtol 1e-5 / atol 1e-6 (the same arithmetic up to the order of
 the weight-gradient sums).
+
+The bf16 mode (``bf16_compute=True``) is held against the JAX kernel route in
+bf16 at a small shape and at the JAX test's (B=256, D=128, Cw=64, H=256,
+L=16, K=13): the same rounding points, f32 sums in another order, so a sum
+that lands near a bf16 rounding boundary may round the other way. Forward
+max abs 1e-2 and mean abs 1e-4; gradients per leaf within 1e-4 relative
+Frobenius, tighter than the forward because it is what catches a rounding
+point missed in the backward (dropping the one before the frame head's
+transposed product moves a leaf by 1.5e-3 to 3.0e-3); every weight gradient
+bf16-representable and the bias gradients not rounded; and the JAX test's
+norm bound against the f32 truth.
 """
 
 import dataclasses
@@ -188,16 +199,83 @@ def test_fits_and_should_use():
     assert not vd.fits(mk(intermediate_dim=8192))
 
 
+def _bf16_rounded(t):
+    return bool(torch.equal(t, t.bfloat16().float()))
+
+
+def _grads(tparams, tcfg, x, xp, noise):
+    """Parameter gradients of the port's ``vae_apply_core`` (CPU: the plain
+    versions) under ``_loss_terms``."""
+    p = {k: {n: v.clone().requires_grad_(True) for n, v in d.items()} for k, d in tparams.items()}
+    t = torch.from_numpy
+    out = vd.vae_apply_core(p, tcfg, t(x), t(xp), t(noise["eps_w"]), t(noise["eps_z"]))
+    _loss_terms(out, torch).backward()
+    return out, {k: {n: v.grad for n, v in d.items()} for k, d in p.items()}
+
+
+# max |port - JAX| of the forward outputs and the largest per-leaf relative
+# Frobenius error of the gradients, measured: small shape 6.0e-08 / 9.5e-08;
+# the JAX test's shape 4.8e-07 / 1.2e-07
+BF16_SHAPES = {"small": dict(B=12), "jax_test": dict(B=256, D=128, Cw=64, H=256, L=16, K=13)}
+
+
+@pytest.mark.parametrize("shape", sorted(BF16_SHAPES))
+def test_bf16_mode_matches_jax(shape):
+    """The bf16 mode of the plain versions, through ``vae_apply_core`` and its
+    autograd function, vs ``jax.grad`` of ``cl_vae.apply`` with
+    ``bf16_compute=True, train_backend="pallas"`` (the Pallas kernels in
+    interpret mode). Every kernel is rounded, the heads' too, as in JAX."""
+    jcfg, tcfg, params, x, xp, noise = _setup(seed=3, **BF16_SHAPES[shape])
+    jb, tb = (dataclasses.replace(c, bf16_compute=True) for c in (jcfg, tcfg))
+    out, grads = _grads(params_from_numpy(params, "cpu"), tb, x, xp, noise)
+    ref = jvae.apply(params, jb, x, jax.random.PRNGKey(0), xp, noise=noise)
+    for k in OUTS:
+        d = np.abs(out[k].detach().numpy() - np.asarray(ref[k]))
+        assert d.max() <= 1e-2 and d.mean() <= 1e-4, (k, d.max(), d.mean())
+    loss = lambda p, c: _loss_terms(jvae.apply(p, c, x, jax.random.PRNGKey(0), xp, noise=noise),
+                                    jnp)
+    g_kernel = jax.grad(loss)(params, jb)
+    g_f32 = jax.grad(loss)(params, dataclasses.replace(jcfg, train_backend="xla"))
+    g_xla = jax.grad(loss)(params, dataclasses.replace(jb, train_backend="xla"))
+    n = 0
+    for layer, leaves in grads.items():
+        for leaf, g in leaves.items():
+            name, got = f"{layer}/{leaf}", g.numpy()
+            assert g.dtype == torch.float32, name
+            want = np.asarray(g_kernel[layer][leaf])
+            rel = np.linalg.norm(got - want) / (np.linalg.norm(want) + 1e-30)
+            assert rel <= 1e-4, (name, rel)
+            if leaf == "kernel":
+                assert _bf16_rounded(g), name  # products of bf16 operands, cast to bf16
+            else:
+                assert not _bf16_rounded(g), name  # f32 sums of unrounded cotangents
+            # the bound of tests/test_pallas_vae.py:155-161 against the f32 truth
+            f = np.asarray(g_f32[layer][leaf])
+            err_p = np.linalg.norm(got - f)
+            err_x = np.linalg.norm(np.asarray(g_xla[layer][leaf]) - f)
+            assert err_p <= 3.0 * err_x + 0.02 * (np.linalg.norm(f) + 1e-3), (name, err_p, err_x)
+            n += 1
+    assert n == 16
+
+
 def test_bf16_and_unsupported_tensors_raise():
+    """The bf16 mode runs (it raised until it was ported) and trains through
+    ``apply``; the unsupported inputs still raise."""
     jcfg, tcfg, params, x, xp, noise = _setup()
     t = torch.from_numpy
     tp = params_from_numpy(params, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 7"):
-        vd.vae_apply_core(tp, dataclasses.replace(tcfg, bf16_compute=True), t(x), t(xp),
-                          t(noise["eps_w"]), t(noise["eps_z"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 7"):
-        tvae.apply(tp, dataclasses.replace(tcfg, bf16_compute=True), t(x), x_prev=t(xp),
-                   noise={k: t(v) for k, v in noise.items()})
+    bcfg = dataclasses.replace(tcfg, bf16_compute=True, train_backend="pallas")
+    ins = vd.pack_inputs(tp, bcfg, t(x), t(xp), t(noise["eps_w"]), t(noise["eps_z"]))
+    assert [a.dtype for a in ins[:4]] == [torch.bfloat16, torch.bfloat16] + [torch.float32] * 2
+    assert all(ins[i].dtype == torch.bfloat16 for i in (4, 6, 8, 9, 11, 13, 14, 15, 17))
+    assert all(ins[i].dtype == torch.float32 for i in (5, 7, 10, 12, 16, 18))
+    before = (vd.FWD_LAUNCHES, vd.BF16_FWD_LAUNCHES, vd.BWD_LAUNCHES, vd.BF16_BWD_LAUNCHES)
+    via_apply = tvae.apply(tp, bcfg, t(x), x_prev=t(xp), noise={k: t(v) for k, v in noise.items()})
+    direct = vd.vae_apply_core(tp, bcfg, t(x), t(xp), t(noise["eps_w"]), t(noise["eps_z"]))
+    for k in OUTS:
+        torch.testing.assert_close(via_apply[k], direct[k], rtol=0, atol=0)
+    assert (vd.FWD_LAUNCHES, vd.BF16_FWD_LAUNCHES, vd.BWD_LAUNCHES,
+            vd.BF16_BWD_LAUNCHES) == before  # no kernel on the CPU
     with pytest.raises(ValueError, match="do not take"):
         vd.vae_apply_core(tp, dataclasses.replace(tcfg, intermediate_dim=0), t(x), t(xp),
                           t(noise["eps_w"]), t(noise["eps_z"]))
