@@ -120,7 +120,31 @@ failure:
    cl_vae`` of the checkpoint; then a bf16 H=512 model at D=88 trained
    through the kernels, sampled by ``cli.cl_vae_sample`` and served by
    ``cli.serve`` through the wide kernel (launches equal to the engine's
-   device calls), and a model without hidden layers sampled through it.
+   device calls), and a model without hidden layers sampled through it;
+20. the bf16 stream mode of the three whole-sequence LSTM kernels vs their
+   bf16 plain versions at H=1,024 (the seeded Keras init, 13 keys):
+   training forward and backward at B=1,024, T=16 for the encoder (IN=101)
+   and the decoder (IN=103), the inference forward at the evaluation shape
+   (12,800 rows): forward h and c within 1e-2 x max(1, max|plain|) and 1e-3
+   relative Frobenius, backward outputs within 1e-2 relative Frobenius, dRk
+   bf16 and dW, db not rounded; times beside bounds at the bf16 rate;
+21. the bf16 cl_vrnn of the JAX package's scale work (D=88, H=1,024, L=2,
+   T=16, use_x_prev, B=1,024; 13 keys) trained by ``cli.cl_vrnn_train``
+   for 2 epochs with the args.json the JAX package's ``--lstm_backend
+   auto`` writes at this width (pallas, ``bf16_compute``, fusion (T, T, T),
+   ``two_cell`` off), read back through ``cl_vrnn_config_from_args``; the
+   LSTM counts set to 0 just before and read just after equal the run's
+   steps in bf16 (2 training forwards and 4 backward launches per train
+   batch, 2 inference forwards per eval batch) and 0 in f32 and two-cell;
+   losses finite and falling, no plain version on CUDA tensors; 1 epoch of
+   ``xla`` from the same seed (first-epoch loss within 1e-2 relative); a
+   step's time split;
+22. ``cli.evaluate`` of that checkpoint on the training corpus through the
+   bf16 inference kernel (2 launches per batch) and through ``xla`` (NLLs
+   within 1e-2 relative), a profile of one evaluation batch,
+   ``cli.cl_vrnn_sample`` of it (one bf16 generation launch), and
+   ``artifacts/jsball_vrnn4`` with its args flagged bf16 evaluated on
+   ``Piano-midi_Cs`` through the bf16 kernel, its NLL beside phase 10's.
 
 The run fails if a thread it started is still running at the end.
 
@@ -598,11 +622,14 @@ def sampler_plain_guard(module, name, record):
         setattr(module, name, real)
 
 
-def run_train(run, flags, model_dir, reset, read, cli=None, base_flags=TRAIN_FLAGS):
+def run_train(run, flags, model_dir, reset, read, cli=None, base_flags=TRAIN_FLAGS,
+              overrides=None):
     """One run of a train CLI (``cli.cl_vrnn_train`` at the jsball_vrnn4
-    width unless ``cli`` and ``base_flags`` say otherwise). ``reset`` sets
-    the launch counts to 0 just before the run, ``read`` returns them just
-    after. Returns (args, counts, seen, per-epoch seconds, wall)."""
+    width unless ``cli`` and ``base_flags`` say otherwise). ``overrides``
+    are set on the parsed namespace (fields the CLI has no flag for, as the
+    JAX package's ``--lstm_backend auto`` sets ``bf16_compute``). ``reset``
+    sets the launch counts to 0 just before the run, ``read`` returns them
+    just after. Returns (args, counts, seen, per-epoch seconds, wall)."""
     import torch
 
     from classifying_vae_lstm_tpu_torch.cli import cl_vrnn_train
@@ -627,6 +654,8 @@ def run_train(run, flags, model_dir, reset, read, cli=None, base_flags=TRAIN_FLA
         return m
 
     args = cli.build_parser().parse_args([run, *base_flags, *flags, "--model_dir", model_dir])
+    for k, v in (overrides or {}).items():
+        setattr(args, k, v)
     cli.fit, loop.Trainer.train_epoch = fit, train_epoch
     reset()  # counts from here on are this training path's
     t0 = time.perf_counter()
@@ -679,6 +708,61 @@ def phase_train(model_dir):
     return fwd, bwd, seen
 
 
+LSTM_COUNTS = ("bf16 inference forward, bf16 training forward, bf16 backward, f32 inference "
+               "forward, f32 training forward, f32 backward, two-cell forward, two-cell "
+               "backward")
+
+
+def _lstm_counts():
+    from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
+    from classifying_vae_lstm_tpu_torch.ops import two_cell as tc
+
+    return (ls.BF16_FWD_LAUNCHES, ls.BF16_TRAIN_FWD_LAUNCHES, ls.BF16_BWD_LAUNCHES,
+            ls.FWD_LAUNCHES, ls.TRAIN_FWD_LAUNCHES, ls.BWD_LAUNCHES, tc.FWD_LAUNCHES,
+            tc.BWD_LAUNCHES)
+
+
+def _reset_lstm_counts():
+    from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
+    from classifying_vae_lstm_tpu_torch.ops import two_cell as tc
+
+    ls.BF16_FWD_LAUNCHES = ls.BF16_TRAIN_FWD_LAUNCHES = ls.BF16_BWD_LAUNCHES = 0
+    ls.FWD_LAUNCHES = ls.TRAIN_FWD_LAUNCHES = ls.BWD_LAUNCHES = 0
+    tc.FWD_LAUNCHES = tc.BWD_LAUNCHES = 0
+
+
+def _evaluate_counted(argv):
+    """``cli.evaluate`` of ``argv`` with the LSTM counts set to 0 just
+    before; returns (printed result, counts (:func:`_lstm_counts`), mean NLL
+    over the windows, the estimator's recorded call and its seconds, wall
+    seconds)."""
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.cli import evaluate
+
+    calls, real_nll = [], evaluate.iw_nll_dataset
+
+    def spy(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_nll(*a, **k)
+        torch.cuda.synchronize()
+        calls.append({"args": a, "nlls": out, "s": time.perf_counter() - t0})
+        return out
+
+    evaluate.iw_nll_dataset = spy
+    try:
+        _reset_lstm_counts()
+        t0 = time.perf_counter()
+        out = evaluate.evaluate(evaluate.build_parser().parse_args(argv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _lstm_counts()
+    finally:
+        evaluate.iw_nll_dataset = real_nll
+    return out, counts, calls[-1]["nlls"].double().mean().item(), calls[-1], wall
+
+
 def phase_train_two_loop(model_dir, first_loss):
     """The ``--two_cell off`` training path: both LSTMs through the
     whole-sequence kernels. Returns the training-forward and backward
@@ -687,24 +771,18 @@ def phase_train_two_loop(model_dir, first_loss):
     from classifying_vae_lstm_tpu_torch.ops import two_cell as tc
     from classifying_vae_lstm_tpu_torch.train.checkpoint import load_model_args
 
-    def reset():
-        ls.FWD_LAUNCHES = ls.TRAIN_FWD_LAUNCHES = ls.BWD_LAUNCHES = 0
-        tc.FWD_LAUNCHES = tc.BWD_LAUNCHES = 0
-
-    read = lambda: (ls.FWD_LAUNCHES, ls.TRAIN_FWD_LAUNCHES, ls.BWD_LAUNCHES, tc.FWD_LAUNCHES,
-                    tc.BWD_LAUNCHES)
     plain_on_cuda = []
     with plain_guard(ls, LSTM_SEQ_PLAIN, plain_on_cuda), \
             plain_guard(tc, ("two_cell_fwd_plain", "two_cell_bwd_plain"), plain_on_cuda):
         args, counts, seen, epoch_s, wall = run_train(
-            "smoke_off", ["--num_epochs", "2", "--two_cell", "off"], model_dir, reset, read)
+            "smoke_off", ["--num_epochs", "2", "--two_cell", "off"], model_dir,
+            _reset_lstm_counts, _lstm_counts)
     E, n_train, n_val = _report_train("--two_cell off path", args, seen, epoch_s, wall)
-    fwd, train_fwd, bwd, tc_fwd, tc_bwd = counts
-    expected = (2 * E * n_val, 2 * E * n_train, 4 * E * n_train, 0, 0)
-    print(f"--two_cell off launches: inference forward {fwd}, training forward {train_fwd}, "
-          f"backward {bwd}, two-cell {tc_fwd} + {tc_bwd} (expected {expected}: 2 training "
-          f"forwards and 2 x 2 backward launches per train batch, 2 inference forwards per "
-          f"eval batch)")
+    train_fwd, bwd = counts[4:6]
+    expected = (0, 0, 0, 2 * E * n_val, 2 * E * n_train, 4 * E * n_train, 0, 0)
+    print(f"--two_cell off launches {counts} (expected {expected}: {LSTM_COUNTS}; per train "
+          f"batch 2 training forwards and 2 x 2 backward launches, per eval batch 2 inference "
+          f"forwards)")
     require(counts == expected, f"--two_cell off launches {counts} != {expected}")
     require(not plain_on_cuda, f"plain versions ran on CUDA tensors: {plain_on_cuda}")
     loss0 = seen["history"]["loss"][0]
@@ -987,88 +1065,66 @@ def phase_evaluate(ckpt):
     ``Piano-midi_Cs`` through the inference kernel, then plain PyTorch on
     the card with the same seed, then the ``--two_cell off`` checkpoint on
     the training corpus. Returns the first run's inference-forward
-    launches."""
-    import numpy as np
-    import torch
-
-    from classifying_vae_lstm_tpu_torch.cli import evaluate
+    launches and its NLL."""
     from classifying_vae_lstm_tpu_torch.data import PianoData
-    from classifying_vae_lstm_tpu_torch.evaluation.nll import iw_nll_cl_vrnn
     from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
-    from classifying_vae_lstm_tpu_torch.ops import two_cell as tc
 
-    calls, real_nll = [], evaluate.iw_nll_dataset
-
-    def spy(*a, **k):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = real_nll(*a, **k)
-        torch.cuda.synchronize()
-        calls.append({"args": a, "nlls": out, "s": time.perf_counter() - t0})
-        return out
-
-    def run(model, corpus, backend):
-        args = evaluate.build_parser().parse_args(
-            ["-i", model, "--train_file", corpus, "--lstm_backend", backend, "--n_samples",
-             str(EVAL_SAMPLES), "--batch_size", str(EVAL_B)])
-        ls.FWD_LAUNCHES = ls.TRAIN_FWD_LAUNCHES = ls.BWD_LAUNCHES = 0  # this run's counts
-        tc.FWD_LAUNCHES = tc.BWD_LAUNCHES = 0
-        t0 = time.perf_counter()
-        out = evaluate.evaluate(args)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = (ls.FWD_LAUNCHES, ls.TRAIN_FWD_LAUNCHES, ls.BWD_LAUNCHES, tc.FWD_LAUNCHES,
-                  tc.BWD_LAUNCHES)
-        return out, counts, calls[-1], wall
-
+    argv = lambda model, corpus, backend: [
+        "-i", model, "--train_file", corpus, "--lstm_backend", backend, "--n_samples",
+        str(EVAL_SAMPLES), "--batch_size", str(EVAL_B)]
     plain_on_cuda = []
-    evaluate.iw_nll_dataset = spy
-    try:
-        with plain_guard(ls, LSTM_SEQ_PLAIN, plain_on_cuda):
-            out_k, counts_k, est_k, wall_k = run(MODEL, EVAL_CORPUS, "pallas")
-            out_x, counts_x, est_x, wall_x = run(MODEL, EVAL_CORPUS, "xla")
-            out_c, counts_c, est_c, wall_c = run(ckpt, CORPUS, "keep")
-    finally:
-        evaluate.iw_nll_dataset = real_nll
-    n_batches = -(-EVAL_WINDOWS // EVAL_B)
-    nll_k = est_k["nlls"].double().mean().item()
-    nll_x = est_x["nlls"].double().mean().item()
+    with plain_guard(ls, LSTM_SEQ_PLAIN, plain_on_cuda):
+        out_k, counts_k, nll_k, est_k, wall_k = _evaluate_counted(
+            argv(MODEL, EVAL_CORPUS, "pallas"))
+        out_x, counts_x, nll_x, est_x, wall_x = _evaluate_counted(argv(MODEL, EVAL_CORPUS, "xla"))
+        out_c, counts_c, nll_c, _, wall_c = _evaluate_counted(argv(ckpt, CORPUS, "keep"))
+    f32_fwd = lambda n: (0, 0, 0, 2 * -(-n // EVAL_B), 0, 0, 0, 0)
     print(f"evaluate jsball_vrnn4 on {EVAL_CORPUS} ({out_k['n_test_examples']} windows, "
           f"{EVAL_SAMPLES} samples, batches of {EVAL_B}): --lstm_backend pallas NLL "
           f"{nll_k!r} nats/frame (printed {out_k['test_nll_nats_per_frame']}), wall "
           f"{wall_k:.3f} s, estimator {est_k['s']:.3f} s; --lstm_backend xla NLL {nll_x!r} "
           f"(printed {out_x['test_nll_nats_per_frame']}), wall {wall_x:.3f} s, estimator "
           f"{est_x['s']:.3f} s; |difference| {abs(nll_k - nll_x):.3e} (limit 1e-4)")
-    print(f"evaluation launches (inference forward, training forward, backward, two-cell "
-          f"forward, two-cell backward): pallas {counts_k}, xla {counts_x} (expected "
-          f"{(2 * n_batches, 0, 0, 0, 0)} and zeros)")
+    print(f"evaluation launches ({LSTM_COUNTS}): pallas {counts_k}, xla {counts_x} (expected "
+          f"{f32_fwd(EVAL_WINDOWS)} and zeros)")
     require(out_k["n_test_examples"] == out_x["n_test_examples"] == EVAL_WINDOWS,
             f"test windows {out_k['n_test_examples']}, {out_x['n_test_examples']}")
-    require(counts_k == (2 * n_batches, 0, 0, 0, 0), f"evaluation launches {counts_k}")
-    require(counts_x == (0, 0, 0, 0, 0), f"xla evaluation launched kernels: {counts_x}")
+    require(counts_k == f32_fwd(EVAL_WINDOWS), f"evaluation launches {counts_k}")
+    require(not any(counts_x), f"xla evaluation launched kernels: {counts_x}")
     require(math.isfinite(nll_k) and abs(nll_k - nll_x) <= 1e-4,
             f"pallas and xla NLLs differ: {nll_k} vs {nll_x}")
 
     P = PianoData(CORPUS, batch_size=1, seq_length=TRAIN_T, return_y_next=True,
                   return_y_hist=True, squeeze_x=False, squeeze_y=False)
     n = len(P.x_test)
-    nll_c = est_c["nlls"].double().mean().item()
     print(f"evaluate the --two_cell off checkpoint on {CORPUS}: {out_c} (NLL {nll_c!r}), "
           f"wall {wall_c:.3f} s, launches {counts_c}")
     require(out_c["n_test_examples"] == n, f"test windows {out_c['n_test_examples']} != {n}")
-    require(counts_c == (2 * -(-n // EVAL_B), 0, 0, 0, 0), f"launches {counts_c}")
+    require(counts_c == f32_fwd(n), f"launches {counts_c}")
     require(math.isfinite(nll_c), "non-finite NLL")
     require(not plain_on_cuda, f"plain LSTM versions ran on CUDA tensors: {plain_on_cuda}")
 
-    # where one evaluation batch's time goes
-    params, cfg, data = est_k["args"][:3]
+    profile_eval_batch(est_k)
+    return counts_k[3], nll_k
+
+
+def profile_eval_batch(est):
+    """Where one evaluation batch's time goes: host clock around the
+    estimator on the first batch of a recorded ``iw_nll_dataset(params,
+    cfg, data, generator, n_samples, ...)`` call, and the profiler's device
+    time."""
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.evaluation.nll import iw_nll_cl_vrnn
+
+    params, cfg, data, _, n_samples = est["args"][:5]
     batch = {k: v[:EVAL_B] for k, v in data.items()}
     gen = torch.Generator(device=batch["x"].device).manual_seed(SEED)
 
     def one_batch():
         with torch.no_grad():
-            iw_nll_cl_vrnn(params, cfg, batch["x"], batch["y"], gen, EVAL_SAMPLES,
-                           batch["x_prev"])
+            iw_nll_cl_vrnn(params, cfg, batch["x"], batch["y"], gen, n_samples,
+                           batch.get("x_prev"))
 
     one_batch()
     torch.cuda.synchronize()
@@ -1077,10 +1133,9 @@ def phase_evaluate(ckpt):
         one_batch()
     torch.cuda.synchronize()
     batch_ms = (time.perf_counter() - t0) * 1e3 / 3
-    print(f"one evaluation batch ({EVAL_SAMPLES} x {EVAL_B} rows): {batch_ms:.3f} ms (host "
-          f"clock, synchronised)")
+    print(f"one evaluation batch ({n_samples} x {EVAL_B} rows, H={cfg.intermediate_dim}, "
+          f"bf16 {cfg.bf16_compute}): {batch_ms:.3f} ms (host clock, synchronised)")
     device_profile(one_batch, 3, batch_ms, "evaluation batch", "LSTM kernels", "lstm_seq")
-    return counts_k[0]
 
 
 def vae_bound_ms(cfg, B, nsteps, weight_bytes, peak=PEAK_F32_FLOPS) -> tuple[float, str]:
@@ -1962,6 +2017,280 @@ def phase_vae_bf16_evaluate(ckpt):
             f"evaluation {out}")
 
 
+
+# the bf16 cl_vrnn of the JAX package's scale work (tools/bench_train_scale.py:
+# D=88, H=1024, L=2, T=16, use_x_prev, B=1024), with the 13 keys of the
+# committed corpus in place of its K=10
+BF16_H, BF16_L, BF16_B = 1024, 2, 1024
+BF16_FLAGS = ["--train_file", CORPUS, "--intermediate_dim", str(BF16_H), "--latent_dim",
+              str(BF16_L), "--seq_length", str(TRAIN_T), "--batch_size", str(BF16_B),
+              "--use_x_prev", "--patience", "0", "--two_cell", "off"]
+# what the JAX package's --lstm_backend auto writes into args.json at H=1024
+# on a TPU (cli/common.py resolve_lstm_backend; cli/cl_vrnn_train.py)
+AUTO_H1024 = {"lstm_backend": "pallas", "bf16_compute": True, "fusion": [True, True, True],
+              "two_cell": False}
+
+
+def bf16_outside(got, ref):
+    """Kernel-vs-plain errors of a bf16 forward's outputs (h, c, z, h_prev,
+    c_prev, as many as given): (max abs error, relative Frobenius) per
+    output, and those beyond 1e-2 x max(1, max|plain|) or 1e-3 relative.
+    Both sides round at the same places and sum in f32 in another order, so
+    a rounding may land on the other bf16 neighbour."""
+    errs, bad = {}, {}
+    for name, k, p in zip(("h", "c", "z", "h_prev", "c_prev"), got, ref):
+        k, p = k.float(), p.float()
+        err = (k - p).abs().max().item()
+        rel = ((k - p).norm() / p.norm().clamp_min(1e-30)).item()
+        errs[name] = (err, rel)
+        if not (err <= 1e-2 * max(1.0, p.abs().max().item()) and rel <= 1e-3
+                and math.isfinite(err)):
+            bad[name] = (err, rel)
+    return errs, bad
+
+
+def _fmt_errs(errs):
+    return ", ".join(f"{n} {e:.3e} ({r:.2e})" for n, (e, r) in errs.items())
+
+
+def phase_lstm_seq_bf16(dev):
+    """The bf16 stream mode of the three whole-sequence LSTM kernels against
+    their bf16 plain versions at phase 21's width, on the model's seeded
+    Keras init: training forward and backward at B=1024, T=16, H=1024 for
+    the encoder (IN=101) and the decoder (IN=103), and the inference forward
+    at the evaluation shape (12,800 rows). Returns the kernel-table fields of
+    each, from the encoder cell, with bounds at the bf16 rate."""
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.nn.core import init_lstm
+    from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
+
+    rng = np.random.default_rng(SEED + 9)
+    gen = torch.Generator().manual_seed(SEED + 9)
+    D, H, T = 88, BF16_H, TRAIN_T
+    H4 = 4 * H
+    cells = {"encoder_h": D + TRAIN_K, "decoder_h": D + BF16_L + TRAIN_K}
+    raw = {c: {k: v.numpy() for k, v in init_lstm(gen, IN, H).items()}
+           for c, IN in cells.items()}
+    fwd_fmas = lambda B, IN: T * B * (IN + H) * H4
+    bf = lambda ins: (ins[0].bfloat16(), ins[1], ins[2], ins[3].bfloat16(), *ins[4:])
+    f32, b16 = torch.float32, torch.bfloat16
+    table = {}
+    for cell in cells:
+        B = BF16_B
+        ins = bf(_lstm_inputs(rng, dev, raw[cell], B, T, D, H))
+        x, w, _, rk, _, _ = ins
+        IN = x.shape[-1]
+        got = ls.lstm_seq_train_fwd(*ins)
+        inf = ls.lstm_seq_fwd(*ins)
+        ref = ls.lstm_seq_train_fwd_plain(*ins)
+        torch.cuda.synchronize()
+        types = [o.dtype for o in got]
+        require(types == [o.dtype for o in ref] == [f32, f32, b16, b16, f32],
+                f"bf16 training forward output types {types}")
+        errs, bad = bf16_outside(got, ref)
+        ierrs, ibad = bf16_outside(inf, ref)
+        print(f"lstm_seq bf16 {cell} at B={B} T={T} IN={IN} H={H}: max |kernel - plain| "
+              f"(relative Frobenius) {_fmt_errs(errs)}; inference forward {_fmt_errs(ierrs)} "
+              "(limits 1e-2 x max(1, max|plain|) and 1e-3 relative)")
+        require(not bad and not ibad, f"bf16 LSTM forward differs: {bad} {ibad}")
+        h, c, z, hp, cp = ref
+        dh = torch.from_numpy((1e-2 * rng.standard_normal(tuple(h.shape))).astype(np.float32))
+        dc = torch.zeros_like(dh)
+        dc[-1] = torch.from_numpy((1e-2 * rng.standard_normal((B, H))).astype(np.float32))
+        res = (z, cp, c, hp, x, dh.to(dev), dc.to(dev), rk.T.contiguous(), w.T.contiguous())
+        bgot = ls.lstm_seq_bwd(*res)
+        bwant = ls.lstm_seq_bwd_plain(*res)
+        torch.cuda.synchronize()
+        rel = {n: ((g.float() - wv.float()).norm() / wv.float().norm().clamp_min(1e-30)).item()
+               for n, g, wv in zip(("dx", "dh0", "dc0", "drk", "dw", "db"), bgot, bwant)}
+        types = [g.dtype for g in bgot]
+        representable = lambda g: torch.equal(g.float(), g.bfloat16().float())
+        print(f"lstm_seq bf16 {cell} backward: relative Frobenius "
+              + ", ".join(f"{n} {v:.2e}" for n, v in rel.items())
+              + f" (limit 1e-2); types {[str(t)[6:] for t in types]}; dRk bf16-representable "
+              f"{representable(bgot[3])}, dW {representable(bgot[4])}, db "
+              f"{representable(bgot[5])}")
+        require(all(v <= 1e-2 and math.isfinite(v) for v in rel.values()),
+                f"bf16 LSTM backward differs: {rel}")
+        require(types == [b16, f32, f32, b16, f32, f32], f"bf16 backward output types {types}")
+        require(not representable(bgot[4]) and not representable(bgot[5]),
+                "dW or db came back rounded to bf16")
+        bwd_err = max((g.float() - wv.float()).abs().max().item() for g, wv in zip(bgot, bwant))
+
+        tk = time_ms(lambda: ls.lstm_seq_train_fwd(*ins), reps=10, warm=2)
+        ik = time_ms(lambda: ls.lstm_seq_fwd(*ins), reps=10, warm=2)
+        tp = time_ms(lambda: ls.lstm_seq_train_fwd_plain(*ins), reps=3)
+        bk = time_ms(lambda: ls.lstm_seq_bwd(*res), reps=10, warm=2)
+        bp = time_ms(lambda: ls.lstm_seq_bwd_plain(*res), reps=3)
+        tb_ms, tb_by = roofline_ms(fwd_fmas(B, IN), _nbytes(ins) + _nbytes(got), PEAK_BF16_FLOPS)
+        bb_ms, bb_by = roofline_ms(T * B * H4 * (2 * (H + IN) + 1),
+                                   _nbytes(res) + _nbytes(bgot), PEAK_BF16_FLOPS)
+        print(f"lstm_seq bf16 {cell} at the training shape: training forward {tk:.3f} ms "
+              f"(plain {tp:.3f}, bound {tb_ms:.4f} {tb_by}, bf16 rate); inference forward "
+              f"{ik:.3f} ms; backward (2 launches) {bk:.3f} ms (plain {bp:.3f}, bound "
+              f"{bb_ms:.4f} {bb_by})")
+        if cell == "encoder_h":
+            table["train_fwd"] = {"max_abs_err": max(e for e, _ in errs.values()), "ms": tk,
+                                  "plain_ms": tp, "bound_ms": tb_ms, "bound_by": tb_by}
+            table["bwd"] = {"max_abs_err": bwd_err, "ms": bk, "plain_ms": bp, "bound_ms": bb_ms,
+                            "bound_by": bb_by}
+        del got, inf, ref, res, bgot, bwant
+
+    for cell in cells:
+        B = EVAL_SAMPLES * EVAL_B
+        ins = bf(_lstm_inputs(rng, dev, raw[cell], B, T, D, H))
+        IN = ins[0].shape[-1]
+        got = ls.lstm_seq_fwd(*ins)
+        ref = ls.lstm_seq_fwd_plain(*ins)
+        torch.cuda.synchronize()
+        errs, bad = bf16_outside(got, ref)
+        require(not bad, f"bf16 LSTM inference forward differs at the evaluation shape: {bad}")
+        k_ms = time_ms(lambda: ls.lstm_seq_fwd(*ins), reps=3, warm=1)
+        p_ms = time_ms(lambda: ls.lstm_seq_fwd_plain(*ins), reps=2, warm=1)
+        b_ms, b_by = roofline_ms(fwd_fmas(B, IN), _nbytes(ins) + _nbytes(got), PEAK_BF16_FLOPS)
+        print(f"lstm_seq bf16 {cell} inference forward at the evaluation shape (B={B} T={T} "
+              f"IN={IN} H={H}): max |kernel - plain| (relative Frobenius) {_fmt_errs(errs)}; "
+              f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, bf16 "
+              "rate)")
+        if cell == "encoder_h":
+            table["fwd"] = {"max_abs_err": max(e for e, _ in errs.values()), "ms": k_ms,
+                            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
+        del got, ref, ins
+    torch.cuda.empty_cache()
+    return table
+
+
+def phase_train_bf16(model_dir):
+    """The bf16 cl_vrnn at H=1024 trained through the bf16 streams of the
+    whole-sequence LSTM kernels: ``cli.cl_vrnn_train`` (its Trainer and fit)
+    with the args the JAX package's ``--lstm_backend auto`` writes at this
+    width, 2 epochs, and args.json read back through
+    ``cl_vrnn_config_from_args``; then 1 epoch of the ``xla`` route from the
+    same seed. Returns the bf16 training-forward and backward launches and
+    what the run left."""
+    from classifying_vae_lstm_tpu_torch.cli import common
+    from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
+    from classifying_vae_lstm_tpu_torch.ops import two_cell as tc
+    from classifying_vae_lstm_tpu_torch.train.checkpoint import load_model_args
+
+    plain_on_cuda = []
+    with plain_guard(ls, LSTM_SEQ_PLAIN, plain_on_cuda), \
+            plain_guard(tc, ("two_cell_fwd_plain", "two_cell_bwd_plain"), plain_on_cuda):
+        args, counts, seen, epoch_s, wall = run_train(
+            "h1024_bf16", ["--num_epochs", "2", "--lstm_backend", "pallas"], model_dir,
+            _reset_lstm_counts, _lstm_counts, base_flags=BF16_FLAGS,
+            overrides={"bf16_compute": True})
+        E, n_train, n_val = _report_train("bf16 H=1024 training path", args, seen, epoch_s,
+                                          wall)
+        expected = (2 * E * n_val, 2 * E * n_train, 4 * E * n_train, 0, 0, 0, 0, 0)
+        print(f"bf16 H=1024 training: K={args.n_classes} (the corpus's keys; the scale bench "
+              f"has 10); launches ({LSTM_COUNTS}) {counts} (expected {expected})")
+        require(counts == expected, f"bf16 LSTM launches {counts} != {expected}")
+        margs = load_model_args(seen["ckpt"])
+        cfg = common.cl_vrnn_config_from_args(margs)
+        require({k: margs[k] for k in AUTO_H1024} == AUTO_H1024, f"args.json {margs}")
+        require((cfg.intermediate_dim, cfg.bf16_compute, cfg.lstm_backend, cfg.fusion,
+                 cfg.two_cell, cfg.n_classes)
+                == (BF16_H, True, "pallas", (True, True, True), False, TRAIN_K),
+                f"config read back {cfg}")
+        seen.update(step_ms=epoch_s[-1] * 1e3 / n_train)
+        args_x, counts_x, seen_x, epoch_x, wall_x = run_train(
+            "h1024_bf16_xla", ["--num_epochs", "1", "--lstm_backend", "xla"], model_dir,
+            _reset_lstm_counts, _lstm_counts, base_flags=BF16_FLAGS,
+            overrides={"bf16_compute": True})
+    _report_train("bf16 H=1024 --lstm_backend xla", args_x, seen_x, epoch_x, wall_x)
+    require(not any(counts_x), f"the xla route launched LSTM kernels: {counts_x}")
+    require(not plain_on_cuda, f"plain versions ran on CUDA tensors: {plain_on_cuda}")
+    loss_k, loss_x = seen["history"]["loss"][0], seen_x["history"]["loss"][0]
+    rel = abs(loss_k - loss_x) / abs(loss_x)
+    print(f"bf16 H=1024 first epoch train loss: pallas {loss_k!r}, xla {loss_x!r}, relative "
+          f"difference {rel:.3e} (limit 1e-2: the routes round at different places); ms per "
+          f"step, first epoch: pallas {epoch_s[0] * 1e3 / n_train:.3f}, xla "
+          f"{epoch_x[0] * 1e3 / n_train:.3f}; epoch s: pallas {[round(v, 3) for v in epoch_s]}, "
+          f"xla {[round(v, 3) for v in epoch_x]}")
+    require(rel <= 1e-2, f"first-epoch losses differ by {rel}")
+    return counts[1], counts[2], seen
+
+
+def phase_evaluate_bf16(ckpt, out_dir, nll_f32):
+    """Phase 21's checkpoint evaluated through the bf16 inference kernel
+    (``--lstm_backend keep``) and through plain PyTorch (``xla``), a profile
+    of one evaluation batch, ``cli.cl_vrnn_sample`` of it through the bf16
+    mode of the generation kernel; then ``jsball_vrnn4`` with its args
+    flagged as ``--lstm_backend auto`` flags them, evaluated through the
+    bf16 kernel on ``Piano-midi_Cs``. Returns the bf16 inference-forward
+    launches of the first evaluation."""
+    import shutil
+
+    import numpy as np
+
+    from classifying_vae_lstm_tpu_torch.cli import cl_vrnn_sample
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate as cg
+    from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
+    from classifying_vae_lstm_tpu_torch.train.checkpoint import load_model_args
+
+    common_argv = ["--n_samples", str(EVAL_SAMPLES), "--batch_size", str(EVAL_B)]
+    expected = (2 * -(-EVAL_WINDOWS // EVAL_B), 0, 0, 0, 0, 0, 0, 0)
+    plain_on_cuda = []
+    with plain_guard(ls, LSTM_SEQ_PLAIN, plain_on_cuda):
+        out_k, counts_k, nll_k, est_k, wall_k = _evaluate_counted(
+            ["-i", ckpt, "--train_file", CORPUS, "--lstm_backend", "keep", *common_argv])
+        out_x, counts_x, nll_x, _, wall_x = _evaluate_counted(
+            ["-i", ckpt, "--train_file", CORPUS, "--lstm_backend", "xla", *common_argv])
+        rel = abs(nll_k - nll_x) / abs(nll_x)
+        print(f"evaluate the bf16 H=1024 checkpoint on {CORPUS} ({out_k['n_test_examples']} "
+              f"windows, {EVAL_SAMPLES} samples, batches of {EVAL_B}): keep (bf16 kernels) NLL "
+              f"{nll_k!r} in {wall_k:.3f} s, launches {counts_k} (expected {expected}); xla "
+              f"NLL {nll_x!r} in {wall_x:.3f} s, launches {counts_x}; relative difference "
+              f"{rel:.3e} (limit 1e-2: the routes round at different places)")
+        require(out_k["n_test_examples"] == out_x["n_test_examples"] == EVAL_WINDOWS,
+                f"test windows {out_k['n_test_examples']}, {out_x['n_test_examples']}")
+        require(counts_k == expected, f"bf16 evaluation launches {counts_k}")
+        require(not any(counts_x), f"xla evaluation launched kernels: {counts_x}")
+        require(math.isfinite(nll_k) and rel <= 1e-2, f"NLLs differ: {nll_k} vs {nll_x}")
+        profile_eval_batch(est_k)
+
+        # jsball_vrnn4 flagged as the JAX package's auto flags a scaled checkpoint
+        flagged = os.path.join(out_dir, "jsball_vrnn4_auto.npz")
+        shutil.copyfile(MODEL, flagged)
+        with open(flagged.replace(".npz", ".json"), "w") as f:
+            json.dump({**load_model_args(MODEL), **AUTO_H1024}, f)
+        out_j, counts_j, nll_j, _, wall_j = _evaluate_counted(
+            ["-i", flagged, "--train_file", EVAL_CORPUS, *common_argv])
+        print(f"evaluate jsball_vrnn4 flagged bf16 on {EVAL_CORPUS}: NLL {nll_j!r} (printed "
+              f"{out_j['test_nll_nats_per_frame']}) in {wall_j:.3f} s, launches {counts_j}; the "
+              f"f32 checkpoint's (phase 10) {nll_f32!r}, difference {nll_j - nll_f32:.3e}")
+        require(counts_j == expected and out_j["n_test_examples"] == EVAL_WINDOWS
+                and math.isfinite(nll_j), f"flagged evaluation {out_j}, launches {counts_j}")
+
+    modes, real_mode = [], cg._resolve_mode
+
+    def resolve_mode(cfg, mode):
+        modes.append(real_mode(cfg, mode))
+        return modes[-1]
+
+    cg._resolve_mode = resolve_mode
+    try:
+        with sampler_plain_guard(cg, "generate_cl_vrnn_batch_plain", plain_on_cuda):
+            cg.LAUNCHES = 0  # counts from here on are this CLI's
+            samples = cl_vrnn_sample.sample(cl_vrnn_sample.build_parser().parse_args(
+                ["smoke_bf16", "-i", ckpt, "--infer_w", "-n", "4", "--train_file", CORPUS,
+                 "--sample_dir", out_dir]))
+            launches = cg.LAUNCHES
+    finally:
+        cg._resolve_mode = real_mode
+    print(f"cl_vrnn_sample of the bf16 H=1024 checkpoint: {samples.shape[0]} songs x "
+          f"{samples.shape[1]} frames, {launches} launch in modes {modes}, "
+          f"{int(samples.sum())} notes on")
+    require(samples.shape[0] == 4 and set(np.unique(samples).tolist()) <= {0, 1},
+            f"samples {samples.shape}")
+    require(launches == 1 and modes == ["bf16"], f"sample launches {launches}, modes {modes}")
+    require(not plain_on_cuda, f"plain versions ran on CUDA tensors: {plain_on_cuda}")
+    return counts_k[0]
+
+
 def main() -> int:
     import torch
 
@@ -1988,7 +2317,7 @@ def main() -> int:
         train_fwd_launches, lstm_bwd_launches, seen_off = phase_train_two_loop(
             model_dir, seen["history"]["loss"][0])
         phase_train_breakdown(seen_off, "LSTM kernels", "lstm_seq")
-        eval_launches = phase_evaluate(seen_off["ckpt"])
+        eval_launches, nll_f32 = phase_evaluate(seen_off["ckpt"])
     vae = phase_vae(dev)
     vae_launches = phase_vae_serve()
     with tempfile.TemporaryDirectory() as sample_dir:
@@ -2006,6 +2335,11 @@ def main() -> int:
         phase_train_breakdown(seen_seq, "dense-stack kernels", "vae_dense")
         phase_vae_bf16_evaluate(seen_seq["ckpt"])
         wide_launches = phase_vae_repair(model_dir, sample_dir)
+    lstm16 = phase_lstm_seq_bf16(dev)
+    with tempfile.TemporaryDirectory() as model_dir, tempfile.TemporaryDirectory() as sample_dir:
+        bf16_train_fwd, bf16_bwd_launches, seen_h = phase_train_bf16(model_dir)
+        phase_train_breakdown(seen_h, "LSTM kernels", "lstm_seq")
+        bf16_eval = phase_evaluate_bf16(seen_h["ckpt"], sample_dir, nll_f32)
     source = "classifying_vae_lstm_tpu_torch/csrc/two_cell.cu"
     lstm_source = "classifying_vae_lstm_tpu_torch/csrc/lstm_seq.cu"
     pallas_lstm = "classifying_vae_lstm_tpu/ops/pallas_lstm.py"
@@ -2061,13 +2395,25 @@ def main() -> int:
         "name": "vae_dense_bwd_bf16", "route": "cuda", "source": dense_source,
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_vae.py:230", "launches": bf16_bwd,
         **dense16["bwd"], "library_ms": None,
+    }, {
+        "name": "lstm_seq_fwd_bf16", "route": "cuda", "source": lstm_source,
+        "replaces": f"{pallas_lstm}:632", "launches": bf16_eval, **lstm16["fwd"],
+        "library_ms": None,
+    }, {
+        "name": "lstm_seq_train_fwd_bf16", "route": "cuda", "source": lstm_source,
+        "replaces": f"{pallas_lstm}:730", "launches": bf16_train_fwd, **lstm16["train_fwd"],
+        "library_ms": None,
+    }, {
+        "name": "lstm_seq_bwd_bf16", "route": "cuda", "source": lstm_source,
+        "replaces": f"{pallas_lstm}:986", "launches": bf16_bwd_launches, **lstm16["bwd"],
+        "library_ms": None,
     }]
     # every thread this run started has ended (the servers' threads are
     # daemons and shut down), so the interpreter exits with main's code
     alive = [t.name for t in threading.enumerate()
              if t is not threading.main_thread() and not t.daemon]
     require(not alive, f"threads still running: {alive}")
-    print(f"chip_smoke: all 19 phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: all 22 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

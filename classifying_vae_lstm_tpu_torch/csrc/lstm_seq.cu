@@ -1,4 +1,5 @@
-// Whole-sequence Keras-2.0 LSTM kernels for Hopper (sm_90a), f32.
+// Whole-sequence Keras-2.0 LSTM kernels for Hopper (sm_90a), f32 and bf16
+// streams.
 //
 // Replaces: classifying_vae_lstm_tpu/ops/pallas_lstm.py, the default fusion
 // rung (proj, drk, full) = (T, T, T) of `lstm_sequence_pallas` :1553:
@@ -60,7 +61,25 @@
 // Known limits of this simple form: every block streams all weights from L2
 // every step, and the products run on FFMA, not the tensor cores. Plain FFMA
 // keeps f32 exact to the JAX side's precision="highest" (no TF32).
+//
+// The bf16 stream mode (`compute_dtype=bf16` of `lstm_sequence_pallas`): each
+// kernel is a template on the stream type S, and S = __nv_bfloat16 holds x,
+// W, Rk, z, h_prev and dx in bf16 in global memory (the wrapper hands W over
+// rounded; the core keeps it f32, so dW is not rounded). Operands widen to
+// f32 on load and the products stay FFMA with f32 sums; h, c, the carries and
+// the partial sums stay f32 in shared memory. Rounding happens where the TPU
+// kernels round: xz = x @ W + b before h @ Rk is added (`xz_scr`), h as the
+// operand of h @ Rk (so the h tile in shared memory holds the rounded value,
+// which is also the h_prev stream), z as it is stored (the gates read the
+// unrounded z; the backward's gates read the stored bf16 z), dz as the
+// operand of dz @ (Rk | W)ᵀ, and dx as it is stored. The weight-gradient
+// pass rounds dz as it stages it for dRk (stored bf16, then cast to bf16 as
+// `_core_fp_bwd` does) and dW (stored f32, unrounded), and sums db from the
+// unrounded dz. At H=1024 bf16 halves the L2 stream of the weights (9.2 MB a
+// block-step); the FMAs, 2 x 4H x (IN + H) a row-step, still run at the f32
+// rate, so the bf16 tensor-core bound is ~15x below this form's reach.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -74,26 +93,30 @@ constexpr int kBwdThreads = 512;  // backward: threads per block
 constexpr int kSlices = 2;        // backward: a product's K is split between two groups
 constexpr int kUnits = kBwdThreads / kSlices;  // backward: output columns per pass
 
+// S is the stream type: float, or __nv_bfloat16 in the bf16 mode
+template <typename S>
 struct FwdArgs {
-  const float* x;         // [T, B, IN]
-  const float* w;         // [IN, 4H]
+  const S* x;             // [T, B, IN]
+  const S* w;             // [IN, 4H]
   const float* b;         // [4H]
-  const float* rk;        // [H, 4H]
+  const S* rk;            // [H, 4H]
   const float *h0, *c0;   // [B, H]
   float *h, *c;           // [T, B, H]
-  float* z;               // [T, B, 4H]  training forward only
-  float *hp, *cp;         // [T, B, H]   training forward only
+  S* z;                   // [T, B, 4H]  training forward only
+  S* hp;                  // [T, B, H]   training forward only
+  float* cp;              // [T, B, H]   training forward only
   int T, B, IN, H;
 };
 
+template <typename S>
 struct BwdArgs {
-  const float* z;         // [T, B, 4H]
+  const S* z;             // [T, B, 4H]
   const float *cp, *c;    // [T, B, H]
   const float *dh, *dc;   // [T, B, H]  cotangents of the h and c sequences
-  const float* wt;        // [4H, H + IN]  (Rk | W) transposed
-  float* dx;              // [T, B, IN]
+  const S* wt;            // [4H, H + IN]  (Rk | W) transposed
+  S* dx;                  // [T, B, IN]
   float *dh0, *dc0;       // [B, H]
-  float* dz;              // scratch [T, B, 4H]
+  float* dz;              // scratch [T, B, 4H], unrounded
   int T, B, IN, H;
 };
 
@@ -114,13 +137,38 @@ __device__ __forceinline__ float hard_sigmoid_grad(float gate) {
   return (gate > 0.f && gate < 1.f) ? 0.2f : 0.f;
 }
 
-// rows s0 .. s0+R-1 of a [B, W] matrix into a [W][R] shared tile (rows >= B
-// are zero)
-template <int R>
-__device__ __forceinline__ void load_rows(float* dst, const float* src, int B, int s0, int W) {
+// loads widen to f32: `ld` through the read-only cache (weights), `ldv` plain
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float ldv(const float* p) { return *p; }
+__device__ __forceinline__ float ldv(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// the value a product's operand takes in the stream type's mode
+template <typename S>
+__device__ __forceinline__ float operand(float x) { return x; }
+template <>
+__device__ __forceinline__ float operand<__nv_bfloat16>(float x) {
+  return cvl::round_bf16(x);
+}
+
+struct Keep {
+  __device__ __forceinline__ float operator()(float x) const { return x; }
+};
+template <typename S>
+struct AsOperand {
+  __device__ __forceinline__ float operator()(float x) const { return operand<S>(x); }
+};
+
+// rows s0 .. s0+R-1 of a [B, W] matrix into a [W][R] shared tile, each value
+// through `op` (rows >= B are zero)
+template <int R, typename T, typename Op = Keep>
+__device__ __forceinline__ void load_rows(float* dst, const T* src, int B, int s0, int W,
+                                          Op op = Op()) {
   for (int i = threadIdx.x; i < W * R; i += blockDim.x) {
     const int b = i / W, k = i - b * W, s = s0 + b;
-    dst[k * R + b] = s < B ? src[(size_t)s * W + k] : 0.f;
+    dst[k * R + b] = s < B ? op(ldv(src + (size_t)s * W + k)) : 0.f;
   }
 }
 
@@ -143,39 +191,39 @@ __device__ __forceinline__ void fma_row(float (&acc)[4][R], const float* ak, con
 // consecutive K steps are loaded before their FMAs, so that 4U loads from L2
 // are in flight per thread: a 4-row tile has few FMAs per load to hide their
 // latency behind (U = 8), a 16-row tile many (U = 2, at 128 registers).
-template <int R>
+template <int R, typename S>
 __device__ __forceinline__ void mac_gates(float (&acc)[4][R], const float* a,
-                                          const float* __restrict__ w, int K, int u, int H) {
+                                          const S* __restrict__ w, int K, int u, int H) {
   constexpr int U = R >= 16 ? 2 : 8;
-  const float* wp = w + u;
+  const S* wp = w + u;
   int k = 0;
   for (; k + U <= K; k += U, wp += (size_t)U * 4 * H) {
     float wv[U][4];
 #pragma unroll
     for (int s = 0; s < U; ++s)
 #pragma unroll
-      for (int g = 0; g < 4; ++g) wv[s][g] = __ldg(wp + (size_t)s * 4 * H + g * H);
+      for (int g = 0; g < 4; ++g) wv[s][g] = ld(wp + (size_t)s * 4 * H + g * H);
 #pragma unroll
     for (int s = 0; s < U; ++s) fma_row<R>(acc, a + (k + s) * R, wv[s]);
   }
   for (; k < K; ++k, wp += 4 * H) {
-    const float wv[4] = {__ldg(wp), __ldg(wp + H), __ldg(wp + 2 * H), __ldg(wp + 3 * H)};
+    const float wv[4] = {ld(wp), ld(wp + H), ld(wp + 2 * H), ld(wp + 3 * H)};
     fma_row<R>(acc, a + k * R, wv);
   }
 }
 
-template <int R, bool kTrain>
-__global__ void __launch_bounds__(kFwdThreads) lstm_seq_fwd_kernel(const FwdArgs a) {
+template <typename S, int R, bool kTrain>
+__global__ void __launch_bounds__(kFwdThreads) lstm_seq_fwd_kernel(const FwdArgs<S> a) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int T = a.T, B = a.B, H = a.H, IN = a.IN;
   float* xs = sm;                  // [IN][R]
-  float* h_cur = xs + IN * R;      // [H][R] each
+  float* h_cur = xs + IN * R;      // [H][R] each; h as the operand of h @ Rk
   float* h_nxt = h_cur + H * R;
   float* cs = h_nxt + H * R;
   const int s0 = blockIdx.x * R;   // rows >= B are masked
 
-  load_rows<R>(h_cur, a.h0, B, s0, H);
+  load_rows<R>(h_cur, a.h0, B, s0, H, AsOperand<S>());
   load_rows<R>(cs, a.c0, B, s0, H);
   for (int t = 0; t < T; ++t) {
     const size_t tb = (size_t)t * B;
@@ -190,9 +238,9 @@ __global__ void __launch_bounds__(kFwdThreads) lstm_seq_fwd_kernel(const FwdArgs
       mac_gates<R>(acc, xs, a.w, IN, u, H);  // xz = x[t] @ W ...
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
-        const float bg = a.b[g * H + u];     // ... + b
+        const float bg = a.b[g * H + u];     // ... + b, rounded to the stream type
 #pragma unroll
-        for (int r = 0; r < R; ++r) acc[g][r] += bg;
+        for (int r = 0; r < R; ++r) acc[g][r] = operand<S>(acc[g][r] + bg);
       }
       mac_gates<R>(acc, h_cur, a.rk, H, u, H);  // z = xz + h @ Rk
 #pragma unroll
@@ -205,7 +253,7 @@ __global__ void __launch_bounds__(kFwdThreads) lstm_seq_fwd_kernel(const FwdArgs
         const float cn = f * cp + i * g;
         const float hn = o * tanhf(cn);
         cs[u * R + r] = cn;
-        h_nxt[u * R + r] = hn;
+        h_nxt[u * R + r] = operand<S>(hn);
         const int s = s0 + r;
         if (s < B) {
           const size_t row = tb + s;
@@ -213,8 +261,8 @@ __global__ void __launch_bounds__(kFwdThreads) lstm_seq_fwd_kernel(const FwdArgs
           a.c[row * H + u] = cn;
           if (kTrain) {
 #pragma unroll
-            for (int q = 0; q < 4; ++q) a.z[row * 4 * H + q * H + u] = acc[q][r];
-            a.hp[row * H + u] = h_cur[u * R + r];
+            for (int q = 0; q < 4; ++q) st(a.z + row * 4 * H + q * H + u, acc[q][r]);
+            st(a.hp + row * H + u, h_cur[u * R + r]);
             a.cp[row * H + u] = cp;
           }
         }
@@ -231,8 +279,8 @@ __global__ void __launch_bounds__(kFwdThreads) lstm_seq_fwd_kernel(const FwdArgs
 // in shared memory times a [K, N] weight; neighbouring threads read
 // neighbouring columns, and the two slices of the block split K.
 // `store(n, b, value)` receives each result.
-template <typename Store>
-__device__ __forceinline__ void matvec_t(const float* a, const float* __restrict__ wt, int K,
+template <typename S, typename Store>
+__device__ __forceinline__ void matvec_t(const float* a, const S* __restrict__ wt, int K,
                                          int N, float* part, Store store) {
   const int slice = threadIdx.x / kUnits, ln = threadIdx.x % kUnits;
   const int k0 = slice ? K / 2 : 0, k1 = slice ? K : K / 2;
@@ -240,10 +288,10 @@ __device__ __forceinline__ void matvec_t(const float* a, const float* __restrict
     const int n = n0 + ln;
     float acc[kBwdRows] = {0.f, 0.f, 0.f, 0.f};
     if (n < N) {
-      const float* wp = wt + (size_t)k0 * N + n;
+      const S* wp = wt + (size_t)k0 * N + n;
 #pragma unroll 8
       for (int k = k0; k < k1; ++k, wp += N) {
-        const float w = __ldg(wp);
+        const float w = ld(wp);
         const float4 v = *reinterpret_cast<const float4*>(a + k * kBwdRows);
         acc[0] = fmaf(v.x, w, acc[0]);
         acc[1] = fmaf(v.y, w, acc[1]);
@@ -264,12 +312,13 @@ __device__ __forceinline__ void matvec_t(const float* a, const float* __restrict
   }
 }
 
-__global__ void __launch_bounds__(kBwdThreads) lstm_seq_bwd_kernel(const BwdArgs a) {
+template <typename S>
+__global__ void __launch_bounds__(kBwdThreads) lstm_seq_bwd_kernel(const BwdArgs<S> a) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   constexpr int R = kBwdRows;
   const int T = a.T, B = a.B, H = a.H, IN = a.IN;
-  float* dzs = sm;                 // [4H][R]
+  float* dzs = sm;                 // [4H][R]  dz as the operand of dz @ (Rk | W)ᵀ
   float* dh_c = dzs + 4 * H * R;   // [H][R]  carry of dh
   float* dc_c = dh_c + H * R;      // [H][R]  carry of dc
   float* part = dc_c + H * R;      // [R][kUnits]
@@ -286,11 +335,11 @@ __global__ void __launch_bounds__(kBwdThreads) lstm_seq_bwd_kernel(const BwdArgs
       float dz[4] = {0.f, 0.f, 0.f, 0.f};
       if (s < B) {
         const size_t row = tb + s;
-        const float* zr = a.z + row * 4 * H;
-        const float ig = hard_sigmoid(zr[u]);
-        const float fg = hard_sigmoid(zr[H + u]);
-        const float gg = tanhf(zr[2 * H + u]);
-        const float og = hard_sigmoid(zr[3 * H + u]);
+        const S* zr = a.z + row * 4 * H;
+        const float ig = hard_sigmoid(ldv(zr + u));
+        const float fg = hard_sigmoid(ldv(zr + H + u));
+        const float gg = tanhf(ldv(zr + 2 * H + u));
+        const float og = hard_sigmoid(ldv(zr + 3 * H + u));
         const float tc = tanhf(a.c[row * H + u]);
         const float dh = dh_c[i] + a.dh[row * H + u];
         const float dc = (dc_c[i] + a.dc[row * H + u]) + dh * og * (1.f - tc * tc);
@@ -303,7 +352,7 @@ __global__ void __launch_bounds__(kBwdThreads) lstm_seq_bwd_kernel(const BwdArgs
         for (int g = 0; g < 4; ++g) a.dz[row * 4 * H + g * H + u] = dz[g];
       }
 #pragma unroll
-      for (int g = 0; g < 4; ++g) dzs[(g * H + u) * R + r] = dz[g];
+      for (int g = 0; g < 4; ++g) dzs[(g * H + u) * R + r] = operand<S>(dz[g]);
     }
     __syncthreads();
     // dz @ (Rk | W)ᵀ: the new dh carry and dx[t], the only serial product
@@ -312,7 +361,7 @@ __global__ void __launch_bounds__(kBwdThreads) lstm_seq_bwd_kernel(const BwdArgs
       if (n < H) {
         dh_c[n * R + r] = v;
       } else if (s < B) {
-        a.dx[(tb + s) * IN + (n - H)] = v;
+        st(a.dx + (tb + s) * IN + (n - H), v);
       }
     });
   }
@@ -331,19 +380,35 @@ int set_smem(const void* fn, size_t bytes) {
   return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int R, bool kTrain>
-int launch_fwd(const FwdArgs& a, cudaStream_t stream) {
+template <typename S, int R, bool kTrain>
+int launch_fwd(const FwdArgs<S>& a, cudaStream_t stream) {
   const size_t smem = fwd_smem_floats(a.IN, a.H, R) * sizeof(float);
-  int err = set_smem((const void*)lstm_seq_fwd_kernel<R, kTrain>, smem);
+  int err = set_smem((const void*)lstm_seq_fwd_kernel<S, R, kTrain>, smem);
   if (err) return err;
-  lstm_seq_fwd_kernel<R, kTrain><<<(a.B + R - 1) / R, kFwdThreads, smem, stream>>>(a);
+  lstm_seq_fwd_kernel<S, R, kTrain><<<(a.B + R - 1) / R, kFwdThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename S>
+int fwd(const FwdArgs<S>& a, int rows, int train, cudaStream_t st) {
+  if (rows == 16) return train ? launch_fwd<S, 16, true>(a, st) : launch_fwd<S, 16, false>(a, st);
+  if (rows == 4) return train ? launch_fwd<S, 4, true>(a, st) : launch_fwd<S, 4, false>(a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename S>
+int bwd(const BwdArgs<S>& a, cudaStream_t stream) {
+  const size_t smem = bwd_smem_floats(a.H) * sizeof(float);
+  int err = set_smem((const void*)lstm_seq_bwd_kernel<S>, smem);
+  if (err) return err;
+  lstm_seq_bwd_kernel<S><<<(a.B + kBwdRows - 1) / kBwdRows, kBwdThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Bytes of dynamic shared memory one block of each serial kernel needs (the
-// wrapper checks them against the card's limit).
+// wrapper checks them against the card's limit); the same in both modes.
 extern "C" long long cvl_lstm_seq_fwd_smem_bytes(int IN, int H, int rows) {
   return (long long)(fwd_smem_floats(IN, H, rows) * sizeof(float));
 }
@@ -358,11 +423,21 @@ extern "C" int cvl_lstm_seq_fwd(const float* x, const float* w, const float* b, 
                                 const float* h0, const float* c0, float* h, float* c, float* z,
                                 float* hp, float* cp, int T, int B, int IN, int H, int rows,
                                 int train, void* stream) {
-  const FwdArgs a{x, w, b, rk, h0, c0, h, c, z, hp, cp, T, B, IN, H};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rows == 16) return train ? launch_fwd<16, true>(a, st) : launch_fwd<16, false>(a, st);
-  if (rows == 4) return train ? launch_fwd<4, true>(a, st) : launch_fwd<4, false>(a, st);
-  return (int)cudaErrorInvalidValue;
+  const FwdArgs<float> a{x, w, b, rk, h0, c0, h, c, z, hp, cp, T, B, IN, H};
+  return fwd(a, rows, train, static_cast<cudaStream_t>(stream));
+}
+
+// The same in the bf16 stream mode: x, w (rounded by the caller), rk, z and
+// hp are bf16; b, h0, c0, h, c and cp f32.
+extern "C" int cvl_lstm_seq_fwd_bf16(const void* x, const void* w, const float* b,
+                                     const void* rk, const float* h0, const float* c0, float* h,
+                                     float* c, void* z, void* hp, float* cp, int T, int B,
+                                     int IN, int H, int rows, int train, void* stream) {
+  using bf = __nv_bfloat16;
+  const FwdArgs<bf> a{static_cast<const bf*>(x), static_cast<const bf*>(w), b,
+                      static_cast<const bf*>(rk), h0, c0, h, c, static_cast<bf*>(z),
+                      static_cast<bf*>(hp), cp, T, B, IN, H};
+  return fwd(a, rows, train, static_cast<cudaStream_t>(stream));
 }
 
 // The backward's serial reverse walk on `stream`; fills dx, dh0, dc0 and the
@@ -372,13 +447,20 @@ extern "C" int cvl_lstm_seq_bwd(const float* z, const float* cp, const float* c,
                                 const float* dc, const float* wt, float* dx, float* dh0,
                                 float* dc0, float* dz, int T, int B, int IN, int H,
                                 void* stream) {
-  const BwdArgs a{z, cp, c, dh, dc, wt, dx, dh0, dc0, dz, T, B, IN, H};
-  const size_t smem = bwd_smem_floats(H) * sizeof(float);
-  int err = set_smem((const void*)lstm_seq_bwd_kernel, smem);
-  if (err) return err;
-  lstm_seq_bwd_kernel<<<(B + kBwdRows - 1) / kBwdRows, kBwdThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  const BwdArgs<float> a{z, cp, c, dh, dc, wt, dx, dh0, dc0, dz, T, B, IN, H};
+  return bwd(a, static_cast<cudaStream_t>(stream));
+}
+
+// The same in the bf16 stream mode: z, wt (rounded by the caller) and dx are
+// bf16; the dz scratch stays f32 and unrounded.
+extern "C" int cvl_lstm_seq_bwd_bf16(const void* z, const float* cp, const float* c,
+                                     const float* dh, const float* dc, const void* wt, void* dx,
+                                     float* dh0, float* dc0, float* dz, int T, int B, int IN,
+                                     int H, void* stream) {
+  using bf = __nv_bfloat16;
+  const BwdArgs<bf> a{static_cast<const bf*>(z), cp, c, dh, dc, static_cast<const bf*>(wt),
+                      static_cast<bf*>(dx), dh0, dc0, dz, T, B, IN, H};
+  return bwd(a, static_cast<cudaStream_t>(stream));
 }
 
 // The backward's weight gradients over the R = T*B rows: dRk = hpᵀdz,
@@ -387,6 +469,18 @@ extern "C" int cvl_lstm_seq_bwd(const float* z, const float* cp, const float* c,
 extern "C" int cvl_lstm_seq_wgrad(const float* hp, const float* x, const float* dz, float* drk,
                                   float* dw, float* db, int R, int IN, int H, void* stream) {
   const cvl::WgradJob jobs[] = {{hp, dz, drk, H, 4 * H}, {x, dz, dw, IN, 4 * H},
+                                {nullptr, dz, db, 1, 4 * H}};
+  return cvl::launch_wgrad<lstm_seq_wgrad>(jobs, 3, R, static_cast<cudaStream_t>(stream));
+}
+
+// The same in the bf16 stream mode: hp and x are bf16 and dz is rounded as it
+// is staged; dRk is stored rounded, as bf16, dW in f32 unrounded, and db sums
+// the unrounded dz.
+extern "C" int cvl_lstm_seq_wgrad_bf16(const void* hp, const void* x, const float* dz,
+                                       void* drk, float* dw, float* db, int R, int IN, int H,
+                                       void* stream) {
+  const cvl::WgradJob jobs[] = {{hp, dz, drk, H, 4 * H, 1, 1},
+                                {x, dz, dw, IN, 4 * H, 1, 1, 1},
                                 {nullptr, dz, db, 1, 4 * H}};
   return cvl::launch_wgrad<lstm_seq_wgrad>(jobs, 3, R, static_cast<cudaStream_t>(stream));
 }

@@ -17,9 +17,11 @@
 // TPU kernels' `acc` with bf16 operands, then the cast of the result): A and
 // Bm are rounded to bf16 as they are staged, the sum is taken in f32, and C
 // is stored rounded, as bf16. `a_bf16` says that A itself is stored in bf16.
-// Both default to 0. Testing the flags per staged element cost the f32 jobs
-// 60-80% more time on an H100, so a launch whose jobs set neither runs the
-// instance without the tests (kFlags false).
+// `c_f32` (with `bf16`) stores C in f32, unrounded: the TPU kernels return
+// some weight gradients of bf16 products in f32 (the whole-sequence LSTM's
+// dW). All three default to 0. Testing the flags per staged element cost the
+// f32 jobs 60-80% more time on an H100, so a launch whose jobs set neither
+// `bf16` nor `a_bf16` runs the instance without the tests (kFlags false).
 
 #pragma once
 
@@ -37,10 +39,11 @@ constexpr int kWgMaxJobs = 15;
 struct WgradJob {
   const void* A;    // [R, M] (lda = M), f32 (bf16 with a_bf16); null: a column of ones (M = 1)
   const float* Bm;  // [R, N]
-  void* C;          // [M, N], f32 (bf16 with bf16)
+  void* C;          // [M, N], f32 (bf16 with bf16, unless c_f32)
   int M, N;
   int bf16 = 0;     // round A and Bm to bf16 as staged; store C rounded, as bf16
   int a_bf16 = 0;   // A is stored in bf16
+  int c_f32 = 0;    // with bf16: store C in f32, unrounded
 };
 
 __device__ __forceinline__ float round_bf16(float x) {
@@ -116,7 +119,7 @@ __global__ void __launch_bounds__(kWgThreads) wgrad_kernel(const WgradArgs args)
       const int n = n0 + tx * 4 + q;
       if (m >= jb.M || n >= jb.N) continue;
       const size_t ic = (size_t)m * jb.N + n;
-      if (kFlags && jb.bf16)
+      if (kFlags && jb.bf16 && !jb.c_f32)
         static_cast<__nv_bfloat16*>(jb.C)[ic] = __float2bfloat16_rn(acc[i][q]);
       else
         static_cast<float*>(jb.C)[ic] = acc[i][q];

@@ -23,6 +23,19 @@ The wrappers :func:`lstm_seq_fwd`, :func:`lstm_seq_train_fwd` and
 :func:`lstm_seq_bwd` launch the kernels for CUDA tensors (or raise: there is
 no fallback) and take the plain versions only for CPU tensors.
 
+All three have a bf16 stream mode, the Pallas kernels' ``compute_dtype=bf16``,
+chosen by the type of x (of z in the backward): x, Rk, z, h_prev and dx are
+bf16; W stays f32 at the boundary and is rounded inside (the wrapper hands
+the kernel a bf16 copy), so its gradient comes back f32 and unrounded, as
+JAX's does; b, h0, c0, h, c, c_prev and the carries are f32. Products take
+bf16-rounded operands and sum in f32 (the plain versions: ``a.bfloat16()
+.float()`` operands of f32 matmuls). Rounding happens where the Pallas
+bodies round: xz = x @ W + b before h @ Rk is added, h as the operand of
+h @ Rk, z and h_prev as they are stored (the backward's gates read the
+stored bf16 z), dz as the left operand of dz @ Rkᵀ, dz @ Wᵀ, dRk and dW, dx
+as it is stored; db sums the unrounded dz, dRk comes back as bf16 and dW as
+f32.
+
 :func:`lstm_sequence_kernel` is the entry, with ``lstm_sequence_pallas``'s
 signature and results. Layouts are time-major inside, kernels ``[in, out]``,
 and no lane or batch padding: the TPU's VMEM gates and block picks are not
@@ -37,14 +50,19 @@ import threading
 import torch
 
 from . import _build
-from .lstm import _gate_grads, _gates, resolve_fusion
+from .lstm import _gate_grads, _gates, bf16_operand, resolve_fusion
+from .two_cell import _check
 
 # launches since the counts were last set to 0: one per inference or training
 # forward call, two per backward call (the reverse walk, then the
-# weight-gradient pass)
+# weight-gradient pass); the plain names count the f32 mode, the BF16_ names
+# the bf16 stream mode
 FWD_LAUNCHES = 0
 TRAIN_FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+BF16_FWD_LAUNCHES = 0
+BF16_TRAIN_FWD_LAUNCHES = 0
+BF16_BWD_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
 _BWD_ROWS = 4             # kBwdRows in csrc/lstm_seq.cu
@@ -54,8 +72,6 @@ DEFAULT_FUSION = (True, True, True)
 FUSION_TODO = ("only the default fusion triple (proj, drk, full) = (True, True, True) of the "
                "whole-sequence LSTM kernels is ported; the other rungs are ROADMAP Queue 2 "
                "item 6")
-BF16_TODO = ("the bf16 stream mode of the whole-sequence LSTM kernels is not ported yet "
-             "(ROADMAP Queue 2 item 6)")
 
 
 def fwd_smem_bytes(IN: int, H: int, rows: int) -> int:
@@ -80,21 +96,33 @@ def fwd_rows(B: int, IN: int, H: int, n_sm: int) -> int:
 # ------------------------------------------------------------ plain versions
 
 
+def _mode(t):
+    """(is the call in the bf16 stream mode, the rounding of a product's
+    operand): the mode follows the type of x (of z in the backward)."""
+    bf16 = t.dtype == torch.bfloat16
+    return bf16, (bf16_operand if bf16 else (lambda a: a))
+
+
 def _fwd_steps(x, w, b, rk, h0, c0):
     # the body of both plain forwards, kept apart so that each public name
     # is called only by its own wrapper (tests and chip_smoke.py spy on them)
     T, B, IN = x.shape
     H = rk.shape[0]
-    xz = (x.reshape(T * B, IN) @ w + b).reshape(T, B, 4 * H)
+    bf16, op = _mode(x)
+    xz = op(x.float().reshape(T * B, IN) @ op(w) + b).reshape(T, B, 4 * H)
+    rk = rk.float()
     h, c = h0, c0
     outs = [[] for _ in range(5)]
     for t in range(T):
-        z = xz[t] + h @ rk
-        hp, cp = h, c
+        hp, cp = op(h), c
+        z = xz[t] + hp @ rk
         h, c = _gates(z, c, H)
         for acc, v in zip(outs, (h, c, z, hp, cp)):
             acc.append(v)
-    return tuple(torch.stack(o) for o in outs)
+    h, c, z, hp, cp = (torch.stack(o) for o in outs)
+    if bf16:
+        z, hp = z.bfloat16(), hp.bfloat16()
+    return h, c, z, hp, cp
 
 
 def lstm_seq_train_fwd_plain(x, w, b, rk, h0, c0):
@@ -103,7 +131,9 @@ def lstm_seq_train_fwd_plain(x, w, b, rk, h0, c0):
     x ``[T, B, IN]``, w ``[IN, 4H]``, b ``[4H]``, rk ``[H, 4H]``, h0/c0
     ``[B, H]``. Returns ``(h, c, z, h_prev, c_prev)``, all ``[T, B, ...]``.
     As the Pallas body: ``xz = x @ W + b`` for the whole block first, then
-    per step ``z = xz + h @ Rk`` and the gates."""
+    per step ``z = xz + h @ Rk`` and the gates. In the bf16 mode (bf16 x and
+    rk, f32 w) xz and h are rounded as operands, and z and h_prev come back
+    as bf16."""
     return _fwd_steps(x, w, b, rk, h0, c0)
 
 
@@ -121,20 +151,28 @@ def lstm_seq_bwd_plain(z, c_prev, c, h_prev, x, dh_seq, dc_seq, rk_t, w_t):
     gradients, ``dh = dz @ Rkᵀ`` (the serial chain), ``dx[t] = dz @ Wᵀ`` and
     the weight-gradient sums. rk_t ``[4H, H]`` and w_t ``[4H, IN]`` are the
     transposed weights, as in ``_backward_call_full``. Returns ``(dx, dh0,
-    dc0, drk [H, 4H], dw [IN, 4H], db [4H])``."""
+    dc0, drk [H, 4H], dw [IN, 4H], db [4H])``. In the bf16 mode (bf16 z,
+    h_prev, x and rk_t, f32 w_t) dz and w_t are rounded as operands, db sums
+    the unrounded dz, and dx and drk come back as bf16, dw as f32."""
     T, B, H4 = z.shape
-    zeros = lambda *s: z.new_zeros(s)
+    bf16, op = _mode(z)
+    zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=z.device)
     dh, dc = zeros(B, H4 // 4), zeros(B, H4 // 4)
     drk, dw, db = zeros(*rk_t.T.shape), zeros(*w_t.T.shape), zeros(H4)
+    rk_t, w_t = rk_t.float(), op(w_t)
     dx = [None] * T
     for t in reversed(range(T)):
-        dz, dc = _gate_grads(z[t], c[t], c_prev[t], dh + dh_seq[t], dc + dc_seq[t])
-        dh = dz @ rk_t
-        dx[t] = dz @ w_t
-        drk += h_prev[t].T @ dz
-        dw += x[t].T @ dz
+        dz, dc = _gate_grads(z[t].float(), c[t], c_prev[t], dh + dh_seq[t], dc + dc_seq[t])
+        dzo = op(dz)
+        dh = dzo @ rk_t
+        dx[t] = dzo @ w_t
+        drk += h_prev[t].float().T @ dzo
+        dw += x[t].float().T @ dzo
         db += dz.sum(0)
-    return torch.stack(dx), dh, dc, drk, dw, db
+    dx = torch.stack(dx)
+    if bf16:
+        dx, drk = dx.bfloat16(), drk.bfloat16()
+    return dx, dh, dc, drk, dw, db
 
 
 # ------------------------------------------------------------ CUDA wrappers
@@ -159,35 +197,34 @@ def _kernels():
                     or lib.cvl_lstm_seq_bwd_smem_bytes(256) != bwd_smem_bytes(256)):
                 raise RuntimeError("shared-memory layout of csrc/lstm_seq.cu differs from "
                                    "fwd_smem_bytes / bwd_smem_bytes")
-            lib.cvl_lstm_seq_fwd.argtypes = [P] * 11 + [I] * 6 + [P]
-            lib.cvl_lstm_seq_bwd.argtypes = [P] * 10 + [I] * 4 + [P]
-            lib.cvl_lstm_seq_wgrad.argtypes = [P] * 6 + [I] * 3 + [P]
-            for fn in (lib.cvl_lstm_seq_fwd, lib.cvl_lstm_seq_bwd, lib.cvl_lstm_seq_wgrad):
+            fns = []
+            for sfx in ("", "_bf16"):
+                fwd, bwd, wgrad = (getattr(lib, f"cvl_lstm_seq_{n}{sfx}")
+                                   for n in ("fwd", "bwd", "wgrad"))
+                fwd.argtypes = [P] * 11 + [I] * 6 + [P]
+                bwd.argtypes = [P] * 10 + [I] * 4 + [P]
+                wgrad.argtypes = [P] * 6 + [I] * 3 + [P]
+                fns += [fwd, bwd, wgrad]
+            for fn in fns:
                 fn.restype = I
             _lib = lib
         return _lib
 
 
-def _check(dev, named_shapes: dict):
-    """Raise on anything the kernels do not take."""
-    for name, (t, shape) in named_shapes.items():
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
-def _count(which: str, n: int):
+def _count(which: str, n: int, bf16: bool):
     global FWD_LAUNCHES, TRAIN_FWD_LAUNCHES, BWD_LAUNCHES
+    global BF16_FWD_LAUNCHES, BF16_TRAIN_FWD_LAUNCHES, BF16_BWD_LAUNCHES
     with _launch_lock:
-        if which == "fwd":
+        if which == "fwd" and bf16:
+            BF16_FWD_LAUNCHES += n
+        elif which == "fwd":
             FWD_LAUNCHES += n
+        elif which == "train_fwd" and bf16:
+            BF16_TRAIN_FWD_LAUNCHES += n
         elif which == "train_fwd":
             TRAIN_FWD_LAUNCHES += n
+        elif bf16:
+            BF16_BWD_LAUNCHES += n
         else:
             BWD_LAUNCHES += n
 
@@ -207,34 +244,41 @@ def _launch_fwd(x, w, b, rk, h0, c0, train: bool):
     if T < 1 or B < 1:
         raise ValueError(f"need T, B >= 1 (got {T}, {B})")
     H4 = 4 * H
+    bf16 = x.dtype == torch.bfloat16
     _check(dev, {"x": (x, (T, B, IN)), "w": (w, (IN, H4)), "b": (b, (H4,)), "rk": (rk, (H, H4)),
-                 "h0": (h0, (B, H)), "c0": (c0, (B, H))})
+                 "h0": (h0, (B, H)), "c0": (c0, (B, H))},
+           bf16=frozenset({"x", "rk"}) if bf16 else frozenset())
     rows = fwd_rows(B, IN, H, torch.cuda.get_device_properties(dev).multi_processor_count)
     if fwd_smem_bytes(IN, H, rows) > _SMEM_LIMIT:
         raise ValueError(f"input width {IN} + hidden {H} is too wide for the LSTM forward "
                          f"kernel's shared memory ({fwd_smem_bytes(IN, H, rows)} > "
                          f"{_SMEM_LIMIT} bytes)")
     lib = _kernels()
+    sd = torch.bfloat16 if bf16 else torch.float32
     with torch.cuda.device(dev):
-        new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+        new = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype, device=dev)
         outs = (new(T, B, H), new(T, B, H))
         if train:
-            outs += (new(T, B, H4), new(T, B, H), new(T, B, H))
+            outs += (new(T, B, H4, dtype=sd), new(T, B, H, dtype=sd), new(T, B, H))
+        if bf16:
+            w = w.to(torch.bfloat16)  # rounded for the kernel only: the core keeps W f32
         # the inference forward passes null for z, h_prev and c_prev
         ptrs = [t.data_ptr() for t in (x, w, b, rk, h0, c0, *outs)] + [None] * (5 - len(outs))
-        err = lib.cvl_lstm_seq_fwd(*ptrs, T, B, IN, H, rows, int(train),
-                                   torch.cuda.current_stream(dev).cuda_stream)
+        launch = lib.cvl_lstm_seq_fwd_bf16 if bf16 else lib.cvl_lstm_seq_fwd
+        err = launch(*ptrs, T, B, IN, H, rows, int(train),
+                     torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         kind = "training forward" if train else "forward"
         raise RuntimeError(f"lstm_seq {kind} kernel launch failed: CUDA error {err}")
-    _count("train_fwd" if train else "fwd", 1)
+    _count("train_fwd" if train else "fwd", 1, bf16)
     return outs
 
 
 def lstm_seq_fwd(x, w, b, rk, h0, c0):
     """The inference forward (signature and results of
     :func:`lstm_seq_fwd_plain`). CUDA tensors launch ``lstm_seq_fwd_kernel``
-    on the current stream (or raise); CPU tensors take the plain version."""
+    on the current stream (or raise), in the bf16 stream mode where x is
+    bf16; CPU tensors take the plain version."""
     if _device_of(x).type == "cpu":
         return lstm_seq_fwd_plain(x, w, b, rk, h0, c0)
     return _launch_fwd(x, w, b, rk, h0, c0, train=False)
@@ -256,7 +300,8 @@ def lstm_seq_bwd(z, c_prev, c, h_prev, x, dh_seq, dc_seq, rk_t, w_t):
     CUDA tensors launch ``lstm_seq_bwd_kernel`` (the serial reverse walk,
     which writes dz per step to scratch) and then
     ``wgrad_kernel<lstm_seq_wgrad>`` (dRk, dW and db over all T*B rows, in a
-    fixed order), or raise; CPU tensors take the plain version."""
+    fixed order), or raise, in the bf16 stream mode where z is bf16; CPU
+    tensors take the plain version."""
     args = (z, c_prev, c, h_prev, x, dh_seq, dc_seq, rk_t, w_t)
     dev = _device_of(z)
     if dev.type == "cpu":
@@ -269,28 +314,33 @@ def lstm_seq_bwd(z, c_prev, c, h_prev, x, dh_seq, dc_seq, rk_t, w_t):
         raise ValueError(f"hidden {H} is too wide for the LSTM backward kernel's shared memory "
                          f"({bwd_smem_bytes(H)} > {_SMEM_LIMIT} bytes)")
     s3 = lambda width: (T, B, width)
+    bf16 = z.dtype == torch.bfloat16
     _check(dev, {"z": (z, s3(H4)), "c_prev": (c_prev, s3(H)), "c": (c, s3(H)),
                  "h_prev": (h_prev, s3(H)), "x": (x, s3(IN)), "dh_seq": (dh_seq, s3(H)),
-                 "dc_seq": (dc_seq, s3(H)), "rk_t": (rk_t, (H4, H)), "w_t": (w_t, (H4, IN))})
+                 "dc_seq": (dc_seq, s3(H)), "rk_t": (rk_t, (H4, H)), "w_t": (w_t, (H4, IN))},
+           bf16=frozenset({"z", "h_prev", "x", "rk_t"}) if bf16 else frozenset())
     lib = _kernels()
+    sfx = "_bf16" if bf16 else ""
+    sd = torch.bfloat16 if bf16 else torch.float32
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        # the reverse walk reads (Rk | W)ᵀ row-wise: dz @ [Rkᵀ | Wᵀ]
-        wt = torch.cat([rk_t, w_t], 1).contiguous()
-        new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
-        dx, dh0, dc0, dz = new(T, B, IN), new(B, H), new(B, H), new(T, B, H4)
-        err = lib.cvl_lstm_seq_bwd(*(t.data_ptr() for t in (z, c_prev, c, dh_seq, dc_seq, wt,
-                                                            dx, dh0, dc0, dz)),
-                                   T, B, IN, H, stream)
+        # the reverse walk reads (Rk | W)ᵀ row-wise: dz @ [Rkᵀ | Wᵀ] (W rounded
+        # for the kernel only in the bf16 mode)
+        wt = torch.cat([rk_t, w_t.to(sd)], 1).contiguous()
+        new = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype, device=dev)
+        dx, dh0, dc0, dz = new(T, B, IN, dtype=sd), new(B, H), new(B, H), new(T, B, H4)
+        err = getattr(lib, f"cvl_lstm_seq_bwd{sfx}")(
+            *(t.data_ptr() for t in (z, c_prev, c, dh_seq, dc_seq, wt, dx, dh0, dc0, dz)),
+            T, B, IN, H, stream)
         if err != 0:
             raise RuntimeError(f"lstm_seq backward kernel launch failed: CUDA error {err}")
-        _count("bwd", 1)
-        drk, dw, db = new(H, H4), new(IN, H4), new(H4)
-        err = lib.cvl_lstm_seq_wgrad(*(t.data_ptr() for t in (h_prev, x, dz, drk, dw, db)),
-                                     T * B, IN, H, stream)
+        _count("bwd", 1, bf16)
+        drk, dw, db = new(H, H4, dtype=sd), new(IN, H4), new(H4)
+        err = getattr(lib, f"cvl_lstm_seq_wgrad{sfx}")(
+            *(t.data_ptr() for t in (h_prev, x, dz, drk, dw, db)), T * B, IN, H, stream)
     if err != 0:
         raise RuntimeError(f"lstm_seq weight-gradient kernel launch failed: CUDA error {err}")
-    _count("bwd", 1)
+    _count("bwd", 1, bf16)
     return dx, dh0, dc0, drk, dw, db
 
 
@@ -302,7 +352,8 @@ class LstmSeqCore(torch.autograd.Function):
     kernels (or their plain versions on the CPU) behind one autograd node.
 
     Inputs: x ``[T, B, IN]``, w, b, rk, h0, c0; outputs: h and c ``[T, B,
-    H]``."""
+    H]``. With bf16 x and rk (w f32) it runs the bf16 stream mode and returns
+    bf16 gradients for x and rk, f32 ones for w, b, h0 and c0."""
 
     @staticmethod
     def forward(ctx, x, w, b, rk, h0, c0):
@@ -327,15 +378,20 @@ def lstm_sequence_kernel(params, x, h0, c0, compute_dtype=None, fusion=None):
     forward runs inside :class:`LstmSeqCore`; otherwise (``torch.no_grad()``,
     evaluation) the inference forward runs alone — the JAX primal-versus-vjp
     split. ``fusion`` must normalise (:func:`.lstm.resolve_fusion`) to the
-    default triple, and ``compute_dtype`` must be f32: the other rungs and
-    the bf16 streams raise ``NotImplementedError``."""
+    default triple: the other rungs raise ``NotImplementedError``.
+    ``compute_dtype=torch.bfloat16`` is the bf16 stream mode: as
+    ``lstm_sequence_pallas`` does, x and the recurrent kernel are cast to
+    bf16 outside the autograd function (their gradients come back
+    bf16-valued, as f32) and the kernel W enters it in f32 (rounded inside,
+    so its gradient is not rounded)."""
     H = params["recurrent_kernel"].shape[0]
     if resolve_fusion(fusion, hidden_dim=H) != DEFAULT_FUSION:
         raise NotImplementedError(FUSION_TODO)
-    if compute_dtype is not None and compute_dtype != torch.float32:
-        raise NotImplementedError(BF16_TODO)
-    ins = (x.transpose(0, 1).contiguous(), params["kernel"].contiguous(),
-           params["bias"].contiguous(), params["recurrent_kernel"].contiguous(),
+    if compute_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype {compute_dtype} (None, float32 or bfloat16)")
+    sd = torch.bfloat16 if compute_dtype == torch.bfloat16 else torch.float32
+    ins = (x.transpose(0, 1).to(sd).contiguous(), params["kernel"].contiguous(),
+           params["bias"].contiguous(), params["recurrent_kernel"].to(sd).contiguous(),
            h0.contiguous(), c0.contiguous())
     if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
         h, c = LstmSeqCore.apply(*ins)

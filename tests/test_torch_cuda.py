@@ -12,7 +12,9 @@ and the input checks on CUDA tensors. Run them on the card with
 for the port need not have). Tolerances: f32 probabilities within 1e-5
 (same f32 products, other summation order) and frames exactly equal at
 these fixed seeds; bf16 probabilities with u=1 within 2e-3 (bf16 rounding
-at the same places, other summation order).
+at the same places, other summation order); the bf16 streams of the
+whole-sequence LSTM kernels within 1e-3 (forward) and 1e-2 (backward)
+relative Frobenius of their bf16 plain versions.
 """
 
 import numpy as np
@@ -338,6 +340,105 @@ def test_lstm_seq_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="shared memory"):
         ls.lstm_seq_bwd(*(torch.zeros(1, 1, 4 * 4096, device=dev),) * 9)
     assert _launches() == before
+
+
+
+# ---- the bf16 stream mode of the whole-sequence LSTM kernels
+#
+# Both sides round the same values at the same places and sum in f32 in
+# another order, so a rounding may land on the other bf16 neighbour: forward
+# h and c within 1e-2 x max(1, max|plain|) and 1e-3 relative Frobenius, the
+# backward's outputs within 1e-2 relative Frobenius (``chip_smoke.py`` phase
+# 20's bounds).
+
+
+def _bf16_ins(ins):
+    x, w, b, rk, h0, c0 = ins
+    return x.bfloat16(), w, b, rk.bfloat16(), h0, c0
+
+
+def _rel_fro(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+
+def _bf16_launches():
+    return ls.BF16_FWD_LAUNCHES, ls.BF16_TRAIN_FWD_LAUNCHES, ls.BF16_BWD_LAUNCHES
+
+
+@pytest.mark.parametrize("case", sorted(LSTM_SEQ_CASES))
+def test_lstm_seq_bf16_kernels_match_plain(dev, case):
+    kw = dict(LSTM_SEQ_CASES[case])
+    if kw["B"] is None:
+        kw["B"] = 16 * torch.cuda.get_device_properties(dev).multi_processor_count + 8
+    ins = _bf16_ins(_lstm_seq_inputs(dev, **kw))
+    before, before16 = _launches(), _bf16_launches()
+    h, c = ls.lstm_seq_fwd(*ins)
+    outs = ls.lstm_seq_train_fwd(*ins)
+    torch.cuda.synchronize()
+    ref = ls.lstm_seq_train_fwd_plain(*ins)
+    for name, k, p in (("inference h", h, ref[0]), ("inference c", c, ref[1]),
+                       *zip(("h", "c", "z", "h_prev", "c_prev"), outs, ref)):
+        assert k.dtype == p.dtype, name
+        scale = max(1.0, p.float().abs().max().item())
+        assert (k.float() - p.float()).abs().max().item() <= 1e-2 * scale, name
+        assert _rel_fro(k, p) <= 1e-3, name
+    assert [o.dtype for o in outs] == [torch.float32] * 2 + [torch.bfloat16] * 2 + [torch.float32]
+    x, w, _, rk, _, _ = ins
+    h, c, z, hp, cp = ref
+    rng = np.random.default_rng(1)
+    dh = torch.from_numpy(rng.standard_normal(tuple(h.shape)).astype(np.float32)).to(dev)
+    dc = torch.from_numpy(rng.standard_normal(tuple(c.shape)).astype(np.float32)).to(dev)
+    res = (z, cp, c, hp, x, dh, dc, rk.T.contiguous(), w.T.contiguous())
+    got = ls.lstm_seq_bwd(*res)
+    torch.cuda.synchronize()
+    want = ls.lstm_seq_bwd_plain(*res)
+    for name, g, wv in zip(("dx", "dh0", "dc0", "drk", "dw", "db"), got, want):
+        assert g.shape == wv.shape and g.dtype == wv.dtype, name
+        assert _rel_fro(g, wv) <= 1e-2, name
+    dw = got[4]
+    assert got[3].dtype == torch.bfloat16 and dw.dtype == torch.float32
+    assert not torch.equal(dw, dw.bfloat16().float())  # dW is not rounded
+    assert _launches() == before
+    assert _bf16_launches() == (before16[0] + 1, before16[1] + 1, before16[2] + 2)
+    with pytest.raises(ValueError, match="rk must be bfloat16"):
+        ls.lstm_seq_fwd(*ins[:3], ins[3].float(), *ins[4:])
+    with pytest.raises(ValueError, match="h_prev must be bfloat16"):
+        ls.lstm_seq_bwd(z, cp, c, hp.float(), *res[4:])
+
+
+def test_lstm_seq_bf16_gradients_on_cuda_match_cpu_plain(dev):
+    """Every gradient of ``lstm_sequence(backend="pallas",
+    compute_dtype=torch.bfloat16)``: the bf16 kernels on the card against the
+    bf16 plain versions on the CPU, within 1e-2 relative Frobenius; the
+    recurrent kernel's and x's gradients are bf16-valued, the kernel's is
+    not."""
+    B, T, IN, H = 10, 6, 14, 40
+    rng = np.random.default_rng(3)
+    arrays = {"x": rng.standard_normal((B, T, IN)), "h0": 0.5 * rng.standard_normal((B, H)),
+              "c0": 0.5 * rng.standard_normal((B, H)),
+              "kernel": 0.3 * rng.standard_normal((IN, 4 * H)),
+              "recurrent_kernel": 0.2 * rng.standard_normal((H, 4 * H)),
+              "bias": 0.3 * rng.standard_normal(4 * H)}
+
+    def grads(device):
+        t = {k: torch.from_numpy(v.astype(np.float32)).to(device).requires_grad_(True)
+             for k, v in arrays.items()}
+        params = {k: t[k] for k in ("kernel", "recurrent_kernel", "bias")}
+        h, (hT, cT) = lstm_ops.lstm_sequence(params, t["x"], t["h0"], t["c0"], backend="pallas",
+                                             compute_dtype=torch.bfloat16)
+        ((h ** 2).sum() + (cT * hT).sum()).backward()
+        return {k: t[k].grad for k in t}
+
+    before = _bf16_launches()
+    on_card = grads(dev)
+    torch.cuda.synchronize()
+    assert _bf16_launches() == (before[0], before[1] + 1, before[2] + 2)
+    for k, w in grads("cpu").items():
+        g = on_card[k].cpu()
+        assert g.dtype == torch.float32 and _rel_fro(g, w) <= 1e-2, k
+    representable = lambda g: torch.equal(g, g.bfloat16().float())
+    assert representable(on_card["recurrent_kernel"]) and representable(on_card["x"])
+    assert not representable(on_card["kernel"])
 
 
 # ---- the whole-generation cl_vae kernel (csrc/generate_cl_vae.cu)

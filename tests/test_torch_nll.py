@@ -7,8 +7,10 @@ sample ``ku, kz = split(k)``, ``normal(ku, [B, K-1])``, ``normal(kz, [B, T,
 L])``) and hands them to the port. Both JAX backends (the XLA scan and the
 Pallas kernels in interpret mode) against the port's matching backend (its
 plain LSTM, or the plain versions of its whole-sequence kernels), with and
-without ``x_prev``. Tolerance 1e-4 nats/frame (f32 sums in another order
-through a log-mean-exp over S samples).
+without ``x_prev``, and the Pallas kernels' bf16 stream mode
+(``bf16_compute``) against the bf16 plain versions. Tolerance 1e-4
+nats/frame (f32 sums in another order through a log-mean-exp over S
+samples).
 """
 
 import argparse
@@ -37,8 +39,10 @@ S = 5
 
 
 def _setup(backend, use_x_prev, B=6, T=5, D=12, H=16, L=3, K=4, seed=0):
+    bf16 = backend == "pallas_bf16"
     jcfg = jcl.Config(original_dim=D, intermediate_dim=H, latent_dim=L, seq_length=T,
-                      n_classes=K, use_x_prev=use_x_prev, lstm_backend=backend)
+                      n_classes=K, use_x_prev=use_x_prev,
+                      lstm_backend="pallas" if bf16 else backend, bf16_compute=bf16)
     params = jax.tree.map(np.asarray, jcl.init(jax.random.PRNGKey(seed), jcfg))
     rng = np.random.default_rng(seed + 1)
     data = {k: (rng.random((B, T, D)) < 0.3).astype(np.float32) for k in ("x", "y", "x_prev")}
@@ -55,7 +59,7 @@ def _jax_draws(key, B, T, L, K):
 
 
 @pytest.mark.parametrize("use_x_prev", [True, False])
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("backend", ["xla", "pallas", "pallas_bf16"])
 def test_iw_nll_noise_matches_jax(backend, use_x_prev):
     jcfg, tcfg, params, d = _setup(backend, use_x_prev)
     key = jax.random.PRNGKey(7)
@@ -124,6 +128,44 @@ def test_cli_evaluates_a_port_checkpoint_on_every_test_window(tmp_path, capsys):
                          "family", "train_file"}
     assert line["family"] == "cl_vrnn" and line["n_importance_samples"] == 2
     assert np.isfinite(line["test_nll_nats_per_frame"]) and line["test_nll_nats_per_frame"] > 0
+
+
+def test_cli_evaluates_a_bf16_checkpoint_on_every_test_window(tmp_path, capsys, monkeypatch):
+    """A seeded H=16 checkpoint whose args.json carries what the JAX
+    package's ``--lstm_backend auto`` writes at H >= 512 on a TPU
+    (``lstm_backend`` pallas, ``bf16_compute``, the default fusion triple,
+    ``two_cell`` off): ``cli/evaluate.py --device cpu`` runs both LSTMs
+    through the bf16 plain versions of the inference kernel and covers every
+    test window."""
+    from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
+    from classifying_vae_lstm_tpu_torch.train.checkpoint import (save_checkpoint,
+                                                                 save_model_in_pieces)
+
+    margs = {"run_name": "auto_bf16", "model_dir": str(tmp_path), "original_dim": 88,
+             "intermediate_dim": 16, "latent_dim": 2, "seq_length": 4, "n_classes": 2,
+             "use_x_prev": True, "predict_next": False, "batch_size": 1000,
+             "lstm_backend": "pallas", "bf16_compute": True, "fusion": [True, True, True],
+             "two_cell": False}
+    cfg = tcommon.cl_vrnn_config_from_args(margs)
+    params = tcl.init(torch.Generator().manual_seed(0), cfg)
+    save_checkpoint(save_model_in_pieces(params, margs), params)
+    modes, real = [], ls.lstm_seq_fwd_plain
+    monkeypatch.setattr(ls, "lstm_seq_fwd_plain", lambda x, *a: modes.append(x.dtype) or real(x, *a))
+    ckpt = str(tmp_path / "auto_bf16.npz")
+    out = teval.evaluate(teval.build_parser().parse_args(
+        ["-i", ckpt, "--train_file", CORPUS, "--device", "cpu", "--n_samples", "2",
+         "--batch_size", "1500"]))
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == out
+    P = PianoData(CORPUS, batch_size=1, seq_length=4, return_y_next=True, return_y_hist=True,
+                  squeeze_x=False, squeeze_y=False)
+    n_batches = -(-len(P.x_test) // 1500)
+    assert out["n_test_examples"] == len(P.x_test) > 1500  # the last batch is ragged
+    assert np.isfinite(out["test_nll_nats_per_frame"]) and out["test_nll_nats_per_frame"] > 0
+    assert modes == [torch.bfloat16] * (2 * n_batches)  # encoder and decoder per batch
+    jcfg = jcommon.load_model(ckpt, "cl_vrnn")[1]  # the JAX package reads the same config
+    assert (jcfg.lstm_backend, jcfg.bf16_compute, jcfg.fusion, jcfg.two_cell) == (
+        cfg.lstm_backend, cfg.bf16_compute, cfg.fusion, cfg.two_cell) == (
+        "pallas", True, (True, True, True), False)
 
 
 def test_unported_options_raise_naming_the_roadmap():

@@ -152,13 +152,14 @@ def test_lstm_dropout_masks_and_unported_backend():
                                dropout_generator=g)
     assert h.shape == (5, 6, 9) and torch.isfinite(h).all()
     # the pallas backend runs the whole-sequence kernels' plain versions on
-    # the CPU; it refuses dropout masks, and its bf16 streams are not ported
+    # the CPU; it refuses dropout masks, and its fusion rungs other than the
+    # default are not ported (in either stream mode)
     with pytest.raises(ValueError, match="dropout"):
         tlstm.lstm_sequence(params_from_numpy(p, "cpu"), T_(x), backend="pallas", dropout=0.5,
                             dropout_generator=g)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tlstm.lstm_sequence(params_from_numpy(p, "cpu"), T_(x), backend="pallas",
-                            compute_dtype=torch.bfloat16)
+                            compute_dtype=torch.bfloat16, fusion=(True, False, False))
 
 
 def _model_problem(backend, B=6, seed=0):
@@ -168,6 +169,9 @@ def _model_problem(backend, B=6, seed=0):
         jcfg = dataclasses.replace(jcfg, lstm_backend="pallas", two_cell=True)
     elif backend == "pallas_two_loop":  # the whole-sequence LSTM kernels
         jcfg = dataclasses.replace(jcfg, lstm_backend="pallas", two_cell=False)
+    elif backend == "pallas_two_loop_bf16":  # their bf16 streams
+        jcfg = dataclasses.replace(jcfg, lstm_backend="pallas", two_cell=False,
+                                   bf16_compute=True)
     elif backend == "two_loop":  # remat sends both packages to the two-loop path
         jcfg = dataclasses.replace(jcfg, remat=True)
     params = jax.tree.map(np.asarray, jcl.init(jax.random.PRNGKey(seed), jcfg))
@@ -182,7 +186,8 @@ def _model_problem(backend, B=6, seed=0):
     return jcfg, tcl.Config(**dataclasses.asdict(jcfg)), params, batch
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas", "two_loop", "pallas_two_loop"])
+@pytest.mark.parametrize("backend", ["xla", "pallas", "two_loop", "pallas_two_loop",
+                                     "pallas_two_loop_bf16"])
 def test_apply_and_loss_match_jax(backend):
     jcfg, tcfg, params, batch = _model_problem(backend)
     noise = {k: batch[k] for k in ("eps_w", "eps_z")}
