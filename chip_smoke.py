@@ -144,7 +144,30 @@ failure:
    within 1e-2 relative), a profile of one evaluation batch,
    ``cli.cl_vrnn_sample`` of it (one bf16 generation launch), and
    ``artifacts/jsball_vrnn4`` with its args flagged bf16 evaluated on
-   ``Piano-midi_Cs`` through the bf16 kernel, its NLL beside phase 10's.
+   ``Piano-midi_Cs`` through the bf16 kernel, its NLL beside phase 10's;
+23. the bf16 stream mode of both two-cell kernels vs their bf16 plain
+   versions at phase 24's shape (B=1,024, T=16, D=88, H=512, L=2, K=13,
+   use_x_prev; the model's seeded Keras init): the f32 forward outputs
+   within 1e-2 x max(1, max|plain|) and 1e-3 relative Frobenius, the bf16
+   streams within one bf16
+   step at their largest entry, every backward output within 1e-2 of its
+   largest entry, types checked (streams and weight gradients bf16, bias
+   sums not rounded); times beside bounds at the bf16 rate;
+24. the bf16 two-cell cl_vrnn the JAX package trains at H=512
+   (``artifacts/two_cell_exp.json`` row ``H512_B1024_bf16``: D=88, L=2,
+   T=16, use_x_prev, B=1,024; 13 keys) trained by ``cli.cl_vrnn_train``
+   with the args.json JAX ``--lstm_backend auto`` writes at this width
+   (pallas, ``bf16_compute``, fusion (T, T, T), ``two_cell`` on): 1 epoch
+   with ``--save_last``, then ``--resume`` to 2 epochs, which goes on at
+   epoch 1 with the saved AdamWN count; each run's bf16 two-cell counts,
+   set to 0 just before and read just after, equal its steps (one forward
+   per train and eval batch, two backward launches per train batch), every
+   other count 0; no plain version on CUDA tensors; 1 epoch of ``xla`` from
+   the same seed (first-epoch loss within 1e-2 relative); a step's split;
+25. that checkpoint downstream: ``cli.evaluate`` through the bf16 LSTM
+   inference kernel and through ``xla`` (NLLs within 1e-3 relative),
+   ``cli.cl_vrnn_sample`` (one bf16 generation launch) and one /generate
+   request through ``cli.serve`` (one bf16 launch).
 
 The run fails if a thread it started is still running at the end.
 
@@ -622,6 +645,23 @@ def sampler_plain_guard(module, name, record):
         setattr(module, name, real)
 
 
+@contextlib.contextmanager
+def recorded_modes(module):
+    """Record every mode a generation wrapper of ``module`` resolves (one
+    per call on CUDA tensors)."""
+    modes, real = [], module._resolve_mode
+
+    def resolve_mode(cfg, mode):
+        modes.append(real(cfg, mode))
+        return modes[-1]
+
+    module._resolve_mode = resolve_mode
+    try:
+        yield modes
+    finally:
+        module._resolve_mode = real
+
+
 def run_train(run, flags, model_dir, reset, read, cli=None, base_flags=TRAIN_FLAGS,
               overrides=None):
     """One run of a train CLI (``cli.cl_vrnn_train`` at the jsball_vrnn4
@@ -640,7 +680,7 @@ def run_train(run, flags, model_dir, reset, read, cli=None, base_flags=TRAIN_FLA
     real_fit, real_epoch = cli.fit, loop.Trainer.train_epoch
 
     def fit(trainer, params, train_data, val_data, **kw):
-        seen.update(trainer=trainer, train=train_data, val=val_data)
+        seen.update(trainer=trainer, train=train_data, val=val_data, fit_kw=kw)
         out = real_fit(trainer, params, train_data, val_data, **kw)
         seen.update(best_params=out[1], history=out[2])
         return out
@@ -2224,10 +2264,6 @@ def phase_evaluate_bf16(ckpt, out_dir, nll_f32):
     launches of the first evaluation."""
     import shutil
 
-    import numpy as np
-
-    from classifying_vae_lstm_tpu_torch.cli import cl_vrnn_sample
-    from classifying_vae_lstm_tpu_torch.ops import cuda_generate as cg
     from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
     from classifying_vae_lstm_tpu_torch.train.checkpoint import load_model_args
 
@@ -2265,30 +2301,327 @@ def phase_evaluate_bf16(ckpt, out_dir, nll_f32):
         require(counts_j == expected and out_j["n_test_examples"] == EVAL_WINDOWS
                 and math.isfinite(nll_j), f"flagged evaluation {out_j}, launches {counts_j}")
 
-    modes, real_mode = [], cg._resolve_mode
+    sample_cl_vrnn_bf16(ckpt, "smoke_bf16", out_dir, "bf16 H=1024")
+    return counts_k[0]
 
-    def resolve_mode(cfg, mode):
-        modes.append(real_mode(cfg, mode))
-        return modes[-1]
 
-    cg._resolve_mode = resolve_mode
-    try:
-        with sampler_plain_guard(cg, "generate_cl_vrnn_batch_plain", plain_on_cuda):
-            cg.LAUNCHES = 0  # counts from here on are this CLI's
-            samples = cl_vrnn_sample.sample(cl_vrnn_sample.build_parser().parse_args(
-                ["smoke_bf16", "-i", ckpt, "--infer_w", "-n", "4", "--train_file", CORPUS,
-                 "--sample_dir", out_dir]))
-            launches = cg.LAUNCHES
-    finally:
-        cg._resolve_mode = real_mode
-    print(f"cl_vrnn_sample of the bf16 H=1024 checkpoint: {samples.shape[0]} songs x "
+# the bf16 two-cell cl_vrnn of the JAX package's scale work at H=512
+# (artifacts/two_cell_exp.json row H512_B1024_bf16, tools/bench_train_scale.py:
+# D=88, L=2, T=16, use_x_prev, B=1024), with the 13 keys of the committed
+# corpus in place of its K=10
+H512_H, H512_B = 512, 1024
+H512_FLAGS = ["--train_file", CORPUS, "--intermediate_dim", str(H512_H), "--latent_dim",
+              str(BF16_L), "--seq_length", str(TRAIN_T), "--batch_size", str(H512_B),
+              "--use_x_prev", "--patience", "0", "--two_cell", "on"]
+# what the JAX package's --lstm_backend auto writes into args.json at H=512
+# on a TPU (its two-cell gate is 256 <= H < 1024)
+AUTO_H512 = {"lstm_backend": "pallas", "bf16_compute": True, "fusion": [True, True, True],
+             "two_cell": True}
+TWO_CELL_PLAIN = ("two_cell_fwd_plain", "two_cell_bwd_plain")
+
+
+def bf16_step_at_max(t) -> float:
+    """One bf16 step (ulp) at the largest magnitude of ``t``."""
+    m = t.float().abs().max().item()
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
+def phase_two_cell_bf16(dev):
+    """The bf16 stream mode of both two-cell kernels against their bf16
+    plain versions at phase 24's shape (B=1,024, T=16, D=88, H=512, L=2,
+    K=13, use_x_prev) on the model's seeded Keras init. Forward: the f32
+    outputs (hd, zargs, the c streams) within 1e-2 x max(1, max|plain|) and
+    1e-3 relative Frobenius (an h or z operand that lands on the other bf16
+    neighbour moves its row's later steps), the bf16 streams (ze, zd, hpe,
+    he, hpd) within one bf16 step at their largest entry; backward: every output within 1e-2 of its largest entry;
+    output types checked, the streams and the six weight gradients bf16,
+    the bias sums not rounded. Returns the kernel-table fields of each, with
+    bounds at the bf16 rate."""
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.models import cl_vrnn
+    from classifying_vae_lstm_tpu_torch.ops import two_cell as tc
+
+    B, T, D, H, L, K = H512_B, TRAIN_T, 88, H512_H, BF16_L, TRAIN_K
+    cfg = cl_vrnn.Config(original_dim=D, intermediate_dim=H, latent_dim=L, seq_length=T,
+                         n_classes=K, use_x_prev=True, lstm_backend="pallas",
+                         bf16_compute=True, two_cell=True)
+    params = cl_vrnn.init(torch.Generator(device=dev).manual_seed(SEED + 11), cfg)
+    rng = np.random.default_rng(SEED + 11)
+    f = lambda a: torch.from_numpy(a).to(dev)
+    x = f((rng.random((B, T, D)) < 0.1).astype(np.float32))
+    xp = f((rng.random((B, T, D)) < 0.1).astype(np.float32))
+    W = torch.softmax(f(rng.standard_normal((B, K)).astype(np.float32)), -1)
+    eps = f(rng.standard_normal((B, T, L)).astype(np.float32))
+    ins = tc.pack_inputs(params, cfg, x, xp, W, eps, torch.bfloat16)
+    b16, f32 = torch.bfloat16, torch.float32
+    representable = lambda t: torch.equal(t.float(), t.float().bfloat16().float())
+
+    outs = tc.two_cell_fwd(*ins)
+    ref = tc.two_cell_fwd_plain(*ins)
+    torch.cuda.synchronize()
+    names = ("hd", "zargs", "ze", "zd", "hpe", "cpe", "ce", "he", "hpd", "cpd", "cd")
+    streams = {"ze", "zd", "hpe", "he", "hpd"}
+    errs, bad = {}, []
+    for n, k, p in zip(names, outs, ref):
+        want = b16 if n in streams else f32
+        err = (k.float() - p.float()).abs().max().item()
+        fro = ((k.float() - p.float()).norm() / p.float().norm().clamp_min(1e-30)).item()
+        if n in streams:
+            ok = err <= bf16_step_at_max(p) and representable(k)
+        else:
+            ok = err <= 1e-2 * max(1.0, p.abs().max().item()) and fro <= 1e-3
+        errs[n] = (err, fro)
+        if not (k.dtype == p.dtype == want and ok and math.isfinite(err)):
+            bad.append((n, str(k.dtype), err, fro))
+    print(f"two-cell bf16 forward, B={B} T={T} H={H} L={L} K={K}: max |kernel - plain| "
+          f"(relative Frobenius) {_fmt_errs(errs)}; limits: f32 outputs 1e-2 x max(1, "
+          "max|plain|) and 1e-3 relative (phase 20's bf16 bounds), bf16 streams one bf16 step at "
+          "their largest entry")
+    require(not bad, f"two-cell bf16 forward differs: {bad}")
+    fwd_err = max(e for e, _ in errs.values())
+
+    (xe, xd, eps_t, we, be, rke, wdx, bd, rkd, kz, wz, bz, *_) = ins
+    hd, zargs, ze, zd, hpe, cpe, ce, he, hpd, cpd, cd = ref
+    dhd = f((1e-2 * rng.standard_normal(tuple(hd.shape))).astype(np.float32))
+    dza = f((1e-2 * rng.standard_normal(tuple(zargs.shape))).astype(np.float32))
+    res = (ze, zd, cpe, ce, cpd, cd, hpe, he, hpd, eps_t, zargs, xe, xd, dhd, dza,
+           we, rke, wdx, rkd, kz, wz)
+    got = tc.two_cell_bwd(*res)
+    want = tc.two_cell_bwd_plain(*res)
+    torch.cuda.synchronize()
+    gnames = ("dxe", "dxd", "dh0e", "dc0e", "dh0d", "dc0d", "drke", "drkd", "dwe", "dwdx", "dkz",
+              "dwz", "dbe", "dbd", "dbz")
+    rounded = {"dxe", "dxd", "drke", "drkd", "dwe", "dwdx", "dkz", "dwz"}
+    rel, bad = {}, []
+    for n, g, w in zip(gnames, got, want):
+        err, scale = (g.float() - w.float()).abs().max().item(), w.float().abs().max().item()
+        rel[n] = err / max(scale, 1e-30)
+        types_ok = g.dtype == w.dtype == (b16 if n in rounded else f32)
+        if not (types_ok and err <= 1e-2 * scale and math.isfinite(err)
+                and (n not in rounded or representable(g))):
+            bad.append((n, str(g.dtype), err, scale))
+    unrounded = [n for n in ("dbe", "dbd", "dbz") if not representable(got[gnames.index(n)])]
+    print("two-cell bf16 backward: max |kernel - plain| / max|plain| per output: "
+          + ", ".join(f"{n} {rel[n]:.2e}" for n in gnames)
+          + f" (limit 1e-2); bf16 outputs {sorted(rounded)}; bias sums not rounded: {unrounded}")
+    require(not bad, f"two-cell bf16 backward differs: {bad}")
+    require(unrounded == ["dbe", "dbd", "dbz"], f"bias sums rounded to bf16: {unrounded}")
+    bwd_err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+
+    fk_ms = time_ms(lambda: tc.two_cell_fwd(*ins), reps=10, warm=2)
+    fp_ms = time_ms(lambda: tc.two_cell_fwd_plain(*ins), reps=3)
+    bk_ms = time_ms(lambda: tc.two_cell_bwd(*res), reps=10, warm=2)
+    bp_ms = time_ms(lambda: tc.two_cell_bwd_plain(*res), reps=3)
+    INe, INd, R = xe.shape[-1], xd.shape[-1], T * B
+    fwd_fmas = R * ((INe + H) * 4 * H + H * 2 * L + (INd + L + H) * 4 * H)
+    fb_ms, fb_by = roofline_ms(fwd_fmas, _nbytes(ins) + _nbytes(outs), PEAK_BF16_FLOPS)
+    bwd_fmas = R * (4 * H * (H + INd + L) + 2 * L * H + 4 * H * (H + INe)
+                    + 4 * H * (2 * H + INe + INd + L + 2) + 2 * L * (H + 1))
+    bb_ms, bb_by = roofline_ms(bwd_fmas, _nbytes(res) + _nbytes(got), PEAK_BF16_FLOPS)
+    print(f"two-cell bf16 forward kernel {fk_ms:.3f} ms, plain {fp_ms:.3f} ms, bound "
+          f"{fb_ms:.4f} ms ({fb_by}, bf16 rate); backward kernel (2 launches) {bk_ms:.3f} ms, "
+          f"plain {bp_ms:.3f} ms, bound {bb_ms:.4f} ms ({bb_by}, bf16 rate)")
+    del outs, ref, got, want, res, ins
+    torch.cuda.empty_cache()
+    return ({"max_abs_err": fwd_err, "ms": fk_ms, "plain_ms": fp_ms, "bound_ms": fb_ms,
+             "bound_by": fb_by},
+            {"max_abs_err": bwd_err, "ms": bk_ms, "plain_ms": bp_ms, "bound_ms": bb_ms,
+             "bound_by": bb_by})
+
+
+def _h512_counts():
+    """(bf16 two-cell forward, bf16 two-cell backward) + :func:`_lstm_counts`."""
+    from classifying_vae_lstm_tpu_torch.ops import two_cell as tc
+
+    return (tc.BF16_FWD_LAUNCHES, tc.BF16_BWD_LAUNCHES, *_lstm_counts())
+
+
+def _reset_h512_counts():
+    from classifying_vae_lstm_tpu_torch.ops import two_cell as tc
+
+    _reset_lstm_counts()
+    tc.BF16_FWD_LAUNCHES = tc.BF16_BWD_LAUNCHES = 0
+
+
+def phase_train_two_cell_bf16(model_dir):
+    """The bf16 two-cell cl_vrnn at H=512 trained through the bf16 streams of
+    the two-cell kernels by ``cli.cl_vrnn_train`` with the args the JAX
+    package's ``--lstm_backend auto`` writes at this width: 1 epoch with
+    ``--save_last``, then ``--resume`` for 1 more epoch (the run goes on at
+    epoch 1 with the saved AdamWN count), then 1 epoch of the ``xla`` route
+    from the same seed. Returns the bf16 forward and backward launches of the
+    two kernel runs and what the resumed run left."""
+    from classifying_vae_lstm_tpu_torch.cli import common
+    from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
+    from classifying_vae_lstm_tpu_torch.ops import two_cell as tc
+    from classifying_vae_lstm_tpu_torch.train.checkpoint import load_model_args, load_opt_state
+
+    plain_on_cuda, runs = [], {}
+    opt_file = os.path.join(model_dir, "h512_bf16.last.opt.npz")
+    with plain_guard(tc, TWO_CELL_PLAIN, plain_on_cuda), \
+            plain_guard(ls, LSTM_SEQ_PLAIN, plain_on_cuda):
+        for label, flags in (("first", ["--num_epochs", "1", "--save_last"]),
+                             ("resumed", ["--num_epochs", "2", "--resume"])):
+            args, counts, seen, epoch_s, wall = run_train(
+                "h512_bf16", [*flags, "--lstm_backend", "pallas"], model_dir,
+                _reset_h512_counts, _h512_counts, base_flags=H512_FLAGS,
+                overrides={"bf16_compute": True})
+            leaves, epoch = load_opt_state(opt_file)
+            runs[label] = (args, counts, seen, epoch_s, wall, int(leaves[0]), epoch)
+        args_x, counts_x, seen_x, epoch_x, wall_x = run_train(
+            "h512_bf16_xla", ["--num_epochs", "1", "--lstm_backend", "xla"], model_dir,
+            _reset_h512_counts, _h512_counts, base_flags=H512_FLAGS,
+            overrides={"bf16_compute": True})
+    n_train, n_val = (len(runs["first"][2][k]["x"]) // H512_B for k in ("train", "val"))
+    expected = (n_train + n_val, 2 * n_train, 0, 0, 0, 0, 0, 0, 0, 0)
+    for label, (args, counts, seen, epoch_s, wall, count, epoch) in runs.items():
+        hist = seen["history"]
+        print(f"bf16 two-cell H=512 {label} run: epochs {len(hist['loss'])} of {args.num_epochs} "
+              f"({n_train} train + {n_val} eval steps each) in {wall:.2f} s; loss "
+              f"{hist['loss']}, val_loss {hist['val_loss']}; ms per step (host clock, epoch "
+              f"synchronised) {[round(s * 1e3 / n_train, 3) for s in epoch_s]}; epoch s "
+              f"{[round(s, 3) for s in epoch_s]}; launches (bf16 two-cell forward, backward; "
+              f"{LSTM_COUNTS}) {counts} (expected {expected}); .last.opt.npz count {count}, "
+              f"epoch {epoch}")
+        require(all(math.isfinite(v) for vals in hist.values() for v in vals), "non-finite loss")
+        require(counts == expected, f"{label} run launches {counts} != {expected}")
+    kw = runs["resumed"][2]["fit_kw"]
+    first_count, resumed = runs["first"][5], runs["resumed"]
+    require((runs["first"][6], first_count) == (1, n_train),
+            f"first run saved epoch {runs['first'][6]}, count {first_count}")
+    require(kw.get("initial_epoch") == 1 and int(kw["opt_state"][0]) == first_count,
+            f"resumed run began at epoch {kw.get('initial_epoch')}")
+    require((resumed[6], resumed[5]) == (2, 2 * n_train) and len(resumed[2]["history"]["loss"])
+            == 1, f"resumed run saved epoch {resumed[6]}, count {resumed[5]}")
+    loss0, loss1 = runs["first"][2]["history"]["loss"][0], resumed[2]["history"]["loss"][0]
+    require(loss1 < loss0, f"train loss did not fall across the resume: {loss0} -> {loss1}")
+    print(f"resume: the second run began at epoch {kw['initial_epoch']} with the saved AdamWN "
+          f"count {int(kw['opt_state'][0])} and left epoch {resumed[6]}, count {resumed[5]}; "
+          f"train loss {loss0!r} -> {loss1!r}")
+    margs = load_model_args(resumed[2]["ckpt"])
+    cfg = common.cl_vrnn_config_from_args(margs)
+    require({k: margs[k] for k in AUTO_H512} == AUTO_H512, f"args.json {margs}")
+    require((cfg.intermediate_dim, cfg.bf16_compute, cfg.lstm_backend, cfg.fusion, cfg.two_cell,
+             cfg.n_classes) == (H512_H, True, "pallas", (True, True, True), True, TRAIN_K),
+            f"config read back {cfg}")
+
+    _report_train("bf16 H=512 --lstm_backend xla", args_x, seen_x, epoch_x, wall_x)
+    require(not any(counts_x), f"the xla route launched kernels: {counts_x}")
+    require(not plain_on_cuda, f"plain versions ran on CUDA tensors: {plain_on_cuda}")
+    loss_x = seen_x["history"]["loss"][0]
+    rel = abs(loss0 - loss_x) / abs(loss_x)
+    epoch_k = runs["first"][3]
+    print(f"bf16 two-cell H=512 first epoch train loss: pallas {loss0!r}, xla {loss_x!r}, "
+          f"relative difference {rel:.3e} (limit 1e-2: the routes round at different places); "
+          f"ms per step, first epoch: pallas {epoch_k[0] * 1e3 / n_train:.3f}, xla "
+          f"{epoch_x[0] * 1e3 / n_train:.3f}")
+    require(rel <= 1e-2, f"first-epoch losses differ by {rel}")
+    seen = resumed[2]
+    seen.update(step_ms=resumed[3][-1] * 1e3 / n_train)
+    fwd = sum(r[1][0] for r in runs.values())
+    bwd = sum(r[1][1] for r in runs.values())
+    return fwd, bwd, seen
+
+
+def serve_one_request(ckpt, label):
+    """``cli.serve`` of ``ckpt`` (no warm-up) answers one /generate request
+    over HTTP with one launch of the generation kernel in its bf16 mode."""
+    import numpy as np
+
+    from classifying_vae_lstm_tpu_torch.cli import serve
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate as cg
+
+    args = serve.build_parser().parse_args(["-i", ckpt, "--train_file", CORPUS, "--warmup", "off",
+                                            "--port", "0"])
+    plain_on_cuda = []
+    with recorded_modes(cg) as modes, \
+            sampler_plain_guard(cg, "generate_cl_vrnn_batch_plain", plain_on_cuda):
+        httpd, _ = serve.make_server(args)
+        cg.LAUNCHES = 0  # counts from here on are this request's
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        try:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{httpd.server_address[1]}/generate",
+                data=json.dumps({"n": 2, "t": 32}).encode(),
+                headers={"Content-Type": "application/json"})
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=120) as r:
+                status, out = r.status, json.load(r)
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        launches = cg.LAUNCHES
+    rolls = np.asarray(out["rolls"])
+    print(f"serve the {label} checkpoint: one /generate {{n: 2, t: 32}} -> HTTP {status} in "
+          f"{ms:.3f} ms (client clock), rolls {rolls.shape}, {launches} launch in modes {modes}")
+    require(status == 200 and rolls.shape == (2, 32, 88)
+            and set(np.unique(rolls).tolist()) <= {0, 1}, f"/generate rolls {rolls.shape}")
+    require(launches == 1 and modes == ["bf16"], f"serve launches {launches}, modes {modes}")
+    require(not plain_on_cuda, f"plain versions ran on CUDA tensors: {plain_on_cuda}")
+
+
+def phase_evaluate_two_cell_bf16(ckpt, out_dir):
+    """Phase 24's checkpoint downstream: ``cli.evaluate`` through the bf16
+    inference kernel (``--lstm_backend keep``, 2 launches per batch, no
+    two-cell launch) and through ``xla`` (NLLs within 1e-3 relative),
+    ``cli.cl_vrnn_sample`` of it (one bf16 generation launch) and one
+    /generate request through ``cli.serve``."""
+    from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
+    from classifying_vae_lstm_tpu_torch.ops import two_cell as tc
+
+    common_argv = ["--n_samples", str(EVAL_SAMPLES), "--batch_size", str(EVAL_B)]
+    expected = (2 * -(-EVAL_WINDOWS // EVAL_B), 0, 0, 0, 0, 0, 0, 0)
+    plain_on_cuda = []
+    with plain_guard(ls, LSTM_SEQ_PLAIN, plain_on_cuda):
+        tc.BF16_FWD_LAUNCHES = tc.BF16_BWD_LAUNCHES = 0
+        out_k, counts_k, nll_k, _, wall_k = _evaluate_counted(
+            ["-i", ckpt, "--train_file", CORPUS, "--lstm_backend", "keep", *common_argv])
+        out_x, counts_x, nll_x, _, wall_x = _evaluate_counted(
+            ["-i", ckpt, "--train_file", CORPUS, "--lstm_backend", "xla", *common_argv])
+        two_cell = (tc.BF16_FWD_LAUNCHES, tc.BF16_BWD_LAUNCHES)
+    rel = abs(nll_k - nll_x) / abs(nll_x)
+    print(f"evaluate the bf16 two-cell H=512 checkpoint on {CORPUS} "
+          f"({out_k['n_test_examples']} windows, {EVAL_SAMPLES} samples, batches of {EVAL_B}): "
+          f"keep (bf16 LSTM kernels) NLL {nll_k!r} in {wall_k:.3f} s, launches {counts_k} "
+          f"(expected {expected}); xla NLL {nll_x!r} in {wall_x:.3f} s, launches {counts_x}; "
+          f"relative difference {rel:.3e} (limit 1e-3); bf16 two-cell launches {two_cell}")
+    require(out_k["n_test_examples"] == out_x["n_test_examples"] == EVAL_WINDOWS,
+            f"test windows {out_k['n_test_examples']}, {out_x['n_test_examples']}")
+    require(counts_k == expected and not any(counts_x) and two_cell == (0, 0),
+            f"evaluation launches {counts_k}, {counts_x}, {two_cell}")
+    require(math.isfinite(nll_k) and rel <= 1e-3, f"NLLs differ: {nll_k} vs {nll_x}")
+    require(not plain_on_cuda, f"plain versions ran on CUDA tensors: {plain_on_cuda}")
+    sample_cl_vrnn_bf16(ckpt, "smoke_h512", out_dir, "bf16 two-cell H=512")
+    serve_one_request(ckpt, "bf16 two-cell H=512")
+
+
+def sample_cl_vrnn_bf16(ckpt, run_name, out_dir, label):
+    """``cli.cl_vrnn_sample`` of a bf16 checkpoint: 4 songs, one launch of
+    the generation kernel, in its bf16 mode, and no plain version on a CUDA
+    tensor."""
+    import numpy as np
+
+    from classifying_vae_lstm_tpu_torch.cli import cl_vrnn_sample
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate as cg
+
+    plain_on_cuda = []
+    with recorded_modes(cg) as modes, \
+            sampler_plain_guard(cg, "generate_cl_vrnn_batch_plain", plain_on_cuda):
+        cg.LAUNCHES = 0  # counts from here on are this CLI's
+        samples = cl_vrnn_sample.sample(cl_vrnn_sample.build_parser().parse_args(
+            [run_name, "-i", ckpt, "--infer_w", "-n", "4", "--train_file", CORPUS,
+             "--sample_dir", out_dir]))
+        launches = cg.LAUNCHES
+    print(f"cl_vrnn_sample of the {label} checkpoint: {samples.shape[0]} songs x "
           f"{samples.shape[1]} frames, {launches} launch in modes {modes}, "
           f"{int(samples.sum())} notes on")
     require(samples.shape[0] == 4 and set(np.unique(samples).tolist()) <= {0, 1},
             f"samples {samples.shape}")
     require(launches == 1 and modes == ["bf16"], f"sample launches {launches}, modes {modes}")
     require(not plain_on_cuda, f"plain versions ran on CUDA tensors: {plain_on_cuda}")
-    return counts_k[0]
 
 
 def main() -> int:
@@ -2340,6 +2673,11 @@ def main() -> int:
         bf16_train_fwd, bf16_bwd_launches, seen_h = phase_train_bf16(model_dir)
         phase_train_breakdown(seen_h, "LSTM kernels", "lstm_seq")
         bf16_eval = phase_evaluate_bf16(seen_h["ckpt"], sample_dir, nll_f32)
+    tc16 = phase_two_cell_bf16(dev)
+    with tempfile.TemporaryDirectory() as model_dir, tempfile.TemporaryDirectory() as sample_dir:
+        tc16_fwd, tc16_bwd, seen_tc = phase_train_two_cell_bf16(model_dir)
+        phase_train_breakdown(seen_tc, "two-cell kernels", "two_cell")
+        phase_evaluate_two_cell_bf16(seen_tc["ckpt"], sample_dir)
     source = "classifying_vae_lstm_tpu_torch/csrc/two_cell.cu"
     lstm_source = "classifying_vae_lstm_tpu_torch/csrc/lstm_seq.cu"
     pallas_lstm = "classifying_vae_lstm_tpu/ops/pallas_lstm.py"
@@ -2407,13 +2745,21 @@ def main() -> int:
         "name": "lstm_seq_bwd_bf16", "route": "cuda", "source": lstm_source,
         "replaces": f"{pallas_lstm}:986", "launches": bf16_bwd_launches, **lstm16["bwd"],
         "library_ms": None,
+    }, {
+        "name": "two_cell_fwd_bf16", "route": "cuda", "source": source,
+        "replaces": "classifying_vae_lstm_tpu/ops/pallas_two_cell.py:129",
+        "launches": tc16_fwd, **tc16[0], "library_ms": None,
+    }, {
+        "name": "two_cell_bwd_bf16", "route": "cuda", "source": source,
+        "replaces": "classifying_vae_lstm_tpu/ops/pallas_two_cell.py:295",
+        "launches": tc16_bwd, **tc16[1], "library_ms": None,
     }]
     # every thread this run started has ended (the servers' threads are
     # daemons and shut down), so the interpreter exits with main's code
     alive = [t.name for t in threading.enumerate()
              if t is not threading.main_thread() and not t.daemon]
     require(not alive, f"threads still running: {alive}")
-    print(f"chip_smoke: all 22 phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: all 25 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

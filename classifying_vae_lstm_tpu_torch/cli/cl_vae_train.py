@@ -11,8 +11,9 @@ wherever they accept the config, and falls to ``xla`` where they do not (a
 ``--vanilla`` model, no hidden layers), as the JAX CLI does; ``xla`` (and
 ``auto``, which resolves to it) trains through plain PyTorch. The resolved
 backend is printed and recorded in args.json. The checkpoint triple
-``<model_dir>/<run>.{json,yaml,npz}`` loads in both packages. Flags whose
-modules are not ported yet raise.
+``<model_dir>/<run>.{json,yaml,npz}`` loads in both packages, and so do
+``--save_last``'s ``<run>.last.npz`` and ``<run>.last.opt.npz``, which
+``--resume`` reads. Flags whose modules are not ported yet raise.
 """
 
 from __future__ import annotations
@@ -78,6 +79,7 @@ def train(args):
     params = cl_vae.init(generator, cfg)
     ckpt_path = save_model_in_pieces(params, args)
     data = common.build_cl_vae_datasets(P, args.n_classes, args.use_x_prev, device)
+    params, resume_kwargs = common.maybe_resume(args, ckpt_path, params)
 
     trainer = Trainer(functools.partial(_loss, cfg), optimizer, batch_size=args.batch_size)
     _, best_params, _, best_loss = fit(
@@ -93,6 +95,8 @@ def train(args):
         patience=args.patience,
         min_epoch=min_epoch,
         checkpoint_path=ckpt_path,
+        save_last=args.save_last or args.resume,
+        **resume_kwargs,
     )
     print({k: round(v, 4) for k, v in best_loss.items()})
     return best_params, best_loss
@@ -134,8 +138,10 @@ def build_parser():
     parser.add_argument("--train_file", type=str, default=common.DEFAULT_TRAIN_FILE,
                         help="file of training data (.pickle)")
     parser.add_argument("--seed", type=int, default=0, help="seed of the run's torch.Generator")
-    parser.add_argument("--resume", action="store_true", help="not ported: raises")
-    parser.add_argument("--save_last", action="store_true", help="not ported: raises")
+    parser.add_argument("--resume", action="store_true",
+                        help="resume from <run>.last.npz with optimizer state (extension)")
+    parser.add_argument("--save_last", action="store_true",
+                        help="write <run>.last.npz (+opt state) every epoch for resume (extension)")
     parser.add_argument("--trace_dir", type=str, default=None, help="not ported: raises")
     parser.add_argument("--check_numerics", action="store_true", help="not ported: raises")
     parser.add_argument("--streaming", action="store_true", help="not ported: raises")

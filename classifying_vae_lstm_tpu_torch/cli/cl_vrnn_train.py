@@ -12,7 +12,10 @@ CPU), or with ``--two_cell off`` through the whole-sequence LSTM kernels
 inference forward for the eval batches); ``xla`` (and ``auto``, which
 resolves to it) trains through plain PyTorch.
 The checkpoint triple ``<model_dir>/<run>.{json,yaml,npz}`` loads in both
-packages. Flags whose modules are not ported yet raise.
+packages, and so do ``--save_last``'s ``<run>.last.npz`` and its optimizer
+state ``<run>.last.opt.npz``, which ``--resume`` reads: a run started by
+either package goes on in the other. Flags whose modules are not ported yet
+raise.
 """
 
 from __future__ import annotations
@@ -87,6 +90,7 @@ def train(args):
     ckpt_path = save_model_in_pieces(params, args)
     data = common.build_cl_vrnn_datasets(P, args.n_classes, args.use_x_prev, device)
     print((P.x_train.shape, P.y_train.shape))
+    params, resume_kwargs = common.maybe_resume(args, ckpt_path, params)
 
     trainer = Trainer(functools.partial(_loss, cfg), optimizer, batch_size=args.batch_size)
     _, best_params, history, _ = fit(
@@ -102,6 +106,8 @@ def train(args):
         patience=args.patience,
         min_epoch=min_epoch_cb,
         checkpoint_path=ckpt_path,
+        save_last=args.save_last or args.resume,
+        **resume_kwargs,
     )
     val_losses = history.get("val_loss", [])
     masked = [v if i >= min_epoch_best else np.inf for i, v in enumerate(val_losses)]
@@ -147,8 +153,10 @@ def build_parser():
     parser.add_argument("--train_file", type=str, default=common.DEFAULT_TRAIN_FILE,
                         help="file of training data (.pickle)")
     parser.add_argument("--seed", type=int, default=0, help="seed of the run's torch.Generator")
-    parser.add_argument("--resume", action="store_true", help="not ported: raises")
-    parser.add_argument("--save_last", action="store_true", help="not ported: raises")
+    parser.add_argument("--resume", action="store_true",
+                        help="resume from <run>.last.npz with optimizer state (extension)")
+    parser.add_argument("--save_last", action="store_true",
+                        help="write <run>.last.npz (+opt state) every epoch for resume (extension)")
     parser.add_argument("--trace_dir", type=str, default=None, help="not ported: raises")
     parser.add_argument("--check_numerics", action="store_true", help="not ported: raises")
     parser.add_argument("--lstm_backend", type=str, default="xla",

@@ -8,6 +8,7 @@ holds the weights.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -15,7 +16,8 @@ import torch
 from ..data import PianoData
 from ..data.pianoroll import to_categorical
 from ..models import cl_vae, cl_vrnn
-from ..train.checkpoint import load_checkpoint, load_model_args
+from ..train.checkpoint import load_checkpoint, load_model_args, load_opt_state, sorted_leaves
+from ..weights import params_from_numpy
 
 # the corpus shipped with the repository (training data, seed windows for serving)
 DEFAULT_TRAIN_FILE = "data/input/Piano-midi_all.pickle"
@@ -25,10 +27,6 @@ DEFAULT_TRAIN_FILE = "data/input/Piano-midi_all.pickle"
 UNPORTED_FLAGS = {
     "dp": "--dp (data parallelism) is not ported yet: ROADMAP Queue 1 item 14",
     "streaming": "--streaming (host-streamed batches, data/loader.py) is not ported yet: "
-                 "ROADMAP Queue 1 item 7",
-    "resume": "--resume (optimizer state in <run>.opt.npz) is not ported yet: "
-              "ROADMAP Queue 1 item 7",
-    "save_last": "--save_last (<run>.last.npz with optimizer state) is not ported yet: "
                  "ROADMAP Queue 1 item 7",
     "data_init": "--data_init (optim/data_init.py) is not ported yet: ROADMAP Queue 1 item 6",
     "check_numerics": "--check_numerics (train/debug.py) is not ported yet: "
@@ -139,6 +137,26 @@ def resolve_gen_backend(cfg, choice: str = "auto"):
     if choice == "keep":
         return cfg
     return dataclasses.replace(cfg, gen_backend="xla" if choice == "auto" else choice)
+
+
+def maybe_resume(args, ckpt_path: str, params):
+    """``--resume``, as the JAX package's ``maybe_resume``: with the flag and
+    an existing ``<run>.last.npz``, its parameters (on the device of
+    ``params``) replace ``params``, and its ``.opt.npz``, where present,
+    gives the optimizer state and the epoch to go on from. Returns (params,
+    the keyword arguments of :func:`..train.loop.fit`). Both packages write
+    these files alike, so a run resumes across them."""
+    last = ckpt_path.replace(".npz", ".last.npz")
+    opt_file = last.replace(".npz", ".opt.npz")
+    if not getattr(args, "resume", False) or not os.path.exists(last):
+        return params, {}
+    params = params_from_numpy(load_checkpoint(last), sorted_leaves(params)[0].device)
+    kwargs = {}
+    if os.path.exists(opt_file):
+        opt_state, epoch = load_opt_state(opt_file)
+        kwargs = {"opt_state": opt_state, "initial_epoch": epoch}
+        print(f"resuming from {last} at epoch {epoch}")
+    return params, kwargs
 
 
 def load_model(model_file: str, family: str, no_x_prev: bool = False):

@@ -1,10 +1,13 @@
-// Two-cell (encoder + decoder) cl_vrnn training kernels for Hopper (sm_90a), f32.
+// Two-cell (encoder + decoder) cl_vrnn training kernels for Hopper (sm_90a), f32 and
+// bf16 streams.
 //
 // Replaces: classifying_vae_lstm_tpu/ops/pallas_two_cell.py
-//   * :272 `_fwd_call` -> `_fwd_kernel` :129 with `two_cell_fwd_kernel` below;
-//   * :408 `_bwd_call` -> `_bwd_kernel` :295 with `two_cell_bwd_kernel` (the
+//   * :272 `_fwd_call` -> `_fwd_kernel` :129 with `two_cell_fwd_kernel<S>` below;
+//   * :408 `_bwd_call` -> `_bwd_kernel` :295 with `two_cell_bwd_kernel<S>` (the
 //     serial reverse walk) followed by `wgrad_kernel<two_cell_wgrad>` (the
 //     weight gradients, csrc/wgrad.cuh): one ported kernel, two launches.
+// Both in the f32 mode (S = float) and in the bf16 stream mode
+// (`compute_dtype=bf16`, S = __nv_bfloat16), described at the end of this note.
 //
 // What it computes, per batch row and time step t = 0 .. T-1:
 //   ze = xe[t] @ We + be + h_e @ Rk_e;  (h_e, c_e) = gates(ze, c_e)
@@ -53,6 +56,32 @@
 // the weights across a cluster's SMs and wgmma are later work. Plain FFMA
 // keeps f32 exact to the JAX side's precision="highest" (no TF32).
 
+//
+// The bf16 stream mode. As `two_cell_sequence` :558-581 casts them outside
+// its custom vjp, the x streams (xe, xd) and the six weight matrices (We,
+// Rk_e, Wdx, Rk_d, Kz, Wz) arrive in bf16; the biases, eps, the initial
+// states and the c streams stay f32. Operands widen to f32 on load and the
+// products stay FFMA with f32 sums; h, c, z and the carries live in shared
+// memory in f32, so the shared-memory layout is the same in both modes.
+// Rounding happens where the Pallas bodies round (`mm` :150 and :315 cast
+// the left operand, `acc` :317 both):
+// * h as an operand: the h tiles hold the rounded h, which is also the
+//   hpe, he and hpd streams; the decoder's unrounded h is written to hd
+//   (f32) before it is rounded. The gates read the unrounded z sums.
+// * z (the sampled latent) as the operand of z @ Kz; zargs stays f32.
+// * ze and zd as they are stored (the backward's gates read them rounded).
+// * In the backward, dz_e, dz_d and dzargs as the operands of their serial
+//   products (the tiles); dxe and dxd as stored. The dz scratch stays f32
+//   and unrounded, because db sums the unrounded dz.
+// * The six weight gradients: the weight-gradient pass rounds both operands
+//   as it stages them, sums in f32 and stores C rounded, as bf16 (`bf16`
+//   jobs of wgrad.cuh), as `_core_bwd` :514-516 casts the f32 sums; the
+//   bias sums take no flag. An f32 launch has no flagged job, so it keeps
+//   the flag-free instance of the weight-gradient kernel.
+// bf16 halves the L2 stream of the weights; the FMAs still run at the f32
+// rate, so the bf16 tensor-core bound is ~15x below this form's reach.
+
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -66,42 +95,47 @@ constexpr int kSlices = 2;                  // a product's K is split between tw
 constexpr int kUnits = kThreads / kSlices;  // output columns per pass
 constexpr int kWarps = kThreads / 32;
 
+// S is the stream type: float, or __nv_bfloat16 in the bf16 mode
+template <typename S>
 struct FwdArgs {
-  const float* xe;    // [T, B, INe]  x || w
-  const float* xd;    // [T, B, INd]  [x_prev ||] w
+  const S* xe;        // [T, B, INe]  x || w
+  const S* xd;        // [T, B, INd]  [x_prev ||] w
   const float* eps;   // [T, B, L]
-  const float* we;    // [INe, 4H]
+  const S* we;        // [INe, 4H]
   const float* be;    // [4H]
-  const float* rke;   // [H, 4H]
-  const float* wdx;   // [INd, 4H]
+  const S* rke;       // [H, 4H]
+  const S* wdx;       // [INd, 4H]
   const float* bd;    // [4H]
-  const float* rkd;   // [H, 4H]
-  const float* kz;    // [L, 4H]
-  const float* wz_t;  // [2L, H]  Z_mean | Z_log_var kernels, transposed
+  const S* rkd;       // [H, 4H]
+  const S* kz;        // [L, 4H]
+  const S* wz_t;      // [2L, H]  Z_mean | Z_log_var kernels, transposed
   const float* bz;    // [2L]
   const float *h0e, *c0e, *h0d, *c0d;  // [B, H]
   float* hd;     // [T, B, H]
   float* zargs;  // [T, B, 2L]
-  float *ze, *zd;                       // [T, B, 4H]
-  float *hpe, *cpe, *ce, *he;           // [T, B, H]
-  float *hpd, *cpd, *cd;                // [T, B, H]
+  S *ze, *zd;                           // [T, B, 4H]
+  S* hpe;                               // [T, B, H]
+  float *cpe, *ce;                      // [T, B, H]
+  S *he, *hpd;                          // [T, B, H]
+  float *cpd, *cd;                      // [T, B, H]
   int T, B, INe, INd, H, L;
 };
 
+template <typename S>
 struct BwdArgs {
-  const float *ze, *zd;                          // [T, B, 4H]
+  const S *ze, *zd;                              // [T, B, 4H]
   const float *cpe, *ce, *cpd, *cd;              // [T, B, H]
   const float* eps;                              // [T, B, L]
   const float* zargs;                            // [T, B, 2L]
   const float* dhd;                              // [T, B, H]
   const float* dzargs;                           // [T, B, 2L]
-  const float* wd_t;  // [4H, H + INd + L]  (Rk_d | Wdx | Kz) transposed
-  const float* we_t;  // [4H, H + INe]      (Rk_e | We) transposed
-  const float* wz;    // [H, 2L]
-  float *dxe, *dxd;                      // [T, B, INe], [T, B, INd]
+  const S* wd_t;  // [4H, H + INd + L]  (Rk_d | Wdx | Kz) transposed
+  const S* we_t;  // [4H, H + INe]      (Rk_e | We) transposed
+  const S* wz;    // [H, 2L]
+  S *dxe, *dxd;                          // [T, B, INe], [T, B, INd]
   float *dh0e, *dc0e, *dh0d, *dc0d;      // [B, H]
-  float *dz_e, *dz_d;                    // scratch [T, B, 4H]
-  float *dza;                            // scratch [T, B, 2L]
+  float *dz_e, *dz_d;                    // scratch [T, B, 4H], unrounded
+  float *dza;                            // scratch [T, B, 2L], unrounded
   float *zs;                             // scratch [T, B, L]
   int T, B, INe, INd, H, L;
 };
@@ -123,17 +157,33 @@ __device__ __forceinline__ float hard_sigmoid_grad(float gate) {
   return (gate > 0.f && gate < 1.f) ? 0.2f : 0.f;
 }
 
+// loads widen to f32: `ld` through the read-only cache (weights), `ldv` plain
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float ldv(const float* p) { return *p; }
+__device__ __forceinline__ float ldv(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// the value a product's operand takes in the stream type's mode
+template <typename S>
+__device__ __forceinline__ float operand(float x) { return x; }
+template <>
+__device__ __forceinline__ float operand<__nv_bfloat16>(float x) {
+  return cvl::round_bf16(x);
+}
+
 // rows [k0, k1) of a [K][kRows] shared-memory operand times a [K, 4H] weight,
 // accumulated into the four gate columns (i, f, c, o) of unit u
+template <typename S>
 __device__ __forceinline__ void mac_gates(float (&acc)[4][kRows], const float* a,
-                                          const float* __restrict__ w, int K, int u, int H,
+                                          const S* __restrict__ w, int K, int u, int H,
                                           int slice) {
   const int k0 = slice ? K / 2 : 0, k1 = slice ? K : K / 2;
-  const float* wp = w + (size_t)k0 * 4 * H + u;
+  const S* wp = w + (size_t)k0 * 4 * H + u;
 #pragma unroll 8
   for (int k = k0; k < k1; ++k, wp += 4 * H) {
-    const float w0 = __ldg(wp), w1 = __ldg(wp + H), w2 = __ldg(wp + 2 * H),
-                w3 = __ldg(wp + 3 * H);
+    const float w0 = ld(wp), w1 = ld(wp + H), w2 = ld(wp + 2 * H), w3 = ld(wp + 3 * H);
     const float4 v = *reinterpret_cast<const float4*>(a + k * kRows);
     const float av[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
@@ -148,11 +198,12 @@ __device__ __forceinline__ void mac_gates(float (&acc)[4][kRows], const float* a
 
 // In lane b < kRows: sum_k a[k][b] * wrow[k]; the warp's lanes split k and a
 // shuffle butterfly adds their partial sums.
-__device__ __forceinline__ float warp_dot(const float* a, const float* __restrict__ wrow, int K,
+template <typename S>
+__device__ __forceinline__ float warp_dot(const float* a, const S* __restrict__ wrow, int K,
                                           int lane) {
   float s[kRows] = {0.f, 0.f, 0.f, 0.f};
   for (int k = lane; k < K; k += 32) {
-    const float w = __ldg(wrow + k);
+    const float w = ld(wrow + k);
     const float4 v = *reinterpret_cast<const float4*>(a + k * kRows);
     s[0] = fmaf(v.x, w, s[0]);
     s[1] = fmaf(v.y, w, s[1]);
@@ -170,21 +221,28 @@ __device__ __forceinline__ float warp_dot(const float* a, const float* __restric
 }
 
 // Where one cell writes its step: global pointers already offset to step t.
+// HO is the type of the cell's h output: the encoder's he is a stream (S),
+// the decoder's hd an f32 output.
+template <typename S, typename HO>
 struct CellOut {
-  float *z, *hp, *cp, *c, *h;  // z [B, 4H]; the rest [B, H]
+  S *z, *hp;        // z [B, 4H], hp [B, H]
+  float *cp, *c;    // [B, H]
+  HO* h;            // [B, H]
 };
 
 // One LSTM cell step for the block's rows: z = bias + the operand products
 // (up to three operands), then the gates. Reads h_cur through the operands,
-// writes the new h to h_nxt; c is updated in place. Each unit's K is split
-// between the two slices; slice 1 hands its partial sums to slice 0 through
-// `part`.
+// writes the new h to h_nxt (rounded to the stream type: it is only ever an
+// operand) and, unrounded, to out.h; c is updated in place. Each unit's K is
+// split between the two slices; slice 1 hands its partial sums to slice 0
+// through `part`.
+template <typename S, typename HO>
 __device__ __forceinline__ void lstm_cell(int H, int B, int s0, const float* bias,
-                                          const float* x0, const float* w0, int k0,
-                                          const float* x1, const float* w1, int k1,
-                                          const float* x2, const float* w2, int k2,
+                                          const float* x0, const S* w0, int k0,
+                                          const float* x1, const S* w1, int k1,
+                                          const float* x2, const S* w2, int k2,
                                           const float* h_cur, float* h_nxt, float* c,
-                                          float* part, const CellOut& out) {
+                                          float* part, const CellOut<S, HO>& out) {
   const int slice = threadIdx.x / kUnits, lu = threadIdx.x % kUnits;
   for (int u0 = 0; u0 < H; u0 += kUnits) {  // uniform trip count: syncs inside
     const int u = u0 + lu;
@@ -221,16 +279,16 @@ __device__ __forceinline__ void lstm_cell(int H, int B, int s0, const float* bia
         const float cn = f * cp + i * gg;
         const float hn = o * tanhf(cn);
         c[u * kRows + b] = cn;
-        h_nxt[u * kRows + b] = hn;
+        h_nxt[u * kRows + b] = operand<S>(hn);
         const int s = s0 + b;
         if (s < B) {
           const size_t r = (size_t)s * H + u;
 #pragma unroll
-          for (int g = 0; g < 4; ++g) out.z[(size_t)s * 4 * H + g * H + u] = z[g];
-          out.hp[r] = h_cur[u * kRows + b];
+          for (int g = 0; g < 4; ++g) st(out.z + (size_t)s * 4 * H + g * H + u, z[g]);
+          st(out.hp + r, h_cur[u * kRows + b]);
           out.cp[r] = cp;
           out.c[r] = cn;
-          out.h[r] = hn;
+          st(out.h + r, hn);
         }
       }
     }
@@ -238,35 +296,46 @@ __device__ __forceinline__ void lstm_cell(int H, int B, int s0, const float* bia
   }
 }
 
-// rows s0 .. s0+kRows-1 of a [B, W] matrix into a [W][kRows] shared tile
-// (rows >= B are zero)
-__device__ __forceinline__ void load_rows(float* dst, const float* src, int B, int s0, int W) {
+struct Keep {
+  __device__ __forceinline__ float operator()(float x) const { return x; }
+};
+template <typename S>
+struct AsOperand {
+  __device__ __forceinline__ float operator()(float x) const { return operand<S>(x); }
+};
+
+// rows s0 .. s0+kRows-1 of a [B, W] matrix into a [W][kRows] shared tile,
+// each value through `op` (rows >= B are zero)
+template <typename T, typename Op = Keep>
+__device__ __forceinline__ void load_rows(float* dst, const T* src, int B, int s0, int W,
+                                          Op op = Op()) {
   for (int i = threadIdx.x; i < W * kRows; i += kThreads) {
     const int b = i / W, k = i - b * W, s = s0 + b;
-    dst[k * kRows + b] = s < B ? src[(size_t)s * W + k] : 0.f;
+    dst[k * kRows + b] = s < B ? op(ldv(src + (size_t)s * W + k)) : 0.f;
   }
 }
 
-__global__ void __launch_bounds__(kThreads) two_cell_fwd_kernel(const FwdArgs a) {
+template <typename S>
+__global__ void __launch_bounds__(kThreads) two_cell_fwd_kernel(const FwdArgs<S> a) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int T = a.T, B = a.B, H = a.H, L = a.L, INe = a.INe, INd = a.INd;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* xes = sm;                       // [INe][kRows]
   float* xds = xes + INe * kRows;        // [INd][kRows]
-  float* he_cur = xds + INd * kRows;     // [H][kRows] each
+  float* he_cur = xds + INd * kRows;     // [H][kRows] each; h as an operand
   float* he_nxt = he_cur + H * kRows;
   float* ce = he_nxt + H * kRows;
   float* hd_cur = ce + H * kRows;
   float* hd_nxt = hd_cur + H * kRows;
   float* cd = hd_nxt + H * kRows;
-  float* zsm = cd + H * kRows;           // [L][kRows]
+  float* zsm = cd + H * kRows;           // [L][kRows]  z as the operand of z @ Kz
   float* part = zsm + L * kRows;         // [4][kRows][kUnits]
   const int s0 = blockIdx.x * kRows;     // rows >= B are masked
 
-  load_rows(he_cur, a.h0e, B, s0, H);
+  load_rows(he_cur, a.h0e, B, s0, H, AsOperand<S>());
   load_rows(ce, a.c0e, B, s0, H);
-  load_rows(hd_cur, a.h0d, B, s0, H);
+  load_rows(hd_cur, a.h0d, B, s0, H, AsOperand<S>());
   load_rows(cd, a.c0d, B, s0, H);
 
   for (int t = 0; t < T; ++t) {
@@ -275,9 +344,9 @@ __global__ void __launch_bounds__(kThreads) two_cell_fwd_kernel(const FwdArgs a)
     load_rows(xds, a.xd + tb * INd, B, s0, INd);
     __syncthreads();
     // encoder cell t: ze = be + xe[t] @ We + h_e @ Rk_e
-    const CellOut eo{a.ze + tb * 4 * H, a.hpe + tb * H, a.cpe + tb * H, a.ce + tb * H,
-                     a.he + tb * H};
-    lstm_cell(H, B, s0, a.be, xes, a.we, INe, he_cur, a.rke, H, nullptr, nullptr, 0,
+    const CellOut<S, S> eo{a.ze + tb * 4 * H, a.hpe + tb * H, a.cpe + tb * H, a.ce + tb * H,
+                           a.he + tb * H};
+    lstm_cell(H, B, s0, a.be, xes, a.we, INe, he_cur, a.rke, H, nullptr, (const S*)nullptr, 0,
               he_cur, he_nxt, ce, part, eo);
     // packed z heads and the reparameterized draw, one warp per latent
     for (int l = warp; l < L; l += kWarps) {
@@ -292,13 +361,13 @@ __global__ void __launch_bounds__(kThreads) two_cell_fwd_kernel(const FwdArgs a)
           a.zargs[r * 2 * L + L + l] = zv;
           z = zm + expf(zv / 2.f) * a.eps[r * L + l];
         }
-        zsm[l * kRows + lane] = z;
+        zsm[l * kRows + lane] = operand<S>(z);
       }
     }
     __syncthreads();
     // decoder cell t: zd = bd + h_d @ Rk_d + z @ Kz + xd[t] @ Wdx
-    const CellOut dout{a.zd + tb * 4 * H, a.hpd + tb * H, a.cpd + tb * H, a.cd + tb * H,
-                       a.hd + tb * H};
+    const CellOut<S, float> dout{a.zd + tb * 4 * H, a.hpd + tb * H, a.cpd + tb * H,
+                                 a.cd + tb * H, a.hd + tb * H};
     lstm_cell(H, B, s0, a.bd, hd_cur, a.rkd, H, zsm, a.kz, L, xds, a.wdx, INd,
               hd_cur, hd_nxt, cd, part, dout);
     float* tmp = he_cur; he_cur = he_nxt; he_nxt = tmp;
@@ -309,8 +378,8 @@ __global__ void __launch_bounds__(kThreads) two_cell_fwd_kernel(const FwdArgs a)
 // out(n, b) = sum_k a[k][b] * wt[k * N + n] for n in [0, N): a [K][kRows] in
 // shared memory times a [K, N] weight; neighbouring threads read
 // neighbouring columns. `store(n, b, value)` receives each result.
-template <typename Store>
-__device__ __forceinline__ void matvec_t(const float* a, const float* __restrict__ wt, int K,
+template <typename S, typename Store>
+__device__ __forceinline__ void matvec_t(const float* a, const S* __restrict__ wt, int K,
                                          int N, float* part, Store store) {
   const int slice = threadIdx.x / kUnits, ln = threadIdx.x % kUnits;
   const int k0 = slice ? K / 2 : 0, k1 = slice ? K : K / 2;
@@ -318,10 +387,10 @@ __device__ __forceinline__ void matvec_t(const float* a, const float* __restrict
     const int n = n0 + ln;
     float acc[kRows] = {0.f, 0.f, 0.f, 0.f};
     if (n < N) {
-      const float* wp = wt + (size_t)k0 * N + n;
+      const S* wp = wt + (size_t)k0 * N + n;
 #pragma unroll 8
       for (int k = k0; k < k1; ++k, wp += N) {
-        const float w = __ldg(wp);
+        const float w = ld(wp);
         const float4 v = *reinterpret_cast<const float4*>(a + k * kRows);
         acc[0] = fmaf(v.x, w, acc[0]);
         acc[1] = fmaf(v.y, w, acc[1]);
@@ -343,9 +412,11 @@ __device__ __forceinline__ void matvec_t(const float* a, const float* __restrict
 }
 
 // Gate gradients of one cell step for the block's rows (`_bwd_gate_grads`):
-// dh = dh_carry + dh_in, dc = dc_carry; writes dz to the shared tile and the
-// global scratch, and dc * f back to the carry.
-__device__ __forceinline__ void gate_grads(int H, int B, int s0, const float* z_t,
+// dh = dh_carry + dh_in, dc = dc_carry; writes dz to the global scratch
+// (unrounded) and, as an operand, to the shared tile, and dc * f back to the
+// carry. z_t is the stored (in the bf16 mode rounded) pre-activation.
+template <typename S>
+__device__ __forceinline__ void gate_grads(int H, int B, int s0, const S* z_t,
                                            const float* c_t, const float* cp_t,
                                            const float* dh_carry, const float* dh_in,
                                            float* dc_carry, float* dzs, float* dz_out) {
@@ -354,11 +425,11 @@ __device__ __forceinline__ void gate_grads(int H, int B, int s0, const float* z_
     float dz[4] = {0.f, 0.f, 0.f, 0.f};
     if (s < B) {
       const size_t r = (size_t)s * H + u;
-      const float* zr = z_t + (size_t)s * 4 * H;
-      const float ig = hard_sigmoid(zr[u]);
-      const float fg = hard_sigmoid(zr[H + u]);
-      const float gg = tanhf(zr[2 * H + u]);
-      const float og = hard_sigmoid(zr[3 * H + u]);
+      const S* zr = z_t + (size_t)s * 4 * H;
+      const float ig = hard_sigmoid(ldv(zr + u));
+      const float fg = hard_sigmoid(ldv(zr + H + u));
+      const float gg = tanhf(ldv(zr + 2 * H + u));
+      const float og = hard_sigmoid(ldv(zr + 3 * H + u));
       const float tc = tanhf(c_t[r]);
       const float dh = dh_carry[u * kRows + b] + dh_in[i];
       const float dc = dc_carry[u * kRows + b] + dh * og * (1.f - tc * tc);
@@ -371,22 +442,23 @@ __device__ __forceinline__ void gate_grads(int H, int B, int s0, const float* z_
       for (int g = 0; g < 4; ++g) dz_out[(size_t)s * 4 * H + g * H + u] = dz[g];
     }
 #pragma unroll
-    for (int g = 0; g < 4; ++g) dzs[(g * H + u) * kRows + b] = dz[g];
+    for (int g = 0; g < 4; ++g) dzs[(g * H + u) * kRows + b] = operand<S>(dz[g]);
   }
 }
 
-__global__ void __launch_bounds__(kThreads) two_cell_bwd_kernel(const BwdArgs a) {
+template <typename S>
+__global__ void __launch_bounds__(kThreads) two_cell_bwd_kernel(const BwdArgs<S> a) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int T = a.T, B = a.B, H = a.H, L = a.L, INe = a.INe, INd = a.INd;
-  float* dzs = sm;                    // [4H][kRows]
+  float* dzs = sm;                    // [4H][kRows]  dz as an operand
   float* dh_e = dzs + 4 * H * kRows;  // [H][kRows] each
   float* dc_e = dh_e + H * kRows;
   float* dh_d = dc_e + H * kRows;
   float* dc_d = dh_d + H * kRows;
   float* dh_in = dc_d + H * kRows;    // this step's incoming dh, [H][kRows]
   float* dzz = dh_in + H * kRows;     // [L][kRows]   cotangent of z
-  float* dzas = dzz + L * kRows;      // [2L][kRows]  cotangent of zargs
+  float* dzas = dzz + L * kRows;      // [2L][kRows]  cotangent of zargs, as an operand
   float* part = dzas + 2 * L * kRows; // [kRows][kUnits]
   const int s0 = blockIdx.x * kRows;
   for (int i = threadIdx.x; i < 4 * H * kRows; i += kThreads) dh_e[i] = 0.f;  // 4 carries
@@ -410,7 +482,7 @@ __global__ void __launch_bounds__(kThreads) two_cell_bwd_kernel(const BwdArgs a)
       if (n < H) {
         dh_d[n * kRows + b] = v;
       } else if (n < H + INd) {
-        if (s < B) a.dxd[(tb + s) * INd + (n - H)] = v;
+        if (s < B) st(a.dxd + (tb + s) * INd + (n - H), v);
       } else {
         dzz[(n - H - INd) * kRows + b] = v;
       }
@@ -431,16 +503,16 @@ __global__ void __launch_bounds__(kThreads) two_cell_bwd_kernel(const BwdArgs a)
         a.dza[r * 2 * L + L + l] = dzlv;
         a.zs[r * L + l] = a.zargs[r * 2 * L + l] + sig * e;
       }
-      dzas[l * kRows + b] = dzm;
-      dzas[(L + l) * kRows + b] = dzlv;
+      dzas[l * kRows + b] = operand<S>(dzm);
+      dzas[(L + l) * kRows + b] = operand<S>(dzlv);
     }
     __syncthreads();
     // z-head backward: the encoder's incoming dh = dzargs @ Wzᵀ
     for (int i = threadIdx.x; i < H * kRows; i += kThreads) {
       const int u = i / kRows, b = i - u * kRows;
-      const float* wr = a.wz + (size_t)u * 2 * L;
+      const S* wr = a.wz + (size_t)u * 2 * L;
       float v = 0.f;
-      for (int j = 0; j < 2 * L; ++j) v = fmaf(dzas[j * kRows + b], __ldg(wr + j), v);
+      for (int j = 0; j < 2 * L; ++j) v = fmaf(dzas[j * kRows + b], ld(wr + j), v);
       dh_in[i] = v;
     }
     __syncthreads();
@@ -454,7 +526,7 @@ __global__ void __launch_bounds__(kThreads) two_cell_bwd_kernel(const BwdArgs a)
       if (n < H) {
         dh_e[n * kRows + b] = v;
       } else if (s < B) {
-        a.dxe[(tb + s) * INe + (n - H)] = v;
+        st(a.dxe + (tb + s) * INe + (n - H), v);
       }
     });
   }
@@ -476,10 +548,47 @@ int set_smem(const void* fn, size_t bytes) {
   return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+template <typename S>
+int fwd(const FwdArgs<S>& a, cudaStream_t stream) {
+  const size_t smem = fwd_smem_floats(a.INe, a.INd, a.H, a.L) * sizeof(float);
+  int err = set_smem((const void*)two_cell_fwd_kernel<S>, smem);
+  if (err) return err;
+  two_cell_fwd_kernel<S><<<(a.B + kRows - 1) / kRows, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename S>
+int bwd(const BwdArgs<S>& a, cudaStream_t stream) {
+  const size_t smem = bwd_smem_floats(a.H, a.L) * sizeof(float);
+  int err = set_smem((const void*)two_cell_bwd_kernel<S>, smem);
+  if (err) return err;
+  two_cell_bwd_kernel<S><<<(a.B + kRows - 1) / kRows, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The nine jobs of the weight-gradient pass over the R = T*B rows; `bf16`
+// flags the six matrix gradients of the bf16 mode (the stored streams hpe,
+// xe, hpd, xd and he are bf16 there, z is not).
+int wgrad(const void* hpe, const void* xe, const float* dz_e, const void* hpd, const void* xd,
+          const float* zs, const float* dz_d, const void* he, const float* dza, void* drke,
+          void* dwe, float* dbe, void* drkd, void* dwdx, void* dkz, float* dbd, void* dwz,
+          float* dbz, int R, int INe, int INd, int H, int L, int bf16, cudaStream_t stream) {
+  const int b = bf16;
+  const cvl::WgradJob jobs[] = {
+      {hpe, dz_e, drke, H, 4 * H, b, b},   {xe, dz_e, dwe, INe, 4 * H, b, b},
+      {nullptr, dz_e, dbe, 1, 4 * H},      {hpd, dz_d, drkd, H, 4 * H, b, b},
+      {xd, dz_d, dwdx, INd, 4 * H, b, b},  {zs, dz_d, dkz, L, 4 * H, b, 0},
+      {nullptr, dz_d, dbd, 1, 4 * H},      {he, dza, dwz, H, 2 * L, b, b},
+      {nullptr, dza, dbz, 1, 2 * L},
+  };
+  return cvl::launch_wgrad<two_cell_wgrad>(jobs, (int)(sizeof(jobs) / sizeof(jobs[0])), R,
+                                           stream);
+}
+
 }  // namespace
 
 // Bytes of dynamic shared memory one block of each serial kernel needs (the
-// wrapper checks them against the card's limit).
+// wrapper checks them against the card's limit); the same in both modes.
 extern "C" long long cvl_two_cell_fwd_smem_bytes(int INe, int INd, int H, int L) {
   return (long long)(fwd_smem_floats(INe, INd, H, L) * sizeof(float));
 }
@@ -495,14 +604,29 @@ extern "C" int cvl_two_cell_fwd(
     const float* c0d, float* hd, float* zargs, float* ze, float* zd, float* hpe, float* cpe,
     float* ce, float* he, float* hpd, float* cpd, float* cd, int T, int B, int INe, int INd,
     int H, int L, void* stream) {
-  const FwdArgs a{xe, xd, eps, we, be, rke, wdx, bd, rkd, kz, wz_t, bz, h0e, c0e, h0d, c0d,
-                  hd, zargs, ze, zd, hpe, cpe, ce, he, hpd, cpd, cd, T, B, INe, INd, H, L};
-  const size_t smem = fwd_smem_floats(INe, INd, H, L) * sizeof(float);
-  int err = set_smem((const void*)two_cell_fwd_kernel, smem);
-  if (err) return err;
-  two_cell_fwd_kernel<<<(B + kRows - 1) / kRows, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  const FwdArgs<float> a{xe, xd, eps, we, be, rke, wdx, bd, rkd, kz, wz_t, bz, h0e, c0e, h0d,
+                         c0d, hd, zargs, ze, zd, hpe, cpe, ce, he, hpd, cpd, cd,
+                         T, B, INe, INd, H, L};
+  return fwd(a, static_cast<cudaStream_t>(stream));
+}
+
+// The same in the bf16 stream mode: xe, xd, the six weights (we, rke, wdx,
+// rkd, kz, wz_t) and ze, zd, hpe, he, hpd are bf16; eps, the biases, the
+// initial states, hd, zargs and the c streams f32.
+extern "C" int cvl_two_cell_fwd_bf16(
+    const void* xe, const void* xd, const float* eps, const void* we, const float* be,
+    const void* rke, const void* wdx, const float* bd, const void* rkd, const void* kz,
+    const void* wz_t, const float* bz, const float* h0e, const float* c0e, const float* h0d,
+    const float* c0d, float* hd, float* zargs, void* ze, void* zd, void* hpe, float* cpe,
+    float* ce, void* he, void* hpd, float* cpd, float* cd, int T, int B, int INe, int INd,
+    int H, int L, void* stream) {
+  using bf = __nv_bfloat16;
+  const auto in = [](const void* p) { return static_cast<const bf*>(p); };
+  const auto out = [](void* p) { return static_cast<bf*>(p); };
+  const FwdArgs<bf> a{in(xe), in(xd), eps, in(we), be, in(rke), in(wdx), bd, in(rkd), in(kz),
+                      in(wz_t), bz, h0e, c0e, h0d, c0d, hd, zargs, out(ze), out(zd), out(hpe),
+                      cpe, ce, out(he), out(hpd), cpd, cd, T, B, INe, INd, H, L};
+  return fwd(a, static_cast<cudaStream_t>(stream));
 }
 
 // The backward's serial reverse walk on `stream`; fills dxe, dxd, the
@@ -514,14 +638,26 @@ extern "C" int cvl_two_cell_bwd(
     const float* dzargs, const float* wd_t, const float* we_t, const float* wz, float* dxe,
     float* dxd, float* dh0e, float* dc0e, float* dh0d, float* dc0d, float* dz_e, float* dz_d,
     float* dza, float* zs, int T, int B, int INe, int INd, int H, int L, void* stream) {
-  const BwdArgs a{ze, zd, cpe, ce, cpd, cd, eps, zargs, dhd, dzargs, wd_t, we_t, wz,
-                  dxe, dxd, dh0e, dc0e, dh0d, dc0d, dz_e, dz_d, dza, zs, T, B, INe, INd, H, L};
-  const size_t smem = bwd_smem_floats(H, L) * sizeof(float);
-  int err = set_smem((const void*)two_cell_bwd_kernel, smem);
-  if (err) return err;
-  two_cell_bwd_kernel<<<(B + kRows - 1) / kRows, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  const BwdArgs<float> a{ze, zd, cpe, ce, cpd, cd, eps, zargs, dhd, dzargs, wd_t, we_t, wz,
+                         dxe, dxd, dh0e, dc0e, dh0d, dc0d, dz_e, dz_d, dza, zs,
+                         T, B, INe, INd, H, L};
+  return bwd(a, static_cast<cudaStream_t>(stream));
+}
+
+// The same in the bf16 stream mode: ze, zd, the transposed weights (wd_t,
+// we_t, wz) and dxe, dxd are bf16; the scratch stays f32 and unrounded.
+extern "C" int cvl_two_cell_bwd_bf16(
+    const void* ze, const void* zd, const float* cpe, const float* ce, const float* cpd,
+    const float* cd, const float* eps, const float* zargs, const float* dhd,
+    const float* dzargs, const void* wd_t, const void* we_t, const void* wz, void* dxe,
+    void* dxd, float* dh0e, float* dc0e, float* dh0d, float* dc0d, float* dz_e, float* dz_d,
+    float* dza, float* zs, int T, int B, int INe, int INd, int H, int L, void* stream) {
+  using bf = __nv_bfloat16;
+  const auto in = [](const void* p) { return static_cast<const bf*>(p); };
+  const BwdArgs<bf> a{in(ze), in(zd), cpe, ce, cpd, cd, eps, zargs, dhd, dzargs, in(wd_t),
+                      in(we_t), in(wz), static_cast<bf*>(dxe), static_cast<bf*>(dxd), dh0e,
+                      dc0e, dh0d, dc0d, dz_e, dz_d, dza, zs, T, B, INe, INd, H, L};
+  return bwd(a, static_cast<cudaStream_t>(stream));
 }
 
 // The backward's weight gradients over the R = T*B rows of the scratch, one
@@ -531,11 +667,18 @@ extern "C" int cvl_two_cell_wgrad(
     const float* zs, const float* dz_d, const float* he, const float* dza, float* drke,
     float* dwe, float* dbe, float* drkd, float* dwdx, float* dkz, float* dbd, float* dwz,
     float* dbz, int R, int INe, int INd, int H, int L, void* stream) {
-  const cvl::WgradJob jobs[] = {
-      {hpe, dz_e, drke, H, 4 * H},   {xe, dz_e, dwe, INe, 4 * H}, {nullptr, dz_e, dbe, 1, 4 * H},
-      {hpd, dz_d, drkd, H, 4 * H},   {xd, dz_d, dwdx, INd, 4 * H}, {zs, dz_d, dkz, L, 4 * H},
-      {nullptr, dz_d, dbd, 1, 4 * H}, {he, dza, dwz, H, 2 * L},    {nullptr, dza, dbz, 1, 2 * L},
-  };
-  return cvl::launch_wgrad<two_cell_wgrad>(jobs, (int)(sizeof(jobs) / sizeof(jobs[0])), R,
-                                           static_cast<cudaStream_t>(stream));
+  return wgrad(hpe, xe, dz_e, hpd, xd, zs, dz_d, he, dza, drke, dwe, dbe, drkd, dwdx, dkz, dbd,
+               dwz, dbz, R, INe, INd, H, L, 0, static_cast<cudaStream_t>(stream));
+}
+
+// The same in the bf16 stream mode: hpe, xe, hpd, xd and he are bf16, the dz
+// scratch and z are rounded as they are staged; the six weight gradients are
+// stored rounded, as bf16, and the three bias sums take the unrounded dz.
+extern "C" int cvl_two_cell_wgrad_bf16(
+    const void* hpe, const void* xe, const float* dz_e, const void* hpd, const void* xd,
+    const float* zs, const float* dz_d, const void* he, const float* dza, void* drke,
+    void* dwe, float* dbe, void* drkd, void* dwdx, void* dkz, float* dbd, void* dwz,
+    float* dbz, int R, int INe, int INd, int H, int L, void* stream) {
+  return wgrad(hpe, xe, dz_e, hpd, xd, zs, dz_d, he, dza, drke, dwe, dbe, drkd, dwdx, dkz, dbd,
+               dwz, dbz, R, INe, INd, H, L, 1, static_cast<cudaStream_t>(stream));
 }

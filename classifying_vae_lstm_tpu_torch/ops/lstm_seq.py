@@ -50,8 +50,8 @@ import threading
 import torch
 
 from . import _build
-from .lstm import _gate_grads, _gates, bf16_operand, resolve_fusion
-from .two_cell import _check
+from .lstm import _gate_grads, _gates, resolve_fusion
+from .two_cell import _check, _mode
 
 # launches since the counts were last set to 0: one per inference or training
 # forward call, two per backward call (the reverse walk, then the
@@ -94,13 +94,6 @@ def fwd_rows(B: int, IN: int, H: int, n_sm: int) -> int:
 
 
 # ------------------------------------------------------------ plain versions
-
-
-def _mode(t):
-    """(is the call in the bf16 stream mode, the rounding of a product's
-    operand): the mode follows the type of x (of z in the backward)."""
-    bf16 = t.dtype == torch.bfloat16
-    return bf16, (bf16_operand if bf16 else (lambda a: a))
 
 
 def _fwd_steps(x, w, b, rk, h0, c0):

@@ -14,6 +14,19 @@ Layouts are time-major, as in the TPU kernels: xe ``[T, B, INe]`` (x ‖ w),
 xd ``[T, B, INd]`` ([x_prev ‖] w), eps ``[T, B, L]``; kernels ``[in, out]``;
 the z heads packed to ``wz [H, 2L]`` / ``bz [2L]`` (no lane padding).
 
+Every function has a bf16 stream mode, the Pallas kernels'
+``compute_dtype=bf16``, chosen by the type of xe (of ze in the backward):
+xe, xd and the six weight matrices (we, rke, wdx, rkd, kz, wz) are bf16, as
+``two_cell_sequence`` casts them outside its custom vjp; eps, the biases and
+the initial states stay f32. Products take bf16-rounded operands and sum in
+f32 (the plain versions: ``a.bfloat16().float()`` operands of f32 matmuls,
+since a CPU bf16 matmul would round its output). Rounding happens where the
+Pallas bodies round: h and z as operands; ze, zd, hpe, he and hpd as they
+are stored (the backward's gates read the stored ze/zd), hd, zargs and the
+c streams not at all; in the backward dz_e, dz_d and dzargs as operands,
+dxe and dxd as stored, and the six weight gradients once, after their f32
+sums (``_core_bwd``'s casts); the bias gradients sum the unrounded dz.
+
 :func:`two_cell_fwd` / :func:`two_cell_bwd` launch the kernels for CUDA
 tensors (or raise: there is no fallback) and take the plain versions only
 for CPU tensors. :func:`two_cell_sequence` is the model's entry; it packs
@@ -29,25 +42,29 @@ import threading
 import torch
 
 from . import _build
-from .lstm import _gate_grads, _gates
+from .lstm import _gate_grads, _gates, bf16_operand
 
 # launches since the counts were last set to 0: one per forward call, two per
-# backward call (the serial reverse walk, then the weight-gradient pass)
+# backward call (the serial reverse walk, then the weight-gradient pass); the
+# plain names count the f32 mode, the BF16_ names the bf16 stream mode
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+BF16_FWD_LAUNCHES = 0
+BF16_BWD_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
 _ROWS_PER_BLOCK = 4      # kRows in csrc/two_cell.cu
 _UNITS_PER_PASS = 256    # kUnits in csrc/two_cell.cu
 _SMEM_LIMIT = 232448     # dynamic shared memory one Hopper block can use
-BF16_TODO = ("the bf16 stream mode of the two-cell kernels is not ported yet "
-             "(ROADMAP Queue 2 item 2)")
+# the bf16 stream mode's bf16 inputs of each kernel (the others are f32)
+BF16_FWD_INPUTS = frozenset({"xe", "xd", "we", "rke", "wdx", "rkd", "kz", "wz"})
+BF16_BWD_INPUTS = BF16_FWD_INPUTS | {"ze", "zd", "hpe", "he", "hpd"}
 
 
 def fwd_smem_bytes(in_e: int, in_d: int, H: int, L: int) -> int:
     """Shared memory of one forward block: both step inputs, h (two buffers)
     and c of both cells and z for each row of the tile, plus the gate stages'
-    partial sums."""
+    partial sums. The same in both modes: the tiles hold f32."""
     return ((in_e + in_d + 6 * H + L) * _ROWS_PER_BLOCK
             + 4 * _ROWS_PER_BLOCK * _UNITS_PER_PASS) * 4
 
@@ -90,29 +107,45 @@ def should_use(cfg, two_cell=None) -> bool:
 # ------------------------------------------------------------ plain versions
 
 
+def _mode(t):
+    """(is the call in the bf16 stream mode, the rounding of a product's
+    operand): the mode follows the type of the input stream ``t`` (xe here,
+    x in ``ops/lstm_seq.py``; ze and z in the backwards)."""
+    bf16 = t.dtype == torch.bfloat16
+    return bf16, (bf16_operand if bf16 else (lambda a: a))
+
+
 def two_cell_fwd_plain(xe, xd, eps, we, be, rke, wdx, bd, rkd, kz, wz, bz, h0e, c0e, h0d, c0d):
     """The forward kernel's function in torch ops.
 
     Returns ``(hd, zargs, ze, zd, hpe, cpe, ce, he, hpd, cpd, cd)``, all
     ``[T, B, ...]``: the decoder's h, the packed z heads, both cells'
     pre-activations, and h / c before and after each cell (the backward's
-    residuals)."""
+    residuals). In the bf16 mode ze, zd, hpe, he and hpd come back as bf16,
+    the rest as f32."""
     T = xe.shape[0]
     H, L = rke.shape[0], kz.shape[0]
+    bf16, op = _mode(xe)
+    xe, xd, we, rke, wdx, rkd, kz, wz = (a.float() for a in (xe, xd, we, rke, wdx, rkd, kz, wz))
     h_e, c_e, h_d, c_d = h0e, c0e, h0d, c0d
     outs = [[] for _ in range(11)]
     for t in range(T):
-        ze = xe[t] @ we + be + h_e @ rke
-        hpe, cpe = h_e, c_e
+        hpe, cpe = op(h_e), c_e
+        ze = xe[t] @ we + be + hpe @ rke
         h_e, c_e = _gates(ze, c_e, H)
-        zargs = h_e @ wz + bz
+        he = op(h_e)
+        zargs = he @ wz + bz
         z = zargs[:, :L] + torch.exp(zargs[:, L:] / 2) * eps[t]
-        zd = xd[t] @ wdx + bd + z @ kz + h_d @ rkd
-        hpd, cpd = h_d, c_d
+        hpd, cpd = op(h_d), c_d
+        zd = xd[t] @ wdx + bd + op(z) @ kz + hpd @ rkd
         h_d, c_d = _gates(zd, c_d, H)
-        for acc, v in zip(outs, (h_d, zargs, ze, zd, hpe, cpe, c_e, h_e, hpd, cpd, c_d)):
+        for acc, v in zip(outs, (h_d, zargs, ze, zd, hpe, cpe, c_e, he, hpd, cpd, c_d)):
             acc.append(v)
-    return tuple(torch.stack(o) for o in outs)
+    outs = [torch.stack(o) for o in outs]
+    if bf16:
+        for i in (2, 3, 4, 7, 8):  # ze, zd, hpe, he, hpd
+            outs[i] = outs[i].bfloat16()
+    return tuple(outs)
 
 
 def two_cell_bwd_plain(ze, zd, cpe, ce, cpd, cd, hpe, he, hpd, eps, zargs, xe, xd, dhd, dzargs,
@@ -124,35 +157,45 @@ def two_cell_bwd_plain(ze, zd, cpe, ce, cpd, cd, hpe, he, hpd, eps, zargs, xe, x
     is the carry plus the z heads' cotangent from decoder step t — the TPU
     kernel's ``dhez`` hand-off). Weight gradients accumulate step by step.
     Returns ``(dxe, dxd, dh0e, dc0e, dh0d, dc0d, drke, drkd, dwe, dwdx, dkz,
-    dwz, dbe, dbd, dbz)``, the order of ``pallas_two_cell._bwd_call``."""
+    dwz, dbe, dbd, dbz)``, the order of ``pallas_two_cell._bwd_call``. In the
+    bf16 mode dxe, dxd and the six weight gradients come back as bf16."""
     T, B, H4 = ze.shape
     H, L = H4 // 4, kz.shape[0]
-    zeros = lambda *s: ze.new_zeros(s)
+    bf16, op = _mode(ze)
+    (ze, zd, hpe, he, hpd, xe, xd, we, rke, wdx, rkd, kz, wz) = (
+        a.float() for a in (ze, zd, hpe, he, hpd, xe, xd, we, rke, wdx, rkd, kz, wz))
+    zeros = lambda *s: cpe.new_zeros(s)
     dh_e, dc_e, dh_d, dc_d = (zeros(B, H) for _ in range(4))
     drke, drkd, dwe, dwdx, dkz, dwz = (torch.zeros_like(w) for w in (rke, rkd, we, wdx, kz, wz))
     dbe, dbd, dbz = zeros(H4), zeros(H4), zeros(2 * L)
     dxe, dxd = torch.zeros_like(xe), torch.zeros_like(xd)
     for t in reversed(range(T)):
         dz_d, dc_d = _gate_grads(zd[t], cd[t], cpd[t], dh_d + dhd[t], dc_d)
-        dh_d = dz_d @ rkd.T
-        dxd[t] = dz_d @ wdx.T
-        drkd += hpd[t].T @ dz_d
-        dwdx += xd[t].T @ dz_d
+        dzo = op(dz_d)
+        dh_d = dzo @ rkd.T
+        dxd[t] = dzo @ wdx.T
+        drkd += hpd[t].T @ dzo
+        dwdx += xd[t].T @ dzo
         dbd += dz_d.sum(0)
         sig = torch.exp(zargs[t][:, L:] / 2)
-        dz = dz_d @ kz.T
+        dz = dzo @ kz.T
         dza = torch.cat([dz + dzargs[t][:, :L], dz * eps[t] * sig * 0.5 + dzargs[t][:, L:]], -1)
         z = zargs[t][:, :L] + sig * eps[t]
-        dkz += z.T @ dz_d
-        dwz += he[t].T @ dza
+        dkz += op(z).T @ dzo
+        dzao = op(dza)
+        dwz += he[t].T @ dzao
         dbz += dza.sum(0)
-        dhez = dza @ wz.T
+        dhez = dzao @ wz.T
         dz_e, dc_e = _gate_grads(ze[t], ce[t], cpe[t], dh_e + dhez, dc_e)
-        dh_e = dz_e @ rke.T
-        dxe[t] = dz_e @ we.T
-        drke += hpe[t].T @ dz_e
-        dwe += xe[t].T @ dz_e
+        dzo = op(dz_e)
+        dh_e = dzo @ rke.T
+        dxe[t] = dzo @ we.T
+        drke += hpe[t].T @ dzo
+        dwe += xe[t].T @ dzo
         dbe += dz_e.sum(0)
+    if bf16:
+        dxe, dxd, drke, drkd, dwe, dwdx, dkz, dwz = (
+            a.bfloat16() for a in (dxe, dxd, drke, drkd, dwe, dwdx, dkz, dwz))
     return (dxe, dxd, dh_e, dc_e, dh_d, dc_d, drke, drkd, dwe, dwdx, dkz, dwz, dbe, dbd, dbz)
 
 
@@ -177,11 +220,14 @@ def _kernels():
                     or lib.cvl_two_cell_bwd_smem_bytes(256, 8) != bwd_smem_bytes(256, 8)):
                 raise RuntimeError("shared-memory layout of csrc/two_cell.cu differs from "
                                    "fwd_smem_bytes / bwd_smem_bytes")
-            lib.cvl_two_cell_fwd.argtypes = [P] * 27 + [I] * 6 + [P]
-            lib.cvl_two_cell_bwd.argtypes = [P] * 23 + [I] * 6 + [P]
-            lib.cvl_two_cell_wgrad.argtypes = [P] * 18 + [I] * 5 + [P]
-            for fn in (lib.cvl_two_cell_fwd, lib.cvl_two_cell_bwd, lib.cvl_two_cell_wgrad):
-                fn.restype = I
+            for sfx in ("", "_bf16"):
+                fwd, bwd, wgrad = (getattr(lib, f"cvl_two_cell_{n}{sfx}")
+                                   for n in ("fwd", "bwd", "wgrad"))
+                fwd.argtypes = [P] * 27 + [I] * 6 + [P]
+                bwd.argtypes = [P] * 23 + [I] * 6 + [P]
+                wgrad.argtypes = [P] * 18 + [I] * 5 + [P]
+                for fn in (fwd, bwd, wgrad):
+                    fn.restype = I
             _lib = lib
         return _lib
 
@@ -203,11 +249,15 @@ def _check(dev, named_shapes: dict, bf16=frozenset()):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _count(which: str, n: int):
-    global FWD_LAUNCHES, BWD_LAUNCHES
+def _count(which: str, n: int, bf16: bool):
+    global FWD_LAUNCHES, BWD_LAUNCHES, BF16_FWD_LAUNCHES, BF16_BWD_LAUNCHES
     with _launch_lock:
-        if which == "fwd":
+        if which == "fwd" and bf16:
+            BF16_FWD_LAUNCHES += n
+        elif which == "fwd":
             FWD_LAUNCHES += n
+        elif bf16:
+            BF16_BWD_LAUNCHES += n
         else:
             BWD_LAUNCHES += n
 
@@ -222,7 +272,8 @@ def two_cell_fwd(xe, xd, eps, we, be, rke, wdx, bd, rkd, kz, wz, bz, h0e, c0e, h
     """The forward kernel (signature and results of :func:`two_cell_fwd_plain`).
 
     CUDA tensors launch ``two_cell_fwd_kernel`` on the current stream (or
-    raise); CPU tensors take the plain version."""
+    raise), in the bf16 stream mode where xe is bf16; CPU tensors take the
+    plain version."""
     args = (xe, xd, eps, we, be, rke, wdx, bd, rkd, kz, wz, bz, h0e, c0e, h0d, c0d)
     dev = _device_of(xe)
     if dev.type == "cpu":
@@ -236,24 +287,30 @@ def two_cell_fwd(xe, xd, eps, we, be, rke, wdx, bd, rkd, kz, wz, bz, h0e, c0e, h
     if max(fwd_smem_bytes(in_e, in_d, H, L), bwd_smem_bytes(H, L)) > _SMEM_LIMIT:
         raise ValueError(f"hidden {H} is too wide for the two-cell kernels' shared memory")
     H4 = 4 * H
+    bf16 = xe.dtype == torch.bfloat16
     _check(dev, {"xe": (xe, (T, B, in_e)), "xd": (xd, (T, B, in_d)), "eps": (eps, (T, B, L)),
                  "we": (we, (in_e, H4)), "be": (be, (H4,)), "rke": (rke, (H, H4)),
                  "wdx": (wdx, (in_d, H4)), "bd": (bd, (H4,)), "rkd": (rkd, (H, H4)),
                  "kz": (kz, (L, H4)), "wz": (wz, (H, 2 * L)), "bz": (bz, (2 * L,)),
                  "h0e": (h0e, (B, H)), "c0e": (c0e, (B, H)), "h0d": (h0d, (B, H)),
-                 "c0d": (c0d, (B, H))})
+                 "c0d": (c0d, (B, H))},
+           bf16=BF16_FWD_INPUTS if bf16 else frozenset())
     lib = _kernels()
+    sd = torch.bfloat16 if bf16 else torch.float32
     with torch.cuda.device(dev):
         wz_t = wz.T.contiguous()
-        new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
-        outs = (new(T, B, H), new(T, B, 2 * L), new(T, B, H4), new(T, B, H4),
-                *(new(T, B, H) for _ in range(7)))
+        new = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype, device=dev)
+        # hd, zargs, ze, zd, hpe, cpe, ce, he, hpd, cpd, cd
+        outs = (new(T, B, H), new(T, B, 2 * L), new(T, B, H4, dtype=sd), new(T, B, H4, dtype=sd),
+                new(T, B, H, dtype=sd), new(T, B, H), new(T, B, H), new(T, B, H, dtype=sd),
+                new(T, B, H, dtype=sd), new(T, B, H), new(T, B, H))
         ins = (xe, xd, eps, we, be, rke, wdx, bd, rkd, kz, wz_t, bz, h0e, c0e, h0d, c0d)
-        err = lib.cvl_two_cell_fwd(*(t.data_ptr() for t in ins + outs), T, B, in_e, in_d, H, L,
-                                   torch.cuda.current_stream(dev).cuda_stream)
+        launch = lib.cvl_two_cell_fwd_bf16 if bf16 else lib.cvl_two_cell_fwd
+        err = launch(*(t.data_ptr() for t in ins + outs), T, B, in_e, in_d, H, L,
+                     torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"two_cell forward kernel launch failed: CUDA error {err}")
-    _count("fwd", 1)
+    _count("fwd", 1, bf16)
     return outs
 
 
@@ -264,7 +321,8 @@ def two_cell_bwd(ze, zd, cpe, ce, cpd, cd, hpe, he, hpd, eps, zargs, xe, xd, dhd
     CUDA tensors launch ``two_cell_bwd_kernel`` (the serial reverse walk,
     which writes dz and z per step to scratch) and then
     ``wgrad_kernel<two_cell_wgrad>`` (the weight gradients over all B*T rows,
-    in a fixed order), or raise; CPU tensors take the plain version."""
+    in a fixed order), or raise, in the bf16 stream mode where ze is bf16;
+    CPU tensors take the plain version."""
     args = (ze, zd, cpe, ce, cpd, cd, hpe, he, hpd, eps, zargs, xe, xd, dhd, dzargs,
             we, rke, wdx, rkd, kz, wz)
     dev = _device_of(ze)
@@ -276,37 +334,43 @@ def two_cell_bwd(ze, zd, cpe, ce, cpd, cd, hpe, he, hpd, eps, zargs, xe, xd, dhd
     if bwd_smem_bytes(H, L) > _SMEM_LIMIT:
         raise ValueError(f"hidden {H} is too wide for the two-cell kernels' shared memory")
     s3 = lambda w: (T, B, w)
+    bf16 = ze.dtype == torch.bfloat16
     _check(dev, {"ze": (ze, s3(H4)), "zd": (zd, s3(H4)), "cpe": (cpe, s3(H)), "ce": (ce, s3(H)),
                  "cpd": (cpd, s3(H)), "cd": (cd, s3(H)), "hpe": (hpe, s3(H)), "he": (he, s3(H)),
                  "hpd": (hpd, s3(H)), "eps": (eps, s3(L)), "zargs": (zargs, s3(2 * L)),
                  "xe": (xe, s3(in_e)), "xd": (xd, s3(in_d)), "dhd": (dhd, s3(H)),
                  "dzargs": (dzargs, s3(2 * L)), "we": (we, (in_e, H4)), "rke": (rke, (H, H4)),
                  "wdx": (wdx, (in_d, H4)), "rkd": (rkd, (H, H4)), "kz": (kz, (L, H4)),
-                 "wz": (wz, (H, 2 * L))})
+                 "wz": (wz, (H, 2 * L))},
+           bf16=BF16_BWD_INPUTS if bf16 else frozenset())
     lib = _kernels()
+    sfx = "_bf16" if bf16 else ""
+    sd = torch.bfloat16 if bf16 else torch.float32
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         # the serial pass reads each transposed weight row-wise: dz @ Wᵀ for
         # the decoder's (Rk_d | Wdx | Kz) and the encoder's (Rk_e | We)
         wd_t = torch.cat([rkd, wdx, kz], 0).T.contiguous()
         we_t = torch.cat([rke, we], 0).T.contiguous()
-        new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
-        dxe, dxd = new(T, B, in_e), new(T, B, in_d)
+        new = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype, device=dev)
+        dxe, dxd = new(T, B, in_e, dtype=sd), new(T, B, in_d, dtype=sd)
         dh0 = [new(B, H) for _ in range(4)]
         dz_e, dz_d, dza, zs = new(T, B, H4), new(T, B, H4), new(T, B, 2 * L), new(T, B, L)
         ptrs = [t.data_ptr() for t in (ze, zd, cpe, ce, cpd, cd, eps, zargs, dhd, dzargs,
                                        wd_t, we_t, wz, dxe, dxd, *dh0, dz_e, dz_d, dza, zs)]
-        err = lib.cvl_two_cell_bwd(*ptrs, T, B, in_e, in_d, H, L, stream)
+        err = getattr(lib, f"cvl_two_cell_bwd{sfx}")(*ptrs, T, B, in_e, in_d, H, L, stream)
         if err != 0:
             raise RuntimeError(f"two_cell backward kernel launch failed: CUDA error {err}")
-        _count("bwd", 1)
-        wgrads = (new(H, H4), new(in_e, H4), new(H4), new(H, H4), new(in_d, H4), new(L, H4),
-                  new(H4), new(H, 2 * L), new(2 * L))
+        _count("bwd", 1, bf16)
+        # drke, dwe, dbe, drkd, dwdx, dkz, dbd, dwz, dbz
+        wgrads = (new(H, H4, dtype=sd), new(in_e, H4, dtype=sd), new(H4), new(H, H4, dtype=sd),
+                  new(in_d, H4, dtype=sd), new(L, H4, dtype=sd), new(H4),
+                  new(H, 2 * L, dtype=sd), new(2 * L))
         ptrs = [t.data_ptr() for t in (hpe, xe, dz_e, hpd, xd, zs, dz_d, he, dza, *wgrads)]
-        err = lib.cvl_two_cell_wgrad(*ptrs, T * B, in_e, in_d, H, L, stream)
+        err = getattr(lib, f"cvl_two_cell_wgrad{sfx}")(*ptrs, T * B, in_e, in_d, H, L, stream)
     if err != 0:
         raise RuntimeError(f"two_cell weight-gradient kernel launch failed: CUDA error {err}")
-    _count("bwd", 1)
+    _count("bwd", 1, bf16)
     drke, dwe, dbe, drkd, dwdx, dkz, dbd, dwz, dbz = wgrads
     return (dxe, dxd, *dh0, drke, drkd, dwe, dwdx, dkz, dwz, dbe, dbd, dbz)
 
@@ -319,8 +383,10 @@ class TwoCellCore(torch.autograd.Function):
     (or their plain versions on the CPU) behind one autograd node.
 
     Inputs: xe, xd, eps, we, be, rke, wdx, bd, rkd, kz, wz, bz, h0e, c0e,
-    h0d, c0d; outputs: hd ``[T, B, H]`` and zargs ``[T, B, 2L]``. eps gets
-    no gradient."""
+    h0d, c0d; outputs: hd ``[T, B, H]`` and zargs ``[T, B, 2L]``, both f32.
+    eps gets no gradient. With the bf16 set of inputs (see the module's
+    note) it runs the bf16 stream mode and returns bf16 gradients for xe,
+    xd and the six weight matrices."""
 
     @staticmethod
     def forward(ctx, xe, xd, eps, we, be, rke, wdx, bd, rkd, kz, wz, bz, h0e, c0e, h0d, c0d):
@@ -339,12 +405,19 @@ class TwoCellCore(torch.autograd.Function):
                 dh0e, dc0e, dh0d, dc0d)
 
 
-def pack_inputs(params, cfg, x, x_prev, W, eps) -> tuple:
+def pack_inputs(params, cfg, x, x_prev, W, eps, compute_dtype=None) -> tuple:
     """The core's 16 inputs from the model's parameters and a window batch:
     time-major streams xe = x ‖ w and xd = [x_prev ‖] w, the decoder kernel
     split into its x/w rows (``wdx``) and z rows (``kz``), the z heads packed
     side by side, zero initial states. Differentiable torch ops, so autograd
-    routes the cotangents of W and of the parameters back through them."""
+    routes the cotangents of W and of the parameters back through them.
+    ``compute_dtype=torch.bfloat16`` casts xe, xd and the six weight
+    matrices to bf16 here, outside the core, as ``two_cell_sequence`` does
+    (their gradients come back bf16-valued, as f32); the biases and eps stay
+    f32."""
+    if compute_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype {compute_dtype} (None, float32 or bfloat16)")
+    sd = torch.bfloat16 if compute_dtype == torch.bfloat16 else torch.float32
     B, T, D = x.shape
     H, L, K = cfg.intermediate_dim, cfg.latent_dim, cfg.n_classes
     enc, dec = params["encoder_h"], params["decoder_h"]
@@ -360,11 +433,12 @@ def pack_inputs(params, cfg, x, x_prev, W, eps) -> tuple:
     kz = dec["kernel"][n_xp:n_xp + L]
     wz = torch.cat([params["Z_mean"]["kernel"], params["Z_log_var"]["kernel"]], dim=-1)
     bz = torch.cat([params["Z_mean"]["bias"], params["Z_log_var"]["bias"]])
-    tm = lambda a: a.transpose(0, 1).contiguous()
+    tm = lambda a: a.transpose(0, 1).to(sd).contiguous()
+    w = lambda a: a.to(sd).contiguous()
     zeros = x.new_zeros((B, H))
-    return (tm(xe), tm(xdc), tm(eps), enc["kernel"].contiguous(), enc["bias"].contiguous(),
-            enc["recurrent_kernel"].contiguous(), wdx.contiguous(), dec["bias"].contiguous(),
-            dec["recurrent_kernel"].contiguous(), kz.contiguous(), wz.contiguous(),
+    return (tm(xe), tm(xdc), eps.transpose(0, 1).contiguous(), w(enc["kernel"]),
+            enc["bias"].contiguous(), w(enc["recurrent_kernel"]), w(wdx),
+            dec["bias"].contiguous(), w(dec["recurrent_kernel"]), w(kz), w(wz),
             bz.contiguous(), zeros, zeros, zeros, zeros)
 
 
@@ -374,13 +448,12 @@ def two_cell_sequence(params, cfg, x, x_prev, W, eps, compute_dtype=None):
     Drop-in for the encode_z_sequence + sample + decode_sequence composition
     at ``dropout == 0``: x ``[B, T, D]``, x_prev ``[B, T, D]`` (with
     ``use_x_prev``), W ``[B, K]``, eps ``[B, T, L]``; returns ``(h_d_seq [B,
-    T, H], Z_mean [B, T, L], Z_log_var [B, T, L], Z [B, T, L])``. The X head
-    stays outside. The bf16 stream mode is not ported yet and raises.
+    T, H], Z_mean [B, T, L], Z_log_var [B, T, L], Z [B, T, L])``, all f32.
+    The X head stays outside. ``compute_dtype=torch.bfloat16`` runs the bf16
+    stream mode (:func:`pack_inputs` casts outside the core).
     """
-    if compute_dtype is not None and compute_dtype != torch.float32:
-        raise NotImplementedError(BF16_TODO)
     L = cfg.latent_dim
-    hd, zargs = TwoCellCore.apply(*pack_inputs(params, cfg, x, x_prev, W, eps))
+    hd, zargs = TwoCellCore.apply(*pack_inputs(params, cfg, x, x_prev, W, eps, compute_dtype))
     hd = hd.transpose(0, 1)
     zargs = zargs.transpose(0, 1)
     zm, zlv = zargs[..., :L], zargs[..., L:]

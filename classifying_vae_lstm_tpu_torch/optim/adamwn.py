@@ -17,6 +17,10 @@ Every update is applied as ``p += update`` with ``update = new - p``, as
 without a gradient is updated with a zero gradient, as the JAX
 transformations see one. The ``*`` factory functions keep the JAX names and
 hyper-defaults and return a constructor that takes the parameters.
+
+Each optimizer maps its state to the leaves of the JAX optimizer's state
+and back (:meth:`LeafOptimizer.state_leaves`, ``load_state_leaves``), the
+layout of ``<run>.opt.npz``, so a training run resumes in either package.
 """
 
 from __future__ import annotations
@@ -46,10 +50,64 @@ def _keras_lr_t(lr, b1, b2, step: int) -> float:
 class LeafOptimizer(torch.optim.Optimizer):
     """Base of the port's optimizers: per-parameter state made by
     :meth:`_init_state`, one :meth:`_update` per parameter and step; the
-    state's ``step`` counts the steps taken (the JAX ``count``)."""
+    state's ``step`` counts the steps taken (the JAX ``count``).
+
+    ``STATE_FIELDS`` lists the fields of the JAX optimizer's state in the
+    order of ``jax.tree.leaves``: ``"count"`` (the int32 step count),
+    ``"m_schedule"`` (Nadam's float32 scalar, the same in every parameter's
+    state here), or the name of a per-parameter state entry, whose leaves
+    follow the parameters in the JAX order."""
+
+    STATE_FIELDS: tuple[str, ...] = ()
+    _SCALARS = {"count": np.int32, "m_schedule": np.float32}
 
     def __init__(self, params, **defaults):
         super().__init__(params, defaults)
+
+    def state_leaves(self, params: list) -> list[np.ndarray]:
+        """The state as the leaves of the JAX optimizer's state, for
+        ``params`` (this optimizer's parameter tensors) in ``jax.tree.leaves``
+        order of their tree (:func:`..train.checkpoint.sorted_leaves`); a
+        parameter without state yet contributes its initial state."""
+        states = [self.state[p] or {"step": 0, **self._init_state(p)} for p in params]
+        out = []
+        for field in self.STATE_FIELDS:
+            if field in self._SCALARS:
+                value = states[0]["step"] if field == "count" else states[0][field]
+                out.append(np.asarray(value, self._SCALARS[field]))
+            else:
+                out += [st[field].detach().cpu().numpy() for st in states]
+        return out
+
+    def load_state_leaves(self, params: list, leaves: list) -> None:
+        """Set the state from the leaves of :meth:`state_leaves` (or of the
+        JAX optimizer's state, as ``<run>.opt.npz`` holds them). An
+        optimizer whose JAX state has no ``count`` (RMSprop, Adagrad,
+        Adadelta) reads no step count, and its ``step`` restarts at 0."""
+        fields = self.STATE_FIELDS
+        want = sum(1 if f in self._SCALARS else len(params) for f in fields)
+        if len(leaves) != want:
+            raise ValueError(f"{type(self).__name__} state has {want} leaves for "
+                             f"{len(params)} parameters, got {len(leaves)}")
+        it = iter(leaves)
+        shared, per = {"step": 0}, {}
+        for field in fields:
+            if field == "count":
+                shared["step"] = int(next(it))
+            elif field in self._SCALARS:
+                shared[field] = float(np.float32(next(it)))
+            else:
+                per[field] = [next(it) for _ in params]
+        for i, p in enumerate(params):
+            init = self._init_state(p)
+            st = dict(shared)
+            for field, values in per.items():
+                v = torch.from_numpy(np.array(values[i])).to(device=p.device, dtype=p.dtype)
+                if v.shape != init[field].shape:
+                    raise ValueError(f"{field} of parameter {i}: shape {tuple(v.shape)}, "
+                                     f"expected {tuple(init[field].shape)}")
+                st[field] = v
+            self.state[p] = st
 
     def _init_state(self, p) -> dict:
         raise NotImplementedError
@@ -107,6 +165,8 @@ class AdamWithWeightnorm(LeafOptimizer):
     parameter: ``m``, ``v`` (V-space for rank >= 2), ``m_g``, ``v_g`` (per
     column; empty for rank < 2) and ``v_scaler``."""
 
+    STATE_FIELDS = ("count", "m", "v", "m_g", "v_g", "v_scaler")
+
     def __init__(self, params, lr=0.001, b1=0.9, b2=0.999, eps=1e-8, decay=0.0):
         super().__init__(params, lr=lr, b1=b1, b2=b2, eps=eps, decay=decay)
 
@@ -138,6 +198,8 @@ class SGDWithWeightnorm(LeafOptimizer):
     """SGDWithWeightnorm. State per parameter: ``momentum`` (V-space for
     rank >= 2), ``momentum_g`` (per column) and ``v_scaler``."""
 
+    STATE_FIELDS = ("count", "momentum", "momentum_g", "v_scaler")
+
     def __init__(self, params, lr=0.01, momentum=0.0, decay=0.0, nesterov=False):
         super().__init__(params, lr=lr, momentum=momentum, decay=decay, nesterov=nesterov)
 
@@ -166,6 +228,8 @@ class SGDWithWeightnorm(LeafOptimizer):
 class KerasAdam(LeafOptimizer):
     """Plain Adam with Keras 2.0 semantics (lr-folded bias correction)."""
 
+    STATE_FIELDS = ("count", "m", "v")
+
     def __init__(self, params, lr=0.001, b1=0.9, b2=0.999, eps=1e-8):
         super().__init__(params, lr=lr, b1=b1, b2=b2, eps=eps)
 
@@ -182,6 +246,8 @@ class KerasAdam(LeafOptimizer):
 
 class KerasRMSprop(LeafOptimizer):
     """RMSprop with Keras 2.0 defaults. State per parameter: ``acc``."""
+
+    STATE_FIELDS = ("acc",)
 
     def __init__(self, params, lr=0.001, rho=0.9, eps=1e-8):
         super().__init__(params, lr=lr, rho=rho, eps=eps)

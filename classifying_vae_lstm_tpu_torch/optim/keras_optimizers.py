@@ -5,7 +5,8 @@ subclasses (per-parameter state, ``p += update``), with the Keras 2.0.0
 default hyperparameters and epsilon 1e-8: lr-folded bias correction,
 pre-increment decay, Nadam's 0.96-schedule momentum cache. Together with
 ``KerasAdam`` / ``KerasRMSprop`` in :mod:`.adamwn` they cover every name
-:func:`.factory.init_optimizer` resolves.
+:func:`.factory.init_optimizer` resolves. ``STATE_FIELDS`` gives each the
+field order of its JAX state (``<run>.opt.npz``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from .adamwn import LeafOptimizer, _decayed_lr
 
 class KerasSGD(LeafOptimizer):
     """v = mu*m - lr*g; p += mu*v - lr*g if nesterov else v."""
+
+    STATE_FIELDS = ("count", "momentum")
 
     def __init__(self, params, lr=0.01, momentum=0.0, decay=0.0, nesterov=False):
         super().__init__(params, lr=lr, momentum=momentum, decay=decay, nesterov=nesterov)
@@ -38,6 +41,8 @@ class KerasSGD(LeafOptimizer):
 class KerasAdagrad(LeafOptimizer):
     """a += g^2; p -= lr * g / (sqrt(a) + eps)."""
 
+    STATE_FIELDS = ("acc",)
+
     def __init__(self, params, lr=0.01, eps=1e-8):
         super().__init__(params, lr=lr, eps=eps)
 
@@ -51,6 +56,8 @@ class KerasAdagrad(LeafOptimizer):
 
 class KerasAdadelta(LeafOptimizer):
     """RMS-ratio update with an accumulator of deltas."""
+
+    STATE_FIELDS = ("acc", "delta_acc")
 
     def __init__(self, params, lr=1.0, rho=0.95, eps=1e-8):
         super().__init__(params, lr=lr, rho=rho, eps=eps)
@@ -68,6 +75,8 @@ class KerasAdadelta(LeafOptimizer):
 
 class KerasAdamax(LeafOptimizer):
     """Infinity-norm Adam, lr_t = lr / (1 - b1^t)."""
+
+    STATE_FIELDS = ("count", "m", "u")
 
     def __init__(self, params, lr=0.002, b1=0.9, b2=0.999, eps=1e-8):
         super().__init__(params, lr=lr, b1=b1, b2=b2, eps=eps)
@@ -87,6 +96,8 @@ class KerasAdamax(LeafOptimizer):
 class KerasNadam(LeafOptimizer):
     """Nesterov Adam with the 0.96^t momentum schedule. State per parameter:
     ``m``, ``v`` and ``m_schedule`` (the same product in every parameter)."""
+
+    STATE_FIELDS = ("count", "m_schedule", "m", "v")
 
     def __init__(self, params, lr=0.002, b1=0.9, b2=0.999, eps=1e-8, schedule_decay=0.004):
         super().__init__(params, lr=lr, b1=b1, b2=b2, eps=eps, schedule_decay=schedule_decay)

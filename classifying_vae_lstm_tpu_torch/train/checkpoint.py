@@ -6,8 +6,11 @@ flattened parameter tree under ``a/b`` keys, ``<run>.json`` the JSON-able
 part of the training run's argparse namespace, ``<run>.yaml`` the shape of
 every parameter (JSON, which is valid YAML). The tree comes back as nested
 dicts of NumPy arrays; :func:`..weights.params_from_numpy` turns it into
-tensors on a device. Optimizer state (``<run>.opt.npz``, for ``--resume``)
-is not written yet.
+tensors on a device. The optimizer state of a resumable run goes to
+``<run>.opt.npz`` in the JAX layout too: ``leaf_0 … leaf_n`` in the order of
+``jax.tree.leaves`` of the JAX optimizer's state, and ``__epoch__``, so a
+run moves between the packages in both directions. The orbax variants of
+the JAX module are not ported.
 """
 
 from __future__ import annotations
@@ -47,9 +50,37 @@ def load_checkpoint(path_npz) -> dict:
         return _unflatten({k: np.asarray(f[k]) for k in f.files})
 
 
-def save_checkpoint(path_npz, params) -> None:
-    """Write the parameter tree (tensors or arrays) as ``.npz``."""
+def sorted_leaves(tree) -> list:
+    """The leaves of a parameter tree in ``jax.tree.leaves`` order: the keys
+    of every dict sorted, depth first."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in sorted_leaves(tree[k])]
+    return [tree]
+
+
+def save_checkpoint(path_npz, params, opt_state=None, epoch: int | None = None) -> None:
+    """Write the parameter tree (tensors or arrays) as ``.npz``; with
+    ``opt_state`` (the optimizer's leaves in the JAX order,
+    :meth:`..optim.adamwn.LeafOptimizer.state_leaves`) also
+    ``<run>.opt.npz`` with ``epoch`` under ``__epoch__``."""
     np.savez(path_npz, **_flatten(params))
+    if opt_state is not None:
+        flat = {f"leaf_{i}": np.asarray(leaf) for i, leaf in enumerate(opt_state)}
+        if epoch is not None:
+            flat["__epoch__"] = np.asarray(epoch)
+        np.savez(path_npz.replace(".npz", ".opt.npz"), **flat)
+
+
+def load_opt_state(path_opt_npz) -> tuple[list, int]:
+    """Read the optimizer state written by :func:`save_checkpoint` (or by the
+    JAX package's): (the leaves in order, as NumPy arrays; the epoch it was
+    written at, 0 if unrecorded). The optimizer takes the leaves with
+    :meth:`..optim.adamwn.LeafOptimizer.load_state_leaves`."""
+    with np.load(path_opt_npz) as f:
+        epoch = int(f["__epoch__"]) if "__epoch__" in f.files else 0
+        n = len([k for k in f.files if k.startswith("leaf_")])
+        leaves = [np.asarray(f[f"leaf_{i}"]) for i in range(n)]
+    return leaves, epoch
 
 
 def save_model_in_pieces(params, args, model_dir=None, run_name=None) -> str:

@@ -11,9 +11,10 @@ after it, validation in order without shuffling.
 
 :func:`fit` reproduces the reference driver: annealing, save-best
 checkpointing and early stopping inert until ``min_epoch``, the Keras-style
-history dict and best-epoch selection. The JAX package's whole-run program
-(``train_epochs``), host streaming, data parallelism, mid-training resume
-(``save_last``, ``opt_state``) and profiler tracing are not ported yet.
+history dict and best-epoch selection, and the JAX package's mid-training
+resume (``opt_state``, ``initial_epoch``, ``save_last``). The JAX package's
+whole-run program (``train_epochs``), host streaming, data parallelism and
+profiler tracing are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from .callbacks import AnnealSchedule, CheckpointPolicy, EarlyStoppingAfterEpoch
-from .checkpoint import save_checkpoint
+from .checkpoint import save_checkpoint, sorted_leaves
 
 
 def _leaves(tree) -> list:
@@ -112,6 +113,9 @@ def fit(
     checkpoint_path: str | None = None,
     verbose: bool = True,
     log_fn: Callable | None = None,
+    opt_state: list | None = None,
+    initial_epoch: int = 0,
+    save_last: bool = False,
 ):
     """Run the full training schedule; returns (params, best_params,
     history, best_loss).
@@ -119,9 +123,23 @@ def fit(
     ``min_epoch`` gates checkpointing and early stopping (the CLI passes
     ``max(kl_anneal, w_kl_anneal) + 1``); the best epoch minimizes val_loss
     over epochs >= ``min_epoch``. The caller's ``params`` are not changed.
+
+    Resume, as the JAX ``fit``: ``opt_state`` (the leaves that
+    :func:`.checkpoint.load_opt_state` reads) and ``initial_epoch`` continue
+    a run, whose epochs then run from ``initial_epoch`` to ``num_epochs``
+    with the anneal schedules at those epochs; ``save_last`` writes
+    ``<run>.last.npz`` and its ``.opt.npz`` (the epoch count reached) after
+    every epoch. A resumed run draws its shuffles and noise from
+    ``generator`` as the caller seeded it: the JAX package's keys cannot be
+    replayed by a ``torch.Generator``, and a run resumed in either package
+    draws other permutations and noise than the uninterrupted run would
+    have (the CLIs seed a new generator from ``--seed``).
     """
     params = copy_params(params, requires_grad=True)
     opt = trainer.init_optimizer(params)
+    order = sorted_leaves(params)
+    if opt_state is not None:
+        opt.load_state_leaves(order, opt_state)
     kl_sched = AnnealSchedule(0.1, 1.0, kl_anneal)
     w_kl_sched = AnnealSchedule(0.0, 1.0, w_kl_anneal)
     stopper = EarlyStoppingAfterEpoch(min_epoch=min_epoch, patience=patience)
@@ -129,7 +147,7 @@ def fit(
     history: dict[str, list] = {}
     best_params = params
 
-    for epoch in range(num_epochs):
+    for epoch in range(initial_epoch, num_epochs):
         t0 = time.perf_counter()
         kl_w = float(np.float32(kl_sched(epoch)))
         w_kl_w = float(np.float32(w_kl_sched(epoch)))
@@ -150,6 +168,9 @@ def fit(
             best_params = copy_params(params)
             if checkpoint_path is not None:
                 save_checkpoint(checkpoint_path, best_params)
+        if save_last and checkpoint_path is not None:
+            save_checkpoint(checkpoint_path.replace(".npz", ".last.npz"), params,
+                            opt.state_leaves(order), epoch + 1)
         if patience > 0 and stopper.should_stop(epoch, logs["val_loss"]):
             break
 

@@ -14,8 +14,14 @@ for the port need not have). Tolerances: f32 probabilities within 1e-5
 these fixed seeds; bf16 probabilities with u=1 within 2e-3 (bf16 rounding
 at the same places, other summation order); the bf16 streams of the
 whole-sequence LSTM kernels within 1e-3 (forward) and 1e-2 (backward)
-relative Frobenius of their bf16 plain versions.
+relative Frobenius of their bf16 plain versions; the bf16 streams of the
+two-cell kernels: f32 forward outputs within 1e-2 x max(1, max|plain|) and
+1e-3 relative Frobenius, bf16 streams within one bf16 step at their largest
+entry, backward outputs within 1e-2 of their largest entry (``chip_smoke.py``
+phase 23's bounds).
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -228,6 +234,143 @@ def test_two_cell_wrapper_raises_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="float32"):
         tc.two_cell_fwd(ins[0].double(), *ins[1:])
     assert (tc.FWD_LAUNCHES, tc.BWD_LAUNCHES) == before
+
+
+# ---- the bf16 stream mode of the two-cell kernels
+#
+# Both sides round the same values at the same places and sum in f32 in
+# another order, so an operand may land on the other bf16 neighbour and move
+# its row's later steps: f32 forward outputs within 1e-2 x max(1, max|plain|)
+# and 1e-3 relative Frobenius, the bf16 streams within one bf16 step at their
+# largest entry, the backward's outputs within 1e-2 of their largest entry.
+
+TWO_CELL_BF16_INPUTS = (0, 1, 3, 5, 6, 8, 9, 10)  # xe, xd, we, rke, wdx, rkd, kz, wz
+
+
+def _two_cell_bf16_inputs(dev, **kw):
+    ins = list(_two_cell_inputs(dev, **kw))
+    for i in TWO_CELL_BF16_INPUTS:
+        ins[i] = ins[i].bfloat16()
+    return ins
+
+
+def _bf16_step_at_max(t):
+    """One bf16 step at the largest magnitude of ``t``."""
+    m = t.float().abs().max().item()
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
+def _two_cell_bf16_launches():
+    return tc.BF16_FWD_LAUNCHES, tc.BF16_BWD_LAUNCHES
+
+
+@pytest.mark.parametrize("case", sorted(TWO_CELL_CASES))
+def test_two_cell_bf16_kernels_match_plain(dev, case):
+    ins = _two_cell_bf16_inputs(dev, **TWO_CELL_CASES[case])
+    before, before16 = (tc.FWD_LAUNCHES, tc.BWD_LAUNCHES), _two_cell_bf16_launches()
+    outs = tc.two_cell_fwd(*ins)
+    torch.cuda.synchronize()
+    ref = tc.two_cell_fwd_plain(*ins)
+    names = ("hd", "zargs", "ze", "zd", "hpe", "cpe", "ce", "he", "hpd", "cpd", "cd")
+    streams = {"ze", "zd", "hpe", "he", "hpd"}
+    for name, k, p in zip(names, outs, ref):
+        assert k.dtype == p.dtype == (torch.bfloat16 if name in streams else torch.float32), name
+        err = (k.float() - p.float()).abs().max().item()
+        if name in streams:
+            assert err <= _bf16_step_at_max(p), f"{name}: max |kernel - plain| {err}"
+        else:
+            assert err <= 1e-2 * max(1.0, p.abs().max().item()), f"{name}: {err}"
+            assert _rel_fro(k, p) <= 1e-3, name
+    (xe, xd, eps, we, be, rke, wdx, bd, rkd, kz, wz, bz, *_) = ins
+    hd, zargs, ze, zd, hpe, cpe, ce, he, hpd, cpd, cd = ref
+    rng = np.random.default_rng(1)
+    dhd = torch.from_numpy(rng.standard_normal(hd.shape).astype(np.float32)).to(dev)
+    dza = torch.from_numpy(rng.standard_normal(zargs.shape).astype(np.float32)).to(dev)
+    res = (ze, zd, cpe, ce, cpd, cd, hpe, he, hpd, eps, zargs, xe, xd, dhd, dza,
+           we, rke, wdx, rkd, kz, wz)
+    got = tc.two_cell_bwd(*res)
+    torch.cuda.synchronize()
+    want = tc.two_cell_bwd_plain(*res)
+    gnames = ("dxe", "dxd", "dh0e", "dc0e", "dh0d", "dc0d", "drke", "drkd", "dwe", "dwdx", "dkz",
+              "dwz", "dbe", "dbd", "dbz")
+    rounded = {"dxe", "dxd", "drke", "drkd", "dwe", "dwdx", "dkz", "dwz"}
+    for name, g, w in zip(gnames, got, want):
+        assert g.shape == w.shape, name
+        assert g.dtype == w.dtype == (torch.bfloat16 if name in rounded else torch.float32), name
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= 1e-2 * w.float().abs().max().item(), f"{name}: {err}"
+    for name in ("dbe", "dbd"):  # the bias sums take the unrounded dz
+        g = got[gnames.index(name)]
+        assert not torch.equal(g, g.bfloat16().float()), name
+    assert (tc.FWD_LAUNCHES, tc.BWD_LAUNCHES) == before
+    assert _two_cell_bf16_launches() == (before16[0] + 1, before16[1] + 2)
+
+
+def test_two_cell_bf16_gradients_on_cuda_match_cpu_plain(dev):
+    """Every gradient of ``two_cell_sequence(..., compute_dtype=bf16)``: the
+    bf16 kernels on the card against the bf16 plain versions on the CPU,
+    within 1e-2 relative Frobenius; the six weight matrices' and x's
+    gradients bf16-valued, the biases' not."""
+    D, H, L, K, B, T = 12, 40, 3, 4, 10, 6
+    cfg = cl_vrnn.Config(original_dim=D, intermediate_dim=H, latent_dim=L, seq_length=T,
+                         n_classes=K, use_x_prev=True, lstm_backend="pallas", bf16_compute=True)
+    raw = cl_vrnn.init(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(2)
+    arrays = {"x": (rng.random((B, T, D)) < 0.3).astype(np.float32),
+              "x_prev": (rng.random((B, T, D)) < 0.3).astype(np.float32),
+              "W": np.eye(K, dtype=np.float32)[np.arange(B) % K] * 0.7 + 0.075,
+              "eps": rng.standard_normal((B, T, L)).astype(np.float32)}
+
+    def grads(device):
+        params = params_from_numpy({k: {n: v.numpy() for n, v in d.items()}
+                                    for k, d in raw.items()}, device)
+        named = {(k, n): v.requires_grad_(True) for k, d in params.items() for n, v in d.items()}
+        t = {k: torch.from_numpy(v).to(device).requires_grad_(k != "eps")
+             for k, v in arrays.items()}
+        hd, zm, zlv, z = tc.two_cell_sequence(params, cfg, t["x"], t["x_prev"], t["W"], t["eps"],
+                                              compute_dtype=torch.bfloat16)
+        loss = (hd ** 2).sum() + zm.sin().sum() + (zlv ** 2).sum() + (z * z.cos()).sum()
+        loss.backward()
+        out = {k: v.grad for k, v in named.items() if v.grad is not None}
+        out.update({k: t[k].grad for k in ("x", "x_prev", "W")})
+        return out
+
+    before = _two_cell_bf16_launches()
+    on_card = grads(dev)
+    torch.cuda.synchronize()
+    assert _two_cell_bf16_launches() == (before[0] + 1, before[1] + 2)
+    on_cpu = grads("cpu")
+    assert len(on_card) == len(on_cpu) == 10 + 3
+    for k, w in on_cpu.items():
+        g = on_card[k].cpu()
+        assert g.dtype == torch.float32 and _rel_fro(g, w) <= 1e-2, k
+    representable = lambda g: torch.equal(g, g.bfloat16().float())
+    for cell in ("encoder_h", "decoder_h"):
+        assert representable(on_card[(cell, "kernel")]), cell
+        assert representable(on_card[(cell, "recurrent_kernel")]), cell
+        assert not representable(on_card[(cell, "bias")]), cell
+    assert representable(on_card["x"]) and representable(on_card["x_prev"])
+
+
+def test_two_cell_bf16_wrappers_raise_instead_of_falling_back(dev):
+    """A bf16 set with one input of the other type, or on the CPU, raises
+    before any launch; nothing falls back to a plain version."""
+    ins = _two_cell_bf16_inputs(dev, B=4, T=2, H=16, L=2)
+    before = _two_cell_bf16_launches() + (tc.FWD_LAUNCHES, tc.BWD_LAUNCHES)
+    with pytest.raises(ValueError, match="rke must be bfloat16"):
+        tc.two_cell_fwd(*ins[:5], ins[5].float(), *ins[6:])
+    with pytest.raises(ValueError, match="be must be float32"):
+        tc.two_cell_fwd(*ins[:4], ins[4].bfloat16(), *ins[5:])
+    with pytest.raises(ValueError, match="cpu"):
+        tc.two_cell_fwd(*ins[:3], ins[3].cpu(), *ins[4:])
+    outs = tc.two_cell_fwd_plain(*ins)
+    hd, zargs, ze, zd, hpe, cpe, ce, he, hpd, cpd, cd = outs
+    res = [ze, zd, cpe, ce, cpd, cd, hpe, he, hpd, ins[2], zargs, ins[0], ins[1],
+           torch.zeros_like(hd), torch.zeros_like(zargs), ins[3], ins[5], ins[6], ins[8], ins[9],
+           ins[10]]
+    with pytest.raises(ValueError, match="he must be bfloat16"):
+        tc.two_cell_bwd(*res[:7], he.float(), *res[8:])
+    assert _two_cell_bf16_launches() + (tc.FWD_LAUNCHES, tc.BWD_LAUNCHES) == before
 
 
 # ---- the whole-sequence LSTM kernels (csrc/lstm_seq.cu)

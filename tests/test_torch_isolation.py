@@ -57,10 +57,9 @@ def test_unported_paths_raise_naming_the_roadmap():
     for cli in (cl_vae_sample, cl_vrnn_sample):
         assert cli.build_parser().parse_args(["r"]).device == "cuda"
 
-    # training: the bf16 mode of the two-cell kernels, the whole-sequence
-    # LSTM kernels' fusion rungs other than the default (their bf16 streams
-    # on the default rung are ported), and the train flags whose modules are
-    # not ported
+    # training: the whole-sequence LSTM kernels' fusion rungs other than the
+    # default (the bf16 streams of the default rung and of the two-cell
+    # kernels are ported), and the train flags whose modules are not ported
     import dataclasses
 
     from classifying_vae_lstm_tpu_torch.cli import cl_vrnn_train, common
@@ -70,14 +69,14 @@ def test_unported_paths_raise_naming_the_roadmap():
                          n_classes=3, lstm_backend="pallas", two_cell=True)
     params = cl_vrnn.init(torch.Generator().manual_seed(0), cfg)
     x = torch.zeros((2, 3, 6))
-    for bad in (dataclasses.replace(cfg, bf16_compute=True),
-                dataclasses.replace(cfg, bf16_compute=True, two_cell=False,
-                                    fusion=(True, False, False))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cl_vrnn.apply(params, bad, x, torch.Generator().manual_seed(1))
-    out = cl_vrnn.apply(params, dataclasses.replace(cfg, bf16_compute=True, two_cell=False), x,
-                        torch.Generator().manual_seed(1))
-    assert torch.isfinite(out["X_decoded_mean"]).all()
+    bad = dataclasses.replace(cfg, bf16_compute=True, two_cell=False, fusion=(True, False, False))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cl_vrnn.apply(params, bad, x, torch.Generator().manual_seed(1))
+    for two_cell in (False, True):
+        out = cl_vrnn.apply(params, dataclasses.replace(cfg, bf16_compute=True,
+                                                        two_cell=two_cell), x,
+                            torch.Generator().manual_seed(1))
+        assert torch.isfinite(out["X_decoded_mean"]).all()
     for flag in common.UNPORTED_FLAGS:
         extra = {"dp": ["--dp", "2"], "trace_dir": ["--trace_dir", "t"]}.get(flag, [f"--{flag}"])
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -172,6 +172,8 @@ def _model_problem(backend, B=6, seed=0):
     elif backend == "pallas_two_loop_bf16":  # their bf16 streams
         jcfg = dataclasses.replace(jcfg, lstm_backend="pallas", two_cell=False,
                                    bf16_compute=True)
+    elif backend == "pallas_bf16":  # the two-cell kernels' bf16 streams
+        jcfg = dataclasses.replace(jcfg, lstm_backend="pallas", two_cell=True, bf16_compute=True)
     elif backend == "two_loop":  # remat sends both packages to the two-loop path
         jcfg = dataclasses.replace(jcfg, remat=True)
     params = jax.tree.map(np.asarray, jcl.init(jax.random.PRNGKey(seed), jcfg))
@@ -187,7 +189,7 @@ def _model_problem(backend, B=6, seed=0):
 
 
 @pytest.mark.parametrize("backend", ["xla", "pallas", "two_loop", "pallas_two_loop",
-                                     "pallas_two_loop_bf16"])
+                                     "pallas_two_loop_bf16", "pallas_bf16"])
 def test_apply_and_loss_match_jax(backend):
     jcfg, tcfg, params, batch = _model_problem(backend)
     noise = {k: batch[k] for k in ("eps_w", "eps_z")}
@@ -251,3 +253,32 @@ def test_two_loop_pallas_gradients_match_the_two_cell_path():
     for key, g in grads[False][1].items():
         np.testing.assert_allclose(g.numpy(), grads[True][1][key].numpy(), err_msg=str(key),
                                    **GRAD)
+
+
+def test_bf16_two_cell_and_two_loop_routes_agree():
+    """A bf16 config through the two-cell core and through the two-loop
+    path (both plain versions here): the same model, rounded at different
+    places (the two-loop path rounds x @ W + b before h @ Rk is added and
+    hands the decoder z as a bf16 x stream; the two-cell core rounds z only
+    as an operand and W's products not at all), so the loss and gradients
+    agree to bf16 precision: the loss within 1e-4 relative, each gradient
+    within 1e-2 relative Frobenius (this draw: 4.7e-06 and at most
+    5.2e-03)."""
+    _, tcfg, params, batch = _model_problem("pallas_bf16", B=7, seed=6)
+    out = {}
+    for two_cell in (True, False):
+        tp = params_from_numpy(params, "cpu")
+        for v in tp.values():
+            for leaf in v.values():
+                leaf.requires_grad_(True)
+        cfg = dataclasses.replace(tcfg, two_cell=two_cell)
+        total, _ = tcl.loss_and_metrics(tp, cfg, {k: T_(v) for k, v in batch.items()}, None,
+                                        0.5, 0.3, 0.7)
+        total.backward()
+        out[two_cell] = (float(total.detach()), {(n, k): v.grad for n, d in tp.items()
+                                                 for k, v in d.items()})
+    np.testing.assert_allclose(out[True][0], out[False][0], rtol=1e-4)
+    for key, g in out[True][1].items():
+        ref = out[False][1][key]
+        rel = ((g - ref).norm() / ref.norm()).item()
+        assert rel <= 1e-2, (key, rel)
