@@ -167,7 +167,43 @@ failure:
 25. that checkpoint downstream: ``cli.evaluate`` through the bf16 LSTM
    inference kernel and through ``xla`` (NLLs within 1e-3 relative),
    ``cli.cl_vrnn_sample`` (one bf16 generation launch) and one /generate
-   request through ``cli.serve`` (one bf16 launch).
+   request through ``cli.serve`` (one bf16 launch);
+26. the kernels of the other fusion rungs (proj, drk, full) of the
+   whole-sequence LSTM (the unfused inference and training forwards on xz =
+   x @ W + b, the dz-only walk, the drk walk with its dRk pass) vs their
+   plain versions: bf16 at phase 27's shape (B=1,024, T=16, H=2,048; the
+   model's seeded Keras init, 13 keys) for the encoder (IN=101) and the
+   decoder (IN=103), forward within 1e-2 x max(1, max|plain|) and 1e-3
+   relative Frobenius, the walks within 1e-2 relative Frobenius; beside
+   them the fused-projection training and inference forwards phase 27 runs,
+   at its training batch and at one 1,600-row evaluation batch, within the
+   same forward bounds; every
+   gradient of each rung there with JAX's types (dRk and dx bf16-valued, dW
+   f32 at the proj rungs and bf16-valued at the unfused ones, db never
+   rounded); the walk at H=2,560 (B=256, 2-row tiles); f32 at phase 8's
+   shape within phase 8's bounds; times beside bounds at the stream type's
+   rate;
+27. the bf16 cl_vrnn the JAX package trains at H=2,048
+   (``artifacts/fused_kernel_exp.json`` phase h2048, variant proj: D=88,
+   L=2, T=16, use_x_prev, B=1,024; 13 keys) through ``cli.cl_vrnn_train
+   --lstm_backend pallas`` with ``bf16_compute``: the CLI pins fusion (T, F,
+   F) and ``two_cell`` off, the args.json JAX ``auto`` writes there; 1
+   epoch whose counts, set to 0 just before and read just after, are per
+   train batch 2 bf16 training forwards and 2 bf16 dz-only walks, per eval
+   batch 2 bf16 inference forwards, every other 0 (never the full rung's
+   backward); 1 epoch of ``xla`` (first-epoch loss within 1e-2 relative); a
+   step's split; ``cli.evaluate`` of its last epoch at 8 samples through
+   ``keep`` (2 bf16 inference forwards a batch) and ``xla`` (NLLs within
+   1e-2 relative); ``cli.cl_vrnn_sample`` (one bf16 generation launch);
+   the bf16 generation kernel on that checkpoint's weights against its
+   plain version (probabilities within max 2e-2, mean 2e-3, as phase 3);
+28. the other rungs end to end at the jsball_vrnn4 width (B=200, T=16,
+   H=256, ``--two_cell off``): 1 epoch each of fusion (T, T, F), (F, T, F)
+   and (F, F, F) in f32 and (F, F, F) and (T, T, F) in bf16, set through
+   ``args.fusion``; each run's counts equal its steps, every other 0, the
+   f32 runs' first-epoch loss within 1e-3 relative of phase 9's; then
+   ``cli.evaluate`` of the (F, F, F) f32 checkpoint through the unfused
+   inference forward (2 a batch) and ``xla`` (NLLs within 1e-4).
 
 The run fails if a thread it started is still running at the end.
 
@@ -199,7 +235,9 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 TRAIN_B, TRAIN_T, TRAIN_K = 200, 16, 13  # the training path's batch, window, key classes
-LSTM_SEQ_PLAIN = ("lstm_seq_fwd_plain", "lstm_seq_train_fwd_plain", "lstm_seq_bwd_plain")
+LSTM_SEQ_PLAIN = ("lstm_seq_fwd_plain", "lstm_seq_train_fwd_plain", "lstm_seq_bwd_plain",
+                  "lstm_seq_xz_fwd_plain", "lstm_seq_xz_train_fwd_plain", "lstm_seq_walk_plain",
+                  "lstm_seq_walk_drk_plain")
 
 
 def require(cond, msg):
@@ -748,26 +786,42 @@ def phase_train(model_dir):
     return fwd, bwd, seen
 
 
-LSTM_COUNTS = ("bf16 inference forward, bf16 training forward, bf16 backward, f32 inference "
-               "forward, f32 training forward, f32 backward, two-cell forward, two-cell "
-               "backward")
+# the whole-sequence LSTM counts of ops/lstm_seq.py (<name>_LAUNCHES): the
+# default rung's inference forward, training forward and backward, the other
+# rungs' unfused forwards, dz-only walk and drk walk, bf16 and f32; then the
+# f32 two-cell counts
+LSTM_SEQ_COUNTS = tuple(f"{m}{k}" for m in ("BF16_", "") for k in (
+    "FWD", "TRAIN_FWD", "BWD", "XZ_FWD", "XZ_TRAIN_FWD", "WALK", "DRK"))
+LSTM_COUNTS = LSTM_SEQ_COUNTS + ("TWO_CELL_FWD", "TWO_CELL_BWD")
 
 
-def _lstm_counts():
+def _lstm_counts() -> dict:
     from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
     from classifying_vae_lstm_tpu_torch.ops import two_cell as tc
 
-    return (ls.BF16_FWD_LAUNCHES, ls.BF16_TRAIN_FWD_LAUNCHES, ls.BF16_BWD_LAUNCHES,
-            ls.FWD_LAUNCHES, ls.TRAIN_FWD_LAUNCHES, ls.BWD_LAUNCHES, tc.FWD_LAUNCHES,
-            tc.BWD_LAUNCHES)
+    counts = {n: getattr(ls, f"{n}_LAUNCHES") for n in LSTM_SEQ_COUNTS}
+    counts.update(TWO_CELL_FWD=tc.FWD_LAUNCHES, TWO_CELL_BWD=tc.BWD_LAUNCHES)
+    return counts
+
+
+def lstm_expected(**counts) -> dict:
+    """The counts of :func:`_lstm_counts` a run must leave: the named ones,
+    every other 0."""
+    require(set(counts) <= set(LSTM_COUNTS), f"unknown counts {sorted(counts)}")
+    return {n: counts.get(n, 0) for n in LSTM_COUNTS}
+
+
+def nonzero(counts: dict) -> dict:
+    """The counts that are not 0 (every other is)."""
+    return {n: v for n, v in counts.items() if v}
 
 
 def _reset_lstm_counts():
     from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
     from classifying_vae_lstm_tpu_torch.ops import two_cell as tc
 
-    ls.BF16_FWD_LAUNCHES = ls.BF16_TRAIN_FWD_LAUNCHES = ls.BF16_BWD_LAUNCHES = 0
-    ls.FWD_LAUNCHES = ls.TRAIN_FWD_LAUNCHES = ls.BWD_LAUNCHES = 0
+    for n in LSTM_SEQ_COUNTS:
+        setattr(ls, f"{n}_LAUNCHES", 0)
     tc.FWD_LAUNCHES = tc.BWD_LAUNCHES = 0
 
 
@@ -818,11 +872,11 @@ def phase_train_two_loop(model_dir, first_loss):
             "smoke_off", ["--num_epochs", "2", "--two_cell", "off"], model_dir,
             _reset_lstm_counts, _lstm_counts)
     E, n_train, n_val = _report_train("--two_cell off path", args, seen, epoch_s, wall)
-    train_fwd, bwd = counts[4:6]
-    expected = (0, 0, 0, 2 * E * n_val, 2 * E * n_train, 4 * E * n_train, 0, 0)
-    print(f"--two_cell off launches {counts} (expected {expected}: {LSTM_COUNTS}; per train "
-          f"batch 2 training forwards and 2 x 2 backward launches, per eval batch 2 inference "
-          f"forwards)")
+    train_fwd, bwd = counts["TRAIN_FWD"], counts["BWD"]
+    expected = lstm_expected(FWD=2 * E * n_val, TRAIN_FWD=2 * E * n_train, BWD=4 * E * n_train)
+    print(f"--two_cell off launches {nonzero(counts)} (expected {nonzero(expected)}, every other "
+          f"count 0; per train batch 2 training forwards and 2 x 2 backward launches, per eval "
+          f"batch 2 inference forwards)")
     require(counts == expected, f"--two_cell off launches {counts} != {expected}")
     require(not plain_on_cuda, f"plain versions ran on CUDA tensors: {plain_on_cuda}")
     loss0 = seen["history"]["loss"][0]
@@ -1118,19 +1172,19 @@ def phase_evaluate(ckpt):
             argv(MODEL, EVAL_CORPUS, "pallas"))
         out_x, counts_x, nll_x, est_x, wall_x = _evaluate_counted(argv(MODEL, EVAL_CORPUS, "xla"))
         out_c, counts_c, nll_c, _, wall_c = _evaluate_counted(argv(ckpt, CORPUS, "keep"))
-    f32_fwd = lambda n: (0, 0, 0, 2 * -(-n // EVAL_B), 0, 0, 0, 0)
+    f32_fwd = lambda n: lstm_expected(FWD=2 * -(-n // EVAL_B))
     print(f"evaluate jsball_vrnn4 on {EVAL_CORPUS} ({out_k['n_test_examples']} windows, "
           f"{EVAL_SAMPLES} samples, batches of {EVAL_B}): --lstm_backend pallas NLL "
           f"{nll_k!r} nats/frame (printed {out_k['test_nll_nats_per_frame']}), wall "
           f"{wall_k:.3f} s, estimator {est_k['s']:.3f} s; --lstm_backend xla NLL {nll_x!r} "
           f"(printed {out_x['test_nll_nats_per_frame']}), wall {wall_x:.3f} s, estimator "
           f"{est_x['s']:.3f} s; |difference| {abs(nll_k - nll_x):.3e} (limit 1e-4)")
-    print(f"evaluation launches ({LSTM_COUNTS}): pallas {counts_k}, xla {counts_x} (expected "
-          f"{f32_fwd(EVAL_WINDOWS)} and zeros)")
+    print(f"evaluation launches: pallas {nonzero(counts_k)}, xla {nonzero(counts_x)} (expected "
+          f"{nonzero(f32_fwd(EVAL_WINDOWS))} and none, every other count 0)")
     require(out_k["n_test_examples"] == out_x["n_test_examples"] == EVAL_WINDOWS,
             f"test windows {out_k['n_test_examples']}, {out_x['n_test_examples']}")
     require(counts_k == f32_fwd(EVAL_WINDOWS), f"evaluation launches {counts_k}")
-    require(not any(counts_x), f"xla evaluation launched kernels: {counts_x}")
+    require(not any(counts_x.values()), f"xla evaluation launched kernels: {counts_x}")
     require(math.isfinite(nll_k) and abs(nll_k - nll_x) <= 1e-4,
             f"pallas and xla NLLs differ: {nll_k} vs {nll_x}")
 
@@ -1138,14 +1192,14 @@ def phase_evaluate(ckpt):
                   return_y_hist=True, squeeze_x=False, squeeze_y=False)
     n = len(P.x_test)
     print(f"evaluate the --two_cell off checkpoint on {CORPUS}: {out_c} (NLL {nll_c!r}), "
-          f"wall {wall_c:.3f} s, launches {counts_c}")
+          f"wall {wall_c:.3f} s, launches {nonzero(counts_c)}")
     require(out_c["n_test_examples"] == n, f"test windows {out_c['n_test_examples']} != {n}")
     require(counts_c == f32_fwd(n), f"launches {counts_c}")
     require(math.isfinite(nll_c), "non-finite NLL")
     require(not plain_on_cuda, f"plain LSTM versions ran on CUDA tensors: {plain_on_cuda}")
 
     profile_eval_batch(est_k)
-    return counts_k[3], nll_k
+    return counts_k["FWD"], nll_k
 
 
 def profile_eval_batch(est):
@@ -2224,9 +2278,11 @@ def phase_train_bf16(model_dir):
             overrides={"bf16_compute": True})
         E, n_train, n_val = _report_train("bf16 H=1024 training path", args, seen, epoch_s,
                                           wall)
-        expected = (2 * E * n_val, 2 * E * n_train, 4 * E * n_train, 0, 0, 0, 0, 0)
+        expected = lstm_expected(BF16_FWD=2 * E * n_val, BF16_TRAIN_FWD=2 * E * n_train,
+                                 BF16_BWD=4 * E * n_train)
         print(f"bf16 H=1024 training: K={args.n_classes} (the corpus's keys; the scale bench "
-              f"has 10); launches ({LSTM_COUNTS}) {counts} (expected {expected})")
+              f"has 10); launches {nonzero(counts)} (expected {nonzero(expected)}, every other "
+              "count 0)")
         require(counts == expected, f"bf16 LSTM launches {counts} != {expected}")
         margs = load_model_args(seen["ckpt"])
         cfg = common.cl_vrnn_config_from_args(margs)
@@ -2241,7 +2297,7 @@ def phase_train_bf16(model_dir):
             _reset_lstm_counts, _lstm_counts, base_flags=BF16_FLAGS,
             overrides={"bf16_compute": True})
     _report_train("bf16 H=1024 --lstm_backend xla", args_x, seen_x, epoch_x, wall_x)
-    require(not any(counts_x), f"the xla route launched LSTM kernels: {counts_x}")
+    require(not any(counts_x.values()), f"the xla route launched LSTM kernels: {counts_x}")
     require(not plain_on_cuda, f"plain versions ran on CUDA tensors: {plain_on_cuda}")
     loss_k, loss_x = seen["history"]["loss"][0], seen_x["history"]["loss"][0]
     rel = abs(loss_k - loss_x) / abs(loss_x)
@@ -2251,7 +2307,7 @@ def phase_train_bf16(model_dir):
           f"{epoch_x[0] * 1e3 / n_train:.3f}; epoch s: pallas {[round(v, 3) for v in epoch_s]}, "
           f"xla {[round(v, 3) for v in epoch_x]}")
     require(rel <= 1e-2, f"first-epoch losses differ by {rel}")
-    return counts[1], counts[2], seen
+    return counts["BF16_TRAIN_FWD"], counts["BF16_BWD"], seen
 
 
 def phase_evaluate_bf16(ckpt, out_dir, nll_f32):
@@ -2268,7 +2324,7 @@ def phase_evaluate_bf16(ckpt, out_dir, nll_f32):
     from classifying_vae_lstm_tpu_torch.train.checkpoint import load_model_args
 
     common_argv = ["--n_samples", str(EVAL_SAMPLES), "--batch_size", str(EVAL_B)]
-    expected = (2 * -(-EVAL_WINDOWS // EVAL_B), 0, 0, 0, 0, 0, 0, 0)
+    expected = lstm_expected(BF16_FWD=2 * -(-EVAL_WINDOWS // EVAL_B))
     plain_on_cuda = []
     with plain_guard(ls, LSTM_SEQ_PLAIN, plain_on_cuda):
         out_k, counts_k, nll_k, est_k, wall_k = _evaluate_counted(
@@ -2278,13 +2334,14 @@ def phase_evaluate_bf16(ckpt, out_dir, nll_f32):
         rel = abs(nll_k - nll_x) / abs(nll_x)
         print(f"evaluate the bf16 H=1024 checkpoint on {CORPUS} ({out_k['n_test_examples']} "
               f"windows, {EVAL_SAMPLES} samples, batches of {EVAL_B}): keep (bf16 kernels) NLL "
-              f"{nll_k!r} in {wall_k:.3f} s, launches {counts_k} (expected {expected}); xla "
-              f"NLL {nll_x!r} in {wall_x:.3f} s, launches {counts_x}; relative difference "
+              f"{nll_k!r} in {wall_k:.3f} s, launches {nonzero(counts_k)} (expected "
+              f"{nonzero(expected)}); xla NLL {nll_x!r} in {wall_x:.3f} s, launches "
+              f"{nonzero(counts_x)}; relative difference "
               f"{rel:.3e} (limit 1e-2: the routes round at different places)")
         require(out_k["n_test_examples"] == out_x["n_test_examples"] == EVAL_WINDOWS,
                 f"test windows {out_k['n_test_examples']}, {out_x['n_test_examples']}")
         require(counts_k == expected, f"bf16 evaluation launches {counts_k}")
-        require(not any(counts_x), f"xla evaluation launched kernels: {counts_x}")
+        require(not any(counts_x.values()), f"xla evaluation launched kernels: {counts_x}")
         require(math.isfinite(nll_k) and rel <= 1e-2, f"NLLs differ: {nll_k} vs {nll_x}")
         profile_eval_batch(est_k)
 
@@ -2296,13 +2353,14 @@ def phase_evaluate_bf16(ckpt, out_dir, nll_f32):
         out_j, counts_j, nll_j, _, wall_j = _evaluate_counted(
             ["-i", flagged, "--train_file", EVAL_CORPUS, *common_argv])
         print(f"evaluate jsball_vrnn4 flagged bf16 on {EVAL_CORPUS}: NLL {nll_j!r} (printed "
-              f"{out_j['test_nll_nats_per_frame']}) in {wall_j:.3f} s, launches {counts_j}; the "
+              f"{out_j['test_nll_nats_per_frame']}) in {wall_j:.3f} s, launches "
+              f"{nonzero(counts_j)}; the "
               f"f32 checkpoint's (phase 10) {nll_f32!r}, difference {nll_j - nll_f32:.3e}")
         require(counts_j == expected and out_j["n_test_examples"] == EVAL_WINDOWS
                 and math.isfinite(nll_j), f"flagged evaluation {out_j}, launches {counts_j}")
 
     sample_cl_vrnn_bf16(ckpt, "smoke_bf16", out_dir, "bf16 H=1024")
-    return counts_k[0]
+    return counts_k["BF16_FWD"]
 
 
 # the bf16 two-cell cl_vrnn of the JAX package's scale work at H=512
@@ -2432,10 +2490,11 @@ def phase_two_cell_bf16(dev):
 
 
 def _h512_counts():
-    """(bf16 two-cell forward, bf16 two-cell backward) + :func:`_lstm_counts`."""
+    """:func:`_lstm_counts` and the bf16 two-cell forward and backward."""
     from classifying_vae_lstm_tpu_torch.ops import two_cell as tc
 
-    return (tc.BF16_FWD_LAUNCHES, tc.BF16_BWD_LAUNCHES, *_lstm_counts())
+    return {**_lstm_counts(), "BF16_TWO_CELL_FWD": tc.BF16_FWD_LAUNCHES,
+            "BF16_TWO_CELL_BWD": tc.BF16_BWD_LAUNCHES}
 
 
 def _reset_h512_counts():
@@ -2475,15 +2534,16 @@ def phase_train_two_cell_bf16(model_dir):
             _reset_h512_counts, _h512_counts, base_flags=H512_FLAGS,
             overrides={"bf16_compute": True})
     n_train, n_val = (len(runs["first"][2][k]["x"]) // H512_B for k in ("train", "val"))
-    expected = (n_train + n_val, 2 * n_train, 0, 0, 0, 0, 0, 0, 0, 0)
+    expected = {**lstm_expected(), "BF16_TWO_CELL_FWD": n_train + n_val,
+                "BF16_TWO_CELL_BWD": 2 * n_train}
     for label, (args, counts, seen, epoch_s, wall, count, epoch) in runs.items():
         hist = seen["history"]
         print(f"bf16 two-cell H=512 {label} run: epochs {len(hist['loss'])} of {args.num_epochs} "
               f"({n_train} train + {n_val} eval steps each) in {wall:.2f} s; loss "
               f"{hist['loss']}, val_loss {hist['val_loss']}; ms per step (host clock, epoch "
               f"synchronised) {[round(s * 1e3 / n_train, 3) for s in epoch_s]}; epoch s "
-              f"{[round(s, 3) for s in epoch_s]}; launches (bf16 two-cell forward, backward; "
-              f"{LSTM_COUNTS}) {counts} (expected {expected}); .last.opt.npz count {count}, "
+              f"{[round(s, 3) for s in epoch_s]}; launches {nonzero(counts)} (expected "
+              f"{nonzero(expected)}, every other count 0); .last.opt.npz count {count}, "
               f"epoch {epoch}")
         require(all(math.isfinite(v) for vals in hist.values() for v in vals), "non-finite loss")
         require(counts == expected, f"{label} run launches {counts} != {expected}")
@@ -2508,7 +2568,7 @@ def phase_train_two_cell_bf16(model_dir):
             f"config read back {cfg}")
 
     _report_train("bf16 H=512 --lstm_backend xla", args_x, seen_x, epoch_x, wall_x)
-    require(not any(counts_x), f"the xla route launched kernels: {counts_x}")
+    require(not any(counts_x.values()), f"the xla route launched kernels: {counts_x}")
     require(not plain_on_cuda, f"plain versions ran on CUDA tensors: {plain_on_cuda}")
     loss_x = seen_x["history"]["loss"][0]
     rel = abs(loss0 - loss_x) / abs(loss_x)
@@ -2520,8 +2580,8 @@ def phase_train_two_cell_bf16(model_dir):
     require(rel <= 1e-2, f"first-epoch losses differ by {rel}")
     seen = resumed[2]
     seen.update(step_ms=resumed[3][-1] * 1e3 / n_train)
-    fwd = sum(r[1][0] for r in runs.values())
-    bwd = sum(r[1][1] for r in runs.values())
+    fwd = sum(r[1]["BF16_TWO_CELL_FWD"] for r in runs.values())
+    bwd = sum(r[1]["BF16_TWO_CELL_BWD"] for r in runs.values())
     return fwd, bwd, seen
 
 
@@ -2573,7 +2633,7 @@ def phase_evaluate_two_cell_bf16(ckpt, out_dir):
     from classifying_vae_lstm_tpu_torch.ops import two_cell as tc
 
     common_argv = ["--n_samples", str(EVAL_SAMPLES), "--batch_size", str(EVAL_B)]
-    expected = (2 * -(-EVAL_WINDOWS // EVAL_B), 0, 0, 0, 0, 0, 0, 0)
+    expected = lstm_expected(BF16_FWD=2 * -(-EVAL_WINDOWS // EVAL_B))
     plain_on_cuda = []
     with plain_guard(ls, LSTM_SEQ_PLAIN, plain_on_cuda):
         tc.BF16_FWD_LAUNCHES = tc.BF16_BWD_LAUNCHES = 0
@@ -2585,12 +2645,13 @@ def phase_evaluate_two_cell_bf16(ckpt, out_dir):
     rel = abs(nll_k - nll_x) / abs(nll_x)
     print(f"evaluate the bf16 two-cell H=512 checkpoint on {CORPUS} "
           f"({out_k['n_test_examples']} windows, {EVAL_SAMPLES} samples, batches of {EVAL_B}): "
-          f"keep (bf16 LSTM kernels) NLL {nll_k!r} in {wall_k:.3f} s, launches {counts_k} "
-          f"(expected {expected}); xla NLL {nll_x!r} in {wall_x:.3f} s, launches {counts_x}; "
+          f"keep (bf16 LSTM kernels) NLL {nll_k!r} in {wall_k:.3f} s, launches "
+          f"{nonzero(counts_k)} (expected {nonzero(expected)}); xla NLL {nll_x!r} in "
+          f"{wall_x:.3f} s, launches {nonzero(counts_x)}; "
           f"relative difference {rel:.3e} (limit 1e-3); bf16 two-cell launches {two_cell}")
     require(out_k["n_test_examples"] == out_x["n_test_examples"] == EVAL_WINDOWS,
             f"test windows {out_k['n_test_examples']}, {out_x['n_test_examples']}")
-    require(counts_k == expected and not any(counts_x) and two_cell == (0, 0),
+    require(counts_k == expected and not any(counts_x.values()) and two_cell == (0, 0),
             f"evaluation launches {counts_k}, {counts_x}, {two_cell}")
     require(math.isfinite(nll_k) and rel <= 1e-3, f"NLLs differ: {nll_k} vs {nll_x}")
     require(not plain_on_cuda, f"plain versions ran on CUDA tensors: {plain_on_cuda}")
@@ -2622,6 +2683,466 @@ def sample_cl_vrnn_bf16(ckpt, run_name, out_dir, label):
             f"samples {samples.shape}")
     require(launches == 1 and modes == ["bf16"], f"sample launches {launches}, modes {modes}")
     require(not plain_on_cuda, f"plain versions ran on CUDA tensors: {plain_on_cuda}")
+
+
+# the bf16 cl_vrnn the JAX package trains at H=2,048
+# (artifacts/fused_kernel_exp.json phase h2048, variant proj, "B1024 H2048
+# bf16"; tools/bench_train_scale.py: D=88, L=2, T=16, use_x_prev, B=1024),
+# with the 13 keys of the committed corpus in place of its K=10; past the drk
+# ceiling (H >= 1,579) JAX --lstm_backend auto pins the proj-only rung
+H2048_H, H2048_B = 2048, 1024
+WIDE_WALK_H, WIDE_WALK_B = 2560, 256  # the widest H auto pins to that rung
+H2048_FLAGS = ["--train_file", CORPUS, "--intermediate_dim", str(H2048_H), "--latent_dim",
+               str(BF16_L), "--seq_length", str(TRAIN_T), "--batch_size", str(H2048_B),
+               "--use_x_prev", "--patience", "0"]
+AUTO_H2048 = {"lstm_backend": "pallas", "bf16_compute": True, "fusion": [True, False, False],
+              "two_cell": False}
+H2048_EVAL_SAMPLES = 8  # a run length: 46 inference forwards of 1,600 rows at H=2,048
+RUNG_KERNELS = ("xz_fwd", "xz_train_fwd", "walk", "walk_drk")
+
+
+def rung_kernels(label, ins, reps):
+    """The four kernels of the non-default rungs against their plain
+    versions on one cell's inputs ``ins`` (x, w, b, rk, h0, c0; bf16 x and
+    rk: the bf16 mode): the unfused forwards on xz = x @ W + b (rounded as
+    ``lstm_sequence_pallas`` hoists it), the walks on the plain forward's
+    residuals. f32: forward within :func:`fwd_outside`, backward within 1e-4
+    x max|plain| + 1e-6; bf16: :func:`bf16_outside`, backward within 1e-2
+    relative Frobenius. Returns the kernel-table fields per kernel (bounds at
+    the stream type's rate)."""
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
+    from classifying_vae_lstm_tpu_torch.ops.lstm import bf16_operand
+
+    x, w, b, rk, h0, c0 = ins
+    T, B, IN = x.shape
+    H = rk.shape[0]
+    bf16 = x.dtype == torch.bfloat16
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+    xz = x.float() @ (bf16_operand(w) if bf16 else w) + b
+    xins = (xz.to(x.dtype).contiguous(), rk, h0, c0)
+    got = ls.lstm_seq_xz_train_fwd(*xins)
+    inf = ls.lstm_seq_xz_fwd(*xins)
+    ref = ls.lstm_seq_xz_train_fwd_plain(*xins)
+    torch.cuda.synchronize()
+    require([o.dtype for o in got] == [o.dtype for o in ref]
+            == [torch.float32, torch.float32, x.dtype], f"{label}: forward types")
+    if bf16:
+        errs, bad = bf16_outside(got, ref)
+        ierrs, ibad = bf16_outside(inf, ref)
+        bad.update({f"inference {n}": e for n, e in ibad.items()})
+        fwd_err = max(e for e, _ in [*errs.values(), *ierrs.values()])
+        shown = f"{_fmt_errs(errs)}; inference {_fmt_errs(ierrs)} (limits 1e-2 x max(1, " \
+                "max|plain|) and 1e-3 relative)"
+    else:
+        names = ("h", "c", "z")
+        errs = {n: (k - p).abs().max().item() for n, k, p in zip(names, got, ref)}
+        errs.update({f"inference {n}": (k - p).abs().max().item()
+                     for n, k, p in zip(names, inf, ref)})
+        bad = fwd_outside(errs, dict(zip(names, ref)))
+        fwd_err = max(errs.values())
+        shown = ", ".join(f"{n} {e:.3e}" for n, e in errs.items()) + f" (limit {FWD_LIMIT})"
+    print(f"{label}: unfused forwards, max |kernel - plain| {shown}")
+    require(not bad, f"{label}: unfused forward differs: {bad}")
+
+    h, c, z = ref
+    rng = np.random.default_rng(SEED + 13)
+    dh = torch.from_numpy((1e-2 * rng.standard_normal(tuple(h.shape))).astype(np.float32))
+    dc = torch.zeros_like(dh)
+    dc[-1] = torch.from_numpy((1e-2 * rng.standard_normal((B, H))).astype(np.float32))
+    cp, hp = torch.cat([c0[None], c[:-1]]), torch.cat([h0[None], h[:-1]]).to(z.dtype)
+    res = (z, cp, c, hp, dh.to(x.device), dc.to(x.device), rk.T.contiguous())
+    walk_res = res[:3] + res[4:]
+    outs = {"walk": ls.lstm_seq_walk(*walk_res), "walk_drk": ls.lstm_seq_walk_drk(*res)}
+    torch.cuda.synchronize()
+    want = ls.lstm_seq_walk_drk_plain(*res)
+    bwd_err = {}
+    for kind, out in outs.items():
+        rel, bad = {}, []
+        for n, g, wv in zip(("dz", "dh0", "dc0", "drk"), out, want):
+            g, wv = g.float(), wv.float()
+            err, scale = (g - wv).abs().max().item(), wv.abs().max().item()
+            rel[n] = ((g - wv).norm() / wv.norm().clamp_min(1e-30)).item()
+            ok = rel[n] <= 1e-2 if bf16 else err <= 1e-4 * scale + 1e-6
+            if not (ok and math.isfinite(err)):
+                bad.append((n, err, rel[n]))
+        bwd_err[kind] = max((g.float() - wv.float()).abs().max().item()
+                            for g, wv in zip(out, want))
+        print(f"{label}: {kind} relative Frobenius "
+              + ", ".join(f"{n} {v:.2e}" for n, v in rel.items())
+              + f" (limit {'1e-2 relative' if bf16 else '1e-4 x max|plain| + 1e-6'}); types "
+              f"{[str(o.dtype)[6:] for o in out]}")
+        require(not bad, f"{label}: {kind} differs: {bad}")
+        require(out[0].dtype == z.dtype and all(o.dtype == torch.float32 for o in out[1:]),
+                f"{label}: {kind} output types")
+
+    fwd_fmas, walk_fmas = T * B * H * 4 * H, T * B * 4 * H * H
+    times = {
+        "xz_train_fwd": (lambda: ls.lstm_seq_xz_train_fwd(*xins),
+                         lambda: ls.lstm_seq_xz_train_fwd_plain(*xins), fwd_fmas,
+                         _nbytes(xins) + _nbytes(got), fwd_err),
+        "xz_fwd": (lambda: ls.lstm_seq_xz_fwd(*xins), lambda: ls.lstm_seq_xz_fwd_plain(*xins),
+                   fwd_fmas, _nbytes(xins) + _nbytes(inf), fwd_err),
+        "walk": (lambda: ls.lstm_seq_walk(*walk_res), lambda: ls.lstm_seq_walk_plain(*walk_res),
+                 walk_fmas, _nbytes(walk_res) + _nbytes(outs["walk"]), bwd_err["walk"]),
+        "walk_drk": (lambda: ls.lstm_seq_walk_drk(*res), lambda: ls.lstm_seq_walk_drk_plain(*res),
+                     2 * walk_fmas, _nbytes(res) + _nbytes(outs["walk_drk"]),
+                     bwd_err["walk_drk"]),
+    }
+    table = {}
+    for kind, (kernel, plain, fmas, nbytes, err) in times.items():
+        k_ms = time_ms(kernel, reps=reps, warm=1)
+        p_ms = time_ms(plain, reps=reps, warm=1)
+        b_ms, b_by = roofline_ms(fmas, nbytes, peak)
+        table[kind] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                       "bound_by": b_by}
+    print(f"{label}: " + "; ".join(
+        f"{k} {v['ms']:.3f} ms (plain {v['plain_ms']:.3f}, bound {v['bound_ms']:.4f} "
+        f"{v['bound_by']}{', bf16 rate' if bf16 else ''})" for k, v in table.items()))
+    return table
+
+
+def rung_gradient_types(label, ins):
+    """Every gradient of ``lstm_sequence(backend="pallas", fusion=f,
+    compute_dtype=bf16)`` on the card for each non-default rung f, at one
+    cell's width: finite, with JAX's types: dRk and dx bf16-valued, dW f32
+    and unrounded at the proj rungs and bf16-valued at the unfused ones, db
+    never rounded."""
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.ops.lstm import lstm_sequence
+
+    x, w, b, rk, h0, c0 = ins
+    representable = lambda g: torch.equal(g, g.bfloat16().float())
+    for fusion in ((True, True, False), (True, False, False), (False, True, False),
+                   (False, False, False)):
+        t = {"x": x.transpose(0, 1).float(), "kernel": w, "bias": b,
+             "recurrent_kernel": rk.float()}
+        t = {k: v.detach().clone().requires_grad_(True) for k, v in t.items()}
+        params = {k: t[k] for k in ("kernel", "recurrent_kernel", "bias")}
+        h, (hT, cT) = lstm_sequence(params, t["x"], h0, c0, backend="pallas",
+                                    compute_dtype=torch.bfloat16, fusion=fusion)
+        (1e-2 * h.float().sum() + cT.sum()).backward()
+        g = {k: v.grad for k, v in t.items()}
+        rounded = {k: representable(v) for k, v in g.items()}
+        print(f"{label} fusion {fusion}: gradients bf16-valued {rounded}")
+        require(all(torch.isfinite(v).all().item() for v in g.values()),
+                f"{label} {fusion}: non-finite gradient")
+        require(rounded == {"x": True, "kernel": not fusion[0], "bias": False,
+                            "recurrent_kernel": True}, f"{label} {fusion}: gradient types")
+        del h, hT, cT, g, t
+
+
+def proj_forwards(label, ins, eval_ins):
+    """The fused-projection forwards that phase 27 runs, at its shapes: the
+    bf16 training forward and inference forward on one cell's training batch
+    ``ins``, and the inference forward on one evaluation batch ``eval_ins``
+    (8 samples x 200 windows), each against its plain version within
+    :func:`bf16_outside`; their times beside the plain versions'."""
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
+
+    got, inf = ls.lstm_seq_train_fwd(*ins), ls.lstm_seq_fwd(*ins)
+    ref = ls.lstm_seq_train_fwd_plain(*ins)
+    ev, ev_ref = ls.lstm_seq_fwd(*eval_ins), ls.lstm_seq_fwd_plain(*eval_ins)
+    torch.cuda.synchronize()
+    types = [o.dtype for o in got]
+    require(types == [o.dtype for o in ref]
+            == [torch.float32, torch.float32, torch.bfloat16, torch.bfloat16, torch.float32],
+            f"{label}: training forward output types {types}")
+    errs, bad = bf16_outside(got, ref)
+    ierrs, ibad = bf16_outside(inf, ref)
+    eerrs, ebad = bf16_outside(ev, ev_ref)
+    B_eval = eval_ins[0].shape[1]
+    print(f"{label}: fused-projection training forward, max |kernel - plain| (relative "
+          f"Frobenius) {_fmt_errs(errs)}; inference forward {_fmt_errs(ierrs)}; inference "
+          f"forward at B={B_eval} {_fmt_errs(eerrs)} (limits 1e-2 x max(1, max|plain|) and "
+          "1e-3 relative)")
+    require(not bad and not ibad and not ebad,
+            f"{label}: fused-projection forward differs: {bad} {ibad} {ebad}")
+    del got, inf, ref, ev, ev_ref
+    ms = {name: time_ms(fn, reps=3, warm=1) for name, fn in (
+        ("training forward", lambda: ls.lstm_seq_train_fwd(*ins)),
+        ("plain", lambda: ls.lstm_seq_train_fwd_plain(*ins)),
+        ("inference forward", lambda: ls.lstm_seq_fwd(*ins)),
+        (f"inference forward at B={B_eval}", lambda: ls.lstm_seq_fwd(*eval_ins)),
+        (f"plain at B={B_eval}", lambda: ls.lstm_seq_fwd_plain(*eval_ins)))}
+    print(f"{label}: " + "; ".join(f"{n} {v:.3f} ms" for n, v in ms.items()))
+
+
+def phase_lstm_rungs(dev):
+    """The non-default rungs' kernels against their plain versions: bf16 at
+    the H=2,048 training shape (B=1,024, T=16; the model's seeded Keras init,
+    drawn on the card, 13 keys) for the encoder (IN=101) and the decoder
+    (IN=103), beside the fused-projection forwards phase 27 runs there
+    (:func:`proj_forwards`), the gradient types of each rung there, the walk
+    at H=2,560 (B=256), and f32 at phase 8's training shape. Returns the
+    kernel-table fields, f32 and bf16, from the encoder cell."""
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.nn.core import init_lstm
+    from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
+
+    rng = np.random.default_rng(SEED + 12)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    D, H, T = 88, H2048_H, TRAIN_T
+    bf = lambda ins: (ins[0].bfloat16(), ins[1], ins[2], ins[3].bfloat16(), *ins[4:])
+    keras = lambda IN, H: {k: v.cpu().numpy() for k, v in init_lstm(gen, IN, H).items()}
+    table = {}
+    for cell, IN in (("encoder_h", D + TRAIN_K), ("decoder_h", D + BF16_L + TRAIN_K)):
+        raw = keras(IN, H)
+        ins = bf(_lstm_inputs(rng, dev, raw, H2048_B, T, D, H))
+        eval_ins = bf(_lstm_inputs(rng, dev, raw, H2048_EVAL_SAMPLES * EVAL_B, T, D, H))
+        proj_forwards(f"bf16 {cell} at B={H2048_B} T={T} IN={IN} H={H}", ins, eval_ins)
+        del eval_ins
+        got = rung_kernels(f"bf16 {cell} at B={H2048_B} T={T} IN={IN} H={H}", ins, reps=3)
+        if cell == "encoder_h":
+            table["bf16"] = got
+            rung_gradient_types(f"bf16 {cell} at H={H}", ins)
+        del ins
+        torch.cuda.empty_cache()
+
+    Hw = WIDE_WALK_H
+    x, w, b, rk, h0, c0 = bf(_lstm_inputs(rng, dev, keras(D + TRAIN_K, Hw), WIDE_WALK_B, T, D,
+                                          Hw))
+    xz = (x.float() @ w.bfloat16().float() + b).bfloat16()
+    h, c, z = ls.lstm_seq_xz_train_fwd_plain(xz, rk, h0, c0)
+    dh = torch.from_numpy((1e-2 * rng.standard_normal(tuple(h.shape))).astype(np.float32))
+    cp = torch.cat([c0[None], c[:-1]])
+    res = (z, cp, c, dh.to(dev), torch.zeros_like(c), rk.T.contiguous())
+    got, want = ls.lstm_seq_walk(*res), ls.lstm_seq_walk_plain(*res)
+    torch.cuda.synchronize()
+    rel = {n: ((g.float() - wv.float()).norm() / wv.float().norm().clamp_min(1e-30)).item()
+           for n, g, wv in zip(("dz", "dh0", "dc0"), got, want)}
+    k_ms = time_ms(lambda: ls.lstm_seq_walk(*res), reps=3, warm=1)
+    b_ms, b_by = roofline_ms(T * WIDE_WALK_B * 4 * Hw * Hw, _nbytes(res) + _nbytes(got),
+                             PEAK_BF16_FLOPS)
+    print(f"bf16 walk at H={Hw} (B={WIDE_WALK_B}, {ls.walk_rows(Hw)}-row tiles): relative "
+          "Frobenius " + ", ".join(f"{n} {v:.2e}" for n, v in rel.items())
+          + f" (limit 1e-2); {k_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, bf16 rate)")
+    require(ls.walk_rows(Hw) == 2 and all(v <= 1e-2 and math.isfinite(v) for v in rel.values()),
+            f"the walk at H={Hw} differs: {rel}")
+    del x, w, b, rk, xz, h, c, z, res, got, want
+    torch.cuda.empty_cache()
+
+    raw13, cfg = train_shape_weights(rng)
+    ins = _lstm_inputs(rng, dev, raw13["encoder_h"], TRAIN_B, T, cfg.original_dim,
+                       cfg.intermediate_dim)
+    table["f32"] = rung_kernels(f"f32 encoder_h at B={TRAIN_B} T={T} H={cfg.intermediate_dim}",
+                                ins, reps=10)
+    return table
+
+
+def phase_train_h2048(model_dir):
+    """The bf16 cl_vrnn at H=2,048 trained by ``cli.cl_vrnn_train`` with
+    ``--lstm_backend pallas`` and ``bf16_compute`` (set on the namespace,
+    as JAX ``--lstm_backend auto`` sets it): the CLI pins fusion (T, F, F)
+    and ``two_cell`` off, the args.json JAX auto writes at this width, read
+    back through ``cl_vrnn_config_from_args``; 1 epoch, whose counts (set to
+    0 just before, read just after) are per train batch 2 bf16 training
+    forwards and 2 bf16 dz-only walks, per eval batch 2 bf16 inference
+    forwards, every other 0; then 1 epoch of ``xla`` from the same seed.
+    Returns the bf16 walk launches and what the run left."""
+    from classifying_vae_lstm_tpu_torch.cli import common
+    from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
+    from classifying_vae_lstm_tpu_torch.ops import two_cell as tc
+    from classifying_vae_lstm_tpu_torch.train.checkpoint import load_model_args
+
+    plain_on_cuda = []
+    with plain_guard(ls, LSTM_SEQ_PLAIN, plain_on_cuda), \
+            plain_guard(tc, TWO_CELL_PLAIN, plain_on_cuda):
+        args, counts, seen, epoch_s, wall = run_train(
+            "h2048_bf16", ["--num_epochs", "1", "--lstm_backend", "pallas", "--save_last"],
+            model_dir, _reset_lstm_counts, _lstm_counts, base_flags=H2048_FLAGS,
+            overrides={"bf16_compute": True})
+        E, n_train, n_val = _report_train("bf16 H=2048 training path", args, seen, epoch_s,
+                                          wall)
+        expected = lstm_expected(BF16_FWD=2 * E * n_val, BF16_TRAIN_FWD=2 * E * n_train,
+                                 BF16_WALK=2 * E * n_train)
+        print(f"bf16 H=2048 training: K={args.n_classes}; launches {nonzero(counts)} (expected "
+              f"{nonzero(expected)}, every other count 0: the dz-only walk ran, never the full "
+              "rung's backward)")
+        require(counts == expected, f"bf16 H=2048 launches {counts} != {expected}")
+        margs = load_model_args(seen["ckpt"])
+        cfg = common.cl_vrnn_config_from_args(margs)
+        require({k: margs[k] for k in AUTO_H2048} == AUTO_H2048, f"args.json {margs}")
+        require((cfg.intermediate_dim, cfg.bf16_compute, cfg.lstm_backend, cfg.fusion,
+                 cfg.two_cell, cfg.n_classes)
+                == (H2048_H, True, "pallas", (True, False, False), False, TRAIN_K),
+                f"config read back {cfg}")
+        seen.update(step_ms=epoch_s[-1] * 1e3 / n_train)
+        args_x, counts_x, seen_x, epoch_x, wall_x = run_train(
+            "h2048_bf16_xla", ["--num_epochs", "1", "--lstm_backend", "xla"], model_dir,
+            _reset_lstm_counts, _lstm_counts, base_flags=H2048_FLAGS,
+            overrides={"bf16_compute": True})
+    _report_train("bf16 H=2048 --lstm_backend xla", args_x, seen_x, epoch_x, wall_x)
+    require(not any(counts_x.values()), f"the xla route launched LSTM kernels: {counts_x}")
+    require(not plain_on_cuda, f"plain versions ran on CUDA tensors: {plain_on_cuda}")
+    loss_k, loss_x = seen["history"]["loss"][0], seen_x["history"]["loss"][0]
+    rel = abs(loss_k - loss_x) / abs(loss_x)
+    print(f"bf16 H=2048 first epoch train loss: pallas {loss_k!r}, xla {loss_x!r}, relative "
+          f"difference {rel:.3e} (limit 1e-2: the routes round at different places); ms per "
+          f"step: pallas {epoch_s[0] * 1e3 / n_train:.3f}, xla {epoch_x[0] * 1e3 / n_train:.3f}")
+    require(rel <= 1e-2, f"first-epoch losses differ by {rel}")
+    return counts["BF16_WALK"], counts["BF16_TRAIN_FWD"], seen
+
+
+def phase_evaluate_h2048(ckpt, out_dir):
+    """Phase 27's checkpoint (its last epoch, :func:`last_checkpoint`)
+    downstream: ``cli.evaluate``
+    with ``--lstm_backend keep`` (2 bf16 inference forwards a batch: every
+    proj rung's primal is the default rung's) and ``xla`` at 8 importance
+    samples (NLLs within 1e-2 relative), then ``cli.cl_vrnn_sample`` (one
+    bf16 generation launch) and the generation kernel against its plain
+    version (:func:`generation_against_plain`). Returns the
+    inference-forward launches."""
+    from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
+
+    argv = lambda backend: ["-i", ckpt, "--train_file", CORPUS, "--lstm_backend", backend,
+                            "--n_samples", str(H2048_EVAL_SAMPLES), "--batch_size", str(EVAL_B)]
+    expected = lstm_expected(BF16_FWD=2 * -(-EVAL_WINDOWS // EVAL_B))
+    plain_on_cuda = []
+    with plain_guard(ls, LSTM_SEQ_PLAIN, plain_on_cuda):
+        out_k, counts_k, nll_k, _, wall_k = _evaluate_counted(argv("keep"))
+        out_x, counts_x, nll_x, _, wall_x = _evaluate_counted(argv("xla"))
+    rel = abs(nll_k - nll_x) / abs(nll_x)
+    print(f"evaluate the bf16 H=2048 checkpoint on {CORPUS} ({out_k['n_test_examples']} windows, "
+          f"{H2048_EVAL_SAMPLES} samples, batches of {EVAL_B}): keep NLL {nll_k!r} in "
+          f"{wall_k:.3f} s, launches {nonzero(counts_k)} (expected {nonzero(expected)}); xla "
+          f"NLL {nll_x!r} in {wall_x:.3f} s; relative difference {rel:.3e} (limit 1e-2)")
+    require(out_k["n_test_examples"] == out_x["n_test_examples"] == EVAL_WINDOWS,
+            f"test windows {out_k['n_test_examples']}, {out_x['n_test_examples']}")
+    require(counts_k == expected and not any(counts_x.values()),
+            f"evaluation launches {counts_k}, {counts_x}")
+    require(math.isfinite(nll_k) and rel <= 1e-2, f"NLLs differ: {nll_k} vs {nll_x}")
+    require(not plain_on_cuda, f"plain versions ran on CUDA tensors: {plain_on_cuda}")
+    sample_cl_vrnn_bf16(ckpt, "smoke_h2048", out_dir, "bf16 H=2048")
+    generation_against_plain(ckpt, "bf16 H=2048")
+    return counts_k["BF16_FWD"]
+
+
+def generation_against_plain(ckpt, label, B=4, nsteps=32):
+    """The generation kernel on a bf16 checkpoint's own weights against its
+    plain version on the same inputs, as phase 3 holds it at H=512: B songs
+    of 32-frame seeds and ``nsteps`` free steps (the sample CLI's), u = 1 so
+    that every draw is 0 and no near-tie can flip a frame; probabilities
+    within max 2e-2 and mean 2e-3. Its launches come after phase 27's counts
+    were read."""
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.cli import common
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate as cg
+    from classifying_vae_lstm_tpu_torch.weights import params_from_numpy
+
+    dev = torch.device("cuda", 0)
+    raw, cfg, _ = common.load_model(ckpt, "cl_vrnn")
+    require(cg.pick_mode(cfg) == "bf16", f"{label}: generation mode {cg.pick_mode(cfg)}")
+    params = params_from_numpy(raw, dev)
+    seeds = torch.from_numpy(seed_windows(B)).to(dev)
+    Tseed, K = seeds.shape[1], cfg.n_classes
+    rng = np.random.default_rng(SEED + 14)
+    eps = torch.from_numpy(rng.standard_normal((B, Tseed + nsteps, cfg.latent_dim),
+                                               dtype=np.float32)).to(dev)
+    u1 = torch.ones((B, Tseed + nsteps, cfg.original_dim), device=dev)
+    ws = torch.eye(K, device=dev)[torch.arange(B, device=dev) % K]
+    run = lambda f: f(params, cfg, seeds, nsteps, eps, u1, ws, return_probs=True, mode="bf16")
+    pk, pp = run(cg.generate_cl_vrnn_batch_cuda), run(cg.generate_cl_vrnn_batch_plain)
+    torch.cuda.synchronize()
+    d = (pk - pp).abs()
+    mx, mean = d.max().item(), d.mean().item()
+    k_ms = time_ms(lambda: run(cg.generate_cl_vrnn_batch_cuda), reps=3)
+    p_ms = time_ms(lambda: run(cg.generate_cl_vrnn_batch_plain), reps=2)
+    print(f"generation of the {label} checkpoint against its plain version (B={B}, Tseed="
+          f"{Tseed}, nsteps={nsteps}, u=1): probabilities max {mx:.3e} (limit 2e-2), mean "
+          f"{mean:.3e} (limit 2e-3); kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
+    require(pk.shape == (B, nsteps, cfg.original_dim) and torch.isfinite(pk).all().item(),
+            f"{label}: generation probabilities not finite or misshapen")
+    require(mx <= 2e-2 and mean <= 2e-3, f"{label}: generation differs: max {mx}, mean {mean}")
+
+
+# each run: (label, fusion, bf16, the counts one train batch and one eval batch leave)
+OTHER_RUNGS = (
+    ("(T, T, F) f32", [True, True, False], False,
+     lambda n, v: lstm_expected(TRAIN_FWD=2 * n, DRK=4 * n, FWD=2 * v)),
+    ("(F, T, F) f32", [False, True, False], False,
+     lambda n, v: lstm_expected(XZ_TRAIN_FWD=2 * n, DRK=4 * n, XZ_FWD=2 * v)),
+    ("(F, F, F) f32", [False, False, False], False,
+     lambda n, v: lstm_expected(XZ_TRAIN_FWD=2 * n, WALK=2 * n, XZ_FWD=2 * v)),
+    ("(F, F, F) bf16", [False, False, False], True,
+     lambda n, v: lstm_expected(BF16_XZ_TRAIN_FWD=2 * n, BF16_WALK=2 * n, BF16_XZ_FWD=2 * v)),
+    ("(T, T, F) bf16", [True, True, False], True,
+     lambda n, v: lstm_expected(BF16_TRAIN_FWD=2 * n, BF16_DRK=4 * n, BF16_FWD=2 * v)),
+)
+
+
+def last_checkpoint(ckpt):
+    """The ``--save_last`` parameters of a run (``<run>.last.npz``) as a
+    checkpoint of their own, beside a copy of the run's args: a run's first
+    epoch writes no best checkpoint (the Keras-style gate opens at epoch 1)."""
+    import shutil
+
+    last = ckpt.replace(".npz", ".last.npz")
+    for ext in (".json", ".yaml"):
+        shutil.copyfile(ckpt.replace(".npz", ext), last.replace(".npz", ext))
+    return last
+
+
+def phase_other_rungs(model_dir, first_loss):
+    """The other rungs end to end at the jsball_vrnn4 width (B=200, T=16,
+    H=256, ``--two_cell off``): 1 epoch of ``cli.cl_vrnn_train`` each with
+    fusion (T, T, F), (F, T, F) and (F, F, F) in f32 and (F, F, F) and (T, T,
+    F) in bf16 (every new bf16 instance on a training path),
+    set through ``args.fusion`` as a checkpoint's args.json carries it; each
+    run's counts equal its steps and every other count is 0, the f32 runs'
+    first-epoch loss equals phase 9's within 1e-3 relative; then
+    ``cli.evaluate`` of the f32 (F, F, F) checkpoint through the unfused
+    inference forward (2 a batch) and through ``xla`` (NLLs within 1e-4).
+    Returns the f32 and bf16 launches per kernel over the runs."""
+    from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
+    from classifying_vae_lstm_tpu_torch.train.checkpoint import load_model_args
+
+    totals = {n: 0 for n in LSTM_COUNTS}
+    plain_on_cuda = []
+    with plain_guard(ls, LSTM_SEQ_PLAIN, plain_on_cuda):
+        for i, (label, fusion, bf16, per) in enumerate(OTHER_RUNGS):
+            overrides = {"fusion": fusion, **({"bf16_compute": True} if bf16 else {})}
+            args, counts, seen, epoch_s, wall = run_train(
+                f"rung{i}", ["--num_epochs", "1", "--two_cell", "off", "--save_last"], model_dir,
+                _reset_lstm_counts, _lstm_counts, overrides=overrides)
+            E, n_train, n_val = _report_train(f"fusion {label}", args, seen, epoch_s, wall)
+            expected = per(E * n_train, E * n_val)
+            loss0 = seen["history"]["loss"][0]
+            rel = abs(loss0 - first_loss) / abs(first_loss)
+            print(f"fusion {label}: launches {nonzero(counts)} (expected {nonzero(expected)}, "
+                  f"every other count 0); first-epoch loss {loss0!r}, phase 9's {first_loss!r}, "
+                  f"relative difference {rel:.3e}")
+            require(counts == expected, f"fusion {label} launches {counts} != {expected}")
+            margs = load_model_args(seen["ckpt"])
+            require(margs["fusion"] == fusion and margs.get("bf16_compute", False) == bf16,
+                    f"args.json {margs}")
+            require(bf16 or rel <= 1e-3, f"fusion {label}: first-epoch loss differs by {rel}")
+            totals = {n: totals[n] + counts[n] for n in LSTM_COUNTS}
+            if fusion == [False, False, False] and not bf16:
+                ckpt = last_checkpoint(seen["ckpt"])
+        argv = lambda backend: ["-i", ckpt, "--train_file", CORPUS, "--lstm_backend", backend,
+                                "--n_samples", str(EVAL_SAMPLES), "--batch_size", str(EVAL_B)]
+        out_k, counts_k, nll_k, _, wall_k = _evaluate_counted(argv("keep"))
+        out_x, counts_x, nll_x, _, wall_x = _evaluate_counted(argv("xla"))
+    expected = lstm_expected(XZ_FWD=2 * -(-out_k["n_test_examples"] // EVAL_B))
+    print(f"evaluate the (F, F, F) f32 checkpoint on {CORPUS}: keep NLL {nll_k!r} in "
+          f"{wall_k:.3f} s, launches {nonzero(counts_k)} (expected {nonzero(expected)}); xla NLL "
+          f"{nll_x!r} in {wall_x:.3f} s; |difference| {abs(nll_k - nll_x):.3e} (limit 1e-4)")
+    require(counts_k == expected and not any(counts_x.values()),
+            f"evaluation launches {counts_k}, {counts_x}")
+    require(math.isfinite(nll_k) and abs(nll_k - nll_x) <= 1e-4, f"NLLs {nll_k} vs {nll_x}")
+    require(not plain_on_cuda, f"plain versions ran on CUDA tensors: {plain_on_cuda}")
+    totals["XZ_FWD"] += counts_k["XZ_FWD"]
+    return totals
 
 
 def main() -> int:
@@ -2678,6 +3199,13 @@ def main() -> int:
         tc16_fwd, tc16_bwd, seen_tc = phase_train_two_cell_bf16(model_dir)
         phase_train_breakdown(seen_tc, "two-cell kernels", "two_cell")
         phase_evaluate_two_cell_bf16(seen_tc["ckpt"], sample_dir)
+    rungs = phase_lstm_rungs(dev)
+    with tempfile.TemporaryDirectory() as model_dir, tempfile.TemporaryDirectory() as sample_dir:
+        walk16_launches, _, seen_w = phase_train_h2048(model_dir)
+        phase_train_breakdown(seen_w, "LSTM kernels", "lstm_seq")
+        phase_evaluate_h2048(last_checkpoint(seen_w["ckpt"]), sample_dir)
+    with tempfile.TemporaryDirectory() as model_dir:
+        other = phase_other_rungs(model_dir, seen_off["history"]["loss"][0])
     source = "classifying_vae_lstm_tpu_torch/csrc/two_cell.cu"
     lstm_source = "classifying_vae_lstm_tpu_torch/csrc/lstm_seq.cu"
     pallas_lstm = "classifying_vae_lstm_tpu/ops/pallas_lstm.py"
@@ -2754,12 +3282,26 @@ def main() -> int:
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_two_cell.py:295",
         "launches": tc16_bwd, **tc16[1], "library_ms": None,
     }]
+    # the other rungs: launches on their paths (phase 28; the bf16 walk on the
+    # H=2,048 main path, phase 27), times from phase 26
+    replaced = {"xz_fwd": 216, "xz_train_fwd": 529, "walk": 810, "walk_drk": 920}
+    counted = {"xz_fwd": "XZ_FWD", "xz_train_fwd": "XZ_TRAIN_FWD", "walk": "WALK",
+               "walk_drk": "DRK"}
+    for mode, sfx in (("f32", ""), ("bf16", "_bf16")):
+        for kind in RUNG_KERNELS:
+            launches = other[f"{'BF16_' if sfx else ''}{counted[kind]}"]
+            if (mode, kind) == ("bf16", "walk"):
+                launches = walk16_launches
+            require(launches > 0, f"lstm_seq_{kind}{sfx} was not launched on its path")
+            kernels.append({"name": f"lstm_seq_{kind}{sfx}", "route": "cuda",
+                            "source": lstm_source, "replaces": f"{pallas_lstm}:{replaced[kind]}",
+                            "launches": launches, **rungs[mode][kind], "library_ms": None})
     # every thread this run started has ended (the servers' threads are
     # daemons and shut down), so the interpreter exits with main's code
     alive = [t.name for t in threading.enumerate()
              if t is not threading.main_thread() and not t.daemon]
     require(not alive, f"threads still running: {alive}")
-    print(f"chip_smoke: all 25 phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: all 28 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

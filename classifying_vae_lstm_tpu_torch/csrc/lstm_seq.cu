@@ -10,9 +10,26 @@
 //   * :1146 `_forward_train_call_fp` -> `_lstm_seq_train_kernel_fp` :730 with
 //     `lstm_seq_fwd_kernel<R, true>`, the training forward;
 //   * :1378 `_backward_call_full` -> `_lstm_bwd_kernel_full` :986 with
-//     `lstm_seq_bwd_kernel` (the serial reverse walk) followed by
-//     `wgrad_kernel<lstm_seq_wgrad>` (the weight gradients, csrc/wgrad.cuh):
-//     one ported kernel, two launches.
+//     `lstm_seq_bwd_kernel<S, float, 4>` (the serial reverse walk) followed
+//     by `wgrad_kernel<lstm_seq_wgrad>` (the weight gradients,
+//     csrc/wgrad.cuh): one ported kernel, two launches;
+// and the other fusion rungs (proj, drk, full) of the same entry:
+//   * :387 / :414 `_forward_kernel_call` -> `_lstm_seq_kernel` :216 (and
+//     `_ilv` :244, `_tblocked` :289, `_tblocked_ilv` :328, the same math
+//     scheduled for the TPU) with `lstm_seq_fwd_kernel<S, R, false, true>`,
+//     the unfused inference forward: xz = x @ W + b comes in precomputed;
+//   * :1070 `_forward_train_call` -> `_lstm_seq_train_kernel` :529 (and
+//     `_ilv` :580) with `lstm_seq_fwd_kernel<S, R, true, true>`, which also
+//     writes z;
+//   * :1251 `_backward_call` -> `_lstm_bwd_kernel` :810 (and `_ilv` :848)
+//     with `lstm_seq_bwd_kernel<S, S, R>`, the dz-only walk: dh = dz @ Rkᵀ
+//     and the dz stream at the stream type, no dx;
+//   * :1306 `_backward_call_drk` -> `_lstm_bwd_kernel_drk` :920 with the same
+//     walk followed by a `wgrad_kernel<lstm_seq_wgrad>` job for
+//     dRk = sum h_prevᵀdz (two launches). The TPU kernel sums dRk in a
+//     resident block over its sequential grid; here, as for the full rung,
+//     the deterministic second pass sums it, so the dz-only and drk rungs
+//     share the walk and differ in that pass.
 //
 // What it computes, per batch row and time step t = 0 .. T-1:
 //   xz = x[t] @ W + b;  z = xz + h @ Rk;  (h, c) = gates(z, c)
@@ -58,9 +75,15 @@
 //   element summed in row order by one thread.
 // * The hard-sigmoid derivative is 0.2 strictly inside (0, 1) and 0 at and
 //   beyond the clip points, the TPU kernel's rule (`_bwd_gate_grads` :786).
+// * The walk of the non-full rungs multiplies by Rkᵀ only, so it holds no
+//   dx; at H above ~2,300 a 4-row tile no longer fits shared memory (6H
+//   floats a row: dz, the two carries), and the walk takes 2-row tiles,
+//   which reach H = 4,800.
 // Known limits of this simple form: every block streams all weights from L2
 // every step, and the products run on FFMA, not the tensor cores. Plain FFMA
-// keeps f32 exact to the JAX side's precision="highest" (no TF32).
+// keeps f32 exact to the JAX side's precision="highest" (no TF32). Rk in
+// bf16 is 33.5 MB at H=2,048 and 52.4 MB at H=2,560, against the 50 MB L2:
+// past H ~ 2,400 the per-step stream spills to HBM.
 //
 // The bf16 stream mode (`compute_dtype=bf16` of `lstm_sequence_pallas`): each
 // kernel is a template on the stream type S, and S = __nv_bfloat16 holds x,
@@ -75,7 +98,9 @@
 // operand of dz @ (Rk | W)ᵀ, and dx as it is stored. The weight-gradient
 // pass rounds dz as it stages it for dRk (stored bf16, then cast to bf16 as
 // `_core_fp_bwd` does) and dW (stored f32, unrounded), and sums db from the
-// unrounded dz. At H=1024 bf16 halves the L2 stream of the weights (9.2 MB a
+// unrounded dz. The non-full rungs store dz at the stream type, rounded as
+// the TPU kernels store it (`dz.astype(dzseq_ref.dtype)`), and the drk pass
+// reads it so. At H=1024 bf16 halves the L2 stream of the weights (9.2 MB a
 // block-step); the FMAs, 2 x 4H x (IN + H) a row-step, still run at the f32
 // rate, so the bf16 tensor-core bound is ~15x below this form's reach.
 
@@ -88,7 +113,7 @@
 namespace {
 
 constexpr int kFwdThreads = 256;  // forward: one hidden unit per thread and pass
-constexpr int kBwdRows = 4;       // backward: batch rows per block
+constexpr int kBwdRows = 4;       // backward: batch rows per block (2 in a wide walk)
 constexpr int kBwdThreads = 512;  // backward: threads per block
 constexpr int kSlices = 2;        // backward: a product's K is split between two groups
 constexpr int kUnits = kBwdThreads / kSlices;  // backward: output columns per pass
@@ -99,24 +124,27 @@ struct FwdArgs {
   const S* x;             // [T, B, IN]
   const S* w;             // [IN, 4H]
   const float* b;         // [4H]
+  const S* xz;            // [T, B, 4H]  xz mode only (x, w and b null)
   const S* rk;            // [H, 4H]
   const float *h0, *c0;   // [B, H]
   float *h, *c;           // [T, B, H]
   S* z;                   // [T, B, 4H]  training forward only
-  S* hp;                  // [T, B, H]   training forward only
-  float* cp;              // [T, B, H]   training forward only
+  S* hp;                  // [T, B, H]   training forward only, not in the xz mode
+  float* cp;              // [T, B, H]   training forward only, not in the xz mode
   int T, B, IN, H;
 };
 
-template <typename S>
+// D is the type of the dz output: f32 scratch for the full rung, the stream
+// type for the walk of the other rungs
+template <typename S, typename D>
 struct BwdArgs {
   const S* z;             // [T, B, 4H]
   const float *cp, *c;    // [T, B, H]
   const float *dh, *dc;   // [T, B, H]  cotangents of the h and c sequences
-  const S* wt;            // [4H, H + IN]  (Rk | W) transposed
-  S* dx;                  // [T, B, IN]
+  const S* wt;            // [4H, H + IN]  (Rk | W) transposed; the walk: Rkᵀ, IN = 0
+  S* dx;                  // [T, B, IN]  null in the walk
   float *dh0, *dc0;       // [B, H]
-  float* dz;              // scratch [T, B, 4H], unrounded
+  D* dz;                  // [T, B, 4H]
   int T, B, IN, H;
 };
 
@@ -124,8 +152,8 @@ __host__ __device__ constexpr size_t fwd_smem_floats(int IN, int H, int rows) {
   return (size_t)(IN + 3 * H) * rows;
 }
 
-__host__ __device__ constexpr size_t bwd_smem_floats(int H) {
-  return (size_t)6 * H * kBwdRows + (size_t)kBwdRows * kUnits;
+__host__ __device__ constexpr size_t bwd_smem_floats(int H, int rows) {
+  return (size_t)6 * H * rows + (size_t)rows * kUnits;
 }
 
 __device__ __forceinline__ float hard_sigmoid(float x) {
@@ -212,12 +240,15 @@ __device__ __forceinline__ void mac_gates(float (&acc)[4][R], const float* a,
   }
 }
 
-template <typename S, int R, bool kTrain>
+// kXz: xz = x @ W + b comes in precomputed at the stream type (the unfused
+// rungs), and the training forward writes z alone (the core rebuilds h_prev
+// and c_prev from h and c)
+template <typename S, int R, bool kTrain, bool kXz>
 __global__ void __launch_bounds__(kFwdThreads) lstm_seq_fwd_kernel(const FwdArgs<S> a) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int T = a.T, B = a.B, H = a.H, IN = a.IN;
-  float* xs = sm;                  // [IN][R]
+  float* xs = sm;                  // [IN][R] (IN = 0 in the xz mode)
   float* h_cur = xs + IN * R;      // [H][R] each; h as the operand of h @ Rk
   float* h_nxt = h_cur + H * R;
   float* cs = h_nxt + H * R;
@@ -227,20 +258,30 @@ __global__ void __launch_bounds__(kFwdThreads) lstm_seq_fwd_kernel(const FwdArgs
   load_rows<R>(cs, a.c0, B, s0, H);
   for (int t = 0; t < T; ++t) {
     const size_t tb = (size_t)t * B;
-    load_rows<R>(xs, a.x + tb * IN, B, s0, IN);
+    if (!kXz) load_rows<R>(xs, a.x + tb * IN, B, s0, IN);
     __syncthreads();
     for (int u = threadIdx.x; u < H; u += kFwdThreads) {  // no syncs inside
       float acc[4][R];
+      if (kXz) {
 #pragma unroll
-      for (int g = 0; g < 4; ++g)
+        for (int r = 0; r < R; ++r) {
+          const int s = s0 + r;
+          const S* xzr = a.xz + (tb + (s < B ? s : 0)) * 4 * H + u;
 #pragma unroll
-        for (int r = 0; r < R; ++r) acc[g][r] = 0.f;
-      mac_gates<R>(acc, xs, a.w, IN, u, H);  // xz = x[t] @ W ...
+          for (int g = 0; g < 4; ++g) acc[g][r] = s < B ? ldv(xzr + g * H) : 0.f;
+        }
+      } else {
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const float bg = a.b[g * H + u];     // ... + b, rounded to the stream type
+        for (int g = 0; g < 4; ++g)
 #pragma unroll
-        for (int r = 0; r < R; ++r) acc[g][r] = operand<S>(acc[g][r] + bg);
+          for (int r = 0; r < R; ++r) acc[g][r] = 0.f;
+        mac_gates<R>(acc, xs, a.w, IN, u, H);  // xz = x[t] @ W ...
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const float bg = a.b[g * H + u];     // ... + b, rounded to the stream type
+#pragma unroll
+          for (int r = 0; r < R; ++r) acc[g][r] = operand<S>(acc[g][r] + bg);
+        }
       }
       mac_gates<R>(acc, h_cur, a.rk, H, u, H);  // z = xz + h @ Rk
 #pragma unroll
@@ -262,8 +303,10 @@ __global__ void __launch_bounds__(kFwdThreads) lstm_seq_fwd_kernel(const FwdArgs
           if (kTrain) {
 #pragma unroll
             for (int q = 0; q < 4; ++q) st(a.z + row * 4 * H + q * H + u, acc[q][r]);
-            st(a.hp + row * H + u, h_cur[u * R + r]);
-            a.cp[row * H + u] = cp;
+            if (!kXz) {
+              st(a.hp + row * H + u, h_cur[u * R + r]);
+              a.cp[row * H + u] = cp;
+            }
           }
         }
       }
@@ -275,48 +318,61 @@ __global__ void __launch_bounds__(kFwdThreads) lstm_seq_fwd_kernel(const FwdArgs
   }
 }
 
-// out(n, b) = sum_k a[k][b] * wt[k * N + n] for n in [0, N): a [K][kBwdRows]
-// in shared memory times a [K, N] weight; neighbouring threads read
+// acc[b] += a[b] * w for the R rows of one K step (one vector load)
+template <int R>
+__device__ __forceinline__ void fma_rows(float (&acc)[R], const float* ak, float w) {
+  static_assert(R == 4 || R == 2, "row tiles of 4 or 2");
+  if constexpr (R == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(ak);
+    acc[0] = fmaf(v.x, w, acc[0]);
+    acc[1] = fmaf(v.y, w, acc[1]);
+    acc[2] = fmaf(v.z, w, acc[2]);
+    acc[3] = fmaf(v.w, w, acc[3]);
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(ak);
+    acc[0] = fmaf(v.x, w, acc[0]);
+    acc[1] = fmaf(v.y, w, acc[1]);
+  }
+}
+
+// out(n, b) = sum_k a[k][b] * wt[k * N + n] for n in [0, N): a [K][R] in
+// shared memory times a [K, N] weight; neighbouring threads read
 // neighbouring columns, and the two slices of the block split K.
 // `store(n, b, value)` receives each result.
-template <typename S, typename Store>
+template <int R, typename S, typename Store>
 __device__ __forceinline__ void matvec_t(const float* a, const S* __restrict__ wt, int K,
                                          int N, float* part, Store store) {
   const int slice = threadIdx.x / kUnits, ln = threadIdx.x % kUnits;
   const int k0 = slice ? K / 2 : 0, k1 = slice ? K : K / 2;
   for (int n0 = 0; n0 < N; n0 += kUnits) {  // uniform trip count: syncs inside
     const int n = n0 + ln;
-    float acc[kBwdRows] = {0.f, 0.f, 0.f, 0.f};
+    float acc[R];
+#pragma unroll
+    for (int b = 0; b < R; ++b) acc[b] = 0.f;
     if (n < N) {
       const S* wp = wt + (size_t)k0 * N + n;
 #pragma unroll 8
-      for (int k = k0; k < k1; ++k, wp += N) {
-        const float w = ld(wp);
-        const float4 v = *reinterpret_cast<const float4*>(a + k * kBwdRows);
-        acc[0] = fmaf(v.x, w, acc[0]);
-        acc[1] = fmaf(v.y, w, acc[1]);
-        acc[2] = fmaf(v.z, w, acc[2]);
-        acc[3] = fmaf(v.w, w, acc[3]);
-      }
+      for (int k = k0; k < k1; ++k, wp += N) fma_rows<R>(acc, a + k * R, ld(wp));
       if (slice == 1) {
 #pragma unroll
-        for (int b = 0; b < kBwdRows; ++b) part[b * kUnits + ln] = acc[b];
+        for (int b = 0; b < R; ++b) part[b * kUnits + ln] = acc[b];
       }
     }
     __syncthreads();
     if (slice == 0 && n < N) {
 #pragma unroll
-      for (int b = 0; b < kBwdRows; ++b) store(n, b, acc[b] + part[b * kUnits + ln]);
+      for (int b = 0; b < R; ++b) store(n, b, acc[b] + part[b * kUnits + ln]);
     }
     __syncthreads();
   }
 }
 
-template <typename S>
-__global__ void __launch_bounds__(kBwdThreads) lstm_seq_bwd_kernel(const BwdArgs<S> a) {
+// the reverse walk: the full rung's (D = float scratch, dx) or, with IN = 0,
+// the dz-only walk of the other rungs (D = S, dh = dz @ Rkᵀ alone)
+template <typename S, typename D, int R>
+__global__ void __launch_bounds__(kBwdThreads) lstm_seq_bwd_kernel(const BwdArgs<S, D> a) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  constexpr int R = kBwdRows;
   const int T = a.T, B = a.B, H = a.H, IN = a.IN;
   float* dzs = sm;                 // [4H][R]  dz as the operand of dz @ (Rk | W)ᵀ
   float* dh_c = dzs + 4 * H * R;   // [H][R]  carry of dh
@@ -349,14 +405,14 @@ __global__ void __launch_bounds__(kBwdThreads) lstm_seq_bwd_kernel(const BwdArgs
         dz[3] = dh * tc * hard_sigmoid_grad(og);
         dc_c[i] = dc * fg;
 #pragma unroll
-        for (int g = 0; g < 4; ++g) a.dz[row * 4 * H + g * H + u] = dz[g];
+        for (int g = 0; g < 4; ++g) st(a.dz + row * 4 * H + g * H + u, dz[g]);
       }
 #pragma unroll
       for (int g = 0; g < 4; ++g) dzs[(g * H + u) * R + r] = operand<S>(dz[g]);
     }
     __syncthreads();
     // dz @ (Rk | W)ᵀ: the new dh carry and dx[t], the only serial product
-    matvec_t(dzs, a.wt, 4 * H, N, part, [&](int n, int r, float v) {
+    matvec_t<R>(dzs, a.wt, 4 * H, N, part, [&](int n, int r, float v) {
       const int s = s0 + r;
       if (n < H) {
         dh_c[n * R + r] = v;
@@ -380,40 +436,50 @@ int set_smem(const void* fn, size_t bytes) {
   return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename S, int R, bool kTrain>
+template <typename S, int R, bool kTrain, bool kXz>
 int launch_fwd(const FwdArgs<S>& a, cudaStream_t stream) {
   const size_t smem = fwd_smem_floats(a.IN, a.H, R) * sizeof(float);
-  int err = set_smem((const void*)lstm_seq_fwd_kernel<S, R, kTrain>, smem);
+  int err = set_smem((const void*)lstm_seq_fwd_kernel<S, R, kTrain, kXz>, smem);
   if (err) return err;
-  lstm_seq_fwd_kernel<S, R, kTrain><<<(a.B + R - 1) / R, kFwdThreads, smem, stream>>>(a);
+  lstm_seq_fwd_kernel<S, R, kTrain, kXz><<<(a.B + R - 1) / R, kFwdThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename S>
+template <typename S, bool kXz>
 int fwd(const FwdArgs<S>& a, int rows, int train, cudaStream_t st) {
-  if (rows == 16) return train ? launch_fwd<S, 16, true>(a, st) : launch_fwd<S, 16, false>(a, st);
-  if (rows == 4) return train ? launch_fwd<S, 4, true>(a, st) : launch_fwd<S, 4, false>(a, st);
+  if (rows == 16)
+    return train ? launch_fwd<S, 16, true, kXz>(a, st) : launch_fwd<S, 16, false, kXz>(a, st);
+  if (rows == 4)
+    return train ? launch_fwd<S, 4, true, kXz>(a, st) : launch_fwd<S, 4, false, kXz>(a, st);
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename S>
-int bwd(const BwdArgs<S>& a, cudaStream_t stream) {
-  const size_t smem = bwd_smem_floats(a.H) * sizeof(float);
-  int err = set_smem((const void*)lstm_seq_bwd_kernel<S>, smem);
+template <typename S, typename D, int R>
+int launch_bwd(const BwdArgs<S, D>& a, cudaStream_t stream) {
+  const size_t smem = bwd_smem_floats(a.H, R) * sizeof(float);
+  int err = set_smem((const void*)lstm_seq_bwd_kernel<S, D, R>, smem);
   if (err) return err;
-  lstm_seq_bwd_kernel<S><<<(a.B + kBwdRows - 1) / kBwdRows, kBwdThreads, smem, stream>>>(a);
+  lstm_seq_bwd_kernel<S, D, R><<<(a.B + R - 1) / R, kBwdThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename S>
+int walk(const BwdArgs<S, S>& a, int rows, cudaStream_t st) {
+  if (rows == 4) return launch_bwd<S, S, 4>(a, st);
+  if (rows == 2) return launch_bwd<S, S, 2>(a, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Bytes of dynamic shared memory one block of each serial kernel needs (the
 // wrapper checks them against the card's limit); the same in both modes.
+// The xz forwards pass IN = 0; the full rung's walk has 4 rows.
 extern "C" long long cvl_lstm_seq_fwd_smem_bytes(int IN, int H, int rows) {
   return (long long)(fwd_smem_floats(IN, H, rows) * sizeof(float));
 }
-extern "C" long long cvl_lstm_seq_bwd_smem_bytes(int H) {
-  return (long long)(bwd_smem_floats(H) * sizeof(float));
+extern "C" long long cvl_lstm_seq_bwd_smem_bytes(int H, int rows) {
+  return (long long)(bwd_smem_floats(H, rows) * sizeof(float));
 }
 
 // The forward on `stream`, with a tile of `rows` (4 or 16) batch rows per
@@ -423,8 +489,8 @@ extern "C" int cvl_lstm_seq_fwd(const float* x, const float* w, const float* b, 
                                 const float* h0, const float* c0, float* h, float* c, float* z,
                                 float* hp, float* cp, int T, int B, int IN, int H, int rows,
                                 int train, void* stream) {
-  const FwdArgs<float> a{x, w, b, rk, h0, c0, h, c, z, hp, cp, T, B, IN, H};
-  return fwd(a, rows, train, static_cast<cudaStream_t>(stream));
+  const FwdArgs<float> a{x, w, b, nullptr, rk, h0, c0, h, c, z, hp, cp, T, B, IN, H};
+  return fwd<float, false>(a, rows, train, static_cast<cudaStream_t>(stream));
 }
 
 // The same in the bf16 stream mode: x, w (rounded by the caller), rk, z and
@@ -434,21 +500,44 @@ extern "C" int cvl_lstm_seq_fwd_bf16(const void* x, const void* w, const float* 
                                      float* c, void* z, void* hp, float* cp, int T, int B,
                                      int IN, int H, int rows, int train, void* stream) {
   using bf = __nv_bfloat16;
-  const FwdArgs<bf> a{static_cast<const bf*>(x), static_cast<const bf*>(w), b,
+  const FwdArgs<bf> a{static_cast<const bf*>(x), static_cast<const bf*>(w), b, nullptr,
                       static_cast<const bf*>(rk), h0, c0, h, c, static_cast<bf*>(z),
                       static_cast<bf*>(hp), cp, T, B, IN, H};
-  return fwd(a, rows, train, static_cast<cudaStream_t>(stream));
+  return fwd<bf, false>(a, rows, train, static_cast<cudaStream_t>(stream));
 }
 
-// The backward's serial reverse walk on `stream`; fills dx, dh0, dc0 and the
+// The unfused rungs' forward on `stream` (`_forward_kernel_call`, and
+// `_forward_train_call` with `train` != 0, which also writes z; null
+// otherwise): xz [T, B, 4H] in place of x, W and b. Returns the cudaError_t
+// of the launch.
+extern "C" int cvl_lstm_seq_xz_fwd(const float* xz, const float* rk, const float* h0,
+                                   const float* c0, float* h, float* c, float* z, int T, int B,
+                                   int H, int rows, int train, void* stream) {
+  const FwdArgs<float> a{nullptr, nullptr, nullptr, xz, rk,  h0, c0, h,
+                         c,       z,       nullptr, nullptr, T, B, 0, H};
+  return fwd<float, true>(a, rows, train, static_cast<cudaStream_t>(stream));
+}
+
+// The same in the bf16 stream mode: xz, rk and z are bf16.
+extern "C" int cvl_lstm_seq_xz_fwd_bf16(const void* xz, const void* rk, const float* h0,
+                                        const float* c0, float* h, float* c, void* z, int T,
+                                        int B, int H, int rows, int train, void* stream) {
+  using bf = __nv_bfloat16;
+  const FwdArgs<bf> a{nullptr, nullptr, nullptr, static_cast<const bf*>(xz),
+                      static_cast<const bf*>(rk), h0, c0, h, c, static_cast<bf*>(z), nullptr,
+                      nullptr, T, B, 0, H};
+  return fwd<bf, true>(a, rows, train, static_cast<cudaStream_t>(stream));
+}
+
+// The full rung's serial reverse walk on `stream`; fills dx, dh0, dc0 and the
 // dz scratch that cvl_lstm_seq_wgrad reduces. Returns the cudaError_t of the
 // launch.
 extern "C" int cvl_lstm_seq_bwd(const float* z, const float* cp, const float* c, const float* dh,
                                 const float* dc, const float* wt, float* dx, float* dh0,
                                 float* dc0, float* dz, int T, int B, int IN, int H,
                                 void* stream) {
-  const BwdArgs<float> a{z, cp, c, dh, dc, wt, dx, dh0, dc0, dz, T, B, IN, H};
-  return bwd(a, static_cast<cudaStream_t>(stream));
+  const BwdArgs<float, float> a{z, cp, c, dh, dc, wt, dx, dh0, dc0, dz, T, B, IN, H};
+  return launch_bwd<float, float, kBwdRows>(a, static_cast<cudaStream_t>(stream));
 }
 
 // The same in the bf16 stream mode: z, wt (rounded by the caller) and dx are
@@ -458,12 +547,35 @@ extern "C" int cvl_lstm_seq_bwd_bf16(const void* z, const float* cp, const float
                                      float* dh0, float* dc0, float* dz, int T, int B, int IN,
                                      int H, void* stream) {
   using bf = __nv_bfloat16;
-  const BwdArgs<bf> a{static_cast<const bf*>(z), cp, c, dh, dc, static_cast<const bf*>(wt),
-                      static_cast<bf*>(dx), dh0, dc0, dz, T, B, IN, H};
-  return bwd(a, static_cast<cudaStream_t>(stream));
+  const BwdArgs<bf, float> a{static_cast<const bf*>(z), cp, c, dh, dc, static_cast<const bf*>(wt),
+                             static_cast<bf*>(dx), dh0, dc0, dz, T, B, IN, H};
+  return launch_bwd<bf, float, kBwdRows>(a, static_cast<cudaStream_t>(stream));
 }
 
-// The backward's weight gradients over the R = T*B rows: dRk = hpᵀdz,
+// The other rungs' dz-only walk on `stream` (`_backward_call`), with a tile of
+// `rows` (4 or 2) batch rows per block: rkt = Rkᵀ [4H, H]; fills dz [T, B,
+// 4H], dh0 and dc0. Returns the cudaError_t of the launch.
+extern "C" int cvl_lstm_seq_walk(const float* z, const float* cp, const float* c,
+                                 const float* dh, const float* dc, const float* rkt, float* dh0,
+                                 float* dc0, float* dz, int T, int B, int H, int rows,
+                                 void* stream) {
+  const BwdArgs<float, float> a{z, cp, c, dh, dc, rkt, nullptr, dh0, dc0, dz, T, B, 0, H};
+  return walk(a, rows, static_cast<cudaStream_t>(stream));
+}
+
+// The same in the bf16 stream mode: z, rkt and dz are bf16 (dz rounded as it
+// is stored, the TPU kernel's `dz.astype(dzseq_ref.dtype)`).
+extern "C" int cvl_lstm_seq_walk_bf16(const void* z, const float* cp, const float* c,
+                                      const float* dh, const float* dc, const void* rkt,
+                                      float* dh0, float* dc0, void* dz, int T, int B, int H,
+                                      int rows, void* stream) {
+  using bf = __nv_bfloat16;
+  const BwdArgs<bf, bf> a{static_cast<const bf*>(z), cp, c, dh, dc, static_cast<const bf*>(rkt),
+                          nullptr, dh0, dc0, static_cast<bf*>(dz), T, B, 0, H};
+  return walk(a, rows, static_cast<cudaStream_t>(stream));
+}
+
+// The full rung's weight gradients over the R = T*B rows: dRk = hpᵀdz,
 // dW = xᵀdz, db = column sums of dz, one launch. Returns the cudaError_t of
 // the launch.
 extern "C" int cvl_lstm_seq_wgrad(const float* hp, const float* x, const float* dz, float* drk,
@@ -483,4 +595,22 @@ extern "C" int cvl_lstm_seq_wgrad_bf16(const void* hp, const void* x, const floa
                                 {x, dz, dw, IN, 4 * H, 1, 1, 1},
                                 {nullptr, dz, db, 1, 4 * H}};
   return cvl::launch_wgrad<lstm_seq_wgrad>(jobs, 3, R, static_cast<cudaStream_t>(stream));
+}
+
+// The drk rung's second launch (`_lstm_bwd_kernel_drk`'s dRk += h_prevᵀdz):
+// dRk = hpᵀdz over the R = T*B rows of the walk's dz, in f32 (the core
+// rounds it to the stream type, as `_core_bwd` / `_core_fp_bwd` cast it).
+// Returns the cudaError_t of the launch.
+extern "C" int cvl_lstm_seq_drk(const float* hp, const float* dz, float* drk, int R, int H,
+                                void* stream) {
+  const cvl::WgradJob jobs[] = {{hp, dz, drk, H, 4 * H}};
+  return cvl::launch_wgrad<lstm_seq_wgrad>(jobs, 1, R, static_cast<cudaStream_t>(stream));
+}
+
+// The same in the bf16 stream mode: hp and dz are bf16 (read as stored), dRk
+// f32.
+extern "C" int cvl_lstm_seq_drk_bf16(const void* hp, const void* dz, float* drk, int R, int H,
+                                     void* stream) {
+  const cvl::WgradJob jobs[] = {{hp, dz, drk, H, 4 * H, 0, 1, 0, 1}};
+  return cvl::launch_wgrad<lstm_seq_wgrad>(jobs, 1, R, static_cast<cudaStream_t>(stream));
 }

@@ -16,12 +16,13 @@
 // A job with `bf16` set is the weight gradient of a bf16-mode product (the
 // TPU kernels' `acc` with bf16 operands, then the cast of the result): A and
 // Bm are rounded to bf16 as they are staged, the sum is taken in f32, and C
-// is stored rounded, as bf16. `a_bf16` says that A itself is stored in bf16.
-// `c_f32` (with `bf16`) stores C in f32, unrounded: the TPU kernels return
-// some weight gradients of bf16 products in f32 (the whole-sequence LSTM's
-// dW). All three default to 0. Testing the flags per staged element cost the
-// f32 jobs 60-80% more time on an H100, so a launch whose jobs set neither
-// `bf16` nor `a_bf16` runs the instance without the tests (kFlags false).
+// is stored rounded, as bf16. `a_bf16` and `b_bf16` say that A or Bm itself
+// is stored in bf16. `c_f32` (with `bf16`) stores C in f32, unrounded: the
+// TPU kernels return some weight gradients of bf16 products in f32 (the
+// whole-sequence LSTM's dW and its drk rung's dRk). All four default to 0.
+// Testing the flags per staged element cost the f32 jobs 60-80% more time on
+// an H100, so a launch whose jobs set none of `bf16`, `a_bf16` and `b_bf16`
+// runs the instance without the tests (kFlags false).
 
 #pragma once
 
@@ -38,12 +39,13 @@ constexpr int kWgMaxJobs = 15;
 
 struct WgradJob {
   const void* A;    // [R, M] (lda = M), f32 (bf16 with a_bf16); null: a column of ones (M = 1)
-  const float* Bm;  // [R, N]
+  const void* Bm;   // [R, N], f32 (bf16 with b_bf16)
   void* C;          // [M, N], f32 (bf16 with bf16, unless c_f32)
   int M, N;
   int bf16 = 0;     // round A and Bm to bf16 as staged; store C rounded, as bf16
   int a_bf16 = 0;   // A is stored in bf16
   int c_f32 = 0;    // with bf16: store C in f32, unrounded
+  int b_bf16 = 0;   // Bm is stored in bf16
 };
 
 __device__ __forceinline__ float round_bf16(float x) {
@@ -88,13 +90,18 @@ __global__ void __launch_bounds__(kWgThreads) wgrad_kernel(const WgradArgs args)
                : jb.a_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(jb.A)[ia])
                            : static_cast<const float*>(jb.A)[ia];
         }
-        if (r < args.R && n < jb.N) bv = jb.Bm[(size_t)r * jb.N + n];
+        if (r < args.R && n < jb.N) {
+          const size_t ib = (size_t)r * jb.N + n;
+          bv = jb.b_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(jb.Bm)[ib])
+                         : static_cast<const float*>(jb.Bm)[ib];
+        }
         As[rr][c] = jb.bf16 ? round_bf16(av) : av;
         Bs[rr][c] = jb.bf16 ? round_bf16(bv) : bv;
       } else {
         const float* A = static_cast<const float*>(jb.A);
+        const float* Bm = static_cast<const float*>(jb.Bm);
         As[rr][c] = (r < args.R && m < jb.M) ? (A ? A[(size_t)r * jb.M + m] : 1.f) : 0.f;
-        Bs[rr][c] = (r < args.R && n < jb.N) ? jb.Bm[(size_t)r * jb.N + n] : 0.f;
+        Bs[rr][c] = (r < args.R && n < jb.N) ? Bm[(size_t)r * jb.N + n] : 0.f;
       }
     }
     __syncthreads();
@@ -141,7 +148,7 @@ int launch_wgrad(const WgradJob* jobs, int njobs, int R, cudaStream_t stream) {
     const int tm = (jobs[j].M + kWgTile - 1) / kWgTile, tn = (jobs[j].N + kWgTile - 1) / kWgTile;
     args.jobs[j] = WgradTile{jobs[j], tn, blocks};
     blocks += tm * tn;
-    flags = flags || jobs[j].bf16 || jobs[j].a_bf16;
+    flags = flags || jobs[j].bf16 || jobs[j].a_bf16 || jobs[j].b_bf16;
   }
   if (flags)
     wgrad_kernel<Tag, true><<<blocks, kWgThreads, 0, stream>>>(args);

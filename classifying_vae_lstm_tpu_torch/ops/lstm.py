@@ -62,8 +62,8 @@ def resolve_fusion(fusion, hidden_dim: int | None = None) -> tuple[bool, bool, b
     ``pallas_lstm.resolve_fusion`` with its policy defaults (all on), dropped
     to proj-only above the drk accumulator's ceiling (16·H² bytes > 38 MiB).
     The port records it in args.json so that a checkpoint names the same
-    triple in both packages, and :func:`.lstm_seq.lstm_sequence_kernel` reads
-    it: the default triple runs the ported kernels, any other raises."""
+    triple in both packages, and :func:`.lstm_seq.lstm_sequence_kernel` runs
+    the rung it names."""
     proj, drk, full = (True, True, True) if fusion is None else (bool(f) for f in fusion)
     if hidden_dim is not None and hidden_dim * 4 * hidden_dim * 4 > 38 * 2**20:
         drk = full = False

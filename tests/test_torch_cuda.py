@@ -13,8 +13,8 @@ for the port need not have). Tolerances: f32 probabilities within 1e-5
 (same f32 products, other summation order) and frames exactly equal at
 these fixed seeds; bf16 probabilities with u=1 within 2e-3 (bf16 rounding
 at the same places, other summation order); the bf16 streams of the
-whole-sequence LSTM kernels within 1e-3 (forward) and 1e-2 (backward)
-relative Frobenius of their bf16 plain versions; the bf16 streams of the
+whole-sequence LSTM kernels, every fusion rung's, within 1e-3 (forward) and
+1e-2 (backward) relative Frobenius of their bf16 plain versions; the bf16 streams of the
 two-cell kernels: f32 forward outputs within 1e-2 x max(1, max|plain|) and
 1e-3 relative Frobenius, bf16 streams within one bf16 step at their largest
 entry, backward outputs within 1e-2 of their largest entry (``chip_smoke.py``
@@ -582,6 +582,168 @@ def test_lstm_seq_bf16_gradients_on_cuda_match_cpu_plain(dev):
     representable = lambda g: torch.equal(g, g.bfloat16().float())
     assert representable(on_card["recurrent_kernel"]) and representable(on_card["x"])
     assert not representable(on_card["kernel"])
+
+
+# ---- the other fusion rungs' kernels (csrc/lstm_seq.cu): the unfused
+# forwards (xz in place of x and W), the dz-only walk and the drk walk
+#
+# f32 as the default rung's kernels; bf16: forward outputs within 1e-2 x
+# max(1, max|plain|) and 1e-3 relative Frobenius, the walks' outputs within
+# 1e-2 relative Frobenius (a dz on the other bf16 neighbour moves its row's
+# earlier steps).
+
+RUNG_COUNTS = ("XZ_FWD", "XZ_TRAIN_FWD", "WALK", "DRK")
+
+
+def _rung_launches(bf16):
+    return tuple(getattr(ls, f"{'BF16_' if bf16 else ''}{n}_LAUNCHES") for n in RUNG_COUNTS)
+
+
+def _xz_inputs(dev, bf16, B, T, H, IN, seed=0):
+    x, w, b, rk, h0, c0 = _lstm_seq_inputs(dev, B=B, T=T, H=H, IN=IN, seed=seed)
+    xz = (x.reshape(T * B, IN) @ w + b).reshape(T, B, 4 * H)
+    sd = torch.bfloat16 if bf16 else torch.float32
+    return xz.to(sd), rk.to(sd), h0, c0
+
+
+def _close(got, want, name, bf16, backward):
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    if not bf16:
+        if backward:
+            _assert_bwd_close(got, want, name)
+        else:
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-5, msg=name)
+    elif backward:
+        assert _rel_fro(got, want) <= 1e-2, name
+    else:
+        scale = max(1.0, want.float().abs().max().item())
+        assert (got.float() - want.float()).abs().max().item() <= 1e-2 * scale, name
+        assert _rel_fro(got, want) <= 1e-3, name
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(LSTM_SEQ_CASES))
+def test_lstm_seq_rung_kernels_match_plain(dev, case, bf16):
+    kw = dict(LSTM_SEQ_CASES[case])
+    if kw["B"] is None:
+        kw["B"] = 16 * torch.cuda.get_device_properties(dev).multi_processor_count + 8
+    xz, rk, h0, c0 = _xz_inputs(dev, bf16, **kw)
+    before, default = _rung_launches(bf16), (_launches(), _bf16_launches())
+    h, c = ls.lstm_seq_xz_fwd(xz, rk, h0, c0)
+    outs = ls.lstm_seq_xz_train_fwd(xz, rk, h0, c0)
+    torch.cuda.synchronize()
+    ref = ls.lstm_seq_xz_train_fwd_plain(xz, rk, h0, c0)
+    for name, k, p in (("inference h", h, ref[0]), ("inference c", c, ref[1]),
+                       *zip(("h", "c", "z"), outs, ref)):
+        _close(k, p, name, bf16, backward=False)
+    assert outs[2].dtype == xz.dtype
+    h, c, z = ref
+    rng = np.random.default_rng(1)
+    dh = torch.from_numpy(rng.standard_normal(tuple(h.shape)).astype(np.float32)).to(dev)
+    dc = torch.from_numpy(rng.standard_normal(tuple(c.shape)).astype(np.float32)).to(dev)
+    cp = torch.cat([c0[None], c[:-1]])
+    hp = torch.cat([h0[None], h[:-1]]).to(z.dtype)
+    rk_t = rk.T.contiguous()
+    walk = ls.lstm_seq_walk(z, cp, c, dh, dc, rk_t)
+    drk = ls.lstm_seq_walk_drk(z, cp, c, hp, dh, dc, rk_t)
+    torch.cuda.synchronize()
+    want = ls.lstm_seq_walk_drk_plain(z, cp, c, hp, dh, dc, rk_t)
+    for label, got in (("walk", walk), ("drk walk", drk)):
+        for name, g, wv in zip(("dz", "dh0", "dc0", "drk"), got, want):
+            _close(g, wv, f"{label} {name}", bf16, backward=True)
+    assert walk[0].dtype == z.dtype and drk[3].dtype == torch.float32
+    assert _rung_launches(bf16) == tuple(n + d for n, d in zip(before, (1, 1, 1, 2)))
+    assert (_launches(), _bf16_launches()) == default
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_lstm_seq_walk_at_hidden_2560(dev, bf16):
+    """The widest H the JAX package's ``auto`` pins to the proj-only rung:
+    the walk takes 2-row tiles there (7 rows: a ragged last tile)."""
+    B, T, H = 7, 2, 2560
+    assert ls.walk_rows(H) == 2
+    xz, rk, h0, c0 = _xz_inputs(dev, bf16, B=B, T=T, H=H, IN=9)
+    h, c, z = ls.lstm_seq_xz_train_fwd_plain(xz, rk, h0, c0)
+    rng = np.random.default_rng(2)
+    dh = torch.from_numpy(rng.standard_normal((T, B, H)).astype(np.float32)).to(dev)
+    cp, rk_t = torch.cat([c0[None], c[:-1]]), rk.T.contiguous()
+    got = ls.lstm_seq_walk(z, cp, c, dh, torch.zeros_like(dh), rk_t)
+    torch.cuda.synchronize()
+    want = ls.lstm_seq_walk_plain(z, cp, c, dh, torch.zeros_like(dh), rk_t)
+    for name, g, wv in zip(("dz", "dh0", "dc0"), got, want):
+        _close(g, wv, name, bf16, backward=True)
+
+
+RUNGS = [(True, True, False), (True, False, False), (False, True, False), (False, False, False)]
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("fusion", RUNGS, ids=lambda f: "".join("TF"[not v] for v in f))
+def test_lstm_seq_rung_gradients_on_cuda_match_cpu_plain(dev, fusion, bf16):
+    """Every gradient of ``lstm_sequence(backend="pallas", fusion=...)``:
+    the rung's kernels on the card against its plain versions on the CPU
+    (f32 within the backward bound, bf16 within 1e-2 relative Frobenius);
+    the launches are the rung's own, and nothing of the default rung's."""
+    B, T, IN, H = 10, 6, 14, 40
+    rng = np.random.default_rng(5)
+    arrays = {"x": rng.standard_normal((B, T, IN)), "h0": 0.5 * rng.standard_normal((B, H)),
+              "c0": 0.5 * rng.standard_normal((B, H)),
+              "kernel": 0.3 * rng.standard_normal((IN, 4 * H)),
+              "recurrent_kernel": 0.2 * rng.standard_normal((H, 4 * H)),
+              "bias": 0.3 * rng.standard_normal(4 * H)}
+    cd = torch.bfloat16 if bf16 else None
+
+    def grads(device):
+        t = {k: torch.from_numpy(v.astype(np.float32)).to(device).requires_grad_(True)
+             for k, v in arrays.items()}
+        params = {k: t[k] for k in ("kernel", "recurrent_kernel", "bias")}
+        h, (hT, cT) = lstm_ops.lstm_sequence(params, t["x"], t["h0"], t["c0"], backend="pallas",
+                                             compute_dtype=cd, fusion=fusion)
+        ((h ** 2).sum() + (cT * hT).sum()).backward()
+        return {k: t[k].grad for k in t}
+
+    before, default = _rung_launches(bf16), (_launches(), _bf16_launches())
+    on_card = grads(dev)
+    torch.cuda.synchronize()
+    proj, drk, _ = fusion
+    expected = (0, 0 if proj else 1, 0 if drk else 1, 2 if drk else 0)
+    assert _rung_launches(bf16) == tuple(n + d for n, d in zip(before, expected))
+    train_fwd = 1 if proj else 0  # the proj rungs' training forward is the default rung's
+    assert _launches() == (default[0][0], default[0][1] + (0 if bf16 else train_fwd),
+                           default[0][2])
+    assert _bf16_launches() == (default[1][0], default[1][1] + (train_fwd if bf16 else 0),
+                                default[1][2])
+    for k, w in grads("cpu").items():
+        g = on_card[k].cpu()
+        if bf16:
+            assert g.dtype == torch.float32 and _rel_fro(g, w) <= 1e-2, k
+        else:
+            _assert_bwd_close(g, w, f"gradient {k}")
+    if bf16:
+        representable = lambda g: torch.equal(g, g.bfloat16().float())
+        assert representable(on_card["recurrent_kernel"]) and representable(on_card["x"])
+        assert representable(on_card["kernel"]) == (not proj)
+        assert not representable(on_card["bias"])
+
+
+def test_lstm_seq_rung_wrappers_raise_instead_of_falling_back(dev):
+    xz, rk, h0, c0 = _xz_inputs(dev, False, B=4, T=2, H=16, IN=5)
+    before = [_rung_launches(b) for b in (False, True)]
+    with pytest.raises(ValueError, match="cpu"):
+        ls.lstm_seq_xz_fwd(xz, rk.cpu(), h0, c0)
+    with pytest.raises(ValueError, match="rk must be bfloat16"):
+        ls.lstm_seq_xz_train_fwd(xz.bfloat16(), rk, h0, c0)
+    with pytest.raises(ValueError, match="must be"):
+        ls.lstm_seq_xz_fwd(xz, rk[:-1].contiguous(), h0, c0)
+    h, c, z = ls.lstm_seq_xz_train_fwd_plain(xz, rk, h0, c0)
+    cp, hp, rk_t = torch.cat([c0[None], c[:-1]]), torch.cat([h0[None], h[:-1]]), rk.T.contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        ls.lstm_seq_walk(z, cp, c, h, c, rk.T)
+    with pytest.raises(ValueError, match="h_prev must be bfloat16"):
+        ls.lstm_seq_walk_drk(z.bfloat16(), cp, c, hp, h, c, rk_t.bfloat16())
+    with pytest.raises(ValueError, match="shared memory"):
+        ls.lstm_seq_walk(*(torch.zeros(1, 1, 4 * 4900, device=dev),) * 6)
+    assert [_rung_launches(b) for b in (False, True)] == before
 
 
 # ---- the whole-generation cl_vae kernel (csrc/generate_cl_vae.cu)

@@ -18,6 +18,12 @@ The bf16 stream mode (``compute_dtype=bfloat16``) is held to the same
 bounds: both sides round the same values at the same places and sum the
 bf16-valued products in f32, so they part only where an f32 sum taken in
 another order lands on the other side of a bf16 rounding boundary.
+
+Every other fusion rung (proj, drk, full) that ``resolve_fusion`` returns is
+held against its own JAX rung, in f32 and bf16, to the same bounds: in bf16
+the rungs round at different points (db sums the rounded dz stream at the
+non-full rungs, dW is rounded at the unfused ones), gaps of 3e-4 to 3.4e-3
+between rungs, so no rung stands in for another.
 """
 
 import jax
@@ -209,9 +215,169 @@ def test_bf16_plain_kernel_functions_match_the_jax_cores():
     assert not torch.equal(tout[4], tout[4].bfloat16().float())
 
 
+RUNGS = [(True, True, False), (True, False, False), (False, True, False), (False, False, False)]
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("fusion", RUNGS, ids=lambda f: "".join("TF"[not v] for v in f))
+def test_fusion_rungs_match_jax(fusion, bf16):
+    """Each rung other than the default, f32 and bf16: forward h_seq, h_T,
+    c_T and the six gradients against JAX's ``lstm_sequence(backend="pallas",
+    fusion=...)``. In bf16 the representability of each gradient is JAX's:
+    dRk and dx bf16-valued at every rung, dW exactly at the unfused rungs
+    (autograd of the hoisted bf16 projection rounds it), db never (the f32
+    sum of the rounded dz stream)."""
+    B, T = 5, 4
+    p, x, h0, c0 = _problem(B, T, seed=40 + 2 * RUNGS.index(fusion) + bf16)
+    jcd, tcd = (jnp.bfloat16, torch.bfloat16) if bf16 else (None, None)
+    jh, (jhT, jcT) = jlstm.lstm_sequence(p, x, h0, c0, backend="pallas", compute_dtype=jcd,
+                                         fusion=fusion)
+    tp = params_from_numpy(p, "cpu")
+    for v in tp.values():
+        v.requires_grad_(True)
+    tx, th0, tc0 = (torch.from_numpy(a.copy()).requires_grad_(True) for a in (x, h0, c0))
+    th, (thT, tcT) = tlstm.lstm_sequence(tp, tx, th0, tc0, backend="pallas", compute_dtype=tcd,
+                                         fusion=fusion)
+    for name, got, ref in (("h_seq", th, jh), ("h_T", thT, jhT), ("c_T", tcT, jcT)):
+        assert got.dtype == torch.float32, name
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), err_msg=name, **FWD)
+    _loss(th, thT, tcT, torch).backward()
+
+    def loss(p, x, h0, c0):
+        h, (hT, cT) = jlstm.lstm_sequence(p, x, h0, c0, backend="pallas", compute_dtype=jcd,
+                                          fusion=fusion)
+        return _loss(h, hT, cT, jnp)
+
+    gp, gx, gh0, gc0 = jax.grad(loss, argnums=(0, 1, 2, 3))(p, x, h0, c0)
+    got = {**{k: v.grad for k, v in tp.items()}, "x": tx.grad, "h0": th0.grad, "c0": tc0.grad}
+    ref = {**gp, "x": gx, "h0": gh0, "c0": gc0}
+    for k, g in got.items():
+        np.testing.assert_allclose(g.numpy(), np.asarray(ref[k]), err_msg=k, **GRAD)
+    if bf16:
+        representable = lambda g: torch.equal(g, g.bfloat16().float())
+        assert representable(got["recurrent_kernel"]) and representable(got["x"])
+        assert representable(got["kernel"]) == (not fusion[0])
+        assert not representable(got["bias"])
+        for k, g in got.items():  # the same pattern as JAX's own gradients
+            r = torch.from_numpy(np.array(ref[k], np.float32))
+            assert representable(g) == representable(r), k
+
+
+def _rung_cores(bf16):
+    """The unfused rungs' operands: xz as ``lstm_sequence_pallas`` hoists it
+    (bf16: the product of the rounded operands plus b, rounded once), Rk,
+    h0, c0, on both sides."""
+    B, T = 5, 4
+    p, x, h0, c0 = _problem(B, T, seed=51)
+    x_t = np.ascontiguousarray(np.swapaxes(x, 0, 1))
+    t = torch.from_numpy
+    tins = ls._hoisted_projection(t(x), params_from_numpy(p, "cpu"), bf16)
+    sd = torch.bfloat16 if bf16 else torch.float32
+    tins = (tins, t(p["recurrent_kernel"]).to(sd), t(h0), t(c0))
+    if bf16:
+        bf = jnp.bfloat16
+        xz = (jnp.dot(jnp.asarray(x_t, bf), jnp.asarray(p["kernel"], bf),
+                      preferred_element_type=jnp.float32) + p["bias"]).astype(bf)
+        jins = (xz, jnp.asarray(p["recurrent_kernel"], bf), h0, c0)
+    else:
+        xz = jnp.dot(x_t, p["kernel"], precision="highest") + p["bias"]
+        jins = (xz, p["recurrent_kernel"], h0, c0)
+    return jins, tins
+
+
+def _jax_walk_loop(z, cp, c, hp, dh_seq, dc_seq, rk_t):
+    """The body of ``_lstm_bwd_kernel_drk`` (``_lstm_bwd_kernel`` without
+    its dRk sum) as a plain JAX loop, one op at a time, so nothing is fused:
+    per step in reverse ``_bwd_gate_grads``, dz stored at z's type, ``dh = dz
+    @ Rkᵀ`` and ``dRk += h_prev[t]ᵀ dz`` over operands at Rkᵀ's type, summed
+    in f32."""
+    f32 = jnp.float32
+    wt = rk_t.dtype
+    prec = "highest" if wt == f32 else None
+    T, B, H = c.shape
+    dh, dc = jnp.zeros((B, H), f32), jnp.zeros((B, H), f32)
+    drk = jnp.zeros((H, 4 * H), f32)
+    dzs = [None] * T
+    for t in reversed(range(T)):
+        dz, dc = jpl._bwd_gate_grads(z[t].astype(f32), c[t], cp[t], dh + dh_seq[t],
+                                     dc + dc_seq[t])
+        dzs[t] = dz.astype(z.dtype)
+        dh = jnp.dot(dz.astype(wt), rk_t, preferred_element_type=f32, precision=prec)
+        drk = drk + jax.lax.dot_general(hp[t].astype(wt), dz.astype(wt), (((0,), (0,)), ((), ())),
+                                        preferred_element_type=f32, precision=prec)
+    return jnp.stack(dzs), dh, dc, drk
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_other_rung_plain_functions_match_the_jax_cores(bf16):
+    """``lstm_seq_xz_fwd_plain`` / ``lstm_seq_xz_train_fwd_plain`` /
+    ``lstm_seq_walk_plain`` / ``lstm_seq_walk_drk_plain`` against
+    ``_forward_kernel_call`` / ``_forward_train_call`` / ``_backward_call``
+    / ``_backward_call_drk``, with the same output types (z and dz at the
+    stream type; h, c, dh0, dc0 and dRk f32). The walks' outputs in bf16
+    within 1e-2 relative Frobenius (the card's bf16 backward bound): the
+    interpret-mode kernel fuses the gate math with other f32 roundings, a
+    few dz land on the other bf16 neighbour, and each such flip moves its
+    row's earlier steps through the dh carry (8e-4 at this seed); in f32
+    within ``GRAD``. The walks are also held, in f32 and bf16, against the
+    same body as a plain JAX loop (:func:`_jax_walk_loop`), which rounds
+    where the kernel does without fusing: every output within ``GRAD`` (the
+    f32 sums are taken in another order) and, in bf16, dz exactly."""
+    f32 = lambda a: np.asarray(jnp.asarray(a, jnp.float32))
+    t = lambda a: torch.from_numpy(np.array(f32(a)))
+    jins, tins = _rung_cores(bf16)
+    np.testing.assert_array_equal(tins[0].float().numpy(), f32(jins[0]))  # the same xz
+    sd, jsd = (torch.bfloat16, jnp.bfloat16) if bf16 else (torch.float32, jnp.float32)
+    B = jins[2].shape[0]
+    ref = jpl._forward_kernel_call(*jins, block_b=B)
+    for name, got, r in zip(("h", "c"), ls.lstm_seq_xz_fwd_plain(*tins), ref):
+        assert got.dtype == torch.float32, name
+        np.testing.assert_allclose(got.numpy(), f32(r), err_msg=name, **FWD)
+    ref = jpl._forward_train_call(*jins)
+    got = ls.lstm_seq_xz_train_fwd_plain(*tins)
+    for name, g, r in zip(("h", "c", "z"), got, ref):
+        want = sd if name == "z" else torch.float32
+        assert g.dtype == want and r.dtype == (jsd if name == "z" else jnp.float32), name
+        np.testing.assert_allclose(g.float().numpy(), f32(r), err_msg=name, **FWD)
+
+    h, c, z = ref
+    h0, c0 = jins[2], jins[3]
+    cp = jnp.concatenate([c0[None], c[:-1]])
+    hp = jnp.concatenate([h0[None], h[:-1]]).astype(z.dtype)
+    rng = np.random.default_rng(52)
+    dh = rng.standard_normal(h.shape).astype(np.float32)
+    dc = (0.5 * rng.standard_normal(c.shape)).astype(np.float32)
+    rk_t = jins[1].T
+    jwalk = jpl._backward_call(z, cp, c, dh, dc, rk_t)
+    jdrk = jpl._backward_call_drk(z, cp, c, hp, dh, dc, rk_t)
+    tz, thp, trk_t = t(z).to(sd), t(hp).to(sd), tins[1].T.contiguous()
+    twalk = ls.lstm_seq_walk_plain(tz, t(cp), t(c), t(dh), t(dc), trk_t)
+    tdrk = ls.lstm_seq_walk_drk_plain(tz, t(cp), t(c), thp, t(dh), t(dc), trk_t)
+    for label, jout, tout in (("walk", jwalk, twalk), ("drk walk", jdrk, tdrk)):
+        for name, g, r in zip(("dz", "dh0", "dc0", "drk"), tout, jout):
+            want = sd if name == "dz" else torch.float32
+            assert g.dtype == want and g.shape == r.shape, f"{label} {name}"
+            g, r = g.float().numpy(), f32(r)
+            if bf16:
+                assert np.linalg.norm(g - r) <= 1e-2 * np.linalg.norm(r), f"{label} {name}"
+            else:
+                np.testing.assert_allclose(g, r, err_msg=f"{label} {name}", **GRAD)
+    # both walks run the same reverse walk: dz, dh0 and dc0 agree exactly
+    for g, r in zip(twalk, tdrk):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    loop = _jax_walk_loop(z, cp, c, hp, dh, dc, rk_t)
+    for name, g, r in zip(("dz", "dh0", "dc0", "drk"), tdrk, loop):
+        assert g.shape == r.shape and g.dtype == (sd if name == "dz" else torch.float32), name
+        np.testing.assert_allclose(g.float().numpy(), f32(r), err_msg=name, **GRAD)
+    if bf16:  # the rounded dz stream: every value on the same bf16 neighbour
+        np.testing.assert_array_equal(tdrk[0].float().numpy(), f32(loop[0]))
+
+
 def _spy(monkeypatch):
     calls = []
-    for name in ("lstm_seq_fwd_plain", "lstm_seq_train_fwd_plain", "lstm_seq_bwd_plain"):
+    for name in ("lstm_seq_fwd_plain", "lstm_seq_train_fwd_plain", "lstm_seq_bwd_plain",
+                 "lstm_seq_xz_fwd_plain", "lstm_seq_xz_train_fwd_plain", "lstm_seq_walk_plain",
+                 "lstm_seq_walk_drk_plain"):
         real = getattr(ls, name)
 
         def spy(*a, _real=real, _name=name):
@@ -246,20 +412,48 @@ def test_grad_mode_routing(monkeypatch):
     assert (ls.FWD_LAUNCHES, ls.TRAIN_FWD_LAUNCHES, ls.BWD_LAUNCHES) == counts
 
 
-@pytest.mark.parametrize("fusion", [(True, False, False), (False, False, False),
-                                    (True, True, False), (False, True, False)])
-def test_other_fusion_rungs_raise_naming_the_roadmap(fusion):
-    p, x, h0, c0 = _problem(2, 2)
-    t = torch.from_numpy
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 6"):
-        tlstm.lstm_sequence(params_from_numpy(p, "cpu"), t(x), t(h0), t(c0), backend="pallas",
-                            fusion=fusion)
+ROUTES = {  # rung -> (the inference forward, the training forward, the backward)
+    (True, True, False): ("lstm_seq_fwd_plain", "lstm_seq_train_fwd_plain",
+                          "lstm_seq_walk_drk_plain"),
+    (True, False, False): ("lstm_seq_fwd_plain", "lstm_seq_train_fwd_plain",
+                           "lstm_seq_walk_plain"),
+    (False, True, False): ("lstm_seq_xz_fwd_plain", "lstm_seq_xz_train_fwd_plain",
+                           "lstm_seq_walk_drk_plain"),
+    (False, False, False): ("lstm_seq_xz_fwd_plain", "lstm_seq_xz_train_fwd_plain",
+                            "lstm_seq_walk_plain"),
+}
 
 
-def test_bf16_and_the_wide_default_raise_naming_the_roadmap():
+@pytest.mark.parametrize("fusion", RUNGS, ids=lambda f: "".join("TF"[not v] for v in f))
+def test_rung_routing(monkeypatch, fusion):
+    """Each rung runs its own kernels' plain versions: ``no_grad`` the
+    inference forward alone (every proj rung shares the default rung's, as
+    every JAX proj rung shares its primal), with a gradient the training
+    forward and, on backward, the rung's walk; no launch on CPU tensors."""
+    calls = _spy(monkeypatch)
+    counts = {n: getattr(ls, n) for n in dir(ls) if n.endswith("_LAUNCHES")}
+    p, x, h0, c0 = _problem(4, 3)
+    tp = params_from_numpy(p, "cpu")
+    tx = torch.from_numpy(x).requires_grad_(True)
+    run = lambda: ls.lstm_sequence_kernel(tp, tx, torch.from_numpy(h0), torch.from_numpy(c0),
+                                          fusion=fusion)
+    with torch.no_grad():
+        run()
+    h, (hT, cT) = run()
+    (h.sum() + cT.sum()).backward()
+    assert calls == list(ROUTES[fusion])
+    assert tx.grad is not None and tx.grad.shape == tx.shape
+    assert {n: getattr(ls, n) for n in counts} == counts
+    assert not hasattr(ls, "FUSION_TODO")
+
+
+def test_bf16_and_the_wide_default_raise_naming_the_roadmap(monkeypatch):
     """The default triple equals (True, True, True) spelled out, in f32 and
-    in bf16; above the drk ceiling the default drops to the unported
-    proj-only rung, which raises in both modes."""
+    in bf16; above the drk ceiling (16·H² > 38 MiB, H >= 1,579) the default
+    drops to the proj-only rung (T, F, F), which the JAX package's
+    ``--lstm_backend auto`` pins into args.json there: at H=1,600 it runs
+    its training forward and dz-only walk in both modes (zero weights as
+    broadcast views: nothing H-sized is allocated up front)."""
     p, x, h0, c0 = _problem(2, 2)
     t = torch.from_numpy
     tp = params_from_numpy(p, "cpu")
@@ -268,14 +462,18 @@ def test_bf16_and_the_wide_default_raise_naming_the_roadmap():
         b = tlstm.lstm_sequence(tp, t(x), t(h0), t(c0), backend="pallas", compute_dtype=dtype,
                                 fusion=(True, True, True))[0]
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    # above the drk ceiling (16·H² > 38 MiB) the default drops to proj-only,
-    # a rung that is not ported (a broadcast view: no weights allocated)
-    wide = {"kernel": torch.zeros(1, 1).expand(IN, 4 * 1600),
-            "recurrent_kernel": torch.zeros(1, 1).expand(1600, 4 * 1600),
-            "bias": torch.zeros(4 * 1600)}
+    W = 1600
+    assert tlstm.resolve_fusion(None, hidden_dim=W) == (True, False, False)
+    calls = _spy(monkeypatch)
     for dtype in (None, torch.bfloat16):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 6"):
-            tlstm.lstm_sequence(wide, t(x), backend="pallas", compute_dtype=dtype)
+        zero = torch.zeros(1, 1, requires_grad=True)
+        wide = {"kernel": zero.expand(IN, 4 * W), "recurrent_kernel": zero.expand(W, 4 * W),
+                "bias": torch.zeros(4 * W)}
+        h, (hT, cT) = tlstm.lstm_sequence(wide, t(x), backend="pallas", compute_dtype=dtype)
+        assert h.shape == (2, 2, W) and not h.any() and not cT.any()  # zero weights: h = c = 0
+        (h.sum() + cT.sum()).backward()
+        assert zero.grad is not None and torch.isfinite(zero.grad).all()
+    assert calls == ["lstm_seq_train_fwd_plain", "lstm_seq_walk_plain"] * 2
 
 
 def test_pallas_backend_refuses_dropout_and_remat():
@@ -297,3 +495,7 @@ def test_shared_memory_formulas():
     assert ls.fwd_rows(200, 109, 256, 132) == 4     # the training shape
     assert ls.fwd_rows(12800, 106, 2048, 132) == 4  # a 16-row tile no longer fits
     assert ls.bwd_smem_bytes(256) <= ls._SMEM_LIMIT < ls.bwd_smem_bytes(4096)
+    assert ls.fwd_smem_bytes(0, 2560, 4) <= ls._SMEM_LIMIT  # the xz forwards at H=2,560
+    # the walk: 4-row tiles to H=2,048, 2-row tiles at H=2,560 (JAX auto's widest)
+    assert ls.walk_rows(2048) == 4 and ls.walk_rows(2560) == 2
+    assert ls.bwd_smem_bytes(2560, 2) <= ls._SMEM_LIMIT < ls.bwd_smem_bytes(2560)

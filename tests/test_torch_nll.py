@@ -168,6 +168,39 @@ def test_cli_evaluates_a_bf16_checkpoint_on_every_test_window(tmp_path, capsys, 
         "pallas", True, (True, True, True), False)
 
 
+def test_cli_evaluates_a_proj_only_checkpoint_to_the_jax_nll(tmp_path, monkeypatch):
+    """A seeded H=16 bf16 checkpoint whose args.json names the proj-only
+    rung (T, F, F), the triple JAX ``--lstm_backend auto`` writes at H >=
+    1,579: ``cli/evaluate.py --device cpu`` runs both LSTMs through that
+    rung's inference forward (the default rung's, as every JAX proj rung's
+    primal is) and gives the JAX CLI's NLL on the same checkpoint within
+    0.01 nats/frame (the two packages draw the importance samples from
+    different generators; 4e-4 apart at 8 samples here)."""
+    from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
+    from classifying_vae_lstm_tpu_torch.train.checkpoint import (save_checkpoint,
+                                                                 save_model_in_pieces)
+
+    margs = {"run_name": "proj_only", "model_dir": str(tmp_path), "original_dim": 88,
+             "intermediate_dim": 16, "latent_dim": 2, "seq_length": 4, "n_classes": 2,
+             "use_x_prev": True, "predict_next": False, "batch_size": 1000,
+             "lstm_backend": "pallas", "bf16_compute": True, "fusion": [True, False, False],
+             "two_cell": False}
+    cfg = tcommon.cl_vrnn_config_from_args(margs)
+    params = tcl.init(torch.Generator().manual_seed(0), cfg)
+    save_checkpoint(save_model_in_pieces(params, margs), params)
+    modes, real = [], ls.lstm_seq_fwd_plain
+    monkeypatch.setattr(ls, "lstm_seq_fwd_plain", lambda x, *a: modes.append(x.dtype) or real(x, *a))
+    ckpt = str(tmp_path / "proj_only.npz")
+    argv = ["-i", ckpt, "--train_file", CORPUS, "--n_samples", "8", "--batch_size", "1500"]
+    out = teval.evaluate(teval.build_parser().parse_args([*argv, "--device", "cpu"]))
+    jout = jeval.evaluate(jeval.build_parser().parse_args(argv))
+    assert out["n_test_examples"] == jout["n_test_examples"] > 1500
+    assert modes == [torch.bfloat16] * (2 * -(-out["n_test_examples"] // 1500))
+    assert abs(out["test_nll_nats_per_frame"] - jout["test_nll_nats_per_frame"]) <= 0.01
+    jcfg = jcommon.load_model(ckpt, "cl_vrnn")[1]
+    assert (jcfg.fusion, cfg.fusion) == ((True, False, False),) * 2
+
+
 def test_unported_options_raise_naming_the_roadmap():
     for model in ("artifacts/jsball_vrnn4.npz", "artifacts/jsbcs_vae.npz"):
         args = teval.build_parser().parse_args(["-i", model, "--device", "cpu", "--dp", "2"])

@@ -132,8 +132,9 @@ def test_unported_flags_raise(flag):
 def test_two_cell_off_on_pallas_raises(tmp_path):
     """``--two_cell off`` on ``pallas`` trains through the whole-sequence LSTM
     kernels (their plain versions here) at the default fusion triple and
-    records it in args.json; a run whose args name another triple raises,
-    naming the ROADMAP item of the unported rungs."""
+    records it in args.json; a run whose args name the proj-only triple (as
+    a JAX checkpoint's args.json does at H >= 1,579) trains through that
+    rung and records it."""
     argv = ["r", "--device", "cpu", "--train_file", CORPUS, "--seq_length", "4",
             "--intermediate_dim", "8", "--latent_dim", "2", "--batch_size", "1000",
             "--num_epochs", "1", "--patience", "0", "--lstm_backend", "pallas",
@@ -143,10 +144,38 @@ def test_two_cell_off_on_pallas_raises(tmp_path):
     margs = jcommon.load_model_args(str(tmp_path / "r.npz"))
     assert (margs["lstm_backend"], margs["two_cell"], margs["fusion"]) == (
         "pallas", False, [True, True, True])
-    args = tcli.build_parser().parse_args(argv)
+    args = tcli.build_parser().parse_args([*argv[:-1], str(tmp_path / "proj")])
     args.fusion = [True, False, False]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 6"):
+    _, best_loss = tcli.train(args)
+    assert np.isfinite(best_loss["loss"]) and np.isfinite(best_loss["val_loss"])
+    margs = jcommon.load_model_args(str(tmp_path / "proj" / "r.npz"))
+    assert (margs["lstm_backend"], margs["two_cell"], margs["fusion"]) == (
+        "pallas", False, [True, False, False])
+
+
+def test_wide_bf16_pallas_pins_the_proj_only_rung(monkeypatch):
+    """``cl_vrnn_train --lstm_backend pallas --intermediate_dim 2048`` with
+    ``bf16_compute`` (set on the namespace: neither CLI has the flag; JAX
+    ``--lstm_backend auto`` sets it on a TPU) pins fusion (T, F, F) and
+    ``two_cell`` off, the args.json JAX auto writes at that width. Checked
+    where the run builds its model, without training at that width."""
+    args = tcli.build_parser().parse_args(
+        ["r", "--device", "cpu", "--train_file", CORPUS, "--seq_length", "4",
+         "--intermediate_dim", "2048", "--batch_size", "1000", "--lstm_backend", "pallas"])
+    args.bf16_compute = True
+    class Built(Exception):
+        pass
+
+    def stop(generator, cfg):
+        raise Built(cfg)
+
+    monkeypatch.setattr(tcli.cl_vrnn, "init", stop)
+    with pytest.raises(Built) as built:
         tcli.train(args)
+    cfg = built.value.args[0]
+    assert (cfg.intermediate_dim, cfg.lstm_backend, cfg.bf16_compute, cfg.fusion,
+            cfg.two_cell) == (2048, "pallas", True, (True, False, False), False)
+    assert (args.fusion, args.two_cell) == ([True, False, False], False)
 
 
 def test_default_device_needs_a_card():

@@ -152,14 +152,17 @@ def test_lstm_dropout_masks_and_unported_backend():
                                dropout_generator=g)
     assert h.shape == (5, 6, 9) and torch.isfinite(h).all()
     # the pallas backend runs the whole-sequence kernels' plain versions on
-    # the CPU; it refuses dropout masks, and its fusion rungs other than the
-    # default are not ported (in either stream mode)
+    # the CPU; it refuses dropout masks, and runs every fusion rung: without
+    # a gradient each proj rung is the default rung's forward (in either
+    # stream mode), as every JAX proj rung shares its primal
     with pytest.raises(ValueError, match="dropout"):
         tlstm.lstm_sequence(params_from_numpy(p, "cpu"), T_(x), backend="pallas", dropout=0.5,
                             dropout_generator=g)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlstm.lstm_sequence(params_from_numpy(p, "cpu"), T_(x), backend="pallas",
-                            compute_dtype=torch.bfloat16, fusion=(True, False, False))
+    for dtype in (None, torch.bfloat16):
+        run = lambda fusion: tlstm.lstm_sequence(params_from_numpy(p, "cpu"), T_(x),
+                                                 backend="pallas", compute_dtype=dtype,
+                                                 fusion=fusion)[0]
+        torch.testing.assert_close(run((True, False, False)), run(None), rtol=0, atol=0)
 
 
 def _model_problem(backend, B=6, seed=0):
