@@ -203,7 +203,25 @@ failure:
    ``args.fusion``; each run's counts equal its steps, every other 0, the
    f32 runs' first-epoch loss within 1e-3 relative of phase 9's; then
    ``cli.evaluate`` of the (F, F, F) f32 checkpoint through the unfused
-   inference forward (2 a batch) and ``xla`` (NLLs within 1e-4).
+   inference forward (2 a batch) and ``xla`` (NLLs within 1e-4);
+29. the int8 generation kernels vs their plain versions on seeded glorot
+   weights: cl_vrnn at D=88, L=2, use_x_prev, 13 keys, H=64 and H=1,536 (the
+   JAX package's int8 band), 64 songs x (32 + 256) steps; cl_vae at the
+   seq-concat width (D=1,024, L=16, no x_prev), H=5,120, 64 x 256, with and
+   without use_z_prior: the quantized operands equal on the card and the
+   host, probabilities with u=1 within 1e-5, free-running frames equal in
+   >= 99.9% of entries; the int8 kernel, its plain version and the bf16
+   kernel on the same weights timed, beside the int8 bound;
+30. the int8 paths: ``cli.cl_vrnn_train`` writes the bf16 H=1,536 cl_vrnn
+   (1 epoch, ``--lstm_backend pallas``, ``bf16_compute`` as JAX ``auto``
+   sets it; args.json pallas, bf16, fusion (T, T, T), ``two_cell`` off; the
+   bf16 LSTM counts equal its steps), then ``cli.cl_vrnn_sample`` and
+   ``cli.serve --lstm_backend keep`` (4 requests) sample it through the int8
+   kernel, bf16 launches 0, /stats mode int8, and ``serve`` with its default
+   ``auto`` in bf16, int8 launches 0; ``cli.cl_vae_train`` writes the bf16
+   seq-concat cl_vae at H=5,120 (1 epoch), ``cli.cl_vae_sample`` and
+   ``cli.serve`` with ``--gen_backend pallas`` sample it in int8 (88-pitch
+   rolls of 16 frames a row), with ``auto`` in bf16 through the wide kernel.
 
 The run fails if a thread it started is still running at the end.
 
@@ -1005,7 +1023,7 @@ def phase_checkpoint_serves(ckpt):
 
     args = serve.build_parser().parse_args(["-i", ckpt, "--train_file", CORPUS,
                                             "--warmup", "off"])
-    engine, _ = serve.build_engine(args)
+    engine = serve.build_engine(args)[0]
     before = cg.LAUNCHES
     rolls = engine.generate(n=4, nsteps=64)
     require(rolls.shape == (4, 64, 88) and set(np.unique(rolls).tolist()) <= {0, 1},
@@ -2588,39 +2606,12 @@ def phase_train_two_cell_bf16(model_dir):
 def serve_one_request(ckpt, label):
     """``cli.serve`` of ``ckpt`` (no warm-up) answers one /generate request
     over HTTP with one launch of the generation kernel in its bf16 mode."""
-    import numpy as np
-
-    from classifying_vae_lstm_tpu_torch.cli import serve
     from classifying_vae_lstm_tpu_torch.ops import cuda_generate as cg
 
-    args = serve.build_parser().parse_args(["-i", ckpt, "--train_file", CORPUS, "--warmup", "off",
-                                            "--port", "0"])
-    plain_on_cuda = []
-    with recorded_modes(cg) as modes, \
-            sampler_plain_guard(cg, "generate_cl_vrnn_batch_plain", plain_on_cuda):
-        httpd, _ = serve.make_server(args)
-        cg.LAUNCHES = 0  # counts from here on are this request's
-        threading.Thread(target=httpd.serve_forever, daemon=True).start()
-        try:
-            req = urllib.request.Request(
-                f"http://127.0.0.1:{httpd.server_address[1]}/generate",
-                data=json.dumps({"n": 2, "t": 32}).encode(),
-                headers={"Content-Type": "application/json"})
-            t0 = time.perf_counter()
-            with urllib.request.urlopen(req, timeout=120) as r:
-                status, out = r.status, json.load(r)
-            ms = (time.perf_counter() - t0) * 1e3
-        finally:
-            httpd.shutdown()
-            httpd.server_close()
-        launches = cg.LAUNCHES
-    rolls = np.asarray(out["rolls"])
-    print(f"serve the {label} checkpoint: one /generate {{n: 2, t: 32}} -> HTTP {status} in "
-          f"{ms:.3f} ms (client clock), rolls {rolls.shape}, {launches} launch in modes {modes}")
-    require(status == 200 and rolls.shape == (2, 32, 88)
-            and set(np.unique(rolls).tolist()) <= {0, 1}, f"/generate rolls {rolls.shape}")
-    require(launches == 1 and modes == ["bf16"], f"serve launches {launches}, modes {modes}")
-    require(not plain_on_cuda, f"plain versions ran on CUDA tensors: {plain_on_cuda}")
+    bf16, int8, modes, _ = serve_requests(["-i", ckpt, "--train_file", CORPUS], cg,
+                                          [{"n": 2, "t": 32}])
+    require((bf16, int8) == (1, 0) and modes == ["bf16"],
+            f"serve the {label} checkpoint: launches {bf16}, {int8}, modes {modes}")
 
 
 def phase_evaluate_two_cell_bf16(ckpt, out_dir):
@@ -2663,26 +2654,14 @@ def sample_cl_vrnn_bf16(ckpt, run_name, out_dir, label):
     """``cli.cl_vrnn_sample`` of a bf16 checkpoint: 4 songs, one launch of
     the generation kernel, in its bf16 mode, and no plain version on a CUDA
     tensor."""
-    import numpy as np
-
     from classifying_vae_lstm_tpu_torch.cli import cl_vrnn_sample
     from classifying_vae_lstm_tpu_torch.ops import cuda_generate as cg
 
-    plain_on_cuda = []
-    with recorded_modes(cg) as modes, \
-            sampler_plain_guard(cg, "generate_cl_vrnn_batch_plain", plain_on_cuda):
-        cg.LAUNCHES = 0  # counts from here on are this CLI's
-        samples = cl_vrnn_sample.sample(cl_vrnn_sample.build_parser().parse_args(
-            [run_name, "-i", ckpt, "--infer_w", "-n", "4", "--train_file", CORPUS,
-             "--sample_dir", out_dir]))
-        launches = cg.LAUNCHES
-    print(f"cl_vrnn_sample of the {label} checkpoint: {samples.shape[0]} songs x "
-          f"{samples.shape[1]} frames, {launches} launch in modes {modes}, "
-          f"{int(samples.sum())} notes on")
-    require(samples.shape[0] == 4 and set(np.unique(samples).tolist()) <= {0, 1},
-            f"samples {samples.shape}")
-    require(launches == 1 and modes == ["bf16"], f"sample launches {launches}, modes {modes}")
-    require(not plain_on_cuda, f"plain versions ran on CUDA tensors: {plain_on_cuda}")
+    bf16, int8, modes, _ = sample_counted(
+        cl_vrnn_sample, cg, [run_name, "-i", ckpt, "--infer_w", "-n", "4", "--train_file",
+                             CORPUS, "--sample_dir", out_dir], 4)
+    require((bf16, int8) == (1, 0) and modes == ["bf16"],
+            f"cl_vrnn_sample of the {label} checkpoint: launches {bf16}, {int8}, modes {modes}")
 
 
 # the bf16 cl_vrnn the JAX package trains at H=2,048
@@ -3145,6 +3124,352 @@ def phase_other_rungs(model_dir, first_loss):
     return totals
 
 
+# the int8 band: a bf16 cl_vrnn of the JAX scale config (D=88, L=2, T=16,
+# use_x_prev, B=1,024; 13 keys) at H=1,536, where JAX --lstm_backend auto on a
+# TPU writes pallas, bf16_compute, fusion (T, T, T), two_cell off and the JAX
+# sampler picks int8 weights (tests/test_pallas_generate.py:111); and the bf16
+# seq-concat cl_vae (D=1,024) at H=5,120 (tests/test_pallas_generate_vae.py:149
+# pins int8 there at D=976). The port's own two-cell gate takes every width
+# its kernel fits (H=1,536 among them), so --two_cell off writes JAX's
+# two_cell, as phase 21 does at H=1,024.
+INT8_H, INT8_VAE_H = 1536, 5120
+INT8_FLAGS = ["--train_file", CORPUS, "--intermediate_dim", str(INT8_H), "--latent_dim",
+              str(BF16_L), "--seq_length", str(TRAIN_T), "--batch_size", str(BF16_B),
+              "--use_x_prev", "--patience", "0", "--two_cell", "off"]
+AUTO_H1536 = {"lstm_backend": "pallas", "bf16_compute": True, "fusion": [True, True, True],
+              "two_cell": False}
+PEAK_INT8_OPS = 1979e12  # H100 SXM, dense int8 on the tensor cores
+
+
+def int8_bound_ms(int8_macs, other_flops, nbytes, other_peak=PEAK_BF16_FLOPS):
+    """Least time for an int8 generation call: its int8 products (2
+    operations a MAC) at the int8 tensor rate plus its other products at
+    ``other_peak``, against its bytes (each input once, the output once) at
+    HBM rate."""
+    t_ops = 2 * int8_macs / PEAK_INT8_OPS + other_flops / other_peak
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def dp4a_ms(int8_macs):
+    """The int8 MACs at the integer pipes' __dp4a rate (4 MACs per
+    instruction, an assumed 64 instructions per SM per clock on 132 SMs at
+    the card's maximum SM clock, as nvidia-smi reads it): a yardstick for
+    kernels that run on __dp4a, not a published peak."""
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                               check=True).stdout.split()[0])
+    return int8_macs / (4 * 64 * 132 * mhz * 1e6) * 1e3
+
+
+def _tensor_bytes(w: dict, skip=()) -> int:
+    return sum(v.numel() * v.element_size() for k, v in w.items()
+               if v is not None and k not in skip)
+
+
+def _int8_case(label, kern, plain, bf16, pack, nbytes, int8_macs, other_flops, probs_u1, u,
+               with_frames=True):
+    """One int8 kernel against its plain version: the quantized operands
+    equal on the card and on the host, probabilities with u = 1 within 1e-5,
+    free-running frames equal in >= 99.9% of entries; then the int8 kernel,
+    the plain version and the bf16 kernel on the same weights timed with CUDA
+    events, beside the int8 bound. Returns the kernel-table fields."""
+    import torch
+
+    w_dev, w_cpu = pack("cuda"), pack("cpu")
+    quantized = [k for k, v in w_dev.items()
+                 if v is not None and (v.dtype == torch.int8 or k.startswith("s"))]
+    same = all(torch.equal(w_dev[k].cpu(), w_cpu[k]) for k in quantized)
+    require(len(quantized) >= 4 and same,
+            f"{label}: the int8 operands quantized on the card differ from the host's")
+    pk, pp = kern(probs_u1, True), plain(probs_u1, True)
+    torch.cuda.synchronize()
+    require(torch.isfinite(pk).all().item() and pk.shape == pp.shape,
+            f"{label}: probabilities not finite or misshapen")
+    err = (pk - pp).abs().max().item()
+    eq = 1.0
+    if with_frames:
+        fk, fp = kern(u, False), plain(u, False)
+        torch.cuda.synchronize()
+        require(set(torch.unique(fk).tolist()) <= {0.0, 1.0}, f"{label}: frames not binary")
+        eq = (fk == fp).float().mean().item()
+    print(f"int8 {label}: {len(quantized)} quantized operands (codes, scales) equal on card "
+          f"and host; probs u=1 max |kernel - plain| = "
+          f"{err:.3e} (limit 1e-5); frames equal in {eq:.6f} of entries (limit 0.999)")
+    require(err <= 1e-5 and eq >= 0.999, f"int8 {label}: probs {err}, frames {eq}")
+    t = (time_ms(lambda: kern(u, False), reps=3, warm=1), time_ms(lambda: plain(u, False), reps=1),
+         time_ms(lambda: bf16(u), reps=2, warm=1), time_ms(lambda: kern(u, False), reps=3))
+    b_ms, b_by = int8_bound_ms(int8_macs, other_flops, nbytes)
+    print(f"int8 {label}: kernel {t[0]:.3f} / {t[3]:.3f} ms, plain {t[1]:.3f} ms, the bf16 "
+          f"kernel on the same weights {t[2]:.3f} ms; roofline_ms {b_ms:.4f} ({b_by}: "
+          f"{2 * int8_macs:.3e} int8 operations at 1,979 TOPS, {nbytes / 1e6:.3f} MB at 3.35 "
+          f"TB/s), {t[0] / b_ms:.0f}x; the int8 MACs at the __dp4a rate {dp4a_ms(int8_macs):.3f} "
+          "ms")
+    return {"max_abs_err": err, "ms": t[0], "plain_ms": t[1], "bound_ms": b_ms, "bound_by": b_by,
+            "bf16_ms": t[2]}
+
+
+def phase_int8_kernels(dev):
+    """Phase 29: each int8 kernel against its plain version on the card, on
+    seeded glorot weights: cl_vrnn at D=88, L=2, use_x_prev, 13 keys, H=64
+    and H=1,536, 64 songs x (32 + 256) steps (phase 2's shape); cl_vae at
+    the seq-concat width (D=1,024, L=16, no x_prev), H=5,120, 64 x 256 steps
+    (phase 17's wide shape), with and without use_z_prior. Returns the
+    kernel-table fields of the H=1,536 cl_vrnn and the cl_vae runs."""
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.models import cl_vae, cl_vrnn
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate as cg
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae as cgv
+    from classifying_vae_lstm_tpu_torch.weights import params_from_numpy
+
+    rng = np.random.default_rng(SEED + 29)
+    K, B = TRAIN_K, 64
+
+    def glorot(i, o):
+        lim = np.sqrt(6.0 / (i + o))
+        return rng.uniform(-lim, lim, (i, o)).astype(np.float32)
+
+    rows = {}
+    D, L, Tseed, nsteps = 88, BF16_L, 32, 256
+    total = Tseed + nsteps
+    seeds = torch.from_numpy(seed_windows(B)).to(dev)
+    ws = torch.eye(K, device=dev)[torch.arange(B, device=dev) % K]
+    eps = torch.from_numpy(rng.standard_normal((B, total, L), dtype=np.float32)).to(dev)
+    u = torch.from_numpy(rng.random((B, total, D), dtype=np.float32)).to(dev)
+    u[:, :Tseed] = 1.0  # the seed phase's draws only feed the first free step
+    for H in (64, INT8_H):
+        cfg = cl_vrnn.Config(original_dim=D, intermediate_dim=H, latent_dim=L,
+                             seq_length=TRAIN_T, n_classes=K, use_x_prev=True,
+                             bf16_compute=True, lstm_backend="pallas")
+        raw = {
+            "encoder_h": {"kernel": glorot(D + K, 4 * H), "recurrent_kernel": glorot(H, 4 * H),
+                          "bias": np.zeros(4 * H, np.float32)},
+            "decoder_h": {"kernel": glorot(D + L + K, 4 * H),
+                          "recurrent_kernel": glorot(H, 4 * H),
+                          "bias": np.zeros(4 * H, np.float32)},
+            "Z_mean": {"kernel": glorot(H, L), "bias": np.zeros(L, np.float32)},
+            "Z_log_var": {"kernel": glorot(H, L), "bias": np.zeros(L, np.float32)},
+            "X_decoded_mean": {"kernel": glorot(H, D), "bias": np.full(D, -2.0, np.float32)},
+        }
+        params = params_from_numpy(raw, dev)
+        run = lambda f, uu, rp, mode="int8": f(params, cfg, seeds, nsteps, eps, uu, ws,
+                                               return_probs=rp, mode=mode)
+        host = params_from_numpy(raw, "cpu")
+        pack = lambda where: cg._pack(params if where == "cuda" else host, cfg,
+                                      ws if where == "cuda" else ws.cpu(), D, "int8")
+        w = pack("cuda")
+        macs = B * total * ((D + H) * 4 * H + (H + D) * 4 * H + H * D)
+        other = 2 * B * total * (H * 2 * L + L * 4 * H)
+        nbytes = (_tensor_bytes(w) + 4 * (B * Tseed * D + B * total * (L + D) + B * nsteps * D))
+        require(cg.pick_mode(cfg) == ("int8" if H == INT8_H else "bf16"),
+                f"H={H}: pick_mode {cg.pick_mode(cfg)}")
+        rows[f"cl_vrnn H={H}"] = _int8_case(
+            f"cl_vrnn H={H} (64 x (32 + 256))",
+            lambda uu, rp: run(cg.generate_cl_vrnn_batch_cuda, uu, rp),
+            lambda uu, rp: run(cg.generate_cl_vrnn_batch_plain, uu, rp),
+            lambda uu: run(cg.generate_cl_vrnn_batch_cuda, uu, False, "bf16"),
+            pack, nbytes, macs, other, torch.ones_like(u), u)
+    D, H, L, nsteps = 1024, INT8_VAE_H, 16, 256
+    cfg = cl_vae.Config(original_dim=D, intermediate_dim=H, latent_dim=L,
+                        intermediate_class_dim=256, n_classes=K, use_x_prev=False,
+                        bf16_compute=True, gen_backend="pallas")
+    require(cgv.pick_mode(cfg) == "int8" and cgv.kernel_for(cfg) == "generate_cl_vae_int8",
+            f"cl_vae H={H}: {cgv.pick_mode(cfg)}, {cgv.kernel_for(cfg)}")
+    raw = glorot_vae_raw(rng, D, H, L, K, False, Cw=256)
+    raw["x_decoded_mean"]["bias"][:] = -2.0
+    params = params_from_numpy(raw, dev)
+    host = params_from_numpy(raw, "cpu")
+    seeds = torch.from_numpy((rng.random((B, D)) < 0.1).astype(np.float32)).to(dev)
+    eps = torch.from_numpy(rng.standard_normal((B, nsteps, L), dtype=np.float32)).to(dev)
+    u = torch.from_numpy(rng.random((B, nsteps, D), dtype=np.float32)).to(dev)
+    pack = lambda where: cgv._pack_int8(params if where == "cuda" else host, cfg,
+                                        ws if where == "cuda" else ws.cpu())
+    w = pack("cuda")
+    macs = B * nsteps * (D * H + H * D)
+    other = 2 * B * nsteps * (H * 2 * L + L * H)
+    nbytes = (_tensor_bytes(w, ("encb", "decb")) + 4 * (2 * B * H + B * D + B * nsteps * (L + D)
+                                                        + B * nsteps * D))
+    for zp in (False, True):
+        run = lambda f, uu, rp, mode="int8": f(params, cfg, seeds, nsteps, eps, uu, ws,
+                                               use_z_prior=zp, return_probs=rp, mode=mode)
+        row = _int8_case(
+            f"cl_vae D={D} H={H} use_z_prior={zp} (64 x 256)",
+            lambda uu, rp: run(cgv.generate_cl_vae_batch_cuda, uu, rp),
+            lambda uu, rp: run(cgv.generate_cl_vae_batch_plain, uu, rp),
+            lambda uu: run(cgv.generate_cl_vae_batch_cuda, uu, False, "bf16"),
+            pack, nbytes, macs, 0 if zp else other, torch.ones_like(u), u)
+        rows[f"cl_vae zp={zp}"] = row
+    errs = max(rows["cl_vae zp=False"]["max_abs_err"], rows["cl_vae zp=True"]["max_abs_err"])
+    return rows[f"cl_vrnn H={INT8_H}"], {**rows["cl_vae zp=False"], "max_abs_err": errs}
+
+
+def serve_requests(argv, kmod, bodies, frames_per_row=1):
+    """``cli.serve`` of ``argv`` (no warm-up) answers each /generate body
+    over HTTP; the family's launch counts are set to 0 just after the engine
+    is built and read after the last request. Returns (f32/bf16 launches,
+    int8 launches, the modes the wrapper resolved, /stats)."""
+    import numpy as np
+
+    from classifying_vae_lstm_tpu_torch.cli import serve
+
+    plain_name = ("generate_cl_vae_batch_plain" if kmod.__name__.endswith("_vae")
+                  else "generate_cl_vrnn_batch_plain")
+    args = serve.build_parser().parse_args([*argv, "--warmup", "off", "--port", "0"])
+    plain_on_cuda = []
+    with recorded_modes(kmod) as modes, sampler_plain_guard(kmod, plain_name, plain_on_cuda):
+        httpd, _ = serve.make_server(args)
+        kmod.LAUNCHES = kmod.INT8_LAUNCHES = 0  # counts from here on are these requests'
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        ms = []
+        try:
+            for body in bodies:
+                req = urllib.request.Request(f"{url}/generate", data=json.dumps(body).encode(),
+                                             headers={"Content-Type": "application/json"})
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    require(r.status == 200, f"/generate {body} -> HTTP {r.status}")
+                    rolls = np.asarray(json.load(r)["rolls"])
+                ms.append((time.perf_counter() - t0) * 1e3)
+                shape = (body["n"], body["t"] * frames_per_row, 88)
+                require(rolls.shape == shape and set(np.unique(rolls).tolist()) <= {0, 1},
+                        f"/generate {body}: rolls {rolls.shape}, want {shape}")
+            with urllib.request.urlopen(f"{url}/stats", timeout=30) as r:
+                stats = json.load(r)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        counts = (kmod.LAUNCHES, kmod.INT8_LAUNCHES)
+    require(not plain_on_cuda, f"plain version ran on CUDA tensors: {plain_on_cuda}")
+    print(f"serve {' '.join(argv[2:])}: {len(bodies)} requests {[b['n'] for b in bodies]} songs "
+          f"in {[round(v, 3) for v in ms]} ms (client clock); /stats mode {stats['mode']}, "
+          f"launches (f32/bf16, int8) {counts}, modes {sorted(set(modes))}")
+    return counts[0], counts[1], modes, stats
+
+
+def sample_counted(cli, kmod, argv, n):
+    """A sample CLI of ``argv`` with the family's launch counts set to 0
+    just before and read just after. Returns (f32/bf16 launches, int8
+    launches, modes, the rolls written)."""
+    import numpy as np
+
+    plain_name = ("generate_cl_vae_batch_plain" if kmod.__name__.endswith("_vae")
+                  else "generate_cl_vrnn_batch_plain")
+    plain_on_cuda = []
+    with recorded_modes(kmod) as modes, sampler_plain_guard(kmod, plain_name, plain_on_cuda):
+        kmod.LAUNCHES = kmod.INT8_LAUNCHES = 0  # counts from here on are this CLI's
+        t0 = time.perf_counter()
+        samples = cli.sample(cli.build_parser().parse_args(argv))
+        wall = time.perf_counter() - t0
+        counts = (kmod.LAUNCHES, kmod.INT8_LAUNCHES)
+    out_dir = argv[argv.index("--sample_dir") + 1]
+    files = [f"{argv[0]}_{j}.mid" for j in range(n)
+             if os.path.exists(os.path.join(out_dir, f"{argv[0]}_{j}.mid"))]
+    print(f"{cli.__name__.rsplit('.', 1)[1]} {argv[0]}: rolls {samples.shape} in {wall:.3f} s "
+          f"(host clock), launches (f32/bf16, int8) {counts}, modes {modes}, {len(files)} MIDI "
+          f"files, {int(samples.sum())} notes on")
+    require(samples.shape[0] == n and samples.shape[2] == 88
+            and set(np.unique(samples).tolist()) <= {0, 1} and len(files) == n,
+            f"samples {samples.shape}, files {files}")
+    require(not plain_on_cuda, f"plain version ran on CUDA tensors: {plain_on_cuda}")
+    return counts[0], counts[1], modes, samples
+
+
+def phase_int8_paths(model_dir, sample_dir):
+    """Phase 30: the entry points reach the int8 kernels where the JAX
+    package does. cl_vrnn: ``cli.cl_vrnn_train`` writes the H=1,536 bf16
+    checkpoint (1 epoch, ``--lstm_backend pallas --two_cell off``,
+    ``bf16_compute`` set as JAX ``auto`` sets it; args.json as JAX ``auto``
+    writes it; the bf16 LSTM counts equal its steps), then ``cli.cl_vrnn_sample`` and ``serve
+    --lstm_backend keep`` sample it through the int8 kernel (bf16 launches
+    0) and ``serve`` with its default ``auto`` through the bf16 one (int8
+    launches 0). cl_vae: ``cli.cl_vae_train`` writes the bf16 seq-concat
+    checkpoint at H=5,120 (1 epoch), then ``cli.cl_vae_sample --gen_backend
+    pallas`` and ``serve --gen_backend pallas`` sample it in int8, ``auto``
+    in bf16 through the wide kernel. Returns the int8 launches of each
+    family on these paths."""
+    from classifying_vae_lstm_tpu_torch.cli import cl_vae_sample, cl_vae_train, cl_vrnn_sample
+    from classifying_vae_lstm_tpu_torch.cli import common
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate as cg
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae as cgv
+    from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
+    from classifying_vae_lstm_tpu_torch.ops import two_cell as tc
+    from classifying_vae_lstm_tpu_torch.train.checkpoint import load_model_args
+
+    t_phase = time.perf_counter()
+    plain_on_cuda = []
+    with plain_guard(ls, LSTM_SEQ_PLAIN, plain_on_cuda), \
+            plain_guard(tc, TWO_CELL_PLAIN, plain_on_cuda):
+        args, counts, seen, epoch_s, wall = run_train(
+            "h1536_bf16", ["--num_epochs", "1", "--lstm_backend", "pallas", "--save_last"],
+            model_dir, _reset_lstm_counts, _lstm_counts, base_flags=INT8_FLAGS,
+            overrides={"bf16_compute": True})
+    E, n_train, n_val = _report_train("bf16 H=1536 training path", args, seen, epoch_s, wall)
+    expected = lstm_expected(BF16_FWD=2 * E * n_val, BF16_TRAIN_FWD=2 * E * n_train,
+                             BF16_BWD=4 * E * n_train)
+    print(f"bf16 H=1536 training: launches {nonzero(counts)} (expected {nonzero(expected)}, every "
+          "other count 0)")
+    require(counts == expected, f"bf16 H=1536 launches {counts} != {expected}")
+    require(not plain_on_cuda, f"plain versions ran on CUDA tensors: {plain_on_cuda}")
+    margs = load_model_args(seen["ckpt"])
+    cfg = common.cl_vrnn_config_from_args(margs)
+    require({k: margs[k] for k in AUTO_H1536} == AUTO_H1536, f"args.json {margs}")
+    require(cg.pick_mode(cfg) == "int8", f"H=1536 checkpoint samples in {cg.pick_mode(cfg)}")
+    ckpt = last_checkpoint(seen["ckpt"])
+    bf16, int8, modes, _ = sample_counted(
+        cl_vrnn_sample, cg, ["smoke_h1536", "-i", ckpt, "--infer_w", "-n", "4", "--train_file",
+                             CORPUS, "--sample_dir", sample_dir], 4)
+    require((bf16, int8) == (0, 1) and modes == ["int8"], f"cl_vrnn_sample {bf16}, {int8}, {modes}")
+    vrnn_launches = int8
+    bodies = [{"n": 4, "t": 64}, {"n": 16, "t": 128}, {"n": 1, "t": 32}, {"n": 64, "t": 256}]
+    bf16, int8, modes, stats = serve_requests(
+        ["-i", ckpt, "--train_file", CORPUS, "--lstm_backend", "keep"], cg, bodies)
+    require((bf16, int8) == (0, len(bodies)) and set(modes) == {"int8"}
+            and stats["mode"] == "int8" and stats["int8_launches"] == len(bodies),
+            f"serve --lstm_backend keep: {bf16}, {int8}, {modes}, {stats}")
+    vrnn_launches += int8
+    bf16, int8, modes, stats = serve_requests(["-i", ckpt, "--train_file", CORPUS], cg,
+                                              [{"n": 2, "t": 32}])
+    require((bf16, int8) == (1, 0) and modes == ["bf16"] and stats["mode"] == "bf16"
+            and stats["lstm_backend"] == "xla", f"serve (auto): {bf16}, {int8}, {modes}, {stats}")
+
+    flags = list(SEQ_TRAIN_FLAGS)
+    flags[flags.index("--intermediate_dim") + 1] = str(INT8_VAE_H)
+    args, _, seen, epoch_s, wall = run_train(
+        "seq_h5120", ["--num_epochs", "1", "--save_last"], model_dir, lambda: None, lambda: None,
+        cli=cl_vae_train, base_flags=flags)
+    _report_train("bf16 seq-concat H=5120 training path (xla)", args, seen, epoch_s, wall)
+    margs = load_model_args(seen["ckpt"])
+    require((margs["original_dim"], margs["intermediate_dim"], margs["bf16_compute"],
+             margs["seq_length"]) == (1024, INT8_VAE_H, True, 16), f"args.json {margs}")
+    ckpt = last_checkpoint(seen["ckpt"])
+    argv = ["smoke_seq", "-i", ckpt, "-n", "4", "-t", "8", "--train_file", CORPUS,
+            "--sample_dir", sample_dir]
+    bf16, int8, modes, rolls = sample_counted(cl_vae_sample, cgv, [*argv, "--gen_backend",
+                                                                   "pallas"], 4)
+    require((bf16, int8) == (0, 1) and modes == ["int8"] and rolls.shape == (4, 8 * 16, 88),
+            f"cl_vae_sample --gen_backend pallas: {bf16}, {int8}, {modes}, {rolls.shape}")
+    vae_launches = int8
+    bf16, int8, modes, rolls = sample_counted(cl_vae_sample, cgv, argv, 4)
+    require((bf16, int8) == (1, 0) and modes == ["bf16"],
+            f"cl_vae_sample --gen_backend auto: {bf16}, {int8}, {modes}")
+    bodies = [{"n": 4, "t": 8}, {"n": 16, "t": 32}]
+    bf16, int8, modes, stats = serve_requests(
+        ["-i", ckpt, "--train_file", CORPUS, "--gen_backend", "pallas"], cgv, bodies, 16)
+    require((bf16, int8) == (0, len(bodies)) and set(modes) == {"int8"}
+            and stats["mode"] == "int8", f"serve --gen_backend pallas: {bf16}, {int8}, {modes}")
+    vae_launches += int8
+    bf16, int8, modes, stats = serve_requests(["-i", ckpt, "--train_file", CORPUS], cgv,
+                                              [{"n": 2, "t": 8}], 16)
+    require((bf16, int8) == (1, 0) and modes == ["bf16"] and stats["gen_backend"] == "xla",
+            f"serve (auto): {bf16}, {int8}, {modes}")
+    print(f"int8 paths: {vrnn_launches} cl_vrnn and {vae_launches} cl_vae int8 launches, every "
+          f"bf16 count 0 on them; phase 30 took {time.perf_counter() - t_phase:.1f} s")
+    return vrnn_launches, vae_launches
+
+
 def main() -> int:
     import torch
 
@@ -3206,6 +3531,11 @@ def main() -> int:
         phase_evaluate_h2048(last_checkpoint(seen_w["ckpt"]), sample_dir)
     with tempfile.TemporaryDirectory() as model_dir:
         other = phase_other_rungs(model_dir, seen_off["history"]["loss"][0])
+    t29 = time.perf_counter()
+    int8_vrnn, int8_vae = phase_int8_kernels(dev)
+    with tempfile.TemporaryDirectory() as model_dir, tempfile.TemporaryDirectory() as sample_dir:
+        int8_vrnn_launches, int8_vae_launches = phase_int8_paths(model_dir, sample_dir)
+    print(f"phases 29-30 (int8 kernels and paths): {time.perf_counter() - t29:.1f} s")
     source = "classifying_vae_lstm_tpu_torch/csrc/two_cell.cu"
     lstm_source = "classifying_vae_lstm_tpu_torch/csrc/lstm_seq.cu"
     pallas_lstm = "classifying_vae_lstm_tpu/ops/pallas_lstm.py"
@@ -3296,12 +3626,24 @@ def main() -> int:
             kernels.append({"name": f"lstm_seq_{kind}{sfx}", "route": "cuda",
                             "source": lstm_source, "replaces": f"{pallas_lstm}:{replaced[kind]}",
                             "launches": launches, **rungs[mode][kind], "library_ms": None})
+    for name, launches, row, src, replaced in (
+            ("generate_cl_vrnn_int8", int8_vrnn_launches, int8_vrnn, "generate_cl_vrnn.cu",
+             "pallas_generate.py:211"),
+            ("generate_cl_vae_int8", int8_vae_launches, int8_vae, "generate_cl_vae.cu",
+             "pallas_generate_vae.py:192")):
+        require(launches > 0, f"{name} was not launched on its path")
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"classifying_vae_lstm_tpu_torch/csrc/{src}",
+                        "replaces": f"classifying_vae_lstm_tpu/ops/{replaced}",
+                        "launches": launches,
+                        **{k: v for k, v in row.items() if k != "bf16_ms"},
+                        "library_ms": None})
     # every thread this run started has ended (the servers' threads are
     # daemons and shut down), so the interpreter exits with main's code
     alive = [t.name for t in threading.enumerate()
              if t is not threading.main_thread() and not t.daemon]
     require(not alive, f"threads still running: {alive}")
-    print(f"chip_smoke: all 28 phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: all 30 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

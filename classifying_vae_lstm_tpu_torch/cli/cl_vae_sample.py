@@ -13,6 +13,13 @@ whole-generation sampler — one launch of its CUDA kernel on the card — and
 written as ``<run_name>_<i>.mid`` (frames doubled, as the JAX CLI writes
 them), and as ``.wav`` with ``--write_wav``.
 
+A seq-concat checkpoint (``seq_length > 1`` in its args; each row a window
+of ``seq_length`` frames of the corpus's active pitches, flattened) seeds
+from a whole test window, or from the last ``seq_length`` frames of
+``--seed_midi``, generates ``-t`` windows, and writes them out as ``-t x
+seq_length`` frames of 88 pitches. The JAX package's sample CLI seeds every
+checkpoint with one 88-pitch frame, which such a checkpoint cannot read.
+
 The seed windows are drawn with ``numpy.random.default_rng(--seed)`` and the
 sampling noise with a ``torch.Generator`` seeded alike, so a seed picks other
 windows and other songs than the JAX CLI's ``jax.random`` draws.
@@ -33,40 +40,48 @@ from ..weights import params_from_numpy
 from . import common
 
 
-def gather_seeds(P, margs, args, rng: np.random.Generator):
+def gather_seeds(P, margs, args, rng: np.random.Generator, layout=None):
     """(seeds [n, D], w_vals [n, K] | None): the first frames of random test
     windows with their true-key one-hots, or w left to inference (None). A
-    ``--seed_midi`` contributes its last frame n times, w inferred."""
+    ``--seed_midi`` contributes its last frame n times, w inferred. With a
+    seq-concat ``layout`` (``common.SeqConcat``) a seed is a whole window."""
     n, D = args.n, margs["original_dim"]
     if args.seed_midi:
         roll = midi_to_roll(args.seed_midi)
         if len(roll) == 0:
             raise ValueError(f"{args.seed_midi} contains no notes")
-        return np.tile(roll[-1][:D], (n, 1)).astype(np.float32), None
+        seed = layout.rows(roll[:, :88]) if layout else roll[-1][:D]
+        return np.tile(seed, (n, 1)).astype(np.float32), None
     inds = rng.integers(0, len(P.x_test), size=n)
-    seeds = np.stack([P.x_test[i][0] for i in inds]).astype(np.float32)
+    seeds = np.stack([layout.rows(P.x_test[i]) if layout else P.x_test[i][0]
+                      for i in inds]).astype(np.float32)
     if args.infer_w:
         return seeds, None
     return seeds, to_categorical([P.test_song_keys[i] for i in inds], margs["n_classes"])
 
 
 def sample(args) -> np.ndarray:
-    """Writes the songs; returns them as [n, t, D] frames."""
+    """Writes the songs; returns them as the piano rolls written: [n, t, 88],
+    or [n, t * seq_length, 88] for a seq-concat checkpoint."""
     device = resolve_device(args.device)
     model_file = args.model_file or os.path.join(args.model_dir, args.run_name + ".npz")
     raw, cfg, margs = common.load_model(model_file, "cl_vae", no_x_prev=args.no_x_prev)
     cfg = common.resolve_gen_backend(cfg, args.gen_backend)
     if args.gen_backend == "auto":
         print(f"gen_backend=auto -> {cfg.gen_backend}")
-    P = PianoData(args.train_file, batch_size=1, seq_length=args.t, squeeze_x=True)
+    layout = common.SeqConcat.of(args.train_file, margs)
+    P = PianoData(args.train_file, batch_size=1,
+                  seq_length=layout.seq_length if layout else args.t, squeeze_x=True)
     os.makedirs(args.sample_dir, exist_ok=True)
-    seeds, w_vals = gather_seeds(P, margs, args, np.random.default_rng(args.seed))
+    seeds, w_vals = gather_seeds(P, margs, args, np.random.default_rng(args.seed), layout)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     to_dev = lambda a: torch.from_numpy(a).to(device)
     samples = generate_cl_vae_batch(
         params_from_numpy(raw, device), cfg, to_dev(seeds), args.t, generator,
         w_vals=None if w_vals is None else to_dev(w_vals),
         use_z_prior=args.use_z_prior).cpu().numpy()
+    if layout:
+        samples = layout.rolls(samples)
     for i in range(args.n):
         write_sample(samples[i], args.sample_dir, f"{args.run_name}_{i}", True)
         if args.write_wav:
@@ -99,8 +114,9 @@ def build_parser():
                         help="seed generation from the last frame of this .mid file")
     parser.add_argument("--gen_backend", type=str, default="auto",
                         choices=["auto", "keep", "xla", "pallas"],
-                        help="recorded in the config only ('auto' resolves to 'xla'); "
-                             "generation on cuda always runs the CUDA kernel")
+                        help="'auto' resolves to 'xla'; generation on cuda always runs a "
+                             "CUDA kernel, and 'pallas' picks int8 weights for a bf16 "
+                             "checkpoint where the JAX package does")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                         help="cuda: the whole-generation CUDA kernel; cpu: its plain version")
     return parser

@@ -63,6 +63,59 @@ def prune_and_flatten_cl_vae(P: PianoData, seq_length: int, ix: np.ndarray | Non
     return int(ix.sum()) * seq_length
 
 
+def seq_concat_mask(train_file: str, margs: dict) -> np.ndarray:
+    """The pitch mask a seq-concat cl_vae run (``seq_length > 1``) pruned
+    its corpus with: its training-time batching rebuilt, since the
+    truncation to the batch size changes which windows vote."""
+    y_next = margs.get("predict_next", False) or margs.get("use_x_prev", False)
+    P = PianoData(train_file, batch_size=margs.get("batch_size", 100),
+                  seq_length=margs["seq_length"], return_y_next=y_next, squeeze_x=True,
+                  squeeze_y=True)
+    return active_pitch_mask(P)
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqConcat:
+    """How a seq-concat cl_vae checkpoint sees piano rolls: each row it reads
+    and generates is a window of ``seq_length`` frames of the ``mask``'s
+    pitches, flattened step-major (:func:`prune_and_flatten_cl_vae`)."""
+
+    mask: np.ndarray  # [88] bool
+    seq_length: int
+
+    @classmethod
+    def of(cls, train_file: str, margs: dict) -> "SeqConcat | None":
+        """The layout of a checkpoint's args, None unless seq-concat; raises
+        if the corpus prunes to another width than the checkpoint's."""
+        if margs.get("seq_length", 1) <= 1:
+            return None
+        layout = cls(seq_concat_mask(train_file, margs), margs["seq_length"])
+        width = int(layout.mask.sum()) * layout.seq_length
+        if width != margs["original_dim"]:
+            raise ValueError(f"pruned width {width} != checkpoint original_dim "
+                             f"{margs['original_dim']}: was the model trained on another "
+                             "--train_file?")
+        return layout
+
+    def rows(self, rolls: np.ndarray) -> np.ndarray:
+        """Rolls [..., T, 88] -> rows [..., D]: the last ``seq_length`` frames
+        of each (zero frames before a shorter roll), pruned and flattened."""
+        rolls = np.asarray(rolls, dtype=np.float32)
+        pad = max(self.seq_length - rolls.shape[-2], 0)
+        if pad:
+            widths = [(0, 0)] * (rolls.ndim - 2) + [(pad, 0), (0, 0)]
+            rolls = np.pad(rolls, widths)
+        win = rolls[..., -self.seq_length :, :][..., self.mask]
+        return np.ascontiguousarray(win.reshape(win.shape[:-2] + (-1,)))
+
+    def rolls(self, rows: np.ndarray) -> np.ndarray:
+        """Generated rows [n, t, D] -> piano rolls [n, t * seq_length, 88]."""
+        n, t, _ = rows.shape
+        out = np.zeros((n, t, self.seq_length, len(self.mask)), rows.dtype)
+        out[..., self.mask] = rows.reshape(n, t, self.seq_length, -1)
+        return out.reshape(n, t * self.seq_length, len(self.mask))
+
+
 def build_cl_vrnn_datasets(P: PianoData, n_classes: int, use_x_prev: bool, device) -> dict:
     """Per-split dicts of tensors on ``device``: ``x``/``y`` [N, T, 88] and
     the one-hot key ``w``; with ``use_x_prev`` the model reads the next
@@ -119,8 +172,11 @@ def resolve_lstm_backend(cfg, choice: str = "auto"):
     ``auto`` resolves as the JAX package does off a TPU, to ``xla`` with the
     config's numerics (the JAX gate to the kernels and bf16 is a TPU
     measurement, which the port does not read); an explicit name is taken
-    as it is. Generation on the card always runs its CUDA kernel whatever
-    the name, and the CPU its plain version."""
+    as it is. Generation on the card always runs a CUDA kernel whatever the
+    name, and the CPU its plain version; the name picks its precision as in
+    JAX: a bf16 checkpoint with ``pallas`` samples in int8 where the JAX
+    package's rule says int8 (``ops/cuda_generate.pick_mode``), so ``auto``
+    samples it in bf16, as JAX does off a TPU."""
     if choice == "keep":
         return cfg
     return dataclasses.replace(cfg, lstm_backend="xla" if choice == "auto" else choice)
@@ -131,9 +187,12 @@ def resolve_gen_backend(cfg, choice: str = "auto"):
     it: ``keep`` leaves the checkpoint's setting, ``auto`` resolves as it
     does off a TPU, to ``xla`` (the JAX gate to its kernel is a TPU
     measurement, which the port does not read), and an explicit name is
-    taken as it is. The choice is recorded only: generation on the card
-    always runs the CUDA kernel, whose f32 mode gives the same frames as the
-    scan, and the CPU its plain version."""
+    taken as it is. Generation on the card always runs a CUDA kernel, whose
+    f32 mode gives the same frames as the scan, and the CPU its plain
+    version; the name picks its precision as in JAX: a bf16 checkpoint with
+    ``pallas`` samples in int8 where the JAX package's rule says int8
+    (``ops/cuda_generate_vae.pick_mode``), so ``auto`` samples it in bf16,
+    as JAX does off a TPU."""
     if choice == "keep":
         return cfg
     return dataclasses.replace(cfg, gen_backend="xla" if choice == "auto" else choice)

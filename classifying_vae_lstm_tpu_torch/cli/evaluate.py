@@ -50,11 +50,8 @@ def evaluate(args):
         if margs["seq_length"] > 1:
             # prune with the mask the training run computed: rebuild its
             # batching (the truncation changes which windows vote)
-            P_mask = PianoData(args.train_file, batch_size=margs.get("batch_size", 100),
-                               seq_length=margs["seq_length"], return_y_next=y_next,
-                               squeeze_x=True, squeeze_y=True)
             dim = common.prune_and_flatten_cl_vae(P, margs["seq_length"],
-                                                  common.active_pitch_mask(P_mask))
+                                                  common.seq_concat_mask(args.train_file, margs))
             if dim != margs["original_dim"]:
                 raise ValueError(f"pruned width {dim} != checkpoint original_dim "
                                  f"{margs['original_dim']}: was the model trained on another "

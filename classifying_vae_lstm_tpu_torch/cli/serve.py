@@ -15,7 +15,10 @@ Endpoints (JSON):
 
 The family (``--family auto``) is read from the checkpoint's args: cl_vae
 checkpoints carry ``intermediate_class_dim``. A cl_vrnn engine seeds from
-corpus windows, a cl_vae engine from their first frames. Generation runs on
+corpus windows, a cl_vae engine from their first frames; a seq-concat cl_vae
+engine (``seq_length > 1``) from whole windows, flattened as in training,
+and its ``t`` generated rows come back as ``t x seq_length`` frames of 88
+pitches (the JAX frontend seeds it with frames it cannot read). Generation runs on
 ``--device`` (``cuda`` by default, where every request is one launch of the
 family's whole-generation CUDA kernel; ``cpu`` runs its plain version). The
 flags are the JAX frontend's, plus ``--device``.
@@ -50,15 +53,19 @@ class Server(ThreadingHTTPServer):
     request_queue_size = 128
 
 
-def build_engine(args) -> tuple[GenerationEngine, dict]:
+def build_engine(args) -> tuple[GenerationEngine, dict, common.SeqConcat | None]:
+    """The engine, the corpus's key map and, for a seq-concat cl_vae
+    checkpoint, its layout of rows (None otherwise)."""
     family = args.family
     if family == "auto":
         family = "cl_vae" if "intermediate_class_dim" in load_model_args(args.model_file) else "cl_vrnn"
     if getattr(args, "dp", 1) > 1:
         raise NotImplementedError("--dp > 1 (songs sharded over several cards) is not "
                                   "ported yet (ROADMAP Queue 1 item 14)")
-    params, cfg, _ = common.load_model(args.model_file, family)
+    params, cfg, margs = common.load_model(args.model_file, family)
+    layout = None
     if family == "cl_vae":
+        layout = common.SeqConcat.of(args.train_file, margs)
         choice = getattr(args, "gen_backend", "auto")
         cfg = common.resolve_gen_backend(cfg, choice)
         if choice == "auto":
@@ -66,14 +73,18 @@ def build_engine(args) -> tuple[GenerationEngine, dict]:
     else:
         cfg = common.resolve_lstm_backend(cfg, getattr(args, "lstm_backend", "auto"))
     squeeze = family == "cl_vae"
-    P = PianoData(args.train_file, batch_size=1, seq_length=args.seed_len, squeeze_x=squeeze)
-    seeds = P.x_test[:, 0] if squeeze and P.x_test.ndim == 3 else P.x_test
+    P = PianoData(args.train_file, batch_size=1,
+                  seq_length=layout.seq_length if layout else args.seed_len, squeeze_x=squeeze)
+    if layout:
+        seeds = layout.rows(P.x_test)
+    else:
+        seeds = P.x_test[:, 0] if squeeze and P.x_test.ndim == 3 else P.x_test
     engine = GenerationEngine(params, cfg, seeds, P.test_song_keys,
                               device=getattr(args, "device", "cuda"),
                               dynamic_batching=getattr(args, "dynamic_batching", False),
                               batch_window_ms=getattr(args, "batch_window_ms",
                                                       DynamicBatcher.DEFAULT_WINDOW_MS))
-    return engine, dict(P.key_map)
+    return engine, dict(P.key_map), layout
 
 
 def _midi_b64(roll, is_jsb: bool) -> str:
@@ -89,7 +100,10 @@ def _midi_b64(roll, is_jsb: bool) -> str:
         os.unlink(path)
 
 
-def make_handler(engine: GenerationEngine, key_map: dict, is_jsb: bool):
+def make_handler(engine: GenerationEngine, key_map: dict, is_jsb: bool, layout=None):
+    """The request handler; ``layout`` (``common.SeqConcat``) maps a
+    seq-concat engine's rows to piano rolls and a seed MIDI to a row."""
+
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):  # quiet
             pass
@@ -107,11 +121,12 @@ def make_handler(engine: GenerationEngine, key_map: dict, is_jsb: bool):
                 self._send(200, {"ok": True})
             elif self.path == "/stats":
                 vae = engine.family == "cl_vae"
+                kmod = cuda_generate_vae if vae else cuda_generate
                 resolved = {"family": engine.family, "device": str(engine.device),
                             "mode": engine.mode,
                             "gen_path": "cuda_kernel" if engine.device.type == "cuda" else "plain",
-                            "kernel_launches": (cuda_generate_vae if vae
-                                                else cuda_generate).LAUNCHES}
+                            "kernel_launches": kmod.LAUNCHES + kmod.INT8_LAUNCHES,
+                            "int8_launches": kmod.INT8_LAUNCHES}
                 if vae:
                     resolved["gen_backend"] = engine.cfg.gen_backend
                 else:
@@ -163,9 +178,13 @@ def make_handler(engine: GenerationEngine, key_map: dict, is_jsb: bool):
                     if len(seed_rolls) == 0:
                         self._send(400, {"error": "seed MIDI contains no notes"})
                         return
+                    if layout:
+                        seed_rolls = layout.rows(seed_rolls[:, :88])[None]
                 rolls = engine.generate(n=n, nsteps=t, key_name_index=key_idx,
                                         infer_w=bool(req.get("infer_w", True)),
                                         seed_rolls=seed_rolls)
+                if layout:
+                    rolls = layout.rolls(rolls)
                 if fmt == "midi_base64":
                     out = {"midi_base64": [_midi_b64(r, is_jsb) for r in rolls]}
                 else:
@@ -180,14 +199,14 @@ def make_handler(engine: GenerationEngine, key_map: dict, is_jsb: bool):
 def make_server(args) -> tuple[Server, GenerationEngine]:
     """Engine (warmed as ``--warmup`` says) behind a bound HTTP server;
     ``--port 0`` binds an ephemeral port (``httpd.server_address[1]``)."""
-    engine, key_map = build_engine(args)
+    engine, key_map, layout = build_engine(args)
     if args.warmup == "full":
         print("warming the full bucket grid...", flush=True)
         engine.warmup()
     elif args.warmup == "background":
         engine.warmup(background=True)
     is_jsb = "jsb" in args.train_file.lower()
-    httpd = Server((args.host, args.port), make_handler(engine, key_map, is_jsb))
+    httpd = Server((args.host, args.port), make_handler(engine, key_map, is_jsb, layout))
     return httpd, engine
 
 
@@ -213,14 +232,16 @@ def build_parser():
                         help="cuda: the whole-generation CUDA kernel; cpu: its plain version")
     parser.add_argument("--lstm_backend", type=str, default="auto",
                         choices=["auto", "keep", "xla", "pallas"],
-                        help="cl_vrnn: recorded in the config only: 'auto'/'keep' keep "
-                             "the checkpoint's numerics; generation on cuda always runs "
-                             "the CUDA kernel")
+                        help="cl_vrnn: 'auto' resolves to 'xla', 'keep' keeps the "
+                             "checkpoint's; generation on cuda always runs a CUDA kernel, "
+                             "and 'pallas' picks int8 weights for a bf16 checkpoint where "
+                             "the JAX package does")
     parser.add_argument("--gen_backend", type=str, default="auto",
                         choices=["auto", "keep", "xla", "pallas"],
-                        help="cl_vae: recorded in the config only ('auto' resolves to "
-                             "'xla'); generation on cuda always runs the CUDA kernel, "
-                             "whose f32 frames equal the scan's")
+                        help="cl_vae: 'auto' resolves to 'xla'; generation on cuda always "
+                             "runs a CUDA kernel, whose f32 frames equal the scan's, and "
+                             "'pallas' picks int8 weights for a bf16 checkpoint where the "
+                             "JAX package does")
     parser.add_argument("--dp", type=int, default=1,
                         help="shard generation over N cards (not ported yet: > 1 raises)")
     parser.add_argument("--dynamic_batching", action="store_true",

@@ -1,4 +1,6 @@
-// Whole-generation cl_vae sampler for Hopper (sm_90a), f32 or bf16 weights.
+// Whole-generation cl_vae sampler for Hopper (sm_90a): f32 or bf16 weights
+// (`generate_kernel`, `generate_wide_kernel`), or int8 weights
+// (`generate_wide_int8_kernel`, at the end).
 //
 // Replaces: classifying_vae_lstm_tpu/ops/pallas_generate_vae.py:141
 // `_make_kernel` (the f32/bf16 body of `generate_cl_vae_batch_pallas`). One
@@ -73,6 +75,39 @@
 // bandwidth, and each block's time is set by its own weight stream. Later
 // work, not done here: a thread-block cluster that splits the columns so
 // that each SM keeps its slice of the weights in shared memory, and wgmma.
+//
+// The third kernel, `generate_wide_int8_kernel`, replaces
+// classifying_vae_lstm_tpu/ops/pallas_generate_vae.py:192 `_make_kernel_int8`
+// (the int8 body of `generate_cl_vae_batch_pallas`), which the JAX package
+// picks for a bf16 checkpoint whose bf16 weights pass its VMEM rule (the
+// seq-concat width D=1,024, L=16: H = 4,160 ... 7,808). It is the wide
+// kernel with the three large weights (encoder x rows, decoder x_prev rows,
+// frame head) as per-column int8 codes with f32 scales, quantized by the
+// wrapper as JAX quantizes them; the z heads stay bf16 and the decoder z
+// rows f32. Its numerics: binary frames are exact codes; the decoder's relu
+// hidden h_d gets a per-song scale rs = max(max h_d, 1e-12) / 127 (h_d >= 0,
+// so its max is its largest magnitude) and enters the frame head as
+// round(h_d / rs) (IEEE division, `__float2int_rn` rounding half to even as
+// jnp.round); every product sums int8 codes in int32 (`__dp4a`, four k at a
+// time), exact in any order, so the K-split groups' partial sums add
+// exactly; each column is dequantized once and the f32 epilogue is written
+// with __fmul_rn / __fadd_rn in the JAX kernel's order (h_e = relu((float)
+// acc * s + encb); z_d = decb, then the L z rows, then (float)acc * s; p =
+// sigmoid(((float)acc * s) * rs + bx)), so nvcc contracts nothing into an FMA.
+// Weights are packed by the wrapper as [ceil(K/4)][N] words of four k (zero
+// rows pad K); the codes of the frames and of h_d are [ceil(K/4)][kSongs]
+// words in the per-song state.
+//
+// What bounds the int8 kernel. At the seq-concat width (D=1,024, H=5,120,
+// L=16, no x_prev), 64 songs x 256 steps, it does 1.05e7 int8 MACs per
+// song-step, 1.7e11 MACs (3.4e11 operations) for the call: ~0.17 ms at the
+// card's 1,979 TOPS of int8 tensor-core products, against 10.5 MB of int8
+// weights (15.7 MB with x_prev), ~0.003 ms at HBM rate, so operations bound
+// it (chip_smoke.py's `int8_bound_ms` prints both). Every block still
+// reads every weight from L2 each step, as the wide kernel does, and
+// `__dp4a` runs on the integer pipes, not the tensor cores: the kernel sits
+// hundreds of times above its bound. The lever of a later PR is int8
+// `mma.sync` (m16n8k32) or `wgmma`, with the columns split over a cluster.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -498,6 +533,265 @@ int launch_wide(const WideArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+
+// ------------------------------------------------------------- the int8 kernel
+
+static_assert(kSongs == 2, "the int8 kernel loads the tile's two code words as one int2");
+
+struct Int8Args {
+  const float* seed;          // [B, D]
+  const float* eps;           // [B, nsteps, L]
+  const float* u;             // [B, nsteps, D]
+  const int* wke;             // [D4, H]  encoder x rows, int8 codes four k to a word
+  const float* ske;           // [H]      their scales
+  const float* encb;          // [B, H]   w rows . w + bias, per song
+  const __nv_bfloat16* wz_t;  // [2L, H]  z_mean | z_log_var kernels, transposed, bf16
+  const float* bz;            // [2L]
+  const int* wkd_x;           // [D4, H]  decoder x_prev rows (use_x_prev)
+  const float* skd;           // [H]
+  const float* wkd_z;         // [L, H]   decoder z rows, f32
+  const float* decb;          // [B, H]
+  const int* wx;              // [H4, D]  frame head, four k to a word
+  const float* swx;           // [D]
+  const float* bx;            // [D]
+  float* out;                 // [B, nsteps, D]
+  float* state;               // null: per-song state in shared memory; else [grid, state floats]
+  int B, nsteps, D, H, L, use_x_prev, use_z_prior, return_probs;
+};
+
+__host__ __device__ constexpr int words(int k) { return (k + 3) / 4; }
+
+// per-song state of one block, in 4-byte units: the code words of x_prev and
+// x_prev_t ([D4][kSongs] each), the step's probabilities ([D][kSongs]), z
+// ([L][kSongs]), h_e (the z heads' bf16-valued operand) and h_d ([H][kSongs]
+// each), and h_d's code words ([H4][kSongs])
+__host__ __device__ constexpr size_t int8_state_words(int D, int H, int L) {
+  return (size_t)kSongs * (2 * words(D) + D + L + 2 * H + words(H));
+}
+
+// the K-split int partial sums, then the row-max reduction ([kWideWarps]
+// [kSongs]) and the songs' row scales ([kSongs])
+constexpr size_t kInt8FixedWords = kPartialFloats + (size_t)(kWideWarps + 1) * kSongs;
+
+size_t int8_smem_bytes(int D, int H, int L, int state_in_smem) {
+  return (kInt8FixedWords + (state_in_smem ? int8_state_words(D, H, L) : 0)) * 4;
+}
+
+// acc[b] += sum_{k0 <= k < k1} dot4(a[k][b], w[k * N + n]): a is [K4][kSongs]
+// code words, w a [K4, N] array of code words in global memory
+__device__ __forceinline__ void mac_rows_i8(int (&acc)[kSongs], const int* a, const int* w,
+                                            int N, int n, int k0, int k1) {
+  const int* wp = w + (size_t)k0 * N + n;
+#pragma unroll 16
+  for (int k = k0; k < k1; ++k, wp += N) {
+    const int wv = __ldg(wp);
+    const int2 av = *reinterpret_cast<const int2*>(a + k * kSongs);
+    acc[0] = __dp4a(av.x, wv, acc[0]);
+    acc[1] = __dp4a(av.y, wv, acc[1]);
+  }
+}
+
+// cols_layer for int8 codes: epi(n, b, sum_k dot4(a[k][b], w[k * N + n]))
+// exactly once for each column n < N and song b. Narrow layers split the K4
+// words across S groups, whose int partial sums meet in `partial` (exact in
+// any order). The caller syncs before the next layer reads what epi stored.
+template <typename Epi>
+__device__ __forceinline__ void cols_layer_i8(const int* a, const int* w, int K4, int N,
+                                              int* partial, Epi epi) {
+  const int S = slices_for(N);
+  if (S == 1) {
+    for (int n = threadIdx.x; n < N; n += kWideThreads) {
+      int acc[kSongs] = {0, 0};
+      if (K4) mac_rows_i8(acc, a, w, N, n, 0, K4);
+#pragma unroll
+      for (int b = 0; b < kSongs; ++b) epi(n, b, acc[b]);
+    }
+    return;
+  }
+  const int s = threadIdx.x / N, n = threadIdx.x - s * N;
+  if (s < S) {
+    int acc[kSongs] = {0, 0};
+    if (K4) mac_rows_i8(acc, a, w, N, n, K4 * s / S, K4 * (s + 1) / S);
+#pragma unroll
+    for (int b = 0; b < kSongs; ++b) partial[(s * N + n) * kSongs + b] = acc[b];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < N * kSongs; i += kWideThreads) {
+    const int col = i / kSongs, b = i - col * kSongs;
+    int v = 0;
+    for (int q = 0; q < S; ++q) v += partial[(q * N + col) * kSongs + b];
+    epi(col, b, v);
+  }
+}
+
+// The bf16 z heads of the int8 kernel: returns, in lane b < kSongs, sum_k
+// a[k][b] * wrow[k] for bf16-valued a, summed in double and rounded to f32
+// once. Each product of two bf16 values is exact, and the double sum rounds
+// them the same in any order to within 2^-53, so the kernel's z and the plain
+// version's (a float64 product) agree: an f32 sum in two orders may differ by
+// an ulp, which the decoder's h_d / rs can turn into another code.
+__device__ __forceinline__ float warp_dot_exact(const float* a, const __nv_bfloat16* wrow,
+                                                int K, int lane) {
+  double s[kSongs];
+#pragma unroll
+  for (int b = 0; b < kSongs; ++b) s[b] = 0.0;
+  for (int k = lane; k < K; k += 32) {
+    const double w = __bfloat162float(wrow[k]);
+#pragma unroll
+    for (int b = 0; b < kSongs; ++b) s[b] = fma((double)a[k * kSongs + b], w, s[b]);
+  }
+  float mine = 0.f;
+#pragma unroll
+  for (int b = 0; b < kSongs; ++b) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s[b] += __shfl_xor_sync(0xffffffffu, s[b], off);
+    if (lane == b) mine = __double2float_rn(s[b]);
+  }
+  return mine;
+}
+
+// the int8 code of one operand entry into byte `r % 4` of its word
+__device__ __forceinline__ void put_code(int* words_, int r, int b, int code) {
+  reinterpret_cast<signed char*>(words_)[((r / 4) * kSongs + b) * 4 + (r % 4)] =
+      static_cast<signed char>(code);
+}
+
+__global__ void __launch_bounds__(kWideThreads) generate_wide_int8_kernel(const Int8Args a) {
+  extern __shared__ int4 smem_i4[];
+  int* partial = reinterpret_cast<int*>(smem_i4);  // [kPartialFloats]
+  float* red = reinterpret_cast<float*>(partial + kPartialFloats);  // [kWideWarps][kSongs]
+  float* rs = red + kWideWarps * kSongs;                             // [kSongs]
+  const int D = a.D, H = a.H, L = a.L, D4 = words(D), H4 = words(H);
+  int* st = a.state ? reinterpret_cast<int*>(a.state) +
+                          (size_t)blockIdx.x * int8_state_words(D, H, L)
+                    : partial + kInt8FixedWords;
+  int* xpq = st;                                        // [D4][kSongs]  x_prev codes
+  int* xptq = xpq + D4 * kSongs;                        // [D4][kSongs]  x_prev_t codes
+  float* pm = reinterpret_cast<float*>(xptq + D4 * kSongs);  // [D][kSongs]
+  float* zs = pm + D * kSongs;                          // [L][kSongs]
+  float* he = zs + L * kSongs;                          // [H][kSongs]
+  float* hd = he + H * kSongs;                          // [H][kSongs]
+  int* hdq = reinterpret_cast<int*>(hd + H * kSongs);   // [H4][kSongs]
+  const int s0 = blockIdx.x * kSongs;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const auto fold = [&](const float* f, int b, int n) {
+    const int s = s0 + b;
+    return s < a.B ? f[(size_t)s * H + n] : 0.f;
+  };
+
+  for (int i = threadIdx.x; i < 2 * D4 * kSongs; i += kWideThreads) xpq[i] = 0;  // pad bytes
+  __syncthreads();
+  for (int i = threadIdx.x; i < D * kSongs; i += kWideThreads) {
+    const int d = i / kSongs, b = i % kSongs, s = s0 + b;
+    const int x = s < a.B ? __float2int_rz(a.seed[(size_t)s * D + d]) : 0;
+    put_code(xpq, d, b, x);
+    put_code(xptq, d, b, x);
+  }
+  __syncthreads();
+
+  for (int t = 0; t < a.nsteps; ++t) {
+    // z-encoder hidden: h_e = relu(x_prev.Wke * ske + encb), kept bf16-valued
+    cols_layer_i8(xpq, a.wke, D4, H, partial, [&](int n, int b, int acc) {
+      const float v = __fadd_rn(__fmul_rn(__int2float_rn(acc), a.ske[n]), fold(a.encb, b, n));
+      he[n * kSongs + b] = operand<__nv_bfloat16>(fmaxf(v, 0.f));
+    });
+    __syncthreads();
+    // z heads (bf16, summed exactly) and the draw, one warp per latent
+    for (int l = warp; l < L; l += kWideWarps) {
+      const float zm = warp_dot_exact(he, a.wz_t + (size_t)l * H, H, lane);
+      const float zv = warp_dot_exact(he, a.wz_t + (size_t)(L + l) * H, H, lane);
+      const int s = s0 + lane;
+      if (lane < kSongs) {
+        float z = 0.f;
+        if (s < a.B) {
+          const float ep = a.eps[((size_t)s * a.nsteps + t) * L + l];
+          const float scale = expf(__fadd_rn(zv, a.bz[L + l]) / 2.f);
+          z = a.use_z_prior ? ep : __fadd_rn(__fadd_rn(zm, a.bz[l]), __fmul_rn(scale, ep));
+        }
+        zs[l * kSongs + lane] = z;
+      }
+    }
+    __syncthreads();
+    // decoder hidden: h_d = relu(((decb + z rows, l = 0..L-1) + x_prev_t.Wkd_x * skd))
+    cols_layer_i8(xptq, a.wkd_x, a.use_x_prev ? D4 : 0, H, partial, [&](int n, int b, int acc) {
+      float v = fold(a.decb, b, n);
+      for (int l = 0; l < L; ++l)
+        v = __fadd_rn(v, __fmul_rn(zs[l * kSongs + b], a.wkd_z[(size_t)l * H + n]));
+      if (a.use_x_prev) v = __fadd_rn(v, __fmul_rn(__int2float_rn(acc), a.skd[n]));
+      hd[n * kSongs + b] = fmaxf(v, 0.f);
+    });
+    __syncthreads();
+    // per-song scale rs = max(max_n h_d, 1e-12) / 127 (a max is exact in any order)
+    {
+      float m[kSongs] = {0.f, 0.f};
+      for (int n = threadIdx.x; n < H; n += kWideThreads)
+#pragma unroll
+        for (int b = 0; b < kSongs; ++b) m[b] = fmaxf(m[b], hd[n * kSongs + b]);
+#pragma unroll
+      for (int b = 0; b < kSongs; ++b) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          m[b] = fmaxf(m[b], __shfl_xor_sync(0xffffffffu, m[b], off));
+        if (lane == 0) red[warp * kSongs + b] = m[b];
+      }
+      __syncthreads();
+      if (threadIdx.x < kSongs) {
+        float mx = 0.f;
+        for (int w = 0; w < kWideWarps; ++w) mx = fmaxf(mx, red[w * kSongs + threadIdx.x]);
+        rs[threadIdx.x] = __fdiv_rn(fmaxf(mx, 1e-12f), 127.f);
+      }
+      __syncthreads();
+    }
+    // h_d's codes, round(h_d / rs), four k to a word (zero past H)
+    for (int i = threadIdx.x; i < H4 * kSongs; i += kWideThreads) {
+      const int k4 = i / kSongs, b = i % kSongs;
+      unsigned word = 0;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int n = 4 * k4 + r;
+        const int c = n < H ? __float2int_rn(__fdiv_rn(hd[n * kSongs + b], rs[b])) : 0;
+        word |= (unsigned)(c & 0xff) << (8 * r);
+      }
+      hdq[i] = (int)word;
+    }
+    __syncthreads();
+    // frame head: p = sigmoid((round(h_d / rs).Wx * swx) * rs + bx)
+    cols_layer_i8(hdq, a.wx, H4, D, partial, [&](int d, int b, int acc) {
+      const float q = __fmul_rn(__fmul_rn(__int2float_rn(acc), a.swx[d]), rs[b]);
+      pm[d * kSongs + b] = 1.f / (1.f + expf(-__fadd_rn(q, a.bx[d])));
+    });
+    __syncthreads();
+    // Bernoulli draw, both carries (the lagged frame takes the old x_prev
+    // first), output; the carries are code words, so one thread takes a
+    // word's four pitches
+    for (int i = threadIdx.x; i < D4 * kSongs; i += kWideThreads) {
+      const int k4 = i / kSongs, b = i % kSongs, s = s0 + b;
+      if (s >= a.B) continue;
+      unsigned word = 0;
+      for (int r = 0; r < 4 && 4 * k4 + r < D; ++r) {
+        const int d = 4 * k4 + r;
+        const float xm = pm[d * kSongs + b];
+        const float xt = a.u[((size_t)s * a.nsteps + t) * D + d] < xm ? 1.f : 0.f;
+        word |= (unsigned)(xt != 0.f) << (8 * r);
+        a.out[((size_t)s * a.nsteps + t) * D + d] = a.return_probs ? xm : xt;
+      }
+      xptq[i] = xpq[i];
+      xpq[i] = (int)word;
+    }
+    __syncthreads();
+  }
+}
+
+int launch_int8(const Int8Args& a, cudaStream_t stream) {
+  const size_t smem = int8_smem_bytes(a.D, a.H, a.L, a.state == nullptr);
+  cudaError_t err = cudaFuncSetAttribute(
+      generate_wide_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.B + kSongs - 1) / kSongs);
+  generate_wide_int8_kernel<<<grid, kWideThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Bytes of dynamic shared memory one block needs (the wrapper checks the limit).
@@ -548,4 +842,31 @@ extern "C" int cvl_generate_cl_vae_wide(
                    H,    L,     has_hidden, use_x_prev, use_z_prior, return_probs};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16_weights ? launch_wide<__nv_bfloat16>(a, st) : launch_wide<float>(a, st);
+}
+
+// Floats of per-song state one block of the int8 kernel keeps (in shared
+// memory, or in the global scratch the wrapper passes when it does not fit).
+extern "C" long long cvl_generate_cl_vae_int8_state_floats(int D, int H, int L) {
+  return (long long)int8_state_words(D, H, L);
+}
+
+// Bytes of dynamic shared memory one block of the int8 kernel needs.
+extern "C" long long cvl_generate_cl_vae_int8_smem_bytes(int D, int H, int L, int state_in_smem) {
+  return (long long)int8_smem_bytes(D, H, L, state_in_smem);
+}
+
+// Launches the int8 sampler on `stream`; returns the cudaError_t of the
+// launch. `wkd_x` and `skd` are null without use_x_prev; `state` is null
+// when the per-song state fits shared memory.
+extern "C" int cvl_generate_cl_vae_int8(
+    const float* seed, const float* eps, const float* u, const int* wke, const float* ske,
+    const float* encb, const void* wz_t, const float* bz, const int* wkd_x, const float* skd,
+    const float* wkd_z, const float* decb, const int* wx, const float* swx, const float* bx,
+    float* out, float* state, int B, int nsteps, int D, int H, int L, int use_x_prev,
+    int use_z_prior, int return_probs, void* stream) {
+  const Int8Args a{seed,  eps,  u,     wke,         ske,   encb,
+                   static_cast<const __nv_bfloat16*>(wz_t), bz,   wkd_x, skd,
+                   wkd_z, decb, wx,    swx,         bx,    out,  state, B,
+                   nsteps, D,   H,     L,           use_x_prev, use_z_prior, return_probs};
+  return launch_int8(a, static_cast<cudaStream_t>(stream));
 }

@@ -1,15 +1,21 @@
 """Whole-generation cl_vrnn sampler: CUDA kernel wrapper and plain version.
 
 Counterpart of ``classifying_vae_lstm_tpu/ops/pallas_generate.py``. The
-kernel (``csrc/generate_cl_vrnn.cu``) runs the entire autoregressive loop —
+kernels (``csrc/generate_cl_vrnn.cu``) run the entire autoregressive loop —
 encoder cell, z heads, z draw, decoder cell, sigmoid frame head, Bernoulli
-draw, feedback — in one launch. The sampler is a pure function of its
-pre-drawn noise (``eps`` for z, ``u`` for the frames), so the kernel is held
-against :func:`generate_cl_vrnn_batch_plain` on the card and the plain
-version against the JAX package on the CPU, with the same noise.
+draw, feedback — in one launch: ``generate_kernel`` with f32 or bf16
+weights, ``generate_int8_kernel`` with the five large weights as per-column
+int8 codes. The sampler is a pure function of its pre-drawn noise (``eps``
+for z, ``u`` for the frames), so each kernel is held against
+:func:`generate_cl_vrnn_batch_plain` on the card and the plain version
+against the JAX package on the CPU, with the same noise.
 
-:func:`generate_cl_vrnn_batch_cuda` launches the kernel for CUDA tensors
-(or raises) and takes the plain version only for CPU tensors.
+The precision is the JAX package's (:func:`pick_mode`): the checkpoint's
+numerics, and int8 where a bf16 checkpoint with ``lstm_backend == "pallas"``
+falls in the JAX package's int8 band.
+
+:func:`generate_cl_vrnn_batch_cuda` launches a kernel for CUDA tensors (or
+raises) and takes the plain version only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -20,73 +26,197 @@ import threading
 import torch
 
 from . import _build
-from .lstm import _gates
+from .lstm import _gates, bf16_operand
 
-# launches of the kernel since the count was last set to 0
+# launches since the counts were last set to 0: of the f32/bf16 kernel, and
+# of the int8 kernel
 LAUNCHES = 0
+INT8_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
 _SONGS_PER_BLOCK = 4      # kSongs in csrc/generate_cl_vrnn.cu
 _UNITS_PER_PASS = 256     # kUnits in csrc/generate_cl_vrnn.cu
 _SMEM_LIMIT = 232448      # dynamic shared memory one Hopper block can use
-_INT8_TODO = ("int8 weights (pallas_generate.py:211 _make_kernel_int8) are not "
-              "ported yet: ROADMAP Queue 2")
+_MODES = ("f32", "bf16", "int8")
+
+# The JAX package's precision rule for this sampler (its ``_BUDGET`` and
+# ``pick_mode``, ``pallas_generate.py:44,77-97``): the weight bytes of each
+# mode against 28 MiB less 2.5 MiB. It is a size of the TPU kernel's VMEM,
+# not of this card; the port copies it because it decides which songs a
+# checkpoint gives.
+_JAX_LIMIT = 28 * 1024 * 1024 - int(2.5 * 1024 * 1024)
+
+
+def _jax_weight_bytes(D: int, H: int, L: int, mode: str) -> int:
+    """The JAX package's ``_weight_bytes`` (``pallas_generate.py:56-74``):
+    each weight at the type its kernel loads it in (the int8 mode keeps the
+    z head bf16 and the decoder z rows f32, with five f32 scale vectors),
+    the frame head lane-padded to a multiple of 128."""
+    wb = {"f32": 4, "bf16": 2, "int8": 1}[mode]
+    Dp = max(128, -(-D // 128) * 128)
+    big = wb * (D * 4 * H + H * 4 * H + D * 4 * H + H * 4 * H + H * Dp)
+    z_head = (2 if mode == "int8" else wb) * H * 128
+    z_dec = (4 if mode == "int8" else wb) * L * 4 * H
+    biases = 4 * (128 + Dp)
+    scales = 4 * (4 * 4 * H + Dp) if mode == "int8" else 0
+    return big + z_head + z_dec + biases + scales
+
+
+def _jax_precision(cfg) -> str | None:
+    """What the JAX package's ``pick_mode`` returns for ``cfg``: f32 or bf16
+    (the checkpoint's numerics) while that mode's weights are under the
+    limit, int8 past it for a bf16 checkpoint, else None (JAX then samples
+    with its XLA scan)."""
+    D, H, L = cfg.original_dim, cfg.intermediate_dim, cfg.latent_dim
+    ladder = ("bf16", "int8") if cfg.bf16_compute else ("f32",)
+    return next((m for m in ladder if _jax_weight_bytes(D, H, L, m) < _JAX_LIMIT), None)
 
 
 def pick_mode(cfg) -> str:
-    """Weight precision: the checkpoint's numerics, f32 unless it computes
-    its matmuls in bf16 (``cfg.bf16_compute``). Never int8."""
-    return "bf16" if cfg.bf16_compute else "f32"
+    """Weight precision, as the JAX package picks it: f32 unless the
+    checkpoint computes its matmuls in bf16 (``cfg.bf16_compute``); int8
+    where such a checkpoint selects the kernel path (``cfg.lstm_backend ==
+    "pallas"``) and the JAX rule says int8 (at D=88, L=2: H = 1,240 …
+    1,752); bf16 everywhere else, also where JAX falls back to its scan. The
+    JAX package's device check is not copied."""
+    if not cfg.bf16_compute:
+        return "f32"
+    if getattr(cfg, "lstm_backend", "xla") == "pallas" and _jax_precision(cfg) == "int8":
+        return "int8"
+    return "bf16"
 
 
-def _smem_bytes(D: int, H: int, L: int) -> int:
+def _words(k: int) -> int:
+    return -(-k // 4)
+
+
+def _smem_bytes(D: int, H: int, L: int, mode: str = "f32") -> int:
+    if mode == "int8":
+        # x codes; h codes of both cells (two buffers); h_e, c_e, c_d; z;
+        # the int partial sums of two operands
+        words = (_words(D) + 4 * _words(H) + 3 * H + L) * _SONGS_PER_BLOCK
+        return (words + 2 * 4 * _SONGS_PER_BLOCK * _UNITS_PER_PASS) * 4
     return ((D + 6 * H + L) * _SONGS_PER_BLOCK + 4 * _SONGS_PER_BLOCK * _UNITS_PER_PASS) * 4
 
 
-def smem_bytes(cfg) -> int:
+def smem_bytes(cfg, mode: str | None = None) -> int:
     """Shared memory of one block: x_in, h (two buffers) and c of both
     cells, and z, for each song of the block's tile, plus the gate stages'
-    partial sums."""
-    return _smem_bytes(cfg.original_dim, cfg.intermediate_dim, cfg.latent_dim)
+    partial sums (in int8 mode x and h as int8 codes, h_e once more as the
+    z head's operand, and the partial sums of two operands)."""
+    return _smem_bytes(cfg.original_dim, cfg.intermediate_dim, cfg.latent_dim,
+                       mode or pick_mode(cfg))
 
 
-def fits(cfg) -> bool:
+def fits(cfg, mode: str | None = None) -> bool:
     """Does one block's carried state fit Hopper's shared memory?"""
-    return smem_bytes(cfg) <= _SMEM_LIMIT
+    return smem_bytes(cfg, mode) <= _SMEM_LIMIT
 
 
 def _resolve_mode(cfg, mode):
     mode = mode or pick_mode(cfg)
-    if mode == "int8":
-        raise NotImplementedError(_INT8_TODO)
-    if mode not in ("f32", "bf16"):
-        raise ValueError(f"unknown mode {mode!r} (f32 or bf16)")
+    if mode not in _MODES:
+        raise ValueError(f"unknown mode {mode!r} (f32, bf16 or int8)")
     return mode
 
 
+def _quant_cols(w):
+    """Per-output-column symmetric int8 quantization, the JAX package's
+    ``_quant_cols`` (``pallas_generate.py:105-109``): ``s = max(max|w| over
+    the rows / 127, 1e-12)``, ``q = round(w / s)`` (half to even). Returns
+    (int8 codes [in, out], f32 scales [out]) with ``w ~= q * s``. Both
+    quotients are true divisions by tensors, never products with a
+    reciprocal."""
+    m = w.abs().amax(dim=0)
+    s = torch.clamp_min(m / torch.full_like(m, 127.0), 1e-12)
+    return torch.round(w / s).to(torch.int8), s
+
+
 def _pack(params, cfg, ws, D: int, mode: str) -> dict:
-    """The kernel's operands: weights split by input rows (in the mode's
-    type) and the per-song f32 folds of the w rows and biases."""
+    """The kernels' operands: weights split by input rows (in the mode's
+    type) and the per-song f32 folds of the w rows and biases. In int8 mode
+    the five large weights are int8 codes with f32 scales (``s*``; those of
+    the h operands divided by 127 first, ``s * (1 / 127)`` as JAX's
+    ``qmm`` forms it), the z head bf16 and the decoder z rows f32."""
     L = cfg.latent_dim
     wt = torch.bfloat16 if mode == "bf16" else torch.float32
     enc, dec = params["encoder_h"], params["decoder_h"]
     n_xp = D if cfg.use_x_prev else 0
     cast = lambda w: w.to(wt).contiguous()
-    return {
-        "wke_x": cast(enc["kernel"][:D]),
-        "rke": cast(enc["recurrent_kernel"]),
+    w = {
+        "wke_x": enc["kernel"][:D],
+        "rke": enc["recurrent_kernel"],
         # w rows and bias folded per song: plain f32 products (TF32 is off)
         "encb": (torch.matmul(ws, enc["kernel"][D:]) + enc["bias"]).contiguous(),
         # heads transposed: one row per output column, read along k by a warp
-        "wz_t": cast(torch.cat([params["Z_mean"]["kernel"], params["Z_log_var"]["kernel"]], 1).T),
+        "wz_t": torch.cat([params["Z_mean"]["kernel"], params["Z_log_var"]["kernel"]], 1).T,
         "bz": torch.cat([params["Z_mean"]["bias"], params["Z_log_var"]["bias"]]).contiguous(),
-        "wkd_x": cast(dec["kernel"][:n_xp]) if cfg.use_x_prev else None,
-        "wkd_z": cast(dec["kernel"][n_xp : n_xp + L]),
-        "rkd": cast(dec["recurrent_kernel"]),
+        "wkd_x": dec["kernel"][:n_xp] if cfg.use_x_prev else None,
+        "wkd_z": dec["kernel"][n_xp : n_xp + L],
+        "rkd": dec["recurrent_kernel"],
         "decb": (torch.matmul(ws, dec["kernel"][n_xp + L :]) + dec["bias"]).contiguous(),
-        "wx_t": cast(params["X_decoded_mean"]["kernel"].T),
+        "wx_t": params["X_decoded_mean"]["kernel"].T,
         "bx": params["X_decoded_mean"]["bias"].contiguous(),
     }
+    if mode != "int8":
+        for k in ("wke_x", "rke", "wz_t", "wkd_x", "wkd_z", "rkd", "wx_t"):
+            w[k] = cast(w[k]) if w[k] is not None else None
+        return w
+    # 1/127 rounded to f32 before it multiplies, as JAX's weakly typed scalar
+    inv127 = torch.tensor(1.0 / 127.0, dtype=torch.float32, device=ws.device)
+    for k, per_h in (("wke_x", False), ("rke", True), ("wkd_x", False), ("rkd", True)):
+        if w[k] is not None:
+            w[k], s = _quant_cols(w[k])
+            w["s" + k] = s * inv127 if per_h else s
+    q, s = _quant_cols(params["X_decoded_mean"]["kernel"])
+    w["wx_t"], w["swx"] = q.T.contiguous(), s * inv127
+    w["wz_t"] = w["wz_t"].to(torch.bfloat16).contiguous()
+    w["wkd_z"] = w["wkd_z"].contiguous()
+    return w
+
+
+def _qmm(a_q, q64, scale):
+    """JAX's ``qmm``: the integer product of the codes, cast to f32, times
+    the scales. The product is taken in float64 (``q64``: the weight codes
+    as float64), which holds every partial sum of int8 codes exactly (|sum|
+    <= K * 127^2 < 2^53), so the one f32 rounding is the cast's, as in
+    JAX's int32 -> f32."""
+    return (a_q.double() @ q64).float() * scale
+
+
+def _z_head(h, wz_t):
+    """The int8 mode's bf16 z head, ``bf16(h) @ wz_t.T``: each product of two
+    bf16 values is exact and the sum is taken in float64, then rounded to f32
+    once, so that the kernels' z heads (which sum in double too) give the
+    same z in any order. An f32 sum in another order may differ by an ulp,
+    which h * 127 (or h_d / rs) can turn into another code."""
+    return (bf16_operand(h).double() @ wz_t.double().T).float()
+
+
+def _codes64(w: dict) -> dict:
+    """The int8 codes of ``w`` as float64 (taken once per call)."""
+    return {k: (v.double() if v is not None and v.dtype == torch.int8 else v)
+            for k, v in w.items()}
+
+
+def _step_int8(w, cfg, x_in, h_e, c_e, h_d, c_d, eps_t):
+    """One step of the JAX int8 kernel (``pallas_generate.py:211-280``),
+    f32 additions in its order; ``w`` from :func:`_codes64`."""
+    H, L = cfg.intermediate_dim, cfg.latent_dim
+    x_q = torch.trunc(x_in)  # JAX's astype(int8); binary frames are exact
+    h_q = torch.round(h_e * 127.0)
+    z_e = _qmm(x_q, w["wke_x"], w["swke_x"]) + w["encb"] + _qmm(h_q, w["rke"], w["srke"])
+    h_e, c_e = _gates(z_e, c_e, H)
+    zmv = _z_head(h_e, w["wz_t"]) + w["bz"]
+    z = zmv[:, :L] + torch.exp(zmv[:, L:] / 2) * eps_t
+    z_d = w["decb"] + _qmm(torch.round(h_d * 127.0), w["rkd"], w["srkd"])
+    for l in range(L):
+        z_d = z_d + z[:, l : l + 1] * w["wkd_z"][l]
+    if cfg.use_x_prev:
+        z_d = z_d + _qmm(x_q, w["wkd_x"], w["swkd_x"])
+    h_d, c_d = _gates(z_d, c_d, H)
+    xm = torch.sigmoid(_qmm(torch.round(h_d * 127.0), w["wx_t"].T, w["swx"]) + w["bx"])
+    return h_e, c_e, h_d, c_d, xm
 
 
 def generate_cl_vrnn_batch_plain(params, cfg, x_seeds, nsteps: int, eps, u, ws,
@@ -99,58 +229,79 @@ def generate_cl_vrnn_batch_plain(params, cfg, x_seeds, nsteps: int, eps, u, ws,
     rounded to bf16 and multiplied in f32 — ``a.bfloat16().float() @
     w.bfloat16().float()`` — since a CPU bf16 matmul would round its output
     to bf16, which the JAX ``preferred_element_type=f32`` product does not.
+    In int8 mode x (binary) and ``h = round(h * 127)`` are the codes that
+    multiply the int8 weights, each product exact (:func:`_qmm`).
     """
     mode = _resolve_mode(cfg, mode)
     B, Tseed, D = x_seeds.shape
     H, L = cfg.intermediate_dim, cfg.latent_dim
     w = _pack(params, cfg, ws, D, mode)
-    f = {k: (v.float() if v is not None else None) for k, v in w.items()}
+    if mode == "int8":
+        f = _codes64(w)
+    else:
+        f = {k: (v.float() if v is not None else None) for k, v in w.items()}
     op = (lambda a: a.bfloat16().float()) if mode == "bf16" else (lambda a: a)
     h_e = c_e = h_d = c_d = x_seeds.new_zeros((B, H))
     x_prev = x_seeds.new_zeros((B, D))
     outs = []
     for t in range(Tseed + nsteps):
         x_in = x_seeds[:, t] if t < Tseed else x_prev
-        z_e = op(x_in) @ f["wke_x"] + f["encb"] + op(h_e) @ f["rke"]
-        h_e, c_e = _gates(z_e, c_e, H)
-        zmv = op(h_e) @ f["wz_t"].T + f["bz"]
-        z = zmv[:, :L] + torch.exp(zmv[:, L:] / 2) * eps[:, t]
-        z_d = f["decb"] + op(h_d) @ f["rkd"] + z @ f["wkd_z"]
-        if cfg.use_x_prev:
-            z_d = z_d + op(x_in) @ f["wkd_x"]
-        h_d, c_d = _gates(z_d, c_d, H)
-        xm = torch.sigmoid(op(h_d) @ f["wx_t"].T + f["bx"])
+        if mode == "int8":
+            h_e, c_e, h_d, c_d, xm = _step_int8(f, cfg, x_in, h_e, c_e, h_d, c_d, eps[:, t])
+        else:
+            z_e = op(x_in) @ f["wke_x"] + f["encb"] + op(h_e) @ f["rke"]
+            h_e, c_e = _gates(z_e, c_e, H)
+            zmv = op(h_e) @ f["wz_t"].T + f["bz"]
+            z = zmv[:, :L] + torch.exp(zmv[:, L:] / 2) * eps[:, t]
+            z_d = f["decb"] + op(h_d) @ f["rkd"] + z @ f["wkd_z"]
+            if cfg.use_x_prev:
+                z_d = z_d + op(x_in) @ f["wkd_x"]
+            h_d, c_d = _gates(z_d, c_d, H)
+            xm = torch.sigmoid(op(h_d) @ f["wx_t"].T + f["bx"])
         x_prev = (u[:, t] < xm).to(xm.dtype)
         if t >= Tseed:
             outs.append(xm if return_probs else x_prev)
     return torch.stack(outs, dim=1)
 
 
+def kernel_words(q):
+    """int8 codes [K, N] -> the kernels' [ceil(K/4), N] int32 words of four
+    consecutive k (byte i of a word holds row 4k + i, the order ``__dp4a``
+    pairs them in), K padded with zero rows."""
+    K, N = q.shape
+    padded = q.new_zeros((4 * _words(K), N))
+    padded[:K] = q
+    return padded.view(-1, 4, N).permute(0, 2, 1).contiguous().view(torch.int32).view(-1, N)
+
+
 _lib_lock = threading.Lock()
-_lib_fn = None
+_lib = None
 
 
-def _kernel():
-    """The built kernel's C entry point, with its ctypes signature."""
-    global _lib_fn
+def _kernels():
+    """The built library, its entry points' ctypes signatures set and its
+    shared-memory layouts checked against :func:`_smem_bytes`."""
+    global _lib
     with _lib_lock:
-        if _lib_fn is None:
+        if _lib is None:
             lib = _build.load("generate_cl_vrnn")
-            smem = lib.cvl_generate_cl_vrnn_smem_bytes
-            smem.argtypes, smem.restype = [ctypes.c_int] * 3, ctypes.c_longlong
-            if smem(88, 256, 8) != _smem_bytes(88, 256, 8):
-                raise RuntimeError("shared-memory layout of csrc/generate_cl_vrnn.cu "
-                                   "differs from _smem_bytes")
-            fn = lib.cvl_generate_cl_vrnn
-            P, I = ctypes.c_void_p, ctypes.c_int
-            fn.argtypes = [I] + [P] * 15 + [I] * 8 + [P]
-            fn.restype = I
-            _lib_fn = fn
-        return _lib_fn
+            P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            for fn, mode in ((lib.cvl_generate_cl_vrnn_smem_bytes, "f32"),
+                             (lib.cvl_generate_cl_vrnn_int8_smem_bytes, "int8")):
+                fn.argtypes, fn.restype = [I] * 3, LL
+                for shape in ((88, 256, 8), (88, 1536, 2), (13, 7, 3)):
+                    if fn(*shape) != _smem_bytes(*shape, mode):
+                        raise RuntimeError(f"shared-memory layout of csrc/generate_cl_vrnn.cu "
+                                           f"differs from _smem_bytes at {shape}, {mode}")
+            lib.cvl_generate_cl_vrnn.argtypes = [I] + [P] * 15 + [I] * 8 + [P]
+            lib.cvl_generate_cl_vrnn_int8.argtypes = [P] * 20 + [I] * 8 + [P]
+            lib.cvl_generate_cl_vrnn.restype = lib.cvl_generate_cl_vrnn_int8.restype = I
+            _lib = lib
+        return _lib
 
 
-def _check(params, cfg, x_seeds, nsteps, eps, u, ws):
-    """Raise on anything the kernel does not take."""
+def _check(params, cfg, x_seeds, nsteps, eps, u, ws, mode=None):
+    """Raise on anything the kernel of ``mode`` does not take."""
     if x_seeds.dim() != 3:
         raise ValueError(f"x_seeds must be [B, Tseed, D], got {tuple(x_seeds.shape)}")
     B, Tseed, D = x_seeds.shape
@@ -160,8 +311,8 @@ def _check(params, cfg, x_seeds, nsteps, eps, u, ws):
         raise ValueError(f"need B, Tseed, nsteps >= 1 (got {B}, {Tseed}, {nsteps})")
     if D != cfg.original_dim:
         raise ValueError(f"seed width {D} != original_dim {cfg.original_dim}")
-    if not fits(cfg):
-        raise ValueError(f"state of one block needs {smem_bytes(cfg)} B of shared memory "
+    if not fits(cfg, mode):
+        raise ValueError(f"state of one block needs {smem_bytes(cfg, mode)} B of shared memory "
                          f"(limit {_SMEM_LIMIT}); hidden {H} is too wide for this kernel")
     dev = x_seeds.device
     n_xp = D if cfg.use_x_prev else 0
@@ -197,35 +348,52 @@ def generate_cl_vrnn_batch_cuda(params, cfg, x_seeds, nsteps: int, eps, u, ws,
     """Kernel counterpart of ``generate_cl_vrnn_batch_pallas`` (same signature).
 
     x_seeds [B, Tseed, D]; eps [B, total, L]; u [B, total, D]; ws [B, K];
-    returns [B, nsteps, D]. CUDA tensors launch the kernel on the current
-    stream (or raise: there is no fallback); CPU tensors take
-    :func:`generate_cl_vrnn_batch_plain`. ``mode`` is ``"f32"`` or ``"bf16"``
-    (default :func:`pick_mode`); ``"int8"`` is not ported yet.
+    returns [B, nsteps, D]. CUDA tensors launch a kernel on the current
+    stream (or raise: there is no fallback): ``generate_kernel`` in f32 and
+    bf16 mode, ``generate_int8_kernel`` in int8 mode; CPU tensors take
+    :func:`generate_cl_vrnn_batch_plain`. ``mode`` is ``"f32"``, ``"bf16"``
+    or ``"int8"`` (default :func:`pick_mode`).
     """
-    global LAUNCHES
+    global LAUNCHES, INT8_LAUNCHES
     mode = _resolve_mode(cfg, mode)
     if x_seeds.device.type == "cpu":
         return generate_cl_vrnn_batch_plain(params, cfg, x_seeds, nsteps, eps, u, ws,
                                             return_probs=return_probs, mode=mode)
     if x_seeds.device.type != "cuda":
         raise ValueError(f"unsupported device {x_seeds.device}")
-    _check(params, cfg, x_seeds, nsteps, eps, u, ws)
+    _check(params, cfg, x_seeds, nsteps, eps, u, ws, mode)
     B, Tseed, D = x_seeds.shape
     dev = x_seeds.device
-    fn = _kernel()
+    lib = _kernels()
     with torch.cuda.device(dev):
         w = _pack(params, cfg, ws, D, mode)
         out = torch.empty((B, nsteps, D), dtype=torch.float32, device=dev)
         ptr = lambda t: None if t is None else t.data_ptr()
-        err = fn(int(mode == "bf16"), x_seeds.data_ptr(), eps.data_ptr(), u.data_ptr(),
-                 ptr(w["wke_x"]), ptr(w["rke"]), ptr(w["encb"]), ptr(w["wz_t"]), ptr(w["bz"]),
-                 ptr(w["wkd_x"]), ptr(w["wkd_z"]), ptr(w["rkd"]), ptr(w["decb"]),
-                 ptr(w["wx_t"]), ptr(w["bx"]), out.data_ptr(),
-                 B, Tseed, Tseed + nsteps, D, cfg.intermediate_dim, cfg.latent_dim,
-                 int(cfg.use_x_prev), int(return_probs),
-                 torch.cuda.current_stream(dev).cuda_stream)
+        streams = (x_seeds.data_ptr(), eps.data_ptr(), u.data_ptr())
+        shape = (B, Tseed, Tseed + nsteps, D, cfg.intermediate_dim, cfg.latent_dim,
+                 int(cfg.use_x_prev), int(return_probs))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if mode == "int8":
+            q = {k: kernel_words(w[k]) for k in ("wke_x", "rke", "rkd")}
+            q["wkd_x"] = kernel_words(w["wkd_x"]) if cfg.use_x_prev else None
+            q["wx_t"] = kernel_words(w["wx_t"].T).T.contiguous()  # [D, ceil(H/4)]
+            err = lib.cvl_generate_cl_vrnn_int8(
+                *streams, ptr(q["wke_x"]), ptr(w["swke_x"]), ptr(q["rke"]), ptr(w["srke"]),
+                ptr(w["encb"]), ptr(w["wz_t"]), ptr(w["bz"]), ptr(q["wkd_x"]),
+                ptr(w.get("swkd_x")), ptr(w["wkd_z"]), ptr(q["rkd"]), ptr(w["srkd"]),
+                ptr(w["decb"]), ptr(q["wx_t"]), ptr(w["swx"]), ptr(w["bx"]), out.data_ptr(),
+                *shape, stream)
+        else:
+            err = lib.cvl_generate_cl_vrnn(
+                int(mode == "bf16"), *streams, ptr(w["wke_x"]), ptr(w["rke"]), ptr(w["encb"]),
+                ptr(w["wz_t"]), ptr(w["bz"]), ptr(w["wkd_x"]), ptr(w["wkd_z"]), ptr(w["rkd"]),
+                ptr(w["decb"]), ptr(w["wx_t"]), ptr(w["bx"]), out.data_ptr(), *shape, stream)
+    kernel = "generate_cl_vrnn_int8" if mode == "int8" else "generate_cl_vrnn"
     if err != 0:
-        raise RuntimeError(f"generate_cl_vrnn kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
     with _launch_lock:
-        LAUNCHES += 1
+        if mode == "int8":
+            INT8_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
     return out

@@ -1,6 +1,6 @@
 """Whole-generation cl_vae sampler: CUDA kernel wrappers and plain version.
 
-Counterpart of ``classifying_vae_lstm_tpu/ops/pallas_generate_vae.py``. Two
+Counterpart of ``classifying_vae_lstm_tpu/ops/pallas_generate_vae.py``. Three
 kernels in ``csrc/generate_cl_vae.cu`` run the entire autoregressive loop —
 relu z-encoder hidden, z heads, z draw (or the prior's draw with
 ``use_z_prior``), relu decoder hidden over (w, z, the one-step-lagged
@@ -9,9 +9,12 @@ relu z-encoder hidden, z heads, z draw (or the prior's draw with
 (:func:`fits`), and ``generate_wide_kernel``, which reads the weights from L2
 every step, for every other config: wider models, and models without hidden
 layers (the z heads then read ``[x_prev, w]`` and the frame head ``[w,
-x_prev_t, z]``, as JAX ``encode_z``/``decode`` at ``has_hidden=False``). The
-sampler is a pure function of its pre-drawn noise (``eps`` for z, ``u`` for
-the frames), so both kernels are held against
+x_prev_t, z]``, as JAX ``encode_z``/``decode`` at ``has_hidden=False``);
+and ``generate_wide_int8_kernel``, the wide kernel with the three large
+weights as per-column int8 codes, where the JAX package's precision rule
+says int8 (:func:`pick_mode`). The sampler is a pure function of its
+pre-drawn noise (``eps`` for z, ``u`` for the frames), so the kernels are
+held against
 :func:`generate_cl_vae_batch_plain` on the card and the plain version
 against the JAX package on the CPU, with the same noise.
 
@@ -27,26 +30,70 @@ import threading
 import torch
 
 from . import _build
+from .cuda_generate import _qmm, _quant_cols, _words, _z_head, kernel_words
 
-# launches since the counts were last set to 0: of either kernel, and of the
-# wide kernel alone
+# launches since the counts were last set to 0: of either f32/bf16 kernel,
+# of the wide one alone, and of the int8 kernel
 LAUNCHES = 0
 WIDE_LAUNCHES = 0
+INT8_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
-_SONGS_PER_BLOCK = 2      # kSongs in csrc/generate_cl_vae.cu (both kernels)
+_SONGS_PER_BLOCK = 2      # kSongs in csrc/generate_cl_vae.cu (every kernel)
 _WIDE_THREADS = 512       # kWideThreads
 _SMEM_LIMIT = 232448      # dynamic shared memory one Hopper block can use
-_INT8_TODO = ("int8 weights (pallas_generate_vae.py:192 _make_kernel_int8) are not "
-              "ported yet: ROADMAP Queue 2 item 4")
+_MODES = ("f32", "bf16", "int8")
+
+# The JAX package's precision rule for this sampler (its ``_BUDGET`` and
+# ``pick_mode``, ``pallas_generate_vae.py:44,72-95``): the weight bytes of
+# each mode against 28 MiB less 2.5 MiB. It is a size of the TPU kernel's
+# VMEM, not of this card; the port copies it because it decides which songs
+# a checkpoint gives.
+_JAX_LIMIT = 28 * 1024 * 1024 - int(2.5 * 1024 * 1024)
+
+
+def _pad128(n: int) -> int:
+    return max(128, -(-n // 128) * 128)
+
+
+def _jax_weight_bytes(D: int, H: int, L: int, mode: str) -> int:
+    """The JAX package's ``_weight_bytes`` (``pallas_generate_vae.py:53-69``):
+    each weight at the type its kernel loads it in, H and D lane-padded to
+    multiples of 128 (the int8 mode keeps the z heads bf16 and the decoder z
+    rows f32, with three f32 scale vectors)."""
+    wb = {"f32": 4, "bf16": 2, "int8": 1}[mode]
+    Hp, Dp = _pad128(H), _pad128(D)
+    big = wb * (D * Hp + D * Hp + Hp * Dp)
+    z_head = (2 if mode == "int8" else wb) * Hp * 128
+    scales = 4 * (2 * Hp + Dp) if mode == "int8" else 0
+    return big + z_head + 4 * L * Hp + 4 * (128 + Dp) + scales
+
+
+def _jax_precision(cfg) -> str | None:
+    """What the JAX package's ``pick_mode`` returns for ``cfg``: None without
+    hidden layers; else f32 or bf16 (the checkpoint's numerics) while that
+    mode's weights are under the limit, int8 past it for a bf16 checkpoint,
+    else None (JAX then samples with its XLA scan)."""
+    if not cfg.has_hidden:
+        return None
+    D, H, L = cfg.original_dim, cfg.intermediate_dim, cfg.latent_dim
+    ladder = ("bf16", "int8") if cfg.bf16_compute else ("f32",)
+    return next((m for m in ladder if _jax_weight_bytes(D, H, L, m) < _JAX_LIMIT), None)
 
 
 def pick_mode(cfg) -> str:
-    """Weight precision: the checkpoint's numerics, f32 unless it computes
-    its hidden layers in bf16 (``cfg.bf16_compute``). A config without hidden
-    layers samples in f32, as the JAX package's XLA scan samples it. Never
-    int8."""
-    return "bf16" if cfg.bf16_compute and cfg.has_hidden else "f32"
+    """Weight precision, as the JAX package picks it: the checkpoint's
+    numerics, f32 unless it computes its hidden layers in bf16
+    (``cfg.bf16_compute``); int8 where such a checkpoint selects the kernel
+    path (``cfg.gen_backend == "pallas"``) and the JAX rule says int8 (at
+    D=1,024, L=16: H = 4,160 … 7,808). A config without hidden layers
+    samples in f32, as the JAX package's XLA scan samples it. The JAX
+    package's device check is not copied."""
+    if not (cfg.bf16_compute and cfg.has_hidden):
+        return "f32"
+    if getattr(cfg, "gen_backend", "xla") == "pallas" and _jax_precision(cfg) == "int8":
+        return "int8"
+    return "bf16"
 
 
 def _smem_bytes(D: int, H: int, L: int, use_x_prev: bool, bf16: bool) -> int:
@@ -66,14 +113,19 @@ def smem_bytes(cfg, mode: str | None = None) -> int:
 
 
 def fits(cfg, mode: str | None = None) -> bool:
-    """Does the shared-memory kernel take the config: hidden layers, and the
-    weights and one block's songs within Hopper's shared memory?"""
-    return cfg.has_hidden and smem_bytes(cfg, mode) <= _SMEM_LIMIT
+    """Does the shared-memory kernel take the config: hidden layers, f32 or
+    bf16 weights, and the weights and one block's songs within Hopper's
+    shared memory?"""
+    mode = mode or pick_mode(cfg)
+    return cfg.has_hidden and mode != "int8" and smem_bytes(cfg, mode) <= _SMEM_LIMIT
 
 
 def kernel_for(cfg, mode: str | None = None) -> str:
-    """The kernel a CUDA call launches: ``generate_cl_vae`` (weights in shared
-    memory) where it :func:`fits`, ``generate_cl_vae_wide`` everywhere else."""
+    """The kernel a CUDA call launches: ``generate_cl_vae_int8`` in int8 mode,
+    ``generate_cl_vae`` (weights in shared memory) where it :func:`fits`,
+    ``generate_cl_vae_wide`` everywhere else."""
+    if (mode or pick_mode(cfg)) == "int8":
+        return "generate_cl_vae_int8"
     return "generate_cl_vae" if fits(cfg, mode) else "generate_cl_vae_wide"
 
 
@@ -89,13 +141,45 @@ def _wide_smem_bytes(D: int, H: int, L: int, has_hidden: bool, state_in_smem: bo
     return 4 * (_WIDE_THREADS * _SONGS_PER_BLOCK + state)
 
 
+def _int8_state_floats(D: int, H: int, L: int) -> int:
+    return _SONGS_PER_BLOCK * (2 * _words(D) + D + L + 2 * H + _words(H))
+
+
+def _int8_smem_bytes(D: int, H: int, L: int, state_in_smem: bool) -> int:
+    """Shared memory of one block of the int8 kernel: the K-split int
+    partial sums, the row-max reduction and the row scales, and, where it
+    fits, the tile's per-song state (both frames as int8 codes, the step's
+    probabilities, z, h_e, h_d and h_d's codes)."""
+    state = _int8_state_floats(D, H, L) if state_in_smem else 0
+    return 4 * (_WIDE_THREADS * _SONGS_PER_BLOCK + (_WIDE_THREADS // 32 + 1) * _SONGS_PER_BLOCK
+                + state)
+
+
 def _resolve_mode(cfg, mode):
     mode = mode or pick_mode(cfg)
-    if mode == "int8":
-        raise NotImplementedError(_INT8_TODO)
-    if mode not in ("f32", "bf16"):
-        raise ValueError(f"unknown mode {mode!r} (f32 or bf16)")
+    if mode not in _MODES:
+        raise ValueError(f"unknown mode {mode!r} (f32, bf16 or int8)")
+    if mode == "int8" and not cfg.has_hidden:
+        raise ValueError("int8 weights need hidden layers (the JAX int8 kernel's)")
     return mode
+
+
+def _pack_int8(params, cfg, ws) -> dict:
+    """The int8 kernel's operands, as JAX ``generate_cl_vae_batch_pallas``
+    forms them in int8 mode (with the cl_vrnn sampler's ``_quant_cols``,
+    which JAX's cl_vae int8 kernel imports too): the encoder x rows, the
+    decoder x_prev rows and the frame head as int8 codes with f32 scales
+    (``ske``, ``skd``, ``swx``), the z heads bf16 (transposed), the decoder
+    z rows, the biases and the per-song folds f32. JAX pads H and D to
+    multiples of 128: the padded columns have code 0 and change no value and
+    no row max, so none is padded here."""
+    w = _pack(params, cfg, ws, "f32")
+    w["wke"], w["ske"] = _quant_cols(w["wke"])
+    if cfg.use_x_prev:
+        w["wkd_x"], w["skd"] = _quant_cols(w["wkd_x"])
+    w["wx"], w["swx"] = _quant_cols(w["wx"])
+    w["wz_t"] = w["wz_t"].to(torch.bfloat16)
+    return w
 
 
 def _pack(params, cfg, ws, mode: str) -> dict:
@@ -150,9 +234,12 @@ def generate_cl_vae_batch_plain(params, cfg, x_seeds, nsteps: int, eps, u, ws,
     mode the large weights and their x/h operands are rounded to bf16 and
     multiplied in f32 — ``a.bfloat16().float() @ w.bfloat16().float()`` —
     since a CPU bf16 matmul would round its output to bf16, which the JAX
-    ``preferred_element_type=f32`` product does not.
+    ``preferred_element_type=f32`` product does not. In int8 mode the step
+    is JAX's int8 kernel's (:func:`_plain_int8`).
     """
     mode = _resolve_mode(cfg, mode)
+    if mode == "int8":
+        return _plain_int8(params, cfg, x_seeds, nsteps, eps, u, ws, use_z_prior, return_probs)
     L = cfg.latent_dim
     w = {k: (v.float() if v is not None else None)
          for k, v in _pack(params, cfg, ws, mode).items()}
@@ -187,14 +274,44 @@ def generate_cl_vae_batch_plain(params, cfg, x_seeds, nsteps: int, eps, u, ws,
     return torch.stack(outs, dim=1)
 
 
+def _plain_int8(params, cfg, x_seeds, nsteps, eps, u, ws, use_z_prior, return_probs):
+    """The JAX int8 kernel's step (``pallas_generate_vae.py:205-251``), f32
+    operations in its order: binary frames are exact codes; ``h_e = relu(x
+    @ Wke + encb)``; the z heads in bf16; ``z_d = decb``, then the L f32 z
+    rows, then the x_prev_t product; ``rs = max(max h_d, 1e-12) / 127`` per
+    song and ``hd_q = round(h_d / rs)``; ``p = sigmoid(q * rs + bx)``."""
+    L = cfg.latent_dim
+    w = _pack_int8(params, cfg, ws)
+    q64 = {k: w[k].double() for k in ("wke", "wkd_x", "wx") if w[k] is not None}
+    x_prev = x_prev_t = torch.trunc(x_seeds)  # JAX's astype(int8); binary frames are exact
+    outs = []
+    for s in range(nsteps):
+        h_e = torch.relu(_qmm(x_prev, q64["wke"], w["ske"]) + w["encb"])
+        zmv = _z_head(h_e, w["wz_t"]) + w["bz"]
+        z = eps[:, s] if use_z_prior else zmv[:, :L] + torch.exp(zmv[:, L:] / 2) * eps[:, s]
+        z_d = w["decb"]
+        for l in range(L):
+            z_d = z_d + z[:, l : l + 1] * w["wkd_z"][l]
+        if cfg.use_x_prev:
+            z_d = z_d + _qmm(x_prev_t, q64["wkd_x"], w["skd"])
+        h_d = torch.relu(z_d)
+        m = torch.clamp_min(h_d.amax(dim=-1, keepdim=True), 1e-12)
+        rs = m / torch.full_like(m, 127.0)
+        xm = torch.sigmoid(_qmm(torch.round(h_d / rs), q64["wx"], w["swx"]) * rs + w["bx"])
+        x_t = (u[:, s] < xm).to(xm.dtype)
+        x_prev_t, x_prev = x_prev, x_t
+        outs.append(xm if return_probs else x_t)
+    return torch.stack(outs, dim=1)
+
+
 _lib_lock = threading.Lock()
 _lib = None
 
 
 def _kernels():
     """The built library, its entry points' ctypes signatures set and its
-    shared-memory layouts checked against :func:`_smem_bytes` and
-    :func:`_wide_smem_bytes`."""
+    shared-memory layouts checked against :func:`_smem_bytes`,
+    :func:`_wide_smem_bytes` and :func:`_int8_smem_bytes`."""
     global _lib
     with _lib_lock:
         if _lib is None:
@@ -216,9 +333,21 @@ def _kernels():
                     raise RuntimeError("shared-memory layout of the wide kernel in "
                                        "csrc/generate_cl_vae.cu differs from _wide_smem_bytes "
                                        f"at {shape}")
+            i8 = lib.cvl_generate_cl_vae_int8_smem_bytes
+            i8.argtypes, i8.restype = [I] * 4, LL
+            i8_state = lib.cvl_generate_cl_vae_int8_state_floats
+            i8_state.argtypes, i8_state.restype = [I] * 3, LL
+            for shape in ((1024, 5120, 16, 1), (88, 30, 4, 0), (13, 7, 3, 1)):
+                if (i8(*shape) != _int8_smem_bytes(*shape)
+                        or i8_state(*shape[:3]) != _int8_state_floats(*shape[:3])):
+                    raise RuntimeError("shared-memory layout of the int8 kernel in "
+                                       "csrc/generate_cl_vae.cu differs from _int8_smem_bytes "
+                                       f"at {shape}")
             lib.cvl_generate_cl_vae.argtypes = [I] + [P] * 13 + [I] * 8 + [P]
             lib.cvl_generate_cl_vae_wide.argtypes = [I] + [P] * 16 + [I] * 11 + [P]
+            lib.cvl_generate_cl_vae_int8.argtypes = [P] * 17 + [I] * 8 + [P]
             lib.cvl_generate_cl_vae.restype = lib.cvl_generate_cl_vae_wide.restype = I
+            lib.cvl_generate_cl_vae_int8.restype = I
             _lib = lib
         return _lib
 
@@ -272,13 +401,13 @@ def generate_cl_vae_batch_cuda(params, cfg, x_seeds, nsteps: int, eps, u, ws,
 
     x_seeds [B, D]; eps [B, nsteps, L]; u [B, nsteps, D]; ws [B, K]; returns
     [B, nsteps, D]. CUDA tensors launch a kernel on the current stream (or
-    raise: there is no fallback): the shared-memory kernel where it
-    :func:`fits`, the wide kernel for every other width and for configs
-    without hidden layers. CPU tensors take
-    :func:`generate_cl_vae_batch_plain`. ``mode`` is ``"f32"`` or ``"bf16"``
-    (default :func:`pick_mode`); ``"int8"`` is not ported yet.
+    raise: there is no fallback): in f32 and bf16 mode the shared-memory
+    kernel where it :func:`fits`, the wide kernel for every other width and
+    for configs without hidden layers; in int8 mode the int8 kernel. CPU
+    tensors take :func:`generate_cl_vae_batch_plain`. ``mode`` is ``"f32"``,
+    ``"bf16"`` or ``"int8"`` (default :func:`pick_mode`).
     """
-    global LAUNCHES, WIDE_LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES, INT8_LAUNCHES
     mode = _resolve_mode(cfg, mode)
     if x_seeds.device.type == "cpu":
         return generate_cl_vae_batch_plain(params, cfg, x_seeds, nsteps, eps, u, ws,
@@ -291,8 +420,17 @@ def generate_cl_vae_batch_cuda(params, cfg, x_seeds, nsteps: int, eps, u, ws,
     H, L = cfg.intermediate_dim, cfg.latent_dim
     dev = x_seeds.device
     lib = _kernels()
-    wide = kernel_for(cfg, mode) == "generate_cl_vae_wide"
+    kernel = kernel_for(cfg, mode)
+    wide = kernel == "generate_cl_vae_wide"
     flags = (int(cfg.use_x_prev), int(use_z_prior), int(return_probs))
+    if kernel == "generate_cl_vae_int8":
+        with torch.cuda.device(dev):
+            err, out = _launch_int8(lib, params, cfg, x_seeds, nsteps, eps, u, ws, flags)
+        if err != 0:
+            raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+        with _launch_lock:
+            INT8_LAUNCHES += 1
+        return out
     with torch.cuda.device(dev):
         w = _pack(params, cfg, ws, mode)
         out = torch.empty((B, nsteps, D), dtype=torch.float32, device=dev)
@@ -321,8 +459,34 @@ def generate_cl_vae_batch_cuda(params, cfg, x_seeds, nsteps: int, eps, u, ws,
                 out.data_ptr(), ptr(state), 0 if hh else 2 * L, 0 if hh else D, B, nsteps, D,
                 H, L, int(hh), *flags, stream)
     if err != 0:
-        raise RuntimeError(f"{kernel_for(cfg, mode)} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
     with _launch_lock:
         LAUNCHES += 1
         WIDE_LAUNCHES += int(wide)
     return out
+
+
+def _launch_int8(lib, params, cfg, x_seeds, nsteps, eps, u, ws, flags):
+    """Pack the int8 operands and launch the int8 kernel; returns (CUDA
+    error, output)."""
+    B, D = x_seeds.shape
+    H, L = cfg.intermediate_dim, cfg.latent_dim
+    dev = x_seeds.device
+    w = _pack_int8(params, cfg, ws)
+    q = {k: kernel_words(w[k]) for k in ("wke", "wx")}
+    q["wkd_x"] = kernel_words(w["wkd_x"]) if cfg.use_x_prev else None
+    out = torch.empty((B, nsteps, D), dtype=torch.float32, device=dev)
+    # past one block's shared memory the per-song state goes to a global
+    # scratch, one slice per block
+    state = None
+    if _int8_smem_bytes(D, H, L, True) > _SMEM_LIMIT:
+        state = torch.empty((-(-B // _SONGS_PER_BLOCK), _int8_state_floats(D, H, L)),
+                            dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = lib.cvl_generate_cl_vae_int8(
+        x_seeds.data_ptr(), eps.data_ptr(), u.data_ptr(), ptr(q["wke"]), ptr(w["ske"]),
+        ptr(w["encb"]), ptr(w["wz_t"]), ptr(w["bz"]), ptr(q["wkd_x"]), ptr(w.get("skd")),
+        ptr(w["wkd_z"]), ptr(w["decb"]), ptr(q["wx"]), ptr(w["swx"]), ptr(w["bx"]),
+        out.data_ptr(), ptr(state), B, nsteps, D, H, L, *flags,
+        torch.cuda.current_stream(dev).cuda_stream)
+    return err, out

@@ -18,7 +18,10 @@ whole-sequence LSTM kernels, every fusion rung's, within 1e-3 (forward) and
 two-cell kernels: f32 forward outputs within 1e-2 x max(1, max|plain|) and
 1e-3 relative Frobenius, bf16 streams within one bf16 step at their largest
 entry, backward outputs within 1e-2 of their largest entry (``chip_smoke.py``
-phase 23's bounds).
+phase 23's bounds). The int8 kernels: probabilities with u=1 within 1e-5 of
+their plain versions (exact int32 products, the same f32 epilogue; only the
+bf16 z head's summation order differs) and sampled frames equal in 99.9% of
+entries (a near-tie of h * 127 can flip one code, which then persists).
 """
 
 import math
@@ -121,9 +124,53 @@ def test_wrapper_raises_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="contiguous"):
         cg.generate_cl_vrnn_batch_cuda(params, cfg, seeds, nsteps, eps, u.transpose(0, 1)
                                        .contiguous().transpose(0, 1), ws)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cg.generate_cl_vrnn_batch_cuda(params, cfg, seeds, nsteps, eps, u, ws, mode="int8")
+    with pytest.raises(ValueError, match="unknown mode"):
+        cg.generate_cl_vrnn_batch_cuda(params, cfg, seeds, nsteps, eps, u, ws, mode="int4")
     assert cg.LAUNCHES == before
+    # int8 runs its own kernel on CUDA tensors, and samples other frames than bf16
+    before8 = cg.INT8_LAUNCHES
+    run = lambda mode: cg.generate_cl_vrnn_batch_cuda(params, cfg, seeds, nsteps, eps, u, ws,
+                                                      return_probs=True, mode=mode)
+    p8, p16 = run("int8"), run("bf16")
+    torch.cuda.synchronize()
+    assert (cg.INT8_LAUNCHES, cg.LAUNCHES) == (before8 + 1, before + 1)
+    assert (p8 - p16).abs().max().item() > 1e-6
+    f8 = cg.generate_cl_vrnn_batch_cuda(params, cfg, seeds, nsteps, eps, u, ws, mode="int8")
+    assert set(torch.unique(f8).tolist()) <= {0.0, 1.0}
+
+
+INT8_CASES = {
+    "h64": dict(B=6, Tseed=5, nsteps=16, H=64, seed=3),
+    # D and H not multiples of 4 (zero-padded words), a ragged song tile,
+    # two passes of the gate stages
+    "ragged_no_x_prev": dict(B=5, Tseed=3, nsteps=12, H=262, D=13, use_x_prev=False, seed=4),
+}
+
+
+def frames_mostly_equal(fk, fp):
+    """Frames binary and equal in >= 99.9% of entries: a near-tie of h * 127
+    may flip one code, and the flip persists."""
+    assert set(torch.unique(fk).tolist()) <= {0.0, 1.0}
+    assert (fk == fp).float().mean().item() >= 0.999
+
+
+@pytest.mark.parametrize("case", sorted(INT8_CASES))
+def test_int8_kernel_matches_plain(dev, case):
+    params, cfg, (seeds, nsteps, eps, u, ws) = _problem(dev, bf16=True, **INT8_CASES[case])
+    u1 = torch.ones_like(u)
+    before = (cg.INT8_LAUNCHES, cg.LAUNCHES)
+    run = lambda f, uu, rp: f(params, cfg, seeds, nsteps, eps, uu, ws, return_probs=rp,
+                              mode="int8")
+    pk, fk = run(cg.generate_cl_vrnn_batch_cuda, u1, True), run(cg.generate_cl_vrnn_batch_cuda,
+                                                                u, False)
+    torch.cuda.synchronize()
+    assert (cg.INT8_LAUNCHES, cg.LAUNCHES) == (before[0] + 2, before[1])
+    pp, fp = run(cg.generate_cl_vrnn_batch_plain, u1, True), run(cg.generate_cl_vrnn_batch_plain,
+                                                                 u, False)
+    assert pk.shape == fk.shape == (seeds.shape[0], nsteps, cfg.original_dim)
+    torch.testing.assert_close(pk, pp, rtol=0, atol=1e-5)
+    assert 0 < fk.mean().item() < 1
+    frames_mostly_equal(fk, fp)
 
 
 # ---- the two-cell training kernels (csrc/two_cell.cu)
@@ -809,6 +856,38 @@ def test_vae_kernel_matches_plain_bf16(dev):
     assert (pk - pf).abs().max().item() > 1e-6  # bf16 really ran
 
 
+VAE_INT8_CASES = {
+    "h64": dict(B=7, nsteps=16, H=64, seed=3),
+    # D and H not multiples of 4, a ragged song tile, no x_prev
+    "ragged_no_x_prev": dict(B=5, nsteps=12, H=262, D=13, use_x_prev=False, seed=4),
+    # per-song state past one block's shared memory: the global scratch
+    "state_in_scratch": dict(B=3, nsteps=4, H=13000, D=12, seed=5),
+}
+
+
+@pytest.mark.parametrize("case", sorted(VAE_INT8_CASES))
+@pytest.mark.parametrize("zp", [False, True])
+def test_vae_int8_kernel_matches_plain(dev, case, zp):
+    params, cfg, (seeds, nsteps, eps, u, ws) = _vae_problem(dev, bf16=True,
+                                                            **VAE_INT8_CASES[case])
+    if case == "state_in_scratch":
+        assert cgv._int8_smem_bytes(12, 13000, 3, True) > cgv._SMEM_LIMIT
+    u1 = torch.ones_like(u)
+    before = (cgv.INT8_LAUNCHES, cgv.LAUNCHES)
+    run = lambda f, uu, rp: f(params, cfg, seeds, nsteps, eps, uu, ws, use_z_prior=zp,
+                              return_probs=rp, mode="int8")
+    pk, fk = run(cgv.generate_cl_vae_batch_cuda, u1, True), run(cgv.generate_cl_vae_batch_cuda,
+                                                                 u, False)
+    torch.cuda.synchronize()
+    assert (cgv.INT8_LAUNCHES, cgv.LAUNCHES) == (before[0] + 2, before[1])
+    pp, fp = run(cgv.generate_cl_vae_batch_plain, u1, True), run(cgv.generate_cl_vae_batch_plain,
+                                                                  u, False)
+    assert pk.shape == fk.shape == (seeds.shape[0], nsteps, cfg.original_dim)
+    torch.testing.assert_close(pk, pp, rtol=0, atol=1e-5)
+    assert 0 < fk.mean().item() < 1
+    frames_mostly_equal(fk, fp)
+
+
 def test_vae_wrapper_raises_instead_of_falling_back(dev):
     params, cfg, (seeds, nsteps, eps, u, ws) = _vae_problem(dev, B=4, nsteps=4, H=16)
     before = cgv.LAUNCHES
@@ -817,8 +896,19 @@ def test_vae_wrapper_raises_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="contiguous"):
         cgv.generate_cl_vae_batch_cuda(params, cfg, seeds, nsteps, eps,
                                        u.transpose(0, 1).contiguous().transpose(0, 1), ws)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cgv.generate_cl_vae_batch_cuda(params, cfg, seeds, nsteps, eps, u, ws, mode="int8")
+    with pytest.raises(ValueError, match="unknown mode"):
+        cgv.generate_cl_vae_batch_cuda(params, cfg, seeds, nsteps, eps, u, ws, mode="int4")
+    # int8 runs its own kernel on CUDA tensors, and samples other frames than bf16
+    before8 = cgv.INT8_LAUNCHES
+    run = lambda mode: cgv.generate_cl_vae_batch_cuda(params, cfg, seeds, nsteps, eps, u, ws,
+                                                      return_probs=True, mode=mode)
+    p8, p16 = run("int8"), run("bf16")
+    torch.cuda.synchronize()
+    assert (cgv.INT8_LAUNCHES, cgv.LAUNCHES) == (before8 + 1, before + 1)
+    assert (p8 - p16).abs().max().item() > 1e-6
+    f8 = cgv.generate_cl_vae_batch_cuda(params, cfg, seeds, nsteps, eps, u, ws, mode="int8")
+    assert set(torch.unique(f8).tolist()) <= {0.0, 1.0}
+    before += 1
     # a width the wide kernel takes, with weights of another width
     wide = cl_vae.Config(original_dim=12, intermediate_dim=4096, latent_dim=3, n_classes=3,
                          use_x_prev=True)

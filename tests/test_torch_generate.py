@@ -125,8 +125,18 @@ def test_modes_and_kernel_input_checks():
     assert cuda_generate.pick_mode(tcfg) == "f32"
     assert cuda_generate.pick_mode(dataclasses.replace(tcfg, bf16_compute=True)) == "bf16"
     targs = (_t(a["seeds"]), nsteps, _t(a["eps"]), _t(a["u"]), _t(a["ws"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cuda_generate.generate_cl_vrnn_batch_cuda(tparams, tcfg, *targs, mode="int8")
+    # int8 on CPU tensors: the plain int8 version, 0/1 frames other than bf16's
+    before = cuda_generate.INT8_LAUNCHES
+    f8 = cuda_generate.generate_cl_vrnn_batch_cuda(tparams, tcfg, *targs, mode="int8")
+    f16 = cuda_generate.generate_cl_vrnn_batch_cuda(tparams, tcfg, *targs, mode="bf16")
+    assert cuda_generate.INT8_LAUNCHES == before  # no kernel launch on the CPU
+    torch.testing.assert_close(
+        f8, cuda_generate.generate_cl_vrnn_batch_plain(tparams, tcfg, *targs, mode="int8"),
+        rtol=0, atol=0)
+    assert set(torch.unique(f8).tolist()) <= {0.0, 1.0}
+    assert not torch.equal(f8, f16)
+    with pytest.raises(ValueError, match="unknown mode"):
+        cuda_generate.generate_cl_vrnn_batch_cuda(tparams, tcfg, *targs, mode="int4")
     # what the wrapper checks before a launch (the launch itself needs a card)
     cuda_generate._check(tparams, tcfg, *targs)
     with pytest.raises(ValueError, match="eps"):

@@ -183,8 +183,17 @@ def test_modes_and_kernel_input_checks():
     targs = (_t(a["seeds"]), nsteps, _t(a["eps"]), _t(a["u"]), _t(a["ws"]))
     assert cgv.pick_mode(tcfg) == "f32"
     assert cgv.pick_mode(dataclasses.replace(tcfg, bf16_compute=True)) == "bf16"
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 4"):
-        cgv.generate_cl_vae_batch_cuda(tparams, tcfg, *targs, mode="int8")
+    # int8 on CPU tensors: the plain int8 version, 0/1 frames other than bf16's
+    before = cgv.INT8_LAUNCHES
+    f8 = cgv.generate_cl_vae_batch_cuda(tparams, tcfg, *targs, mode="int8")
+    f16 = cgv.generate_cl_vae_batch_cuda(tparams, tcfg, *targs, mode="bf16")
+    assert cgv.INT8_LAUNCHES == before  # no kernel launch on the CPU
+    torch.testing.assert_close(
+        f8, cgv.generate_cl_vae_batch_plain(tparams, tcfg, *targs, mode="int8"), rtol=0, atol=0)
+    assert set(torch.unique(f8).tolist()) <= {0.0, 1.0}
+    assert not torch.equal(f8, f16)
+    with pytest.raises(ValueError, match="unknown mode"):
+        cgv.generate_cl_vae_batch_cuda(tparams, tcfg, *targs, mode="int4")
     # no hidden layers: the wide kernel, in f32 as the JAX scan samples them
     no_hidden = dataclasses.replace(tcfg, intermediate_dim=0)
     assert not cgv.fits(no_hidden) and cgv.kernel_for(no_hidden) == "generate_cl_vae_wide"
