@@ -10,6 +10,8 @@ failure:
 
 1. the card's name and power limit; build every kernel source (one nvcc per
    source, started together), timed, with the compiler's register report;
+   ``cuobjdump -sass`` of the built ``csrc/lstm_seq_tc.cu``: every
+   instance of its product kernels holds tensor-core (HMMA) instructions;
 2. kernel vs plain version, f32, on the trained ``artifacts/jsball_vrnn4``
    weights at the largest serving bucket (64 songs, 32 seed + 256 steps):
    probabilities with u=1 within 1e-5, and sampled frames equal up to each
@@ -121,13 +123,15 @@ failure:
    through the kernels, sampled by ``cli.cl_vae_sample`` and served by
    ``cli.serve`` through the wide kernel (launches equal to the engine's
    device calls), and a model without hidden layers sampled through it;
-20. the bf16 stream mode of the three whole-sequence LSTM kernels vs their
+20. the bf16 stream mode of the three whole-sequence LSTM kernels (the
+   tensor-core route of ``csrc/lstm_seq_tc.cu``) vs their
    bf16 plain versions at H=1,024 (the seeded Keras init, 13 keys):
    training forward and backward at B=1,024, T=16 for the encoder (IN=101)
    and the decoder (IN=103), the inference forward at the evaluation shape
    (12,800 rows): forward h and c within 1e-2 x max(1, max|plain|) and 1e-3
    relative Frobenius, backward outputs within 1e-2 relative Frobenius, dRk
-   bf16 and dW, db not rounded; times beside bounds at the bf16 rate;
+   bf16 and dW, db not rounded; times beside bounds at the bf16 rate, and
+   the backward's device time split between the walk, dRk and dW / db;
 21. the bf16 cl_vrnn of the JAX package's scale work (D=88, H=1,024, L=2,
    T=16, use_x_prev, B=1,024; 13 keys) trained by ``cli.cl_vrnn_train``
    for 2 epochs with the args.json the JAX package's ``--lstm_backend
@@ -180,7 +184,7 @@ failure:
    same forward bounds; every
    gradient of each rung there with JAX's types (dRk and dx bf16-valued, dW
    f32 at the proj rungs and bf16-valued at the unfused ones, db never
-   rounded); the walk at H=2,560 (B=256, 2-row tiles); f32 at phase 8's
+   rounded); the walk at H=2,560 (B=256); f32 at phase 8's
    shape within phase 8's bounds; times beside bounds at the stream type's
    rate;
 27. the bf16 cl_vrnn the JAX package trains at H=2,048
@@ -221,7 +225,12 @@ failure:
    ``auto`` in bf16, int8 launches 0; ``cli.cl_vae_train`` writes the bf16
    seq-concat cl_vae at H=5,120 (1 epoch), ``cli.cl_vae_sample`` and
    ``cli.serve`` with ``--gen_backend pallas`` sample it in int8 (88-pitch
-   rolls of 16 frames a row), with ``auto`` in bf16 through the wide kernel.
+   rolls of 16 frames a row), with ``auto`` in bf16 through the wide kernel;
+31. the bf16 tensor-core route swept over H = 88, 512, 1,024, 1,536, 2,048,
+   2,560 x B = 200, 1,024, 1,600 (T=16, IN=101): training and inference
+   forwards within phase 20's forward bounds, the walk within 1e-2 relative
+   Frobenius, each timed beside its bound (Rk crosses the 50 MB L2 between
+   H=2,048 and 2,560).
 
 The run fails if a thread it started is still running at the end.
 
@@ -349,7 +358,30 @@ def phase_build():
         print(f"--- nvcc csrc/{name}.cu ---\n{log.strip()}")
     print(f"kernel build: {build_s:.2f} s for {sorted(logs) or 'no sources (already built)'}")
     require(set(_build.sources()) == {"generate_cl_vae", "generate_cl_vrnn", "lstm_seq",
-                                      "two_cell", "vae_dense"}, f"sources {_build.sources()}")
+                                      "lstm_seq_tc", "two_cell", "vae_dense"},
+            f"sources {_build.sources()}")
+
+
+# the product kernels of csrc/lstm_seq_tc.cu (the gate-gradient kernel is
+# elementwise and has no product)
+TC_KERNELS = ("lstm_tc_proj_kernel", "lstm_tc_step_kernel", "lstm_tc_bwd_step_kernel",
+              "lstm_tc_drk_kernel")
+
+
+def phase_tensor_cores():
+    """``cuobjdump -sass`` of the built ``csrc/lstm_seq_tc.cu`` library: every
+    instance of each product kernel holds tensor-core (HMMA or HGMMA)
+    instructions."""
+    from classifying_vae_lstm_tpu_torch.ops import _build
+    from tools.torch_kernel_resources import sass_counts
+
+    counts = {n: c["hmma"] for n, c in sass_counts(str(_build._lib_path("lstm_seq_tc"))).items()}
+    found = {k: [n for n in counts if k in n] for k in TC_KERNELS}
+    print("tensor-core instructions (HMMA/HGMMA) in csrc/lstm_seq_tc.cu: " + "; ".join(
+        f"{k} {[counts[n] for n in names]}" for k, names in found.items()))
+    require(all(names and all(counts[n] > 0 for n in names) for names in found.values()),
+            f"a product kernel of csrc/lstm_seq_tc.cu runs without tensor-core instructions: "
+            f"{counts}")
 
 
 def phase_f32(dev):
@@ -1012,6 +1044,31 @@ def device_ms_per_call(fn, n, key):
     except Exception as e:  # noqa: BLE001 — the CUDA-event times stand without it
         print(f"profiler: not measured ({e!r})")
         return None
+
+
+# the bf16 full backward's parts, by kernel name: the walk (gate gradients
+# and step products), the dRk product, the dW / db pass
+BWD_PARTS = {"walk": ("lstm_tc_bwd_gates", "lstm_tc_bwd_step"), "dRk": ("lstm_tc_drk",),
+             "dW/db": ("wgrad_kernel",)}
+
+
+def device_split(fn, n, parts):
+    """Device ms per call of ``fn`` by part (kernels whose name holds one of
+    the part's keys) from ``torch.profiler`` over n calls after a warm-up,
+    as a printable string; "not measured" where it records none."""
+    import torch
+
+    try:
+        fn()
+        torch.cuda.synchronize()
+        rows, dev_us = _device_rows(fn, n)
+    except Exception as e:  # noqa: BLE001 — the CUDA-event times stand without it
+        return f"not measured ({e!r})"
+    if not rows:
+        return "not measured"
+    per = lambda keys: sum(dev_us(e) for e in rows if any(k in e.key for k in keys)) / (n * 1e3)
+    return ", ".join(f"{p} {per(keys):.3f} ms" for p, keys in parts.items()) + \
+        f" (all kernels {sum(dev_us(e) for e in rows) / (n * 1e3):.3f} ms)"
 
 
 def phase_checkpoint_serves(ckpt):
@@ -2236,13 +2293,14 @@ def phase_lstm_seq_bf16(dev):
         tp = time_ms(lambda: ls.lstm_seq_train_fwd_plain(*ins), reps=3)
         bk = time_ms(lambda: ls.lstm_seq_bwd(*res), reps=10, warm=2)
         bp = time_ms(lambda: ls.lstm_seq_bwd_plain(*res), reps=3)
+        split = device_split(lambda: ls.lstm_seq_bwd(*res), 3, BWD_PARTS)
         tb_ms, tb_by = roofline_ms(fwd_fmas(B, IN), _nbytes(ins) + _nbytes(got), PEAK_BF16_FLOPS)
         bb_ms, bb_by = roofline_ms(T * B * H4 * (2 * (H + IN) + 1),
                                    _nbytes(res) + _nbytes(bgot), PEAK_BF16_FLOPS)
         print(f"lstm_seq bf16 {cell} at the training shape: training forward {tk:.3f} ms "
               f"(plain {tp:.3f}, bound {tb_ms:.4f} {tb_by}, bf16 rate); inference forward "
-              f"{ik:.3f} ms; backward (2 launches) {bk:.3f} ms (plain {bp:.3f}, bound "
-              f"{bb_ms:.4f} {bb_by})")
+              f"{ik:.3f} ms; backward {bk:.3f} ms (plain {bp:.3f}, bound {bb_ms:.4f} {bb_by}); "
+              f"its device time per call: {split}")
         if cell == "encoder_h":
             table["train_fwd"] = {"max_abs_err": max(e for e, _ in errs.values()), "ms": tk,
                                   "plain_ms": tp, "bound_ms": tb_ms, "bound_by": tb_by}
@@ -2900,10 +2958,10 @@ def phase_lstm_rungs(dev):
     k_ms = time_ms(lambda: ls.lstm_seq_walk(*res), reps=3, warm=1)
     b_ms, b_by = roofline_ms(T * WIDE_WALK_B * 4 * Hw * Hw, _nbytes(res) + _nbytes(got),
                              PEAK_BF16_FLOPS)
-    print(f"bf16 walk at H={Hw} (B={WIDE_WALK_B}, {ls.walk_rows(Hw)}-row tiles): relative "
+    print(f"bf16 walk at H={Hw} (B={WIDE_WALK_B}, the tensor-core walk): relative "
           "Frobenius " + ", ".join(f"{n} {v:.2e}" for n, v in rel.items())
           + f" (limit 1e-2); {k_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, bf16 rate)")
-    require(ls.walk_rows(Hw) == 2 and all(v <= 1e-2 and math.isfinite(v) for v in rel.values()),
+    require(all(v <= 1e-2 and math.isfinite(v) for v in rel.values()),
             f"the walk at H={Hw} differs: {rel}")
     del x, w, b, rk, xz, h, c, z, res, got, want
     torch.cuda.empty_cache()
@@ -3129,9 +3187,9 @@ def phase_other_rungs(model_dir, first_loss):
 # TPU writes pallas, bf16_compute, fusion (T, T, T), two_cell off and the JAX
 # sampler picks int8 weights (tests/test_pallas_generate.py:111); and the bf16
 # seq-concat cl_vae (D=1,024) at H=5,120 (tests/test_pallas_generate_vae.py:149
-# pins int8 there at D=976). The port's own two-cell gate takes every width
-# its kernel fits (H=1,536 among them), so --two_cell off writes JAX's
-# two_cell, as phase 21 does at H=1,024.
+# pins int8 there at D=976). --two_cell off writes JAX's two_cell, as phase
+# 21 does at H=1,024 (the port's own gate, measured on the H100, also keeps
+# a bf16 H=1,536 model off the two-cell kernels).
 INT8_H, INT8_VAE_H = 1536, 5120
 INT8_FLAGS = ["--train_file", CORPUS, "--intermediate_dim", str(INT8_H), "--latent_dim",
               str(BF16_L), "--seq_length", str(TRAIN_T), "--batch_size", str(BF16_B),
@@ -3470,6 +3528,71 @@ def phase_int8_paths(model_dir, sample_dir):
     return vrnn_launches, vae_launches
 
 
+SWEEP_H = (88, 512, 1024, 1536, 2048, 2560)
+SWEEP_B = (200, 1024, 1600)
+
+
+def phase_lstm_bf16_sweep(dev):
+    """The bf16 tensor-core route across widths and batches: H in
+    ``SWEEP_H`` x B in ``SWEEP_B`` (T=16, IN=101, seeded Glorot-scale
+    weights drawn on the card): the training forward and the inference
+    forward against the plain training forward within :func:`bf16_outside`,
+    the dz-only walk against its plain version within 1e-2 relative
+    Frobenius; each timed (CUDA events, 2 calls after a warm-up) beside its
+    bound at the bf16 rate. Rk is 33.5 MB at H=2,048 and 52.4 MB at 2,560,
+    past the 50 MB L2: the ms per GFLOP across H shows whether the step
+    products fall off that cliff."""
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    T, IN = TRAIN_T, 101
+    t0 = time.perf_counter()
+    for H in SWEEP_H:
+        r = lambda *shape, scale: scale * torch.randn(*shape, generator=gen, device=dev)
+        w, b = r(IN, 4 * H, scale=(2.0 / (IN + 4 * H)) ** 0.5), r(4 * H, scale=0.1)
+        rk = r(H, 4 * H, scale=H ** -0.5).bfloat16()
+        for B in SWEEP_B:
+            x = (torch.rand(T, B, IN, generator=gen, device=dev) < 0.1).bfloat16()
+            h0 = c0 = torch.zeros((B, H), device=dev)
+            ins = (x, w, b, rk, h0, c0)
+            got, inf = ls.lstm_seq_train_fwd(*ins), ls.lstm_seq_fwd(*ins)
+            ref = ls.lstm_seq_train_fwd_plain(*ins)
+            torch.cuda.synchronize()
+            errs, bad = bf16_outside(got, ref)
+            ierrs, ibad = bf16_outside(inf, ref)
+            h, c, z, hp, cp = ref
+            dh = r(T, B, H, scale=1e-2)
+            res = (z, cp, c, dh, torch.zeros_like(dh), rk.T.contiguous())
+            walk, want = ls.lstm_seq_walk(*res), ls.lstm_seq_walk_plain(*res)
+            torch.cuda.synchronize()
+            rel = max(((g.float() - wv.float()).norm() / wv.float().norm().clamp_min(1e-30)).item()
+                      for g, wv in zip(walk, want))
+            require(not bad and not ibad and rel <= 1e-2 and math.isfinite(rel),
+                    f"bf16 sweep H={H} B={B}: forward {bad} {ibad}, walk {rel}")
+            fmas = T * B * H * 4 * (IN + H)
+            ms = {"training forward": time_ms(lambda: ls.lstm_seq_train_fwd(*ins), reps=2),
+                  "inference forward": time_ms(lambda: ls.lstm_seq_fwd(*ins), reps=2),
+                  "walk": time_ms(lambda: ls.lstm_seq_walk(*res), reps=2)}
+            bounds = {"training forward": roofline_ms(fmas, _nbytes(ins) + _nbytes(got),
+                                                      PEAK_BF16_FLOPS)[0],
+                      "inference forward": roofline_ms(fmas, _nbytes(ins) + _nbytes(inf),
+                                                       PEAK_BF16_FLOPS)[0],
+                      "walk": roofline_ms(T * B * 4 * H * H, _nbytes(res) + _nbytes(walk),
+                                          PEAK_BF16_FLOPS)[0]}
+            print(f"bf16 sweep H={H} B={B}: " + "; ".join(
+                f"{k} {v:.3f} ms ({v / bounds[k]:.1f}x its bound {bounds[k]:.4f}, "
+                f"{v / (2 * (fmas if k != 'walk' else T * B * 4 * H * H) / 1e9):.4f} ms/GFLOP)"
+                for k, v in ms.items())
+                + f"; max |kernel - plain| h {errs['h'][0]:.2e}, z {errs['z'][0]:.2e}, "
+                f"inference h {ierrs['h'][0]:.2e}; walk {rel:.2e} relative")
+            del ins, got, inf, ref, res, walk, want, x, h, c, z, hp, cp, dh
+        del w, b, rk
+        torch.cuda.empty_cache()
+    print(f"phase 31 (bf16 sweep): {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3484,6 +3607,7 @@ def main() -> int:
     print(f"card: {line}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     dev = torch.device("cuda", 0)
     phase_build()
+    phase_tensor_cores()
     f32 = phase_f32(dev)
     phase_bf16(dev)
     launches = phase_serve()
@@ -3536,8 +3660,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as model_dir, tempfile.TemporaryDirectory() as sample_dir:
         int8_vrnn_launches, int8_vae_launches = phase_int8_paths(model_dir, sample_dir)
     print(f"phases 29-30 (int8 kernels and paths): {time.perf_counter() - t29:.1f} s")
+    phase_lstm_bf16_sweep(dev)
     source = "classifying_vae_lstm_tpu_torch/csrc/two_cell.cu"
     lstm_source = "classifying_vae_lstm_tpu_torch/csrc/lstm_seq.cu"
+    tc_source = "classifying_vae_lstm_tpu_torch/csrc/lstm_seq_tc.cu"
     pallas_lstm = "classifying_vae_lstm_tpu/ops/pallas_lstm.py"
     dense_source = "classifying_vae_lstm_tpu_torch/csrc/vae_dense.cu"
     kernels = [{
@@ -3592,15 +3718,15 @@ def main() -> int:
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_vae.py:230", "launches": bf16_bwd,
         **dense16["bwd"], "library_ms": None,
     }, {
-        "name": "lstm_seq_fwd_bf16", "route": "cuda", "source": lstm_source,
+        "name": "lstm_seq_fwd_bf16", "route": "cuda", "source": tc_source,
         "replaces": f"{pallas_lstm}:632", "launches": bf16_eval, **lstm16["fwd"],
         "library_ms": None,
     }, {
-        "name": "lstm_seq_train_fwd_bf16", "route": "cuda", "source": lstm_source,
+        "name": "lstm_seq_train_fwd_bf16", "route": "cuda", "source": tc_source,
         "replaces": f"{pallas_lstm}:730", "launches": bf16_train_fwd, **lstm16["train_fwd"],
         "library_ms": None,
     }, {
-        "name": "lstm_seq_bwd_bf16", "route": "cuda", "source": lstm_source,
+        "name": "lstm_seq_bwd_bf16", "route": "cuda", "source": tc_source,
         "replaces": f"{pallas_lstm}:986", "launches": bf16_bwd_launches, **lstm16["bwd"],
         "library_ms": None,
     }, {
@@ -3624,7 +3750,8 @@ def main() -> int:
                 launches = walk16_launches
             require(launches > 0, f"lstm_seq_{kind}{sfx} was not launched on its path")
             kernels.append({"name": f"lstm_seq_{kind}{sfx}", "route": "cuda",
-                            "source": lstm_source, "replaces": f"{pallas_lstm}:{replaced[kind]}",
+                            "source": tc_source if sfx else lstm_source,
+                            "replaces": f"{pallas_lstm}:{replaced[kind]}",
                             "launches": launches, **rungs[mode][kind], "library_ms": None})
     for name, launches, row, src, replaced in (
             ("generate_cl_vrnn_int8", int8_vrnn_launches, int8_vrnn, "generate_cl_vrnn.cu",
@@ -3643,7 +3770,7 @@ def main() -> int:
     alive = [t.name for t in threading.enumerate()
              if t is not threading.main_thread() and not t.daemon]
     require(not alive, f"threads still running: {alive}")
-    print(f"chip_smoke: all 30 phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: all 31 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

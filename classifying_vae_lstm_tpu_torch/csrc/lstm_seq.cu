@@ -1,5 +1,4 @@
-// Whole-sequence Keras-2.0 LSTM kernels for Hopper (sm_90a), f32 and bf16
-// streams.
+// Whole-sequence Keras-2.0 LSTM kernels for Hopper (sm_90a), f32 streams.
 //
 // Replaces: classifying_vae_lstm_tpu/ops/pallas_lstm.py, the default fusion
 // rung (proj, drk, full) = (T, T, T) of `lstm_sequence_pallas` :1553:
@@ -81,28 +80,11 @@
 //   which reach H = 4,800.
 // Known limits of this simple form: every block streams all weights from L2
 // every step, and the products run on FFMA, not the tensor cores. Plain FFMA
-// keeps f32 exact to the JAX side's precision="highest" (no TF32). Rk in
-// bf16 is 33.5 MB at H=2,048 and 52.4 MB at H=2,560, against the 50 MB L2:
-// past H ~ 2,400 the per-step stream spills to HBM.
+// keeps f32 exact to the JAX side's precision="highest" (no TF32).
 //
-// The bf16 stream mode (`compute_dtype=bf16` of `lstm_sequence_pallas`): each
-// kernel is a template on the stream type S, and S = __nv_bfloat16 holds x,
-// W, Rk, z, h_prev and dx in bf16 in global memory (the wrapper hands W over
-// rounded; the core keeps it f32, so dW is not rounded). Operands widen to
-// f32 on load and the products stay FFMA with f32 sums; h, c, the carries and
-// the partial sums stay f32 in shared memory. Rounding happens where the TPU
-// kernels round: xz = x @ W + b before h @ Rk is added (`xz_scr`), h as the
-// operand of h @ Rk (so the h tile in shared memory holds the rounded value,
-// which is also the h_prev stream), z as it is stored (the gates read the
-// unrounded z; the backward's gates read the stored bf16 z), dz as the
-// operand of dz @ (Rk | W)ᵀ, and dx as it is stored. The weight-gradient
-// pass rounds dz as it stages it for dRk (stored bf16, then cast to bf16 as
-// `_core_fp_bwd` does) and dW (stored f32, unrounded), and sums db from the
-// unrounded dz. The non-full rungs store dz at the stream type, rounded as
-// the TPU kernels store it (`dz.astype(dzseq_ref.dtype)`), and the drk pass
-// reads it so. At H=1024 bf16 halves the L2 stream of the weights (9.2 MB a
-// block-step); the FMAs, 2 x 4H x (IN + H) a row-step, still run at the f32
-// rate, so the bf16 tensor-core bound is ~15x below this form's reach.
+// The bf16 stream mode (`compute_dtype=bf16` of `lstm_sequence_pallas`) is
+// not here: csrc/lstm_seq_tc.cu runs it on the tensor cores. These FFMA
+// kernels serve the f32 mode, exact to the JAX side's precision="highest".
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -118,7 +100,7 @@ constexpr int kBwdThreads = 512;  // backward: threads per block
 constexpr int kSlices = 2;        // backward: a product's K is split between two groups
 constexpr int kUnits = kBwdThreads / kSlices;  // backward: output columns per pass
 
-// S is the stream type: float, or __nv_bfloat16 in the bf16 mode
+// S is the stream type (float)
 template <typename S>
 struct FwdArgs {
   const S* x;             // [T, B, IN]
@@ -167,19 +149,12 @@ __device__ __forceinline__ float hard_sigmoid_grad(float gate) {
 
 // loads widen to f32: `ld` through the read-only cache (weights), `ldv` plain
 __device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ float ldv(const float* p) { return *p; }
-__device__ __forceinline__ float ldv(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 // the value a product's operand takes in the stream type's mode
 template <typename S>
 __device__ __forceinline__ float operand(float x) { return x; }
-template <>
-__device__ __forceinline__ float operand<__nv_bfloat16>(float x) {
-  return cvl::round_bf16(x);
-}
 
 struct Keep {
   __device__ __forceinline__ float operator()(float x) const { return x; }
@@ -473,7 +448,7 @@ int walk(const BwdArgs<S, S>& a, int rows, cudaStream_t st) {
 }  // namespace
 
 // Bytes of dynamic shared memory one block of each serial kernel needs (the
-// wrapper checks them against the card's limit); the same in both modes.
+// wrapper checks them against the card's limit).
 // The xz forwards pass IN = 0; the full rung's walk has 4 rows.
 extern "C" long long cvl_lstm_seq_fwd_smem_bytes(int IN, int H, int rows) {
   return (long long)(fwd_smem_floats(IN, H, rows) * sizeof(float));
@@ -493,18 +468,6 @@ extern "C" int cvl_lstm_seq_fwd(const float* x, const float* w, const float* b, 
   return fwd<float, false>(a, rows, train, static_cast<cudaStream_t>(stream));
 }
 
-// The same in the bf16 stream mode: x, w (rounded by the caller), rk, z and
-// hp are bf16; b, h0, c0, h, c and cp f32.
-extern "C" int cvl_lstm_seq_fwd_bf16(const void* x, const void* w, const float* b,
-                                     const void* rk, const float* h0, const float* c0, float* h,
-                                     float* c, void* z, void* hp, float* cp, int T, int B,
-                                     int IN, int H, int rows, int train, void* stream) {
-  using bf = __nv_bfloat16;
-  const FwdArgs<bf> a{static_cast<const bf*>(x), static_cast<const bf*>(w), b, nullptr,
-                      static_cast<const bf*>(rk), h0, c0, h, c, static_cast<bf*>(z),
-                      static_cast<bf*>(hp), cp, T, B, IN, H};
-  return fwd<bf, false>(a, rows, train, static_cast<cudaStream_t>(stream));
-}
 
 // The unfused rungs' forward on `stream` (`_forward_kernel_call`, and
 // `_forward_train_call` with `train` != 0, which also writes z; null
@@ -518,16 +481,6 @@ extern "C" int cvl_lstm_seq_xz_fwd(const float* xz, const float* rk, const float
   return fwd<float, true>(a, rows, train, static_cast<cudaStream_t>(stream));
 }
 
-// The same in the bf16 stream mode: xz, rk and z are bf16.
-extern "C" int cvl_lstm_seq_xz_fwd_bf16(const void* xz, const void* rk, const float* h0,
-                                        const float* c0, float* h, float* c, void* z, int T,
-                                        int B, int H, int rows, int train, void* stream) {
-  using bf = __nv_bfloat16;
-  const FwdArgs<bf> a{nullptr, nullptr, nullptr, static_cast<const bf*>(xz),
-                      static_cast<const bf*>(rk), h0, c0, h, c, static_cast<bf*>(z), nullptr,
-                      nullptr, T, B, 0, H};
-  return fwd<bf, true>(a, rows, train, static_cast<cudaStream_t>(stream));
-}
 
 // The full rung's serial reverse walk on `stream`; fills dx, dh0, dc0 and the
 // dz scratch that cvl_lstm_seq_wgrad reduces. Returns the cudaError_t of the
@@ -540,17 +493,6 @@ extern "C" int cvl_lstm_seq_bwd(const float* z, const float* cp, const float* c,
   return launch_bwd<float, float, kBwdRows>(a, static_cast<cudaStream_t>(stream));
 }
 
-// The same in the bf16 stream mode: z, wt (rounded by the caller) and dx are
-// bf16; the dz scratch stays f32 and unrounded.
-extern "C" int cvl_lstm_seq_bwd_bf16(const void* z, const float* cp, const float* c,
-                                     const float* dh, const float* dc, const void* wt, void* dx,
-                                     float* dh0, float* dc0, float* dz, int T, int B, int IN,
-                                     int H, void* stream) {
-  using bf = __nv_bfloat16;
-  const BwdArgs<bf, float> a{static_cast<const bf*>(z), cp, c, dh, dc, static_cast<const bf*>(wt),
-                             static_cast<bf*>(dx), dh0, dc0, dz, T, B, IN, H};
-  return launch_bwd<bf, float, kBwdRows>(a, static_cast<cudaStream_t>(stream));
-}
 
 // The other rungs' dz-only walk on `stream` (`_backward_call`), with a tile of
 // `rows` (4 or 2) batch rows per block: rkt = Rkᵀ [4H, H]; fills dz [T, B,
@@ -563,17 +505,6 @@ extern "C" int cvl_lstm_seq_walk(const float* z, const float* cp, const float* c
   return walk(a, rows, static_cast<cudaStream_t>(stream));
 }
 
-// The same in the bf16 stream mode: z, rkt and dz are bf16 (dz rounded as it
-// is stored, the TPU kernel's `dz.astype(dzseq_ref.dtype)`).
-extern "C" int cvl_lstm_seq_walk_bf16(const void* z, const float* cp, const float* c,
-                                      const float* dh, const float* dc, const void* rkt,
-                                      float* dh0, float* dc0, void* dz, int T, int B, int H,
-                                      int rows, void* stream) {
-  using bf = __nv_bfloat16;
-  const BwdArgs<bf, bf> a{static_cast<const bf*>(z), cp, c, dh, dc, static_cast<const bf*>(rkt),
-                          nullptr, dh0, dc0, static_cast<bf*>(dz), T, B, 0, H};
-  return walk(a, rows, static_cast<cudaStream_t>(stream));
-}
 
 // The full rung's weight gradients over the R = T*B rows: dRk = hpᵀdz,
 // dW = xᵀdz, db = column sums of dz, one launch. Returns the cudaError_t of
@@ -585,17 +516,6 @@ extern "C" int cvl_lstm_seq_wgrad(const float* hp, const float* x, const float* 
   return cvl::launch_wgrad<lstm_seq_wgrad>(jobs, 3, R, static_cast<cudaStream_t>(stream));
 }
 
-// The same in the bf16 stream mode: hp and x are bf16 and dz is rounded as it
-// is staged; dRk is stored rounded, as bf16, dW in f32 unrounded, and db sums
-// the unrounded dz.
-extern "C" int cvl_lstm_seq_wgrad_bf16(const void* hp, const void* x, const float* dz,
-                                       void* drk, float* dw, float* db, int R, int IN, int H,
-                                       void* stream) {
-  const cvl::WgradJob jobs[] = {{hp, dz, drk, H, 4 * H, 1, 1},
-                                {x, dz, dw, IN, 4 * H, 1, 1, 1},
-                                {nullptr, dz, db, 1, 4 * H}};
-  return cvl::launch_wgrad<lstm_seq_wgrad>(jobs, 3, R, static_cast<cudaStream_t>(stream));
-}
 
 // The drk rung's second launch (`_lstm_bwd_kernel_drk`'s dRk += h_prevᵀdz):
 // dRk = hpᵀdz over the R = T*B rows of the walk's dz, in f32 (the core
@@ -607,10 +527,3 @@ extern "C" int cvl_lstm_seq_drk(const float* hp, const float* dz, float* drk, in
   return cvl::launch_wgrad<lstm_seq_wgrad>(jobs, 1, R, static_cast<cudaStream_t>(stream));
 }
 
-// The same in the bf16 stream mode: hp and dz are bf16 (read as stored), dRk
-// f32.
-extern "C" int cvl_lstm_seq_drk_bf16(const void* hp, const void* dz, float* drk, int R, int H,
-                                     void* stream) {
-  const cvl::WgradJob jobs[] = {{hp, dz, drk, H, 4 * H, 0, 1, 0, 1}};
-  return cvl::launch_wgrad<lstm_seq_wgrad>(jobs, 1, R, static_cast<cudaStream_t>(stream));
-}

@@ -43,6 +43,19 @@ autograd of the plain forward), :func:`lstm_seq_xz_fwd_plain`,
 ``_plain`` launch the kernels for CUDA tensors (or raise: there is no
 fallback) and take the plain versions only for CPU tensors.
 
+The bf16 stream mode runs on the tensor cores, through
+``csrc/lstm_seq_tc.cu``: a forward is one projection launch (proj rungs)
+and one launch per time step (a tiled ``[B, H] x [H, 4H]`` product with the
+gates in its epilogue), a walk two launches per step (the gate gradients,
+then ``dz @ [Rkᵀ | Wᵀ]``), dRk one more product; the f32 mode stays on the
+FFMA kernels of ``csrc/lstm_seq.cu``, exact to JAX's precision="highest".
+The wrappers build the tensor-core operands in plain PyTorch (Rk and W with
+each unit's four gates side by side, K padded to a multiple of 8; see
+:func:`interleave_gates`, :func:`tc_fwd_operands`, :func:`tc_h_operand`,
+:func:`tc_walk_weights`), and a launch count still counts one per wrapper
+call (two for the full backward and the drk walk), whatever the device
+launches inside.
+
 All three have a bf16 stream mode, the Pallas kernels' ``compute_dtype=bf16``,
 chosen by the type of x (of z in the backward): x, Rk, z, h_prev and dx are
 bf16; W stays f32 at the boundary and is rounded inside (the wrapper hands
@@ -62,8 +75,9 @@ autograd of that product rounds dW and dx to bf16, as JAX's does.
 :func:`lstm_sequence_kernel` is the entry, with ``lstm_sequence_pallas``'s
 signature and results. Layouts are time-major inside, kernels ``[in, out]``,
 and no lane or batch padding (so no padded rows for the drk sum to mask):
-the TPU's VMEM gates and block picks are not read here; the card's shared
-memory is the only limit, checked per call.
+the TPU's VMEM gates and block picks are not read here; in f32 the card's
+shared memory is the only limit, checked per call, and the bf16 route has
+none.
 """
 
 from __future__ import annotations
@@ -82,7 +96,8 @@ from .two_cell import _check, _mode
 # call of the full rung (BWD: the reverse walk, then the weight-gradient
 # pass), one per dz-only walk (WALK), two per drk walk (DRK: the walk, then
 # the dRk pass); the plain names count the f32 mode, the BF16_ names the bf16
-# stream mode
+# stream mode (whose calls make more device launches each: T+1 for a
+# forward, 2T for a walk, 2T+2 for the full backward, counted as above)
 FWD_LAUNCHES = 0
 TRAIN_FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
@@ -117,13 +132,13 @@ def bwd_smem_bytes(H: int, rows: int = _BWD_ROWS) -> int:
 
 
 def walk_rows(H: int) -> int:
-    """The dz-only walk's row tile: the full rung's 4 rows where they fit
-    shared memory, else 2 (H above ~2,300)."""
+    """The f32 dz-only walk's row tile: the full rung's 4 rows where they
+    fit shared memory, else 2 (H above ~2,300)."""
     return _BWD_ROWS if bwd_smem_bytes(H) <= _SMEM_LIMIT else 2
 
 
 def fwd_rows(B: int, IN: int, H: int, n_sm: int) -> int:
-    """The forward's row tile: 16 rows when the batch gives every SM a
+    """The f32 forward's row tile: 16 rows when the batch gives every SM a
     16-row block and the tile fits shared memory (each weight load then
     serves 16 rows), else 4."""
     return 16 if B >= 16 * n_sm and fwd_smem_bytes(IN, H, 16) <= _SMEM_LIMIT else 4
@@ -267,14 +282,71 @@ def lstm_seq_walk_drk_plain(z, c_prev, c, h_prev, dh_seq, dc_seq, rk_t):
     return _walk_steps(z, c_prev, c, dh_seq, dc_seq, rk_t, h_prev)
 
 
+# ------------------------------------------------------------ the bf16 route's layouts
+
+
+def round8(n: int) -> int:
+    """n rounded up to a multiple of 8: a 16-byte row of bf16."""
+    return -(-n // 8) * 8
+
+
+def interleave_gates(w):
+    """The columns of a gate-ordered ``[K, 4H]`` weight ([i | f | c | o],
+    unit u of gate g at ``g*H + u``) permuted so that the four gates of unit
+    u are columns ``4u .. 4u+3``, the layout ``csrc/lstm_seq_tc.cu``'s step
+    epilogue reads (a 1-D bias likewise); the kernels write z and xz back at
+    the gate-ordered layout."""
+    H = w.shape[-1] // 4
+    return w.reshape(*w.shape[:-1], 4, H).transpose(-1, -2).reshape(w.shape)
+
+
+def tc_fwd_operands(x, w):
+    """The bf16 projection's operands as ``csrc/lstm_seq_tc.cu`` takes them:
+    x ``[T*B, INp]`` and W ``[INp, 4H]`` bf16, K padded by zeros to a
+    multiple of 8 (INp), W's columns gate-interleaved (W is rounded here,
+    for the kernel only)."""
+    T, B, IN = x.shape
+    pad = round8(IN) - IN
+    xp = torch.nn.functional.pad(x.reshape(T * B, IN), (0, pad)).contiguous()
+    wp = torch.nn.functional.pad(interleave_gates(w.to(torch.bfloat16)), (0, 0, 0, pad))
+    return xp, wp.contiguous()
+
+
+def tc_h_operand(h0, Hp: int):
+    """The double-buffered h operand ``[2, B, Hp]`` bf16 of the steps:
+    buffer 0 holds h0 rounded, the pad columns and buffer 1 zeros."""
+    hb = torch.zeros((2, h0.shape[0], Hp), dtype=torch.bfloat16, device=h0.device)
+    hb[0, :, :h0.shape[1]] = h0
+    return hb
+
+
+def tc_walk_weights(rk_t, w_t=None):
+    """The right operand of the bf16 walk's step product, ``[4H, Hp + INp]``
+    bf16: Rkᵀ in columns < H and (the full rung) Wᵀ, rounded, from column Hp
+    = round8(H), zeros elsewhere, so each row is a whole number of 16-byte
+    chunks. Returns it and the first dx column (Hp). The walk's Rkᵀ alone is
+    returned as it is when H is a multiple of 8."""
+    H4, H = rk_t.shape
+    Hp = round8(H)
+    if w_t is None:
+        return (rk_t if Hp == H else torch.nn.functional.pad(rk_t, (0, Hp - H))), Hp
+    IN = w_t.shape[1]
+    wt = torch.zeros((H4, Hp + round8(IN)), dtype=torch.bfloat16, device=rk_t.device)
+    wt[:, :H] = rk_t
+    wt[:, Hp:Hp + IN] = w_t
+    return wt, Hp
+
+
 # ------------------------------------------------------------ CUDA wrappers
 
 _lib_lock = threading.Lock()
 _lib = None
+_tc_lib = None
 
 
 def _kernels():
-    """The built library with its ctypes signatures."""
+    """The built f32 library (``csrc/lstm_seq.cu``) with its ctypes
+    signatures."""
     global _lib
     with _lib_lock:
         if _lib is None:
@@ -294,12 +366,30 @@ def _kernels():
                         "wgrad": [P] * 6 + [I] * 3, "xz_fwd": [P] * 7 + [I] * 5,
                         "walk": [P] * 9 + [I] * 4, "drk": [P] * 3 + [I] * 2}
             for name, types in argtypes.items():
-                for sfx in ("", "_bf16"):
-                    fn = getattr(lib, f"cvl_lstm_seq_{name}{sfx}")
-                    fn.argtypes = types + [P]  # the stream last
-                    fn.restype = I
+                fn = getattr(lib, f"cvl_lstm_seq_{name}")
+                fn.argtypes = types + [P]  # the stream last
+                fn.restype = I
             _lib = lib
         return _lib
+
+
+def _tc_kernels():
+    """The built bf16 tensor-core library (``csrc/lstm_seq_tc.cu``) with its
+    ctypes signatures."""
+    global _tc_lib
+    with _lib_lock:
+        if _tc_lib is None:
+            lib = _build.load("lstm_seq_tc")
+            P, I = ctypes.c_void_p, ctypes.c_int
+            argtypes = {"proj": [P] * 4 + [I] * 3, "steps": [P] * 9 + [I] * 4,
+                        "walk": [P] * 6 + [I] * 2 + [P] * 5 + [I] * 4,
+                        "drk": [P] * 3 + [I] * 3, "dw_db": [P] * 4 + [I] * 3}
+            for name, types in argtypes.items():
+                fn = getattr(lib, f"cvl_lstm_tc_{name}")
+                fn.argtypes = types + [P]  # the stream last
+                fn.restype = I
+            _tc_lib = lib
+        return _tc_lib
 
 
 def _count(which: str, n: int, bf16: bool):
@@ -315,6 +405,38 @@ def _device_of(t):
     return t.device
 
 
+def _raise_if(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"lstm_seq {what} kernel launch failed: CUDA error {err}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _tc_steps(lib, xz, rk, h0, c0, train: bool, proj: bool):
+    """The bf16 forward's T step launches on xz ``[T, B, 4H]`` bf16: (h, c)
+    and, training, z (and at the proj rungs h_prev and c_prev)."""
+    T, B, H4 = xz.shape
+    H, dev = H4 // 4, xz.device
+    new = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype, device=dev)
+    outs = (new(T, B, H), new(T, B, H))
+    if train:
+        outs += (new(T, B, H4, dtype=torch.bfloat16),)
+        if proj:
+            outs += (new(T, B, H, dtype=torch.bfloat16), new(T, B, H))
+    z, hp, cp = (list(outs[2:]) + [None] * 3)[:3]
+    Hp = round8(H)
+    # held by names until the launches are queued: a temporary would go back
+    # to the allocator before the call, and its memory to the next tensor
+    rk_il, hb = interleave_gates(rk).contiguous(), tc_h_operand(h0, Hp)
+    err = lib.cvl_lstm_tc_steps(xz.data_ptr(), rk_il.data_ptr(), hb.data_ptr(), c0.data_ptr(),
+                                outs[0].data_ptr(), outs[1].data_ptr(), _ptr(z), _ptr(hp),
+                                _ptr(cp), T, B, H, Hp, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_if(err, "bf16 forward step")
+    return outs
+
+
 def _launch_fwd(x, w, b, rk, h0, c0, train: bool):
     dev = x.device
     if x.dim() != 3 or rk.dim() != 2:
@@ -328,37 +450,45 @@ def _launch_fwd(x, w, b, rk, h0, c0, train: bool):
     _check(dev, {"x": (x, (T, B, IN)), "w": (w, (IN, H4)), "b": (b, (H4,)), "rk": (rk, (H, H4)),
                  "h0": (h0, (B, H)), "c0": (c0, (B, H))},
            bf16=frozenset({"x", "rk"}) if bf16 else frozenset())
+    if bf16:
+        lib = _tc_kernels()
+        with torch.cuda.device(dev):
+            xp, wp = tc_fwd_operands(x, w)
+            xz = torch.empty((T, B, H4), dtype=torch.bfloat16, device=dev)
+            _raise_if(lib.cvl_lstm_tc_proj(xp.data_ptr(), wp.data_ptr(), b.data_ptr(),
+                                           xz.data_ptr(), T * B, xp.shape[1], H,
+                                           torch.cuda.current_stream(dev).cuda_stream),
+                      "bf16 projection")
+            outs = _tc_steps(lib, xz, rk, h0, c0, train, proj=True)
+        _count("train_fwd" if train else "fwd", 1, bf16)
+        return outs
     rows = fwd_rows(B, IN, H, torch.cuda.get_device_properties(dev).multi_processor_count)
     if fwd_smem_bytes(IN, H, rows) > _SMEM_LIMIT:
         raise ValueError(f"input width {IN} + hidden {H} is too wide for the LSTM forward "
                          f"kernel's shared memory ({fwd_smem_bytes(IN, H, rows)} > "
                          f"{_SMEM_LIMIT} bytes)")
     lib = _kernels()
-    sd = torch.bfloat16 if bf16 else torch.float32
     with torch.cuda.device(dev):
-        new = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype, device=dev)
+        new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
         outs = (new(T, B, H), new(T, B, H))
         if train:
-            outs += (new(T, B, H4, dtype=sd), new(T, B, H, dtype=sd), new(T, B, H))
-        if bf16:
-            w = w.to(torch.bfloat16)  # rounded for the kernel only: the core keeps W f32
+            outs += (new(T, B, H4), new(T, B, H), new(T, B, H))
         # the inference forward passes null for z, h_prev and c_prev
         ptrs = [t.data_ptr() for t in (x, w, b, rk, h0, c0, *outs)] + [None] * (5 - len(outs))
-        launch = lib.cvl_lstm_seq_fwd_bf16 if bf16 else lib.cvl_lstm_seq_fwd
-        err = launch(*ptrs, T, B, IN, H, rows, int(train),
-                     torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        kind = "training forward" if train else "forward"
-        raise RuntimeError(f"lstm_seq {kind} kernel launch failed: CUDA error {err}")
+        err = lib.cvl_lstm_seq_fwd(*ptrs, T, B, IN, H, rows, int(train),
+                                   torch.cuda.current_stream(dev).cuda_stream)
+    _raise_if(err, "training forward" if train else "forward")
     _count("train_fwd" if train else "fwd", 1, bf16)
     return outs
 
 
 def lstm_seq_fwd(x, w, b, rk, h0, c0):
     """The inference forward (signature and results of
-    :func:`lstm_seq_fwd_plain`). CUDA tensors launch ``lstm_seq_fwd_kernel``
-    on the current stream (or raise), in the bf16 stream mode where x is
-    bf16; CPU tensors take the plain version."""
+    :func:`lstm_seq_fwd_plain`). CUDA tensors launch, in f32,
+    ``lstm_seq_fwd_kernel`` on the current stream, and where x is bf16 the
+    tensor-core route of ``csrc/lstm_seq_tc.cu`` (one projection launch,
+    then one launch per time step: T+1 device launches, counted as one
+    call), or raise; CPU tensors take the plain version."""
     if _device_of(x).type == "cpu":
         return lstm_seq_fwd_plain(x, w, b, rk, h0, c0)
     return _launch_fwd(x, w, b, rk, h0, c0, train=False)
@@ -367,8 +497,9 @@ def lstm_seq_fwd(x, w, b, rk, h0, c0):
 def lstm_seq_train_fwd(x, w, b, rk, h0, c0):
     """The training forward (signature and results of
     :func:`lstm_seq_train_fwd_plain`). CUDA tensors launch
-    ``lstm_seq_fwd_kernel`` with its training outputs (or raise); CPU
-    tensors take the plain version."""
+    ``lstm_seq_fwd_kernel`` with its training outputs, or in bf16 the
+    tensor-core route (T+1 device launches), or raise; CPU tensors take the
+    plain version."""
     if _device_of(x).type == "cpu":
         return lstm_seq_train_fwd_plain(x, w, b, rk, h0, c0)
     return _launch_fwd(x, w, b, rk, h0, c0, train=True)
@@ -377,10 +508,12 @@ def lstm_seq_train_fwd(x, w, b, rk, h0, c0):
 def lstm_seq_bwd(z, c_prev, c, h_prev, x, dh_seq, dc_seq, rk_t, w_t):
     """The backward (signature and results of :func:`lstm_seq_bwd_plain`).
 
-    CUDA tensors launch ``lstm_seq_bwd_kernel`` (the serial reverse walk,
-    which writes dz per step to scratch) and then
+    CUDA tensors launch, in f32, ``lstm_seq_bwd_kernel`` (the serial reverse
+    walk, which writes dz per step to scratch) and then
     ``wgrad_kernel<lstm_seq_wgrad>`` (dRk, dW and db over all T*B rows, in a
-    fixed order), or raise, in the bf16 stream mode where z is bf16; CPU
+    fixed order); where z is bf16, the tensor-core walk of
+    ``csrc/lstm_seq_tc.cu`` (two launches a step), its dRk product and the
+    dW / db pass (2T+2 device launches, counted as two); or raise. CPU
     tensors take the plain version."""
     args = (z, c_prev, c, h_prev, x, dh_seq, dc_seq, rk_t, w_t)
     dev = _device_of(z)
@@ -390,36 +523,47 @@ def lstm_seq_bwd(z, c_prev, c, h_prev, x, dh_seq, dc_seq, rk_t, w_t):
         raise ValueError("z must be [T, B, 4H] and x [T, B, IN]")
     T, B, H4 = z.shape
     H, IN = H4 // 4, x.shape[-1]
-    if bwd_smem_bytes(H) > _SMEM_LIMIT:
+    bf16 = z.dtype == torch.bfloat16
+    if not bf16 and bwd_smem_bytes(H) > _SMEM_LIMIT:
         raise ValueError(f"hidden {H} is too wide for the LSTM backward kernel's shared memory "
                          f"({bwd_smem_bytes(H)} > {_SMEM_LIMIT} bytes)")
     s3 = lambda width: (T, B, width)
-    bf16 = z.dtype == torch.bfloat16
     _check(dev, {"z": (z, s3(H4)), "c_prev": (c_prev, s3(H)), "c": (c, s3(H)),
                  "h_prev": (h_prev, s3(H)), "x": (x, s3(IN)), "dh_seq": (dh_seq, s3(H)),
                  "dc_seq": (dc_seq, s3(H)), "rk_t": (rk_t, (H4, H)), "w_t": (w_t, (H4, IN))},
            bf16=frozenset({"z", "h_prev", "x", "rk_t"}) if bf16 else frozenset())
-    lib = _kernels()
-    sfx = "_bf16" if bf16 else ""
-    sd = torch.bfloat16 if bf16 else torch.float32
     stream = torch.cuda.current_stream(dev).cuda_stream
+    sd = torch.bfloat16 if bf16 else torch.float32
     with torch.cuda.device(dev):
-        # the reverse walk reads (Rk | W)ᵀ row-wise: dz @ [Rkᵀ | Wᵀ] (W rounded
-        # for the kernel only in the bf16 mode)
-        wt = torch.cat([rk_t, w_t.to(sd)], 1).contiguous()
         new = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype, device=dev)
-        dx, dh0, dc0, dz = new(T, B, IN, dtype=sd), new(B, H), new(B, H), new(T, B, H4)
-        err = getattr(lib, f"cvl_lstm_seq_bwd{sfx}")(
-            *(t.data_ptr() for t in (z, c_prev, c, dh_seq, dc_seq, wt, dx, dh0, dc0, dz)),
-            T, B, IN, H, stream)
-        if err != 0:
-            raise RuntimeError(f"lstm_seq backward kernel launch failed: CUDA error {err}")
-        _count("bwd", 1, bf16)
-        drk, dw, db = new(H, H4, dtype=sd), new(IN, H4), new(H4)
-        err = getattr(lib, f"cvl_lstm_seq_wgrad{sfx}")(
-            *(t.data_ptr() for t in (h_prev, x, dz, drk, dw, db)), T * B, IN, H, stream)
-    if err != 0:
-        raise RuntimeError(f"lstm_seq weight-gradient kernel launch failed: CUDA error {err}")
+        dx, drk, dw, db = new(T, B, IN, dtype=sd), new(H, H4, dtype=sd), new(IN, H4), new(H4)
+        if bf16:
+            lib = _tc_kernels()
+            wt, xs = tc_walk_weights(rk_t, w_t.to(torch.bfloat16))
+            dh0, dc0 = torch.zeros((B, H), device=dev), torch.zeros((B, H), device=dev)
+            dz, dzb = new(T, B, H4), new(T, B, H4, dtype=torch.bfloat16)
+            _raise_if(lib.cvl_lstm_tc_walk(
+                *(t.data_ptr() for t in (z, c_prev, c, dh_seq, dc_seq, wt)), wt.shape[1], xs,
+                *(t.data_ptr() for t in (dx, dh0, dc0, dz, dzb)), T, B, IN, H, stream),
+                "bf16 backward walk")
+            _count("bwd", 1, bf16)
+            _raise_if(lib.cvl_lstm_tc_drk(h_prev.data_ptr(), dzb.data_ptr(), drk.data_ptr(),
+                                          T * B, H, 1, stream), "bf16 dRk")
+            _raise_if(lib.cvl_lstm_tc_dw_db(x.data_ptr(), dz.data_ptr(), dw.data_ptr(),
+                                            db.data_ptr(), T * B, IN, H, stream),
+                      "bf16 weight-gradient")
+        else:
+            lib = _kernels()
+            # the reverse walk reads (Rk | W)ᵀ row-wise: dz @ [Rkᵀ | Wᵀ]
+            wt = torch.cat([rk_t, w_t], 1).contiguous()
+            dh0, dc0, dz = new(B, H), new(B, H), new(T, B, H4)
+            _raise_if(lib.cvl_lstm_seq_bwd(
+                *(t.data_ptr() for t in (z, c_prev, c, dh_seq, dc_seq, wt, dx, dh0, dc0, dz)),
+                T, B, IN, H, stream), "backward")
+            _count("bwd", 1, bf16)
+            _raise_if(lib.cvl_lstm_seq_wgrad(
+                *(t.data_ptr() for t in (h_prev, x, dz, drk, dw, db)), T * B, IN, H, stream),
+                "weight-gradient")
     _count("bwd", 1, bf16)
     return dx, dh0, dc0, drk, dw, db
 
@@ -436,23 +580,26 @@ def _launch_xz_fwd(xz, rk, h0, c0, train: bool):
     _check(dev, {"xz": (xz, (T, B, 4 * H)), "rk": (rk, (H, 4 * H)), "h0": (h0, (B, H)),
                  "c0": (c0, (B, H))},
            bf16=frozenset({"xz", "rk"}) if bf16 else frozenset())
+    if bf16:
+        with torch.cuda.device(dev):
+            outs = _tc_steps(_tc_kernels(), xz, rk, h0, c0, train, proj=False)
+        _count("xz_train_fwd" if train else "xz_fwd", 1, bf16)
+        return outs
     rows = fwd_rows(B, 0, H, torch.cuda.get_device_properties(dev).multi_processor_count)
     if fwd_smem_bytes(0, H, rows) > _SMEM_LIMIT:
         raise ValueError(f"hidden {H} is too wide for the LSTM forward kernel's shared memory "
                          f"({fwd_smem_bytes(0, H, rows)} > {_SMEM_LIMIT} bytes)")
     lib = _kernels()
     with torch.cuda.device(dev):
-        new = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype, device=dev)
+        new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
         outs = (new(T, B, H), new(T, B, H))
         if train:
-            outs += (new(T, B, 4 * H, dtype=xz.dtype),)
+            outs += (new(T, B, 4 * H),)
         # the inference forward passes null for z
         ptrs = [t.data_ptr() for t in (xz, rk, h0, c0, *outs)] + [None] * (3 - len(outs))
-        launch = lib.cvl_lstm_seq_xz_fwd_bf16 if bf16 else lib.cvl_lstm_seq_xz_fwd
-        err = launch(*ptrs, T, B, H, rows, int(train), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        kind = "training forward" if train else "forward"
-        raise RuntimeError(f"lstm_seq unfused {kind} kernel launch failed: CUDA error {err}")
+        err = lib.cvl_lstm_seq_xz_fwd(*ptrs, T, B, H, rows, int(train),
+                                      torch.cuda.current_stream(dev).cuda_stream)
+    _raise_if(err, f"unfused {'training forward' if train else 'forward'}")
     _count("xz_train_fwd" if train else "xz_fwd", 1, bf16)
     return outs
 
@@ -460,8 +607,9 @@ def _launch_xz_fwd(xz, rk, h0, c0, train: bool):
 def lstm_seq_xz_fwd(xz, rk, h0, c0):
     """The unfused inference forward (signature and results of
     :func:`lstm_seq_xz_fwd_plain`). CUDA tensors launch
-    ``lstm_seq_fwd_kernel`` in its xz mode (or raise), in the bf16 stream
-    mode where xz is bf16; CPU tensors take the plain version."""
+    ``lstm_seq_fwd_kernel`` in its xz mode, or where xz is bf16 the
+    tensor-core steps of ``csrc/lstm_seq_tc.cu`` (T device launches, counted
+    as one call), or raise; CPU tensors take the plain version."""
     if _device_of(xz).type == "cpu":
         return lstm_seq_xz_fwd_plain(xz, rk, h0, c0)
     return _launch_xz_fwd(xz, rk, h0, c0, train=False)
@@ -470,8 +618,9 @@ def lstm_seq_xz_fwd(xz, rk, h0, c0):
 def lstm_seq_xz_train_fwd(xz, rk, h0, c0):
     """The unfused training forward (signature and results of
     :func:`lstm_seq_xz_train_fwd_plain`). CUDA tensors launch
-    ``lstm_seq_fwd_kernel`` in its xz mode with z as output (or raise); CPU
-    tensors take the plain version."""
+    ``lstm_seq_fwd_kernel`` in its xz mode with z as output, or in bf16 the
+    tensor-core steps (T device launches), or raise; CPU tensors take the
+    plain version."""
     if _device_of(xz).type == "cpu":
         return lstm_seq_xz_train_fwd_plain(xz, rk, h0, c0)
     return _launch_xz_fwd(xz, rk, h0, c0, train=True)
@@ -485,33 +634,40 @@ def _launch_walk(z, c_prev, c, h_prev, dh_seq, dc_seq, rk_t):
         raise ValueError("z must be [T, B, 4H]")
     T, B, H4 = z.shape
     H = H4 // 4
+    bf16 = z.dtype == torch.bfloat16
     rows = walk_rows(H)
-    if bwd_smem_bytes(H, rows) > _SMEM_LIMIT:
+    if not bf16 and bwd_smem_bytes(H, rows) > _SMEM_LIMIT:
         raise ValueError(f"hidden {H} is too wide for the LSTM walk kernel's shared memory "
                          f"({bwd_smem_bytes(H, rows)} > {_SMEM_LIMIT} bytes)")
     s3 = lambda width: (T, B, width)
-    bf16 = z.dtype == torch.bfloat16
     _check(dev, {"z": (z, s3(H4)), "c_prev": (c_prev, s3(H)), "c": (c, s3(H)),
                  "h_prev": (h_prev, s3(H)), "dh_seq": (dh_seq, s3(H)), "dc_seq": (dc_seq, s3(H)),
                  "rk_t": (rk_t, (H4, H))},
            bf16=frozenset({"z", "h_prev", "rk_t"}) if bf16 else frozenset())
-    lib = _kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        new = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype, device=dev)
-        dz, dh0, dc0 = new(T, B, H4, dtype=z.dtype), new(B, H), new(B, H)
-        launch = lib.cvl_lstm_seq_walk_bf16 if bf16 else lib.cvl_lstm_seq_walk
-        err = launch(*(t.data_ptr() for t in (z, c_prev, c, dh_seq, dc_seq, rk_t, dh0, dc0, dz)),
-                     T, B, H, rows, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"lstm_seq walk kernel launch failed: CUDA error {err}")
+        dz = torch.empty((T, B, H4), dtype=z.dtype, device=dev)
+        if bf16:
+            dh0, dc0 = torch.zeros((B, H), device=dev), torch.zeros((B, H), device=dev)
+            wt, _ = tc_walk_weights(rk_t)
+            err = _tc_kernels().cvl_lstm_tc_walk(
+                *(t.data_ptr() for t in (z, c_prev, c, dh_seq, dc_seq, wt)), wt.shape[1], H,
+                None, dh0.data_ptr(), dc0.data_ptr(), None, dz.data_ptr(), T, B, 0, H, stream)
+        else:
+            dh0, dc0 = torch.empty((B, H), device=dev), torch.empty((B, H), device=dev)
+            err = _kernels().cvl_lstm_seq_walk(
+                *(t.data_ptr() for t in (z, c_prev, c, dh_seq, dc_seq, rk_t, dh0, dc0, dz)),
+                T, B, H, rows, stream)
+    _raise_if(err, "walk")
     return dz, dh0, dc0
 
 
 def lstm_seq_walk(z, c_prev, c, dh_seq, dc_seq, rk_t):
     """The dz-only walk (signature and results of
     :func:`lstm_seq_walk_plain`). CUDA tensors launch
-    ``lstm_seq_bwd_kernel<S, S, R>`` (or raise), in the bf16 stream mode
-    where z is bf16; CPU tensors take the plain version."""
+    ``lstm_seq_bwd_kernel<float, float, R>``, or where z is bf16 the
+    tensor-core walk of ``csrc/lstm_seq_tc.cu`` (two launches a step, counted
+    as one call), or raise; CPU tensors take the plain version."""
     if _device_of(z).type == "cpu":
         return lstm_seq_walk_plain(z, c_prev, c, dh_seq, dc_seq, rk_t)
     out = _launch_walk(z, c_prev, c, None, dh_seq, dc_seq, rk_t)
@@ -521,10 +677,10 @@ def lstm_seq_walk(z, c_prev, c, dh_seq, dc_seq, rk_t):
 
 def lstm_seq_walk_drk(z, c_prev, c, h_prev, dh_seq, dc_seq, rk_t):
     """The drk walk (signature and results of
-    :func:`lstm_seq_walk_drk_plain`). CUDA tensors launch the walk
-    ``lstm_seq_bwd_kernel<S, S, R>`` and then ``wgrad_kernel<lstm_seq_wgrad>``
-    with one job, dRk over all T*B rows in a fixed order (or raise); CPU
-    tensors take the plain version."""
+    :func:`lstm_seq_walk_drk_plain`). CUDA tensors launch the walk and then,
+    in f32, ``wgrad_kernel<lstm_seq_wgrad>`` with one job, dRk over all T*B
+    rows in a fixed order, in bf16 the tensor-core dRk product (counted as
+    two calls), or raise; CPU tensors take the plain version."""
     if _device_of(z).type == "cpu":
         return lstm_seq_walk_drk_plain(z, c_prev, c, h_prev, dh_seq, dc_seq, rk_t)
     dz, dh0, dc0 = _launch_walk(z, c_prev, c, h_prev, dh_seq, dc_seq, rk_t)
@@ -532,14 +688,16 @@ def lstm_seq_walk_drk(z, c_prev, c, h_prev, dh_seq, dc_seq, rk_t):
     _count("drk", 1, bf16)
     dev = z.device
     T, B, H4 = z.shape
-    lib = _kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         drk = torch.empty((H4 // 4, H4), dtype=torch.float32, device=dev)
-        launch = lib.cvl_lstm_seq_drk_bf16 if bf16 else lib.cvl_lstm_seq_drk
-        err = launch(h_prev.data_ptr(), dz.data_ptr(), drk.data_ptr(), T * B, H4 // 4,
-                     torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"lstm_seq dRk kernel launch failed: CUDA error {err}")
+        if bf16:
+            err = _tc_kernels().cvl_lstm_tc_drk(h_prev.data_ptr(), dz.data_ptr(),
+                                                drk.data_ptr(), T * B, H4 // 4, 0, stream)
+        else:
+            err = _kernels().cvl_lstm_seq_drk(h_prev.data_ptr(), dz.data_ptr(), drk.data_ptr(),
+                                              T * B, H4 // 4, stream)
+    _raise_if(err, "dRk")
     _count("drk", 1, bf16)
     return dz, dh0, dc0, drk
 

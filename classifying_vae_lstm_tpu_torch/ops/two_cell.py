@@ -88,12 +88,24 @@ def fits(cfg) -> bool:
     return max(fwd_smem_bytes(in_e, in_d, H, L), bwd_smem_bytes(H, L)) <= _SMEM_LIMIT
 
 
+# The widest H at which the two-cell route beats the two-loop route in the
+# bf16 stream mode: an H100 (700 W), a training step (loss and backward) at
+# B=1,024, D=88, L=2, T=16, tools/torch_two_cell_gate.py: two-cell faster at
+# H=88 and 256 (1.56x, 1.26x), the two-loop route's tensor-core kernels
+# (csrc/lstm_seq_tc.cu) faster from H=512 (1.79x) to 1,536 (9.10x). In f32
+# (B=200, L=8) the two-cell route was faster at every H measured, 88 to
+# 1,536 (1.14-1.65x).
+BF16_TWO_CELL_MAX_H = 511
+
+
 def should_use(cfg, two_cell=None) -> bool:
     """Route ``lstm_backend='pallas'`` through the two-cell kernel?
 
     An explicit ``two_cell`` (or ``cfg.two_cell``) decides. Unset, the port
-    takes the kernel whenever it accepts the config: no dropout, no remat,
-    and the state of one block fits shared memory. The JAX package's gate
+    takes the kernel where it accepts the config (no dropout, no remat, the
+    state of one block fits shared memory) and the H100 measurement above
+    says it is the faster route: always in f32, up to
+    ``BF16_TWO_CELL_MAX_H`` in the bf16 stream mode. The JAX package's gate
     (256 <= H < 1024, VMEM residency) is a TPU measurement and is not read
     here. ``two_cell=False`` sends ``pallas`` to the two-loop path, whose
     LSTMs run the whole-sequence kernels of ``ops/lstm_seq.py``."""
@@ -101,6 +113,8 @@ def should_use(cfg, two_cell=None) -> bool:
         two_cell = getattr(cfg, "two_cell", None)
     if two_cell is not None:
         return bool(two_cell)
+    if getattr(cfg, "bf16_compute", False) and cfg.intermediate_dim > BF16_TWO_CELL_MAX_H:
+        return False
     return cfg.dropout == 0.0 and not cfg.remat and fits(cfg)
 
 

@@ -434,6 +434,7 @@ LSTM_SEQ_CASES = {
     "one_step": dict(B=6, T=1, H=24, IN=9),
     "two_unit_passes": dict(B=9, T=3, H=300, IN=21),
     "wide_tile_ragged": dict(B=None, T=3, H=32, IN=11),  # B = 16 * SMs + 8: 16-row tiles
+    "odd_hidden": dict(B=70, T=3, H=37, IN=5),  # bf16: operands staged element by element
 }
 
 
@@ -706,15 +707,24 @@ def test_lstm_seq_rung_kernels_match_plain(dev, case, bf16):
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 def test_lstm_seq_walk_at_hidden_2560(dev, bf16):
     """The widest H the JAX package's ``auto`` pins to the proj-only rung:
-    the walk takes 2-row tiles there (7 rows: a ragged last tile)."""
+    in f32 the walk takes 2-row tiles there (7 rows: a ragged last tile); in
+    bf16 it is the tensor-core walk of ``csrc/lstm_seq_tc.cu``, which has no
+    row tile and no shared-memory ceiling."""
     B, T, H = 7, 2, 2560
-    assert ls.walk_rows(H) == 2
+    if not bf16:
+        assert ls.walk_rows(H) == 2
     xz, rk, h0, c0 = _xz_inputs(dev, bf16, B=B, T=T, H=H, IN=9)
     h, c, z = ls.lstm_seq_xz_train_fwd_plain(xz, rk, h0, c0)
     rng = np.random.default_rng(2)
     dh = torch.from_numpy(rng.standard_normal((T, B, H)).astype(np.float32)).to(dev)
     cp, rk_t = torch.cat([c0[None], c[:-1]]), rk.T.contiguous()
-    got = ls.lstm_seq_walk(z, cp, c, dh, torch.zeros_like(dh), rk_t)
+    walk = lambda: ls.lstm_seq_walk(z, cp, c, dh, torch.zeros_like(dh), rk_t)
+    if bf16:
+        out = []
+        assert _tc_entries(lambda: out.append(walk())) == ["walk"]
+        got = out[0]
+    else:
+        got = walk()
     torch.cuda.synchronize()
     want = ls.lstm_seq_walk_plain(z, cp, c, dh, torch.zeros_like(dh), rk_t)
     for name, g, wv in zip(("dz", "dh0", "dc0"), got, want):
@@ -791,6 +801,91 @@ def test_lstm_seq_rung_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="shared memory"):
         ls.lstm_seq_walk(*(torch.zeros(1, 1, 4 * 4900, device=dev),) * 6)
     assert [_rung_launches(b) for b in (False, True)] == before
+
+
+# ---- the bf16 route of the whole-sequence LSTM (csrc/lstm_seq_tc.cu)
+#
+# bf16 CUDA tensors reach the tensor-core entry points (the f32 library is
+# not loaded for them), each wrapper call adding one to its count (two for
+# the full backward and the drk walk, as before), whatever the device
+# launches inside (T+1 for a forward, 2T+2 for the full backward).
+
+
+def _tc_entries(fn):
+    """The ``cvl_lstm_tc_*`` entry points ``fn()`` calls, in order; the f32
+    library (``csrc/lstm_seq.cu``) must not be called."""
+    import unittest.mock
+
+    calls = []
+    real = ls._tc_kernels()
+
+    class Spy:
+        def __getattr__(self, name):
+            fn = getattr(real, name)
+
+            def call(*a):
+                calls.append(name.removeprefix("cvl_lstm_tc_"))
+                return fn(*a)
+
+            return call
+
+    def f32_library():
+        raise AssertionError("the f32 library was called for bf16 tensors")
+
+    with unittest.mock.patch.object(ls, "_tc_kernels", Spy), \
+            unittest.mock.patch.object(ls, "_kernels", f32_library):
+        fn()
+    return calls
+
+
+BF16_COUNTS = ("FWD", "TRAIN_FWD", "BWD", "XZ_FWD", "XZ_TRAIN_FWD", "WALK", "DRK")
+
+
+def _bf16_counts():
+    return {n: getattr(ls, f"BF16_{n}_LAUNCHES") for n in BF16_COUNTS}
+
+
+@pytest.mark.parametrize("case", sorted(LSTM_SEQ_CASES))
+def test_lstm_seq_bf16_wrappers_reach_the_tensor_core_entry_points(dev, case):
+    kw = dict(LSTM_SEQ_CASES[case])
+    if kw["B"] is None:
+        kw["B"] = 16 * torch.cuda.get_device_properties(dev).multi_processor_count + 8
+    x, w, b, rk, h0, c0 = _bf16_ins(_lstm_seq_inputs(dev, **kw))
+    h, c, z, hp, cp = ls.lstm_seq_train_fwd_plain(x, w, b, rk, h0, c0)
+    xz = (x.float() @ w.bfloat16().float() + b).bfloat16()
+    dh, dc, rk_t = torch.ones_like(h), torch.zeros_like(c), rk.T.contiguous()
+    cases = {
+        "FWD": (lambda: ls.lstm_seq_fwd(x, w, b, rk, h0, c0), ["proj", "steps"], 1),
+        "TRAIN_FWD": (lambda: ls.lstm_seq_train_fwd(x, w, b, rk, h0, c0), ["proj", "steps"], 1),
+        "BWD": (lambda: ls.lstm_seq_bwd(z, cp, c, hp, x, dh, dc, rk_t, w.T.contiguous()),
+                ["walk", "drk", "dw_db"], 2),
+        "XZ_FWD": (lambda: ls.lstm_seq_xz_fwd(xz, rk, h0, c0), ["steps"], 1),
+        "XZ_TRAIN_FWD": (lambda: ls.lstm_seq_xz_train_fwd(xz, rk, h0, c0), ["steps"], 1),
+        "WALK": (lambda: ls.lstm_seq_walk(z, cp, c, dh, dc, rk_t), ["walk"], 1),
+        "DRK": (lambda: ls.lstm_seq_walk_drk(z, cp, c, hp, dh, dc, rk_t), ["walk", "drk"], 2),
+    }
+    for name, (fn, entries, n) in cases.items():
+        before = _bf16_counts()
+        assert _tc_entries(fn) == entries, name
+        torch.cuda.synchronize()
+        after = _bf16_counts()
+        assert after == {**before, name: before[name] + n}, name
+
+
+def test_lstm_seq_bf16_route_has_no_width_ceiling(dev):
+    """H=4,900, past the f32 walk's shared-memory ceiling (4,800), in bf16:
+    the walk and the forward run and match their plain versions."""
+    B, T, H = 3, 2, 4900
+    xz, rk, h0, c0 = _xz_inputs(dev, True, B=B, T=T, H=H, IN=9)
+    h, c, z = ls.lstm_seq_xz_train_fwd_plain(xz, rk, h0, c0)
+    for name, k, p in zip(("h", "c", "z"), ls.lstm_seq_xz_train_fwd(xz, rk, h0, c0), (h, c, z)):
+        _close(k, p, name, True, backward=False)
+    dh = torch.ones_like(h)
+    cp, rk_t = torch.cat([c0[None], c[:-1]]), rk.T.contiguous()
+    got = ls.lstm_seq_walk(z, cp, c, dh, torch.zeros_like(dh), rk_t)
+    want = ls.lstm_seq_walk_plain(z, cp, c, dh, torch.zeros_like(dh), rk_t)
+    for name, g, wv in zip(("dz", "dh0", "dc0"), got, want):
+        _close(g, wv, name, True, backward=True)
 
 
 # ---- the whole-generation cl_vae kernel (csrc/generate_cl_vae.cu)

@@ -364,10 +364,16 @@ def test_bf16_plain_backward_against_autograd_of_plain_forward():
 
 def test_should_use():
     mk = lambda **kw: tcl.Config(original_dim=88, n_classes=13, use_x_prev=True, **kw)
-    # no TPU gate: the port takes the kernel wherever it accepts the config
+    # no TPU gate: in f32 the port takes the kernel wherever it accepts the
+    # config, in bf16 up to the width where the H100 measured it faster
     assert ttc.should_use(mk(intermediate_dim=88))
     assert ttc.should_use(mk(intermediate_dim=256, latent_dim=8))
     assert ttc.should_use(mk(intermediate_dim=1024))
+    assert ttc.should_use(mk(intermediate_dim=256, bf16_compute=True))
+    assert ttc.should_use(mk(intermediate_dim=ttc.BF16_TWO_CELL_MAX_H, bf16_compute=True))
+    assert not ttc.should_use(mk(intermediate_dim=512, bf16_compute=True))
+    assert not ttc.should_use(mk(intermediate_dim=1536, bf16_compute=True))
+    assert ttc.should_use(mk(intermediate_dim=1536, bf16_compute=True), two_cell=True)
     assert not ttc.should_use(mk(intermediate_dim=256, dropout=0.1))
     assert not ttc.should_use(mk(intermediate_dim=256, remat=True))
     assert not ttc.should_use(mk(intermediate_dim=8192))  # one block's state > shared memory
