@@ -12,6 +12,8 @@ failure:
    source, started together), timed, with the compiler's register report;
    ``cuobjdump -sass`` of the built ``csrc/lstm_seq_tc.cu``: every
    instance of its product kernels holds tensor-core (HMMA) instructions;
+   of ``csrc/two_cell_tc.cu``: its bf16 product kernels (walk, dx, dW) do
+   and its f32 kernels hold none (FFMA only);
 2. kernel vs plain version, f32, on the trained ``artifacts/jsball_vrnn4``
    weights at the largest serving bucket (64 songs, 32 seed + 256 steps):
    probabilities with u=1 within 1e-5, and sampled frames equal up to each
@@ -26,8 +28,11 @@ failure:
 5. the two-cell training kernels vs their plain versions at the full
    training shape (B=200, T=16, H=256, L=8, K=13, use_x_prev; the
    ``jsball_vrnn4`` weights with seeded rows for 13 keys): forward hd and
-   zargs within 1e-5, every backward output within 1e-4 * max|plain| + 1e-6;
-   kernel and plain times with CUDA events beside each kernel's bound;
+   zargs within 1e-5, every backward output within 1e-4 * max|plain| + 1e-6,
+   a second backward call bitwise equal; kernel and plain times with CUDA
+   events beside each kernel's bound, the backward's device time split
+   between the walk (of which the z hand-off), dx and the weight gradients,
+   and the HMMA count of each f32 backward kernel (0);
 6. the training path: the port's ``cli.cl_vrnn_train`` trains 3 epochs on
    the committed corpus at the jsball_vrnn4 width through
    ``--lstm_backend pallas``; the two-cell counts are set to 0 just before and
@@ -156,7 +161,9 @@ failure:
    streams within one bf16
    step at their largest entry, every backward output within 1e-2 of its
    largest entry, types checked (streams and weight gradients bf16, bias
-   sums not rounded); times beside bounds at the bf16 rate;
+   sums not rounded), a second backward call bitwise equal; times beside
+   bounds at the bf16 rate, the backward's device split as phase 5's and
+   the HMMA count of each bf16 product kernel;
 24. the bf16 two-cell cl_vrnn the JAX package trains at H=512
    (``artifacts/two_cell_exp.json`` row ``H512_B1024_bf16``: D=88, L=2,
    T=16, use_x_prev, B=1,024; 13 keys) trained by ``cli.cl_vrnn_train``
@@ -358,7 +365,7 @@ def phase_build():
         print(f"--- nvcc csrc/{name}.cu ---\n{log.strip()}")
     print(f"kernel build: {build_s:.2f} s for {sorted(logs) or 'no sources (already built)'}")
     require(set(_build.sources()) == {"generate_cl_vae", "generate_cl_vrnn", "lstm_seq",
-                                      "lstm_seq_tc", "two_cell", "vae_dense"},
+                                      "lstm_seq_tc", "two_cell", "two_cell_tc", "vae_dense"},
             f"sources {_build.sources()}")
 
 
@@ -368,10 +375,28 @@ TC_KERNELS = ("lstm_tc_proj_kernel", "lstm_tc_step_kernel", "lstm_tc_bwd_step_ke
               "lstm_tc_drk_kernel")
 
 
+# the two-cell backward's kernels (csrc/two_cell_tc.cu): the bf16 products
+# on the tensor cores, the f32 mode's kernels on FFMA only
+TWO_CELL_TC = ("two_cell_walk_tc_kernel", "two_cell_dx_tc_kernel", "two_cell_dw_tc_kernel")
+TWO_CELL_F32 = ("two_cell_walk_f32_kernel", "two_cell_dx_f32_kernel", "two_cell_handoff_kernel",
+                "two_cell_dw_narrow_kernel", "wgrad_kernel")
+
+
+def two_cell_hmma(names) -> dict:
+    """HMMA / HGMMA count per kernel of the built ``csrc/two_cell_tc.cu``
+    whose mangled name holds one of ``names`` (``cuobjdump -sass``)."""
+    from classifying_vae_lstm_tpu_torch.ops import _build
+    from tools.torch_kernel_resources import sass_counts
+
+    counts = sass_counts(str(_build._lib_path("two_cell_tc")))
+    return {k: [c["hmma"] for n, c in counts.items() if k in n] for k in names}
+
+
 def phase_tensor_cores():
     """``cuobjdump -sass`` of the built ``csrc/lstm_seq_tc.cu`` library: every
     instance of each product kernel holds tensor-core (HMMA or HGMMA)
-    instructions."""
+    instructions; likewise the bf16 product kernels of
+    ``csrc/two_cell_tc.cu``, whose f32 kernels hold none."""
     from classifying_vae_lstm_tpu_torch.ops import _build
     from tools.torch_kernel_resources import sass_counts
 
@@ -382,6 +407,13 @@ def phase_tensor_cores():
     require(all(names and all(counts[n] > 0 for n in names) for names in found.values()),
             f"a product kernel of csrc/lstm_seq_tc.cu runs without tensor-core instructions: "
             f"{counts}")
+    tc16, f32 = two_cell_hmma(TWO_CELL_TC), two_cell_hmma(TWO_CELL_F32)
+    print(f"tensor-core instructions in csrc/two_cell_tc.cu: bf16 products {tc16}; f32 mode "
+          f"{f32}")
+    require(all(v and all(c > 0 for c in v) for v in tc16.values()),
+            f"a bf16 product kernel of csrc/two_cell_tc.cu runs without tensor cores: {tc16}")
+    require(all(v and not any(v) for v in f32.values()),
+            f"an f32 kernel of csrc/two_cell_tc.cu holds tensor-core instructions: {f32}")
 
 
 def phase_f32(dev):
@@ -666,6 +698,7 @@ def phase_two_cell(dev):
           + ", ".join(f"{n} {rel[n]:.2e}" for n in gnames)
           + f" (limit 1e-4 + 1e-6 abs); largest abs error {bwd_err:.3e}")
     require(not bad, f"two-cell backward differs: {bad}")
+    same_bits(tc.two_cell_bwd, res, got, gnames, "two-cell backward")
 
     fk_ms = time_ms(lambda: tc.two_cell_fwd(*ins), reps=20, warm=2)
     fp_ms = time_ms(lambda: tc.two_cell_fwd_plain(*ins), reps=5, warm=1)
@@ -681,8 +714,11 @@ def phase_two_cell(dev):
                     + 4 * H * (2 * H + INe + INd + L + 2) + 2 * L * (H + 1))
     bb_ms, bb_by = roofline_ms(bwd_fmas, _nbytes(res) + _nbytes(got))
     print(f"two-cell forward kernel {fk_ms:.3f} ms, plain {fp_ms:.3f} ms, bound {fb_ms:.4f} ms "
-          f"({fb_by}); backward kernel (2 launches) {bk_ms:.3f} ms, plain {bp_ms:.3f} ms, "
+          f"({fb_by}); backward kernel {bk_ms:.3f} ms, plain {bp_ms:.3f} ms, "
           f"bound {bb_ms:.4f} ms ({bb_by})")
+    print("two-cell backward, device time: "
+          + device_split(lambda: tc.two_cell_bwd(*res), 10, TWO_CELL_BWD_PARTS)
+          + f"; HMMA per f32 kernel (FFMA only, no TF32): {two_cell_hmma(TWO_CELL_F32)}")
     return ({"max_abs_err": fwd_err, "ms": fk_ms, "plain_ms": fp_ms, "bound_ms": fb_ms,
              "bound_by": fb_by},
             {"max_abs_err": bwd_err, "ms": bk_ms, "plain_ms": bp_ms, "bound_ms": bb_ms,
@@ -1069,6 +1105,27 @@ def device_split(fn, n, parts):
     per = lambda keys: sum(dev_us(e) for e in rows if any(k in e.key for k in keys)) / (n * 1e3)
     return ", ".join(f"{p} {per(keys):.3f} ms" for p, keys in parts.items()) + \
         f" (all kernels {sum(dev_us(e) for e in rows) / (n * 1e3):.3f} ms)"
+
+
+# the two-cell backward's parts, by kernel name: the serial walk (the
+# per-step products with the decoder's gates, and the z hand-off with the
+# encoder's gates), the hoisted dx products, the weight gradients
+TWO_CELL_BWD_PARTS = {"walk": ("two_cell_walk", "two_cell_handoff"),
+                      "of which z hand-off": ("two_cell_handoff",), "dx": ("two_cell_dx",),
+                      "weight gradients": ("two_cell_dw", "wgrad_"),
+                      "of which dKz, dWz, bias sums": ("two_cell_dw_narrow",)}
+
+
+def same_bits(fn, args, first, names, label):
+    """A second call of ``fn`` gives every output bit for bit as ``first``:
+    each sum is taken in a fixed order, with no atomics."""
+    import torch
+
+    again = fn(*args)
+    torch.cuda.synchronize()
+    differ = [n for n, a, b in zip(names, first, again) if not torch.equal(a, b)]
+    print(f"{label}: a second call is bitwise equal in every output: {not differ}")
+    require(not differ, f"{label}: repeated calls differ in {differ}")
 
 
 def phase_checkpoint_serves(ckpt):
@@ -2542,6 +2599,7 @@ def phase_two_cell_bf16(dev):
           + f" (limit 1e-2); bf16 outputs {sorted(rounded)}; bias sums not rounded: {unrounded}")
     require(not bad, f"two-cell bf16 backward differs: {bad}")
     require(unrounded == ["dbe", "dbd", "dbz"], f"bias sums rounded to bf16: {unrounded}")
+    same_bits(tc.two_cell_bwd, res, got, gnames, "two-cell bf16 backward")
     bwd_err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
 
     fk_ms = time_ms(lambda: tc.two_cell_fwd(*ins), reps=10, warm=2)
@@ -2555,8 +2613,11 @@ def phase_two_cell_bf16(dev):
                     + 4 * H * (2 * H + INe + INd + L + 2) + 2 * L * (H + 1))
     bb_ms, bb_by = roofline_ms(bwd_fmas, _nbytes(res) + _nbytes(got), PEAK_BF16_FLOPS)
     print(f"two-cell bf16 forward kernel {fk_ms:.3f} ms, plain {fp_ms:.3f} ms, bound "
-          f"{fb_ms:.4f} ms ({fb_by}, bf16 rate); backward kernel (2 launches) {bk_ms:.3f} ms, "
+          f"{fb_ms:.4f} ms ({fb_by}, bf16 rate); backward kernel {bk_ms:.3f} ms, "
           f"plain {bp_ms:.3f} ms, bound {bb_ms:.4f} ms ({bb_by}, bf16 rate)")
+    print("two-cell bf16 backward, device time: "
+          + device_split(lambda: tc.two_cell_bwd(*res), 10, TWO_CELL_BWD_PARTS)
+          + f"; HMMA per bf16 product kernel: {two_cell_hmma(TWO_CELL_TC)}")
     del outs, ref, got, want, res, ins
     torch.cuda.empty_cache()
     return ({"max_abs_err": fwd_err, "ms": fk_ms, "plain_ms": fp_ms, "bound_ms": fb_ms,

@@ -2,11 +2,14 @@
 // BM x BN tile of C = A[M, K] . B[K, N] with bf16 operands and f32 sums,
 // through `mma.sync.m16n8k16` (bf16 -> f32) fed by `ldmatrix` from a
 // three-stage `cp.async` ring in shared memory. The kernels of
-// csrc/lstm_seq_tc.cu are this mainloop with their own epilogues.
+// csrc/lstm_seq_tc.cu and the bf16 products of csrc/two_cell_tc.cu are this
+// mainloop with their own epilogues.
 //
-// Shapes. B is row-major [K, N] (leading dimension ldb). A is row-major
-// [M, K] (lda), or, with kAT, stored transposed as [K, M] (lda), which is
-// how a weight gradient sum_rows h_prevᵀ dz reads its left operand. A block
+// Shapes. B is row-major [K, N] (leading dimension ldb), or, with kBT,
+// stored transposed as [N, K] (ldb), which is how a product dz @ Rkᵀ reads a
+// weight Rk [N, K] in its stored layout. A is row-major [M, K] (lda), or,
+// with kAT, stored transposed as [K, M] (lda), which is how a weight
+// gradient sum_rows h_prevᵀ dz reads its left operand. A block
 // of 128 threads (2 x 2 warps, 32 x 64 outputs each) owns the tile
 // (m0, n0); K is walked in chunks of 32.
 //
@@ -21,9 +24,10 @@
 // Sum order. Each output element is summed by one thread over K in a fixed
 // order, with no atomics, so results are the same from run to run.
 //
-// Shared memory: 41,472 bytes a block (kSmemBytes), static in the kernel, so
-// several blocks share an SM. Rows are padded by 8 elements, which keeps the
-// 8 row addresses of each `ldmatrix` on distinct banks. After the mainloop
+// Shared memory: 41,472 bytes a block (kSmemBytes; 46,080 with kBT,
+// smem_bytes<true>()), static in the kernel, so several blocks share an SM.
+// Rows are padded by 8 elements, which keeps the 8 row addresses of each
+// `ldmatrix` on distinct banks. After the mainloop
 // the same bytes can hold the block's f32 tile (`stage_acc`) for an
 // epilogue that reads it row by row.
 
@@ -41,8 +45,14 @@ constexpr int kBM = 64, kBN = 128, kBK = 32, kStages = 3, kThreads = 128;
 constexpr int kAStride = kBK + 8;    // A tile [BM][BK] (row-major A)
 constexpr int kATStride = kBM + 8;   // A tile [BK][BM] (kAT)
 constexpr int kBStride = kBN + 8;    // B tile [BK][BN]
+constexpr int kBTStride = kBK + 8;   // B tile [BN][BK] (kBT)
 constexpr int kAStage = kBM * kAStride > kBK * kATStride ? kBM * kAStride : kBK * kATStride;
 constexpr int kBStage = kBK * kBStride;
+constexpr int kBTStage = kBN * kBTStride;
+template <bool kBT>
+__host__ __device__ constexpr int b_stage() {
+  return kBT ? kBTStage : kBStage;
+}
 
 // An operand in global memory: `rows` x `cols` of data at leading dimension
 // `ld` (elements); everything past them reads as zero.
@@ -83,7 +93,7 @@ __device__ __forceinline__ void load_chunk(bf16* dst, const Operand& o, int r, i
 }
 
 // stage `st` <- the K chunk starting at k0
-template <bool kAT>
+template <bool kAT, bool kBT>
 __device__ __forceinline__ void load_stage(bf16* As, bf16* Bs, const Operand& A, const Operand& B,
                                            int m0, int n0, int k0, bool va, bool vb) {
   const int tid = threadIdx.x;
@@ -100,10 +110,18 @@ __device__ __forceinline__ void load_stage(bf16* As, bf16* Bs, const Operand& A,
       load_chunk(As + r * kATStride + c, A, k0 + r, m0 + c, va);
     }
   }
+  if (!kBT) {
 #pragma unroll
-  for (int i = 0; i < kBK * kBN / 8 / kThreads; ++i) {  // [BK][BN]: 32 rows x 16 chunks
-    const int ch = tid + i * kThreads, r = ch / (kBN / 8), c = (ch % (kBN / 8)) * 8;
-    load_chunk(Bs + r * kBStride + c, B, k0 + r, n0 + c, vb);
+    for (int i = 0; i < kBK * kBN / 8 / kThreads; ++i) {  // [BK][BN]: 32 rows x 16 chunks
+      const int ch = tid + i * kThreads, r = ch / (kBN / 8), c = (ch % (kBN / 8)) * 8;
+      load_chunk(Bs + r * kBStride + c, B, k0 + r, n0 + c, vb);
+    }
+  } else {  // [BN][BK] from the stored [N][K]: 128 rows x 4 chunks
+#pragma unroll
+    for (int i = 0; i < kBK * kBN / 8 / kThreads; ++i) {
+      const int ch = tid + i * kThreads, r = ch / (kBK / 8), c = (ch % (kBK / 8)) * 8;
+      load_chunk(Bs + r * kBTStride + c, B, n0 + r, k0 + c, vb);
+    }
   }
 }
 
@@ -130,7 +148,7 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
 }
 
 // the products of one staged K chunk into this warp's accumulators
-template <bool kAT>
+template <bool kAT, bool kBT>
 __device__ __forceinline__ void compute_stage(Acc& acc, const bf16* As, const bf16* Bs) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int wm = (warp / 2) * 32, wn = (warp % 2) * 64;
@@ -153,7 +171,15 @@ __device__ __forceinline__ void compute_stage(Acc& acc, const bf16* As, const bf
 #pragma unroll
     for (int np = 0; np < 4; ++np) {
       unsigned b[4];  // two n8 tiles: (b0, b1) of tile 2 np, then of tile 2 np + 1
-      ldmatrix_x4_trans(b, Bs + (kk + (lane % 16)) * kBStride + wn + np * 16 + (lane / 16) * 8);
+      if (!kBT) {
+        ldmatrix_x4_trans(b, Bs + (kk + (lane % 16)) * kBStride + wn + np * 16 + (lane / 16) * 8);
+      } else {
+        // matrix j = lane / 8: (n + 8 (j >> 1), k + 8 (j & 1)); rows n hold k
+        // in order, which is the fragment's layout as it stands
+        const int j = lane / 8;
+        ldmatrix_x4(b, Bs + (wn + np * 16 + (j >> 1) * 8 + lane % 8) * kBTStride + kk +
+                           (j & 1) * 8);
+      }
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
         mma_bf16(acc[mi][2 * np], a[mi], b[0], b[1]);
@@ -166,24 +192,30 @@ __device__ __forceinline__ void compute_stage(Acc& acc, const bf16* As, const bf
 // Shared memory a kernel declares for the mainloop (and, after it, for
 // the f32 tile of stage_acc)
 constexpr int kTileStride = kBN + 4;  // f32 tile [BM][BN + 4]
-constexpr int kRingBytes = kStages * (kAStage + kBStage) * 2;
 constexpr int kTileBytes = kBM * kTileStride * 4;
-constexpr int kSmemBytes = kRingBytes > kTileBytes ? kRingBytes : kTileBytes;
+template <bool kBT>
+__host__ __device__ constexpr int smem_bytes() {
+  return kStages * (kAStage + b_stage<kBT>()) * 2 > kTileBytes
+             ? kStages * (kAStage + b_stage<kBT>()) * 2
+             : kTileBytes;
+}
+constexpr int kSmemBytes = smem_bytes<false>();
 
 // acc += A[m0 .., 0 .. K) . B[0 .. K), n0 ..) for this block's tile; K is
 // the longer of the two operands' K extents (the other reads zeros there);
-// `smem` holds kSmemBytes, 16-byte aligned
-template <bool kAT>
+// `smem` holds smem_bytes<kBT>(), 16-byte aligned
+template <bool kAT, bool kBT = false>
 __device__ __forceinline__ void mainloop(Acc& acc, const Operand& A, const Operand& B, int m0,
                                          int n0, int K, unsigned char* smem) {
   bf16* As = reinterpret_cast<bf16*>(smem);
   bf16* Bs = As + kStages * kAStage;
+  constexpr int kBSt = b_stage<kBT>();
   const bool va = vec_ok(A), vb = vec_ok(B);
   const int nk = (K + kBK - 1) / kBK;
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nk)
-      load_stage<kAT>(As + s * kAStage, Bs + s * kBStage, A, B, m0, n0, s * kBK, va, vb);
+      load_stage<kAT, kBT>(As + s * kAStage, Bs + s * kBSt, A, B, m0, n0, s * kBK, va, vb);
     cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
@@ -191,10 +223,10 @@ __device__ __forceinline__ void mainloop(Acc& acc, const Operand& A, const Opera
     __syncthreads();
     const int pre = kt + kStages - 1;
     if (pre < nk)
-      load_stage<kAT>(As + (pre % kStages) * kAStage, Bs + (pre % kStages) * kBStage, A, B, m0,
-                      n0, pre * kBK, va, vb);
+      load_stage<kAT, kBT>(As + (pre % kStages) * kAStage, Bs + (pre % kStages) * kBSt, A, B,
+                           m0, n0, pre * kBK, va, vb);
     cp_async_commit();
-    compute_stage<kAT>(acc, As + (kt % kStages) * kAStage, Bs + (kt % kStages) * kBStage);
+    compute_stage<kAT, kBT>(acc, As + (kt % kStages) * kAStage, Bs + (kt % kStages) * kBSt);
   }
   cp_async_wait<0>();
 }

@@ -23,6 +23,12 @@
 // Testing the flags per staged element cost the f32 jobs 60-80% more time on
 // an H100, so a launch whose jobs set none of `bf16`, `a_bf16` and `b_bf16`
 // runs the instance without the tests (kFlags false).
+//
+// A job over many rows and few output tiles leaves most SMs idle while its
+// blocks walk the rows in series. `launch_wgrad_split` cuts the rows into
+// segments of seg_rows: one block per (tile, segment) writes its f32 sums to
+// a scratch, and a second launch adds each element's segments in order and
+// stores it as the job's flags say. The sums stay in a fixed order.
 
 #pragma once
 
@@ -55,11 +61,15 @@ __device__ __forceinline__ float round_bf16(float x) {
 struct WgradTile {
   WgradJob job;
   int tiles_n, first_block;
+  int segs;           // row segments (split launches; 1 otherwise)
+  size_t poff, eoff;  // the job's first partial and first output element (split launches)
 };
 
 struct WgradArgs {
   WgradTile jobs[kWgMaxJobs];
   int njobs, R;
+  int seg_rows;       // rows a segment (split launches)
+  float* partial;     // [segments][M N] per job (split launches); null: store C
 };
 
 template <typename Tag, bool kFlags>
@@ -69,42 +79,61 @@ __global__ void __launch_bounds__(kWgThreads) wgrad_kernel(const WgradArgs args)
   int j = 0;
   while (j + 1 < args.njobs && (int)blockIdx.x >= args.jobs[j + 1].first_block) ++j;
   const WgradJob jb = args.jobs[j].job;
-  const int local = blockIdx.x - args.jobs[j].first_block;
+  const int segs = args.jobs[j].segs;
+  const int local = (blockIdx.x - args.jobs[j].first_block) / segs;
+  const int seg = (blockIdx.x - args.jobs[j].first_block) % segs;
   const int tiles_n = args.jobs[j].tiles_n;
   const int m0 = (local / tiles_n) * kWgTile, n0 = (local % tiles_n) * kWgTile;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int r_begin = args.partial ? seg * args.seg_rows : 0;
+  const int R = args.partial ? min(args.R, r_begin + args.seg_rows) : args.R;
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
-  for (int r0 = 0; r0 < args.R; r0 += kWgChunk) {
-    for (int i = threadIdx.x; i < kWgChunk * kWgTile; i += kWgThreads) {
-      const int rr = i / kWgTile, c = i - rr * kWgTile, r = r0 + rr;
-      const int m = m0 + c, n = n0 + c;
+  // the next chunk's values are loaded into registers while this chunk's
+  // products run; each is staged as the job's flags say
+  constexpr int kPer = kWgChunk * kWgTile / kWgThreads;
+  float pa[kPer], pb[kPer];
+  auto fetch = [&](int r0) {
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      const int i = threadIdx.x + e * kWgThreads, rr = i / kWgTile, c = i - rr * kWgTile;
+      const int r = r0 + rr, m = m0 + c, n = n0 + c;
       if constexpr (kFlags) {
         float av = 0.f, bv = 0.f;
-        if (r < args.R && m < jb.M) {
+        if (r < R && m < jb.M) {
           const size_t ia = (size_t)r * jb.M + m;
           av = !jb.A     ? 1.f
                : jb.a_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(jb.A)[ia])
                            : static_cast<const float*>(jb.A)[ia];
         }
-        if (r < args.R && n < jb.N) {
+        if (r < R && n < jb.N) {
           const size_t ib = (size_t)r * jb.N + n;
           bv = jb.b_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(jb.Bm)[ib])
                          : static_cast<const float*>(jb.Bm)[ib];
         }
-        As[rr][c] = jb.bf16 ? round_bf16(av) : av;
-        Bs[rr][c] = jb.bf16 ? round_bf16(bv) : bv;
+        pa[e] = jb.bf16 ? round_bf16(av) : av;
+        pb[e] = jb.bf16 ? round_bf16(bv) : bv;
       } else {
         const float* A = static_cast<const float*>(jb.A);
         const float* Bm = static_cast<const float*>(jb.Bm);
-        As[rr][c] = (r < args.R && m < jb.M) ? (A ? A[(size_t)r * jb.M + m] : 1.f) : 0.f;
-        Bs[rr][c] = (r < args.R && n < jb.N) ? Bm[(size_t)r * jb.N + n] : 0.f;
+        pa[e] = (r < R && m < jb.M) ? (A ? A[(size_t)r * jb.M + m] : 1.f) : 0.f;
+        pb[e] = (r < R && n < jb.N) ? Bm[(size_t)r * jb.N + n] : 0.f;
       }
     }
+  };
+  if (r_begin < R) fetch(r_begin);
+  for (int r0 = r_begin; r0 < R; r0 += kWgChunk) {
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      const int i = threadIdx.x + e * kWgThreads, rr = i / kWgTile;
+      As[rr][i - rr * kWgTile] = pa[e];
+      Bs[rr][i - rr * kWgTile] = pb[e];
+    }
     __syncthreads();
+    if (r0 + kWgChunk < R) fetch(r0 + kWgChunk);
 #pragma unroll
     for (int rr = 0; rr < kWgChunk; ++rr) {
       const float4 av = *reinterpret_cast<const float4*>(&As[rr][ty * 4]);
@@ -126,7 +155,9 @@ __global__ void __launch_bounds__(kWgThreads) wgrad_kernel(const WgradArgs args)
       const int n = n0 + tx * 4 + q;
       if (m >= jb.M || n >= jb.N) continue;
       const size_t ic = (size_t)m * jb.N + n;
-      if (kFlags && jb.bf16 && !jb.c_f32)
+      if (args.partial)
+        args.partial[args.jobs[j].poff + (size_t)seg * jb.M * jb.N + ic] = acc[i][q];
+      else if (kFlags && jb.bf16 && !jb.c_f32)
         static_cast<__nv_bfloat16*>(jb.C)[ic] = __float2bfloat16_rn(acc[i][q]);
       else
         static_cast<float*>(jb.C)[ic] = acc[i][q];
@@ -134,26 +165,95 @@ __global__ void __launch_bounds__(kWgThreads) wgrad_kernel(const WgradArgs args)
   }
 }
 
+// The second launch of a split: each output element of every job, its
+// segments' sums added in order, stored as the job's flags say
+template <typename Tag>
+__global__ void __launch_bounds__(kWgThreads) wgrad_finish_kernel(const WgradArgs args,
+                                                                  size_t elems) {
+  const size_t e = (size_t)blockIdx.x * kWgThreads + threadIdx.x;
+  if (e >= elems) return;
+  int j = 0;
+  while (j + 1 < args.njobs && e >= args.jobs[j + 1].eoff) ++j;
+  const WgradTile& w = args.jobs[j];
+  const size_t ic = e - w.eoff, mn = (size_t)w.job.M * w.job.N;
+  float s = 0.f;
+  for (int seg = 0; seg < w.segs; ++seg) s += args.partial[w.poff + seg * mn + ic];
+  if (w.job.bf16 && !w.job.c_f32)
+    static_cast<__nv_bfloat16*>(w.job.C)[ic] = __float2bfloat16_rn(s);
+  else
+    static_cast<float*>(w.job.C)[ic] = s;
+}
+
+// The launch arguments of a split over segments of seg_rows rows (0: no
+// split); returns the blocks of the first launch and sets the scratch floats
+// and output elements it needs
+inline int wgrad_plan(const WgradJob* jobs, int njobs, int R, int seg_rows, WgradArgs& args,
+                      size_t& partial_floats, size_t& elems, bool& flags) {
+  args = WgradArgs{};
+  args.njobs = njobs;
+  args.R = R;
+  args.seg_rows = seg_rows;
+  int blocks = 0;
+  partial_floats = elems = 0;
+  flags = false;
+  for (int j = 0; j < njobs; ++j) {
+    const int tm = (jobs[j].M + kWgTile - 1) / kWgTile, tn = (jobs[j].N + kWgTile - 1) / kWgTile;
+    const int segs = seg_rows ? (R + seg_rows - 1) / seg_rows : 1;
+    args.jobs[j] = WgradTile{jobs[j], tn, blocks, segs, partial_floats, elems};
+    blocks += tm * tn * segs;
+    partial_floats += (size_t)segs * jobs[j].M * jobs[j].N;
+    elems += (size_t)jobs[j].M * jobs[j].N;
+    flags = flags || jobs[j].bf16 || jobs[j].a_bf16 || jobs[j].b_bf16;
+  }
+  return blocks;
+}
+
+// Floats of the scratch `launch_wgrad_split` needs for these jobs
+inline size_t wgrad_split_floats(const WgradJob* jobs, int njobs, int R, int seg_rows) {
+  WgradArgs args;
+  size_t partial_floats, elems;
+  bool flags;
+  wgrad_plan(jobs, njobs, R, seg_rows, args, partial_floats, elems, flags);
+  return partial_floats;
+}
+
 // The njobs (<= kWgMaxJobs) jobs over R rows in one launch on `stream`;
 // returns the cudaError_t of the launch.
 template <typename Tag>
 int launch_wgrad(const WgradJob* jobs, int njobs, int R, cudaStream_t stream) {
   if (njobs < 1 || njobs > kWgMaxJobs) return (int)cudaErrorInvalidValue;
-  WgradArgs args{};
-  args.njobs = njobs;
-  args.R = R;
-  int blocks = 0;
-  bool flags = false;
-  for (int j = 0; j < njobs; ++j) {
-    const int tm = (jobs[j].M + kWgTile - 1) / kWgTile, tn = (jobs[j].N + kWgTile - 1) / kWgTile;
-    args.jobs[j] = WgradTile{jobs[j], tn, blocks};
-    blocks += tm * tn;
-    flags = flags || jobs[j].bf16 || jobs[j].a_bf16 || jobs[j].b_bf16;
-  }
+  WgradArgs args;
+  size_t partial_floats, elems;
+  bool flags;
+  const int blocks = wgrad_plan(jobs, njobs, R, 0, args, partial_floats, elems, flags);
   if (flags)
     wgrad_kernel<Tag, true><<<blocks, kWgThreads, 0, stream>>>(args);
   else
     wgrad_kernel<Tag, false><<<blocks, kWgThreads, 0, stream>>>(args);
+  return (int)cudaGetLastError();
+}
+
+// The jobs with their rows cut into segments of seg_rows (> 0), two launches
+// on `stream`: the segments' sums into `partial` (wgrad_split_floats floats),
+// then each element's segments added in order. Returns the first nonzero
+// cudaError_t of a launch.
+template <typename Tag>
+int launch_wgrad_split(const WgradJob* jobs, int njobs, int R, int seg_rows, float* partial,
+                       cudaStream_t stream) {
+  if (njobs < 1 || njobs > kWgMaxJobs || seg_rows < 1) return (int)cudaErrorInvalidValue;
+  WgradArgs args;
+  size_t partial_floats, elems;
+  bool flags;
+  const int blocks = wgrad_plan(jobs, njobs, R, seg_rows, args, partial_floats, elems, flags);
+  args.partial = partial;
+  if (flags)
+    wgrad_kernel<Tag, true><<<blocks, kWgThreads, 0, stream>>>(args);
+  else
+    wgrad_kernel<Tag, false><<<blocks, kWgThreads, 0, stream>>>(args);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  wgrad_finish_kernel<Tag><<<(unsigned)((elems + kWgThreads - 1) / kWgThreads), kWgThreads, 0,
+                             stream>>>(args, elems);
   return (int)cudaGetLastError();
 }
 

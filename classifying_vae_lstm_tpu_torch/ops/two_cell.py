@@ -3,8 +3,10 @@ versions and the autograd function.
 
 Counterpart of ``classifying_vae_lstm_tpu/ops/pallas_two_cell.py``. The
 whole recurrent core of the cl_vrnn model — encoder LSTM, z heads, z sample,
-decoder LSTM — runs forward in one kernel and backward in one kernel of two
-launches (``csrc/two_cell.cu``). Each has a plain PyTorch version with the
+decoder LSTM — runs forward in one kernel (``csrc/two_cell.cu``) and
+backward in one kernel of two calls (``csrc/two_cell_tc.cu``: the reverse
+walk, a product over the whole batch per step, then the gradient
+products). Each has a plain PyTorch version with the
 same signature, written out step by step: :func:`two_cell_fwd_plain`, and
 :func:`two_cell_bwd_plain`, which mirrors the TPU backward kernel (it is not
 autograd of the plain forward), so the backward kernel can be held against
@@ -45,8 +47,9 @@ from . import _build
 from .lstm import _gate_grads, _gates, bf16_operand
 
 # launches since the counts were last set to 0: one per forward call, two per
-# backward call (the serial reverse walk, then the weight-gradient pass); the
-# plain names count the f32 mode, the BF16_ names the bf16 stream mode
+# backward call (the reverse walk, 2T + 1 device launches, then the gradient
+# products); the plain names count the f32 mode, the BF16_ names the bf16
+# stream mode
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 BF16_FWD_LAUNCHES = 0
@@ -69,33 +72,26 @@ def fwd_smem_bytes(in_e: int, in_d: int, H: int, L: int) -> int:
             + 4 * _ROWS_PER_BLOCK * _UNITS_PER_PASS) * 4
 
 
-def bwd_smem_bytes(H: int, L: int) -> int:
-    """Shared memory of one backward block: dz (4H), the four carries and
-    the incoming dh (H each), dz and dzargs (3L) per row, plus partial sums."""
-    return ((9 * H + 3 * L) * _ROWS_PER_BLOCK + _ROWS_PER_BLOCK * _UNITS_PER_PASS) * 4
-
-
 def _widths(cfg):
     D, K = cfg.original_dim, cfg.n_classes
     return D + K, (D if cfg.use_x_prev else 0) + K
 
 
 def fits(cfg) -> bool:
-    """Does one block's carried state fit Hopper's shared memory, forward and
-    backward?"""
+    """Does one forward block's carried state fit Hopper's shared memory?
+    (The backward keeps its state in global memory.)"""
     in_e, in_d = _widths(cfg)
-    H, L = cfg.intermediate_dim, cfg.latent_dim
-    return max(fwd_smem_bytes(in_e, in_d, H, L), bwd_smem_bytes(H, L)) <= _SMEM_LIMIT
+    return fwd_smem_bytes(in_e, in_d, cfg.intermediate_dim, cfg.latent_dim) <= _SMEM_LIMIT
 
 
-# The widest H at which the two-cell route beats the two-loop route in the
-# bf16 stream mode: an H100 (700 W), a training step (loss and backward) at
-# B=1,024, D=88, L=2, T=16, tools/torch_two_cell_gate.py: two-cell faster at
-# H=88 and 256 (1.56x, 1.26x), the two-loop route's tensor-core kernels
-# (csrc/lstm_seq_tc.cu) faster from H=512 (1.79x) to 1,536 (9.10x). In f32
-# (B=200, L=8) the two-cell route was faster at every H measured, 88 to
-# 1,536 (1.14-1.65x).
-BF16_TWO_CELL_MAX_H = 511
+# The widest H at which the two-cell route takes a bf16 config: an H100
+# (700 W), a training step (loss and backward) at B=1,024, D=88, L=2, T=16,
+# tools/torch_two_cell_gate.py, with the two-cell backward of
+# csrc/two_cell_tc.cu: two-cell faster at H=88, 256 and 512 (2.14x, 1.73x,
+# 1.31x), the two-loop route faster from H=768 (1.10x) to 2,048 (2.18-3.38x);
+# the bound sits midway between 512 and 768. In f32 (B=200, L=8) the
+# two-cell route was faster at every H measured, 88 to 2,048 (1.05-2.95x).
+BF16_TWO_CELL_MAX_H = 639
 
 
 def should_use(cfg, two_cell=None) -> bool:
@@ -103,7 +99,7 @@ def should_use(cfg, two_cell=None) -> bool:
 
     An explicit ``two_cell`` (or ``cfg.two_cell``) decides. Unset, the port
     takes the kernel where it accepts the config (no dropout, no remat, the
-    state of one block fits shared memory) and the H100 measurement above
+    state of one forward block fits shared memory) and the H100 measurement above
     says it is the faster route: always in f32, up to
     ``BF16_TWO_CELL_MAX_H`` in the bf16 stream mode. The JAX package's gate
     (256 <= H < 1024, VMEM residency) is a TPU measurement and is not read
@@ -217,10 +213,12 @@ def two_cell_bwd_plain(ze, zd, cpe, ce, cpd, cd, hpe, he, hpd, eps, zargs, xe, x
 
 _lib_lock = threading.Lock()
 _lib = None
+_bwd_lib = None
 
 
 def _kernels():
-    """The built library with its ctypes signatures."""
+    """The built forward library (``csrc/two_cell.cu``) with its ctypes
+    signatures."""
     global _lib
     with _lib_lock:
         if _lib is None:
@@ -228,22 +226,36 @@ def _kernels():
             P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.cvl_two_cell_fwd_smem_bytes.argtypes = [I] * 4
             lib.cvl_two_cell_fwd_smem_bytes.restype = LL
-            lib.cvl_two_cell_bwd_smem_bytes.argtypes = [I] * 2
-            lib.cvl_two_cell_bwd_smem_bytes.restype = LL
-            if (lib.cvl_two_cell_fwd_smem_bytes(101, 101, 256, 8) != fwd_smem_bytes(101, 101, 256, 8)
-                    or lib.cvl_two_cell_bwd_smem_bytes(256, 8) != bwd_smem_bytes(256, 8)):
+            want = fwd_smem_bytes(101, 101, 256, 8)
+            if lib.cvl_two_cell_fwd_smem_bytes(101, 101, 256, 8) != want:
                 raise RuntimeError("shared-memory layout of csrc/two_cell.cu differs from "
-                                   "fwd_smem_bytes / bwd_smem_bytes")
-            for sfx in ("", "_bf16"):
-                fwd, bwd, wgrad = (getattr(lib, f"cvl_two_cell_{n}{sfx}")
-                                   for n in ("fwd", "bwd", "wgrad"))
-                fwd.argtypes = [P] * 27 + [I] * 6 + [P]
-                bwd.argtypes = [P] * 23 + [I] * 6 + [P]
-                wgrad.argtypes = [P] * 18 + [I] * 5 + [P]
-                for fn in (fwd, bwd, wgrad):
-                    fn.restype = I
+                                   "fwd_smem_bytes")
+            for fn in (lib.cvl_two_cell_fwd, lib.cvl_two_cell_fwd_bf16):
+                fn.argtypes = [P] * 27 + [I] * 6 + [P]
+                fn.restype = I
             _lib = lib
         return _lib
+
+
+def _bwd_kernels():
+    """The built backward library (``csrc/two_cell_tc.cu``) with its ctypes
+    signatures."""
+    global _bwd_lib
+    with _lib_lock:
+        if _bwd_lib is None:
+            lib = _build.load("two_cell_tc")
+            P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.cvl_two_cell_part_count.argtypes = [I, I, I]
+            lib.cvl_two_cell_part_count.restype = I
+            lib.cvl_two_cell_grads_scratch.argtypes = [I] * 7
+            lib.cvl_two_cell_grads_scratch.restype = LL
+            for sfx in ("", "_bf16"):
+                walk, grads = (getattr(lib, f"cvl_two_cell_{n}{sfx}") for n in ("walk", "grads"))
+                walk.argtypes = [P] * 24 + [I] * 4 + [P]
+                grads.argtypes = [P] * 25 + [I] * 6 + [P]
+                walk.restype = grads.restype = I
+            _bwd_lib = lib
+        return _bwd_lib
 
 
 def _check(dev, named_shapes: dict, bf16=frozenset()):
@@ -298,7 +310,7 @@ def two_cell_fwd(xe, xd, eps, we, be, rke, wdx, bd, rkd, kz, wz, bz, h0e, c0e, h
     H, L, in_d = rke.shape[0], kz.shape[0], xd.shape[-1]
     if T < 1 or B < 1:
         raise ValueError(f"need T, B >= 1 (got {T}, {B})")
-    if max(fwd_smem_bytes(in_e, in_d, H, L), bwd_smem_bytes(H, L)) > _SMEM_LIMIT:
+    if fwd_smem_bytes(in_e, in_d, H, L) > _SMEM_LIMIT:
         raise ValueError(f"hidden {H} is too wide for the two-cell kernels' shared memory")
     H4 = 4 * H
     bf16 = xe.dtype == torch.bfloat16
@@ -332,11 +344,13 @@ def two_cell_bwd(ze, zd, cpe, ce, cpd, cd, hpe, he, hpd, eps, zargs, xe, xd, dhd
                  we, rke, wdx, rkd, kz, wz):
     """The backward kernel (signature and results of :func:`two_cell_bwd_plain`).
 
-    CUDA tensors launch ``two_cell_bwd_kernel`` (the serial reverse walk,
-    which writes dz and z per step to scratch) and then
-    ``wgrad_kernel<two_cell_wgrad>`` (the weight gradients over all B*T rows,
-    in a fixed order), or raise, in the bf16 stream mode where ze is bf16;
-    CPU tensors take the plain version."""
+    CUDA tensors launch ``csrc/two_cell_tc.cu`` on the current stream (or
+    raise), in the bf16 stream mode where ze is bf16: the reverse walk
+    (per step one product launch over the whole batch, both cells, with the
+    decoder's gates in its epilogue, and one z hand-off launch; it writes dz
+    and z per step to scratch), then the gradient products (dx, the weight
+    gradients, the bias sums from the walk's partial sums), every sum in a
+    fixed order. CPU tensors take the plain version."""
     args = (ze, zd, cpe, ce, cpd, cd, hpe, he, hpd, eps, zargs, xe, xd, dhd, dzargs,
             we, rke, wdx, rkd, kz, wz)
     dev = _device_of(ze)
@@ -345,8 +359,8 @@ def two_cell_bwd(ze, zd, cpe, ce, cpd, cd, hpe, he, hpd, eps, zargs, xe, xd, dhd
     T, B, H4 = ze.shape
     H, L = H4 // 4, kz.shape[0]
     in_e, in_d = xe.shape[-1], xd.shape[-1]
-    if bwd_smem_bytes(H, L) > _SMEM_LIMIT:
-        raise ValueError(f"hidden {H} is too wide for the two-cell kernels' shared memory")
+    if T < 1 or B < 1 or H < 1:
+        raise ValueError(f"need T, B, H >= 1 (got {T}, {B}, {H})")
     s3 = lambda w: (T, B, w)
     bf16 = ze.dtype == torch.bfloat16
     _check(dev, {"ze": (ze, s3(H4)), "zd": (zd, s3(H4)), "cpe": (cpe, s3(H)), "ce": (ce, s3(H)),
@@ -357,36 +371,46 @@ def two_cell_bwd(ze, zd, cpe, ce, cpd, cd, hpe, he, hpd, eps, zargs, xe, xd, dhd
                  "wdx": (wdx, (in_d, H4)), "rkd": (rkd, (H, H4)), "kz": (kz, (L, H4)),
                  "wz": (wz, (H, 2 * L))},
            bf16=BF16_BWD_INPUTS if bf16 else frozenset())
-    lib = _kernels()
+    lib = _bwd_kernels()
     sfx = "_bf16" if bf16 else ""
     sd = torch.bfloat16 if bf16 else torch.float32
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        # the serial pass reads each transposed weight row-wise: dz @ Wᵀ for
-        # the decoder's (Rk_d | Wdx | Kz) and the encoder's (Rk_e | We)
-        wd_t = torch.cat([rkd, wdx, kz], 0).T.contiguous()
-        we_t = torch.cat([rke, we], 0).T.contiguous()
         new = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype, device=dev)
-        dxe, dxd = new(T, B, in_e, dtype=sd), new(T, B, in_d, dtype=sd)
-        dh0 = [new(B, H) for _ in range(4)]
-        dz_e, dz_d, dza, zs = new(T, B, H4), new(T, B, H4), new(T, B, 2 * L), new(T, B, L)
-        ptrs = [t.data_ptr() for t in (ze, zd, cpe, ce, cpd, cd, eps, zargs, dhd, dzargs,
-                                       wd_t, we_t, wz, dxe, dxd, *dh0, dz_e, dz_d, dza, zs)]
-        err = getattr(lib, f"cvl_two_cell_bwd{sfx}")(*ptrs, T, B, in_e, in_d, H, L, stream)
+        # dz of both cells as the products' operand, the z hand-off's dzargs
+        # and z, the bias partial sums per (step, row tile); the carries
+        dze, dzd = new(T, B, H4, dtype=sd), new(T, B, H4, dtype=sd)
+        dza, zs = new(T, B, 2 * L), new(T, B, L)
+        part_e = new(T * lib.cvl_two_cell_part_count(B, int(bf16), 0), H4)
+        part_d = new(T * lib.cvl_two_cell_part_count(B, int(bf16), 1), H4)
+        dh0e, dh0d = new(B, H), new(B, H)
+        dc0e, dc0d = (torch.zeros((B, H), device=dev) for _ in range(2))
+        ptrs = [t.data_ptr() for t in (ze, zd, cpe, ce, cpd, cd, eps, zargs, dhd, dzargs, rke,
+                                       rkd, kz, wz, dze, dzd, dza, zs, part_e, part_d, dh0e,
+                                       dc0e, dh0d, dc0d)]
+        err = getattr(lib, f"cvl_two_cell_walk{sfx}")(*ptrs, T, B, H, L, stream)
         if err != 0:
-            raise RuntimeError(f"two_cell backward kernel launch failed: CUDA error {err}")
+            raise RuntimeError(f"two_cell backward walk launch failed: CUDA error {err}")
         _count("bwd", 1, bf16)
-        # drke, dwe, dbe, drkd, dwdx, dkz, dbd, dwz, dbz
+        # dxe, dxd; drke, dwe, dbe, drkd, dwdx, dkz, dbd, dwz, dbz
+        dxe, dxd = new(T, B, in_e, dtype=sd), new(T, B, in_d, dtype=sd)
         wgrads = (new(H, H4, dtype=sd), new(in_e, H4, dtype=sd), new(H4), new(H, H4, dtype=sd),
                   new(in_d, H4, dtype=sd), new(L, H4, dtype=sd), new(H4),
                   new(H, 2 * L, dtype=sd), new(2 * L))
-        ptrs = [t.data_ptr() for t in (hpe, xe, dz_e, hpd, xd, zs, dz_d, he, dza, *wgrads)]
-        err = getattr(lib, f"cvl_two_cell_wgrad{sfx}")(*ptrs, T * B, in_e, in_d, H, L, stream)
+        # the segments of the weight-gradient sums; in the bf16 mode the
+        # tensor-core dW products read x with rows padded to 16 bytes
+        scratch = new(lib.cvl_two_cell_grads_scratch(T, B, in_e, in_d, H, L, int(bf16)))
+        pad8 = lambda x: (torch.nn.functional.pad(x, (0, -x.shape[-1] % 8))
+                          if bf16 and x.shape[-1] % 8 else x)
+        xe_k, xd_k = pad8(xe), pad8(xd)
+        ptrs = [t.data_ptr() for t in (dze, dzd, dza, zs, part_e, part_d, hpe, he, hpd, xe_k,
+                                       xd_k, we, wdx, dxe, dxd, *wgrads, scratch)]
+        err = getattr(lib, f"cvl_two_cell_grads{sfx}")(*ptrs, T, B, in_e, in_d, H, L, stream)
     if err != 0:
-        raise RuntimeError(f"two_cell weight-gradient kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"two_cell gradient products launch failed: CUDA error {err}")
     _count("bwd", 1, bf16)
     drke, dwe, dbe, drkd, dwdx, dkz, dbd, dwz, dbz = wgrads
-    return (dxe, dxd, *dh0, drke, drkd, dwe, dwdx, dkz, dwz, dbe, dbd, dbz)
+    return (dxe, dxd, dh0e, dc0e, dh0d, dc0d, drke, drkd, dwe, dwdx, dkz, dwz, dbe, dbd, dbz)
 
 
 # ------------------------------------------------------------ autograd

@@ -173,7 +173,7 @@ def test_int8_kernel_matches_plain(dev, case):
     frames_mostly_equal(fk, fp)
 
 
-# ---- the two-cell training kernels (csrc/two_cell.cu)
+# ---- the two-cell training kernels (csrc/two_cell.cu, csrc/two_cell_tc.cu)
 #
 # Forward outputs within 1e-5 (same f32 products, other summation order);
 # backward outputs within max|a - b| <= 1e-4 * max|b| + 1e-6 (the weight
@@ -186,6 +186,9 @@ TWO_CELL_CASES = {
     "no_x_prev": dict(B=8, T=4, H=32, L=2, use_x_prev=False),
     "two_unit_passes": dict(B=9, T=3, H=300, L=4),
     "one_step": dict(B=6, T=1, H=24, L=2),
+    # the input width 101 (D=88, K=13), H not a multiple of 8, rows past a
+    # backward tile and a hand-off group
+    "width_101": dict(B=70, T=3, H=20, L=9, D=88, K=13),
 }
 
 

@@ -369,9 +369,11 @@ def test_should_use():
     assert ttc.should_use(mk(intermediate_dim=88))
     assert ttc.should_use(mk(intermediate_dim=256, latent_dim=8))
     assert ttc.should_use(mk(intermediate_dim=1024))
+    assert ttc.should_use(mk(intermediate_dim=2048, latent_dim=8))  # the backward has no cap
     assert ttc.should_use(mk(intermediate_dim=256, bf16_compute=True))
+    assert ttc.should_use(mk(intermediate_dim=512, bf16_compute=True))
     assert ttc.should_use(mk(intermediate_dim=ttc.BF16_TWO_CELL_MAX_H, bf16_compute=True))
-    assert not ttc.should_use(mk(intermediate_dim=512, bf16_compute=True))
+    assert not ttc.should_use(mk(intermediate_dim=768, bf16_compute=True))
     assert not ttc.should_use(mk(intermediate_dim=1536, bf16_compute=True))
     assert ttc.should_use(mk(intermediate_dim=1536, bf16_compute=True), two_cell=True)
     assert not ttc.should_use(mk(intermediate_dim=256, dropout=0.1))

@@ -16,6 +16,14 @@ and shared memory (228 KB a SM, 227 KB a block) at the block size given in
 ``--threads`` (kernel-name substring=threads; unnamed kernels are listed
 without it) and the dynamic shared memory given in ``--smem``. Needs
 ``nvcc`` and ``cuobjdump`` (the CUDA toolkit); runs no kernel.
+
+    python3 tools/torch_kernel_resources.py --clusters 8 16 [--cluster_smem B]
+
+asks the card instead (``cudaOccupancyMaxActiveClusters``, needs the card)
+how many thread-block clusters of each size it can hold at once, for a
+probe kernel of 256 threads with B bytes of dynamic shared memory a block
+(131,072 by default: a 16-block cluster's slice of 2 MiB of f32 weights);
+sizes above 8 ask for the non-portable cluster sizes.
 """
 
 from __future__ import annotations
@@ -116,6 +124,55 @@ def report(src: Path, threads: dict[str, int], smem: dict[str, int]) -> None:
         print(line)
 
 
+CLUSTER_PROBE = r"""
+#include <cuda_runtime.h>
+__global__ void __launch_bounds__(256) cluster_probe(float* out) {
+  extern __shared__ float s[];
+  s[threadIdx.x] = (float)threadIdx.x;
+  __syncthreads();
+  if (out) out[blockIdx.x] = s[0];
+}
+extern "C" int cvl_max_clusters(int cluster, int smem, int* result) {
+  cudaError_t e = cudaFuncSetAttribute(cluster_probe,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (!e && cluster > 8)
+    e = cudaFuncSetAttribute(cluster_probe, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster * 132);
+  cfg.blockDim = dim3(256);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(result, (void*)cluster_probe, &cfg);
+}
+"""
+
+
+def max_clusters(sizes: list[int], smem: int) -> None:
+    """Print how many clusters of each size the card holds at once."""
+    import ctypes
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, lib = os.path.join(tmp, "probe.cu"), os.path.join(tmp, "libprobe.so")
+        Path(src).write_text(CLUSTER_PROBE)
+        subprocess.run([_tool("nvcc"), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                        "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", lib, src], check=True)
+        fn = ctypes.CDLL(lib).cvl_max_clusters
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        for size in sizes:
+            n = ctypes.c_int(-1)
+            err = fn(size, smem, ctypes.byref(n))
+            print(f"clusters of {size} blocks (256 threads, {smem} B dynamic shared each): "
+                  + (f"{n.value} at once ({n.value * size} blocks)" if err == 0
+                     else f"refused, CUDA error {err}"))
+
+
 def _pairs(items):
     out = {}
     for item in items or ():
@@ -129,7 +186,12 @@ def main(argv=None) -> int:
     ap.add_argument("sources", nargs="*", type=Path)
     ap.add_argument("--threads", nargs="*", help="kernel-name substring=threads per block")
     ap.add_argument("--smem", nargs="*", help="kernel-name substring=dynamic shared bytes")
+    ap.add_argument("--clusters", nargs="*", type=int, help="cluster sizes to ask the card for")
+    ap.add_argument("--cluster_smem", type=int, default=131072)
     a = ap.parse_args(argv)
+    if a.clusters:
+        max_clusters(a.clusters, a.cluster_smem)
+        return 0
     for src in a.sources or sorted(CSRC.glob("*.cu")):
         report(src.resolve(), _pairs(a.threads), _pairs(a.smem))
     return 0

@@ -4,8 +4,8 @@ timed against each other on one CUDA card at equal shapes.
 
     python3 tools/torch_two_cell_gate.py [--reps 5]
 
-The two-cell route (``csrc/two_cell.cu``: encoder and decoder in one
-forward and one backward kernel) and the two-loop route (``two_cell``
+The two-cell route (``csrc/two_cell.cu`` and ``csrc/two_cell_tc.cu``:
+encoder and decoder in one forward and one backward kernel) and the two-loop route (``two_cell``
 off: each LSTM through the whole-sequence kernels, ``csrc/lstm_seq.cu`` in
 f32, ``csrc/lstm_seq_tc.cu`` in bf16) compute the same function; the port's
 ``ops/two_cell.should_use`` picks one when a config leaves ``two_cell``
@@ -13,7 +13,8 @@ unset. A step here is ``loss_and_metrics`` and its backward (the optimizer
 is the same on both routes), on the model's seeded Keras init and seeded
 windows: D=88, T=16, use_x_prev, 13 keys, the default fusion rung; bf16 at
 B=1,024, L=2 (the JAX package's scale work) and f32 at B=200, L=8
-(``chip_smoke.py`` phase 5's shape), H in {88, 256, 512, 1,024, 1,536}.
+(``chip_smoke.py`` phase 5's shape), H in {88, 256, 512, 768, 1,024,
+1,536, 2,048}.
 Each route is timed with CUDA events (after two warm-up steps) in the order
 two-cell, two-loop, two-loop, two-cell; the launch counts of the step show
 which kernels ran. Prints the card's name and power limit first and one line
@@ -31,7 +32,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-HIDDEN = (88, 256, 512, 1024, 1536)
+HIDDEN = (88, 256, 512, 768, 1024, 1536, 2048)
 MODES = (("bf16", 1024, 2), ("f32", 200, 8))  # stream mode, batch, latent_dim
 D, T, K = 88, 16, 13
 
