@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 8,9,18,19]
 
 Needs one CUDA card, ``nvcc`` and the repository checkout (the kernels are
 built from ``classifying_vae_lstm_tpu_torch/csrc`` into
@@ -13,7 +13,9 @@ failure:
    ``cuobjdump -sass`` of the built ``csrc/lstm_seq_tc.cu``: every
    instance of its product kernels holds tensor-core (HMMA) instructions;
    of ``csrc/two_cell_tc.cu``: its bf16 product kernels (walk, dx, dW) do
-   and its f32 kernels hold none (FFMA only);
+   and its f32 kernels hold none (FFMA only); of ``csrc/vae_dense_tc.cu``:
+   its product kernels (the row chain's and the weight gradients') do; of
+   ``csrc/lstm_bwd_f32.cu``: none (FFMA only);
 2. kernel vs plain version, f32, on the trained ``artifacts/jsball_vrnn4``
    weights at the largest serving bucket (64 songs, 32 seed + 256 steps):
    probabilities with u=1 within 1e-5, and sampled frames equal up to each
@@ -49,7 +51,10 @@ failure:
    seeded rows for 13 keys), the inference forward at the evaluation shape
    (64 importance samples x 200 windows = 12,800 rows, the trained weights);
    forward outputs within 1e-5, backward outputs within 1e-4 * max|plain| +
-   1e-6; kernel and plain times with CUDA events beside each kernel's bound;
+   1e-6, a second backward call bitwise equal; kernel and plain times with
+   CUDA events beside each kernel's bound, and the backward's device time
+   split between the walk, dx and the weight gradients (the f32 full
+   backward is ``csrc/lstm_bwd_f32.cu``: 0 HMMA);
 9. the ``--two_cell off`` training path: ``cli.cl_vrnn_train --lstm_backend
    pallas --two_cell off`` for 2 epochs from phase 6's seed; the LSTM kernel
    counts are set to 0 just before and read just after and must equal the
@@ -57,6 +62,7 @@ failure:
    launches, per eval batch 2 inference-forward launches; two-cell counts
    0), losses finite and falling, the first epoch's train loss equal to
    phase 6's within 1e-3 relative, and no plain version on CUDA tensors;
+   a step's wall time beside its device-busy time and idle share;
 10. the evaluation path: ``cli.evaluate`` of ``artifacts/jsball_vrnn4`` on
    ``Piano-midi_Cs`` (4,468 test windows, 64 samples, batches of 200)
    through ``--lstm_backend pallas`` (46 inference-forward launches, counts
@@ -116,15 +122,19 @@ failure:
    Frobenius (same rounding points, f32 sums in another order); each
    parameter gradient of the loss on the kernel route within 3x the plain
    bf16 route's error against the f32 truth + 2% of its norm, the weight
-   gradients bf16-representable and the bias gradients not rounded; times
-   beside the bound at the bf16 rate;
+   gradients bf16-representable and the bias gradients not rounded; a
+   second backward call bitwise equal; times beside the bound at the bf16
+   rate, and the backward's device time (``csrc/vae_dense_tc.cu``) split
+   between the row-chain products, the row kernels and the weight
+   gradients;
 19. the bf16 paths: ``cli.cl_vae_train --seq_length 16 --intermediate_dim
    1024 --intermediate_class_dim 256 --latent_dim 16 --bf16_compute
    --train_backend pallas`` for 2 epochs on the committed corpus (D=1,024;
    bf16 counts set to 0 just before and read just after, equal to the run's
    steps), then 1 epoch of ``xla`` from the same seed (first-epoch loss
-   within 1e-2 relative), a step's time split, ``cli.evaluate --family
-   cl_vae`` of the checkpoint; then a bf16 H=512 model at D=88 trained
+   within 1e-2 relative), a step's time split (wall, device busy, idle
+   share), ``cli.evaluate --family cl_vae`` of the checkpoint; then a bf16
+   H=512 model at D=88 trained
    through the kernels, sampled by ``cli.cl_vae_sample`` and served by
    ``cli.serve`` through the wide kernel (launches equal to the engine's
    device calls), and a model without hidden layers sampled through it;
@@ -212,7 +222,8 @@ failure:
    H=256, ``--two_cell off``): 1 epoch each of fusion (T, T, F), (F, T, F)
    and (F, F, F) in f32 and (F, F, F) and (T, T, F) in bf16, set through
    ``args.fusion``; each run's counts equal its steps, every other 0, the
-   f32 runs' first-epoch loss within 1e-3 relative of phase 9's; then
+   f32 runs' first-epoch loss within 1e-3 relative of phase 9's, each
+   run's step wall time beside its device-busy time and idle share; then
    ``cli.evaluate`` of the (F, F, F) f32 checkpoint through the unfused
    inference forward (2 a batch) and ``xla`` (NLLs within 1e-4);
 29. the int8 generation kernels vs their plain versions on seeded glorot
@@ -242,7 +253,10 @@ failure:
 The run fails if a thread it started is still running at the end.
 
 The last lines are the kernel table (one JSON object), the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.
+power limit, and ``{"ok": true, "device": {...}}``. ``--phases`` runs only
+the phases named, with phase 1 and the phases whose results they read (for
+example to time two checkouts' training paths in turns in one call); such a
+run prints neither the table nor the result line.
 """
 
 from __future__ import annotations
@@ -364,8 +378,9 @@ def phase_build():
     for name, log in logs.items():
         print(f"--- nvcc csrc/{name}.cu ---\n{log.strip()}")
     print(f"kernel build: {build_s:.2f} s for {sorted(logs) or 'no sources (already built)'}")
-    require(set(_build.sources()) == {"generate_cl_vae", "generate_cl_vrnn", "lstm_seq",
-                                      "lstm_seq_tc", "two_cell", "two_cell_tc", "vae_dense"},
+    require(set(_build.sources()) == {"generate_cl_vae", "generate_cl_vrnn", "lstm_bwd_f32",
+                                      "lstm_seq", "lstm_seq_tc", "two_cell", "two_cell_tc",
+                                      "vae_dense", "vae_dense_tc"},
             f"sources {_build.sources()}")
 
 
@@ -380,15 +395,19 @@ TC_KERNELS = ("lstm_tc_proj_kernel", "lstm_tc_step_kernel", "lstm_tc_bwd_step_ke
 TWO_CELL_TC = ("two_cell_walk_tc_kernel", "two_cell_dx_tc_kernel", "two_cell_dw_tc_kernel")
 TWO_CELL_F32 = ("two_cell_walk_f32_kernel", "two_cell_dx_f32_kernel", "two_cell_handoff_kernel",
                 "two_cell_dw_narrow_kernel", "wgrad_kernel")
+# the bf16 dense-stack backward's product kernels (csrc/vae_dense_tc.cu), on
+# the tensor cores; the f32 LSTM full backward's (csrc/lstm_bwd_f32.cu), FFMA
+VAE_TC = ("vae_tc_product_kernel", "vae_tc_dw_kernel")
+LSTM_BWD_F32 = ("lstm_bwd_walk_kernel", "lstm_bwd_dx_kernel", "wgrad_kernel")
 
 
-def two_cell_hmma(names) -> dict:
-    """HMMA / HGMMA count per kernel of the built ``csrc/two_cell_tc.cu``
-    whose mangled name holds one of ``names`` (``cuobjdump -sass``)."""
+def hmma_counts(source, names) -> dict:
+    """HMMA / HGMMA count per kernel of the built ``csrc/<source>.cu`` whose
+    mangled name holds one of ``names`` (``cuobjdump -sass``)."""
     from classifying_vae_lstm_tpu_torch.ops import _build
     from tools.torch_kernel_resources import sass_counts
 
-    counts = sass_counts(str(_build._lib_path("two_cell_tc")))
+    counts = sass_counts(str(_build._lib_path(source)))
     return {k: [c["hmma"] for n, c in counts.items() if k in n] for k in names}
 
 
@@ -407,13 +426,20 @@ def phase_tensor_cores():
     require(all(names and all(counts[n] > 0 for n in names) for names in found.values()),
             f"a product kernel of csrc/lstm_seq_tc.cu runs without tensor-core instructions: "
             f"{counts}")
-    tc16, f32 = two_cell_hmma(TWO_CELL_TC), two_cell_hmma(TWO_CELL_F32)
+    tc16, f32 = hmma_counts("two_cell_tc", TWO_CELL_TC), hmma_counts("two_cell_tc", TWO_CELL_F32)
     print(f"tensor-core instructions in csrc/two_cell_tc.cu: bf16 products {tc16}; f32 mode "
           f"{f32}")
     require(all(v and all(c > 0 for c in v) for v in tc16.values()),
             f"a bf16 product kernel of csrc/two_cell_tc.cu runs without tensor cores: {tc16}")
     require(all(v and not any(v) for v in f32.values()),
             f"an f32 kernel of csrc/two_cell_tc.cu holds tensor-core instructions: {f32}")
+    vae16, lstm32 = hmma_counts("vae_dense_tc", VAE_TC), hmma_counts("lstm_bwd_f32", LSTM_BWD_F32)
+    print(f"tensor-core instructions in csrc/vae_dense_tc.cu's products {vae16}; in "
+          f"csrc/lstm_bwd_f32.cu {lstm32}")
+    require(all(v and all(c > 0 for c in v) for v in vae16.values()),
+            f"a product kernel of csrc/vae_dense_tc.cu runs without tensor cores: {vae16}")
+    require(all(v and not any(v) for v in lstm32.values()),
+            f"a kernel of csrc/lstm_bwd_f32.cu holds tensor-core instructions: {lstm32}")
 
 
 def phase_f32(dev):
@@ -718,7 +744,7 @@ def phase_two_cell(dev):
           f"bound {bb_ms:.4f} ms ({bb_by})")
     print("two-cell backward, device time: "
           + device_split(lambda: tc.two_cell_bwd(*res), 10, TWO_CELL_BWD_PARTS)
-          + f"; HMMA per f32 kernel (FFMA only, no TF32): {two_cell_hmma(TWO_CELL_F32)}")
+          + f"; HMMA per f32 kernel (FFMA only, no TF32): {hmma_counts('two_cell_tc', TWO_CELL_F32)}")
     return ({"max_abs_err": fwd_err, "ms": fk_ms, "plain_ms": fp_ms, "bound_ms": fb_ms,
              "bound_by": fb_by},
             {"max_abs_err": bwd_err, "ms": bk_ms, "plain_ms": bp_ms, "bound_ms": bb_ms,
@@ -1107,6 +1133,18 @@ def device_split(fn, n, parts):
         f" (all kernels {sum(dev_us(e) for e in rows) / (n * 1e3):.3f} ms)"
 
 
+# the f32 full backward's parts (csrc/lstm_bwd_f32.cu), by kernel name: the
+# walk's per-step products with the gates, dx, dRk / dW and db
+LSTM_BWD_PARTS = {"walk": ("lstm_bwd_walk",), "dx": ("lstm_bwd_dx",),
+                  "weight gradients": ("wgrad_",)}
+# the bf16 dense-stack backward's parts (csrc/vae_dense_tc.cu): the wide
+# row-chain products, the head and the two narrow row kernels, the weight
+# gradients (wide on the tensor cores, narrow and the bias sums)
+VAE_TC_PARTS = {"row-chain products": ("vae_tc_product",),
+                "row kernels": ("vae_tc_head", "vae_tc_latent", "vae_tc_key"),
+                "weight gradients": ("vae_tc_dw", "wgrad_"),
+                "of which narrow and bias sums": ("wgrad_",)}
+
 # the two-cell backward's parts, by kernel name: the serial walk (the
 # per-step products with the decoder's gates, and the z hand-off with the
 # encoder's gates), the hoisted dx products, the weight gradients
@@ -1183,9 +1221,10 @@ def _lstm_inputs(rng, dev, raw_cell, B, T, D, H):
 
 def phase_lstm_seq(dev):
     """The three whole-sequence LSTM kernels against their plain versions:
-    all three at the training shape (both cells), the inference forward at
-    the evaluation shape (both cells). Returns the kernel-table fields of
-    each, from the encoder cell."""
+    all three at the training shape (both cells; the backward on the
+    transposed views of Rk and W that ``LstmSeqCore`` passes, twice, bitwise
+    equal), the inference forward at the evaluation shape (both cells).
+    Returns the kernel-table fields of each, from the encoder cell."""
     import numpy as np
     import torch
 
@@ -1224,10 +1263,12 @@ def phase_lstm_seq(dev):
         dh = torch.from_numpy((1e-2 * rng.standard_normal(tuple(h.shape))).astype(np.float32))
         dc = torch.zeros_like(dh)
         dc[-1] = torch.from_numpy((1e-2 * rng.standard_normal((B, H))).astype(np.float32))
-        res = (z, cp, c, hp, x, dh.to(dev), dc.to(dev), rk.T.contiguous(), w.T.contiguous())
+        res = (z, cp, c, hp, x, dh.to(dev), dc.to(dev), rk.T, w.T)
         bgot = ls.lstm_seq_bwd(*res)
         bwant = ls.lstm_seq_bwd_plain(*res)
         torch.cuda.synchronize()
+        same_bits(ls.lstm_seq_bwd, res, bgot, ("dx", "dh0", "dc0", "drk", "dw", "db"),
+                  f"lstm_seq {cell} f32 backward")
         bad, rel = [], {}
         for n, g, wv in zip(("dx", "dh0", "dc0", "drk", "dw", "db"), bgot, bwant):
             err, scale = (g - wv).abs().max().item(), wv.abs().max().item()
@@ -1254,7 +1295,9 @@ def phase_lstm_seq(dev):
         print(f"lstm_seq {cell} at the training shape: training forward {tk:.3f} / {tk2:.3f} ms "
               f"(plain {tp:.3f}, bound {tb_ms:.4f} {tb_by}); inference forward {ik:.3f} / "
               f"{ik2:.3f} ms; backward "
-              f"(2 launches) {bk:.3f} ms (plain {bp:.3f}, bound {bb_ms:.4f} {bb_by})")
+              f"({T + 5} device launches) {bk:.3f} ms (plain {bp:.3f}, bound {bb_ms:.4f} "
+              f"{bb_by}); device: {device_split(lambda: ls.lstm_seq_bwd(*res), 10, LSTM_BWD_PARTS)}; "
+              f"HMMA per kernel {hmma_counts('lstm_bwd_f32', LSTM_BWD_F32)} (FFMA only)")
         if cell == "encoder_h":
             table["train_fwd"] = {"max_abs_err": max(errs.values()), "ms": tk, "plain_ms": tp,
                                   "bound_ms": tb_ms, "bound_by": tb_by}
@@ -1634,19 +1677,21 @@ def dense_times(vd, label, cfg, B, ins, outs, res, got, reps, peak=PEAK_F32_FLOP
     F = vae_dense_fmas(cfg)
     n_bias = (cfg.intermediate_class_dim + 2 * (K - 1) + 2 * cfg.intermediate_dim + 2 * L + D)
     live = lambda ts: [t for t in ts if t is not None]
+    # the bf16 backward is csrc/vae_dense_tc.cu's 8 launches (9 past 128 rows)
+    n_bwd = (9 if B > 128 else 8) if peak == PEAK_BF16_FLOPS else 2
     fb_ms, fb_by = roofline_ms(B * F, _nbytes(live(ins)) + _nbytes(outs), peak)
     # the row pass (every weight once, transposed) + every dW and bias sum
     bb_ms, bb_by = roofline_ms(B * (2 * F + n_bias), _nbytes(live(res)) + _nbytes(live(got)),
                                peak)
     print(f"vae_dense {label} shape: forward kernel {fk[0]:.4f} / {fk[3]:.4f} ms, plain "
           f"(cuBLAS products) {fk[1]:.4f} / {fk[2]:.4f} ms, kernel/plain "
-          f"{fk[0] / fk[1]:.2f}, bound {fb_ms:.5f} ms ({fb_by}); backward kernel (2 launches) "
+          f"{fk[0] / fk[1]:.2f}, bound {fb_ms:.5f} ms ({fb_by}); backward kernel ({n_bwd} launches) "
           f"{bk[0]:.4f} / {bk[3]:.4f} ms, plain {bk[1]:.4f} / {bk[2]:.4f} ms, kernel/plain "
           f"{bk[0] / bk[1]:.2f}, bound {bb_ms:.5f} ms ({bb_by}); shared memory "
           f"{vd.smem_bytes(cfg)} B per block")
     # device time alone (the CUDA-event times above include the wrappers'
     # host work, which sets them at the training shape)
-    dt = {n: device_ms_per_call(fn, 20, "vae_dense")
+    dt = {n: device_ms_per_call(fn, 20, "vae_")
           for n, fn in (("forward", lambda: vd.vae_dense_fwd(*ins)),
                         ("plain forward", lambda: vd.vae_dense_fwd_plain(*ins)),
                         ("backward", lambda: vd.vae_dense_bwd(*res)),
@@ -2020,6 +2065,12 @@ def phase_vae_dense_bf16(dev):
                     for n, t in types.items()), f"gradient types {types}")
         bwd_err = max((g.float() - wv.float()).abs().max().item()
                       for g, wv in zip(got, want) if wv is not None)
+        live = [(n, g) for n, g in zip(gnames, got) if g is not None]
+        same_bits(lambda *a: [g for g in vd.vae_dense_bwd(*a) if g is not None], res,
+                  [g for _, g in live], [n for n, _ in live],
+                  f"vae_dense bf16 backward, {label} shape")
+        print(f"vae_dense bf16 backward, {label} shape, device: "
+              f"{device_split(lambda: vd.vae_dense_bwd(*res), 10, VAE_TC_PARTS)}")
 
         # each parameter gradient of the loss against the f32 truth: kernel
         # route bf16 vs plain route bf16 (the JAX test's bound)
@@ -2617,7 +2668,7 @@ def phase_two_cell_bf16(dev):
           f"plain {bp_ms:.3f} ms, bound {bb_ms:.4f} ms ({bb_by}, bf16 rate)")
     print("two-cell bf16 backward, device time: "
           + device_split(lambda: tc.two_cell_bwd(*res), 10, TWO_CELL_BWD_PARTS)
-          + f"; HMMA per bf16 product kernel: {two_cell_hmma(TWO_CELL_TC)}")
+          + f"; HMMA per bf16 product kernel: {hmma_counts('two_cell_tc', TWO_CELL_TC)}")
     del outs, ref, got, want, res, ins
     torch.cuda.empty_cache()
     return ({"max_abs_err": fwd_err, "ms": fk_ms, "plain_ms": fp_ms, "bound_ms": fb_ms,
@@ -3224,6 +3275,7 @@ def phase_other_rungs(model_dir, first_loss):
             require(margs["fusion"] == fusion and margs.get("bf16_compute", False) == bf16,
                     f"args.json {margs}")
             require(bf16 or rel <= 1e-3, f"fusion {label}: first-epoch loss differs by {rel}")
+            phase_train_breakdown(seen, f"fusion {label} LSTM kernels", "lstm_")
             totals = {n: totals[n] + counts[n] for n in LSTM_COUNTS}
             if fusion == [False, False, False] and not bf16:
                 ckpt = last_checkpoint(seen["ckpt"])
@@ -3654,7 +3706,34 @@ def phase_lstm_bf16_sweep(dev):
     print(f"phase 31 (bf16 sweep): {time.perf_counter() - t0:.1f} s")
 
 
-def main() -> int:
+# the phases whose results a phase reads: a selection runs them too
+NEEDS = {7: (6,), 9: (6,), 10: (9,), 13: (12,), 16: (15,), 22: (10, 21), 25: (24,), 28: (9,)}
+
+
+def selected_phases(spec):
+    """The phases to run: every one for ``None``, else the comma-separated
+    numbers in ``spec``, phase 1 (the build) and what they read from."""
+    if spec is None:
+        return set(range(1, 32))
+    run = {1} | {int(n) for n in spec.split(",") if n.strip()}
+    require(run <= set(range(1, 32)), f"phases are 1 .. 31, got {spec}")
+    while True:
+        more = {d for n in run for d in NEEDS.get(n, ())} - run
+        if not more:
+            return run
+        run |= more
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phase numbers to run (with phase 1 and the phases "
+                         "they read from); only a run of every phase, the default, prints the "
+                         "kernel table and the result line")
+    run = selected_phases(ap.parse_args(argv).phases)
+    want = run.__contains__
     import torch
 
     if not torch.cuda.is_available():
@@ -3669,64 +3748,107 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     phase_build()
     phase_tensor_cores()
-    f32 = phase_f32(dev)
-    phase_bf16(dev)
-    launches = phase_serve()
-    fwd, bwd = phase_two_cell(dev)
-    lstm = phase_lstm_seq(dev)
-    with tempfile.TemporaryDirectory() as model_dir:
-        fwd_launches, bwd_launches, seen = phase_train(model_dir)
-        phase_train_breakdown(seen)
-        phase_checkpoint_serves(seen["ckpt"])
-        train_fwd_launches, lstm_bwd_launches, seen_off = phase_train_two_loop(
-            model_dir, seen["history"]["loss"][0])
-        phase_train_breakdown(seen_off, "LSTM kernels", "lstm_seq")
-        eval_launches, nll_f32 = phase_evaluate(seen_off["ckpt"])
-    vae = phase_vae(dev)
-    vae_launches = phase_vae_serve()
-    with tempfile.TemporaryDirectory() as sample_dir:
-        vae_launches += phase_sample_clis(sample_dir)
-    dense = phase_vae_dense(dev)
-    with tempfile.TemporaryDirectory() as model_dir:
-        dense_fwd, dense_bwd, seen_vae = phase_vae_train(model_dir)
-        phase_train_breakdown(seen_vae, "dense-stack kernels", "vae_dense")
+    if want(2):
+        f32 = phase_f32(dev)
+    if want(3):
+        phase_bf16(dev)
+    if want(4):
+        launches = phase_serve()
+    if want(5):
+        fwd, bwd = phase_two_cell(dev)
+    if want(8):
+        lstm = phase_lstm_seq(dev)
+    if want(6):
+        with tempfile.TemporaryDirectory() as model_dir:
+            fwd_launches, bwd_launches, seen = phase_train(model_dir)
+            phase_train_breakdown(seen)
+            if want(7):
+                phase_checkpoint_serves(seen["ckpt"])
+            if want(9):
+                train_fwd_launches, lstm_bwd_launches, seen_off = phase_train_two_loop(
+                    model_dir, seen["history"]["loss"][0])
+                phase_train_breakdown(seen_off, "LSTM kernels", "lstm_")
+            if want(10):
+                eval_launches, nll_f32 = phase_evaluate(seen_off["ckpt"])
+    if want(11):
+        vae = phase_vae(dev)
+    if want(12):
+        vae_launches = phase_vae_serve()
+    if want(13):
         with tempfile.TemporaryDirectory() as sample_dir:
-            phase_vae_evaluate(seen_vae["ckpt"], sample_dir)
-    wide = phase_vae_wide(dev)
-    dense16 = phase_vae_dense_bf16(dev)
-    with tempfile.TemporaryDirectory() as model_dir, tempfile.TemporaryDirectory() as sample_dir:
-        bf16_fwd, bf16_bwd, seen_seq = phase_vae_bf16_train(model_dir)
-        phase_train_breakdown(seen_seq, "dense-stack kernels", "vae_dense")
-        phase_vae_bf16_evaluate(seen_seq["ckpt"])
-        wide_launches = phase_vae_repair(model_dir, sample_dir)
-    lstm16 = phase_lstm_seq_bf16(dev)
-    with tempfile.TemporaryDirectory() as model_dir, tempfile.TemporaryDirectory() as sample_dir:
-        bf16_train_fwd, bf16_bwd_launches, seen_h = phase_train_bf16(model_dir)
-        phase_train_breakdown(seen_h, "LSTM kernels", "lstm_seq")
-        bf16_eval = phase_evaluate_bf16(seen_h["ckpt"], sample_dir, nll_f32)
-    tc16 = phase_two_cell_bf16(dev)
-    with tempfile.TemporaryDirectory() as model_dir, tempfile.TemporaryDirectory() as sample_dir:
-        tc16_fwd, tc16_bwd, seen_tc = phase_train_two_cell_bf16(model_dir)
-        phase_train_breakdown(seen_tc, "two-cell kernels", "two_cell")
-        phase_evaluate_two_cell_bf16(seen_tc["ckpt"], sample_dir)
-    rungs = phase_lstm_rungs(dev)
-    with tempfile.TemporaryDirectory() as model_dir, tempfile.TemporaryDirectory() as sample_dir:
-        walk16_launches, _, seen_w = phase_train_h2048(model_dir)
-        phase_train_breakdown(seen_w, "LSTM kernels", "lstm_seq")
-        phase_evaluate_h2048(last_checkpoint(seen_w["ckpt"]), sample_dir)
-    with tempfile.TemporaryDirectory() as model_dir:
-        other = phase_other_rungs(model_dir, seen_off["history"]["loss"][0])
+            vae_launches += phase_sample_clis(sample_dir)
+    if want(14):
+        dense = phase_vae_dense(dev)
+    if want(15):
+        with tempfile.TemporaryDirectory() as model_dir:
+            dense_fwd, dense_bwd, seen_vae = phase_vae_train(model_dir)
+            phase_train_breakdown(seen_vae, "dense-stack kernels", "vae_dense")
+            if want(16):
+                with tempfile.TemporaryDirectory() as sample_dir:
+                    phase_vae_evaluate(seen_vae["ckpt"], sample_dir)
+    if want(17):
+        wide = phase_vae_wide(dev)
+    if want(18):
+        dense16 = phase_vae_dense_bf16(dev)
+    if want(19):
+        with (tempfile.TemporaryDirectory() as model_dir,
+              tempfile.TemporaryDirectory() as sample_dir):
+            bf16_fwd, bf16_bwd, seen_seq = phase_vae_bf16_train(model_dir)
+            phase_train_breakdown(seen_seq, "dense-stack kernels", "vae_")
+            phase_vae_bf16_evaluate(seen_seq["ckpt"])
+            wide_launches = phase_vae_repair(model_dir, sample_dir)
+    if want(20):
+        lstm16 = phase_lstm_seq_bf16(dev)
+    if want(21):
+        with (tempfile.TemporaryDirectory() as model_dir,
+              tempfile.TemporaryDirectory() as sample_dir):
+            bf16_train_fwd, bf16_bwd_launches, seen_h = phase_train_bf16(model_dir)
+            phase_train_breakdown(seen_h, "LSTM kernels", "lstm_seq")
+            if want(22):
+                bf16_eval = phase_evaluate_bf16(seen_h["ckpt"], sample_dir, nll_f32)
+    if want(23):
+        tc16 = phase_two_cell_bf16(dev)
+    if want(24):
+        with (tempfile.TemporaryDirectory() as model_dir,
+              tempfile.TemporaryDirectory() as sample_dir):
+            tc16_fwd, tc16_bwd, seen_tc = phase_train_two_cell_bf16(model_dir)
+            phase_train_breakdown(seen_tc, "two-cell kernels", "two_cell")
+            if want(25):
+                phase_evaluate_two_cell_bf16(seen_tc["ckpt"], sample_dir)
+    if want(26):
+        rungs = phase_lstm_rungs(dev)
+    if want(27):
+        with (tempfile.TemporaryDirectory() as model_dir,
+              tempfile.TemporaryDirectory() as sample_dir):
+            walk16_launches, _, seen_w = phase_train_h2048(model_dir)
+            phase_train_breakdown(seen_w, "LSTM kernels", "lstm_seq")
+            phase_evaluate_h2048(last_checkpoint(seen_w["ckpt"]), sample_dir)
+    if want(28):
+        with tempfile.TemporaryDirectory() as model_dir:
+            other = phase_other_rungs(model_dir, seen_off["history"]["loss"][0])
     t29 = time.perf_counter()
-    int8_vrnn, int8_vae = phase_int8_kernels(dev)
-    with tempfile.TemporaryDirectory() as model_dir, tempfile.TemporaryDirectory() as sample_dir:
-        int8_vrnn_launches, int8_vae_launches = phase_int8_paths(model_dir, sample_dir)
-    print(f"phases 29-30 (int8 kernels and paths): {time.perf_counter() - t29:.1f} s")
-    phase_lstm_bf16_sweep(dev)
+    if want(29):
+        int8_vrnn, int8_vae = phase_int8_kernels(dev)
+    if want(30):
+        with (tempfile.TemporaryDirectory() as model_dir,
+              tempfile.TemporaryDirectory() as sample_dir):
+            int8_vrnn_launches, int8_vae_launches = phase_int8_paths(model_dir, sample_dir)
+    if want(29) and want(30):
+        print(f"phases 29-30 (int8 kernels and paths): {time.perf_counter() - t29:.1f} s")
+    if want(31):
+        phase_lstm_bf16_sweep(dev)
+    if len(run) < 31:
+        print(f"chip_smoke: phases {', '.join(map(str, sorted(run)))} passed in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     source = "classifying_vae_lstm_tpu_torch/csrc/two_cell.cu"
+    two_cell_bwd_source = "classifying_vae_lstm_tpu_torch/csrc/two_cell_tc.cu"
     lstm_source = "classifying_vae_lstm_tpu_torch/csrc/lstm_seq.cu"
     tc_source = "classifying_vae_lstm_tpu_torch/csrc/lstm_seq_tc.cu"
     pallas_lstm = "classifying_vae_lstm_tpu/ops/pallas_lstm.py"
     dense_source = "classifying_vae_lstm_tpu_torch/csrc/vae_dense.cu"
+    lstm_bwd_source = "classifying_vae_lstm_tpu_torch/csrc/lstm_bwd_f32.cu"
+    dense_tc_source = "classifying_vae_lstm_tpu_torch/csrc/vae_dense_tc.cu"
     kernels = [{
         "name": "generate_cl_vrnn", "route": "cuda",
         "source": "classifying_vae_lstm_tpu_torch/csrc/generate_cl_vrnn.cu",
@@ -3737,7 +3859,7 @@ def main() -> int:
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_two_cell.py:129",
         "launches": fwd_launches, **fwd, "library_ms": None,
     }, {
-        "name": "two_cell_bwd", "route": "cuda", "source": source,
+        "name": "two_cell_bwd", "route": "cuda", "source": two_cell_bwd_source,
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_two_cell.py:295",
         "launches": bwd_launches, **bwd, "library_ms": None,
     }, {
@@ -3749,7 +3871,7 @@ def main() -> int:
         "replaces": f"{pallas_lstm}:730", "launches": train_fwd_launches, **lstm["train_fwd"],
         "library_ms": None,
     }, {
-        "name": "lstm_seq_bwd", "route": "cuda", "source": lstm_source,
+        "name": "lstm_seq_bwd", "route": "cuda", "source": lstm_bwd_source,
         "replaces": f"{pallas_lstm}:986", "launches": lstm_bwd_launches, **lstm["bwd"],
         "library_ms": None,
     }, {
@@ -3775,7 +3897,7 @@ def main() -> int:
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_vae.py:133", "launches": bf16_fwd,
         **dense16["fwd"], "library_ms": None,
     }, {
-        "name": "vae_dense_bwd_bf16", "route": "cuda", "source": dense_source,
+        "name": "vae_dense_bwd_bf16", "route": "cuda", "source": dense_tc_source,
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_vae.py:230", "launches": bf16_bwd,
         **dense16["bwd"], "library_ms": None,
     }, {
@@ -3795,7 +3917,7 @@ def main() -> int:
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_two_cell.py:129",
         "launches": tc16_fwd, **tc16[0], "library_ms": None,
     }, {
-        "name": "two_cell_bwd_bf16", "route": "cuda", "source": source,
+        "name": "two_cell_bwd_bf16", "route": "cuda", "source": two_cell_bwd_source,
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_two_cell.py:295",
         "launches": tc16_bwd, **tc16[1], "library_ms": None,
     }]

@@ -8,10 +8,6 @@
 //     the inference forward;
 //   * :1146 `_forward_train_call_fp` -> `_lstm_seq_train_kernel_fp` :730 with
 //     `lstm_seq_fwd_kernel<R, true>`, the training forward;
-//   * :1378 `_backward_call_full` -> `_lstm_bwd_kernel_full` :986 with
-//     `lstm_seq_bwd_kernel<S, float, 4>` (the serial reverse walk) followed
-//     by `wgrad_kernel<lstm_seq_wgrad>` (the weight gradients,
-//     csrc/wgrad.cuh): one ported kernel, two launches;
 // and the other fusion rungs (proj, drk, full) of the same entry:
 //   * :387 / :414 `_forward_kernel_call` -> `_lstm_seq_kernel` :216 (and
 //     `_ilv` :244, `_tblocked` :289, `_tblocked_ilv` :328, the same math
@@ -26,26 +22,27 @@
 //   * :1306 `_backward_call_drk` -> `_lstm_bwd_kernel_drk` :920 with the same
 //     walk followed by a `wgrad_kernel<lstm_seq_wgrad>` job for
 //     dRk = sum h_prevᵀdz (two launches). The TPU kernel sums dRk in a
-//     resident block over its sequential grid; here, as for the full rung,
-//     the deterministic second pass sums it, so the dz-only and drk rungs
-//     share the walk and differ in that pass.
+//     resident block over its sequential grid; here a deterministic second
+//     pass sums it, so the dz-only and drk rungs share the walk and differ
+//     in that pass.
+// The default rung's backward, :1378 `_backward_call_full`, is
+// csrc/lstm_bwd_f32.cu (the walk over the whole batch per step).
 //
 // What it computes, per batch row and time step t = 0 .. T-1:
 //   xz = x[t] @ W + b;  z = xz + h @ Rk;  (h, c) = gates(z, c)
 // with Keras-2.0 gates (i, f, c, o): hard sigmoid clip(0.2x + 0.5, 0, 1) for
 // i, f, o, tanh for g and for the cell output. The forward emits h and c per
 // step; the training forward also emits z, h_prev and c_prev, the backward's
-// residuals. The backward walks time in reverse from the cotangents of h and
-// c per step and emits dx, dh0, dc0, dRk = sum h_prevᵀdz, dW = sum xᵀdz and
-// db = sum dz.
+// residuals. The walk runs time in reverse from the cotangents of h and c
+// per step and emits dz per step, dh0 and dc0.
 //
 // What bounds it on this card. Per row-step the forward is (IN + H) * 4H f32
 // FMAs against IN + 2H floats of streams: at H=256 that is ~1,000 FMAs per
 // float moved, so the operations bound it (67 TFLOP/s without tensor cores).
 // At the training shape (B=200, T=16, H=256, IN~105) a forward is ~2.4 GFLOP,
 // ~0.036 ms; at the evaluation shape (12,800 rows) ~151 GFLOP, ~2.2 ms. The
-// backward is about twice the forward. Each step depends on the one before,
-// so the T steps run in series.
+// walk multiplies by Rkᵀ alone. Each step depends on the one before, so the
+// T steps run in series.
 //
 // What the design does about it.
 // * Time is serial, rows are independent: one block owns a tile of R batch
@@ -66,16 +63,14 @@
 //   B=200 gives 50 blocks, where 16-row tiles would leave 119 of 132 SMs idle).
 // * The input projection x @ W + b is computed here, as in the TPU kernel's
 //   body, ahead of h @ Rk in the same accumulators; it is not a library matmul.
-// * The weight gradients cross blocks. The TPU grid accumulated them in
-//   resident blocks over a sequential grid; concurrent CUDA blocks would need
-//   atomics, which make the sums depend on launch order. So the reverse walk
-//   writes dz per (t, row) to scratch, and a second, deterministic pass forms
-//   sum h_prevᵀdz, sum xᵀdz and the column sums over the T*B rows, each output
-//   element summed in row order by one thread.
+// * dRk crosses blocks. The TPU grid accumulated it in a resident block over
+//   a sequential grid; concurrent CUDA blocks would need atomics, which make
+//   the sums depend on launch order. So the walk writes dz per (t, row), and
+//   the drk rung's second, deterministic pass forms sum h_prevᵀdz over the
+//   T*B rows, each output element summed in row order by one thread.
 // * The hard-sigmoid derivative is 0.2 strictly inside (0, 1) and 0 at and
 //   beyond the clip points, the TPU kernel's rule (`_bwd_gate_grads` :786).
-// * The walk of the non-full rungs multiplies by Rkᵀ only, so it holds no
-//   dx; at H above ~2,300 a 4-row tile no longer fits shared memory (6H
+// * At H above ~2,300 a 4-row walk tile no longer fits shared memory (6H
 //   floats a row: dz, the two carries), and the walk takes 2-row tiles,
 //   which reach H = 4,800.
 // Known limits of this simple form: every block streams all weights from L2
@@ -95,10 +90,9 @@
 namespace {
 
 constexpr int kFwdThreads = 256;  // forward: one hidden unit per thread and pass
-constexpr int kBwdRows = 4;       // backward: batch rows per block (2 in a wide walk)
-constexpr int kBwdThreads = 512;  // backward: threads per block
-constexpr int kSlices = 2;        // backward: a product's K is split between two groups
-constexpr int kUnits = kBwdThreads / kSlices;  // backward: output columns per pass
+constexpr int kBwdThreads = 512;  // walk: threads per block (4 or 2 batch rows a block)
+constexpr int kSlices = 2;        // walk: a product's K is split between two groups
+constexpr int kUnits = kBwdThreads / kSlices;  // walk: output columns per pass
 
 // S is the stream type (float)
 template <typename S>
@@ -116,18 +110,15 @@ struct FwdArgs {
   int T, B, IN, H;
 };
 
-// D is the type of the dz output: f32 scratch for the full rung, the stream
-// type for the walk of the other rungs
-template <typename S, typename D>
+template <typename S>
 struct BwdArgs {
   const S* z;             // [T, B, 4H]
   const float *cp, *c;    // [T, B, H]
   const float *dh, *dc;   // [T, B, H]  cotangents of the h and c sequences
-  const S* wt;            // [4H, H + IN]  (Rk | W) transposed; the walk: Rkᵀ, IN = 0
-  S* dx;                  // [T, B, IN]  null in the walk
+  const S* rkt;           // [4H, H]  Rk transposed
   float *dh0, *dc0;       // [B, H]
-  D* dz;                  // [T, B, 4H]
-  int T, B, IN, H;
+  S* dz;                  // [T, B, 4H]
+  int T, B, H;
 };
 
 __host__ __device__ constexpr size_t fwd_smem_floats(int IN, int H, int rows) {
@@ -342,14 +333,13 @@ __device__ __forceinline__ void matvec_t(const float* a, const S* __restrict__ w
   }
 }
 
-// the reverse walk: the full rung's (D = float scratch, dx) or, with IN = 0,
-// the dz-only walk of the other rungs (D = S, dh = dz @ Rkᵀ alone)
-template <typename S, typename D, int R>
-__global__ void __launch_bounds__(kBwdThreads) lstm_seq_bwd_kernel(const BwdArgs<S, D> a) {
+// the reverse walk of the dz-only and drk rungs: dh = dz @ Rkᵀ per step
+template <typename S, int R>
+__global__ void __launch_bounds__(kBwdThreads) lstm_seq_bwd_kernel(const BwdArgs<S> a) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  const int T = a.T, B = a.B, H = a.H, IN = a.IN;
-  float* dzs = sm;                 // [4H][R]  dz as the operand of dz @ (Rk | W)ᵀ
+  const int T = a.T, B = a.B, H = a.H;
+  float* dzs = sm;                 // [4H][R]  dz as the operand of dz @ Rkᵀ
   float* dh_c = dzs + 4 * H * R;   // [H][R]  carry of dh
   float* dc_c = dh_c + H * R;      // [H][R]  carry of dc
   float* part = dc_c + H * R;      // [R][kUnits]
@@ -357,7 +347,6 @@ __global__ void __launch_bounds__(kBwdThreads) lstm_seq_bwd_kernel(const BwdArgs
   for (int i = threadIdx.x; i < 2 * H * R; i += kBwdThreads) dh_c[i] = 0.f;  // both carries
   __syncthreads();
 
-  const int N = H + IN;
   for (int t = T - 1; t >= 0; --t) {
     const size_t tb = (size_t)t * B;
     // gate gradients (`_bwd_gate_grads`): dh = carry + dh[t], dc = carry + dc[t]
@@ -386,15 +375,8 @@ __global__ void __launch_bounds__(kBwdThreads) lstm_seq_bwd_kernel(const BwdArgs
       for (int g = 0; g < 4; ++g) dzs[(g * H + u) * R + r] = operand<S>(dz[g]);
     }
     __syncthreads();
-    // dz @ (Rk | W)ᵀ: the new dh carry and dx[t], the only serial product
-    matvec_t<R>(dzs, a.wt, 4 * H, N, part, [&](int n, int r, float v) {
-      const int s = s0 + r;
-      if (n < H) {
-        dh_c[n * R + r] = v;
-      } else if (s < B) {
-        st(a.dx + (tb + s) * IN + (n - H), v);
-      }
-    });
+    // dz @ Rkᵀ: the new dh carry, the only serial product
+    matvec_t<R>(dzs, a.rkt, 4 * H, H, part, [&](int n, int r, float v) { dh_c[n * R + r] = v; });
   }
   for (int i = threadIdx.x; i < H * R; i += kBwdThreads) {
     const int u = i / R, r = i - u * R, s = s0 + r;
@@ -429,19 +411,19 @@ int fwd(const FwdArgs<S>& a, int rows, int train, cudaStream_t st) {
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename S, typename D, int R>
-int launch_bwd(const BwdArgs<S, D>& a, cudaStream_t stream) {
+template <typename S, int R>
+int launch_bwd(const BwdArgs<S>& a, cudaStream_t stream) {
   const size_t smem = bwd_smem_floats(a.H, R) * sizeof(float);
-  int err = set_smem((const void*)lstm_seq_bwd_kernel<S, D, R>, smem);
+  int err = set_smem((const void*)lstm_seq_bwd_kernel<S, R>, smem);
   if (err) return err;
-  lstm_seq_bwd_kernel<S, D, R><<<(a.B + R - 1) / R, kBwdThreads, smem, stream>>>(a);
+  lstm_seq_bwd_kernel<S, R><<<(a.B + R - 1) / R, kBwdThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename S>
-int walk(const BwdArgs<S, S>& a, int rows, cudaStream_t st) {
-  if (rows == 4) return launch_bwd<S, S, 4>(a, st);
-  if (rows == 2) return launch_bwd<S, S, 2>(a, st);
+int walk(const BwdArgs<S>& a, int rows, cudaStream_t st) {
+  if (rows == 4) return launch_bwd<S, 4>(a, st);
+  if (rows == 2) return launch_bwd<S, 2>(a, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -449,7 +431,7 @@ int walk(const BwdArgs<S, S>& a, int rows, cudaStream_t st) {
 
 // Bytes of dynamic shared memory one block of each serial kernel needs (the
 // wrapper checks them against the card's limit).
-// The xz forwards pass IN = 0; the full rung's walk has 4 rows.
+// The xz forwards pass IN = 0.
 extern "C" long long cvl_lstm_seq_fwd_smem_bytes(int IN, int H, int rows) {
   return (long long)(fwd_smem_floats(IN, H, rows) * sizeof(float));
 }
@@ -482,18 +464,6 @@ extern "C" int cvl_lstm_seq_xz_fwd(const float* xz, const float* rk, const float
 }
 
 
-// The full rung's serial reverse walk on `stream`; fills dx, dh0, dc0 and the
-// dz scratch that cvl_lstm_seq_wgrad reduces. Returns the cudaError_t of the
-// launch.
-extern "C" int cvl_lstm_seq_bwd(const float* z, const float* cp, const float* c, const float* dh,
-                                const float* dc, const float* wt, float* dx, float* dh0,
-                                float* dc0, float* dz, int T, int B, int IN, int H,
-                                void* stream) {
-  const BwdArgs<float, float> a{z, cp, c, dh, dc, wt, dx, dh0, dc0, dz, T, B, IN, H};
-  return launch_bwd<float, float, kBwdRows>(a, static_cast<cudaStream_t>(stream));
-}
-
-
 // The other rungs' dz-only walk on `stream` (`_backward_call`), with a tile of
 // `rows` (4 or 2) batch rows per block: rkt = Rkᵀ [4H, H]; fills dz [T, B,
 // 4H], dh0 and dc0. Returns the cudaError_t of the launch.
@@ -501,19 +471,8 @@ extern "C" int cvl_lstm_seq_walk(const float* z, const float* cp, const float* c
                                  const float* dh, const float* dc, const float* rkt, float* dh0,
                                  float* dc0, float* dz, int T, int B, int H, int rows,
                                  void* stream) {
-  const BwdArgs<float, float> a{z, cp, c, dh, dc, rkt, nullptr, dh0, dc0, dz, T, B, 0, H};
+  const BwdArgs<float> a{z, cp, c, dh, dc, rkt, dh0, dc0, dz, T, B, H};
   return walk(a, rows, static_cast<cudaStream_t>(stream));
-}
-
-
-// The full rung's weight gradients over the R = T*B rows: dRk = hpᵀdz,
-// dW = xᵀdz, db = column sums of dz, one launch. Returns the cudaError_t of
-// the launch.
-extern "C" int cvl_lstm_seq_wgrad(const float* hp, const float* x, const float* dz, float* drk,
-                                  float* dw, float* db, int R, int IN, int H, void* stream) {
-  const cvl::WgradJob jobs[] = {{hp, dz, drk, H, 4 * H}, {x, dz, dw, IN, 4 * H},
-                                {nullptr, dz, db, 1, 4 * H}};
-  return cvl::launch_wgrad<lstm_seq_wgrad>(jobs, 3, R, static_cast<cudaStream_t>(stream));
 }
 
 

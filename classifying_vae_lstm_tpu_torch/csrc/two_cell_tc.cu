@@ -31,7 +31,7 @@
 // What the design does about it.
 // * A step's recurrent products run over the whole batch, cut into tiles
 //   (bf16: 64 rows x 128 units, csrc/mma_bf16.cuh's mma.sync mainloop; f32:
-//   32 x 32 on FFMA through a cp.async ring), so the grid covers the card
+//   32 x 32 on FFMA, csrc/ffma_f32.cuh), so the grid covers the card
 //   and each tile reads its Rk slice once a step (the 4-row tiles of the
 //   first design streamed all of Rk from L2 per 4 rows, and ran 50 blocks on
 //   132 SMs at the f32 shape). The decoder's tiles and the encoder's are two
@@ -99,6 +99,7 @@
 
 #include <cooperative_groups.h>
 
+#include "ffma_f32.cuh"
 #include "mma_bf16.cuh"
 #include "wgrad.cuh"
 
@@ -112,13 +113,15 @@ using cvl_tc::kBM;
 using cvl_tc::kBN;
 using cvl_tc::Operand;
 
+// the f32 products: csrc/ffma_f32.cuh's 32 x 32 FFMA tiles
+using cvl_ffma::kFK;
+using cvl_ffma::kFM;
+using cvl_ffma::kFN;
+using cvl_ffma::kFSmemFloats;
+using cvl_ffma::kFThreads;
+
 constexpr int kHandoffRows = 4;       // batch rows per hand-off block
 constexpr int kHandoffThreads = 256;
-// the f32 products: FFMA tiles of kFM x kFN outputs, K chunks of kFK, a
-// ring of kFStages stages of both operands with rows of kFS floats
-constexpr int kFM = 32, kFN = 32, kFK = 32, kFThreads = 128, kFS = kFK + 4, kFStages = 3;
-constexpr int kFStage = kFM * kFS;  // one operand's chunk, [32][kFS]
-constexpr int kFSmemFloats = kFStages * 2 * kFStage;
 
 __device__ __forceinline__ float hard_sigmoid(float x) {
   return fminf(fmaxf(0.2f * x + 0.5f, 0.f), 1.f);
@@ -279,67 +282,6 @@ __global__ void __cluster_dims__(1, 1, 2) __launch_bounds__(cvl_tc::kThreads)
   cluster.sync();  // the peer has read this block's sums
 }
 
-// acc[i][q] (row ty + 16 i, column tx + 8 q of the block's kFM x kFN tile;
-// ty = thread / 8, tx = thread % 8) += A [M, K] (row-major, lda) times B
-// stored [N, K] (ldb), on FFMA, over K in chunks of kFK through a ring of
-// kFStages cp.async stages in `sm` (kFSmemFloats). Each stage holds both
-// operands' chunks row by row ([32][kFS], K contiguous), so the inner loop
-// reads four k at once (float4) from rows whose 16-byte groups fall on
-// distinct banks. K, lda, ldb are multiples of 4 and the bases 16-byte
-// aligned; chunks outside M, N or K read as zeros. Each output is summed by
-// one thread over k in order.
-__device__ __forceinline__ void ffma_mainloop(float (&acc)[2][4], const float* __restrict__ A,
-                                              int M, int lda, const float* __restrict__ Bt,
-                                              int N, int ldb, int m0, int n0, int K, float* sm) {
-  const int tid = threadIdx.x, ty = tid / 8, tx = tid % 8;
-  const int nk = (K + kFK - 1) / kFK;
-  auto load_stage = [&](int st, int k0) {
-    float* as = sm + st * 2 * kFStage;
-    float* bs = as + kFStage;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * kFThreads, r = c / 8, k = k0 + (c % 8) * 4;
-      const bool ka = k < K, va = ka && m0 + r < M, vb = ka && n0 + r < N;
-      cvl_tc::cp_async16(as + r * kFS + (c % 8) * 4, va ? A + (size_t)(m0 + r) * lda + k : A, va);
-      cvl_tc::cp_async16(bs + r * kFS + (c % 8) * 4, vb ? Bt + (size_t)(n0 + r) * ldb + k : Bt,
-                         vb);
-    }
-  };
-#pragma unroll
-  for (int st = 0; st < kFStages - 1; ++st) {
-    if (st < nk) load_stage(st, st * kFK);
-    cvl_tc::cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cvl_tc::cp_async_wait<kFStages - 2>();
-    __syncthreads();
-    const int pre = kt + kFStages - 1;
-    if (pre < nk) load_stage(pre % kFStages, pre * kFK);
-    cvl_tc::cp_async_commit();
-    const float* as = sm + (kt % kFStages) * 2 * kFStage;
-    const float* bs = as + kFStage;
-#pragma unroll
-    for (int k = 0; k < kFK; k += 4) {
-      const float4 a4[2] = {*reinterpret_cast<const float4*>(as + ty * kFS + k),
-                            *reinterpret_cast<const float4*>(as + (ty + 16) * kFS + k)};
-      float4 b4[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        b4[q] = *reinterpret_cast<const float4*>(bs + (tx + 8 * q) * kFS + k);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          acc[i][q] = fmaf(a4[i].x, b4[q].x, acc[i][q]);
-          acc[i][q] = fmaf(a4[i].y, b4[q].y, acc[i][q]);
-          acc[i][q] = fmaf(a4[i].z, b4[q].z, acc[i][q]);
-          acc[i][q] = fmaf(a4[i].w, b4[q].w, acc[i][q]);
-        }
-    }
-  }
-  cvl_tc::cp_async_wait<0>();
-}
-
 // (a) f32 walk step t: the tile of dz(t+1) @ Rkᵀ on FFMA, K split across
 // the cluster, then the epilogue
 __global__ void __cluster_dims__(1, 1, 2) __launch_bounds__(kFThreads)
@@ -354,15 +296,10 @@ __global__ void __cluster_dims__(1, 1, 2) __launch_bounds__(kFThreads)
   k_half(H4, kFK, half, k0, len);
   float acc[2][4] = {};
   if (t + 1 < a.T && len > 0)
-    ffma_mainloop(acc, (enc ? a.dze : a.dzd) + (size_t)(t + 1) * a.B * H4 + k0, a.B, H4,
-                  (enc ? a.rke : a.rkd) + k0, a.H, H4, blockIdx.y * kFM, blockIdx.x * kFN, len,
-                  sm);
-  const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
-  __syncthreads();  // every warp is done with the ring
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) sm[(ty + 16 * i) * (kFN + 4) + tx + 8 * q] = acc[i][q];
+    cvl_ffma::mainloop(acc, (enc ? a.dze : a.dzd) + (size_t)(t + 1) * a.B * H4 + k0, a.B, H4,
+                       (enc ? a.rke : a.rkd) + k0, a.H, H4, blockIdx.y * kFM, blockIdx.x * kFN,
+                       len, sm);
+  cvl_ffma::stage_acc(acc, sm);
   cluster.sync();  // both halves' sums are staged
   walk_epilogue<float, kFM, kFN, kFN + 4>(cluster.map_shared_rank(sm, 0),
                                           cluster.map_shared_rank(sm, 1),
@@ -528,7 +465,7 @@ __global__ void __launch_bounds__(kFThreads)
   const int m0 = blockIdx.y * kFM, n0 = blockIdx.x * kFN;
   if (n0 >= j.N) return;
   float acc[2][4] = {};
-  ffma_mainloop(acc, j.dz, R, H4, j.w, j.N, H4, m0, n0, H4, sm);
+  cvl_ffma::mainloop(acc, j.dz, R, H4, j.w, j.N, H4, m0, n0, H4, sm);
   const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {

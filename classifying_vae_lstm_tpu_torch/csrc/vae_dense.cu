@@ -2,9 +2,12 @@
 //
 // Replaces: classifying_vae_lstm_tpu/ops/pallas_vae.py
 //   * :214 `_fwd_call` -> `_fwd_kernel` :133 with `vae_dense_fwd_kernel` below;
-//   * :358 `_bwd_call` -> `_bwd_kernel` :230 with `vae_dense_bwd_kernel` (the
-//     row pass) followed by `wgrad_kernel<vae_dense_wgrad>` (the weight
-//     gradients, csrc/wgrad.cuh): one ported kernel, two launches.
+//   * :358 `_bwd_call` -> `_bwd_kernel` :230 in the f32 mode with
+//     `vae_dense_bwd_kernel` (the row pass) followed by
+//     `wgrad_kernel<vae_dense_wgrad>` (the weight gradients,
+//     csrc/wgrad.cuh): one ported kernel, two launches. The bf16 mode's
+//     backward is csrc/vae_dense_tc.cu (whole-batch products on the tensor
+//     cores).
 //
 // What it computes, per batch row (D frame width, Cw key-encoder width, H
 // hidden width, L latent width, K key classes):
@@ -59,21 +62,21 @@
 // and the products run on FFMA, not the tensor cores; a layer with few
 // columns (the w and z heads) leaves most of the block's threads idle.
 //
-// The bf16 mode (`vae_apply_core(compute_dtype=bf16)` in the JAX package:
-// `_fwd_kernel` and `_bwd_kernel` with bf16 weights) is the same code with
-// the weight type WT = __nv_bfloat16: x, x_prev, every kernel and dx/dx_prev
-// are bf16, the biases, the noise and every other stream f32. Each product
-// rounds its left operand to bf16 where the TPU kernel's `mm` does (a1, w,
-// a2, z, a3 forward; each pre-activation cotangent backward) and
-// accumulates in f32; the shared tiles hold those operands rounded, since
-// they are only read as operands. The residuals a1, a2, a3 are written as
-// f32 holding their bf16-rounded values (the TPU kernel stores them in bf16).
-// The weight-gradient jobs round both operands and store the result as bf16
-// (the TPU kernel's `acc`, then `_core_bwd`'s cast); the bias column sums
-// take the unrounded f32 cotangents. At the seq-concat width bf16 halves the
-// weight stream (13.3 -> 6.7 MB at H = 1024 with x_prev); the products still
-// run on FFMA, where bf16 operands would make mma.sync or wgmma legal: that is
-// later work.
+// The forward's bf16 mode (`vae_apply_core(compute_dtype=bf16)` in the JAX
+// package: `_fwd_kernel` with bf16 weights) is the same code with the weight
+// type WT = __nv_bfloat16: x, x_prev and every kernel are bf16, the biases,
+// the noise and every other stream f32. Each product rounds its left operand
+// to bf16 where the TPU kernel's `mm` does (a1, w, a2, z, a3) and accumulates
+// in f32; the shared tiles hold those operands rounded, since they are only
+// read as operands. The residuals a1, a2, a3 are written as f32 holding their
+// bf16-rounded values (the TPU kernel stores them in bf16). The backward's
+// bf16 mode, with the same rounding points as the TPU kernel (each
+// pre-activation cotangent rounded as an operand, the weight gradients
+// rounded once after their f32 sums, the bias sums of the unrounded
+// cotangents), is csrc/vae_dense_tc.cu. At the seq-concat width bf16 halves
+// the forward's weight stream (13.3 -> 6.7 MB at H = 1024 with x_prev); its
+// products still run on FFMA, where bf16 operands would make mma.sync or
+// wgmma legal: that is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -158,7 +161,6 @@ __device__ __forceinline__ float ldw(const __nv_bfloat16* p) { return __bfloat16
 __device__ __forceinline__ float ldx(const float* p) { return *p; }
 __device__ __forceinline__ float ldx(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void stx(float* p, float v) { *p = v; }
-__device__ __forceinline__ void stx(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 // the value a product's left operand takes in the weight type's mode
 template <typename WT>
@@ -307,9 +309,7 @@ __global__ void __launch_bounds__(kThreads) vae_dense_fwd_kernel(const FwdArgs a
   });
 }
 
-// The shared tiles of the pre-activation cotangents hold them rounded to the
-// mode's operand type (they are only read as operands); the scratch copies
-// for the weight-gradient pass stay unrounded, for the bias sums.
+// The f32 mode's row pass (WT = float: `operand` keeps every value).
 template <typename WT>
 __global__ void __launch_bounds__(kThreads) vae_dense_bwd_kernel(const BwdArgs a) {
   const auto W = [](const void* p) { return static_cast<const WT*>(p); };
@@ -483,12 +483,11 @@ extern "C" int cvl_vae_dense_fwd(
   return (int)cudaGetLastError();
 }
 
-// The backward's row pass on `stream`: fills dx, dxp and the scratch
+// The f32 backward's row pass on `stream`: fills dx, dxp and the scratch
 // (dxh_pre, dd_pre, dza, dh_pre, dwa, dhw_pre, zs) that cvl_vae_dense_wgrad
-// reduces (bf16: the transposed kernels, dx and dxp bf16). Returns the
-// cudaError_t of the launch.
+// reduces. Returns the cudaError_t of the launch.
 extern "C" int cvl_vae_dense_bwd(
-    int bf16, const float* eps_w, const float* eps_z, const float* a1, const float* a2,
+    const float* eps_w, const float* eps_z, const float* a1, const float* a2,
     const float* a3, const float* xhat, const float* wargs, const float* zargs, const float* w,
     const float* dxhat, const float* dwargs, const float* dzargs, const float* dw,
     const void* wxh_t, const void* wd_t, const void* wzz_t, const void* wh_t,
@@ -500,40 +499,33 @@ extern "C" int cvl_vae_dense_bwd(
                   dxp,    dxh_pre, dd_pre, dza, dh_pre, dwa,    dhw_pre, zs,  B,  D,
                   Cw,     H,      L,     K,     use_xp};
   const size_t smem = bwd_smem_floats(D, Cw, H, L, K) * sizeof(float);
-  const void* fn = bf16 ? (const void*)vae_dense_bwd_kernel<__nv_bfloat16>
-                        : (const void*)vae_dense_bwd_kernel<float>;
-  int err = set_smem(fn, smem);
+  int err = set_smem((const void*)vae_dense_bwd_kernel<float>, smem);
   if (err) return err;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    vae_dense_bwd_kernel<__nv_bfloat16><<<(B + kRows - 1) / kRows, kThreads, smem, st>>>(a);
-  else
-    vae_dense_bwd_kernel<float><<<(B + kRows - 1) / kRows, kThreads, smem, st>>>(a);
+  vae_dense_bwd_kernel<float><<<(B + kRows - 1) / kRows, kThreads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
-// The backward's weight and bias gradients over the B rows of the residuals
-// and the scratch, one launch; returns the cudaError_t of the launch. dwdxp
-// (and xp) are null without use_x_prev. bf16: x and xp are bf16, and the
-// weight gradients are products of bf16-rounded operands, stored as bf16;
-// the bias gradients stay f32 sums of the unrounded cotangents.
+// The f32 backward's weight and bias gradients over the B rows of the
+// residuals and the scratch, one launch; returns the cudaError_t of the
+// launch. dwdxp (and xp) are null without use_x_prev.
 extern "C" int cvl_vae_dense_wgrad(
-    int bf16, const void* x, const void* xp, const float* a1, const float* a2, const float* a3,
+    const float* x, const float* xp, const float* a1, const float* a2, const float* a3,
     const float* w, const float* zs, const float* dxh_pre, const float* dd_pre,
-    const float* dza, const float* dh_pre, const float* dwa, const float* dhw_pre, void* dwhw,
-    float* dbhw, void* dwwz, float* dbwz, void* dwhx, void* dwhw2, float* dbh, void* dwzz,
-    float* dbzz, void* dwdw, void* dwdxp, void* dwdz, float* dbd, void* dwxh, float* dbxh,
+    const float* dza, const float* dh_pre, const float* dwa, const float* dhw_pre, float* dwhw,
+    float* dbhw, float* dwwz, float* dbwz, float* dwhx, float* dwhw2, float* dbh, float* dwzz,
+    float* dbzz, float* dwdw, float* dwdxp, float* dwdz, float* dbd, float* dwxh, float* dbxh,
     int B, int D, int Cw, int H, int L, int K, int use_xp, void* stream) {
-  const int K2 = 2 * (K - 1), b = bf16 ? 1 : 0;
+  const int K2 = 2 * (K - 1);
   const cvl::WgradJob jobs[] = {
-      {x, dhw_pre, dwhw, D, Cw, b, b},      {nullptr, dhw_pre, dbhw, 1, Cw},
-      {a1, dwa, dwwz, Cw, K2, b},           {nullptr, dwa, dbwz, 1, K2},
-      {x, dh_pre, dwhx, D, H, b, b},        {w, dh_pre, dwhw2, K, H, b},
-      {nullptr, dh_pre, dbh, 1, H},         {a2, dza, dwzz, H, 2 * L, b},
-      {nullptr, dza, dbzz, 1, 2 * L},       {w, dd_pre, dwdw, K, H, b},
-      {zs, dd_pre, dwdz, L, H, b},          {nullptr, dd_pre, dbd, 1, H},
-      {a3, dxh_pre, dwxh, H, D, b},         {nullptr, dxh_pre, dbxh, 1, D},
-      {xp, dd_pre, dwdxp, D, H, b, b},  // last: dropped without use_x_prev
+      {x, dhw_pre, dwhw, D, Cw},       {nullptr, dhw_pre, dbhw, 1, Cw},
+      {a1, dwa, dwwz, Cw, K2},         {nullptr, dwa, dbwz, 1, K2},
+      {x, dh_pre, dwhx, D, H},         {w, dh_pre, dwhw2, K, H},
+      {nullptr, dh_pre, dbh, 1, H},    {a2, dza, dwzz, H, 2 * L},
+      {nullptr, dza, dbzz, 1, 2 * L},  {w, dd_pre, dwdw, K, H},
+      {zs, dd_pre, dwdz, L, H},        {nullptr, dd_pre, dbd, 1, H},
+      {a3, dxh_pre, dwxh, H, D},       {nullptr, dxh_pre, dbxh, 1, D},
+      {xp, dd_pre, dwdxp, D, H},  // last: dropped without use_x_prev
   };
   const int njobs = (int)(sizeof(jobs) / sizeof(jobs[0])) - (use_xp ? 0 : 1);
   return cvl::launch_wgrad<vae_dense_wgrad>(jobs, njobs, B, static_cast<cudaStream_t>(stream));

@@ -4,16 +4,18 @@ functions.
 Counterpart of ``classifying_vae_lstm_tpu/ops/pallas_lstm.py`` at every
 fusion rung (proj, drk, full) that ``resolve_fusion`` returns. The default
 rung (T, T, T), the one ``lstm_sequence_pallas`` takes at every width up to
-the drk ceiling, runs three kernels of ``csrc/lstm_seq.cu``:
+the drk ceiling, runs three kernels:
 
-* the inference forward (``_forward_kernel_call_fp``): x ``[T, B, IN]``, W,
-  b, Rk, h0, c0 -> h, c ``[T, B, H]``, the projection ``x @ W + b`` computed
-  in the kernel;
-* the training forward (``_forward_train_call_fp``): the same, plus the
-  backward's residuals z ``[T, B, 4H]``, h_prev and c_prev;
-* the backward (``_backward_call_full``): a serial reverse walk, then a
-  deterministic weight-gradient pass (two launches), -> dx, dh0, dc0, dRk,
-  dW, db.
+* the inference forward (``_forward_kernel_call_fp``, ``csrc/lstm_seq.cu``):
+  x ``[T, B, IN]``, W, b, Rk, h0, c0 -> h, c ``[T, B, H]``, the projection
+  ``x @ W + b`` computed in the kernel;
+* the training forward (``_forward_train_call_fp``, ``csrc/lstm_seq.cu``):
+  the same, plus the backward's residuals z ``[T, B, 4H]``, h_prev and
+  c_prev;
+* the backward (``_backward_call_full``, ``csrc/lstm_bwd_f32.cu``): a reverse
+  walk over the whole batch per step (T + 1 launches), then dx, the weight
+  gradients and db, every sum in a fixed order, -> dx, dh0, dc0, dRk, dW,
+  db.
 
 The other rungs run four more:
 
@@ -47,8 +49,9 @@ The bf16 stream mode runs on the tensor cores, through
 ``csrc/lstm_seq_tc.cu``: a forward is one projection launch (proj rungs)
 and one launch per time step (a tiled ``[B, H] x [H, 4H]`` product with the
 gates in its epilogue), a walk two launches per step (the gate gradients,
-then ``dz @ [Rkᵀ | Wᵀ]``), dRk one more product; the f32 mode stays on the
-FFMA kernels of ``csrc/lstm_seq.cu``, exact to JAX's precision="highest".
+then ``dz @ [Rkᵀ | Wᵀ]``), dRk one more product; the f32 mode stays on FFMA
+(``csrc/lstm_seq.cu``, and ``csrc/lstm_bwd_f32.cu`` for the full
+backward), exact to JAX's precision="highest".
 The wrappers build the tensor-core operands in plain PyTorch (Rk and W with
 each unit's four gates side by side, K padded to a multiple of 8; see
 :func:`interleave_gates`, :func:`tc_fwd_operands`, :func:`tc_h_operand`,
@@ -76,8 +79,9 @@ autograd of that product rounds dW and dx to bf16, as JAX's does.
 signature and results. Layouts are time-major inside, kernels ``[in, out]``,
 and no lane or batch padding (so no padded rows for the drk sum to mask):
 the TPU's VMEM gates and block picks are not read here; in f32 the card's
-shared memory is the only limit, checked per call, and the bf16 route has
-none.
+shared memory limits the forwards and the other rungs' walks, checked per
+call; the full backward keeps its state in global memory and the bf16
+route has no limit.
 """
 
 from __future__ import annotations
@@ -88,16 +92,18 @@ import threading
 import torch
 
 from . import _build
+from ._checks import _aligned, _check, _device_of
 from .lstm import _gate_grads, _gates, bf16_operand, resolve_fusion
-from .two_cell import _check, _mode
+from .two_cell import _mode
 
 # launches since the counts were last set to 0: one per inference or training
 # forward call (FWD, TRAIN_FWD; XZ_ the unfused rungs'), two per backward
-# call of the full rung (BWD: the reverse walk, then the weight-gradient
-# pass), one per dz-only walk (WALK), two per drk walk (DRK: the walk, then
-# the dRk pass); the plain names count the f32 mode, the BF16_ names the bf16
-# stream mode (whose calls make more device launches each: T+1 for a
-# forward, 2T for a walk, 2T+2 for the full backward, counted as above)
+# call of the full rung (BWD: the reverse walk, then the gradient products),
+# one per dz-only walk (WALK), two per drk walk (DRK: the walk, then the dRk
+# pass); the plain names count the f32 mode, the BF16_ names the bf16 stream
+# mode (calls make more device launches each: T+1 for a bf16 forward, 2T for
+# a bf16 walk, 2T+2 for the bf16 full backward, T+5 for the f32 one, counted
+# as above)
 FWD_LAUNCHES = 0
 TRAIN_FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
@@ -114,7 +120,7 @@ BF16_WALK_LAUNCHES = 0
 BF16_DRK_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
-_BWD_ROWS = 4             # kBwdRows in csrc/lstm_seq.cu
+_BWD_ROWS = 4             # the walk's row tile in csrc/lstm_seq.cu (2 when wide)
 _BWD_UNITS = 256          # kUnits in csrc/lstm_seq.cu
 _SMEM_LIMIT = 232448      # dynamic shared memory one Hopper block can use
 
@@ -132,8 +138,8 @@ def bwd_smem_bytes(H: int, rows: int = _BWD_ROWS) -> int:
 
 
 def walk_rows(H: int) -> int:
-    """The f32 dz-only walk's row tile: the full rung's 4 rows where they
-    fit shared memory, else 2 (H above ~2,300)."""
+    """The f32 dz-only walk's row tile: 4 rows where they fit shared
+    memory, else 2 (H above ~2,300)."""
     return _BWD_ROWS if bwd_smem_bytes(H) <= _SMEM_LIMIT else 2
 
 
@@ -342,6 +348,7 @@ def tc_walk_weights(rk_t, w_t=None):
 _lib_lock = threading.Lock()
 _lib = None
 _tc_lib = None
+_bwd_lib = None
 
 
 def _kernels():
@@ -362,8 +369,7 @@ def _kernels():
                            for r in (2, 4))):
                 raise RuntimeError("shared-memory layout of csrc/lstm_seq.cu differs from "
                                    "fwd_smem_bytes / bwd_smem_bytes")
-            argtypes = {"fwd": [P] * 11 + [I] * 6, "bwd": [P] * 10 + [I] * 4,
-                        "wgrad": [P] * 6 + [I] * 3, "xz_fwd": [P] * 7 + [I] * 5,
+            argtypes = {"fwd": [P] * 11 + [I] * 6, "xz_fwd": [P] * 7 + [I] * 5,
                         "walk": [P] * 9 + [I] * 4, "drk": [P] * 3 + [I] * 2}
             for name, types in argtypes.items():
                 fn = getattr(lib, f"cvl_lstm_seq_{name}")
@@ -371,6 +377,24 @@ def _kernels():
                 fn.restype = I
             _lib = lib
         return _lib
+
+
+def _bwd_kernels():
+    """The built f32 full-backward library (``csrc/lstm_bwd_f32.cu``) with
+    its ctypes signatures."""
+    global _bwd_lib
+    with _lib_lock:
+        if _bwd_lib is None:
+            lib = _build.load("lstm_bwd_f32")
+            P, I = ctypes.c_void_p, ctypes.c_int
+            lib.cvl_lstm_bwd_f32_part_rows.argtypes = [I] * 2
+            lib.cvl_lstm_bwd_f32_part_rows.restype = I
+            lib.cvl_lstm_bwd_f32_scratch.argtypes = [I] * 4
+            lib.cvl_lstm_bwd_f32_scratch.restype = ctypes.c_longlong
+            lib.cvl_lstm_bwd_f32.argtypes = [P] * 18 + [I] * 4 + [P]
+            lib.cvl_lstm_bwd_f32.restype = I
+            _bwd_lib = lib
+        return _bwd_lib
 
 
 def _tc_kernels():
@@ -397,12 +421,6 @@ def _count(which: str, n: int, bf16: bool):
     name = f"{'BF16_' if bf16 else ''}{which.upper()}_LAUNCHES"
     with _launch_lock:
         globals()[name] += n
-
-
-def _device_of(t):
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {t.device}")
-    return t.device
 
 
 def _raise_if(err: int, what: str):
@@ -508,29 +526,35 @@ def lstm_seq_train_fwd(x, w, b, rk, h0, c0):
 def lstm_seq_bwd(z, c_prev, c, h_prev, x, dh_seq, dc_seq, rk_t, w_t):
     """The backward (signature and results of :func:`lstm_seq_bwd_plain`).
 
-    CUDA tensors launch, in f32, ``lstm_seq_bwd_kernel`` (the serial reverse
-    walk, which writes dz per step to scratch) and then
-    ``wgrad_kernel<lstm_seq_wgrad>`` (dRk, dW and db over all T*B rows, in a
-    fixed order); where z is bf16, the tensor-core walk of
-    ``csrc/lstm_seq_tc.cu`` (two launches a step), its dRk product and the
-    dW / db pass (2T+2 device launches, counted as two); or raise. CPU
-    tensors take the plain version."""
+    CUDA tensors launch, in f32, ``csrc/lstm_bwd_f32.cu``: the reverse walk
+    over the whole batch (T + 1 launches of ``lstm_bwd_walk_kernel``, which
+    write dz per step to scratch), then ``lstm_bwd_dx_kernel`` and
+    ``wgrad_kernel<lstm_bwd_wgrad>`` (dRk, dW and db over all T*B rows, in a
+    fixed order) — Rk and W read as stored, so ``rk_t`` and ``w_t`` that are
+    transposed views of them (as :class:`LstmSeqCore` passes them) are not
+    copied; where z is bf16, the tensor-core walk of ``csrc/lstm_seq_tc.cu``
+    (two launches a step), its dRk product and the dW / db pass (2T+2 device
+    launches); either counted as two; or raise. CPU tensors take the plain
+    version."""
     args = (z, c_prev, c, h_prev, x, dh_seq, dc_seq, rk_t, w_t)
     dev = _device_of(z)
     if dev.type == "cpu":
         return lstm_seq_bwd_plain(*args)
-    if z.dim() != 3 or x.dim() != 3:
-        raise ValueError("z must be [T, B, 4H] and x [T, B, IN]")
+    if z.dim() != 3 or x.dim() != 3 or rk_t.dim() != 2 or w_t.dim() != 2:
+        raise ValueError("z must be [T, B, 4H], x [T, B, IN], rk_t [4H, H] and w_t [4H, IN]")
     T, B, H4 = z.shape
     H, IN = H4 // 4, x.shape[-1]
     bf16 = z.dtype == torch.bfloat16
-    if not bf16 and bwd_smem_bytes(H) > _SMEM_LIMIT:
-        raise ValueError(f"hidden {H} is too wide for the LSTM backward kernel's shared memory "
-                         f"({bwd_smem_bytes(H)} > {_SMEM_LIMIT} bytes)")
     s3 = lambda width: (T, B, width)
+    if bf16:  # the tensor-core walk reads the rows of Rkᵀ and Wᵀ
+        rk_t, w_t = rk_t.contiguous(), w_t.contiguous()
+        weights = {"rk_t": (rk_t, (H4, H)), "w_t": (w_t, (H4, IN))}
+    else:  # the FFMA kernels read Rk [H, 4H] and W [IN, 4H]
+        rk, w = rk_t.T.contiguous(), w_t.T.contiguous()
+        weights = {"rk": (rk, (H, H4)), "w": (w, (IN, H4))}
     _check(dev, {"z": (z, s3(H4)), "c_prev": (c_prev, s3(H)), "c": (c, s3(H)),
                  "h_prev": (h_prev, s3(H)), "x": (x, s3(IN)), "dh_seq": (dh_seq, s3(H)),
-                 "dc_seq": (dc_seq, s3(H)), "rk_t": (rk_t, (H4, H)), "w_t": (w_t, (H4, IN))},
+                 "dc_seq": (dc_seq, s3(H)), **weights},
            bf16=frozenset({"z", "h_prev", "x", "rk_t"}) if bf16 else frozenset())
     stream = torch.cuda.current_stream(dev).cuda_stream
     sd = torch.bfloat16 if bf16 else torch.float32
@@ -553,17 +577,19 @@ def lstm_seq_bwd(z, c_prev, c, h_prev, x, dh_seq, dc_seq, rk_t, w_t):
                                             db.data_ptr(), T * B, IN, H, stream),
                       "bf16 weight-gradient")
         else:
-            lib = _kernels()
-            # the reverse walk reads (Rk | W)ᵀ row-wise: dz @ [Rkᵀ | Wᵀ]
-            wt = torch.cat([rk_t, w_t], 1).contiguous()
-            dh0, dc0, dz = new(B, H), new(B, H), new(T, B, H4)
-            _raise_if(lib.cvl_lstm_seq_bwd(
-                *(t.data_ptr() for t in (z, c_prev, c, dh_seq, dc_seq, wt, dx, dh0, dc0, dz)),
+            lib = _bwd_kernels()
+            z, rk, w = _aligned(z), _aligned(rk), _aligned(w)
+            dh0, dc0 = new(B, H), torch.zeros((B, H), device=dev)
+            # dz of every step (the walk's operand), the bias partial sums,
+            # the row segments of the weight-gradient sums
+            dz = new(T, B, H4)
+            part = new(lib.cvl_lstm_bwd_f32_part_rows(T, B), H4)
+            scratch = new(lib.cvl_lstm_bwd_f32_scratch(T, B, IN, H))
+            _raise_if(lib.cvl_lstm_bwd_f32(
+                *(t.data_ptr() for t in (z, c_prev, c, h_prev, x, dh_seq, dc_seq, rk, w, dx, dh0,
+                                         dc0, drk, dw, db, dz, part, scratch)),
                 T, B, IN, H, stream), "backward")
             _count("bwd", 1, bf16)
-            _raise_if(lib.cvl_lstm_seq_wgrad(
-                *(t.data_ptr() for t in (h_prev, x, dz, drk, dw, db)), T * B, IN, H, stream),
-                "weight-gradient")
     _count("bwd", 1, bf16)
     return dx, dh0, dc0, drk, dw, db
 
@@ -665,7 +691,7 @@ def _launch_walk(z, c_prev, c, h_prev, dh_seq, dc_seq, rk_t):
 def lstm_seq_walk(z, c_prev, c, dh_seq, dc_seq, rk_t):
     """The dz-only walk (signature and results of
     :func:`lstm_seq_walk_plain`). CUDA tensors launch
-    ``lstm_seq_bwd_kernel<float, float, R>``, or where z is bf16 the
+    ``lstm_seq_bwd_kernel<float, R>``, or where z is bf16 the
     tensor-core walk of ``csrc/lstm_seq_tc.cu`` (two launches a step, counted
     as one call), or raise; CPU tensors take the plain version."""
     if _device_of(z).type == "cpu":
@@ -737,12 +763,11 @@ class LstmSeqCore(torch.autograd.Function):
     def backward(ctx, dh, dc):
         z, cp, c, hp, x, w, rk = ctx.saved_tensors
         drk, full = ctx.fusion
-        dh, dc, rk_t = dh.contiguous(), dc.contiguous(), rk.T.contiguous()
-        if full:
-            dx, dh0, dc0, drk_g, dw, db = lstm_seq_bwd(z, cp, c, hp, x, dh, dc, rk_t,
-                                                       w.T.contiguous())
+        dh, dc = dh.contiguous(), dc.contiguous()
+        if full:  # views: the f32 kernels read rk and w as stored
+            dx, dh0, dc0, drk_g, dw, db = lstm_seq_bwd(z, cp, c, hp, x, dh, dc, rk.T, w.T)
             return dx, dw, db, drk_g, dh0, dc0, None, None
-        dz, dh0, dc0, drk_g = _walk_and_drk(drk, z, cp, c, hp, dh, dc, rk_t)
+        dz, dh0, dc0, drk_g = _walk_and_drk(drk, z, cp, c, hp, dh, dc, rk.T.contiguous())
         # the projection backward (``_core_fp_bwd``): f32 sums of the stream
         # values; dW and db stay f32, dx is rounded to x's type
         T, B, IN = x.shape

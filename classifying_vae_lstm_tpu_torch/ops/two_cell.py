@@ -44,6 +44,7 @@ import threading
 import torch
 
 from . import _build
+from ._checks import _check, _device_of
 from .lstm import _gate_grads, _gates, bf16_operand
 
 # launches since the counts were last set to 0: one per forward call, two per
@@ -258,23 +259,6 @@ def _bwd_kernels():
         return _bwd_lib
 
 
-def _check(dev, named_shapes: dict, bf16=frozenset()):
-    """Raise on anything the kernels do not take (``None`` entries skip).
-    The tensors named in ``bf16`` must be bfloat16, the others float32."""
-    for name, (t, shape) in named_shapes.items():
-        if t is None:
-            continue
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        dtype = torch.bfloat16 if name in bf16 else torch.float32
-        if t.dtype != dtype:
-            raise ValueError(f"{name} must be {str(dtype)[6:]}, got {t.dtype}")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
 def _count(which: str, n: int, bf16: bool):
     global FWD_LAUNCHES, BWD_LAUNCHES, BF16_FWD_LAUNCHES, BF16_BWD_LAUNCHES
     with _launch_lock:
@@ -286,12 +270,6 @@ def _count(which: str, n: int, bf16: bool):
             BF16_BWD_LAUNCHES += n
         else:
             BWD_LAUNCHES += n
-
-
-def _device_of(t):
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {t.device}")
-    return t.device
 
 
 def two_cell_fwd(xe, xd, eps, we, be, rke, wdx, bd, rkd, kz, wz, bz, h0e, c0e, h0d, c0d):

@@ -4,7 +4,10 @@ autograd function.
 Counterpart of ``classifying_vae_lstm_tpu/ops/pallas_vae.py``. The whole
 cl_vae graph — key encoder, logistic-normal w sample, latent encoder, z
 sample, decoder, frame head — runs forward in one kernel and backward in one
-kernel of two launches (``csrc/vae_dense.cu``). Each has a plain PyTorch
+kernel of two launches (``csrc/vae_dense.cu``); the backward's bf16 mode is
+``csrc/vae_dense_tc.cu``, the wide layers as tensor-core products over the
+whole batch and the narrow ones in row kernels (8 launches, counted as two,
+9 when B > 128). Each has a plain PyTorch
 version with the same signature: :func:`vae_dense_fwd_plain`, and
 :func:`vae_dense_bwd_plain`, which mirrors the TPU backward kernel (it is not
 autograd of the plain forward: it recomputes z and the exp factors from the
@@ -43,7 +46,7 @@ import threading
 import torch
 
 from . import _build
-from .two_cell import _check, _device_of
+from ._checks import _aligned, _check, _device_of
 
 # launches since the counts were last set to 0: one per forward call, two per
 # backward call (the row pass, then the weight-gradient pass); the BF16_
@@ -218,12 +221,31 @@ def _kernels():
                     raise RuntimeError("shared-memory layout of csrc/vae_dense.cu differs from "
                                        f"_smem_bytes at {shape}")
             lib.cvl_vae_dense_fwd.argtypes = [I] + [P] * 26 + [I] * 7 + [P]
-            lib.cvl_vae_dense_bwd.argtypes = [I] + [P] * 28 + [I] * 7 + [P]
-            lib.cvl_vae_dense_wgrad.argtypes = [I] + [P] * 28 + [I] * 7 + [P]
+            lib.cvl_vae_dense_bwd.argtypes = [P] * 28 + [I] * 7 + [P]
+            lib.cvl_vae_dense_wgrad.argtypes = [P] * 28 + [I] * 7 + [P]
             for fn in (lib.cvl_vae_dense_fwd, lib.cvl_vae_dense_bwd, lib.cvl_vae_dense_wgrad):
                 fn.restype = I
             _lib = lib
         return _lib
+
+
+_tc_lib = None
+
+
+def _tc_kernels():
+    """The built bf16 backward library (``csrc/vae_dense_tc.cu``) with its
+    ctypes signatures."""
+    global _tc_lib
+    with _lib_lock:
+        if _tc_lib is None:
+            lib = _build.load("vae_dense_tc")
+            P, I = ctypes.c_void_p, ctypes.c_int
+            lib.cvl_vae_tc_bwd_scratch.argtypes = [I] * 7
+            lib.cvl_vae_tc_bwd_scratch.restype = ctypes.c_longlong
+            lib.cvl_vae_tc_bwd.argtypes = [P] * 43 + [I] * 6 + [P]
+            lib.cvl_vae_tc_bwd.restype = I
+            _tc_lib = lib
+        return _tc_lib
 
 
 def _count(which: str, n: int, bf16: bool):
@@ -302,11 +324,13 @@ def vae_dense_bwd(x, xp, eps_w, eps_z, a1, a2, a3, xhat, wargs, zargs, w,
                   dxhat, dwargs, dzargs, dw, whw, wwz, whx, whw2, wzz, wdw, wdxp, wdz, wxh):
     """The backward kernel (signature and results of :func:`vae_dense_bwd_plain`).
 
-    CUDA tensors launch ``vae_dense_bwd_kernel`` (the row pass, which writes
-    dx, dxp and each layer's pre-activation cotangent to scratch) and then
-    ``wgrad_kernel<vae_dense_wgrad>`` (every weight and bias gradient, summed over
-    the B rows in a fixed order), or raise, in bf16 mode where ``whw`` is
-    bf16; CPU tensors take the plain version."""
+    CUDA tensors launch, in the f32 mode, ``vae_dense_bwd_kernel`` (the row
+    pass, which writes dx, dxp and each layer's pre-activation cotangent to
+    scratch) and then ``wgrad_kernel<vae_dense_wgrad>`` (every weight and bias
+    gradient, summed over the B rows in a fixed order); where ``whw`` is
+    bf16, ``csrc/vae_dense_tc.cu`` (the wide layers and weight gradients on
+    the tensor cores, every weight read as stored; 8 device launches, 9 when
+    B > 128, counted as two); or raise. CPU tensors take the plain version."""
     args = (x, xp, eps_w, eps_z, a1, a2, a3, xhat, wargs, zargs, w, dxhat, dwargs, dzargs, dw,
             whw, wwz, whx, whw2, wzz, wdw, wdxp, wdz, wxh)
     dev = _device_of(x)
@@ -324,37 +348,57 @@ def vae_dense_bwd(x, xp, eps_w, eps_z, a1, a2, a3, xhat, wargs, zargs, w,
                  "whw2": (whw2, (K, H)), "wzz": (wzz, (H, 2 * L)), "wdw": (wdw, (K, H)),
                  "wdxp": (wdxp, (D, H)), "wdz": (wdz, (L, H)), "wxh": (wxh, (H, D))},
            bf16=_BF16_OPERANDS if bf16 else frozenset())
-    lib = _kernels()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
+        new = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt, device=dev)
+        wt = torch.bfloat16 if bf16 else torch.float32
+        dx, dxp = new(B, D, dt=wt), (new(B, D, dt=wt) if use_xp else None)
+        g = lambda *s: new(*s, dt=wt)  # a weight gradient: the mode's type
+        wgrads = (g(D, Cw), new(Cw), g(Cw, K2), new(K2), g(D, H), g(K, H), new(H),
+                  g(H, 2 * L), new(2 * L), g(K, H), g(D, H) if use_xp else None, g(L, H),
+                  new(H), g(H, D), new(D))
+        if bf16:
+            _tc_bwd(args, dx, dxp, wgrads, B, D, Cw, H, L, K, stream)
+            return (dx, dxp, *wgrads)
+        lib = _kernels()
         # the row pass reads each weight transposed, one row per output
         # column of its layer, so neighbouring threads read neighbouring words
         t = lambda m: m.T.contiguous()
         wd = torch.cat([wdw, wdxp, wdz] if use_xp else [wdw, wdz], 0)
         w_t = (t(wxh), t(wd), t(wzz), t(torch.cat([whx, whw2], 0)), t(wwz), t(whw))
-        new = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt, device=dev)
-        wt = torch.bfloat16 if bf16 else torch.float32
-        dx, dxp = new(B, D, dt=wt), (new(B, D, dt=wt) if use_xp else None)
         scratch = (new(B, D), new(B, H), new(B, 2 * L), new(B, H), new(B, K2), new(B, Cw),
                    new(B, L))  # dxh_pre, dd_pre, dza, dh_pre, dwa, dhw_pre, zs
         ptrs = [_ptr(v) for v in (eps_w, eps_z, a1, a2, a3, xhat, wargs, zargs, w, dxhat,
                                   dwargs, dzargs, dw, *w_t, dx, dxp, *scratch)]
-        err = lib.cvl_vae_dense_bwd(int(bf16), *ptrs, B, D, Cw, H, L, K, int(use_xp), stream)
+        err = lib.cvl_vae_dense_bwd(*ptrs, B, D, Cw, H, L, K, int(use_xp), stream)
         if err != 0:
             raise RuntimeError(f"vae_dense backward kernel launch failed: CUDA error {err}")
         _count("bwd", 1, bf16)
-        g = lambda *s: new(*s, dt=wt)  # a weight gradient: the mode's type
-        wgrads = (g(D, Cw), new(Cw), g(Cw, K2), new(K2), g(D, H), g(K, H), new(H),
-                  g(H, 2 * L), new(2 * L), g(K, H), g(D, H) if use_xp else None, g(L, H),
-                  new(H), g(H, D), new(D))
         dxh_pre, dd_pre, dza, dh_pre, dwa, dhw_pre, zs = scratch
         ptrs = [_ptr(v) for v in (x, xp, a1, a2, a3, w, zs, dxh_pre, dd_pre, dza, dh_pre, dwa,
                                   dhw_pre, *wgrads)]
-        err = lib.cvl_vae_dense_wgrad(int(bf16), *ptrs, B, D, Cw, H, L, K, int(use_xp), stream)
+        err = lib.cvl_vae_dense_wgrad(*ptrs, B, D, Cw, H, L, K, int(use_xp), stream)
     if err != 0:
         raise RuntimeError(f"vae_dense weight-gradient kernel launch failed: CUDA error {err}")
     _count("bwd", 1, bf16)
     return (dx, dxp, *wgrads)
+
+
+def _tc_bwd(args, dx, dxp, wgrads, B, D, Cw, H, L, K, stream):
+    """The bf16 mode's backward (``csrc/vae_dense_tc.cu``) into dx, dxp and
+    the gradients; its scratch in one f32 and one bf16 buffer."""
+    lib = _tc_kernels()
+    dev = dx.device
+    ins = tuple(_aligned(t) for t in args)
+    n_f = lib.cvl_vae_tc_bwd_scratch(B, D, Cw, H, L, K, 0)
+    n_b = lib.cvl_vae_tc_bwd_scratch(B, D, Cw, H, L, K, 1)
+    scratch = torch.empty(n_f, dtype=torch.float32, device=dev)
+    scratch_b = torch.empty(n_b, dtype=torch.bfloat16, device=dev)
+    err = lib.cvl_vae_tc_bwd(*(_ptr(v) for v in (*ins, dx, dxp, *wgrads, scratch, scratch_b)),
+                             B, D, Cw, H, L, K, stream)
+    if err != 0:
+        raise RuntimeError(f"vae_dense bf16 backward launch failed: CUDA error {err}")
+    _count("bwd", 2, True)
 
 
 # ------------------------------------------------------------ autograd

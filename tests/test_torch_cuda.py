@@ -423,7 +423,8 @@ def test_two_cell_bf16_wrappers_raise_instead_of_falling_back(dev):
     assert _two_cell_bf16_launches() + (tc.FWD_LAUNCHES, tc.BWD_LAUNCHES) == before
 
 
-# ---- the whole-sequence LSTM kernels (csrc/lstm_seq.cu)
+# ---- the whole-sequence LSTM kernels (csrc/lstm_seq.cu; the f32 full
+# backward csrc/lstm_bwd_f32.cu)
 #
 # Forward outputs within 1e-5 (same f32 products, other summation order);
 # backward outputs within max|a - b| <= 1e-4 * max|b| + 1e-6 (the weight
@@ -531,9 +532,37 @@ def test_lstm_seq_wrappers_raise_instead_of_falling_back(dev):
         ls.lstm_seq_fwd(ins[0].double(), *ins[1:])
     with pytest.raises(ValueError, match="must be"):
         ls.lstm_seq_fwd(ins[0], ins[1][:-1].contiguous(), *ins[2:])
-    with pytest.raises(ValueError, match="shared memory"):
+    # the full backward keeps its state in global memory (no shared-memory
+    # ceiling): a wide H is refused only for its mismatched shapes
+    with pytest.raises(ValueError, match="must be"):
         ls.lstm_seq_bwd(*(torch.zeros(1, 1, 4 * 4096, device=dev),) * 9)
     assert _launches() == before
+
+
+@pytest.mark.parametrize("B,T,H,IN", [(37, 3, 2400, 101), (200, 4, 256, 103), (1, 2, 8, 3)])
+def test_lstm_bwd_f32_matches_plain_bitwise_repeatable(dev, B, T, H, IN):
+    """The f32 full backward (``csrc/lstm_bwd_f32.cu``) at a width past the
+    first design's shared-memory ceiling (H=2,400), at the training shape's
+    width and at one row, on the transposed views ``LstmSeqCore`` passes:
+    every output within the backward bound of its plain version, and a
+    second call bitwise equal (no atomics)."""
+    x, w, b, rk, h0, c0 = _lstm_seq_inputs(dev, B=B, T=T, H=H, IN=IN, seed=4)
+    rk = rk * (256 / H) ** 0.5  # keep the pre-activations O(1) at every width
+    h, c, z, hp, cp = ls.lstm_seq_train_fwd_plain(x, w, b, rk, h0, c0)
+    rng = np.random.default_rng(5)
+    dh, dc = (torch.from_numpy(rng.standard_normal(tuple(h.shape)).astype(np.float32)).to(dev)
+              for _ in range(2))
+    res = (z, cp, c, hp, x, dh, dc, rk.T, w.T)
+    before = _launches()
+    got = ls.lstm_seq_bwd(*res)
+    again = ls.lstm_seq_bwd(*res)
+    torch.cuda.synchronize()
+    assert _launches() == (before[0], before[1], before[2] + 4)
+    want = ls.lstm_seq_bwd_plain(*res)
+    for name, g, a, wv in zip(("dx", "dh0", "dc0", "drk", "dw", "db"), got, again, want):
+        assert g.shape == wv.shape and g.dtype == torch.float32, name
+        _assert_bwd_close(g, wv, name)
+        assert torch.equal(g, a), name
 
 
 
@@ -1068,7 +1097,8 @@ def test_vae_wide_kernel_matches_plain_bf16(dev):
     assert cgv.WIDE_LAUNCHES == before + 2
 
 
-# ---- the dense-stack cl_vae training kernels (csrc/vae_dense.cu)
+# ---- the dense-stack cl_vae training kernels (csrc/vae_dense.cu; the bf16
+# backward csrc/vae_dense_tc.cu)
 #
 # Forward outputs within 1e-5 (same f32 products, other summation order);
 # backward outputs within max|a - b| <= 1e-4 * max|b| + 1e-6 (the weight
@@ -1253,6 +1283,40 @@ def test_vae_dense_bf16_gradients_on_cuda_match_cpu_plain(dev):
         assert err <= 1e-2, (i, name, err)
         if name == "kernel":
             assert torch.equal(g, g.bfloat16().float()), i
+
+
+@pytest.mark.parametrize("B,use_xp", [(300, True), (100, False), (130, True)])
+def test_vae_dense_bf16_backward_bitwise_repeatable(dev, B, use_xp):
+    """The bf16 backward (``csrc/vae_dense_tc.cu``) at batches that take
+    its row-split weight-gradient launch (B > 128) and that do not, with and
+    without x_prev: within 1e-2 relative Frobenius of the bf16 plain
+    version, the weight gradients bf16 and the bias gradients f32, and a
+    second call bitwise equal (every sum in a fixed order)."""
+    ins = _bf16_inputs(_vae_dense_inputs(dev, B=B, D=72, Cw=24, H=96, L=5, K=6, use_xp=use_xp,
+                                         seed=B))
+    xhat, wargs, zargs, w, a1, a2, a3 = vd.vae_dense_fwd_plain(*ins)
+    (x, xp, eps_w, eps_z, whw, _, wwz, _, whx, whw2, _, wzz, _, wdw, wdxp, wdz, _, wxh, _) = ins
+    rng = np.random.default_rng(2)
+    cot = [torch.from_numpy(rng.standard_normal(tuple(o.shape)).astype(np.float32)).to(dev)
+           for o in (xhat, wargs, zargs, w)]
+    res = (x, xp, eps_w, eps_z, a1, a2, a3, xhat, wargs, zargs, w, *cot,
+           whw, wwz, whx, whw2, wzz, wdw, wdxp, wdz, wxh)
+    before = vd.BF16_BWD_LAUNCHES
+    got = vd.vae_dense_bwd(*res)
+    again = vd.vae_dense_bwd(*res)
+    torch.cuda.synchronize()
+    assert vd.BF16_BWD_LAUNCHES == before + 4
+    want = vd.vae_dense_bwd_plain(*res)
+    rel = lambda a, b: ((a.float() - b.float()).norm() / (b.float().norm() + 1e-30)).item()
+    names = ("dx", "dxp", "dwhw", "dbhw", "dwwz", "dbwz", "dwhx", "dwhw2", "dbh", "dwzz", "dbzz",
+             "dwdw", "dwdxp", "dwdz", "dbd", "dwxh", "dbxh")
+    for name, g, a, wv in zip(names, got, again, want):
+        if wv is None:
+            assert g is None and a is None, name
+            continue
+        assert g.dtype == (torch.float32 if name.startswith("db") else torch.bfloat16), name
+        assert rel(g, wv) <= 1e-2, (name, rel(g, wv))
+        assert torch.equal(g, a), name
 
 
 def test_vae_dense_wrappers_raise_instead_of_falling_back(dev):

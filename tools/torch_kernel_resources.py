@@ -13,8 +13,9 @@ registers, stack, local memory (spills) and static shared memory, and
 (tensor-core) and its ``LDG`` (global load) instructions. Occupancy
 is the H100's arithmetic limit from registers (65,536 a SM), threads (2,048)
 and shared memory (228 KB a SM, 227 KB a block) at the block size given in
-``--threads`` (kernel-name substring=threads; unnamed kernels are listed
-without it) and the dynamic shared memory given in ``--smem``. Needs
+``--threads`` (kernel-name substring=threads; ``THREADS`` below gives
+some; unnamed kernels are listed without it) and the dynamic shared memory
+given in ``--smem`` (``SMEM``). Needs
 ``nvcc`` and ``cuobjdump`` (the CUDA toolkit); runs no kernel.
 
     python3 tools/torch_kernel_resources.py --clusters 8 16 [--cluster_smem B]
@@ -39,6 +40,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "classifying_vae_lstm_tpu_torch" / "csrc"
 SM_REGS, SM_THREADS, SM_SMEM, SM_BLOCKS = 65536, 2048, 233472, 32
+# block sizes (and dynamic shared memory at the seq-concat cl_vae's K=13,
+# L=16) of the kernels whose occupancy is listed without --threads / --smem
+# (the first key a kernel's name holds is taken: wgrad_kernel<lstm_bwd_wgrad>
+# runs 256 threads)
+THREADS = {"wgrad_": 256, "lstm_bwd_": 128, "vae_tc_product": 128, "vae_tc_dw": 128,
+           "vae_tc_head": 256, "vae_tc_latent": 256, "vae_tc_key": 256}
+SMEM = {"vae_tc_latent": 4688, "vae_tc_key": 2256}
 
 
 def _tool(name: str) -> str:
@@ -193,7 +201,7 @@ def main(argv=None) -> int:
         max_clusters(a.clusters, a.cluster_smem)
         return 0
     for src in a.sources or sorted(CSRC.glob("*.cu")):
-        report(src.resolve(), _pairs(a.threads), _pairs(a.smem))
+        report(src.resolve(), {**THREADS, **_pairs(a.threads)}, {**SMEM, **_pairs(a.smem)})
     return 0
 
 
