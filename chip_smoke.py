@@ -15,7 +15,9 @@ failure:
    of ``csrc/two_cell_tc.cu``: its bf16 product kernels (walk, dx, dW) do
    and its f32 kernels hold none (FFMA only); of ``csrc/vae_dense_tc.cu``:
    its product kernels (the row chain's and the weight gradients') do; of
-   ``csrc/lstm_bwd_f32.cu``: none (FFMA only);
+   ``csrc/lstm_bwd_f32.cu``: none (FFMA only); ``generate_int8_kernel`` of
+   ``csrc/generate_cl_vrnn.cu`` holds int8 tensor-core (IMMA) instructions
+   and no ``__dp4a`` (IDP);
 2. kernel vs plain version, f32, on the trained ``artifacts/jsball_vrnn4``
    weights at the largest serving bucket (64 songs, 32 seed + 256 steps):
    probabilities with u=1 within 1e-5, and sampled frames equal up to each
@@ -202,7 +204,8 @@ failure:
    gradient of each rung there with JAX's types (dRk and dx bf16-valued, dW
    f32 at the proj rungs and bf16-valued at the unfused ones, db never
    rounded); the walk at H=2,560 (B=256); f32 at phase 8's
-   shape within phase 8's bounds; times beside bounds at the stream type's
+   shape within phase 8's bounds, with the f32 walks' device split (the
+   walk, the drk rung's dRk); times beside bounds at the stream type's
    rate;
 27. the bf16 cl_vrnn the JAX package trains at H=2,048
    (``artifacts/fused_kernel_exp.json`` phase h2048, variant proj: D=88,
@@ -223,12 +226,15 @@ failure:
    and (F, F, F) in f32 and (F, F, F) and (T, T, F) in bf16, set through
    ``args.fusion``; each run's counts equal its steps, every other 0, the
    f32 runs' first-epoch loss within 1e-3 relative of phase 9's, each
-   run's step wall time beside its device-busy time and idle share; then
+   run's step wall time beside its device-busy time and idle share (the f32
+   runs' walk and dRk device ms a step); then
    ``cli.evaluate`` of the (F, F, F) f32 checkpoint through the unfused
    inference forward (2 a batch) and ``xla`` (NLLs within 1e-4);
 29. the int8 generation kernels vs their plain versions on seeded glorot
-   weights: cl_vrnn at D=88, L=2, use_x_prev, 13 keys, H=64 and H=1,536 (the
-   JAX package's int8 band), 64 songs x (32 + 256) steps; cl_vae at the
+   weights: cl_vrnn at D=88, L=2, use_x_prev, 13 keys, H=64, H=1,536 and
+   H=1,752 (the JAX package's int8 band), 64 songs x (32 + 256) steps, the
+   kernel's profiler device time (one launch a call) apart from the
+   wrapper's CUDA-event time and its pack; cl_vae at the
    seq-concat width (D=1,024, L=16, no x_prev), H=5,120, 64 x 256, with and
    without use_z_prior: the quantized operands equal on the card and the
    host, probabilities with u=1 within 1e-5, free-running frames equal in
@@ -415,7 +421,9 @@ def phase_tensor_cores():
     """``cuobjdump -sass`` of the built ``csrc/lstm_seq_tc.cu`` library: every
     instance of each product kernel holds tensor-core (HMMA or HGMMA)
     instructions; likewise the bf16 product kernels of
-    ``csrc/two_cell_tc.cu``, whose f32 kernels hold none."""
+    ``csrc/two_cell_tc.cu``, whose f32 kernels hold none; the int8
+    generation kernel of ``csrc/generate_cl_vrnn.cu`` holds int8 tensor-core
+    (IMMA) instructions and no ``__dp4a`` (IDP)."""
     from classifying_vae_lstm_tpu_torch.ops import _build
     from tools.torch_kernel_resources import sass_counts
 
@@ -433,6 +441,13 @@ def phase_tensor_cores():
             f"a bf16 product kernel of csrc/two_cell_tc.cu runs without tensor cores: {tc16}")
     require(all(v and not any(v) for v in f32.values()),
             f"an f32 kernel of csrc/two_cell_tc.cu holds tensor-core instructions: {f32}")
+    i8 = {n: c for n, c in sass_counts(str(_build._lib_path("generate_cl_vrnn"))).items()
+          if "generate_int8_kernel" in n}
+    print("generate_int8_kernel (csrc/generate_cl_vrnn.cu): " + "; ".join(
+        f"{c['imma']} IMMA (int8 tensor-core), {c['idp']} IDP (__dp4a) of {c['sass']} "
+        "instructions" for c in i8.values()))
+    require(len(i8) == 1 and all(c["imma"] > 0 and c["idp"] == 0 for c in i8.values()),
+            f"generate_int8_kernel does not run its products on the int8 tensor cores: {i8}")
     vae16, lstm32 = hmma_counts("vae_dense_tc", VAE_TC), hmma_counts("lstm_bwd_f32", LSTM_BWD_F32)
     print(f"tensor-core instructions in csrc/vae_dense_tc.cu's products {vae16}; in "
           f"csrc/lstm_bwd_f32.cu {lstm32}")
@@ -1002,11 +1017,12 @@ def phase_train_two_loop(model_dir, first_loss):
     return train_fwd, bwd, seen
 
 
-def phase_train_breakdown(seen, label="two-cell kernels", key="two_cell"):
+def phase_train_breakdown(seen, label="two-cell kernels", key="two_cell", split=None):
     """Where a training step's time goes: CUDA events around the forward
     (loss), the backward and the optimizer step; then a profiler's device
     time per kernel, where it records one (``label``: the kernels whose
-    name holds ``key``). Informational."""
+    name holds ``key``; ``split``: device ms of named kernel groups, as
+    :func:`device_split`). Informational."""
     import torch
 
     from classifying_vae_lstm_tpu_torch.train.loop import copy_params
@@ -1048,6 +1064,8 @@ def phase_train_breakdown(seen, label="two-cell kernels", key="two_cell"):
           f"forward + loss {parts[0]:.3f} ms, backward {parts[1]:.3f} ms, optimizer "
           f"{parts[2]:.3f} ms")
     device_profile(step, 5, wall, "step", label, key)
+    if split:
+        print(f"{label}, device ms a step: " + device_split(step, 5, split))
 
 
 def _device_rows(fn, n):
@@ -1133,6 +1151,9 @@ def device_split(fn, n, parts):
         f" (all kernels {sum(dev_us(e) for e in rows) / (n * 1e3):.3f} ms)"
 
 
+# the f32 walks of the dz-only and drk rungs (csrc/lstm_bwd_f32.cu): the
+# walk's per-step products with the gates, and the drk rung's row-split dRk
+F32_WALK_PARTS = {"walk": ("lstm_bwd_walk",), "dRk": ("lstm_bwd_wgrad",)}
 # the f32 full backward's parts (csrc/lstm_bwd_f32.cu), by kernel name: the
 # walk's per-step products with the gates, dx, dRk / dW and db
 LSTM_BWD_PARTS = {"walk": ("lstm_bwd_walk",), "dx": ("lstm_bwd_dx",),
@@ -2947,6 +2968,10 @@ def rung_kernels(label, ins, reps):
         b_ms, b_by = roofline_ms(fmas, nbytes, peak)
         table[kind] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                        "bound_by": b_by}
+    if not bf16:  # the f32 walks: the full backward's walk, and the drk rung's split dRk
+        for kind in ("walk", "walk_drk"):
+            print(f"{label}: {kind} device split: "
+                  + device_split(times[kind][0], 5, F32_WALK_PARTS))
     print(f"{label}: " + "; ".join(
         f"{k} {v['ms']:.3f} ms (plain {v['plain_ms']:.3f}, bound {v['bound_ms']:.4f} "
         f"{v['bound_by']}{', bf16 rate' if bf16 else ''})" for k, v in table.items()))
@@ -3275,7 +3300,8 @@ def phase_other_rungs(model_dir, first_loss):
             require(margs["fusion"] == fusion and margs.get("bf16_compute", False) == bf16,
                     f"args.json {margs}")
             require(bf16 or rel <= 1e-3, f"fusion {label}: first-epoch loss differs by {rel}")
-            phase_train_breakdown(seen, f"fusion {label} LSTM kernels", "lstm_")
+            phase_train_breakdown(seen, f"fusion {label} LSTM kernels", "lstm_",
+                                  None if bf16 else F32_WALK_PARTS)
             totals = {n: totals[n] + counts[n] for n in LSTM_COUNTS}
             if fusion == [False, False, False] and not bf16:
                 ckpt = last_checkpoint(seen["ckpt"])
@@ -3304,6 +3330,7 @@ def phase_other_rungs(model_dir, first_loss):
 # 21 does at H=1,024 (the port's own gate, measured on the H100, also keeps
 # a bf16 H=1,536 model off the two-cell kernels).
 INT8_H, INT8_VAE_H = 1536, 5120
+INT8_TOP_H = 1752  # the widest H the JAX package samples in int8 at D=88, L=2
 INT8_FLAGS = ["--train_file", CORPUS, "--intermediate_dim", str(INT8_H), "--latent_dim",
               str(BF16_L), "--seq_length", str(TRAIN_T), "--batch_size", str(BF16_B),
               "--use_x_prev", "--patience", "0", "--two_cell", "off"]
@@ -3339,12 +3366,16 @@ def _tensor_bytes(w: dict, skip=()) -> int:
 
 
 def _int8_case(label, kern, plain, bf16, pack, nbytes, int8_macs, other_flops, probs_u1, u,
-               with_frames=True):
+               with_frames=True, device_key=None, kernel_pack=None):
     """One int8 kernel against its plain version: the quantized operands
     equal on the card and on the host, probabilities with u = 1 within 1e-5,
     free-running frames equal in >= 99.9% of entries; then the int8 kernel,
     the plain version and the bf16 kernel on the same weights timed with CUDA
-    events, beside the int8 bound. Returns the kernel-table fields."""
+    events, beside the int8 bound. With ``device_key``, the profiler's device
+    time of the kernels whose name holds it, apart from the wrapper's CUDA-event
+    time, and their launches a call (one); with ``kernel_pack``, the
+    wrapper's pack of the weights timed alone. Returns the kernel-table
+    fields."""
     import torch
 
     w_dev, w_cpu = pack("cuda"), pack("cpu")
@@ -3376,14 +3407,33 @@ def _int8_case(label, kern, plain, bf16, pack, nbytes, int8_macs, other_flops, p
           f"{2 * int8_macs:.3e} int8 operations at 1,979 TOPS, {nbytes / 1e6:.3f} MB at 3.35 "
           f"TB/s), {t[0] / b_ms:.0f}x; the int8 MACs at the __dp4a rate {dp4a_ms(int8_macs):.3f} "
           "ms")
-    return {"max_abs_err": err, "ms": t[0], "plain_ms": t[1], "bound_ms": b_ms, "bound_by": b_by,
-            "bf16_ms": t[2]}
+    row = {"max_abs_err": err, "ms": t[0], "plain_ms": t[1], "bound_ms": b_ms, "bound_by": b_by,
+           "bf16_ms": t[2]}
+    if device_key:
+        kern(u, False)
+        torch.cuda.synchronize()
+        rows, dev_us = _device_rows(lambda: kern(u, False), 2)
+        ours = [e for e in rows if device_key in e.key]
+        launches = sum(e.count for e in ours) / 2
+        row["device_ms"] = sum(dev_us(e) for e in ours) / 2e3 if rows else None
+        print(f"int8 {label}: profiler, per call: {device_key} {row['device_ms']} device ms in "
+              f"{launches} launches (CUDA events around the wrapper {t[0]:.3f} / {t[3]:.3f} ms); "
+              "all device work " + (f"{sum(dev_us(e) for e in rows) / 2e3:.3f} ms" if rows
+                                    else "not measured"))
+        require(not rows or launches == 1, f"{label}: {launches} launches of {device_key} a call")
+    if kernel_pack:
+        row["pack_ms"] = time_ms(kernel_pack, reps=3, warm=1)
+        print(f"int8 {label}: the wrapper's pack (_quant_cols and the per-block packing) "
+              f"{row['pack_ms']:.3f} ms (CUDA events)")
+    return row
 
 
 def phase_int8_kernels(dev):
     """Phase 29: each int8 kernel against its plain version on the card, on
-    seeded glorot weights: cl_vrnn at D=88, L=2, use_x_prev, 13 keys, H=64
-    and H=1,536, 64 songs x (32 + 256) steps (phase 2's shape); cl_vae at
+    seeded glorot weights: cl_vrnn at D=88, L=2, use_x_prev, 13 keys, H=64,
+    H=1,536 and H=1,752 (the top of the JAX package's int8 band), 64 songs x
+    (32 + 256) steps (phase 2's shape), with the kernel's profiler device
+    time and launches a call and the wrapper's pack timed apart; cl_vae at
     the seq-concat width (D=1,024, L=16, no x_prev), H=5,120, 64 x 256 steps
     (phase 17's wide shape), with and without use_z_prior. Returns the
     kernel-table fields of the H=1,536 cl_vrnn and the cl_vae runs."""
@@ -3403,6 +3453,7 @@ def phase_int8_kernels(dev):
         return rng.uniform(-lim, lim, (i, o)).astype(np.float32)
 
     rows = {}
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     D, L, Tseed, nsteps = 88, BF16_L, 32, 256
     total = Tseed + nsteps
     seeds = torch.from_numpy(seed_windows(B)).to(dev)
@@ -3410,7 +3461,7 @@ def phase_int8_kernels(dev):
     eps = torch.from_numpy(rng.standard_normal((B, total, L), dtype=np.float32)).to(dev)
     u = torch.from_numpy(rng.random((B, total, D), dtype=np.float32)).to(dev)
     u[:, :Tseed] = 1.0  # the seed phase's draws only feed the first free step
-    for H in (64, INT8_H):
+    for H in (64, INT8_H, INT8_TOP_H):
         cfg = cl_vrnn.Config(original_dim=D, intermediate_dim=H, latent_dim=L,
                              seq_length=TRAIN_T, n_classes=K, use_x_prev=True,
                              bf16_compute=True, lstm_backend="pallas")
@@ -3434,14 +3485,22 @@ def phase_int8_kernels(dev):
         macs = B * total * ((D + H) * 4 * H + (H + D) * 4 * H + H * D)
         other = 2 * B * total * (H * 2 * L + L * 4 * H)
         nbytes = (_tensor_bytes(w) + 4 * (B * Tseed * D + B * total * (L + D) + B * nsteps * D))
-        require(cg.pick_mode(cfg) == ("int8" if H == INT8_H else "bf16"),
+        require(cg.pick_mode(cfg) == ("bf16" if H == 64 else "int8"),
                 f"H={H}: pick_mode {cg.pick_mode(cfg)}")
+        nu, grid = cg.int8_grid(H, n_sm)
+        print(f"int8 cl_vrnn H={H}: {grid} blocks of {nu} hidden units on {n_sm} SMs, "
+              f"{cg._int8_smem(nu, B, L)} B of shared memory a block")
         rows[f"cl_vrnn H={H}"] = _int8_case(
             f"cl_vrnn H={H} (64 x (32 + 256))",
             lambda uu, rp: run(cg.generate_cl_vrnn_batch_cuda, uu, rp),
             lambda uu, rp: run(cg.generate_cl_vrnn_batch_plain, uu, rp),
             lambda uu: run(cg.generate_cl_vrnn_batch_cuda, uu, False, "bf16"),
-            pack, nbytes, macs, other, torch.ones_like(u), u)
+            pack, nbytes, macs, other, torch.ones_like(u), u, device_key="generate_int8_kernel",
+            kernel_pack=lambda: cg.pack_int8(pack("cuda"), cfg, nu))
+        split = cg.int8_phase_ms(params, cfg, seeds, nsteps, eps, u, ws)
+        print(f"int8 cl_vrnn H={H}: a call's parts (block 0's clock, ms; a wait is the "
+              "slowest block's lag and the grid barrier) "
+              + "; ".join(f"{n} {v:.3f}" for n, v in split.items()))
     D, H, L, nsteps = 1024, INT8_VAE_H, 16, 256
     cfg = cl_vae.Config(original_dim=D, intermediate_dim=H, latent_dim=L,
                         intermediate_class_dim=256, n_classes=K, use_x_prev=False,
@@ -3473,7 +3532,11 @@ def phase_int8_kernels(dev):
             pack, nbytes, macs, 0 if zp else other, torch.ones_like(u), u)
         rows[f"cl_vae zp={zp}"] = row
     errs = max(rows["cl_vae zp=False"]["max_abs_err"], rows["cl_vae zp=True"]["max_abs_err"])
-    return rows[f"cl_vrnn H={INT8_H}"], {**rows["cl_vae zp=False"], "max_abs_err": errs}
+    top, mid = rows[f"cl_vrnn H={INT8_TOP_H}"], rows[f"cl_vrnn H={INT8_H}"]
+    print(f"int8 cl_vrnn kernel at H={INT8_H} / {INT8_TOP_H}: {mid['ms']:.3f} / {top['ms']:.3f} "
+          f"ms (device {mid.get('device_ms')} / {top.get('device_ms')}), bound "
+          f"{mid['bound_ms']:.4f} / {top['bound_ms']:.4f} ms")
+    return mid, {**rows["cl_vae zp=False"], "max_abs_err": errs}
 
 
 def serve_requests(argv, kmod, bodies, frames_per_row=1):
@@ -3932,8 +3995,9 @@ def main(argv=None) -> int:
             if (mode, kind) == ("bf16", "walk"):
                 launches = walk16_launches
             require(launches > 0, f"lstm_seq_{kind}{sfx} was not launched on its path")
-            kernels.append({"name": f"lstm_seq_{kind}{sfx}", "route": "cuda",
-                            "source": tc_source if sfx else lstm_source,
+            source = (tc_source if sfx
+                      else lstm_bwd_source if kind in ("walk", "walk_drk") else lstm_source)
+            kernels.append({"name": f"lstm_seq_{kind}{sfx}", "route": "cuda", "source": source,
                             "replaces": f"{pallas_lstm}:{replaced[kind]}",
                             "launches": launches, **rungs[mode][kind], "library_ms": None})
     for name, launches, row, src, replaced in (
@@ -3946,7 +4010,8 @@ def main(argv=None) -> int:
                         "source": f"classifying_vae_lstm_tpu_torch/csrc/{src}",
                         "replaces": f"classifying_vae_lstm_tpu/ops/{replaced}",
                         "launches": launches,
-                        **{k: v for k, v in row.items() if k != "bf16_ms"},
+                        **{k: v for k, v in row.items()
+                           if k not in ("bf16_ms", "device_ms", "pack_ms")},
                         "library_ms": None})
     # every thread this run started has ended (the servers' threads are
     # daemons and shut down), so the interpreter exits with main's code

@@ -47,34 +47,69 @@
 //
 // Numerics. Every int8 product is exact: the operands are int8 codes (x is
 // binary; h enters as round(h * 127), `__float2int_rn`, half to even like
-// jnp.round), and the sums are int32 (`__dp4a` over four k at a time), so
-// the accumulators equal the plain version's bit for bit in any order. Each
-// column is dequantized once, (float)acc * scale, and the f32 epilogue is
-// written with __fmul_rn / __fadd_rn in the JAX kernel's order, so that nvcc
-// contracts nothing into an FMA: an ulp of h moved by a contraction can land
-// on the other side of a rounding tie of h * 127 and change a code by one.
-// The weights are packed by the wrapper as [ceil(K/4)][N] words of four k
-// (zero rows pad K), the frame head as [D][ceil(H/4)]; the codes of x and h
-// live in shared memory as [ceil(K/4)][kSongs] words, one int4 load giving
-// the four songs' words.
+// jnp.round), and the sums are int32, so the accumulators equal the plain
+// version's bit for bit in any order. The x rows and the recurrent rows are
+// two products with their own scales. Each column is dequantized once,
+// (float)acc * scale, and the f32 epilogue is written with __fmul_rn /
+// __fadd_rn in the JAX kernel's order, so that nvcc contracts nothing into an
+// FMA: an ulp of h moved by a contraction can land on the other side of a
+// rounding tie of h * 127 and change a code by one.
 //
 // What bounds the int8 kernel. At the JAX band's H=1,536 (D=88, L=2,
 // use_x_prev), 64 songs x (32 + 256) steps, it does 2.0e7 int8 MACs per
 // song-step, 3.7e11 MACs (7.4e11 operations) for the call: ~0.37 ms at the
 // card's 1,979 TOPS of int8 tensor-core products, against 20.7 MB of int8
 // weights, 0.006 ms at HBM rate, so operations bound it (chip_smoke.py's
-// `int8_bound_ms` prints both).
-// The design is the bf16 kernel's: one block per 4-song tile runs every
-// step, and every block reads all its weights from L2 each step (20.7 MB,
-// half the bf16 weights' 40.7 MB, so the L2 holds them); `__dp4a` runs on
-// the integer pipes, not the tensor cores, and 16 blocks leave most SMs
-// idle, so the kernel sits hundreds of times above its bound. The lever of a
-// later PR is int8 `mma.sync` (m16n8k32) or `wgmma` on the tensor cores,
-// with the columns split over a cluster's SMs.
+// `int8_bound_ms` prints both). But each step is a chain of dependent
+// phases (encoder cell, z heads, decoder cell, frame head, each needing the
+// whole of the one before), 288 steps in series.
+//
+// What the design does about it.
+// * The columns, not the songs, are spread over the card: each block owns nu
+//   hidden units of both cells, all four gate columns (i, f, c, o) of each,
+//   so the gate epilogue stays in the block, and computes them for every
+//   song of the call (in passes of 64 songs, 16-row tiles, any B). The grid
+//   is cdiv(H, nu) blocks with nu = 2 cdiv(H, 2 SMs): 128 blocks of 12 units
+//   at H=1,536, 126 of 14 at H=1,752. The card then reads the weights once a
+//   step in all, not once a song tile.
+// * The products run on the int8 tensor cores, `mma.sync.m16n8k32` s8 x s8
+//   -> s32. The wrapper packs each block's slice of each cell contiguously,
+//   chunk by chunk in the order the B fragments load it (K zero-padded to
+//   whole k32 chunks); the slices stream from L2 through a 4-stage
+//   `cp.async` ring of 8 chunks a stage with the codes of the operand, the
+//   copies dealt to the threads at fixed strides. Each of the 16 warps takes
+//   one 16-song tile and all of the block's n8 tiles, and the warps of a
+//   tile split the chunks of a stage (their int32 partial sums are added in
+//   shared memory): NT mma for 2 + NT fragment loads. Lane (g, t) takes
+//   codes 8t .. 8t + 7 of a chunk's row in one 8-byte load, and the packing
+//   pairs the same k with them (any pairing of k gives the same int32 sum).
+//   On an H100, 4 chunks a stage with a division per copy, and 8 warps of
+//   1-2 tiles each, spent more time in the loop's own instructions than in
+//   its loads.
+// * One persistent cooperative launch runs the whole song. A step is four
+//   phases with a grid barrier (a counter in global memory) after each: the
+//   encoder cell; the z heads (one block per latent and group of four songs,
+//   its threads splitting k); the decoder cell; the frame head (jobs of 16
+//   songs x 8 pitches spread over the blocks, K split over a block's warps
+//   and their sums added in warp order). The codes of x and of h of both
+//   cells live in global memory (h double-buffered), written once a step and
+//   read through L2 (`cp.async.cg`, `__ldcg`: other blocks rewrite them every
+//   step); c of each unit stays in its owning block's shared memory, with
+//   the scales and the decoder's z rows of the block's columns and a pass's
+//   z. A grid that cannot be co-resident fails to launch.
+// * Known limits: the cell phases stream ~23 MB from L2 a step each
+//   (every block reads the whole of a cell's codes, 64 songs x (D + H)
+//   bytes, beside its 78 KB of weights), and on an H100 that stream, not
+//   the tensor cores, sets their time: more stages in flight made it
+//   slower. The barriers cost ~1-1.7 us each. Residency of the weights
+//   (~206 KB a block at the top of the band, which does not fit beside the
+//   ring), cluster multicast of the codes and `wgmma` are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -322,275 +357,545 @@ int launch(const Args& a, cudaStream_t stream) {
 
 // ------------------------------------------------------------- the int8 kernel
 
-static_assert(kSongs == 4, "the int8 kernel loads the tile's four code words as one int4");
+constexpr int kI8Threads = 512;              // 16 warps a block
+constexpr int kI8Warps = kI8Threads / 32;
+constexpr int kGroupRows = 64;               // songs of one pass of a cell's products: 4 m16 tiles
+constexpr int kChunkBytes = 32;              // one k32 chunk of a row of int8 codes
+constexpr int kCPS = 8;                      // k32 chunks a ring stage
+constexpr int kRing = 4;                     // ring stages
+constexpr int kMaxNT = 8;                    // n8 tiles a block (16 hidden units)
+constexpr int kAStage = kCPS * kGroupRows * kChunkBytes;  // the codes of a stage, bytes
 
 struct Int8Args {
   const float* seed;           // [B, Tseed, D]
   const float* eps;            // [B, total, L]
   const float* u;              // [B, total, D]
-  const int* wke_x;            // [D4, 4H]  encoder x rows, int8 codes four k to a word
-  const float* ske;            // [4H]      their scales
-  const int* rke;              // [H4, 4H]  encoder recurrent kernel
-  const float* srke;           // [4H]      its scales / 127
-  const float* encb;           // [B, 4H]   w rows . w + bias, per song
-  const __nv_bfloat16* wz_t;   // [2L, H]   Z_mean | Z_log_var kernels, transposed, bf16
+  const int* enc_w;            // [G][KCx + KCh][NT][64] words: Wke_x, then Rke (`pack_int8`)
+  const int* dec_w;            // [G][KCd + KCh][NT][64]: Wkd_x (KCd = 0 without use_x_prev), Rkd
+  const int* head_w;           // [NTx][KCh][64]: the frame head
+  const float* ske;            // [4H]  scales of Wke_x
+  const float* srke;           // [4H]  scales of Rke / 127
+  const float* encb;           // [B, 4H]  w rows . w + bias, per song
+  const __nv_bfloat16* wz_t;   // [2L, H]  Z_mean | Z_log_var kernels, transposed, bf16
   const float* bz;             // [2L]
-  const int* wkd_x;            // [D4, 4H]  decoder x_prev rows (unused without use_x_prev)
-  const float* skd;            // [4H]
-  const float* wkd_z;          // [L, 4H]   decoder z rows, f32
-  const int* rkd;              // [H4, 4H]  decoder recurrent kernel
-  const float* srkd;           // [4H]      its scales / 127
+  const float* skd;            // [4H]  scales of Wkd_x
+  const float* wkd_z;          // [L, 4H]  decoder z rows, f32
+  const float* srkd;           // [4H]  scales of Rkd / 127
   const float* decb;           // [B, 4H]
-  const int* wx_t;             // [D, H4]   frame head, transposed, four k to a word
-  const float* swx;            // [D]       its scales / 127
+  const float* swx;            // [D]   scales of the frame head / 127
   const float* bx;             // [D]
   float* out;                  // [B, total - Tseed, D]
+  // the state shared between blocks, in global memory, zeroed by the caller
+  // (`int8_state` cuts it from one buffer)
+  int* xq;                     // [Bp][KCx * 8] words: the step's input x, int8 codes
+  int* heq;                    // [2][Bp][KCh * 8] words: h_e codes, double-buffered
+  int* hdq;                    // [2][Bp][KCh * 8] words: h_d codes, double-buffered
+  float* hef;                  // [Bp / 4][H][4]: h_e as the z head's bf16-valued operand
+  float* zs;                   // [Bp][L]: the step's z
+  unsigned* bar;               // arrivals at the grid barrier
+  unsigned long long* clock;   // [kLaps] or null: block 0's ns per part of a step (PhaseClock)
   int B, Tseed, total, D, H, L, use_x_prev, return_probs;
+  int nu;                      // hidden units a block owns (even, at most 2 kMaxNT)
 };
 
-__host__ __device__ constexpr int words(int k) { return (k + 3) / 4; }
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int round16(int n) { return cdiv(n, 16) * 16; }
 
-// shared memory, in 4-byte units: the code words ([rows][kSongs] each: x,
-// h_e x2, h_d x2), h_e as the z head's bf16-valued operand, c_e, c_d, z, and
-// the int partial sums of two operands ([2][4][kSongs][kUnits])
-__host__ __device__ constexpr size_t int8_smem_words(int D, int H, int L) {
-  return (size_t)(words(D) + 4 * words(H) + 3 * H + L) * kSongs +
-         (size_t)2 * 4 * kSongs * kUnits;
+// dynamic shared memory of a block owning nu units, for Bp song rows and L
+// latents: the ring (codes and weights of kCPS chunks a stage; after a
+// pass, the staged sums, the z heads' or the frame head's warp sums), c of
+// both cells ([nu][Bp] each), the block's columns of the scales and of the
+// decoder's z rows ([4 + L][4 nu]), and the z of a pass's songs ([64][L])
+__host__ __device__ constexpr size_t ring_bytes(int nu) {
+  return (size_t)kRing * (kAStage + kCPS * (nu / 2) * 256);
+}
+__host__ __device__ constexpr size_t int8_smem_bytes(int nu, int Bp, int L) {
+  return ring_bytes(nu) +
+         ((size_t)2 * nu * Bp + (size_t)(4 + L) * 4 * nu + (size_t)kGroupRows * L) * sizeof(float);
+}
+
+// the global state, in 4-byte words, each part a multiple of 16 bytes
+struct Int8State {
+  size_t xq, heq, hdq, hef, zs, bar, total;
+};
+__host__ __device__ inline Int8State int8_state(int B, int D, int H, int L) {
+  const int Bp = round16(B);
+  const size_t xw = (size_t)cdiv(D, 32) * 8, hw = (size_t)cdiv(H, 32) * 8;
+  Int8State st{};
+  st.xq = 0;
+  st.heq = st.xq + Bp * xw;
+  st.hdq = st.heq + 2 * Bp * hw;
+  st.hef = st.hdq + 2 * Bp * hw;
+  st.zs = st.hef + (size_t)Bp * H;
+  st.bar = st.zs + (size_t)cdiv(Bp * L, 4) * 4;
+  st.total = st.bar + 4;
+  return st;
 }
 
 __device__ __forceinline__ float hard_sigmoid_rn(float x) {
   return fminf(fmaxf(__fadd_rn(__fmul_rn(0.2f, x), 0.5f), 0.f), 1.f);
 }
 
-// acc[g][b] += sum over this slice's half of the K4 words of dot4(a[k][b],
-// w[k][u + g*H]): a is [K4][kSongs] code words in shared memory, w a
-// [K4, 4H] array of code words in global memory.
-__device__ __forceinline__ void mac_gates_i8(int (&acc)[4][kSongs], const int* a,
-                                             const int* __restrict__ w, int K4, int u, int H,
-                                             int slice) {
-  const int k0 = slice ? K4 / 2 : 0, k1 = slice ? K4 : K4 / 2;
-  const int* wp = w + (size_t)k0 * 4 * H + u;
-#pragma unroll 8
-  for (int k = k0; k < k1; ++k, wp += 4 * H) {
-    const int w0 = __ldg(wp), w1 = __ldg(wp + H), w2 = __ldg(wp + 2 * H), w3 = __ldg(wp + 3 * H);
-    const int4 v = *reinterpret_cast<const int4*>(a + k * kSongs);
-    const int av[kSongs] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int b = 0; b < kSongs; ++b) {
-      acc[0][b] = __dp4a(av[b], w0, acc[0][b]);
-      acc[1][b] = __dp4a(av[b], w1, acc[1][b]);
-      acc[2][b] = __dp4a(av[b], w2, acc[2][b]);
-      acc[3][b] = __dp4a(av[b], w3, acc[3][b]);
-    }
-  }
+// d += a . b on the int8 tensor cores: a 16 x 32 (row) by 32 x 8 (col)
+// product of s8 codes, summed in s32 (exact)
+__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                       unsigned b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The bf16 z head of the int8 kernel: returns, in lane b < kSongs, sum_k
-// a[k][b] * wrow[k] for bf16-valued a, summed in double and rounded to f32
-// once. Each product of two bf16 values is exact, and the double sum rounds
-// them the same in any order to within 2^-53, so the kernel's z head and the
-// plain version's (a float64 product) give the same f32 z: an f32 sum in two
-// orders may differ by an ulp, which h_d * 127 can turn into another code.
-__device__ __forceinline__ float warp_dot_exact(const float* a,
-                                                const __nv_bfloat16* __restrict__ wrow, int K,
-                                                int lane) {
-  double s[kSongs];
-#pragma unroll
-  for (int b = 0; b < kSongs; ++b) s[b] = 0.0;
-  for (int k = lane; k < K; k += 32) {
-    const double w = __bfloat162float(wrow[k]);
-    const float4 v = *reinterpret_cast<const float4*>(a + k * kSongs);
-    s[0] = fma((double)v.x, w, s[0]);
-    s[1] = fma((double)v.y, w, s[1]);
-    s[2] = fma((double)v.z, w, s[2]);
-    s[3] = fma((double)v.w, w, s[3]);
-  }
-  float mine = 0.f;
-#pragma unroll
-  for (int b = 0; b < kSongs; ++b) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s[b] += __shfl_xor_sync(0xffffffffu, s[b], off);
-    if (lane == b) mine = __double2float_rn(s[b]);
-  }
-  return mine;
-}
-
-// the int8 code of one operand entry into byte `r % 4` of its word
-__device__ __forceinline__ void put_code(int* words_, int r, int b, int code) {
-  reinterpret_cast<signed char*>(words_)[((r / 4) * kSongs + b) * 4 + (r % 4)] =
-      static_cast<signed char>(code);
-}
-
-// One LSTM cell of the int8 kernel for all units. Operand x: codes xa
-// against wx (kx words, scales sx); operand h: codes ha against wh (kh
-// words, scales sh). Each unit's K is split between the block's two slices;
-// slice 1 hands its int partial sums to slice 0, which adds them (exact) and
-// runs the epilogue: the encoder's z = (x.sx + bias) + h.sh, the decoder's
-// z = ((bias + h.sh) + z rows, l = 0..L-1) + x.sx, in the JAX kernel's
-// order. Writes c, h's codes (`hq_out`) and, for the encoder, h as the z
-// head's bf16-valued operand (`hf_out`).
-__device__ __forceinline__ void lstm_cell_i8(const Int8Args& a, bool decoder, const float* bias,
-                                             int s0, const int* xa, const int* wx,
-                                             const float* sx, int kx, const int* ha,
-                                             const int* wh, const float* sh, int kh,
-                                             const float* zs, float* c, int* hq_out,
-                                             float* hf_out, int* part) {
-  const int H = a.H;
-  const int slice = threadIdx.x / kUnits, lu = threadIdx.x % kUnits;
-  for (int u0 = 0; u0 < H; u0 += kUnits) {  // uniform trip count: syncs inside
-    const int u = u0 + lu;
-    int accx[4][kSongs], acch[4][kSongs];
-#pragma unroll
-    for (int g = 0; g < 4; ++g)
-#pragma unroll
-      for (int b = 0; b < kSongs; ++b) accx[g][b] = acch[g][b] = 0;
-    if (u < H) {
-      if (kx) mac_gates_i8(accx, xa, wx, kx, u, H, slice);
-      mac_gates_i8(acch, ha, wh, kh, u, H, slice);
-      if (slice == 1) {
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-#pragma unroll
-          for (int b = 0; b < kSongs; ++b) {
-            part[(g * kSongs + b) * kUnits + lu] = accx[g][b];
-            part[((4 + g) * kSongs + b) * kUnits + lu] = acch[g][b];
-          }
-      }
-    }
-    __syncthreads();
-    if (slice == 0 && u < H) {
-#pragma unroll
-      for (int b = 0; b < kSongs; ++b) {
-        const int s = s0 + b;
-        float zg[4];
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          const int col = g * H + u;
-          const float fx = __int2float_rn(accx[g][b] + part[(g * kSongs + b) * kUnits + lu]);
-          const float fh =
-              __int2float_rn(acch[g][b] + part[((4 + g) * kSongs + b) * kUnits + lu]);
-          const float bb = s < a.B ? bias[(size_t)s * 4 * H + col] : 0.f;
-          float z;
-          if (!decoder) {
-            z = __fadd_rn(__fadd_rn(__fmul_rn(fx, sx[col]), bb), __fmul_rn(fh, sh[col]));
-          } else {
-            z = __fadd_rn(bb, __fmul_rn(fh, sh[col]));
-            for (int l = 0; l < a.L; ++l)
-              z = __fadd_rn(z, __fmul_rn(zs[l * kSongs + b], a.wkd_z[(size_t)l * 4 * H + col]));
-            if (kx) z = __fadd_rn(z, __fmul_rn(fx, sx[col]));
-          }
-          zg[g] = z;
-        }
-        const float i = hard_sigmoid_rn(zg[0]), f = hard_sigmoid_rn(zg[1]);
-        const float g = tanhf(zg[2]), o = hard_sigmoid_rn(zg[3]);
-        const float cn = __fadd_rn(__fmul_rn(f, c[u * kSongs + b]), __fmul_rn(i, g));
-        c[u * kSongs + b] = cn;
-        const float h = __fmul_rn(o, tanhf(cn));
-        put_code(hq_out, u, b, __float2int_rn(__fmul_rn(h, 127.f)));
-        if (hf_out) hf_out[u * kSongs + b] = operand<__nv_bfloat16>(h);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) generate_int8_kernel(const Int8Args a) {
-  extern __shared__ int4 smem_i4[];
-  int* sm = reinterpret_cast<int*>(smem_i4);
-  const int D = a.D, H = a.H, L = a.L, D4 = words(D), H4 = words(H);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  // the codes of h are double-buffered: step t reads h[t-1] while it writes h[t]
-  int* xq = sm;                       // [D4][kSongs]
-  int* heq_cur = xq + D4 * kSongs;    // [H4][kSongs]
-  int* heq_nxt = heq_cur + H4 * kSongs;
-  int* hdq_cur = heq_nxt + H4 * kSongs;
-  int* hdq_nxt = hdq_cur + H4 * kSongs;
-  float* hef = reinterpret_cast<float*>(hdq_nxt + H4 * kSongs);  // [H][kSongs]
-  float* ce = hef + H * kSongs;
-  float* cd = ce + H * kSongs;
-  float* zs = cd + H * kSongs;        // [L][kSongs]
-  int* part = reinterpret_cast<int*>(zs + L * kSongs);
-  const int n_words = (D4 + 4 * H4 + 3 * H + L) * kSongs;
-  for (int i = threadIdx.x; i < n_words; i += kThreads) sm[i] = 0;
-
-  const int s0 = blockIdx.x * kSongs;  // songs s0 .. s0+kSongs-1; rows >= B are masked
-  const int nsteps = a.total - a.Tseed;
+// Every block of the grid arrives before any leaves. `count` only grows:
+// round r ends when it reaches r * gridDim.x. Thread 0 arrives with a
+// release (after the block barrier, so it orders the whole block's writes
+// before the arrival) and waits with acquiring loads (the block barrier
+// after it orders the block's later reads after them). Full fences in place
+// of the release and acquire cost ~0.1 us a barrier more on an H100.
+__device__ __forceinline__ void grid_sync(unsigned* count, unsigned& rounds) {
   __syncthreads();
-
-  for (int t = 0; t < a.total; ++t) {
-    // 1. x_in = seed[t] while teacher-forcing (its int8 code: binary frames
-    // are exact), else the fed-back frame's codes already in xq
-    if (t < a.Tseed) {
-      for (int i = threadIdx.x; i < D * kSongs; i += kThreads) {
-        const int b = i / D, d = i - b * D, s = s0 + b;
-        const float x = s < a.B ? a.seed[((size_t)s * a.Tseed + t) * D + d] : 0.f;
-        put_code(xq, d, b, __float2int_rz(x));
-      }
-      __syncthreads();
-    }
-    // 2. encoder cell: z_e = (x_in.Wke_x + encb) + round(h_e * 127).Rke
-    lstm_cell_i8(a, false, a.encb, s0, xq, a.wke_x, a.ske, D4, heq_cur, a.rke, a.srke, H4,
-                 nullptr, ce, heq_nxt, hef, part);
-    // 3. z heads (bf16, summed exactly) and the reparameterized draw, one
-    // warp per latent
-    for (int l = warp; l < L; l += kWarps) {
-      const float zm = warp_dot_exact(hef, a.wz_t + (size_t)l * H, H, lane);
-      const float zv = warp_dot_exact(hef, a.wz_t + (size_t)(L + l) * H, H, lane);
-      const int s = s0 + lane;
-      if (lane < kSongs) {
-        const float e = s < a.B ? a.eps[((size_t)s * a.total + t) * L + l] : 0.f;
-        const float scale = expf(__fadd_rn(zv, a.bz[L + l]) / 2.f);
-        zs[l * kSongs + lane] = __fadd_rn(__fadd_rn(zm, a.bz[l]), __fmul_rn(scale, e));
-      }
-    }
-    __syncthreads();
-    // 4. decoder cell: z_d = ((decb + round(h_d * 127).Rkd) + z rows) (+ x_in.Wkd_x)
-    lstm_cell_i8(a, true, a.decb, s0, xq, a.wkd_x, a.skd, a.use_x_prev ? D4 : 0, hdq_cur, a.rkd,
-                 a.srkd, H4, zs, cd, hdq_nxt, nullptr, part);
-    // 5. frame head on round(h_d * 127), Bernoulli draw, feedback, output;
-    // one warp per pitch, its lanes splitting the words of k
-    for (int d = warp; d < D; d += kWarps) {
-      int acc[kSongs] = {0, 0, 0, 0};
-      const int* wrow = a.wx_t + (size_t)d * H4;
-      for (int k = lane; k < H4; k += 32) {
-        const int w = __ldg(wrow + k);
-        const int4 v = *reinterpret_cast<const int4*>(hdq_nxt + k * kSongs);
-        acc[0] = __dp4a(v.x, w, acc[0]);
-        acc[1] = __dp4a(v.y, w, acc[1]);
-        acc[2] = __dp4a(v.z, w, acc[2]);
-        acc[3] = __dp4a(v.w, w, acc[3]);
-      }
-      int mine = 0;
-#pragma unroll
-      for (int b = 0; b < kSongs; ++b) {
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], off);
-        if (lane == b) mine = acc[b];
-      }
-      const int s = s0 + lane;
-      if (lane < kSongs) {
-        const float logit = __fadd_rn(__fmul_rn(__int2float_rn(mine), a.swx[d]), a.bx[d]);
-        const float xm = 1.f / (1.f + expf(-logit));
-        const float uu = s < a.B ? a.u[((size_t)s * a.total + t) * D + d] : 1.f;
-        const float xt = uu < xm ? 1.f : 0.f;
-        put_code(xq, d, lane, xt != 0.f);
-        if (t >= a.Tseed && s < a.B)
-          a.out[((size_t)s * nsteps + (t - a.Tseed)) * D + d] = a.return_probs ? xm : xt;
-      }
-    }
-    __syncthreads();
-    int* tmp = heq_cur; heq_cur = heq_nxt; heq_nxt = tmp;
-    tmp = hdq_cur; hdq_cur = hdq_nxt; hdq_nxt = tmp;
+  ++rounds;
+  if (threadIdx.x == 0) {
+    const unsigned target = rounds * gridDim.x;
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(count) : "memory");
+    unsigned seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(seen) : "l"(count) : "memory");
+    } while (seen < target);
   }
+  __syncthreads();
+}
+
+// Block 0's clock of a step's parts (`a.clock` set), summed over the steps:
+// the encoder's products, its epilogue, the wait at its barrier; the z
+// heads, the wait; the decoder's products, epilogue, wait; the frame head,
+// the wait. lap(i) adds the ns since the last lap to sums[i]
+// (`%globaltimer`); `flush` writes them out.
+constexpr int kLaps = 10;
+struct PhaseClock {
+  unsigned long long* out;
+  unsigned long long last, sums[kLaps];
+  __device__ __forceinline__ static unsigned long long now() {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+  }
+  __device__ __forceinline__ void start() {
+    if (!out) return;
+    for (int i = 0; i < kLaps; ++i) sums[i] = 0;
+    last = now();
+  }
+  __device__ __forceinline__ void lap(int i) {
+    if (!out) return;
+    const unsigned long long t = now();
+    sums[i] += t - last;
+    last = t;
+  }
+  __device__ __forceinline__ void flush() {
+    if (out)
+      for (int i = 0; i < kLaps; ++i) out[i] = sums[i];
+  }
+};
+
+// The z head's partial sums (bf16, summed exactly): this lane's k = k0,
+// k0 + stride, ... of sum_k a[k][b] * wrow[k] for the bf16-valued a of four
+// songs ([K][4] in global memory) and two weight rows, in double. Each
+// product of two bf16 values is exact, and the double sum rounds them the
+// same in any order to within 2^-53, so the kernel's z head and the plain
+// version's (a float64 product), each rounded to f32 once, give the same f32
+// z: an f32 sum in two orders may differ by an ulp, which h_d * 127 can turn
+// into another code.
+__device__ __forceinline__ void dot_exact(double (&s)[2][4], const float* a,
+                                          const __nv_bfloat16* __restrict__ w0,
+                                          const __nv_bfloat16* __restrict__ w1, int K, int k0,
+                                          int stride) {
+  // a batch's loads are issued before its sums: left to the compiler's
+  // unrolling, the loads of the loop's remainder went in series (3x the
+  // time at H=1,752 on an H100)
+  constexpr int kBatch = 4;
+  for (int kb = k0; kb < K; kb += kBatch * stride) {
+    float4 v[kBatch];
+    float w[kBatch][2];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int k = kb + i * stride;
+      if (k < K) {
+        v[i] = __ldcg(reinterpret_cast<const float4*>(a) + k);
+        w[i][0] = __bfloat162float(w0[k]);
+        w[i][1] = __bfloat162float(w1[k]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      if (kb + i * stride >= K) break;
+      const double x[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        s[0][b] = fma(x[b], (double)w[i][0], s[0][b]);
+        s[1][b] = fma(x[b], (double)w[i][1], s[1][b]);
+      }
+    }
+  }
+}
+
+// One cell's products for song rows m0 .. m0 + 16 mt - 1 (mt <= 4 m16 tiles)
+// and the block's 8 NT columns: the x codes (kcx chunks, row width xw words)
+// times the x rows into acc[.][0], the h codes (kch chunks, hw words) times
+// the recurrent kernel into acc[.][1]: two products with their own scales,
+// never one over the joined K. `w` is the block's packed slice, chunk by
+// chunk. The chunks stream through a ring of kRing stages of kCPS chunks
+// (`cp.async`, L2 only: the codes are rewritten by other blocks every
+// step). Warp (wm, kq) takes m-tile wm, all NT n-tiles, and the chunks q
+// = kq, kq + nks, ... of each stage: the nks = ksplit(mt) warps of an
+// m-tile split K, and the caller adds their partial sums (exact, in any
+// order). Each warp issues NT mma per chunk for 2 + NT fragment loads.
+// Lane (g, t) holds the mma fragments: rows g and g + 8, codes 8t .. 8t + 7
+// of each chunk (one 8-byte load a row), which the weights' packing pairs
+// with the same k. The partial sums are staged in the ring as [nks][2][16
+// mt][8 NT] ints (at most 16384 NT bytes, within the ring) and added in
+// place, element by element, into the first [2][16 mt][8 NT].
+__host__ __device__ constexpr int ksplit(int mt) {
+  return kI8Warps / mt < kCPS ? kI8Warps / mt : kCPS;
+}
+__device__ __forceinline__ void cell_products(const int* __restrict__ w, int kcx, int kch,
+                                              const int* xq, int xw, const int* hq, int hw,
+                                              int m0, int mt, int NT, unsigned char* ring) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int nks = ksplit(mt), wm = warp % mt, kq = warp / mt;
+  const bool active = kq < nks;
+  const int nch = kcx + kch, nst = cdiv(nch, kCPS), rows = 16 * mt;
+  const int sb = kAStage + kCPS * NT * 256;  // bytes a stage
+  int acc[kMaxNT][2][4];
+#pragma unroll
+  for (int i = 0; i < kMaxNT; ++i)
+#pragma unroll
+    for (int o = 0; o < 2; ++o)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][o][q] = 0;
+  // stage s: chunks s kCPS ..; codes [kCPS][kGroupRows][32 B], weights
+  // [kCPS][NT][256 B]; 16-byte pieces, 2 kGroupRows and at most 16 kMaxNT =
+  // 128 a chunk, dealt to the threads at fixed strides (no division)
+  static_assert(kCPS * 2 * kGroupRows % kI8Threads == 0 && 16 * kMaxNT == 2 * kGroupRows,
+                "whole rounds of pieces");
+  auto load = [&](int s) {
+    unsigned char* A = ring + (s % kRing) * sb;
+    unsigned char* Bw = A + kAStage;
+#pragma unroll
+    for (int e = 0; e < kCPS * 2 * kGroupRows / kI8Threads; ++e) {
+      const int i = tid + e * kI8Threads, q = i / (2 * kGroupRows), r = i % (2 * kGroupRows);
+      const int ch = s * kCPS + q;
+      if (ch >= nch) continue;
+      if (r < 2 * rows) {  // the codes: row r / 2, half r % 2
+        const int row = r / 2, half = r % 2;
+        const int* src = ch < kcx ? xq + (size_t)(m0 + row) * xw + ch * 8 + half * 4
+                                  : hq + (size_t)(m0 + row) * hw + (ch - kcx) * 8 + half * 4;
+        cvl_tc::cp_async16(A + (q * kGroupRows + row) * kChunkBytes + half * 16, src, true);
+      }
+      if (r < 16 * NT)  // the weights: piece r of the chunk's NT tiles
+        cvl_tc::cp_async16(Bw + q * NT * 256 + r * 16, w + ((size_t)ch * NT * 64 + r * 4), true);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kRing - 1; ++s) {
+    if (s < nst) load(s);
+    cvl_tc::cp_async_commit();
+  }
+  for (int s = 0; s < nst; ++s) {
+    cvl_tc::cp_async_wait<kRing - 2>();
+    __syncthreads();
+    if (s + kRing - 1 < nst) load(s + kRing - 1);
+    cvl_tc::cp_async_commit();
+    if (!active) continue;
+    const unsigned char* A = ring + (s % kRing) * sb;
+    const unsigned char* Bw = A + kAStage;
+    for (int q = kq; q < kCPS; q += nks) {
+      const int ch = s * kCPS + q;
+      if (ch >= nch) break;
+      const unsigned char* ar = A + (q * kGroupRows + wm * 16 + g) * kChunkBytes + t * 8;
+      const uint2 lo = *reinterpret_cast<const uint2*>(ar);
+      const uint2 hi = *reinterpret_cast<const uint2*>(ar + 8 * kChunkBytes);
+      const unsigned af[4] = {lo.x, hi.x, lo.y, hi.y};
+      const unsigned char* br = Bw + q * NT * 256 + lane * 8;
+#pragma unroll
+      for (int n = 0; n < kMaxNT; ++n) {
+        if (n >= NT) break;
+        const uint2 b = *reinterpret_cast<const uint2*>(br + n * 256);
+        if (ch < kcx)
+          mma_s8(acc[n][0], af, b.x, b.y);
+        else
+          mma_s8(acc[n][1], af, b.x, b.y);
+      }
+    }
+  }
+  cvl_tc::cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the partial sums go in it
+  // [nks][2][rows][8 NT] ints: row g (+8), columns 2t, 2t + 1 of each tile
+  const int cols = 8 * NT, part = 2 * rows * cols;
+  int* stg = reinterpret_cast<int*>(ring);
+  if (active) {
+#pragma unroll
+    for (int n = 0; n < kMaxNT; ++n) {
+      if (n >= NT) break;
+#pragma unroll
+      for (int o = 0; o < 2; ++o) {
+        int* r0 = stg + (size_t)kq * part + (o * rows + wm * 16 + g) * cols + n * 8 + 2 * t;
+        r0[0] = acc[n][o][0];
+        r0[1] = acc[n][o][1];
+        r0[8 * cols] = acc[n][o][2];
+        r0[8 * cols + 1] = acc[n][o][3];
+      }
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < part; e += kI8Threads) {  // the warps' partial sums, in order
+    int sum = stg[e];
+    for (int k = 1; k < nks; ++k) sum += stg[(size_t)k * part + e];
+    stg[e] = sum;
+  }
+}
+
+// One LSTM cell of the int8 kernel for the block's units u0 .. u0 + nu - 1
+// and every song, in passes of kGroupRows songs: the products
+// (`cell_products`), then the epilogue of each (song, unit), its four gate
+// columns side by side in the staged sums: the encoder's z = (x.sx + bias)
+// + h.sh, the decoder's z = ((bias + h.sh) + z rows, l = 0..L-1) + x.sx,
+// in the JAX kernel's order, written with __fmul_rn / __fadd_rn so that
+// nvcc contracts nothing into an FMA; then the gates, c (in shared memory,
+// [unit][song]) and h's codes (`hq_out`, bytes [song][hw * 4]) and, for the
+// encoder, h as the z head's bf16-valued operand (`hef`). The scales `sx`,
+// `sh` and the decoder's z rows `wz` ([L][4 nu]) are the block's columns in
+// shared memory, local column 4j + g for unit u0 + j, gate g; the decoder
+// stages its pass's z in `zst` ([64][L]).
+__device__ __forceinline__ void lstm_cell_i8(const Int8Args& a, bool decoder, const int* w,
+                                             int kcx, const float* bias, const float* sx,
+                                             const float* sh, const float* wz, float* zst,
+                                             const int* hq, int* hq_out, float* c,
+                                             unsigned char* ring, PhaseClock* clk, int lap) {
+  const int H = a.H, nu = a.nu, NT = nu / 2, Bp = round16(a.B), L = a.L;
+  const int kch = cdiv(H, 32), xw = cdiv(a.D, 32) * 8, hw = kch * 8;
+  const int u0 = blockIdx.x * nu;
+  for (int m0 = 0; m0 < Bp; m0 += kGroupRows) {
+    const int mt = min(kGroupRows, Bp - m0) / 16;
+    if (decoder)  // read once a pass; the products' barriers publish it
+      for (int i = threadIdx.x; i < 16 * mt * L; i += kI8Threads)
+        zst[i] = m0 + i / L < a.B ? __ldcg(a.zs + (size_t)m0 * L + i) : 0.f;
+    cell_products(w, kcx, kch, a.xq, xw, hq, hw, m0, mt, NT, ring);
+    __syncthreads();
+    if (clk) clk->lap(lap);
+    const int* stg = reinterpret_cast<const int*>(ring);
+    const int cols = 8 * NT, rows = 16 * mt;
+    for (int i = threadIdx.x; i < 16 * mt * nu; i += kI8Threads) {
+      const int r = i / nu, j = i - r * nu, s = m0 + r, u = u0 + j;
+      if (s >= a.B || u >= H) continue;
+      float bb[4], zg[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) bb[g] = bias[(size_t)s * 4 * H + g * H + u];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const int lc = 4 * j + g;
+        const float fx = __int2float_rn(stg[r * cols + lc]);
+        const float fh = __int2float_rn(stg[(rows + r) * cols + lc]);
+        float z;
+        if (!decoder) {
+          z = __fadd_rn(__fadd_rn(__fmul_rn(fx, sx[lc]), bb[g]), __fmul_rn(fh, sh[lc]));
+        } else {
+          z = __fadd_rn(bb[g], __fmul_rn(fh, sh[lc]));
+          for (int l = 0; l < L; ++l)
+            z = __fadd_rn(z, __fmul_rn(zst[r * L + l], wz[l * 4 * nu + lc]));
+          if (kcx) z = __fadd_rn(z, __fmul_rn(fx, sx[lc]));
+        }
+        zg[g] = z;
+      }
+      const float ig = hard_sigmoid_rn(zg[0]), fg = hard_sigmoid_rn(zg[1]);
+      const float gg = tanhf(zg[2]), og = hard_sigmoid_rn(zg[3]);
+      float* cs = c + (size_t)j * Bp + s;
+      const float cn = __fadd_rn(__fmul_rn(fg, *cs), __fmul_rn(ig, gg));
+      *cs = cn;
+      const float h = __fmul_rn(og, tanhf(cn));
+      reinterpret_cast<signed char*>(hq_out)[(size_t)s * hw * 4 + u] =
+          static_cast<signed char>(__float2int_rn(__fmul_rn(h, 127.f)));
+      if (!decoder) a.hef[((size_t)(s / 4) * H + u) * 4 + s % 4] = operand<__nv_bfloat16>(h);
+    }
+    __syncthreads();  // the staged sums are read: the ring is free
+    if (clk) clk->lap(lap + 1);
+  }
+}
+
+// The z heads and the reparameterized draw, one block per latent and group of
+// four songs, the blocks' threads splitting k: each lane sums its k in
+// order, the lanes of a warp in a shuffle butterfly, the warps in order,
+// all in double, rounded to f32 once; then z = (zm + bz) + exp((zv + bz') /
+// 2) * eps, in the JAX kernel's order
+__device__ __forceinline__ void z_heads(const Int8Args& a, int t, unsigned char* ring) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, L = a.L, H = a.H;
+  const int jobs = L * cdiv(a.B, 4);
+  double* red = reinterpret_cast<double*>(ring);  // [kI8Warps][2][4]
+  for (int j = blockIdx.x; j < jobs; j += gridDim.x) {
+    const int l = j % L, q = j / L;
+    double sums[2][4] = {{0.0, 0.0, 0.0, 0.0}, {0.0, 0.0, 0.0, 0.0}};
+    dot_exact(sums, a.hef + (size_t)q * H * 4, a.wz_t + (size_t)l * H,
+              a.wz_t + (size_t)(L + l) * H, H, threadIdx.x, kI8Threads);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          sums[h][b] += __shfl_xor_sync(0xffffffffu, sums[h][b], off);
+        if (lane == 0) red[(warp * 2 + h) * 4 + b] = sums[h][b];
+      }
+    __syncthreads();
+    const int b = threadIdx.x, s = 4 * q + b;
+    if (b < 4 && s < a.B) {
+      double zm = 0.0, zv = 0.0;
+      for (int w = 0; w < kI8Warps; ++w) {
+        zm += red[(w * 2) * 4 + b];
+        zv += red[(w * 2 + 1) * 4 + b];
+      }
+      const float e = a.eps[((size_t)s * a.total + t) * L + l];
+      const float scale = expf(__fadd_rn(__double2float_rn(zv), a.bz[L + l]) / 2.f);
+      a.zs[(size_t)s * L + l] =
+          __fadd_rn(__fadd_rn(__double2float_rn(zm), a.bz[l]), __fmul_rn(scale, e));
+    }
+    __syncthreads();  // `red` is read
+  }
+}
+
+// The frame head on round(h_d * 127) (`hq`), the Bernoulli draw, the output,
+// and the next step's input codes (the seed's while teacher-forcing, else the
+// drawn frame): jobs of 16 songs x 8 pitches spread over the blocks, each
+// block's warps splitting the k32 chunks, their sums added in warp order.
+__device__ __forceinline__ void frame_head(const Int8Args& a, const int* hq, int t,
+                                           unsigned char* ring) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const int D = a.D, kch = cdiv(a.H, 32), hw = kch * 8, xw = cdiv(D, 32) * 8;
+  const int ntx = cdiv(D, 8), jobs = (round16(a.B) / 16) * ntx, nsteps = a.total - a.Tseed;
+  int* red = reinterpret_cast<int*>(ring);  // [kI8Warps][32][4]
+  for (int job = blockIdx.x; job < jobs; job += gridDim.x) {
+    const int mi = job / ntx, ni = job - mi * ntx;
+    // warp q < 4 draws fragment entry q of each lane (row g + 8 (q / 2),
+    // column 2 tq + q % 2): its u and the next seed frame are loaded first,
+    // under the products
+    const int q = warp, s = 16 * mi + g + 8 * (q / 2), d = 8 * ni + 2 * tq + q % 2;
+    const bool mine = q < 4 && s < a.B && d < D;
+    float uu = 0.f;
+    int seed_code = 0;
+    if (mine) {
+      uu = a.u[((size_t)s * a.total + t) * D + d];
+      if (t + 1 < a.Tseed)
+        seed_code = __float2int_rz(a.seed[((size_t)s * a.Tseed + t + 1) * D + d]);
+    }
+    int acc[4] = {0, 0, 0, 0};
+    const int* rows = hq + (size_t)(16 * mi + g) * hw + 2 * tq;
+    const int* wp = a.head_w + (size_t)ni * kch * 64 + 2 * lane;
+#pragma unroll 2
+    for (int kc = warp; kc < kch; kc += kI8Warps) {
+      const uint2 lo = __ldcg(reinterpret_cast<const uint2*>(rows + kc * 8));
+      const uint2 hi = __ldcg(reinterpret_cast<const uint2*>(rows + 8 * hw + kc * 8));
+      const uint2 b = __ldg(reinterpret_cast<const uint2*>(wp + (size_t)kc * 64));
+      const unsigned af[4] = {lo.x, hi.x, lo.y, hi.y};
+      mma_s8(acc, af, b.x, b.y);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) red[(warp * 32 + lane) * 4 + e] = acc[e];
+    __syncthreads();
+    if (mine) {
+      int sum = 0;
+      for (int w = 0; w < kI8Warps; ++w) sum += red[(w * 32 + lane) * 4 + q];
+      const float logit = __fadd_rn(__fmul_rn(__int2float_rn(sum), a.swx[d]), a.bx[d]);
+      const float xm = 1.f / (1.f + expf(-logit));
+      const float xt = uu < xm ? 1.f : 0.f;
+      const int code = t + 1 < a.Tseed ? seed_code : (xt != 0.f);
+      reinterpret_cast<signed char*>(a.xq)[(size_t)s * xw * 4 + d] =
+          static_cast<signed char>(code);
+      if (t >= a.Tseed)
+        a.out[((size_t)s * nsteps + (t - a.Tseed)) * D + d] = a.return_probs ? xm : xt;
+    }
+    __syncthreads();  // `red` is read
+  }
+}
+
+// One persistent cooperative launch for the whole song: every block owns nu
+// hidden units of both cells (all four gate columns of each) for every song;
+// a step is four phases with a grid barrier after each.
+__global__ void __launch_bounds__(kI8Threads, 1) generate_int8_kernel(const Int8Args a) {
+  extern __shared__ int4 smem_i4[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(smem_i4);
+  const int D = a.D, H = a.H, nu = a.nu, Bp = round16(a.B);
+  const int kcx = cdiv(D, 32), kch = cdiv(H, 32), hw = kch * 8, xw = kcx * 8;
+  float* ce = reinterpret_cast<float*>(ring + ring_bytes(nu));  // [nu][Bp] each
+  float* cd = ce + (size_t)nu * Bp;
+  float* sxe = cd + (size_t)nu * Bp;  // the block's columns: [4 nu] each
+  float* she = sxe + 4 * nu;
+  float* sxd = she + 4 * nu;
+  float* shd = sxd + 4 * nu;
+  float* wzd = shd + 4 * nu;          // [L][4 nu]
+  float* zst = wzd + a.L * 4 * nu;    // [64][L]
+  for (int i = threadIdx.x; i < 2 * nu * Bp; i += kI8Threads) ce[i] = 0.f;
+  for (int i = threadIdx.x; i < 4 * nu; i += kI8Threads) {
+    const int u = blockIdx.x * nu + i / 4, col = (i % 4) * H + u;
+    const bool in = u < H;
+    sxe[i] = in ? a.ske[col] : 0.f;
+    she[i] = in ? a.srke[col] : 0.f;
+    sxd[i] = in && a.use_x_prev ? a.skd[col] : 0.f;
+    shd[i] = in ? a.srkd[col] : 0.f;
+    for (int l = 0; l < a.L; ++l) wzd[l * 4 * nu + i] = in ? a.wkd_z[(size_t)l * 4 * H + col] : 0.f;
+  }
+  // the first input: the seed's first frame (binary frames are exact codes)
+  for (int i = blockIdx.x * kI8Threads + threadIdx.x; i < a.B * D; i += gridDim.x * kI8Threads) {
+    const int s = i / D, d = i - s * D;
+    reinterpret_cast<signed char*>(a.xq)[(size_t)s * xw * 4 + d] =
+        static_cast<signed char>(__float2int_rz(a.seed[(size_t)s * a.Tseed * D + d]));
+  }
+  unsigned rounds = 0;
+  grid_sync(a.bar, rounds);
+  __shared__ PhaseClock clk;  // thread 0 of block 0 keeps it
+  const bool timer = threadIdx.x == 0;
+  if (timer) {
+    clk.out = blockIdx.x == 0 ? a.clock : nullptr;
+    clk.start();
+  }
+  const size_t hbuf = (size_t)Bp * hw;
+  const int* enc_w = a.enc_w + (size_t)blockIdx.x * (kcx + kch) * (nu / 2) * 64;
+  const int kcd = a.use_x_prev ? kcx : 0;
+  const int* dec_w = a.dec_w + (size_t)blockIdx.x * (kcd + kch) * (nu / 2) * 64;
+  for (int t = 0; t < a.total; ++t) {
+    const int cur = t & 1, nxt = cur ^ 1;
+    // 1. encoder cell: z_e = (x_in.Wke_x + encb) + round(h_e * 127).Rke
+    lstm_cell_i8(a, false, enc_w, kcx, a.encb, sxe, she, nullptr, nullptr, a.heq + cur * hbuf,
+                 a.heq + nxt * hbuf, ce, ring, timer ? &clk : nullptr, 0);
+    grid_sync(a.bar, rounds);
+    if (timer) clk.lap(2);
+    // 2. z heads (bf16, summed exactly) and the reparameterized draw
+    z_heads(a, t, ring);
+    if (timer) clk.lap(3);
+    grid_sync(a.bar, rounds);
+    if (timer) clk.lap(4);
+    // 3. decoder cell: z_d = ((decb + round(h_d * 127).Rkd) + z rows) (+ x_in.Wkd_x)
+    lstm_cell_i8(a, true, dec_w, kcd, a.decb, sxd, shd, wzd, zst, a.hdq + cur * hbuf,
+                 a.hdq + nxt * hbuf, cd, ring, timer ? &clk : nullptr, 5);
+    grid_sync(a.bar, rounds);
+    if (timer) clk.lap(7);
+    // 4. frame head on round(h_d * 127), the draw, the output, the next input
+    frame_head(a, a.hdq + nxt * hbuf, t, ring);
+    if (timer) clk.lap(8);
+    grid_sync(a.bar, rounds);
+    if (timer) clk.lap(9);
+  }
+  if (timer) clk.flush();
 }
 
 int launch_int8(const Int8Args& a, cudaStream_t stream) {
-  const size_t smem = int8_smem_words(a.D, a.H, a.L) * 4;
+  const size_t smem = int8_smem_bytes(a.nu, round16(a.B), a.L);
   cudaError_t err = cudaFuncSetAttribute(
       generate_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.B + kSongs - 1) / kSongs);
-  generate_int8_kernel<<<grid, kThreads, smem, stream>>>(a);
+  // cooperative: every block co-resident (the grid barrier needs it), or the
+  // launch fails
+  void* args[] = {const_cast<Int8Args*>(&a)};
+  err = cudaLaunchCooperativeKernel((const void*)generate_int8_kernel, dim3(cdiv(a.H, a.nu)),
+                                    dim3(kI8Threads), args, smem, stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -614,21 +919,38 @@ extern "C" int cvl_generate_cl_vrnn(
   return bf16_weights ? launch<__nv_bfloat16>(a, st) : launch<float>(a, st);
 }
 
-// Bytes of dynamic shared memory one block of the int8 kernel needs.
-extern "C" long long cvl_generate_cl_vrnn_int8_smem_bytes(int D, int H, int L) {
-  return (long long)(int8_smem_words(D, H, L) * 4);
+// Bytes of dynamic shared memory one block of the int8 kernel needs: a block
+// owning nu hidden units (the wrapper checks the limit), for B songs and L
+// latents.
+extern "C" long long cvl_generate_cl_vrnn_int8_smem_bytes(int nu, int B, int L) {
+  return (long long)int8_smem_bytes(nu, round16(B), L);
 }
 
-// Launches the int8 sampler on `stream`; returns the cudaError_t of the launch.
+// 4-byte words of the state the int8 kernel's blocks share in global memory
+// (the caller zeroes them).
+extern "C" long long cvl_generate_cl_vrnn_int8_state_words(int B, int D, int H, int L) {
+  return (long long)int8_state(B, D, H, L).total;
+}
+
+// Launches the int8 sampler on `stream`: one cooperative launch of
+// cdiv(H, nu) blocks, each owning nu hidden units; `state` holds
+// cvl_generate_cl_vrnn_int8_state_words zeroed words; `clock` (kLaps
+// counts, or null) receives block 0's ns per part of a step summed over the
+// steps (PhaseClock). Returns the cudaError_t of the launch
+// (cudaErrorCooperativeLaunchTooLarge where the grid cannot be co-resident).
 extern "C" int cvl_generate_cl_vrnn_int8(
-    const float* seed, const float* eps, const float* u, const int* wke_x, const float* ske,
-    const int* rke, const float* srke, const float* encb, const void* wz_t, const float* bz,
-    const int* wkd_x, const float* skd, const float* wkd_z, const int* rkd, const float* srkd,
-    const float* decb, const int* wx_t, const float* swx, const float* bx, float* out, int B,
-    int Tseed, int total, int D, int H, int L, int use_x_prev, int return_probs, void* stream) {
-  const Int8Args a{seed, eps, u, wke_x, ske, rke, srke, encb,
-                   static_cast<const __nv_bfloat16*>(wz_t), bz, wkd_x, skd, wkd_z, rkd, srkd,
-                   decb, wx_t, swx, bx, out, B, Tseed, total, D, H, L, use_x_prev,
-                   return_probs};
+    const float* seed, const float* eps, const float* u, const int* enc_w, const int* dec_w,
+    const int* head_w, const float* ske, const float* srke, const float* encb, const void* wz_t,
+    const float* bz, const float* skd, const float* wkd_z, const float* srkd, const float* decb,
+    const float* swx, const float* bx, float* out, int* state, unsigned long long* clock, int B,
+    int Tseed, int total, int D, int H, int L, int use_x_prev, int return_probs, int nu,
+    void* stream) {
+  const Int8State st = int8_state(B, D, H, L);
+  const Int8Args a{seed, eps, u, enc_w, dec_w, head_w, ske, srke, encb,
+                   static_cast<const __nv_bfloat16*>(wz_t), bz, skd, wkd_z, srkd, decb, swx, bx,
+                   out, state + st.xq, state + st.heq, state + st.hdq,
+                   reinterpret_cast<float*>(state + st.hef), reinterpret_cast<float*>(state + st.zs),
+                   reinterpret_cast<unsigned*>(state + st.bar), clock, B, Tseed, total, D, H, L,
+                   use_x_prev, return_probs, nu};
   return launch_int8(a, static_cast<cudaStream_t>(stream));
 }

@@ -4,9 +4,16 @@
 // Replaces: classifying_vae_lstm_tpu/ops/pallas_lstm.py:1378
 // `_backward_call_full` -> `_lstm_bwd_kernel_full` :986, in the f32 mode (the
 // default fusion rung (T, T, T)). The bf16 stream mode of the same rung is
-// csrc/lstm_seq_tc.cu's; the other rungs' walks stay in csrc/lstm_seq.cu.
-// One ported kernel, one wrapper call: the walk (T + 1 launches), dx, the
-// weight gradients (two launches) and the bias sum.
+// csrc/lstm_seq_tc.cu's. One ported kernel, one wrapper call: the walk (T + 1
+// launches), dx, the weight gradients (two launches) and the bias sum.
+//
+// The other rungs' f32 walks take the same walk kernel through their own
+// entries: :1251 `_backward_call` -> `_lstm_bwd_kernel` :810 (the dz-only
+// walk, `cvl_lstm_bwd_f32_walk`: dz, dh0, dc0 and no bias sums) and :1306
+// `_backward_call_drk` -> `_lstm_bwd_kernel_drk` :920 (the same walk, then
+// dRk = sum h_prevᵀdz through `cvl_lstm_bwd_f32_drk`, wgrad.cuh's row-split
+// sum). The TPU kernel sums dRk in a resident block over its sequential
+// grid; here the split sum adds its row segments in a fixed order.
 //
 // What it computes. Time runs in reverse, t = T-1 .. 0, with the carries dh
 // and dc zero at t = T:
@@ -93,7 +100,7 @@ struct WalkArgs {
   float* dz;                       // [T, B, 4H]
   float* dh0;                      // [B, H], written by the last launch
   float* dc_c;                     // [B, H]  the dc carry (dc0 at the end), zero at the start
-  float* part;                     // [T * row tiles * kSplit, 4H]  bias partial sums
+  float* part;                     // [T * row tiles * kSplit, 4H]  bias partial sums, or null
   int T, B, H;
 };
 
@@ -101,8 +108,9 @@ struct WalkArgs {
 // tile (rows m0 + rank kFM/kSplit .., units n0 ..): the product is the ranks'
 // staged sums added in rank order, read through the cluster. After the last
 // step (t = -1) it is dh0. Otherwise dh = product + dh_seq[t] and the gate
-// gradients: dz(t), the dc carry, and the share's rows of dz summed into
-// `part` (warps in order 0 .. 3). `red` holds 16 kFN floats.
+// gradients: dz(t), the dc carry, and (unless `part` is null) the share's
+// rows of dz summed into `part` (warps in order 0 .. 3). `red` holds 16 kFN
+// floats.
 __device__ __forceinline__ void walk_epilogue(const float* const (&peer)[kSplit], float* red,
                                               const WalkArgs& a, int t, int rank) {
   constexpr int kShare = kFM / kSplit;
@@ -141,6 +149,7 @@ __device__ __forceinline__ void walk_epilogue(const float* const (&peer)[kSplit]
       db[g] += dz[g];
     }
   }
+  if (!a.part) return;  // the walks of the other rungs: no bias sums
 #pragma unroll
   for (int g = 0; g < 4; ++g) red[(warp * 4 + g) * kFN + lane] = db[g];
   __syncthreads();
@@ -219,6 +228,15 @@ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 int part_rows(int T, int B) { return T * kSplit * cdiv(B, kFM); }
 
+// the reverse walk: T + 1 launches, the last giving dh0
+int walk(const WalkArgs& a, cudaStream_t st) {
+  for (int t = a.T - 1; t >= -1; --t) {
+    const int err = walk_step(a, t, st);
+    if (err) return err;
+  }
+  return 0;
+}
+
 void wide_jobs(cvl::WgradJob* jobs, const float* hp, const float* x, const float* dz, float* drk,
                float* dw, int IN, int H) {
   jobs[0] = {hp, dz, drk, H, 4 * H};
@@ -251,15 +269,12 @@ extern "C" int cvl_lstm_bwd_f32(const float* z, const float* cp, const float* c,
                                 float* dz, float* part, float* scratch, int T, int B, int IN,
                                 int H, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const WalkArgs a{z, cp, c, dh, dc, rk, dz, dh0, dc0, part, T, B, H};
-  for (int t = T - 1; t >= -1; --t) {
-    const int err = walk_step(a, t, st);
-    if (err) return err;
-  }
+  int err = walk({z, cp, c, dh, dc, rk, dz, dh0, dc0, part, T, B, H}, st);
+  if (err) return err;
   const int R = T * B, H4 = 4 * H;
   lstm_bwd_dx_kernel<<<dim3(cdiv(IN, kFN), cdiv(R, kFM)), kFThreads, 0, st>>>(dz, w, dx, R, IN,
                                                                               H4);
-  int err = (int)cudaGetLastError();
+  err = (int)cudaGetLastError();
   if (err) return err;
   cvl::WgradJob jobs[2];
   wide_jobs(jobs, hp, x, dz, drk, dw, IN, H);
@@ -267,4 +282,32 @@ extern "C" int cvl_lstm_bwd_f32(const float* z, const float* cp, const float* c,
   if (err) return err;
   const cvl::WgradJob bias[] = {{nullptr, part, db, 1, H4}};
   return cvl::launch_wgrad<lstm_bwd_wgrad>(bias, 1, part_rows(T, B), st);
+}
+
+// The dz-only and drk rungs' walk on `stream` (T + 1 launches of
+// `lstm_bwd_walk_kernel`, no bias sums): dz [T, B, 4H] f32, dh0 and dc0
+// (zeroed by the caller); Rk [H, 4H] read as stored. Returns the first
+// nonzero cudaError_t of a launch.
+extern "C" int cvl_lstm_bwd_f32_walk(const float* z, const float* cp, const float* c,
+                                     const float* dh, const float* dc, const float* rk, float* dz,
+                                     float* dh0, float* dc0, int T, int B, int H, void* stream) {
+  return walk({z, cp, c, dh, dc, rk, dz, dh0, dc0, nullptr, T, B, H},
+              static_cast<cudaStream_t>(stream));
+}
+
+// Floats of the scratch the drk rung's dRk sum needs (its row segments).
+extern "C" long long cvl_lstm_bwd_f32_drk_scratch(int R, int H) {
+  const cvl::WgradJob jobs[] = {{nullptr, nullptr, nullptr, H, 4 * H}};
+  return (long long)cvl::wgrad_split_floats(jobs, 1, R, kSegRows);
+}
+
+// The drk rung's dRk = h_prevᵀdz over the R = T*B rows of the walk's dz, in
+// f32 (the core rounds it to the stream type, as `_core_bwd` casts it): the
+// row-split sum of wgrad.cuh, two launches on `stream`, `scratch` holding
+// cvl_lstm_bwd_f32_drk_scratch floats. Returns the first nonzero cudaError_t.
+extern "C" int cvl_lstm_bwd_f32_drk(const float* hp, const float* dz, float* drk, float* scratch,
+                                    int R, int H, void* stream) {
+  const cvl::WgradJob jobs[] = {{hp, dz, drk, H, 4 * H}};
+  return cvl::launch_wgrad_split<lstm_bwd_wgrad>(jobs, 1, R, kSegRows, scratch,
+                                                 static_cast<cudaStream_t>(stream));
 }

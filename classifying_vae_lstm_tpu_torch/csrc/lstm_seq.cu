@@ -15,34 +15,25 @@
 //     the unfused inference forward: xz = x @ W + b comes in precomputed;
 //   * :1070 `_forward_train_call` -> `_lstm_seq_train_kernel` :529 (and
 //     `_ilv` :580) with `lstm_seq_fwd_kernel<S, R, true, true>`, which also
-//     writes z;
-//   * :1251 `_backward_call` -> `_lstm_bwd_kernel` :810 (and `_ilv` :848)
-//     with `lstm_seq_bwd_kernel<S, S, R>`, the dz-only walk: dh = dz @ Rkᵀ
-//     and the dz stream at the stream type, no dx;
-//   * :1306 `_backward_call_drk` -> `_lstm_bwd_kernel_drk` :920 with the same
-//     walk followed by a `wgrad_kernel<lstm_seq_wgrad>` job for
-//     dRk = sum h_prevᵀdz (two launches). The TPU kernel sums dRk in a
-//     resident block over its sequential grid; here a deterministic second
-//     pass sums it, so the dz-only and drk rungs share the walk and differ
-//     in that pass.
-// The default rung's backward, :1378 `_backward_call_full`, is
-// csrc/lstm_bwd_f32.cu (the walk over the whole batch per step).
+//     writes z.
+// The backwards are csrc/lstm_bwd_f32.cu's: the default rung's, :1378
+// `_backward_call_full`, and the walks of the dz-only and drk rungs, :1251
+// `_backward_call` and :1306 `_backward_call_drk` (the walk over the whole
+// batch per step).
 //
 // What it computes, per batch row and time step t = 0 .. T-1:
 //   xz = x[t] @ W + b;  z = xz + h @ Rk;  (h, c) = gates(z, c)
 // with Keras-2.0 gates (i, f, c, o): hard sigmoid clip(0.2x + 0.5, 0, 1) for
 // i, f, o, tanh for g and for the cell output. The forward emits h and c per
 // step; the training forward also emits z, h_prev and c_prev, the backward's
-// residuals. The walk runs time in reverse from the cotangents of h and c
-// per step and emits dz per step, dh0 and dc0.
+// residuals.
 //
 // What bounds it on this card. Per row-step the forward is (IN + H) * 4H f32
 // FMAs against IN + 2H floats of streams: at H=256 that is ~1,000 FMAs per
 // float moved, so the operations bound it (67 TFLOP/s without tensor cores).
 // At the training shape (B=200, T=16, H=256, IN~105) a forward is ~2.4 GFLOP,
-// ~0.036 ms; at the evaluation shape (12,800 rows) ~151 GFLOP, ~2.2 ms. The
-// walk multiplies by Rkᵀ alone. Each step depends on the one before, so the
-// T steps run in series.
+// ~0.036 ms; at the evaluation shape (12,800 rows) ~151 GFLOP, ~2.2 ms. Each
+// step depends on the one before, so the T steps run in series.
 //
 // What the design does about it.
 // * Time is serial, rows are independent: one block owns a tile of R batch
@@ -63,16 +54,6 @@
 //   B=200 gives 50 blocks, where 16-row tiles would leave 119 of 132 SMs idle).
 // * The input projection x @ W + b is computed here, as in the TPU kernel's
 //   body, ahead of h @ Rk in the same accumulators; it is not a library matmul.
-// * dRk crosses blocks. The TPU grid accumulated it in a resident block over
-//   a sequential grid; concurrent CUDA blocks would need atomics, which make
-//   the sums depend on launch order. So the walk writes dz per (t, row), and
-//   the drk rung's second, deterministic pass forms sum h_prevᵀdz over the
-//   T*B rows, each output element summed in row order by one thread.
-// * The hard-sigmoid derivative is 0.2 strictly inside (0, 1) and 0 at and
-//   beyond the clip points, the TPU kernel's rule (`_bwd_gate_grads` :786).
-// * At H above ~2,300 a 4-row walk tile no longer fits shared memory (6H
-//   floats a row: dz, the two carries), and the walk takes 2-row tiles,
-//   which reach H = 4,800.
 // Known limits of this simple form: every block streams all weights from L2
 // every step, and the products run on FFMA, not the tensor cores. Plain FFMA
 // keeps f32 exact to the JAX side's precision="highest" (no TF32).
@@ -85,14 +66,9 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
-#include "wgrad.cuh"
-
 namespace {
 
 constexpr int kFwdThreads = 256;  // forward: one hidden unit per thread and pass
-constexpr int kBwdThreads = 512;  // walk: threads per block (4 or 2 batch rows a block)
-constexpr int kSlices = 2;        // walk: a product's K is split between two groups
-constexpr int kUnits = kBwdThreads / kSlices;  // walk: output columns per pass
 
 // S is the stream type (float)
 template <typename S>
@@ -110,32 +86,12 @@ struct FwdArgs {
   int T, B, IN, H;
 };
 
-template <typename S>
-struct BwdArgs {
-  const S* z;             // [T, B, 4H]
-  const float *cp, *c;    // [T, B, H]
-  const float *dh, *dc;   // [T, B, H]  cotangents of the h and c sequences
-  const S* rkt;           // [4H, H]  Rk transposed
-  float *dh0, *dc0;       // [B, H]
-  S* dz;                  // [T, B, 4H]
-  int T, B, H;
-};
-
 __host__ __device__ constexpr size_t fwd_smem_floats(int IN, int H, int rows) {
   return (size_t)(IN + 3 * H) * rows;
 }
 
-__host__ __device__ constexpr size_t bwd_smem_floats(int H, int rows) {
-  return (size_t)6 * H * rows + (size_t)rows * kUnits;
-}
-
 __device__ __forceinline__ float hard_sigmoid(float x) {
   return fminf(fmaxf(0.2f * x + 0.5f, 0.f), 1.f);
-}
-
-// d hard_sigmoid / dx expressed through the gate's value, as `_bwd_gate_grads`
-__device__ __forceinline__ float hard_sigmoid_grad(float gate) {
-  return (gate > 0.f && gate < 1.f) ? 0.2f : 0.f;
 }
 
 // loads widen to f32: `ld` through the read-only cache (weights), `ldv` plain
@@ -284,111 +240,6 @@ __global__ void __launch_bounds__(kFwdThreads) lstm_seq_fwd_kernel(const FwdArgs
   }
 }
 
-// acc[b] += a[b] * w for the R rows of one K step (one vector load)
-template <int R>
-__device__ __forceinline__ void fma_rows(float (&acc)[R], const float* ak, float w) {
-  static_assert(R == 4 || R == 2, "row tiles of 4 or 2");
-  if constexpr (R == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(ak);
-    acc[0] = fmaf(v.x, w, acc[0]);
-    acc[1] = fmaf(v.y, w, acc[1]);
-    acc[2] = fmaf(v.z, w, acc[2]);
-    acc[3] = fmaf(v.w, w, acc[3]);
-  } else {
-    const float2 v = *reinterpret_cast<const float2*>(ak);
-    acc[0] = fmaf(v.x, w, acc[0]);
-    acc[1] = fmaf(v.y, w, acc[1]);
-  }
-}
-
-// out(n, b) = sum_k a[k][b] * wt[k * N + n] for n in [0, N): a [K][R] in
-// shared memory times a [K, N] weight; neighbouring threads read
-// neighbouring columns, and the two slices of the block split K.
-// `store(n, b, value)` receives each result.
-template <int R, typename S, typename Store>
-__device__ __forceinline__ void matvec_t(const float* a, const S* __restrict__ wt, int K,
-                                         int N, float* part, Store store) {
-  const int slice = threadIdx.x / kUnits, ln = threadIdx.x % kUnits;
-  const int k0 = slice ? K / 2 : 0, k1 = slice ? K : K / 2;
-  for (int n0 = 0; n0 < N; n0 += kUnits) {  // uniform trip count: syncs inside
-    const int n = n0 + ln;
-    float acc[R];
-#pragma unroll
-    for (int b = 0; b < R; ++b) acc[b] = 0.f;
-    if (n < N) {
-      const S* wp = wt + (size_t)k0 * N + n;
-#pragma unroll 8
-      for (int k = k0; k < k1; ++k, wp += N) fma_rows<R>(acc, a + k * R, ld(wp));
-      if (slice == 1) {
-#pragma unroll
-        for (int b = 0; b < R; ++b) part[b * kUnits + ln] = acc[b];
-      }
-    }
-    __syncthreads();
-    if (slice == 0 && n < N) {
-#pragma unroll
-      for (int b = 0; b < R; ++b) store(n, b, acc[b] + part[b * kUnits + ln]);
-    }
-    __syncthreads();
-  }
-}
-
-// the reverse walk of the dz-only and drk rungs: dh = dz @ Rkᵀ per step
-template <typename S, int R>
-__global__ void __launch_bounds__(kBwdThreads) lstm_seq_bwd_kernel(const BwdArgs<S> a) {
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  const int T = a.T, B = a.B, H = a.H;
-  float* dzs = sm;                 // [4H][R]  dz as the operand of dz @ Rkᵀ
-  float* dh_c = dzs + 4 * H * R;   // [H][R]  carry of dh
-  float* dc_c = dh_c + H * R;      // [H][R]  carry of dc
-  float* part = dc_c + H * R;      // [R][kUnits]
-  const int s0 = blockIdx.x * R;
-  for (int i = threadIdx.x; i < 2 * H * R; i += kBwdThreads) dh_c[i] = 0.f;  // both carries
-  __syncthreads();
-
-  for (int t = T - 1; t >= 0; --t) {
-    const size_t tb = (size_t)t * B;
-    // gate gradients (`_bwd_gate_grads`): dh = carry + dh[t], dc = carry + dc[t]
-    for (int i = threadIdx.x; i < H * R; i += kBwdThreads) {
-      const int u = i / R, r = i - u * R, s = s0 + r;
-      float dz[4] = {0.f, 0.f, 0.f, 0.f};
-      if (s < B) {
-        const size_t row = tb + s;
-        const S* zr = a.z + row * 4 * H;
-        const float ig = hard_sigmoid(ldv(zr + u));
-        const float fg = hard_sigmoid(ldv(zr + H + u));
-        const float gg = tanhf(ldv(zr + 2 * H + u));
-        const float og = hard_sigmoid(ldv(zr + 3 * H + u));
-        const float tc = tanhf(a.c[row * H + u]);
-        const float dh = dh_c[i] + a.dh[row * H + u];
-        const float dc = (dc_c[i] + a.dc[row * H + u]) + dh * og * (1.f - tc * tc);
-        dz[0] = dc * gg * hard_sigmoid_grad(ig);
-        dz[1] = dc * a.cp[row * H + u] * hard_sigmoid_grad(fg);
-        dz[2] = dc * ig * (1.f - gg * gg);
-        dz[3] = dh * tc * hard_sigmoid_grad(og);
-        dc_c[i] = dc * fg;
-#pragma unroll
-        for (int g = 0; g < 4; ++g) st(a.dz + row * 4 * H + g * H + u, dz[g]);
-      }
-#pragma unroll
-      for (int g = 0; g < 4; ++g) dzs[(g * H + u) * R + r] = operand<S>(dz[g]);
-    }
-    __syncthreads();
-    // dz @ Rkᵀ: the new dh carry, the only serial product
-    matvec_t<R>(dzs, a.rkt, 4 * H, H, part, [&](int n, int r, float v) { dh_c[n * R + r] = v; });
-  }
-  for (int i = threadIdx.x; i < H * R; i += kBwdThreads) {
-    const int u = i / R, r = i - u * R, s = s0 + r;
-    if (s < B) {
-      a.dh0[(size_t)s * H + u] = dh_c[i];
-      a.dc0[(size_t)s * H + u] = dc_c[i];
-    }
-  }
-}
-
-struct lstm_seq_wgrad {};  // names this source's copy of cvl::wgrad_kernel
-
 int set_smem(const void* fn, size_t bytes) {
   return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
@@ -411,32 +262,12 @@ int fwd(const FwdArgs<S>& a, int rows, int train, cudaStream_t st) {
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename S, int R>
-int launch_bwd(const BwdArgs<S>& a, cudaStream_t stream) {
-  const size_t smem = bwd_smem_floats(a.H, R) * sizeof(float);
-  int err = set_smem((const void*)lstm_seq_bwd_kernel<S, R>, smem);
-  if (err) return err;
-  lstm_seq_bwd_kernel<S, R><<<(a.B + R - 1) / R, kBwdThreads, smem, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-template <typename S>
-int walk(const BwdArgs<S>& a, int rows, cudaStream_t st) {
-  if (rows == 4) return launch_bwd<S, 4>(a, st);
-  if (rows == 2) return launch_bwd<S, 2>(a, st);
-  return (int)cudaErrorInvalidValue;
-}
-
 }  // namespace
 
-// Bytes of dynamic shared memory one block of each serial kernel needs (the
-// wrapper checks them against the card's limit).
-// The xz forwards pass IN = 0.
+// Bytes of dynamic shared memory one forward block needs (the wrapper checks
+// them against the card's limit). The xz forwards pass IN = 0.
 extern "C" long long cvl_lstm_seq_fwd_smem_bytes(int IN, int H, int rows) {
   return (long long)(fwd_smem_floats(IN, H, rows) * sizeof(float));
-}
-extern "C" long long cvl_lstm_seq_bwd_smem_bytes(int H, int rows) {
-  return (long long)(bwd_smem_floats(H, rows) * sizeof(float));
 }
 
 // The forward on `stream`, with a tile of `rows` (4 or 16) batch rows per
@@ -461,28 +292,5 @@ extern "C" int cvl_lstm_seq_xz_fwd(const float* xz, const float* rk, const float
   const FwdArgs<float> a{nullptr, nullptr, nullptr, xz, rk,  h0, c0, h,
                          c,       z,       nullptr, nullptr, T, B, 0, H};
   return fwd<float, true>(a, rows, train, static_cast<cudaStream_t>(stream));
-}
-
-
-// The other rungs' dz-only walk on `stream` (`_backward_call`), with a tile of
-// `rows` (4 or 2) batch rows per block: rkt = Rkᵀ [4H, H]; fills dz [T, B,
-// 4H], dh0 and dc0. Returns the cudaError_t of the launch.
-extern "C" int cvl_lstm_seq_walk(const float* z, const float* cp, const float* c,
-                                 const float* dh, const float* dc, const float* rkt, float* dh0,
-                                 float* dc0, float* dz, int T, int B, int H, int rows,
-                                 void* stream) {
-  const BwdArgs<float> a{z, cp, c, dh, dc, rkt, dh0, dc0, dz, T, B, H};
-  return walk(a, rows, static_cast<cudaStream_t>(stream));
-}
-
-
-// The drk rung's second launch (`_lstm_bwd_kernel_drk`'s dRk += h_prevᵀdz):
-// dRk = hpᵀdz over the R = T*B rows of the walk's dz, in f32 (the core
-// rounds it to the stream type, as `_core_bwd` / `_core_fp_bwd` cast it).
-// Returns the cudaError_t of the launch.
-extern "C" int cvl_lstm_seq_drk(const float* hp, const float* dz, float* drk, int R, int H,
-                                void* stream) {
-  const cvl::WgradJob jobs[] = {{hp, dz, drk, H, 4 * H}};
-  return cvl::launch_wgrad<lstm_seq_wgrad>(jobs, 1, R, static_cast<cudaStream_t>(stream));
 }
 

@@ -5,7 +5,8 @@ kernels (``csrc/generate_cl_vrnn.cu``) run the entire autoregressive loop —
 encoder cell, z heads, z draw, decoder cell, sigmoid frame head, Bernoulli
 draw, feedback — in one launch: ``generate_kernel`` with f32 or bf16
 weights, ``generate_int8_kernel`` with the five large weights as per-column
-int8 codes. The sampler is a pure function of its pre-drawn noise (``eps``
+int8 codes (a cooperative launch whose blocks each own hidden units of both
+cells, on the int8 tensor cores; :func:`int8_grid`, :func:`pack_int8`). The sampler is a pure function of its pre-drawn noise (``eps``
 for z, ``u`` for the frames), so each kernel is held against
 :func:`generate_cl_vrnn_batch_plain` on the card and the plain version
 against the JAX package on the CPU, with the same noise.
@@ -37,6 +38,13 @@ _launch_lock = threading.Lock()
 _SONGS_PER_BLOCK = 4      # kSongs in csrc/generate_cl_vrnn.cu
 _UNITS_PER_PASS = 256     # kUnits in csrc/generate_cl_vrnn.cu
 _SMEM_LIMIT = 232448      # dynamic shared memory one Hopper block can use
+_H100_SMS = 132           # the grid fits() sizes the int8 kernel for
+# the int8 kernel (csrc/generate_cl_vrnn.cu): a block owns at most
+# _I8_MAX_UNITS hidden units (kMaxNT n8 tiles); its ring holds
+# _I8_RING stages of _I8_CPS k32 chunks of 64 song rows and of the block's
+# weights; a launch takes at most _I8_MAX_SONGS songs (c of both cells in
+# shared memory), a call more in several launches
+_I8_MAX_UNITS, _I8_RING, _I8_CPS, _I8_GROUP_ROWS, _I8_MAX_SONGS = 16, 4, 8, 64, 256
 _MODES = ("f32", "bf16", "int8")
 
 # The JAX package's precision rule for this sampler (its ``_BUDGET`` and
@@ -90,26 +98,46 @@ def _words(k: int) -> int:
     return -(-k // 4)
 
 
+def int8_grid(H: int, n_sm: int) -> tuple[int, int]:
+    """The int8 kernel's grid on a card of ``n_sm`` SMs: (nu, blocks), each
+    block owning nu hidden units of both cells (nu even: two units, eight
+    gate columns, to an n8 tile), cdiv(H, nu) <= n_sm blocks. At H=1,536
+    on 132 SMs: 128 blocks of 12 units; at H=1,752: 126 of 14."""
+    nu = 2 * -(-H // (2 * n_sm))
+    return nu, -(-H // nu)
+
+
+def _int8_smem(nu: int, B: int, L: int) -> int:
+    """Shared memory of one int8 block owning nu units, for B songs and L
+    latents: the ring (codes of 64 song rows and the block's weights,
+    _I8_CPS k32 chunks a stage), c of both cells ([nu][B rounded to 16]
+    floats each), the block's columns of the four scale vectors and of the
+    decoder's z rows, and the z of 64 songs."""
+    ring = _I8_RING * (_I8_CPS * _I8_GROUP_ROWS * 32 + _I8_CPS * (nu // 2) * 256)
+    return ring + (2 * nu * (-(-B // 16) * 16) + (4 + L) * 4 * nu + _I8_GROUP_ROWS * L) * 4
+
+
 def _smem_bytes(D: int, H: int, L: int, mode: str = "f32") -> int:
-    if mode == "int8":
-        # x codes; h codes of both cells (two buffers); h_e, c_e, c_d; z;
-        # the int partial sums of two operands
-        words = (_words(D) + 4 * _words(H) + 3 * H + L) * _SONGS_PER_BLOCK
-        return (words + 2 * 4 * _SONGS_PER_BLOCK * _UNITS_PER_PASS) * 4
+    if mode == "int8":  # a launch of the most songs, on an H100's grid
+        return _int8_smem(int8_grid(H, _H100_SMS)[0], _I8_MAX_SONGS, L)
     return ((D + 6 * H + L) * _SONGS_PER_BLOCK + 4 * _SONGS_PER_BLOCK * _UNITS_PER_PASS) * 4
 
 
 def smem_bytes(cfg, mode: str | None = None) -> int:
     """Shared memory of one block: x_in, h (two buffers) and c of both
     cells, and z, for each song of the block's tile, plus the gate stages'
-    partial sums (in int8 mode x and h as int8 codes, h_e once more as the
-    z head's operand, and the partial sums of two operands)."""
+    partial sums; in int8 mode the ring of codes and weights and c of the
+    block's units for the songs of a launch (:func:`_int8_smem`)."""
     return _smem_bytes(cfg.original_dim, cfg.intermediate_dim, cfg.latent_dim,
                        mode or pick_mode(cfg))
 
 
 def fits(cfg, mode: str | None = None) -> bool:
-    """Does one block's carried state fit Hopper's shared memory?"""
+    """Does one block's state fit Hopper's shared memory (and, in int8 mode,
+    do an H100's 132 blocks cover the units, at most 16 a block)?"""
+    mode = mode or pick_mode(cfg)
+    if mode == "int8" and int8_grid(cfg.intermediate_dim, _H100_SMS)[0] > _I8_MAX_UNITS:
+        return False
     return smem_bytes(cfg, mode) <= _SMEM_LIMIT
 
 
@@ -265,13 +293,60 @@ def generate_cl_vrnn_batch_plain(params, cfg, x_seeds, nsteps: int, eps, u, ws,
 
 
 def kernel_words(q):
-    """int8 codes [K, N] -> the kernels' [ceil(K/4), N] int32 words of four
-    consecutive k (byte i of a word holds row 4k + i, the order ``__dp4a``
-    pairs them in), K padded with zero rows."""
+    """int8 codes [K, N] -> the cl_vae int8 kernel's [ceil(K/4), N] int32
+    words of four consecutive k (byte i of a word holds row 4k + i, the
+    order ``__dp4a`` pairs them in), K padded with zero rows."""
     K, N = q.shape
     padded = q.new_zeros((4 * _words(K), N))
     padded[:K] = q
     return padded.view(-1, 4, N).permute(0, 2, 1).contiguous().view(torch.int32).view(-1, N)
+
+
+def _pack_cells(q, H: int, nu: int):
+    """One cell weight's int8 codes [K, 4H] (gate-ordered columns) -> the
+    int8 kernel's [G, KC, NT, 64] int32 words: G = cdiv(H, nu) blocks, KC =
+    cdiv(K, 32) chunks of k (zero rows pad K), NT = nu / 2 n8 tiles of the
+    block's columns, each tile two units' four gates (column c of tile n:
+    unit u0 + 2n + c // 4, gate c % 4; zero columns past H). In a chunk the
+    32 words are the B fragments of `mma.sync.m16n8k32` lane by lane: lane
+    4g + t holds column g, codes of k = 8t .. 8t + 3 (register 0) and 8t + 4
+    .. 8t + 7 (register 1), byte i of a word the i-th of its four k; the
+    kernel's A fragments take the same k from the codes of x and h."""
+    K = q.shape[0]
+    KC, G, NT = -(-K // 32), -(-H // nu), nu // 2
+    qp = q.new_zeros((KC * 32, 4 * H + 1))  # the last column: zeros, for units past H
+    qp[:K, :4 * H] = q
+    u = torch.arange(G * nu, device=q.device).view(G, NT, 2, 1)
+    gate = torch.arange(4, device=q.device).view(1, 1, 1, 4)
+    col = torch.where(u < H, gate * H + u, 4 * H)  # [G, NT, 2 units, 4 gates]
+    w = qp[:, col.reshape(-1)].view(KC, 4, 2, 4, G, NT, 8)  # k = 32 kc + 8 t + 4 r + i
+    w = w.permute(4, 0, 5, 6, 1, 2, 3).contiguous()  # [G, KC, NT, g, t, r, i]
+    return w.view(torch.int32).view(G, KC, NT, 64)
+
+
+def _pack_head(q):
+    """The frame head's int8 codes [H, D] -> [NTx, KC, 64] int32 words: NTx
+    = cdiv(D, 8) tiles of 8 pitches, each chunk's B fragments as in
+    :func:`_pack_cells` (zero rows and columns pad H and D)."""
+    H, D = q.shape
+    KC, NTx = -(-H // 32), -(-D // 8)
+    qp = q.new_zeros((KC * 32, NTx * 8))
+    qp[:H, :D] = q
+    w = qp.view(KC, 4, 2, 4, NTx, 8).permute(4, 0, 5, 1, 2, 3).contiguous()
+    return w.view(torch.int32).view(NTx, KC, 64)
+
+
+def pack_int8(w: dict, cfg, nu: int) -> dict:
+    """The int8 kernel's weights from :func:`_pack`'s codes: per block the
+    encoder's x rows then its recurrent kernel (``enc``), the decoder's
+    x_prev rows (with ``use_x_prev``) then its recurrent kernel (``dec``),
+    chunk after chunk, and the frame head (``head``)."""
+    H = cfg.intermediate_dim
+    enc = torch.cat([_pack_cells(w["wke_x"], H, nu), _pack_cells(w["rke"], H, nu)], 1)
+    parts = ([_pack_cells(w["wkd_x"], H, nu)] if cfg.use_x_prev else []) + \
+        [_pack_cells(w["rkd"], H, nu)]
+    return {"enc": enc.contiguous(), "dec": torch.cat(parts, 1).contiguous(),
+            "head": _pack_head(w["wx_t"].T)}
 
 
 _lib_lock = threading.Lock()
@@ -286,15 +361,22 @@ def _kernels():
         if _lib is None:
             lib = _build.load("generate_cl_vrnn")
             P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            for fn, mode in ((lib.cvl_generate_cl_vrnn_smem_bytes, "f32"),
-                             (lib.cvl_generate_cl_vrnn_int8_smem_bytes, "int8")):
-                fn.argtypes, fn.restype = [I] * 3, LL
-                for shape in ((88, 256, 8), (88, 1536, 2), (13, 7, 3)):
-                    if fn(*shape) != _smem_bytes(*shape, mode):
-                        raise RuntimeError(f"shared-memory layout of csrc/generate_cl_vrnn.cu "
-                                           f"differs from _smem_bytes at {shape}, {mode}")
+            fn = lib.cvl_generate_cl_vrnn_smem_bytes
+            fn.argtypes, fn.restype = [I] * 3, LL
+            i8 = lib.cvl_generate_cl_vrnn_int8_smem_bytes
+            i8.argtypes, i8.restype = [I] * 3, LL
+            lib.cvl_generate_cl_vrnn_int8_state_words.argtypes = [I] * 4
+            lib.cvl_generate_cl_vrnn_int8_state_words.restype = LL
+            for shape in ((88, 256, 8), (88, 1536, 2), (13, 7, 3)):
+                if fn(*shape) != _smem_bytes(*shape):
+                    raise RuntimeError("shared-memory layout of csrc/generate_cl_vrnn.cu "
+                                       f"differs from _smem_bytes at {shape}")
+            for nu, B, L in ((2, 1, 3), (12, 64, 2), (14, 100, 2), (16, 256, 16)):
+                if i8(nu, B, L) != _int8_smem(nu, B, L):
+                    raise RuntimeError("shared-memory layout of the int8 kernel differs from "
+                                       f"_int8_smem at nu={nu}, B={B}, L={L}")
             lib.cvl_generate_cl_vrnn.argtypes = [I] + [P] * 15 + [I] * 8 + [P]
-            lib.cvl_generate_cl_vrnn_int8.argtypes = [P] * 20 + [I] * 8 + [P]
+            lib.cvl_generate_cl_vrnn_int8.argtypes = [P] * 20 + [I] * 9 + [P]
             lib.cvl_generate_cl_vrnn.restype = lib.cvl_generate_cl_vrnn_int8.restype = I
             _lib = lib
         return _lib
@@ -315,6 +397,12 @@ def _check(params, cfg, x_seeds, nsteps, eps, u, ws, mode=None):
         raise ValueError(f"state of one block needs {smem_bytes(cfg, mode)} B of shared memory "
                          f"(limit {_SMEM_LIMIT}); hidden {H} is too wide for this kernel")
     dev = x_seeds.device
+    if mode == "int8":
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        nu = int8_grid(H, n_sm)[0]
+        if nu > _I8_MAX_UNITS or _int8_smem(nu, min(B, _I8_MAX_SONGS), L) > _SMEM_LIMIT:
+            raise ValueError(f"hidden {H} needs {nu} units a block on {n_sm} SMs; the int8 "
+                             f"kernel takes at most {_I8_MAX_UNITS}")
     n_xp = D if cfg.use_x_prev else 0
     expect = {
         "x_seeds": (x_seeds, (B, Tseed, D)), "eps": (eps, (B, total, L)),
@@ -343,6 +431,66 @@ def _check(params, cfg, x_seeds, nsteps, eps, u, ws, mode=None):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _launch_int8(lib, w, cfg, x_seeds, eps, u, out, return_probs, stream, clock=None):
+    """The int8 kernel on :func:`_pack`'s operands: the weights packed per
+    block (:func:`pack_int8`), then one cooperative launch per
+    _I8_MAX_SONGS songs, each with its zeroed global state (``clock``, 10
+    int64 or None: the clock of :func:`int8_phase_ms`). Returns the first
+    nonzero CUDA error."""
+    B, Tseed, D = x_seeds.shape
+    H, L, total = cfg.intermediate_dim, cfg.latent_dim, eps.shape[1]
+    dev = x_seeds.device
+    nu = int8_grid(H, torch.cuda.get_device_properties(dev).multi_processor_count)[0]
+    q = pack_int8(w, cfg, nu)  # held by name until the launches are queued
+    ptr = lambda t: None if t is None else t.data_ptr()
+    for b0 in range(0, B, _I8_MAX_SONGS):
+        b = slice(b0, min(B, b0 + _I8_MAX_SONGS))
+        nb = b.stop - b0
+        state = torch.zeros(lib.cvl_generate_cl_vrnn_int8_state_words(nb, D, H, L),
+                            dtype=torch.int32, device=dev)
+        rows = [t[b] for t in (x_seeds, eps, u)]  # leading rows: contiguous views
+        err = lib.cvl_generate_cl_vrnn_int8(
+            *(t.data_ptr() for t in rows), ptr(q["enc"]), ptr(q["dec"]), ptr(q["head"]),
+            ptr(w["swke_x"]), ptr(w["srke"]), ptr(w["encb"][b]), ptr(w["wz_t"]), ptr(w["bz"]),
+            ptr(w.get("swkd_x")), ptr(w["wkd_z"]), ptr(w["srkd"]), ptr(w["decb"][b]),
+            ptr(w["swx"]), ptr(w["bx"]), out[b].data_ptr(), state.data_ptr(), ptr(clock), nb,
+            Tseed, total, D, H, L, int(cfg.use_x_prev), int(return_probs), nu, stream)
+        if err != 0:
+            return err
+    return 0
+
+
+# the parts of a step of the int8 kernel, in the order of its clock (each
+# phase's work, then its wait at the grid barrier after it)
+INT8_PARTS = ("encoder products", "encoder epilogue", "encoder wait", "z heads", "z wait",
+              "decoder products", "decoder epilogue", "decoder wait", "frame head", "frame wait")
+
+
+def int8_phase_ms(params, cfg, x_seeds, nsteps: int, eps, u, ws) -> dict:
+    """One int8 launch (counted, as the wrapper counts it) of at most
+    _I8_MAX_SONGS songs on CUDA tensors, timed part by part on the card by
+    block 0 (``%globaltimer``): ms of each of :data:`INT8_PARTS` summed over
+    the steps (a wait is the slowest block's lag and the barrier itself)."""
+    global INT8_LAUNCHES
+    _check(params, cfg, x_seeds, nsteps, eps, u, ws, "int8")
+    B, Tseed, D = x_seeds.shape
+    if B > _I8_MAX_SONGS:
+        raise ValueError(f"one launch takes at most {_I8_MAX_SONGS} songs, got {B}")
+    dev = x_seeds.device
+    lib = _kernels()
+    with torch.cuda.device(dev):
+        w = _pack(params, cfg, ws, D, "int8")
+        out = torch.empty((B, nsteps, D), dtype=torch.float32, device=dev)
+        clock = torch.zeros(len(INT8_PARTS), dtype=torch.int64, device=dev)
+        err = _launch_int8(lib, w, cfg, x_seeds, eps, u, out, False,
+                           torch.cuda.current_stream(dev).cuda_stream, clock)
+    if err != 0:
+        raise RuntimeError(f"generate_cl_vrnn_int8 kernel launch failed: CUDA error {err}")
+    with _launch_lock:
+        INT8_LAUNCHES += 1
+    return dict(zip(INT8_PARTS, (ns / 1e6 for ns in clock.cpu().tolist())))
+
+
 def generate_cl_vrnn_batch_cuda(params, cfg, x_seeds, nsteps: int, eps, u, ws,
                                 return_probs: bool = False, mode: str | None = None):
     """Kernel counterpart of ``generate_cl_vrnn_batch_pallas`` (same signature).
@@ -350,7 +498,9 @@ def generate_cl_vrnn_batch_cuda(params, cfg, x_seeds, nsteps: int, eps, u, ws,
     x_seeds [B, Tseed, D]; eps [B, total, L]; u [B, total, D]; ws [B, K];
     returns [B, nsteps, D]. CUDA tensors launch a kernel on the current
     stream (or raise: there is no fallback): ``generate_kernel`` in f32 and
-    bf16 mode, ``generate_int8_kernel`` in int8 mode; CPU tensors take
+    bf16 mode, ``generate_int8_kernel`` in int8 mode (one cooperative launch
+    per 256 songs, counted as one call; a grid that cannot be co-resident
+    raises); CPU tensors take
     :func:`generate_cl_vrnn_batch_plain`. ``mode`` is ``"f32"``, ``"bf16"``
     or ``"int8"`` (default :func:`pick_mode`).
     """
@@ -374,15 +524,7 @@ def generate_cl_vrnn_batch_cuda(params, cfg, x_seeds, nsteps: int, eps, u, ws,
                  int(cfg.use_x_prev), int(return_probs))
         stream = torch.cuda.current_stream(dev).cuda_stream
         if mode == "int8":
-            q = {k: kernel_words(w[k]) for k in ("wke_x", "rke", "rkd")}
-            q["wkd_x"] = kernel_words(w["wkd_x"]) if cfg.use_x_prev else None
-            q["wx_t"] = kernel_words(w["wx_t"].T).T.contiguous()  # [D, ceil(H/4)]
-            err = lib.cvl_generate_cl_vrnn_int8(
-                *streams, ptr(q["wke_x"]), ptr(w["swke_x"]), ptr(q["rke"]), ptr(w["srke"]),
-                ptr(w["encb"]), ptr(w["wz_t"]), ptr(w["bz"]), ptr(q["wkd_x"]),
-                ptr(w.get("swkd_x")), ptr(w["wkd_z"]), ptr(q["rkd"]), ptr(w["srkd"]),
-                ptr(w["decb"]), ptr(q["wx_t"]), ptr(w["swx"]), ptr(w["bx"]), out.data_ptr(),
-                *shape, stream)
+            err = _launch_int8(lib, w, cfg, x_seeds, eps, u, out, return_probs, stream)
         else:
             err = lib.cvl_generate_cl_vrnn(
                 int(mode == "bf16"), *streams, ptr(w["wke_x"]), ptr(w["rke"]), ptr(w["encb"]),

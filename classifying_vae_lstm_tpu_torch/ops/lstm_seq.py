@@ -23,9 +23,13 @@ The other rungs run four more:
   4H]`` (``x @ W + b``, computed outside), Rk, h0, c0 -> h, c;
 * the unfused training forward (``_forward_train_call``): the same, plus z;
 * the dz-only walk (``_backward_call``): the reverse walk alone, -> dz
-  ``[T, B, 4H]`` at z's type, dh0, dc0 (one launch);
+  ``[T, B, 4H]`` at z's type, dh0, dc0;
 * the drk walk (``_backward_call_drk``): the same walk, then a
-  deterministic pass for dRk = sum h_prevᵀdz (two launches).
+  deterministic pass for dRk = sum h_prevᵀdz.
+
+In f32 both walks are the full backward's walk (``csrc/lstm_bwd_f32.cu``,
+T + 1 launches over the whole batch; the drk walk's dRk is its row-split
+sum, two launches more).
 
 At the proj rungs without ``full`` the training forward and the inference
 forward are the default rung's, and the backward is a walk followed by the
@@ -50,8 +54,8 @@ The bf16 stream mode runs on the tensor cores, through
 and one launch per time step (a tiled ``[B, H] x [H, 4H]`` product with the
 gates in its epilogue), a walk two launches per step (the gate gradients,
 then ``dz @ [Rkᵀ | Wᵀ]``), dRk one more product; the f32 mode stays on FFMA
-(``csrc/lstm_seq.cu``, and ``csrc/lstm_bwd_f32.cu`` for the full
-backward), exact to JAX's precision="highest".
+(``csrc/lstm_seq.cu`` for the forwards, ``csrc/lstm_bwd_f32.cu`` for the
+backward and the walks), exact to JAX's precision="highest".
 The wrappers build the tensor-core operands in plain PyTorch (Rk and W with
 each unit's four gates side by side, K padded to a multiple of 8; see
 :func:`interleave_gates`, :func:`tc_fwd_operands`, :func:`tc_h_operand`,
@@ -79,9 +83,8 @@ autograd of that product rounds dW and dx to bf16, as JAX's does.
 signature and results. Layouts are time-major inside, kernels ``[in, out]``,
 and no lane or batch padding (so no padded rows for the drk sum to mask):
 the TPU's VMEM gates and block picks are not read here; in f32 the card's
-shared memory limits the forwards and the other rungs' walks, checked per
-call; the full backward keeps its state in global memory and the bf16
-route has no limit.
+shared memory limits the forwards, checked per call; the backward and the
+walks keep their state in global memory and the bf16 route has no limit.
 """
 
 from __future__ import annotations
@@ -102,8 +105,8 @@ from .two_cell import _mode
 # one per dz-only walk (WALK), two per drk walk (DRK: the walk, then the dRk
 # pass); the plain names count the f32 mode, the BF16_ names the bf16 stream
 # mode (calls make more device launches each: T+1 for a bf16 forward, 2T for
-# a bf16 walk, 2T+2 for the bf16 full backward, T+5 for the f32 one, counted
-# as above)
+# a bf16 walk, 2T+2 for the bf16 full backward, T+5 for the f32 one, T+1 for
+# an f32 walk and 2 for its dRk pass, counted as above)
 FWD_LAUNCHES = 0
 TRAIN_FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
@@ -120,8 +123,6 @@ BF16_WALK_LAUNCHES = 0
 BF16_DRK_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
-_BWD_ROWS = 4             # the walk's row tile in csrc/lstm_seq.cu (2 when wide)
-_BWD_UNITS = 256          # kUnits in csrc/lstm_seq.cu
 _SMEM_LIMIT = 232448      # dynamic shared memory one Hopper block can use
 
 
@@ -129,18 +130,6 @@ def fwd_smem_bytes(IN: int, H: int, rows: int) -> int:
     """Shared memory of one forward block: the step's x, h (two buffers) and
     c for each row of the tile."""
     return (IN + 3 * H) * rows * 4
-
-
-def bwd_smem_bytes(H: int, rows: int = _BWD_ROWS) -> int:
-    """Shared memory of one reverse-walk block: dz (4H) and the two carries
-    (H each) per row, plus the K-split partial sums."""
-    return (6 * H * rows + rows * _BWD_UNITS) * 4
-
-
-def walk_rows(H: int) -> int:
-    """The f32 dz-only walk's row tile: 4 rows where they fit shared
-    memory, else 2 (H above ~2,300)."""
-    return _BWD_ROWS if bwd_smem_bytes(H) <= _SMEM_LIMIT else 2
 
 
 def fwd_rows(B: int, IN: int, H: int, n_sm: int) -> int:
@@ -361,16 +350,11 @@ def _kernels():
             P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.cvl_lstm_seq_fwd_smem_bytes.argtypes = [I] * 3
             lib.cvl_lstm_seq_fwd_smem_bytes.restype = LL
-            lib.cvl_lstm_seq_bwd_smem_bytes.argtypes = [I] * 2
-            lib.cvl_lstm_seq_bwd_smem_bytes.restype = LL
-            if (any(lib.cvl_lstm_seq_fwd_smem_bytes(i, 256, r) != fwd_smem_bytes(i, 256, r)
-                    for r in (4, 16) for i in (0, 109))
-                    or any(lib.cvl_lstm_seq_bwd_smem_bytes(256, r) != bwd_smem_bytes(256, r)
-                           for r in (2, 4))):
+            if any(lib.cvl_lstm_seq_fwd_smem_bytes(i, 256, r) != fwd_smem_bytes(i, 256, r)
+                   for r in (4, 16) for i in (0, 109)):
                 raise RuntimeError("shared-memory layout of csrc/lstm_seq.cu differs from "
-                                   "fwd_smem_bytes / bwd_smem_bytes")
-            argtypes = {"fwd": [P] * 11 + [I] * 6, "xz_fwd": [P] * 7 + [I] * 5,
-                        "walk": [P] * 9 + [I] * 4, "drk": [P] * 3 + [I] * 2}
+                                   "fwd_smem_bytes")
+            argtypes = {"fwd": [P] * 11 + [I] * 6, "xz_fwd": [P] * 7 + [I] * 5}
             for name, types in argtypes.items():
                 fn = getattr(lib, f"cvl_lstm_seq_{name}")
                 fn.argtypes = types + [P]  # the stream last
@@ -380,8 +364,8 @@ def _kernels():
 
 
 def _bwd_kernels():
-    """The built f32 full-backward library (``csrc/lstm_bwd_f32.cu``) with
-    its ctypes signatures."""
+    """The built f32 backward library (``csrc/lstm_bwd_f32.cu``: the full
+    backward and the other rungs' walks) with its ctypes signatures."""
     global _bwd_lib
     with _lib_lock:
         if _bwd_lib is None:
@@ -390,9 +374,14 @@ def _bwd_kernels():
             lib.cvl_lstm_bwd_f32_part_rows.argtypes = [I] * 2
             lib.cvl_lstm_bwd_f32_part_rows.restype = I
             lib.cvl_lstm_bwd_f32_scratch.argtypes = [I] * 4
+            lib.cvl_lstm_bwd_f32_drk_scratch.argtypes = [I] * 2
             lib.cvl_lstm_bwd_f32_scratch.restype = ctypes.c_longlong
+            lib.cvl_lstm_bwd_f32_drk_scratch.restype = ctypes.c_longlong
             lib.cvl_lstm_bwd_f32.argtypes = [P] * 18 + [I] * 4 + [P]
-            lib.cvl_lstm_bwd_f32.restype = I
+            lib.cvl_lstm_bwd_f32_walk.argtypes = [P] * 9 + [I] * 3 + [P]
+            lib.cvl_lstm_bwd_f32_drk.argtypes = [P] * 4 + [I] * 2 + [P]
+            for fn in (lib.cvl_lstm_bwd_f32, lib.cvl_lstm_bwd_f32_walk, lib.cvl_lstm_bwd_f32_drk):
+                fn.restype = I
             _bwd_lib = lib
         return _bwd_lib
 
@@ -654,46 +643,52 @@ def lstm_seq_xz_train_fwd(xz, rk, h0, c0):
 
 def _launch_walk(z, c_prev, c, h_prev, dh_seq, dc_seq, rk_t):
     """Check the walk's inputs (h_prev may be None) and launch it; returns
-    (dz, dh0, dc0). Counts nothing: the caller's wrapper does."""
+    (dz, dh0, dc0). Counts nothing: the caller's wrapper does. ``rk_t`` may
+    be the transposed view of Rk (as :class:`LstmSeqCore` passes it): the
+    f32 walk reads Rk ``[H, 4H]`` as stored, so that view is not copied; the
+    bf16 walk reads the rows of Rkᵀ and makes them contiguous itself."""
     dev = z.device
-    if z.dim() != 3:
-        raise ValueError("z must be [T, B, 4H]")
+    if z.dim() != 3 or rk_t.dim() != 2:
+        raise ValueError("z must be [T, B, 4H] and rk_t [4H, H]")
     T, B, H4 = z.shape
     H = H4 // 4
     bf16 = z.dtype == torch.bfloat16
-    rows = walk_rows(H)
-    if not bf16 and bwd_smem_bytes(H, rows) > _SMEM_LIMIT:
-        raise ValueError(f"hidden {H} is too wide for the LSTM walk kernel's shared memory "
-                         f"({bwd_smem_bytes(H, rows)} > {_SMEM_LIMIT} bytes)")
     s3 = lambda width: (T, B, width)
+    if bf16:
+        rk_t = rk_t.contiguous()
+        weight = {"rk_t": (rk_t, (H4, H))}
+    else:
+        rk = rk_t.T.contiguous()
+        weight = {"rk": (rk, (H, H4))}
     _check(dev, {"z": (z, s3(H4)), "c_prev": (c_prev, s3(H)), "c": (c, s3(H)),
                  "h_prev": (h_prev, s3(H)), "dh_seq": (dh_seq, s3(H)), "dc_seq": (dc_seq, s3(H)),
-                 "rk_t": (rk_t, (H4, H))},
+                 **weight},
            bf16=frozenset({"z", "h_prev", "rk_t"}) if bf16 else frozenset())
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         dz = torch.empty((T, B, H4), dtype=z.dtype, device=dev)
+        dh0, dc0 = torch.zeros((B, H), device=dev), torch.zeros((B, H), device=dev)
         if bf16:
-            dh0, dc0 = torch.zeros((B, H), device=dev), torch.zeros((B, H), device=dev)
             wt, _ = tc_walk_weights(rk_t)
             err = _tc_kernels().cvl_lstm_tc_walk(
                 *(t.data_ptr() for t in (z, c_prev, c, dh_seq, dc_seq, wt)), wt.shape[1], H,
                 None, dh0.data_ptr(), dc0.data_ptr(), None, dz.data_ptr(), T, B, 0, H, stream)
         else:
-            dh0, dc0 = torch.empty((B, H), device=dev), torch.empty((B, H), device=dev)
-            err = _kernels().cvl_lstm_seq_walk(
-                *(t.data_ptr() for t in (z, c_prev, c, dh_seq, dc_seq, rk_t, dh0, dc0, dz)),
-                T, B, H, rows, stream)
+            z, rk = _aligned(z), _aligned(rk)
+            err = _bwd_kernels().cvl_lstm_bwd_f32_walk(
+                *(t.data_ptr() for t in (z, c_prev, c, dh_seq, dc_seq, rk, dz, dh0, dc0)),
+                T, B, H, stream)
     _raise_if(err, "walk")
     return dz, dh0, dc0
 
 
 def lstm_seq_walk(z, c_prev, c, dh_seq, dc_seq, rk_t):
     """The dz-only walk (signature and results of
-    :func:`lstm_seq_walk_plain`). CUDA tensors launch
-    ``lstm_seq_bwd_kernel<float, R>``, or where z is bf16 the
-    tensor-core walk of ``csrc/lstm_seq_tc.cu`` (two launches a step, counted
-    as one call), or raise; CPU tensors take the plain version."""
+    :func:`lstm_seq_walk_plain`). CUDA tensors launch, in f32, the full
+    backward's walk of ``csrc/lstm_bwd_f32.cu`` (T + 1 launches of
+    ``lstm_bwd_walk_kernel``), or where z is bf16 the tensor-core walk of
+    ``csrc/lstm_seq_tc.cu`` (two launches a step), either counted as one
+    call, or raise; CPU tensors take the plain version."""
     if _device_of(z).type == "cpu":
         return lstm_seq_walk_plain(z, c_prev, c, dh_seq, dc_seq, rk_t)
     out = _launch_walk(z, c_prev, c, None, dh_seq, dc_seq, rk_t)
@@ -704,9 +699,10 @@ def lstm_seq_walk(z, c_prev, c, dh_seq, dc_seq, rk_t):
 def lstm_seq_walk_drk(z, c_prev, c, h_prev, dh_seq, dc_seq, rk_t):
     """The drk walk (signature and results of
     :func:`lstm_seq_walk_drk_plain`). CUDA tensors launch the walk and then,
-    in f32, ``wgrad_kernel<lstm_seq_wgrad>`` with one job, dRk over all T*B
-    rows in a fixed order, in bf16 the tensor-core dRk product (counted as
-    two calls), or raise; CPU tensors take the plain version."""
+    in f32, ``wgrad_kernel<lstm_bwd_wgrad>``'s row-split sum (two launches),
+    dRk over all T*B rows in a fixed order, in bf16 the tensor-core dRk
+    product (counted as two calls), or raise; CPU tensors take the plain
+    version."""
     if _device_of(z).type == "cpu":
         return lstm_seq_walk_drk_plain(z, c_prev, c, h_prev, dh_seq, dc_seq, rk_t)
     dz, dh0, dc0 = _launch_walk(z, c_prev, c, h_prev, dh_seq, dc_seq, rk_t)
@@ -721,8 +717,10 @@ def lstm_seq_walk_drk(z, c_prev, c, h_prev, dh_seq, dc_seq, rk_t):
             err = _tc_kernels().cvl_lstm_tc_drk(h_prev.data_ptr(), dz.data_ptr(),
                                                 drk.data_ptr(), T * B, H4 // 4, 0, stream)
         else:
-            err = _kernels().cvl_lstm_seq_drk(h_prev.data_ptr(), dz.data_ptr(), drk.data_ptr(),
-                                              T * B, H4 // 4, stream)
+            lib = _bwd_kernels()
+            scratch = torch.empty(lib.cvl_lstm_bwd_f32_drk_scratch(T * B, H4 // 4), device=dev)
+            err = lib.cvl_lstm_bwd_f32_drk(h_prev.data_ptr(), dz.data_ptr(), drk.data_ptr(),
+                                           scratch.data_ptr(), T * B, H4 // 4, stream)
     _raise_if(err, "dRk")
     _count("drk", 1, bf16)
     return dz, dh0, dc0, drk
@@ -764,10 +762,10 @@ class LstmSeqCore(torch.autograd.Function):
         z, cp, c, hp, x, w, rk = ctx.saved_tensors
         drk, full = ctx.fusion
         dh, dc = dh.contiguous(), dc.contiguous()
-        if full:  # views: the f32 kernels read rk and w as stored
+        if full:  # views: the f32 kernels read rk and w as stored: the f32 kernels read rk and w as stored
             dx, dh0, dc0, drk_g, dw, db = lstm_seq_bwd(z, cp, c, hp, x, dh, dc, rk.T, w.T)
             return dx, dw, db, drk_g, dh0, dc0, None, None
-        dz, dh0, dc0, drk_g = _walk_and_drk(drk, z, cp, c, hp, dh, dc, rk.T.contiguous())
+        dz, dh0, dc0, drk_g = _walk_and_drk(drk, z, cp, c, hp, dh, dc, rk.T)
         # the projection backward (``_core_fp_bwd``): f32 sums of the stream
         # values; dW and db stay f32, dx is rounded to x's type
         T, B, IN = x.shape
@@ -801,7 +799,7 @@ class LstmSeqXzCore(torch.autograd.Function):
         cp = torch.cat([c0[None], c[:-1]])
         hp = torch.cat([h0[None], h[:-1]]).to(z.dtype)
         dz, dh0, dc0, drk_g = _walk_and_drk(ctx.drk, z, cp, c, hp, dh.contiguous(),
-                                            dc.contiguous(), rk.T.contiguous())
+                                            dc.contiguous(), rk.T)
         return dz, drk_g.to(rk.dtype), dh0, dc0, None
 
 

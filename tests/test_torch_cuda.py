@@ -142,8 +142,13 @@ def test_wrapper_raises_instead_of_falling_back(dev):
 INT8_CASES = {
     "h64": dict(B=6, Tseed=5, nsteps=16, H=64, seed=3),
     # D and H not multiples of 4 (zero-padded words), a ragged song tile,
-    # two passes of the gate stages
+    # H not a multiple of the units a block owns
     "ragged_no_x_prev": dict(B=5, Tseed=3, nsteps=12, H=262, D=13, use_x_prev=False, seed=4),
+    # the band's shape (D=88, L=2, 13 keys) at its edges and a narrow width:
+    # one song, a ragged 16-song tile, the largest serving bucket, and two
+    # song groups (100 songs: 112 rows, the last group ragged)
+    **{f"b{B}_h{H}": dict(B=B, Tseed=3, nsteps=8, H=H, D=88, L=2, K=13, seed=5)
+       for B in (1, 5, 64, 100) for H in (64, 1536, 1752)},
 }
 
 
@@ -165,6 +170,9 @@ def test_int8_kernel_matches_plain(dev, case):
                                                                 u, False)
     torch.cuda.synchronize()
     assert (cg.INT8_LAUNCHES, cg.LAUNCHES) == (before[0] + 2, before[1])
+    again = run(cg.generate_cl_vrnn_batch_cuda, u, False)  # the same bits: no atomics
+    torch.cuda.synchronize()
+    assert torch.equal(again, fk)
     pp, fp = run(cg.generate_cl_vrnn_batch_plain, u1, True), run(cg.generate_cl_vrnn_batch_plain,
                                                                  u, False)
     assert pk.shape == fk.shape == (seeds.shape[0], nsteps, cfg.original_dim)
@@ -738,13 +746,11 @@ def test_lstm_seq_rung_kernels_match_plain(dev, case, bf16):
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 def test_lstm_seq_walk_at_hidden_2560(dev, bf16):
-    """The widest H the JAX package's ``auto`` pins to the proj-only rung:
-    in f32 the walk takes 2-row tiles there (7 rows: a ragged last tile); in
-    bf16 it is the tensor-core walk of ``csrc/lstm_seq_tc.cu``, which has no
-    row tile and no shared-memory ceiling."""
+    """The widest H the JAX package's ``auto`` pins to the proj-only rung
+    (7 rows: a ragged row tile): in f32 the full backward's walk of
+    ``csrc/lstm_bwd_f32.cu``, in bf16 the tensor-core walk of
+    ``csrc/lstm_seq_tc.cu``; neither has a shared-memory ceiling."""
     B, T, H = 7, 2, 2560
-    if not bf16:
-        assert ls.walk_rows(H) == 2
     xz, rk, h0, c0 = _xz_inputs(dev, bf16, B=B, T=T, H=H, IN=9)
     h, c, z = ls.lstm_seq_xz_train_fwd_plain(xz, rk, h0, c0)
     rng = np.random.default_rng(2)
@@ -761,6 +767,28 @@ def test_lstm_seq_walk_at_hidden_2560(dev, bf16):
     want = ls.lstm_seq_walk_plain(z, cp, c, dh, torch.zeros_like(dh), rk_t)
     for name, g, wv in zip(("dz", "dh0", "dc0"), got, want):
         _close(g, wv, name, bf16, backward=True)
+
+
+def test_lstm_seq_f32_walks_at_hidden_4900(dev):
+    """Past the old 2-row walk's shared-memory ceiling (H ~ 4,800): the f32
+    dz-only and drk walks keep their state in global memory and match their
+    plain versions (a ragged row tile and H not a multiple of the 32-unit
+    tiles); two calls give the same bits."""
+    B, T, H = 3, 2, 4900
+    xz, rk, h0, c0 = _xz_inputs(dev, False, B=B, T=T, H=H, IN=5)
+    h, c, z = ls.lstm_seq_xz_train_fwd_plain(xz, rk, h0, c0)
+    rng = np.random.default_rng(7)
+    dh = torch.from_numpy(rng.standard_normal((T, B, H)).astype(np.float32)).to(dev)
+    cp, hp = torch.cat([c0[None], c[:-1]]), torch.cat([h0[None], h[:-1]])
+    res = (z, cp, c, hp, dh, torch.zeros_like(dh), rk.T)
+    walk, drk = ls.lstm_seq_walk(*res[:3], *res[4:]), ls.lstm_seq_walk_drk(*res)
+    again = ls.lstm_seq_walk_drk(*res)
+    torch.cuda.synchronize()
+    want = ls.lstm_seq_walk_drk_plain(*res)
+    for label, got in (("walk", walk), ("drk walk", drk)):
+        for name, g, wv in zip(("dz", "dh0", "dc0", "drk"), got, want):
+            _close(g, wv, f"{label} {name}", False, backward=True)
+    assert all(torch.equal(a, b) for a, b in zip(drk, again))
 
 
 RUNGS = [(True, True, False), (True, False, False), (False, True, False), (False, False, False)]
@@ -826,13 +854,17 @@ def test_lstm_seq_rung_wrappers_raise_instead_of_falling_back(dev):
         ls.lstm_seq_xz_fwd(xz, rk[:-1].contiguous(), h0, c0)
     h, c, z = ls.lstm_seq_xz_train_fwd_plain(xz, rk, h0, c0)
     cp, hp, rk_t = torch.cat([c0[None], c[:-1]]), torch.cat([h0[None], h[:-1]]), rk.T.contiguous()
-    with pytest.raises(ValueError, match="contiguous"):
-        ls.lstm_seq_walk(z, cp, c, h, c, rk.T)
     with pytest.raises(ValueError, match="h_prev must be bfloat16"):
         ls.lstm_seq_walk_drk(z.bfloat16(), cp, c, hp, h, c, rk_t.bfloat16())
-    with pytest.raises(ValueError, match="shared memory"):
-        ls.lstm_seq_walk(*(torch.zeros(1, 1, 4 * 4900, device=dev),) * 6)
+    with pytest.raises(ValueError, match="must be"):
+        ls.lstm_seq_walk(z, cp, c, h, c, rk_t[:-1])
     assert [_rung_launches(b) for b in (False, True)] == before
+    # the transposed view of Rk is taken (the f32 walk reads Rk as stored, no
+    # copy), with the bits of a contiguous Rkᵀ
+    view, copy = ls.lstm_seq_walk(z, cp, c, h, c, rk.T), ls.lstm_seq_walk(z, cp, c, h, c, rk_t)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(view, copy))
+    assert _rung_launches(False)[2] == before[0][2] + 2
 
 
 # ---- the bf16 route of the whole-sequence LSTM (csrc/lstm_seq_tc.cu)

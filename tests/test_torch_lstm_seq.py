@@ -494,8 +494,27 @@ def test_shared_memory_formulas():
     assert ls.fwd_rows(12800, 106, 256, 132) == 16  # the evaluation shape
     assert ls.fwd_rows(200, 109, 256, 132) == 4     # the training shape
     assert ls.fwd_rows(12800, 106, 2048, 132) == 4  # a 16-row tile no longer fits
-    assert ls.bwd_smem_bytes(256) <= ls._SMEM_LIMIT < ls.bwd_smem_bytes(4096)
     assert ls.fwd_smem_bytes(0, 2560, 4) <= ls._SMEM_LIMIT  # the xz forwards at H=2,560
-    # the walk: 4-row tiles to H=2,048, 2-row tiles at H=2,560 (JAX auto's widest)
-    assert ls.walk_rows(2048) == 4 and ls.walk_rows(2560) == 2
-    assert ls.bwd_smem_bytes(2560, 2) <= ls._SMEM_LIMIT < ls.bwd_smem_bytes(2560)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_walks_take_the_transposed_view_of_rk(bf16):
+    """The cores hand the walks ``rk.T``, a view of Rk as stored (the f32
+    kernel reads Rk [H, 4H] without a copy): on the CPU both walks give the
+    same results from that view as from ``rk.T.contiguous()``."""
+    rng = np.random.default_rng(61)
+    T, B, Hh = 3, 5, 7
+    f = lambda *s, scale=1.0: torch.from_numpy((scale * rng.standard_normal(s)).astype(np.float32))
+    sd = torch.bfloat16 if bf16 else torch.float32
+    z, hp = f(T, B, 4 * Hh).to(sd), f(T, B, Hh, scale=0.5).to(sd)
+    cp, c, dh, dc = (f(T, B, Hh, scale=0.5) for _ in range(4))
+    rk = f(Hh, 4 * Hh, scale=0.3).to(sd)
+    view, copy = rk.T, rk.T.contiguous()
+    assert not view.is_contiguous() and view.T.data_ptr() == rk.data_ptr()
+    for got, want in ((ls.lstm_seq_walk(z, cp, c, dh, dc, view),
+                       ls.lstm_seq_walk(z, cp, c, dh, dc, copy)),
+                      (ls.lstm_seq_walk_drk(z, cp, c, hp, dh, dc, view),
+                       ls.lstm_seq_walk_drk(z, cp, c, hp, dh, dc, copy))):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)

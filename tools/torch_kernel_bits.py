@@ -6,9 +6,11 @@
 
 ``save`` runs, on the card, the CUDA kernels of the checkout at ``--root``
 (default: this one) that a change to shared sources could move — the f32
-forwards and walks of ``csrc/lstm_seq.cu``, the two-cell forward and
+forwards of ``csrc/lstm_seq.cu`` and the f32 walks, the two-cell forward and
 backward in f32 and bf16, both dense-stack forwards and the f32 dense-stack
-backward — on inputs made from a fixed seed, and saves every output.
+backward, the int8 cl_vrnn generation kernel (probabilities with u = 1 and
+sampled frames at H=1,536, 64 songs x (32 + 256) steps) — on inputs made
+from a fixed seed, and saves every output.
 ``compare`` reports, per output, whether two saved runs are bitwise equal,
 and exits 1 if any differs. Run ``save`` once per checkout (each in its own
 process: both define the same package) on one card, then ``compare``.
@@ -100,6 +102,46 @@ def _vae(out: dict):
         out[f"vae_fwd_bf16_{label}"] = vd.vae_dense_fwd(*b16)
 
 
+def _int8(out: dict):
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.models import cl_vrnn
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate as cg
+    from classifying_vae_lstm_tpu_torch.weights import params_from_numpy
+
+    rng, _ = _inputs(4)
+    dev = torch.device("cuda", 0)
+    B, Tseed, nsteps, D, H, L, K = 64, 32, 256, 88, 1536, 2, 13
+    total = Tseed + nsteps
+
+    def glorot(i, o):
+        lim = np.sqrt(6.0 / (i + o))
+        return rng.uniform(-lim, lim, (i, o)).astype(np.float32)
+
+    zeros = lambda n: np.zeros(n, np.float32)
+    raw = {"encoder_h": {"kernel": glorot(D + K, 4 * H), "recurrent_kernel": glorot(H, 4 * H),
+                         "bias": zeros(4 * H)},
+           "decoder_h": {"kernel": glorot(D + L + K, 4 * H),
+                         "recurrent_kernel": glorot(H, 4 * H), "bias": zeros(4 * H)},
+           "Z_mean": {"kernel": glorot(H, L), "bias": zeros(L)},
+           "Z_log_var": {"kernel": glorot(H, L), "bias": zeros(L)},
+           "X_decoded_mean": {"kernel": glorot(H, D), "bias": np.full(D, -2.0, np.float32)}}
+    cfg = cl_vrnn.Config(original_dim=D, intermediate_dim=H, latent_dim=L, seq_length=16,
+                         n_classes=K, use_x_prev=True, bf16_compute=True, lstm_backend="pallas")
+    t = lambda a: torch.from_numpy(a).to(dev)
+    seeds = t((rng.random((B, Tseed, D)) < 0.1).astype(np.float32))
+    eps = t(rng.standard_normal((B, total, L)).astype(np.float32))
+    u = t(rng.random((B, total, D)).astype(np.float32))
+    ws = torch.eye(K, device=dev)[torch.arange(B, device=dev) % K]
+    params = params_from_numpy(raw, dev)
+    run = lambda uu, rp: cg.generate_cl_vrnn_batch_cuda(params, cfg, seeds, nsteps, eps, uu, ws,
+                                                        return_probs=rp, mode="int8")
+    out["int8_cl_vrnn_probs_u1"] = run(torch.ones_like(u), True)
+    out["int8_cl_vrnn_frames"] = run(u, False)
+    torch.cuda.synchronize()
+
+
 def save(path: str, root: str | None):
     if root:
         sys.path.insert(0, str(Path(root).resolve()))
@@ -109,7 +151,7 @@ def save(path: str, root: str | None):
 
     print(f"package: {Path(classifying_vae_lstm_tpu_torch.__file__).parent}")
     out: dict = {}
-    for part in (_lstm, _two_cell, _vae):
+    for part in (_lstm, _two_cell, _vae, _int8):
         part(out)
     torch.cuda.synchronize()
     flat = {f"{k}/{i}": t.cpu() for k, v in out.items()

@@ -10,7 +10,8 @@ compiled for sm_90a as ``ops/_build.py`` compiles it (``-cubin`` in place of
 ``-shared``); ``cuobjdump --dump-resource-usage`` gives each kernel's
 registers, stack, local memory (spills) and static shared memory, and
 ``cuobjdump -sass`` counts its instructions, its ``HMMA`` / ``HGMMA``
-(tensor-core) and its ``LDG`` (global load) instructions. Occupancy
+(tensor-core), ``IMMA`` (int8 tensor-core), ``IDP`` (``__dp4a``) and
+``LDG`` (global load) instructions. Occupancy
 is the H100's arithmetic limit from registers (65,536 a SM), threads (2,048)
 and shared memory (228 KB a SM, 227 KB a block) at the block size given in
 ``--threads`` (kernel-name substring=threads; ``THREADS`` below gives
@@ -41,12 +42,13 @@ ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "classifying_vae_lstm_tpu_torch" / "csrc"
 SM_REGS, SM_THREADS, SM_SMEM, SM_BLOCKS = 65536, 2048, 233472, 32
 # block sizes (and dynamic shared memory at the seq-concat cl_vae's K=13,
-# L=16) of the kernels whose occupancy is listed without --threads / --smem
-# (the first key a kernel's name holds is taken: wgrad_kernel<lstm_bwd_wgrad>
-# runs 256 threads)
-THREADS = {"wgrad_": 256, "lstm_bwd_": 128, "vae_tc_product": 128, "vae_tc_dw": 128,
-           "vae_tc_head": 256, "vae_tc_latent": 256, "vae_tc_key": 256}
-SMEM = {"vae_tc_latent": 4688, "vae_tc_key": 2256}
+# L=16, and of the int8 cl_vrnn kernel at H=1,536, 64 songs) of the kernels
+# whose occupancy is listed without --threads / --smem (the first key a
+# kernel's name holds is taken: wgrad_kernel<lstm_bwd_wgrad> runs 256
+# threads)
+THREADS = {"wgrad_": 256, "lstm_bwd_": 128, "generate_int8_kernel": 512, "vae_tc_product": 128,
+           "vae_tc_dw": 128, "vae_tc_head": 256, "vae_tc_latent": 256, "vae_tc_key": 256}
+SMEM = {"vae_tc_latent": 4688, "vae_tc_key": 2256, "generate_int8_kernel": 122496}
 
 
 def _tool(name: str) -> str:
@@ -79,7 +81,8 @@ def resources(cubin: str) -> dict[str, dict]:
 
 def sass_counts(cubin: str) -> dict[str, dict]:
     """Per mangled kernel name: its SASS instructions, and among them the
-    HMMA / HGMMA (tensor-core) and LDG (global load) instructions."""
+    HMMA / HGMMA (tensor-core), IMMA (int8 tensor-core), IDP (``__dp4a``)
+    and LDG (global load) instructions."""
     txt = subprocess.run([_tool("cuobjdump"), "-sass", cubin], capture_output=True, text=True,
                          check=True).stdout
     counts, name = {}, None
@@ -87,11 +90,13 @@ def sass_counts(cubin: str) -> dict[str, dict]:
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            counts[name] = {"sass": 0, "hmma": 0, "ldg": 0}
+            counts[name] = {"sass": 0, "hmma": 0, "imma": 0, "idp": 0, "ldg": 0}
         elif name and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
             c = counts[name]
             c["sass"] += 1
             c["hmma"] += bool(re.search(r"\bH(G)?MMA\b", line))
+            c["imma"] += bool(re.search(r"\bIMMA\b", line))
+            c["idp"] += bool(re.search(r"\bIDP\b", line))
             c["ldg"] += bool(re.search(r"\bLDG\b", line))
     return counts
 
@@ -119,10 +124,10 @@ def report(src: Path, threads: dict[str, int], smem: dict[str, int]) -> None:
     print(f"--- {src}")
     for mangled in sorted(res):
         r, pretty = res[mangled], names[mangled]
-        c = sass.get(mangled, {"sass": 0, "hmma": 0, "ldg": 0})
+        c = sass.get(mangled, {"sass": 0, "hmma": 0, "imma": 0, "idp": 0, "ldg": 0})
         line = (f"{pretty}: registers {r['regs']}, stack {r['stack']} B, local (spills) "
                 f"{r['local']} B, static shared {r['shared']} B; SASS {c['sass']} instructions, "
-                f"HMMA/HGMMA {c['hmma']}, LDG {c['ldg']}")
+                f"HMMA/HGMMA {c['hmma']}, IMMA {c['imma']}, IDP {c['idp']}, LDG {c['ldg']}")
         nt = next((n for k, n in threads.items() if k in pretty), None)
         if nt:
             dyn = next((n for k, n in smem.items() if k in pretty), 0)
