@@ -15,16 +15,21 @@ failure:
    of ``csrc/two_cell_tc.cu``: its bf16 product kernels (walk, dx, dW) do
    and its f32 kernels hold none (FFMA only); of ``csrc/vae_dense_tc.cu``:
    its product kernels (the row chain's and the weight gradients') do; of
-   ``csrc/lstm_bwd_f32.cu``: none (FFMA only); ``generate_int8_kernel`` of
-   ``csrc/generate_cl_vrnn.cu`` holds int8 tensor-core (IMMA) instructions
-   and no ``__dp4a`` (IDP);
+   ``csrc/lstm_bwd_f32.cu``: none (FFMA only); of ``csrc/two_cell.cu`` (the
+   two-cell forward): its bf16 kernels do, its f32 kernels none; of
+   ``csrc/generate_cl_vrnn.cu``: ``generate_kernel``'s bf16 instance does,
+   its f32 instance none, and ``generate_int8_kernel`` holds int8
+   tensor-core (IMMA) instructions and no ``__dp4a`` (IDP);
 2. kernel vs plain version, f32, on the trained ``artifacts/jsball_vrnn4``
    weights at the largest serving bucket (64 songs, 32 seed + 256 steps):
    probabilities with u=1 within 1e-5, and sampled frames equal up to each
-   song's first near-tie (|u - p| < 1e-4 in the plain run); kernel and plain
-   times with CUDA events;
+   song's first near-tie (|u - p| < 1e-4 in the plain run), a second call
+   bitwise equal; kernel and plain times with CUDA events, the profiler's
+   device time, the grid and weight residency, the serving-bucket grid;
 3. kernel vs plain version, bf16 weights, at hidden 512 (seeded glorot-scale
-   weights): probabilities with u=1, max within 2e-2, mean within 2e-3;
+   weights): probabilities with u=1, max within 2e-2, mean within 2e-3, a
+   second call bitwise equal; CUDA-event and device time beside the bound
+   at the bf16 rate, and the serving-bucket grid in bf16;
 4. the serving path: the port's ``cli.serve`` server with
    ``--dynamic_batching --warmup full`` answers /generate requests (a burst
    among them) over HTTP; the launch counts are set to 0 just before and read
@@ -33,8 +38,9 @@ failure:
    training shape (B=200, T=16, H=256, L=8, K=13, use_x_prev; the
    ``jsball_vrnn4`` weights with seeded rows for 13 keys): forward hd and
    zargs within 1e-5, every backward output within 1e-4 * max|plain| + 1e-6,
-   a second backward call bitwise equal; kernel and plain times with CUDA
-   events beside each kernel's bound, the backward's device time split
+   a second forward and backward call bitwise equal; kernel and plain times
+   with CUDA events beside each kernel's bound, the forward's device time
+   split between the operands' layouts and the walk, the backward's
    between the walk (of which the z hand-off), dx and the weight gradients,
    and the HMMA count of each f32 backward kernel (0);
 6. the training path: the port's ``cli.cl_vrnn_train`` trains 3 epochs on
@@ -173,9 +179,9 @@ failure:
    streams within one bf16
    step at their largest entry, every backward output within 1e-2 of its
    largest entry, types checked (streams and weight gradients bf16, bias
-   sums not rounded), a second backward call bitwise equal; times beside
-   bounds at the bf16 rate, the backward's device split as phase 5's and
-   the HMMA count of each bf16 product kernel;
+   sums not rounded), a second forward and backward call bitwise equal;
+   times beside bounds at the bf16 rate, the forward's and the backward's
+   device split as phase 5's and the HMMA count of each bf16 product kernel;
 24. the bf16 two-cell cl_vrnn the JAX package trains at H=512
    (``artifacts/two_cell_exp.json`` row ``H512_B1024_bf16``: D=88, L=2,
    T=16, use_x_prev, B=1,024; 13 keys) trained by ``cli.cl_vrnn_train``
@@ -210,8 +216,8 @@ failure:
 27. the bf16 cl_vrnn the JAX package trains at H=2,048
    (``artifacts/fused_kernel_exp.json`` phase h2048, variant proj: D=88,
    L=2, T=16, use_x_prev, B=1,024; 13 keys) through ``cli.cl_vrnn_train
-   --lstm_backend pallas`` with ``bf16_compute``: the CLI pins fusion (T, F,
-   F) and ``two_cell`` off, the args.json JAX ``auto`` writes there; 1
+   --lstm_backend pallas --two_cell off`` with ``bf16_compute``: the CLI
+   pins fusion (T, F, F), the args.json JAX ``auto`` writes there; 1
    epoch whose counts, set to 0 just before and read just after, are per
    train batch 2 bf16 training forwards and 2 bf16 dz-only walks, per eval
    batch 2 bf16 inference forwards, every other 0 (never the full rung's
@@ -220,7 +226,9 @@ failure:
    ``keep`` (2 bf16 inference forwards a batch) and ``xla`` (NLLs within
    1e-2 relative); ``cli.cl_vrnn_sample`` (one bf16 generation launch);
    the bf16 generation kernel on that checkpoint's weights against its
-   plain version (probabilities within max 2e-2, mean 2e-3, as phase 3);
+   plain version (probabilities within max 2e-2, mean 2e-3, as phase 3),
+   then timed at 64 songs x (32 + 256) steps beside its bound (its slices,
+   70 MB in all, stream from L2 and HBM);
 28. the other rungs end to end at the jsball_vrnn4 width (B=200, T=16,
    H=256, ``--two_cell off``): 1 epoch each of fusion (T, T, F), (F, T, F)
    and (F, F, F) in f32 and (F, F, F) and (T, T, F) in bf16, set through
@@ -239,7 +247,9 @@ failure:
    without use_z_prior: the quantized operands equal on the card and the
    host, probabilities with u=1 within 1e-5, free-running frames equal in
    >= 99.9% of entries; the int8 kernel, its plain version and the bf16
-   kernel on the same weights timed, beside the int8 bound;
+   kernel on the same weights timed, beside the int8 bound; at H=1,536 the
+   bf16 kernel's CUDA-event and device time beside its bound at the bf16
+   rate (its slices stream from L2);
 30. the int8 paths: ``cli.cl_vrnn_train`` writes the bf16 H=1,536 cl_vrnn
    (1 epoch, ``--lstm_backend pallas``, ``bf16_compute`` as JAX ``auto``
    sets it; args.json pallas, bf16, fusion (T, T, T), ``two_cell`` off; the
@@ -360,17 +370,18 @@ def roofline_ms(fmas: float, nbytes: float, peak: float = PEAK_F32_FLOPS) -> tup
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def bound_ms(cfg, B, Tseed, nsteps, weight_bytes) -> tuple[float, str]:
-    """Least time for one call: the larger of its f32 FMAs over the card's f32
-    rate and its bytes (each input read once, the output written once) over
-    HBM bandwidth. The w folds are computed outside the kernel."""
+def bound_ms(cfg, B, Tseed, nsteps, weight_bytes, peak=PEAK_F32_FLOPS) -> tuple[float, str]:
+    """Least time for one call: the larger of its FMAs over the card's rate
+    for their type (f32 by default; ``PEAK_BF16_FLOPS`` for the bf16 mode)
+    and its bytes (each input read once, the output written once) over HBM
+    bandwidth. The w folds are computed outside the kernel."""
     D, H, L = cfg.original_dim, cfg.intermediate_dim, cfg.latent_dim
     total, n_xp = Tseed + nsteps, (D if cfg.use_x_prev else 0)
     per_song_step = 2 * ((D + H) * 4 * H + H * 2 * L + (H + L + n_xp) * 4 * H + H * D)
     flops = B * total * per_song_step
     stream_bytes = 4 * (B * Tseed * D + B * total * (L + D) + 2 * B * 4 * H
                         + 2 * L + D + B * nsteps * D)
-    t_ops = flops / PEAK_F32_FLOPS
+    t_ops = flops / peak
     t_bytes = (stream_bytes + weight_bytes) / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -401,6 +412,12 @@ TC_KERNELS = ("lstm_tc_proj_kernel", "lstm_tc_step_kernel", "lstm_tc_bwd_step_ke
 TWO_CELL_TC = ("two_cell_walk_tc_kernel", "two_cell_dx_tc_kernel", "two_cell_dw_tc_kernel")
 TWO_CELL_F32 = ("two_cell_walk_f32_kernel", "two_cell_dx_f32_kernel", "two_cell_handoff_kernel",
                 "two_cell_dw_narrow_kernel", "wgrad_kernel")
+# the two-cell forward's kernels (csrc/two_cell.cu): the walk steps, bf16 on
+# the tensor cores, f32 on FFMA only (and the layouts, no products); the f32 /
+# bf16 generation kernel's two instances (mangled template arguments)
+TWO_CELL_FWD_TC = ("two_cell_step_tc_kernel",)
+TWO_CELL_FWD_F32 = ("two_cell_step_f32_kernel", "two_cell_layout_kernel")
+GEN_BF16, GEN_F32 = ("generate_kernelI13__nv_bfloat16",), ("generate_kernelIf",)
 # the bf16 dense-stack backward's product kernels (csrc/vae_dense_tc.cu), on
 # the tensor cores; the f32 LSTM full backward's (csrc/lstm_bwd_f32.cu), FFMA
 VAE_TC = ("vae_tc_product_kernel", "vae_tc_dw_kernel")
@@ -421,9 +438,10 @@ def phase_tensor_cores():
     """``cuobjdump -sass`` of the built ``csrc/lstm_seq_tc.cu`` library: every
     instance of each product kernel holds tensor-core (HMMA or HGMMA)
     instructions; likewise the bf16 product kernels of
-    ``csrc/two_cell_tc.cu``, whose f32 kernels hold none; the int8
-    generation kernel of ``csrc/generate_cl_vrnn.cu`` holds int8 tensor-core
-    (IMMA) instructions and no ``__dp4a`` (IDP)."""
+    ``csrc/two_cell_tc.cu``, of the two-cell forward (``csrc/two_cell.cu``)
+    and the bf16 instance of the generation kernel, whose f32 kernels hold
+    none; the int8 generation kernel of ``csrc/generate_cl_vrnn.cu`` holds
+    int8 tensor-core (IMMA) instructions and no ``__dp4a`` (IDP)."""
     from classifying_vae_lstm_tpu_torch.ops import _build
     from tools.torch_kernel_resources import sass_counts
 
@@ -441,6 +459,16 @@ def phase_tensor_cores():
             f"a bf16 product kernel of csrc/two_cell_tc.cu runs without tensor cores: {tc16}")
     require(all(v and not any(v) for v in f32.values()),
             f"an f32 kernel of csrc/two_cell_tc.cu holds tensor-core instructions: {f32}")
+    fwd16, fwd32 = (hmma_counts("two_cell", k) for k in (TWO_CELL_FWD_TC, TWO_CELL_FWD_F32))
+    gen16, gen32 = (hmma_counts("generate_cl_vrnn", k) for k in (GEN_BF16, GEN_F32))
+    print(f"tensor-core instructions in csrc/two_cell.cu: bf16 {fwd16}; f32 {fwd32}; in "
+          f"csrc/generate_cl_vrnn.cu's generate_kernel: bf16 {gen16}; f32 {gen32}")
+    require(all(v and all(c > 0 for c in v) for v in (*fwd16.values(), *gen16.values())),
+            f"a bf16 kernel of the two-cell forward or of generation runs without tensor cores: "
+            f"{fwd16} {gen16}")
+    require(all(v and not any(v) for v in (*fwd32.values(), *gen32.values())),
+            f"an f32 kernel of the two-cell forward or of generation holds tensor-core "
+            f"instructions: {fwd32} {gen32}")
     i8 = {n: c for n, c in sass_counts(str(_build._lib_path("generate_cl_vrnn"))).items()
           if "generate_int8_kernel" in n}
     print("generate_int8_kernel (csrc/generate_cl_vrnn.cu): " + "; ".join(
@@ -455,6 +483,64 @@ def phase_tensor_cores():
             f"a product kernel of csrc/vae_dense_tc.cu runs without tensor cores: {vae16}")
     require(all(v and not any(v) for v in lstm32.values()),
             f"a kernel of csrc/lstm_bwd_f32.cu holds tensor-core instructions: {lstm32}")
+
+
+GEN_BUCKETS = ((1, 4, 16, 64), (32, 64, 128, 256))  # serving buckets: songs x steps
+
+
+def generation_grid(label, params, cfg, seeds, eps, u, ws, mode):
+    """The generation kernel's CUDA-event ms per serving bucket (songs x
+    steps), each after a warm-up launch."""
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate as cg
+
+    grid, Tseed = {}, seeds.shape[1]
+    for b in GEN_BUCKETS[0]:
+        for t in GEN_BUCKETS[1]:
+            args = [x[:b, : Tseed + t].contiguous() for x in (seeds, eps, u)]
+            wb = ws[:b].contiguous()
+            grid[f"{b}x{t}"] = round(time_ms(lambda: cg.generate_cl_vrnn_batch_cuda(
+                params, cfg, args[0], t, args[1], args[2], wb, mode=mode), reps=5), 3)
+    print(f"{label} kernel ms per serving bucket (songs x steps): {json.dumps(grid)}")
+
+
+def generation_line(label, params, cfg, seeds, nsteps, eps, u, ws, mode, reps=3):
+    """The f32 / bf16 generation kernel at one shape: CUDA-event ms a call
+    around the wrapper, the profiler's device ms of ``generate_kernel`` a
+    call (one launch), its own clock of each part of a step
+    (``cuda_generate.phase_ms``), the grid and weight residency, a second
+    call bitwise equal, beside the bound (the mode's rate). Returns (ms,
+    device ms or None, bound ms, bound_by)."""
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate as cg
+
+    B, Tseed, D = seeds.shape
+    H, L = cfg.intermediate_dim, cfg.latent_dim
+    fn = lambda: cg.generate_cl_vrnn_batch_cuda(params, cfg, seeds, nsteps, eps, u, ws,
+                                                return_probs=True, mode=mode)
+    first = fn()
+    same_bits(lambda: (fn(),), (), (first,), ("probabilities",), f"{label} generation")
+    k_ms = time_ms(fn, reps, warm=1)
+    dv = device_ms_per_call(fn, 2, "generate_kernel")
+    w = cg._pack(params, cfg, ws, D, mode)
+    wbytes = sum(w[k].numel() * w[k].element_size()
+                 for k in ("wke_x", "rke", "wz_t", "wkd_x", "wkd_z", "rkd", "wx_t")
+                 if w[k] is not None)
+    peak = PEAK_BF16_FLOPS if mode == "bf16" else PEAK_F32_FLOPS
+    b_ms, b_by = bound_ms(cfg, B, Tseed, nsteps, wbytes, peak)
+    n_sm = torch.cuda.get_device_properties(seeds.device).multi_processor_count
+    nu, blocks = cg.int8_grid(H, n_sm)
+    res = cg.resident_bytes(D, H, L, nu, B, cfg.use_x_prev, mode)
+    split = cg.phase_ms(params, cfg, seeds, nsteps, eps, u, ws, mode)
+    print(f"{label} generation: a call's parts (block 0's clock, ms; a wait is the slowest "
+          "block's lag and the grid barrier) "
+          + "; ".join(f"{n} {v:.3f}" for n, v in split.items()))
+    print(f"{label} generation, {B} x ({Tseed} + {nsteps}), H={H}: kernel {k_ms:.3f} ms a call "
+          f"(CUDA events), device {dv[0] if dv else 'not measured'} ms in generate_kernel "
+          f"(profiler); bound {b_ms:.4f} ms ({b_by}, {mode} rate); {blocks} blocks of {nu} units, "
+          f"weights {'resident, ' + str(res) + ' B a block' if res else 'streamed from L2'}, "
+          f"{cg.gen_smem(nu, B, L, res)} B of shared memory a block")
+    return k_ms, (dv[0] if dv else None), b_ms, b_by
 
 
 def phase_f32(dev):
@@ -473,7 +559,8 @@ def phase_f32(dev):
     seeds = torch.from_numpy(seed_windows(B)).to(dev)
     ws = infer_w_cl_vrnn(params, cfg, seeds)
     rng = np.random.default_rng(SEED)
-    eps = torch.from_numpy(rng.standard_normal((B, total, cfg.latent_dim), dtype=np.float32)).to(dev)
+    eps = torch.from_numpy(rng.standard_normal((B, total, cfg.latent_dim),
+                                               dtype=np.float32)).to(dev)
     u_np = rng.random((B, total, cfg.original_dim), dtype=np.float32)
     # the seed phase's draws are discarded except the last one's, which feeds
     # the first free step; pinning them makes every near-tie visible in the
@@ -500,20 +587,10 @@ def phase_f32(dev):
 
     k_ms = time_ms(lambda: kern(u, False), reps=10, warm=2)
     p_ms = time_ms(lambda: plain(u, False), reps=3, warm=1)
-    w = cg._pack(params, cfg, ws, cfg.original_dim, "f32")
-    wbytes = sum(w[k].numel() * w[k].element_size()
-                 for k in ("wke_x", "rke", "wz_t", "wkd_x", "wkd_z", "rkd", "wx_t"))
-    b_ms, b_by = bound_ms(cfg, B, Tseed, nsteps, wbytes)
+    _, _, b_ms, b_by = generation_line("f32", params, cfg, seeds, nsteps, eps, u, ws, "f32")
     print(f"f32 kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}) "
           f"at B={B} Tseed={Tseed} nsteps={nsteps} H={cfg.intermediate_dim}")
-    grid = {}  # the serving buckets (songs x steps), each after a warm-up launch
-    for b in (1, 4, 16, 64):
-        for t in (32, 64, 128, 256):
-            args = [x[:b, : Tseed + t].contiguous() for x in (seeds, eps, u)]
-            wb = ws[:b].contiguous()
-            grid[f"{b}x{t}"] = round(time_ms(lambda: cg.generate_cl_vrnn_batch_cuda(
-                params, cfg, args[0], t, args[1], args[2], wb), reps=5), 3)
-    print(f"f32 kernel ms per serving bucket (songs x steps): {json.dumps(grid)}")
+    generation_grid("f32", params, cfg, seeds, eps, u, ws, "f32")
     return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -559,6 +636,8 @@ def phase_bf16(dev):
           f"kernel {k_ms:.3f} ms")
     require(torch.isfinite(pk).all().item(), "bf16 kernel probabilities not finite")
     require(mx <= 2e-2 and mean <= 2e-3, f"bf16 probabilities differ: max {mx}, mean {mean}")
+    generation_line("bf16", params, cfg, seeds, nsteps, eps, u1, ws, "bf16")
+    generation_grid("bf16 H=512", params, cfg, seeds, eps, u1, ws, "bf16")
 
 
 def exercise_server(httpd, extra=()):
@@ -716,6 +795,7 @@ def phase_two_cell(dev):
           f"{errs['hd']:.3e}, zargs {errs['zargs']:.3e} (limit 1e-5); residual streams "
           + ", ".join(f"{n} {errs[n]:.3e}" for n in names[2:]))
     require(fwd_err <= 1e-5, f"two-cell forward differs: {errs}")
+    same_bits(tc.two_cell_fwd, ins, outs, names, "two-cell forward")
 
     (xe, xd, eps_t, we, be, rke, wdx, bd, rkd, kz, wz, bz, *_) = ins
     hd, zargs, ze, zd, hpe, cpe, ce, he, hpd, cpd, cd = ref
@@ -757,6 +837,8 @@ def phase_two_cell(dev):
     print(f"two-cell forward kernel {fk_ms:.3f} ms, plain {fp_ms:.3f} ms, bound {fb_ms:.4f} ms "
           f"({fb_by}); backward kernel {bk_ms:.3f} ms, plain {bp_ms:.3f} ms, "
           f"bound {bb_ms:.4f} ms ({bb_by})")
+    print("two-cell forward, device time: "
+          + device_split(lambda: tc.two_cell_fwd(*ins), 10, TWO_CELL_FWD_PARTS))
     print("two-cell backward, device time: "
           + device_split(lambda: tc.two_cell_bwd(*res), 10, TWO_CELL_BWD_PARTS)
           + f"; HMMA per f32 kernel (FFMA only, no TF32): {hmma_counts('two_cell_tc', TWO_CELL_F32)}")
@@ -1173,6 +1255,11 @@ TWO_CELL_BWD_PARTS = {"walk": ("two_cell_walk", "two_cell_handoff"),
                       "of which z hand-off": ("two_cell_handoff",), "dx": ("two_cell_dx",),
                       "weight gradients": ("two_cell_dw", "wgrad_"),
                       "of which dKz, dWz, bias sums": ("two_cell_dw_narrow",)}
+
+
+# the two-cell forward's parts (csrc/two_cell.cu): the operands' layouts,
+# the T + 1 walk steps
+TWO_CELL_FWD_PARTS = {"layouts": ("two_cell_layout",), "walk": ("two_cell_step",)}
 
 
 def same_bits(fn, args, first, names, label):
@@ -2644,6 +2731,7 @@ def phase_two_cell_bf16(dev):
           "their largest entry")
     require(not bad, f"two-cell bf16 forward differs: {bad}")
     fwd_err = max(e for e, _ in errs.values())
+    same_bits(tc.two_cell_fwd, ins, outs, names, "two-cell bf16 forward")
 
     (xe, xd, eps_t, we, be, rke, wdx, bd, rkd, kz, wz, bz, *_) = ins
     hd, zargs, ze, zd, hpe, cpe, ce, he, hpd, cpd, cd = ref
@@ -2687,6 +2775,8 @@ def phase_two_cell_bf16(dev):
     print(f"two-cell bf16 forward kernel {fk_ms:.3f} ms, plain {fp_ms:.3f} ms, bound "
           f"{fb_ms:.4f} ms ({fb_by}, bf16 rate); backward kernel {bk_ms:.3f} ms, "
           f"plain {bp_ms:.3f} ms, bound {bb_ms:.4f} ms ({bb_by}, bf16 rate)")
+    print("two-cell bf16 forward, device time: "
+          + device_split(lambda: tc.two_cell_fwd(*ins), 10, TWO_CELL_FWD_PARTS))
     print("two-cell bf16 backward, device time: "
           + device_split(lambda: tc.two_cell_bwd(*res), 10, TWO_CELL_BWD_PARTS)
           + f"; HMMA per bf16 product kernel: {hmma_counts('two_cell_tc', TWO_CELL_TC)}")
@@ -2862,9 +2952,11 @@ def sample_cl_vrnn_bf16(ckpt, run_name, out_dir, label):
 # ceiling (H >= 1,579) JAX --lstm_backend auto pins the proj-only rung
 H2048_H, H2048_B = 2048, 1024
 WIDE_WALK_H, WIDE_WALK_B = 2560, 256  # the widest H auto pins to that rung
+# --two_cell off is what JAX auto writes at this width; the port's gate
+# alone would take the two-cell route (ops/two_cell.BF16_TWO_CELL_MAX_H)
 H2048_FLAGS = ["--train_file", CORPUS, "--intermediate_dim", str(H2048_H), "--latent_dim",
                str(BF16_L), "--seq_length", str(TRAIN_T), "--batch_size", str(H2048_B),
-               "--use_x_prev", "--patience", "0"]
+               "--use_x_prev", "--patience", "0", "--two_cell", "off"]
 AUTO_H2048 = {"lstm_backend": "pallas", "bf16_compute": True, "fusion": [True, False, False],
               "two_cell": False}
 H2048_EVAL_SAMPLES = 8  # a run length: 46 inference forwards of 1,600 rows at H=2,048
@@ -3114,9 +3206,10 @@ def phase_lstm_rungs(dev):
 def phase_train_h2048(model_dir):
     """The bf16 cl_vrnn at H=2,048 trained by ``cli.cl_vrnn_train`` with
     ``--lstm_backend pallas`` and ``bf16_compute`` (set on the namespace,
-    as JAX ``--lstm_backend auto`` sets it): the CLI pins fusion (T, F, F)
-    and ``two_cell`` off, the args.json JAX auto writes at this width, read
-    back through ``cl_vrnn_config_from_args``; 1 epoch, whose counts (set to
+    as JAX ``--lstm_backend auto`` sets it) and ``--two_cell off``: the CLI
+    pins fusion (T, F, F), and with the flag the args.json is the one JAX
+    auto writes at this width, read back through
+    ``cl_vrnn_config_from_args``; 1 epoch, whose counts (set to
     0 just before, read just after) are per train batch 2 bf16 training
     forwards and 2 bf16 dz-only walks, per eval batch 2 bf16 inference
     forwards, every other 0; then 1 epoch of ``xla`` from the same seed.
@@ -3195,17 +3288,18 @@ def phase_evaluate_h2048(ckpt, out_dir):
     require(math.isfinite(nll_k) and rel <= 1e-2, f"NLLs differ: {nll_k} vs {nll_x}")
     require(not plain_on_cuda, f"plain versions ran on CUDA tensors: {plain_on_cuda}")
     sample_cl_vrnn_bf16(ckpt, "smoke_h2048", out_dir, "bf16 H=2048")
-    generation_against_plain(ckpt, "bf16 H=2048")
+    generation_against_plain(ckpt, "bf16 H=2048", full_shape=True)
     return counts_k["BF16_FWD"]
 
 
-def generation_against_plain(ckpt, label, B=4, nsteps=32):
+def generation_against_plain(ckpt, label, B=4, nsteps=32, full_shape=False):
     """The generation kernel on a bf16 checkpoint's own weights against its
     plain version on the same inputs, as phase 3 holds it at H=512: B songs
     of 32-frame seeds and ``nsteps`` free steps (the sample CLI's), u = 1 so
     that every draw is 0 and no near-tie can flip a frame; probabilities
     within max 2e-2 and mean 2e-3. Its launches come after phase 27's counts
-    were read."""
+    were read. ``full_shape`` also times 64 songs x (32 + 256) steps
+    (``generation_line``)."""
     import numpy as np
     import torch
 
@@ -3237,6 +3331,14 @@ def generation_against_plain(ckpt, label, B=4, nsteps=32):
     require(pk.shape == (B, nsteps, cfg.original_dim) and torch.isfinite(pk).all().item(),
             f"{label}: generation probabilities not finite or misshapen")
     require(mx <= 2e-2 and mean <= 2e-3, f"{label}: generation differs: max {mx}, mean {mean}")
+    if full_shape:  # the largest serving bucket, beside the bound at the bf16 rate
+        B, nsteps = 64, 256
+        seeds = torch.from_numpy(seed_windows(B)).to(dev)
+        eps = torch.from_numpy(rng.standard_normal((B, Tseed + nsteps, cfg.latent_dim),
+                                                   dtype=np.float32)).to(dev)
+        ws = torch.eye(K, device=dev)[torch.arange(B, device=dev) % K]
+        generation_line(f"bf16 ({label})", params, cfg, seeds, nsteps, eps,
+                        torch.ones((B, Tseed + nsteps, cfg.original_dim), device=dev), ws, "bf16")
 
 
 # each run: (label, fusion, bf16, the counts one train batch and one eval batch leave)
@@ -3497,7 +3599,10 @@ def phase_int8_kernels(dev):
             lambda uu: run(cg.generate_cl_vrnn_batch_cuda, uu, False, "bf16"),
             pack, nbytes, macs, other, torch.ones_like(u), u, device_key="generate_int8_kernel",
             kernel_pack=lambda: cg.pack_int8(pack("cuda"), cfg, nu))
-        split = cg.int8_phase_ms(params, cfg, seeds, nsteps, eps, u, ws)
+        if H == INT8_H:  # the bf16 kernel on the same weights, beside its bound
+            generation_line("bf16 (the int8 band's weights)", params, cfg, seeds, nsteps, eps,
+                            torch.ones_like(u), ws, "bf16")
+        split = cg.phase_ms(params, cfg, seeds, nsteps, eps, u, ws, "int8")
         print(f"int8 cl_vrnn H={H}: a call's parts (block 0's clock, ms; a wait is the "
               "slowest block's lag and the grid barrier) "
               + "; ".join(f"{n} {v:.3f}" for n, v in split.items()))

@@ -1,5 +1,6 @@
 // Whole-generation cl_vrnn sampler for Hopper (sm_90a): f32 or bf16 weights
-// (`generate_kernel`), or int8 weights (`generate_int8_kernel`, at the end).
+// (`generate_kernel<WT>`), or int8 weights (`generate_int8_kernel`). Both
+// are one persistent cooperative launch whose blocks own hidden units.
 //
 // Replaces: classifying_vae_lstm_tpu/ops/pallas_generate.py:153 `_make_kernel`
 // (the f32/bf16 body of `generate_cl_vrnn_batch_pallas`). One launch runs the
@@ -8,33 +9,59 @@
 // draw x_t = (u < p), and x_t fed back as the next input. The per-song folds of
 // the w rows and biases (encb, decb) are computed by the caller.
 //
-// What bounds it on this card. At the largest serving bucket (64 songs, 32 seed
-// + 256 free steps, H=256, D=88, L=8) the call is ~27 GFLOP of f32 FMAs and
-// ~17 MB of streams and weights, so operations bound it (~0.41 ms at 67 TFLOP/s
-// f32 without tensor cores; the bytes take ~5 us). But every step depends on
-// the previous one, so the 288 steps run in series.
+// What bounds it on this card. At the largest serving bucket of jsball_vrnn4
+// (64 songs, 32 seed + 256 free steps, H=256, D=88, L=8) the call is ~27
+// GFLOP of f32 FMAs and ~17 MB of streams and weights, so operations bound
+// it (~0.41 ms at 67 TFLOP/s without tensor cores); in bf16 at H=1,536 ~0.4
+// TFLOP, ~0.4 ms at the tensor cores' rate. But every step depends on the
+// one before, and a step is four all-to-all dependencies (encoder, z heads,
+// decoder, frame head): 288 steps of four phases in series.
 //
-// What the design does about it. Songs are independent: one block owns a tile
-// of kSongs songs and runs the WHOLE time loop itself, so nothing is carried
-// between blocks (the TPU grid walked time blocks in order and carried state
-// in VMEM scratch). The carried state (h and c of both cells, the fed-back
-// frame) lives in shared memory, stored [unit][song] so that one float4 load
-// gives four songs' operand. The weights (2.9 MB in f32 at H=256) cannot stay
-// in one SM's 227 KB as they stayed in VMEM, so they are read from global
-// memory each step and stay resident in the 50 MB L2; they are stored
-// [in, 4H] row-major so neighbouring threads read neighbouring columns. Each
-// thread owns hidden units and computes their four gate columns (i, f, c, o)
-// for all songs of the tile in registers, so the gates are applied without a
-// trip through shared memory. Known limit of this simple form: each block
-// streams every weight from L2 once per step, so a step costs about the L2->SM
-// transfer of the weights and the kernel sits far above its bound; splitting
-// the weights across the SMs of a cluster, and wgmma, are later work.
+// What the design does about it (the int8 kernel below is the model):
+// * The columns, not the songs, are spread over the card: each block owns
+//   nu hidden units of both cells, all four gate columns of each, so the
+//   gate epilogue stays in the block, and computes them for every song of
+//   the call (passes of 64 songs, any B). cdiv(H, nu) blocks with nu = 2
+//   cdiv(H, 2 SMs): 128 blocks of 2 units at H=256, of 12 at H=1,536. The
+//   first design gave each block 4 songs and every weight from L2 each step
+//   (16 SMs of 132 busy at 64 songs, one SM for one song).
+// * Weight residency: the wrapper packs each block's slice of each cell
+//   ([x rows | recurrent rows] x its 4 nu columns) contiguously; where both
+//   slices fit in shared memory beside the state (f32 at H=256, 23 KB; bf16
+//   up to H=1,024, 143 KB) the block copies them in once per call, else it
+//   reads them from L2 every step (the bf16 slices at H=1,536, 312 KB; the
+//   whole weights at H=2,048, 70 MB, are more than the 50 MB L2).
+// * bf16 products on the tensor cores, `mma.sync.m16n8k16` bf16 -> f32: the
+//   16 warps take a pass's 16-song tiles and split its k16 chunks, their
+//   sums added in warp order; the slices are packed in the order of the B
+//   fragments, lane (g, t) reading k = 4t .. 4t + 3 of a chunk in one 8-byte
+//   load of h or x, and the packing pairing the same k. f32 products on
+//   FFMA: an item of 4 songs x 1 unit (16 sums) with its K split over up to
+//   32 neighbouring lanes, added by a shuffle butterfly.
+// * A step is four phases with a grid barrier (a counter in global memory,
+//   shared with the int8 kernel) after each: the encoder cell; the z heads
+//   (one block per latent and group of four songs, its threads splitting
+//   k); the decoder cell; the frame head (jobs of 16 songs x 8 pitches, the
+//   warps splitting K, bf16 on the tensor cores). x and h of both cells
+//   (double-buffered) live in global memory and are read through L2; c of
+//   each unit stays in its owning block's shared memory, beside the block's
+//   columns of the decoder's z rows and a pass's z. A grid that cannot be
+//   co-resident fails to launch.
+// * Every sum in a fixed order, no atomics: two calls give the same bits.
+// Known limits: every block reads all of a pass's A rows (x and h of every
+// song) from L2 in each cell phase, and each of a step's four phases pays an
+// L2 round trip or more before its barrier, so a step costs tens of µs on
+// an H100 at any number of songs; cluster multicast of A, fewer phases a
+// step and `wgmma` are the levers.
 //
 // Numerics follow the TPU kernel: hard sigmoid clip(0.2x+0.5, 0, 1) for i, f,
 // o; tanhf for g and c; expf for the z scale and the logistic head; no fast
 // math. In bf16 mode the weights are bf16 and the matmul operands x and h are
 // rounded to bf16 (h is stored rounded, as it is only ever read as an
-// operand), z stays f32, and every product accumulates in f32.
+// operand), the z heads and the frame head take that h, z stays f32 and
+// enters the decoder as L rank-1 f32 terms against the bf16 z rows widened
+// to f32 (never on the tensor cores), and every sum is f32. f32 mode runs on
+// FFMA only.
 //
 // The int8 kernel, `generate_int8_kernel`, replaces
 // classifying_vae_lstm_tpu/ops/pallas_generate.py:211 `_make_kernel_int8`
@@ -113,41 +140,7 @@
 
 namespace {
 
-constexpr int kSongs = 4;                   // songs per block (multiple of 4: float4 loads)
-constexpr int kThreads = 512;               // threads per block
-constexpr int kSlices = 2;                  // the gate matmuls' K is split between two groups
-constexpr int kUnits = kThreads / kSlices;  // hidden units per pass of the gate stages
-constexpr int kWarps = kThreads / 32;
-
-struct Args {
-  const float* seed;  // [B, Tseed, D]
-  const float* eps;   // [B, total, L]
-  const float* u;     // [B, total, D]
-  const void* wke_x;  // [D, 4H]  encoder x rows
-  const void* rke;    // [H, 4H]  encoder recurrent kernel
-  const float* encb;  // [B, 4H]  w rows . w + bias, per song
-  const void* wz_t;   // [2L, H]  Z_mean | Z_log_var kernels, transposed
-  const float* bz;    // [2L]
-  const void* wkd_x;  // [D, 4H]  decoder x_prev rows (unused without use_x_prev)
-  const void* wkd_z;  // [L, 4H]  decoder z rows
-  const void* rkd;    // [H, 4H]  decoder recurrent kernel
-  const float* decb;  // [B, 4H]
-  const void* wx_t;   // [D, H]   frame head, transposed
-  const float* bx;    // [D]
-  float* out;         // [B, total - Tseed, D]
-  int B, Tseed, total, D, H, L, use_x_prev, return_probs;
-};
-
-// shared memory: the carried state ([rows][kSongs] each: x_in, h_e x2, c_e,
-// h_d x2, c_d, z) and the gate stages' partial sums ([4][kSongs][kUnits])
-__host__ __device__ constexpr size_t smem_floats(int D, int H, int L) {
-  return (size_t)(D + 6 * H + L) * kSongs + (size_t)4 * kSongs * kUnits;
-}
-
-__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-
-// the value a matmul operand takes in the weight type's mode
+// the value a product's operand takes in the weight type's mode
 template <typename WT>
 __device__ __forceinline__ float operand(float x);
 template <>
@@ -155,204 +148,6 @@ __device__ __forceinline__ float operand<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ float operand<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ float hard_sigmoid(float x) {
-  return fminf(fmaxf(0.2f * x + 0.5f, 0.f), 1.f);
-}
-
-// acc[g][b] += sum_k a[k][b] * w[k][u + g*H] over this slice's half of the K
-// rows, for the four gate columns of unit u. a is a [K][kSongs] operand in
-// shared memory, w a [K, 4H] weight in global memory.
-template <typename WT>
-__device__ __forceinline__ void mac_gates(float (&acc)[4][kSongs], const float* a,
-                                          const WT* __restrict__ w, int K, int u, int H,
-                                          int slice) {
-  const int k0 = slice ? K / 2 : 0, k1 = slice ? K : K / 2;
-  const WT* wp = w + (size_t)k0 * 4 * H + u;
-#pragma unroll 8
-  for (int k = k0; k < k1; ++k, wp += 4 * H) {
-    const float w0 = ld(wp), w1 = ld(wp + H), w2 = ld(wp + 2 * H), w3 = ld(wp + 3 * H);
-    const float4* ap = reinterpret_cast<const float4*>(a + k * kSongs);
-#pragma unroll
-    for (int q = 0; q < kSongs / 4; ++q) {
-      const float4 v = ap[q];
-      const float av[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int b = 4 * q + r;
-        acc[0][b] = fmaf(av[r], w0, acc[0][b]);
-        acc[1][b] = fmaf(av[r], w1, acc[1][b]);
-        acc[2][b] = fmaf(av[r], w2, acc[2][b]);
-        acc[3][b] = fmaf(av[r], w3, acc[3][b]);
-      }
-    }
-  }
-}
-
-// Returns, in lane b < kSongs, sum_k a[k][b] * wrow[k]: the warp's lanes split
-// k and a shuffle butterfly adds their partial sums.
-template <typename WT>
-__device__ __forceinline__ float warp_dot(const float* a, const WT* __restrict__ wrow, int K,
-                                          int lane) {
-  float s[kSongs];
-#pragma unroll
-  for (int b = 0; b < kSongs; ++b) s[b] = 0.f;
-#pragma unroll 4
-  for (int k = lane; k < K; k += 32) {
-    const float w = ld(wrow + k);
-    const float4* ap = reinterpret_cast<const float4*>(a + k * kSongs);
-#pragma unroll
-    for (int q = 0; q < kSongs / 4; ++q) {
-      const float4 v = ap[q];
-      s[4 * q + 0] = fmaf(v.x, w, s[4 * q + 0]);
-      s[4 * q + 1] = fmaf(v.y, w, s[4 * q + 1]);
-      s[4 * q + 2] = fmaf(v.z, w, s[4 * q + 2]);
-      s[4 * q + 3] = fmaf(v.w, w, s[4 * q + 3]);
-    }
-  }
-  float mine = 0.f;
-#pragma unroll
-  for (int b = 0; b < kSongs; ++b) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s[b] += __shfl_xor_sync(0xffffffffu, s[b], off);
-    if (lane == b) mine = s[b];
-  }
-  return mine;
-}
-
-// One LSTM cell for all units: z = bias + sum of the operand products, then
-// the Keras-2.0 gates. Each unit's K is split between the two slices of the
-// block; slice 1 hands its partial sums to slice 0 through shared memory.
-template <typename WT>
-__device__ __forceinline__ void lstm_cell(const Args& a, const float* bias, int s0,
-                                          const float* x0, const WT* w0, int k0,
-                                          const float* x1, const WT* w1, int k1,
-                                          const float* x2, const WT* w2, int k2,
-                                          float* c, float* h_out, float* part) {
-  const int H = a.H;
-  const int slice = threadIdx.x / kUnits, lu = threadIdx.x % kUnits;
-  for (int u0 = 0; u0 < H; u0 += kUnits) {  // uniform trip count: syncs inside
-    const int u = u0 + lu;
-    float acc[4][kSongs];
-#pragma unroll
-    for (int b = 0; b < kSongs; ++b) {
-      const int s = s0 + b;
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-        acc[g][b] = (slice == 0 && u < H && s < a.B) ? bias[(size_t)s * 4 * H + g * H + u] : 0.f;
-    }
-    if (u < H) {
-      mac_gates(acc, x0, w0, k0, u, H, slice);
-      if (k1) mac_gates(acc, x1, w1, k1, u, H, slice);
-      if (k2) mac_gates(acc, x2, w2, k2, u, H, slice);
-      if (slice == 1) {
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-#pragma unroll
-          for (int b = 0; b < kSongs; ++b) part[(g * kSongs + b) * kUnits + lu] = acc[g][b];
-      }
-    }
-    __syncthreads();
-    if (slice == 0 && u < H) {
-#pragma unroll
-      for (int b = 0; b < kSongs; ++b) {
-        const float i = hard_sigmoid(acc[0][b] + part[(0 * kSongs + b) * kUnits + lu]);
-        const float f = hard_sigmoid(acc[1][b] + part[(1 * kSongs + b) * kUnits + lu]);
-        const float g = tanhf(acc[2][b] + part[(2 * kSongs + b) * kUnits + lu]);
-        const float o = hard_sigmoid(acc[3][b] + part[(3 * kSongs + b) * kUnits + lu]);
-        const float cn = f * c[u * kSongs + b] + i * g;
-        c[u * kSongs + b] = cn;
-        h_out[u * kSongs + b] = operand<WT>(o * tanhf(cn));  // stored as the operand
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <typename WT>
-__global__ void __launch_bounds__(kThreads) generate_kernel(const Args a) {
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  const int D = a.D, H = a.H, L = a.L;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  // h is double-buffered: step t reads h[t-1] while it writes h[t]
-  float* xin = sm;
-  float* he_cur = xin + D * kSongs;
-  float* he_nxt = he_cur + H * kSongs;
-  float* ce = he_nxt + H * kSongs;
-  float* hd_cur = ce + H * kSongs;
-  float* hd_nxt = hd_cur + H * kSongs;
-  float* cd = hd_nxt + H * kSongs;
-  float* zs = cd + H * kSongs;
-  float* part = zs + L * kSongs;
-  const int n_floats = (D + 6 * H + L) * kSongs;
-  for (int i = threadIdx.x; i < n_floats; i += kThreads) sm[i] = 0.f;
-
-  const WT* wke_x = static_cast<const WT*>(a.wke_x);
-  const WT* rke = static_cast<const WT*>(a.rke);
-  const WT* wz_t = static_cast<const WT*>(a.wz_t);
-  const WT* wkd_x = static_cast<const WT*>(a.wkd_x);
-  const WT* wkd_z = static_cast<const WT*>(a.wkd_z);
-  const WT* rkd = static_cast<const WT*>(a.rkd);
-  const WT* wx_t = static_cast<const WT*>(a.wx_t);
-  const int s0 = blockIdx.x * kSongs;  // songs s0 .. s0+kSongs-1; rows >= B are masked
-  const int nsteps = a.total - a.Tseed;
-  __syncthreads();
-
-  for (int t = 0; t < a.total; ++t) {
-    // 1. x_in = seed[t] while teacher-forcing, else the fed-back frame already in xin
-    if (t < a.Tseed) {
-      for (int i = threadIdx.x; i < D * kSongs; i += kThreads) {
-        const int b = i / D, d = i - b * D, s = s0 + b;
-        xin[d * kSongs + b] = s < a.B ? a.seed[((size_t)s * a.Tseed + t) * D + d] : 0.f;
-      }
-      __syncthreads();
-    }
-    // 2. encoder cell: z_e = encb + x_in @ Wke_x + h_e @ Rke
-    lstm_cell(a, a.encb, s0, xin, wke_x, D, he_cur, rke, H, nullptr, rke, 0, ce, he_nxt, part);
-    // 3. z heads and the reparameterized draw, one warp per latent
-    for (int l = warp; l < L; l += kWarps) {
-      const float zm = warp_dot(he_nxt, wz_t + (size_t)l * H, H, lane);
-      const float zv = warp_dot(he_nxt, wz_t + (size_t)(L + l) * H, H, lane);
-      const int s = s0 + lane;
-      if (lane < kSongs) {
-        const float e = s < a.B ? a.eps[((size_t)s * a.total + t) * L + l] : 0.f;
-        zs[l * kSongs + lane] = (zm + a.bz[l]) + expf((zv + a.bz[L + l]) / 2.f) * e;
-      }
-    }
-    __syncthreads();
-    // 4. decoder cell: z_d = decb + h_d @ Rkd + z @ Wkd_z (+ x_in @ Wkd_x)
-    lstm_cell(a, a.decb, s0, hd_cur, rkd, H, zs, wkd_z, L, xin, wkd_x,
-              a.use_x_prev ? D : 0, cd, hd_nxt, part);
-    // 5. frame head, Bernoulli draw, feedback, output; one warp per pitch
-    for (int d = warp; d < D; d += kWarps) {
-      const float logit = warp_dot(hd_nxt, wx_t + (size_t)d * H, H, lane) + a.bx[d];
-      const int s = s0 + lane;
-      if (lane < kSongs) {
-        const float xm = 1.f / (1.f + expf(-logit));
-        const float uu = s < a.B ? a.u[((size_t)s * a.total + t) * D + d] : 1.f;
-        const float xt = uu < xm ? 1.f : 0.f;
-        xin[d * kSongs + lane] = xt;
-        if (t >= a.Tseed && s < a.B)
-          a.out[((size_t)s * nsteps + (t - a.Tseed)) * D + d] = a.return_probs ? xm : xt;
-      }
-    }
-    __syncthreads();
-    float* tmp = he_cur; he_cur = he_nxt; he_nxt = tmp;
-    tmp = hd_cur; hd_cur = hd_nxt; hd_nxt = tmp;
-  }
-}
-
-template <typename WT>
-int launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_floats(a.D, a.H, a.L) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      generate_kernel<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.B + kSongs - 1) / kSongs);
-  generate_kernel<WT><<<grid, kThreads, smem, stream>>>(a);
-  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------- the int8 kernel
@@ -899,24 +694,643 @@ int launch_int8(const Int8Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+// ------------------------------------------------------------- the f32 / bf16 kernel
 
-// Bytes of dynamic shared memory one block needs (the wrapper checks the limit).
-extern "C" long long cvl_generate_cl_vrnn_smem_bytes(int D, int H, int L) {
-  return (long long)(smem_floats(D, H, L) * sizeof(float));
+constexpr int kGThreads = 512;               // 16 warps a block
+constexpr int kGWarps = kGThreads / 32;
+constexpr int kGPass = 64;                   // songs of one pass of a cell's products
+constexpr int kGMaxNT = 10;                  // n8 tiles a block (20 hidden units)
+constexpr int kGCPS = 8;                     // chunks a ring stage: 32 bytes of a row each
+constexpr int kGRing = 4;                    // ring stages
+constexpr int kGAStage = kGCPS * kGPass * 32;  // A bytes a stage
+
+using bf16 = __nv_bfloat16;
+
+template <typename WT>
+struct GenArgs {
+  const float* seed;   // [B, Tseed, D]
+  const float* eps;    // [B, total, L]
+  const float* u;      // [B, total, D]
+  const WT* enc_w;     // [G] slices of [Kx + Kh rows] x [4 nu]: Wke_x, then Rke (`pack_slices`)
+  const WT* dec_w;     // [G] of [Kxd + Kh] x [4 nu]: Wkd_x (Kxd = 0 without use_x_prev), Rkd
+  const WT* head_w;    // bf16: [NTx][Kh / 16][32][4] fragments; f32: [8 NTx][Kh] (`pack_head`)
+  const float* encb;   // [B, 4H]  w rows . w + bias, per song
+  const WT* wz_t;      // [2L, H]  Z_mean | Z_log_var kernels, transposed
+  const float* bz;     // [2L]
+  const float* wkd_z;  // [L, 4H]  decoder z rows, f32 (bf16-valued in the bf16 mode)
+  const float* decb;   // [B, 4H]
+  const float* bx;     // [D]
+  float* out;          // [B, total - Tseed, D]
+  // the state shared between blocks, in global memory, zeroed by the caller
+  WT* x;               // [Bp][Kx]  the step's input
+  WT* he;              // [2][Bp][Kh]  h_e as an operand, double-buffered
+  WT* hd;              // [2][Bp][Kh]  h_d as an operand, double-buffered
+  float* zs;           // [Bp][L]  the step's z
+  unsigned* bar;       // arrivals at the grid barrier
+  unsigned long long* clock;  // [kLaps] or null: block 0's ns per part of a step (PhaseClock)
+  int B, Tseed, total, D, H, L, use_x_prev, return_probs;
+  int nu;              // hidden units a block owns (even, at most 2 kGMaxNT)
+  int resident;        // the block's weight slices are copied into shared memory
+};
+
+// Rows of a cell's slice: x rows padded to Kx = round16(D) (none for the
+// decoder without use_x_prev), then the recurrent rows padded to Kh =
+// round16(H), times the block's 4 nu columns (local column 4j + g: unit u0
+// + j, gate g); bf16 in the order of the B fragments, f32 column-major
+// ([4 nu][K], `pack_slices`)
+__host__ __device__ inline size_t slice_elems(int D, int H, int nu, bool x_rows) {
+  return (size_t)((x_rows ? round16(D) : 0) + round16(H)) * 4 * nu;
+}
+__host__ __device__ inline size_t slices_bytes(int D, int H, int nu, int use_x_prev, int wbytes) {
+  const size_t n = slice_elems(D, H, nu, true) + slice_elems(D, H, nu, use_x_prev != 0);
+  return (n * wbytes + 15) / 16 * 16;
 }
 
-// Launches the sampler on `stream`; returns the cudaError_t of the launch.
+// The cp.async ring of the cell products: kGRing stages of kGCPS chunks of
+// the pass's A rows (x, then h; a chunk is 32 bytes of a row: 16 bf16 k or
+// 8 f32 k) and, where the slices stream, of the slice (NT x 256 bytes a
+// chunk). After a pass it holds the warps' partial sums ([16 warps][16
+// rows][8 NT] f32), and in the z-head and frame-head phases their warp sums.
+__host__ __device__ inline size_t gen_ring_bytes(int nu, bool resident) {
+  const size_t ring = (size_t)kGRing * (kGAStage + (resident ? 0 : kGCPS * (nu / 2) * 256));
+  const size_t partial = (size_t)8192 * (nu / 2);
+  return ring > partial ? ring : partial;
+}
+
+// dynamic shared memory of a block: the resident slices (or none), the
+// ring, c of both cells ([nu][Bp] each), the block's columns of the
+// decoder's z rows ([L][4 nu]) and a pass's z ([64][L])
+__host__ __device__ inline size_t gen_smem_bytes(int nu, int Bp, int L, size_t resident) {
+  return resident + gen_ring_bytes(nu, resident > 0) +
+         ((size_t)2 * nu * Bp + (size_t)4 * nu * L + (size_t)kGPass * L) * 4;
+}
+
+__device__ __forceinline__ float hard_sigmoid_g(float x) {
+  return fminf(fmaxf(0.2f * x + 0.5f, 0.f), 1.f);
+}
+__device__ __forceinline__ float ldf(const float* p) { return *p; }
+__device__ __forceinline__ float ldf(const bf16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void stf(float* p, float v) { *p = v; }
+__device__ __forceinline__ void stf(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// The bias of (song s, unit u0 + j), its four gate columns of the per-song
+// fold [B, 4H] (loaded ahead of the products, whose time covers the load)
+__device__ __forceinline__ void load_bias(const float* bias, int s, int j, int B, int H, int nu,
+                                          float (&bb)[4]) {
+  const int u = blockIdx.x * nu + j;
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+    bb[g] = s < B && u < H ? __ldg(bias + (size_t)s * 4 * H + g * H + u) : 0.f;
+}
+
+// The epilogue of one (song s, unit u0 + j), its four gate sums and bias
+// given: z = bias + sums (+ the decoder's z rows, L rank-1 f32 terms on the
+// pass's z), the Keras-2.0 gates, c in shared memory ([unit][song]) and h,
+// as the products' operand, into `hout` [Bp][Kh]
+template <typename WT>
+__device__ __forceinline__ void cell_epilogue(const GenArgs<WT>& a, bool decoder, int s, int r,
+                                              int j, const float (&sum)[4], const float (&bb)[4],
+                                              float* c, const float* wzd, const float* zst,
+                                              WT* hout) {
+  const int H = a.H, u = blockIdx.x * a.nu + j, L = a.L;
+  if (s >= a.B || u >= H) return;
+  float z[4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) z[g] = bb[g] + sum[g];
+  if (decoder)
+    for (int l = 0; l < L; ++l) {
+      const float zl = zst[r * L + l];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) z[g] = fmaf(zl, wzd[l * 4 * a.nu + 4 * j + g], z[g]);
+    }
+  const float ig = hard_sigmoid_g(z[0]), fg = hard_sigmoid_g(z[1]);
+  const float gg = tanhf(z[2]), og = hard_sigmoid_g(z[3]);
+  float* cs = c + (size_t)j * round16(a.B) + s;
+  const float cn = fg * *cs + ig * gg;
+  *cs = cn;
+  stf(hout + (size_t)s * round16(H) + u, operand<WT>(og * tanhf(cn)));
+}
+
+// Stage s of the ring: the pass's A chunks s kGCPS .. (rows m0 .. m0 +
+// rows - 1; x chunks first, then h), two 16-byte pieces a row, and, where
+// the slices stream, the slice's chunks, dealt to the threads at fixed
+// strides. Layouts, each read without bank conflicts: bf16 A [chunk][row]
+// (a fragment load reads 8 rows' 32 bytes) and the slice's chunks as they
+// lie in global memory, [chunk][NT][32 lanes][8 bytes]; f32 A [row][chunk]
+// (a lane's 4-k group follows its neighbour's) and the slice [4 nu columns]
+// [64 k] from its column-major global layout [4 nu][K].
+template <typename WT>
+__device__ __forceinline__ void ring_load(unsigned char* stage, const unsigned char* w,
+                                          bool streamed, const unsigned char* x, int xrow,
+                                          const unsigned char* h, int hrow, int kcx, int nch,
+                                          int m0, int rows, int NT, int K, int s) {
+  constexpr bool kF32 = sizeof(WT) == 4;
+  static_assert(kGCPS * 2 * kGPass % kGThreads == 0, "whole rounds of A pieces");
+#pragma unroll
+  for (int e = 0; e < kGCPS * 2 * kGPass / kGThreads; ++e) {
+    const int i = threadIdx.x + e * kGThreads, q = i / (2 * kGPass), r = i % (2 * kGPass);
+    const int ch = s * kGCPS + q, row = r / 2, half = r % 2;
+    if (ch >= nch || row >= rows) continue;
+    const unsigned char* src =
+        ch < kcx ? x + (size_t)(m0 + row) * xrow + ch * 32 + half * 16
+                 : h + (size_t)(m0 + row) * hrow + (ch - kcx) * 32 + half * 16;
+    const int at = kF32 ? (row * kGCPS + q) * 32 : (q * kGPass + row) * 32;
+    cvl_tc::cp_async16(stage + at + half * 16, src, true);
+  }
+  if (!streamed) return;
+  unsigned char* Bw = stage + kGAStage;
+  if (kF32) {  // 8 NT columns x 16 pieces of 4 k
+    for (int i = threadIdx.x; i < 8 * NT * 16; i += kGThreads) {
+      const int c = i / 16, k = s * kGCPS * 8 + (i % 16) * 4;
+      if (k < K) cvl_tc::cp_async16(Bw + i * 16, w + ((size_t)c * K + k) * 4, true);
+    }
+    return;
+  }
+  const int pieces = 16 * NT;  // a chunk's slice: NT x 256 bytes
+  const unsigned char* src = w + (size_t)s * kGCPS * pieces * 16;
+  for (int i = threadIdx.x; i < kGCPS * pieces; i += kGThreads)
+    if (s * kGCPS + i / pieces < nch) cvl_tc::cp_async16(Bw + i * 16, src + (size_t)i * 16, true);
+}
+
+// A cell's products for song rows m0 .. m0 + rows - 1 (a pass) and the
+// block's 8 NT columns: [x | h] times the slice, its chunks streamed through
+// the ring with the A chunks (`w` in global memory) or read from the
+// resident copy (`w` in shared memory). A chunk is 32 bytes of each row.
+// bf16, on the tensor cores (`mma.sync.m16n8k16` bf16 -> f32): warp (wm,
+// kq) takes m-tile wm, all NT n-tiles and the chunks kq, kq + nks, ... of
+// each stage; lane (g, t) loads k = 4t .. 4t + 3 of rows g and g + 8 (8
+// bytes each) as its A fragments, and the slice pairs the same k in its B
+// fragments (`pack_slices`: any pairing of k gives the same products); the
+// nks warps of an m-tile stage their sums [nks][rows][8 NT] in the ring for
+// the epilogue to add in warp order. f32, on FFMA: an item is four songs x
+// one unit (16 sums), its 4-k groups (two a chunk) dealt to S neighbouring
+// lanes, which a shuffle butterfly adds; `acc` holds a lane's 16 sums.
+template <typename WT>
+__device__ __forceinline__ void gen_products(const WT* w, bool streamed, int kcx, int kch,
+                                             const WT* x, int Kx, const WT* h, int Kh, int m0,
+                                             int rows, int NT, int nu, int S,
+                                             unsigned char* ring, float (&acc)[kGMaxNT][4]) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int nch = kcx + kch, nst = cdiv(nch, kGCPS), K = nch * 32 / (int)sizeof(WT);
+  const int sb = kGAStage + (streamed ? kGCPS * NT * 256 : 0);
+  const auto* wb = reinterpret_cast<const unsigned char*>(w);
+  const auto* xb = reinterpret_cast<const unsigned char*>(x);
+  const auto* hb = reinterpret_cast<const unsigned char*>(h);
+  const int xrow = Kx * (int)sizeof(WT), hrow = Kh * (int)sizeof(WT);
+#pragma unroll
+  for (int n = 0; n < kGMaxNT; ++n)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[n][q] = 0.f;
+  // bf16: warp (wm, kq); f32: item (quad qi, unit j) and lane ks
+  const int mt = rows / 16, nks = kGWarps / mt, wm = warp % mt, kq = warp / mt;
+  const int item = tid / S, ks = tid % S, qi = item / nu, j = item - qi * nu;
+  const bool active = sizeof(WT) == 2 ? kq < nks : item < rows / 4 * nu;
+#pragma unroll
+  for (int s = 0; s < kGRing - 1; ++s) {
+    if (s < nst)
+      ring_load<WT>(ring + s * sb, wb, streamed, xb, xrow, hb, hrow, kcx, nch, m0, rows, NT, K, s);
+    cvl_tc::cp_async_commit();
+  }
+  for (int s = 0; s < nst; ++s) {
+    cvl_tc::cp_async_wait<kGRing - 2>();
+    __syncthreads();
+    if (s + kGRing - 1 < nst)
+      ring_load<WT>(ring + ((s + kGRing - 1) % kGRing) * sb, wb, streamed, xb, xrow, hb, hrow,
+                    kcx, nch, m0, rows, NT, K, s + kGRing - 1);
+    cvl_tc::cp_async_commit();
+    if (!active) continue;
+    const unsigned char* A = ring + (s % kGRing) * sb;
+    const unsigned char* Bw = A + kGAStage;
+    if constexpr (sizeof(WT) == 2) {
+      for (int q = kq; q < kGCPS; q += nks) {
+        const int ch = s * kGCPS + q;
+        if (ch >= nch) break;
+        const unsigned char* ar = A + (q * kGPass + wm * 16 + g) * 32 + t * 8;
+        const uint2 lo = *reinterpret_cast<const uint2*>(ar);
+        const uint2 hi = *reinterpret_cast<const uint2*>(ar + 8 * 32);
+        const unsigned af[4] = {lo.x, hi.x, lo.y, hi.y};
+        const unsigned char* br =
+            (streamed ? Bw + q * NT * 256 : wb + (size_t)ch * NT * 256) + lane * 8;
+#pragma unroll
+        for (int n = 0; n < kGMaxNT; ++n) {
+          if (n >= NT) break;
+          const uint2 b = *reinterpret_cast<const uint2*>(br + n * 256);
+          cvl_tc::mma_bf16(acc[n], af, b.x, b.y);
+        }
+      }
+    } else {
+      // A [row][64 k] of the stage; the slice column-major: resident [4 nu][K],
+      // streamed [4 nu][64 k]; a lane's 4-k group g4 of each
+      const float* Af = reinterpret_cast<const float*>(A);
+      const float* Wf = streamed ? reinterpret_cast<const float*>(Bw)
+                                 : reinterpret_cast<const float*>(wb) + s * kGCPS * 8;
+      const int wld = streamed ? kGCPS * 8 : K;
+      for (int g4 = ks; g4 < 2 * kGCPS; g4 += S) {
+        if (s * kGCPS + g4 / 2 >= nch) break;
+        float4 av[4], wv[4];
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          av[b] = *reinterpret_cast<const float4*>(Af + (4 * qi + b) * kGCPS * 8 + 4 * g4);
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          wv[g] = *reinterpret_cast<const float4*>(Wf + (size_t)(4 * j + g) * wld + 4 * g4);
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const float x4[4] = {av[b].x, av[b].y, av[b].z, av[b].w};
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            const float w4[4] = {wv[g].x, wv[g].y, wv[g].z, wv[g].w};
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) acc[b][g] = fmaf(x4[kk], w4[kk], acc[b][g]);
+          }
+        }
+      }
+    }
+  }
+  cvl_tc::cp_async_wait<0>();
+  __syncthreads();  // the ring is free
+}
+
+// One LSTM cell for the block's units and every song, in passes of kGPass
+// songs: the products (`gen_products`), then the epilogue of each (song,
+// unit): bf16, one thread per (song, unit) adds the warps' partial sums in
+// order; f32, after the butterfly, lane b % S of each item song b's. A
+// operands (x, h) come from L2 through the ring (`cp.async.cg`: other
+// blocks rewrite them every step); the slice from shared memory where
+// resident, else through the ring.
+template <typename WT>
+__device__ __forceinline__ void gen_cell(const GenArgs<WT>& a, bool decoder, const WT* w,
+                                         const float* bias, const WT* hcur, WT* hnxt, float* c,
+                                         unsigned char* ring, const float* wzd, float* zst,
+                                         PhaseClock* clk, int lap) {
+  const int nu = a.nu, NT = nu / 2, Bp = round16(a.B), L = a.L;
+  const int Kx = round16(a.D), Kh = round16(a.H), kx = (decoder && !a.use_x_prev) ? 0 : Kx;
+  const int kcx = kx * (int)sizeof(WT) / 32, kch = Kh * (int)sizeof(WT) / 32;
+  const bool streamed = !a.resident;
+  for (int m0 = 0; m0 < Bp; m0 += kGPass) {
+    const int rows = min(kGPass, Bp - m0), items = rows / 4 * nu;
+    if (decoder)  // the pass's z, read once; the ring's barriers publish it
+      for (int i = threadIdx.x; i < rows * L; i += kGThreads)
+        zst[i] = m0 + i / L < a.B ? __ldcg(a.zs + (size_t)m0 * L + i) : 0.f;
+    int S = 1;  // f32: lanes an item's K is dealt to
+    while (S < 16 && 2 * S * items <= kGThreads) S *= 2;
+    float acc[kGMaxNT][4];
+    if constexpr (sizeof(WT) == 2) {
+      // a thread's (song, unit) items of the epilogue: their biases first
+      constexpr int kItems = (kGPass * 2 * kGMaxNT + kGThreads - 1) / kGThreads;
+      float bb[kItems][4];
+#pragma unroll
+      for (int q = 0; q < kItems; ++q) {
+        const int i = threadIdx.x + q * kGThreads, r = i / nu;
+        load_bias(bias, i < rows * nu ? m0 + r : a.B, i - r * nu, a.B, a.H, nu, bb[q]);
+      }
+      gen_products(w, streamed, kcx, kch, a.x, Kx, hcur, Kh, m0, rows, NT, nu, S, ring, acc);
+      // the warps' partial sums [nks][rows][8 NT] into the ring: row g (+8),
+      // columns 2t, 2t + 1 of each n-tile
+      const int mt = rows / 16, nks = kGWarps / mt, cols = 8 * NT;
+      const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wm = warp % mt, kq = warp / mt;
+      float* stg = reinterpret_cast<float*>(ring);
+      if (kq < nks) {
+#pragma unroll
+        for (int n = 0; n < kGMaxNT; ++n) {
+          if (n >= NT) break;
+          float* r0 =
+              stg + ((size_t)kq * rows + 16 * wm + lane / 4) * cols + n * 8 + 2 * (lane % 4);
+          r0[0] = acc[n][0];
+          r0[1] = acc[n][1];
+          r0[8 * cols] = acc[n][2];
+          r0[8 * cols + 1] = acc[n][3];
+        }
+      }
+      __syncthreads();
+      if (clk) clk->lap(lap);
+#pragma unroll
+      for (int q = 0; q < kItems; ++q) {
+        const int i = threadIdx.x + q * kGThreads, r = i / nu, j = i - r * nu;
+        if (i >= rows * nu) break;
+        float sum[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          float v = 0.f;
+          for (int k = 0; k < nks; ++k) v += stg[((size_t)k * rows + r) * cols + 4 * j + g];
+          sum[g] = v;
+        }
+        cell_epilogue(a, decoder, m0 + r, r, j, sum, bb[q], c, wzd, zst, hnxt);
+      }
+      __syncthreads();  // the staged sums are read
+    } else {
+      const int item = threadIdx.x / S, ks = threadIdx.x % S, q = item / nu, j = item - q * nu;
+      // after the butterfly every lane of an item holds its 16 sums: song b's
+      // epilogue runs on lane b % S; its biases are loaded under the products
+      float bb[4][4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        load_bias(bias, item < items && b % S == ks ? m0 + 4 * q + b : a.B, j, a.B, a.H, nu,
+                  bb[b]);
+      gen_products(w, streamed, kcx, kch, a.x, Kx, hcur, Kh, m0, rows, NT, nu, S, ring, acc);
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          for (int off = S / 2; off > 0; off >>= 1)
+            acc[b][g] += __shfl_xor_sync(0xffffffffu, acc[b][g], off);
+      if (clk) clk->lap(lap);
+      if (item < items)
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          if (b % S == ks)
+            cell_epilogue(a, decoder, m0 + 4 * q + b, 4 * q + b, j, acc[b], bb[b], c, wzd, zst,
+                          hnxt);
+      __syncthreads();  // zst is read
+    }
+    if (clk) clk->lap(lap + 1);
+  }
+}
+
+// The z heads and the reparameterized draw on h_e (an operand: bf16 in the
+// bf16 mode), one block per latent and group of four songs, its threads
+// splitting k: each lane sums its k in order, the lanes of a warp in a
+// shuffle butterfly, the warps in order; then z = (zm + bz) + exp((zv +
+// bz') / 2) * eps, kept in f32
+template <typename WT>
+__device__ __forceinline__ void gen_z_heads(const GenArgs<WT>& a, const WT* h, int t,
+                                            float* red) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, L = a.L, H = a.H,
+            Kh = round16(a.H);
+  const int jobs = L * cdiv(a.B, 4);
+  for (int job = blockIdx.x; job < jobs; job += gridDim.x) {
+    const int l = job % L, q = job / L, s = 4 * q + threadIdx.x;
+    const float e = threadIdx.x < 4 && s < a.B ? a.eps[((size_t)s * a.total + t) * L + l] : 0.f;
+    float sm[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    for (int k = threadIdx.x; k < H; k += kGThreads) {
+      const float w0 = ldf(a.wz_t + (size_t)l * H + k), w1 = ldf(a.wz_t + (size_t)(L + l) * H + k);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const float hv = ldf(h + (size_t)(4 * q + b) * Kh + k);
+        sm[0][b] = fmaf(hv, w0, sm[0][b]);
+        sm[1][b] = fmaf(hv, w1, sm[1][b]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          sm[i][b] += __shfl_xor_sync(0xffffffffu, sm[i][b], off);
+        if (lane == 0) red[(warp * 2 + i) * 4 + b] = sm[i][b];
+      }
+    __syncthreads();
+    const int b = threadIdx.x;
+    if (b < 4 && s < a.B) {
+      float zm = 0.f, zv = 0.f;
+      for (int w = 0; w < kGWarps; ++w) {
+        zm += red[(w * 2) * 4 + b];
+        zv += red[(w * 2 + 1) * 4 + b];
+      }
+      a.zs[(size_t)s * L + l] = (zm + a.bz[l]) + expf((zv + a.bz[L + l]) / 2.f) * e;
+    }
+    __syncthreads();  // `red` is read
+  }
+}
+
+// The frame head on h_d (an operand), the Bernoulli draw, the output and
+// the next step's input (the seed's frame while teacher-forcing, else the
+// drawn one): jobs of 16 songs x 8 pitches spread over the blocks, each
+// block's warps splitting the k16 chunks of H (bf16: `mma.sync` on the
+// packed head; f32: FFMA on lane (g, t)'s four outputs, rows g, g + 8 and
+// pitches 2t, 2t + 1), their sums added in warp order.
+template <typename WT>
+__device__ __forceinline__ void gen_frame_head(const GenArgs<WT>& a, const WT* h, int t,
+                                               float* red) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const int D = a.D, Kh = round16(a.H), Kx = round16(D), kch = Kh / 16;
+  const int ntx = cdiv(D, 8), jobs = (round16(a.B) / 16) * ntx, nsteps = a.total - a.Tseed;
+  for (int job = blockIdx.x; job < jobs; job += gridDim.x) {
+    const int mi = job / ntx, ni = job - mi * ntx;
+    // warp q < 4 draws fragment entry q of each lane (row g + 8 (q / 2),
+    // pitch 2 tq + q % 2): its u and the next seed frame are loaded first
+    const int q = warp, s = 16 * mi + g + 8 * (q / 2), d = 8 * ni + 2 * tq + q % 2;
+    const bool mine = q < 4 && s < a.B && d < D;
+    float uu = 0.f, seed_next = 0.f;
+    if (mine) {
+      uu = a.u[((size_t)s * a.total + t) * D + d];
+      if (t + 1 < a.Tseed) seed_next = a.seed[((size_t)s * a.Tseed + t + 1) * D + d];
+    }
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    const WT* r0 = h + (size_t)(16 * mi + g) * Kh;
+    if constexpr (sizeof(WT) == 2) {
+      const bf16* wp = a.head_w + ((size_t)ni * kch * 32 + lane) * 4;
+      for (int kc = warp; kc < kch; kc += kGWarps) {
+        const uint2 lo = __ldcg(reinterpret_cast<const uint2*>(r0 + kc * 16 + 4 * tq));
+        const uint2 hi = __ldcg(reinterpret_cast<const uint2*>(r0 + 8 * Kh + kc * 16 + 4 * tq));
+        const uint2 b = __ldg(reinterpret_cast<const uint2*>(wp + (size_t)kc * 128));
+        const unsigned af[4] = {lo.x, hi.x, lo.y, hi.y};
+        cvl_tc::mma_bf16(acc, af, b.x, b.y);
+      }
+    } else {
+      const float* w0 = reinterpret_cast<const float*>(a.head_w) + (size_t)(8 * ni + 2 * tq) * Kh;
+      const float* hr = reinterpret_cast<const float*>(r0);
+      for (int kc = warp; kc < kch; kc += kGWarps)
+#pragma unroll
+        for (int k = kc * 16; k < kc * 16 + 16; k += 4) {
+          const float4 x0 = __ldcg(reinterpret_cast<const float4*>(hr + k));
+          const float4 x1 = __ldcg(reinterpret_cast<const float4*>(hr + 8 * Kh + k));
+          const float4 v0 = __ldg(reinterpret_cast<const float4*>(w0 + k));
+          const float4 v1 = __ldg(reinterpret_cast<const float4*>(w0 + Kh + k));
+          const float a0[4] = {x0.x, x0.y, x0.z, x0.w}, a1[4] = {x1.x, x1.y, x1.z, x1.w};
+          const float b0[4] = {v0.x, v0.y, v0.z, v0.w}, b1[4] = {v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[0] = fmaf(a0[i], b0[i], acc[0]);
+            acc[1] = fmaf(a0[i], b1[i], acc[1]);
+            acc[2] = fmaf(a1[i], b0[i], acc[2]);
+            acc[3] = fmaf(a1[i], b1[i], acc[3]);
+          }
+        }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) red[(warp * 32 + lane) * 4 + e] = acc[e];
+    __syncthreads();
+    if (mine) {
+      float sum = 0.f;
+      for (int w = 0; w < kGWarps; ++w) sum += red[(w * 32 + lane) * 4 + q];
+      const float xm = 1.f / (1.f + expf(-(sum + a.bx[d])));
+      const float xt = uu < xm ? 1.f : 0.f;
+      stf(a.x + (size_t)s * Kx + d, t + 1 < a.Tseed ? seed_next : xt);
+      if (t >= a.Tseed)
+        a.out[((size_t)s * nsteps + (t - a.Tseed)) * D + d] = a.return_probs ? xm : xt;
+    }
+    __syncthreads();  // `red` is read
+  }
+}
+
+// One persistent cooperative launch for the whole song: every block owns nu
+// hidden units of both cells (all four gate columns of each) for every song;
+// a step is four phases with a grid barrier after each.
+template <typename WT>
+__global__ void __launch_bounds__(kGThreads, 1) generate_kernel(const GenArgs<WT> a) {
+  extern __shared__ int4 smem_g[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem_g);
+  const int D = a.D, H = a.H, L = a.L, nu = a.nu, Bp = round16(a.B);
+  const int Kx = round16(D), Kh = round16(H);
+  const size_t encn = slice_elems(D, H, nu, true), decn = slice_elems(D, H, nu, a.use_x_prev);
+  const WT* encw = a.enc_w + blockIdx.x * encn;
+  const WT* decw = a.dec_w + blockIdx.x * decn;
+  size_t off = 0;
+  if (a.resident) {  // the block's slices, copied once (16-byte pieces)
+    WT* ws = reinterpret_cast<WT*>(base);
+    const size_t ne = encn * sizeof(WT) / 16, nd = decn * sizeof(WT) / 16;
+    for (size_t i = threadIdx.x; i < ne; i += kGThreads)
+      reinterpret_cast<int4*>(ws)[i] = reinterpret_cast<const int4*>(encw)[i];
+    for (size_t i = threadIdx.x; i < nd; i += kGThreads)
+      reinterpret_cast<int4*>(ws + encn)[i] = reinterpret_cast<const int4*>(decw)[i];
+    encw = ws;
+    decw = ws + encn;
+    off = slices_bytes(D, H, nu, a.use_x_prev, sizeof(WT));
+  }
+  unsigned char* ring = base + off;
+  float* ce = reinterpret_cast<float*>(ring + gen_ring_bytes(nu, a.resident));  // [nu][Bp] each
+  float* cd = ce + (size_t)nu * Bp;
+  float* wzd = cd + (size_t)nu * Bp;         // [L][4 nu]
+  float* zst = wzd + L * 4 * nu;              // [kGPass][L]
+  for (int i = threadIdx.x; i < 2 * nu * Bp; i += kGThreads) ce[i] = 0.f;
+  for (int i = threadIdx.x; i < 4 * nu; i += kGThreads) {
+    const int u = blockIdx.x * nu + i / 4, col = (i % 4) * H + u;
+    for (int l = 0; l < L; ++l)
+      wzd[l * 4 * nu + i] = u < H ? a.wkd_z[(size_t)l * 4 * H + col] : 0.f;
+  }
+  // the first input: the seed's first frame
+  for (int i = blockIdx.x * kGThreads + threadIdx.x; i < a.B * D; i += gridDim.x * kGThreads) {
+    const int s = i / D, d = i - s * D;
+    stf(a.x + (size_t)s * Kx + d, a.seed[(size_t)s * a.Tseed * D + d]);
+  }
+  unsigned rounds = 0;
+  grid_sync(a.bar, rounds);
+  __shared__ PhaseClock clk;  // thread 0 of block 0 keeps it
+  const bool timer = threadIdx.x == 0;
+  if (timer) {
+    clk.out = blockIdx.x == 0 ? a.clock : nullptr;
+    clk.start();
+  }
+  const size_t hbuf = (size_t)Bp * Kh;
+  for (int t = 0; t < a.total; ++t) {
+    const int cur = t & 1, nxt = cur ^ 1;
+    // 1. encoder cell: z_e = encb + [x_in | h_e] . [Wke_x ; Rke]
+    gen_cell(a, false, encw, a.encb, a.he + cur * hbuf, a.he + nxt * hbuf, ce, ring, wzd, zst,
+             timer ? &clk : nullptr, 0);
+    grid_sync(a.bar, rounds);
+    if (timer) clk.lap(2);
+    // 2. z heads on h_e and the reparameterized draw (z stays f32)
+    gen_z_heads(a, a.he + nxt * hbuf, t, reinterpret_cast<float*>(ring));
+    if (timer) clk.lap(3);
+    grid_sync(a.bar, rounds);
+    if (timer) clk.lap(4);
+    // 3. decoder cell: z_d = decb + [x_in | h_d] . [Wkd_x ; Rkd] + z . Wkd_z
+    gen_cell(a, true, decw, a.decb, a.hd + cur * hbuf, a.hd + nxt * hbuf, cd, ring, wzd, zst,
+             timer ? &clk : nullptr, 5);
+    grid_sync(a.bar, rounds);
+    if (timer) clk.lap(7);
+    // 4. frame head on h_d, the draw, the output, the next input
+    gen_frame_head(a, a.hd + nxt * hbuf, t, reinterpret_cast<float*>(ring));
+    if (timer) clk.lap(8);
+    grid_sync(a.bar, rounds);
+    if (timer) clk.lap(9);
+  }
+  if (timer) clk.flush();
+}
+
+template <typename WT>
+int launch_gen(const GenArgs<WT>& a, cudaStream_t stream) {
+  const size_t res = a.resident ? slices_bytes(a.D, a.H, a.nu, a.use_x_prev, sizeof(WT)) : 0;
+  const size_t smem = gen_smem_bytes(a.nu, round16(a.B), a.L, res);
+  cudaError_t err = cudaFuncSetAttribute(generate_kernel<WT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  // cooperative: every block co-resident (the grid barrier needs it), or the
+  // launch fails
+  void* args[] = {const_cast<GenArgs<WT>*>(&a)};
+  err = cudaLaunchCooperativeKernel((const void*)generate_kernel<WT>, dim3(cdiv(a.H, a.nu)),
+                                    dim3(kGThreads), args, smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// the global state of the f32 / bf16 kernel, in bytes, each part a
+// multiple of 16 bytes: x, h_e and h_d (two buffers each), z, the barrier
+struct GenState {
+  size_t x, he, hd, zs, bar, total;
+};
+__host__ __device__ inline GenState gen_state(int B, int D, int H, int L, int wbytes) {
+  const size_t Bp = round16(B);
+  GenState st{};
+  st.x = 0;
+  st.he = st.x + Bp * round16(D) * wbytes;
+  st.hd = st.he + 2 * Bp * round16(H) * wbytes;
+  st.zs = st.hd + 2 * Bp * round16(H) * wbytes;
+  st.bar = st.zs + (Bp * L * 4 + 15) / 16 * 16;
+  st.total = st.bar + 16;
+  return st;
+}
+
+}  // namespace
+
+// Bytes of dynamic shared memory one block of the f32 / bf16 kernel needs: a
+// block owning nu hidden units, for B songs and L latents, with its weight
+// slices resident in shared memory or not (the wrapper checks the limit and
+// picks residency where it fits).
+extern "C" long long cvl_generate_cl_vrnn_smem_bytes(int nu, int B, int D, int H, int L,
+                                                     int use_x_prev, int bf16_weights,
+                                                     int resident) {
+  const size_t res = resident ? slices_bytes(D, H, nu, use_x_prev, bf16_weights ? 2 : 4) : 0;
+  return (long long)gen_smem_bytes(nu, round16(B), L, res);
+}
+
+// Bytes of the state the f32 / bf16 kernel's blocks share in global memory
+// (the caller zeroes them).
+extern "C" long long cvl_generate_cl_vrnn_state_bytes(int B, int D, int H, int L,
+                                                      int bf16_weights) {
+  return (long long)gen_state(B, D, H, L, bf16_weights ? 2 : 4).total;
+}
+
+// Launches the f32 / bf16 sampler on `stream`: one cooperative launch of
+// cdiv(H, nu) blocks, each owning nu hidden units; enc_w, dec_w and head_w
+// packed by the wrapper (`pack_slices`, `pack_head`), wz_t [2L, H] in the
+// weight type, wkd_z [L, 4H] f32; `state` holds
+// cvl_generate_cl_vrnn_state_bytes zeroed bytes; `clock` (kLaps counts, or
+// null) receives block 0's ns per part of a step summed over the steps
+// (PhaseClock, the int8 kernel's ten parts: the encoder's products, its
+// epilogue, its wait; the z heads, their wait; the decoder's products,
+// epilogue, wait; the frame head, its wait). Returns the
+// cudaError_t of the launch (cudaErrorCooperativeLaunchTooLarge where the
+// grid cannot be co-resident).
 extern "C" int cvl_generate_cl_vrnn(
-    int bf16_weights, const float* seed, const float* eps, const float* u,
-    const void* wke_x, const void* rke, const float* encb, const void* wz_t, const float* bz,
-    const void* wkd_x, const void* wkd_z, const void* rkd, const float* decb,
-    const void* wx_t, const float* bx, float* out, int B, int Tseed, int total, int D,
-    int H, int L, int use_x_prev, int return_probs, void* stream) {
-  const Args a{seed, eps, u, wke_x, rke, encb, wz_t, bz, wkd_x, wkd_z, rkd, decb, wx_t, bx,
-               out, B, Tseed, total, D, H, L, use_x_prev, return_probs};
+    int bf16_weights, const float* seed, const float* eps, const float* u, const void* enc_w,
+    const void* dec_w, const void* head_w, const float* encb, const void* wz_t, const float* bz,
+    const float* wkd_z, const float* decb, const float* bx, float* out, void* state,
+    unsigned long long* clock, int B, int Tseed, int total, int D, int H, int L, int use_x_prev,
+    int return_probs, int nu, int resident, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16_weights ? launch<__nv_bfloat16>(a, st) : launch<float>(a, st);
+  const GenState g = gen_state(B, D, H, L, bf16_weights ? 2 : 4);
+  unsigned char* sb = static_cast<unsigned char*>(state);
+  float* zs = reinterpret_cast<float*>(sb + g.zs);
+  unsigned* bar = reinterpret_cast<unsigned*>(sb + g.bar);
+  if (bf16_weights) {
+    using T = bf16;
+    const GenArgs<T> a{seed, eps, u, static_cast<const T*>(enc_w), static_cast<const T*>(dec_w),
+                       static_cast<const T*>(head_w), encb, static_cast<const T*>(wz_t), bz,
+                       wkd_z, decb, bx, out, reinterpret_cast<T*>(sb + g.x),
+                       reinterpret_cast<T*>(sb + g.he), reinterpret_cast<T*>(sb + g.hd), zs, bar,
+                       clock, B, Tseed, total, D, H, L, use_x_prev, return_probs, nu, resident};
+    return launch_gen(a, st);
+  }
+  using T = float;
+  const GenArgs<T> a{seed, eps, u, static_cast<const T*>(enc_w), static_cast<const T*>(dec_w),
+                     static_cast<const T*>(head_w), encb, static_cast<const T*>(wz_t), bz,
+                     wkd_z, decb, bx, out, reinterpret_cast<T*>(sb + g.x),
+                     reinterpret_cast<T*>(sb + g.he), reinterpret_cast<T*>(sb + g.hd), zs, bar,
+                     clock, B, Tseed, total, D, H, L, use_x_prev, return_probs, nu, resident};
+  return launch_gen(a, st);
 }
 
 // Bytes of dynamic shared memory one block of the int8 kernel needs: a block

@@ -3,10 +3,13 @@
 Counterpart of ``classifying_vae_lstm_tpu/ops/pallas_generate.py``. The
 kernels (``csrc/generate_cl_vrnn.cu``) run the entire autoregressive loop —
 encoder cell, z heads, z draw, decoder cell, sigmoid frame head, Bernoulli
-draw, feedback — in one launch: ``generate_kernel`` with f32 or bf16
-weights, ``generate_int8_kernel`` with the five large weights as per-column
-int8 codes (a cooperative launch whose blocks each own hidden units of both
-cells, on the int8 tensor cores; :func:`int8_grid`, :func:`pack_int8`). The sampler is a pure function of its pre-drawn noise (``eps``
+draw, feedback — in one cooperative launch whose blocks each own hidden
+units of both cells (:func:`int8_grid`): ``generate_kernel`` with f32 or
+bf16 weights (FFMA, or the bf16 tensor cores; :func:`pack_slices`,
+:func:`pack_head`; the slices resident in shared memory where they fit),
+``generate_int8_kernel`` with the five large weights as per-column int8
+codes (the int8 tensor cores; :func:`pack_int8`). The sampler is a pure
+function of its pre-drawn noise (``eps``
 for z, ``u`` for the frames), so each kernel is held against
 :func:`generate_cl_vrnn_batch_plain` on the card and the plain version
 against the JAX package on the CPU, with the same noise.
@@ -35,8 +38,6 @@ LAUNCHES = 0
 INT8_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
-_SONGS_PER_BLOCK = 4      # kSongs in csrc/generate_cl_vrnn.cu
-_UNITS_PER_PASS = 256     # kUnits in csrc/generate_cl_vrnn.cu
 _SMEM_LIMIT = 232448      # dynamic shared memory one Hopper block can use
 _H100_SMS = 132           # the grid fits() sizes the int8 kernel for
 # the int8 kernel (csrc/generate_cl_vrnn.cu): a block owns at most
@@ -45,6 +46,11 @@ _H100_SMS = 132           # the grid fits() sizes the int8 kernel for
 # weights; a launch takes at most _I8_MAX_SONGS songs (c of both cells in
 # shared memory), a call more in several launches
 _I8_MAX_UNITS, _I8_RING, _I8_CPS, _I8_GROUP_ROWS, _I8_MAX_SONGS = 16, 4, 8, 64, 256
+# the f32 / bf16 kernel: a block owns at most _G_MAX_UNITS hidden units
+# (kGMaxNT n8 tiles); a launch takes at most _G_MAX_SONGS songs (c of both
+# cells in shared memory), a call more in several launches; its ring holds
+# _G_RING stages of _G_CPS 32-byte chunks of _G_PASS song rows
+_G_MAX_UNITS, _G_MAX_SONGS, _G_PASS, _G_RING, _G_CPS = 20, 256, 64, 4, 8
 _MODES = ("f32", "bf16", "int8")
 
 # The JAX package's precision rule for this sampler (its ``_BUDGET`` and
@@ -117,26 +123,63 @@ def _int8_smem(nu: int, B: int, L: int) -> int:
     return ring + (2 * nu * (-(-B // 16) * 16) + (4 + L) * 4 * nu + _I8_GROUP_ROWS * L) * 4
 
 
+def round16(n: int) -> int:
+    """n rounded up to a multiple of 16 (a k16 chunk, an m16 tile)."""
+    return -(-n // 16) * 16
+
+
+def slices_bytes(D: int, H: int, nu: int, use_x_prev: bool, wbytes: int) -> int:
+    """Bytes of one block's two weight slices in the f32 / bf16 kernel
+    (:func:`pack_slices`): the encoder's [round16(D) x rows | round16(H)
+    recurrent rows] and the decoder's (x rows only with ``use_x_prev``),
+    each row the block's 4 nu columns; rounded up to 16 bytes."""
+    rows = 2 * round16(H) + round16(D) * (2 if use_x_prev else 1)
+    return -(-rows * 4 * nu * wbytes // 16) * 16
+
+
+def gen_smem(nu: int, B: int, L: int, resident: int = 0) -> int:
+    """Shared memory of one f32 / bf16 block owning nu units, for B songs
+    and L latents: the resident slices (``resident`` bytes, 0 where they
+    stream), the cp.async ring (_G_RING stages of _G_CPS 32-byte chunks of
+    64 song rows, and of the slice where it streams; at least the bf16
+    warps' partial sums, 8 KB a pair of units), c of both cells ([nu][B
+    rounded to 16] each), the block's columns of the decoder's z rows and
+    the z of 64 songs."""
+    nt = nu // 2
+    ring = max(_G_RING * (_G_CPS * _G_PASS * 32 + (0 if resident else _G_CPS * nt * 256)),
+               8192 * nt)
+    return resident + ring + (2 * nu * round16(B) + 4 * nu * L + _G_PASS * L) * 4
+
+
+def resident_bytes(D: int, H: int, L: int, nu: int, B: int, use_x_prev: bool, mode: str) -> int:
+    """The residency rule: the block's slices are copied into shared memory
+    once per launch where they fit beside the state (:func:`gen_smem`);
+    returns their bytes then, else 0 (they stream from L2)."""
+    res = slices_bytes(D, H, nu, use_x_prev, 2 if mode == "bf16" else 4)
+    return res if gen_smem(nu, min(B, _G_MAX_SONGS), L, res) <= _SMEM_LIMIT else 0
+
+
 def _smem_bytes(D: int, H: int, L: int, mode: str = "f32") -> int:
-    if mode == "int8":  # a launch of the most songs, on an H100's grid
-        return _int8_smem(int8_grid(H, _H100_SMS)[0], _I8_MAX_SONGS, L)
-    return ((D + 6 * H + L) * _SONGS_PER_BLOCK + 4 * _SONGS_PER_BLOCK * _UNITS_PER_PASS) * 4
+    nu = int8_grid(H, _H100_SMS)[0]  # a launch of the most songs, on an H100's grid
+    if mode == "int8":
+        return _int8_smem(nu, _I8_MAX_SONGS, L)
+    return gen_smem(nu, _G_MAX_SONGS, L)
 
 
 def smem_bytes(cfg, mode: str | None = None) -> int:
-    """Shared memory of one block: x_in, h (two buffers) and c of both
-    cells, and z, for each song of the block's tile, plus the gate stages'
-    partial sums; in int8 mode the ring of codes and weights and c of the
-    block's units for the songs of a launch (:func:`_int8_smem`)."""
+    """Shared memory of one block at a launch of the most songs on an
+    H100's grid, the weights streamed (:func:`gen_smem`; in int8 mode
+    :func:`_int8_smem`)."""
     return _smem_bytes(cfg.original_dim, cfg.intermediate_dim, cfg.latent_dim,
                        mode or pick_mode(cfg))
 
 
 def fits(cfg, mode: str | None = None) -> bool:
-    """Does one block's state fit Hopper's shared memory (and, in int8 mode,
-    do an H100's 132 blocks cover the units, at most 16 a block)?"""
+    """Do an H100's 132 blocks cover the units (at most 20 a block, 16 in
+    int8 mode), and does one block's state fit Hopper's shared memory?"""
     mode = mode or pick_mode(cfg)
-    if mode == "int8" and int8_grid(cfg.intermediate_dim, _H100_SMS)[0] > _I8_MAX_UNITS:
+    cap = _I8_MAX_UNITS if mode == "int8" else _G_MAX_UNITS
+    if int8_grid(cfg.intermediate_dim, _H100_SMS)[0] > cap:
         return False
     return smem_bytes(cfg, mode) <= _SMEM_LIMIT
 
@@ -349,6 +392,59 @@ def pack_int8(w: dict, cfg, nu: int) -> dict:
             "head": _pack_head(w["wx_t"].T)}
 
 
+def _slice_cols(H: int, nu: int, device=None):
+    """[G, 4 nu] columns of a gate-ordered [K, 4H] weight that each block of
+    the f32 / bf16 kernel owns: local column 4j + g is unit u0 + j, gate g
+    (g*H + u); 4H, a zero column, past H."""
+    G = -(-H // nu)
+    u = torch.arange(G * nu, device=device).view(G, nu, 1)
+    gate = torch.arange(4, device=device).view(1, 1, 4)
+    return torch.where(u < H, gate * H + u, 4 * H).view(G, 4 * nu)
+
+
+def pack_slices(w_x, rk, H: int, nu: int, D: int, bf16: bool):
+    """One cell's weights for the f32 / bf16 kernel, each block's slice
+    contiguous: the rows are w_x's ([D, 4H], zero rows to round16(D); none
+    for None) then rk's ([H, 4H], zero rows to round16(H)), the columns the
+    block's :func:`_slice_cols`. f32: ``[G, 4 nu, K]``, column by column
+    (a lane's 4 k of a column are one 16-byte read). bf16:
+    ``[G, K/16, nu/2, 32, 4]``, the B fragments of ``mma.sync.m16n8k16``
+    chunk by chunk and n8 tile by tile: lane 4g + t holds local column 8n +
+    g at k = 16 kc + 4t .. 4t + 3 (its registers b0 = k, k + 1 and b1 =
+    k + 2, k + 3), the k the kernel's A fragments take from h and x."""
+    parts = ([(w_x, round16(D))] if w_x is not None else []) + [(rk, round16(H))]
+    K = sum(k for _, k in parts)
+    w = rk.new_zeros((K, 4 * H + 1))  # the last column: zeros, for units past H
+    k0 = 0
+    for m, k in parts:
+        w[k0:k0 + m.shape[0], :4 * H] = m
+        k0 += k
+    cols = _slice_cols(H, nu, rk.device)
+    G = cols.shape[0]
+    sel = w[:, cols.reshape(-1)].view(K, G, 4 * nu)
+    if not bf16:
+        return sel.permute(1, 2, 0).contiguous()
+    v = sel.view(K // 16, 4, 4, G, nu // 2, 8)  # k = 16 kc + 4 t + i, column 8 n + g
+    return v.permute(3, 0, 4, 5, 1, 2).contiguous().view(G, K // 16, nu // 2, 32, 4)
+
+
+def pack_head(wx_t, bf16: bool):
+    """The frame head ``wx_t [D, H]`` for the f32 / bf16 kernel. f32: ``[8
+    NTx, round16(H)]`` (NTx = cdiv(D, 8); zero rows and columns pad it).
+    bf16: ``[NTx, round16(H)/16, 32, 4]``, the B fragments as in
+    :func:`pack_slices`, pitch 8n + g for lane 4g + t."""
+    D, H = wx_t.shape
+    Kh, ntx = round16(H), -(-D // 8)
+    if not bf16:
+        out = wx_t.new_zeros((8 * ntx, Kh))
+        out[:D, :H] = wx_t
+        return out
+    w = wx_t.new_zeros((Kh, 8 * ntx))
+    w[:H, :D] = wx_t.T
+    return w.view(Kh // 16, 4, 4, ntx, 8).permute(3, 0, 4, 1, 2).contiguous().view(
+        ntx, Kh // 16, 32, 4)
+
+
 _lib_lock = threading.Lock()
 _lib = None
 
@@ -362,20 +458,25 @@ def _kernels():
             lib = _build.load("generate_cl_vrnn")
             P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             fn = lib.cvl_generate_cl_vrnn_smem_bytes
-            fn.argtypes, fn.restype = [I] * 3, LL
+            fn.argtypes, fn.restype = [I] * 8, LL
             i8 = lib.cvl_generate_cl_vrnn_int8_smem_bytes
             i8.argtypes, i8.restype = [I] * 3, LL
             lib.cvl_generate_cl_vrnn_int8_state_words.argtypes = [I] * 4
             lib.cvl_generate_cl_vrnn_int8_state_words.restype = LL
-            for shape in ((88, 256, 8), (88, 1536, 2), (13, 7, 3)):
-                if fn(*shape) != _smem_bytes(*shape):
-                    raise RuntimeError("shared-memory layout of csrc/generate_cl_vrnn.cu "
-                                       f"differs from _smem_bytes at {shape}")
+            lib.cvl_generate_cl_vrnn_state_bytes.argtypes = [I] * 5
+            lib.cvl_generate_cl_vrnn_state_bytes.restype = LL
+            for nu, B, D, H, L, xp, b in ((2, 64, 88, 256, 8, 1, 0), (8, 256, 88, 1024, 2, 1, 1),
+                                          (2, 1, 13, 7, 3, 0, 1), (16, 100, 88, 2048, 2, 0, 0)):
+                for res in (0, 1):
+                    want = gen_smem(nu, B, L, slices_bytes(D, H, nu, xp, 2 if b else 4) * res)
+                    if fn(nu, B, D, H, L, xp, b, res) != want:
+                        raise RuntimeError("shared-memory layout of csrc/generate_cl_vrnn.cu "
+                                           f"differs from gen_smem at nu={nu}, B={B}, H={H}")
             for nu, B, L in ((2, 1, 3), (12, 64, 2), (14, 100, 2), (16, 256, 16)):
                 if i8(nu, B, L) != _int8_smem(nu, B, L):
                     raise RuntimeError("shared-memory layout of the int8 kernel differs from "
                                        f"_int8_smem at nu={nu}, B={B}, L={L}")
-            lib.cvl_generate_cl_vrnn.argtypes = [I] + [P] * 15 + [I] * 8 + [P]
+            lib.cvl_generate_cl_vrnn.argtypes = [I] + [P] * 15 + [I] * 10 + [P]
             lib.cvl_generate_cl_vrnn_int8.argtypes = [P] * 20 + [I] * 9 + [P]
             lib.cvl_generate_cl_vrnn.restype = lib.cvl_generate_cl_vrnn_int8.restype = I
             _lib = lib
@@ -403,6 +504,12 @@ def _check(params, cfg, x_seeds, nsteps, eps, u, ws, mode=None):
         if nu > _I8_MAX_UNITS or _int8_smem(nu, min(B, _I8_MAX_SONGS), L) > _SMEM_LIMIT:
             raise ValueError(f"hidden {H} needs {nu} units a block on {n_sm} SMs; the int8 "
                              f"kernel takes at most {_I8_MAX_UNITS}")
+    elif dev.type == "cuda":
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        nu = int8_grid(H, n_sm)[0]
+        if nu > _G_MAX_UNITS or gen_smem(nu, min(B, _G_MAX_SONGS), L) > _SMEM_LIMIT:
+            raise ValueError(f"hidden {H} needs {nu} units a block on {n_sm} SMs; the kernel "
+                             f"takes at most {_G_MAX_UNITS}: hidden {H} is too wide")
     n_xp = D if cfg.use_x_prev else 0
     expect = {
         "x_seeds": (x_seeds, (B, Tseed, D)), "eps": (eps, (B, total, L)),
@@ -435,7 +542,7 @@ def _launch_int8(lib, w, cfg, x_seeds, eps, u, out, return_probs, stream, clock=
     """The int8 kernel on :func:`_pack`'s operands: the weights packed per
     block (:func:`pack_int8`), then one cooperative launch per
     _I8_MAX_SONGS songs, each with its zeroed global state (``clock``, 10
-    int64 or None: the clock of :func:`int8_phase_ms`). Returns the first
+    int64 or None: the clock of :func:`phase_ms`). Returns the first
     nonzero CUDA error."""
     B, Tseed, D = x_seeds.shape
     H, L, total = cfg.intermediate_dim, cfg.latent_dim, eps.shape[1]
@@ -460,35 +567,78 @@ def _launch_int8(lib, w, cfg, x_seeds, eps, u, out, return_probs, stream, clock=
     return 0
 
 
-# the parts of a step of the int8 kernel, in the order of its clock (each
-# phase's work, then its wait at the grid barrier after it)
-INT8_PARTS = ("encoder products", "encoder epilogue", "encoder wait", "z heads", "z wait",
-              "decoder products", "decoder epilogue", "decoder wait", "frame head", "frame wait")
+def _launch_gen(lib, w, cfg, x_seeds, eps, u, out, return_probs, stream, mode, clock=None):
+    """The f32 / bf16 kernel on :func:`_pack`'s operands: the slices packed
+    per block (:func:`pack_slices`, :func:`pack_head`), then one
+    cooperative launch per _G_MAX_SONGS songs, each with its zeroed global
+    state and the slices resident where :func:`resident_bytes` says they
+    fit (``clock``, 10 int64 or None: the clock of :func:`phase_ms`).
+    Returns the first nonzero CUDA error."""
+    B, Tseed, D = x_seeds.shape
+    H, L, total = cfg.intermediate_dim, cfg.latent_dim, eps.shape[1]
+    dev, bf16 = x_seeds.device, mode == "bf16"
+    nu = int8_grid(H, torch.cuda.get_device_properties(dev).multi_processor_count)[0]
+    # held by name until the launches are queued
+    enc = pack_slices(w["wke_x"], w["rke"], H, nu, D, bf16)
+    dec = pack_slices(w["wkd_x"], w["rkd"], H, nu, D, bf16)
+    head = pack_head(w["wx_t"], bf16)
+    wkd_z = w["wkd_z"].float().contiguous()  # the z rows widened: z stays f32
+    for b0 in range(0, B, _G_MAX_SONGS):
+        b = slice(b0, min(B, b0 + _G_MAX_SONGS))
+        nb = b.stop - b0
+        res = resident_bytes(D, H, L, nu, nb, cfg.use_x_prev, mode)
+        state = torch.zeros(lib.cvl_generate_cl_vrnn_state_bytes(nb, D, H, L, int(bf16)),
+                            dtype=torch.uint8, device=dev)
+        rows = [t[b] for t in (x_seeds, eps, u)]  # leading rows: contiguous views
+        encb, decb = w["encb"][b], w["decb"][b]
+        err = lib.cvl_generate_cl_vrnn(
+            int(bf16), *(t.data_ptr() for t in rows), enc.data_ptr(), dec.data_ptr(),
+            head.data_ptr(), encb.data_ptr(), w["wz_t"].data_ptr(), w["bz"].data_ptr(),
+            wkd_z.data_ptr(), decb.data_ptr(), w["bx"].data_ptr(), out[b].data_ptr(),
+            state.data_ptr(), None if clock is None else clock.data_ptr(), nb, Tseed, total, D, H,
+            L, int(cfg.use_x_prev), int(return_probs), nu, int(res > 0), stream)
+        if err != 0:
+            return err
+    return 0
 
 
-def int8_phase_ms(params, cfg, x_seeds, nsteps: int, eps, u, ws) -> dict:
-    """One int8 launch (counted, as the wrapper counts it) of at most
-    _I8_MAX_SONGS songs on CUDA tensors, timed part by part on the card by
-    block 0 (``%globaltimer``): ms of each of :data:`INT8_PARTS` summed over
-    the steps (a wait is the slowest block's lag and the barrier itself)."""
-    global INT8_LAUNCHES
-    _check(params, cfg, x_seeds, nsteps, eps, u, ws, "int8")
+# the parts of a step of either cooperative kernel, in the order of its
+# clock (each phase's work, then its wait at the grid barrier after it)
+PHASE_PARTS = ("encoder products", "encoder epilogue", "encoder wait", "z heads", "z wait",
+               "decoder products", "decoder epilogue", "decoder wait", "frame head", "frame wait")
+
+
+def phase_ms(params, cfg, x_seeds, nsteps: int, eps, u, ws, mode: str) -> dict:
+    """One launch of ``mode``'s kernel (counted, as the wrapper counts it)
+    on at most 256 songs on CUDA tensors, timed part by part on the card by
+    block 0 (``%globaltimer``): ms of each of :data:`PHASE_PARTS` summed
+    over the steps (a wait is the slowest block's lag and the barrier
+    itself)."""
+    global LAUNCHES, INT8_LAUNCHES
+    mode = _resolve_mode(cfg, mode)
+    _check(params, cfg, x_seeds, nsteps, eps, u, ws, mode)
     B, Tseed, D = x_seeds.shape
     if B > _I8_MAX_SONGS:
         raise ValueError(f"one launch takes at most {_I8_MAX_SONGS} songs, got {B}")
     dev = x_seeds.device
     lib = _kernels()
     with torch.cuda.device(dev):
-        w = _pack(params, cfg, ws, D, "int8")
+        w = _pack(params, cfg, ws, D, mode)
         out = torch.empty((B, nsteps, D), dtype=torch.float32, device=dev)
-        clock = torch.zeros(len(INT8_PARTS), dtype=torch.int64, device=dev)
-        err = _launch_int8(lib, w, cfg, x_seeds, eps, u, out, False,
-                           torch.cuda.current_stream(dev).cuda_stream, clock)
+        clock = torch.zeros(len(PHASE_PARTS), dtype=torch.int64, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if mode == "int8":
+            err = _launch_int8(lib, w, cfg, x_seeds, eps, u, out, False, stream, clock)
+        else:
+            err = _launch_gen(lib, w, cfg, x_seeds, eps, u, out, False, stream, mode, clock)
     if err != 0:
-        raise RuntimeError(f"generate_cl_vrnn_int8 kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"generate_cl_vrnn ({mode}) kernel launch failed: CUDA error {err}")
     with _launch_lock:
-        INT8_LAUNCHES += 1
-    return dict(zip(INT8_PARTS, (ns / 1e6 for ns in clock.cpu().tolist())))
+        if mode == "int8":
+            INT8_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
+    return dict(zip(PHASE_PARTS, (ns / 1e6 for ns in clock.cpu().tolist())))
 
 
 def generate_cl_vrnn_batch_cuda(params, cfg, x_seeds, nsteps: int, eps, u, ws,
@@ -498,9 +648,9 @@ def generate_cl_vrnn_batch_cuda(params, cfg, x_seeds, nsteps: int, eps, u, ws,
     x_seeds [B, Tseed, D]; eps [B, total, L]; u [B, total, D]; ws [B, K];
     returns [B, nsteps, D]. CUDA tensors launch a kernel on the current
     stream (or raise: there is no fallback): ``generate_kernel`` in f32 and
-    bf16 mode, ``generate_int8_kernel`` in int8 mode (one cooperative launch
-    per 256 songs, counted as one call; a grid that cannot be co-resident
-    raises); CPU tensors take
+    bf16 mode, ``generate_int8_kernel`` in int8 mode (each one cooperative
+    launch per 256 songs, counted as one call; a grid that cannot be
+    co-resident raises); CPU tensors take
     :func:`generate_cl_vrnn_batch_plain`. ``mode`` is ``"f32"``, ``"bf16"``
     or ``"int8"`` (default :func:`pick_mode`).
     """
@@ -518,18 +668,11 @@ def generate_cl_vrnn_batch_cuda(params, cfg, x_seeds, nsteps: int, eps, u, ws,
     with torch.cuda.device(dev):
         w = _pack(params, cfg, ws, D, mode)
         out = torch.empty((B, nsteps, D), dtype=torch.float32, device=dev)
-        ptr = lambda t: None if t is None else t.data_ptr()
-        streams = (x_seeds.data_ptr(), eps.data_ptr(), u.data_ptr())
-        shape = (B, Tseed, Tseed + nsteps, D, cfg.intermediate_dim, cfg.latent_dim,
-                 int(cfg.use_x_prev), int(return_probs))
         stream = torch.cuda.current_stream(dev).cuda_stream
         if mode == "int8":
             err = _launch_int8(lib, w, cfg, x_seeds, eps, u, out, return_probs, stream)
         else:
-            err = lib.cvl_generate_cl_vrnn(
-                int(mode == "bf16"), *streams, ptr(w["wke_x"]), ptr(w["rke"]), ptr(w["encb"]),
-                ptr(w["wz_t"]), ptr(w["bz"]), ptr(w["wkd_x"]), ptr(w["wkd_z"]), ptr(w["rkd"]),
-                ptr(w["decb"]), ptr(w["wx_t"]), ptr(w["bx"]), out.data_ptr(), *shape, stream)
+            err = _launch_gen(lib, w, cfg, x_seeds, eps, u, out, return_probs, stream, mode)
     kernel = "generate_cl_vrnn_int8" if mode == "int8" else "generate_cl_vrnn"
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")

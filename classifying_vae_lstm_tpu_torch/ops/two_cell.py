@@ -3,10 +3,11 @@ versions and the autograd function.
 
 Counterpart of ``classifying_vae_lstm_tpu/ops/pallas_two_cell.py``. The
 whole recurrent core of the cl_vrnn model — encoder LSTM, z heads, z sample,
-decoder LSTM — runs forward in one kernel (``csrc/two_cell.cu``) and
-backward in one kernel of two calls (``csrc/two_cell_tc.cu``: the reverse
-walk, a product over the whole batch per step, then the gradient
-products). Each has a plain PyTorch version with the
+decoder LSTM — runs forward in one kernel (``csrc/two_cell.cu``: the
+operands' layouts, then the TPU grid's skewed walk, a product over the whole
+batch per step) and backward in one kernel of two calls
+(``csrc/two_cell_tc.cu``: the reverse walk, a product over the whole batch
+per step, then the gradient products). Each has a plain PyTorch version with the
 same signature, written out step by step: :func:`two_cell_fwd_plain`, and
 :func:`two_cell_bwd_plain`, which mirrors the TPU backward kernel (it is not
 autograd of the plain forward), so the backward kernel can be held against
@@ -57,51 +58,51 @@ BF16_FWD_LAUNCHES = 0
 BF16_BWD_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
-_ROWS_PER_BLOCK = 4      # kRows in csrc/two_cell.cu
-_UNITS_PER_PASS = 256    # kUnits in csrc/two_cell.cu
 _SMEM_LIMIT = 232448     # dynamic shared memory one Hopper block can use
 # the bf16 stream mode's bf16 inputs of each kernel (the others are f32)
 BF16_FWD_INPUTS = frozenset({"xe", "xd", "we", "rke", "wdx", "rkd", "kz", "wz"})
 BF16_BWD_INPUTS = BF16_FWD_INPUTS | {"ze", "zd", "hpe", "he", "hpd"}
 
 
-def fwd_smem_bytes(in_e: int, in_d: int, H: int, L: int) -> int:
-    """Shared memory of one forward block: both step inputs, h (two buffers)
-    and c of both cells and z for each row of the tile, plus the gate stages'
-    partial sums. The same in both modes: the tiles hold f32."""
-    return ((in_e + in_d + 6 * H + L) * _ROWS_PER_BLOCK
-            + 4 * _ROWS_PER_BLOCK * _UNITS_PER_PASS) * 4
-
-
-def _widths(cfg):
-    D, K = cfg.original_dim, cfg.n_classes
-    return D + K, (D if cfg.use_x_prev else 0) + K
+def fwd_smem_bytes(L: int, bf16: bool = False) -> int:
+    """Dynamic shared memory of one block of the forward's step kernel
+    (``csrc/two_cell.cu``): the mainloop's ring, or after it the staged f32
+    tile and the epilogue's op(h) of half the tile's rows and units, op(z)
+    of half its rows, the tile's rows of Wz and columns of Kz, whichever is
+    larger. The state lives in global memory: the hidden and input widths
+    do not enter."""
+    if bf16:  # 64 x 128 tiles: the ring, or the tile [64][132] + [32][32] + [32][L] + ...
+        return max(46080, (64 * 132 + 32 * 32 + 32 * L + 32 * 2 * L + 128 * L) * 4)
+    return max(27648, (32 * 36 + 16 * 8 + 16 * L + 8 * 2 * L + 32 * L) * 4)  # 32 x 32 FFMA
 
 
 def fits(cfg) -> bool:
-    """Does one forward block's carried state fit Hopper's shared memory?
-    (The backward keeps its state in global memory.)"""
-    in_e, in_d = _widths(cfg)
-    return fwd_smem_bytes(in_e, in_d, cfg.intermediate_dim, cfg.latent_dim) <= _SMEM_LIMIT
+    """Does a block of the forward's step kernel fit Hopper's shared
+    memory? Its state lives in global memory, so this holds at every
+    hidden width (it is the latent width L that enters, through the
+    epilogue's op(z))."""
+    bf16 = bool(getattr(cfg, "bf16_compute", False))
+    return fwd_smem_bytes(cfg.latent_dim, bf16) <= _SMEM_LIMIT
 
 
 # The widest H at which the two-cell route takes a bf16 config: an H100
 # (700 W), a training step (loss and backward) at B=1,024, D=88, L=2, T=16,
-# tools/torch_two_cell_gate.py, with the two-cell backward of
-# csrc/two_cell_tc.cu: two-cell faster at H=88, 256 and 512 (2.14x, 1.73x,
-# 1.31x), the two-loop route faster from H=768 (1.10x) to 2,048 (2.18-3.38x);
-# the bound sits midway between 512 and 768. In f32 (B=200, L=8) the
-# two-cell route was faster at every H measured, 88 to 2,048 (1.05-2.95x).
-BF16_TWO_CELL_MAX_H = 639
+# tools/torch_two_cell_gate.py, with the forward of csrc/two_cell.cu over
+# the whole batch on the tensor cores: two-cell faster at every H measured,
+# 88 to 2,048 (1.24-2.19x; with the earlier 4-row FFMA forward the two-loop
+# route won from H=768). The bound is the widest H measured. In f32 (B=200,
+# L=8) the two-cell route was faster at every H measured, 88 to 2,048
+# (1.11-3.22x).
+BF16_TWO_CELL_MAX_H = 2048
 
 
 def should_use(cfg, two_cell=None) -> bool:
     """Route ``lstm_backend='pallas'`` through the two-cell kernel?
 
     An explicit ``two_cell`` (or ``cfg.two_cell``) decides. Unset, the port
-    takes the kernel where it accepts the config (no dropout, no remat, the
-    state of one forward block fits shared memory) and the H100 measurement above
-    says it is the faster route: always in f32, up to
+    takes the kernel where it accepts the config (no dropout, no remat, a
+    forward block fits shared memory: :func:`fits`) and the H100 measurement
+    above says it is the faster route: always in f32, up to
     ``BF16_TWO_CELL_MAX_H`` in the bf16 stream mode. The JAX package's gate
     (256 <= H < 1024, VMEM residency) is a TPU measurement and is not read
     here. ``two_cell=False`` sends ``pallas`` to the two-loop path, whose
@@ -210,6 +211,59 @@ def two_cell_bwd_plain(ze, zd, cpe, ce, cpd, cd, hpe, he, hpd, eps, zargs, xe, x
     return (dxe, dxd, dh_e, dc_e, dh_d, dc_d, drke, drkd, dwe, dwdx, dkz, dwz, dbe, dbd, dbz)
 
 
+# ------------------------------------------------------------ the forward's layouts
+
+
+def round8(n: int) -> int:
+    """n rounded up to a multiple of 8 (16 bytes of bf16, two FFMA loads)."""
+    return -(-n // 8) * 8
+
+
+def fwd_tiles(H: int, bf16: bool) -> int:
+    """Column tiles of a step's product: 4H interleaved columns in tiles of
+    128 (bf16) or 32 (f32), BN / 4 units each."""
+    return -(-4 * H // (128 if bf16 else 32))
+
+
+def gate_rows_t(w, width: int):
+    """Wᵀ ``[4H, width]`` of a gate-ordered weight ``w [K, 4H]``: row
+    ``4u + g`` holds column ``g*H + u`` of w, K padded by zero columns to
+    ``width``. The step products read a weight so."""
+    K, H4 = w.shape
+    out = w.new_zeros((H4, width))
+    out[:, :K] = w.reshape(K, 4, H4 // 4).permute(2, 1, 0).reshape(H4, K)
+    return out
+
+
+def fwd_operands(xe, xd, we, rke, wdx, rkd, kz, h0e, h0d) -> dict:
+    """The forward kernel's operands, as its first launch
+    (``two_cell_layout_kernel`` of ``csrc/two_cell.cu``) lays them out in
+    its scratch; the CPU tests read this definition. The x streams
+    as ``[T*B, INp]`` rows (INp = round8(IN), zero pad columns), the weights
+    as :func:`gate_rows_t` (We, Wdx to INp; Rk_e, Rk_d to Hp = round8(H)),
+    Kz gate-interleaved (``ops/lstm_seq.py``'s ``interleave_gates``), and
+    the h operands ``[2, B, Hp]`` of
+    the stream type with h0 in buffer 0 (rounded to bf16 in the bf16 mode:
+    h as an operand), zeros elsewhere."""
+    from .lstm_seq import interleave_gates  # lstm_seq imports this module
+
+    T, B, in_e = xe.shape
+    in_d, H = xd.shape[-1], rke.shape[0]
+    Hp = round8(H)
+    rows = lambda x: torch.nn.functional.pad(
+        x.reshape(T * B, x.shape[-1]), (0, round8(x.shape[-1]) - x.shape[-1])).contiguous()
+
+    def hb(h0):
+        buf = torch.zeros((2, B, Hp), dtype=xe.dtype, device=xe.device)
+        buf[0, :, :H] = h0
+        return buf
+
+    return {"xe": rows(xe), "xd": rows(xd), "wet": gate_rows_t(we, round8(in_e)),
+            "rket": gate_rows_t(rke, Hp), "wdxt": gate_rows_t(wdx, round8(in_d)),
+            "rkdt": gate_rows_t(rkd, Hp), "kz": interleave_gates(kz).contiguous(),
+            "hbe": hb(h0e), "hbd": hb(h0d)}
+
+
 # ------------------------------------------------------------ CUDA wrappers
 
 _lib_lock = threading.Lock()
@@ -225,14 +279,21 @@ def _kernels():
         if _lib is None:
             lib = _build.load("two_cell")
             P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.cvl_two_cell_fwd_smem_bytes.argtypes = [I] * 4
+            lib.cvl_two_cell_fwd_smem_bytes.argtypes = [I, I]
             lib.cvl_two_cell_fwd_smem_bytes.restype = LL
-            want = fwd_smem_bytes(101, 101, 256, 8)
-            if lib.cvl_two_cell_fwd_smem_bytes(101, 101, 256, 8) != want:
-                raise RuntimeError("shared-memory layout of csrc/two_cell.cu differs from "
-                                   "fwd_smem_bytes")
+            lib.cvl_two_cell_fwd_tiles.argtypes = [I, I]
+            lib.cvl_two_cell_fwd_tiles.restype = I
+            for L, b in ((2, 1), (8, 0), (70, 1), (400, 0)):
+                if lib.cvl_two_cell_fwd_smem_bytes(L, b) != fwd_smem_bytes(L, bool(b)):
+                    raise RuntimeError("shared-memory layout of csrc/two_cell.cu differs from "
+                                       f"fwd_smem_bytes at L={L}, bf16={b}")
+            for H, b in ((256, 0), (512, 1), (20, 0), (20, 1)):
+                if lib.cvl_two_cell_fwd_tiles(H, b) != fwd_tiles(H, bool(b)):
+                    raise RuntimeError(f"column tiles of csrc/two_cell.cu differ at H={H}")
+            lib.cvl_two_cell_fwd_scratch_bytes.argtypes = [I] * 7
+            lib.cvl_two_cell_fwd_scratch_bytes.restype = LL
             for fn in (lib.cvl_two_cell_fwd, lib.cvl_two_cell_fwd_bf16):
-                fn.argtypes = [P] * 27 + [I] * 6 + [P]
+                fn.argtypes = [P] * 28 + [I] * 6 + [P]
                 fn.restype = I
             _lib = lib
         return _lib
@@ -275,9 +336,11 @@ def _count(which: str, n: int, bf16: bool):
 def two_cell_fwd(xe, xd, eps, we, be, rke, wdx, bd, rkd, kz, wz, bz, h0e, c0e, h0d, c0d):
     """The forward kernel (signature and results of :func:`two_cell_fwd_plain`).
 
-    CUDA tensors launch ``two_cell_fwd_kernel`` on the current stream (or
-    raise), in the bf16 stream mode where xe is bf16; CPU tensors take the
-    plain version."""
+    CUDA tensors launch ``csrc/two_cell.cu`` on the current stream (or
+    raise), in the bf16 stream mode where xe is bf16: the operands' layouts
+    (one launch: :func:`fwd_operands` on the card), then T + 1 step
+    launches, launch t running encoder step t and decoder step t - 1 over
+    the whole batch. CPU tensors take the plain version."""
     args = (xe, xd, eps, we, be, rke, wdx, bd, rkd, kz, wz, bz, h0e, c0e, h0d, c0d)
     dev = _device_of(xe)
     if dev.type == "cpu":
@@ -286,10 +349,8 @@ def two_cell_fwd(xe, xd, eps, we, be, rke, wdx, bd, rkd, kz, wz, bz, h0e, c0e, h
         raise ValueError("xe must be [T, B, INe] and rke [H, 4H]")
     T, B, in_e = xe.shape
     H, L, in_d = rke.shape[0], kz.shape[0], xd.shape[-1]
-    if T < 1 or B < 1:
-        raise ValueError(f"need T, B >= 1 (got {T}, {B})")
-    if fwd_smem_bytes(in_e, in_d, H, L) > _SMEM_LIMIT:
-        raise ValueError(f"hidden {H} is too wide for the two-cell kernels' shared memory")
+    if T < 1 or B < 1 or H < 1:
+        raise ValueError(f"need T, B, H >= 1 (got {T}, {B}, {H})")
     H4 = 4 * H
     bf16 = xe.dtype == torch.bfloat16
     _check(dev, {"xe": (xe, (T, B, in_e)), "xd": (xd, (T, B, in_d)), "eps": (eps, (T, B, L)),
@@ -299,18 +360,22 @@ def two_cell_fwd(xe, xd, eps, we, be, rke, wdx, bd, rkd, kz, wz, bz, h0e, c0e, h
                  "h0e": (h0e, (B, H)), "c0e": (c0e, (B, H)), "h0d": (h0d, (B, H)),
                  "c0d": (c0d, (B, H))},
            bf16=BF16_FWD_INPUTS if bf16 else frozenset())
+    if fwd_smem_bytes(L, bf16) > _SMEM_LIMIT:
+        raise ValueError(f"latent width {L} is too wide for the two-cell forward's shared memory")
     lib = _kernels()
     sd = torch.bfloat16 if bf16 else torch.float32
     with torch.cuda.device(dev):
-        wz_t = wz.T.contiguous()
         new = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype, device=dev)
+        # the laid-out operands (fwd_operands) and the z heads' partial sums:
+        # one scratch buffer
+        scratch = new(lib.cvl_two_cell_fwd_scratch_bytes(T, B, in_e, in_d, H, L, int(bf16)),
+                      dtype=torch.uint8)
         # hd, zargs, ze, zd, hpe, cpe, ce, he, hpd, cpd, cd
         outs = (new(T, B, H), new(T, B, 2 * L), new(T, B, H4, dtype=sd), new(T, B, H4, dtype=sd),
                 new(T, B, H, dtype=sd), new(T, B, H), new(T, B, H), new(T, B, H, dtype=sd),
                 new(T, B, H, dtype=sd), new(T, B, H), new(T, B, H))
-        ins = (xe, xd, eps, we, be, rke, wdx, bd, rkd, kz, wz_t, bz, h0e, c0e, h0d, c0d)
         launch = lib.cvl_two_cell_fwd_bf16 if bf16 else lib.cvl_two_cell_fwd
-        err = launch(*(t.data_ptr() for t in ins + outs), T, B, in_e, in_d, H, L,
+        err = launch(*(t.data_ptr() for t in (*args, scratch, *outs)), T, B, in_e, in_d, H, L,
                      torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"two_cell forward kernel launch failed: CUDA error {err}")

@@ -1366,3 +1366,82 @@ def test_vae_dense_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="shared memory"):
         vd.vae_dense_fwd(*wide)
     assert (vd.FWD_LAUNCHES, vd.BWD_LAUNCHES) == before
+
+
+# ---- the redesigned two-cell forward (csrc/two_cell.cu) and f32 / bf16
+# generation kernel (generate_kernel): widths past the old shared-memory
+# limits, the serving buckets, weights resident and streamed, repeatable bits
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("H", [136, 2400])
+def test_two_cell_forward_without_width_limit(dev, H, bf16):
+    """The forward at a width the 4-row-tile kernel could not take (its
+    state in shared memory stopped near H = 2,200) and at a K split of
+    whole chunks with a ragged rest, recurrent weights at an init's scale:
+    against the plain version (f32 1e-5 x max(1, max|plain|): the
+    pre-activations sum 2,400 products in another order;
+    bf16 streams within one bf16 step at their largest entry, f32 outputs
+    within 1e-2 x max(1, max|plain|)), one launch a call, the same bits
+    from a second call."""
+    ins = list(_two_cell_bf16_inputs(dev, B=20, T=3, H=H, L=2) if bf16 else
+               _two_cell_inputs(dev, B=20, T=3, H=H, L=2))
+    # the recurrent kernels and z heads scaled by sqrt(40 / H), as an init
+    # scales them, so that the pre-activations stay O(1) at every width
+    for i in (5, 8, 10):
+        ins[i] = (ins[i].float() * (40 / H) ** 0.5).to(ins[i].dtype)
+    before = (tc.FWD_LAUNCHES, tc.BF16_FWD_LAUNCHES)
+    outs = tc.two_cell_fwd(*ins)
+    again = tc.two_cell_fwd(*ins)
+    torch.cuda.synchronize()
+    assert (tc.FWD_LAUNCHES, tc.BF16_FWD_LAUNCHES) == (before[0] + 2 * (not bf16),
+                                                       before[1] + 2 * bf16)
+    assert all(torch.equal(a, b) for a, b in zip(outs, again))
+    ref = tc.two_cell_fwd_plain(*ins)
+    names = ("hd", "zargs", "ze", "zd", "hpe", "cpe", "ce", "he", "hpd", "cpd", "cd")
+    for name, k, p in zip(names, outs, ref):
+        assert k.dtype == p.dtype, name
+        err = (k.float() - p.float()).abs().max().item()
+        if not bf16:
+            assert err <= 1e-5 * max(1.0, p.abs().max().item()), (name, err)
+        elif name in ("ze", "zd", "hpe", "he", "hpd"):
+            assert err <= _bf16_step_at_max(p), (name, err)
+        else:
+            assert err <= 1e-2 * max(1.0, p.abs().max().item()), (name, err)
+
+
+GEN_CASES = {
+    # the serving buckets of jsball_vrnn4's shape (f32 weights resident)
+    **{f"f32_b{B}": dict(B=B, Tseed=4, nsteps=8, H=256, D=88, L=8, K=10, seed=6)
+       for B in (1, 4, 16, 64, 256)},
+    # bf16: resident at H=512 and 1,024, streamed from L2 at 1,536 and 2,048
+    **{f"bf16_b{B}_h{H}": dict(B=B, Tseed=3, nsteps=6, H=H, D=88, L=2, K=13, seed=7, bf16=True)
+       for B in (1, 64) for H in (512, 1024, 1536, 2048)},
+    "bf16_b256_h512": dict(B=256, Tseed=3, nsteps=6, H=512, D=88, L=2, K=13, seed=8, bf16=True),
+    # more songs than one launch takes (two cooperative launches, one call)
+    "f32_b300": dict(B=300, Tseed=2, nsteps=4, H=64, seed=9),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GEN_CASES))
+def test_generate_kernel_buckets_and_widths(dev, case):
+    """The f32 / bf16 kernel at the serving buckets and at widths whose
+    slices stay resident or stream: probabilities with u = 1 against the
+    plain version (f32 1e-5; bf16 max 2e-2, mean 2e-3, as chip_smoke holds
+    it), one counted call each, and a second call bitwise equal."""
+    kw = dict(GEN_CASES[case])
+    bf16 = kw.get("bf16", False)
+    params, cfg, (seeds, nsteps, eps, u, ws) = _problem(dev, **kw)
+    u1 = torch.ones_like(u)
+    mode = "bf16" if bf16 else "f32"
+    run = lambda f: f(params, cfg, seeds, nsteps, eps, u1, ws, return_probs=True, mode=mode)
+    before = cg.LAUNCHES
+    pk, again = run(cg.generate_cl_vrnn_batch_cuda), run(cg.generate_cl_vrnn_batch_cuda)
+    torch.cuda.synchronize()
+    assert cg.LAUNCHES == before + 2
+    assert torch.equal(pk, again)
+    pp = run(cg.generate_cl_vrnn_batch_plain)
+    d = (pk - pp).abs()
+    if bf16:
+        assert d.max().item() <= 2e-2 and d.mean().item() <= 2e-3, (d.max(), d.mean())
+    else:
+        assert d.max().item() <= 1e-5, d.max()

@@ -156,9 +156,12 @@ def test_two_cell_off_on_pallas_raises(tmp_path):
 def test_wide_bf16_pallas_pins_the_proj_only_rung(monkeypatch):
     """``cl_vrnn_train --lstm_backend pallas --intermediate_dim 2048`` with
     ``bf16_compute`` (set on the namespace: neither CLI has the flag; JAX
-    ``--lstm_backend auto`` sets it on a TPU) pins fusion (T, F, F) and
-    ``two_cell`` off, the args.json JAX auto writes at that width. Checked
-    where the run builds its model, without training at that width."""
+    ``--lstm_backend auto`` sets it on a TPU) pins fusion (T, F, F), the
+    args.json JAX auto writes at that width, and ``two_cell`` on, where the
+    port's H100 gate measured the two-cell route faster (JAX writes it off
+    there; both routes compute the same function, and a checkpoint reloads
+    onto the route its args.json names). Checked where the run builds its
+    model, without training at that width."""
     args = tcli.build_parser().parse_args(
         ["r", "--device", "cpu", "--train_file", CORPUS, "--seq_length", "4",
          "--intermediate_dim", "2048", "--batch_size", "1000", "--lstm_backend", "pallas"])
@@ -174,8 +177,8 @@ def test_wide_bf16_pallas_pins_the_proj_only_rung(monkeypatch):
         tcli.train(args)
     cfg = built.value.args[0]
     assert (cfg.intermediate_dim, cfg.lstm_backend, cfg.bf16_compute, cfg.fusion,
-            cfg.two_cell) == (2048, "pallas", True, (True, False, False), False)
-    assert (args.fusion, args.two_cell) == ([True, False, False], False)
+            cfg.two_cell) == (2048, "pallas", True, (True, False, False), True)
+    assert (args.fusion, args.two_cell) == ([True, False, False], True)
 
 
 def test_default_device_needs_a_card():

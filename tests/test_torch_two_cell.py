@@ -373,13 +373,19 @@ def test_should_use():
     assert ttc.should_use(mk(intermediate_dim=256, bf16_compute=True))
     assert ttc.should_use(mk(intermediate_dim=512, bf16_compute=True))
     assert ttc.should_use(mk(intermediate_dim=ttc.BF16_TWO_CELL_MAX_H, bf16_compute=True))
-    assert not ttc.should_use(mk(intermediate_dim=768, bf16_compute=True))
-    assert not ttc.should_use(mk(intermediate_dim=1536, bf16_compute=True))
-    assert ttc.should_use(mk(intermediate_dim=1536, bf16_compute=True), two_cell=True)
+    assert ttc.should_use(mk(intermediate_dim=768, bf16_compute=True))
+    assert ttc.should_use(mk(intermediate_dim=1536, bf16_compute=True))
+    assert not ttc.should_use(mk(intermediate_dim=4096, bf16_compute=True))  # not measured
+    assert ttc.should_use(mk(intermediate_dim=4096, bf16_compute=True), two_cell=True)
     assert not ttc.should_use(mk(intermediate_dim=256, dropout=0.1))
     assert not ttc.should_use(mk(intermediate_dim=256, remat=True))
-    assert not ttc.should_use(mk(intermediate_dim=8192))  # one block's state > shared memory
-    assert not ttc.fits(mk(intermediate_dim=8192))
+    # the forward keeps its state in global memory: no width limit; only an
+    # absurd latent width overflows a step block's shared memory
+    assert ttc.should_use(mk(intermediate_dim=8192))
+    assert ttc.fits(mk(intermediate_dim=8192))
+    assert not ttc.fits(mk(intermediate_dim=256, latent_dim=20000))
+    assert not ttc.should_use(mk(intermediate_dim=256, latent_dim=20000))
+    assert not ttc.should_use(mk(intermediate_dim=8192), two_cell=False)
     # an explicit choice wins both ways, from the argument or the config
     assert ttc.should_use(mk(intermediate_dim=8192), two_cell=True)
     assert not ttc.should_use(mk(intermediate_dim=256), two_cell=False)

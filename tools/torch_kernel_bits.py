@@ -9,7 +9,8 @@
 forwards of ``csrc/lstm_seq.cu`` and the f32 walks, the two-cell forward and
 backward in f32 and bf16, both dense-stack forwards and the f32 dense-stack
 backward, the int8 cl_vrnn generation kernel (probabilities with u = 1 and
-sampled frames at H=1,536, 64 songs x (32 + 256) steps) — on inputs made
+sampled frames at H=1,536, 64 songs x (32 + 256) steps) and the f32 / bf16
+one (on those weights, and sampled frames at H=256) — on inputs made
 from a fixed seed, and saves every output.
 ``compare`` reports, per output, whether two saved runs are bitwise equal,
 and exits 1 if any differs. Run ``save`` once per checkout (each in its own
@@ -103,6 +104,8 @@ def _vae(out: dict):
 
 
 def _int8(out: dict):
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -139,6 +142,24 @@ def _int8(out: dict):
                                                         return_probs=rp, mode="int8")
     out["int8_cl_vrnn_probs_u1"] = run(torch.ones_like(u), True)
     out["int8_cl_vrnn_frames"] = run(u, False)
+    # the f32 / bf16 generation kernel on the same weights (streamed slices)
+    # and at jsball_vrnn4's width (H=256: resident), probabilities with u = 1
+    for mode in ("bf16", "f32"):
+        out[f"{mode}_cl_vrnn_probs_u1"] = cg.generate_cl_vrnn_batch_cuda(
+            params, cfg, seeds, nsteps, eps, torch.ones_like(u), ws, return_probs=True, mode=mode)
+    H = 256
+    cfg = dataclasses.replace(cfg, intermediate_dim=H, latent_dim=8, bf16_compute=False)
+    L = 8
+    raw = {"encoder_h": {"kernel": glorot(D + K, 4 * H), "recurrent_kernel": glorot(H, 4 * H),
+                         "bias": zeros(4 * H)},
+           "decoder_h": {"kernel": glorot(D + L + K, 4 * H),
+                         "recurrent_kernel": glorot(H, 4 * H), "bias": zeros(4 * H)},
+           "Z_mean": {"kernel": glorot(H, L), "bias": zeros(L)},
+           "Z_log_var": {"kernel": glorot(H, L), "bias": zeros(L)},
+           "X_decoded_mean": {"kernel": glorot(H, D), "bias": np.full(D, -2.0, np.float32)}}
+    eps = t(rng.standard_normal((B, total, L)).astype(np.float32))
+    out["f32_cl_vrnn_h256_frames"] = cg.generate_cl_vrnn_batch_cuda(
+        params_from_numpy(raw, dev), cfg, seeds, nsteps, eps, u, ws, mode="f32")
     torch.cuda.synchronize()
 
 
