@@ -19,7 +19,8 @@ failure:
    two-cell forward): its bf16 kernels do, its f32 kernels none; of
    ``csrc/generate_cl_vrnn.cu``: ``generate_kernel``'s bf16 instance does,
    its f32 instance none, and ``generate_int8_kernel`` holds int8
-   tensor-core (IMMA) instructions and no ``__dp4a`` (IDP);
+   tensor-core (IMMA) instructions and no ``__dp4a`` (IDP), as does
+   ``csrc/generate_cl_vae.cu``'s ``generate_vae_int8_kernel``;
 2. kernel vs plain version, f32, on the trained ``artifacts/jsball_vrnn4``
    weights at the largest serving bucket (64 songs, 32 seed + 256 steps):
    probabilities with u=1 within 1e-5, and sampled frames equal up to each
@@ -132,16 +133,20 @@ failure:
    bf16 route's error against the f32 truth + 2% of its norm, the weight
    gradients bf16-representable and the bias gradients not rounded; a
    second backward call bitwise equal; times beside the bound at the bf16
-   rate, and the backward's device time (``csrc/vae_dense_tc.cu``) split
-   between the row-chain products, the row kernels and the weight
-   gradients;
+   rate; both bf16 kernels are ``csrc/vae_dense_tc.cu``: the forward's
+   device time split between its two product launches and its row kernel,
+   its device launches a call as the profiler records them (the wrapper
+   counts the call's three launches as one) and a second call bitwise
+   equal; the backward's split between the row-chain products, the row
+   kernels and the weight gradients;
 19. the bf16 paths: ``cli.cl_vae_train --seq_length 16 --intermediate_dim
    1024 --intermediate_class_dim 256 --latent_dim 16 --bf16_compute
    --train_backend pallas`` for 2 epochs on the committed corpus (D=1,024;
    bf16 counts set to 0 just before and read just after, equal to the run's
    steps), then 1 epoch of ``xla`` from the same seed (first-epoch loss
    within 1e-2 relative), a step's time split (wall, device busy, idle
-   share), ``cli.evaluate --family cl_vae`` of the checkpoint; then a bf16
+   share, the dense-stack kernels' device ms by part),
+   ``cli.evaluate --family cl_vae`` of the checkpoint; then a bf16
    H=512 model at D=88 trained
    through the kernels, sampled by ``cli.cl_vae_sample`` and served by
    ``cli.serve`` through the wide kernel (launches equal to the engine's
@@ -243,13 +248,19 @@ failure:
    H=1,752 (the JAX package's int8 band), 64 songs x (32 + 256) steps, the
    kernel's profiler device time (one launch a call) apart from the
    wrapper's CUDA-event time and its pack; cl_vae at the
-   seq-concat width (D=1,024, L=16, no x_prev), H=5,120, 64 x 256, with and
-   without use_z_prior: the quantized operands equal on the card and the
-   host, probabilities with u=1 within 1e-5, free-running frames equal in
-   >= 99.9% of entries; the int8 kernel, its plain version and the bf16
-   kernel on the same weights timed, beside the int8 bound; at H=1,536 the
-   bf16 kernel's CUDA-event and device time beside its bound at the bf16
-   rate (its slices stream from L2);
+   seq-concat width (D=1,024, L=16), H=5,120 without x_prev (with and
+   without use_z_prior) and H=4,160 with x_prev, whose weight slices stay
+   in shared memory, and H=5,120 and H=7,808 with x_prev, which stream the
+   frame head's tiles and then the x rows as well, 64 x 256: the layout
+   each takes, the quantized
+   operands equal on the card and the host, probabilities with u=1 within
+   1e-5, free-running frames equal in >= 99.9% of entries, the kernel's
+   profiler device time (one launch a call), the pack timed apart and the
+   kernel's own clock of each part of a step
+   (``cuda_generate_vae.phase_ms``); the int8 kernel, its plain version and
+   the bf16 kernel on the same weights timed, beside the int8 bound; at
+   H=1,536 the bf16 kernel's CUDA-event and device time beside its bound at
+   the bf16 rate (its slices stream from L2);
 30. the int8 paths: ``cli.cl_vrnn_train`` writes the bf16 H=1,536 cl_vrnn
    (1 epoch, ``--lstm_backend pallas``, ``bf16_compute`` as JAX ``auto``
    sets it; args.json pallas, bf16, fusion (T, T, T), ``two_cell`` off; the
@@ -266,7 +277,8 @@ failure:
    Frobenius, each timed beside its bound (Rk crosses the 50 MB L2 between
    H=2,048 and 2,560).
 
-The run fails if a thread it started is still running at the end.
+The run prints each phase's wall time, and fails if a thread it started is
+still running at the end.
 
 The last lines are the kernel table (one JSON object), the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. ``--phases`` runs only
@@ -277,8 +289,10 @@ run prints neither the table nor the result line.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -424,13 +438,20 @@ VAE_TC = ("vae_tc_product_kernel", "vae_tc_dw_kernel")
 LSTM_BWD_F32 = ("lstm_bwd_walk_kernel", "lstm_bwd_dx_kernel", "wgrad_kernel")
 
 
-def hmma_counts(source, names) -> dict:
-    """HMMA / HGMMA count per kernel of the built ``csrc/<source>.cu`` whose
-    mangled name holds one of ``names`` (``cuobjdump -sass``)."""
+@functools.lru_cache(maxsize=None)
+def lib_sass(source) -> dict:
+    """``cuobjdump -sass`` counts per kernel of the built ``csrc/<source>.cu``
+    (``tools/torch_kernel_resources.sass_counts``), read once a library."""
     from classifying_vae_lstm_tpu_torch.ops import _build
     from tools.torch_kernel_resources import sass_counts
 
-    counts = sass_counts(str(_build._lib_path(source)))
+    return sass_counts(str(_build._lib_path(source)))
+
+
+def hmma_counts(source, names) -> dict:
+    """HMMA / HGMMA count per kernel of the built ``csrc/<source>.cu`` whose
+    mangled name holds one of ``names``."""
+    counts = lib_sass(source)
     return {k: [c["hmma"] for n, c in counts.items() if k in n] for k in names}
 
 
@@ -440,12 +461,14 @@ def phase_tensor_cores():
     instructions; likewise the bf16 product kernels of
     ``csrc/two_cell_tc.cu``, of the two-cell forward (``csrc/two_cell.cu``)
     and the bf16 instance of the generation kernel, whose f32 kernels hold
-    none; the int8 generation kernel of ``csrc/generate_cl_vrnn.cu`` holds
-    int8 tensor-core (IMMA) instructions and no ``__dp4a`` (IDP)."""
-    from classifying_vae_lstm_tpu_torch.ops import _build
-    from tools.torch_kernel_resources import sass_counts
-
-    counts = {n: c["hmma"] for n, c in sass_counts(str(_build._lib_path("lstm_seq_tc"))).items()}
+    none; the int8 generation kernels of ``csrc/generate_cl_vrnn.cu`` and
+    ``csrc/generate_cl_vae.cu`` hold int8 tensor-core (IMMA) instructions
+    and no ``__dp4a`` (IDP)."""
+    sources = ("lstm_seq_tc", "two_cell_tc", "two_cell", "generate_cl_vrnn", "generate_cl_vae",
+               "vae_dense_tc", "lstm_bwd_f32")
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:  # one cuobjdump each
+        list(pool.map(lib_sass, sources))
+    counts = {n: c["hmma"] for n, c in lib_sass("lstm_seq_tc").items()}
     found = {k: [n for n in counts if k in n] for k in TC_KERNELS}
     print("tensor-core instructions (HMMA/HGMMA) in csrc/lstm_seq_tc.cu: " + "; ".join(
         f"{k} {[counts[n] for n in names]}" for k, names in found.items()))
@@ -469,13 +492,18 @@ def phase_tensor_cores():
     require(all(v and not any(v) for v in (*fwd32.values(), *gen32.values())),
             f"an f32 kernel of the two-cell forward or of generation holds tensor-core "
             f"instructions: {fwd32} {gen32}")
-    i8 = {n: c for n, c in sass_counts(str(_build._lib_path("generate_cl_vrnn"))).items()
-          if "generate_int8_kernel" in n}
+    i8 = {n: c for n, c in lib_sass("generate_cl_vrnn").items() if "generate_int8_kernel" in n}
     print("generate_int8_kernel (csrc/generate_cl_vrnn.cu): " + "; ".join(
         f"{c['imma']} IMMA (int8 tensor-core), {c['idp']} IDP (__dp4a) of {c['sass']} "
         "instructions" for c in i8.values()))
     require(len(i8) == 1 and all(c["imma"] > 0 and c["idp"] == 0 for c in i8.values()),
             f"generate_int8_kernel does not run its products on the int8 tensor cores: {i8}")
+    v8 = {n: c for n, c in lib_sass("generate_cl_vae").items()
+          if "generate_vae_int8_kernel" in n}
+    print("generate_vae_int8_kernel (csrc/generate_cl_vae.cu): " + "; ".join(
+        f"{c['imma']} IMMA, {c['idp']} IDP of {c['sass']} instructions" for c in v8.values()))
+    require(len(v8) == 1 and all(c["imma"] > 0 and c["idp"] == 0 for c in v8.values()),
+            f"generate_vae_int8_kernel does not run its products on the int8 tensor cores: {v8}")
     vae16, lstm32 = hmma_counts("vae_dense_tc", VAE_TC), hmma_counts("lstm_bwd_f32", LSTM_BWD_F32)
     print(f"tensor-core instructions in csrc/vae_dense_tc.cu's products {vae16}; in "
           f"csrc/lstm_bwd_f32.cu {lstm32}")
@@ -1214,10 +1242,12 @@ BWD_PARTS = {"walk": ("lstm_tc_bwd_gates", "lstm_tc_bwd_step"), "dRk": ("lstm_tc
              "dW/db": ("wgrad_kernel",)}
 
 
-def device_split(fn, n, parts):
+def device_split(fn, n, parts, count=None):
     """Device ms per call of ``fn`` by part (kernels whose name holds one of
     the part's keys) from ``torch.profiler`` over n calls after a warm-up,
-    as a printable string; "not measured" where it records none."""
+    as a printable string, with the device launches a call of the kernels
+    whose name holds ``count`` where it is given; "not measured" where it
+    records none."""
     import torch
 
     try:
@@ -1229,8 +1259,12 @@ def device_split(fn, n, parts):
     if not rows:
         return "not measured"
     per = lambda keys: sum(dev_us(e) for e in rows if any(k in e.key for k in keys)) / (n * 1e3)
-    return ", ".join(f"{p} {per(keys):.3f} ms" for p, keys in parts.items()) + \
+    text = ", ".join(f"{p} {per(keys):.3f} ms" for p, keys in parts.items()) + \
         f" (all kernels {sum(dev_us(e) for e in rows) / (n * 1e3):.3f} ms)"
+    if count:
+        text += (f"; {sum(e.count for e in rows if count in e.key) / n:g} device launches a "
+                 f"call of its {count}* kernels")
+    return text
 
 
 # the f32 walks of the dz-only and drk rungs (csrc/lstm_bwd_f32.cu): the
@@ -1247,6 +1281,14 @@ VAE_TC_PARTS = {"row-chain products": ("vae_tc_product",),
                 "row kernels": ("vae_tc_head", "vae_tc_latent", "vae_tc_key"),
                 "weight gradients": ("vae_tc_dw", "wgrad_"),
                 "of which narrow and bias sums": ("wgrad_",)}
+# the bf16 dense-stack forward's parts (csrc/vae_dense_tc.cu): the two
+# product launches (the x-side products, the frame head), the narrow chain
+VAE_TC_FWD_PARTS = {"products": ("vae_tc_product",), "row kernel": ("vae_tc_fwd_rows",)}
+# a bf16 cl_vae training step's dense-stack kernels by part (phase 19)
+VAE_STEP_PARTS = {"forward row kernel": ("vae_tc_fwd_rows",),
+                  "products, both directions": ("vae_tc_product",),
+                  "backward row kernels": ("vae_tc_head", "vae_tc_latent", "vae_tc_key"),
+                  "weight gradients": ("vae_tc_dw", "wgrad_")}
 
 # the two-cell backward's parts, by kernel name: the serial walk (the
 # per-step products with the decoder's gates, and the z hand-off with the
@@ -2152,6 +2194,9 @@ def phase_vae_dense_bf16(dev):
         require(all(torch.isfinite(o).all().item() for o in outs), "bf16 forward not finite")
         require(all(errs[n] <= 1e-2 * scale[n] and rels[n] <= 1e-3 for n in names),
                 f"bf16 dense-stack forward differs: {errs} {rels}")
+        same_bits(vd.vae_dense_fwd, ins, outs, names, f"vae_dense bf16 forward, {label} shape")
+        split = device_split(lambda: vd.vae_dense_fwd(*ins), 10, VAE_TC_FWD_PARTS, "vae_tc_")
+        print(f"vae_dense bf16 forward, {label} shape, device: {split}")
         (x_, xp_, ew, ez, whw, _, wwz, _, whx, whw2, _, wzz, _, wdw, wdxp, wdz, _, wxh, _) = ins
         xhat, wargs, zargs, w, a1, a2, a3 = ref
         cot = [f((1e-2 * rng.standard_normal(tuple(o.shape))).astype(np.float32))
@@ -3429,9 +3474,11 @@ def phase_other_rungs(model_dir, first_loss):
 # sampler picks int8 weights (tests/test_pallas_generate.py:111); and the bf16
 # seq-concat cl_vae (D=1,024) at H=5,120 (tests/test_pallas_generate_vae.py:149
 # pins int8 there at D=976). --two_cell off writes JAX's two_cell, as phase
-# 21 does at H=1,024 (the port's own gate, measured on the H100, also keeps
-# a bf16 H=1,536 model off the two-cell kernels).
+# 21 does at H=1,024: the port's own gate, measured on the H100, would take
+# the two-cell route here (BF16_TWO_CELL_MAX_H = 2,048 in ops/two_cell.py).
 INT8_H, INT8_VAE_H = 1536, 5120
+INT8_VAE_XP_H = 4160  # the narrowest int8 width at D=1,024, with the x_prev slices
+INT8_VAE_TOP_H = 7808  # the widest int8 width at D=1,024
 INT8_TOP_H = 1752  # the widest H the JAX package samples in int8 at D=88, L=2
 INT8_FLAGS = ["--train_file", CORPUS, "--intermediate_dim", str(INT8_H), "--latent_dim",
               str(BF16_L), "--seq_length", str(TRAIN_T), "--batch_size", str(BF16_B),
@@ -3536,9 +3583,12 @@ def phase_int8_kernels(dev):
     H=1,536 and H=1,752 (the top of the JAX package's int8 band), 64 songs x
     (32 + 256) steps (phase 2's shape), with the kernel's profiler device
     time and launches a call and the wrapper's pack timed apart; cl_vae at
-    the seq-concat width (D=1,024, L=16, no x_prev), H=5,120, 64 x 256 steps
-    (phase 17's wide shape), with and without use_z_prior. Returns the
-    kernel-table fields of the H=1,536 cl_vrnn and the cl_vae runs."""
+    the seq-concat width (D=1,024, L=16), 64 x 256 steps (phase 17's wide
+    shape), the same apart and the kernel's clock of each part of a step:
+    H=5,120 without x_prev, with and without use_z_prior, and H=4,160 with
+    x_prev (weight slices resident in shared memory), H=5,120 (the head's
+    tiles streamed) and H=7,808 (the x rows too) with x_prev. Returns the kernel-table fields of the H=1,536 cl_vrnn and the
+    H=5,120 cl_vae runs (the largest error of every cl_vae case)."""
     import numpy as np
     import torch
 
@@ -3606,42 +3656,61 @@ def phase_int8_kernels(dev):
         print(f"int8 cl_vrnn H={H}: a call's parts (block 0's clock, ms; a wait is the "
               "slowest block's lag and the grid barrier) "
               + "; ".join(f"{n} {v:.3f}" for n, v in split.items()))
-    D, H, L, nsteps = 1024, INT8_VAE_H, 16, 256
-    cfg = cl_vae.Config(original_dim=D, intermediate_dim=H, latent_dim=L,
-                        intermediate_class_dim=256, n_classes=K, use_x_prev=False,
-                        bf16_compute=True, gen_backend="pallas")
-    require(cgv.pick_mode(cfg) == "int8" and cgv.kernel_for(cfg) == "generate_cl_vae_int8",
-            f"cl_vae H={H}: {cgv.pick_mode(cfg)}, {cgv.kernel_for(cfg)}")
-    raw = glorot_vae_raw(rng, D, H, L, K, False, Cw=256)
-    raw["x_decoded_mean"]["bias"][:] = -2.0
-    params = params_from_numpy(raw, dev)
-    host = params_from_numpy(raw, "cpu")
-    seeds = torch.from_numpy((rng.random((B, D)) < 0.1).astype(np.float32)).to(dev)
-    eps = torch.from_numpy(rng.standard_normal((B, nsteps, L), dtype=np.float32)).to(dev)
-    u = torch.from_numpy(rng.random((B, nsteps, D), dtype=np.float32)).to(dev)
-    pack = lambda where: cgv._pack_int8(params if where == "cuda" else host, cfg,
-                                        ws if where == "cuda" else ws.cpu())
-    w = pack("cuda")
-    macs = B * nsteps * (D * H + H * D)
-    other = 2 * B * nsteps * (H * 2 * L + L * H)
-    nbytes = (_tensor_bytes(w, ("encb", "decb")) + 4 * (2 * B * H + B * D + B * nsteps * (L + D)
-                                                        + B * nsteps * D))
-    for zp in (False, True):
-        run = lambda f, uu, rp, mode="int8": f(params, cfg, seeds, nsteps, eps, uu, ws,
-                                               use_z_prior=zp, return_probs=rp, mode=mode)
-        row = _int8_case(
-            f"cl_vae D={D} H={H} use_z_prior={zp} (64 x 256)",
-            lambda uu, rp: run(cgv.generate_cl_vae_batch_cuda, uu, rp),
-            lambda uu, rp: run(cgv.generate_cl_vae_batch_plain, uu, rp),
-            lambda uu: run(cgv.generate_cl_vae_batch_cuda, uu, False, "bf16"),
-            pack, nbytes, macs, 0 if zp else other, torch.ones_like(u), u)
-        rows[f"cl_vae zp={zp}"] = row
-    errs = max(rows["cl_vae zp=False"]["max_abs_err"], rows["cl_vae zp=True"]["max_abs_err"])
+    D, L, nsteps = 1024, 16, 256
+    # each width with the residency (x-row slices, head tiles) it must take
+    layouts = {(INT8_VAE_H, False): (True, True), (INT8_VAE_XP_H, True): (True, True),
+               (INT8_VAE_H, True): (True, False), (INT8_VAE_TOP_H, True): (False, False)}
+    for (H, use_xp), res in layouts.items():
+        cfg = cl_vae.Config(original_dim=D, intermediate_dim=H, latent_dim=L,
+                            intermediate_class_dim=256, n_classes=K, use_x_prev=use_xp,
+                            bf16_compute=True, gen_backend="pallas")
+        require(cgv.pick_mode(cfg) == "int8" and cgv.kernel_for(cfg) == "generate_cl_vae_int8",
+                f"cl_vae H={H}: {cgv.pick_mode(cfg)}, {cgv.kernel_for(cfg)}")
+        raw = glorot_vae_raw(rng, D, H, L, K, use_xp, Cw=256)
+        raw["x_decoded_mean"]["bias"][:] = -2.0
+        params = params_from_numpy(raw, dev)
+        host = params_from_numpy(raw, "cpu")
+        seeds = torch.from_numpy((rng.random((B, D)) < 0.1).astype(np.float32)).to(dev)
+        eps = torch.from_numpy(rng.standard_normal((B, nsteps, L), dtype=np.float32)).to(dev)
+        u = torch.from_numpy(rng.random((B, nsteps, D), dtype=np.float32)).to(dev)
+        pack = lambda where: cgv._pack_int8(params if where == "cuda" else host, cfg,
+                                            ws if where == "cuda" else ws.cpu())
+        w = pack("cuda")
+        plan = cgv.int8_plan(cfg, B, n_sm)
+        print(f"int8 cl_vae D={D} H={H} use_x_prev={use_xp}: {plan['G']} blocks of "
+              f"{plan['nu']} hidden units on {n_sm} SMs, the frame head in {plan['hs']} song "
+              f"groups of {plan['P']} pitch tiles a block, slices resident (x rows, head) "
+              f"{plan['res']}")
+        require(plan["res"] == res, f"cl_vae H={H} use_x_prev={use_xp}: layout {plan['res']}, "
+                f"not {res}")
+        macs = B * nsteps * (D * H * (2 if use_xp else 1) + H * D)
+        other = 2 * B * nsteps * (H * 2 * L + L * H)
+        nbytes = (_tensor_bytes(w, ("encb", "decb"))
+                  + 4 * (2 * B * H + B * D + B * nsteps * (L + D) + B * nsteps * D))
+        for zp in ((False, True) if not use_xp else (False,)):
+            run = lambda f, uu, rp, mode="int8": f(params, cfg, seeds, nsteps, eps, uu, ws,
+                                                   use_z_prior=zp, return_probs=rp, mode=mode)
+            key = f"cl_vae H={H} xp={use_xp} zp={zp}"
+            rows[key] = _int8_case(
+                f"cl_vae D={D} H={H} use_x_prev={use_xp} use_z_prior={zp} (64 x 256)",
+                lambda uu, rp: run(cgv.generate_cl_vae_batch_cuda, uu, rp),
+                lambda uu, rp: run(cgv.generate_cl_vae_batch_plain, uu, rp),
+                lambda uu: run(cgv.generate_cl_vae_batch_cuda, uu, False, "bf16"),
+                pack, nbytes, macs, 0 if zp else other, torch.ones_like(u), u,
+                device_key="generate_vae_int8_kernel",
+                kernel_pack=lambda: cgv.pack_int8(pack("cuda"), cfg, plan["nu"], plan["G"],
+                                                  plan["P"], plan["hs"]))
+            split = cgv.phase_ms(params, cfg, seeds, nsteps, eps, u, ws, use_z_prior=zp)
+            print(f"int8 {key}: a call's parts (block 0's clock, ms; a wait is the slowest "
+                  "block's lag and the grid barrier) "
+                  + "; ".join(f"{n} {v:.3f}" for n, v in split.items()))
+    main_row = rows[f"cl_vae H={INT8_VAE_H} xp=False zp=False"]
+    errs = max(v["max_abs_err"] for k, v in rows.items() if k.startswith("cl_vae"))
     top, mid = rows[f"cl_vrnn H={INT8_TOP_H}"], rows[f"cl_vrnn H={INT8_H}"]
     print(f"int8 cl_vrnn kernel at H={INT8_H} / {INT8_TOP_H}: {mid['ms']:.3f} / {top['ms']:.3f} "
           f"ms (device {mid.get('device_ms')} / {top.get('device_ms')}), bound "
           f"{mid['bound_ms']:.4f} / {top['bound_ms']:.4f} ms")
-    return mid, {**rows["cl_vae zp=False"], "max_abs_err": errs}
+    return mid, {**main_row, "max_abs_err": errs}
 
 
 def serve_requests(argv, kmod, bodies, frames_per_row=1):
@@ -3911,100 +3980,138 @@ def main(argv=None) -> int:
     import classifying_vae_lstm_tpu_torch  # noqa: F401 — fails without the checkout
 
     t_start = time.perf_counter()
+    t_last = [t_start]
+
+    def took(*phases):  # the wall time since the last phase ended
+        now = time.perf_counter()
+        print(f"chip_smoke: phase {', '.join(map(str, phases))} took {now - t_last[0]:.1f} s")
+        t_last[0] = now
+
     line = gpu_line()
     print(f"card: {line}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     dev = torch.device("cuda", 0)
     phase_build()
     phase_tensor_cores()
+    took(1)
     if want(2):
         f32 = phase_f32(dev)
+        took(2)
     if want(3):
         phase_bf16(dev)
+        took(3)
     if want(4):
         launches = phase_serve()
+        took(4)
     if want(5):
         fwd, bwd = phase_two_cell(dev)
+        took(5)
     if want(8):
         lstm = phase_lstm_seq(dev)
+        took(8)
     if want(6):
         with tempfile.TemporaryDirectory() as model_dir:
             fwd_launches, bwd_launches, seen = phase_train(model_dir)
             phase_train_breakdown(seen)
+            took(6)
             if want(7):
                 phase_checkpoint_serves(seen["ckpt"])
+                took(7)
             if want(9):
                 train_fwd_launches, lstm_bwd_launches, seen_off = phase_train_two_loop(
                     model_dir, seen["history"]["loss"][0])
                 phase_train_breakdown(seen_off, "LSTM kernels", "lstm_")
+                took(9)
             if want(10):
                 eval_launches, nll_f32 = phase_evaluate(seen_off["ckpt"])
+                took(10)
     if want(11):
         vae = phase_vae(dev)
+        took(11)
     if want(12):
         vae_launches = phase_vae_serve()
+        took(12)
     if want(13):
         with tempfile.TemporaryDirectory() as sample_dir:
             vae_launches += phase_sample_clis(sample_dir)
+            took(13)
     if want(14):
         dense = phase_vae_dense(dev)
+        took(14)
     if want(15):
         with tempfile.TemporaryDirectory() as model_dir:
             dense_fwd, dense_bwd, seen_vae = phase_vae_train(model_dir)
             phase_train_breakdown(seen_vae, "dense-stack kernels", "vae_dense")
+            took(15)
             if want(16):
                 with tempfile.TemporaryDirectory() as sample_dir:
                     phase_vae_evaluate(seen_vae["ckpt"], sample_dir)
+                    took(16)
     if want(17):
         wide = phase_vae_wide(dev)
+        took(17)
     if want(18):
         dense16 = phase_vae_dense_bf16(dev)
+        took(18)
     if want(19):
         with (tempfile.TemporaryDirectory() as model_dir,
               tempfile.TemporaryDirectory() as sample_dir):
             bf16_fwd, bf16_bwd, seen_seq = phase_vae_bf16_train(model_dir)
-            phase_train_breakdown(seen_seq, "dense-stack kernels", "vae_")
+            phase_train_breakdown(seen_seq, "dense-stack kernels", "vae_", VAE_STEP_PARTS)
             phase_vae_bf16_evaluate(seen_seq["ckpt"])
             wide_launches = phase_vae_repair(model_dir, sample_dir)
+            took(19)
     if want(20):
         lstm16 = phase_lstm_seq_bf16(dev)
+        took(20)
     if want(21):
         with (tempfile.TemporaryDirectory() as model_dir,
               tempfile.TemporaryDirectory() as sample_dir):
             bf16_train_fwd, bf16_bwd_launches, seen_h = phase_train_bf16(model_dir)
             phase_train_breakdown(seen_h, "LSTM kernels", "lstm_seq")
+            took(21)
             if want(22):
                 bf16_eval = phase_evaluate_bf16(seen_h["ckpt"], sample_dir, nll_f32)
+                took(22)
     if want(23):
         tc16 = phase_two_cell_bf16(dev)
+        took(23)
     if want(24):
         with (tempfile.TemporaryDirectory() as model_dir,
               tempfile.TemporaryDirectory() as sample_dir):
             tc16_fwd, tc16_bwd, seen_tc = phase_train_two_cell_bf16(model_dir)
             phase_train_breakdown(seen_tc, "two-cell kernels", "two_cell")
+            took(24)
             if want(25):
                 phase_evaluate_two_cell_bf16(seen_tc["ckpt"], sample_dir)
+                took(25)
     if want(26):
         rungs = phase_lstm_rungs(dev)
+        took(26)
     if want(27):
         with (tempfile.TemporaryDirectory() as model_dir,
               tempfile.TemporaryDirectory() as sample_dir):
             walk16_launches, _, seen_w = phase_train_h2048(model_dir)
             phase_train_breakdown(seen_w, "LSTM kernels", "lstm_seq")
             phase_evaluate_h2048(last_checkpoint(seen_w["ckpt"]), sample_dir)
+            took(27)
     if want(28):
         with tempfile.TemporaryDirectory() as model_dir:
             other = phase_other_rungs(model_dir, seen_off["history"]["loss"][0])
+            took(28)
     t29 = time.perf_counter()
     if want(29):
         int8_vrnn, int8_vae = phase_int8_kernels(dev)
+        took(29)
     if want(30):
         with (tempfile.TemporaryDirectory() as model_dir,
               tempfile.TemporaryDirectory() as sample_dir):
             int8_vrnn_launches, int8_vae_launches = phase_int8_paths(model_dir, sample_dir)
+            took(30)
     if want(29) and want(30):
         print(f"phases 29-30 (int8 kernels and paths): {time.perf_counter() - t29:.1f} s")
     if want(31):
         phase_lstm_bf16_sweep(dev)
+        took(31)
     if len(run) < 31:
         print(f"chip_smoke: phases {', '.join(map(str, sorted(run)))} passed in "
               f"{time.perf_counter() - t_start:.1f} s")
@@ -4061,7 +4168,7 @@ def main(argv=None) -> int:
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_generate_vae.py:141",
         "launches": wide_launches, **wide, "library_ms": None,
     }, {
-        "name": "vae_dense_fwd_bf16", "route": "cuda", "source": dense_source,
+        "name": "vae_tc_fwd", "route": "cuda", "source": dense_tc_source,
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_vae.py:133", "launches": bf16_fwd,
         **dense16["fwd"], "library_ms": None,
     }, {
@@ -4108,7 +4215,7 @@ def main(argv=None) -> int:
     for name, launches, row, src, replaced in (
             ("generate_cl_vrnn_int8", int8_vrnn_launches, int8_vrnn, "generate_cl_vrnn.cu",
              "pallas_generate.py:211"),
-            ("generate_cl_vae_int8", int8_vae_launches, int8_vae, "generate_cl_vae.cu",
+            ("generate_vae_int8", int8_vae_launches, int8_vae, "generate_cl_vae.cu",
              "pallas_generate_vae.py:192")):
         require(launches > 0, f"{name} was not launched on its path")
         kernels.append({"name": name, "route": "cuda",

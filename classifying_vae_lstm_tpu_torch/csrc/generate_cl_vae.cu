@@ -1,6 +1,6 @@
 // Whole-generation cl_vae sampler for Hopper (sm_90a): f32 or bf16 weights
 // (`generate_kernel`, `generate_wide_kernel`), or int8 weights
-// (`generate_wide_int8_kernel`, at the end).
+// (`generate_vae_int8_kernel`, at the end).
 //
 // Replaces: classifying_vae_lstm_tpu/ops/pallas_generate_vae.py:141
 // `_make_kernel` (the f32/bf16 body of `generate_cl_vae_batch_pallas`). One
@@ -76,44 +76,99 @@
 // work, not done here: a thread-block cluster that splits the columns so
 // that each SM keeps its slice of the weights in shared memory, and wgmma.
 //
-// The third kernel, `generate_wide_int8_kernel`, replaces
+// The third kernel, `generate_vae_int8_kernel` (at the end), replaces
 // classifying_vae_lstm_tpu/ops/pallas_generate_vae.py:192 `_make_kernel_int8`
 // (the int8 body of `generate_cl_vae_batch_pallas`), which the JAX package
 // picks for a bf16 checkpoint whose bf16 weights pass its VMEM rule (the
-// seq-concat width D=1,024, L=16: H = 4,160 ... 7,808). It is the wide
-// kernel with the three large weights (encoder x rows, decoder x_prev rows,
-// frame head) as per-column int8 codes with f32 scales, quantized by the
-// wrapper as JAX quantizes them; the z heads stay bf16 and the decoder z
-// rows f32. Its numerics: binary frames are exact codes; the decoder's relu
-// hidden h_d gets a per-song scale rs = max(max h_d, 1e-12) / 127 (h_d >= 0,
-// so its max is its largest magnitude) and enters the frame head as
-// round(h_d / rs) (IEEE division, `__float2int_rn` rounding half to even as
-// jnp.round); every product sums int8 codes in int32 (`__dp4a`, four k at a
-// time), exact in any order, so the K-split groups' partial sums add
-// exactly; each column is dequantized once and the f32 epilogue is written
-// with __fmul_rn / __fadd_rn in the JAX kernel's order (h_e = relu((float)
-// acc * s + encb); z_d = decb, then the L z rows, then (float)acc * s; p =
-// sigmoid(((float)acc * s) * rs + bx)), so nvcc contracts nothing into an FMA.
-// Weights are packed by the wrapper as [ceil(K/4)][N] words of four k (zero
-// rows pad K); the codes of the frames and of h_d are [ceil(K/4)][kSongs]
-// words in the per-song state.
+// seq-concat width D=1,024, L=16: H = 4,160 ... 7,808). The three large
+// weights (encoder x rows, decoder x_prev rows, frame head) are per-column
+// int8 codes with f32 scales, quantized by the wrapper as JAX quantizes
+// them; the z heads stay bf16 and the decoder z rows f32.
 //
-// What bounds the int8 kernel. At the seq-concat width (D=1,024, H=5,120,
-// L=16, no x_prev), 64 songs x 256 steps, it does 1.05e7 int8 MACs per
-// song-step, 1.7e11 MACs (3.4e11 operations) for the call: ~0.17 ms at the
-// card's 1,979 TOPS of int8 tensor-core products, against 10.5 MB of int8
-// weights (15.7 MB with x_prev), ~0.003 ms at HBM rate, so operations bound
-// it (chip_smoke.py's `int8_bound_ms` prints both). Every block still
-// reads every weight from L2 each step, as the wide kernel does, and
-// `__dp4a` runs on the integer pipes, not the tensor cores: the kernel sits
-// hundreds of times above its bound. The lever of a later PR is int8
-// `mma.sync` (m16n8k32) or `wgmma`, with the columns split over a cluster.
+// Numerics. Binary frames are exact codes; the decoder's relu hidden h_d
+// gets a per-song scale rs = max(max h_d, 1e-12) / 127 (h_d >= 0, so its max
+// is its largest magnitude; a max is exact in any order) and enters the
+// frame head as round(h_d / rs) (IEEE division, `__float2int_rn`, half to
+// even as jnp.round). Every int8 product sums codes in int32 on the tensor
+// cores (`mma.sync.m16n8k32` s8 -> s32), exact in any order. Each column is
+// dequantized once and the f32 epilogue is written with __fmul_rn /
+// __fadd_rn in the JAX kernel's order (h_e = relu((float)acc * s + encb);
+// z_d = decb, then the L z rows, then (float)acc * s; p = sigmoid(((float)acc
+// * swx) * rs + bx)), so nvcc contracts nothing into an FMA. The bf16 z heads
+// are summed in double (each product of two bf16 values is exact) and
+// rounded to f32 once, so the plain version's float64 product gives the
+// same z: an f32 sum in another order may differ by an ulp, which h_d / rs
+// can turn into another code.
+//
+// What bounds it. At the seq-concat width (D=1,024, H=5,120, L=16, no
+// x_prev), 64 songs x 256 steps, it does 1.05e7 int8 MACs per song-step,
+// 1.7e11 MACs (3.4e11 operations) for the call: ~0.17 ms at the card's
+// 1,979 TOPS of int8 tensor-core products, against 10.5 MB of int8 weights
+// (15.7 MB with x_prev), ~0.003 ms at HBM rate, so operations bound it
+// (chip_smoke.py's `int8_bound_ms` prints both). But each step is a chain
+// of all-to-all dependencies (the z heads need every unit's h_e, the scale
+// rs every unit's h_d, the frame head every unit's code, the next step
+// every pitch's frame), 256 steps in series.
+//
+// What the design does about it.
+// * One persistent cooperative launch runs the whole song (a launch takes
+//   at most 64 songs, 4 m16 tiles; a call of more runs several). The
+//   columns, not the songs, are spread over the card: each block owns nu
+//   hidden units (`int8_grid`: nu = 8 cdiv(H, 8 SMs), cdiv(H, nu) blocks;
+//   128 blocks of 40 units at H=5,120) for every song, and a slice of the
+//   frame head's pitches (8-pitch tiles; with song groups, `head_split`,
+//   half the songs of twice the pitches). The first design gave each
+//   block two songs and every weight from L2 each step (32 SMs of 132 busy
+//   at 64 songs, every product on `__dp4a`).
+// * Residency: the wrapper packs each block's slices (its units' columns of
+//   the encoder's and decoder's x rows, its pitch tiles of the frame head)
+//   contiguously in the order the m16n8k32 B fragments load them; the block
+//   copies them into shared memory once a launch where they fit (120 KB at
+//   H=5,120 with two song groups), else they stream from L2 every step
+//   through the 4-stage `cp.async` ring that carries the codes of x and of
+//   h_d (the int8 cl_vrnn kernel's lane layout: any pairing of k gives the
+//   same int32 sum). A stage copies each song row's span of 8 or more chunks
+//   whole (full 128-byte lines; a row apart by 16 padding bytes in shared
+//   memory, off the fragment loads' banks), twice or four times the chunks
+//   for a pass of 32 or 16 rows, so that a pass of fewer songs keeps as many
+//   bytes in flight; and each block starts at its own stage, so that the
+//   blocks do not all ask the same L2 lines at once.
+// * A step is five phases with a grid barrier (csrc/coop.cuh) after each:
+//   (1) the encoder's product and h_e for the block's units, then the z
+//   heads' sums over those units (double, the block's columns of the z
+//   heads kept in double, each h_e converted once for four columns); (2) z,
+//   one warp a (song, latent), the blocks' sums added in a fixed order;
+//   (3) the decoder's h_d for the block's units, and each song's largest
+//   over them; (4) rs (every block's maxima loaded at once), and the codes
+//   of h_d for the block's units; (5) the frame head for the block's
+//   pitches (the codes of every unit, int32 sums exact), the Bernoulli
+//   draw, the output and the next step's x_prev codes. Under
+//   use_z_prior z is the noise: phases 1 and 2 are skipped. The codes of x
+//   (double-buffered: x_prev and the lagged x_prev_t) and of h_d, the z
+//   heads' sums, z and the songs' maxima live in global memory, read
+//   through L2 (`cp.async.cg`, `__ldcg`: other blocks rewrite them every
+//   step); h_e and h_d stay in their owner's shared memory. A grid that
+//   cannot be co-resident fails to launch.
+// * Every sum in a fixed order or exact, no atomics: two calls give the
+//   same bits.
+// Known limits: every block reads the codes of x (64 KB at 64 songs, D =
+// 1,024) and of its song group's h_d (164 KB at H=5,120) from L2 each step;
+// an H100 80GB HBM3 at 700 W moves that broadcast at ~1.4-2.2 TB/s, and the
+// frame head's and the encoder's products take ~16 of a step's ~45 us, the
+// five grid barriers ~7. Cluster multicast of the codes and `wgmma` are the
+// levers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "coop.cuh"
+#include "mma_bf16.cuh"
+
 namespace {
+
+using cvl_coop::grid_sync;
+using cvl_coop::mma_s8;
 
 constexpr int kSongs = 2;      // songs per block
 constexpr int kThreads = 128;  // threads per block
@@ -536,259 +591,515 @@ int launch_wide(const WideArgs& a, cudaStream_t stream) {
 
 // ------------------------------------------------------------- the int8 kernel
 
-static_assert(kSongs == 2, "the int8 kernel loads the tile's two code words as one int2");
+constexpr int kI8Threads = 512;              // 16 warps a block
+constexpr int kI8Warps = kI8Threads / 32;
+constexpr int kI8Rows = 64;                  // songs of a launch: 4 m16 tiles
+constexpr int kChunkBytes = 32;              // one k32 chunk of a row of int8 codes
+constexpr int kTileBytes = 256;              // one n8 tile's k32 chunk of packed weights
+constexpr int kCPS = 8;                      // k32 chunks a ring stage
+constexpr int kRing = 4;                     // ring stages
+constexpr int kMaxNT = 8;                    // n8 tiles of one product pass
+constexpr int kRowStride = kCPS * kChunkBytes + 16;   // a row of a stage's codes, padded
+constexpr int kAStage = kI8Rows * kRowStride;          // the codes of a stage, bytes
 
-struct Int8Args {
-  const float* seed;          // [B, D]
-  const float* eps;           // [B, nsteps, L]
-  const float* u;             // [B, nsteps, D]
-  const int* wke;             // [D4, H]  encoder x rows, int8 codes four k to a word
-  const float* ske;           // [H]      their scales
-  const float* encb;          // [B, H]   w rows . w + bias, per song
-  const __nv_bfloat16* wz_t;  // [2L, H]  z_mean | z_log_var kernels, transposed, bf16
-  const float* bz;            // [2L]
-  const int* wkd_x;           // [D4, H]  decoder x_prev rows (use_x_prev)
-  const float* skd;           // [H]
-  const float* wkd_z;         // [L, H]   decoder z rows, f32
-  const float* decb;          // [B, H]
-  const int* wx;              // [H4, D]  frame head, four k to a word
-  const float* swx;           // [D]
-  const float* bx;            // [D]
-  float* out;                 // [B, nsteps, D]
-  float* state;               // null: per-song state in shared memory; else [grid, state floats]
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int round16(int n) { return cdiv(n, 16) * 16; }
+__host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+
+struct VaeI8Args {
+  const float* seed;           // [B, D]
+  const float* eps;            // [B, nsteps, L]
+  const float* u;              // [B, nsteps, D]
+  const int* wke;              // [G][KCx][NT][64] words: encoder x rows, the block's units
+  const int* wkd;              // [G][KCx][NT][64]: decoder x_prev rows (use_x_prev, else null)
+  const int* wx;               // [G][KCh][P][64]: the frame head, the block's pitch tiles
+  const float* ske;            // [H]  scales of the encoder x rows
+  const float* skd;            // [H]  scales of the decoder x_prev rows (or null)
+  const float* encb;           // [B, H]  w rows . w + bias, per song
+  const float* decb;           // [B, H]
+  const __nv_bfloat16* wz_t;   // [2L, H]  z_mean | z_log_var kernels, transposed, bf16
+  const float* bz;             // [2L]
+  const float* wkd_z;          // [L, H]  decoder z rows, f32
+  const float* swx;            // [D]  scales of the frame head
+  const float* bx;             // [D]
+  float* out;                  // [B, nsteps, D]
+  // the state shared between blocks, in global memory, zeroed by the caller
+  // (`vae_i8_state` cuts it from one buffer)
+  int* xq;                     // [2][kI8Rows][KCx * 8] words: x_prev codes, double-buffered
+  int* hq;                     // [kI8Rows][KCh * 8] words: round(h_d / rs)
+  double* zpart;               // [G][kI8Rows][2L]: the z heads summed over each block's units
+  float* zs;                   // [kI8Rows][L]: the step's z
+  float* hmax;                 // [G][kI8Rows]: each block's largest h_d per song
+  unsigned* bar;               // arrivals at the grid barrier
+  unsigned long long* clock;   // [kI8Laps] or null: block 0's ns per part of a step
   int B, nsteps, D, H, L, use_x_prev, use_z_prior, return_probs;
+  int nu;                      // hidden units a block owns (a multiple of 8)
+  int P, hs;                   // pitch tiles a block, song groups of the frame head
+  int res_cells, res_head;     // the x-row slices / the head's tiles resident in shared memory
 };
 
-__host__ __device__ constexpr int words(int k) { return (k + 3) / 4; }
-
-// per-song state of one block, in 4-byte units: the code words of x_prev and
-// x_prev_t ([D4][kSongs] each), the step's probabilities ([D][kSongs]), z
-// ([L][kSongs]), h_e (the z heads' bf16-valued operand) and h_d ([H][kSongs]
-// each), and h_d's code words ([H4][kSongs])
-__host__ __device__ constexpr size_t int8_state_words(int D, int H, int L) {
-  return (size_t)kSongs * (2 * words(D) + D + L + 2 * H + words(H));
+// n8 tiles of weights a ring chunk carries: those of the widest streamed pass
+__host__ __device__ constexpr int stream_tiles(int nu, int P, int res_cells, int res_head) {
+  return imin(kMaxNT, imax(res_cells ? 0 : nu / 8, res_head ? 0 : P));
+}
+__host__ __device__ constexpr size_t i8_ring_bytes(int wt) {
+  return (size_t)kRing * (kAStage + (size_t)kCPS * wt * kTileBytes);
 }
 
-// the K-split int partial sums, then the row-max reduction ([kWideWarps]
-// [kSongs]) and the songs' row scales ([kSongs])
-constexpr size_t kInt8FixedWords = kPartialFloats + (size_t)(kWideWarps + 1) * kSongs;
-
-size_t int8_smem_bytes(int D, int H, int L, int state_in_smem) {
-  return (kInt8FixedWords + (state_in_smem ? int8_state_words(D, H, L) : 0)) * 4;
+// dynamic shared memory of a block: the ring (codes of kCPS chunks a stage
+// and the streamed weights' chunks; after a pass, the warps' int32 sums), the
+// resident slices, the block's columns of the z heads in double ([nu][2L]),
+// then f32: h_e / h_d ([kI8Rows][nu]), the block's columns of the two scales
+// ([nu] each) and of the decoder's z rows ([L][nu]), the z of the songs
+// ([kI8Rows][L]) and their rs
+__host__ __device__ constexpr size_t vae_i8_smem_bytes(int D, int H, int L, int nu, int P,
+                                                       int use_x_prev, int res_cells,
+                                                       int res_head) {
+  return i8_ring_bytes(stream_tiles(nu, P, res_cells, res_head)) +
+         (res_cells ? (size_t)cdiv(D, 32) * (1 + use_x_prev) * (nu / 8) * kTileBytes : 0) +
+         (res_head ? (size_t)cdiv(H, 32) * P * kTileBytes : 0) +
+         (size_t)nu * 2 * L * sizeof(double) +
+         ((size_t)kI8Rows * nu + (size_t)nu * (2 + L) + (size_t)kI8Rows * (L + 1)) *
+             sizeof(float);
 }
 
-// acc[b] += sum_{k0 <= k < k1} dot4(a[k][b], w[k * N + n]): a is [K4][kSongs]
-// code words, w a [K4, N] array of code words in global memory
-__device__ __forceinline__ void mac_rows_i8(int (&acc)[kSongs], const int* a, const int* w,
-                                            int N, int n, int k0, int k1) {
-  const int* wp = w + (size_t)k0 * N + n;
-#pragma unroll 16
-  for (int k = k0; k < k1; ++k, wp += N) {
-    const int wv = __ldg(wp);
-    const int2 av = *reinterpret_cast<const int2*>(a + k * kSongs);
-    acc[0] = __dp4a(av.x, wv, acc[0]);
-    acc[1] = __dp4a(av.y, wv, acc[1]);
-  }
+// the global state, in 4-byte words, each part a multiple of 16 bytes
+struct VaeI8State {
+  size_t xq, hq, zpart, zs, hmax, bar, total;
+};
+__host__ __device__ inline VaeI8State vae_i8_state(int D, int H, int L, int G) {
+  const size_t xw = (size_t)cdiv(D, 32) * 8, hw = (size_t)cdiv(H, 32) * 8;
+  VaeI8State st{};
+  st.xq = 0;
+  st.hq = st.xq + 2 * kI8Rows * xw;
+  st.zpart = st.hq + kI8Rows * hw;
+  st.zs = st.zpart + (size_t)G * kI8Rows * 2 * L * 2;
+  st.hmax = st.zs + (size_t)kI8Rows * L;
+  st.bar = st.hmax + (size_t)G * kI8Rows;
+  st.total = st.bar + 4;
+  return st;
 }
 
-// cols_layer for int8 codes: epi(n, b, sum_k dot4(a[k][b], w[k * N + n]))
-// exactly once for each column n < N and song b. Narrow layers split the K4
-// words across S groups, whose int partial sums meet in `partial` (exact in
-// any order). The caller syncs before the next layer reads what epi stored.
-template <typename Epi>
-__device__ __forceinline__ void cols_layer_i8(const int* a, const int* w, int K4, int N,
-                                              int* partial, Epi epi) {
-  const int S = slices_for(N);
-  if (S == 1) {
-    for (int n = threadIdx.x; n < N; n += kWideThreads) {
-      int acc[kSongs] = {0, 0};
-      if (K4) mac_rows_i8(acc, a, w, N, n, 0, K4);
+__host__ __device__ constexpr int ksplit(int mt) {
+  return kI8Warps / mt < kCPS ? kI8Warps / mt : kCPS;
+}
+
+// One product pass: the int32 sums of song rows m0 .. m0 + 16 mt - 1 (mt <=
+// 4) and n8 tiles n0 .. n0 + nt - 1 (nt <= kMaxNT) of a block's packed
+// weight ([nch][ntot][64] words, chunk after chunk: in shared memory at
+// `wres`, or streamed from global memory at `wg` when `wres` is null), times
+// the codes `aq` (global, `aw` words a row, chunk c at words 8c .. 8c + 7).
+// The chunks stream through a ring of kRing stages of kCPS chunks
+// (`cp.async`, L2 only: the codes are rewritten by other blocks every
+// step). A stage holds each row's kCPS chunks as one contiguous 256-byte
+// span (with resident weights, 2 or 4 times that for a pass of 32 or 16
+// rows), copied by neighbouring threads (whole 128-byte lines a warp), and
+// keeps it in shared memory a padded row apart, so that the fragment loads
+// of 8 rows fall on distinct banks. Every block reads the same
+// codes: each starts at its own stage, so that the blocks do not all ask the
+// same L2 lines at once (int32 sums are exact in any order). Warp (wm, kq)
+// takes m-tile wm, all nt n-tiles, and the chunks q = kq, kq + nks, ... of
+// each stage (nks = ksplit(mt)); lane (g, t) holds rows g and g + 8, codes
+// 8t .. 8t + 7 of a chunk (one 8-byte load a row), which the packing pairs
+// with the same k. The warps' sums are staged in the ring ([nks][16 mt][8
+// nt] ints, at most 64 KB, within the ring) and added, exact in any order,
+// into the first [16 mt][8 nt], which the function returns after a block
+// barrier.
+__device__ __forceinline__ const int* products(const int* aq, int aw, int nch, const int* wres,
+                                               const int* __restrict__ wg, int ntot, int n0,
+                                               int nt, int m0, int mt, unsigned char* ring) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int nks = ksplit(mt), wm = warp % mt, kq = warp / mt;
+  const bool active = kq < nks;
+  const int rows = 16 * mt;
+  // with resident weights a pass of 32 or 16 rows takes 2 or 4 times the
+  // chunks a stage, so that a stage keeps its bytes (and the ring as many in
+  // flight); the pieces of a stage stay 2 kCPS kI8Rows
+  const int shift = wres ? (mt == 1 ? 2 : mt == 2 ? 1 : 0) : 0;
+  const int cps = kCPS << shift, stride = cps * kChunkBytes + 16;  // chunks a stage, row bytes
+  const int nst = cdiv(nch, cps);
+  const int rot = (int)(((long long)blockIdx.x * nst) / gridDim.x);  // this block's first stage
+  const int sb = kAStage + (wres ? 0 : kCPS * nt * kTileBytes);       // bytes a stage
+  int acc[kMaxNT][4];
 #pragma unroll
-      for (int b = 0; b < kSongs; ++b) epi(n, b, acc[b]);
+  for (int i = 0; i < kMaxNT; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[i][q] = 0;
+  // stage s (the chunks of stage (s + rot) % nst): codes [rows][stride] (a
+  // row's chunks side by side), streamed weights [kCPS][nt][256 B]; 16-byte
+  // pieces dealt to the threads at fixed strides (no division): 2 cps pieces
+  // a row, and 128 weight slots a chunk
+  static_assert(kI8Rows * 2 * kCPS % kI8Threads == 0 && kCPS * 16 * kMaxNT % kI8Threads == 0 &&
+                16 * kMaxNT == 128, "whole rounds of pieces");
+  auto load = [&](int s) {
+    unsigned char* A = ring + (s % kRing) * sb;
+    unsigned char* Bw = A + kAStage;
+    const int c0 = ((s + rot) % nst) * cps;  // the stage's first chunk
+#pragma unroll
+    for (int e = 0; e < kI8Rows * 2 * kCPS / kI8Threads; ++e) {
+      const int i = tid + e * kI8Threads, row = i >> (4 + shift), p = i & ((16 << shift) - 1);
+      const int ch = c0 + p / 2;
+      if (row < rows && ch < nch)  // the codes: row, chunk p / 2, half p % 2
+        cvl_tc::cp_async16(A + row * stride + p * 16,
+                           aq + (size_t)(m0 + row) * aw + ch * 8 + (p % 2) * 4, true);
     }
-    return;
-  }
-  const int s = threadIdx.x / N, n = threadIdx.x - s * N;
-  if (s < S) {
-    int acc[kSongs] = {0, 0};
-    if (K4) mac_rows_i8(acc, a, w, N, n, K4 * s / S, K4 * (s + 1) / S);
+    if (!wres) {
 #pragma unroll
-    for (int b = 0; b < kSongs; ++b) partial[(s * N + n) * kSongs + b] = acc[b];
+      for (int e = 0; e < kCPS * 128 / kI8Threads; ++e) {
+        const int i = tid + e * kI8Threads, q = i / 128, r = i % 128, ch = c0 + q;
+        if (r < 16 * nt && ch < nch)  // the weights: piece r of the chunk's nt tiles
+          cvl_tc::cp_async16(Bw + q * nt * kTileBytes + r * 16,
+                             wg + ((size_t)ch * ntot + n0) * 64 + r * 4, true);
+      }
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kRing - 1; ++s) {
+    if (s < nst) load(s);
+    cvl_tc::cp_async_commit();
+  }
+  for (int s = 0; s < nst; ++s) {
+    cvl_tc::cp_async_wait<kRing - 2>();
+    __syncthreads();
+    if (s + kRing - 1 < nst) load(s + kRing - 1);
+    cvl_tc::cp_async_commit();
+    if (!active) continue;
+    const unsigned char* A = ring + (s % kRing) * sb;
+    const unsigned char* Bw = A + kAStage;
+    const int c0 = ((s + rot) % nst) * cps;
+    for (int q = kq; q < cps; q += nks) {
+      const int ch = c0 + q;
+      if (ch >= nch) break;
+      const unsigned char* ar = A + (wm * 16 + g) * stride + q * kChunkBytes + t * 8;
+      const uint2 lo = *reinterpret_cast<const uint2*>(ar);
+      const uint2 hi = *reinterpret_cast<const uint2*>(ar + 8 * stride);
+      const unsigned af[4] = {lo.x, hi.x, lo.y, hi.y};
+      const unsigned char* br =
+          wres ? reinterpret_cast<const unsigned char*>(wres + ((size_t)ch * ntot + n0) * 64)
+               : Bw + q * nt * kTileBytes;
+#pragma unroll
+      for (int n = 0; n < kMaxNT; ++n) {
+        if (n >= nt) break;
+        const uint2 b = *reinterpret_cast<const uint2*>(br + n * kTileBytes + lane * 8);
+        mma_s8(acc[n], af, b.x, b.y);
+      }
+    }
+  }
+  cvl_tc::cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the partial sums go in it
+  // [nks][rows][8 nt] ints: row g (+8), columns 2t, 2t + 1 of each tile
+  const int cols = 8 * nt, part = rows * cols;
+  int* stg = reinterpret_cast<int*>(ring);
+  if (active) {
+#pragma unroll
+    for (int n = 0; n < kMaxNT; ++n) {
+      if (n >= nt) break;
+      int* r0 = stg + (size_t)kq * part + (wm * 16 + g) * cols + n * 8 + 2 * t;
+      r0[0] = acc[n][0];
+      r0[1] = acc[n][1];
+      r0[8 * cols] = acc[n][2];
+      r0[8 * cols + 1] = acc[n][3];
+    }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < N * kSongs; i += kWideThreads) {
-    const int col = i / kSongs, b = i - col * kSongs;
-    int v = 0;
-    for (int q = 0; q < S; ++q) v += partial[(q * N + col) * kSongs + b];
-    epi(col, b, v);
+  for (int e = tid; e < part; e += kI8Threads) {  // the warps' partial sums (exact)
+    int sum = stg[e];
+    for (int k = 1; k < nks; ++k) sum += stg[(size_t)k * part + e];
+    stg[e] = sum;
   }
+  __syncthreads();
+  return stg;
 }
 
-// The bf16 z heads of the int8 kernel: returns, in lane b < kSongs, sum_k
-// a[k][b] * wrow[k] for bf16-valued a, summed in double and rounded to f32
-// once. Each product of two bf16 values is exact, and the double sum rounds
-// them the same in any order to within 2^-53, so the kernel's z and the plain
-// version's (a float64 product) agree: an f32 sum in two orders may differ by
-// an ulp, which the decoder's h_d / rs can turn into another code.
-__device__ __forceinline__ float warp_dot_exact(const float* a, const __nv_bfloat16* wrow,
-                                                int K, int lane) {
-  double s[kSongs];
-#pragma unroll
-  for (int b = 0; b < kSongs; ++b) s[b] = 0.0;
-  for (int k = lane; k < K; k += 32) {
-    const double w = __bfloat162float(wrow[k]);
-#pragma unroll
-    for (int b = 0; b < kSongs; ++b) s[b] = fma((double)a[k * kSongs + b], w, s[b]);
-  }
-  float mine = 0.f;
-#pragma unroll
-  for (int b = 0; b < kSongs; ++b) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s[b] += __shfl_xor_sync(0xffffffffu, s[b], off);
-    if (lane == b) mine = __double2float_rn(s[b]);
-  }
-  return mine;
+__device__ __forceinline__ void copy16(int* dst, const int* src, size_t bytes) {
+  for (size_t i = threadIdx.x; i < bytes / 16; i += kI8Threads)
+    reinterpret_cast<int4*>(dst)[i] = reinterpret_cast<const int4*>(src)[i];
 }
 
-// the int8 code of one operand entry into byte `r % 4` of its word
-__device__ __forceinline__ void put_code(int* words_, int r, int b, int code) {
-  reinterpret_cast<signed char*>(words_)[((r / 4) * kSongs + b) * 4 + (r % 4)] =
+__device__ __forceinline__ void put_code(int* words, int row_words, int s, int col, int code) {
+  reinterpret_cast<signed char*>(words)[(size_t)s * row_words * 4 + col] =
       static_cast<signed char>(code);
 }
 
-__global__ void __launch_bounds__(kWideThreads) generate_wide_int8_kernel(const Int8Args a) {
-  extern __shared__ int4 smem_i4[];
-  int* partial = reinterpret_cast<int*>(smem_i4);  // [kPartialFloats]
-  float* red = reinterpret_cast<float*>(partial + kPartialFloats);  // [kWideWarps][kSongs]
-  float* rs = red + kWideWarps * kSongs;                             // [kSongs]
-  const int D = a.D, H = a.H, L = a.L, D4 = words(D), H4 = words(H);
-  int* st = a.state ? reinterpret_cast<int*>(a.state) +
-                          (size_t)blockIdx.x * int8_state_words(D, H, L)
-                    : partial + kInt8FixedWords;
-  int* xpq = st;                                        // [D4][kSongs]  x_prev codes
-  int* xptq = xpq + D4 * kSongs;                        // [D4][kSongs]  x_prev_t codes
-  float* pm = reinterpret_cast<float*>(xptq + D4 * kSongs);  // [D][kSongs]
-  float* zs = pm + D * kSongs;                          // [L][kSongs]
-  float* he = zs + L * kSongs;                          // [H][kSongs]
-  float* hd = he + H * kSongs;                          // [H][kSongs]
-  int* hdq = reinterpret_cast<int*>(hd + H * kSongs);   // [H4][kSongs]
-  const int s0 = blockIdx.x * kSongs;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const auto fold = [&](const float* f, int b, int n) {
-    const int s = s0 + b;
-    return s < a.B ? f[(size_t)s * H + n] : 0.f;
-  };
-
-  for (int i = threadIdx.x; i < 2 * D4 * kSongs; i += kWideThreads) xpq[i] = 0;  // pad bytes
-  __syncthreads();
-  for (int i = threadIdx.x; i < D * kSongs; i += kWideThreads) {
-    const int d = i / kSongs, b = i % kSongs, s = s0 + b;
-    const int x = s < a.B ? __float2int_rz(a.seed[(size_t)s * D + d]) : 0;
-    put_code(xpq, d, b, x);
-    put_code(xptq, d, b, x);
+// The largest value per row r < rows of vals(g, r) over g < G (a max is exact
+// in any order; every value >= 0): 8 threads a row, each loading its blocks
+// g = p, p + 8, ... all at once (G <= kMaxBlocks), then a butterfly over the
+// 8; then fin(r, the max)
+constexpr int kMaxBlocks = 136;
+template <typename V, typename Fin>
+__device__ __forceinline__ void row_max(int rows, int G, V vals, Fin fin) {
+  constexpr int kParts = 8, kPer = (kMaxBlocks + kParts - 1) / kParts;
+  static_assert(kI8Threads == kI8Rows * kParts, "8 threads a row");
+  const int r = threadIdx.x / kParts, p = threadIdx.x % kParts;
+  float v[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int g = p + k * kParts;
+    v[k] = r < rows && g < G ? vals(g, r) : 0.f;
   }
-  __syncthreads();
-
-  for (int t = 0; t < a.nsteps; ++t) {
-    // z-encoder hidden: h_e = relu(x_prev.Wke * ske + encb), kept bf16-valued
-    cols_layer_i8(xpq, a.wke, D4, H, partial, [&](int n, int b, int acc) {
-      const float v = __fadd_rn(__fmul_rn(__int2float_rn(acc), a.ske[n]), fold(a.encb, b, n));
-      he[n * kSongs + b] = operand<__nv_bfloat16>(fmaxf(v, 0.f));
-    });
-    __syncthreads();
-    // z heads (bf16, summed exactly) and the draw, one warp per latent
-    for (int l = warp; l < L; l += kWideWarps) {
-      const float zm = warp_dot_exact(he, a.wz_t + (size_t)l * H, H, lane);
-      const float zv = warp_dot_exact(he, a.wz_t + (size_t)(L + l) * H, H, lane);
-      const int s = s0 + lane;
-      if (lane < kSongs) {
-        float z = 0.f;
-        if (s < a.B) {
-          const float ep = a.eps[((size_t)s * a.nsteps + t) * L + l];
-          const float scale = expf(__fadd_rn(zv, a.bz[L + l]) / 2.f);
-          z = a.use_z_prior ? ep : __fadd_rn(__fadd_rn(zm, a.bz[l]), __fmul_rn(scale, ep));
-        }
-        zs[l * kSongs + lane] = z;
-      }
-    }
-    __syncthreads();
-    // decoder hidden: h_d = relu(((decb + z rows, l = 0..L-1) + x_prev_t.Wkd_x * skd))
-    cols_layer_i8(xptq, a.wkd_x, a.use_x_prev ? D4 : 0, H, partial, [&](int n, int b, int acc) {
-      float v = fold(a.decb, b, n);
-      for (int l = 0; l < L; ++l)
-        v = __fadd_rn(v, __fmul_rn(zs[l * kSongs + b], a.wkd_z[(size_t)l * H + n]));
-      if (a.use_x_prev) v = __fadd_rn(v, __fmul_rn(__int2float_rn(acc), a.skd[n]));
-      hd[n * kSongs + b] = fmaxf(v, 0.f);
-    });
-    __syncthreads();
-    // per-song scale rs = max(max_n h_d, 1e-12) / 127 (a max is exact in any order)
-    {
-      float m[kSongs] = {0.f, 0.f};
-      for (int n = threadIdx.x; n < H; n += kWideThreads)
+  float m = 0.f;
 #pragma unroll
-        for (int b = 0; b < kSongs; ++b) m[b] = fmaxf(m[b], hd[n * kSongs + b]);
+  for (int k = 0; k < kPer; ++k) m = fmaxf(m, v[k]);
 #pragma unroll
-      for (int b = 0; b < kSongs; ++b) {
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          m[b] = fmaxf(m[b], __shfl_xor_sync(0xffffffffu, m[b], off));
-        if (lane == 0) red[warp * kSongs + b] = m[b];
-      }
-      __syncthreads();
-      if (threadIdx.x < kSongs) {
-        float mx = 0.f;
-        for (int w = 0; w < kWideWarps; ++w) mx = fmaxf(mx, red[w * kSongs + threadIdx.x]);
-        rs[threadIdx.x] = __fdiv_rn(fmaxf(mx, 1e-12f), 127.f);
-      }
-      __syncthreads();
-    }
-    // h_d's codes, round(h_d / rs), four k to a word (zero past H)
-    for (int i = threadIdx.x; i < H4 * kSongs; i += kWideThreads) {
-      const int k4 = i / kSongs, b = i % kSongs;
-      unsigned word = 0;
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int n = 4 * k4 + r;
-        const int c = n < H ? __float2int_rn(__fdiv_rn(hd[n * kSongs + b], rs[b])) : 0;
-        word |= (unsigned)(c & 0xff) << (8 * r);
-      }
-      hdq[i] = (int)word;
-    }
-    __syncthreads();
-    // frame head: p = sigmoid((round(h_d / rs).Wx * swx) * rs + bx)
-    cols_layer_i8(hdq, a.wx, H4, D, partial, [&](int d, int b, int acc) {
-      const float q = __fmul_rn(__fmul_rn(__int2float_rn(acc), a.swx[d]), rs[b]);
-      pm[d * kSongs + b] = 1.f / (1.f + expf(-__fadd_rn(q, a.bx[d])));
-    });
-    __syncthreads();
-    // Bernoulli draw, both carries (the lagged frame takes the old x_prev
-    // first), output; the carries are code words, so one thread takes a
-    // word's four pitches
-    for (int i = threadIdx.x; i < D4 * kSongs; i += kWideThreads) {
-      const int k4 = i / kSongs, b = i % kSongs, s = s0 + b;
-      if (s >= a.B) continue;
-      unsigned word = 0;
-      for (int r = 0; r < 4 && 4 * k4 + r < D; ++r) {
-        const int d = 4 * k4 + r;
-        const float xm = pm[d * kSongs + b];
-        const float xt = a.u[((size_t)s * a.nsteps + t) * D + d] < xm ? 1.f : 0.f;
-        word |= (unsigned)(xt != 0.f) << (8 * r);
-        a.out[((size_t)s * a.nsteps + t) * D + d] = a.return_probs ? xm : xt;
-      }
-      xptq[i] = xpq[i];
-      xpq[i] = (int)word;
-    }
-    __syncthreads();
-  }
+  for (int off = kParts / 2; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  if (p == 0 && r < rows) fin(r, m);
 }
 
-int launch_int8(const Int8Args& a, cudaStream_t stream) {
-  const size_t smem = int8_smem_bytes(a.D, a.H, a.L, a.state == nullptr);
+// Block 0's clock of a step's parts: the encoder's products, its epilogue
+// and the z heads' sums, its wait; z, its wait; the decoder (products,
+// epilogue, maxima), its wait; rs and the codes, their wait; the frame
+// head's products, its epilogue, its wait
+constexpr int kI8Laps = 12;
+using I8Clock = cvl_coop::PhaseClock<kI8Laps>;
+
+// One persistent cooperative launch for the whole song of at most kI8Rows
+// songs: every block owns nu hidden units for every song, and a slice of the
+// frame head's pitches for a group of the songs; a step is five phases with a
+// grid barrier after each (three under use_z_prior).
+__global__ void __launch_bounds__(kI8Threads, 1) generate_vae_int8_kernel(const VaeI8Args a) {
+  extern __shared__ int4 smem_i4[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(smem_i4);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int D = a.D, H = a.H, L = a.L, B = a.B, nu = a.nu, NT = nu / 8, P = a.P;
+  const int kcx = cdiv(D, 32), kch = cdiv(H, 32), xw = kcx * 8, hw = kch * 8;
+  const int Bp = round16(B), mt = Bp / 16, G = gridDim.x;
+  const int u0 = blockIdx.x * nu, nun = imin(nu, H - u0);  // the block's units
+  const size_t cellw = (size_t)kcx * NT * 64, headw = (size_t)kch * P * 64;  // words a slice
+  const int* gke = a.wke + blockIdx.x * cellw;
+  const int* gkd = a.use_x_prev ? a.wkd + blockIdx.x * cellw : nullptr;
+  const int* gx = a.wx + blockIdx.x * headw;
+  int* cells = reinterpret_cast<int*>(
+      ring + i8_ring_bytes(stream_tiles(nu, P, a.res_cells, a.res_head)));
+  int* head = cells + (a.res_cells ? cellw * (1 + a.use_x_prev) : 0);
+  double* wz = reinterpret_cast<double*>(head + (a.res_head ? headw : 0));  // [nu][2L] z heads
+  float* hv = reinterpret_cast<float*>(wz + 2 * L * nu);  // [kI8Rows][nu]
+  float* sk = hv + kI8Rows * nu;     // [nu]  scales of the encoder x rows
+  float* sd = sk + nu;               // [nu]  of the decoder x_prev rows
+  float* wzd = sd + nu;              // [L][nu]  decoder z rows
+  float* zsm = wzd + L * nu;         // [kI8Rows][L]
+  float* rs = zsm + kI8Rows * L;     // [kI8Rows]
+  const int *wke = nullptr, *wkd = nullptr, *wxs = nullptr;
+  if (a.res_cells) {  // the block's slices, copied once (16-byte pieces)
+    copy16(cells, gke, cellw * 4);
+    wke = cells;
+    if (a.use_x_prev) {
+      copy16(cells + cellw, gkd, cellw * 4);
+      wkd = cells + cellw;
+    }
+  }
+  if (a.res_head) {
+    copy16(head, gx, headw * 4);
+    wxs = head;
+  }
+  for (int j = tid; j < nu; j += kI8Threads) {
+    sk[j] = j < nun ? a.ske[u0 + j] : 0.f;
+    sd[j] = j < nun && a.use_x_prev ? a.skd[u0 + j] : 0.f;
+  }
+  for (int i = tid; i < L * nu; i += kI8Threads) {
+    const int l = i / nu, j = i - l * nu;
+    wzd[i] = j < nun ? a.wkd_z[(size_t)l * H + u0 + j] : 0.f;
+  }
+  for (int i = tid; i < 2 * L * nu; i += kI8Threads) {
+    const int j = i / (2 * L), c = i - j * 2 * L;
+    wz[i] = j < nun ? (double)__bfloat162float(a.wz_t[(size_t)c * H + u0 + j]) : 0.0;
+  }
+  // both carried frames start as the seed (binary frames are exact codes)
+  const size_t xbuf = (size_t)kI8Rows * xw;
+  for (int i = blockIdx.x * kI8Threads + tid; i < B * D; i += G * kI8Threads) {
+    const int s = i / D, d = i - s * D;
+    const int x = __float2int_rz(a.seed[(size_t)s * D + d]);
+    put_code(a.xq, xw, s, d, x);
+    put_code(a.xq + xbuf, xw, s, d, x);
+  }
+  unsigned rounds = 0;
+  grid_sync(a.bar, rounds);
+  __shared__ I8Clock clk;  // thread 0 of block 0 keeps it
+  const bool timer = tid == 0;
+  if (timer) {
+    clk.out = blockIdx.x == 0 ? a.clock : nullptr;
+    clk.start();
+  }
+  // the frame head's share of the block: pitch group pg, song group sg
+  const int pg = blockIdx.x / a.hs, sg = blockIdx.x - pg * a.hs;
+  const int mtg = cdiv(mt, a.hs), m0 = 16 * sg * mtg, mtn = imin(mtg, mt - sg * mtg);
+  const bool heads = mtn > 0 && pg * P < cdiv(D, 8);
+  for (int t = 0; t < a.nsteps; ++t) {
+    const int cur = t & 1;
+    const int* xin = a.xq + cur * xbuf;  // x_prev, the encoder's input
+    int* xlag = a.xq + (cur ^ 1) * xbuf;  // x_prev_t, the decoder's, one step behind
+    if (!a.use_z_prior) {
+      // 1. encoder: h_e = relu(x_prev.Wke * ske + encb), kept bf16-valued
+      // (the z heads' operand), then the z heads summed over the block's units
+      for (int n0 = 0; n0 < NT; n0 += kMaxNT) {
+        const int nt = imin(kMaxNT, NT - n0);
+        const int* sums = products(xin, xw, kcx, wke, gke, NT, n0, nt, 0, mt, ring);
+        if (timer) clk.lap(0);
+        for (int i = tid; i < Bp * 8 * nt; i += kI8Threads) {
+          const int r = i / (8 * nt), j = 8 * n0 + i - r * 8 * nt;
+          float v = 0.f;
+          if (r < B && j < nun)
+            v = operand<__nv_bfloat16>(fmaxf(
+                __fadd_rn(__fmul_rn(__int2float_rn(sums[i]), sk[j]), a.encb[(size_t)r * H + u0 + j]),
+                0.f));
+          hv[r * nu + j] = v;
+        }
+        __syncthreads();
+      }
+      // the z heads over the block's units, each sum in unit order, in
+      // double (bf16 x bf16 products are exact): a thread takes a row and
+      // kZCols of its columns c, c + 8, ..., converting each h_e once
+      {
+        constexpr int kZGroups = kI8Threads / kI8Rows, kZCols = 4;
+        const int r = tid / kZGroups, cg = tid % kZGroups;
+        for (int c0 = 0; c0 < 2 * L; c0 += kZGroups * kZCols) {
+          double acc[kZCols] = {0.0, 0.0, 0.0, 0.0};
+          if (r < Bp)
+            for (int j = 0; j < nun; ++j) {
+              const double h = hv[r * nu + j];
+#pragma unroll
+              for (int k = 0; k < kZCols; ++k) {
+                const int c = c0 + cg + kZGroups * k;
+                if (c < 2 * L) acc[k] = fma(h, wz[j * 2 * L + c], acc[k]);
+              }
+            }
+#pragma unroll
+          for (int k = 0; k < kZCols; ++k) {
+            const int c = c0 + cg + kZGroups * k;
+            if (r < Bp && c < 2 * L)
+              a.zpart[((size_t)blockIdx.x * kI8Rows + r) * 2 * L + c] = acc[k];
+          }
+        }
+      }
+      if (timer) clk.lap(1);
+      grid_sync(a.bar, rounds);
+      if (timer) clk.lap(2);
+      // 2. z = m + exp(v/2) eps, one warp a (song, latent): lane l adds the
+      // blocks l, l + 32, ... in order, a butterfly adds the lanes, all in
+      // double, rounded to f32 once; then the JAX kernel's f32 order
+      constexpr int kZPer = (kMaxBlocks + 31) / 32;
+      for (int job = blockIdx.x * kI8Warps + warp; job < B * L; job += G * kI8Warps) {
+        const int s = job / L, l = job - s * L;
+        const float e = a.eps[((size_t)s * a.nsteps + t) * L + l];
+        double pm[kZPer], pv[kZPer];
+#pragma unroll
+        for (int k = 0; k < kZPer; ++k) {
+          const int g = lane + 32 * k;
+          const double* p = a.zpart + ((size_t)g * kI8Rows + s) * 2 * L;
+          pm[k] = g < G ? __ldcg(p + l) : 0.0;
+          pv[k] = g < G ? __ldcg(p + L + l) : 0.0;
+        }
+        double zm = 0.0, zv = 0.0;
+#pragma unroll
+        for (int k = 0; k < kZPer; ++k) {
+          zm += pm[k];
+          zv += pv[k];
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          zm += __shfl_xor_sync(0xffffffffu, zm, off);
+          zv += __shfl_xor_sync(0xffffffffu, zv, off);
+        }
+        if (lane == 0) {
+          const float scale = expf(__fadd_rn(__double2float_rn(zv), a.bz[L + l]) / 2.f);
+          a.zs[s * L + l] =
+              __fadd_rn(__fadd_rn(__double2float_rn(zm), a.bz[l]), __fmul_rn(scale, e));
+        }
+      }
+      if (timer) clk.lap(3);
+      grid_sync(a.bar, rounds);
+      if (timer) clk.lap(4);
+    }
+    // 3. decoder: h_d = relu(((decb + z rows, l = 0 .. L-1) + x_prev_t.Wkd_x *
+    // skd)), then each song's largest h_d over the block's units
+    for (int i = tid; i < Bp * L; i += kI8Threads) {
+      const int r = i / L, l = i - r * L;
+      zsm[i] = r >= B ? 0.f
+               : a.use_z_prior ? a.eps[((size_t)r * a.nsteps + t) * L + l]
+                               : __ldcg(a.zs + i);
+    }
+    for (int n0 = 0; n0 < NT; n0 += kMaxNT) {
+      const int nt = imin(kMaxNT, NT - n0);
+      const int* sums =
+          a.use_x_prev ? products(xlag, xw, kcx, wkd, gkd, NT, n0, nt, 0, mt, ring) : nullptr;
+      __syncthreads();  // zsm is in
+      for (int i = tid; i < Bp * 8 * nt; i += kI8Threads) {
+        const int r = i / (8 * nt), j = 8 * n0 + i - r * 8 * nt;
+        float v = 0.f;
+        if (r < B && j < nun) {
+          v = a.decb[(size_t)r * H + u0 + j];
+          for (int l = 0; l < L; ++l) v = __fadd_rn(v, __fmul_rn(zsm[r * L + l], wzd[l * nu + j]));
+          if (sums) v = __fadd_rn(v, __fmul_rn(__int2float_rn(sums[i]), sd[j]));
+          v = fmaxf(v, 0.f);
+        }
+        hv[r * nu + j] = v;
+      }
+      __syncthreads();
+    }
+    for (int r = warp; r < Bp; r += kI8Warps) {
+      float m = 0.f;  // h_d >= 0
+      for (int j = lane; j < nun; j += 32) m = fmaxf(m, hv[r * nu + j]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      if (lane == 0) a.hmax[(size_t)blockIdx.x * kI8Rows + r] = m;
+    }
+    if (timer) clk.lap(5);
+    grid_sync(a.bar, rounds);
+    if (timer) clk.lap(6);
+    // 4. rs = max(max h_d, 1e-12) / 127 per song, then the codes round(h_d /
+    // rs) of the block's units
+    row_max(Bp, G, [&](int g, int r) { return __ldcg(a.hmax + (size_t)g * kI8Rows + r); },
+            [&](int r, float m) { rs[r] = __fdiv_rn(fmaxf(m, 1e-12f), 127.f); });
+    __syncthreads();
+    for (int i = tid; i < B * nun; i += kI8Threads) {
+      const int r = i / nun, j = i - r * nun;
+      put_code(a.hq, hw, r, u0 + j, __float2int_rn(__fdiv_rn(hv[r * nu + j], rs[r])));
+    }
+    if (timer) clk.lap(7);
+    grid_sync(a.bar, rounds);
+    if (timer) clk.lap(8);
+    // 5. frame head on the codes of every unit for the block's pitch tiles
+    // and song group: p = sigmoid((codes.Wx * swx) * rs + bx), the Bernoulli
+    // draw, the output, and x_prev's codes for the next step (into the
+    // buffer the lagged frame leaves: it becomes x_prev_t then)
+    if (heads) {
+      for (int n0 = 0; n0 < P; n0 += kMaxNT) {
+        const int nt = imin(kMaxNT, P - n0);
+        const int* sums = products(a.hq, hw, kch, wxs, gx, P, n0, nt, m0, mtn, ring);
+        if (timer) clk.lap(9);
+        for (int i = tid; i < 16 * mtn * 8 * nt; i += kI8Threads) {
+          const int r = i / (8 * nt), c = i - r * 8 * nt, s = m0 + r;
+          const int d = 8 * (pg * P + n0 + c / 8) + c % 8;
+          if (s >= B || d >= D) continue;
+          const float q = __fmul_rn(__fmul_rn(__int2float_rn(sums[i]), a.swx[d]), rs[s]);
+          const float xm = 1.f / (1.f + expf(-__fadd_rn(q, a.bx[d])));
+          const size_t o = ((size_t)s * a.nsteps + t) * D + d;
+          const float xt = a.u[o] < xm ? 1.f : 0.f;
+          a.out[o] = a.return_probs ? xm : xt;
+          put_code(xlag, xw, s, d, xt != 0.f);
+        }
+        __syncthreads();
+      }
+    }
+    if (timer) clk.lap(10);
+    grid_sync(a.bar, rounds);
+    if (timer) clk.lap(11);
+  }
+  if (timer) clk.flush();
+}
+
+int launch_vae_i8(const VaeI8Args& a, cudaStream_t stream) {
+  const size_t smem = vae_i8_smem_bytes(a.D, a.H, a.L, a.nu, a.P, a.use_x_prev, a.res_cells,
+                                        a.res_head);
   cudaError_t err = cudaFuncSetAttribute(
-      generate_wide_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      generate_vae_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.B + kSongs - 1) / kSongs);
-  generate_wide_int8_kernel<<<grid, kWideThreads, smem, stream>>>(a);
+  // cooperative: every block co-resident (the grid barrier needs it), or the
+  // launch fails
+  void* args[] = {const_cast<VaeI8Args*>(&a)};
+  err = cudaLaunchCooperativeKernel((const void*)generate_vae_int8_kernel, dim3(cdiv(a.H, a.nu)),
+                                    dim3(kI8Threads), args, smem, stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -844,29 +1155,44 @@ extern "C" int cvl_generate_cl_vae_wide(
   return bf16_weights ? launch_wide<__nv_bfloat16>(a, st) : launch_wide<float>(a, st);
 }
 
-// Floats of per-song state one block of the int8 kernel keeps (in shared
-// memory, or in the global scratch the wrapper passes when it does not fit).
-extern "C" long long cvl_generate_cl_vae_int8_state_floats(int D, int H, int L) {
-  return (long long)int8_state_words(D, H, L);
+// Bytes of dynamic shared memory one block of the int8 kernel needs: a block
+// owning nu hidden units and P pitch tiles, its slices resident or not (the
+// wrapper picks residency where it fits the limit).
+extern "C" long long cvl_generate_cl_vae_int8_smem_bytes(int D, int H, int L, int nu, int P,
+                                                         int use_x_prev, int res_cells,
+                                                         int res_head) {
+  return (long long)vae_i8_smem_bytes(D, H, L, nu, P, use_x_prev, res_cells, res_head);
 }
 
-// Bytes of dynamic shared memory one block of the int8 kernel needs.
-extern "C" long long cvl_generate_cl_vae_int8_smem_bytes(int D, int H, int L, int state_in_smem) {
-  return (long long)int8_smem_bytes(D, H, L, state_in_smem);
+// 4-byte words of the state the int8 kernel's blocks share in global memory
+// (the caller zeroes them).
+extern "C" long long cvl_generate_cl_vae_int8_state_words(int D, int H, int L, int nu) {
+  return (long long)vae_i8_state(D, H, L, cdiv(H, nu)).total;
 }
 
-// Launches the int8 sampler on `stream`; returns the cudaError_t of the
-// launch. `wkd_x` and `skd` are null without use_x_prev; `state` is null
-// when the per-song state fits shared memory.
+// Launches the int8 sampler on `stream` for B <= 64 songs: one cooperative
+// launch of cdiv(H, nu) blocks, each owning nu hidden units and P pitch
+// tiles of one of hs song groups; wke, wkd and wx packed by the wrapper
+// (`pack_int8`); wkd and skd null without use_x_prev; `state` holds
+// cvl_generate_cl_vae_int8_state_words zeroed words; `clock` (kI8Laps
+// counts, or null) receives block 0's ns per part of a step summed over the
+// steps (I8Clock). Returns the cudaError_t of
+// the launch (cudaErrorCooperativeLaunchTooLarge where the grid cannot be
+// co-resident).
 extern "C" int cvl_generate_cl_vae_int8(
-    const float* seed, const float* eps, const float* u, const int* wke, const float* ske,
-    const float* encb, const void* wz_t, const float* bz, const int* wkd_x, const float* skd,
-    const float* wkd_z, const float* decb, const int* wx, const float* swx, const float* bx,
-    float* out, float* state, int B, int nsteps, int D, int H, int L, int use_x_prev,
-    int use_z_prior, int return_probs, void* stream) {
-  const Int8Args a{seed,  eps,  u,     wke,         ske,   encb,
-                   static_cast<const __nv_bfloat16*>(wz_t), bz,   wkd_x, skd,
-                   wkd_z, decb, wx,    swx,         bx,    out,  state, B,
-                   nsteps, D,   H,     L,           use_x_prev, use_z_prior, return_probs};
-  return launch_int8(a, static_cast<cudaStream_t>(stream));
+    const float* seed, const float* eps, const float* u, const int* wke, const int* wkd,
+    const int* wx, const float* ske, const float* skd, const float* encb, const float* decb,
+    const void* wz_t, const float* bz, const float* wkd_z, const float* swx, const float* bx,
+    float* out, int* state, unsigned long long* clock, int B, int nsteps, int D, int H, int L,
+    int use_x_prev, int use_z_prior, int return_probs, int nu, int P, int hs, int res_cells,
+    int res_head, void* stream) {
+  const VaeI8State st = vae_i8_state(D, H, L, cdiv(H, nu));
+  const VaeI8Args a{seed, eps, u, wke, wkd, wx, ske, skd, encb, decb,
+                    static_cast<const __nv_bfloat16*>(wz_t), bz, wkd_z, swx, bx, out,
+                    state + st.xq, state + st.hq, reinterpret_cast<double*>(state + st.zpart),
+                    reinterpret_cast<float*>(state + st.zs),
+                    reinterpret_cast<float*>(state + st.hmax),
+                    reinterpret_cast<unsigned*>(state + st.bar), clock, B, nsteps, D, H, L,
+                    use_x_prev, use_z_prior, return_probs, nu, P, hs, res_cells, res_head};
+  return launch_vae_i8(a, static_cast<cudaStream_t>(stream));
 }

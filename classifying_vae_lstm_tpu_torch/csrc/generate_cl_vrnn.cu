@@ -136,9 +136,15 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "coop.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
+
+using cvl_coop::grid_sync;
+using cvl_coop::mma_s8;
+constexpr int kLaps = 10;
+using PhaseClock = cvl_coop::PhaseClock<kLaps>;
 
 // the value a product's operand takes in the weight type's mode
 template <typename WT>
@@ -231,66 +237,10 @@ __device__ __forceinline__ float hard_sigmoid_rn(float x) {
   return fminf(fmaxf(__fadd_rn(__fmul_rn(0.2f, x), 0.5f), 0.f), 1.f);
 }
 
-// d += a . b on the int8 tensor cores: a 16 x 32 (row) by 32 x 8 (col)
-// product of s8 codes, summed in s32 (exact)
-__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                       unsigned b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Every block of the grid arrives before any leaves. `count` only grows:
-// round r ends when it reaches r * gridDim.x. Thread 0 arrives with a
-// release (after the block barrier, so it orders the whole block's writes
-// before the arrival) and waits with acquiring loads (the block barrier
-// after it orders the block's later reads after them). Full fences in place
-// of the release and acquire cost ~0.1 us a barrier more on an H100.
-__device__ __forceinline__ void grid_sync(unsigned* count, unsigned& rounds) {
-  __syncthreads();
-  ++rounds;
-  if (threadIdx.x == 0) {
-    const unsigned target = rounds * gridDim.x;
-    asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(count) : "memory");
-    unsigned seen;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(seen) : "l"(count) : "memory");
-    } while (seen < target);
-  }
-  __syncthreads();
-}
-
-// Block 0's clock of a step's parts (`a.clock` set), summed over the steps:
+// Block 0's clock (`PhaseClock`, csrc/coop.cuh) of a step's kLaps parts:
 // the encoder's products, its epilogue, the wait at its barrier; the z
 // heads, the wait; the decoder's products, epilogue, wait; the frame head,
-// the wait. lap(i) adds the ns since the last lap to sums[i]
-// (`%globaltimer`); `flush` writes them out.
-constexpr int kLaps = 10;
-struct PhaseClock {
-  unsigned long long* out;
-  unsigned long long last, sums[kLaps];
-  __device__ __forceinline__ static unsigned long long now() {
-    unsigned long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    return t;
-  }
-  __device__ __forceinline__ void start() {
-    if (!out) return;
-    for (int i = 0; i < kLaps; ++i) sums[i] = 0;
-    last = now();
-  }
-  __device__ __forceinline__ void lap(int i) {
-    if (!out) return;
-    const unsigned long long t = now();
-    sums[i] += t - last;
-    last = t;
-  }
-  __device__ __forceinline__ void flush() {
-    if (out)
-      for (int i = 0; i < kLaps; ++i) out[i] = sums[i];
-  }
-};
+// the wait.
 
 // The z head's partial sums (bf16, summed exactly): this lane's k = k0,
 // k0 + stride, ... of sum_k a[k][b] * wrow[k] for the bf16-valued a of four

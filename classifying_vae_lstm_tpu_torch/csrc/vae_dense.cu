@@ -1,13 +1,14 @@
-// Dense-stack cl_vae training kernels for Hopper (sm_90a), f32 or bf16 mode.
+// Dense-stack cl_vae training kernels for Hopper (sm_90a), f32 mode.
 //
 // Replaces: classifying_vae_lstm_tpu/ops/pallas_vae.py
-//   * :214 `_fwd_call` -> `_fwd_kernel` :133 with `vae_dense_fwd_kernel` below;
+//   * :214 `_fwd_call` -> `_fwd_kernel` :133 in the f32 mode with
+//     `vae_dense_fwd_kernel` below;
 //   * :358 `_bwd_call` -> `_bwd_kernel` :230 in the f32 mode with
 //     `vae_dense_bwd_kernel` (the row pass) followed by
 //     `wgrad_kernel<vae_dense_wgrad>` (the weight gradients,
-//     csrc/wgrad.cuh): one ported kernel, two launches. The bf16 mode's
-//     backward is csrc/vae_dense_tc.cu (whole-batch products on the tensor
-//     cores).
+//     csrc/wgrad.cuh): one ported kernel, two launches. The bf16 mode of
+//     both is csrc/vae_dense_tc.cu (whole-batch products on the tensor
+//     cores, the narrow layers in row kernels).
 //
 // What it computes, per batch row (D frame width, Cw key-encoder width, H
 // hidden width, L latent width, K key classes):
@@ -62,23 +63,7 @@
 // and the products run on FFMA, not the tensor cores; a layer with few
 // columns (the w and z heads) leaves most of the block's threads idle.
 //
-// The forward's bf16 mode (`vae_apply_core(compute_dtype=bf16)` in the JAX
-// package: `_fwd_kernel` with bf16 weights) is the same code with the weight
-// type WT = __nv_bfloat16: x, x_prev and every kernel are bf16, the biases,
-// the noise and every other stream f32. Each product rounds its left operand
-// to bf16 where the TPU kernel's `mm` does (a1, w, a2, z, a3) and accumulates
-// in f32; the shared tiles hold those operands rounded, since they are only
-// read as operands. The residuals a1, a2, a3 are written as f32 holding their
-// bf16-rounded values (the TPU kernel stores them in bf16). The backward's
-// bf16 mode, with the same rounding points as the TPU kernel (each
-// pre-activation cotangent rounded as an operand, the weight gradients
-// rounded once after their f32 sums, the bias sums of the unrounded
-// cotangents), is csrc/vae_dense_tc.cu. At the seq-concat width bf16 halves
-// the forward's weight stream (13.3 -> 6.7 MB at H = 1024 with x_prev); its
-// products still run on FFMA, where bf16 operands would make mma.sync or
-// wgmma legal: that is later work.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -89,26 +74,25 @@ namespace {
 constexpr int kRows = 4;       // batch rows per block (one float4 of operands)
 constexpr int kThreads = 256;  // threads per block: one output column each per pass
 
-// The fields typed `const void*` hold WT (float, or __nv_bfloat16 in bf16 mode).
 struct FwdArgs {
-  const void* x;       // [B, D]
-  const void* xp;      // [B, D]  or null without use_x_prev
+  const float* x;      // [B, D]
+  const float* xp;     // [B, D]  or null without use_x_prev
   const float* eps_w;  // [B, K-1]
   const float* eps_z;  // [B, L]
-  const void* whw;     // [D, Cw]
+  const float* whw;    // [D, Cw]
   const float* bhw;    // [Cw]
-  const void* wwz;     // [Cw, 2(K-1)]  w_mean | w_log_var kernels
+  const float* wwz;    // [Cw, 2(K-1)]  w_mean | w_log_var kernels
   const float* bwz;    // [2(K-1)]
-  const void* whx;     // [D, H]  latent encoder, x rows
-  const void* whw2;    // [K, H]  latent encoder, w rows
+  const float* whx;    // [D, H]  latent encoder, x rows
+  const float* whw2;   // [K, H]  latent encoder, w rows
   const float* bh;     // [H]
-  const void* wzz;     // [H, 2L]  z_mean | z_log_var kernels
+  const float* wzz;    // [H, 2L]  z_mean | z_log_var kernels
   const float* bzz;    // [2L]
-  const void* wdw;     // [K, H]  decoder, w rows
-  const void* wdxp;    // [D, H]  decoder, x_prev rows (or null)
-  const void* wdz;     // [L, H]  decoder, z rows
+  const float* wdw;    // [K, H]  decoder, w rows
+  const float* wdxp;   // [D, H]  decoder, x_prev rows (or null)
+  const float* wdz;    // [L, H]  decoder, z rows
   const float* bd;     // [H]
-  const void* wxh;     // [H, D]
+  const float* wxh;    // [H, D]
   const float* bxh;    // [D]
   float* xhat;         // [B, D]
   float* wargs;        // [B, 2(K-1)]
@@ -123,14 +107,13 @@ struct BwdArgs {
   const float *a1, *a2, *a3;                      // [B, Cw], [B, H], [B, H]
   const float *xhat, *wargs, *zargs, *w;          // the forward's outputs
   const float *dxhat, *dwargs, *dzargs, *dw;      // their cotangents
-  // the transposed weights and dx, dxp hold WT
-  const void* wxh_t;   // [D, H]            frame head, transposed
-  const void* wd_t;    // [H, K + n_xp + L] decoder (w | x_prev | z rows), transposed
-  const void* wzz_t;   // [2L, H]           z heads, transposed
-  const void* wh_t;    // [H, D + K]        latent encoder (x | w rows), transposed
-  const void* wwz_t;   // [2(K-1), Cw]      w heads, transposed
-  const void* whw_t;   // [Cw, D]           key encoder, transposed
-  void *dx, *dxp;      // [B, D] (dxp null without use_x_prev)
+  const float* wxh_t;  // [D, H]            frame head, transposed
+  const float* wd_t;   // [H, K + n_xp + L] decoder (w | x_prev | z rows), transposed
+  const float* wzz_t;  // [2L, H]           z heads, transposed
+  const float* wh_t;   // [H, D + K]        latent encoder (x | w rows), transposed
+  const float* wwz_t;  // [2(K-1), Cw]      w heads, transposed
+  const float* whw_t;  // [Cw, D]           key encoder, transposed
+  float *dx, *dxp;     // [B, D] (dxp null without use_x_prev)
   // scratch for the weight-gradient pass: each layer's pre-activation cotangent, and z
   float *dxh_pre, *dd_pre, *dza, *dh_pre, *dwa, *dhw_pre, *zs;
   int B, D, Cw, H, L, K, use_xp;
@@ -148,34 +131,19 @@ __host__ __device__ constexpr size_t bwd_smem_floats(int D, int Cw, int H, int L
 }
 
 // One operand of a layer: a [k][kRows] tile in shared memory times a [k, N]
-// row-major weight of type WT in global memory. k = 0 skips it.
-template <typename WT>
+// row-major weight in global memory. k = 0 skips it.
 struct Operand {
   const float* a;
-  const WT* w;
+  const float* w;
   int k;
 };
-
-__device__ __forceinline__ float ldw(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ldw(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ float ldx(const float* p) { return *p; }
-__device__ __forceinline__ float ldx(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void stx(float* p, float v) { *p = v; }
-
-// the value a product's left operand takes in the weight type's mode
-template <typename WT>
-__device__ __forceinline__ float operand(float x) { return x; }
-template <>
-__device__ __forceinline__ float operand<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 // out(n, r) = bias[n] + sum over the operands of sum_j a[j][r] * w[j * N + n],
 // for n in [0, N) and the tile's rows r; neighbouring threads take
 // neighbouring columns. `store(n, r, value)` receives each result. No
 // barrier inside: the caller syncs before the next layer reads the results.
-template <typename WT, int NOps, typename Store>
-__device__ __forceinline__ void layer(const Operand<WT> (&ops)[NOps], const float* bias, int N,
+template <int NOps, typename Store>
+__device__ __forceinline__ void layer(const Operand (&ops)[NOps], const float* bias, int N,
                                       Store store) {
   for (int n = threadIdx.x; n < N; n += kThreads) {
     const float b = bias ? __ldg(bias + n) : 0.f;
@@ -183,11 +151,11 @@ __device__ __forceinline__ void layer(const Operand<WT> (&ops)[NOps], const floa
 #pragma unroll
     for (int i = 0; i < NOps; ++i) {
       const float* a = ops[i].a;
-      const WT* wp = ops[i].w + n;
+      const float* wp = ops[i].w + n;
       const int k = ops[i].k;
 #pragma unroll 4
       for (int j = 0; j < k; ++j, wp += N) {
-        const float wv = ldw(wp);
+        const float wv = __ldg(wp);
         const float4 v = *reinterpret_cast<const float4*>(a + j * kRows);
         acc[0] = fmaf(v.x, wv, acc[0]);
         acc[1] = fmaf(v.y, wv, acc[1]);
@@ -202,17 +170,14 @@ __device__ __forceinline__ void layer(const Operand<WT> (&ops)[NOps], const floa
 
 // rows s0 .. s0+kRows-1 of a [B, W] matrix into a [W][kRows] shared tile
 // (rows >= B are zero)
-template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, int B, int s0, int W) {
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int B, int s0, int W) {
   for (int i = threadIdx.x; i < W * kRows; i += kThreads) {
     const int r = i / W, k = i - r * W, s = s0 + r;
-    dst[k * kRows + r] = s < B ? ldx(src + (size_t)s * W + k) : 0.f;
+    dst[k * kRows + r] = s < B ? src[(size_t)s * W + k] : 0.f;
   }
 }
 
-template <typename WT>
 __global__ void __launch_bounds__(kThreads) vae_dense_fwd_kernel(const FwdArgs a) {
-  const auto W = [](const void* p) { return static_cast<const WT*>(p); };
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int B = a.B, D = a.D, Cw = a.Cw, H = a.H, L = a.L, K = a.K, K1 = K - 1;
@@ -227,20 +192,20 @@ __global__ void __launch_bounds__(kThreads) vae_dense_fwd_kernel(const FwdArgs a
   float* a3s = zs + L * kRows;                   // [H][kRows]
   const int s0 = blockIdx.x * kRows;             // rows >= B are masked
 
-  load_rows(xs, W(a.x), B, s0, D);
-  if (a.use_xp) load_rows(xps, W(a.xp), B, s0, D);
+  load_rows(xs, a.x, B, s0, D);
+  if (a.use_xp) load_rows(xps, a.xp, B, s0, D);
   __syncthreads();
 
   // key encoder: a1 = relu(x @ Whw + bhw)
-  const Operand<WT> key_enc[] = {{xs, W(a.whw), D}};
+  const Operand key_enc[] = {{xs, a.whw, D}};
   layer(key_enc, a.bhw, Cw, [&](int n, int r, float v) {
-    v = operand<WT>(fmaxf(v, 0.f));
+    v = fmaxf(v, 0.f);
     a1s[n * kRows + r] = v;
     if (s0 + r < B) a.a1[(size_t)(s0 + r) * Cw + n] = v;
   });
   __syncthreads();
   // w heads: wargs = a1 @ [Wwm | Wwv] + [bwm | bwv]
-  const Operand<WT> w_heads[] = {{a1s, W(a.wwz), Cw}};
+  const Operand w_heads[] = {{a1s, a.wwz, Cw}};
   layer(w_heads, a.bwz, 2 * K1, [&](int n, int r, float v) {
     was[n * kRows + r] = v;
     if (s0 + r < B) a.wargs[(size_t)(s0 + r) * 2 * K1 + n] = v;
@@ -266,21 +231,21 @@ __global__ void __launch_bounds__(kThreads) vae_dense_fwd_kernel(const FwdArgs a
     }
     for (int j = 0; j < K; ++j) {
       const float v = ws[j * kRows + r] / sum;
-      ws[j * kRows + r] = operand<WT>(v);
+      ws[j * kRows + r] = v;
       if (s < B) a.w[(size_t)s * K + j] = v;
     }
   }
   __syncthreads();
   // latent encoder: a2 = relu(x @ Whx + w @ Whw2 + bh)
-  const Operand<WT> lat_enc[] = {{xs, W(a.whx), D}, {ws, W(a.whw2), K}};
+  const Operand lat_enc[] = {{xs, a.whx, D}, {ws, a.whw2, K}};
   layer(lat_enc, a.bh, H, [&](int n, int r, float v) {
-    v = operand<WT>(fmaxf(v, 0.f));
+    v = fmaxf(v, 0.f);
     a2s[n * kRows + r] = v;
     if (s0 + r < B) a.a2[(size_t)(s0 + r) * H + n] = v;
   });
   __syncthreads();
   // z heads: zargs = a2 @ [Wzm | Wzv] + [bzm | bzv]
-  const Operand<WT> z_heads[] = {{a2s, W(a.wzz), H}};
+  const Operand z_heads[] = {{a2s, a.wzz, H}};
   layer(z_heads, a.bzz, 2 * L, [&](int n, int r, float v) {
     zas[n * kRows + r] = v;
     if (s0 + r < B) a.zargs[(size_t)(s0 + r) * 2 * L + n] = v;
@@ -290,29 +255,27 @@ __global__ void __launch_bounds__(kThreads) vae_dense_fwd_kernel(const FwdArgs a
   for (int i = threadIdx.x; i < L * kRows; i += kThreads) {
     const int l = i / kRows, r = i - l * kRows, s = s0 + r;
     const float e = s < B ? a.eps_z[(size_t)s * L + l] : 0.f;
-    zs[i] = operand<WT>(zas[l * kRows + r] + expf(zas[(L + l) * kRows + r] / 2.f) * e);
+    zs[i] = zas[l * kRows + r] + expf(zas[(L + l) * kRows + r] / 2.f) * e;
   }
   __syncthreads();
   // decoder: a3 = relu(w @ Wdw + z @ Wdz [+ x_prev @ Wdxp] + bd)
-  const Operand<WT> dec[] = {
-      {ws, W(a.wdw), K}, {zs, W(a.wdz), L}, {xps, W(a.wdxp), a.use_xp ? D : 0}};
+  const Operand dec[] = {
+      {ws, a.wdw, K}, {zs, a.wdz, L}, {xps, a.wdxp, a.use_xp ? D : 0}};
   layer(dec, a.bd, H, [&](int n, int r, float v) {
-    v = operand<WT>(fmaxf(v, 0.f));
+    v = fmaxf(v, 0.f);
     a3s[n * kRows + r] = v;
     if (s0 + r < B) a.a3[(size_t)(s0 + r) * H + n] = v;
   });
   __syncthreads();
   // frame head: xhat = sigmoid(a3 @ Wxh + bxh)
-  const Operand<WT> head[] = {{a3s, W(a.wxh), H}};
+  const Operand head[] = {{a3s, a.wxh, H}};
   layer(head, a.bxh, D, [&](int n, int r, float v) {
     if (s0 + r < B) a.xhat[(size_t)(s0 + r) * D + n] = 1.f / (1.f + expf(-v));
   });
 }
 
-// The f32 mode's row pass (WT = float: `operand` keeps every value).
-template <typename WT>
+// The row pass of the backward.
 __global__ void __launch_bounds__(kThreads) vae_dense_bwd_kernel(const BwdArgs a) {
-  const auto W = [](const void* p) { return static_cast<const WT*>(p); };
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int B = a.B, D = a.D, Cw = a.Cw, H = a.H, L = a.L, K = a.K, K1 = K - 1;
@@ -339,26 +302,26 @@ __global__ void __launch_bounds__(kThreads) vae_dense_bwd_kernel(const BwdArgs a
       v = a.dxhat[o] * xh * (1.f - xh);
       a.dxh_pre[o] = v;
     }
-    dxh[n * kRows + r] = operand<WT>(v);
+    dxh[n * kRows + r] = v;
   }
   __syncthreads();
   // decoder: dd_pre = (dxh_pre @ Wxh^T) * (a3 > 0)
-  const Operand<WT> head[] = {{dxh, W(a.wxh_t), D}};
+  const Operand head[] = {{dxh, a.wxh_t, D}};
   layer(head, nullptr, H, [&](int n, int r, float v) {
     const size_t o = (size_t)(s0 + r) * H + n;
     v = (ok[r] && a.a3[o] > 0.f) ? v : 0.f;
-    dd[n * kRows + r] = operand<WT>(v);
+    dd[n * kRows + r] = v;
     if (ok[r]) a.dd_pre[o] = v;
   });
   __syncthreads();
   // dd_pre @ (Wdw | Wdxp | Wdz)^T: the decoder's share of dw, dx_prev, dz
-  const Operand<WT> dec[] = {{dd, W(a.wd_t), H}};
+  const Operand dec[] = {{dd, a.wd_t, H}};
   layer(dec, nullptr, K + n_xp + L, [&](int n, int r, float v) {
     const int s = s0 + r;
     if (n < K) {
       dwt[n * kRows + r] = (ok[r] ? a.dw[(size_t)s * K + n] : 0.f) + v;
     } else if (n < K + n_xp) {
-      if (ok[r]) stx(static_cast<WT*>(a.dxp) + (size_t)s * D + (n - K), v);
+      if (ok[r]) a.dxp[(size_t)s * D + (n - K)] = v;
     } else {
       dzs[(n - K - n_xp) * kRows + r] = v;
     }
@@ -379,21 +342,21 @@ __global__ void __launch_bounds__(kThreads) vae_dense_bwd_kernel(const BwdArgs a
       a.dza[o + L + l] = dzv;
       a.zs[(size_t)s * L + l] = a.zargs[o + l] + sig * e;
     }
-    dza[l * kRows + r] = operand<WT>(dzm);
-    dza[(L + l) * kRows + r] = operand<WT>(dzv);
+    dza[l * kRows + r] = dzm;
+    dza[(L + l) * kRows + r] = dzv;
   }
   __syncthreads();
   // latent encoder: dh_pre = (dzargs @ Wzz^T) * (a2 > 0)
-  const Operand<WT> z_heads[] = {{dza, W(a.wzz_t), 2 * L}};
+  const Operand z_heads[] = {{dza, a.wzz_t, 2 * L}};
   layer(z_heads, nullptr, H, [&](int n, int r, float v) {
     const size_t o = (size_t)(s0 + r) * H + n;
     v = (ok[r] && a.a2[o] > 0.f) ? v : 0.f;
-    dh[n * kRows + r] = operand<WT>(v);
+    dh[n * kRows + r] = v;
     if (ok[r]) a.dh_pre[o] = v;
   });
   __syncthreads();
   // dh_pre @ (Whx | Whw2)^T: the latent encoder's share of dx and of dw
-  const Operand<WT> lat_enc[] = {{dh, W(a.wh_t), H}};
+  const Operand lat_enc[] = {{dh, a.wh_t, H}};
   layer(lat_enc, nullptr, D + K, [&](int n, int r, float v) {
     if (n < D) {
       dxs[n * kRows + r] = v;
@@ -422,24 +385,24 @@ __global__ void __launch_bounds__(kThreads) vae_dense_bwd_kernel(const BwdArgs a
         a.dwa[o + j] = dwm;
         a.dwa[o + K1 + j] = dwv;
       }
-      dwa[j * kRows + r] = operand<WT>(dwm);
-      dwa[(K1 + j) * kRows + r] = operand<WT>(dwv);
+      dwa[j * kRows + r] = dwm;
+      dwa[(K1 + j) * kRows + r] = dwv;
     }
   }
   __syncthreads();
   // key encoder: dhw_pre = (dwargs @ Wwz^T) * (a1 > 0)
-  const Operand<WT> w_heads[] = {{dwa, W(a.wwz_t), 2 * K1}};
+  const Operand w_heads[] = {{dwa, a.wwz_t, 2 * K1}};
   layer(w_heads, nullptr, Cw, [&](int n, int r, float v) {
     const size_t o = (size_t)(s0 + r) * Cw + n;
     v = (ok[r] && a.a1[o] > 0.f) ? v : 0.f;
-    dhw[n * kRows + r] = operand<WT>(v);
+    dhw[n * kRows + r] = v;
     if (ok[r]) a.dhw_pre[o] = v;
   });
   __syncthreads();
   // dx = the latent encoder's share + dhw_pre @ Whw^T
-  const Operand<WT> key_enc[] = {{dhw, W(a.whw_t), Cw}};
+  const Operand key_enc[] = {{dhw, a.whw_t, Cw}};
   layer(key_enc, nullptr, D, [&](int n, int r, float v) {
-    if (ok[r]) stx(static_cast<WT*>(a.dx) + (size_t)(s0 + r) * D + n, dxs[n * kRows + r] + v);
+    if (ok[r]) a.dx[(size_t)(s0 + r) * D + n] = dxs[n * kRows + r] + v;
   });
 }
 
@@ -458,28 +421,22 @@ extern "C" long long cvl_vae_dense_smem_bytes(int D, int Cw, int H, int L, int K
   return (long long)((f > b ? f : b) * sizeof(float));
 }
 
-// The forward on `stream` (bf16: the bf16 mode, x, xp and the kernels
-// bf16); returns the cudaError_t of the launch.
+// The forward on `stream`; returns the cudaError_t of the launch.
 extern "C" int cvl_vae_dense_fwd(
-    int bf16, const void* x, const void* xp, const float* eps_w, const float* eps_z,
-    const void* whw, const float* bhw, const void* wwz, const float* bwz, const void* whx,
-    const void* whw2, const float* bh, const void* wzz, const float* bzz, const void* wdw,
-    const void* wdxp, const void* wdz, const float* bd, const void* wxh, const float* bxh,
-    float* xhat, float* wargs, float* zargs, float* w, float* a1, float* a2, float* a3, int B,
-    int D, int Cw, int H, int L, int K, int use_xp, void* stream) {
+    const float* x, const float* xp, const float* eps_w, const float* eps_z, const float* whw,
+    const float* bhw, const float* wwz, const float* bwz, const float* whx, const float* whw2,
+    const float* bh, const float* wzz, const float* bzz, const float* wdw, const float* wdxp,
+    const float* wdz, const float* bd, const float* wxh, const float* bxh, float* xhat,
+    float* wargs, float* zargs, float* w, float* a1, float* a2, float* a3, int B, int D, int Cw,
+    int H, int L, int K, int use_xp, void* stream) {
   const FwdArgs a{x,   xp,  eps_w, eps_z, whw, bhw, wwz,   bwz,   whx, whw2, bh, wzz,
                   bzz, wdw, wdxp,  wdz,   bd,  wxh, bxh,   xhat,  wargs, zargs, w,  a1,
                   a2,  a3,  B,     D,     Cw,  H,   L,     K,     use_xp};
   const size_t smem = fwd_smem_floats(D, Cw, H, L, K, use_xp) * sizeof(float);
-  const void* fn = bf16 ? (const void*)vae_dense_fwd_kernel<__nv_bfloat16>
-                        : (const void*)vae_dense_fwd_kernel<float>;
-  int err = set_smem(fn, smem);
+  int err = set_smem((const void*)vae_dense_fwd_kernel, smem);
   if (err) return err;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    vae_dense_fwd_kernel<__nv_bfloat16><<<(B + kRows - 1) / kRows, kThreads, smem, st>>>(a);
-  else
-    vae_dense_fwd_kernel<float><<<(B + kRows - 1) / kRows, kThreads, smem, st>>>(a);
+  vae_dense_fwd_kernel<<<(B + kRows - 1) / kRows, kThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -490,8 +447,8 @@ extern "C" int cvl_vae_dense_bwd(
     const float* eps_w, const float* eps_z, const float* a1, const float* a2,
     const float* a3, const float* xhat, const float* wargs, const float* zargs, const float* w,
     const float* dxhat, const float* dwargs, const float* dzargs, const float* dw,
-    const void* wxh_t, const void* wd_t, const void* wzz_t, const void* wh_t,
-    const void* wwz_t, const void* whw_t, void* dx, void* dxp, float* dxh_pre,
+    const float* wxh_t, const float* wd_t, const float* wzz_t, const float* wh_t,
+    const float* wwz_t, const float* whw_t, float* dx, float* dxp, float* dxh_pre,
     float* dd_pre, float* dza, float* dh_pre, float* dwa, float* dhw_pre, float* zs, int B,
     int D, int Cw, int H, int L, int K, int use_xp, void* stream) {
   const BwdArgs a{eps_w,  eps_z,  a1,    a2,    a3,     xhat,   wargs, zargs, w,  dxhat,
@@ -499,10 +456,10 @@ extern "C" int cvl_vae_dense_bwd(
                   dxp,    dxh_pre, dd_pre, dza, dh_pre, dwa,    dhw_pre, zs,  B,  D,
                   Cw,     H,      L,     K,     use_xp};
   const size_t smem = bwd_smem_floats(D, Cw, H, L, K) * sizeof(float);
-  int err = set_smem((const void*)vae_dense_bwd_kernel<float>, smem);
+  int err = set_smem((const void*)vae_dense_bwd_kernel, smem);
   if (err) return err;
-  vae_dense_bwd_kernel<float><<<(B + kRows - 1) / kRows, kThreads, smem,
-                                static_cast<cudaStream_t>(stream)>>>(a);
+  vae_dense_bwd_kernel<<<(B + kRows - 1) / kRows, kThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -1,14 +1,57 @@
-// The cl_vae dense-stack backward in the bf16 mode for Hopper (sm_90a): the
-// wide layers as products over the whole batch on the tensor cores, the
-// narrow ones and the elementwise steps in row kernels.
+// The cl_vae dense stack in the bf16 mode for Hopper (sm_90a), forward and
+// backward: the wide layers as products over the whole batch on the tensor
+// cores, the narrow ones and the elementwise steps in row kernels.
 //
-// Replaces: classifying_vae_lstm_tpu/ops/pallas_vae.py:358 `_bwd_call` ->
-// `_bwd_kernel` :230, in the bf16 mode (`vae_apply_core(compute_dtype=bf16)`,
-// bf16 weights). The f32 mode and both forwards stay in csrc/vae_dense.cu.
-// One ported kernel, one wrapper call of 8 launches (9 when B > kSegRows).
+// Replaces: classifying_vae_lstm_tpu/ops/pallas_vae.py
+//   * :214 `_fwd_call` -> `_fwd_kernel` :133 in the bf16 mode
+//     (`vae_apply_core(compute_dtype=bf16)`, bf16 weights): one wrapper call
+//     of 3 launches (`cvl_vae_tc_fwd`, at the end);
+//   * :358 `_bwd_call` -> `_bwd_kernel` :230 in the bf16 mode: one wrapper
+//     call of 8 launches (9 when B > kSegRows).
+// The f32 mode of both stays in csrc/vae_dense.cu.
 //
-// What it computes, per batch row (D frame width, Cw key-encoder width, H
-// hidden width, L latent width, K key classes, K1 = K - 1), from the
+// The forward, per batch row (D frame width, Cw key-encoder width, H hidden
+// width, L latent width, K key classes, K1 = K - 1):
+//   a1    = relu(x @ Whw + bhw)                              [Cw]
+//   wargs = a1 @ [Wwm | Wwv] + [bwm | bwv]                   [2 K1]
+//   w     = softmax([wargs[:K1] + exp(wargs[K1:] / 2) eps_w, 0])   [K]
+//   a2    = relu((x @ Whx + w @ Whw2) + bh)                  [H]
+//   zargs = a2 @ [Wzm | Wzv] + [bzm | bzv]                   [2L]
+//   z     = zargs[:L] + exp(zargs[L:] / 2) eps_z
+//   a3    = relu(((w @ Wdw + z @ Wdz) + bd) [+ x_prev @ Wdxp])   [H]
+//   xhat  = sigmoid(a3 @ Wxh + bxh)                          [D]
+// (the JAX kernel's order of the sums, pallas_vae.py:141-162). Rounding,
+// where the TPU kernel rounds: each product's left operand (x, x_prev, a1,
+// w, a2, z, a3) is bf16 and the products accumulate in f32; a1, a2 and a3
+// are written as f32 holding their bf16 values; the noise, the biases and
+// every other stream stay f32.
+//
+// What bounds the forward. At the main path's shape (B=100, D=1,024,
+// Cw=256, H=1,024, L=16, K=13, no x_prev) it is 0.49 GFLOP of bf16 products
+// (0.0005 ms at 989 TFLOP/s) against 6.5 MB of weights and rows (0.0019 ms
+// at 3.35 TB/s): bytes bound it, far below the cost of a launch. The first
+// design ran the whole chain in one block of 4 rows, every block reading
+// every weight from L2 (~118 MB of L2 reads at B=100, 25 blocks on 132
+// SMs), every product on FFMA, the narrow layers leaving most threads idle.
+//
+// What the forward's design does about it.
+// * One product launch for everything that does not depend on w: a1 (with
+//   bhw, the ReLU and the rounding in the epilogue), x @ Whx and, with
+//   x_prev, x_prev @ Wdxp (kept f32, to be added in the JAX order), three
+//   jobs of one grid over the whole batch, each weight read in its stored
+//   layout [in, out] once a call (the `vae_tc_product_kernel` of the
+//   backward, kBT = false, K split over an 8-block cluster and summed
+//   through distributed shared memory in rank order).
+// * One row kernel, kRows rows a block, for the narrow chain: the w heads
+//   and the z heads (`narrow_head`: the warps split the weight's rows, the
+//   lanes its columns, so a warp reads a row of the weight coalesced; the
+//   warps' sums added in order), the softmax with the pinned zero logit,
+//   a2 and a3 a thread a unit (K and K + L terms), the z sample.
+// * One product launch for a3 @ Wxh, the bias and the sigmoid in the
+//   epilogue.
+// * Every sum in a fixed order, no atomics: two calls give the same bits.
+//
+// The backward, per batch row, from the
 // cotangents of xhat, wargs, zargs, w and the forward's residuals:
 //   dxh  = dxhat xhat (1 - xhat)                        frame head
 //   dd   = (dxh @ Wxhᵀ) (a3 > 0)                        decoder
@@ -23,19 +66,19 @@
 // and every weight gradient (aᵀ of the layer's input times its
 // pre-activation cotangent, over the B rows) and bias sum.
 //
-// Rounding, where the TPU kernel rounds (csrc/vae_dense.cu's notes): each
-// product's left operand is rounded to bf16 (dxh, dd, dza, dh, dwa, dhw, and
+// Rounding, where the TPU kernel rounds: each product's left operand is
+// rounded to bf16 (dxh, dd, dza, dh, dwa, dhw, and
 // a3, x, xp, w, z, a1, a2 as the weight gradients' operands); the weight
 // gradients are summed in f32 and rounded once, as bf16; the bias sums take
 // the unrounded f32 cotangents; dx and dxp are stored in bf16.
 //
-// What bounds it. At the main path's shape (B=100, D=1,024, Cw=256,
-// H=1,024, L=16, K=13, no x_prev) the backward is 1.4 GFLOP of bf16 products
+// What bounds the backward. At the main path's shape (B=100, D=1,024,
+// Cw=256, H=1,024, L=16, K=13, no x_prev) it is 1.4 GFLOP of bf16 products
 // (0.0014 ms at 989 TFLOP/s) against 6.6 MB of weights, residuals and
 // gradients (0.0020 ms at 3.35 TB/s): bytes bound it, far below the cost of
 // a launch. The layers run in a chain of six dependent launches.
 //
-// What the design does about it.
+// What the backward's design does about it.
 // * The wide layers (dxh @ Wxhᵀ, dh @ Whxᵀ, dd @ Wdxpᵀ, dhw @ Whwᵀ) are one
 //   tensor-core product each over the whole batch (csrc/mma_bf16.cuh's
 //   mma.sync mainloop, 64 x 128 tiles, each weight read in its stored layout
@@ -111,45 +154,59 @@ __global__ void __launch_bounds__(kRowThreads)
     a3_b[i] = __float2bfloat16_rn(a3[i]);
 }
 
-// A wide layer: out = a [M, K] @ bᵀ (b a weight [N, K] as stored), then the
-// epilogue v = add + out, zero where mask <= 0, stored f32 and/or rounded
+// A wide layer: out = a [M, K] @ b, b a weight as stored: [N, K] (a
+// transposed product of the backward, kBT) or [K, N] (the forward's); then
+// the epilogue v = add + out, zero where mask <= 0 (the backward's), or
+// v = out + bias, then the activation, rounded to a bf16 value with `round`
+// (the forward's), stored f32 and/or as bf16
+enum Act { kNone = 0, kRelu = 1, kSigmoid = 2 };
 struct ProdJob {
   Operand a, b;
   const float* add;   // [M, N] or null
   const float* mask;  // [M, N] (a ReLU's post-activation) or null
+  const float* bias;  // [N] or null
   float* out;         // [M, N] or null
   bf16* out_b;        // [M, N] or null
+  int act, round;
 };
 
-// one of two kernel parameters, chosen field by field (a reference chosen
-// at run time would copy both to the stack)
+// one of three kernel parameters, chosen field by field (a reference chosen
+// at run time would copy them to the stack)
 __device__ __forceinline__ Operand pick(const Operand& a, const Operand& b, bool second) {
   return Operand{second ? b.p : a.p, second ? b.rows : a.rows, second ? b.cols : a.cols,
                  second ? b.ld : a.ld};
 }
 __device__ __forceinline__ ProdJob pick(const ProdJob& a, const ProdJob& b, bool second) {
-  return ProdJob{pick(a.a, b.a, second), pick(a.b, b.b, second), second ? b.add : a.add,
-                 second ? b.mask : a.mask, second ? b.out : a.out, second ? b.out_b : a.out_b};
+  return ProdJob{pick(a.a, b.a, second),         pick(a.b, b.b, second),
+                 second ? b.add : a.add,         second ? b.mask : a.mask,
+                 second ? b.bias : a.bias,       second ? b.out : a.out,
+                 second ? b.out_b : a.out_b,     second ? b.act : a.act,
+                 second ? b.round : a.round};
 }
 
 // (b) blockIdx.z = kSplit job + rank: rank r sums its share of K (whole
 // chunks, in order), then takes rows [r kBM / kSplit, ...) of the tile,
 // adding the ranks' staged sums in rank order
+template <bool kBT>
 __global__ void __cluster_dims__(1, 1, kSplit) __launch_bounds__(cvl_tc::kThreads)
-    vae_tc_product_kernel(const ProdJob j0, const ProdJob j1) {
-  __shared__ __align__(16) unsigned char smem[cvl_tc::smem_bytes<true>()];
+    vae_tc_product_kernel(const ProdJob j0, const ProdJob j1, const ProdJob j2) {
+  __shared__ __align__(16) unsigned char smem[cvl_tc::smem_bytes<kBT>()];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const ProdJob j = pick(j0, j1, blockIdx.z >= kSplit);
+  const int job = blockIdx.z / kSplit;
+  const ProdJob j = pick(pick(j0, j1, job == 1), j2, job == 2);
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int M = j.a.rows, N = j.b.rows, K = j.a.cols;
+  const int M = j.a.rows, N = kBT ? j.b.rows : j.b.cols, K = j.a.cols;
   const int per = ((K + kBK - 1) / kBK + kSplit - 1) / kSplit * kBK;
   const int k0 = rank * per, len = min(per, K - k0);
   Acc acc;
   cvl_tc::zero(acc);
   if (n0 < N && len > 0)
-    cvl_tc::mainloop<false, true>(acc, Operand{j.a.p + k0, M, len, j.a.ld},
-                                  Operand{j.b.p + k0, N, len, j.b.ld}, m0, n0, len, smem);
+    cvl_tc::mainloop<false, kBT>(
+        acc, Operand{j.a.p + k0, M, len, j.a.ld},
+        kBT ? Operand{j.b.p + k0, N, len, j.b.ld}
+            : Operand{j.b.p + (size_t)k0 * j.b.ld, len, N, j.b.ld},
+        m0, n0, len, smem);
   const float* tile = cvl_tc::stage_acc(acc, smem);
   cluster.sync();  // every rank's sums are staged
   const float* peer[kSplit];
@@ -170,6 +227,10 @@ __global__ void __cluster_dims__(1, 1, kSplit) __launch_bounds__(cvl_tc::kThread
       const size_t o = (size_t)m * N + n;
       if (j.add) v = j.add[o] + v;
       if (j.mask && !(j.mask[o] > 0.f)) v = 0.f;
+      if (j.bias) v = v + j.bias[n];
+      if (j.act == kRelu) v = fmaxf(v, 0.f);
+      if (j.act == kSigmoid) v = 1.f / (1.f + expf(-v));
+      if (j.round) v = cvl::round_bf16(v);
       if (j.out) j.out[o] = v;
       if (j.out_b) j.out_b[o] = __float2bfloat16_rn(v);
     }
@@ -379,6 +440,198 @@ __global__ void __launch_bounds__(cvl_tc::kThreads) vae_tc_dw_kernel(const DwArg
       }
 }
 
+// ------------------------------------------------------------------ forward
+
+// The forward's row kernel: 16 warps, so that each walks a short run of a
+// narrow weight's rows (its time is a chain of L2 round trips)
+constexpr int kFwdThreads = 512;
+constexpr int kFwdWarps = kFwdThreads / 32;
+
+// out[r][j] = bias[j] + sum_c a(c)[r] w[c J + j] over c < n for the block's
+// kRows rows and the J columns of a narrow weight w [n, J] as stored: warp
+// w of kFwdWarps takes the rows c of w in [w per, (w + 1) per) in order,
+// lane l column j0 + l of each pass of 32 columns (a coalesced read of a row
+// of w); the warps' sums are added in warp order, then the bias. `av(c)`
+// gives the block's rows of the operand at c (a float4: kRows = 4); `part`
+// holds kFwdWarps kRows 32 floats. Ends with a block barrier.
+template <typename A>
+__device__ __forceinline__ void narrow_head(A av, int n, const bf16* w, int J, const float* bias,
+                                            float* out, float* part) {
+  static_assert(kRows == 4, "a float4 of operands");
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int per = (n + kFwdWarps - 1) / kFwdWarps, c0 = warp * per, c1 = min(n, c0 + per);
+  for (int j0 = 0; j0 < J; j0 += 32) {
+    const int j = j0 + lane;
+    float acc[kRows] = {0.f, 0.f, 0.f, 0.f};
+    if (j < J) {
+#pragma unroll 16
+      for (int c = c0; c < c1; ++c) {
+        const float wv = ldb(w + (size_t)c * J + j);
+        const float4 a = av(c);
+        acc[0] = fmaf(a.x, wv, acc[0]);
+        acc[1] = fmaf(a.y, wv, acc[1]);
+        acc[2] = fmaf(a.z, wv, acc[2]);
+        acc[3] = fmaf(a.w, wv, acc[3]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) part[(warp * kRows + r) * 32 + lane] = acc[r];
+    __syncthreads();
+    for (int p = threadIdx.x; p < kRows * 32; p += kFwdThreads) {
+      const int r = p / 32, jj = j0 + p % 32;
+      if (jj >= J) continue;
+      float v = part[p];
+      for (int w2 = 1; w2 < kFwdWarps; ++w2) v += part[w2 * kRows * 32 + p];
+      out[r * J + jj] = v + bias[jj];
+    }
+    __syncthreads();
+  }
+}
+
+struct FwdRowArgs {
+  const float *a1, *xh, *xpd;               // [B, Cw], [B, H], [B, H] (or null)
+  const float *eps_w, *eps_z;               // [B, K-1], [B, L]
+  const bf16 *wwz, *whw2, *wzz, *wdw, *wdz;  // [Cw, 2 K1], [K, H], [H, 2L], [K, H], [L, H]
+  const float *bwz, *bh, *bzz, *bd;         // [2 K1], [H], [2L], [H]
+  float *wargs, *w, *a2, *zargs, *a3;       // [B, 2 K1], [B, K], [B, H], [B, 2L], [B, H]
+  bf16* a3_b;                               // [B, H]
+  int B, Cw, H, L, K;
+};
+
+// (f2) the narrow chain of kRows rows a block: the w heads, the logistic-normal
+// sample (softmax with the pinned zero logit), a2 = relu((x part + w @ Whw2)
+// + bh), the z heads, the z sample, a3 = relu(((w @ Wdw + z @ Wdz) + bd) +
+// x_prev part); the products' left operands (w, a2, z) rounded to bf16, a2
+// and a3 stored as f32 holding their rounded values, a3 also as bf16 (the
+// frame head's operand)
+__global__ void __launch_bounds__(kFwdThreads) vae_tc_fwd_rows_kernel(const FwdRowArgs a) {
+  extern __shared__ float sm[];
+  const int B = a.B, Cw = a.Cw, H = a.H, L = a.L, K = a.K, K1 = K - 1;
+  const int s0 = blockIdx.x * kRows;
+  float* was = sm;                    // [kRows][2 K1]
+  float* ws = was + kRows * 2 * K1;   // [K][kRows]  w rounded (a product operand)
+  float* zas = ws + K * kRows;        // [kRows][2L]
+  float* zs = zas + kRows * 2 * L;    // [L][kRows]  z rounded
+  float* a2s = zs + L * kRows;        // [H][kRows]  a2 (rounded)
+  float* part = a2s + H * kRows;      // [kFwdWarps][kRows][32]
+  const auto row = [&](int r) { return s0 + r < B ? s0 + r : -1; };
+  // w heads: wargs = a1 @ [Wwm | Wwv] + [bwm | bwv], a1 read as stored
+  narrow_head(
+      [&](int c) {
+        float v[kRows];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) v[r] = row(r) >= 0 ? a.a1[(size_t)row(r) * Cw + c] : 0.f;
+        return make_float4(v[0], v[1], v[2], v[3]);
+      },
+      Cw, a.wwz, 2 * K1, a.bwz, was, part);
+  for (int p = threadIdx.x; p < kRows * 2 * K1; p += kFwdThreads) {
+    const int r = p / (2 * K1);
+    if (row(r) >= 0) a.wargs[(size_t)row(r) * 2 * K1 + p % (2 * K1)] = was[p];
+  }
+  // logistic-normal sample: softmax over the K-1 noisy logits and the pinned
+  // zero logit, one thread a row
+  if (threadIdx.x < kRows) {
+    const int r = threadIdx.x, s = row(r);
+    float m = 0.f;  // the zero logit
+    for (int j = 0; j < K1; ++j) {
+      const float e = s >= 0 ? a.eps_w[(size_t)s * K1 + j] : 0.f;
+      const float wn = was[r * 2 * K1 + j] + expf(was[r * 2 * K1 + K1 + j] / 2.f) * e;
+      ws[j * kRows + r] = wn;
+      m = fmaxf(m, wn);
+    }
+    ws[K1 * kRows + r] = 0.f;
+    float sum = 0.f;
+    for (int j = 0; j < K; ++j) {
+      const float e = expf(ws[j * kRows + r] - m);
+      ws[j * kRows + r] = e;
+      sum += e;
+    }
+    for (int j = 0; j < K; ++j) {
+      const float v = ws[j * kRows + r] / sum;
+      ws[j * kRows + r] = cvl::round_bf16(v);
+      if (s >= 0) a.w[(size_t)s * K + j] = v;
+    }
+  }
+  __syncthreads();
+  const float4* w4 = reinterpret_cast<const float4*>(ws);
+  // latent encoder: a2 = relu((x @ Whx + w @ Whw2) + bh), a thread a unit
+  for (int n = threadIdx.x; n < H; n += kFwdThreads) {
+    float acc[kRows] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+    for (int j = 0; j < K; ++j) {
+      const float wv = ldb(a.whw2 + (size_t)j * H + n);
+      const float4 o = w4[j];
+      acc[0] = fmaf(o.x, wv, acc[0]);
+      acc[1] = fmaf(o.y, wv, acc[1]);
+      acc[2] = fmaf(o.z, wv, acc[2]);
+      acc[3] = fmaf(o.w, wv, acc[3]);
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int s = row(r);
+      float v = 0.f;
+      if (s >= 0) {
+        v = cvl::round_bf16(fmaxf((a.xh[(size_t)s * H + n] + acc[r]) + a.bh[n], 0.f));
+        a.a2[(size_t)s * H + n] = v;
+      }
+      a2s[n * kRows + r] = v;
+    }
+  }
+  __syncthreads();
+  // z heads: zargs = a2 @ [Wzm | Wzv] + [bzm | bzv]
+  const float4* a24 = reinterpret_cast<const float4*>(a2s);
+  narrow_head([&](int c) { return a24[c]; }, H, a.wzz, 2 * L, a.bzz, zas, part);
+  for (int p = threadIdx.x; p < kRows * 2 * L; p += kFwdThreads) {
+    const int r = p / (2 * L);
+    if (row(r) >= 0) a.zargs[(size_t)row(r) * 2 * L + p % (2 * L)] = zas[p];
+  }
+  // z sample, rounded (the decoder's operand)
+  for (int i = threadIdx.x; i < L * kRows; i += kFwdThreads) {
+    const int l = i / kRows, r = i - l * kRows, s = row(r);
+    const float e = s >= 0 ? a.eps_z[(size_t)s * L + l] : 0.f;
+    zs[i] = cvl::round_bf16(zas[r * 2 * L + l] + expf(zas[r * 2 * L + L + l] / 2.f) * e);
+  }
+  __syncthreads();
+  // decoder: a3 = relu(((w @ Wdw + z @ Wdz) + bd) [+ x_prev @ Wdxp]), a thread a unit
+  const float4* z4 = reinterpret_cast<const float4*>(zs);
+  for (int n = threadIdx.x; n < H; n += kFwdThreads) {
+    float dw[kRows] = {0.f, 0.f, 0.f, 0.f}, dz[kRows] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+    for (int j = 0; j < K; ++j) {
+      const float wv = ldb(a.wdw + (size_t)j * H + n);
+      const float4 o = w4[j];
+      dw[0] = fmaf(o.x, wv, dw[0]);
+      dw[1] = fmaf(o.y, wv, dw[1]);
+      dw[2] = fmaf(o.z, wv, dw[2]);
+      dw[3] = fmaf(o.w, wv, dw[3]);
+    }
+#pragma unroll 8
+    for (int l = 0; l < L; ++l) {
+      const float wv = ldb(a.wdz + (size_t)l * H + n);
+      const float4 o = z4[l];
+      dz[0] = fmaf(o.x, wv, dz[0]);
+      dz[1] = fmaf(o.y, wv, dz[1]);
+      dz[2] = fmaf(o.z, wv, dz[2]);
+      dz[3] = fmaf(o.w, wv, dz[3]);
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int s = row(r);
+      if (s < 0) continue;
+      const size_t o = (size_t)s * H + n;
+      float v = (dw[r] + dz[r]) + a.bd[n];
+      if (a.xpd) v = v + a.xpd[o];
+      v = cvl::round_bf16(fmaxf(v, 0.f));
+      a.a3[o] = v;
+      a.a3_b[o] = __float2bfloat16_rn(v);
+    }
+  }
+}
+
+size_t fwd_rows_smem(int H, int L, int K) {
+  return (size_t)(kRows * (2 * (K - 1) + K + 3 * L + H) + kFwdWarps * kRows * 32) * sizeof(float);
+}
+
 struct vae_tc_wgrad {};  // names this source's copy of cvl::wgrad_kernel
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -503,12 +756,12 @@ extern "C" int cvl_vae_tc_bwd(
   const auto product = [&](const ProdJob& j0, const ProdJob* j1) {
     const int N = j1 && j1->b.rows > j0.b.rows ? j1->b.rows : j0.b.rows;
     const dim3 grid(cdiv(N, kBN), cdiv(B, kBM), kSplit * (j1 ? 2 : 1));
-    vae_tc_product_kernel<<<grid, cvl_tc::kThreads, 0, st>>>(j0, j1 ? *j1 : j0);
+    vae_tc_product_kernel<true><<<grid, cvl_tc::kThreads, 0, st>>>(j0, j1 ? *j1 : j0, j0);
     return (int)cudaGetLastError();
   };
   // dd = (dxh @ Wxhᵀ) (a3 > 0)
   if ((err = product(ProdJob{Operand{s.dxh_b, B, D, D}, Operand{in(wxh), H, D, D}, nullptr, a3,
-                             s.dd, s.dd_b},
+                             nullptr, s.dd, s.dd_b},
                      nullptr)))
     return err;
   const int rblocks = cdiv(B, kRows);
@@ -518,9 +771,9 @@ extern "C" int cvl_vae_tc_bwd(
   if ((err = (int)cudaGetLastError())) return err;
   // dx1 = dh @ Whxᵀ; dxp = dd @ Wdxpᵀ
   const ProdJob jxp{Operand{s.dd_b, B, H, H}, Operand{in(wdxp), D, H, H}, nullptr, nullptr,
-                    nullptr, out(dxp)};
+                    nullptr, nullptr, out(dxp)};
   if ((err = product(ProdJob{Operand{s.dh_b, B, H, H}, Operand{in(whx), D, H, H}, nullptr,
-                             nullptr, s.dx1, nullptr},
+                             nullptr, nullptr, s.dx1, nullptr},
                      use_xp ? &jxp : nullptr)))
     return err;
   const KeyArgs ka{s.dh_b, in(whw2), in(wwz), s.dw1, w, wargs, eps_w, dwargs, a1,
@@ -529,7 +782,7 @@ extern "C" int cvl_vae_tc_bwd(
   if ((err = (int)cudaGetLastError())) return err;
   // dx = dx1 + dhw @ Whwᵀ
   if ((err = product(ProdJob{Operand{s.dhw_b, B, Cw, Cw}, Operand{in(whw), D, Cw, Cw}, s.dx1,
-                             nullptr, nullptr, out(dx)},
+                             nullptr, nullptr, nullptr, out(dx)},
                      nullptr)))
     return err;
   // dWxh = a3ᵀ dxh, dWhx = xᵀ dh, dWhw = xᵀ dhw, dWdxp = xpᵀ dd
@@ -555,4 +808,61 @@ extern "C" int cvl_vae_tc_bwd(
                             dbh, dbwz, dbhw, D, Cw, H, L, K);
   if (B > kSegRows) return cvl::launch_wgrad_split<vae_tc_wgrad>(jobs, n, B, kSegRows, s.wg, st);
   return cvl::launch_wgrad<vae_tc_wgrad>(jobs, n, B, st);
+}
+
+// Floats (f32) and elements (bf16) of the two scratch buffers the forward
+// needs: the x part of the latent encoder's pre-activation and, with
+// use_x_prev, of the decoder's ([B, H] f32 each); a3 as the frame head's
+// operand ([B, H] bf16).
+extern "C" long long cvl_vae_tc_fwd_scratch(int B, int H, int use_xp, int bf16_elems) {
+  return (long long)(bf16_elems ? up8((size_t)B * H) : up8((size_t)B * H) * (1 + use_xp));
+}
+
+// The bf16-mode forward on `stream`, 3 launches: the products that do not
+// depend on w (a1 = relu(x @ Whw + bhw), rounded; x @ Whx; x_prev @ Wdxp)
+// over the whole batch; the narrow chain, kRows rows a block; xhat =
+// sigmoid(a3 @ Wxh + bxh). x, xp and the weights (as stored, [in, out]) are
+// bf16, the rest f32; xp and wdxp are null without use_x_prev; `scratch` and
+// `scratch_b` hold cvl_vae_tc_fwd_scratch floats and bf16 elements. Returns
+// the first nonzero cudaError_t of a launch.
+extern "C" int cvl_vae_tc_fwd(
+    const void* x, const void* xp, const float* eps_w, const float* eps_z, const void* whw,
+    const float* bhw, const void* wwz, const float* bwz, const void* whx, const void* whw2,
+    const float* bh, const void* wzz, const float* bzz, const void* wdw, const void* wdxp,
+    const void* wdz, const float* bd, const void* wxh, const float* bxh, float* xhat,
+    float* wargs, float* zargs, float* w, float* a1, float* a2, float* a3, float* scratch,
+    void* scratch_b, int B, int D, int Cw, int H, int L, int K, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto in = [](const void* p) { return static_cast<const bf16*>(p); };
+  const bool use_xp = xp != nullptr;
+  float* xh = scratch;
+  float* xpd = use_xp ? scratch + up8((size_t)B * H) : nullptr;
+  bf16* a3_b = static_cast<bf16*>(scratch_b);
+  int err;
+  // a1 = relu(x @ Whw + bhw), rounded; x @ Whx; x_prev @ Wdxp
+  const ProdJob ja1{Operand{in(x), B, D, D}, Operand{in(whw), D, Cw, Cw}, nullptr, nullptr, bhw,
+                    a1, nullptr, kRelu, 1};
+  const ProdJob jxh{Operand{in(x), B, D, D}, Operand{in(whx), D, H, H}, nullptr, nullptr, nullptr,
+                    xh, nullptr, kNone, 0};
+  const ProdJob jxp{Operand{in(xp), B, D, D}, Operand{in(wdxp), D, H, H}, nullptr, nullptr,
+                    nullptr, xpd, nullptr, kNone, 0};
+  const dim3 g1(cdiv(Cw > H ? Cw : H, kBN), cdiv(B, kBM), kSplit * (use_xp ? 3 : 2));
+  vae_tc_product_kernel<false><<<g1, cvl_tc::kThreads, 0, st>>>(ja1, jxh, use_xp ? jxp : jxh);
+  if ((err = (int)cudaGetLastError())) return err;
+  const FwdRowArgs ra{a1,      xh,      xpd,     eps_w,   eps_z,    in(wwz), in(whw2), in(wzz),
+                      in(wdw), in(wdz), bwz,     bh,      bzz,      bd,      wargs,    w,
+                      a2,      zargs,   a3,      a3_b,    B,        Cw,      H,        L,
+                      K};
+  const size_t smem = fwd_rows_smem(H, L, K);
+  if ((err = (int)cudaFuncSetAttribute(vae_tc_fwd_rows_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
+    return err;
+  vae_tc_fwd_rows_kernel<<<cdiv(B, kRows), kFwdThreads, smem, st>>>(ra);
+  if ((err = (int)cudaGetLastError())) return err;
+  // xhat = sigmoid(a3 @ Wxh + bxh)
+  const ProdJob jx{Operand{a3_b, B, H, H}, Operand{in(wxh), H, D, D}, nullptr, nullptr, bxh, xhat,
+                   nullptr, kSigmoid, 0};
+  const dim3 g2(cdiv(D, kBN), cdiv(B, kBM), kSplit);
+  vae_tc_product_kernel<false><<<g2, cvl_tc::kThreads, 0, st>>>(jx, jx, jx);
+  return (int)cudaGetLastError();
 }

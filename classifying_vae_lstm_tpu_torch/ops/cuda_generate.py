@@ -100,10 +100,6 @@ def pick_mode(cfg) -> str:
     return "bf16"
 
 
-def _words(k: int) -> int:
-    return -(-k // 4)
-
-
 def int8_grid(H: int, n_sm: int) -> tuple[int, int]:
     """The int8 kernel's grid on a card of ``n_sm`` SMs: (nu, blocks), each
     block owning nu hidden units of both cells (nu even: two units, eight
@@ -333,16 +329,6 @@ def generate_cl_vrnn_batch_plain(params, cfg, x_seeds, nsteps: int, eps, u, ws,
         if t >= Tseed:
             outs.append(xm if return_probs else x_prev)
     return torch.stack(outs, dim=1)
-
-
-def kernel_words(q):
-    """int8 codes [K, N] -> the cl_vae int8 kernel's [ceil(K/4), N] int32
-    words of four consecutive k (byte i of a word holds row 4k + i, the
-    order ``__dp4a`` pairs them in), K padded with zero rows."""
-    K, N = q.shape
-    padded = q.new_zeros((4 * _words(K), N))
-    padded[:K] = q
-    return padded.view(-1, 4, N).permute(0, 2, 1).contiguous().view(torch.int32).view(-1, N)
 
 
 def _pack_cells(q, H: int, nu: int):

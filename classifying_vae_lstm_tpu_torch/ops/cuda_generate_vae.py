@@ -10,11 +10,15 @@ relu z-encoder hidden, z heads, z draw (or the prior's draw with
 every step, for every other config: wider models, and models without hidden
 layers (the z heads then read ``[x_prev, w]`` and the frame head ``[w,
 x_prev_t, z]``, as JAX ``encode_z``/``decode`` at ``has_hidden=False``);
-and ``generate_wide_int8_kernel``, the wide kernel with the three large
-weights as per-column int8 codes, where the JAX package's precision rule
-says int8 (:func:`pick_mode`). The sampler is a pure function of its
-pre-drawn noise (``eps`` for z, ``u`` for the frames), so the kernels are
-held against
+and ``generate_vae_int8_kernel``, with the three large weights as
+per-column int8 codes on the int8 tensor cores, where the JAX package's
+precision rule says int8 (:func:`pick_mode`): one cooperative launch whose
+blocks each own hidden units (:func:`int8_grid`) and pitch tiles of the
+frame head (:func:`head_split`), their slices packed in the order of the
+``mma.sync.m16n8k32`` fragments (:func:`pack_int8`) and resident in shared
+memory where they fit (:func:`int8_residency`). The sampler is a pure
+function of its pre-drawn noise (``eps`` for z, ``u`` for the frames), so
+the kernels are held against
 :func:`generate_cl_vae_batch_plain` on the card and the plain version
 against the JAX package on the CPU, with the same noise.
 
@@ -30,7 +34,7 @@ import threading
 import torch
 
 from . import _build
-from .cuda_generate import _qmm, _quant_cols, _words, _z_head, kernel_words
+from .cuda_generate import _pack_head, _qmm, _quant_cols, _z_head, round16
 
 # launches since the counts were last set to 0: of either f32/bf16 kernel,
 # of the wide one alone, and of the int8 kernel
@@ -39,9 +43,15 @@ WIDE_LAUNCHES = 0
 INT8_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
-_SONGS_PER_BLOCK = 2      # kSongs in csrc/generate_cl_vae.cu (every kernel)
+_SONGS_PER_BLOCK = 2      # kSongs in csrc/generate_cl_vae.cu (the f32 / bf16 kernels)
 _WIDE_THREADS = 512       # kWideThreads
 _SMEM_LIMIT = 232448      # dynamic shared memory one Hopper block can use
+# the int8 kernel: a launch takes at most _I8_ROWS songs (a call more in
+# several launches); its ring holds _I8_RING stages of _I8_CPS k32 chunks of
+# those songs' codes and of the streamed weights, at most _I8_MAX_NT n8
+# tiles a product pass
+_I8_ROWS, _I8_RING, _I8_CPS, _I8_MAX_NT = 64, 4, 8, 8
+_I8_MAX_BLOCKS = 136      # kMaxBlocks: the most blocks its cross-block loads take
 _MODES = ("f32", "bf16", "int8")
 
 # The JAX package's precision rule for this sampler (its ``_BUDGET`` and
@@ -141,18 +151,55 @@ def _wide_smem_bytes(D: int, H: int, L: int, has_hidden: bool, state_in_smem: bo
     return 4 * (_WIDE_THREADS * _SONGS_PER_BLOCK + state)
 
 
-def _int8_state_floats(D: int, H: int, L: int) -> int:
-    return _SONGS_PER_BLOCK * (2 * _words(D) + D + L + 2 * H + _words(H))
+def int8_grid(H: int, n_sm: int) -> tuple[int, int]:
+    """The int8 kernel's grid on a card of ``n_sm`` SMs: (nu, blocks), each
+    block owning nu hidden units (a multiple of 8: one n8 tile of the
+    m16n8k32 products per 8 units), cdiv(H, nu) <= n_sm blocks. At H=5,120 on
+    132 SMs: 128 blocks of 40 units; at H=4,160: 130 of 32; at H=7,808: 122
+    of 64."""
+    nu = 8 * -(-H // (8 * n_sm))
+    return nu, -(-H // nu)
 
 
-def _int8_smem_bytes(D: int, H: int, L: int, state_in_smem: bool) -> int:
-    """Shared memory of one block of the int8 kernel: the K-split int
-    partial sums, the row-max reduction and the row scales, and, where it
-    fits, the tile's per-song state (both frames as int8 codes, the step's
-    probabilities, z, h_e, h_d and h_d's codes)."""
-    state = _int8_state_floats(D, H, L) if state_in_smem else 0
-    return 4 * (_WIDE_THREADS * _SONGS_PER_BLOCK + (_WIDE_THREADS // 32 + 1) * _SONGS_PER_BLOCK
-                + state)
+def head_split(D: int, G: int, B: int) -> tuple[int, int]:
+    """How the int8 kernel's G blocks share the frame head of a launch of B
+    songs: (hs, P). Block g takes song group g % hs (the m16 tiles split in
+    hs runs) and the P 8-pitch tiles of pitch group g // hs (tiles P (g //
+    hs) .. + P - 1; the last groups may hold fewer, or none). Two song groups
+    from 32 songs on: each block then reads half the songs' codes of h_d
+    from L2 for twice the pitches."""
+    hs = 2 if round16(min(B, _I8_ROWS)) >= 32 else 1
+    return hs, -(-(-(-D // 8)) // (G // hs))
+
+
+def _int8_smem(D: int, H: int, L: int, nu: int, P: int, use_x_prev: bool, res_cells: bool,
+               res_head: bool) -> int:
+    """Shared memory of one int8 block (``vae_i8_smem_bytes``): the ring (the
+    codes of _I8_CPS k32 chunks of 64 songs a stage, each song's row padded
+    by 16 bytes, and the chunks of the widest streamed weight pass), the
+    resident slices (the x rows of both
+    cells, the head's P tiles), the block's columns of the z heads in double,
+    and in f32 h ([64][nu]), the block's columns of the two scales and of the
+    decoder's z rows, and the songs' z and rs."""
+    NT, kcx, kch = nu // 8, -(-D // 32), -(-H // 32)
+    wt = min(_I8_MAX_NT, max(0 if res_cells else NT, 0 if res_head else P))
+    ring = _I8_RING * (_I8_ROWS * (_I8_CPS * 32 + 16) + _I8_CPS * wt * 256)
+    cells = kcx * (1 + int(use_x_prev)) * NT * 256 if res_cells else 0
+    head = kch * P * 256 if res_head else 0
+    zheads = 8 * nu * 2 * L  # the z heads' columns, in double
+    return (ring + cells + head + zheads
+            + 4 * (_I8_ROWS * nu + nu * (2 + L) + _I8_ROWS * (L + 1)))
+
+
+def int8_residency(D: int, H: int, L: int, nu: int, P: int,
+                   use_x_prev: bool) -> tuple[bool, bool] | None:
+    """The residency rule: (x-row slices resident, head tiles resident), the
+    first of both, the slices alone, neither whose block fits Hopper's
+    shared memory; None where not even the streamed layout fits."""
+    for res in ((True, True), (True, False), (False, False)):
+        if _int8_smem(D, H, L, nu, P, use_x_prev, *res) <= _SMEM_LIMIT:
+            return res
+    return None
 
 
 def _resolve_mode(cfg, mode):
@@ -180,6 +227,41 @@ def _pack_int8(params, cfg, ws) -> dict:
     w["wx"], w["swx"] = _quant_cols(w["wx"])
     w["wz_t"] = w["wz_t"].to(torch.bfloat16)
     return w
+
+
+def pack_units(q, nu: int):
+    """The int8 codes of a cell's x rows ``[K, H]`` -> ``[G, KC, NT, 64]``
+    int32 words, G = cdiv(H, nu) blocks, KC = cdiv(K, 32) chunks of k, NT =
+    nu / 8 n8 tiles: tile n of block g holds units g nu + 8n .. + 7 (zero
+    columns past H, zero rows past K), each chunk's 32 lanes the B fragments
+    of ``mma.sync.m16n8k32`` as :func:`cuda_generate._pack_head` lays them."""
+    K, H = q.shape
+    G = -(-H // nu)
+    qp = q.new_zeros((K, G * nu))
+    qp[:, :H] = q
+    return _pack_head(qp).view(G, nu // 8, -(-K // 32), 64).permute(0, 2, 1, 3).contiguous()
+
+
+def pack_head_tiles(q, G: int, P: int, hs: int):
+    """The frame head's int8 codes ``[H, D]`` -> ``[G, KC, P, 64]`` int32
+    words: slot j of block g is 8-pitch tile P (g // hs) + j (a zero tile
+    past the last), the B fragments as :func:`pack_units` lays them."""
+    tiles = _pack_head(q)  # [NTx, KC, 64]
+    ntx, KC = tiles.shape[:2]
+    idx = (torch.arange(G, device=q.device) // hs)[:, None] * P + torch.arange(P, device=q.device)
+    padded = torch.cat([tiles, tiles.new_zeros((1, KC, 64))])
+    sel = padded[torch.clamp(idx, max=ntx).reshape(-1)]  # index ntx: the zero tile
+    return sel.view(G, P, KC, 64).permute(0, 2, 1, 3).contiguous()
+
+
+def pack_int8(w: dict, cfg, nu: int, G: int, P: int, hs: int) -> dict:
+    """The int8 kernel's weights from :func:`_pack_int8`'s codes: each
+    block's units of the encoder's x rows (``wke``) and of the decoder's
+    x_prev rows (``wkd``, with ``use_x_prev``), and its pitch tiles of the
+    frame head (``wx``)."""
+    return {"wke": pack_units(w["wke"], nu),
+            "wkd": pack_units(w["wkd_x"], nu) if cfg.use_x_prev else None,
+            "wx": pack_head_tiles(w["wx"], G, P, hs)}
 
 
 def _pack(params, cfg, ws, mode: str) -> dict:
@@ -311,7 +393,7 @@ _lib = None
 def _kernels():
     """The built library, its entry points' ctypes signatures set and its
     shared-memory layouts checked against :func:`_smem_bytes`,
-    :func:`_wide_smem_bytes` and :func:`_int8_smem_bytes`."""
+    :func:`_wide_smem_bytes` and :func:`_int8_smem`."""
     global _lib
     with _lib_lock:
         if _lib is None:
@@ -334,18 +416,18 @@ def _kernels():
                                        "csrc/generate_cl_vae.cu differs from _wide_smem_bytes "
                                        f"at {shape}")
             i8 = lib.cvl_generate_cl_vae_int8_smem_bytes
-            i8.argtypes, i8.restype = [I] * 4, LL
-            i8_state = lib.cvl_generate_cl_vae_int8_state_floats
-            i8_state.argtypes, i8_state.restype = [I] * 3, LL
-            for shape in ((1024, 5120, 16, 1), (88, 30, 4, 0), (13, 7, 3, 1)):
-                if (i8(*shape) != _int8_smem_bytes(*shape)
-                        or i8_state(*shape[:3]) != _int8_state_floats(*shape[:3])):
+            i8.argtypes, i8.restype = [I] * 8, LL
+            for shape in ((1024, 5120, 16, 40, 2, 0, 1, 1), (1024, 7808, 16, 64, 2, 1, 0, 0),
+                          (13, 262, 3, 8, 1, 0, 1, 0), (64, 320, 4, 8, 8, 1, 0, 1)):
+                if i8(*shape) != _int8_smem(*shape):
                     raise RuntimeError("shared-memory layout of the int8 kernel in "
-                                       "csrc/generate_cl_vae.cu differs from _int8_smem_bytes "
-                                       f"at {shape}")
+                                       "csrc/generate_cl_vae.cu differs from _int8_smem at "
+                                       f"{shape}")
+            lib.cvl_generate_cl_vae_int8_state_words.argtypes = [I] * 4
+            lib.cvl_generate_cl_vae_int8_state_words.restype = LL
             lib.cvl_generate_cl_vae.argtypes = [I] + [P] * 13 + [I] * 8 + [P]
             lib.cvl_generate_cl_vae_wide.argtypes = [I] + [P] * 16 + [I] * 11 + [P]
-            lib.cvl_generate_cl_vae_int8.argtypes = [P] * 17 + [I] * 8 + [P]
+            lib.cvl_generate_cl_vae_int8.argtypes = [P] * 18 + [I] * 13 + [P]
             lib.cvl_generate_cl_vae.restype = lib.cvl_generate_cl_vae_wide.restype = I
             lib.cvl_generate_cl_vae_int8.restype = I
             _lib = lib
@@ -466,27 +548,86 @@ def generate_cl_vae_batch_cuda(params, cfg, x_seeds, nsteps: int, eps, u, ws,
     return out
 
 
-def _launch_int8(lib, params, cfg, x_seeds, nsteps, eps, u, ws, flags):
-    """Pack the int8 operands and launch the int8 kernel; returns (CUDA
-    error, output)."""
+def int8_plan(cfg, B: int, n_sm: int) -> dict:
+    """The int8 kernel's layout for a launch of B <= 64 songs on ``n_sm``
+    SMs: the grid (nu, G), the frame head's split (hs, P) and the
+    residency; raises where no layout fits."""
+    D, H, L = cfg.original_dim, cfg.intermediate_dim, cfg.latent_dim
+    nu, G = int8_grid(H, n_sm)
+    hs, P = head_split(D, G, B)
+    res = int8_residency(D, H, L, nu, P, cfg.use_x_prev)
+    if G > _I8_MAX_BLOCKS:
+        raise ValueError(f"the int8 kernel takes at most {_I8_MAX_BLOCKS} blocks, not {G}")
+    if res is None:
+        raise ValueError(f"the int8 kernel does not take D={D}, H={H}, L={L}: one block's "
+                         f"layout needs more than {_SMEM_LIMIT} B of shared memory")
+    return {"nu": nu, "G": G, "hs": hs, "P": P, "res": res}
+
+
+def _launch_int8(lib, params, cfg, x_seeds, nsteps, eps, u, ws, flags, clock=None):
+    """Quantize and pack the int8 operands, then one cooperative launch of
+    the int8 kernel per 64 songs, each with its zeroed global state
+    (``clock``, an int64 per :data:`PHASE_PARTS` or None: the clock of
+    :func:`phase_ms`). Returns (the first nonzero CUDA error, output)."""
     B, D = x_seeds.shape
     H, L = cfg.intermediate_dim, cfg.latent_dim
     dev = x_seeds.device
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     w = _pack_int8(params, cfg, ws)
-    q = {k: kernel_words(w[k]) for k in ("wke", "wx")}
-    q["wkd_x"] = kernel_words(w["wkd_x"]) if cfg.use_x_prev else None
     out = torch.empty((B, nsteps, D), dtype=torch.float32, device=dev)
-    # past one block's shared memory the per-song state goes to a global
-    # scratch, one slice per block
-    state = None
-    if _int8_smem_bytes(D, H, L, True) > _SMEM_LIMIT:
-        state = torch.empty((-(-B // _SONGS_PER_BLOCK), _int8_state_floats(D, H, L)),
-                            dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = lib.cvl_generate_cl_vae_int8(
-        x_seeds.data_ptr(), eps.data_ptr(), u.data_ptr(), ptr(q["wke"]), ptr(w["ske"]),
-        ptr(w["encb"]), ptr(w["wz_t"]), ptr(w["bz"]), ptr(q["wkd_x"]), ptr(w.get("skd")),
-        ptr(w["wkd_z"]), ptr(w["decb"]), ptr(q["wx"]), ptr(w["swx"]), ptr(w["bx"]),
-        out.data_ptr(), ptr(state), B, nsteps, D, H, L, *flags,
-        torch.cuda.current_stream(dev).cuda_stream)
-    return err, out
+    packed = {}  # per head split; held by name until the launches are queued
+    for b0 in range(0, B, _I8_ROWS):
+        b = slice(b0, min(B, b0 + _I8_ROWS))
+        nb = b.stop - b0
+        plan = int8_plan(cfg, nb, n_sm)
+        key = (plan["hs"], plan["P"])
+        if key not in packed:
+            packed[key] = pack_int8(w, cfg, plan["nu"], plan["G"], plan["P"], plan["hs"])
+        q = packed[key]
+        state = torch.zeros(lib.cvl_generate_cl_vae_int8_state_words(D, H, L, plan["nu"]),
+                            dtype=torch.int32, device=dev)
+        # the launch's songs: leading rows, contiguous views
+        seeds_b, eps_b, u_b, encb_b, decb_b, out_b = (
+            t[b] for t in (x_seeds, eps, u, w["encb"], w["decb"], out))
+        err = lib.cvl_generate_cl_vae_int8(
+            ptr(seeds_b), ptr(eps_b), ptr(u_b), ptr(q["wke"]), ptr(q["wkd"]), ptr(q["wx"]),
+            ptr(w["ske"]), ptr(w.get("skd")), ptr(encb_b), ptr(decb_b), ptr(w["wz_t"]),
+            ptr(w["bz"]), ptr(w["wkd_z"]), ptr(w["swx"]), ptr(w["bx"]), ptr(out_b),
+            ptr(state), ptr(clock), nb, nsteps, D, H, L, *flags, plan["nu"], plan["P"],
+            plan["hs"], *(int(r) for r in plan["res"]),
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            return err, out
+    return 0, out
+
+
+# the parts of a step of the int8 kernel, in the order of its clock (each
+# phase's work, then its wait at the grid barrier after it)
+PHASE_PARTS = ("encoder products", "encoder epilogue and z-head sums", "encoder wait", "z",
+               "z wait", "decoder and maxima", "decoder wait", "rs and codes", "codes wait",
+               "frame head products", "frame head epilogue", "frame wait")
+
+
+def phase_ms(params, cfg, x_seeds, nsteps: int, eps, u, ws, use_z_prior: bool = False) -> dict:
+    """One launch of the int8 kernel (counted, as the wrapper counts it) on
+    at most 64 songs on CUDA tensors, timed part by part on the card by
+    block 0 (``%globaltimer``): ms of each of :data:`PHASE_PARTS` summed over
+    the steps (a wait is the slowest block's lag and the grid barrier
+    itself; under ``use_z_prior`` the first five are 0)."""
+    global INT8_LAUNCHES
+    _resolve_mode(cfg, "int8")
+    _check(params, cfg, x_seeds, nsteps, eps, u, ws, "int8")
+    if x_seeds.shape[0] > _I8_ROWS:
+        raise ValueError(f"one launch takes at most {_I8_ROWS} songs, got {x_seeds.shape[0]}")
+    dev = x_seeds.device
+    lib = _kernels()
+    with torch.cuda.device(dev):
+        clock = torch.zeros(len(PHASE_PARTS), dtype=torch.int64, device=dev)
+        err, _ = _launch_int8(lib, params, cfg, x_seeds, nsteps, eps, u, ws,
+                              (int(cfg.use_x_prev), int(use_z_prior), 0), clock)
+    if err != 0:
+        raise RuntimeError(f"generate_cl_vae_int8 kernel launch failed: CUDA error {err}")
+    with _launch_lock:
+        INT8_LAUNCHES += 1
+    return dict(zip(PHASE_PARTS, (ns / 1e6 for ns in clock.cpu().tolist())))

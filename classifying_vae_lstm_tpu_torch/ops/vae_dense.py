@@ -4,10 +4,11 @@ autograd function.
 Counterpart of ``classifying_vae_lstm_tpu/ops/pallas_vae.py``. The whole
 cl_vae graph — key encoder, logistic-normal w sample, latent encoder, z
 sample, decoder, frame head — runs forward in one kernel and backward in one
-kernel of two launches (``csrc/vae_dense.cu``); the backward's bf16 mode is
+kernel of two launches (``csrc/vae_dense.cu``); the bf16 mode of both is
 ``csrc/vae_dense_tc.cu``, the wide layers as tensor-core products over the
-whole batch and the narrow ones in row kernels (8 launches, counted as two,
-9 when B > 128). Each has a plain PyTorch
+whole batch and the narrow ones in row kernels (the forward 3 launches,
+counted as one; the backward 8, counted as two, 9 when B > 128). Each has a
+plain PyTorch
 version with the same signature: :func:`vae_dense_fwd_plain`, and
 :func:`vae_dense_bwd_plain`, which mirrors the TPU backward kernel (it is not
 autograd of the plain forward: it recomputes z and the exp factors from the
@@ -220,7 +221,7 @@ def _kernels():
                 if smem(*shape) != _smem_bytes(*shape):
                     raise RuntimeError("shared-memory layout of csrc/vae_dense.cu differs from "
                                        f"_smem_bytes at {shape}")
-            lib.cvl_vae_dense_fwd.argtypes = [I] + [P] * 26 + [I] * 7 + [P]
+            lib.cvl_vae_dense_fwd.argtypes = [P] * 26 + [I] * 7 + [P]
             lib.cvl_vae_dense_bwd.argtypes = [P] * 28 + [I] * 7 + [P]
             lib.cvl_vae_dense_wgrad.argtypes = [P] * 28 + [I] * 7 + [P]
             for fn in (lib.cvl_vae_dense_fwd, lib.cvl_vae_dense_bwd, lib.cvl_vae_dense_wgrad):
@@ -233,8 +234,8 @@ _tc_lib = None
 
 
 def _tc_kernels():
-    """The built bf16 backward library (``csrc/vae_dense_tc.cu``) with its
-    ctypes signatures."""
+    """The built bf16 library (``csrc/vae_dense_tc.cu``) with its ctypes
+    signatures."""
     global _tc_lib
     with _lib_lock:
         if _tc_lib is None:
@@ -244,6 +245,10 @@ def _tc_kernels():
             lib.cvl_vae_tc_bwd_scratch.restype = ctypes.c_longlong
             lib.cvl_vae_tc_bwd.argtypes = [P] * 43 + [I] * 6 + [P]
             lib.cvl_vae_tc_bwd.restype = I
+            lib.cvl_vae_tc_fwd_scratch.argtypes = [I] * 4
+            lib.cvl_vae_tc_fwd_scratch.restype = ctypes.c_longlong
+            lib.cvl_vae_tc_fwd.argtypes = [P] * 28 + [I] * 6 + [P]
+            lib.cvl_vae_tc_fwd.restype = I
             _tc_lib = lib
         return _tc_lib
 
@@ -289,9 +294,11 @@ def vae_dense_fwd(x, xp, eps_w, eps_z, whw, bhw, wwz, bwz, whx, whw2, bh, wzz, b
                   wdw, wdxp, wdz, bd, wxh, bxh):
     """The forward kernel (signature and results of :func:`vae_dense_fwd_plain`).
 
-    CUDA tensors launch ``vae_dense_fwd_kernel`` on the current stream (or
-    raise), in bf16 mode where ``whw`` is bf16; CPU tensors take the plain
-    version."""
+    CUDA tensors launch, in the f32 mode, ``vae_dense_fwd_kernel`` on the
+    current stream; where ``whw`` is bf16, ``csrc/vae_dense_tc.cu``'s
+    forward (the products that do not depend on w, the narrow chain in a
+    row kernel, the frame head; 3 device launches counted as one); or
+    raise. CPU tensors take the plain version."""
     args = (x, xp, eps_w, eps_z, whw, bhw, wwz, bwz, whx, whw2, bh, wzz, bzz, wdw, wdxp, wdz,
             bd, wxh, bxh)
     dev = _device_of(x)
@@ -307,13 +314,22 @@ def vae_dense_fwd(x, xp, eps_w, eps_z, whw, bhw, wwz, bwz, whx, whw2, bh, wzz, b
                  "bzz": (bzz, (2 * L,)), "wdw": (wdw, (K, H)), "wdxp": (wdxp, (D, H)),
                  "wdz": (wdz, (L, H)), "bd": (bd, (H,)), "wxh": (wxh, (H, D)), "bxh": (bxh, (D,))},
            bf16=_BF16_OPERANDS if bf16 else frozenset())
-    lib = _kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
         outs = (new(B, D), new(B, K2), new(B, 2 * L), new(B, K), new(B, Cw), new(B, H),
                 new(B, H))
-        err = lib.cvl_vae_dense_fwd(int(bf16), *(_ptr(t) for t in args + outs), B, D, Cw, H, L,
-                                    K, int(use_xp), torch.cuda.current_stream(dev).cuda_stream)
+        if bf16:
+            lib = _tc_kernels()
+            ins = tuple(_aligned(t) for t in args)
+            scratch = new(lib.cvl_vae_tc_fwd_scratch(B, H, int(use_xp), 0))
+            scratch_b = torch.empty(lib.cvl_vae_tc_fwd_scratch(B, H, int(use_xp), 1),
+                                    dtype=torch.bfloat16, device=dev)
+            err = lib.cvl_vae_tc_fwd(*(_ptr(t) for t in (*ins, *outs, scratch, scratch_b)),
+                                     B, D, Cw, H, L, K, stream)
+        else:
+            err = _kernels().cvl_vae_dense_fwd(*(_ptr(t) for t in args + outs), B, D, Cw, H, L,
+                                               K, int(use_xp), stream)
     if err != 0:
         raise RuntimeError(f"vae_dense forward kernel launch failed: CUDA error {err}")
     _count("fwd", 1, bf16)

@@ -1017,11 +1017,32 @@ def test_vae_kernel_matches_plain_bf16(dev):
 
 VAE_INT8_CASES = {
     "h64": dict(B=7, nsteps=16, H=64, seed=3),
+    "one_song": dict(B=1, nsteps=12, H=96, D=20, seed=8),
     # D and H not multiples of 4, a ragged song tile, no x_prev
     "ragged_no_x_prev": dict(B=5, nsteps=12, H=262, D=13, use_x_prev=False, seed=4),
-    # per-song state past one block's shared memory: the global scratch
-    "state_in_scratch": dict(B=3, nsteps=4, H=13000, D=12, seed=5),
+    # more units a block than one product pass takes (two passes of n8
+    # tiles)
+    "many_units_a_block": dict(B=3, nsteps=4, H=13000, D=12, seed=5),
+    # two song groups of the frame head (B > 16), more pitch tiles than
+    # blocks (D=72, H=64: 8 blocks), the x_prev slices
+    "song_groups": dict(B=40, nsteps=8, H=64, D=72, seed=6),
+    # more songs than one launch takes: two launches a call, counted as one
+    "two_launches": dict(B=70, nsteps=6, H=96, D=20, seed=7),
+    # the JAX package's int8 band (D=1,024, L=16) with x_prev, past what
+    # shared memory holds: the head's tiles streamed through the ring, in
+    # one song group and in two
+    "streamed_head": dict(B=1, nsteps=8, H=6144, D=1024, L=16, seed=9),
+    "streamed_head_song_groups": dict(B=20, nsteps=8, H=5120, D=1024, L=16, seed=10),
+    # the x rows of both cells streamed as well
+    "streamed_all": dict(B=3, nsteps=8, H=7808, D=1024, L=16, seed=11),
+    "streamed_all_song_groups": dict(B=20, nsteps=6, H=7808, D=1024, L=16, seed=12),
+    # streamed, with more units a block than one product pass takes
+    "streamed_many_units": dict(B=3, nsteps=4, H=13000, D=1024, seed=13),
 }
+# the residency (x-row slices, head tiles) each case must take on an H100
+VAE_INT8_LAYOUTS = {"streamed_head": (True, False), "streamed_head_song_groups": (True, False),
+                    "streamed_all": (False, False), "streamed_all_song_groups": (False, False),
+                    "streamed_many_units": (False, False)}
 
 
 @pytest.mark.parametrize("case", sorted(VAE_INT8_CASES))
@@ -1029,8 +1050,13 @@ VAE_INT8_CASES = {
 def test_vae_int8_kernel_matches_plain(dev, case, zp):
     params, cfg, (seeds, nsteps, eps, u, ws) = _vae_problem(dev, bf16=True,
                                                             **VAE_INT8_CASES[case])
-    if case == "state_in_scratch":
-        assert cgv._int8_smem_bytes(12, 13000, 3, True) > cgv._SMEM_LIMIT
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = cgv.int8_plan(cfg, min(seeds.shape[0], 64), n_sm)
+    if case in ("many_units_a_block", "streamed_many_units"):
+        assert plan["nu"] > 8 * cgv._I8_MAX_NT
+    if case in ("song_groups", "streamed_head_song_groups", "streamed_all_song_groups"):
+        assert plan["hs"] == 2 and plan["P"] > 1
+    assert plan["res"] == VAE_INT8_LAYOUTS.get(case, (True, True)), plan
     u1 = torch.ones_like(u)
     before = (cgv.INT8_LAUNCHES, cgv.LAUNCHES)
     run = lambda f, uu, rp: f(params, cfg, seeds, nsteps, eps, uu, ws, use_z_prior=zp,
@@ -1045,6 +1071,8 @@ def test_vae_int8_kernel_matches_plain(dev, case, zp):
     torch.testing.assert_close(pk, pp, rtol=0, atol=1e-5)
     assert 0 < fk.mean().item() < 1
     frames_mostly_equal(fk, fp)
+    # every sum in a fixed order or exact: a second call gives the same bits
+    assert torch.equal(fk, run(cgv.generate_cl_vae_batch_cuda, u, False))
 
 
 def test_vae_wrapper_raises_instead_of_falling_back(dev):
@@ -1348,6 +1376,27 @@ def test_vae_dense_bf16_backward_bitwise_repeatable(dev, B, use_xp):
             continue
         assert g.dtype == (torch.float32 if name.startswith("db") else torch.bfloat16), name
         assert rel(g, wv) <= 1e-2, (name, rel(g, wv))
+        assert torch.equal(g, a), name
+
+
+@pytest.mark.parametrize("B,use_xp", [(100, False), (130, True), (1, True)])
+def test_vae_dense_bf16_forward_bitwise_repeatable(dev, B, use_xp):
+    """The bf16 forward (``csrc/vae_dense_tc.cu``: two product launches and
+    a row kernel) at one row, at a ragged batch and past two row tiles,
+    with and without x_prev: within the bounds of
+    ``test_vae_dense_bf16_kernels_match_plain``, one counted launch a call,
+    and a second call bitwise equal (every sum in a fixed order)."""
+    ins = _bf16_inputs(_vae_dense_inputs(dev, B=B, D=72, Cw=24, H=96, L=5, K=6, use_xp=use_xp,
+                                         seed=B))
+    before = vd.BF16_FWD_LAUNCHES
+    got, again = vd.vae_dense_fwd(*ins), vd.vae_dense_fwd(*ins)
+    torch.cuda.synchronize()
+    assert vd.BF16_FWD_LAUNCHES == before + 2
+    ref = vd.vae_dense_fwd_plain(*ins)
+    rel = lambda a, b: ((a - b).norm() / (b.norm() + 1e-30)).item()
+    for name, g, a, p in zip(("xhat", "wargs", "zargs", "w", "a1", "a2", "a3"), got, again, ref):
+        assert (g - p).abs().max().item() <= 1e-2 * max(1.0, p.abs().max().item()), name
+        assert rel(g, p) <= 1e-3, name
         assert torch.equal(g, a), name
 
 

@@ -189,20 +189,6 @@ def test_plain_int8_in_the_band():
     np.testing.assert_allclose(pp, jp, rtol=0, atol=1e-6)
 
 
-def test_kernel_words_pack_four_k_per_word():
-    """The kernels' weight layout: byte i of word [k, n] holds row 4k + i, so
-    that ``__dp4a`` of two words sums four products; a padded K adds zero
-    rows. Checked by summing the unpacked bytes against an integer product."""
-    rng = np.random.default_rng(2)
-    q = rng.integers(-127, 128, (13, 7)).astype(np.int8)
-    a = rng.integers(-127, 128, (3, 13)).astype(np.int8)
-    w, aw = cg.kernel_words(T(q)).numpy(), cg.kernel_words(T(a.T.copy())).numpy()
-    assert w.shape == (4, 7) and w.dtype == np.int32
-    bytes_of = lambda x: x.view(np.int8).reshape(x.shape + (4,)).astype(np.int64)
-    got = np.einsum("kbi,kni->bn", bytes_of(aw), bytes_of(w))
-    np.testing.assert_array_equal(got, a.astype(np.int64) @ q.astype(np.int64))
-
-
 def test_engine_samples_in_int8_where_jax_does():
     """The serving engine, built from the bf16 config the JAX package's
     ``--lstm_backend auto`` writes at H=1,240 (``pallas``, ``bf16_compute``),

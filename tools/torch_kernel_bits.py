@@ -10,8 +10,12 @@ forwards of ``csrc/lstm_seq.cu`` and the f32 walks, the two-cell forward and
 backward in f32 and bf16, both dense-stack forwards and the f32 dense-stack
 backward, the int8 cl_vrnn generation kernel (probabilities with u = 1 and
 sampled frames at H=1,536, 64 songs x (32 + 256) steps) and the f32 / bf16
-one (on those weights, and sampled frames at H=256) — on inputs made
-from a fixed seed, and saves every output.
+one (on those weights, and sampled frames at H=256), the int8 cl_vae
+generation kernel (D=1,024 with x_prev, 64 songs x 64 steps: H=4,160, whose
+weight slices stay in shared memory, and H=5,120 and 7,808, which stream
+some) — on inputs made from a fixed seed, and saves every output. It also
+calls the bf16 dense-stack forward and the int8 cl_vae kernel a second time
+and exits 1 unless each gives the same bits again.
 ``compare`` reports, per output, whether two saved runs are bitwise equal,
 and exits 1 if any differs. Run ``save`` once per checkout (each in its own
 process: both define the same package) on one card, then ``compare``.
@@ -80,6 +84,7 @@ def _two_cell(out: dict):
 def _vae(out: dict):
     from classifying_vae_lstm_tpu_torch.ops import vae_dense as vd
 
+    again = {}
     rng, f = _inputs(3)
     for label, (B, D, Cw, H, L, K) in {"train": (100, 88, 88, 88, 4, 13),
                                        "wide": (1024, 976, 256, 1024, 16, 13)}.items():
@@ -101,6 +106,8 @@ def _vae(out: dict):
         for i in (0, 1, 4, 6, 8, 9, 11, 13, 14, 15, 17):
             b16[i] = b16[i].bfloat16()
         out[f"vae_fwd_bf16_{label}"] = vd.vae_dense_fwd(*b16)
+        again[f"vae_fwd_bf16_{label}"] = lambda b16=b16: vd.vae_dense_fwd(*b16)
+    return again
 
 
 def _int8(out: dict):
@@ -163,6 +170,55 @@ def _int8(out: dict):
     torch.cuda.synchronize()
 
 
+def _int8_vae(out: dict):
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.models import cl_vae
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae as cgv
+    from classifying_vae_lstm_tpu_torch.weights import params_from_numpy
+
+    rng, _ = _inputs(5)
+    dev = torch.device("cuda", 0)
+    B, nsteps, D, L, K, Cw = 64, 64, 1024, 16, 13, 256
+
+    def glorot(i, o):
+        lim = np.sqrt(6.0 / (i + o))
+        return rng.uniform(-lim, lim, (i, o)).astype(np.float32)
+
+    zeros = lambda n: np.zeros(n, np.float32)
+    again = {}
+    # weight slices resident in shared memory (H=4,160), the head's tiles
+    # streamed (H=5,120), the head and the x rows streamed (H=7,808)
+    for H in (4160, 5120, 7808):
+        raw = {"h_w": {"kernel": glorot(D, Cw), "bias": zeros(Cw)},
+               "w_mean": {"kernel": glorot(Cw, K - 1), "bias": zeros(K - 1)},
+               "w_log_var": {"kernel": glorot(Cw, K - 1), "bias": zeros(K - 1)},
+               "h": {"kernel": glorot(D + K, H), "bias": zeros(H)},
+               "z_mean": {"kernel": glorot(H, L), "bias": zeros(L)},
+               "z_log_var": {"kernel": glorot(H, L), "bias": zeros(L)},
+               "decoder_h": {"kernel": glorot(K + D + L, H), "bias": zeros(H)},
+               "x_decoded_mean": {"kernel": glorot(H, D), "bias": np.full(D, -2.0, np.float32)}}
+        cfg = cl_vae.Config(original_dim=D, intermediate_dim=H, latent_dim=L,
+                            intermediate_class_dim=Cw, n_classes=K, use_x_prev=True,
+                            bf16_compute=True, gen_backend="pallas")
+        t = lambda a: torch.from_numpy(a).to(dev)
+        seeds = t((rng.random((B, D)) < 0.1).astype(np.float32))
+        eps = t(rng.standard_normal((B, nsteps, L)).astype(np.float32))
+        u = t(rng.random((B, nsteps, D)).astype(np.float32))
+        ws = torch.eye(K, device=dev)[torch.arange(B, device=dev) % K]
+        params = params_from_numpy(raw, dev)
+        run = lambda uu, rp, params=params, cfg=cfg, seeds=seeds, eps=eps, ws=ws: (
+            cgv.generate_cl_vae_batch_cuda(params, cfg, seeds, nsteps, eps, uu, ws,
+                                           return_probs=rp, mode="int8"))
+        name = "int8_cl_vae" if H == 4160 else f"int8_cl_vae_h{H}"
+        out[f"{name}_probs_u1"] = run(torch.ones_like(u), True)
+        out[f"{name}_frames"] = run(u, False)
+        torch.cuda.synchronize()
+        again[f"{name}_frames"] = lambda run=run, u=u: run(u, False)
+    return again
+
+
 def save(path: str, root: str | None):
     if root:
         sys.path.insert(0, str(Path(root).resolve()))
@@ -172,13 +228,25 @@ def save(path: str, root: str | None):
 
     print(f"package: {Path(classifying_vae_lstm_tpu_torch.__file__).parent}")
     out: dict = {}
-    for part in (_lstm, _two_cell, _vae, _int8):
-        part(out)
+    again = {}
+    for part in (_lstm, _two_cell, _vae, _int8, _int8_vae):
+        again.update(part(out) or {})
     torch.cuda.synchronize()
+    differ = []
+    for name, fn in again.items():
+        second = fn()
+        torch.cuda.synchronize()
+        first = out[name] if isinstance(out[name], (tuple, list)) else (out[name],)
+        second = second if isinstance(second, (tuple, list)) else (second,)
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            differ.append(name)
+    print(f"a second call of {sorted(again)}: bitwise equal: {not differ}"
+          + (f"; differ: {differ}" if differ else ""))
     flat = {f"{k}/{i}": t.cpu() for k, v in out.items()
             for i, t in enumerate(v if isinstance(v, (tuple, list)) else (v,)) if t is not None}
     torch.save(flat, path)
     print(f"saved {len(flat)} outputs of {len(out)} kernel calls to {path}")
+    return 1 if differ else 0
 
 
 def compare(a: str, b: str) -> int:
@@ -203,8 +271,7 @@ def main(argv=None) -> int:
     c.add_argument("b")
     args = ap.parse_args(argv)
     if args.cmd == "save":
-        save(args.out, args.root or str(Path(__file__).resolve().parents[1]))
-        return 0
+        return save(args.out, args.root or str(Path(__file__).resolve().parents[1]))
     return compare(args.a, args.b)
 
 

@@ -42,17 +42,20 @@ ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "classifying_vae_lstm_tpu_torch" / "csrc"
 SM_REGS, SM_THREADS, SM_SMEM, SM_BLOCKS = 65536, 2048, 233472, 32
 # block sizes (and dynamic shared memory at the seq-concat cl_vae's K=13,
-# L=16, of the int8 cl_vrnn kernel at H=1,536, 64 songs, and below) of the kernels
-# whose occupancy is listed without --threads / --smem (the first key a
-# kernel's name holds is taken: wgrad_kernel<lstm_bwd_wgrad> runs 256
-# threads)
+# L=16, H=1,024, of the int8 cl_vrnn kernel at H=1,536, 64 songs, of the int8
+# cl_vae kernel at H=5,120, 64 songs, no x_prev, every slice resident, and
+# below) of the kernels whose occupancy is listed without --threads / --smem
+# (the first key a kernel's name holds is taken: wgrad_kernel<lstm_bwd_wgrad>
+# runs 256 threads)
 THREADS = {"wgrad_": 256, "lstm_bwd_": 128, "generate_int8_kernel": 512, "vae_tc_product": 128,
            "vae_tc_dw": 128, "vae_tc_head": 256, "vae_tc_latent": 256, "vae_tc_key": 256,
-           "generate_kernel": 512, "two_cell_step": 128, "two_cell_layout": 256}
+           "vae_tc_fwd_rows": 512, "generate_vae_int8_kernel": 512, "generate_kernel": 512,
+           "two_cell_step": 128, "two_cell_layout": 256}
 # the f32 / bf16 generation kernel at jsball_vrnn4's shape (H=256, L=8, 64
 # songs, f32 slices resident; the bf16 one at H=1,024, L=2, resident:
 # 226,048 B at 256 songs) and the two-cell forward's steps at L=8 / L=2
-SMEM = {"vae_tc_latent": 4688, "vae_tc_key": 2256, "generate_int8_kernel": 122496,
+SMEM = {"vae_tc_latent": 4688, "vae_tc_key": 2256, "vae_tc_fwd_rows": 25936,
+        "generate_int8_kernel": 122496, "generate_vae_int8_kernel": 215104,
         "generate_kernelIf": 91392, "generate_kernelI13": 226048, "two_cell_step_f32": 27648,
         "two_cell_step_tc": 46080}
 

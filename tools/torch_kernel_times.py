@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Times of the two-cell forward and of f32 / bf16 cl_vrnn generation in one
-checkout of the port, at the shapes of ``chip_smoke.py``, for comparing two
-checkouts on one card in turns.
+"""Times of the two-cell forward, of f32 / bf16 cl_vrnn generation, of the
+bf16 dense-stack forward and of int8 cl_vae generation in one checkout of
+the port, at the shapes of ``chip_smoke.py``, for comparing two checkouts on
+one card in turns.
 
     python3 tools/torch_kernel_times.py [--root CHECKOUT] [--reps 5]
+        [--parts two_cell,generation,vae_dense,int8_vae]
 
 Runs the kernels of the checkout at ``--root`` (default: this one; run each
 checkout in its own process, as both define the same package): the two-cell
@@ -13,12 +15,22 @@ L=2); generation (``ops/cuda_generate.generate_cl_vrnn_batch_cuda``, u = 1,
 probabilities) of ``artifacts/jsball_vrnn4`` (f32, H=256) and of seeded
 glorot weights in bf16 at H=512 (phase 3: L=8, 10 keys), 1,536 and 2,048
 (L=2, 13 keys), 64 songs x (32 + 256) steps, and the serving buckets (1, 4,
-16, 64 songs x 32 ... 256 steps) of the f32 and the bf16 H=512 ones. Each
-is timed with CUDA events around the wrapper after a warm-up call, and its
-device time a call is the sum of ``torch.profiler``'s device events over
-two calls ("not measured" where it records none). Prints the card's name and
-power limit first and one JSON object a line. Needs a CUDA card and ``nvcc``;
-imports nothing of JAX.
+16, 64 songs x 32 ... 256 steps) of the f32 and the bf16 H=512 ones; the
+bf16 dense-stack forward (``ops/vae_dense.vae_dense_fwd``) at phase 18's
+shapes (B=100, D=1,024, Cw=256, H=1,024, L=16, K=13; B=1,024, D=976 with
+x_prev); int8 cl_vae generation
+(``ops/cuda_generate_vae.generate_cl_vae_batch_cuda``, sampled frames) at
+phase 29's shapes (D=1,024, L=16, 64 songs x 256 steps: H=5,120 with and
+without use_z_prior, H=4,160 with x_prev, whose weight slices stay in shared
+memory; H=5,120 and 7,808 with x_prev, which stream some; the serving
+buckets at H=5,120), and, in a checkout that has them, each layout, the
+frame head in one and in two song groups at the first two widths, the
+streamed widths' parts of a call and the wrapper's quantization and packing
+alone. Each is timed with CUDA events around the wrapper after a
+warm-up call, and its device time a call is the sum of ``torch.profiler``'s
+device events over two calls ("not measured" where it records none).
+Prints the card's name and power limit first and one JSON object a line.
+Needs a CUDA card and ``nvcc``; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -145,10 +157,133 @@ def _generation(reps, root):
                   flush=True)
 
 
+def _glorot(rng, i, o):
+    import numpy as np
+
+    lim = np.sqrt(6.0 / (i + o))
+    return rng.uniform(-lim, lim, (i, o)).astype(np.float32)
+
+
+def _vae_dense(reps):
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.ops import vae_dense as vd
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED)
+    for B, D, Cw, H, L, K, use_xp in ((100, 1024, 256, 1024, 16, 13, False),
+                                      (1024, 976, 256, 1024, 16, 13, True)):
+        t = lambda a, bf16=False: torch.from_numpy(a).to(dev).to(
+            torch.bfloat16 if bf16 else torch.float32)
+        g = lambda i, o: t(_glorot(rng, i, o), True)
+        z = lambda n: t(np.zeros(n, np.float32))
+        bits = lambda: t((rng.random((B, D)) < 0.1).astype(np.float32), True)
+        K2 = 2 * (K - 1)
+        ins = (bits(), bits() if use_xp else None,
+               t(rng.standard_normal((B, K - 1)).astype(np.float32)),
+               t(rng.standard_normal((B, L)).astype(np.float32)), g(D, Cw), z(Cw), g(Cw, K2),
+               z(K2), g(D, H), g(K, H), z(H), g(H, 2 * L), z(2 * L), g(K, H),
+               g(D, H) if use_xp else None, g(L, H), z(H), g(H, D), z(D))
+        _line("vae_dense_fwd bf16", lambda: vd.vae_dense_fwd(*ins), reps, B=B, D=D, H=H,
+              use_x_prev=use_xp)
+
+
+def _int8_vae(reps):
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.models import cl_vae
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae as cgv
+    from classifying_vae_lstm_tpu_torch.weights import params_from_numpy
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED)
+    B, D, L, K, Cw, nsteps = 64, 1024, 16, 13, 256, 256
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    # the resident layouts (H=5,120; H=4,160 with x_prev), then the streamed
+    # ones: the head's tiles (H=5,120 with x_prev), the head and the x rows
+    # (H=7,808 with x_prev)
+    for H, use_xp in ((5120, False), (4160, True), (5120, True), (7808, True)):
+        cfg = cl_vae.Config(original_dim=D, intermediate_dim=H, latent_dim=L,
+                            intermediate_class_dim=Cw, n_classes=K, use_x_prev=use_xp,
+                            bf16_compute=True, gen_backend="pallas")
+        n_xp = D if use_xp else 0
+        zeros = lambda n: np.zeros(n, np.float32)
+        raw = {"h_w": {"kernel": _glorot(rng, D, Cw), "bias": zeros(Cw)},
+               "w_mean": {"kernel": _glorot(rng, Cw, K - 1), "bias": zeros(K - 1)},
+               "w_log_var": {"kernel": _glorot(rng, Cw, K - 1), "bias": zeros(K - 1)},
+               "h": {"kernel": _glorot(rng, D + K, H), "bias": zeros(H)},
+               "z_mean": {"kernel": _glorot(rng, H, L), "bias": zeros(L)},
+               "z_log_var": {"kernel": _glorot(rng, H, L), "bias": zeros(L)},
+               "decoder_h": {"kernel": _glorot(rng, K + n_xp + L, H), "bias": zeros(H)},
+               "x_decoded_mean": {"kernel": _glorot(rng, H, D),
+                                  "bias": np.full(D, -2.0, np.float32)}}
+        params = params_from_numpy(raw, dev)
+        t = lambda a: torch.from_numpy(a).to(dev)
+        seeds = t((rng.random((B, D)) < 0.1).astype(np.float32))
+        eps = t(rng.standard_normal((B, nsteps, L)).astype(np.float32))
+        u = t(rng.random((B, nsteps, D)).astype(np.float32))
+        ws = torch.eye(K, device=dev)[torch.arange(B, device=dev) % K]
+        plan = cgv.int8_plan(cfg, B, n_sm) if hasattr(cgv, "int8_plan") else None
+        layout = {"resident": list(plan["res"])} if plan else {}
+        for zp in ((False, True) if (H, use_xp) == (5120, False) else (False,)):
+            run = lambda: cgv.generate_cl_vae_batch_cuda(params, cfg, seeds, nsteps, eps, u, ws,
+                                                         use_z_prior=zp, mode="int8")
+            _line("generation int8 cl_vae", run, max(1, reps // 2), B=B, nsteps=nsteps, D=D,
+                  H=H, use_x_prev=use_xp, use_z_prior=zp, **layout)
+        if (H, use_xp) == (5120, False):  # the serving buckets (songs x steps)
+            run = lambda b, n: cgv.generate_cl_vae_batch_cuda(
+                params, cfg, seeds[:b].contiguous(), n, eps[:b, :n].contiguous(),
+                u[:b, :n].contiguous(), ws[:b].contiguous(), mode="int8")
+            grid = {f"{b}x{n}": round(_time(lambda: run(b, n), max(1, reps // 3)), 3)
+                    for b in (1, 4, 16, 64) for n in (32, 64, 128, 256)}
+            print(json.dumps({"name": "generation int8 cl_vae buckets", "H": H, "ms": grid}),
+                  flush=True)
+        if plan is None:
+            continue
+        pack = lambda: cgv.pack_int8(cgv._pack_int8(params, cfg, ws), cfg, plan["nu"], plan["G"],
+                                     plan["P"], plan["hs"])
+        _line("int8 cl_vae pack (quantization and per-block packing)", pack, reps, H=H,
+              use_x_prev=use_xp)
+        if (H, use_xp) not in ((5120, False), (4160, True)):  # a streamed layout's parts
+            parts = cgv.phase_ms(params, cfg, seeds, nsteps, eps, u, ws)
+            print(json.dumps({"name": "generation int8 cl_vae, parts of a call", "H": H,
+                              "use_x_prev": use_xp, **layout,
+                              "parts_ms": {k: round(v, 4) for k, v in parts.items()}}),
+                  flush=True)
+            continue
+        # the frame head in one and in two song groups: head_split's rule
+        # replaced for the comparison
+        rule = cgv.head_split
+        for hs in (1, 2):
+            cgv.head_split = lambda D, G, B, hs=hs: (hs, -(-(-(-D // 8)) // (G // hs)))
+            try:
+                parts = cgv.phase_ms(params, cfg, seeds, nsteps, eps, u, ws)
+                lib = cgv._kernels()
+                launch = lambda: cgv._launch_int8(lib, params, cfg, seeds, nsteps, eps, u, ws,
+                                                  (int(use_xp), 0, 0))
+                ms, dev_ms = round(_time(launch, reps), 4), _device_ms(launch)
+            finally:
+                cgv.head_split = rule
+            print(json.dumps({"name": "generation int8 cl_vae, song groups of the frame head",
+                              "H": H, "song_groups": hs, "ms": ms, "device_ms": dev_ms,
+                              "parts_ms": {k: round(v, 4) for k, v in parts.items()}}),
+                  flush=True)
+
+
+PARTS = {"two_cell": lambda reps, root: _two_cell(reps),
+         "generation": lambda reps, root: _generation(reps, root),
+         "vae_dense": lambda reps, root: _vae_dense(reps),
+         "int8_vae": lambda reps, root: _int8_vae(reps)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", help="checkout whose package to run (default: this one)")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help=f"comma-separated, of {', '.join(PARTS)} (default: all)")
     a = ap.parse_args(argv)
     root = str(Path(a.root or Path(__file__).resolve().parents[1]).resolve())
     sys.path.insert(0, root)
@@ -162,8 +297,8 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
     print(f"package: {Path(classifying_vae_lstm_tpu_torch.__file__).parent}", flush=True)
-    _two_cell(a.reps)
-    _generation(a.reps, root)
+    for part in a.parts.split(","):
+        PARTS[part](a.reps, root)
     return 0
 
 
