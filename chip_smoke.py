@@ -19,8 +19,10 @@ failure:
    two-cell forward): its bf16 kernels do, its f32 kernels none; of
    ``csrc/generate_cl_vrnn.cu``: ``generate_kernel``'s bf16 instance does,
    its f32 instance none, and ``generate_int8_kernel`` holds int8
-   tensor-core (IMMA) instructions and no ``__dp4a`` (IDP), as does
-   ``csrc/generate_cl_vae.cu``'s ``generate_vae_int8_kernel``;
+   tensor-core (IMMA) instructions and no ``__dp4a`` (IDP), as does the
+   int8 instance of ``csrc/generate_cl_vae.cu``'s
+   ``generate_vae_coop_kernel``, whose bf16 instance holds HMMA and whose
+   f32 instance none; ``csrc/lstm_seq.cu`` (the f32 forward): none;
 2. kernel vs plain version, f32, on the trained ``artifacts/jsball_vrnn4``
    weights at the largest serving bucket (64 songs, 32 seed + 256 steps):
    probabilities with u=1 within 1e-5, and sampled frames equal up to each
@@ -60,7 +62,9 @@ failure:
    seeded rows for 13 keys), the inference forward at the evaluation shape
    (64 importance samples x 200 windows = 12,800 rows, the trained weights);
    forward outputs within 1e-5, backward outputs within 1e-4 * max|plain| +
-   1e-6, a second backward call bitwise equal; kernel and plain times with
+   1e-6, a second call of each bitwise equal, each forward counted once a
+   call and its layout printed (``lstm_seq.fwd_plan``); kernel and plain
+   times with
    CUDA events beside each kernel's bound, and the backward's device time
    split between the walk, dx and the weight gradients (the f32 full
    backward is ``csrc/lstm_bwd_f32.cu``: 0 HMMA);
@@ -115,15 +119,18 @@ failure:
    ``Piano-midi_Cs`` (its whole test split, 64 samples, batches of 200) and
    of phase 15's checkpoint on the training corpus; ``cli.cl_vae_sample`` on
    that checkpoint with true keys, one generation launch;
-17. the wide cl_vae generation kernel (every config the shared-memory one
-   refuses) vs its plain version at 64 single-frame seeds x 256 steps, on
-   seeded glorot weights with 13 keys: f32 at H=256 and 512 (D=88, L=4,
-   use_x_prev, with and without use_z_prior) and without hidden layers,
-   probabilities with u=1 within 1e-5 and frames equal up to each song's
-   first near-tie; bf16 at H=512 and at the seq-concat width (D=H=1024,
-   L=16, no x_prev), probabilities within max 2e-2 / mean 2e-3; the wide
-   count equals the phase's launches, and jsball_vae's width still takes
-   the shared-memory kernel; kernel and plain times beside each bound;
+17. the cl_vae generation kernels of every config the shared-memory one
+   refuses vs their plain version at 64 single-frame seeds x 256 steps, on
+   seeded glorot weights with 13 keys: the cooperative kernel in f32 at
+   H=512 (D=88, L=4, use_x_prev, with and without use_z_prior) and the wide
+   kernel at H=256 and without hidden layers, probabilities with u=1 within
+   1e-5 and frames equal up to each song's first near-tie; the cooperative
+   kernel in bf16 at H=512, at the seq-concat width (D=H=1024, L=16, no
+   x_prev) and at D=1,024, H=5,120 with and without x_prev, probabilities
+   within max 2e-2 / mean 2e-3; each kernel's count equals its launches in
+   the phase, and jsball_vae's width still takes the shared-memory kernel;
+   kernel and plain times beside each bound, the layout each takes and the
+   cooperative kernel's own clock of each part of a step at H=5,120;
 18. the bf16 mode of both dense-stack kernels vs their bf16 plain versions
    at phase 19's training shape (D=1024, Cw=256, H=1024, L=16, K=13, B=100)
    and at phase 14's seq-concat shape: forward within 1e-2 x max(1,
@@ -149,8 +156,9 @@ failure:
    ``cli.evaluate --family cl_vae`` of the checkpoint; then a bf16
    H=512 model at D=88 trained
    through the kernels, sampled by ``cli.cl_vae_sample`` and served by
-   ``cli.serve`` through the wide kernel (launches equal to the engine's
-   device calls), and a model without hidden layers sampled through it;
+   ``cli.serve`` through the cooperative kernel (launches equal to the
+   engine's device calls), and a model without hidden layers sampled
+   through the wide kernel;
 20. the bf16 stream mode of the three whole-sequence LSTM kernels (the
    tensor-core route of ``csrc/lstm_seq_tc.cu``) vs their
    bf16 plain versions at H=1,024 (the seeded Keras init, 13 keys):
@@ -270,7 +278,8 @@ failure:
    ``auto`` in bf16, int8 launches 0; ``cli.cl_vae_train`` writes the bf16
    seq-concat cl_vae at H=5,120 (1 epoch), ``cli.cl_vae_sample`` and
    ``cli.serve`` with ``--gen_backend pallas`` sample it in int8 (88-pitch
-   rolls of 16 frames a row), with ``auto`` in bf16 through the wide kernel;
+   rolls of 16 frames a row), with ``auto`` in bf16 through the cooperative
+   kernel (its count 1 a call);
 31. the bf16 tensor-core route swept over H = 88, 512, 1,024, 1,536, 2,048,
    2,560 x B = 200, 1,024, 1,600 (T=16, IN=101): training and inference
    forwards within phase 20's forward bounds, the walk within 1e-2 relative
@@ -432,6 +441,10 @@ TWO_CELL_F32 = ("two_cell_walk_f32_kernel", "two_cell_dx_f32_kernel", "two_cell_
 TWO_CELL_FWD_TC = ("two_cell_step_tc_kernel",)
 TWO_CELL_FWD_F32 = ("two_cell_step_f32_kernel", "two_cell_layout_kernel")
 GEN_BF16, GEN_F32 = ("generate_kernelI13__nv_bfloat16",), ("generate_kernelIf",)
+# the cooperative cl_vae kernel's instances (csrc/generate_cl_vae.cu): int8
+# codes, bf16 and f32 operands
+VAE_COOP_I8, VAE_COOP_BF16, VAE_COOP_F32 = ("generate_vae_coop_kernelIa",), (
+    "generate_vae_coop_kernelI13__nv_bfloat16",), ("generate_vae_coop_kernelIf",)
 # the bf16 dense-stack backward's product kernels (csrc/vae_dense_tc.cu), on
 # the tensor cores; the f32 LSTM full backward's (csrc/lstm_bwd_f32.cu), FFMA
 VAE_TC = ("vae_tc_product_kernel", "vae_tc_dw_kernel")
@@ -463,9 +476,10 @@ def phase_tensor_cores():
     and the bf16 instance of the generation kernel, whose f32 kernels hold
     none; the int8 generation kernels of ``csrc/generate_cl_vrnn.cu`` and
     ``csrc/generate_cl_vae.cu`` hold int8 tensor-core (IMMA) instructions
-    and no ``__dp4a`` (IDP)."""
+    and no ``__dp4a`` (IDP), the cooperative cl_vae kernel's bf16 instance
+    HMMA and its f32 instance none, and the f32 LSTM forward none."""
     sources = ("lstm_seq_tc", "two_cell_tc", "two_cell", "generate_cl_vrnn", "generate_cl_vae",
-               "vae_dense_tc", "lstm_bwd_f32")
+               "vae_dense_tc", "lstm_bwd_f32", "lstm_seq")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:  # one cuobjdump each
         list(pool.map(lib_sass, sources))
     counts = {n: c["hmma"] for n, c in lib_sass("lstm_seq_tc").items()}
@@ -498,12 +512,19 @@ def phase_tensor_cores():
         "instructions" for c in i8.values()))
     require(len(i8) == 1 and all(c["imma"] > 0 and c["idp"] == 0 for c in i8.values()),
             f"generate_int8_kernel does not run its products on the int8 tensor cores: {i8}")
-    v8 = {n: c for n, c in lib_sass("generate_cl_vae").items()
-          if "generate_vae_int8_kernel" in n}
-    print("generate_vae_int8_kernel (csrc/generate_cl_vae.cu): " + "; ".join(
+    v8 = {n: c for n, c in lib_sass("generate_cl_vae").items() if VAE_COOP_I8[0] in n}
+    print("generate_vae_coop_kernel<signed char> (csrc/generate_cl_vae.cu): " + "; ".join(
         f"{c['imma']} IMMA, {c['idp']} IDP of {c['sass']} instructions" for c in v8.values()))
     require(len(v8) == 1 and all(c["imma"] > 0 and c["idp"] == 0 for c in v8.values()),
-            f"generate_vae_int8_kernel does not run its products on the int8 tensor cores: {v8}")
+            f"the int8 cl_vae kernel does not run its products on the int8 tensor cores: {v8}")
+    coop16, coop32 = (hmma_counts("generate_cl_vae", k) for k in (VAE_COOP_BF16, VAE_COOP_F32))
+    fwd32 = hmma_counts("lstm_seq", ("lstm_fwd_kernel",))
+    print(f"tensor-core instructions in generate_vae_coop_kernel: bf16 {coop16}, f32 {coop32}; "
+          f"in csrc/lstm_seq.cu's f32 forward {fwd32}")
+    require(all(v and all(c > 0 for c in v) for v in coop16.values()),
+            f"the bf16 cooperative cl_vae kernel runs without tensor cores: {coop16}")
+    require(all(v and not any(v) for v in (*coop32.values(), *fwd32.values())),
+            f"an f32 kernel holds tensor-core instructions: {coop32} {fwd32}")
     vae16, lstm32 = hmma_counts("vae_dense_tc", VAE_TC), hmma_counts("lstm_bwd_f32", LSTM_BWD_F32)
     print(f"tensor-core instructions in csrc/vae_dense_tc.cu's products {vae16}; in "
           f"csrc/lstm_bwd_f32.cu {lstm32}")
@@ -1369,6 +1390,17 @@ def _lstm_inputs(rng, dev, raw_cell, B, T, D, H):
             zeros)
 
 
+def fwd_layout(ls, B, IN, H) -> str:
+    """The f32 forward's plan at (B, IN, H) on this card, printable."""
+    import torch
+
+    p = ls.card_plan(B, IN, H, torch.device("cuda", 0))
+    return (f"{p['groups']} groups of {p['NB']} blocks (one cooperative launch) owning "
+            f"{p['nu']} units each, {p['rpg']} rows a group in tiles of "
+            f"{ls.fwd_tile_rows(p['nu'], p['rt'])} ({p['rt']} a thread), the [W ; Rk] slice "
+            f"{'resident' if p['resident'] else 'streamed'}")
+
+
 def phase_lstm_seq(dev):
     """The three whole-sequence LSTM kernels against their plain versions:
     all three at the training shape (both cells; the backward on the
@@ -1393,10 +1425,17 @@ def phase_lstm_seq(dev):
         ins = _lstm_inputs(rng, dev, raw13[cell], B, T, D, H)
         x, w, b, rk, _, _ = ins
         IN = x.shape[-1]
+        before = (ls.FWD_LAUNCHES, ls.TRAIN_FWD_LAUNCHES)
         got = ls.lstm_seq_train_fwd(*ins)
         inf = ls.lstm_seq_fwd(*ins)
         ref = ls.lstm_seq_train_fwd_plain(*ins)
         torch.cuda.synchronize()
+        require((ls.FWD_LAUNCHES, ls.TRAIN_FWD_LAUNCHES) == (before[0] + 1, before[1] + 1),
+                "the f32 forwards were not counted once a call")
+        print(f"lstm_seq {cell} f32 forward layout: {fwd_layout(ls, B, IN, H)}")
+        same_bits(ls.lstm_seq_train_fwd, ins, got, ("h", "c", "z", "h_prev", "c_prev"),
+                  f"lstm_seq {cell} f32 training forward")
+        same_bits(ls.lstm_seq_fwd, ins, inf, ("h", "c"), f"lstm_seq {cell} f32 inference forward")
         names = ("h", "c", "z", "h_prev", "c_prev")
         errs = {n: (k - p).abs().max().item() for n, k, p in zip(names, got, ref)}
         errs.update({f"inference {n}": (k - p).abs().max().item()
@@ -1458,9 +1497,15 @@ def phase_lstm_seq(dev):
         B, T = EVAL_SAMPLES * EVAL_B, TRAIN_T
         ins = _lstm_inputs(rng, dev, raw10[cell], B, T, D, H)
         IN = ins[0].shape[-1]
+        before = ls.FWD_LAUNCHES
         got = ls.lstm_seq_fwd(*ins)
         ref = ls.lstm_seq_fwd_plain(*ins)
         torch.cuda.synchronize()
+        require(ls.FWD_LAUNCHES == before + 1, "the f32 inference forward was not counted")
+        print(f"lstm_seq {cell} f32 forward layout at the evaluation shape: "
+              f"{fwd_layout(ls, B, IN, H)}")
+        same_bits(ls.lstm_seq_fwd, ins, got, ("h", "c"),
+                  f"lstm_seq {cell} f32 inference forward at the evaluation shape")
         errs = {n: (k - p).abs().max().item() for n, k, p in zip(("h", "c"), got, ref)}
         err = max(errs.values())
         require(all(torch.isfinite(o).all().item() for o in got), "LSTM forward not finite")
@@ -1505,7 +1550,8 @@ def phase_evaluate(ckpt):
           f"(printed {out_x['test_nll_nats_per_frame']}), wall {wall_x:.3f} s, estimator "
           f"{est_x['s']:.3f} s; |difference| {abs(nll_k - nll_x):.3e} (limit 1e-4)")
     print(f"evaluation launches: pallas {nonzero(counts_k)}, xla {nonzero(counts_x)} (expected "
-          f"{nonzero(f32_fwd(EVAL_WINDOWS))} and none, every other count 0)")
+          f"{nonzero(f32_fwd(EVAL_WINDOWS))} and none, every other count 0); the 12,800-row "
+          f"forward's layout: {fwd_layout(ls, EVAL_SAMPLES * EVAL_B, 106, 256)}")
     require(out_k["n_test_examples"] == out_x["n_test_examples"] == EVAL_WINDOWS,
             f"test windows {out_k['n_test_examples']}, {out_x['n_test_examples']}")
     require(counts_k == f32_fwd(EVAL_WINDOWS), f"evaluation launches {counts_k}")
@@ -1687,7 +1733,7 @@ def phase_vae_serve():
         MidiWriter().dump_sequence_to_midi(roll, os.path.join(d, "seed.mid"))
         with open(os.path.join(d, "seed.mid"), "rb") as f:
             seed_b64 = base64.b64encode(f.read()).decode()
-    launches, wide, calls, warm, stats, engine = counted_serve(
+    launches, wide, calls, warm, stats, engine, coop = counted_serve(
         ["-i", VAE_MODEL, "--train_file", CORPUS, "--dynamic_batching", "--warmup", "full",
          "--port", "0"], [("2x64 seed_midi", {"n": 2, "t": 64, "seed_midi_base64": seed_b64})])
     lat = engine.latency_stats()
@@ -1699,7 +1745,8 @@ def phase_vae_serve():
     require(stats["family"] == "cl_vae", f"/stats family {stats['family']}")
     require(launches == calls and launches > warm[0],
             f"cl_vae launches {launches} != engine device calls {calls}")
-    require(wide == 0, f"jsball_vae took the wide kernel {wide} times")
+    require(wide == coop == 0, f"jsball_vae took the wide kernel {wide} times, the "
+                               f"cooperative one {coop} times")
     require(stats["batches"] > 0, "the cl_vae burst was not coalesced (batches == 0)")
     return launches
 
@@ -2022,12 +2069,15 @@ def phase_vae_evaluate(ckpt, out_dir):
 # ---- phases 17-19: the wide cl_vae generation kernel, the bf16 mode of the
 # dense-stack kernels, and the paths through both
 
-WIDE_GEN = (  # label, (D, H, L, use_x_prev), weight mode
-    ("f32 H=256", (88, 256, 4, True), "f32"),
-    ("f32 H=512", (88, 512, 4, True), "f32"),
-    ("bf16 H=512", (88, 512, 4, True), "bf16"),
-    ("bf16 seq-concat", (1024, 1024, 16, False), "bf16"),
-    ("f32 no hidden", (88, 0, 4, True), "f32"),
+COOP, WIDE = "generate_cl_vae_coop", "generate_cl_vae_wide"
+WIDE_GEN = (  # label, (D, H, L, use_x_prev), weight mode, the kernel kernel_for picks
+    ("f32 H=256", (88, 256, 4, True), "f32", WIDE),  # below _F32_COOP_FROM
+    ("f32 H=512", (88, 512, 4, True), "f32", COOP),
+    ("bf16 H=512", (88, 512, 4, True), "bf16", COOP),
+    ("bf16 seq-concat", (1024, 1024, 16, False), "bf16", COOP),
+    ("bf16 H=5120", (1024, 5120, 16, False), "bf16", COOP),
+    ("bf16 H=5120 x_prev", (1024, 5120, 16, True), "bf16", COOP),
+    ("f32 no hidden", (88, 0, 4, True), "f32", WIDE),
 )
 
 
@@ -2053,11 +2103,16 @@ def glorot_vae_raw(rng, D, H, L, K, use_x_prev, Cw=88):
 
 
 def phase_vae_wide(dev):
-    """The wide cl_vae generation kernel against its plain version at 64
-    single-frame seeds x 256 steps: f32 at H=256 and 512 (with and without
-    use_z_prior), bf16 at H=512 and at the seq-concat width, f32 without
-    hidden layers. Returns the kernel-table fields of the bf16 H=512 run
-    (the width phase 19 trains and samples)."""
+    """The kernels of every config the shared-memory one refuses against
+    their plain version at 64 single-frame seeds x 256 steps: the
+    cooperative kernel (f32 at H=512 with and without use_z_prior, bf16 at
+    H=512, at the seq-concat width D=H=1,024 and at D=1,024, H=5,120 with
+    and without x_prev) and the wide kernel (f32 at H=256, below the
+    measured rule's width, and without hidden layers), each where
+    ``kernel_for`` sends it; the cooperative kernel's
+    own clock of each part of a step at H=5,120. Returns the kernel-table
+    fields of the bf16 H=5,120 run (the width phase 30's checkpoint samples
+    at) and of the run without hidden layers."""
     import numpy as np
     import torch
 
@@ -2070,20 +2125,28 @@ def phase_vae_wide(dev):
     rng = np.random.default_rng(SEED + 7)
     seeds88 = torch.from_numpy(np.ascontiguousarray(seed_windows(B)[:, 0])).to(dev)
     ws = torch.eye(K, device=dev)[torch.arange(B, device=dev) % K]
-    calls = [0]
+    calls = {COOP: 0, WIDE: 0}
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    def kern(*a, **k):
-        calls[0] += 1
-        return cgv.generate_cl_vae_batch_cuda(*a, **k)
-
-    cgv.LAUNCHES = cgv.WIDE_LAUNCHES = 0  # this phase's launches
+    cgv.LAUNCHES = cgv.WIDE_LAUNCHES = cgv.COOP_LAUNCHES = 0  # this phase's launches
     rows = {}
-    for label, (D, H, L, use_xp), mode in WIDE_GEN:
+    for label, (D, H, L, use_xp), mode, kernel in WIDE_GEN:
         cfg = cl_vae.Config(original_dim=D, intermediate_dim=H, latent_dim=L,
                             intermediate_class_dim=88, n_classes=K, use_x_prev=use_xp,
                             bf16_compute=mode == "bf16")
-        require(cgv.kernel_for(cfg) == "generate_cl_vae_wide" and cgv.pick_mode(cfg) == mode,
+        require(cgv.kernel_for(cfg) == kernel and cgv.pick_mode(cfg) == mode,
                 f"{label}: routed to {cgv.kernel_for(cfg)} in mode {cgv.pick_mode(cfg)}")
+
+        def kern(*a, kernel=kernel, **k):
+            calls[kernel] += 1
+            return cgv.generate_cl_vae_batch_cuda(*a, **k)
+
+        layout = ""
+        if kernel == COOP:
+            plan = cgv.coop_plan(cfg, B, n_sm, mode)
+            layout = (f"; {plan['G']} blocks of {plan['nu']} units, the frame head in "
+                      f"{plan['hs']} song groups of {plan['P']} pitch tiles a block, slices "
+                      f"resident (x rows, head) {plan['res']}")
         params = params_from_numpy(glorot_vae_raw(rng, D, H, L, K, use_xp), dev)
         seeds = (seeds88 if D == 88 else
                  torch.from_numpy((rng.random((B, D)) < 0.1).astype(np.float32)).to(dev))
@@ -2099,22 +2162,22 @@ def phase_vae_wide(dev):
             pk, pp = k(u1, True), p(u1, True)
             torch.cuda.synchronize()
             require(torch.isfinite(pk).all().item() and pk.shape == (B, nsteps, D),
-                    f"wide {label}: probabilities not finite or misshapen")
+                    f"{label}: probabilities not finite or misshapen")
             d = (pk - pp).abs()
             mx, mean = d.max().item(), d.mean().item()
             errs.append(mx)
             if mode == "f32":
-                print(f"wide {label} probs, u=1, use_z_prior={zp}: max |kernel - plain| = "
+                print(f"{kernel} {label} probs, u=1, use_z_prior={zp}: max |kernel - plain| = "
                       f"{mx:.3e} (limit 1e-5)")
-                require(mx <= 1e-5, f"wide {label} f32 probabilities differ by {mx}")
+                require(mx <= 1e-5, f"{label} f32 probabilities differ by {mx}")
                 fk, fp, probs = k(u, False), p(u, False), p(u, True)
                 torch.cuda.synchronize()
-                frames_agree_to_near_tie(f"wide {label} frames, use_z_prior={zp}", fk, fp, u,
+                frames_agree_to_near_tie(f"{kernel} {label} frames, use_z_prior={zp}", fk, fp, u,
                                          probs)
             else:
-                print(f"wide {label} probs, u=1: max {mx:.3e} (limit 2e-2), mean {mean:.3e} "
+                print(f"{kernel} {label} probs, u=1: max {mx:.3e} (limit 2e-2), mean {mean:.3e} "
                       "(limit 2e-3)")
-                require(mx <= 2e-2 and mean <= 2e-3, f"wide {label} bf16 probabilities differ: "
+                require(mx <= 2e-2 and mean <= 2e-3, f"{label} bf16 probabilities differ: "
                                                      f"max {mx}, mean {mean}")
         k = lambda: kern(params, cfg, seeds, nsteps, eps, u, ws)
         p = lambda: cgv.generate_cl_vae_batch_plain(params, cfg, seeds, nsteps, eps, u, ws)
@@ -2125,26 +2188,38 @@ def phase_vae_wide(dev):
                      if v is not None and n not in ("encb", "decb", "zb", "xb"))
         b_ms, b_by = vae_bound_ms(cfg, B, nsteps, wbytes,
                                   PEAK_BF16_FLOPS if mode == "bf16" else PEAK_F32_FLOPS)
-        print(f"wide {label} (D={D} H={H} L={L} use_x_prev={use_xp}): kernel {t[0]:.3f} / "
+        print(f"{kernel} {label} (D={D} H={H} L={L} use_x_prev={use_xp}): kernel {t[0]:.3f} / "
               f"{t[3]:.3f} ms, plain {t[1]:.3f} / {t[2]:.3f} ms, bound {b_ms:.4f} ms ({b_by}) "
-              f"at B={B} nsteps={nsteps}; {wbytes / 1e6:.3f} MB of weights read per block-step")
+              f"at B={B} nsteps={nsteps}; {wbytes / 1e6:.3f} MB of weights{layout}")
         rows[label] = {"max_abs_err": max(errs), "ms": t[0], "plain_ms": t[1], "bound_ms": b_ms,
                        "bound_by": b_by}
-    require(cgv.WIDE_LAUNCHES == cgv.LAUNCHES == calls[0],
-            f"wide launches {cgv.WIDE_LAUNCHES}, all {cgv.LAUNCHES}, calls {calls[0]}")
+        if label == "bf16 H=5120":
+            rows["parts"] = (params, cfg, seeds, eps, u)
+    coop, wide = calls[COOP], calls[WIDE]
+    require(cgv.COOP_LAUNCHES == coop and cgv.WIDE_LAUNCHES == wide
+            and cgv.LAUNCHES == coop + wide,
+            f"launches: cooperative {cgv.COOP_LAUNCHES} (calls {coop}), wide "
+            f"{cgv.WIDE_LAUNCHES} (calls {wide}), all {cgv.LAUNCHES}")
+    params, cfg, seeds, eps, u = rows.pop("parts")
+    split = cgv.phase_ms(params, cfg, seeds, nsteps, eps, u, ws, mode="bf16")
+    print("generate_cl_vae_coop bf16 H=5120: a call's parts (block 0's clock, ms; a wait is the "
+          "slowest block's lag and the grid barrier) "
+          + "; ".join(f"{n} {v:.3f}" for n, v in split.items()))
     # the jsball_vae width still takes the shared-memory kernel
     raw, jcfg, _ = common.load_model(VAE_MODEL, "cl_vae")
     jp = params_from_numpy(raw, dev)
     jws = torch.eye(jcfg.n_classes, device=dev)[:4]
     jeps = torch.zeros((4, 8, jcfg.latent_dim), device=dev)
+    cgv.LAUNCHES = cgv.WIDE_LAUNCHES = cgv.COOP_LAUNCHES = 0
     cgv.generate_cl_vae_batch_cuda(jp, jcfg, seeds88[:4].contiguous(), 8, jeps,
                                    torch.ones((4, 8, 88), device=dev), jws)
     torch.cuda.synchronize()
-    require(cgv.kernel_for(jcfg) == "generate_cl_vae" and cgv.LAUNCHES == calls[0] + 1
-            and cgv.WIDE_LAUNCHES == calls[0], "jsball_vae did not take the shared-memory kernel")
-    print(f"wide kernel: {calls[0]} launches in this phase, all counted by WIDE_LAUNCHES; "
-          "jsball_vae's width still launches generate_cl_vae")
-    return rows["bf16 H=512"]
+    require(cgv.kernel_for(jcfg) == "generate_cl_vae" and cgv.LAUNCHES == 1
+            and cgv.WIDE_LAUNCHES == cgv.COOP_LAUNCHES == 0,
+            "jsball_vae did not take the shared-memory kernel")
+    print(f"phase 17: {coop} cooperative and {wide} wide launches, each counted by its own "
+          "count; jsball_vae's width still launches generate_cl_vae")
+    return rows["bf16 H=5120"], rows["f32 no hidden"]
 
 
 SEQ_DENSE = dict(D=1024, Cw=256, H=1024, L=16, K=TRAIN_K, B=VAE_TRAIN_B, use_x_prev=False)
@@ -2326,7 +2401,7 @@ def counted_serve(argv, extra=()):
     """``cli.serve`` built from ``argv`` and driven by :func:`exercise_server`;
     the cl_vae launch counts are set to 0 just before. Returns (launches,
     wide launches, engine device calls, warm-up (launches, calls), /stats,
-    the engine)."""
+    the engine, cooperative launches)."""
     from classifying_vae_lstm_tpu_torch.cli import serve
     from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae as cgv
     from classifying_vae_lstm_tpu_torch.serving import GenerationEngine
@@ -2344,7 +2419,7 @@ def counted_serve(argv, extra=()):
     GenerationEngine._run = counted_run
     try:
         with sampler_plain_guard(cgv, "generate_cl_vae_batch_plain", plain_on_cuda):
-            cgv.LAUNCHES = cgv.WIDE_LAUNCHES = 0  # counts from here on are this path's
+            cgv.LAUNCHES = cgv.WIDE_LAUNCHES = cgv.COOP_LAUNCHES = 0  # this path's counts
             t0 = time.perf_counter()
             httpd, engine = serve.make_server(args)
             warm = (cgv.LAUNCHES, runs[0])
@@ -2352,15 +2427,17 @@ def counted_serve(argv, extra=()):
                   f"({warm[0]} warm-up launches for {warm[1]} device calls)")
             stats = exercise_server(httpd, extra)
             launches, wide, calls = cgv.LAUNCHES, cgv.WIDE_LAUNCHES, runs[0]
+            coop = cgv.COOP_LAUNCHES
     finally:
         GenerationEngine._run = real_run
     require(not plain_on_cuda, f"plain version ran on CUDA tensors: {plain_on_cuda}")
-    return launches, wide, calls, warm, stats, engine
+    return launches, wide, calls, warm, stats, engine, coop
 
 
-def sample_one_launch(ckpt, run_name, out_dir, n=4, t=32):
+def sample_one_launch(ckpt, run_name, out_dir, n=4, t=32, count="WIDE_LAUNCHES"):
     """``cli.cl_vae_sample`` of ``ckpt`` with true keys: one launch, of the
-    wide kernel; MIDI files written. Returns the launches."""
+    kernel whose count ``count`` names (the wide or the cooperative kernel);
+    MIDI files written. Returns the launches."""
     import numpy as np
 
     from classifying_vae_lstm_tpu_torch.cli import cl_vae_sample
@@ -2371,18 +2448,18 @@ def sample_one_launch(ckpt, run_name, out_dir, n=4, t=32):
          "--sample_dir", out_dir])
     plain_on_cuda = []
     with sampler_plain_guard(cgv, "generate_cl_vae_batch_plain", plain_on_cuda):
-        cgv.LAUNCHES = cgv.WIDE_LAUNCHES = 0
+        cgv.LAUNCHES = cgv.WIDE_LAUNCHES = cgv.COOP_LAUNCHES = 0
         samples = cl_vae_sample.sample(args)
-        launches, wide = cgv.LAUNCHES, cgv.WIDE_LAUNCHES
+        launches, ours = cgv.LAUNCHES, getattr(cgv, count)
     files = sorted(f for f in os.listdir(out_dir) if f.startswith(run_name))
-    print(f"cl_vae_sample {ckpt}: {n} songs x {t} frames, {launches} launch ({wide} of the wide "
-          f"kernel), {int(samples.sum())} notes on, {len(files)} MIDI files")
+    print(f"cl_vae_sample {ckpt}: {n} songs x {t} frames, {launches} launch ({ours} counted by "
+          f"{count}), {int(samples.sum())} notes on, {len(files)} MIDI files")
     require(samples.shape == (n, t, 88) and set(np.unique(samples).tolist()) <= {0, 1},
             f"samples {samples.shape}")
-    require(launches == wide == 1 and len(files) == n and not plain_on_cuda,
-            f"cl_vae_sample: {launches} launches ({wide} wide), files {files}, plain "
+    require(launches == ours == 1 and len(files) == n and not plain_on_cuda,
+            f"cl_vae_sample: {launches} launches ({ours} {count}), files {files}, plain "
             f"{plain_on_cuda}")
-    return wide
+    return ours
 
 
 REPAIR_FLAGS = ["--train_file", CORPUS, "--latent_dim", "4", "--batch_size", str(VAE_TRAIN_B),
@@ -2391,11 +2468,12 @@ REPAIR_FLAGS = ["--train_file", CORPUS, "--latent_dim", "4", "--batch_size", str
 
 def phase_vae_repair(model_dir, out_dir):
     """Checkpoints the shared-memory kernel refuses, trained by the port on
-    the card, sample and serve through the wide kernel: a bf16 H=512 model
-    (``--bf16_compute --train_backend pallas``) through ``cli.cl_vae_sample``
-    and ``cli.serve``, then a model without hidden layers (``xla``) through
-    ``cli.cl_vae_sample``. Two epochs each: the first epoch saves no
-    checkpoint. Returns the wide kernel's launches."""
+    the card, sample and serve: a bf16 H=512 model (``--bf16_compute
+    --train_backend pallas``) through ``cli.cl_vae_sample`` and
+    ``cli.serve`` on the cooperative kernel, then a model without hidden
+    layers (``xla``) through ``cli.cl_vae_sample`` on the wide kernel. Two
+    epochs each: the first epoch saves no checkpoint. Returns the
+    cooperative and the wide kernel's launches."""
     from classifying_vae_lstm_tpu_torch.cli import cl_vae_train, common
     from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae as cgv
 
@@ -2405,26 +2483,28 @@ def phase_vae_repair(model_dir, out_dir):
     E, n_train, n_val = _report_train("bf16 H=512 training", args, seen, epoch_s, wall)
     require(counts[2:] == (E * (n_train + n_val), 2 * E * n_train), f"launches {counts}")
     _, cfg, _ = common.load_model(seen["ckpt"], "cl_vae")
-    require(cgv.kernel_for(cfg) == "generate_cl_vae_wide" and cgv.pick_mode(cfg) == "bf16",
+    require(cgv.kernel_for(cfg) == "generate_cl_vae_coop" and cgv.pick_mode(cfg) == "bf16",
             f"the H=512 checkpoint routes to {cgv.kernel_for(cfg)}, {cgv.pick_mode(cfg)}")
-    wide = sample_one_launch(seen["ckpt"], "smoke_wide_bf16", out_dir)
-    launches, w, calls, warm, stats, engine = counted_serve(
+    coop = sample_one_launch(seen["ckpt"], "smoke_wide_bf16", out_dir, count="COOP_LAUNCHES")
+    launches, w, calls, warm, stats, engine, c = counted_serve(
         ["-i", seen["ckpt"], "--train_file", CORPUS, "--dynamic_batching", "--warmup", "off",
          "--port", "0"])
     lat = engine.latency_stats()
-    print(f"cl_vae serving of the bf16 H=512 checkpoint: {launches} launches ({w} of the wide "
-          f"kernel) for {calls} engine device calls; requests {stats['requests']}, batches "
-          f"{stats['batches']}; latency p50 {lat['p50_ms']:.3f} ms, p95 {lat['p95_ms']:.3f} ms")
-    require(launches == w == calls > 0, f"wide launches {w}, all {launches}, calls {calls}")
+    print(f"cl_vae serving of the bf16 H=512 checkpoint: {launches} launches ({c} of the "
+          f"cooperative kernel, {w} of the wide one) for {calls} engine device calls; requests "
+          f"{stats['requests']}, batches {stats['batches']}; latency p50 {lat['p50_ms']:.3f} ms, "
+          f"p95 {lat['p95_ms']:.3f} ms")
+    require(launches == c == calls > 0 and w == 0,
+            f"cooperative launches {c}, wide {w}, all {launches}, calls {calls}")
     require(stats["batches"] > 0, "the burst was not coalesced (batches == 0)")
-    wide += w
+    coop += c
     args, counts, seen, epoch_s, wall = run_train(
         "no_hidden", ["--intermediate_dim", "0"], model_dir, _reset_dense_counts, _dense_counts,
         cli=cl_vae_train, base_flags=REPAIR_FLAGS)
     _report_train("no-hidden training (xla)", args, seen, epoch_s, wall)
     require(counts == (0, 0, 0, 0), f"no-hidden training launched dense-stack kernels: {counts}")
-    wide += sample_one_launch(seen["ckpt"], "smoke_no_hidden", out_dir)
-    return wide
+    wide = sample_one_launch(seen["ckpt"], "smoke_no_hidden", out_dir)
+    return coop, wide
 
 
 def phase_vae_bf16_evaluate(ckpt):
@@ -3676,7 +3756,7 @@ def phase_int8_kernels(dev):
         pack = lambda where: cgv._pack_int8(params if where == "cuda" else host, cfg,
                                             ws if where == "cuda" else ws.cpu())
         w = pack("cuda")
-        plan = cgv.int8_plan(cfg, B, n_sm)
+        plan = cgv.coop_plan(cfg, B, n_sm)
         print(f"int8 cl_vae D={D} H={H} use_x_prev={use_xp}: {plan['G']} blocks of "
               f"{plan['nu']} hidden units on {n_sm} SMs, the frame head in {plan['hs']} song "
               f"groups of {plan['P']} pitch tiles a block, slices resident (x rows, head) "
@@ -3697,8 +3777,8 @@ def phase_int8_kernels(dev):
                 lambda uu, rp: run(cgv.generate_cl_vae_batch_plain, uu, rp),
                 lambda uu: run(cgv.generate_cl_vae_batch_cuda, uu, False, "bf16"),
                 pack, nbytes, macs, 0 if zp else other, torch.ones_like(u), u,
-                device_key="generate_vae_int8_kernel",
-                kernel_pack=lambda: cgv.pack_int8(pack("cuda"), cfg, plan["nu"], plan["G"],
+                device_key="generate_vae_coop_kernel<signed char>",
+                kernel_pack=lambda: cgv.pack_coop(pack("cuda"), cfg, plan["nu"], plan["G"],
                                                   plan["P"], plan["hs"]))
             split = cgv.phase_ms(params, cfg, seeds, nsteps, eps, u, ws, use_z_prior=zp)
             print(f"int8 {key}: a call's parts (block 0's clock, ms; a wait is the slowest "
@@ -3796,8 +3876,9 @@ def phase_int8_paths(model_dir, sample_dir):
     launches 0). cl_vae: ``cli.cl_vae_train`` writes the bf16 seq-concat
     checkpoint at H=5,120 (1 epoch), then ``cli.cl_vae_sample --gen_backend
     pallas`` and ``serve --gen_backend pallas`` sample it in int8, ``auto``
-    in bf16 through the wide kernel. Returns the int8 launches of each
-    family on these paths."""
+    in bf16 through the cooperative kernel (its count 1 a call). Returns
+    the int8 launches of each family on these paths and the cooperative
+    kernel's bf16 launches."""
     from classifying_vae_lstm_tpu_torch.cli import cl_vae_sample, cl_vae_train, cl_vrnn_sample
     from classifying_vae_lstm_tpu_torch.cli import common
     from classifying_vae_lstm_tpu_torch.ops import cuda_generate as cg
@@ -3860,22 +3941,29 @@ def phase_int8_paths(model_dir, sample_dir):
     require((bf16, int8) == (0, 1) and modes == ["int8"] and rolls.shape == (4, 8 * 16, 88),
             f"cl_vae_sample --gen_backend pallas: {bf16}, {int8}, {modes}, {rolls.shape}")
     vae_launches = int8
+    cgv.COOP_LAUNCHES = 0  # the default auto: bf16 on the cooperative kernel
     bf16, int8, modes, rolls = sample_counted(cl_vae_sample, cgv, argv, 4)
-    require((bf16, int8) == (1, 0) and modes == ["bf16"],
-            f"cl_vae_sample --gen_backend auto: {bf16}, {int8}, {modes}")
+    require((bf16, int8, cgv.COOP_LAUNCHES) == (1, 0, 1) and modes == ["bf16"],
+            f"cl_vae_sample --gen_backend auto: {bf16}, {int8}, {modes}, cooperative "
+            f"{cgv.COOP_LAUNCHES}")
+    coop_launches = cgv.COOP_LAUNCHES
     bodies = [{"n": 4, "t": 8}, {"n": 16, "t": 32}]
     bf16, int8, modes, stats = serve_requests(
         ["-i", ckpt, "--train_file", CORPUS, "--gen_backend", "pallas"], cgv, bodies, 16)
     require((bf16, int8) == (0, len(bodies)) and set(modes) == {"int8"}
             and stats["mode"] == "int8", f"serve --gen_backend pallas: {bf16}, {int8}, {modes}")
     vae_launches += int8
+    cgv.COOP_LAUNCHES = 0
     bf16, int8, modes, stats = serve_requests(["-i", ckpt, "--train_file", CORPUS], cgv,
                                               [{"n": 2, "t": 8}], 16)
-    require((bf16, int8) == (1, 0) and modes == ["bf16"] and stats["gen_backend"] == "xla",
-            f"serve (auto): {bf16}, {int8}, {modes}")
+    require((bf16, int8, cgv.COOP_LAUNCHES) == (1, 0, 1) and modes == ["bf16"]
+            and stats["gen_backend"] == "xla",
+            f"serve (auto): {bf16}, {int8}, {modes}, cooperative {cgv.COOP_LAUNCHES}")
+    coop_launches += cgv.COOP_LAUNCHES
     print(f"int8 paths: {vrnn_launches} cl_vrnn and {vae_launches} cl_vae int8 launches, every "
-          f"bf16 count 0 on them; phase 30 took {time.perf_counter() - t_phase:.1f} s")
-    return vrnn_launches, vae_launches
+          f"bf16 count 0 on them; {coop_launches} launches of the cooperative bf16 kernel on the "
+          f"default auto; phase 30 took {time.perf_counter() - t_phase:.1f} s")
+    return vrnn_launches, vae_launches, coop_launches
 
 
 SWEEP_H = (88, 512, 1024, 1536, 2048, 2560)
@@ -4047,7 +4135,7 @@ def main(argv=None) -> int:
                     phase_vae_evaluate(seen_vae["ckpt"], sample_dir)
                     took(16)
     if want(17):
-        wide = phase_vae_wide(dev)
+        coop_row, wide = phase_vae_wide(dev)
         took(17)
     if want(18):
         dense16 = phase_vae_dense_bf16(dev)
@@ -4058,7 +4146,7 @@ def main(argv=None) -> int:
             bf16_fwd, bf16_bwd, seen_seq = phase_vae_bf16_train(model_dir)
             phase_train_breakdown(seen_seq, "dense-stack kernels", "vae_", VAE_STEP_PARTS)
             phase_vae_bf16_evaluate(seen_seq["ckpt"])
-            wide_launches = phase_vae_repair(model_dir, sample_dir)
+            coop_launches, wide_launches = phase_vae_repair(model_dir, sample_dir)
             took(19)
     if want(20):
         lstm16 = phase_lstm_seq_bf16(dev)
@@ -4105,7 +4193,8 @@ def main(argv=None) -> int:
     if want(30):
         with (tempfile.TemporaryDirectory() as model_dir,
               tempfile.TemporaryDirectory() as sample_dir):
-            int8_vrnn_launches, int8_vae_launches = phase_int8_paths(model_dir, sample_dir)
+            int8_vrnn_launches, int8_vae_launches, coop_auto = phase_int8_paths(model_dir,
+                                                                                sample_dir)
             took(30)
     if want(29) and want(30):
         print(f"phases 29-30 (int8 kernels and paths): {time.perf_counter() - t29:.1f} s")
@@ -4167,6 +4256,11 @@ def main(argv=None) -> int:
         "source": "classifying_vae_lstm_tpu_torch/csrc/generate_cl_vae.cu",
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_generate_vae.py:141",
         "launches": wide_launches, **wide, "library_ms": None,
+    }, {
+        "name": "generate_cl_vae_coop", "route": "cuda",
+        "source": "classifying_vae_lstm_tpu_torch/csrc/generate_cl_vae.cu",
+        "replaces": "classifying_vae_lstm_tpu/ops/pallas_generate_vae.py:141",
+        "launches": coop_launches + coop_auto, **coop_row, "library_ms": None,
     }, {
         "name": "vae_tc_fwd", "route": "cuda", "source": dense_tc_source,
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_vae.py:133", "launches": bf16_fwd,

@@ -1,6 +1,7 @@
 // What the persistent cooperative generation kernels of csrc/generate_cl_vrnn.cu
-// and csrc/generate_cl_vae.cu share: the grid barrier, the int8 tensor-core
-// product and block 0's clock of the parts of a step.
+// and csrc/generate_cl_vae.cu share: the grid barrier (also the f32 LSTM
+// forward's group barrier, csrc/lstm_seq.cu), the int8 tensor-core product
+// and block 0's clock of the parts of a step.
 
 #pragma once
 
@@ -18,17 +19,18 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], unsi
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Every block of the grid arrives before any leaves. `count` only grows:
-// round r ends when it reaches r * gridDim.x. Thread 0 arrives with a
+// Every block of the grid (or of a group of `blocks` blocks that share
+// `count`) arrives before any leaves. `count` only grows: round r ends when
+// it reaches r * blocks. Thread 0 arrives with a
 // release (after the block barrier, so it orders the whole block's writes
 // before the arrival) and waits with acquiring loads (the block barrier
 // after it orders the block's later reads after them). Full fences in place
 // of the release and acquire cost ~0.1 us a barrier more on an H100.
-__device__ __forceinline__ void grid_sync(unsigned* count, unsigned& rounds) {
+__device__ __forceinline__ void grid_sync(unsigned* count, unsigned& rounds, unsigned blocks) {
   __syncthreads();
   ++rounds;
   if (threadIdx.x == 0) {
-    const unsigned target = rounds * gridDim.x;
+    const unsigned target = rounds * blocks;
     asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(count) : "memory");
     unsigned seen;
     do {
@@ -36,6 +38,10 @@ __device__ __forceinline__ void grid_sync(unsigned* count, unsigned& rounds) {
     } while (seen < target);
   }
   __syncthreads();
+}
+
+__device__ __forceinline__ void grid_sync(unsigned* count, unsigned& rounds) {
+  grid_sync(count, rounds, gridDim.x);
 }
 
 // Block 0's clock of a step's parts (`out` set), summed over the steps: each

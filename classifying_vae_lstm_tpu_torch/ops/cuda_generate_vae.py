@@ -6,19 +6,20 @@ relu z-encoder hidden, z heads, z draw (or the prior's draw with
 ``use_z_prior``), relu decoder hidden over (w, z, the one-step-lagged
 ``x_prev_t``), sigmoid frame head, Bernoulli draw, feedback — in one launch:
 ``generate_kernel`` with every weight in shared memory, where they fit
-(:func:`fits`), and ``generate_wide_kernel``, which reads the weights from L2
-every step, for every other config: wider models, and models without hidden
-layers (the z heads then read ``[x_prev, w]`` and the frame head ``[w,
-x_prev_t, z]``, as JAX ``encode_z``/``decode`` at ``has_hidden=False``);
-and ``generate_vae_int8_kernel``, with the three large weights as
-per-column int8 codes on the int8 tensor cores, where the JAX package's
-precision rule says int8 (:func:`pick_mode`): one cooperative launch whose
-blocks each own hidden units (:func:`int8_grid`) and pitch tiles of the
+(:func:`fits`); ``generate_vae_coop_kernel``, one cooperative launch whose
+blocks each own hidden units (:func:`coop_grid`) and pitch tiles of the
 frame head (:func:`head_split`), their slices packed in the order of the
-``mma.sync.m16n8k32`` fragments (:func:`pack_int8`) and resident in shared
-memory where they fit (:func:`int8_residency`). The sampler is a pure
-function of its pre-drawn noise (``eps`` for z, ``u`` for the frames), so
-the kernels are held against
+``mma.sync`` fragments (:func:`pack_coop`) and resident in shared memory
+where they fit (:func:`coop_residency`), for every other config with
+hidden layers: in f32 / bf16 at wide widths, and with the three large
+weights as per-column int8 codes on the int8 tensor cores where the JAX
+package's precision rule says int8 (:func:`pick_mode`); and
+``generate_wide_kernel``, which reads f32 weights from L2 every step, for
+models without hidden layers (the z heads then read ``[x_prev, w]`` and the
+frame head ``[w, x_prev_t, z]``, as JAX ``encode_z``/``decode`` at
+``has_hidden=False``) and for f32 below H=512, where it measured faster
+(:func:`kernel_for`). The sampler is a pure function of its pre-drawn noise
+(``eps`` for z, ``u`` for the frames), so the kernels are held against
 :func:`generate_cl_vae_batch_plain` on the card and the plain version
 against the JAX package on the CPU, with the same noise.
 
@@ -34,25 +35,39 @@ import threading
 import torch
 
 from . import _build
-from .cuda_generate import _pack_head, _qmm, _quant_cols, _z_head, round16
+from .cuda_generate import _qmm, _quant_cols, _z_head, round16
 
-# launches since the counts were last set to 0: of either f32/bf16 kernel,
-# of the wide one alone, and of the int8 kernel
+# launches since the counts were last set to 0: of every f32/bf16 kernel, of
+# the wide one alone, of the cooperative one alone in f32/bf16, and of the
+# cooperative one in int8
 LAUNCHES = 0
 WIDE_LAUNCHES = 0
+COOP_LAUNCHES = 0
 INT8_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
 _SONGS_PER_BLOCK = 2      # kSongs in csrc/generate_cl_vae.cu (the f32 / bf16 kernels)
 _WIDE_THREADS = 512       # kWideThreads
 _SMEM_LIMIT = 232448      # dynamic shared memory one Hopper block can use
-# the int8 kernel: a launch takes at most _I8_ROWS songs (a call more in
-# several launches); its ring holds _I8_RING stages of _I8_CPS k32 chunks of
-# those songs' codes and of the streamed weights, at most _I8_MAX_NT n8
-# tiles a product pass
-_I8_ROWS, _I8_RING, _I8_CPS, _I8_MAX_NT = 64, 4, 8, 8
-_I8_MAX_BLOCKS = 136      # kMaxBlocks: the most blocks its cross-block loads take
+# the cooperative kernel (int8, and f32 / bf16 at wide widths): a launch
+# takes at most _COOP_ROWS songs (a call more in several launches); its ring
+# holds _COOP_RING stages of _COOP_CPS 32-byte chunks of those songs' operands
+# and of the streamed weights, at most _COOP_MAX_NT n8 tiles a product pass
+_COOP_ROWS, _COOP_RING, _COOP_CPS, _COOP_MAX_NT = 64, 4, 8, 8
+_COOP_MAX_BLOCKS = 136      # kMaxBlocks: the most blocks its cross-block loads take
 _MODES = ("f32", "bf16", "int8")
+_EBYTES = {"int8": 1, "bf16": 2, "f32": 4}  # bytes of an operand of each mode
+# the hidden width from which an f32 config with hidden layers that does not
+# fit the shared-memory kernel takes the cooperative kernel rather than the
+# wide one, from a sweep on an H100 80GB HBM3 at 700 W (PERF.md §6): at
+# D=88 the wide kernel is faster at H=256 (4.15-4.20 ms against 5.13-5.68 at
+# 64 songs x 256 steps; ties or wins at every serving bucket) and slower
+# from H=512 at 128 steps and more. bf16 has no such width: the cooperative
+# kernel is faster at every width the sweep covers, and the wide kernel
+# takes f32 weights only. At 32-step calls the cooperative kernel loses
+# 0.1-0.5 ms to the wide one (its wrapper's per-call packing), one rule
+# for every call length all the same
+_F32_COOP_FROM = 512
 
 # The JAX package's precision rule for this sampler (its ``_BUDGET`` and
 # ``pick_mode``, ``pallas_generate_vae.py:44,72-95``): the weight bytes of
@@ -131,12 +146,28 @@ def fits(cfg, mode: str | None = None) -> bool:
 
 
 def kernel_for(cfg, mode: str | None = None) -> str:
-    """The kernel a CUDA call launches: ``generate_cl_vae_int8`` in int8 mode,
-    ``generate_cl_vae`` (weights in shared memory) where it :func:`fits`,
-    ``generate_cl_vae_wide`` everywhere else."""
-    if (mode or pick_mode(cfg)) == "int8":
+    """The kernel a CUDA call launches: ``generate_cl_vae_int8`` (the
+    cooperative kernel on int8 codes) in int8 mode, ``generate_cl_vae``
+    (weights in shared memory) where it :func:`fits`, and for every other
+    config with hidden layers the cooperative kernel in f32 / bf16
+    (``generate_cl_vae_coop``), in f32 from :data:`_F32_COOP_FROM`'s width
+    (the measured rule); ``generate_cl_vae_wide`` (f32 weights) for the
+    rest: configs without hidden layers and f32 below H=512.
+
+    The cooperative kernel keeps each block's columns of the z heads (in
+    double) and of the decoder's z rows, and the songs' z, in shared
+    memory, so it refuses a latent width past what one block holds beside
+    its ring (:func:`coop_plan` raises): L <= 105 at D=1,024, H=5,120 on an
+    H100, L <= 366 at D=88 from H=512, L <= 52 at H=7,808; the port's
+    checkpoints have L = 2 ... 16."""
+    mode = mode or pick_mode(cfg)
+    if mode == "int8":
         return "generate_cl_vae_int8"
-    return "generate_cl_vae" if fits(cfg, mode) else "generate_cl_vae_wide"
+    if fits(cfg, mode):
+        return "generate_cl_vae"
+    if cfg.has_hidden and (mode == "bf16" or cfg.intermediate_dim >= _F32_COOP_FROM):
+        return "generate_cl_vae_coop"
+    return "generate_cl_vae_wide"
 
 
 def _wide_state_floats(D: int, H: int, L: int, has_hidden: bool) -> int:
@@ -151,53 +182,54 @@ def _wide_smem_bytes(D: int, H: int, L: int, has_hidden: bool, state_in_smem: bo
     return 4 * (_WIDE_THREADS * _SONGS_PER_BLOCK + state)
 
 
-def int8_grid(H: int, n_sm: int) -> tuple[int, int]:
-    """The int8 kernel's grid on a card of ``n_sm`` SMs: (nu, blocks), each
-    block owning nu hidden units (a multiple of 8: one n8 tile of the
-    m16n8k32 products per 8 units), cdiv(H, nu) <= n_sm blocks. At H=5,120 on
-    132 SMs: 128 blocks of 40 units; at H=4,160: 130 of 32; at H=7,808: 122
-    of 64."""
+def coop_grid(H: int, n_sm: int) -> tuple[int, int]:
+    """The cooperative kernel's grid on a card of ``n_sm`` SMs, in every
+    mode: (nu, blocks), each block owning nu hidden units (a multiple of 8:
+    one n8 tile of the products per 8 units), cdiv(H, nu) <= n_sm blocks. At
+    H=5,120 on 132 SMs: 128 blocks of 40 units; at H=4,160: 130 of 32; at
+    H=7,808: 122 of 64; at H=512: 64 of 8."""
     nu = 8 * -(-H // (8 * n_sm))
     return nu, -(-H // nu)
 
 
 def head_split(D: int, G: int, B: int) -> tuple[int, int]:
-    """How the int8 kernel's G blocks share the frame head of a launch of B
+    """How the cooperative kernel's G blocks share the frame head of a launch of B
     songs: (hs, P). Block g takes song group g % hs (the m16 tiles split in
     hs runs) and the P 8-pitch tiles of pitch group g // hs (tiles P (g //
     hs) .. + P - 1; the last groups may hold fewer, or none). Two song groups
-    from 32 songs on: each block then reads half the songs' codes of h_d
+    from 32 songs on: each block then reads half the songs' operands of h_d
     from L2 for twice the pitches."""
-    hs = 2 if round16(min(B, _I8_ROWS)) >= 32 else 1
+    hs = 2 if round16(min(B, _COOP_ROWS)) >= 32 else 1
     return hs, -(-(-(-D // 8)) // (G // hs))
 
 
-def _int8_smem(D: int, H: int, L: int, nu: int, P: int, use_x_prev: bool, res_cells: bool,
-               res_head: bool) -> int:
-    """Shared memory of one int8 block (``vae_i8_smem_bytes``): the ring (the
-    codes of _I8_CPS k32 chunks of 64 songs a stage, each song's row padded
-    by 16 bytes, and the chunks of the widest streamed weight pass), the
-    resident slices (the x rows of both
-    cells, the head's P tiles), the block's columns of the z heads in double,
-    and in f32 h ([64][nu]), the block's columns of the two scales and of the
-    decoder's z rows, and the songs' z and rs."""
-    NT, kcx, kch = nu // 8, -(-D // 32), -(-H // 32)
-    wt = min(_I8_MAX_NT, max(0 if res_cells else NT, 0 if res_head else P))
-    ring = _I8_RING * (_I8_ROWS * (_I8_CPS * 32 + 16) + _I8_CPS * wt * 256)
+def _coop_smem(D: int, H: int, L: int, nu: int, P: int, use_x_prev: bool, res_cells: bool,
+               res_head: bool, eb: int = 1) -> int:
+    """Shared memory of one block of the cooperative kernel whose operands
+    are ``eb`` bytes (``coop_smem_bytes``): the ring (_COOP_CPS 32-byte chunks
+    of 64 songs' operands a stage, each song's row padded by 16 bytes, and
+    the chunks of the widest streamed weight pass), the resident slices (the
+    x rows of both cells, the head's P tiles), the block's columns of the z
+    heads in double, and in f32 h ([64][nu]), the block's columns of the two
+    int8 scales and of the decoder's z rows, and the songs' z and rs."""
+    per = 32 // eb  # k of a chunk
+    NT, kcx, kch = nu // 8, -(-D // per), -(-H // per)
+    wt = min(_COOP_MAX_NT, max(0 if res_cells else NT, 0 if res_head else P))
+    ring = _COOP_RING * (_COOP_ROWS * (_COOP_CPS * 32 + 16) + _COOP_CPS * wt * 256)
     cells = kcx * (1 + int(use_x_prev)) * NT * 256 if res_cells else 0
     head = kch * P * 256 if res_head else 0
     zheads = 8 * nu * 2 * L  # the z heads' columns, in double
     return (ring + cells + head + zheads
-            + 4 * (_I8_ROWS * nu + nu * (2 + L) + _I8_ROWS * (L + 1)))
+            + 4 * (_COOP_ROWS * nu + nu * (2 + L) + _COOP_ROWS * (L + 1)))
 
 
-def int8_residency(D: int, H: int, L: int, nu: int, P: int,
-                   use_x_prev: bool) -> tuple[bool, bool] | None:
+def coop_residency(D: int, H: int, L: int, nu: int, P: int, use_x_prev: bool,
+                   eb: int = 1) -> tuple[bool, bool] | None:
     """The residency rule: (x-row slices resident, head tiles resident), the
     first of both, the slices alone, neither whose block fits Hopper's
     shared memory; None where not even the streamed layout fits."""
     for res in ((True, True), (True, False), (False, False)):
-        if _int8_smem(D, H, L, nu, P, use_x_prev, *res) <= _SMEM_LIMIT:
+        if _coop_smem(D, H, L, nu, P, use_x_prev, *res, eb) <= _SMEM_LIMIT:
             return res
     return None
 
@@ -206,8 +238,11 @@ def _resolve_mode(cfg, mode):
     mode = mode or pick_mode(cfg)
     if mode not in _MODES:
         raise ValueError(f"unknown mode {mode!r} (f32, bf16 or int8)")
-    if mode == "int8" and not cfg.has_hidden:
-        raise ValueError("int8 weights need hidden layers (the JAX int8 kernel's)")
+    if mode != "f32" and not cfg.has_hidden:
+        # pick_mode never gives them: a config without hidden layers samples
+        # in f32, and the wide kernel takes f32 weights only
+        raise ValueError(f"{mode} weights need hidden layers (a config without them samples "
+                         "in f32)")
     return mode
 
 
@@ -229,24 +264,39 @@ def _pack_int8(params, cfg, ws) -> dict:
     return w
 
 
+def _col_tiles(w, ncols: int):
+    """A weight ``[K, N]`` (int8 codes, bf16 or f32) -> ``[NT, KC, 64]``
+    int32 words, NT = cdiv(ncols, 8) tiles of 8 columns, KC chunks of 32
+    bytes of k (32 codes, 16 bf16 or 8 f32): a tile's chunk holds its 8
+    columns one after the other, each column's k of the chunk in order (zero
+    rows past K, zero columns past N). Lane (g, t) of ``mma.sync`` then loads
+    bytes 8t .. 8t + 7 of column g: the B fragment (m16n8k32 s8, m16n8k16
+    bf16) of the k that its A fragment pairs with them."""
+    K, N = w.shape
+    per = 32 // w.element_size()
+    KC, NT = -(-K // per), -(-ncols // 8)
+    wp = w.new_zeros((KC * per, NT * 8))
+    wp[:K, :N] = w
+    tiles = wp.view(KC, per, NT, 8).permute(2, 0, 3, 1).contiguous()
+    return tiles.view(torch.int32).view(NT, KC, 64)
+
+
 def pack_units(q, nu: int):
-    """The int8 codes of a cell's x rows ``[K, H]`` -> ``[G, KC, NT, 64]``
-    int32 words, G = cdiv(H, nu) blocks, KC = cdiv(K, 32) chunks of k, NT =
-    nu / 8 n8 tiles: tile n of block g holds units g nu + 8n .. + 7 (zero
-    columns past H, zero rows past K), each chunk's 32 lanes the B fragments
-    of ``mma.sync.m16n8k32`` as :func:`cuda_generate._pack_head` lays them."""
+    """A cell's x rows ``[K, H]`` (int8 codes, bf16 or f32) -> ``[G, KC, NT,
+    64]`` int32 words, G = cdiv(H, nu) blocks, KC chunks of k, NT = nu / 8 n8
+    tiles: tile n of block g holds units g nu + 8n .. + 7 (zero columns past
+    H, zero rows past K), laid out as :func:`_col_tiles` lays them."""
     K, H = q.shape
     G = -(-H // nu)
-    qp = q.new_zeros((K, G * nu))
-    qp[:, :H] = q
-    return _pack_head(qp).view(G, nu // 8, -(-K // 32), 64).permute(0, 2, 1, 3).contiguous()
+    tiles = _col_tiles(q, G * nu)
+    return tiles.view(G, nu // 8, tiles.shape[1], 64).permute(0, 2, 1, 3).contiguous()
 
 
 def pack_head_tiles(q, G: int, P: int, hs: int):
-    """The frame head's int8 codes ``[H, D]`` -> ``[G, KC, P, 64]`` int32
-    words: slot j of block g is 8-pitch tile P (g // hs) + j (a zero tile
-    past the last), the B fragments as :func:`pack_units` lays them."""
-    tiles = _pack_head(q)  # [NTx, KC, 64]
+    """The frame head ``[H, D]`` (int8 codes, bf16 or f32) -> ``[G, KC, P,
+    64]`` int32 words: slot j of block g is 8-pitch tile P (g // hs) + j (a
+    zero tile past the last), laid out as :func:`_col_tiles` lays them."""
+    tiles = _col_tiles(q, q.shape[1])  # [NTx, KC, 64]
     ntx, KC = tiles.shape[:2]
     idx = (torch.arange(G, device=q.device) // hs)[:, None] * P + torch.arange(P, device=q.device)
     padded = torch.cat([tiles, tiles.new_zeros((1, KC, 64))])
@@ -254,11 +304,11 @@ def pack_head_tiles(q, G: int, P: int, hs: int):
     return sel.view(G, P, KC, 64).permute(0, 2, 1, 3).contiguous()
 
 
-def pack_int8(w: dict, cfg, nu: int, G: int, P: int, hs: int) -> dict:
-    """The int8 kernel's weights from :func:`_pack_int8`'s codes: each
-    block's units of the encoder's x rows (``wke``) and of the decoder's
-    x_prev rows (``wkd``, with ``use_x_prev``), and its pitch tiles of the
-    frame head (``wx``)."""
+def pack_coop(w: dict, cfg, nu: int, G: int, P: int, hs: int) -> dict:
+    """The cooperative kernel's weights from :func:`_pack_int8`'s codes or
+    :func:`_pack`'s bf16 / f32 values: each block's units of the encoder's x
+    rows (``wke``) and of the decoder's x_prev rows (``wkd``, with
+    ``use_x_prev``), and its pitch tiles of the frame head (``wx``)."""
     return {"wke": pack_units(w["wke"], nu),
             "wkd": pack_units(w["wkd_x"], nu) if cfg.use_x_prev else None,
             "wx": pack_head_tiles(w["wx"], G, P, hs)}
@@ -393,7 +443,7 @@ _lib = None
 def _kernels():
     """The built library, its entry points' ctypes signatures set and its
     shared-memory layouts checked against :func:`_smem_bytes`,
-    :func:`_wide_smem_bytes` and :func:`_int8_smem`."""
+    :func:`_wide_smem_bytes` and :func:`_coop_smem`."""
     global _lib
     with _lib_lock:
         if _lib is None:
@@ -415,21 +465,22 @@ def _kernels():
                     raise RuntimeError("shared-memory layout of the wide kernel in "
                                        "csrc/generate_cl_vae.cu differs from _wide_smem_bytes "
                                        f"at {shape}")
-            i8 = lib.cvl_generate_cl_vae_int8_smem_bytes
-            i8.argtypes, i8.restype = [I] * 8, LL
-            for shape in ((1024, 5120, 16, 40, 2, 0, 1, 1), (1024, 7808, 16, 64, 2, 1, 0, 0),
-                          (13, 262, 3, 8, 1, 0, 1, 0), (64, 320, 4, 8, 8, 1, 0, 1)):
-                if i8(*shape) != _int8_smem(*shape):
-                    raise RuntimeError("shared-memory layout of the int8 kernel in "
-                                       "csrc/generate_cl_vae.cu differs from _int8_smem at "
+            coop = lib.cvl_generate_cl_vae_coop_smem_bytes
+            coop.argtypes, coop.restype = [I] * 9, LL
+            for shape in ((1024, 5120, 16, 40, 2, 0, 1, 1, 1), (1024, 7808, 16, 64, 2, 1, 0, 0, 1),
+                          (13, 262, 3, 8, 1, 0, 1, 0, 2), (64, 320, 4, 8, 8, 1, 0, 1, 4),
+                          (1024, 5120, 16, 40, 2, 0, 1, 0, 2)):
+                if coop(*shape) != _coop_smem(*shape):
+                    raise RuntimeError("shared-memory layout of the cooperative kernel in "
+                                       "csrc/generate_cl_vae.cu differs from _coop_smem at "
                                        f"{shape}")
-            lib.cvl_generate_cl_vae_int8_state_words.argtypes = [I] * 4
-            lib.cvl_generate_cl_vae_int8_state_words.restype = LL
+            lib.cvl_generate_cl_vae_coop_state_words.argtypes = [I] * 5
+            lib.cvl_generate_cl_vae_coop_state_words.restype = LL
             lib.cvl_generate_cl_vae.argtypes = [I] + [P] * 13 + [I] * 8 + [P]
-            lib.cvl_generate_cl_vae_wide.argtypes = [I] + [P] * 16 + [I] * 11 + [P]
-            lib.cvl_generate_cl_vae_int8.argtypes = [P] * 18 + [I] * 13 + [P]
+            lib.cvl_generate_cl_vae_wide.argtypes = [P] * 16 + [I] * 11 + [P]
+            lib.cvl_generate_cl_vae_coop.argtypes = [I] + [P] * 18 + [I] * 13 + [P]
             lib.cvl_generate_cl_vae.restype = lib.cvl_generate_cl_vae_wide.restype = I
-            lib.cvl_generate_cl_vae_int8.restype = I
+            lib.cvl_generate_cl_vae_coop.restype = I
             _lib = lib
         return _lib
 
@@ -482,14 +533,15 @@ def generate_cl_vae_batch_cuda(params, cfg, x_seeds, nsteps: int, eps, u, ws,
     """Kernel counterpart of ``generate_cl_vae_batch_pallas`` (same signature).
 
     x_seeds [B, D]; eps [B, nsteps, L]; u [B, nsteps, D]; ws [B, K]; returns
-    [B, nsteps, D]. CUDA tensors launch a kernel on the current stream (or
-    raise: there is no fallback): in f32 and bf16 mode the shared-memory
-    kernel where it :func:`fits`, the wide kernel for every other width and
-    for configs without hidden layers; in int8 mode the int8 kernel. CPU
+    [B, nsteps, D]. CUDA tensors launch the kernel :func:`kernel_for` names
+    on the current stream (or raise: there is no fallback): in f32 and bf16
+    mode the shared-memory kernel where it :func:`fits`, the cooperative
+    kernel for every other config with hidden layers, the wide kernel for
+    configs without; in int8 mode the cooperative kernel on int8 codes. CPU
     tensors take :func:`generate_cl_vae_batch_plain`. ``mode`` is ``"f32"``,
     ``"bf16"`` or ``"int8"`` (default :func:`pick_mode`).
     """
-    global LAUNCHES, WIDE_LAUNCHES, INT8_LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES, COOP_LAUNCHES, INT8_LAUNCHES
     mode = _resolve_mode(cfg, mode)
     if x_seeds.device.type == "cpu":
         return generate_cl_vae_batch_plain(params, cfg, x_seeds, nsteps, eps, u, ws,
@@ -505,23 +557,27 @@ def generate_cl_vae_batch_cuda(params, cfg, x_seeds, nsteps: int, eps, u, ws,
     kernel = kernel_for(cfg, mode)
     wide = kernel == "generate_cl_vae_wide"
     flags = (int(cfg.use_x_prev), int(use_z_prior), int(return_probs))
-    if kernel == "generate_cl_vae_int8":
+    if kernel in ("generate_cl_vae_int8", "generate_cl_vae_coop"):
         with torch.cuda.device(dev):
-            err, out = _launch_int8(lib, params, cfg, x_seeds, nsteps, eps, u, ws, flags)
+            err, out = _launch_coop(lib, params, cfg, x_seeds, nsteps, eps, u, ws, flags, mode)
         if err != 0:
             raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
         with _launch_lock:
-            INT8_LAUNCHES += 1
+            if mode == "int8":
+                INT8_LAUNCHES += 1
+            else:
+                LAUNCHES += 1
+                COOP_LAUNCHES += 1
         return out
     with torch.cuda.device(dev):
         w = _pack(params, cfg, ws, mode)
         out = torch.empty((B, nsteps, D), dtype=torch.float32, device=dev)
         ptr = lambda t: None if t is None else t.data_ptr()
         stream = torch.cuda.current_stream(dev).cuda_stream
-        bf16, seeds = int(mode == "bf16"), (x_seeds.data_ptr(), eps.data_ptr(), u.data_ptr())
+        seeds = (x_seeds.data_ptr(), eps.data_ptr(), u.data_ptr())
         if not wide:
             err = lib.cvl_generate_cl_vae(
-                bf16, *seeds, ptr(w["wke"]), ptr(w["encb"]), ptr(w["wz_t"]), ptr(w["bz"]),
+                int(mode == "bf16"), *seeds, ptr(w["wke"]), ptr(w["encb"]), ptr(w["wz_t"]), ptr(w["bz"]),
                 ptr(w["wkd_x"]), ptr(w["wkd_z"]), ptr(w["decb"]), ptr(w["wx"]), ptr(w["bx"]),
                 out.data_ptr(), B, nsteps, D, H, L, *flags, stream)
         else:
@@ -535,7 +591,7 @@ def generate_cl_vae_batch_cuda(params, cfg, x_seeds, nsteps: int, eps, u, ws,
                                     dtype=torch.float32, device=dev)
             g = w.get
             err = lib.cvl_generate_cl_vae_wide(
-                bf16, *seeds, ptr(g("wke")), ptr(g("encb")), ptr(g("wkd_x")), ptr(g("wkd_z")),
+                *seeds, ptr(g("wke")), ptr(g("encb")), ptr(g("wkd_x")), ptr(g("wkd_z")),
                 ptr(g("decb")), ptr(w["wz_t"]), ptr(w["bz"] if hh else w["zb"]), ptr(g("wx")),
                 ptr(g("wx_z")), ptr(g("wx_xp")), ptr(w["bx"] if hh else w["xb"]),
                 out.data_ptr(), ptr(state), 0 if hh else 2 * L, 0 if hh else D, B, nsteps, D,
@@ -548,52 +604,62 @@ def generate_cl_vae_batch_cuda(params, cfg, x_seeds, nsteps: int, eps, u, ws,
     return out
 
 
-def int8_plan(cfg, B: int, n_sm: int) -> dict:
-    """The int8 kernel's layout for a launch of B <= 64 songs on ``n_sm``
-    SMs: the grid (nu, G), the frame head's split (hs, P) and the
-    residency; raises where no layout fits."""
+def coop_plan(cfg, B: int, n_sm: int, mode: str = "int8") -> dict:
+    """The cooperative kernel's layout for a launch of B <= 64 songs on
+    ``n_sm`` SMs in ``mode``: the grid (nu, G), the frame head's split (hs,
+    P) and the residency; raises where no layout fits."""
     D, H, L = cfg.original_dim, cfg.intermediate_dim, cfg.latent_dim
-    nu, G = int8_grid(H, n_sm)
+    nu, G = coop_grid(H, n_sm)
     hs, P = head_split(D, G, B)
-    res = int8_residency(D, H, L, nu, P, cfg.use_x_prev)
-    if G > _I8_MAX_BLOCKS:
-        raise ValueError(f"the int8 kernel takes at most {_I8_MAX_BLOCKS} blocks, not {G}")
+    res = coop_residency(D, H, L, nu, P, cfg.use_x_prev, _EBYTES[mode])
+    if G > _COOP_MAX_BLOCKS:
+        raise ValueError(f"the cooperative kernel takes at most {_COOP_MAX_BLOCKS} blocks, not {G}")
     if res is None:
-        raise ValueError(f"the int8 kernel does not take D={D}, H={H}, L={L}: one block's "
-                         f"layout needs more than {_SMEM_LIMIT} B of shared memory")
+        raise ValueError(f"the cooperative kernel does not take D={D}, H={H}, L={L} in {mode}: "
+                         f"one block's layout needs more than {_SMEM_LIMIT} B of shared memory")
     return {"nu": nu, "G": G, "hs": hs, "P": P, "res": res}
 
 
-def _launch_int8(lib, params, cfg, x_seeds, nsteps, eps, u, ws, flags, clock=None):
-    """Quantize and pack the int8 operands, then one cooperative launch of
-    the int8 kernel per 64 songs, each with its zeroed global state
-    (``clock``, an int64 per :data:`PHASE_PARTS` or None: the clock of
-    :func:`phase_ms`). Returns (the first nonzero CUDA error, output)."""
+def _coop_operands(params, cfg, ws, mode: str) -> dict:
+    """The cooperative kernel's operands before the per-block packing: int8
+    codes and scales (:func:`_pack_int8`), or :func:`_pack`'s bf16 / f32
+    values."""
+    return _pack_int8(params, cfg, ws) if mode == "int8" else _pack(params, cfg, ws, mode)
+
+
+def _launch_coop(lib, params, cfg, x_seeds, nsteps, eps, u, ws, flags, mode, clock=None):
+    """Form and pack the mode's operands, then one cooperative launch per 64
+    songs, each with its zeroed global state (``clock``, an int64 per
+    :data:`PHASE_PARTS` or None: the clock of :func:`phase_ms`). Returns
+    (the first nonzero CUDA error, output)."""
     B, D = x_seeds.shape
     H, L = cfg.intermediate_dim, cfg.latent_dim
-    dev = x_seeds.device
+    dev, eb = x_seeds.device, _EBYTES[mode]
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    w = _pack_int8(params, cfg, ws)
+    w = _coop_operands(params, cfg, ws, mode)
     out = torch.empty((B, nsteps, D), dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     packed = {}  # per head split; held by name until the launches are queued
-    for b0 in range(0, B, _I8_ROWS):
-        b = slice(b0, min(B, b0 + _I8_ROWS))
+    # every launch's plan before the first launch: a layout that does not
+    # fit raises with nothing queued
+    plans = [coop_plan(cfg, min(B - b0, _COOP_ROWS), n_sm, mode)
+             for b0 in range(0, B, _COOP_ROWS)]
+    for b0, plan in zip(range(0, B, _COOP_ROWS), plans):
+        b = slice(b0, min(B, b0 + _COOP_ROWS))
         nb = b.stop - b0
-        plan = int8_plan(cfg, nb, n_sm)
         key = (plan["hs"], plan["P"])
         if key not in packed:
-            packed[key] = pack_int8(w, cfg, plan["nu"], plan["G"], plan["P"], plan["hs"])
+            packed[key] = pack_coop(w, cfg, plan["nu"], plan["G"], plan["P"], plan["hs"])
         q = packed[key]
-        state = torch.zeros(lib.cvl_generate_cl_vae_int8_state_words(D, H, L, plan["nu"]),
+        state = torch.zeros(lib.cvl_generate_cl_vae_coop_state_words(D, H, L, plan["nu"], eb),
                             dtype=torch.int32, device=dev)
         # the launch's songs: leading rows, contiguous views
         seeds_b, eps_b, u_b, encb_b, decb_b, out_b = (
             t[b] for t in (x_seeds, eps, u, w["encb"], w["decb"], out))
-        err = lib.cvl_generate_cl_vae_int8(
-            ptr(seeds_b), ptr(eps_b), ptr(u_b), ptr(q["wke"]), ptr(q["wkd"]), ptr(q["wx"]),
-            ptr(w["ske"]), ptr(w.get("skd")), ptr(encb_b), ptr(decb_b), ptr(w["wz_t"]),
-            ptr(w["bz"]), ptr(w["wkd_z"]), ptr(w["swx"]), ptr(w["bx"]), ptr(out_b),
+        err = lib.cvl_generate_cl_vae_coop(
+            eb, ptr(seeds_b), ptr(eps_b), ptr(u_b), ptr(q["wke"]), ptr(q["wkd"]), ptr(q["wx"]),
+            ptr(w.get("ske")), ptr(w.get("skd")), ptr(encb_b), ptr(decb_b), ptr(w["wz_t"]),
+            ptr(w["bz"]), ptr(w["wkd_z"]), ptr(w.get("swx")), ptr(w["bx"]), ptr(out_b),
             ptr(state), ptr(clock), nb, nsteps, D, H, L, *flags, plan["nu"], plan["P"],
             plan["hs"], *(int(r) for r in plan["res"]),
             torch.cuda.current_stream(dev).cuda_stream)
@@ -602,32 +668,41 @@ def _launch_int8(lib, params, cfg, x_seeds, nsteps, eps, u, ws, flags, clock=Non
     return 0, out
 
 
-# the parts of a step of the int8 kernel, in the order of its clock (each
-# phase's work, then its wait at the grid barrier after it)
+# the parts of a step of the cooperative kernel, in the order of its clock
+# (each phase's work, then its wait at the grid barrier after it; rs and the
+# codes are int8's alone)
 PHASE_PARTS = ("encoder products", "encoder epilogue and z-head sums", "encoder wait", "z",
                "z wait", "decoder and maxima", "decoder wait", "rs and codes", "codes wait",
                "frame head products", "frame head epilogue", "frame wait")
 
 
-def phase_ms(params, cfg, x_seeds, nsteps: int, eps, u, ws, use_z_prior: bool = False) -> dict:
-    """One launch of the int8 kernel (counted, as the wrapper counts it) on
-    at most 64 songs on CUDA tensors, timed part by part on the card by
-    block 0 (``%globaltimer``): ms of each of :data:`PHASE_PARTS` summed over
-    the steps (a wait is the slowest block's lag and the grid barrier
-    itself; under ``use_z_prior`` the first five are 0)."""
-    global INT8_LAUNCHES
-    _resolve_mode(cfg, "int8")
-    _check(params, cfg, x_seeds, nsteps, eps, u, ws, "int8")
-    if x_seeds.shape[0] > _I8_ROWS:
-        raise ValueError(f"one launch takes at most {_I8_ROWS} songs, got {x_seeds.shape[0]}")
+def phase_ms(params, cfg, x_seeds, nsteps: int, eps, u, ws, use_z_prior: bool = False,
+             mode: str = "int8") -> dict:
+    """One launch of the cooperative kernel in ``mode`` (counted, as the
+    wrapper counts it) on at most 64 songs on CUDA tensors, timed part by
+    part on the card by block 0 (``%globaltimer``): ms of each of
+    :data:`PHASE_PARTS` summed over the steps (a wait is the slowest block's
+    lag and the grid barrier itself; under ``use_z_prior`` the first five
+    are 0, and outside int8 rs and the codes)."""
+    global LAUNCHES, COOP_LAUNCHES, INT8_LAUNCHES
+    _resolve_mode(cfg, mode)
+    _check(params, cfg, x_seeds, nsteps, eps, u, ws, mode)
+    if x_seeds.shape[0] > _COOP_ROWS:
+        raise ValueError(f"one launch takes at most {_COOP_ROWS} songs, got {x_seeds.shape[0]}")
+    if not cfg.has_hidden:
+        raise ValueError("the cooperative kernel needs hidden layers")
     dev = x_seeds.device
     lib = _kernels()
     with torch.cuda.device(dev):
         clock = torch.zeros(len(PHASE_PARTS), dtype=torch.int64, device=dev)
-        err, _ = _launch_int8(lib, params, cfg, x_seeds, nsteps, eps, u, ws,
-                              (int(cfg.use_x_prev), int(use_z_prior), 0), clock)
+        err, _ = _launch_coop(lib, params, cfg, x_seeds, nsteps, eps, u, ws,
+                              (int(cfg.use_x_prev), int(use_z_prior), 0), mode, clock)
     if err != 0:
-        raise RuntimeError(f"generate_cl_vae_int8 kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"generate_cl_vae_coop kernel launch failed in {mode}: CUDA error {err}")
     with _launch_lock:
-        INT8_LAUNCHES += 1
+        if mode == "int8":
+            INT8_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
+            COOP_LAUNCHES += 1
     return dict(zip(PHASE_PARTS, (ns / 1e6 for ns in clock.cpu().tolist())))

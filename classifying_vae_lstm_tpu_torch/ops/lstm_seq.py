@@ -8,7 +8,10 @@ the drk ceiling, runs three kernels:
 
 * the inference forward (``_forward_kernel_call_fp``, ``csrc/lstm_seq.cu``):
   x ``[T, B, IN]``, W, b, Rk, h0, c0 -> h, c ``[T, B, H]``, the projection
-  ``x @ W + b`` computed in the kernel;
+  ``x @ W + b`` computed in the kernel, one launch for all T steps whose
+  blocks each own a slice of the hidden units for a group of rows
+  (:func:`fwd_plan`), that slice of ``[W ; Rk]`` resident in shared memory
+  where it fits;
 * the training forward (``_forward_train_call_fp``, ``csrc/lstm_seq.cu``):
   the same, plus the backward's residuals z ``[T, B, 4H]``, h_prev and
   c_prev;
@@ -82,9 +85,9 @@ autograd of that product rounds dW and dx to bf16, as JAX's does.
 :func:`lstm_sequence_kernel` is the entry, with ``lstm_sequence_pallas``'s
 signature and results. Layouts are time-major inside, kernels ``[in, out]``,
 and no lane or batch padding (so no padded rows for the drk sum to mask):
-the TPU's VMEM gates and block picks are not read here; in f32 the card's
-shared memory limits the forwards, checked per call; the backward and the
-walks keep their state in global memory and the bf16 route has no limit.
+the TPU's VMEM gates and block picks are not read here; the f32 forwards
+stream what does not fit shared memory, the backward and the walks keep
+their state in global memory, and the bf16 route has no limit.
 """
 
 from __future__ import annotations
@@ -124,19 +127,64 @@ BF16_DRK_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
 _SMEM_LIMIT = 232448      # dynamic shared memory one Hopper block can use
+# the f32 forward (csrc/lstm_seq.cu): 8 warps a block, 32-k chunks through a
+# ring of _FWD_STAGES[rt] stages (operand rows padded by 4 floats), and a
+# block owns at most 64 units
+_FWD_WARPS, _FWD_KC, _FWD_MAX_NU = 8, 32, 64
+_FWD_STAGES = {1: 8, 2: 5, 4: 3}
 
 
-def fwd_smem_bytes(IN: int, H: int, rows: int) -> int:
-    """Shared memory of one forward block: the step's x, h (two buffers) and
-    c for each row of the tile."""
-    return (IN + 3 * H) * rows * 4
+def _round_kc(n: int) -> int:
+    return -(-n // _FWD_KC) * _FWD_KC
 
 
-def fwd_rows(B: int, IN: int, H: int, n_sm: int) -> int:
-    """The f32 forward's row tile: 16 rows when the batch gives every SM a
-    16-row block and the tile fits shared memory (each weight load then
-    serves 16 rows), else 4."""
-    return 16 if B >= 16 * n_sm and fwd_smem_bytes(IN, H, 16) <= _SMEM_LIMIT else 4
+def fwd_tile_rows(nu: int, rt: int) -> int:
+    """Rows of the f32 forward's tile: a warp owns 4 unit pairs x 8 rt rows,
+    the block's warps cover its nu / 2 pairs first, then rows."""
+    return 8 * rt * (_FWD_WARPS // -(-(nu // 2) // 4))
+
+
+def fwd_smem_bytes(nu: int, rt: int, kx: int, kh: int, resident: bool) -> int:
+    """Shared memory of one f32 forward block (``fwd_smem_bytes``): the
+    resident slice ``[kx + kh][4 nu]`` and the ring, each stage a tile's
+    operand chunk ``[rows][36]`` and, streamed, the slice's chunk
+    ``[32][4 nu]``."""
+    stage = fwd_tile_rows(nu, rt) * (_FWD_KC + 4) + (0 if resident else _FWD_KC * 4 * nu)
+    return 4 * ((kx + kh) * 4 * nu * int(resident) + _FWD_STAGES[rt] * stage)
+
+
+def fwd_plan(B: int, IN: int, H: int, n_sm: int) -> dict:
+    """The f32 forward's layout on a card of ``n_sm`` SMs (IN = 0: the xz
+    mode). Each block owns nu units (even; 2 cdiv(H, 16), so that 8 blocks
+    cover H, at most 64) for every row of its group; a group is NB =
+    cdiv(H, nu) blocks, and the groups split the rows: n_sm // NB of them,
+    one block an SM, all in one cooperative launch, each walking its rows in
+    tiles of :func:`fwd_tile_rows` rows, rt = 1, 2 or 4 rows a thread as the
+    group's rows need. The slice of ``[W ; Rk]`` (kx = IN, kh = H, each
+    padded to 32 rows) is resident in shared memory where it fits, with the
+    largest of those rt that lets it, else streamed with the smallest rt
+    from the rows' whose ring fits (a larger tile has fewer stages). Raises
+    where H needs more blocks than the card holds."""
+    nu = min(2 * -(-H // 16), _FWD_MAX_NU)
+    NB = -(-H // nu)
+    if NB > n_sm:
+        raise ValueError(f"hidden {H} needs {NB} blocks a group, more than the card's {n_sm} SMs")
+    rpg = -(-B // (n_sm // NB))  # rows a group
+    base = fwd_tile_rows(nu, 1)
+    want = next((rt for rt in (1, 2) if rpg <= rt * base), 4)
+    kx, kh = _round_kc(IN) if IN else 0, _round_kc(H)
+    fit = [rt for rt in (4, 2, 1)
+           if rt <= want and fwd_smem_bytes(nu, rt, kx, kh, True) <= _SMEM_LIMIT]
+    streamed = [rt for rt in (1, 2, 4)
+                if rt >= want and fwd_smem_bytes(nu, rt, kx, kh, False) <= _SMEM_LIMIT]
+    rt, resident = (fit[0], True) if fit else (streamed[0] if streamed else 4, False)
+    return {"nu": nu, "NB": NB, "rpg": rpg, "groups": -(-B // rpg), "kx": kx, "kh": kh,
+            "resident": resident, "rt": rt}
+
+
+def card_plan(B: int, IN: int, H: int, dev) -> dict:
+    """:func:`fwd_plan` on the SMs of the card ``dev``."""
+    return fwd_plan(B, IN, H, torch.cuda.get_device_properties(dev).multi_processor_count)
 
 
 # ------------------------------------------------------------ plain versions
@@ -348,17 +396,16 @@ def _kernels():
         if _lib is None:
             lib = _build.load("lstm_seq")
             P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.cvl_lstm_seq_fwd_smem_bytes.argtypes = [I] * 3
+            lib.cvl_lstm_seq_fwd_smem_bytes.argtypes = [I] * 5
             lib.cvl_lstm_seq_fwd_smem_bytes.restype = LL
-            if any(lib.cvl_lstm_seq_fwd_smem_bytes(i, 256, r) != fwd_smem_bytes(i, 256, r)
-                   for r in (4, 16) for i in (0, 109)):
+            if any(lib.cvl_lstm_seq_fwd_smem_bytes(nu, rt, kx, 256, r)
+                   != fwd_smem_bytes(nu, rt, kx, 256, bool(r))
+                   for nu in (12, 32, 64) for rt in (1, 2, 4) for kx in (0, 128)
+                   for r in (0, 1)):
                 raise RuntimeError("shared-memory layout of csrc/lstm_seq.cu differs from "
                                    "fwd_smem_bytes")
-            argtypes = {"fwd": [P] * 11 + [I] * 6, "xz_fwd": [P] * 7 + [I] * 5}
-            for name, types in argtypes.items():
-                fn = getattr(lib, f"cvl_lstm_seq_{name}")
-                fn.argtypes = types + [P]  # the stream last
-                fn.restype = I
+            lib.cvl_lstm_seq_fwd.argtypes = [P] * 13 + [I] * 13 + [P]  # the stream last
+            lib.cvl_lstm_seq_fwd.restype = I
             _lib = lib
         return _lib
 
@@ -417,6 +464,36 @@ def _raise_if(err: int, what: str):
         raise RuntimeError(f"lstm_seq {what} kernel launch failed: CUDA error {err}")
 
 
+def _f32_fwd(x, xz, w, b, rk, h0, c0, train: bool, what: str):
+    """One launch of the f32 forward (``lstm_fwd_kernel``) on x ``[T, B,
+    IN]`` with W and b, or (x None) on xz ``[T, B, 4H]``; every weight read
+    as stored: the plan, the outputs (h, c and, training, z and outside the
+    xz mode h_prev and c_prev), which it returns; raises if the launch
+    fails."""
+    src = x if x is not None else xz
+    T, B, _ = src.shape
+    H, dev = rk.shape[0], src.device
+    IN = 0 if x is None else x.shape[-1]
+    new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+    outs = (new(T, B, H), new(T, B, H))
+    if train:
+        outs += (new(T, B, 4 * H),) + ((new(T, B, H), new(T, B, H)) if x is not None else ())
+    z, hp, cp = (list(outs[2:]) + [None] * 3)[:3]
+    plan = card_plan(B, IN, H, dev)
+    if fwd_smem_bytes(plan["nu"], plan["rt"], plan["kx"], plan["kh"], False) > _SMEM_LIMIT:
+        raise ValueError(f"the LSTM forward kernel does not take IN={IN}, H={H}")
+    # the groups' barrier counters, held by name until the launch is queued
+    bar = torch.zeros(plan["groups"], dtype=torch.int32, device=dev)
+    err = _kernels().cvl_lstm_seq_fwd(
+        _ptr(x), _ptr(xz), _ptr(w), _ptr(b), rk.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+        outs[0].data_ptr(), outs[1].data_ptr(), _ptr(z), _ptr(hp), _ptr(cp), _ptr(bar), T, B,
+        IN, H, plan["nu"], plan["NB"], plan["rpg"], plan["groups"], plan["kx"], plan["kh"],
+        int(plan["resident"]), plan["rt"], int(train),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_if(err, what)
+    return outs
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -469,22 +546,9 @@ def _launch_fwd(x, w, b, rk, h0, c0, train: bool):
             outs = _tc_steps(lib, xz, rk, h0, c0, train, proj=True)
         _count("train_fwd" if train else "fwd", 1, bf16)
         return outs
-    rows = fwd_rows(B, IN, H, torch.cuda.get_device_properties(dev).multi_processor_count)
-    if fwd_smem_bytes(IN, H, rows) > _SMEM_LIMIT:
-        raise ValueError(f"input width {IN} + hidden {H} is too wide for the LSTM forward "
-                         f"kernel's shared memory ({fwd_smem_bytes(IN, H, rows)} > "
-                         f"{_SMEM_LIMIT} bytes)")
-    lib = _kernels()
     with torch.cuda.device(dev):
-        new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
-        outs = (new(T, B, H), new(T, B, H))
-        if train:
-            outs += (new(T, B, H4), new(T, B, H), new(T, B, H))
-        # the inference forward passes null for z, h_prev and c_prev
-        ptrs = [t.data_ptr() for t in (x, w, b, rk, h0, c0, *outs)] + [None] * (5 - len(outs))
-        err = lib.cvl_lstm_seq_fwd(*ptrs, T, B, IN, H, rows, int(train),
-                                   torch.cuda.current_stream(dev).cuda_stream)
-    _raise_if(err, "training forward" if train else "forward")
+        outs = _f32_fwd(x, None, w, b, rk, h0, c0, train,
+                        "training forward" if train else "forward")
     _count("train_fwd" if train else "fwd", 1, bf16)
     return outs
 
@@ -492,7 +556,7 @@ def _launch_fwd(x, w, b, rk, h0, c0, train: bool):
 def lstm_seq_fwd(x, w, b, rk, h0, c0):
     """The inference forward (signature and results of
     :func:`lstm_seq_fwd_plain`). CUDA tensors launch, in f32,
-    ``lstm_seq_fwd_kernel`` on the current stream, and where x is bf16 the
+    ``lstm_fwd_kernel`` on the current stream, and where x is bf16 the
     tensor-core route of ``csrc/lstm_seq_tc.cu`` (one projection launch,
     then one launch per time step: T+1 device launches, counted as one
     call), or raise; CPU tensors take the plain version."""
@@ -504,7 +568,7 @@ def lstm_seq_fwd(x, w, b, rk, h0, c0):
 def lstm_seq_train_fwd(x, w, b, rk, h0, c0):
     """The training forward (signature and results of
     :func:`lstm_seq_train_fwd_plain`). CUDA tensors launch
-    ``lstm_seq_fwd_kernel`` with its training outputs, or in bf16 the
+    ``lstm_fwd_kernel`` with its training outputs, or in bf16 the
     tensor-core route (T+1 device launches), or raise; CPU tensors take the
     plain version."""
     if _device_of(x).type == "cpu":
@@ -600,21 +664,9 @@ def _launch_xz_fwd(xz, rk, h0, c0, train: bool):
             outs = _tc_steps(_tc_kernels(), xz, rk, h0, c0, train, proj=False)
         _count("xz_train_fwd" if train else "xz_fwd", 1, bf16)
         return outs
-    rows = fwd_rows(B, 0, H, torch.cuda.get_device_properties(dev).multi_processor_count)
-    if fwd_smem_bytes(0, H, rows) > _SMEM_LIMIT:
-        raise ValueError(f"hidden {H} is too wide for the LSTM forward kernel's shared memory "
-                         f"({fwd_smem_bytes(0, H, rows)} > {_SMEM_LIMIT} bytes)")
-    lib = _kernels()
     with torch.cuda.device(dev):
-        new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
-        outs = (new(T, B, H), new(T, B, H))
-        if train:
-            outs += (new(T, B, 4 * H),)
-        # the inference forward passes null for z
-        ptrs = [t.data_ptr() for t in (xz, rk, h0, c0, *outs)] + [None] * (3 - len(outs))
-        err = lib.cvl_lstm_seq_xz_fwd(*ptrs, T, B, H, rows, int(train),
-                                      torch.cuda.current_stream(dev).cuda_stream)
-    _raise_if(err, f"unfused {'training forward' if train else 'forward'}")
+        outs = _f32_fwd(None, xz, None, None, rk, h0, c0, train,
+                        f"unfused {'training forward' if train else 'forward'}")
     _count("xz_train_fwd" if train else "xz_fwd", 1, bf16)
     return outs
 
@@ -622,7 +674,7 @@ def _launch_xz_fwd(xz, rk, h0, c0, train: bool):
 def lstm_seq_xz_fwd(xz, rk, h0, c0):
     """The unfused inference forward (signature and results of
     :func:`lstm_seq_xz_fwd_plain`). CUDA tensors launch
-    ``lstm_seq_fwd_kernel`` in its xz mode, or where xz is bf16 the
+    ``lstm_fwd_kernel`` in its xz mode, or where xz is bf16 the
     tensor-core steps of ``csrc/lstm_seq_tc.cu`` (T device launches, counted
     as one call), or raise; CPU tensors take the plain version."""
     if _device_of(xz).type == "cpu":
@@ -633,7 +685,7 @@ def lstm_seq_xz_fwd(xz, rk, h0, c0):
 def lstm_seq_xz_train_fwd(xz, rk, h0, c0):
     """The unfused training forward (signature and results of
     :func:`lstm_seq_xz_train_fwd_plain`). CUDA tensors launch
-    ``lstm_seq_fwd_kernel`` in its xz mode with z as output, or in bf16 the
+    ``lstm_fwd_kernel`` in its xz mode with z as output, or in bf16 the
     tensor-core steps (T device launches), or raise; CPU tensors take the
     plain version."""
     if _device_of(xz).type == "cpu":

@@ -574,6 +574,62 @@ def test_lstm_bwd_f32_matches_plain_bitwise_repeatable(dev, B, T, H, IN):
 
 
 
+# the f32 forward (csrc/lstm_seq.cu lstm_fwd_kernel) at the port's shapes
+# and past them: (B, T, H, IN, the plan it must take: groups of at most 8
+# blocks, resident slice, rows a thread)
+F32_FWD_CASES = {
+    "training_shape": (200, 16, 256, 105, (True, True, 1)),
+    "evaluation_shape": (12800, 16, 256, 106, (True, True, 4)),
+    "ragged_hidden": (600, 3, 37, 5, (True, True, 1)),
+    "four_rows_a_thread": (2000, 3, 256, 105, (True, True, 4)),
+    "two_rows_a_thread": (400, 3, 256, 105, (True, True, 2)),
+    "narrow_ragged_units": (1700, 4, 88, 101, (True, True, 4)),
+    "streamed_slice": (300, 3, 512, 103, (True, False, 4)),
+    "grid_group": (200, 3, 1024, 13, (False, False, 4)),
+    "one_row": (1, 2, 8, 3, (True, True, 1)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(F32_FWD_CASES))
+def test_lstm_f32_forward_layouts_match_plain_bitwise_repeatable(dev, case):
+    """Every mode of the f32 forward (inference, training, and on xz = x @ W
+    + b the unfused inference and training forwards) in the layout each
+    shape takes (asserted): outputs within 1e-5 of the plain versions (c and
+    z within 1e-5 x max(1, max|plain|), ``chip_smoke.py``'s FWD_LIMIT), one
+    launch counted a call, and a second call bitwise equal (every sum in a
+    fixed order, no atomics)."""
+    B, T, H, IN, layout = F32_FWD_CASES[case]
+    x, w, b, rk, h0, c0 = _lstm_seq_inputs(dev, B=B, T=T, H=H, IN=IN, seed=6)
+    rk = rk * (256 / H) ** 0.5  # keep the pre-activations O(1) at every width
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    p = ls.card_plan(B, IN, H, dev)
+    assert (p["NB"] <= 8, p["resident"], p["rt"]) == layout, p
+    assert p == ls.fwd_plan(B, IN, H, n_sm) and p["groups"] * p["NB"] <= n_sm, p
+    if case in ("training_shape", "evaluation_shape"):  # a group on every 8 SMs
+        assert p["groups"] == n_sm // 8, p
+    xz = (x.reshape(T * B, IN) @ w + b).reshape(T, B, 4 * H)
+    calls = {
+        "FWD": (lambda: ls.lstm_seq_fwd(x, w, b, rk, h0, c0),
+                lambda: ls.lstm_seq_train_fwd_plain(x, w, b, rk, h0, c0)[:2]),
+        "TRAIN_FWD": (lambda: ls.lstm_seq_train_fwd(x, w, b, rk, h0, c0),
+                      lambda: ls.lstm_seq_train_fwd_plain(x, w, b, rk, h0, c0)),
+        "XZ_FWD": (lambda: ls.lstm_seq_xz_fwd(xz, rk, h0, c0),
+                   lambda: ls.lstm_seq_xz_fwd_plain(xz, rk, h0, c0)),
+        "XZ_TRAIN_FWD": (lambda: ls.lstm_seq_xz_train_fwd(xz, rk, h0, c0),
+                         lambda: ls.lstm_seq_xz_train_fwd_plain(xz, rk, h0, c0)),
+    }
+    for count, (kern, plain) in calls.items():
+        before = getattr(ls, f"{count}_LAUNCHES")
+        got, again = kern(), kern()
+        torch.cuda.synchronize()
+        assert getattr(ls, f"{count}_LAUNCHES") == before + 2, count
+        want = plain()
+        for name, g, a, r in zip(("h", "c", "z", "h_prev", "c_prev"), got, again, want):
+            scale = 1.0 if name in ("h", "h_prev") else max(1.0, r.abs().max().item())
+            torch.testing.assert_close(g, r, rtol=0, atol=1e-5 * scale, msg=f"{count} {name}")
+            assert torch.equal(g, a), f"{count} {name}: a second call differs"
+
+
 # ---- the bf16 stream mode of the whole-sequence LSTM kernels
 #
 # Both sides round the same values at the same places and sum in f32 in
@@ -1051,9 +1107,9 @@ def test_vae_int8_kernel_matches_plain(dev, case, zp):
     params, cfg, (seeds, nsteps, eps, u, ws) = _vae_problem(dev, bf16=True,
                                                             **VAE_INT8_CASES[case])
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = cgv.int8_plan(cfg, min(seeds.shape[0], 64), n_sm)
+    plan = cgv.coop_plan(cfg, min(seeds.shape[0], 64), n_sm)
     if case in ("many_units_a_block", "streamed_many_units"):
-        assert plan["nu"] > 8 * cgv._I8_MAX_NT
+        assert plan["nu"] > 8 * cgv._COOP_MAX_NT
     if case in ("song_groups", "streamed_head_song_groups", "streamed_all_song_groups"):
         assert plan["hs"] == 2 and plan["P"] > 1
     assert plan["res"] == VAE_INT8_LAYOUTS.get(case, (True, True)), plan
@@ -1072,6 +1128,68 @@ def test_vae_int8_kernel_matches_plain(dev, case, zp):
     assert 0 < fk.mean().item() < 1
     frames_mostly_equal(fk, fp)
     # every sum in a fixed order or exact: a second call gives the same bits
+    assert torch.equal(fk, run(cgv.generate_cl_vae_batch_cuda, u, False))
+
+
+# the cooperative kernel in f32 and bf16 (generate_vae_coop_kernel): each
+# layout (the residency of the x-row slices and of the head's tiles, asserted
+# on an H100's grid), one and two song groups (B > 16), several launches
+# (B > 64), more units a block than one product pass takes
+VAE_COOP_CASES = {
+    "f32_h512": dict(B=5, nsteps=12, H=512, D=88, L=4, K=13, seed=20),
+    "f32_two_launches": dict(B=70, nsteps=6, H=512, D=88, L=4, K=13, seed=21),
+    "bf16_h512_song_groups": dict(B=40, nsteps=8, H=512, D=88, L=4, K=13, seed=22, bf16=True),
+    "bf16_seq_concat": dict(B=3, nsteps=8, H=1024, D=1024, L=16, K=13, use_x_prev=False,
+                            seed=23, bf16=True),
+    "bf16_h5120_streamed_head": dict(B=20, nsteps=6, H=5120, D=1024, L=16, K=13,
+                                     use_x_prev=False, seed=24, bf16=True),
+    "bf16_h5120_streamed_all": dict(B=20, nsteps=6, H=5120, D=1024, L=16, K=13, seed=25,
+                                    bf16=True),
+    "f32_h5120_streamed_all": dict(B=3, nsteps=4, H=5120, D=1024, L=16, K=13, seed=26),
+    "bf16_many_units": dict(B=3, nsteps=4, H=13000, D=12, seed=27, bf16=True),
+}
+VAE_COOP_LAYOUTS = {"bf16_h5120_streamed_head": (True, False), "bf16_many_units": (True, False),
+                    "bf16_h5120_streamed_all": (False, False),
+                    "f32_h5120_streamed_all": (False, False)}
+
+
+@pytest.mark.parametrize("case", sorted(VAE_COOP_CASES))
+@pytest.mark.parametrize("zp", [False, True])
+def test_vae_coop_kernel_matches_plain(dev, case, zp):
+    """Probabilities with u = 1 within 1e-5 of the plain version in f32 and
+    within max 2e-2 / mean 2e-3 in bf16 (``chip_smoke.py`` phase 17's
+    bounds), frames equal in >= 99.9% of entries (the z heads sum in another
+    order: a near-tie may flip a frame, which then persists), a second call
+    bitwise equal, and the launches counted as the cooperative kernel's."""
+    kw = VAE_COOP_CASES[case]
+    params, cfg, (seeds, nsteps, eps, u, ws) = _vae_problem(dev, **kw)
+    mode = "bf16" if kw.get("bf16") else "f32"
+    assert cgv.pick_mode(cfg) == mode and cgv.kernel_for(cfg) == "generate_cl_vae_coop"
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = cgv.coop_plan(cfg, min(seeds.shape[0], 64), n_sm, mode)
+    assert plan["res"] == VAE_COOP_LAYOUTS.get(case, (True, True)), plan
+    assert (plan["hs"] == 2) == (seeds.shape[0] > 16)
+    if case == "bf16_many_units":
+        assert plan["nu"] > 8 * cgv._COOP_MAX_NT
+    u1 = torch.ones_like(u)
+    before = (cgv.COOP_LAUNCHES, cgv.LAUNCHES, cgv.WIDE_LAUNCHES)
+    run = lambda f, uu, rp: f(params, cfg, seeds, nsteps, eps, uu, ws, use_z_prior=zp,
+                              return_probs=rp)
+    pk, fk = run(cgv.generate_cl_vae_batch_cuda, u1, True), run(cgv.generate_cl_vae_batch_cuda,
+                                                                 u, False)
+    torch.cuda.synchronize()
+    assert (cgv.COOP_LAUNCHES, cgv.LAUNCHES, cgv.WIDE_LAUNCHES) == (
+        before[0] + 2, before[1] + 2, before[2])
+    pp, fp = run(cgv.generate_cl_vae_batch_plain, u1, True), run(cgv.generate_cl_vae_batch_plain,
+                                                                  u, False)
+    assert pk.shape == fk.shape == (seeds.shape[0], nsteps, cfg.original_dim)
+    d = (pk - pp).abs()
+    if mode == "f32":
+        assert d.max().item() <= 1e-5, d.max().item()
+    else:
+        assert d.max().item() <= 2e-2 and d.mean().item() <= 2e-3, (d.max(), d.mean())
+    assert 0 < fk.mean().item() < 1
+    frames_mostly_equal(fk, fp)
     assert torch.equal(fk, run(cgv.generate_cl_vae_batch_cuda, u, False))
 
 
@@ -1104,16 +1222,19 @@ def test_vae_wrapper_raises_instead_of_falling_back(dev):
     assert cgv.LAUNCHES == before
 
 
-# ---- the wide cl_vae generation kernel (generate_wide_kernel)
+# ---- the wide cl_vae generation kernel (generate_wide_kernel, f32)
 #
-# The same tolerances: f32 frames equal and probabilities within 1e-5; bf16
-# probabilities within 2e-3 of the plain bf16 version.
+# The same tolerances: frames equal and probabilities within 1e-5. The
+# cases are configs kernel_for sends to it: f32 below H=512 that the
+# shared-memory kernel refuses, and configs without hidden layers.
 
 WIDE_CASES = {
     "h256": dict(B=5, nsteps=12, H=256, D=88, L=4, K=13, seed=4),
     "no_hidden": dict(B=5, nsteps=12, H=0, D=88, L=4, K=13, seed=5),
     "no_hidden_no_x_prev": dict(B=3, nsteps=10, H=0, use_x_prev=False, seed=6),
-    "h1100_k_split": dict(B=3, nsteps=6, H=1100, D=40, L=20, K=5, seed=7),
+    # the frame head wider than the block's threads (up to 3 whole columns
+    # a thread), the hidden layers split in K over 2 groups
+    "d1100_h200": dict(B=3, nsteps=6, H=200, D=1100, L=20, K=5, seed=7),
 }
 
 
@@ -1142,19 +1263,6 @@ def test_vae_wide_kernel_matches_plain_f32(dev, case, zp, monkeypatch):
     torch.testing.assert_close(pk, pp, rtol=0, atol=1e-5)
     assert 0 < fk.mean().item() < 1
     torch.testing.assert_close(fk, fp, rtol=0, atol=0)
-
-
-def test_vae_wide_kernel_matches_plain_bf16(dev):
-    params, cfg, (seeds, nsteps, eps, u, ws) = _vae_problem(dev, B=5, nsteps=12, H=512, D=88,
-                                                            L=4, K=13, seed=9, bf16=True)
-    assert cgv.kernel_for(cfg) == "generate_cl_vae_wide"
-    run = lambda f, **k: f(params, cfg, seeds, nsteps, eps, u, ws, return_probs=True, **k)
-    before = cgv.WIDE_LAUNCHES
-    pk, pp = run(cgv.generate_cl_vae_batch_cuda), run(cgv.generate_cl_vae_batch_plain)
-    torch.testing.assert_close(pk, pp, rtol=0, atol=2e-3)
-    pf = run(cgv.generate_cl_vae_batch_cuda, mode="f32")
-    assert (pk - pf).abs().max().item() > 1e-6  # bf16 really ran
-    assert cgv.WIDE_LAUNCHES == before + 2
 
 
 # ---- the dense-stack cl_vae training kernels (csrc/vae_dense.cu; the bf16

@@ -128,7 +128,7 @@ def test_bf16_wide_mode_matches_jax_bf16_kernel():
     jcfg, params, tcfg, tparams, a, nsteps = _setup(D=88, H=512, L=4, K=13, B=4, nsteps=8,
                                                     seed=8)
     bcfg = dataclasses.replace(tcfg, bf16_compute=True)
-    assert not cgv.fits(bcfg) and cgv.kernel_for(bcfg) == "generate_cl_vae_wide"
+    assert not cgv.fits(bcfg) and cgv.kernel_for(bcfg) == "generate_cl_vae_coop"
     a["u"] = np.ones_like(a["u"])
     bf16 = _run_all(jcfg, params, bcfg, tparams, a, nsteps, rp=True, mode="bf16")
     d = np.abs(bf16["plain"] - bf16["jax_pallas"])
@@ -203,6 +203,9 @@ def test_modes_and_kernel_input_checks():
     cgv._check(nh_params, no_hidden, *nh_args, "f32")
     got = cgv.generate_cl_vae_batch_cuda(nh_params, no_hidden, *nh_args)
     assert got.shape == (8, nsteps, 12)
+    for mode in ("bf16", "int8"):  # the wide kernel takes f32 weights only
+        with pytest.raises(ValueError, match="need hidden layers"):
+            cgv.generate_cl_vae_batch_cuda(nh_params, no_hidden, *nh_args, mode=mode)
     # what the wrapper checks before a launch (the launch itself needs a card)
     assert cgv.kernel_for(tcfg) == "generate_cl_vae"
     cgv._check(tparams, tcfg, *targs, "f32")
@@ -216,19 +219,21 @@ def test_modes_and_kernel_input_checks():
         u_t = _t(np.ascontiguousarray(a["u"].transpose(1, 0, 2))).transpose(0, 1)
         cgv._check(tparams, tcfg, targs[0], nsteps, targs[2], u_t, targs[4], "f32")
     # shared memory: f32 weights fit up to H ~ 200 at D=88, L=4; bf16 doubles
-    # that; wider models take the wide kernel, whose per-song state leaves
-    # shared memory for a global scratch only past D + H ~ 14,000
+    # that; wider models take the cooperative kernel (f32 from H=512, below
+    # it the wide kernel: the measured rule), whose per-song state stays in
+    # shared memory up to D + H ~ 14,000, past it in a global scratch
     wide = lambda h: tvae.Config(original_dim=88, intermediate_dim=h, latent_dim=4,
                                  n_classes=10, use_x_prev=True)
     assert cgv.fits(wide(200)) and not cgv.fits(wide(210))
     assert cgv.fits(wide(384), "bf16") and not cgv.fits(wide(400), "bf16")
     for h, mode, kernel in ((200, "f32", "generate_cl_vae"), (210, "f32", "generate_cl_vae_wide"),
+                            (512, "f32", "generate_cl_vae_coop"),
                             (384, "bf16", "generate_cl_vae"),
-                            (400, "bf16", "generate_cl_vae_wide")):
+                            (400, "bf16", "generate_cl_vae_coop")):
         assert cgv.kernel_for(wide(h), mode) == kernel, (h, mode)
     assert cgv._wide_smem_bytes(88, 4096, 4, True, True) <= cgv._SMEM_LIMIT
     assert cgv._wide_smem_bytes(88, 16384, 4, True, True) > cgv._SMEM_LIMIT
     w4096 = dataclasses.replace(tcfg, intermediate_dim=4096)
-    assert cgv.kernel_for(w4096) == "generate_cl_vae_wide"
+    assert cgv.kernel_for(w4096) == "generate_cl_vae_coop"
     with pytest.raises(ValueError, match=r"kernel must be \(4096, 2\)"):
         cgv._check(tparams, w4096, *targs, "f32")

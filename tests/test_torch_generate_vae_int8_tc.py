@@ -1,12 +1,12 @@
 """The int8 cl_vae generation kernel's layouts and sum order, on the CPU.
 
-``csrc/generate_cl_vae.cu`` ``generate_vae_int8_kernel`` runs only on the
+``csrc/generate_cl_vae.cu`` ``generate_vae_coop_kernel<signed char>`` runs only on the
 card; what surrounds it is Python that these tests reach: the grid
-(:func:`int8_grid`: which block owns which hidden units), the frame head's
+(:func:`coop_grid`: which block owns which hidden units), the frame head's
 split (:func:`head_split`: which block owns which pitch tiles for which
 songs), the packing of each block's slices in the order the
-``mma.sync.m16n8k32`` B fragments load them (:func:`pack_int8`), and the
-residency rule (:func:`int8_residency`). The packed slices are unpacked here
+``mma.sync.m16n8k32`` B fragments load them (:func:`pack_coop`), and the
+residency rule (:func:`coop_residency`). The packed slices are unpacked here
 by an independent reading of the layout and must give back ``_quant_cols``'
 codes; the kernel's tile sums, emulated in int64 from the fragments its
 lanes load (the PTX ISA's m16n8k32 layout), must equal ``_qmm`` bit for bit;
@@ -116,13 +116,13 @@ def _unpack_head(packed, H, D, hs):
 @pytest.mark.parametrize("n_sm", [132, 114])
 @pytest.mark.parametrize("H", [64, 262, 320, *BAND])
 def test_every_unit_and_pitch_is_owned_once(H, n_sm):
-    """``int8_grid``: nu a multiple of 8, at most n_sm blocks, each hidden
+    """``coop_grid``: nu a multiple of 8, at most n_sm blocks, each hidden
     unit in exactly one block (a weight whose column u holds the id of u,
     read back block by block); ``head_split``: for launches of 1 and 64
     songs, each pitch of the frame head in exactly one block of each song
     group, and the song groups cover the m16 tiles once."""
     D = 1024 if H > 1000 else 64
-    nu, G = cgv.int8_grid(H, n_sm)
+    nu, G = cgv.coop_grid(H, n_sm)
     assert nu % 8 == 0 and G <= n_sm and G == -(-H // nu) and (G - 1) * nu < H
     ids = torch.arange(H, dtype=torch.int64)
     cols = np.zeros((G, nu), np.int64)
@@ -135,7 +135,7 @@ def test_every_unit_and_pitch_is_owned_once(H, n_sm):
         np.testing.assert_array_equal(cols[blk], np.where(u < H, u, 0))
     for B in (1, 5, 16, 17, 64):
         hs, P = cgv.head_split(D, G, B)
-        assert hs == (2 if B > 16 else 1) and P <= cgv._I8_MAX_NT * 4
+        assert hs == (2 if B > 16 else 1) and P <= cgv._COOP_MAX_NT * 4
         assert -(-(-(-D // 8)) // P) * hs <= G  # the pitch groups fit the grid
         mt = -(-B // 16)
         mtg = -(-mt // hs)
@@ -152,10 +152,10 @@ def test_packed_slices_unpack_to_the_quantized_codes(D, H, use_x_prev):
     cfg = _cfg(D, H, use_x_prev=use_x_prev)
     ws = torch.eye(K)[torch.arange(3) % K]
     w = cgv._pack_int8(_params(D, H, L, use_x_prev), cfg, ws)
-    nu, G = cgv.int8_grid(H, 132)
+    nu, G = cgv.coop_grid(H, 132)
     for B in (1, 64):
         hs, P = cgv.head_split(D, G, B)
-        q = cgv.pack_int8(w, cfg, nu, G, P, hs)
+        q = cgv.pack_coop(w, cfg, nu, G, P, hs)
         assert q["wke"].shape == (G, -(-D // 32), nu // 8, 64)
         assert q["wx"].shape == (G, -(-H // 32), P, 64)
         as64 = lambda t: t.numpy().astype(np.int64)
@@ -198,7 +198,7 @@ def _b_tiles(packed, kc):
 def _codes_buffer(a_q, KC):
     """The kernel's codes buffer of an operand: [64 rows, KC * 8] words,
     zero past its rows and columns."""
-    buf = np.zeros((cgv._I8_ROWS, KC * 32), np.int8)
+    buf = np.zeros((cgv._COOP_ROWS, KC * 32), np.int8)
     buf[:a_q.shape[0], :a_q.shape[1]] = a_q.numpy().astype(np.int8)
     return buf.view(np.int32)
 
@@ -214,9 +214,9 @@ def test_tile_sums_from_the_fragments_equal_qmm(B):
     D, H = 64, 320
     cfg = _cfg(D, H)
     w = cgv._pack_int8(_params(D, H, L, False, seed=1), cfg, torch.eye(K)[torch.arange(3) % K])
-    nu, G = cgv.int8_grid(H, 132)
+    nu, G = cgv.coop_grid(H, 132)
     hs, P = cgv.head_split(D, G, B)
-    q = cgv.pack_int8(w, cfg, nu, G, P, hs)
+    q = cgv.pack_coop(w, cfg, nu, G, P, hs)
     rng = np.random.default_rng(2)
     x = torch.from_numpy((rng.random((B, D)) < 0.3).astype(np.float32))
     hd = torch.from_numpy(np.maximum(rng.standard_normal((B, H)), 0).astype(np.float32))
@@ -225,10 +225,10 @@ def test_tile_sums_from_the_fragments_equal_qmm(B):
     mt = -(-B // 16)
     # the encoder: every block's units, all song tiles
     words = _codes_buffer(torch.trunc(x), -(-D // 32))
-    acc = np.zeros((cgv._I8_ROWS // 16, G, nu // 8, 16, 8), np.int64)
+    acc = np.zeros((cgv._COOP_ROWS // 16, G, nu // 8, 16, 8), np.int64)
     for kc in range(-(-D // 32)):
         acc += np.einsum("mrk,gnkc->mgnrc", _a_tiles(words, kc), _b_tiles(q["wke"], kc))
-    got = acc.transpose(0, 3, 1, 2, 4).reshape(cgv._I8_ROWS, G * nu)[:, :H]
+    got = acc.transpose(0, 3, 1, 2, 4).reshape(cgv._COOP_ROWS, G * nu)[:, :H]
     want = torch.trunc(x).numpy().astype(np.int64) @ w["wke"].numpy().astype(np.int64)
     np.testing.assert_array_equal(got[:B], want)
     assert not got[B:].any()
@@ -236,7 +236,7 @@ def test_tile_sums_from_the_fragments_equal_qmm(B):
                        cgv._qmm(torch.trunc(x), w["wke"].double(), w["ske"]))
     # the frame head: each block's song group and pitch tiles
     words = _codes_buffer(h_q, -(-H // 32))
-    head = np.zeros((cgv._I8_ROWS, -(-D // 8) * 8), np.int64)
+    head = np.zeros((cgv._COOP_ROWS, -(-D // 8) * 8), np.int64)
     mtg = -(-mt // hs)
     a_t = [_a_tiles(words, kc) for kc in range(-(-H // 32))]
     b_t = [_b_tiles(q["wx"], kc) for kc in range(-(-H // 32))]
@@ -269,9 +269,9 @@ def _emulate(params, cfg, seeds, nsteps, eps, u, ws, use_z_prior, return_probs, 
     D, H, L_ = cfg.original_dim, cfg.intermediate_dim, cfg.latent_dim
     B = seeds.shape[0]
     w = cgv._pack_int8(params, cfg, ws)
-    plan = cgv.int8_plan(cfg, B, n_sm)
+    plan = cgv.coop_plan(cfg, B, n_sm)
     nu, G = plan["nu"], plan["G"]
-    q = cgv.pack_int8(w, cfg, nu, G, plan["P"], plan["hs"])
+    q = cgv.pack_coop(w, cfg, nu, G, plan["P"], plan["hs"])
     i64 = lambda a: torch.from_numpy(a)
     wke = i64(_unpack_units(q["wke"], D, H, nu))
     wkd = i64(_unpack_units(q["wkd"], D, H, nu)) if cfg.use_x_prev else None
@@ -349,14 +349,14 @@ def test_residency_rule_across_the_band():
             assert cgv.pick_mode(cfg) == "int8", H
             assert cgv.kernel_for(cfg) == "generate_cl_vae_int8"
             for B in (1, 64):
-                plan = cgv.int8_plan(cfg, B, 132)
-                smem = lambda res: cgv._int8_smem(1024, H, L, plan["nu"], plan["P"], use_x_prev,
+                plan = cgv.coop_plan(cfg, B, 132)
+                smem = lambda res: cgv._coop_smem(1024, H, L, plan["nu"], plan["P"], use_x_prev,
                                                   *res)
                 assert smem(plan["res"]) <= cgv._SMEM_LIMIT
                 order = [(True, True), (True, False), (False, False)]
                 assert all(smem(r) > cgv._SMEM_LIMIT for r in order[:order.index(plan["res"])])
-    assert cgv.int8_plan(_cfg(1024, 5120), 64, 132)["res"] == (True, True)
+    assert cgv.coop_plan(_cfg(1024, 5120), 64, 132)["res"] == (True, True)
     # a config no layout fits is refused, not sampled another way
     huge = dataclasses.replace(_cfg(1024, 5120), latent_dim=600)
     with pytest.raises(ValueError, match="does not take"):
-        cgv.int8_plan(huge, 64, 132)
+        cgv.coop_plan(huge, 64, 132)

@@ -490,11 +490,17 @@ def test_pallas_backend_refuses_dropout_and_remat():
 
 
 def test_shared_memory_formulas():
-    assert ls.fwd_smem_bytes(109, 256, 16) == (109 + 768) * 16 * 4
-    assert ls.fwd_rows(12800, 106, 256, 132) == 16  # the evaluation shape
-    assert ls.fwd_rows(200, 109, 256, 132) == 4     # the training shape
-    assert ls.fwd_rows(12800, 106, 2048, 132) == 4  # a 16-row tile no longer fits
-    assert ls.fwd_smem_bytes(0, 2560, 4) <= ls._SMEM_LIMIT  # the xz forwards at H=2,560
+    # the f32 forward: the resident slice [kx + kh][4 nu] and the ring, 3
+    # stages of a 64-row tile's operand chunk [rows][36] (8 of a 16-row
+    # tile's, + the streamed slice's [32][4 nu])
+    assert ls.fwd_smem_bytes(32, 4, 128, 256, True) == (384 * 128 + 3 * 64 * 36) * 4
+    assert ls.fwd_smem_bytes(32, 1, 128, 256, False) == 8 * (16 * 36 + 32 * 128) * 4
+    assert ls.fwd_plan(12800, 106, 256, 132)["rt"] == 4  # the evaluation shape
+    assert ls.fwd_plan(200, 109, 256, 132)["rt"] == 1    # the training shape
+    assert not ls.fwd_plan(12800, 106, 2048, 132)["resident"]  # the slice streams
+    for H in (2048, 2560):  # the xz forwards at the widths the bf16 rungs reach, in f32
+        p = ls.fwd_plan(1024, 0, H, 132)
+        assert ls.fwd_smem_bytes(p["nu"], p["rt"], 0, p["kh"], p["resident"]) <= ls._SMEM_LIMIT
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])

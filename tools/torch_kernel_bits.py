@@ -13,9 +13,12 @@ sampled frames at H=1,536, 64 songs x (32 + 256) steps) and the f32 / bf16
 one (on those weights, and sampled frames at H=256), the int8 cl_vae
 generation kernel (D=1,024 with x_prev, 64 songs x 64 steps: H=4,160, whose
 weight slices stay in shared memory, and H=5,120 and 7,808, which stream
-some) — on inputs made from a fixed seed, and saves every output. It also
-calls the bf16 dense-stack forward and the int8 cl_vae kernel a second time
-and exits 1 unless each gives the same bits again.
+some), the f32 / bf16 cl_vae generation kernel at the widths the
+shared-memory one refuses (f32 at D=88, H=256; bf16 at D=1,024, H=5,120,
+64 songs x 64 steps) — on inputs made from a fixed seed, and saves every
+output. It also calls the bf16 dense-stack forward, the int8 and the wide
+f32 / bf16 cl_vae kernels and the f32 LSTM forwards a second time and
+exits 1 unless each gives the same bits again.
 ``compare`` reports, per output, whether two saved runs are bitwise equal,
 and exits 1 if any differs. Run ``save`` once per checkout (each in its own
 process: both define the same package) on one card, then ``compare``.
@@ -54,6 +57,11 @@ def _lstm(out: dict):
     out["lstm_walk_drk"] = ls.lstm_seq_walk_drk(z, cp, c, hp, dh, dc, rk_t)
     xz = f(T, B, 4 * H)
     out["lstm_xz_train_fwd"] = ls.lstm_seq_xz_train_fwd(xz, *ins[3:])
+    out["lstm_xz_fwd"] = ls.lstm_seq_xz_fwd(xz, *ins[3:])
+    return {"lstm_fwd": lambda: ls.lstm_seq_fwd(*ins),
+            "lstm_train_fwd": lambda: ls.lstm_seq_train_fwd(*ins),
+            "lstm_xz_train_fwd": lambda: ls.lstm_seq_xz_train_fwd(xz, *ins[3:]),
+            "lstm_xz_fwd": lambda: ls.lstm_seq_xz_fwd(xz, *ins[3:])}
 
 
 def _two_cell(out: dict):
@@ -219,6 +227,49 @@ def _int8_vae(out: dict):
     return again
 
 
+def _wide_vae(out: dict):
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.models import cl_vae
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae as cgv
+    from classifying_vae_lstm_tpu_torch.weights import params_from_numpy
+
+    rng, _ = _inputs(6)
+    dev = torch.device("cuda", 0)
+    B, nsteps, K, Cw = 64, 64, 13, 88
+    again = {}
+    for D, H, L, use_xp, mode in ((88, 256, 4, True, "f32"), (1024, 5120, 16, False, "bf16")):
+        def dense(i, o):
+            lim = np.sqrt(6.0 / (i + o))
+            return {"kernel": rng.uniform(-lim, lim, (i, o)).astype(np.float32),
+                    "bias": np.zeros(o, np.float32)}
+
+        n_xp = D if use_xp else 0
+        raw = {"h_w": dense(D, Cw), "w_mean": dense(Cw, K - 1), "w_log_var": dense(Cw, K - 1),
+               "h": dense(D + K, H), "z_mean": dense(H, L), "z_log_var": dense(H, L),
+               "decoder_h": dense(K + n_xp + L, H), "x_decoded_mean": dense(H, D)}
+        raw["x_decoded_mean"]["bias"][:] = -2.0
+        cfg = cl_vae.Config(original_dim=D, intermediate_dim=H, latent_dim=L,
+                            intermediate_class_dim=Cw, n_classes=K, use_x_prev=use_xp,
+                            bf16_compute=mode == "bf16")
+        t = lambda a: torch.from_numpy(a).to(dev)
+        seeds = t((rng.random((B, D)) < 0.1).astype(np.float32))
+        eps = t(rng.standard_normal((B, nsteps, L)).astype(np.float32))
+        u = t(rng.random((B, nsteps, D)).astype(np.float32))
+        ws = torch.eye(K, device=dev)[torch.arange(B, device=dev) % K]
+        params = params_from_numpy(raw, dev)
+        run = lambda uu, rp, params=params, cfg=cfg, seeds=seeds, eps=eps, ws=ws: (
+            cgv.generate_cl_vae_batch_cuda(params, cfg, seeds, nsteps, eps, uu, ws,
+                                           return_probs=rp))
+        name = f"{mode}_cl_vae_h{H}"
+        out[f"{name}_probs_u1"] = run(torch.ones_like(u), True)
+        out[f"{name}_frames"] = run(u, False)
+        torch.cuda.synchronize()
+        again[f"{name}_frames"] = lambda run=run, u=u: run(u, False)
+    return again
+
+
 def save(path: str, root: str | None):
     if root:
         sys.path.insert(0, str(Path(root).resolve()))
@@ -229,7 +280,7 @@ def save(path: str, root: str | None):
     print(f"package: {Path(classifying_vae_lstm_tpu_torch.__file__).parent}")
     out: dict = {}
     again = {}
-    for part in (_lstm, _two_cell, _vae, _int8, _int8_vae):
+    for part in (_lstm, _two_cell, _vae, _int8, _int8_vae, _wide_vae):
         again.update(part(out) or {})
     torch.cuda.synchronize()
     differ = []

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Times of the two-cell forward, of f32 / bf16 cl_vrnn generation, of the
-bf16 dense-stack forward and of int8 cl_vae generation in one checkout of
-the port, at the shapes of ``chip_smoke.py``, for comparing two checkouts on
-one card in turns.
+bf16 dense-stack forward, of int8 and of wide f32 / bf16 cl_vae generation
+and of the f32 whole-sequence LSTM forward in one checkout of the port, at
+the shapes of ``chip_smoke.py``, for comparing two checkouts on one card in
+turns.
 
     python3 tools/torch_kernel_times.py [--root CHECKOUT] [--reps 5]
-        [--parts two_cell,generation,vae_dense,int8_vae]
+        [--parts two_cell,generation,vae_dense,int8_vae,wide_vae,wide_vae_buckets,
+                 lstm_f32_fwd]
+        [--against PARENT]
 
 Runs the kernels of the checkout at ``--root`` (default: this one; run each
 checkout in its own process, as both define the same package): the two-cell
@@ -26,7 +29,21 @@ memory; H=5,120 and 7,808 with x_prev, which stream some; the serving
 buckets at H=5,120), and, in a checkout that has them, each layout, the
 frame head in one and in two song groups at the first two widths, the
 streamed widths' parts of a call and the wrapper's quantization and packing
-alone. Each is timed with CUDA events around the wrapper after a
+alone; wide cl_vae generation (``wide_vae``: f32 and bf16 at D=88, L=4
+with x_prev, H = 256, 512, 1,024, and at D=1,024, L=16, H = 1,024 and
+5,120, 64 songs x 256 steps; at H=5,120 in bf16 also with x_prev, with
+use_z_prior and the serving buckets) through the kernel ``kernel_for``
+picks and, in f32 in a checkout that has both, through the cooperative and
+the wide kernel (the routing sweep), with the cooperative kernel's clock of
+each part of a step and the wrapper's pack apart; the routing sweep at the
+serving buckets (``wide_vae_buckets``: D=88, H = 256 and 512, f32 and
+bf16); the f32 LSTM
+forward (``lstm_f32_fwd``: the training and inference forwards and both xz
+forwards at B=200, T=16, H=256, IN=105, the inference forward and the xz
+one at 12,800 rows, with the layout where the checkout plans one; the
+kernel reads every weight as stored, so the wrapper packs nothing). ``--against PARENT`` runs the
+parts in four processes, PARENT, this checkout, this checkout, PARENT, on
+one card. Each is timed with CUDA events around the wrapper after a
 warm-up call, and its device time a call is the sum of ``torch.profiler``'s
 device events over two calls ("not measured" where it records none).
 Prints the card's name and power limit first and one JSON object a line.
@@ -225,7 +242,8 @@ def _int8_vae(reps):
         eps = t(rng.standard_normal((B, nsteps, L)).astype(np.float32))
         u = t(rng.random((B, nsteps, D)).astype(np.float32))
         ws = torch.eye(K, device=dev)[torch.arange(B, device=dev) % K]
-        plan = cgv.int8_plan(cfg, B, n_sm) if hasattr(cgv, "int8_plan") else None
+        plan_fn = getattr(cgv, "coop_plan", getattr(cgv, "int8_plan", None))  # a parent's name
+        plan = plan_fn(cfg, B, n_sm) if plan_fn else None
         layout = {"resident": list(plan["res"])} if plan else {}
         for zp in ((False, True) if (H, use_xp) == (5120, False) else (False,)):
             run = lambda: cgv.generate_cl_vae_batch_cuda(params, cfg, seeds, nsteps, eps, u, ws,
@@ -242,8 +260,9 @@ def _int8_vae(reps):
                   flush=True)
         if plan is None:
             continue
-        pack = lambda: cgv.pack_int8(cgv._pack_int8(params, cfg, ws), cfg, plan["nu"], plan["G"],
-                                     plan["P"], plan["hs"])
+        pack_fn = getattr(cgv, "pack_coop", getattr(cgv, "pack_int8", None))
+        pack = lambda: pack_fn(cgv._pack_int8(params, cfg, ws), cfg, plan["nu"], plan["G"],
+                               plan["P"], plan["hs"])
         _line("int8 cl_vae pack (quantization and per-block packing)", pack, reps, H=H,
               use_x_prev=use_xp)
         if (H, use_xp) not in ((5120, False), (4160, True)):  # a streamed layout's parts
@@ -261,8 +280,12 @@ def _int8_vae(reps):
             try:
                 parts = cgv.phase_ms(params, cfg, seeds, nsteps, eps, u, ws)
                 lib = cgv._kernels()
-                launch = lambda: cgv._launch_int8(lib, params, cfg, seeds, nsteps, eps, u, ws,
-                                                  (int(use_xp), 0, 0))
+                flags = (int(use_xp), 0, 0)
+                launch = ((lambda: cgv._launch_coop(lib, params, cfg, seeds, nsteps, eps, u, ws,
+                                                    flags, "int8"))
+                          if hasattr(cgv, "_launch_coop") else
+                          (lambda: cgv._launch_int8(lib, params, cfg, seeds, nsteps, eps, u, ws,
+                                                    flags)))
                 ms, dev_ms = round(_time(launch, reps), 4), _device_ms(launch)
             finally:
                 cgv.head_split = rule
@@ -272,10 +295,171 @@ def _int8_vae(reps):
                   flush=True)
 
 
+def _wide_problem(D, H, L, use_xp, mode, B, nsteps, K=13):
+    """Seeded glorot cl_vae weights (frame bias -2) and B songs' seeds and
+    noise on the card: (params, cfg, seeds, eps, u, ws)."""
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.models import cl_vae
+    from classifying_vae_lstm_tpu_torch.weights import params_from_numpy
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED + H + D)
+
+    def dense(i, o):
+        lim = np.sqrt(6.0 / (i + o))
+        return {"kernel": rng.uniform(-lim, lim, (i, o)).astype(np.float32),
+                "bias": np.zeros(o, np.float32)}
+
+    n_xp = D if use_xp else 0
+    raw = {"h_w": dense(D, 88), "w_mean": dense(88, K - 1), "w_log_var": dense(88, K - 1),
+           "h": dense(D + K, H), "z_mean": dense(H, L), "z_log_var": dense(H, L),
+           "decoder_h": dense(K + n_xp + L, H), "x_decoded_mean": dense(H, D)}
+    raw["x_decoded_mean"]["bias"][:] = -2.0
+    params = params_from_numpy(raw, dev)
+    cfg = cl_vae.Config(original_dim=D, intermediate_dim=H, latent_dim=L,
+                        intermediate_class_dim=88, n_classes=K, use_x_prev=use_xp,
+                        bf16_compute=mode == "bf16")
+    t = lambda a: torch.from_numpy(a).to(dev)
+    seeds = t((rng.random((B, D)) < 0.1).astype(np.float32))
+    eps = t(rng.standard_normal((B, nsteps, L)).astype(np.float32))
+    u = t(rng.random((B, nsteps, D)).astype(np.float32))
+    ws = torch.eye(K, device=dev)[torch.arange(B, device=dev) % K]
+    return params, cfg, seeds, eps, u, ws
+
+
+def _pinned(cgv, cfg):
+    """Each kernel this checkout has for ``cfg``, with a context that pins
+    ``kernel_for`` to it: in f32 with hidden layers past the shared-memory
+    kernel both the cooperative and the wide kernel (``_F32_COOP_FROM``
+    moved), else the one ``kernel_for`` picks (a checkout without the
+    cooperative kernel: the wide one)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def at(width):
+        old = cgv._F32_COOP_FROM
+        cgv._F32_COOP_FROM = width
+        try:
+            yield
+        finally:
+            cgv._F32_COOP_FROM = old
+
+    if (hasattr(cgv, "_F32_COOP_FROM") and cgv.pick_mode(cfg) == "f32" and cfg.has_hidden
+            and not cgv.fits(cfg)):
+        return [("generate_cl_vae_coop", at(0)), ("generate_cl_vae_wide", at(1 << 30))]
+    return [(cgv.kernel_for(cfg), contextlib.nullcontext())]
+
+
+def _wide_vae(reps):
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae as cgv
+
+    dev = torch.device("cuda", 0)
+    B, nsteps = 64, 256
+    coop = hasattr(cgv, "coop_plan")  # this checkout has the cooperative kernel
+    sweep = [(88, H, 4, True, m) for H in (256, 512, 1024) for m in ("f32", "bf16")]
+    sweep += [(1024, H, 16, False, m) for H in (1024, 5120) for m in ("f32", "bf16")]
+    sweep += [(1024, 5120, 16, True, "bf16")]
+    for D, H, L, use_xp, mode in sweep:
+        params, cfg, seeds, eps, u, ws = _wide_problem(D, H, L, use_xp, mode, B, nsteps)
+        shape = dict(D=D, H=H, L=L, use_x_prev=use_xp, mode=mode, B=B, nsteps=nsteps)
+        run = lambda zp=False: cgv.generate_cl_vae_batch_cuda(params, cfg, seeds, nsteps, eps,
+                                                                  u, ws, use_z_prior=zp)
+        # every kernel this checkout has for the config (the routing sweep),
+        # then the one kernel_for picks
+        for kernel, pin in _pinned(cgv, cfg):
+            with pin:
+                _line("cl_vae generation, the routing sweep", run, max(1, reps // 2),
+                      kernel=kernel, **shape)
+        _line("cl_vae generation", run, max(1, reps // 2), kernel=cgv.kernel_for(cfg), **shape)
+        if (D, H, use_xp, mode) != (1024, 5120, False, "bf16"):
+            continue
+        _line("cl_vae generation, use_z_prior", lambda: run(True), max(1, reps // 2),
+              kernel=cgv.kernel_for(cfg), **shape)
+        print(json.dumps({"name": "cl_vae generation buckets", **shape,
+                          "kernel": cgv.kernel_for(cfg),
+                          "ms": _buckets(cgv, params, cfg, seeds, eps, u, ws, reps)}), flush=True)
+        if not coop:
+            continue
+        parts = cgv.phase_ms(params, cfg, seeds, nsteps, eps, u, ws, mode=mode)
+        print(json.dumps({"name": "cl_vae generation, parts of a call", **shape,
+                          "parts_ms": {k: round(v, 4) for k, v in parts.items()}}), flush=True)
+        plan = cgv.coop_plan(cfg, B, torch.cuda.get_device_properties(dev).multi_processor_count,
+                             mode)
+        pack = lambda: cgv.pack_coop(cgv._pack(params, cfg, ws, mode), cfg, plan["nu"],
+                                     plan["G"], plan["P"], plan["hs"])
+        _line("cl_vae generation pack (the operands and the per-block packing)", pack, reps,
+              layout=list(plan["res"]), **shape)
+
+
+def _buckets(cgv, params, cfg, seeds, eps, u, ws, reps):
+    """ms a call at the serving buckets, 1, 4, 16, 64 songs x 32 ... 256
+    steps, through the kernel ``kernel_for`` picks."""
+    return {f"{b}x{n}": round(_time(lambda: cgv.generate_cl_vae_batch_cuda(
+        params, cfg, seeds[:b].contiguous(), n, eps[:b, :n].contiguous(),
+        u[:b, :n].contiguous(), ws[:b].contiguous()), max(1, reps // 3)), 3)
+        for b in (1, 4, 16, 64) for n in (32, 64, 128, 256)}
+
+
+def _wide_vae_buckets(reps):
+    """The routing rule at the serving buckets: D=88, L=4 with x_prev, H =
+    256 and 512, f32 and bf16, through every kernel this checkout has for
+    the config."""
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae as cgv
+
+    for H in (256, 512):
+        for mode in ("f32", "bf16"):
+            params, cfg, seeds, eps, u, ws = _wide_problem(88, H, 4, True, mode, 64, 256)
+            for kernel, pin in _pinned(cgv, cfg):
+                with pin:
+                    print(json.dumps({"name": "cl_vae generation buckets, the routing sweep",
+                                      "D": 88, "H": H, "L": 4, "use_x_prev": True,
+                                      "mode": mode, "kernel": kernel,
+                                      "ms": _buckets(cgv, params, cfg, seeds, eps, u, ws,
+                                                     reps)}), flush=True)
+
+
+def _lstm_f32_fwd(reps):
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
+
+    dev = torch.device("cuda", 0)
+    H, IN, T = 256, 105, 16
+    for B in (200, 12800):
+        rng = np.random.default_rng(SEED + B)
+        f = lambda *s, scale=1.0: torch.from_numpy(
+            (scale * rng.standard_normal(s)).astype(np.float32)).to(dev)
+        x = torch.cat([(torch.rand(T, B, 88, generator=torch.Generator().manual_seed(B))
+                        < 0.1).float().to(dev), f(T, B, IN - 88, scale=0.5)], -1).contiguous()
+        w, b, rk = f(IN, 4 * H, scale=0.1), f(4 * H, scale=0.1), f(H, 4 * H, scale=0.06)
+        h0 = c0 = torch.zeros(B, H, device=dev)
+        xz = (x.reshape(T * B, IN) @ w + b).reshape(T, B, 4 * H)
+        shape = dict(B=B, T=T, H=H, IN=IN)
+        calls = {"inference forward": lambda: ls.lstm_seq_fwd(x, w, b, rk, h0, c0),
+                 "xz inference forward": lambda: ls.lstm_seq_xz_fwd(xz, rk, h0, c0)}
+        if B == 200:
+            calls.update({
+                "training forward": lambda: ls.lstm_seq_train_fwd(x, w, b, rk, h0, c0),
+                "xz training forward": lambda: ls.lstm_seq_xz_train_fwd(xz, rk, h0, c0)})
+        plan = {}
+        if hasattr(ls, "card_plan"):  # this checkout's layout
+            plan = {"plan": {k: int(v) for k, v in ls.card_plan(B, IN, H, dev).items()}}
+        for name, fn in calls.items():
+            _line(f"lstm f32 {name}", fn, reps, **shape, **plan)
+
+
 PARTS = {"two_cell": lambda reps, root: _two_cell(reps),
          "generation": lambda reps, root: _generation(reps, root),
          "vae_dense": lambda reps, root: _vae_dense(reps),
-         "int8_vae": lambda reps, root: _int8_vae(reps)}
+         "int8_vae": lambda reps, root: _int8_vae(reps),
+         "wide_vae": lambda reps, root: _wide_vae(reps),
+         "wide_vae_buckets": lambda reps, root: _wide_vae_buckets(reps),
+         "lstm_f32_fwd": lambda reps, root: _lstm_f32_fwd(reps)}
 
 
 def main(argv=None) -> int:
@@ -284,8 +468,19 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--parts", default=",".join(PARTS),
                     help=f"comma-separated, of {', '.join(PARTS)} (default: all)")
+    ap.add_argument("--against", help="a parent checkout: run the parts in turns, PARENT, this "
+                                      "checkout, this checkout, PARENT, one process each")
     a = ap.parse_args(argv)
-    root = str(Path(a.root or Path(__file__).resolve().parents[1]).resolve())
+    here = Path(__file__).resolve().parents[1]
+    if a.against:
+        for n, turn in enumerate((a.against, here, here, a.against)):
+            print(f"--- turn {n + 1}: {Path(turn).resolve()}", flush=True)
+            cmd = [sys.executable, __file__, "--root", str(turn), "--reps", str(a.reps),
+                   "--parts", a.parts]
+            if subprocess.run(cmd).returncode:
+                return 1
+        return 0
+    root = str(Path(a.root or here).resolve())
     sys.path.insert(0, root)
     import torch
 
