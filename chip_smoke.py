@@ -99,19 +99,23 @@ failure:
    ``Piano-midi_Cs``, true keys, 8 songs x 64 frames) and
    ``cli.cl_vrnn_sample`` (``jsball_vrnn4``, ``--infer_w``, 4 songs) write
    their MIDI files with exactly one launch of their kernel each;
-14. the dense-stack cl_vae training kernels (forward; backward = row pass +
-   weight-gradient pass) vs their plain versions at the training shape
-   (B=100, the ``jsball_vae`` weights with seeded rows for 13 keys,
-   use_x_prev) and at the seq-concat width (D=976, Cw=256, H=1024, L=16,
-   K=13, B=1024, seeded glorot weights): forward outputs within 1e-5 x
-   max(1, max|plain|), every backward output within 1e-4 * max|plain| +
-   1e-6; kernel and plain (cuBLAS products) times with CUDA events beside
-   each kernel's bound;
+14. the dense-stack cl_vae training kernels (forward; backward: one launch,
+   the row pass and the weight gradients either side of a grid barrier) vs
+   their plain versions at the training shape (B=100, the ``jsball_vae``
+   weights with seeded rows for 13 keys, use_x_prev) and at the seq-concat
+   width (D=976, Cw=256, H=1024, L=16, K=13, B=1024, seeded glorot
+   weights), each shape's plan printed (layout: weights resident in shared
+   memory or streamed; rows and threads a block; forward blocks, the
+   backward's cooperative grid, weight-gradient tiles; shared memory a
+   block): forward outputs within 1e-5 x max(1, max|plain|), every backward
+   output within 1e-4 * max|plain| + 1e-6, a second call of each bitwise
+   equal; kernel and plain (cuBLAS products) times with CUDA events beside
+   each kernel's bound, and each kernel's own clock of its parts;
 15. the cl_vae training path: ``cli.cl_vae_train --train_backend pallas``
    for 3 epochs on the committed corpus (13 keys) at the jsball_vae width;
    the dense-stack counts are set to 0 just before and read just after and
-   must equal the run's own steps (per train batch one forward and two
-   backward launches, per eval batch one forward), losses finite and
+   must equal the run's own steps (per train batch one forward and one
+   backward launch, per eval batch one forward), losses finite and
    falling, no plain version on CUDA tensors; a step's time split; then one
    ``xla`` epoch from the same seed, its first-epoch loss within 1e-3
    relative of the kernel run's;
@@ -1874,8 +1878,9 @@ def dense_times(vd, label, cfg, B, ins, outs, res, got, reps, peak=PEAK_F32_FLOP
     F = vae_dense_fmas(cfg)
     n_bias = (cfg.intermediate_class_dim + 2 * (K - 1) + 2 * cfg.intermediate_dim + 2 * L + D)
     live = lambda ts: [t for t in ts if t is not None]
-    # the bf16 backward is csrc/vae_dense_tc.cu's 8 launches (9 past 128 rows)
-    n_bwd = (9 if B > 128 else 8) if peak == PEAK_BF16_FLOPS else 2
+    # the bf16 backward is csrc/vae_dense_tc.cu's 8 launches (9 past 128 rows);
+    # the f32 one, csrc/vae_dense.cu's one cooperative launch
+    n_bwd = (9 if B > 128 else 8) if peak == PEAK_BF16_FLOPS else 1
     fb_ms, fb_by = roofline_ms(B * F, _nbytes(live(ins)) + _nbytes(outs), peak)
     # the row pass (every weight once, transposed) + every dW and bias sum
     bb_ms, bb_by = roofline_ms(B * (2 * F + n_bias), _nbytes(live(res)) + _nbytes(live(got)),
@@ -1922,6 +1927,14 @@ def phase_vae_dense(dev):
         eps_w = f(rng.standard_normal((B, K - 1)).astype(np.float32))
         eps_z = f(rng.standard_normal((B, L)).astype(np.float32))
         ins = vd.pack_inputs(params, cfg, x, xp, eps_w, eps_z)
+        p = vd.plan(B, D, cfg.intermediate_class_dim, cfg.intermediate_dim, L, K, cfg.use_x_prev)
+        print(f"vae_dense f32 plan, {label} shape: layout "
+              f"{'resident' if p.resident else 'streamed'} (weights "
+              f"{'in every block' if p.resident else f'through {p.stages} slots of {p.slot} floats'})"
+              f", rows a block {p.rows}, threads a block {p.threads}, row tiles {p.tiles}, "
+              f"weight-gradient tiles {p.wg_tiles} of {p.wg_tile} x {p.wg_tile}, shared memory "
+              f"a block forward {p.fwd_smem} B / backward {p.bwd_smem} B, backward scratch "
+              f"{p.scratch} floats")
         outs = vd.vae_dense_fwd(*ins)
         ref = vd.vae_dense_fwd_plain(*ins)
         torch.cuda.synchronize()
@@ -1960,6 +1973,17 @@ def phase_vae_dense(dev):
               + ", ".join(f"{n} {v:.2e}" for n, v in rel.items())
               + f" (limit 1e-4 + 1e-6 abs); largest abs error {bwd_err:.3e}")
         require(not bad, f"dense-stack backward differs: {bad}")
+        same_bits(vd.vae_dense_fwd, ins, outs, names, f"vae_dense forward, {label} shape")
+        same_bits(lambda *a: [g for g in vd.vae_dense_bwd(*a) if g is not None], res,
+                  [g for g in got if g is not None], [n for n, g in zip(gnames, got)
+                                                      if g is not None],
+                  f"vae_dense backward, {label} shape")
+        for direction, args in (("fwd", ins), ("bwd", res)):
+            parts, blocks = vd.phase_ms(direction, *args)
+            print(f"vae_dense {direction} {label} shape, {blocks} blocks"
+                  + (" (the cooperative grid)" if direction == "bwd" else "")
+                  + ", the kernel's own clock (block 0, ms): "
+                  + ", ".join(f"{n} {v:.4f}" for n, v in parts.items()))
 
         t = dense_times(vd, label, cfg, B, ins, outs, res, got,
                         reps=50 if label == "training" else 10)
@@ -1991,10 +2015,10 @@ def phase_vae_train(model_dir):
         require(_dense_counts()[2:] == (0, 0), f"f32 training ran the bf16 mode: {_dense_counts()}")
         E, n_train, n_val = _report_train("cl_vae training path", args, seen, epoch_s, wall)
         print(f"cl_vae training path launches: forward {fwd} (expected {E * (n_train + n_val)}), "
-              f"backward {bwd} (expected {2 * E * n_train}: the row pass and the "
-              f"weight-gradient pass per step)")
+              f"backward {bwd} (expected {E * n_train}: one launch a step, the row pass and "
+              f"the weight gradients either side of its grid barrier)")
         require(fwd == E * (n_train + n_val), f"dense-stack forward launches {fwd}")
-        require(bwd == 2 * E * n_train, f"dense-stack backward launches {bwd}")
+        require(bwd == E * n_train, f"dense-stack backward launches {bwd}")
         margs = load_model_args(seen["ckpt"])
         require((margs["train_backend"], margs["n_classes"]) == ("pallas", TRAIN_K),
                 f"args.json {margs}")

@@ -1,7 +1,8 @@
 // What the persistent cooperative generation kernels of csrc/generate_cl_vrnn.cu
 // and csrc/generate_cl_vae.cu share: the grid barrier (also the f32 LSTM
-// forward's group barrier, csrc/lstm_seq.cu), the int8 tensor-core product
-// and block 0's clock of the parts of a step.
+// forward's group barrier, csrc/lstm_seq.cu, and, in a form that needs no
+// zeroing, the f32 dense-stack backward's, csrc/vae_dense.cu), the int8
+// tensor-core product and block 0's clock of the parts of a step.
 
 #pragma once
 
@@ -42,6 +43,35 @@ __device__ __forceinline__ void grid_sync(unsigned* count, unsigned& rounds, uns
 
 __device__ __forceinline__ void grid_sync(unsigned* count, unsigned& rounds) {
   grid_sync(count, rounds, gridDim.x);
+}
+
+// The same barrier on state that outlives the launch, so it needs no zeroing
+// before each one (csrc/vae_dense.cu's backward): bar[0] counts the current
+// round's arrivals and is 0 between rounds, bar[1] counts the rounds. Thread
+// 0 reads the round, then arrives with an acquire-release add; the last
+// block to arrive sets the count back to 0 and releases the next round,
+// the others wait with acquiring loads until the round moves.
+__device__ __forceinline__ void grid_sync_reusable(unsigned* bar, unsigned blocks) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned round, prev;
+    asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];\n" : "=r"(round) : "l"(bar + 1) : "memory");
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+                 : "=r"(prev)
+                 : "l"(bar)
+                 : "memory");
+    if (prev + 1 == blocks) {
+      asm volatile("st.relaxed.gpu.global.u32 [%0], 0;\n" ::"l"(bar) : "memory");
+      asm volatile("st.release.gpu.global.u32 [%0], %1;\n" ::"l"(bar + 1), "r"(round + 1)
+                   : "memory");
+    } else {
+      unsigned seen;
+      do {
+        asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(seen) : "l"(bar + 1) : "memory");
+      } while (seen == round);
+    }
+  }
+  __syncthreads();
 }
 
 // Block 0's clock of a step's parts (`out` set), summed over the steps: each

@@ -1,9 +1,13 @@
 // The deterministic weight-gradient pass of the training kernels' backwards
-// (csrc/two_cell.cu, csrc/lstm_seq.cu, csrc/vae_dense.cu), for Hopper (sm_90a).
+// (csrc/two_cell_tc.cu, csrc/lstm_bwd_f32.cu, csrc/lstm_seq_tc.cu,
+// csrc/vae_dense_tc.cu launch wgrad_kernel; csrc/vae_dense.cu's cooperative
+// backward calls its tile loop, wgrad_tile, after its grid barrier), for
+// Hopper (sm_90a).
 //
 // Each job is C[M, N] = sum over rows r of A[r, :M]^T Bm[r, :N] (A null: a
-// column of ones, M = 1, i.e. the column sums of Bm). Up to kMaxJobs jobs run
-// in one launch, each cut into kTile x kTile tiles of C, one block a tile.
+// column of ones, M = 1, i.e. the column sums of Bm). Up to kWgMaxJobs jobs
+// run in one launch, each cut into kWgTile x kWgTile tiles of C, one block a
+// tile.
 // The TPU kernels accumulated these sums in resident blocks over a
 // sequential grid; on this card concurrent blocks would need atomics, whose
 // order changes from run to run. Here one thread sums each output element
@@ -35,6 +39,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace cvl {
 
@@ -72,10 +77,198 @@ struct WgradArgs {
   float* partial;     // [segments][M N] per job (split launches); null: store C
 };
 
+// N consecutive floats (on 4 N bytes; N 1, 2 or a multiple of 4) into
+// registers, by the widest loads they allow
+template <int N>
+__device__ __forceinline__ void ldv(const float* p, float (&v)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q) {
+      const float4 t = reinterpret_cast<const float4*>(p)[q];
+      v[4 * q] = t.x, v[4 * q + 1] = t.y, v[4 * q + 2] = t.z, v[4 * q + 3] = t.w;
+    }
+  } else if constexpr (N == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x, v[1] = t.y;
+  } else {
+    static_assert(N == 1, "1, 2 or a multiple of 4 floats");
+    v[0] = *p;
+  }
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// cp.async global -> shared of 16 bytes (both on 16 bytes) or 4, and its
+// groups
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + CHUNK) of X[:, c0 .. c0 + TILE) (f32 [rows, ld]; null: a
+// column of ones, ld = 1) into dst ([CHUNK][TILE]) by cp.async, in 16-byte
+// pieces where X allows them, as far as the 16-row step that holds row
+// r_end - 1; its rows at or past r_end and columns past ld 0.
+template <int T, int TILE, int CHUNK>
+__device__ __forceinline__ void wg_stage(float* dst, const float* X, int ld, int c0, int r0,
+                                         int r_end) {
+  const bool v16 = X && ((uintptr_t)X & 15) == 0 && (ld & 3) == 0;
+  const int rows = min(CHUNK, (r_end - r0 + 15) & ~15);
+  for (int e = threadIdx.x; e < rows * (TILE / 4); e += T) {
+    const int rr = e / (TILE / 4), c = (e - rr * (TILE / 4)) * 4, m = c0 + c, r = r0 + rr;
+    float* d = dst + rr * TILE + c;
+    const float* src = X ? X + (size_t)r * ld + m : nullptr;
+    if (r < r_end && v16 && m + 3 < ld) {
+      cp_async16(d, src);
+      continue;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (r >= r_end || m + i >= ld)
+        d[i] = 0.f;
+      else if (X)
+        cp_async4(d + i, src + i);
+      else
+        d[i] = 1.f;
+    }
+  }
+}
+
+// The sums of one TILE x TILE tile of a job's C over the rows [r_begin,
+// r_end), for a block of T threads: acc[i][q] is C[m0 + ty TM + i, n0 + tx
+// TN + q] (tx = thread % 16, ty = thread / 16; TM = 16 TILE / T, TN = TILE /
+// 16), summed from 0 over the rows in order by its one thread. The rows
+// pass through shared memory CHUNK at a time, rows and columns past the
+// job's staged as 0, which leaves the sums as they are. Two ways to stage:
+// * registers (kAsync false; As and Bs [CHUNK][TILE] floats each): the next
+//   chunk's values are loaded into registers while this one's products run,
+//   each converted as the job's flags say where kFlags is set (without it
+//   the job is f32 throughout and the flags are not read). wgrad_kernel
+//   below stages so, in static shared memory, since its bf16 flags convert
+//   values on the way in.
+// * cp.async (kAsync; f32 jobs, no flags; As and Bs [2][CHUNK][TILE] each):
+//   two chunks in flight, the next one's copies landing while this one's
+//   products run. csrc/vae_dense.cu's cooperative backward stages so, after
+//   its grid barrier, in the shared memory its weights held (on an H100
+//   its wide shape's gradients took 0.43 ms so, in chunks of 96 rows, and
+//   0.67 ms through registers in chunks of 64; PERF.md §6).
+// Every thread of the block calls it, on shared memory on 16 bytes; it
+// leaves As and Bs free for the next call.
+template <int T, int TILE, int CHUNK, bool kFlags, bool kAsync = false>
+__device__ __forceinline__ void wgrad_tile(const WgradJob& jb, int m0, int n0, int r_begin,
+                                           int r_end, float* As, float* Bs,
+                                           float (&acc)[TILE * 16 / T][TILE / 16]) {
+  constexpr int TM = TILE * 16 / T, TN = TILE / 16;
+  static_assert(TM * T == TILE * 16 && (TM == 1 || TM == 2 || TM == 4) && TN <= 4,
+                "a thread takes 1, 2 or 4 outputs down and at most 4 across");
+  static_assert(CHUNK % 16 == 0 && CHUNK * TILE % T == 0, "whole chunks of 16 rows a thread");
+  static_assert(!(kAsync && kFlags), "cp.async stages f32 as stored");
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int q = 0; q < TN; ++q) acc[i][q] = 0.f;
+  // the products of a staged chunk's first nr rows (rows past them are 0:
+  // whole 16-row steps)
+  auto sum_rows = [&](const float* a, const float* b, int nr) {
+    for (int r16 = 0; r16 < nr; r16 += 16) {
+#pragma unroll
+      for (int rr = r16; rr < r16 + 16; ++rr) {
+        float am[TM], bn[TN];
+        ldv<TM>(a + rr * TILE + ty * TM, am);
+        ldv<TN>(b + rr * TILE + tx * TN, bn);
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int q = 0; q < TN; ++q) acc[i][q] = fmaf(am[i], bn[q], acc[i][q]);
+      }
+    }
+  };
+  if constexpr (kAsync) {
+    const float* A = static_cast<const float*>(jb.A);
+    const float* Bm = static_cast<const float*>(jb.Bm);
+    auto stage = [&](int r0, int buf) {
+      wg_stage<T, TILE, CHUNK>(As + buf * CHUNK * TILE, A, A ? jb.M : 1, m0, r0, r_end);
+      wg_stage<T, TILE, CHUNK>(Bs + buf * CHUNK * TILE, Bm, jb.N, n0, r0, r_end);
+    };
+    if (r_begin < r_end) stage(r_begin, 0);
+    cp_commit();
+    if (r_begin + CHUNK < r_end) stage(r_begin + CHUNK, 1);
+    cp_commit();
+    for (int r0 = r_begin, buf = 0; r0 < r_end; r0 += CHUNK, buf ^= 1) {
+      cp_wait<1>();
+      __syncthreads();
+      sum_rows(As + buf * CHUNK * TILE, Bs + buf * CHUNK * TILE, min(CHUNK, r_end - r0));
+      __syncthreads();
+      if (r0 + 2 * CHUNK < r_end) stage(r0 + 2 * CHUNK, buf);
+      cp_commit();
+    }
+    cp_wait<0>();
+    return;
+  }
+  constexpr int kPer = CHUNK * TILE / T;
+  float pa[kPer], pb[kPer];
+  auto fetch = [&](int r0) {
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      const int i = threadIdx.x + e * T, rr = i / TILE, c = i - rr * TILE;
+      const int r = r0 + rr, m = m0 + c, n = n0 + c;
+      if constexpr (kFlags) {
+        float av = 0.f, bv = 0.f;
+        if (r < r_end && m < jb.M) {
+          const size_t ia = (size_t)r * jb.M + m;
+          av = !jb.A     ? 1.f
+               : jb.a_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(jb.A)[ia])
+                           : static_cast<const float*>(jb.A)[ia];
+        }
+        if (r < r_end && n < jb.N) {
+          const size_t ib = (size_t)r * jb.N + n;
+          bv = jb.b_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(jb.Bm)[ib])
+                         : static_cast<const float*>(jb.Bm)[ib];
+        }
+        pa[e] = jb.bf16 ? round_bf16(av) : av;
+        pb[e] = jb.bf16 ? round_bf16(bv) : bv;
+      } else {
+        const float* A = static_cast<const float*>(jb.A);
+        const float* Bm = static_cast<const float*>(jb.Bm);
+        pa[e] = (r < r_end && m < jb.M) ? (A ? A[(size_t)r * jb.M + m] : 1.f) : 0.f;
+        pb[e] = (r < r_end && n < jb.N) ? Bm[(size_t)r * jb.N + n] : 0.f;
+      }
+    }
+  };
+  if (r_begin < r_end) fetch(r_begin);
+  for (int r0 = r_begin; r0 < r_end; r0 += CHUNK) {
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      const int i = threadIdx.x + e * T;
+      As[i] = pa[e];
+      Bs[i] = pb[e];
+    }
+    __syncthreads();
+    if (r0 + CHUNK < r_end) fetch(r0 + CHUNK);
+    sum_rows(As, Bs, min(CHUNK, r_end - r0));
+    __syncthreads();
+  }
+}
+
 template <typename Tag, bool kFlags>
 __global__ void __launch_bounds__(kWgThreads) wgrad_kernel(const WgradArgs args) {
-  __shared__ __align__(16) float As[kWgChunk][kWgTile];
-  __shared__ __align__(16) float Bs[kWgChunk][kWgTile];
+  __shared__ __align__(16) float As[kWgChunk * kWgTile];
+  __shared__ __align__(16) float Bs[kWgChunk * kWgTile];
   int j = 0;
   while (j + 1 < args.njobs && (int)blockIdx.x >= args.jobs[j + 1].first_block) ++j;
   const WgradJob jb = args.jobs[j].job;
@@ -88,65 +281,7 @@ __global__ void __launch_bounds__(kWgThreads) wgrad_kernel(const WgradArgs args)
   const int r_begin = args.partial ? seg * args.seg_rows : 0;
   const int R = args.partial ? min(args.R, r_begin + args.seg_rows) : args.R;
   float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
-  // the next chunk's values are loaded into registers while this chunk's
-  // products run; each is staged as the job's flags say
-  constexpr int kPer = kWgChunk * kWgTile / kWgThreads;
-  float pa[kPer], pb[kPer];
-  auto fetch = [&](int r0) {
-#pragma unroll
-    for (int e = 0; e < kPer; ++e) {
-      const int i = threadIdx.x + e * kWgThreads, rr = i / kWgTile, c = i - rr * kWgTile;
-      const int r = r0 + rr, m = m0 + c, n = n0 + c;
-      if constexpr (kFlags) {
-        float av = 0.f, bv = 0.f;
-        if (r < R && m < jb.M) {
-          const size_t ia = (size_t)r * jb.M + m;
-          av = !jb.A     ? 1.f
-               : jb.a_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(jb.A)[ia])
-                           : static_cast<const float*>(jb.A)[ia];
-        }
-        if (r < R && n < jb.N) {
-          const size_t ib = (size_t)r * jb.N + n;
-          bv = jb.b_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(jb.Bm)[ib])
-                         : static_cast<const float*>(jb.Bm)[ib];
-        }
-        pa[e] = jb.bf16 ? round_bf16(av) : av;
-        pb[e] = jb.bf16 ? round_bf16(bv) : bv;
-      } else {
-        const float* A = static_cast<const float*>(jb.A);
-        const float* Bm = static_cast<const float*>(jb.Bm);
-        pa[e] = (r < R && m < jb.M) ? (A ? A[(size_t)r * jb.M + m] : 1.f) : 0.f;
-        pb[e] = (r < R && n < jb.N) ? Bm[(size_t)r * jb.N + n] : 0.f;
-      }
-    }
-  };
-  if (r_begin < R) fetch(r_begin);
-  for (int r0 = r_begin; r0 < R; r0 += kWgChunk) {
-#pragma unroll
-    for (int e = 0; e < kPer; ++e) {
-      const int i = threadIdx.x + e * kWgThreads, rr = i / kWgTile;
-      As[rr][i - rr * kWgTile] = pa[e];
-      Bs[rr][i - rr * kWgTile] = pb[e];
-    }
-    __syncthreads();
-    if (r0 + kWgChunk < R) fetch(r0 + kWgChunk);
-#pragma unroll
-    for (int rr = 0; rr < kWgChunk; ++rr) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[rr][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[rr][tx * 4]);
-      const float am[4] = {av.x, av.y, av.z, av.w};
-      const float bn[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(am[i], bn[q], acc[i][q]);
-    }
-    __syncthreads();
-  }
+  wgrad_tile<kWgThreads, kWgTile, kWgChunk, kFlags>(jb, m0, n0, r_begin, R, As, Bs, acc);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int m = m0 + ty * 4 + i;

@@ -1274,21 +1274,54 @@ def test_vae_wide_kernel_matches_plain_f32(dev, case, zp, monkeypatch):
 
 from classifying_vae_lstm_tpu_torch.ops import vae_dense as vd  # noqa: E402
 
+# each case with the f32 layout ops/vae_dense.plan gives it (resident: the
+# weights in every block's shared memory; streamed: through the ring)
 VAE_DENSE_CASES = {
-    "ragged_tile": dict(B=11, D=16, Cw=8, H=24, L=3, K=4),  # B not a multiple of 4 rows
-    "no_x_prev": dict(B=12, D=16, Cw=8, H=24, L=3, K=4, use_xp=False),
-    "two_column_passes": dict(B=9, D=300, Cw=40, H=280, L=5, K=13),  # D, H > 256 threads
-    "one_row": dict(B=1, D=12, Cw=6, H=10, L=2, K=2),
+    "ragged_tile": dict(B=11, D=16, Cw=8, H=24, L=3, K=4, layout="resident", rows=4),  # B % 4
+    "no_x_prev": dict(B=12, D=16, Cw=8, H=24, L=3, K=4, use_xp=False, layout="resident",
+                      rows=4),
+    # D, H > 256 threads: the weights no longer fit a block
+    "two_column_passes": dict(B=9, D=300, Cw=40, H=280, L=5, K=13, layout="streamed", rows=8),
+    "one_row": dict(B=1, D=12, Cw=6, H=10, L=2, K=2, layout="resident", rows=4),
+    # the jsball_vae widths with 13 keys at phase 15's batch
+    "training": dict(B=100, D=88, Cw=88, H=88, L=4, K=13, layout="resident", rows=4),
+    # more rows than one streamed tile, widths that are no multiple of 32
+    "streamed": dict(B=37, D=600, Cw=64, H=1400, L=6, K=5, layout="streamed", rows=8),
+    # the streamed layout's smaller tiles, each with a ragged last tile: 4
+    # rows a block at H=2,048; 2 at the f32 seq-concat width of the H=5,120
+    # checkpoints; 1 at D=7,000, and at Cw=14,400 in a ring of two slots
+    "streamed_four_rows": dict(B=9, D=1024, Cw=256, H=2048, L=16, K=13, layout="streamed",
+                               rows=4),
+    "streamed_two_rows": dict(B=5, D=1024, Cw=256, H=5120, L=16, K=13, layout="streamed",
+                              rows=2),
+    "streamed_one_row": dict(B=3, D=7000, Cw=64, H=96, L=4, K=5, layout="streamed", rows=1),
+    "streamed_one_row_two_slots": dict(B=4, D=16, Cw=14400, H=16, L=1, K=2, use_xp=False,
+                                       layout="streamed", rows=1),
+    # every weight starting off 16 bytes (a view one float into its storage)
+    "misaligned": dict(B=13, D=20, Cw=12, H=30, L=3, K=5, misalign=True, layout="resident",
+                       rows=4),
 }
 
 
-def _vae_dense_inputs(dev, B, D, Cw, H, L, K, use_xp=True, seed=0):
+def _vae_dense_inputs(dev, B, D, Cw, H, L, K, use_xp=True, seed=0, misalign=False,
+                      layout=None, rows=None):
     """Binary frames, Gaussian noise, weights of std 1/sqrt(fan_in) (the
-    scale of a trained or glorot-initialised model: pre-activations O(1))."""
+    scale of a trained or glorot-initialised model: pre-activations O(1));
+    with ``misalign`` every weight a view that starts one float into its
+    storage. ``layout`` and ``rows`` are the case's expected f32 layout and
+    rows a block (not inputs)."""
     rng = np.random.default_rng(seed)
     f = lambda *s, scale=1.0: torch.from_numpy(
         (scale * rng.standard_normal(s)).astype(np.float32)).to(dev)
-    m = lambda i, o: f(i, o, scale=i ** -0.5)
+
+    def m(i, o):
+        w = f(i, o, scale=i ** -0.5)
+        if not misalign:
+            return w
+        off = torch.empty(i * o + 1, device=dev)[1:].view(i, o)
+        off.copy_(w)
+        assert off.data_ptr() % 16 != 0
+        return off
     bits = lambda: torch.from_numpy((rng.random((B, D)) < 0.3).astype(np.float32)).to(dev)
     K2 = 2 * (K - 1)
     return (bits(), bits() if use_xp else None, f(B, K - 1), f(B, L), m(D, Cw),
@@ -1299,7 +1332,10 @@ def _vae_dense_inputs(dev, B, D, Cw, H, L, K, use_xp=True, seed=0):
 
 @pytest.mark.parametrize("case", sorted(VAE_DENSE_CASES))
 def test_vae_dense_kernels_match_plain(dev, case):
-    ins = _vae_dense_inputs(dev, **VAE_DENSE_CASES[case])
+    c = VAE_DENSE_CASES[case]
+    p = vd.plan(c["B"], c["D"], c["Cw"], c["H"], c["L"], c["K"], c.get("use_xp", True))
+    assert ("resident" if p.resident else "streamed", p.rows) == (c["layout"], c["rows"]), p
+    ins = _vae_dense_inputs(dev, **c)
     before = (vd.FWD_LAUNCHES, vd.BWD_LAUNCHES)
     outs = vd.vae_dense_fwd(*ins)
     torch.cuda.synchronize()
@@ -1324,7 +1360,9 @@ def test_vae_dense_kernels_match_plain(dev, case):
             continue
         assert g.shape == wv.shape, name
         _assert_bwd_close(g, wv, name)
-    assert (vd.FWD_LAUNCHES, vd.BWD_LAUNCHES) == (before[0] + 1, before[1] + 2)
+    # one launch a call in each direction (the backward's row pass and
+    # weight gradients meet at a grid barrier inside its one launch)
+    assert (vd.FWD_LAUNCHES, vd.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
 
 
 def test_vae_dense_gradients_on_cuda_match_cpu_plain(dev):
@@ -1356,11 +1394,47 @@ def test_vae_dense_gradients_on_cuda_match_cpu_plain(dev):
     before = (vd.FWD_LAUNCHES, vd.BWD_LAUNCHES)
     on_card = grads(dev)
     torch.cuda.synchronize()
-    assert (vd.FWD_LAUNCHES, vd.BWD_LAUNCHES) == (before[0] + 1, before[1] + 2)
+    assert (vd.FWD_LAUNCHES, vd.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
     on_cpu = grads("cpu")
     assert len(on_card) == len(on_cpu) == 1 + 16  # the loss; 8 dense layers x 2
     for i, (g, wv) in enumerate(zip(on_card, on_cpu)):
         _assert_bwd_close(g.cpu(), wv, f"loss / gradient {i}")
+
+
+@pytest.mark.parametrize("case", ["training", "streamed", "no_x_prev", "streamed_two_rows"])
+def test_vae_dense_f32_bitwise_repeatable_and_timed_by_part(dev, case):
+    """A second f32 call gives the same bits in both directions (every sum
+    in a fixed order, no atomics), at a resident and at streamed layouts,
+    and the kernels' own clock (``phase_ms``) times every part of one
+    launch, counted as a launch, and reports its grid: the forward's row
+    tiles, the backward's cooperative blocks (the row tiles or the
+    weight-gradient tiles, whichever are more, at most what the card
+    holds)."""
+    ins = _vae_dense_inputs(dev, **VAE_DENSE_CASES[case], seed=3)
+    outs, again = vd.vae_dense_fwd(*ins), vd.vae_dense_fwd(*ins)
+    assert all(torch.equal(a, b) for a, b in zip(outs, again))
+    (x, xp, eps_w, eps_z, whw, _, wwz, _, whx, whw2, _, wzz, _, wdw, wdxp, wdz, _, wxh, _) = ins
+    xhat, wargs, zargs, w, a1, a2, a3 = outs
+    rng = np.random.default_rng(4)
+    cot = [torch.from_numpy(rng.standard_normal(tuple(o.shape)).astype(np.float32)).to(dev)
+           for o in (xhat, wargs, zargs, w)]
+    res = (x, xp, eps_w, eps_z, a1, a2, a3, xhat, wargs, zargs, w, *cot,
+           whw, wwz, whx, whw2, wzz, wdw, wdxp, wdz, wxh)
+    got, again = vd.vae_dense_bwd(*res), vd.vae_dense_bwd(*res)
+    for g, a in zip(got, again):
+        assert (g is None and a is None) or torch.equal(g, a)
+    before = (vd.FWD_LAUNCHES, vd.BWD_LAUNCHES)
+    (fwd_parts, fwd_blocks), (bwd_parts, bwd_blocks) = (vd.phase_ms("fwd", *ins),
+                                                         vd.phase_ms("bwd", *res))
+    c = VAE_DENSE_CASES[case]
+    p = vd.plan(c["B"], c["D"], c["Cw"], c["H"], c["L"], c["K"], c.get("use_xp", True))
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    want = max(p.tiles, p.wg_tiles)
+    assert fwd_blocks == p.tiles and min(want, n_sm) <= bwd_blocks <= want
+    assert tuple(fwd_parts) == vd.FWD_PARTS and tuple(bwd_parts) == vd.BWD_PARTS
+    assert sum(fwd_parts.values()) > 0 and sum(bwd_parts.values()) > 0
+    assert all(v >= 0 for v in (*fwd_parts.values(), *bwd_parts.values()))
+    assert (vd.FWD_LAUNCHES, vd.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
 
 
 def _bf16_inputs(ins):

@@ -7,18 +7,18 @@
 ``save`` runs, on the card, the CUDA kernels of the checkout at ``--root``
 (default: this one) that a change to shared sources could move — the f32
 forwards of ``csrc/lstm_seq.cu`` and the f32 walks, the two-cell forward and
-backward in f32 and bf16, both dense-stack forwards and the f32 dense-stack
-backward, the int8 cl_vrnn generation kernel (probabilities with u = 1 and
-sampled frames at H=1,536, 64 songs x (32 + 256) steps) and the f32 / bf16
-one (on those weights, and sampled frames at H=256), the int8 cl_vae
+backward in f32 and bf16, both dense-stack forwards and backwards, the
+int8 cl_vrnn generation kernel (probabilities with u = 1 and sampled frames
+at H=1,536, 64 songs x (32 + 256) steps) and the f32 / bf16 one (on those
+weights, and sampled frames at H=256), the int8 cl_vae
 generation kernel (D=1,024 with x_prev, 64 songs x 64 steps: H=4,160, whose
 weight slices stay in shared memory, and H=5,120 and 7,808, which stream
 some), the f32 / bf16 cl_vae generation kernel at the widths the
 shared-memory one refuses (f32 at D=88, H=256; bf16 at D=1,024, H=5,120,
 64 songs x 64 steps) — on inputs made from a fixed seed, and saves every
-output. It also calls the bf16 dense-stack forward, the int8 and the wide
-f32 / bf16 cl_vae kernels and the f32 LSTM forwards a second time and
-exits 1 unless each gives the same bits again.
+output. It also calls both dense-stack forwards and the f32 backward, the
+int8 and the wide f32 / bf16 cl_vae kernels and the f32 LSTM forwards a
+second time and exits 1 unless each gives the same bits again.
 ``compare`` reports, per output, whether two saved runs are bitwise equal,
 and exits 1 if any differs. Run ``save`` once per checkout (each in its own
 process: both define the same package) on one card, then ``compare``.
@@ -108,13 +108,21 @@ def _vae(out: dict):
         cot = [f(*t.shape, scale=1e-2) for t in (xhat, wargs, zargs, w)]
         mats = (ws["whw"], ws["wwz"], ws["whx"], ws["whw2"], ws["wzz"], ws["wdw"], ws["wdxp"],
                 ws["wdz"], ws["wxh"])
-        out[f"vae_bwd_f32_{label}"] = vd.vae_dense_bwd(x, xp, ins[2], ins[3], a1, a2, a3, xhat,
-                                                       wargs, zargs, w, *cot, *mats)
+        res = (x, xp, ins[2], ins[3], a1, a2, a3, xhat, wargs, zargs, w, *cot, *mats)
+        out[f"vae_bwd_f32_{label}"] = vd.vae_dense_bwd(*res)
+        again[f"vae_fwd_f32_{label}"] = lambda ins=ins: vd.vae_dense_fwd(*ins)
+        again[f"vae_bwd_f32_{label}"] = lambda res=res: vd.vae_dense_bwd(*res)
         b16 = list(ins)
         for i in (0, 1, 4, 6, 8, 9, 11, 13, 14, 15, 17):
             b16[i] = b16[i].bfloat16()
         out[f"vae_fwd_bf16_{label}"] = vd.vae_dense_fwd(*b16)
         again[f"vae_fwd_bf16_{label}"] = lambda b16=b16: vd.vae_dense_fwd(*b16)
+        # the bf16 backward, whose weight gradients run csrc/wgrad.cuh's
+        # kernel with its bf16 flags, on the f32 run's residuals
+        b16_res = list(res)
+        for i in (0, 1, 15, 16, 17, 18, 19, 20, 21, 22, 23):
+            b16_res[i] = b16_res[i].bfloat16()
+        out[f"vae_bwd_bf16_{label}"] = vd.vae_dense_bwd(*b16_res)
     return again
 
 

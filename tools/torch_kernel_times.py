@@ -6,8 +6,8 @@ the shapes of ``chip_smoke.py``, for comparing two checkouts on one card in
 turns.
 
     python3 tools/torch_kernel_times.py [--root CHECKOUT] [--reps 5]
-        [--parts two_cell,generation,vae_dense,int8_vae,wide_vae,wide_vae_buckets,
-                 lstm_f32_fwd]
+        [--parts two_cell,generation,vae_dense,vae_dense_f32,int8_vae,wide_vae,
+                 wide_vae_buckets,lstm_f32_fwd]
         [--against PARENT]
 
 Runs the kernels of the checkout at ``--root`` (default: this one; run each
@@ -21,7 +21,12 @@ glorot weights in bf16 at H=512 (phase 3: L=8, 10 keys), 1,536 and 2,048
 16, 64 songs x 32 ... 256 steps) of the f32 and the bf16 H=512 ones; the
 bf16 dense-stack forward (``ops/vae_dense.vae_dense_fwd``) at phase 18's
 shapes (B=100, D=1,024, Cw=256, H=1,024, L=16, K=13; B=1,024, D=976 with
-x_prev); int8 cl_vae generation
+x_prev); the f32 dense-stack forward and backward (``vae_dense_f32``) at
+phase 14's training shape (B=100, D=Cw=H=88, L=4, K=13, x_prev) and wide
+shape (B=1,024, D=976, Cw=256, H=1,024, L=16), timed over 20 and 2 times
+``--reps`` calls, with the checkout's plan and the kernels' own clock of
+each part and grid (``vae_dense.phase_ms``) where it has them; int8 cl_vae
+generation
 (``ops/cuda_generate_vae.generate_cl_vae_batch_cuda``, sampled frames) at
 phase 29's shapes (D=1,024, L=16, 64 songs x 256 steps: H=5,120 with and
 without use_z_prior, H=4,160 with x_prev, whose weight slices stay in shared
@@ -204,6 +209,49 @@ def _vae_dense(reps):
                g(D, H) if use_xp else None, g(L, H), z(H), g(H, D), z(D))
         _line("vae_dense_fwd bf16", lambda: vd.vae_dense_fwd(*ins), reps, B=B, D=D, H=H,
               use_x_prev=use_xp)
+
+
+def _vae_dense_f32(reps):
+    """The f32 dense stack (``csrc/vae_dense.cu``), both directions, at
+    phase 14's training shape (B=100, D=Cw=H=88, L=4, K=13, x_prev) and wide
+    shape (B=1,024, D=976, Cw=256, H=1,024, L=16, K=13, x_prev); where the
+    checkout has them, its plan and the kernels' own clock of each part (and
+    the blocks of each launch, where ``phase_ms`` returns them)."""
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.ops import vae_dense as vd
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED)
+    for label, (B, D, Cw, H, L, K), n in (("training", (100, 88, 88, 88, 4, 13), 20 * reps),
+                                          ("wide", (1024, 976, 256, 1024, 16, 13), 2 * reps)):
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+        g = lambda i, o: t(_glorot(rng, i, o))
+        b = lambda m: t(0.1 * rng.standard_normal(m))
+        bits = lambda: t(rng.random((B, D)) < 0.1)
+        K2 = 2 * (K - 1)
+        ins = (bits(), bits(), t(rng.standard_normal((B, K - 1))), t(rng.standard_normal((B, L))),
+               g(D, Cw), b(Cw), g(Cw, K2), b(K2), g(D, H), g(K, H), b(H), g(H, 2 * L), b(2 * L),
+               g(K, H), g(D, H), g(L, H), b(H), g(H, D), b(D))
+        xhat, wargs, zargs, w, a1, a2, a3 = vd.vae_dense_fwd_plain(*ins)
+        cot = [t(1e-2 * rng.standard_normal(tuple(o.shape))) for o in (xhat, wargs, zargs, w)]
+        res = (*ins[:4], a1, a2, a3, xhat, wargs, zargs, w, *cot, *(ins[i] for i in
+               (4, 6, 8, 9, 11, 13, 14, 15, 17)))
+        shape = dict(B=B, D=D, Cw=Cw, H=H, L=L, K=K, use_x_prev=True)
+        extra = {}
+        if hasattr(vd, "plan"):
+            extra["plan"] = {k: int(v) for k, v in vd.plan(B, D, Cw, H, L, K, True)._asdict()
+                             .items()}
+        for direction, fn, args in (("fwd", vd.vae_dense_fwd, ins),
+                                    ("bwd", vd.vae_dense_bwd, res)):
+            parts = {}
+            if hasattr(vd, "phase_ms"):
+                got = vd.phase_ms(direction, *args)
+                ms, blocks = got if isinstance(got, tuple) else (got, None)  # a checkout's form
+                parts = {"parts_ms": {k: round(v, 4) for k, v in ms.items()}, "blocks": blocks}
+            _line(f"vae_dense_{direction} f32 {label}", lambda: fn(*args), n, **shape, **extra,
+                  **parts)
 
 
 def _int8_vae(reps):
@@ -456,6 +504,7 @@ def _lstm_f32_fwd(reps):
 PARTS = {"two_cell": lambda reps, root: _two_cell(reps),
          "generation": lambda reps, root: _generation(reps, root),
          "vae_dense": lambda reps, root: _vae_dense(reps),
+         "vae_dense_f32": lambda reps, root: _vae_dense_f32(reps),
          "int8_vae": lambda reps, root: _int8_vae(reps),
          "wide_vae": lambda reps, root: _wide_vae(reps),
          "wide_vae_buckets": lambda reps, root: _wide_vae_buckets(reps),
