@@ -22,7 +22,9 @@ failure:
    tensor-core (IMMA) instructions and no ``__dp4a`` (IDP), as does the
    int8 instance of ``csrc/generate_cl_vae.cu``'s
    ``generate_vae_coop_kernel``, whose bf16 instance holds HMMA and whose
-   f32 instance none; ``csrc/lstm_seq.cu`` (the f32 forward): none;
+   f32 instance none; its ``generate_cluster_kernel``'s four instances
+   (f32 and bf16) none, TF32 included; ``csrc/lstm_seq.cu`` (the f32
+   forward): none;
 2. kernel vs plain version, f32, on the trained ``artifacts/jsball_vrnn4``
    weights at the largest serving bucket (64 songs, 32 seed + 256 steps):
    probabilities with u=1 within 1e-5, and sampled frames equal up to each
@@ -82,14 +84,20 @@ failure:
    set to 0 just before), then ``xla`` (plain PyTorch on the card, same
    seed): the two NLLs within 1e-4; a profile of one evaluation batch; then
    phase 9's checkpoint evaluated on ``Piano-midi_all``;
-11. the cl_vae generation kernel vs its plain version, f32, on the trained
-   ``artifacts/jsball_vae`` weights (D=H=88, L=4, K=10, use_x_prev) at the
-   largest serving bucket (64 single-frame seeds, 256 steps), with and
-   without ``use_z_prior``: probabilities with u=1 within 1e-5, frames equal
-   up to each song's first near-tie; kernel and plain times with CUDA events
-   beside the bound; then bf16 weights at hidden 256 (seeded glorot-scale
-   weights, where f32 ones would not fit shared memory): probabilities with
-   u=1, max within 2e-2, mean within 2e-3;
+11. the cl_vae generation kernel (the cluster kernel, one block a cluster)
+   vs its plain version, f32, on the trained ``artifacts/jsball_vae``
+   weights (D=H=88, L=4, K=10, use_x_prev) at the largest serving bucket (64
+   single-frame seeds, 256 steps), with and without ``use_z_prior``:
+   probabilities with u=1 within 1e-5, frames equal up to each song's first
+   near-tie; kernel and plain times with CUDA events beside the bound, the
+   profiler's device time, the plan the wrapper launches (blocks a cluster,
+   threads, waves),
+   the wrapper's operands timed apart, the kernel's own clock of each part
+   of a step, a second call bitwise equal, the serving-bucket grid; then
+   bf16 weights at hidden 256 (seeded glorot-scale weights; one block holds
+   them, the f32 ones take two): probabilities with u=1, max within 2e-2,
+   mean within 2e-3, the same lines; every launch of the phase counted by
+   the cluster kernel's count;
 12. cl_vae serving: the port's ``cli.serve`` on ``jsball_vae`` with
    ``--dynamic_batching --warmup full`` answers /generate over HTTP (solo,
    key-filtered and MIDI-seeded requests, a burst of 8); the cl_vae launch
@@ -123,18 +131,23 @@ failure:
    ``Piano-midi_Cs`` (its whole test split, 64 samples, batches of 200) and
    of phase 15's checkpoint on the training corpus; ``cli.cl_vae_sample`` on
    that checkpoint with true keys, one generation launch;
-17. the cl_vae generation kernels of every config the shared-memory one
-   refuses vs their plain version at 64 single-frame seeds x 256 steps, on
-   seeded glorot weights with 13 keys: the cooperative kernel in f32 at
-   H=512 (D=88, L=4, use_x_prev, with and without use_z_prior) and the wide
-   kernel at H=256 and without hidden layers, probabilities with u=1 within
-   1e-5 and frames equal up to each song's first near-tie; the cooperative
-   kernel in bf16 at H=512, at the seq-concat width (D=H=1024, L=16, no
-   x_prev) and at D=1,024, H=5,120 with and without x_prev, probabilities
-   within max 2e-2 / mean 2e-3; each kernel's count equals its launches in
-   the phase, and jsball_vae's width still takes the shared-memory kernel;
-   kernel and plain times beside each bound, the layout each takes and the
-   cooperative kernel's own clock of each part of a step at H=5,120;
+17. the cl_vae generation kernels of every config past one block's shared
+   memory, and without hidden layers, vs their plain version at 64
+   single-frame seeds x 256 steps, on seeded glorot weights with 13 keys:
+   the cluster kernel in f32 at H=256 and H=512 (D=88, L=4, use_x_prev,
+   with and without use_z_prior; 2 and 4 blocks a cluster) and without
+   hidden layers, and the wide kernel without hidden layers at D=1,024,
+   L=32, no x_prev,
+   probabilities with u=1 within 1e-5 and frames equal up to each song's
+   first near-tie; the cluster kernel in bf16 at H=512 and the cooperative
+   kernel in bf16 at the seq-concat width (D=H=1024, L=16, no x_prev) and
+   at D=1,024, H=5,120 with and without x_prev, probabilities within max
+   2e-2 / mean 2e-3; each kernel's count equals its launches in the phase,
+   and jsball_vae's width takes the cluster kernel on one block; kernel and
+   plain times beside each bound, the layout each takes, the cluster
+   kernel's plan, device time, operands, clock and repeat bits at each of
+   its shapes, and the cooperative kernel's own clock of each part of a
+   step at H=5,120;
 18. the bf16 mode of both dense-stack kernels vs their bf16 plain versions
    at phase 19's training shape (D=1024, Cw=256, H=1024, L=16, K=13, B=100)
    and at phase 14's seq-concat shape: forward within 1e-2 x max(1,
@@ -160,9 +173,11 @@ failure:
    ``cli.evaluate --family cl_vae`` of the checkpoint; then a bf16
    H=512 model at D=88 trained
    through the kernels, sampled by ``cli.cl_vae_sample`` and served by
-   ``cli.serve`` through the cooperative kernel (launches equal to the
-   engine's device calls), and a model without hidden layers sampled
-   through the wide kernel;
+   ``cli.serve`` through the cluster kernel (two blocks a cluster; launches
+   equal to the engine's device calls), a model without hidden layers
+   sampled through the cluster kernel, and a seq-concat model without hidden
+   layers (``--seq_length 16``, L=32: D=1,024, whose z heads 8 blocks do
+   not hold) sampled through the wide kernel;
 20. the bf16 stream mode of the three whole-sequence LSTM kernels (the
    tensor-core route of ``csrc/lstm_seq_tc.cu``) vs their
    bf16 plain versions at H=1,024 (the seeded Keras init, 13 keys):
@@ -449,6 +464,9 @@ GEN_BF16, GEN_F32 = ("generate_kernelI13__nv_bfloat16",), ("generate_kernelIf",)
 # codes, bf16 and f32 operands
 VAE_COOP_I8, VAE_COOP_BF16, VAE_COOP_F32 = ("generate_vae_coop_kernelIa",), (
     "generate_vae_coop_kernelI13__nv_bfloat16",), ("generate_vae_coop_kernelIf",)
+# the cluster cl_vae kernel's instances (f32 and bf16, each with and without
+# the register path), FFMA only in both modes
+VAE_CLUSTER = ("generate_cluster_kernelIf", "generate_cluster_kernelI13__nv_bfloat16")
 # the bf16 dense-stack backward's product kernels (csrc/vae_dense_tc.cu), on
 # the tensor cores; the f32 LSTM full backward's (csrc/lstm_bwd_f32.cu), FFMA
 VAE_TC = ("vae_tc_product_kernel", "vae_tc_dw_kernel")
@@ -529,6 +547,12 @@ def phase_tensor_cores():
             f"the bf16 cooperative cl_vae kernel runs without tensor cores: {coop16}")
     require(all(v and not any(v) for v in (*coop32.values(), *fwd32.values())),
             f"an f32 kernel holds tensor-core instructions: {coop32} {fwd32}")
+    cl = hmma_counts("generate_cl_vae", VAE_CLUSTER)
+    print(f"tensor-core instructions (HMMA, TF32 included) in generate_cluster_kernel: f32 "
+          f"{cl[VAE_CLUSTER[0]]}, bf16 {cl[VAE_CLUSTER[1]]} (FFMA in both modes)")
+    require(len(cl[VAE_CLUSTER[0]]) == 2 and len(cl[VAE_CLUSTER[1]]) == 2
+            and not any(cl[VAE_CLUSTER[0]] + cl[VAE_CLUSTER[1]]),
+            f"the cluster cl_vae kernel's instances hold tensor-core instructions: {cl}")
     vae16, lstm32 = hmma_counts("vae_dense_tc", VAE_TC), hmma_counts("lstm_bwd_f32", LSTM_BWD_F32)
     print(f"tensor-core instructions in csrc/vae_dense_tc.cu's products {vae16}; in "
           f"csrc/lstm_bwd_f32.cu {lstm32}")
@@ -1242,10 +1266,12 @@ def device_profile(fn, n, wall_ms, unit, label, key):
         print(f"profiler: not measured ({e!r})")
 
 
-def device_ms_per_call(fn, n, key):
+def device_ms_per_call(fn, n, key, launches=None):
     """(device ms per call of the kernels whose name holds ``key``, device
     ms per call of all kernels) from ``torch.profiler`` over n calls of
-    ``fn`` after one warm-up call; None where it records no device time."""
+    ``fn`` after one warm-up call; None where it records no device time, or
+    where ``launches`` (the launches of those kernels a call) is given and
+    the profiler kept another number than n x launches of them."""
     import torch
 
     try:
@@ -1253,6 +1279,11 @@ def device_ms_per_call(fn, n, key):
         torch.cuda.synchronize()
         rows, dev_us = _device_rows(fn, n)
         if not rows:
+            return None
+        kept = sum(e.count for e in rows if key in e.key)
+        if launches is not None and kept != n * launches:
+            print(f"profiler: not measured (it kept {kept} of the {n * launches} launches of "
+                  f"{key})")
             return None
         per = lambda es: sum(dev_us(e) for e in es) / (n * 1e3)
         return per(e for e in rows if key in e.key), per(rows)
@@ -1625,11 +1656,50 @@ def vae_bound_ms(cfg, B, nsteps, weight_bytes, peak=PEAK_F32_FLOPS) -> tuple[flo
     return roofline_ms(fmas, stream_bytes + weight_bytes, peak)
 
 
+def cluster_line(label, params, cfg, seeds, nsteps, eps, u, ws, mode, peak, reps=20):
+    """The cluster kernel at one shape: its plan, CUDA-event ms a call
+    around the wrapper, the profiler's device ms of the kernel a call, the
+    wrapper's packing of the weights apart (once a signature; the per-song
+    folds are formed in the kernel's prologue), its own clock of each part
+    of a step, a second call bitwise equal, the bound (the mode's rate).
+    Returns (ms, device ms or None, bound ms, bound_by, plan)."""
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae as cgv
+
+    B = seeds.shape[0]
+    plan = cgv.launch_plan(cfg, B, mode, seeds.device)
+    fn = lambda: cgv.generate_cl_vae_batch_cuda(params, cfg, seeds, nsteps, eps, u, ws,
+                                                return_probs=True)
+    first = fn()
+    same_bits(lambda: (fn(),), (), (first,), ("probabilities",), f"{label} generation")
+    k_ms = time_ms(fn, reps, warm=1)
+    dv = device_ms_per_call(fn, 3, "generate_cluster_kernel", launches=1)
+    cgv._PACKED.clear()
+    pack_ms = time_ms(lambda: (cgv._PACKED.clear(),
+                               cgv.cluster_operands(params, cfg, mode, plan, seeds.device)),
+                      reps=5, warm=1)
+    parts = cgv.cluster_phase_ms(params, cfg, seeds, nsteps, eps, u, ws, mode=mode)
+    parts.pop("plan")
+    print(f"{label}: a step's parts, us (block 0's clock, thread 0) "
+          + "; ".join(f"{n} {v * 1e3 / nsteps:.3f}" for n, v in parts.items()))
+    w = cgv._pack(params, cfg, ws, mode)
+    wbytes = sum(v.numel() * v.element_size() for n, v in w.items()
+                 if v is not None and n not in ("encb", "decb", "zb", "xb"))
+    b_ms, b_by = vae_bound_ms(cfg, B, nsteps, wbytes, peak)
+    print(f"{label}: generate_cluster_kernel {k_ms:.4f} ms a call (CUDA events), device "
+          f"{f'{dv[0]:.4f}' if dv else 'not measured'} ms (profiler); bound {b_ms:.4f} ms "
+          f"({b_by}, {mode} rate); plan C={plan['C']} blocks, one song a cluster, "
+          f"T={plan['T']} g={plan['g']} register path {plan['regs']}, {plan['clusters']} "
+          f"clusters in {plan['waves']} wave(s), "
+          f"{plan['bytes']} B of shared memory a block; the wrapper's packing of the weights "
+          f"apart {pack_ms:.4f} ms (once a signature)")
+    return k_ms, (dv[0] if dv else None), b_ms, b_by, plan
+
+
 def phase_vae(dev):
-    """The cl_vae generation kernel against its plain version: f32 on the
-    trained jsball_vae weights at the largest serving bucket, then bf16 at
-    a seeded width where f32 weights would not fit. Returns the kernel-table
-    fields of the f32 run."""
+    """The cl_vae generation kernel (the cluster kernel) against its plain
+    version: f32 on the trained jsball_vae weights at the largest serving
+    bucket, then bf16 at a seeded width of one block's bf16 weights. Returns
+    the kernel-table fields of the f32 run."""
     import numpy as np
     import torch
 
@@ -1643,6 +1713,8 @@ def phase_vae(dev):
     params = params_from_numpy(raw, dev)
     B, nsteps = 64, 256
     D, L = cfg.original_dim, cfg.latent_dim
+    require(cgv.kernel_for(cfg) == "generate_cl_vae_cluster" and cgv.cluster_plan(cfg, B)["C"] == 1,
+            f"jsball_vae routes to {cgv.kernel_for(cfg)}")
     seeds = torch.from_numpy(np.ascontiguousarray(seed_windows(B)[:, 0])).to(dev)
     ws = infer_w_cl_vae(params, seeds)
     rng = np.random.default_rng(SEED + 4)
@@ -1650,6 +1722,7 @@ def phase_vae(dev):
     u = torch.from_numpy(rng.random((B, nsteps, D), dtype=np.float32)).to(dev)
     u1 = torch.ones_like(u)
     errs, times = {}, {}
+    cgv.LAUNCHES = cgv.CLUSTER_LAUNCHES = cgv.COOP_LAUNCHES = cgv.WIDE_LAUNCHES = 0
     for zp in (False, True):
         kern = lambda uu, rp: cgv.generate_cl_vae_batch_cuda(
             params, cfg, seeds, nsteps, eps, uu, ws, use_z_prior=zp, return_probs=rp)
@@ -1671,14 +1744,11 @@ def phase_vae(dev):
                      time_ms(lambda: plain(u, False), reps=3, warm=1),
                      time_ms(lambda: plain(u, False), reps=3),
                      time_ms(lambda: kern(u, False), reps=20))
-    w = cgv._pack(params, cfg, ws, "f32")
-    wbytes = sum(w[k].numel() * w[k].element_size()
-                 for k in ("wke", "wz_t", "bz", "wkd_x", "wkd_z", "wx", "bx") if w[k] is not None)
-    b_ms, b_by = vae_bound_ms(cfg, B, nsteps, wbytes)
     for zp, (k1, p1, p2, k2) in times.items():
         print(f"cl_vae f32 kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.3f} / {p2:.3f} ms "
-              f"(use_z_prior={zp}), bound {b_ms:.4f} ms ({b_by}) at B={B} nsteps={nsteps} "
-              f"H={cfg.intermediate_dim}; shared memory {cgv.smem_bytes(cfg)} B per block")
+              f"(use_z_prior={zp}) at B={B} nsteps={nsteps} H={cfg.intermediate_dim}")
+    k_ms, dv, b_ms, b_by, _ = cluster_line("cl_vae f32 jsball_vae 64 x 256", params, cfg, seeds,
+                                           nsteps, eps, u, ws, "f32", PEAK_F32_FLOPS)
     grid = {}  # the serving buckets (songs x steps), each after a warm-up launch
     for b in (1, 4, 16, 64):
         for t in (32, 64, 128, 256):
@@ -1688,12 +1758,13 @@ def phase_vae(dev):
                 params, cfg, sb, t, args[0], args[1], wb), reps=5), 4)
     print(f"cl_vae f32 kernel ms per serving bucket (songs x steps): {json.dumps(grid)}")
 
-    # bf16 weights at H=256, where the f32 ones would overflow shared memory
+    # bf16 weights at H=256: one block holds them (f32 ones take two)
     H, K = 256, cfg.n_classes
     bcfg = cl_vae.Config(original_dim=D, intermediate_dim=H, latent_dim=L,
                          intermediate_class_dim=88, n_classes=K, use_x_prev=True,
                          bf16_compute=True)
-    require(not cgv.fits(bcfg, "f32") and cgv.fits(bcfg, "bf16"), "bf16 width choice")
+    require(cgv.cluster_plan(bcfg, B, "bf16")["C"] == 1
+            and cgv.cluster_plan(bcfg, B, "f32")["C"] == 2, "bf16 width choice")
     brng = np.random.default_rng(SEED + 5)
 
     def glorot(i, o):
@@ -1710,20 +1781,24 @@ def phase_vae(dev):
     torch.cuda.synchronize()
     d = (pk - pp).abs()
     mx, mean = d.max().item(), d.mean().item()
-    k_ms = time_ms(lambda: run(cgv.generate_cl_vae_batch_cuda), reps=10, warm=1)
     print(f"cl_vae bf16 H={H} probs, u=1: max {mx:.3e} (limit 2e-2), mean {mean:.3e} (limit "
-          f"2e-3); kernel {k_ms:.4f} ms at B={B} nsteps={nsteps}; shared memory "
-          f"{cgv.smem_bytes(bcfg)} B per block")
+          f"2e-3)")
     require(torch.isfinite(pk).all().item(), "cl_vae bf16 kernel probabilities not finite")
     require(mx <= 2e-2 and mean <= 2e-3, f"cl_vae bf16 probabilities differ: max {mx}, "
                                         f"mean {mean}")
-    k_ms, p_ms = times[False][0], times[False][1]
-    return {"max_abs_err": max(errs.values()), "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-            "bound_by": b_by}
+    cluster_line(f"cl_vae bf16 H={H} 64 x 256", bparams, bcfg, seeds, nsteps, eps, u, bws, "bf16",
+                 PEAK_BF16_FLOPS, reps=10)
+    print(f"phase 11: {cgv.CLUSTER_LAUNCHES} launches of the cluster kernel, {cgv.LAUNCHES} f32 / "
+          f"bf16 launches in all")
+    require(cgv.CLUSTER_LAUNCHES == cgv.LAUNCHES > 0 and cgv.COOP_LAUNCHES == cgv.WIDE_LAUNCHES == 0,
+            f"phase 11's launches left the cluster kernel: cluster {cgv.CLUSTER_LAUNCHES}, all "
+            f"{cgv.LAUNCHES}, cooperative {cgv.COOP_LAUNCHES}, wide {cgv.WIDE_LAUNCHES}")
+    return {"max_abs_err": max(errs.values()), "ms": k_ms, "plain_ms": times[False][1],
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def phase_vae_serve():
-    """cl_vae serving through ``cli.serve``: one launch of the shared-memory
+    """cl_vae serving through ``cli.serve``: one launch of the cluster
     kernel per engine device call. Returns the launches."""
     import base64
 
@@ -1737,7 +1812,7 @@ def phase_vae_serve():
         MidiWriter().dump_sequence_to_midi(roll, os.path.join(d, "seed.mid"))
         with open(os.path.join(d, "seed.mid"), "rb") as f:
             seed_b64 = base64.b64encode(f.read()).decode()
-    launches, wide, calls, warm, stats, engine, coop = counted_serve(
+    launches, cluster, calls, warm, stats, engine, coop = counted_serve(
         ["-i", VAE_MODEL, "--train_file", CORPUS, "--dynamic_batching", "--warmup", "full",
          "--port", "0"], [("2x64 seed_midi", {"n": 2, "t": 64, "seed_midi_base64": seed_b64})])
     lat = engine.latency_stats()
@@ -1749,8 +1824,9 @@ def phase_vae_serve():
     require(stats["family"] == "cl_vae", f"/stats family {stats['family']}")
     require(launches == calls and launches > warm[0],
             f"cl_vae launches {launches} != engine device calls {calls}")
-    require(wide == coop == 0, f"jsball_vae took the wide kernel {wide} times, the "
-                               f"cooperative one {coop} times")
+    require(cluster == launches and coop == 0,
+            f"jsball_vae took the cluster kernel {cluster} of {launches} times, the "
+            f"cooperative one {coop} times")
     require(stats["batches"] > 0, "the cl_vae burst was not coalesced (batches == 0)")
     return launches
 
@@ -1778,7 +1854,7 @@ def phase_sample_clis(out_dir):
         plain_on_cuda = []
         with sampler_plain_guard(kmod, plain_name, plain_on_cuda):
             kmod.LAUNCHES = 0  # counts from here on are this CLI's
-            cgv.WIDE_LAUNCHES = 0
+            cgv.CLUSTER_LAUNCHES = 0
             t0 = time.perf_counter()
             samples = cli.sample(args)
             wall = time.perf_counter() - t0
@@ -1795,7 +1871,8 @@ def phase_sample_clis(out_dir):
               f"corpus included), {launches} launch, {int(samples.sum())} notes on; files "
               f"{len(files)} ({files[0]} .. {files[-1]})")
         require(launches == 1, f"{name} launched its kernel {launches} times")
-        require(kmod is not cgv or cgv.WIDE_LAUNCHES == 0, f"{name} took the wide kernel")
+        require(kmod is not cgv or cgv.CLUSTER_LAUNCHES == 1,
+                f"{name} did not take the cluster kernel")
         require(not plain_on_cuda, f"{name}: plain version ran on CUDA tensors")
         if cli is cl_vae_sample:
             vae_launches = launches
@@ -2077,7 +2154,7 @@ def phase_vae_evaluate(ckpt, out_dir):
          "--sample_dir", out_dir])
     plain_on_cuda = []
     with sampler_plain_guard(cgv, "generate_cl_vae_batch_plain", plain_on_cuda):
-        cgv.LAUNCHES = cgv.WIDE_LAUNCHES = 0
+        cgv.LAUNCHES = cgv.CLUSTER_LAUNCHES = 0
         samples = cl_vae_sample.sample(args)
         launches = cgv.LAUNCHES
     files = sorted(f for f in os.listdir(out_dir) if f.startswith("smoke_trained_vae"))
@@ -2085,23 +2162,26 @@ def phase_vae_evaluate(ckpt, out_dir):
           f"{int(samples.sum())} notes on, {len(files)} MIDI files")
     require(samples.shape == (4, 32, 88) and set(np.unique(samples).tolist()) <= {0, 1},
             f"samples {samples.shape}")
-    require(launches == 1 and len(files) == 4 and not plain_on_cuda and cgv.WIDE_LAUNCHES == 0,
-            f"cl_vae_sample: {launches} launches ({cgv.WIDE_LAUNCHES} wide), files {files}, "
+    require(launches == 1 and len(files) == 4 and not plain_on_cuda and cgv.CLUSTER_LAUNCHES == 1,
+            f"cl_vae_sample: {launches} launches ({cgv.CLUSTER_LAUNCHES} cluster), files {files}, "
             f"plain {plain_on_cuda}")
 
 
 # ---- phases 17-19: the wide cl_vae generation kernel, the bf16 mode of the
 # dense-stack kernels, and the paths through both
 
-COOP, WIDE = "generate_cl_vae_coop", "generate_cl_vae_wide"
+CLUSTER, COOP, WIDE = "generate_cl_vae_cluster", "generate_cl_vae_coop", "generate_cl_vae_wide"
 WIDE_GEN = (  # label, (D, H, L, use_x_prev), weight mode, the kernel kernel_for picks
-    ("f32 H=256", (88, 256, 4, True), "f32", WIDE),  # below _F32_COOP_FROM
-    ("f32 H=512", (88, 512, 4, True), "f32", COOP),
-    ("bf16 H=512", (88, 512, 4, True), "bf16", COOP),
+    ("f32 H=256", (88, 256, 4, True), "f32", CLUSTER),  # 2 blocks a cluster
+    ("f32 H=512", (88, 512, 4, True), "f32", CLUSTER),  # 4
+    ("bf16 H=512", (88, 512, 4, True), "bf16", CLUSTER),  # 2
     ("bf16 seq-concat", (1024, 1024, 16, False), "bf16", COOP),
     ("bf16 H=5120", (1024, 5120, 16, False), "bf16", COOP),
     ("bf16 H=5120 x_prev", (1024, 5120, 16, True), "bf16", COOP),
-    ("f32 no hidden", (88, 0, 4, True), "f32", WIDE),
+    ("f32 no hidden", (88, 0, 4, True), "f32", CLUSTER),
+    # the width of phase 19's seq-concat checkpoint without hidden layers:
+    # its z heads (2L x D) past 8 blocks
+    ("f32 no hidden D=1024 L=32", (1024, 0, 32, False), "f32", WIDE),
 )
 
 
@@ -2127,16 +2207,20 @@ def glorot_vae_raw(rng, D, H, L, K, use_x_prev, Cw=88):
 
 
 def phase_vae_wide(dev):
-    """The kernels of every config the shared-memory one refuses against
-    their plain version at 64 single-frame seeds x 256 steps: the
-    cooperative kernel (f32 at H=512 with and without use_z_prior, bf16 at
-    H=512, at the seq-concat width D=H=1,024 and at D=1,024, H=5,120 with
-    and without x_prev) and the wide kernel (f32 at H=256, below the
-    measured rule's width, and without hidden layers), each where
-    ``kernel_for`` sends it; the cooperative kernel's
-    own clock of each part of a step at H=5,120. Returns the kernel-table
-    fields of the bf16 H=5,120 run (the width phase 30's checkpoint samples
-    at) and of the run without hidden layers."""
+    """The kernels of every config past one block's shared memory, and
+    without hidden layers, against their plain version at 64 single-frame
+    seeds x 256 steps: the cluster kernel (f32 at H=256 and H=512 with and
+    without use_z_prior, clusters of 2 and 4 blocks; bf16 at H=512; without
+    hidden layers), the cooperative kernel (bf16 at the seq-concat width
+    D=H=1,024 and at D=1,024, H=5,120 with and without x_prev) and the wide
+    kernel (without hidden layers at D=1,024, L=32, no x_prev, whose z
+    heads 8 blocks do not hold), each where ``kernel_for`` sends it; the cluster kernel's
+    plan, device time, operands and clock at each of its shapes
+    (:func:`cluster_line`), the cooperative kernel's own clock of each part
+    of a step at H=5,120. Returns the kernel-table fields of the bf16
+    H=5,120 run (the width phase 30's checkpoint samples at), and of the
+    runs at the widths of phase 19's checkpoints: bf16 H=512, without hidden
+    layers at D=88 and at D=1,024."""
     import numpy as np
     import torch
 
@@ -2149,10 +2233,11 @@ def phase_vae_wide(dev):
     rng = np.random.default_rng(SEED + 7)
     seeds88 = torch.from_numpy(np.ascontiguousarray(seed_windows(B)[:, 0])).to(dev)
     ws = torch.eye(K, device=dev)[torch.arange(B, device=dev) % K]
-    calls = {COOP: 0, WIDE: 0}
+    calls = {CLUSTER: 0, COOP: 0, WIDE: 0}
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    cgv.LAUNCHES = cgv.WIDE_LAUNCHES = cgv.COOP_LAUNCHES = 0  # this phase's launches
+    # this phase's launches
+    cgv.LAUNCHES = cgv.CLUSTER_LAUNCHES = cgv.WIDE_LAUNCHES = cgv.COOP_LAUNCHES = 0
     rows = {}
     for label, (D, H, L, use_xp), mode, kernel in WIDE_GEN:
         cfg = cl_vae.Config(original_dim=D, intermediate_dim=H, latent_dim=L,
@@ -2166,6 +2251,10 @@ def phase_vae_wide(dev):
             return cgv.generate_cl_vae_batch_cuda(*a, **k)
 
         layout = ""
+        if kernel == CLUSTER:
+            plan = cgv.launch_plan(cfg, B, mode, dev)
+            layout = (f"; clusters of {plan['C']} blocks, one song a cluster, {plan['T']} "
+                      f"threads, {plan['waves']} wave(s)")
         if kernel == COOP:
             plan = cgv.coop_plan(cfg, B, n_sm, mode)
             layout = (f"; {plan['G']} blocks of {plan['nu']} units, the frame head in "
@@ -2217,33 +2306,44 @@ def phase_vae_wide(dev):
               f"at B={B} nsteps={nsteps}; {wbytes / 1e6:.3f} MB of weights{layout}")
         rows[label] = {"max_abs_err": max(errs), "ms": t[0], "plain_ms": t[1], "bound_ms": b_ms,
                        "bound_by": b_by}
+        if kernel == CLUSTER:  # plan, device time, operands, clock, bits; its launches counted
+            n0 = (cgv.CLUSTER_LAUNCHES, cgv.LAUNCHES)
+            cluster_line(f"{CLUSTER} {label}", params, cfg, seeds, nsteps, eps, u, ws, mode,
+                         PEAK_BF16_FLOPS if mode == "bf16" else PEAK_F32_FLOPS, reps=5)
+            grown = cgv.CLUSTER_LAUNCHES - n0[0]
+            require(cgv.LAUNCHES - n0[1] == grown > 0, f"{label}: launches off the cluster count")
+            calls[CLUSTER] += grown
         if label == "bf16 H=5120":
             rows["parts"] = (params, cfg, seeds, eps, u)
-    coop, wide = calls[COOP], calls[WIDE]
-    require(cgv.COOP_LAUNCHES == coop and cgv.WIDE_LAUNCHES == wide
-            and cgv.LAUNCHES == coop + wide,
-            f"launches: cooperative {cgv.COOP_LAUNCHES} (calls {coop}), wide "
-            f"{cgv.WIDE_LAUNCHES} (calls {wide}), all {cgv.LAUNCHES}")
+    cluster, coop, wide = calls[CLUSTER], calls[COOP], calls[WIDE]
+    require(cgv.CLUSTER_LAUNCHES == cluster and cgv.COOP_LAUNCHES == coop
+            and cgv.WIDE_LAUNCHES == wide and cgv.LAUNCHES == cluster + coop + wide,
+            f"launches: cluster {cgv.CLUSTER_LAUNCHES} (calls {cluster}), cooperative "
+            f"{cgv.COOP_LAUNCHES} (calls {coop}), wide {cgv.WIDE_LAUNCHES} (calls {wide}), all "
+            f"{cgv.LAUNCHES}")
     params, cfg, seeds, eps, u = rows.pop("parts")
     split = cgv.phase_ms(params, cfg, seeds, nsteps, eps, u, ws, mode="bf16")
     print("generate_cl_vae_coop bf16 H=5120: a call's parts (block 0's clock, ms; a wait is the "
           "slowest block's lag and the grid barrier) "
           + "; ".join(f"{n} {v:.3f}" for n, v in split.items()))
-    # the jsball_vae width still takes the shared-memory kernel
+    # the jsball_vae width takes the cluster kernel on one block
     raw, jcfg, _ = common.load_model(VAE_MODEL, "cl_vae")
     jp = params_from_numpy(raw, dev)
     jws = torch.eye(jcfg.n_classes, device=dev)[:4]
     jeps = torch.zeros((4, 8, jcfg.latent_dim), device=dev)
-    cgv.LAUNCHES = cgv.WIDE_LAUNCHES = cgv.COOP_LAUNCHES = 0
+    cgv.LAUNCHES = cgv.CLUSTER_LAUNCHES = cgv.WIDE_LAUNCHES = cgv.COOP_LAUNCHES = 0
     cgv.generate_cl_vae_batch_cuda(jp, jcfg, seeds88[:4].contiguous(), 8, jeps,
                                    torch.ones((4, 8, 88), device=dev), jws)
     torch.cuda.synchronize()
-    require(cgv.kernel_for(jcfg) == "generate_cl_vae" and cgv.LAUNCHES == 1
-            and cgv.WIDE_LAUNCHES == cgv.COOP_LAUNCHES == 0,
-            "jsball_vae did not take the shared-memory kernel")
-    print(f"phase 17: {coop} cooperative and {wide} wide launches, each counted by its own "
-          "count; jsball_vae's width still launches generate_cl_vae")
-    return rows["bf16 H=5120"], rows["f32 no hidden"]
+    require(cgv.kernel_for(jcfg) == CLUSTER and cgv.LAUNCHES == cgv.CLUSTER_LAUNCHES == 1
+            and cgv.WIDE_LAUNCHES == cgv.COOP_LAUNCHES == 0
+            and cgv.cluster_plan(jcfg, 4)["C"] == 1,
+            "jsball_vae did not take the cluster kernel on one block")
+    print(f"phase 17: {cluster} cluster, {coop} cooperative and {wide} wide launches, each "
+          "counted by its own count; jsball_vae's width launches the cluster kernel, one block a "
+          "cluster")
+    return (rows["bf16 H=5120"], rows["bf16 H=512"], rows["f32 no hidden"],
+            rows["f32 no hidden D=1024 L=32"])
 
 
 SEQ_DENSE = dict(D=1024, Cw=256, H=1024, L=16, K=TRAIN_K, B=VAE_TRAIN_B, use_x_prev=False)
@@ -2424,7 +2524,7 @@ def phase_vae_bf16_train(model_dir):
 def counted_serve(argv, extra=()):
     """``cli.serve`` built from ``argv`` and driven by :func:`exercise_server`;
     the cl_vae launch counts are set to 0 just before. Returns (launches,
-    wide launches, engine device calls, warm-up (launches, calls), /stats,
+    cluster launches, engine device calls, warm-up (launches, calls), /stats,
     the engine, cooperative launches)."""
     from classifying_vae_lstm_tpu_torch.cli import serve
     from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae as cgv
@@ -2443,25 +2543,27 @@ def counted_serve(argv, extra=()):
     GenerationEngine._run = counted_run
     try:
         with sampler_plain_guard(cgv, "generate_cl_vae_batch_plain", plain_on_cuda):
-            cgv.LAUNCHES = cgv.WIDE_LAUNCHES = cgv.COOP_LAUNCHES = 0  # this path's counts
+            cgv.LAUNCHES = cgv.CLUSTER_LAUNCHES = cgv.COOP_LAUNCHES = 0  # this path's counts
             t0 = time.perf_counter()
             httpd, engine = serve.make_server(args)
             warm = (cgv.LAUNCHES, runs[0])
             print(f"cl_vae engine built and warmed in {time.perf_counter() - t0:.2f} s "
                   f"({warm[0]} warm-up launches for {warm[1]} device calls)")
             stats = exercise_server(httpd, extra)
-            launches, wide, calls = cgv.LAUNCHES, cgv.WIDE_LAUNCHES, runs[0]
+            launches, cluster, calls = cgv.LAUNCHES, cgv.CLUSTER_LAUNCHES, runs[0]
             coop = cgv.COOP_LAUNCHES
     finally:
         GenerationEngine._run = real_run
     require(not plain_on_cuda, f"plain version ran on CUDA tensors: {plain_on_cuda}")
-    return launches, wide, calls, warm, stats, engine, coop
+    return launches, cluster, calls, warm, stats, engine, coop
 
 
-def sample_one_launch(ckpt, run_name, out_dir, n=4, t=32, count="WIDE_LAUNCHES"):
+def sample_one_launch(ckpt, run_name, out_dir, n=4, t=32, count="CLUSTER_LAUNCHES",
+                      seq_length=1):
     """``cli.cl_vae_sample`` of ``ckpt`` with true keys: one launch, of the
-    kernel whose count ``count`` names (the wide or the cooperative kernel);
-    MIDI files written. Returns the launches."""
+    kernel whose count ``count`` names (the cluster, the cooperative or the
+    wide kernel); t steps of ``seq_length`` frames a song; MIDI files
+    written. Returns the launches."""
     import numpy as np
 
     from classifying_vae_lstm_tpu_torch.cli import cl_vae_sample
@@ -2472,13 +2574,14 @@ def sample_one_launch(ckpt, run_name, out_dir, n=4, t=32, count="WIDE_LAUNCHES")
          "--sample_dir", out_dir])
     plain_on_cuda = []
     with sampler_plain_guard(cgv, "generate_cl_vae_batch_plain", plain_on_cuda):
-        cgv.LAUNCHES = cgv.WIDE_LAUNCHES = cgv.COOP_LAUNCHES = 0
+        cgv.LAUNCHES = cgv.CLUSTER_LAUNCHES = cgv.COOP_LAUNCHES = cgv.WIDE_LAUNCHES = 0
         samples = cl_vae_sample.sample(args)
         launches, ours = cgv.LAUNCHES, getattr(cgv, count)
     files = sorted(f for f in os.listdir(out_dir) if f.startswith(run_name))
     print(f"cl_vae_sample {ckpt}: {n} songs x {t} frames, {launches} launch ({ours} counted by "
           f"{count}), {int(samples.sum())} notes on, {len(files)} MIDI files")
-    require(samples.shape == (n, t, 88) and set(np.unique(samples).tolist()) <= {0, 1},
+    require(samples.shape == (n, t * seq_length, 88)
+            and set(np.unique(samples).tolist()) <= {0, 1},
             f"samples {samples.shape}")
     require(launches == ours == 1 and len(files) == n and not plain_on_cuda,
             f"cl_vae_sample: {launches} launches ({ours} {count}), files {files}, plain "
@@ -2488,16 +2591,24 @@ def sample_one_launch(ckpt, run_name, out_dir, n=4, t=32, count="WIDE_LAUNCHES")
 
 REPAIR_FLAGS = ["--train_file", CORPUS, "--latent_dim", "4", "--batch_size", str(VAE_TRAIN_B),
                 "--use_x_prev", "--patience", "0", "--num_epochs", "2"]
+# a seq-concat model without hidden layers whose z heads (2L x D f32, every
+# block holds them all) 8 blocks do not hold: the wide kernel's (D=1,024 at
+# --seq_length 16, L=32; seq-concat takes no x_prev in either package)
+NO_HIDDEN_SEQ_FLAGS = ["--train_file", CORPUS, "--latent_dim", "32", "--batch_size",
+                       str(VAE_TRAIN_B), "--patience", "0", "--num_epochs", "2"]
 
 
 def phase_vae_repair(model_dir, out_dir):
-    """Checkpoints the shared-memory kernel refuses, trained by the port on
-    the card, sample and serve: a bf16 H=512 model (``--bf16_compute
-    --train_backend pallas``) through ``cli.cl_vae_sample`` and
-    ``cli.serve`` on the cooperative kernel, then a model without hidden
-    layers (``xla``) through ``cli.cl_vae_sample`` on the wide kernel. Two
-    epochs each: the first epoch saves no checkpoint. Returns the
-    cooperative and the wide kernel's launches."""
+    """Checkpoints past one block's shared memory, and without hidden layers,
+    trained by the port on the card, sample and serve: a bf16 H=512 model
+    (``--bf16_compute --train_backend pallas``) through
+    ``cli.cl_vae_sample`` and ``cli.serve`` on the cluster kernel (two blocks
+    a cluster), then a model without hidden layers (``xla``) through
+    ``cli.cl_vae_sample`` on the cluster kernel, and a seq-concat one
+    without hidden layers (``--seq_length 16``, L=32: D=1,024, z heads past
+    what 8 blocks hold) on the wide kernel. Two epochs each: the first epoch saves no
+    checkpoint. Returns the launches of the cluster kernel at bf16 H=512 and
+    without hidden layers, and of the wide kernel."""
     from classifying_vae_lstm_tpu_torch.cli import cl_vae_train, common
     from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae as cgv
 
@@ -2507,28 +2618,39 @@ def phase_vae_repair(model_dir, out_dir):
     E, n_train, n_val = _report_train("bf16 H=512 training", args, seen, epoch_s, wall)
     require(counts[2:] == (E * (n_train + n_val), 2 * E * n_train), f"launches {counts}")
     _, cfg, _ = common.load_model(seen["ckpt"], "cl_vae")
-    require(cgv.kernel_for(cfg) == "generate_cl_vae_coop" and cgv.pick_mode(cfg) == "bf16",
+    require(cgv.kernel_for(cfg) == CLUSTER and cgv.pick_mode(cfg) == "bf16"
+            and cgv.cluster_plan(cfg, 8)["C"] == 2,
             f"the H=512 checkpoint routes to {cgv.kernel_for(cfg)}, {cgv.pick_mode(cfg)}")
-    coop = sample_one_launch(seen["ckpt"], "smoke_wide_bf16", out_dir, count="COOP_LAUNCHES")
+    cluster = sample_one_launch(seen["ckpt"], "smoke_wide_bf16", out_dir)
     launches, w, calls, warm, stats, engine, c = counted_serve(
         ["-i", seen["ckpt"], "--train_file", CORPUS, "--dynamic_batching", "--warmup", "off",
          "--port", "0"])
     lat = engine.latency_stats()
-    print(f"cl_vae serving of the bf16 H=512 checkpoint: {launches} launches ({c} of the "
-          f"cooperative kernel, {w} of the wide one) for {calls} engine device calls; requests "
+    print(f"cl_vae serving of the bf16 H=512 checkpoint: {launches} launches ({w} of the "
+          f"cluster kernel, {c} of the cooperative one) for {calls} engine device calls; requests "
           f"{stats['requests']}, batches {stats['batches']}; latency p50 {lat['p50_ms']:.3f} ms, "
           f"p95 {lat['p95_ms']:.3f} ms")
-    require(launches == c == calls > 0 and w == 0,
-            f"cooperative launches {c}, wide {w}, all {launches}, calls {calls}")
+    require(launches == w == calls > 0 and c == 0,
+            f"cluster launches {w}, cooperative {c}, all {launches}, calls {calls}")
     require(stats["batches"] > 0, "the burst was not coalesced (batches == 0)")
-    coop += c
-    args, counts, seen, epoch_s, wall = run_train(
-        "no_hidden", ["--intermediate_dim", "0"], model_dir, _reset_dense_counts, _dense_counts,
-        cli=cl_vae_train, base_flags=REPAIR_FLAGS)
-    _report_train("no-hidden training (xla)", args, seen, epoch_s, wall)
-    require(counts == (0, 0, 0, 0), f"no-hidden training launched dense-stack kernels: {counts}")
-    wide = sample_one_launch(seen["ckpt"], "smoke_no_hidden", out_dir)
-    return coop, wide
+    cluster += w
+    no_hidden = {}
+    for name, seq, kernel, flags in (("no_hidden", 1, CLUSTER, REPAIR_FLAGS),
+                                     ("no_hidden_seq", 16, WIDE, NO_HIDDEN_SEQ_FLAGS)):
+        args, counts, seen, epoch_s, wall = run_train(
+            name, ["--intermediate_dim", "0", "--seq_length", str(seq)], model_dir,
+            _reset_dense_counts, _dense_counts, cli=cl_vae_train, base_flags=flags)
+        _report_train(f"no-hidden training (xla), D={args.original_dim}", args, seen, epoch_s,
+                      wall)
+        require(counts == (0, 0, 0, 0), f"no-hidden training launched dense-stack kernels: "
+                                        f"{counts}")
+        _, cfg, _ = common.load_model(seen["ckpt"], "cl_vae")
+        require(cgv.kernel_for(cfg) == kernel, f"the no-hidden checkpoint at D="
+                                               f"{cfg.original_dim} routes to {cgv.kernel_for(cfg)}")
+        no_hidden[kernel] = sample_one_launch(
+            seen["ckpt"], f"smoke_{name}", out_dir, seq_length=seq,
+            count="CLUSTER_LAUNCHES" if kernel == CLUSTER else "WIDE_LAUNCHES")
+    return cluster, no_hidden[CLUSTER], no_hidden[WIDE]
 
 
 def phase_vae_bf16_evaluate(ckpt):
@@ -4159,7 +4281,7 @@ def main(argv=None) -> int:
                     phase_vae_evaluate(seen_vae["ckpt"], sample_dir)
                     took(16)
     if want(17):
-        coop_row, wide = phase_vae_wide(dev)
+        coop_row, h512_row, no_hidden_row, wide_row = phase_vae_wide(dev)
         took(17)
     if want(18):
         dense16 = phase_vae_dense_bf16(dev)
@@ -4170,7 +4292,8 @@ def main(argv=None) -> int:
             bf16_fwd, bf16_bwd, seen_seq = phase_vae_bf16_train(model_dir)
             phase_train_breakdown(seen_seq, "dense-stack kernels", "vae_", VAE_STEP_PARTS)
             phase_vae_bf16_evaluate(seen_seq["ckpt"])
-            coop_launches, wide_launches = phase_vae_repair(model_dir, sample_dir)
+            h512_launches, no_hidden_launches, wide_launches = phase_vae_repair(model_dir,
+                                                                                sample_dir)
             took(19)
     if want(20):
         lstm16 = phase_lstm_seq_bf16(dev)
@@ -4276,15 +4399,30 @@ def main(argv=None) -> int:
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_vae.py:230", "launches": dense_bwd,
         **dense["bwd"], "library_ms": None,
     }, {
+        # the same cluster kernel past one block (phase 19's bf16 H=512 model,
+        # two blocks a cluster; times from phase 17 at its width)
+        "name": "generate_cl_vae_cluster_wide", "route": "cuda",
+        "source": "classifying_vae_lstm_tpu_torch/csrc/generate_cl_vae.cu",
+        "replaces": "classifying_vae_lstm_tpu/ops/pallas_generate_vae.py:141",
+        "launches": h512_launches, **h512_row, "library_ms": None,
+    }, {
+        # and without hidden layers (phase 19's model at D=88)
+        "name": "generate_cl_vae_cluster_no_hidden", "route": "cuda",
+        "source": "classifying_vae_lstm_tpu_torch/csrc/generate_cl_vae.cu",
+        "replaces": "classifying_vae_lstm_tpu/ops/pallas_generate_vae.py:141",
+        "launches": no_hidden_launches, **no_hidden_row, "library_ms": None,
+    }, {
+        # phase 19's seq-concat model without hidden layers (D=1,024, L=32),
+        # times from phase 17 at its width
         "name": "generate_cl_vae_wide", "route": "cuda",
         "source": "classifying_vae_lstm_tpu_torch/csrc/generate_cl_vae.cu",
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_generate_vae.py:141",
-        "launches": wide_launches, **wide, "library_ms": None,
+        "launches": wide_launches, **wide_row, "library_ms": None,
     }, {
         "name": "generate_cl_vae_coop", "route": "cuda",
         "source": "classifying_vae_lstm_tpu_torch/csrc/generate_cl_vae.cu",
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_generate_vae.py:141",
-        "launches": coop_launches + coop_auto, **coop_row, "library_ms": None,
+        "launches": coop_auto, **coop_row, "library_ms": None,
     }, {
         "name": "vae_tc_fwd", "route": "cuda", "source": dense_tc_source,
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_vae.py:133", "launches": bf16_fwd,

@@ -1,17 +1,22 @@
-// Whole-generation cl_vae sampler for Hopper (sm_90a): f32 or bf16 weights
-// (`generate_kernel`), f32 weights (`generate_wide_kernel`), and one
-// cooperative kernel for int8, bf16 or f32 operands
-// (`generate_vae_coop_kernel<E>`, at the end).
+// Whole-generation cl_vae sampler for Hopper (sm_90a): one kernel for f32 or
+// bf16 weights split over a thread-block cluster (`generate_cluster_kernel`),
+// the f32 kernel that reads its weights from L2 (`generate_wide_kernel`) for
+// the few configs the first refuses, and one cooperative kernel for int8,
+// bf16 or f32 operands (`generate_vae_coop_kernel<E>`, at the end).
 //
 // Replaces: classifying_vae_lstm_tpu/ops/pallas_generate_vae.py:141
-// `_make_kernel` (the f32/bf16 body of `generate_cl_vae_batch_pallas`). One
-// launch runs the whole autoregressive song: relu z-encoder hidden on the
-// fed-back frame, the z heads, z = m + exp(v/2)*eps (or z = eps under
-// use_z_prior), relu decoder hidden on (w, z, the one-step-lagged frame), the
-// sigmoid frame head, the Bernoulli draw x_t = (u < p), and the two carried
-// frames (x_prev_t takes the old x_prev before x_prev takes x_t). The
-// per-song folds of the w rows and biases (encb, decb) are computed by the
-// caller.
+// `_make_kernel` (the f32/bf16 body of `generate_cl_vae_batch_pallas`), and
+// the JAX package's XLA scan (sampling/generate.py
+// `generate_cl_vae_batch_noise`) for configs without hidden layers, which no
+// Pallas kernel takes. One launch runs the whole autoregressive song: relu
+// z-encoder hidden on the fed-back frame, the z heads, z = m + exp(v/2)*eps
+// (or z = eps under use_z_prior), relu decoder hidden on (w, z, the
+// one-step-lagged frame), the sigmoid frame head, the Bernoulli draw x_t =
+// (u < p), and the two carried frames (x_prev_t takes the old x_prev before
+// x_prev takes x_t). Without hidden layers the z heads read x_prev and the
+// frame head reads z (L rank-1 terms) and x_prev_t. The per-song folds of
+// the w rows and biases (encb, decb; without hidden layers zb, xb) are
+// formed in the kernel's prologue (the other kernels: by the caller).
 //
 // What bounds it on this card. At the largest serving bucket of the trained
 // checkpoints (64 songs x 256 steps, D=H=88, L=4, use_x_prev) the call is
@@ -19,66 +24,80 @@
 // f32 without tensor cores, against ~11.8 MB of eps/u/out streams, ~0.0035 ms
 // at HBM rate: operations bound it. But every step depends on the previous
 // one through four small dependent products, so the 256 steps run in series
-// and the kernel is latency-bound far above that bound.
+// and the call costs 256 times the latency of one step's chain: the chain,
+// not the work, is what the design shortens.
 //
-// What the design does about it. Songs are independent: one block owns a
-// tile of kSongs songs and runs the WHOLE time loop itself, so nothing is
-// carried between blocks (the TPU grid walked time blocks in order and
-// carried the frames in VMEM scratch). The weights (~94 KB in f32 at
-// D=H=88) are small enough to live in the block's shared memory, as they
-// lived in VMEM, so they are loaded from global memory once per block, not
-// once per step. Per-song state (both frames, the folds, both hidden layers,
-// z) is in shared memory too, stored [row][song]. Each product gives one
-// thread an output column for every song of the tile, summing over k in
-// registers; the z heads give one warp an output, its lanes splitting k. Each
-// phase ends in __syncthreads(). Keeping the chain short (splitting k across
-// threads, wgmma) is later work.
+// What the design does about it.
+// * Clusters of C blocks (C = 1, 2, 4 or 8: the fewest whose shared memory
+//   holds the weights; the wrapper's `cluster_plan`) each own one song
+//   (kClSongs) and run every step; clusters are independent, so any B runs, in
+//   several waves past one wave of the card. Block r of a cluster owns a
+//   share of the hidden units (the columns of the encoder's and the
+//   decoder's x rows, of the decoder's z rows, and its units' rows of the z
+//   heads) and a share of the pitches (the frame head's columns). Its slices
+//   are packed by the wrapper (`pack_cluster`) and copied into shared memory
+//   once a launch, one `cp.async.bulk` a weight, each completing on its own
+//   mbarrier; a layer waits only for its own weight.
+// * A step with hidden layers is three phases, each ended by a cluster
+//   barrier (`__syncthreads()` when C = 1): (1) one pass over the block's
+//   units: h_e (never stored: the lanes that hold it add its terms of the z
+//   heads, which each warp sums over its groups into its slot) and the
+//   decoder's x_prev_t product; (2) z in one warp of every block, the
+//   warps' slots added in warp order and the blocks' sums in rank order
+//   (through distributed shared memory), a block barrier, then h_d of the
+//   block's units written into every block's copy of h_d; (3) the frame head
+//   for its pitches over all of h_d, the sigmoid, the draw, the output, and
+//   x_t written into every block's next frame. Under use_z_prior the first
+//   barrier goes. Without hidden layers every block sums the z heads over
+//   x_prev itself and a step is the two products, a block barrier and the
+//   frame head's epilogue.
+// * The frames live in a ring of three buffers indexed by step (step t reads
+//   frame t and frame t - 1, the seed at both for t = 0, and writes frame t +
+//   1), so nothing is copied.
+// * Short chains: each output column of a layer goes to a group of g lanes
+//   of one warp (g from the plan, per layer); lane i sums the 16-byte chunks
+//   i, i + g, ... of k (k in order within a chunk, FFMA in f32 for both
+//   modes), each of the tile's songs its own sum, and the group adds its lanes'
+//   sums by a shuffle butterfly (offsets g/2, ..., 1), so every lane ends
+//   with the same bits. A slab row is padded so that the lanes of a warp hit
+//   distinct banks. On the register path (one song a cluster, one column a
+//   group, at most kClRegVals values of k a lane: the committed checkpoints'
+//   width) each lane keeps its chunks of the products' weights in registers
+//   for the launch and reads only its operands from shared memory; it also
+//   keeps the decoder's sums there for the h_d epilogue. What is left of a
+//   step is dependent latency: ~2.9 us at jsball_vae's width on an H100
+//   80GB HBM3 at 700 W (PERF.md, the kernel's own clock).
+// * No global load on a step's chain: the last warp of each block (idle in
+//   the products at most widths) stages the eps and u of its songs (u of
+//   its pitches only) into a ring of kClRing steps with `cp.async`, kClRing
+//   - 3 steps ahead; outputs are stored straight.
+// * Every sum in a fixed order, no atomics: two calls give the same bits.
 //
 // Numerics follow the TPU kernel: relu hidden layers, expf for the z scale
-// and the logistic head, no fast math. In bf16 mode the encoder x rows, the
-// decoder x_prev rows, the z heads and the frame head are bf16 and their
-// operands (the frames, h_e, h_d) are rounded to bf16, stored rounded as
-// they are only ever read as operands; the decoder z rows, z and every bias
-// stay f32, and every product accumulates in f32.
+// and the logistic head, no fast math, f32 FFMA without TF32 (JAX uses
+// precision="highest" in f32). In bf16 mode the encoder x rows, the decoder
+// x_prev rows, the z heads and the frame head are bf16 and their operands
+// (the frames, h_e, h_d) are rounded to bf16, stored rounded as they are
+// only ever read as operands; the decoder z rows, z and every bias stay f32,
+// and every product accumulates in f32 on FFMA (a tile of at most 4 songs
+// would leave an m16 tensor-core tile three quarters empty). The epilogues
+// are written with __fadd_rn / __fmul_rn in the JAX kernel's order, so nvcc
+// contracts nothing there into an FMA.
 //
-// The second kernel, `generate_wide_kernel`, f32 only, takes models without
-// hidden layers (which sample in f32), and f32 models too wide for the
-// first one (from H ~ 204 at D=88, L=4, use_x_prev) below H=512, where on an
-// H100 it is faster than the cooperative kernel (the wrapper's
-// `kernel_for`; it took every wider model, in bf16 too, before that kernel
-// served f32 and bf16). It replaces the same `_make_kernel` at those
-// widths, and the JAX package's XLA scan (sampling/generate.py
-// `generate_cl_vae_batch_noise`) for configs without hidden layers, which
-// no Pallas kernel takes. It computes exactly what the first kernel
-// computes in f32: the same operands (the wrapper's `_pack`), the same
-// step order. Without hidden layers
-// the z heads read x_prev (and the folded w rows) and the frame head reads z
-// as L rank-1 terms and x_prev_t (and the folded w rows).
+// `generate_wide_kernel`, f32 only, keeps the configs whose weights do not
+// fit 8 blocks of a cluster and that the cooperative kernel does not take:
+// models without hidden layers with x_prev from D ~ 670 (D x D f32 rows of
+// the frame head), or with a z-head width past 8 blocks. It computes what
+// the cluster kernel computes in f32 from the same operands (the wrapper's
+// `_pack`). Each block owns two songs and reads every weight from L2 every
+// step: per song-step it does D*H*(1 + use_x_prev) + 3*L*H + H*D FMAs (with
+// hidden layers) and its time is the L2-to-SM transfer of the weights each
+// step, far above that bound. A layer with few output columns splits its K
+// rows across up to kMaxSlices groups of threads whose partial sums meet in
+// shared memory and are added in a fixed order; past one block's shared
+// memory the per-song state goes to a global scratch the wrapper allocates.
 //
-// What bounds the wide kernel. Per song-step it does D*H*(1 + use_x_prev) +
-// 3*L*H + H*D FMAs; at f32 D=88, H=256, L=4 with x_prev that is ~69 K FMAs,
-// ~2.3 GFLOP for 64 songs x 256 steps, ~0.035 ms at 67 TFLOP/s of f32 FMAs
-// (chip_smoke.py's `roofline_ms`). But every block reads all the weights
-// from L2 every step (~0.28 MB in f32 at that width), so a step costs about
-// the L2-to-SM transfer of the weights, and the steps run in series: the
-// kernel sits far above its bound.
-//
-// What the design does about it, simply. One block owns a tile of kSongs
-// songs and runs every step; the per-song state (both frames, the step's
-// probabilities, z, h_e, h_d) lives in shared memory, or, past one block's
-// shared memory, in a global scratch the wrapper allocates (the same code
-// through a generic pointer). The weights are read from global memory (L2)
-// every step, as generate_cl_vrnn.cu does; the folds of the w rows stay in
-// global memory and are read in each layer's epilogue. A layer with few
-// output columns splits its K rows across up to kMaxSlices groups of threads
-// so that every thread has loads in flight; the groups' partial sums meet in
-// shared memory and are added in a fixed order. Two songs per block give 32
-// blocks at the largest serving bucket: more blocks pull more aggregate L2
-// bandwidth, and each block's time is set by its own weight stream. Later
-// work, not done here: a thread-block cluster that splits the columns so
-// that each SM keeps its slice of the weights in shared memory, and wgmma.
-//
-// The third kernel, `generate_vae_coop_kernel<signed char>` (at the end),
+// The cooperative kernel, `generate_vae_coop_kernel<signed char>` (at the end),
 // replaces
 // classifying_vae_lstm_tpu/ops/pallas_generate_vae.py:192 `_make_kernel_int8`
 // (the int8 body of `generate_cl_vae_batch_pallas`), which the JAX package
@@ -163,16 +182,16 @@
 //
 // The same kernel in f32 and bf16, `generate_vae_coop_kernel<float>` and
 // `<__nv_bfloat16>`, replaces `_make_kernel` :141 (the f32 / bf16 body of
-// `generate_cl_vae_batch_pallas`) at every width with hidden layers that
-// the first kernel refuses, where the wide kernel's blocks each owned two
+// `generate_cl_vae_batch_pallas`) at the widths with hidden layers that the
+// cluster kernel leaves to it (`kernel_for`), where the wide kernel's blocks each owned two
 // songs and read every weight from L2 every step (296 ms a call at D=1,024,
 // H=5,120, 64 x 256 in bf16, 32 SMs busy). It keeps the int8 design: the
 // grid, the song groups of the frame head, the residency rule (in the
 // mode's bytes), the ring, the z heads summed across blocks in double in a
 // fixed order (a product of two bf16 or two f32 values is exact in double;
-// z rounds to f32 once). Its operands are the first kernel's (`_pack`): the
-// large weights, x and h_e / h_d as operands in the mode's type (bf16
-// rounded as in the first kernel), the decoder z rows and every bias f32.
+// z rounds to f32 once). Its operands are `_pack`'s: the large weights, x
+// and h_e / h_d as operands in the mode's type (bf16 rounded as in the
+// cluster kernel), the decoder z rows and every bias f32.
 // What differs from int8: a 32-byte chunk holds 16 bf16 or 8 f32 values of
 // k; bf16 products run on `mma.sync.m16n8k16` (bf16 -> f32), the lanes
 // loading the same bytes of A and of each packed column as in int8, f32
@@ -186,6 +205,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 #include "coop.cuh"
 #include "mma_bf16.cuh"
@@ -195,36 +215,7 @@ namespace {
 using cvl_coop::grid_sync;
 using cvl_coop::mma_s8;
 
-constexpr int kSongs = 2;      // songs per block
-constexpr int kThreads = 128;  // threads per block
-constexpr int kWarps = kThreads / 32;
-
-struct Args {
-  const float* seed;  // [B, D]
-  const float* eps;   // [B, nsteps, L]
-  const float* u;     // [B, nsteps, D]
-  const void* wke;    // [D, H]   encoder x rows
-  const float* encb;  // [B, H]   w rows . w + bias, per song
-  const void* wz_t;   // [2L, H]  z_mean | z_log_var kernels, transposed
-  const float* bz;    // [2L]
-  const void* wkd_x;  // [D, H]   decoder x_prev rows (unused without use_x_prev)
-  const float* wkd_z; // [L, H]   decoder z rows, f32
-  const float* decb;  // [B, H]
-  const void* wx;     // [H, D]   frame head
-  const float* bx;    // [D]
-  float* out;         // [B, nsteps, D]
-  int B, nsteps, D, H, L, use_x_prev, use_z_prior, return_probs;
-};
-
-// Shared memory: f32 first ([row][kSongs] per-song state: x_prev, x_prev_t,
-// encb, decb, h_e, h_d, z; then wkd_z, bz, bx), then the weights of type WT
-// (wke, wkd_x if used, wz_t, wx).
-__host__ __device__ constexpr size_t smem_floats(int D, int H, int L) {
-  return (size_t)kSongs * (2 * D + 4 * H + L) + (size_t)L * H + 2 * L + D;
-}
-__host__ __device__ constexpr size_t smem_weights(int D, int H, int L, int use_x_prev) {
-  return (size_t)(2 + use_x_prev) * D * H + (size_t)2 * L * H;
-}
+constexpr int kSongs = 2;  // songs per block of the wide kernel
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
@@ -239,17 +230,818 @@ __device__ __forceinline__ float operand<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// acc[b] += sum_k a[k][b] * w[k * ld_w + col] for k < K: one output column
-// for every song of the tile; a in [K][kSongs], w a [K, ld_w] weight.
-template <typename WT>
-__device__ __forceinline__ void mac_col(float (&acc)[kSongs], const float* a, const WT* w,
-                                        int K, int ld_w, int col) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    const float wk = ld(w + (size_t)k * ld_w + col);
-#pragma unroll
-    for (int b = 0; b < kSongs; ++b) acc[b] = fmaf(a[k * kSongs + b], wk, acc[b]);
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int round16(int n) { return cdiv(n, 16) * 16; }
+__host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+
+// ---------------------------------------------------------- the cluster kernel
+
+constexpr int kClMaxThreads = 512;
+// songs a cluster (S): tiles of 2 and 4 songs were slower than 1 at 64 songs
+// (PERF.md §6), so the kernel runs one; its loops over a tile's songs stay
+// written for S
+constexpr int kClSongs = 1;
+constexpr int kClRing = 8;            // noise ring: step t's eps / u staged kClRing - 3 steps ahead
+constexpr int kClMaxC = 8;            // blocks a cluster (the portable limit)
+constexpr int kSmemLimit = 232448;    // shared memory one Hopper block can use
+constexpr int kClStatic = 256;        // of it kept for the kernel's static shared memory (its clock)
+constexpr int kEnc = 0, kZh = 1, kDec = 2, kHead = 3, kClLayers = 4;
+constexpr int kClWarpSlots = 16;      // a block's warps (at most 512 threads)
+constexpr int kClZPer = 4;            // z heads a lane of an encoder column sums (2L <= 4 g)
+constexpr int kClRegVals = 24;        // values of k a lane keeps of a layer on the register path
+constexpr int kClRegThreads = 384;    // the register path's most threads (its registers a thread)
+
+// What the wrapper's plan gives (`cluster_plan`): the model's widths, the
+// operand bytes eb (4 f32, 2 bf16), C blocks a cluster, T
+// threads a block, and g, the lanes that sum one output column, per layer
+// (encoder, z heads, decoder, frame head).
+struct ClGeom {
+  int D, H, L, has_hidden, use_x_prev, eb, C, T, g[kClLayers];
+};
+
+// What follows from it: a block's units Hc and pitches Dc; per layer its
+// columns n, depth k, 16-byte chunks nck that a lane sums and the chunks rs
+// of a slab row (the weight's columns k-contiguous, padded: rs = g m with m
+// odd where g < 8, so that the lanes of a warp load from distinct banks);
+// the floats of a song's row of the frames and of h_d; and the byte
+// offsets of dynamic shared memory: the mbarriers, the four slabs, then f32
+// regions, each a multiple of 16 bytes.
+struct ClLayout {
+  int Hc, Dc;
+  int n[kClLayers], k[kClLayers], nck[kClLayers], rs[kClLayers];
+  int Da, Ha;
+  unsigned slab[kClLayers];
+  unsigned zrows, bz, bx, frames, hd, fold0, fold1, zp, zs, dsum, noise, bytes;
+};
+
+__host__ __device__ inline unsigned cl_take(unsigned& off, int floats) {
+  const unsigned o = off;
+  off += (unsigned)(cdiv(floats, 4) * 16);
+  return o;
+}
+
+__host__ __device__ inline ClLayout cl_layout(const ClGeom& g) {
+  ClLayout y{};
+  const int kp = 16 / g.eb;  // k of a chunk
+  const int D = g.D, H = g.H, L = g.L, S = kClSongs;
+  y.Hc = g.has_hidden ? cdiv(H, g.C) : 0;
+  y.Dc = cdiv(D, g.C);
+  if (g.has_hidden) {
+    y.n[kEnc] = y.Hc, y.k[kEnc] = D;
+    y.n[kZh] = 2 * L, y.k[kZh] = y.Hc;
+    y.n[kDec] = g.use_x_prev ? y.Hc : 0, y.k[kDec] = g.use_x_prev ? D : 0;
+    y.n[kHead] = y.Dc, y.k[kHead] = H;
+  } else {
+    y.n[kZh] = 2 * L, y.k[kZh] = D;
+    y.n[kHead] = g.use_x_prev ? y.Dc : 0, y.k[kHead] = g.use_x_prev ? D : 0;
   }
+  unsigned off = 32;  // four mbarriers
+  int span[kClLayers];
+  for (int i = 0; i < kClLayers; ++i) {
+    const bool on = y.n[i] > 0 && y.k[i] > 0;
+    y.nck[i] = on ? cdiv(cdiv(y.k[i], kp), g.g[i]) : 0;
+    const int m = (g.g[i] < 8 && y.nck[i] % 2 == 0 && on) ? y.nck[i] + 1 : y.nck[i];
+    y.rs[i] = m * g.g[i];
+    span[i] = y.nck[i] * g.g[i] * kp;
+    y.slab[i] = off;
+    off += (unsigned)y.n[i] * (unsigned)y.rs[i] * 16u;
+  }
+  y.Da = imax(cdiv(D, 4) * 4, g.has_hidden ? imax(span[kEnc], span[kDec])
+                                           : imax(span[kZh], span[kHead]));
+  y.Ha = g.has_hidden ? imax(cdiv(H, 4) * 4, span[kHead]) : 0;
+  const int own = g.has_hidden ? y.Hc : y.Dc;  // the columns the z rows hold
+  y.zrows = cl_take(off, L * own);
+  y.bz = cl_take(off, g.has_hidden ? 2 * L : 0);
+  y.bx = cl_take(off, g.has_hidden ? y.Dc : 0);
+  y.frames = cl_take(off, 3 * S * y.Da);
+  y.hd = cl_take(off, S * y.Ha);
+  y.fold0 = cl_take(off, S * (g.has_hidden ? y.Hc : 2 * L));  // encb, or zb
+  y.fold1 = cl_take(off, S * (g.has_hidden ? y.Hc : y.Dc));   // decb, or xb
+  // the z heads: each warp's sums of the block's units (with hidden layers),
+  // or zmv; z
+  y.zp = cl_take(off, S * 2 * L * (g.has_hidden ? kClWarpSlots : 1));
+  y.zs = cl_take(off, g.has_hidden ? S * L : 0);
+  y.dsum = cl_take(off, S * imax(y.Hc, y.Dc));  // the products that wait for z
+  y.noise = cl_take(off, kClRing * S * (L + y.Dc));
+  y.bytes = off;
+  return y;
+}
+
+struct ClArgs {
+  ClGeom geom;
+  const float* seed;   // [B, D]
+  const float* eps;    // [B, nsteps, L]
+  const float* u;      // [B, nsteps, D]
+  const void* w[kClLayers];  // [C][slab] each: block r's slab at r * n * rs * 16 bytes (or null)
+  // the per-song folds of the key point w, formed in the prologue: the w
+  // rows and biases of (hidden) the encoder and the decoder ([K, H] each,
+  // -> encb, decb), or (none) of the two z heads ([K, L]) and the frame head
+  // ([K, D]) (-> zb, xb)
+  const float* ws;     // [B, K]
+  const float* fw[3];
+  const float* fb[3];
+  const float* zrows;  // hidden: decoder z rows [L, H]; none: frame head z rows [L, D]
+  const float* bz;     // [2L] (hidden)
+  const float* bx;     // [D] (hidden)
+  float* out;          // [B, nsteps, D]
+  unsigned long long* clock;  // [kClLaps] or null: block 0's ns per part of a step
+  int B, nsteps, K, use_z_prior, return_probs;
+  ClLayout y;          // cl_layout(geom), computed on the host (read from the constant bank)
+};
+
+// Block 0's clock of a step's parts (thread 0's view): the noise staging (the
+// z warp's); the encoder's and the decoder's products with h_e's terms of
+// the z heads; the z heads' sums over the warp; the wait at the first
+// barrier; z (the z warp's) and the block barrier after it; the h_d
+// epilogue; the wait at the second barrier; the frame head's products; its
+// epilogue (the draw, the output, x_t to every block); the wait for the
+// next step's noise; the wait at the last barrier. Without hidden layers:
+// the z heads' and the frame head's products, the block barrier, then the
+// frame head's epilogue (z in each thread).
+constexpr int kClLaps = 11;
+using ClClock = cvl_coop::PhaseClock<kClLaps>;
+
+__device__ __forceinline__ unsigned cl_smem(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cl_mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(cl_smem(bar)), "r"(1u) : "memory");
+}
+__device__ __forceinline__ void cl_mbar_wait(uint64_t* bar) {  // phase 0 completed
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(cl_smem(bar)), "r"(0u)
+        : "memory");
+}
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both on 16
+// bytes, completing on `bar`
+__device__ __forceinline__ void cl_bulk(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(cl_smem(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(cl_smem(dst)),
+      "l"(src), "r"(bytes), "r"(cl_smem(bar))
+      : "memory");
+}
+__device__ __forceinline__ void cl_cp4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(cl_smem(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cl_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cl_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// a 16-byte chunk of a slab as f32 values in k order
+__device__ __forceinline__ void cl_unpack(const uint4& v, float (&w)[4]) {
+  w[0] = __uint_as_float(v.x), w[1] = __uint_as_float(v.y);
+  w[2] = __uint_as_float(v.z), w[3] = __uint_as_float(v.w);
+}
+__device__ __forceinline__ void cl_unpack(const uint4& v, float (&w)[8]) {
+  const unsigned q[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    w[2 * i] = __uint_as_float(q[i] << 16);
+    w[2 * i + 1] = __uint_as_float(q[i] & 0xffff0000u);
+  }
+}
+
+// a column's sums, one a song (passed by value: kept in registers)
+template <int S>
+struct ClSums {
+  float v[S];
+};
+
+// One layer for every song of the tile, its weights read from the block's
+// shared memory: sum_k act[b][k] * w[n][k] for each of the block's n_cols
+// columns, of one weight (slab2 null) or of two weights of the same shape
+// over two operands (slab2, act2: the encoder's and the decoder's x rows,
+// one pass with twice the independent sums). Group gi = tid >> lg (g = 1 <<
+// lg lanes) takes columns gi, gi + T / g, ...; lane li = tid & (g - 1) sums
+// the chunks li, li + g, ... (nck of them) of its column's slab row (rs
+// chunks a row), k in order within a chunk, every song in its own sum; then
+// the group adds its lanes' sums by a butterfly, offsets g/2 down to 1, so
+// every lane of the group holds the column's sums. epi(n, on, sums, sums2)
+// runs on every lane of the warp (on: a column of the block).
+template <typename WT, int S, typename Epi>
+__device__ __forceinline__ void cl_layer(const unsigned char* slab, const unsigned char* slab2,
+                                         int n_cols, int lg, int nck, int rs, const float* act,
+                                         const float* act2, int ld, Epi epi) {
+  constexpr int kp = 16 / (int)sizeof(WT);
+  const int g = 1 << lg, li = threadIdx.x & (g - 1), gi = threadIdx.x >> lg;
+  const int ng = blockDim.x >> lg;
+  const uint4* w4 = reinterpret_cast<const uint4*>(slab);
+  const uint4* v4 = reinterpret_cast<const uint4*>(slab2);
+  for (int n0 = 0; n0 < n_cols; n0 += ng) {
+    const int n = n0 + gi;
+    const bool on = n < n_cols;
+    ClSums<S> s1, s2;
+#pragma unroll
+    for (int b = 0; b < S; ++b) s1.v[b] = s2.v[b] = 0.f;
+    if (on) {
+      const size_t row = (size_t)n * rs + li;
+#pragma unroll 2
+      for (int i = 0; i < nck; ++i) {
+        float w[kp], v[kp];
+        cl_unpack(w4[row + (i << lg)], w);
+        if (slab2) cl_unpack(v4[row + (i << lg)], v);
+        const int k0 = (li + (i << lg)) * kp;
+#pragma unroll
+        for (int b = 0; b < S; ++b) {
+          const float4* a4 = reinterpret_cast<const float4*>(act + b * ld + k0);
+#pragma unroll
+          for (int q = 0; q < kp / 4; ++q) {
+            const float4 x = a4[q];
+            s1.v[b] = fmaf(x.x, w[4 * q], s1.v[b]);
+            s1.v[b] = fmaf(x.y, w[4 * q + 1], s1.v[b]);
+            s1.v[b] = fmaf(x.z, w[4 * q + 2], s1.v[b]);
+            s1.v[b] = fmaf(x.w, w[4 * q + 3], s1.v[b]);
+          }
+          if (slab2) {
+            const float4* c4 = reinterpret_cast<const float4*>(act2 + b * ld + k0);
+#pragma unroll
+            for (int q = 0; q < kp / 4; ++q) {
+              const float4 x = c4[q];
+              s2.v[b] = fmaf(x.x, v[4 * q], s2.v[b]);
+              s2.v[b] = fmaf(x.y, v[4 * q + 1], s2.v[b]);
+              s2.v[b] = fmaf(x.z, v[4 * q + 2], s2.v[b]);
+              s2.v[b] = fmaf(x.w, v[4 * q + 3], s2.v[b]);
+            }
+          }
+        }
+      }
+    }
+    for (int off = g >> 1; off > 0; off >>= 1) {
+#pragma unroll
+      for (int b = 0; b < S; ++b) {
+        s1.v[b] += __shfl_xor_sync(0xffffffffu, s1.v[b], off);
+        if (slab2) s2.v[b] += __shfl_xor_sync(0xffffffffu, s2.v[b], off);
+      }
+    }
+    epi(n, on, s1, s2);
+  }
+}
+
+// The register path: where every column of a layer has its group (one
+// round) and a lane sums at most kClRegVals values of k, the lane's chunks
+// of each weight are loaded from the slab into registers once a launch and
+// the layer reads only its operands from shared memory: the same sums, in
+// the same order, as `cl_layer`.
+template <typename WT>
+__device__ __forceinline__ void cl_load_regs(float (&w)[kClRegVals], const unsigned char* slab,
+                                             int n_cols, int lg, int nck, int rs) {
+  constexpr int kp = 16 / (int)sizeof(WT);
+  const int li = threadIdx.x & ((1 << lg) - 1), n = threadIdx.x >> lg;
+#pragma unroll
+  for (int i = 0; i < kClRegVals / kp; ++i) {
+    float v[kp];
+#pragma unroll
+    for (int j = 0; j < kp; ++j) v[j] = 0.f;
+    if (slab && n < n_cols && i < nck)
+      cl_unpack(reinterpret_cast<const uint4*>(slab)[(size_t)n * rs + li + (i << lg)], v);
+#pragma unroll
+    for (int j = 0; j < kp; ++j) w[i * kp + j] = v[j];
+  }
+}
+
+template <typename WT, int S, typename Epi>
+__device__ __forceinline__ void cl_layer_regs(const float (&w)[kClRegVals],
+                                              const float (&w2)[kClRegVals], bool two, int n_cols,
+                                              int lg, int nck, const float* act, const float* act2,
+                                              int ld, Epi epi) {
+  constexpr int kp = 16 / (int)sizeof(WT);
+  const int g = 1 << lg, li = threadIdx.x & (g - 1), n = threadIdx.x >> lg;
+  const bool on = n < n_cols;
+  ClSums<S> s1, s2;
+#pragma unroll
+  for (int b = 0; b < S; ++b) s1.v[b] = s2.v[b] = 0.f;
+  if (on) {
+#pragma unroll
+    for (int i = 0; i < kClRegVals / kp; ++i) {
+      if (i < nck) {
+        const int k0 = (li + (i << lg)) * kp;
+#pragma unroll
+        for (int b = 0; b < S; ++b) {
+          const float4* a4 = reinterpret_cast<const float4*>(act + b * ld + k0);
+#pragma unroll
+          for (int q = 0; q < kp / 4; ++q) {
+            const float4 x = a4[q];
+            s1.v[b] = fmaf(x.x, w[i * kp + 4 * q], s1.v[b]);
+            s1.v[b] = fmaf(x.y, w[i * kp + 4 * q + 1], s1.v[b]);
+            s1.v[b] = fmaf(x.z, w[i * kp + 4 * q + 2], s1.v[b]);
+            s1.v[b] = fmaf(x.w, w[i * kp + 4 * q + 3], s1.v[b]);
+          }
+          if (two) {
+            const float4* c4 = reinterpret_cast<const float4*>(act2 + b * ld + k0);
+#pragma unroll
+            for (int q = 0; q < kp / 4; ++q) {
+              const float4 x = c4[q];
+              s2.v[b] = fmaf(x.x, w2[i * kp + 4 * q], s2.v[b]);
+              s2.v[b] = fmaf(x.y, w2[i * kp + 4 * q + 1], s2.v[b]);
+              s2.v[b] = fmaf(x.z, w2[i * kp + 4 * q + 2], s2.v[b]);
+              s2.v[b] = fmaf(x.w, w2[i * kp + 4 * q + 3], s2.v[b]);
+            }
+          }
+        }
+      }
+    }
+  }
+  for (int off = g >> 1; off > 0; off >>= 1) {
+#pragma unroll
+    for (int b = 0; b < S; ++b) {
+      s1.v[b] += __shfl_xor_sync(0xffffffffu, s1.v[b], off);
+      if (two) s2.v[b] += __shfl_xor_sync(0xffffffffu, s2.v[b], off);
+    }
+  }
+  epi(n, on, s1, s2);
+}
+
+// this block's rank in its cluster, block q's address of this block's
+// shared `p` (distributed shared memory), and the cluster barrier (release /
+// acquire: every block's writes into the others' shared memory are seen)
+__device__ __forceinline__ int cl_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ float* cl_peer(float* p, int q) {
+  unsigned long long d;
+  asm volatile("mapa.u64 %0, %1, %2;\n" : "=l"(d) : "l"(reinterpret_cast<unsigned long long>(p)),
+               "r"(q));
+  return reinterpret_cast<float*>(d);
+}
+__device__ __forceinline__ void cl_sync(int C) {
+  if (C == 1) {
+    __syncthreads();
+  } else {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  }
+}
+// v into element i of array p of every block of the cluster
+__device__ __forceinline__ void cl_put(float* p, int i, float v, int C) {
+  if (C == 1) {
+    p[i] = v;
+    return;
+  }
+  for (int q = 0; q < C; ++q) cl_peer(p, q)[i] = v;
+}
+
+// the sum of a song's z-head column over every block of the cluster: each
+// block's 16 warp slots added in warp order (a warp the block lacks holds
+// 0), the blocks' sums in rank order
+__device__ __forceinline__ float cl_zsum(float* zpw, int idx, int C) {
+  float s = 0.f;
+  for (int q = 0; q < C; ++q) {
+    const float4* p = reinterpret_cast<const float4*>((C == 1 ? zpw : cl_peer(zpw, q)) +
+                                                      idx * kClWarpSlots);
+    const float4 x0 = p[0], x1 = p[1], x2 = p[2], x3 = p[3];
+    float t = x0.x;
+    t += x0.y, t += x0.z, t += x0.w;
+    t += x1.x, t += x1.y, t += x1.z, t += x1.w;
+    t += x2.x, t += x2.y, t += x2.z, t += x2.w;
+    t += x3.x, t += x3.y, t += x3.z, t += x3.w;
+    s = q == 0 ? t : __fadd_rn(s, t);
+  }
+  return s;
+}
+
+// A cluster of C blocks runs S = kClSongs songs through every step (see the
+// header); RG: the register path (at most 384 threads).
+template <typename WT, bool RG>
+__global__ void __launch_bounds__(RG ? kClRegThreads : kClMaxThreads, 1)
+    generate_cluster_kernel(const ClArgs a) {
+  constexpr int S = kClSongs;
+  extern __shared__ int4 smem_cl[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(smem_cl);
+  const ClGeom& gm = a.geom;
+  const ClLayout& y = a.y;
+  const int C = gm.C, D = gm.D, H = gm.H, L = gm.L, T = blockDim.x, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int r = C == 1 ? 0 : cl_rank(), s0 = (blockIdx.x / C) * S;
+  const int hh = gm.has_hidden, xp = gm.use_x_prev, zprior = a.use_z_prior;
+  const int Hc = y.Hc, Dc = y.Dc, Da = y.Da, Ha = y.Ha, NZ = L + Dc;
+  const int nun = hh ? imin(Hc, H - r * Hc) : 0, npt = imin(Dc, D - r * Dc);  // owned, in range
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm);
+  const WT* wz = reinterpret_cast<const WT*>(sm + y.slab[kZh]);  // [2L][rs kp] z heads
+  const int wz_ld = y.rs[kZh] * (16 / (int)sizeof(WT));
+  float* zrows = reinterpret_cast<float*>(sm + y.zrows);  // [L][Hc] (none: [L][Dc])
+  float* bz = reinterpret_cast<float*>(sm + y.bz);
+  float* bx = reinterpret_cast<float*>(sm + y.bx);        // [Dc]
+  float* frames = reinterpret_cast<float*>(sm + y.frames);  // [3][S][Da]
+  float* hd = reinterpret_cast<float*>(sm + y.hd);        // [S][Ha]
+  float* fold0 = reinterpret_cast<float*>(sm + y.fold0);  // encb [S][Hc] (none: zb [S][2L])
+  float* fold1 = reinterpret_cast<float*>(sm + y.fold1);  // decb [S][Hc] (none: xb [S][Dc])
+  float* zpw = reinterpret_cast<float*>(sm + y.zp);       // [S][2L][16] warp sums (none: [S][2L])
+  float* zs = reinterpret_cast<float*>(sm + y.zs);        // [S][L] z
+  float* dsum = reinterpret_cast<float*>(sm + y.dsum);    // [S][Hc] (none: [S][Dc])
+  float* noise = reinterpret_cast<float*>(sm + y.noise);  // [kClRing][S][L + Dc]: eps, u
+
+  // the slabs: one bulk copy a weight (not the encoder's and the z heads'
+  // under use_z_prior), each on its own mbarrier
+  bool used[kClLayers];
+#pragma unroll
+  for (int i = 0; i < kClLayers; ++i)
+    used[i] = y.n[i] > 0 && y.rs[i] > 0 && !(zprior && (i == kEnc || i == kZh));
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < kClLayers; ++i) cl_mbar_init(bars + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+#pragma unroll
+    for (int i = 0; i < kClLayers; ++i)
+      if (used[i]) {
+        const unsigned bytes = (unsigned)y.n[i] * (unsigned)y.rs[i] * 16u;
+        cl_bulk(sm + y.slab[i], static_cast<const unsigned char*>(a.w[i]) + (size_t)r * bytes,
+                bytes, bars + i);
+      }
+  // the f32 state: zeros (the pads of every operand row and the unused warp
+  // slots stay 0), then the block's columns of the z rows, the biases, the
+  // songs' folds and seeds
+  for (unsigned i = y.zrows / 16 + tid; i < y.bytes / 16; i += T)
+    smem_cl[i] = make_int4(0, 0, 0, 0);
+  __syncthreads();
+  const int own = hh ? Hc : Dc, nown = hh ? nun : npt, c0 = r * own, ld0 = hh ? H : D;
+  for (int i = tid; i < L * own; i += T) {
+    const int l = i / own, j = i - l * own;
+    if (j < nown) zrows[i] = a.zrows[(size_t)l * ld0 + c0 + j];
+  }
+  if (hh) {
+    for (int i = tid; i < 2 * L; i += T) bz[i] = a.bz[i];
+    for (int j = tid; j < npt; j += T) bx[j] = a.bx[r * Dc + j];
+  }
+  // a song's fold: w . (w rows)[:, col] (k in order) + bias[col]
+  const auto fold = [&](int i, int ld, int col, int s) {
+    float e = 0.f;
+    for (int k = 0; k < a.K; ++k) e = fmaf(a.ws[(size_t)s * a.K + k], a.fw[i][(size_t)k * ld + col], e);
+    return __fadd_rn(e, a.fb[i][col]);
+  };
+  for (int b = 0; b < S; ++b) {
+    const int s = s0 + b;
+    if (s >= a.B) break;
+    if (hh) {
+      for (int j = tid; j < nun; j += T) {
+        fold0[b * Hc + j] = fold(0, H, r * Hc + j, s);  // encb
+        fold1[b * Hc + j] = fold(1, H, r * Hc + j, s);  // decb
+      }
+    } else {
+      for (int j = tid; j < 2 * L; j += T)  // zb: z_mean | z_log_var
+        fold0[b * 2 * L + j] = j < L ? fold(0, L, j, s) : fold(1, L, j - L, s);
+      for (int j = tid; j < npt; j += T) fold1[b * Dc + j] = fold(2, D, r * Dc + j, s);  // xb
+    }
+    for (int d = tid; d < D; d += T) frames[b * Da + d] = operand<WT>(a.seed[(size_t)s * D + d]);
+  }
+  // the noise ring: eps 0 and u 1 where no song is (the copies overwrite
+  // the songs' slots), then the first kClRing - 3 steps in flight
+  for (int i = tid; i < kClRing * S * NZ; i += T)
+    if (i % NZ >= L) noise[i] = 1.f;
+  __syncthreads();
+  // the noise of step t into its slot, by the z warp (the last warp)
+  const bool zwarp = tid >= T - 32;
+  const auto stage = [&](int t) {
+    if (t < a.nsteps) {
+      float* slot = noise + (t % kClRing) * S * NZ;
+      for (int i = lane; i < S * NZ; i += 32) {
+        const int b = S == 1 ? 0 : i / NZ, e = i - b * NZ, s = s0 + b;
+        if (s >= a.B) continue;
+        if (e < L)
+          cl_cp4(slot + i, a.eps + ((size_t)s * a.nsteps + t) * L + e);
+        else if (e - L < npt)
+          cl_cp4(slot + i, a.u + ((size_t)s * a.nsteps + t) * D + r * Dc + (e - L));
+      }
+    }
+    cl_commit();
+  };
+  if (zwarp) {
+    for (int t = 0; t < kClRing - 3; ++t) stage(t);
+    cl_wait<kClRing - 4>();  // this lane's copies of step 0 landed
+  }
+  const int lg0 = __ffs(gm.g[kEnc]) - 1, lg1 = __ffs(gm.g[kZh]) - 1, lg3 = __ffs(gm.g[kHead]) - 1;
+  const int g0 = 1 << lg0, li0 = lane & (g0 - 1), gh = 1 << lg3, lh = lane & (gh - 1);
+  // the register path's weights: the lane's chunks of the encoder's (with
+  // hidden layers; else the z heads') and the decoder's x rows, of the frame
+  // head, and the z heads of its unit
+  float wa[kClRegVals], wb[kClRegVals], wh[kClRegVals], wzr[kClZPer];
+  if (RG) {
+#pragma unroll
+    for (int i = 0; i < kClLayers; ++i)
+      if (used[i]) cl_mbar_wait(bars + i);
+    const int la = hh ? kEnc : kZh, lga = hh ? lg0 : lg1;
+    cl_load_regs<WT>(wa, used[la] ? sm + y.slab[la] : nullptr, y.n[la], lga, y.nck[la],
+                     y.rs[la]);
+    cl_load_regs<WT>(wb, used[kDec] ? sm + y.slab[kDec] : nullptr, y.n[kDec], lg0, y.nck[kDec],
+                     y.rs[kDec]);
+    cl_load_regs<WT>(wh, used[kHead] ? sm + y.slab[kHead] : nullptr, y.n[kHead], lg3,
+                     y.nck[kHead], y.rs[kHead]);
+    const int n = tid >> lg0;
+#pragma unroll
+    for (int j = 0; j < kClZPer; ++j) {
+      const int c = li0 + j * g0;
+      wzr[j] = hh && used[kZh] && n < Hc && c < 2 * L ? ld(wz + c * wz_ld + n) : 0.f;
+    }
+  }
+  // every block of the cluster is running and its state set before any
+  // block writes into another's shared memory
+  cl_sync(C);
+  __shared__ ClClock clk;  // thread 0 of block 0 keeps it
+  const bool timer = tid == 0;
+  if (timer) {
+    clk.out = blockIdx.x == 0 ? a.clock : nullptr;
+    clk.start();
+  }
+
+  for (int t = 0; t < a.nsteps; ++t) {
+    // step t + kClRing - 3's noise into the slot step t - 3 left (the z
+    // warp's, whose lanes the products of most configs leave idle)
+    if (zwarp) stage(t + kClRing - 3);
+    if (timer) clk.lap(0);
+    const float* nz = noise + (t % kClRing) * S * NZ;  // [S][L + Dc]: eps, u of the block's pitches
+    const float* xin = frames + (t % 3) * S * Da;                     // x_prev
+    const float* xlag = frames + (t == 0 ? 0 : (t - 1) % 3) * S * Da;  // x_prev_t
+    const int nxt = ((t + 1) % 3) * S * Da;
+    // the Bernoulli draw of pitch r Dc + n of song b, its output, and x_t into
+    // every block's next frame
+    const auto emit = [&](int n, int b, float p) {
+      const float xt = nz[b * NZ + L + n] < p ? 1.f : 0.f;
+      const int s = s0 + b, d = r * Dc + n;
+      if (s < a.B) a.out[((size_t)s * a.nsteps + t) * D + d] = a.return_probs ? p : xt;
+      cl_put(frames, nxt + b * Da + d, xt, C);
+    };
+    if (hh) {
+      // 1. one pass over the block's units: h_e = relu(x_prev.Wke + encb) and
+      // its terms of the z heads (lane li of a column's group takes heads li,
+      // li + g, ...: kClZPer a song), and the decoder's x_prev_t product; the
+      // z heads' terms summed over the warp's groups (offsets 16 down to g)
+      // into the warp's slot
+      float zacc[S][kClZPer];
+#pragma unroll
+      for (int b = 0; b < S; ++b)
+#pragma unroll
+        for (int j = 0; j < kClZPer; ++j) zacc[b][j] = 0.f;
+      ClSums<S> dec;  // the register path keeps the decoder's sums here
+      const auto epi = [&](int n, bool on, const ClSums<S> acc, const ClSums<S> acc2) {
+        if (!on) return;
+        if (!zprior) {
+#pragma unroll
+          for (int b = 0; b < S; ++b) {
+            const float h = operand<WT>(fmaxf(__fadd_rn(acc.v[b], fold0[b * Hc + n]), 0.f));
+#pragma unroll
+            for (int j = 0; j < kClZPer; ++j) {
+              const int c = li0 + j * g0;
+              if (c < 2 * L) zacc[b][j] = fmaf(h, RG ? wzr[j] : ld(wz + c * wz_ld + n), zacc[b][j]);
+            }
+          }
+        }
+        if (xp) {
+          const ClSums<S> d = zprior ? acc : acc2;
+          if (RG) {
+            dec = d;
+          } else {
+#pragma unroll
+            for (int b = 0; b < S; ++b)
+              if ((b & (g0 - 1)) == li0) dsum[b * Hc + n] = d.v[b];
+          }
+        }
+      };
+      if (t == 0 && !RG) {
+        if (!zprior) cl_mbar_wait(bars + kEnc), cl_mbar_wait(bars + kZh);
+        if (xp) cl_mbar_wait(bars + kDec);
+      }
+      if (RG) {
+        if (!zprior)
+          cl_layer_regs<WT, S>(wa, wb, xp, Hc, lg0, y.nck[kEnc], xin, xlag, Da, epi);
+        else if (xp)
+          cl_layer_regs<WT, S>(wb, wb, false, Hc, lg0, y.nck[kEnc], xlag, nullptr, Da, epi);
+      } else if (!zprior || xp) {
+        cl_layer<WT, S>(zprior ? sm + y.slab[kDec] : sm + y.slab[kEnc],
+                        zprior || !xp ? nullptr : sm + y.slab[kDec], Hc, lg0, y.nck[kEnc],
+                        y.rs[kEnc], zprior ? xlag : xin, xlag, Da, epi);
+      }
+      if (timer) clk.lap(1);
+      if (!zprior) {
+#pragma unroll
+        for (int j = 0; j < kClZPer; ++j)
+          if (j * g0 < 2 * L)  // a head some lane of the warp sums
+            for (int off = 16; off >= g0; off >>= 1)
+#pragma unroll
+              for (int b = 0; b < S; ++b) zacc[b][j] += __shfl_xor_sync(0xffffffffu, zacc[b][j], off);
+        if (lane < g0)
+#pragma unroll
+          for (int b = 0; b < S; ++b)
+#pragma unroll
+            for (int j = 0; j < kClZPer; ++j) {
+              const int c = li0 + j * g0;
+              if (c < 2 * L) zpw[(b * 2 * L + c) * kClWarpSlots + warp] = zacc[b][j];
+            }
+      }
+      if (timer) clk.lap(2);
+      if (!zprior) cl_sync(C);  // the z heads' sums of every block are in
+      if (timer) clk.lap(3);
+      // 2. z = m + exp(v/2) eps in one warp (the blocks' sums added in rank
+      // order), or eps; then h_d = relu(((decb + z rows, l = 0 .. L-1) + the
+      // x_prev_t product)) of the block's units into every block's copy
+      if (zwarp)
+        for (int i = lane; i < S * L; i += 32) {
+          const int b = S == 1 ? 0 : i / L, l = i - b * L;
+          const float e = nz[b * NZ + l];
+          float z = e;
+          if (!zprior) {
+            const float m = cl_zsum(zpw, b * 2 * L + l, C);
+            const float v = cl_zsum(zpw, b * 2 * L + L + l, C);
+            const float scale = expf(__fadd_rn(v, bz[L + l]) / 2.f);
+            z = __fadd_rn(__fadd_rn(m, bz[l]), __fmul_rn(scale, e));
+          }
+          zs[i] = z;
+        }
+      __syncthreads();
+      if (timer) clk.lap(4);
+      const auto hd_out = [&](int b, int j, float dot) {
+        float v = fold1[b * Hc + j];
+        for (int l = 0; l < L; ++l) v = __fadd_rn(v, __fmul_rn(zs[b * L + l], zrows[l * Hc + j]));
+        if (xp) v = __fadd_rn(v, dot);
+        cl_put(hd, b * Ha + r * Hc + j, operand<WT>(fmaxf(v, 0.f)), C);
+      };
+      if (RG) {
+        const int n = tid >> lg0;
+        if (n < nun)
+#pragma unroll
+          for (int b = 0; b < S; ++b)
+            if ((b & (g0 - 1)) == li0) hd_out(b, n, xp ? dec.v[b] : 0.f);
+      } else {
+        for (int i = tid; i < S * Hc; i += T) {
+          const int b = S == 1 ? 0 : i / Hc, j = i - b * Hc;
+          if (j < nun) hd_out(b, j, xp ? dsum[i] : 0.f);
+        }
+      }
+      if (timer) clk.lap(5);
+      cl_sync(C);
+      if (timer) clk.lap(6);
+      // 3. the frame head for the block's pitches: p = sigmoid(h_d.Wx + bx)
+      const auto head = [&](int n, bool on, const ClSums<S> acc, const ClSums<S>) {
+        if (timer) clk.lap(7);
+        if (!on || n >= npt) return;
+#pragma unroll
+        for (int b = 0; b < S; ++b)
+          if ((b & (gh - 1)) == lh) emit(n, b, 1.f / (1.f + expf(-__fadd_rn(acc.v[b], bx[n]))));
+      };
+      if (RG) {
+        cl_layer_regs<WT, S>(wh, wh, false, Dc, lg3, y.nck[kHead], hd, nullptr, Ha, head);
+      } else {
+        if (t == 0) cl_mbar_wait(bars + kHead);
+        cl_layer<WT, S>(sm + y.slab[kHead], nullptr, Dc, lg3, y.nck[kHead], y.rs[kHead], hd,
+                        nullptr, Ha, head);
+      }
+      if (timer) clk.lap(8);
+    } else {
+      // the z heads over x_prev in every block, zmv = x_prev.Wz + zb, and the
+      // frame head's x_prev_t product for the block's pitches
+      const int g1 = 1 << lg1, li1 = lane & (g1 - 1);
+      const auto zmv = [&](int n, bool on, const ClSums<S> acc, const ClSums<S>) {
+        if (!on) return;
+#pragma unroll
+        for (int b = 0; b < S; ++b)
+          if ((b & (g1 - 1)) == li1) zpw[b * 2 * L + n] = __fadd_rn(acc.v[b], fold0[b * 2 * L + n]);
+      };
+      const auto prod = [&](int n, bool on, const ClSums<S> acc, const ClSums<S>) {
+        if (!on) return;
+#pragma unroll
+        for (int b = 0; b < S; ++b)
+          if ((b & (gh - 1)) == lh) dsum[b * Dc + n] = acc.v[b];
+      };
+      if (!zprior) {
+        if (RG) {
+          cl_layer_regs<WT, S>(wa, wa, false, 2 * L, lg1, y.nck[kZh], xin, nullptr, Da, zmv);
+        } else {
+          if (t == 0) cl_mbar_wait(bars + kZh);
+          cl_layer<WT, S>(sm + y.slab[kZh], nullptr, 2 * L, lg1, y.nck[kZh], y.rs[kZh], xin,
+                          nullptr, Da, zmv);
+        }
+      }
+      if (xp) {
+        if (RG) {
+          cl_layer_regs<WT, S>(wh, wh, false, Dc, lg3, y.nck[kHead], xlag, nullptr, Da, prod);
+        } else {
+          if (t == 0) cl_mbar_wait(bars + kHead);
+          cl_layer<WT, S>(sm + y.slab[kHead], nullptr, Dc, lg3, y.nck[kHead], y.rs[kHead], xlag,
+                          nullptr, Da, prod);
+        }
+      }
+      if (timer) clk.lap(1);
+      __syncthreads();
+      if (timer) clk.lap(3);
+      // the frame head: p = sigmoid(((xb + z rows, l = 0 .. L-1) + x_prev_t.Wx)),
+      // z = m + exp(v/2) eps (or eps) in each thread
+      for (int i = tid; i < S * Dc; i += T) {
+        const int b = S == 1 ? 0 : i / Dc, n = i - b * Dc;
+        if (n >= npt) continue;
+        float v = fold1[i];
+        for (int l = 0; l < L; ++l) {
+          const float e = nz[b * NZ + l];
+          const float z = zprior ? e
+                                 : __fadd_rn(zpw[b * 2 * L + l],
+                                             __fmul_rn(expf(zpw[b * 2 * L + L + l] / 2.f), e));
+          v = __fadd_rn(v, __fmul_rn(z, zrows[l * Dc + n]));
+        }
+        if (xp) v = __fadd_rn(v, dsum[i]);
+        emit(n, b, 1.f / (1.f + expf(-v)));
+      }
+      if (timer) clk.lap(8);
+    }
+    // step t + 1's noise has landed once the barrier is passed
+    if (zwarp) cl_wait<kClRing - 4>();
+    if (timer) clk.lap(9);
+    cl_sync(C);
+    if (timer) clk.lap(10);
+  }
+  if (timer) clk.flush();
+#pragma unroll
+  for (int i = 0; i < kClLayers; ++i)
+    if (used[i]) cl_mbar_wait(bars + i);  // no copy outlives the block
+}
+
+ClGeom cl_geom(int D, int H, int L, int has_hidden, int use_x_prev, int eb, int C, int T, int g0,
+               int g1, int g2, int g3) {
+  return ClGeom{D, H, L, has_hidden, use_x_prev, eb, C, T, {g0, g1, g2, g3}};
+}
+
+// Can the register path take the geometry: one song a cluster, at most
+// kClRegThreads threads, and every product it runs (with hidden layers the
+// encoder's, the decoder's and the frame head's; without, the z heads' and
+// the frame head's) one column a group with at most kClRegVals values a
+// lane?
+bool cl_regs_ok(const ClGeom& g, const ClLayout& y) {
+  if (kClSongs != 1 || g.T > kClRegThreads) return false;
+  const int kp = 16 / g.eb;
+  for (int i = 0; i < kClLayers; ++i) {
+    if (g.has_hidden && i == kZh) continue;  // read a unit at a time, not as a product
+    if (y.n[i] && y.nck[i] && (y.n[i] > g.T / g.g[i] || y.nck[i] * kp > kClRegVals)) return false;
+  }
+  return true;
+}
+
+// the largest dynamic shared memory for an instance, once per device
+template <typename WT, bool RG>
+cudaError_t cl_smem_attr() {
+  static unsigned set = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (set & (1u << dev))) return err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, generate_cluster_kernel<WT, RG>);
+  if (err != cudaSuccess) return err;
+  if (fa.sharedSizeBytes > (size_t)kClStatic) return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(generate_cluster_kernel<WT, RG>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemLimit - (int)fa.sharedSizeBytes);
+  if (err == cudaSuccess) set |= 1u << dev;
+  return err;
+}
+
+// a launch's configuration: `clusters` clusters of C blocks of T threads
+struct ClLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  ClLaunch(int clusters, int C, int T, unsigned smem, cudaStream_t stream) : cfg{}, attr{} {
+    cfg.gridDim = dim3(clusters * C);
+    cfg.blockDim = dim3(T);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = C;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+template <typename WT, bool RG>
+int launch_cluster(const ClArgs& a, cudaStream_t stream) {
+  cudaError_t err = cl_smem_attr<WT, RG>();
+  if (err != cudaSuccess) return (int)err;
+  ClLaunch l(cdiv(a.B, kClSongs), a.geom.C, a.geom.T, a.y.bytes, stream);
+  err = cudaLaunchKernelEx(&l.cfg, generate_cluster_kernel<WT, RG>, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// the clusters of the instance's layout the card holds at once
+template <typename WT, bool RG>
+int max_clusters(int C, int T, unsigned smem, int* result) {
+  cudaError_t err = cl_smem_attr<WT, RG>();
+  if (err != cudaSuccess) return (int)err;
+  ClLaunch l(kClMaxC * 132, C, T, smem, nullptr);
+  return (int)cudaOccupancyMaxActiveClusters(result, generate_cluster_kernel<WT, RG>, &l.cfg);
 }
 
 // Returns, in lane b < kSongs, sum_k a[k][b] * wrow[k]: the warp's lanes split
@@ -272,123 +1064,6 @@ __device__ __forceinline__ float warp_dot(const float* a, const WT* wrow, int K,
     if (lane == b) mine = s[b];
   }
   return mine;
-}
-
-template <typename T>
-__device__ __forceinline__ void copy_in(T* dst, const T* src, size_t n) {
-  for (size_t i = threadIdx.x; i < n; i += kThreads) dst[i] = src[i];
-}
-
-template <typename WT>
-__global__ void __launch_bounds__(kThreads) generate_kernel(const Args a) {
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  const int D = a.D, H = a.H, L = a.L;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int s0 = blockIdx.x * kSongs;  // songs s0 .. s0+kSongs-1; rows >= B are masked
-
-  float* xp = sm;                   // [D][kSongs]  x_prev (the encoder's input)
-  float* xpt = xp + D * kSongs;     // [D][kSongs]  x_prev_t (the decoder's, one step behind)
-  float* encb = xpt + D * kSongs;   // [H][kSongs]
-  float* decb = encb + H * kSongs;  // [H][kSongs]
-  float* he = decb + H * kSongs;    // [H][kSongs]
-  float* hd = he + H * kSongs;      // [H][kSongs]
-  float* zs = hd + H * kSongs;      // [L][kSongs]
-  float* wkd_z = zs + L * kSongs;   // [L, H]
-  float* bz = wkd_z + L * H;        // [2L]
-  float* bx = bz + 2 * L;           // [D]
-  WT* wke = reinterpret_cast<WT*>(bx + D);  // [D, H]
-  WT* wkd_x = wke + D * H;                  // [D, H] when use_x_prev
-  WT* wz_t = wkd_x + (a.use_x_prev ? D * H : 0);  // [2L, H]
-  WT* wx = wz_t + 2 * L * H;                // [H, D]
-
-  // the weights, once per block
-  copy_in(wke, static_cast<const WT*>(a.wke), (size_t)D * H);
-  if (a.use_x_prev) copy_in(wkd_x, static_cast<const WT*>(a.wkd_x), (size_t)D * H);
-  copy_in(wz_t, static_cast<const WT*>(a.wz_t), (size_t)2 * L * H);
-  copy_in(wx, static_cast<const WT*>(a.wx), (size_t)H * D);
-  copy_in(wkd_z, a.wkd_z, (size_t)L * H);
-  copy_in(bz, a.bz, (size_t)2 * L);
-  copy_in(bx, a.bx, (size_t)D);
-  // per-song folds and both frames from the seed (rows >= B: zeros)
-  for (int i = threadIdx.x; i < H * kSongs; i += kThreads) {
-    const int j = i / kSongs, b = i % kSongs, s = s0 + b;
-    encb[i] = s < a.B ? a.encb[(size_t)s * H + j] : 0.f;
-    decb[i] = s < a.B ? a.decb[(size_t)s * H + j] : 0.f;
-  }
-  for (int i = threadIdx.x; i < D * kSongs; i += kThreads) {
-    const int d = i / kSongs, b = i % kSongs, s = s0 + b;
-    const float x = s < a.B ? operand<WT>(a.seed[(size_t)s * D + d]) : 0.f;
-    xp[i] = x;
-    xpt[i] = x;
-  }
-  __syncthreads();
-
-  for (int t = 0; t < a.nsteps; ++t) {
-    // 1. z-encoder hidden: h_e = relu(x_prev @ Wke + encb)
-    for (int j = threadIdx.x; j < H; j += kThreads) {
-      float acc[kSongs];
-#pragma unroll
-      for (int b = 0; b < kSongs; ++b) acc[b] = encb[j * kSongs + b];
-      mac_col(acc, xp, wke, D, H, j);
-#pragma unroll
-      for (int b = 0; b < kSongs; ++b) he[j * kSongs + b] = operand<WT>(fmaxf(acc[b], 0.f));
-    }
-    __syncthreads();
-    // 2. z heads and the draw, one warp per latent
-    for (int l = warp; l < L; l += kWarps) {
-      const float zm = warp_dot(he, wz_t + (size_t)l * H, H, lane);
-      const float zv = warp_dot(he, wz_t + (size_t)(L + l) * H, H, lane);
-      const int s = s0 + lane;
-      if (lane < kSongs) {
-        const float e = s < a.B ? a.eps[((size_t)s * a.nsteps + t) * L + l] : 0.f;
-        zs[l * kSongs + lane] =
-            a.use_z_prior ? e : (zm + bz[l]) + expf((zv + bz[L + l]) / 2.f) * e;
-      }
-    }
-    __syncthreads();
-    // 3. decoder hidden: h_d = relu(decb + sum_l z_l Wkd_z[l] (+ x_prev_t @ Wkd_x))
-    for (int j = threadIdx.x; j < H; j += kThreads) {
-      float acc[kSongs];
-#pragma unroll
-      for (int b = 0; b < kSongs; ++b) acc[b] = decb[j * kSongs + b];
-      mac_col(acc, zs, wkd_z, L, H, j);
-      if (a.use_x_prev) mac_col(acc, xpt, wkd_x, D, H, j);
-#pragma unroll
-      for (int b = 0; b < kSongs; ++b) hd[j * kSongs + b] = operand<WT>(fmaxf(acc[b], 0.f));
-    }
-    __syncthreads();
-    // 4. frame head, Bernoulli draw, both carries, output; one thread per pitch
-    for (int d = threadIdx.x; d < D; d += kThreads) {
-      float acc[kSongs];
-#pragma unroll
-      for (int b = 0; b < kSongs; ++b) acc[b] = 0.f;
-      mac_col(acc, hd, wx, H, D, d);
-#pragma unroll
-      for (int b = 0; b < kSongs; ++b) {
-        const int s = s0 + b;
-        const float xm = 1.f / (1.f + expf(-(acc[b] + bx[d])));
-        const float uu = s < a.B ? a.u[((size_t)s * a.nsteps + t) * D + d] : 1.f;
-        const float xt = uu < xm ? 1.f : 0.f;
-        xpt[d * kSongs + b] = xp[d * kSongs + b];  // the decoder's input lags one step
-        xp[d * kSongs + b] = xt;
-        if (s < a.B) a.out[((size_t)s * a.nsteps + t) * D + d] = a.return_probs ? xm : xt;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <typename WT>
-int launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_floats(a.D, a.H, a.L) * sizeof(float) +
-                      smem_weights(a.D, a.H, a.L, a.use_x_prev) * sizeof(WT);
-  cudaError_t err = cudaFuncSetAttribute(
-      generate_kernel<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.B + kSongs - 1) / kSongs);
-  generate_kernel<WT><<<grid, kThreads, smem, stream>>>(a);
-  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------ the wide kernel
@@ -614,11 +1289,6 @@ constexpr int kRing = 4;                     // ring stages
 constexpr int kMaxNT = 8;                    // n8 tiles of one product pass
 constexpr int kRowStride = kCPS * kChunkBytes + 16;   // a row of a stage's operand, padded
 constexpr int kAStage = kCRows * kRowStride;          // the operand bytes of a stage
-
-__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
-__host__ __device__ constexpr int round16(int n) { return cdiv(n, 16) * 16; }
-__host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
-__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 
 // The element type E of a mode's products: int8 codes summed in int32 on
 // the int8 tensor cores (the z heads bf16), bf16 values summed in f32 on the
@@ -1214,24 +1884,65 @@ int launch_coop(const CoopArgs& a, cudaStream_t stream) {
 }
 }  // namespace
 
-// Bytes of dynamic shared memory one block needs (the wrapper checks the limit).
-extern "C" long long cvl_generate_cl_vae_smem_bytes(int D, int H, int L, int use_x_prev,
-                                                    int bf16_weights) {
-  return (long long)(smem_floats(D, H, L) * sizeof(float) +
-                     smem_weights(D, H, L, use_x_prev) * (bf16_weights ? 2 : 4));
+// Bytes of dynamic shared memory one block of the cluster kernel needs at the
+// plan's geometry (`cluster_plan` checks its own count against it).
+extern "C" long long cvl_generate_cl_vae_cluster_smem_bytes(int D, int H, int L, int has_hidden,
+                                                            int use_x_prev, int eb, int C, int T,
+                                                            int g0, int g1, int g2, int g3) {
+  return (long long)cl_layout(cl_geom(D, H, L, has_hidden, use_x_prev, eb, C, T, g0, g1, g2, g3))
+      .bytes;
 }
 
-// Launches the sampler on `stream`; returns the cudaError_t of the launch.
-extern "C" int cvl_generate_cl_vae(
-    int bf16_weights, const float* seed, const float* eps, const float* u, const void* wke,
-    const float* encb, const void* wz_t, const float* bz, const void* wkd_x,
-    const float* wkd_z, const float* decb, const void* wx, const float* bx, float* out,
-    int B, int nsteps, int D, int H, int L, int use_x_prev, int use_z_prior,
-    int return_probs, void* stream) {
-  const Args a{seed, eps, u, wke, encb, wz_t, bz, wkd_x, wkd_z, decb, wx, bx, out,
-               B, nsteps, D, H, L, use_x_prev, use_z_prior, return_probs};
+// How many clusters of C blocks of T threads, `smem` bytes of dynamic shared
+// memory a block, of the instance (eb, regs) the card holds at once (into
+// `result`); returns the cudaError_t.
+extern "C" int cvl_generate_cl_vae_cluster_max_active(int eb, int regs, int C, int T, int smem,
+                                                      int* result) {
+  if (eb == 4) return regs ? max_clusters<float, true>(C, T, smem, result)
+                           : max_clusters<float, false>(C, T, smem, result);
+  if (eb == 2) return regs ? max_clusters<__nv_bfloat16, true>(C, T, smem, result)
+                           : max_clusters<__nv_bfloat16, false>(C, T, smem, result);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Launches the cluster sampler on `stream`: B clusters (one song each) of C blocks
+// of T threads, operands of `eb` bytes (4 f32, 2 bf16), g0 .. g3 the lanes
+// a column of the encoder, the z heads, the decoder and the frame head, on
+// the register path where `regs` (cl_regs_ok); w0 .. w3 their slabs packed
+// by the wrapper (`pack_cluster`; null where a layer is absent). ws [B, K]
+// are the songs' key points, fw0 .. fw2 the w
+// rows and fb0 .. fb2 the biases of the per-song folds (with hidden layers
+// the encoder's rows D.. [K, H] and the decoder's rows 0.. [K, H], fw2 and
+// fb2 null; without, z_mean's and z_log_var's rows D.. [K, L] and the frame
+// head's rows 0.. [K, D]); with hidden layers zrows are the decoder z rows
+// [L, H], bz [2L], bx [D]; without, the frame head z rows [L, D] (bz, bx
+// null). `clock` (kClLaps counts, or null) receives
+// block 0's ns per part of a step summed over the steps (ClClock). Returns
+// the cudaError_t of the launch (cudaErrorInvalidValue for a geometry no
+// instance takes).
+extern "C" int cvl_generate_cl_vae_cluster(
+    const float* seed, const float* eps, const float* u, const void* w0, const void* w1,
+    const void* w2, const void* w3, const float* ws, const float* fw0, const float* fw1,
+    const float* fw2, const float* fb0, const float* fb1, const float* fb2, const float* zrows,
+    const float* bz, const float* bx, float* out, int B, int nsteps, int D, int H, int L, int K,
+    int has_hidden, int use_x_prev, int use_z_prior, int return_probs, int eb, int C, int T,
+    int g0, int g1, int g2, int g3, int regs, unsigned long long* clock, void* stream) {
+  const ClGeom gm = cl_geom(D, H, L, has_hidden, use_x_prev, eb, C, T, g0, g1, g2, g3);
+  const ClLayout y = cl_layout(gm);
+  bool ok = (eb == 2 || eb == 4) && (C == 1 || C == 2 || C == 4 || C == 8) && T >= 32 &&
+            T <= kClMaxThreads && T % 32 == 0 && B >= 1 && nsteps >= 1 &&
+            y.bytes <= (unsigned)(kSmemLimit - kClStatic) &&
+            (!has_hidden || 2 * L <= kClZPer * g0) && (!regs || cl_regs_ok(gm, y));
+  for (int i = 0; i < kClLayers; ++i)
+    ok = ok && gm.g[i] >= 1 && gm.g[i] <= 32 && (gm.g[i] & (gm.g[i] - 1)) == 0 && T % gm.g[i] == 0;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const ClArgs a{gm,   seed, eps, u, {w0, w1, w2, w3}, ws, {fw0, fw1, fw2}, {fb0, fb1, fb2},
+                 zrows, bz, bx, out, clock, B, nsteps, K, use_z_prior, return_probs, y};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16_weights ? launch<__nv_bfloat16>(a, st) : launch<float>(a, st);
+  if (eb == 4)
+    return regs ? launch_cluster<float, true>(a, st) : launch_cluster<float, false>(a, st);
+  return regs ? launch_cluster<__nv_bfloat16, true>(a, st)
+              : launch_cluster<__nv_bfloat16, false>(a, st);
 }
 
 // Floats of per-song state one block of the wide kernel keeps (in shared

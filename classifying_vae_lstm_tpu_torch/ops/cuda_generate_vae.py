@@ -1,27 +1,26 @@
 """Whole-generation cl_vae sampler: CUDA kernel wrappers and plain version.
 
-Counterpart of ``classifying_vae_lstm_tpu/ops/pallas_generate_vae.py``. Three
-kernels in ``csrc/generate_cl_vae.cu`` run the entire autoregressive loop —
-relu z-encoder hidden, z heads, z draw (or the prior's draw with
+Counterpart of ``classifying_vae_lstm_tpu/ops/pallas_generate_vae.py`` and,
+for configs without hidden layers, of the JAX package's XLA scan
+(``sampling/generate.py`` ``generate_cl_vae_batch_noise``). Three kernels in
+``csrc/generate_cl_vae.cu`` run the entire autoregressive loop — relu
+z-encoder hidden, z heads, z draw (or the prior's draw with
 ``use_z_prior``), relu decoder hidden over (w, z, the one-step-lagged
 ``x_prev_t``), sigmoid frame head, Bernoulli draw, feedback — in one launch:
-``generate_kernel`` with every weight in shared memory, where they fit
-(:func:`fits`); ``generate_vae_coop_kernel``, one cooperative launch whose
-blocks each own hidden units (:func:`coop_grid`) and pitch tiles of the
-frame head (:func:`head_split`), their slices packed in the order of the
-``mma.sync`` fragments (:func:`pack_coop`) and resident in shared memory
-where they fit (:func:`coop_residency`), for every other config with
-hidden layers: in f32 / bf16 at wide widths, and with the three large
-weights as per-column int8 codes on the int8 tensor cores where the JAX
-package's precision rule says int8 (:func:`pick_mode`); and
+``generate_cluster_kernel``, whose clusters of 1 to 8 blocks each own one
+song and hold the f32 / bf16 weights in their shared memory, split by
+hidden units and pitches (:func:`cluster_plan`, :func:`pack_cluster`), for
+every config whose weights fit 8 blocks, with or without hidden layers;
+``generate_vae_coop_kernel``, one cooperative launch whose blocks each own
+hidden units (:func:`coop_grid`) and pitch tiles of the frame head
+(:func:`head_split`), for the wider configs with hidden layers, in f32 /
+bf16 and with the three large weights as per-column int8 codes where the
+JAX package's precision rule says int8 (:func:`pick_mode`); and
 ``generate_wide_kernel``, which reads f32 weights from L2 every step, for
-models without hidden layers (the z heads then read ``[x_prev, w]`` and the
-frame head ``[w, x_prev_t, z]``, as JAX ``encode_z``/``decode`` at
-``has_hidden=False``) and for f32 below H=512, where it measured faster
-(:func:`kernel_for`). The sampler is a pure function of its pre-drawn noise
-(``eps`` for z, ``u`` for the frames), so the kernels are held against
-:func:`generate_cl_vae_batch_plain` on the card and the plain version
-against the JAX package on the CPU, with the same noise.
+what neither takes (:func:`kernel_for`). The sampler is a pure function of
+its pre-drawn noise (``eps`` for z, ``u`` for the frames), so the kernels
+are held against :func:`generate_cl_vae_batch_plain` on the card and the
+plain version against the JAX package on the CPU, with the same noise.
 
 :func:`generate_cl_vae_batch_cuda` launches a kernel for CUDA tensors (or
 raises) and takes the plain version only for CPU tensors.
@@ -29,7 +28,9 @@ raises) and takes the plain version only for CPU tensors.
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 import threading
 
 import torch
@@ -38,17 +39,30 @@ from . import _build
 from .cuda_generate import _qmm, _quant_cols, _z_head, round16
 
 # launches since the counts were last set to 0: of every f32/bf16 kernel, of
-# the wide one alone, of the cooperative one alone in f32/bf16, and of the
-# cooperative one in int8
+# the cluster one alone, of the wide one alone, of the cooperative one alone
+# in f32/bf16, and of the cooperative one in int8
 LAUNCHES = 0
+CLUSTER_LAUNCHES = 0
 WIDE_LAUNCHES = 0
 COOP_LAUNCHES = 0
 INT8_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
-_SONGS_PER_BLOCK = 2      # kSongs in csrc/generate_cl_vae.cu (the f32 / bf16 kernels)
+_SONGS_PER_BLOCK = 2      # kSongs in csrc/generate_cl_vae.cu (the wide kernel)
 _WIDE_THREADS = 512       # kWideThreads
 _SMEM_LIMIT = 232448      # dynamic shared memory one Hopper block can use
+_CLUSTER_SMEM = _SMEM_LIMIT - 256  # the cluster kernel's (kClStatic kept for its clock)
+# the cluster kernel: songs a cluster (kClSongs: tiles of 2 and 4 songs were
+# slower than 1 at 64 songs on an H100 80GB HBM3 at 700 W, PERF.md §6),
+# blocks a cluster, threads a block, the steps of its noise ring (kClRing)
+_CLUSTER_SONGS = 1
+_CLUSTER_SIZES = (1, 2, 4, 8)
+_CLUSTER_THREADS = (128, 256, 384, 512)
+_CLUSTER_RING = 8
+_CLUSTER_WARP_SLOTS = 16   # kClWarpSlots: a block's warps
+_CLUSTER_ZPER = 4          # kClZPer: z heads a lane of an encoder column sums (2L <= 4 g)
+_CLUSTER_REG_VALS = 24     # kClRegVals: values of k a lane keeps of a layer on the register path
+_CLUSTER_REG_THREADS = 384  # kClRegThreads: the register path's most threads
 # the cooperative kernel (int8, and f32 / bf16 at wide widths): a launch
 # takes at most _COOP_ROWS songs (a call more in several launches); its ring
 # holds _COOP_RING stages of _COOP_CPS 32-byte chunks of those songs' operands
@@ -57,18 +71,6 @@ _COOP_ROWS, _COOP_RING, _COOP_CPS, _COOP_MAX_NT = 64, 4, 8, 8
 _COOP_MAX_BLOCKS = 136      # kMaxBlocks: the most blocks its cross-block loads take
 _MODES = ("f32", "bf16", "int8")
 _EBYTES = {"int8": 1, "bf16": 2, "f32": 4}  # bytes of an operand of each mode
-# the hidden width from which an f32 config with hidden layers that does not
-# fit the shared-memory kernel takes the cooperative kernel rather than the
-# wide one, from a sweep on an H100 80GB HBM3 at 700 W (PERF.md §6): at
-# D=88 the wide kernel is faster at H=256 (4.15-4.20 ms against 5.13-5.68 at
-# 64 songs x 256 steps; ties or wins at every serving bucket) and slower
-# from H=512 at 128 steps and more. bf16 has no such width: the cooperative
-# kernel is faster at every width the sweep covers, and the wide kernel
-# takes f32 weights only. At 32-step calls the cooperative kernel loses
-# 0.1-0.5 ms to the wide one (its wrapper's per-call packing), one rule
-# for every call length all the same
-_F32_COOP_FROM = 512
-
 # The JAX package's precision rule for this sampler (its ``_BUDGET`` and
 # ``pick_mode``, ``pallas_generate_vae.py:44,72-95``): the weight bytes of
 # each mode against 28 MiB less 2.5 MiB. It is a size of the TPU kernel's
@@ -121,38 +123,170 @@ def pick_mode(cfg) -> str:
     return "bf16"
 
 
-def _smem_bytes(D: int, H: int, L: int, use_x_prev: bool, bf16: bool) -> int:
-    songs = _SONGS_PER_BLOCK * (2 * D + 4 * H + L)  # x_prev, x_prev_t, encb, decb, h_e, h_d, z
-    floats = songs + L * H + 2 * L + D               # decoder z rows, z and frame biases
-    weights = (2 + int(use_x_prev)) * D * H + 2 * L * H
-    return 4 * floats + (2 if bf16 else 4) * weights
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
-def smem_bytes(cfg, mode: str | None = None) -> int:
-    """Shared memory of one block: every weight (the encoder x rows, the
-    decoder x_prev rows, the frame head and the z heads in the mode's type;
-    the decoder z rows and the biases in f32) and, for each song of the
-    block's tile, its carried frames, folds, hidden layers and z."""
-    return _smem_bytes(cfg.original_dim, cfg.intermediate_dim, cfg.latent_dim,
-                       cfg.use_x_prev, (mode or pick_mode(cfg)) == "bf16")
+def _cluster_layers(D: int, H: int, L: int, has_hidden: bool, use_x_prev: bool, C: int):
+    """(Hc, Dc, [(n, k)] of the encoder, the z heads, the decoder and the
+    frame head): a block's hidden units and pitches, and the columns and
+    depth of each layer's product in that block (0 where it has none)."""
+    Dc = _cdiv(D, C)
+    if has_hidden:
+        Hc = _cdiv(H, C)
+        return Hc, Dc, [(Hc, D), (2 * L, Hc), (Hc, D) if use_x_prev else (0, 0), (Dc, H)]
+    return 0, Dc, [(0, 0), (2 * L, D), (0, 0), (Dc, D) if use_x_prev else (0, 0)]
+
+
+def _round4(n: int) -> int:
+    return _cdiv(n, 4) * 4
+
+
+def cluster_layout(D: int, H: int, L: int, has_hidden: bool, use_x_prev: bool, eb: int, C: int,
+                   T: int, g) -> dict:
+    """One block's layout at a plan's geometry, as ``cl_layout`` in
+    ``csrc/generate_cl_vae.cu`` computes it: per layer its columns ``n``,
+    the 16-byte chunks ``nck`` a lane of its g sums and the chunks ``rs`` of
+    a slab row (``nck g`` made an odd multiple of g where g < 8, so that the
+    lanes of a warp load from distinct banks); a song's row of the frames
+    and of h_d (``Da``, ``Ha`` floats); and the bytes of dynamic shared
+    memory: four mbarriers, the slabs, then the f32 state (the z rows, the
+    biases, three frames, h_d, the folds, the z heads' sums (with hidden
+    layers a slot per warp, :data:`_CLUSTER_WARP_SLOTS`), z, the products
+    that wait for z, and the noise ring), each part a multiple of 16
+    bytes."""
+    kp, S = 16 // eb, _CLUSTER_SONGS
+    Hc, Dc, layers = _cluster_layers(D, H, L, has_hidden, use_x_prev, C)
+    n, nck, rs, span = [], [], [], []
+    off = 32
+    for (ni, ki), gi in zip(layers, g):
+        c = _cdiv(_cdiv(ki, kp), gi) if ni and ki else 0
+        m = c + 1 if gi < 8 and c % 2 == 0 and ni and ki else c
+        n.append(ni), nck.append(c), rs.append(m * gi), span.append(c * gi * kp)
+        off += ni * m * gi * 16
+    if has_hidden:
+        Da, Ha = max(_round4(D), span[0], span[2]), max(_round4(H), span[3])
+    else:
+        Da, Ha = max(_round4(D), span[1], span[3]), 0
+    own = Hc if has_hidden else Dc
+    slots = _CLUSTER_WARP_SLOTS if has_hidden else 1
+    floats = (L * own, 2 * L if has_hidden else 0, Dc if has_hidden else 0, 3 * S * Da, S * Ha,
+              S * (Hc if has_hidden else 2 * L), S * (Hc if has_hidden else Dc),
+              S * 2 * L * slots, S * L if has_hidden else 0,
+              S * max(Hc, Dc), _CLUSTER_RING * S * (L + Dc))
+    return {"Hc": Hc, "Dc": Dc, "n": n, "nck": nck, "rs": rs, "Da": Da, "Ha": Ha,
+            "bytes": off + sum(16 * _cdiv(f, 4) for f in floats)}
+
+
+def _layer_cost(n: int, k: int, g: int, T: int, kp: int) -> int:
+    """The plan's measure of one layer's chain: rounds of columns times (the
+    chunks a lane sums + two a butterfly level)."""
+    if not (n and k):
+        return 0
+    return _cdiv(n, T // g) * (_cdiv(_cdiv(k, kp), g) + 2 * (g.bit_length() - 1))
+
+
+def _regs_ok(has_hidden: bool, eb: int, T: int, g, lay: dict) -> bool:
+    """The register path (``cl_regs_ok``): one song a cluster, at most
+    :data:`_CLUSTER_REG_THREADS` threads, and every product it runs one
+    column a group with at most :data:`_CLUSTER_REG_VALS` values of k a
+    lane, which it keeps in registers for the launch."""
+    if _CLUSTER_SONGS != 1 or T > _CLUSTER_REG_THREADS:
+        return False
+    kp = 16 // eb
+    return all(not (n and c) or (n <= T // gi and c * kp <= _CLUSTER_REG_VALS)
+               for i, (n, c, gi) in enumerate(zip(lay["n"], lay["nck"], g))
+               if not (has_hidden and i == 1))
+
+
+@functools.lru_cache(maxsize=256)
+def _cluster_geometry(D: int, H: int, L: int, has_hidden: bool, use_x_prev: bool,
+                      eb: int) -> dict | None:
+    """The fewest blocks C whose shared memory holds the layout, and at that
+    C the threads T and lanes a column g of each layer that make the step's
+    chain shortest (:func:`_layer_cost`, ties to fewer threads); None where
+    8 blocks do not hold it; a geometry the register path takes
+    (:func:`_regs_ok`) before any that it does not. With hidden
+    layers the decoder shares the encoder's pass (the same g), whose lanes
+    also sum the z heads (g at least 2L / :data:`_CLUSTER_ZPER`; the z
+    heads' slab is read a column at a time, g 1)."""
+    kp = 16 // eb
+    lanes = (1, 2, 4, 8, 16, 32)
+    g_min = next((gg for gg in lanes if 2 * L <= _CLUSTER_ZPER * gg), None)
+    if has_hidden and g_min is None:
+        return None
+    for C in _CLUSTER_SIZES:
+        layers = _cluster_layers(D, H, L, has_hidden, use_x_prev, C)[2]
+        best = None
+        for T in _CLUSTER_THREADS:
+            g = [min(lanes, key=lambda gg: (_layer_cost(n, k, gg, T, kp), gg))
+                 for n, k in layers]
+            if has_hidden:
+                g[0] = min((gg for gg in lanes if gg >= g_min),
+                           key=lambda gg: (_layer_cost(*layers[0], gg, T, kp), gg))
+                g[1], g[2] = 1, g[0]
+                layers_cost = [layers[0], (0, 0), layers[2], layers[3]]
+            else:
+                layers_cost = layers
+            cost = (sum(_layer_cost(n, k, gi, T, kp) for (n, k), gi in zip(layers_cost, g))
+                    + T // 128)
+            lay = cluster_layout(D, H, L, has_hidden, use_x_prev, eb, C, T, g)
+            regs = _regs_ok(has_hidden, eb, T, g, lay)
+            if lay["bytes"] <= _CLUSTER_SMEM and (best is None or (not regs, cost) < best[0]):
+                best = ((not regs, cost), {"C": C, "T": T, "g": tuple(g), "regs": regs, **lay})
+        if best is not None:
+            return best[1]
+    return None
+
+
+def cluster_plan(cfg, B: int, mode: str | None = None, n_sm: int = 132,
+                 max_clusters=None) -> dict | None:
+    """The cluster kernel's plan for a call of B songs in ``mode`` on a card
+    of ``n_sm`` SMs: blocks a cluster C, threads T, lanes a column g per
+    layer, the register path (``regs``) and :func:`cluster_layout`'s fields;
+    ``clusters``, one a song, and ``waves``, the passes of the card they
+    take: ``max_clusters(plan)`` clusters at once where given (the card's
+    answer, :func:`_max_clusters`), else n_sm // C. None where the weights
+    do not fit 8 blocks (or int8 mode: the cooperative kernel's)."""
+    mode = mode or pick_mode(cfg)
+    if mode == "int8":
+        return None
+    D, H, L = cfg.original_dim, cfg.intermediate_dim, cfg.latent_dim
+    plan = _cluster_geometry(D, H, L, bool(cfg.has_hidden), bool(cfg.use_x_prev), _EBYTES[mode])
+    if plan is None:
+        return None
+    clusters = _cdiv(B, _CLUSTER_SONGS)
+    at_once = max_clusters(plan) if max_clusters else n_sm // plan["C"]
+    return {**plan, "clusters": clusters, "waves": _cdiv(clusters, max(1, at_once))}
+
+
+def launch_plan(cfg, B: int, mode: str, dev) -> dict | None:
+    """The plan a call of B songs on CUDA device ``dev`` launches: its SMs
+    and the clusters of the plan it holds at once (:func:`_max_clusters`)."""
+    return cluster_plan(cfg, B, mode, n_sm=_sm_count(dev), max_clusters=_max_clusters(dev, mode))
 
 
 def fits(cfg, mode: str | None = None) -> bool:
-    """Does the shared-memory kernel take the config: hidden layers, f32 or
-    bf16 weights, and the weights and one block's songs within Hopper's
-    shared memory?"""
-    mode = mode or pick_mode(cfg)
-    return cfg.has_hidden and mode != "int8" and smem_bytes(cfg, mode) <= _SMEM_LIMIT
+    """Does the cluster kernel hold the config: f32 or bf16 weights (with or
+    without hidden layers) within the shared memory of a cluster of at most
+    8 blocks?"""
+    return cluster_plan(cfg, 1, mode) is not None
 
 
 def kernel_for(cfg, mode: str | None = None) -> str:
     """The kernel a CUDA call launches: ``generate_cl_vae_int8`` (the
-    cooperative kernel on int8 codes) in int8 mode, ``generate_cl_vae``
-    (weights in shared memory) where it :func:`fits`, and for every other
-    config with hidden layers the cooperative kernel in f32 / bf16
-    (``generate_cl_vae_coop``), in f32 from :data:`_F32_COOP_FROM`'s width
-    (the measured rule); ``generate_cl_vae_wide`` (f32 weights) for the
-    rest: configs without hidden layers and f32 below H=512.
+    cooperative kernel on int8 codes) in int8 mode; ``generate_cl_vae_cluster``
+    wherever it :func:`fits` (the committed checkpoints' width on one block,
+    f32 at D=88 to H = 1,600 and bf16 to H = 2,624 on 8 blocks, models
+    without hidden layers), which the routing sweep on an H100 80GB HBM3 at
+    700 W found faster than the cooperative kernel at every width and
+    serving bucket where both apply (PERF.md §6); the cooperative kernel in
+    f32 / bf16 (``generate_cl_vae_coop``) for the other configs with hidden
+    layers that it lays out (:func:`coop_plan`); and ``generate_cl_vae_wide``
+    for what neither takes: models without hidden layers whose weights do
+    not fit 8 blocks (f32 with x_prev from D ~ 670, whose D x D frame-head
+    rows do not; or a z-head width 2L x D past one block), and configs with
+    hidden layers past the cooperative kernel's latent width.
 
     The cooperative kernel keeps each block's columns of the z heads (in
     double) and of the decoder's z rows, and the songs' z, in shared
@@ -164,9 +298,16 @@ def kernel_for(cfg, mode: str | None = None) -> str:
     if mode == "int8":
         return "generate_cl_vae_int8"
     if fits(cfg, mode):
-        return "generate_cl_vae"
-    if cfg.has_hidden and (mode == "bf16" or cfg.intermediate_dim >= _F32_COOP_FROM):
-        return "generate_cl_vae_coop"
+        return "generate_cl_vae_cluster"
+    if cfg.has_hidden and mode == "bf16":
+        return "generate_cl_vae_coop"  # the wide kernel takes f32 weights only
+    if cfg.has_hidden:
+        try:
+            for B in (1, _COOP_ROWS):
+                coop_plan(cfg, B, 132, mode)
+            return "generate_cl_vae_coop"
+        except ValueError:
+            pass
     return "generate_cl_vae_wide"
 
 
@@ -240,7 +381,7 @@ def _resolve_mode(cfg, mode):
         raise ValueError(f"unknown mode {mode!r} (f32, bf16 or int8)")
     if mode != "f32" and not cfg.has_hidden:
         # pick_mode never gives them: a config without hidden layers samples
-        # in f32, and the wide kernel takes f32 weights only
+        # in f32, as the JAX package's XLA scan samples it
         raise ValueError(f"{mode} weights need hidden layers (a config without them samples "
                          "in f32)")
     return mode
@@ -314,42 +455,103 @@ def pack_coop(w: dict, cfg, nu: int, G: int, P: int, hs: int) -> dict:
             "wx": pack_head_tiles(w["wx"], G, P, hs)}
 
 
+def _folds(params, cfg, ws) -> dict:
+    """The per-song f32 folds of the w rows and biases: with hidden layers
+    ``encb = ws @ h.kernel[D:] + h.bias`` and ``decb = ws @
+    decoder_h.kernel[:K] + decoder_h.bias``; without, ``zb = ws @ [z_mean |
+    z_log_var].kernel[D:] + biases`` and ``xb = ws @
+    x_decoded_mean.kernel[:K] + x_decoded_mean.bias`` (plain f32 products:
+    TF32 is off)."""
+    D, K = cfg.original_dim, cfg.n_classes
+    if not cfg.has_hidden:
+        zk = torch.cat([params["z_mean"]["kernel"][D:], params["z_log_var"]["kernel"][D:]], 1)
+        zbias = torch.cat([params["z_mean"]["bias"], params["z_log_var"]["bias"]])
+        xdm = params["x_decoded_mean"]
+        return {"zb": (torch.matmul(ws, zk) + zbias).contiguous(),
+                "xb": (torch.matmul(ws, xdm["kernel"][:K]) + xdm["bias"]).contiguous()}
+    enc, dec = params["h"], params["decoder_h"]
+    return {"encb": (torch.matmul(ws, enc["kernel"][D:]) + enc["bias"]).contiguous(),
+            "decb": (torch.matmul(ws, dec["kernel"][:K]) + dec["bias"]).contiguous()}
+
+
 def _pack(params, cfg, ws, mode: str) -> dict:
     """The kernels' operands: weights split by input rows (the large ones
     in the mode's type; the z rows in f32) and the per-song f32 folds of the
-    w rows and biases. With hidden layers: ``encb = ws @ h.kernel[D:] +
-    h.bias`` and ``decb = ws @ decoder_h.kernel[:K] + decoder_h.bias``.
-    Without: ``zb = ws @ [z_mean | z_log_var].kernel[D:] + biases`` and ``xb
-    = ws @ x_decoded_mean.kernel[:K] + x_decoded_mean.bias``."""
+    w rows and biases (:func:`_folds`)."""
     D, K = cfg.original_dim, cfg.n_classes
     n_xp = D if cfg.use_x_prev else 0
     wt = torch.bfloat16 if mode == "bf16" else torch.float32
     cast = lambda w: w.to(wt).contiguous()
     zk = torch.cat([params["z_mean"]["kernel"], params["z_log_var"]["kernel"]], 1)
     zbias = torch.cat([params["z_mean"]["bias"], params["z_log_var"]["bias"]])
+    folds = _folds(params, cfg, ws)
     if not cfg.has_hidden:
         xk = params["x_decoded_mean"]["kernel"]
         return {
             "wz_t": cast(zk[:D].T),  # z heads' x_prev rows, transposed
-            "zb": (torch.matmul(ws, zk[D:]) + zbias).contiguous(),
             "wx_xp": cast(xk[K : K + n_xp]) if cfg.use_x_prev else None,
             "wx_z": xk[K + n_xp :].contiguous(),  # f32 in every mode
-            "xb": (torch.matmul(ws, xk[:K]) + params["x_decoded_mean"]["bias"]).contiguous(),
+            **folds,
         }
-    enc, dec = params["h"], params["decoder_h"]
+    dec = params["decoder_h"]
     return {
-        "wke": cast(enc["kernel"][:D]),
-        # w rows and bias folded per song: plain f32 products (TF32 is off)
-        "encb": (torch.matmul(ws, enc["kernel"][D:]) + enc["bias"]).contiguous(),
-        # z heads transposed: one row per output, read along k by a warp
+        "wke": cast(params["h"]["kernel"][:D]),
+        # z heads transposed: one row per output
         "wz_t": cast(zk.T),
         "bz": zbias.contiguous(),
         "wkd_x": cast(dec["kernel"][K : K + n_xp]) if cfg.use_x_prev else None,
         "wkd_z": dec["kernel"][K + n_xp :].contiguous(),  # f32 in every mode
-        "decb": (torch.matmul(ws, dec["kernel"][:K]) + dec["bias"]).contiguous(),
         "wx": cast(params["x_decoded_mean"]["kernel"]),
         "bx": params["x_decoded_mean"]["bias"].contiguous(),
+        **folds,
     }
+
+
+def _slab(wt, C: int, n: int, rs: int, kp: int, dtype):
+    """A weight with a row per output column, k contiguous (``[N, K]``) ->
+    ``[C, n, rs kp]`` of ``dtype``: block r's slab holds columns r n .. r n
+    + n - 1, each row padded to rs 16-byte chunks (zero past N and K)."""
+    N, K = wt.shape
+    out = torch.zeros((C * n, rs * kp), dtype=dtype, device=wt.device)
+    out[:N, :K] = wt
+    return out.view(C, n, rs * kp)
+
+
+def pack_cluster(params, cfg, mode: str, plan: dict) -> dict:
+    """The cluster kernel's weights for ``plan``: a slab per layer (``w``:
+    the encoder's x rows, the z heads, the decoder's x_prev rows, the frame
+    head; None where absent), block r's share of each at index r (its units'
+    columns of the x rows and its units' k of the z heads, its pitches'
+    columns of the frame head; without hidden layers every block's z-head
+    slab is the whole of the heads' x_prev rows), in the mode's type; and in
+    f32 the z rows (of the decoder, or without hidden layers of the frame
+    head) and, with hidden layers, the z heads' and the frame head's
+    biases."""
+    D, H, L, K = cfg.original_dim, cfg.intermediate_dim, cfg.latent_dim, cfg.n_classes
+    n_xp = D if cfg.use_x_prev else 0
+    C, n, rs = plan["C"], plan["n"], plan["rs"]
+    dt = torch.bfloat16 if mode == "bf16" else torch.float32
+    kp = 16 // _EBYTES[mode]
+    zk = torch.cat([params["z_mean"]["kernel"], params["z_log_var"]["kernel"]], 1)
+    xk = params["x_decoded_mean"]["kernel"]
+    w = [None] * 4
+    if cfg.has_hidden:
+        dec, Hc = params["decoder_h"]["kernel"], plan["Hc"]
+        w[0] = _slab(params["h"]["kernel"][:D].T, C, n[0], rs[0], kp, dt)
+        heads = torch.zeros((2 * L, C * Hc), dtype=torch.float32, device=zk.device)
+        heads[:, :H] = zk.T
+        w[1] = _slab(heads.view(2 * L, C, Hc).transpose(0, 1).reshape(C * 2 * L, Hc), C,
+                     n[1], rs[1], kp, dt)
+        if cfg.use_x_prev:
+            w[2] = _slab(dec[K : K + n_xp].T, C, n[2], rs[2], kp, dt)
+        w[3] = _slab(xk.T, C, n[3], rs[3], kp, dt)
+        return {"w": w, "zrows": dec[K + n_xp :].contiguous(),
+                "bz": torch.cat([params["z_mean"]["bias"], params["z_log_var"]["bias"]]),
+                "bx": params["x_decoded_mean"]["bias"].contiguous()}
+    w[1] = _slab(zk[:D].T.repeat(C, 1), C, n[1], rs[1], kp, dt)
+    if cfg.use_x_prev:
+        w[3] = _slab(xk[K : K + n_xp].T, C, n[3], rs[3], kp, dt)
+    return {"w": w, "zrows": xk[K + n_xp :].contiguous(), "bz": None, "bx": None}
 
 
 def generate_cl_vae_batch_plain(params, cfg, x_seeds, nsteps: int, eps, u, ws,
@@ -442,19 +644,24 @@ _lib = None
 
 def _kernels():
     """The built library, its entry points' ctypes signatures set and its
-    shared-memory layouts checked against :func:`_smem_bytes`,
+    shared-memory layouts checked against :func:`cluster_layout`,
     :func:`_wide_smem_bytes` and :func:`_coop_smem`."""
     global _lib
     with _lib_lock:
         if _lib is None:
             lib = _build.load("generate_cl_vae")
             P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            smem = lib.cvl_generate_cl_vae_smem_bytes
-            smem.argtypes, smem.restype = [I] * 5, LL
-            for shape in ((88, 88, 4, 1, 0), (88, 256, 4, 1, 1), (12, 16, 3, 0, 0)):
-                if smem(*shape) != _smem_bytes(*shape):
-                    raise RuntimeError("shared-memory layout of csrc/generate_cl_vae.cu "
-                                       f"differs from _smem_bytes at {shape}")
+            cl = lib.cvl_generate_cl_vae_cluster_smem_bytes
+            cl.argtypes, cl.restype = [I] * 12, LL
+            for shape in ((88, 88, 4, 1, 1, 4, 1, 384, (4, 8, 4, 4)),
+                          (88, 256, 4, 1, 1, 4, 2, 512, (4, 8, 4, 8)),
+                          (88, 0, 4, 0, 1, 4, 1, 256, (1, 16, 1, 4)),
+                          (1024, 2048, 16, 1, 0, 2, 8, 512, (8, 32, 1, 16)),
+                          (13, 37, 3, 1, 1, 2, 4, 128, (2, 1, 32, 16))):
+                if cl(*shape[:8], *shape[8]) != cluster_layout(*shape)["bytes"]:
+                    raise RuntimeError("shared-memory layout of the cluster kernel in "
+                                       "csrc/generate_cl_vae.cu differs from cluster_layout at "
+                                       f"{shape}")
             wide = lib.cvl_generate_cl_vae_wide_smem_bytes
             wide.argtypes, wide.restype = [I] * 5, LL
             state = lib.cvl_generate_cl_vae_wide_state_floats
@@ -476,31 +683,36 @@ def _kernels():
                                        f"{shape}")
             lib.cvl_generate_cl_vae_coop_state_words.argtypes = [I] * 5
             lib.cvl_generate_cl_vae_coop_state_words.restype = LL
-            lib.cvl_generate_cl_vae.argtypes = [I] + [P] * 13 + [I] * 8 + [P]
+            lib.cvl_generate_cl_vae_cluster.argtypes = [P] * 18 + [I] * 18 + [P, P]
             lib.cvl_generate_cl_vae_wide.argtypes = [P] * 16 + [I] * 11 + [P]
             lib.cvl_generate_cl_vae_coop.argtypes = [I] + [P] * 18 + [I] * 13 + [P]
-            lib.cvl_generate_cl_vae.restype = lib.cvl_generate_cl_vae_wide.restype = I
+            lib.cvl_generate_cl_vae_cluster_max_active.argtypes = [I] * 5 + [P]
+            lib.cvl_generate_cl_vae_cluster_max_active.restype = I
+            lib.cvl_generate_cl_vae_cluster.restype = lib.cvl_generate_cl_vae_wide.restype = I
             lib.cvl_generate_cl_vae_coop.restype = I
             _lib = lib
         return _lib
 
 
-def _check(params, cfg, x_seeds, nsteps, eps, u, ws, mode):
-    """Raise on anything the kernels do not take."""
+def _check_inputs(cfg, x_seeds, nsteps, eps, u, ws):
+    """Raise on a call's inputs the kernels do not take."""
     if x_seeds.dim() != 2:
         raise ValueError(f"x_seeds must be [B, D], got {tuple(x_seeds.shape)}")
     B, D = x_seeds.shape
-    H, L, K = cfg.intermediate_dim, cfg.latent_dim, cfg.n_classes
     if nsteps < 1 or B < 1:
         raise ValueError(f"need B, nsteps >= 1 (got {B}, {nsteps})")
     if D != cfg.original_dim:
         raise ValueError(f"seed width {D} != original_dim {cfg.original_dim}")
-    dev = x_seeds.device
+    _expect(x_seeds.device, {"x_seeds": (x_seeds, (B, D)),
+                             "eps": (eps, (B, nsteps, cfg.latent_dim)),
+                             "u": (u, (B, nsteps, D)), "ws": (ws, (B, cfg.n_classes))})
+
+
+def _param_shapes(params, cfg) -> dict:
+    D, H, L, K = cfg.original_dim, cfg.intermediate_dim, cfg.latent_dim, cfg.n_classes
     n_xp = D if cfg.use_x_prev else 0
     head_in = H if cfg.has_hidden else D + K
     expect = {
-        "x_seeds": (x_seeds, (B, D)), "eps": (eps, (B, nsteps, L)),
-        "u": (u, (B, nsteps, D)), "ws": (ws, (B, K)),
         "z_mean/kernel": (params["z_mean"]["kernel"], (head_in, L)),
         "z_mean/bias": (params["z_mean"]["bias"], (L,)),
         "z_log_var/kernel": (params["z_log_var"]["kernel"], (head_in, L)),
@@ -516,6 +728,10 @@ def _check(params, cfg, x_seeds, nsteps, eps, u, ws, mode):
             "decoder_h/kernel": (params["decoder_h"]["kernel"], (K + n_xp + L, H)),
             "decoder_h/bias": (params["decoder_h"]["bias"], (H,)),
         })
+    return expect
+
+
+def _expect(dev, expect: dict):
     for name, (t, shape) in expect.items():
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, x_seeds on {dev}")
@@ -527,6 +743,134 @@ def _check(params, cfg, x_seeds, nsteps, eps, u, ws, mode):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _check(params, cfg, x_seeds, nsteps, eps, u, ws, mode):
+    """Raise on anything the kernels do not take."""
+    _check_inputs(cfg, x_seeds, nsteps, eps, u, ws)
+    _expect(x_seeds.device, _param_shapes(params, cfg))
+
+
+# the packed weights of recent (params, config, mode, plan, device) signatures, each
+# with the parameter tensors it was made from (held, so that no other tensor
+# takes their place) and their versions: a signature is checked and packed
+# once, and again after an in-place change of a parameter
+_PACKED: collections.OrderedDict = collections.OrderedDict()
+_PACKED_MAX = 4
+
+
+def cluster_operands(params, cfg, mode: str, plan: dict, dev) -> dict:
+    """The cluster kernel's weights (:func:`pack_cluster`), checked and
+    packed once per signature (:data:`_PACKED`); the per-song folds are
+    formed in the kernel's prologue from the w rows as stored
+    (:func:`_fold_rows`)."""
+    tensors = tuple(t for t, _ in _param_shapes(params, cfg).values())
+    key = (tuple(id(t) for t in tensors), cfg, mode, plan["C"], plan["T"], plan["g"], dev)
+    hit = _PACKED.get(key)
+    versions = tuple(t._version for t in tensors)
+    if hit is None or hit[1] != versions or any(a is not b for a, b in zip(hit[0], tensors)):
+        _expect(dev, _param_shapes(params, cfg))
+        hit = _PACKED[key] = (tensors, versions, pack_cluster(params, cfg, mode, plan))
+        while len(_PACKED) > _PACKED_MAX:
+            _PACKED.popitem(last=False)
+    _PACKED.move_to_end(key)
+    return hit[2]
+
+
+def _fold_rows(params, cfg) -> tuple[list, list]:
+    """The addresses of the w rows and biases of the per-song folds, as the
+    parameters store them (contiguous f32): with hidden layers the
+    encoder's rows D.. and the decoder's rows 0.. (``encb``, ``decb``);
+    without, z_mean's and z_log_var's rows D.. and the frame head's rows
+    0.. (``zb``, ``xb``)."""
+    D, H, L = cfg.original_dim, cfg.intermediate_dim, cfg.latent_dim
+    if cfg.has_hidden:
+        enc, dec = params["h"], params["decoder_h"]
+        return ([enc["kernel"].data_ptr() + 4 * D * H, dec["kernel"].data_ptr(), None],
+                [enc["bias"].data_ptr(), dec["bias"].data_ptr(), None])
+    zm, zv, xdm = params["z_mean"], params["z_log_var"], params["x_decoded_mean"]
+    return ([zm["kernel"].data_ptr() + 4 * D * L, zv["kernel"].data_ptr() + 4 * D * L,
+             xdm["kernel"].data_ptr()],
+            [zm["bias"].data_ptr(), zv["bias"].data_ptr(), xdm["bias"].data_ptr()])
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def _max_clusters_at(dev, eb: int, regs: bool, C: int, T: int, smem: int) -> int:
+    n = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = _kernels().cvl_generate_cl_vae_cluster_max_active(eb, int(regs), C, T, smem,
+                                                                ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: CUDA error {err}")
+    return n.value
+
+
+def _max_clusters(dev, mode: str):
+    """The card's answer, for :func:`cluster_plan`: how many clusters of a
+    plan's layout it holds at once (``cudaOccupancyMaxActiveClusters``; the
+    blocks of a cluster share a GPC, so it can be fewer than n_sm // C)."""
+    return lambda plan: _max_clusters_at(dev, _EBYTES[mode], plan["regs"], plan["C"], plan["T"],
+                                         plan["bytes"])
+
+
+def _launch_cluster(lib, params, cfg, x_seeds, nsteps, eps, u, ws, flags, mode, plan, out,
+                    clock=None) -> int:
+    """One launch of the cluster kernel at ``plan`` on the current stream
+    (``clock``: an int64 per :data:`CLUSTER_PARTS`, or None). Returns its
+    CUDA error."""
+    B, D = x_seeds.shape
+    ptr = lambda t: None if t is None else t.data_ptr()
+    w = cluster_operands(params, cfg, mode, plan, x_seeds.device)
+    fw, fb = _fold_rows(params, cfg)
+    return lib.cvl_generate_cl_vae_cluster(
+        x_seeds.data_ptr(), eps.data_ptr(), u.data_ptr(), *(ptr(s) for s in w["w"]),
+        ws.data_ptr(), *fw, *fb, ptr(w["zrows"]), ptr(w["bz"]), ptr(w["bx"]), out.data_ptr(), B,
+        nsteps, D, cfg.intermediate_dim, cfg.latent_dim, cfg.n_classes, int(cfg.has_hidden),
+        *flags, _EBYTES[mode], plan["C"], plan["T"], *plan["g"], int(plan["regs"]),
+        ptr(clock), torch.cuda.current_stream(x_seeds.device).cuda_stream)
+
+
+# the parts of a step of the cluster kernel, in the order of its clock (block
+# 0's thread 0; without hidden layers: the products, the block barrier as
+# the first barrier, then the frame head's epilogue, z in each thread)
+CLUSTER_PARTS = ("noise staging", "products", "z-head sums", "first barrier", "z",
+                 "h_d epilogue", "second barrier", "frame head products", "frame head epilogue",
+                 "noise wait", "last barrier")
+
+
+def cluster_phase_ms(params, cfg, x_seeds, nsteps: int, eps, u, ws, use_z_prior: bool = False,
+                     mode: str | None = None) -> dict:
+    """One launch of the cluster kernel (counted, as the wrapper counts it)
+    on CUDA tensors, timed part by part on the card by block 0
+    (``%globaltimer``): ms of each of :data:`CLUSTER_PARTS` summed over the
+    steps (a barrier's part is its wait, the slowest thread's lag and the
+    barrier itself), with the plan (:func:`launch_plan`)."""
+    global LAUNCHES, CLUSTER_LAUNCHES
+    mode = _resolve_mode(cfg, mode)
+    _check(params, cfg, x_seeds, nsteps, eps, u, ws, mode)
+    dev = x_seeds.device
+    plan = launch_plan(cfg, x_seeds.shape[0], mode, dev)
+    if plan is None:
+        raise ValueError("the cluster kernel does not hold this config")
+    lib = _kernels()
+    with torch.cuda.device(dev):
+        clock = torch.zeros(len(CLUSTER_PARTS), dtype=torch.int64, device=dev)
+        out = torch.empty((x_seeds.shape[0], nsteps, cfg.original_dim), dtype=torch.float32,
+                          device=dev)
+        err = _launch_cluster(lib, params, cfg, x_seeds, nsteps, eps, u, ws,
+                              (int(cfg.use_x_prev), int(use_z_prior), 0), mode, plan, out, clock)
+    if err != 0:
+        raise RuntimeError(f"generate_cl_vae_cluster kernel launch failed: CUDA error {err}")
+    with _launch_lock:
+        LAUNCHES += 1
+        CLUSTER_LAUNCHES += 1
+    return {**dict(zip(CLUSTER_PARTS, (ns / 1e6 for ns in clock.cpu().tolist()))),
+            "plan": {k: plan[k] for k in ("C", "T", "g", "regs", "clusters", "waves")}}
+
+
 def generate_cl_vae_batch_cuda(params, cfg, x_seeds, nsteps: int, eps, u, ws,
                                use_z_prior: bool = False, return_probs: bool = False,
                                mode: str | None = None):
@@ -535,13 +879,14 @@ def generate_cl_vae_batch_cuda(params, cfg, x_seeds, nsteps: int, eps, u, ws,
     x_seeds [B, D]; eps [B, nsteps, L]; u [B, nsteps, D]; ws [B, K]; returns
     [B, nsteps, D]. CUDA tensors launch the kernel :func:`kernel_for` names
     on the current stream (or raise: there is no fallback): in f32 and bf16
-    mode the shared-memory kernel where it :func:`fits`, the cooperative
-    kernel for every other config with hidden layers, the wide kernel for
-    configs without; in int8 mode the cooperative kernel on int8 codes. CPU
-    tensors take :func:`generate_cl_vae_batch_plain`. ``mode`` is ``"f32"``,
-    ``"bf16"`` or ``"int8"`` (default :func:`pick_mode`).
+    mode the cluster kernel wherever its weights fit 8 blocks, the
+    cooperative kernel for the other configs with hidden layers, the wide
+    kernel for what neither takes; in int8 mode the cooperative kernel on
+    int8 codes. CPU tensors take :func:`generate_cl_vae_batch_plain`.
+    ``mode`` is ``"f32"``, ``"bf16"`` or ``"int8"`` (default
+    :func:`pick_mode`).
     """
-    global LAUNCHES, WIDE_LAUNCHES, COOP_LAUNCHES, INT8_LAUNCHES
+    global LAUNCHES, CLUSTER_LAUNCHES, WIDE_LAUNCHES, COOP_LAUNCHES, INT8_LAUNCHES
     mode = _resolve_mode(cfg, mode)
     if x_seeds.device.type == "cpu":
         return generate_cl_vae_batch_plain(params, cfg, x_seeds, nsteps, eps, u, ws,
@@ -549,13 +894,15 @@ def generate_cl_vae_batch_cuda(params, cfg, x_seeds, nsteps: int, eps, u, ws,
                                            return_probs=return_probs, mode=mode)
     if x_seeds.device.type != "cuda":
         raise ValueError(f"unsupported device {x_seeds.device}")
-    _check(params, cfg, x_seeds, nsteps, eps, u, ws, mode)
+    kernel = kernel_for(cfg, mode)
+    if kernel == "generate_cl_vae_cluster":  # the parameters: once per signature
+        _check_inputs(cfg, x_seeds, nsteps, eps, u, ws)
+    else:
+        _check(params, cfg, x_seeds, nsteps, eps, u, ws, mode)
     B, D = x_seeds.shape
     H, L = cfg.intermediate_dim, cfg.latent_dim
     dev = x_seeds.device
     lib = _kernels()
-    kernel = kernel_for(cfg, mode)
-    wide = kernel == "generate_cl_vae_wide"
     flags = (int(cfg.use_x_prev), int(use_z_prior), int(return_probs))
     if kernel in ("generate_cl_vae_int8", "generate_cl_vae_coop"):
         with torch.cuda.device(dev):
@@ -569,21 +916,19 @@ def generate_cl_vae_batch_cuda(params, cfg, x_seeds, nsteps: int, eps, u, ws,
                 LAUNCHES += 1
                 COOP_LAUNCHES += 1
         return out
+    ptr = lambda t: None if t is None else t.data_ptr()
+    hh = cfg.has_hidden
     with torch.cuda.device(dev):
-        w = _pack(params, cfg, ws, mode)
-        out = torch.empty((B, nsteps, D), dtype=torch.float32, device=dev)
-        ptr = lambda t: None if t is None else t.data_ptr()
         stream = torch.cuda.current_stream(dev).cuda_stream
         seeds = (x_seeds.data_ptr(), eps.data_ptr(), u.data_ptr())
-        if not wide:
-            err = lib.cvl_generate_cl_vae(
-                int(mode == "bf16"), *seeds, ptr(w["wke"]), ptr(w["encb"]), ptr(w["wz_t"]), ptr(w["bz"]),
-                ptr(w["wkd_x"]), ptr(w["wkd_z"]), ptr(w["decb"]), ptr(w["wx"]), ptr(w["bx"]),
-                out.data_ptr(), B, nsteps, D, H, L, *flags, stream)
+        out = torch.empty((B, nsteps, D), dtype=torch.float32, device=dev)
+        if kernel == "generate_cl_vae_cluster":
+            err = _launch_cluster(lib, params, cfg, x_seeds, nsteps, eps, u, ws, flags, mode,
+                                  launch_plan(cfg, B, mode, dev), out)
         else:
+            w = _pack(params, cfg, ws, mode)
             # past one block's shared memory the per-song state goes to a
             # global scratch, one slice per block
-            hh = cfg.has_hidden
             state = None
             if _wide_smem_bytes(D, H, L, hh, True) > _SMEM_LIMIT:
                 grid = -(-B // _SONGS_PER_BLOCK)
@@ -600,7 +945,10 @@ def generate_cl_vae_batch_cuda(params, cfg, x_seeds, nsteps: int, eps, u, ws,
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
     with _launch_lock:
         LAUNCHES += 1
-        WIDE_LAUNCHES += int(wide)
+        if kernel == "generate_cl_vae_cluster":
+            CLUSTER_LAUNCHES += 1
+        else:
+            WIDE_LAUNCHES += 1
     return out
 
 

@@ -1033,40 +1033,86 @@ def _vae_problem(dev, B, nsteps, H, use_x_prev=True, D=12, L=3, K=3, seed=0, bf1
     return params_from_numpy(params, dev), cfg, arrays
 
 
-VAE_CASES = {
+VAE_CASES = {  # the cluster kernel (generate_cluster_kernel)
     "one_song": dict(B=1, nsteps=20, H=40),
     "ragged_no_x_prev": dict(B=5, nsteps=16, H=40, use_x_prev=False),
-    "two_column_passes": dict(B=6, nsteps=12, H=200, seed=1),  # H > the block's threads
+    "two_column_passes": dict(B=6, nsteps=12, H=200, seed=1),  # H > the block's groups
     "vanilla_k1": dict(B=4, nsteps=10, H=24, K=1, use_x_prev=False, seed=2),
+    # the jsball_vae width (the register path), and clusters of 2, 4 and 8
+    # blocks (f32 at D=88: 282 KB of weights at H=256)
+    "c1_d88_h88": dict(B=5, nsteps=12, H=88, D=88, L=4, K=13, seed=30),
+    "c2_h256": dict(B=5, nsteps=12, H=256, D=88, L=4, K=13, seed=31),
+    "c4_h512": dict(B=3, nsteps=8, H=512, D=88, L=4, K=13, seed=32),
+    "c8_h1024": dict(B=3, nsteps=8, H=1024, D=88, L=4, K=13, seed=33),
+    # without hidden layers (the z heads and the frame head over x_prev)
+    "no_hidden": dict(B=5, nsteps=12, H=0, D=88, L=4, K=13, seed=34),
+    "no_hidden_no_x_prev": dict(B=3, nsteps=10, H=0, use_x_prev=False, seed=35),
+    "no_hidden_c2": dict(B=3, nsteps=8, H=0, D=300, L=4, K=13, seed=36),
+    # more clusters of two blocks than one wave of the card holds
+    "b300_waves": dict(B=300, nsteps=6, H=256, D=88, L=4, K=13, seed=37),
 }
+# blocks a cluster the plan takes (1 where not named)
+VAE_BLOCKS = {"c2_h256": 2, "c4_h512": 4, "c8_h1024": 8, "no_hidden_c2": 2, "b300_waves": 2}
 
 
 @pytest.mark.parametrize("case", sorted(VAE_CASES))
 @pytest.mark.parametrize("zp", [False, True])
 def test_vae_kernel_matches_plain_f32(dev, case, zp):
+    """The cluster kernel: probabilities with u = 1 within 1e-5 of the plain
+    version, frames equal, a second call bitwise equal, each call one launch
+    of it."""
     params, cfg, (seeds, nsteps, eps, u, ws) = _vae_problem(dev, **VAE_CASES[case])
+    assert cgv.kernel_for(cfg) == "generate_cl_vae_cluster"
+    plan = cgv.launch_plan(cfg, seeds.shape[0], "f32", dev)
+    assert plan["C"] == VAE_BLOCKS.get(case, 1), plan
+    assert (plan["waves"] > 1) == (case == "b300_waves"), plan
     u1 = torch.ones_like(u)
-    before = cgv.LAUNCHES
+    before = (cgv.LAUNCHES, cgv.CLUSTER_LAUNCHES)
     run = lambda f, uu, rp: f(params, cfg, seeds, nsteps, eps, uu, ws, use_z_prior=zp,
                               return_probs=rp)
     pk, fk = run(cgv.generate_cl_vae_batch_cuda, u1, True), run(cgv.generate_cl_vae_batch_cuda,
                                                                  u, False)
     torch.cuda.synchronize()
-    assert cgv.LAUNCHES == before + 2
+    assert (cgv.LAUNCHES, cgv.CLUSTER_LAUNCHES) == (before[0] + 2, before[1] + 2)
     pp, fp = run(cgv.generate_cl_vae_batch_plain, u1, True), run(cgv.generate_cl_vae_batch_plain,
                                                                   u, False)
     assert pk.shape == fk.shape == (seeds.shape[0], nsteps, cfg.original_dim)
     torch.testing.assert_close(pk, pp, rtol=0, atol=1e-5)
     assert 0 < fk.mean().item() < 1
     torch.testing.assert_close(fk, fp, rtol=0, atol=0)
+    assert torch.equal(pk, run(cgv.generate_cl_vae_batch_cuda, u1, True))
 
 
-def test_vae_kernel_matches_plain_bf16(dev):
-    params, cfg, (seeds, nsteps, eps, u, ws) = _vae_problem(dev, B=7, nsteps=16, H=64, seed=3,
-                                                            bf16=True)
+def test_vae_kernel_serving_buckets(dev):
+    """The serving buckets (1, 4, 16, 64 songs x 32 ... 256 steps) at the
+    jsball_vae width: within 1e-5 of the plain version, bitwise repeatable."""
+    params, cfg, (seeds, nsteps, eps, u, ws) = _vae_problem(dev, B=64, nsteps=256, H=88, D=88,
+                                                            L=4, K=13, seed=45)
+    u1 = torch.ones_like(u)
+    for b in (1, 4, 16, 64):
+        for t in (32, 64, 128, 256):
+            args = (seeds[:b].contiguous(), t, eps[:b, :t].contiguous(),
+                    u1[:b, :t].contiguous(), ws[:b].contiguous())
+            pk = cgv.generate_cl_vae_batch_cuda(params, cfg, *args, return_probs=True)
+            pp = cgv.generate_cl_vae_batch_plain(params, cfg, *args, return_probs=True)
+            torch.testing.assert_close(pk, pp, rtol=0, atol=1e-5, msg=f"{b} x {t}")
+            assert torch.equal(pk, cgv.generate_cl_vae_batch_cuda(params, cfg, *args,
+                                                                  return_probs=True))
+
+
+@pytest.mark.parametrize("H", [88, 512])
+def test_vae_kernel_matches_plain_bf16(dev, H):
+    """bf16 on the cluster kernel (one block at H=88, two at H=512):
+    probabilities within 2e-3 of the plain bf16 version, bitwise
+    repeatable."""
+    params, cfg, (seeds, nsteps, eps, u, ws) = _vae_problem(dev, B=7, nsteps=16, H=H, D=88,
+                                                            L=4, K=13, seed=3, bf16=True)
+    assert cgv.kernel_for(cfg) == "generate_cl_vae_cluster"
+    assert cgv.cluster_plan(cfg, 7)["C"] == (1 if H == 88 else 2)
     run = lambda f, **k: f(params, cfg, seeds, nsteps, eps, u, ws, return_probs=True, **k)
     pk, pp = run(cgv.generate_cl_vae_batch_cuda), run(cgv.generate_cl_vae_batch_plain)
     torch.testing.assert_close(pk, pp, rtol=0, atol=2e-3)
+    assert torch.equal(pk, run(cgv.generate_cl_vae_batch_cuda))
     pf = run(cgv.generate_cl_vae_batch_cuda, mode="f32")
     assert (pk - pf).abs().max().item() > 1e-6  # bf16 really ran
 
@@ -1155,12 +1201,15 @@ VAE_COOP_LAYOUTS = {"bf16_h5120_streamed_head": (True, False), "bf16_many_units"
 
 @pytest.mark.parametrize("case", sorted(VAE_COOP_CASES))
 @pytest.mark.parametrize("zp", [False, True])
-def test_vae_coop_kernel_matches_plain(dev, case, zp):
+def test_vae_coop_kernel_matches_plain(dev, case, zp, monkeypatch):
     """Probabilities with u = 1 within 1e-5 of the plain version in f32 and
     within max 2e-2 / mean 2e-3 in bf16 (``chip_smoke.py`` phase 17's
     bounds), frames equal in >= 99.9% of entries (the z heads sum in another
     order: a near-tie may flip a frame, which then persists), a second call
-    bitwise equal, and the launches counted as the cooperative kernel's."""
+    bitwise equal, and the launches counted as the cooperative kernel's.
+    The cases the cluster kernel would take (H=512 at D=88) are sent to the
+    cooperative kernel by a cluster kernel that holds nothing (``fits``)."""
+    monkeypatch.setattr(cgv, "fits", lambda cfg, mode=None: False)
     kw = VAE_COOP_CASES[case]
     params, cfg, (seeds, nsteps, eps, u, ws) = _vae_problem(dev, **kw)
     mode = "bf16" if kw.get("bf16") else "f32"
@@ -1172,13 +1221,13 @@ def test_vae_coop_kernel_matches_plain(dev, case, zp):
     if case == "bf16_many_units":
         assert plan["nu"] > 8 * cgv._COOP_MAX_NT
     u1 = torch.ones_like(u)
-    before = (cgv.COOP_LAUNCHES, cgv.LAUNCHES, cgv.WIDE_LAUNCHES)
+    before = (cgv.COOP_LAUNCHES, cgv.LAUNCHES, cgv.CLUSTER_LAUNCHES)
     run = lambda f, uu, rp: f(params, cfg, seeds, nsteps, eps, uu, ws, use_z_prior=zp,
                               return_probs=rp)
     pk, fk = run(cgv.generate_cl_vae_batch_cuda, u1, True), run(cgv.generate_cl_vae_batch_cuda,
                                                                  u, False)
     torch.cuda.synchronize()
-    assert (cgv.COOP_LAUNCHES, cgv.LAUNCHES, cgv.WIDE_LAUNCHES) == (
+    assert (cgv.COOP_LAUNCHES, cgv.LAUNCHES, cgv.CLUSTER_LAUNCHES) == (
         before[0] + 2, before[1] + 2, before[2])
     pp, fp = run(cgv.generate_cl_vae_batch_plain, u1, True), run(cgv.generate_cl_vae_batch_plain,
                                                                   u, False)
@@ -1214,9 +1263,19 @@ def test_vae_wrapper_raises_instead_of_falling_back(dev):
     f8 = cgv.generate_cl_vae_batch_cuda(params, cfg, seeds, nsteps, eps, u, ws, mode="int8")
     assert set(torch.unique(f8).tolist()) <= {0.0, 1.0}
     before += 1
-    # a width the wide kernel takes, with weights of another width
+    # after a call that packed the parameters for the card, copies of them on
+    # the CPU with the seeds on the card raise (the packed slabs are kept per
+    # device)
+    cgv.generate_cl_vae_batch_cuda(params, cfg, seeds, nsteps, eps, u, ws)
+    before += 1
+    to_cpu = lambda t: {k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict) else t.cpu()
+    with pytest.raises(ValueError, match="cpu"):
+        cgv.generate_cl_vae_batch_cuda(to_cpu(params), cfg, seeds, nsteps, eps, u, ws)
+    # a width the cluster kernel takes on 4 blocks, with weights of another
+    # width: the weights' check raises before any launch
     wide = cl_vae.Config(original_dim=12, intermediate_dim=4096, latent_dim=3, n_classes=3,
                          use_x_prev=True)
+    assert cgv.kernel_for(wide) == "generate_cl_vae_cluster"
     with pytest.raises(ValueError, match="must be"):
         cgv.generate_cl_vae_batch_cuda(params, wide, seeds, nsteps, eps, u, ws)
     assert cgv.LAUNCHES == before
@@ -1225,31 +1284,37 @@ def test_vae_wrapper_raises_instead_of_falling_back(dev):
 # ---- the wide cl_vae generation kernel (generate_wide_kernel, f32)
 #
 # The same tolerances: frames equal and probabilities within 1e-5. The
-# cases are configs kernel_for sends to it: f32 below H=512 that the
-# shared-memory kernel refuses, and configs without hidden layers.
+# cases are configs kernel_for sends to it: without hidden layers, with
+# x_prev, whose D x D frame-head rows do not fit 8 blocks of a cluster; and
+# f32 with hidden layers at a latent width that neither the cluster kernel
+# (2L past 4 x 32 lanes) nor the cooperative kernel (its z heads' columns in
+# one block's shared memory) takes.
 
 WIDE_CASES = {
-    "h256": dict(B=5, nsteps=12, H=256, D=88, L=4, K=13, seed=4),
-    "no_hidden": dict(B=5, nsteps=12, H=0, D=88, L=4, K=13, seed=5),
-    "no_hidden_no_x_prev": dict(B=3, nsteps=10, H=0, use_x_prev=False, seed=6),
+    "no_hidden_d700": dict(B=5, nsteps=10, H=0, D=700, L=4, K=13, seed=5),
+    "no_hidden_d1024_l16": dict(B=3, nsteps=8, H=0, D=1024, L=16, K=13, seed=6),
+    "h64_l400": dict(B=5, nsteps=10, H=64, D=88, L=400, K=13, seed=4),
     # the frame head wider than the block's threads (up to 3 whole columns
     # a thread), the hidden layers split in K over 2 groups
-    "d1100_h200": dict(B=3, nsteps=6, H=200, D=1100, L=20, K=5, seed=7),
+    "d1100_h200_l400": dict(B=3, nsteps=6, H=200, D=1100, L=400, K=5, seed=9),
+}
+# no shared memory to spare: the per-song state in the global scratch
+GLOBAL_STATE_CASES = {
+    "state_in_global_memory": dict(B=5, nsteps=12, H=0, D=700, L=4, K=13, seed=8),
+    "state_in_global_memory_hidden": dict(B=5, nsteps=12, H=40, L=400, seed=8),
 }
 
 
-@pytest.mark.parametrize("case", sorted(WIDE_CASES) + ["state_in_global_memory"])
+@pytest.mark.parametrize("case", sorted(WIDE_CASES) + sorted(GLOBAL_STATE_CASES))
 @pytest.mark.parametrize("zp", [False, True])
 def test_vae_wide_kernel_matches_plain_f32(dev, case, zp, monkeypatch):
-    if case == "state_in_global_memory":
-        # no shared memory to spare: the narrow config takes the wide kernel,
-        # its per-song state in the global scratch
+    if case in GLOBAL_STATE_CASES:
         monkeypatch.setattr(cgv, "_SMEM_LIMIT", 0)
-        kw = dict(B=5, nsteps=12, H=40, seed=8)
+        kw = GLOBAL_STATE_CASES[case]
     else:
         kw = WIDE_CASES[case]
     params, cfg, (seeds, nsteps, eps, u, ws) = _vae_problem(dev, **kw)
-    assert cgv.kernel_for(cfg) == "generate_cl_vae_wide"
+    assert cgv.kernel_for(cfg) == "generate_cl_vae_wide" and not cgv.fits(cfg)
     u1 = torch.ones_like(u)
     before = (cgv.LAUNCHES, cgv.WIDE_LAUNCHES)
     run = lambda f, uu, rp: f(params, cfg, seeds, nsteps, eps, uu, ws, use_z_prior=zp,

@@ -123,12 +123,14 @@ def test_bf16_mode_matches_jax_bf16_kernel():
 
 def test_bf16_wide_mode_matches_jax_bf16_kernel():
     """bf16 at hidden 512 (D=88, L=4, K=13), the width of a bf16 checkpoint
-    that only the wide kernel takes: probabilities with u=1 within max 2e-2 /
-    mean 2e-3 of the JAX bf16 kernel, as at the narrow width."""
+    whose weights one block does not hold (the cluster kernel takes it on
+    two): probabilities with u=1 within max 2e-2 / mean 2e-3 of the JAX bf16
+    kernel, as at the narrow width."""
     jcfg, params, tcfg, tparams, a, nsteps = _setup(D=88, H=512, L=4, K=13, B=4, nsteps=8,
                                                     seed=8)
     bcfg = dataclasses.replace(tcfg, bf16_compute=True)
-    assert not cgv.fits(bcfg) and cgv.kernel_for(bcfg) == "generate_cl_vae_coop"
+    assert cgv.kernel_for(bcfg) == "generate_cl_vae_cluster"
+    assert cgv.cluster_plan(bcfg, 4)["C"] == 2
     a["u"] = np.ones_like(a["u"])
     bf16 = _run_all(jcfg, params, bcfg, tparams, a, nsteps, rp=True, mode="bf16")
     d = np.abs(bf16["plain"] - bf16["jax_pallas"])
@@ -194,20 +196,20 @@ def test_modes_and_kernel_input_checks():
     assert not torch.equal(f8, f16)
     with pytest.raises(ValueError, match="unknown mode"):
         cgv.generate_cl_vae_batch_cuda(tparams, tcfg, *targs, mode="int4")
-    # no hidden layers: the wide kernel, in f32 as the JAX scan samples them
+    # no hidden layers: the cluster kernel, in f32 as the JAX scan samples them
     no_hidden = dataclasses.replace(tcfg, intermediate_dim=0)
-    assert not cgv.fits(no_hidden) and cgv.kernel_for(no_hidden) == "generate_cl_vae_wide"
+    assert cgv.fits(no_hidden) and cgv.kernel_for(no_hidden) == "generate_cl_vae_cluster"
     assert cgv.pick_mode(dataclasses.replace(no_hidden, bf16_compute=True)) == "f32"
     _, _, _, nh_params, nh, _ = _setup(H=0)
     nh_args = (_t(nh["seeds"]), nsteps, _t(nh["eps"]), _t(nh["u"]), _t(nh["ws"]))
     cgv._check(nh_params, no_hidden, *nh_args, "f32")
     got = cgv.generate_cl_vae_batch_cuda(nh_params, no_hidden, *nh_args)
     assert got.shape == (8, nsteps, 12)
-    for mode in ("bf16", "int8"):  # the wide kernel takes f32 weights only
+    for mode in ("bf16", "int8"):  # a config without hidden layers samples in f32
         with pytest.raises(ValueError, match="need hidden layers"):
             cgv.generate_cl_vae_batch_cuda(nh_params, no_hidden, *nh_args, mode=mode)
     # what the wrapper checks before a launch (the launch itself needs a card)
-    assert cgv.kernel_for(tcfg) == "generate_cl_vae"
+    assert cgv.kernel_for(tcfg) == "generate_cl_vae_cluster"
     cgv._check(tparams, tcfg, *targs, "f32")
     with pytest.raises(ValueError, match="eps"):
         cgv._check(tparams, tcfg, targs[0], nsteps, targs[2][:, :-1], *targs[3:], "f32")
@@ -218,22 +220,27 @@ def test_modes_and_kernel_input_checks():
     with pytest.raises(ValueError, match="contiguous"):
         u_t = _t(np.ascontiguousarray(a["u"].transpose(1, 0, 2))).transpose(0, 1)
         cgv._check(tparams, tcfg, targs[0], nsteps, targs[2], u_t, targs[4], "f32")
-    # shared memory: f32 weights fit up to H ~ 200 at D=88, L=4; bf16 doubles
-    # that; wider models take the cooperative kernel (f32 from H=512, below
-    # it the wide kernel: the measured rule), whose per-song state stays in
-    # shared memory up to D + H ~ 14,000, past it in a global scratch
+    # shared memory: the cluster kernel holds f32 weights on one block to H
+    # = 200 at D=88, L=4, and on up to 8 blocks to H = 1,600; bf16 to 336 and
+    # 2,624; wider models take the cooperative kernel; the wide kernel keeps
+    # what neither takes, its per-song state in shared memory up to D + H ~
+    # 14,000, past it in a global scratch
     wide = lambda h: tvae.Config(original_dim=88, intermediate_dim=h, latent_dim=4,
                                  n_classes=10, use_x_prev=True)
-    assert cgv.fits(wide(200)) and not cgv.fits(wide(210))
-    assert cgv.fits(wide(384), "bf16") and not cgv.fits(wide(400), "bf16")
-    for h, mode, kernel in ((200, "f32", "generate_cl_vae"), (210, "f32", "generate_cl_vae_wide"),
-                            (512, "f32", "generate_cl_vae_coop"),
-                            (384, "bf16", "generate_cl_vae"),
-                            (400, "bf16", "generate_cl_vae_coop")):
+    blocks = lambda h, mode: cgv.cluster_plan(wide(h), 1, mode)["C"]
+    assert [blocks(h, "f32") for h in (200, 208, 400, 408, 808, 816, 1600)] == [1, 2, 2, 4, 4, 8, 8]
+    assert [blocks(h, "bf16") for h in (336, 344, 1336, 1344, 2624)] == [1, 2, 4, 8, 8]
+    assert not cgv.fits(wide(1608)) and not cgv.fits(wide(2632), "bf16")
+    for h, mode, kernel in ((200, "f32", "generate_cl_vae_cluster"),
+                            (210, "f32", "generate_cl_vae_cluster"),
+                            (512, "f32", "generate_cl_vae_cluster"),
+                            (1608, "f32", "generate_cl_vae_coop"),
+                            (400, "bf16", "generate_cl_vae_cluster"),
+                            (4096, "bf16", "generate_cl_vae_coop")):
         assert cgv.kernel_for(wide(h), mode) == kernel, (h, mode)
     assert cgv._wide_smem_bytes(88, 4096, 4, True, True) <= cgv._SMEM_LIMIT
     assert cgv._wide_smem_bytes(88, 16384, 4, True, True) > cgv._SMEM_LIMIT
-    w4096 = dataclasses.replace(tcfg, intermediate_dim=4096)
-    assert cgv.kernel_for(w4096) == "generate_cl_vae_coop"
+    w4096 = dataclasses.replace(tcfg, intermediate_dim=4096)  # D=12: 4 blocks hold it
+    assert cgv.kernel_for(w4096) == "generate_cl_vae_cluster"
     with pytest.raises(ValueError, match=r"kernel must be \(4096, 2\)"):
         cgv._check(tparams, w4096, *targs, "f32")

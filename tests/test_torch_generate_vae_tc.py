@@ -2,7 +2,8 @@
 order and routing, on the CPU.
 
 ``csrc/generate_cl_vae.cu`` ``generate_vae_coop_kernel`` takes the configs
-with hidden layers that the shared-memory kernel refuses (``kernel_for``),
+with hidden layers whose weights a cluster's shared memory does not hold
+(``kernel_for``),
 in f32 (FFMA) and bf16 (``mma.sync.m16n8k16`` on the tensor cores), with the
 int8 kernel's grid (:func:`coop_grid`), frame-head split
 (:func:`head_split`) and packing (:func:`pack_coop`: a tile's chunk holds
@@ -352,25 +353,22 @@ def test_emulated_kernel_order_matches_the_plain_version(mode, D, H, use_x_prev,
 
 def test_routing_rule():
     """``kernel_for``: int8 configs take the cooperative kernel on int8
-    codes; f32 / bf16 configs with hidden layers take the shared-memory
-    kernel where it fits, else the cooperative kernel (bf16 at every width,
-    f32 from ``_F32_COOP_FROM``'s: the H100 sweep), f32 below it the wide
-    kernel; configs without hidden layers the wide kernel, in f32 only.
-    Every f32 / bf16 config with hidden layers the cooperative kernel takes
-    has a layout on an H100's grid, for 1 and 64 songs, at the widths the
-    port samples (D=88 and the seq-concat D=1,024, with and without
-    x_prev)."""
+    codes; f32 / bf16 configs take the cluster kernel wherever its weights
+    fit 8 blocks (:func:`cluster_plan`), with or without hidden layers, and
+    the other configs with hidden layers the cooperative kernel. Every f32 /
+    bf16 config with hidden layers the cooperative kernel takes has a layout
+    on an H100's grid, for 1 and 64 songs, at the widths the port samples
+    (D=88 and the seq-concat D=1,024, with and without x_prev)."""
     for D, H, mode in ((88, 256, "f32"), (88, 512, "f32"), (88, 1024, "f32"), (88, 512, "bf16"),
                        (88, 1024, "bf16"), (1024, 1024, "bf16"), (1024, 5120, "bf16"),
-                       (1024, 5120, "f32"), (1024, 7808, "bf16")):
+                       (1024, 5120, "f32"), (1024, 7808, "bf16"), (88, 2048, "f32"),
+                       (88, 4096, "bf16")):
         for use_x_prev in (False, True):
             cfg = _cfg(D, H, 16 if D == 1024 else 4, use_x_prev, bf16=mode == "bf16")
             assert cgv.pick_mode(cfg) == mode
-            if cgv.fits(cfg):  # f32 H=256 without x_prev: every weight in shared memory
-                assert cgv.kernel_for(cfg) == "generate_cl_vae"
-                continue
-            if (mode, H) == ("f32", 256):  # the sweep: the wide kernel is faster there
-                assert cgv.kernel_for(cfg) == "generate_cl_vae_wide"
+            if cgv.fits(cfg):  # the weights fit a cluster's shared memory
+                assert cgv.kernel_for(cfg) == "generate_cl_vae_cluster", (D, H, mode)
+                assert D == 88 and H <= 2048
                 continue
             assert cgv.kernel_for(cfg) == "generate_cl_vae_coop", (D, H, mode)
             for B in (1, 64):
@@ -383,9 +381,9 @@ def test_routing_rule():
     assert cgv.coop_plan(_cfg(1024, 5120, 16), 64, 132, "bf16")["res"] == (True, False)
     assert cgv.coop_plan(_cfg(1024, 5120, 16, True), 64, 132, "bf16")["res"] == (False, False)
     narrow = _cfg(88, 88, 4, True, bf16=False)  # jsball_vae's width
-    assert cgv.kernel_for(narrow) == "generate_cl_vae"
+    assert cgv.kernel_for(narrow) == "generate_cl_vae_cluster"
     assert cgv.kernel_for(dataclasses.replace(narrow, intermediate_dim=0)) == \
-        "generate_cl_vae_wide"
+        "generate_cl_vae_cluster"
     int8 = dataclasses.replace(_cfg(1024, 5120, 16), gen_backend="pallas")
     assert cgv.pick_mode(int8) == "int8" and cgv.kernel_for(int8) == "generate_cl_vae_int8"
 

@@ -79,13 +79,13 @@ def train_cl_vae(model_dir, hidden, run="ckpt"):
 
 @pytest.mark.parametrize("hidden", [256, 0])
 def test_cl_vae_sample_takes_wide_and_no_hidden_checkpoints(tmp_path, hidden):
-    """Checkpoints the shared-memory kernel refuses (hidden 256 in f32, and no
-    hidden layers) sample through the wide kernel's route (f32 below H=512
-    by the measured rule, and every model without hidden layers); on the
-    CPU, its plain version."""
+    """Checkpoints whose weights one block does not hold (hidden 256 in f32:
+    the cluster kernel on two blocks) and without hidden layers sample
+    through the cluster kernel's route; on the CPU, its plain version."""
     ckpt = train_cl_vae(tmp_path, hidden)
     _, cfg, _ = common.load_model(ckpt, "cl_vae")
-    assert cuda_generate_vae.kernel_for(cfg) == "generate_cl_vae_wide"
+    assert cuda_generate_vae.kernel_for(cfg) == "generate_cl_vae_cluster"
+    assert cuda_generate_vae.cluster_plan(cfg, 2)["C"] == (2 if hidden else 1)
     out = tmp_path / "samples"
     args = cl_vae_sample.build_parser().parse_args(
         ["run", "-i", ckpt, "--train_file", CS, "-n", "2", "-t", "12", "--sample_dir", str(out),

@@ -303,10 +303,11 @@ def test_cl_vae_dynamic_batching_coalesces_a_burst():
 
 @pytest.mark.parametrize("hidden", [256, 0])
 def test_cl_vae_engine_takes_wide_and_no_hidden_checkpoints(tmp_path, hidden, monkeypatch):
-    """A cl_vae checkpoint the shared-memory kernel refuses (hidden 256 in
-    f32, or no hidden layers) serves on the CPU, and on a card the engine no
-    longer refuses it before any request (the cl_vrnn engine still refuses a
-    model too wide for its kernel)."""
+    """A cl_vae checkpoint whose weights one block does not hold (hidden 256
+    in f32: the cluster kernel on two blocks), or without hidden layers,
+    serves on the CPU, and on a card the engine does not refuse it before
+    any request (the cl_vrnn engine still refuses a model too wide for its
+    kernel)."""
     from classifying_vae_lstm_tpu_torch.cli import cl_vae_train
     from classifying_vae_lstm_tpu_torch.ops import cuda_generate
     from classifying_vae_lstm_tpu_torch.serving import engine as engine_mod
@@ -323,7 +324,9 @@ def test_cl_vae_engine_takes_wide_and_no_hidden_checkpoints(tmp_path, hidden, mo
     port = httpd.server_address[1]
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
     try:
-        assert eng.family == "cl_vae" and not cuda_generate_vae.fits(eng.cfg)
+        assert eng.family == "cl_vae"
+        assert cuda_generate_vae.kernel_for(eng.cfg) == "generate_cl_vae_cluster"
+        assert cuda_generate_vae.cluster_plan(eng.cfg, 2)["C"] == (2 if hidden else 1)
         code, out = _post(port, {"n": 2, "t": 8, "key": "C", "infer_w": False})
         assert code == 200 and np.asarray(out["rolls"]).shape == (2, 8, 88)
         assert _binary(np.asarray(out["rolls"]))

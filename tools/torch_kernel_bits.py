@@ -13,12 +13,14 @@ at H=1,536, 64 songs x (32 + 256) steps) and the f32 / bf16 one (on those
 weights, and sampled frames at H=256), the int8 cl_vae
 generation kernel (D=1,024 with x_prev, 64 songs x 64 steps: H=4,160, whose
 weight slices stay in shared memory, and H=5,120 and 7,808, which stream
-some), the f32 / bf16 cl_vae generation kernel at the widths the
-shared-memory one refuses (f32 at D=88, H=256; bf16 at D=1,024, H=5,120,
-64 songs x 64 steps) — on inputs made from a fixed seed, and saves every
-output. It also calls both dense-stack forwards and the f32 backward, the
-int8 and the wide f32 / bf16 cl_vae kernels and the f32 LSTM forwards a
-second time and exits 1 unless each gives the same bits again.
+some), the f32 / bf16 cl_vae generation kernels past one block's shared
+memory (f32 at D=88, H=256; bf16 at D=1,024, H=5,120, 64 songs x 64
+steps) and at the committed checkpoints' width and without hidden layers
+(the trained jsball_vae in f32; bf16 at H=256; f32 without hidden layers)
+— on inputs made from a fixed seed, and saves every output. It also calls
+both dense-stack forwards and the f32 backward, the int8 and the f32 /
+bf16 cl_vae kernels and the f32 LSTM forwards a second time and exits 1
+unless each gives the same bits again.
 ``compare`` reports, per output, whether two saved runs are bitwise equal,
 and exits 1 if any differs. Run ``save`` once per checkout (each in its own
 process: both define the same package) on one card, then ``compare``.
@@ -278,6 +280,63 @@ def _wide_vae(out: dict):
     return again
 
 
+def _cluster_vae(out: dict):
+    """The f32 / bf16 cl_vae generation kernel at the widths of the committed
+    checkpoints and below 8 blocks: the trained jsball_vae (f32, D=H=88,
+    L=4, x_prev), and seeded weights in bf16 at H=256 and without hidden
+    layers (f32), 64 songs x 64 steps (in a checkout with the cluster
+    kernel, its outputs; in its parent, the kernels it replaced)."""
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.cli import common
+    from classifying_vae_lstm_tpu_torch.models import cl_vae
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae as cgv
+    from classifying_vae_lstm_tpu_torch.weights import params_from_numpy
+
+    rng, _ = _inputs(7)
+    dev = torch.device("cuda", 0)
+    B, nsteps, D, L, K = 64, 64, 88, 4, 13
+    again = {}
+    for name, H, mode in (("jsball_vae", 88, "f32"), ("bf16_cl_vae_h256", 256, "bf16"),
+                          ("no_hidden_cl_vae", 0, "f32")):
+        if name == "jsball_vae":
+            raw, cfg, _ = common.load_model("artifacts/jsball_vae.npz", "cl_vae")
+        else:
+            def dense(i, o):
+                lim = np.sqrt(6.0 / (i + o))
+                return {"kernel": rng.uniform(-lim, lim, (i, o)).astype(np.float32),
+                        "bias": np.zeros(o, np.float32)}
+
+            raw = {"h_w": dense(D, 88), "w_mean": dense(88, K - 1),
+                   "w_log_var": dense(88, K - 1)}
+            if H:
+                raw.update(h=dense(D + K, H), z_mean=dense(H, L), z_log_var=dense(H, L),
+                           decoder_h=dense(K + D + L, H), x_decoded_mean=dense(H, D))
+            else:
+                raw.update(z_mean=dense(D + K, L), z_log_var=dense(D + K, L),
+                           x_decoded_mean=dense(K + D + L, D))
+            raw["x_decoded_mean"]["bias"][:] = -2.0
+            cfg = cl_vae.Config(original_dim=D, intermediate_dim=H, latent_dim=L,
+                                intermediate_class_dim=88, n_classes=K, use_x_prev=True,
+                                bf16_compute=mode == "bf16")
+        t = lambda a: torch.from_numpy(a).to(dev)
+        seeds = t((rng.random((B, D)) < 0.1).astype(np.float32))
+        eps = t(rng.standard_normal((B, nsteps, cfg.latent_dim)).astype(np.float32))
+        u = t(rng.random((B, nsteps, D)).astype(np.float32))
+        ws = torch.eye(cfg.n_classes, device=dev)[torch.arange(B, device=dev) % cfg.n_classes]
+        params = params_from_numpy(raw, dev)
+        run = lambda uu, rp, params=params, cfg=cfg, seeds=seeds, eps=eps, ws=ws: (
+            cgv.generate_cl_vae_batch_cuda(params, cfg, seeds, nsteps, eps, uu, ws,
+                                           return_probs=rp))
+        out[f"{name}_probs_u1"] = run(torch.ones_like(u), True)
+        out[f"{name}_frames"] = run(u, False)
+        torch.cuda.synchronize()
+        again[f"{name}_frames"] = lambda run=run, u=u: run(u, False)
+        again[f"{name}_probs_u1"] = lambda run=run, u=u: run(torch.ones_like(u), True)
+    return again
+
+
 def save(path: str, root: str | None):
     if root:
         sys.path.insert(0, str(Path(root).resolve()))
@@ -288,7 +347,7 @@ def save(path: str, root: str | None):
     print(f"package: {Path(classifying_vae_lstm_tpu_torch.__file__).parent}")
     out: dict = {}
     again = {}
-    for part in (_lstm, _two_cell, _vae, _int8, _int8_vae, _wide_vae):
+    for part in (_lstm, _two_cell, _vae, _int8, _int8_vae, _wide_vae, _cluster_vae):
         again.update(part(out) or {})
     torch.cuda.synchronize()
     differ = []

@@ -47,17 +47,25 @@ SM_REGS, SM_THREADS, SM_SMEM, SM_BLOCKS = 65536, 2048, 233472, 32
 # below) of the kernels whose occupancy is listed without --threads / --smem
 # (the first key a kernel's name holds is taken: wgrad_kernel<lstm_bwd_wgrad>
 # runs 256 threads)
-THREADS = {"wgrad_": 256, "lstm_bwd_": 128, "generate_int8_kernel": 512, "vae_tc_product": 128,
+THREADS = {"generate_cluster_kernel<float, true>": 384,
+           "generate_cluster_kernel<__nv_bfloat16, true>": 384, "generate_cluster_kernel": 512,
+           "wgrad_": 256, "lstm_bwd_": 128, "generate_int8_kernel": 512, "vae_tc_product": 128,
            "vae_tc_dw": 128, "vae_tc_head": 256, "vae_tc_latent": 256, "vae_tc_key": 256,
            "vae_tc_fwd_rows": 512, "generate_vae_coop_kernel": 512, "generate_kernel": 512,
            "two_cell_step": 128, "two_cell_layout": 256, "lstm_fwd_kernel": 256}
-# the f32 / bf16 generation kernel at jsball_vrnn4's shape (H=256, L=8, 64
+# the cluster cl_vae kernel's plan (cuda_generate_vae.cluster_plan) at 64
+# songs: its register path at jsball_vae's width (D=H=88, L=4, x_prev; 384
+# threads) in f32 and bf16, f32 at H=256 (two blocks a cluster) and bf16 at
+# H=256 (one), 512 threads; the f32 / bf16 generation kernel at jsball_vrnn4's shape (H=256, L=8, 64
 # songs, f32 slices resident; the bf16 one at H=1,024, L=2, resident:
 # 226,048 B at 256 songs), the two-cell forward's steps at L=8 / L=2, the
 # cooperative cl_vae kernel in bf16 at H=5,120 (x rows resident, head
 # streamed) and in f32 at D=88, H=256, and the f32 LSTM forward at the
 # training (1 row a thread) and the evaluation shape (4)
-SMEM = {"vae_tc_latent": 4688, "vae_tc_key": 2256, "vae_tc_fwd_rows": 25936,
+SMEM = {"generate_cluster_kernel<float, true>": 129104,
+        "generate_cluster_kernel<__nv_bfloat16, true>": 59984,
+        "generate_cluster_kernel<float": 172032, "generate_cluster_kernel<__nv_bfloat16": 182832,
+        "vae_tc_latent": 4688, "vae_tc_key": 2256, "vae_tc_fwd_rows": 25936,
         "generate_int8_kernel": 122496, "generate_vae_coop_kernel<signed char>": 220224,
         "generate_vae_coop_kernel<__nv_bfloat16>": 195648,
         "generate_vae_coop_kernel<float>": 87488, "lstm_fwd_kernel<1,": 203520,

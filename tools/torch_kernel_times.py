@@ -6,8 +6,8 @@ the shapes of ``chip_smoke.py``, for comparing two checkouts on one card in
 turns.
 
     python3 tools/torch_kernel_times.py [--root CHECKOUT] [--reps 5]
-        [--parts two_cell,generation,vae_dense,vae_dense_f32,int8_vae,wide_vae,
-                 wide_vae_buckets,lstm_f32_fwd]
+        [--parts two_cell,cluster_vae,cluster_vae_sweep,generation,vae_dense,
+                 vae_dense_f32,int8_vae,wide_vae,wide_vae_buckets,lstm_f32_fwd]
         [--against PARENT]
 
 Runs the kernels of the checkout at ``--root`` (default: this one; run each
@@ -46,7 +46,14 @@ bf16); the f32 LSTM
 forward (``lstm_f32_fwd``: the training and inference forwards and both xz
 forwards at B=200, T=16, H=256, IN=105, the inference forward and the xz
 one at 12,800 rows, with the layout where the checkout plans one; the
-kernel reads every weight as stored, so the wrapper packs nothing). ``--against PARENT`` runs the
+kernel reads every weight as stored, so the wrapper packs nothing); the
+cl_vae generation shapes of the cluster kernel (``cluster_vae``: the
+trained jsball_vae in f32 and its serving buckets, bf16 H=256, f32 H=256
+and a model without hidden layers, 64 songs x 256 steps, through the
+kernel ``kernel_for`` picks, and the cooperative kernel at the routing
+sweep's widths) and, in a checkout with the cluster kernel, the routing
+sweep at the serving buckets and the plans it launches at 4 and 8 blocks
+a cluster and past one wave of the card (``cluster_vae_sweep``). ``--against PARENT`` runs the
 parts in four processes, PARENT, this checkout, this checkout, PARENT, on
 one card. Each is timed with CUDA events around the wrapper after a
 warm-up call, and its device time a call is the sum of ``torch.profiler``'s
@@ -344,8 +351,9 @@ def _int8_vae(reps):
 
 
 def _wide_problem(D, H, L, use_xp, mode, B, nsteps, K=13):
-    """Seeded glorot cl_vae weights (frame bias -2) and B songs' seeds and
-    noise on the card: (params, cfg, seeds, eps, u, ws)."""
+    """Seeded glorot cl_vae weights (frame bias -2; H = 0: no hidden layers)
+    and B songs' seeds and noise on the card: (params, cfg, seeds, eps, u,
+    ws)."""
     import numpy as np
     import torch
 
@@ -361,9 +369,13 @@ def _wide_problem(D, H, L, use_xp, mode, B, nsteps, K=13):
                 "bias": np.zeros(o, np.float32)}
 
     n_xp = D if use_xp else 0
-    raw = {"h_w": dense(D, 88), "w_mean": dense(88, K - 1), "w_log_var": dense(88, K - 1),
-           "h": dense(D + K, H), "z_mean": dense(H, L), "z_log_var": dense(H, L),
-           "decoder_h": dense(K + n_xp + L, H), "x_decoded_mean": dense(H, D)}
+    raw = {"h_w": dense(D, 88), "w_mean": dense(88, K - 1), "w_log_var": dense(88, K - 1)}
+    if H:
+        raw.update(h=dense(D + K, H), z_mean=dense(H, L), z_log_var=dense(H, L),
+                   decoder_h=dense(K + n_xp + L, H), x_decoded_mean=dense(H, D))
+    else:  # no hidden layers: the z heads over [x_prev, w], the frame head over [w, x_prev, z]
+        raw.update(z_mean=dense(D + K, L), z_log_var=dense(D + K, L),
+                   x_decoded_mean=dense(K + n_xp + L, D))
     raw["x_decoded_mean"]["bias"][:] = -2.0
     params = params_from_numpy(raw, dev)
     cfg = cl_vae.Config(original_dim=D, intermediate_dim=H, latent_dim=L,
@@ -470,6 +482,136 @@ def _wide_vae_buckets(reps):
                                                      reps)}), flush=True)
 
 
+def _cluster_shapes():
+    """The cl_vae generation shapes of the cluster kernel's redesign, 64
+    songs x 256 steps: the trained jsball_vae (f32, D=H=88, L=4, x_prev),
+    and seeded glorot weights at D=88, L=4, x_prev: bf16 H=256, f32 H=256,
+    and without hidden layers (f32)."""
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.cli import common
+    from classifying_vae_lstm_tpu_torch.weights import params_from_numpy
+
+    dev = torch.device("cuda", 0)
+    B, nsteps = 64, 256
+    raw, cfg, _ = common.load_model("artifacts/jsball_vae.npz", "cl_vae")
+    rng = np.random.default_rng(SEED)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    seeds = t((rng.random((B, 88)) < 0.1).astype(np.float32))
+    jsball = (params_from_numpy(raw, dev), cfg, seeds,
+              t(rng.standard_normal((B, nsteps, cfg.latent_dim)).astype(np.float32)),
+              t(rng.random((B, nsteps, 88)).astype(np.float32)),
+              torch.eye(cfg.n_classes, device=dev)[torch.arange(B, device=dev) % cfg.n_classes])
+    yield "f32 jsball_vae", jsball
+    for label, H, mode in (("bf16 H=256", 256, "bf16"), ("f32 H=256", 256, "f32"),
+                           ("no hidden", 0, "f32")):
+        yield label, _wide_problem(88, H, 4, True, mode, B, nsteps)
+
+
+def _coop_pinned(cgv):
+    """A context that routes every config with hidden layers to the
+    cooperative kernel: in a checkout with the cluster kernel, one that
+    holds nothing (``fits``); in its parent, the routing width
+    ``_F32_COOP_FROM`` at 0 (bf16 went there already)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def pinned():
+        name = "fits" if hasattr(cgv, "cluster_plan") else "_F32_COOP_FROM"
+        old = getattr(cgv, name)
+        setattr(cgv, name, (lambda cfg, mode=None: False) if name == "fits" else 0)
+        try:
+            yield
+        finally:
+            setattr(cgv, name, old)
+
+    return pinned()
+
+
+def _cluster_vae(reps):
+    """The shapes of :func:`_cluster_shapes` through the kernel ``kernel_for``
+    picks (CUDA events and device time), the jsball_vae serving buckets, and
+    the cooperative kernel at the routing sweep's widths (f32 at D=88, H =
+    256, 512, 1,024; bf16 at H=512; 64 x 256), pinned to it
+    (:func:`_coop_pinned`)."""
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae as cgv
+
+    nsteps = 256
+    for label, (params, cfg, seeds, eps, u, ws) in _cluster_shapes():
+        run = lambda: cgv.generate_cl_vae_batch_cuda(params, cfg, seeds, nsteps, eps, u, ws)
+        _line(f"cl_vae generation {label}", run, 4 * reps, kernel=cgv.kernel_for(cfg),
+              B=seeds.shape[0], nsteps=nsteps)
+        if label == "f32 jsball_vae":
+            print(json.dumps({"name": "cl_vae generation buckets f32 jsball_vae",
+                              "kernel": cgv.kernel_for(cfg),
+                              "ms": _buckets(cgv, params, cfg, seeds, eps, u, ws, 3 * reps)}),
+                  flush=True)
+
+    for H, mode in ((256, "f32"), (512, "f32"), (1024, "f32"), (512, "bf16")):
+        params, cfg, seeds, eps, u, ws = _wide_problem(88, H, 4, True, mode, 64, nsteps)
+        run = lambda: cgv.generate_cl_vae_batch_cuda(params, cfg, seeds, nsteps, eps, u, ws)
+        with _coop_pinned(cgv):
+            kernel = cgv.kernel_for(cfg)
+            if kernel == "generate_cl_vae_coop":
+                _line("cl_vae generation, the cooperative kernel", run, reps, kernel=kernel, D=88,
+                      H=H, mode=mode, B=64, nsteps=nsteps)
+
+
+def _plan_fields(cgv, cfg, B):
+    """The plan the wrapper launches on this card, and the clusters of it
+    that the card holds at once."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    mode = cgv.pick_mode(cfg)
+    p = cgv.launch_plan(cfg, B, mode, dev)
+    return {**{k: p[k] for k in ("C", "T", "regs", "clusters", "waves")},
+            "at_once": cgv._max_clusters(dev, mode)(p)}
+
+
+def _cluster_vae_sweep(reps):
+    """The routing rule, in a checkout with the cluster kernel: at D=88, L=4
+    with x_prev, f32 H = 256, 512, 1,024 and bf16 H=512, the serving buckets
+    (1, 4, 16, 64 songs x 32 ... 256 steps) through the cluster kernel and
+    through the cooperative kernel (:func:`_coop_pinned`); then f32 at
+    H = 512 and 1,024 (4 and 8 blocks a cluster) at 64 x 256, and jsball_vae
+    at 64 x 256 and at 300 x 64 (past one wave of the card), each with the
+    plan it launches."""
+    import contextlib
+
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae as cgv
+
+    if not hasattr(cgv, "launch_plan"):
+        print(json.dumps({"name": "cl_vae routing sweep", "skipped": "no cluster kernel"}))
+        return
+    for H, mode in ((256, "f32"), (512, "f32"), (1024, "f32"), (512, "bf16")):
+        params, cfg, seeds, eps, u, ws = _wide_problem(88, H, 4, True, mode, 64, 256)
+        for pin in (contextlib.nullcontext(), _coop_pinned(cgv)):
+            with pin:
+                print(json.dumps({"name": "cl_vae routing sweep", "D": 88, "H": H, "mode": mode,
+                                  "kernel": cgv.kernel_for(cfg),
+                                  "ms": _buckets(cgv, params, cfg, seeds, eps, u, ws, reps)}),
+                      flush=True)
+    for H in (512, 1024):  # 4 and 8 blocks a cluster, f32
+        params, cfg, seeds, eps, u, ws = _wide_problem(88, H, 4, True, "f32", 64, 256)
+        run = lambda: cgv.generate_cl_vae_batch_cuda(params, cfg, seeds, 256, eps, u, ws)
+        _line("cl_vae generation, the cluster kernel", run, reps, H=H, B=64, nsteps=256,
+              plan=_plan_fields(cgv, cfg, 64))
+    shapes = dict(_cluster_shapes())
+    params, cfg, seeds, eps, u, ws = shapes["f32 jsball_vae"]
+    for B, nsteps in ((64, 256), (300, 64)):
+        if B > seeds.shape[0]:
+            rep = -(-B // seeds.shape[0])
+            seeds, eps, u, ws = (x.repeat(rep, *([1] * (x.dim() - 1)))[:B].contiguous()
+                                 for x in (seeds, eps, u, ws))
+        run = lambda: cgv.generate_cl_vae_batch_cuda(params, cfg, seeds[:B], nsteps,
+                                                     eps[:B, :nsteps].contiguous(),
+                                                     u[:B, :nsteps].contiguous(), ws[:B])
+        _line("cl_vae generation, the cluster kernel", run, 4 * reps, B=B, nsteps=nsteps,
+              plan=_plan_fields(cgv, cfg, B))
+
+
 def _lstm_f32_fwd(reps):
     import numpy as np
     import torch
@@ -502,6 +644,8 @@ def _lstm_f32_fwd(reps):
 
 
 PARTS = {"two_cell": lambda reps, root: _two_cell(reps),
+         "cluster_vae": lambda reps, root: _cluster_vae(reps),
+         "cluster_vae_sweep": lambda reps, root: _cluster_vae_sweep(reps),
          "generation": lambda reps, root: _generation(reps, root),
          "vae_dense": lambda reps, root: _vae_dense(reps),
          "vae_dense_f32": lambda reps, root: _vae_dense_f32(reps),
