@@ -303,7 +303,36 @@ failure:
    2,560 x B = 200, 1,024, 1,600 (T=16, IN=101): training and inference
    forwards within phase 20's forward bounds, the walk within 1e-2 relative
    Frobenius, each timed beside its bound (Rk crosses the 50 MB L2 between
-   H=2,048 and 2,560).
+   H=2,048 and 2,560);
+32. key consistency and the 13-key checkpoints: ``cli.key_consistency`` of
+   ``artifacts/pm_configs/c5m.npz`` (cl_vrnn, H=88, 13 keys) on the
+   training corpus, 8 songs x (32 + 64) steps a key: one generation launch
+   (``generate_kernel<float>``) a key with test songs, counted from 0 just
+   before, the report printed, its margin > 0; the first key's batch
+   through the kernel (bitwise the CLI's frames) and the plain version on
+   the CLI's own noise, frames equal up to each song's first near-tie;
+   ``jsball_vrnn4`` (K=10) on the 13-key corpus raising; ``cli.evaluate``
+   of ``c3.npz`` (cl_vae) and of ``c5m.npz`` through ``--lstm_backend
+   pallas`` (the f32 inference forward at H=88: 2 launches a batch) on the
+   training corpus, 64 samples, seeds 0-7: the mean NLL of the 8 runs
+   within 0.01 nats/frame of the mean of the JAX package's CPU runs of
+   those seeds (c3 9.838325, c5m 6.347775; seed 0 alone, 9.8525 and 6.3478,
+   is printed beside the card's: one seed's estimate of c3 moves by up to
+   0.045 between seeds); that forward at the
+   evaluation shape (12,800 rows) against its plain version, timed beside
+   its bound;
+33. the train CLIs' flags: ``cli.cl_vrnn_train`` at phase 6's width
+   through the two-cell kernels, 2 epochs with ``--data_init
+   --check_numerics --do_log --trace_dir --streaming``: the two-cell counts
+   equal the run's steps plus the check's first batch (one forward, two
+   backward launches); the check's line printed, and a NaN in one leaf
+   raising, naming it; the card's data-based init within rtol 1e-5 / atol
+   1e-6 of the CPU plain init on the same noise; 40 streamed steps (pinned
+   memory, a side stream, ``device_prefetch``) with losses bitwise those
+   of the same batches and noise copied synchronously; a JSONL line and an
+   event an epoch, the events' scalars the JSONL's in f32; one Chrome
+   trace, naming the two-cell forward and backward kernels; the wall time
+   of warm streamed and resident epochs in turns (a record).
 
 The run prints each phase's wall time, and fails if a thread it started is
 still running at the end.
@@ -317,6 +346,7 @@ run prints neither the table nor the result line.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -4178,6 +4208,331 @@ def phase_lstm_bf16_sweep(dev):
 
 
 # the phases whose results a phase reads: a selection runs them too
+KC_MODEL = "artifacts/pm_configs/c5m.npz"  # cl_vrnn, H=88, 13 keys, trained on CORPUS
+C3_MODEL = "artifacts/pm_configs/c3.npz"  # cl_vae, 13 keys, trained on CORPUS
+# the JAX package's cli.evaluate of each on CORPUS (64 samples), nats/frame, run on the CPU
+# (the script cannot import JAX): seed 0, and the mean of seeds 0-7, to which the limit holds
+# the mean of the card's seeds 0-7. One seed's estimate moves by up to 0.045 (c3) and 0.003
+# (c5m) between seeds in the JAX package, so one seed cannot be held within the limit.
+JAX_NLL_SEED0 = {"c3": 9.8525, "c5m": 6.3478}
+JAX_NLL = {"c3": 9.838325, "c5m": 6.347775}
+NLL_LIMIT, NLL_SEEDS = 0.01, 8
+
+
+class _Tee:
+    """Write to the real stdout and keep a copy."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def phase_key_consistency(dev):
+    """Key consistency and the 13-key checkpoints: ``cli.key_consistency``
+    of c5m on the card (one generation launch a key with test songs, the
+    margin > 0), one key's batch through the kernel and the plain version on
+    the CLI's own noise, a key past ``n_classes`` raising, and
+    ``cli.evaluate`` of c3 and of c5m through the H=88 inference kernel
+    against the JAX package's NLLs; the H=88 forward timed at the
+    evaluation shape. Returns the generation and the inference-forward
+    launches."""
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.cli import common
+    from classifying_vae_lstm_tpu_torch.cli import key_consistency as kc
+    from classifying_vae_lstm_tpu_torch.data import PianoData
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate as cg
+    from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
+    from classifying_vae_lstm_tpu_torch.sampling import generate as gen
+
+    calls, real = [], kc.generate_cl_vrnn_batch
+
+    def spy(params, cfg, seeds, nsteps, generator, ws):
+        state = generator.get_state().clone()
+        out = real(params, cfg, seeds, nsteps, generator, ws)
+        calls.append((params, cfg, seeds, nsteps, state, ws, out))
+        return out
+
+    args = kc.build_parser().parse_args(["-i", KC_MODEL, "--train_file", CORPUS])
+    plain_on_cuda = []
+    kc.generate_cl_vrnn_batch = spy
+    try:
+        with sampler_plain_guard(cg, "generate_cl_vrnn_batch_plain", plain_on_cuda):
+            cg.LAUNCHES = 0
+            t0 = time.perf_counter()
+            rep = kc.run(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = cg.LAUNCHES
+    finally:
+        kc.generate_cl_vrnn_batch = real
+    P = PianoData(CORPUS, batch_size=1, seq_length=args.seed_len, squeeze_x=False)
+    n_keys = len(np.unique(P.test_song_keys))
+    print(f"key consistency of c5m on {CORPUS} (-n {args.n} -t {args.t}, seeds of "
+          f"{args.seed_len} frames): {json.dumps(rep)}; {launches} generation launches "
+          f"(expected {n_keys}, one a key with test songs), wall {wall:.3f} s")
+    require(launches == n_keys == len(calls), f"key consistency launches {launches}")
+    require(not plain_on_cuda, f"the plain sampler ran on CUDA tensors: {plain_on_cuda}")
+    require(rep["n_songs"] == n_keys * args.n and rep["margin"] > 0,
+            f"key consistency report {rep}")
+
+    # the first key's batch: kernel and plain version on the CLI's own noise
+    params, cfg, seeds, nsteps, state, ws, out = calls[0]
+    g = torch.Generator(device=dev)
+    g.set_state(state)
+    B, Tseed, D = seeds.shape
+    eps, u = gen.draw_generation_noise(g, B, Tseed + nsteps, cfg.latent_dim, D, device=dev)
+    fk = cg.generate_cl_vrnn_batch_cuda(params, cfg, seeds, nsteps, eps, u, ws)
+    fp = cg.generate_cl_vrnn_batch_plain(params, cfg, seeds, nsteps, eps, u, ws)
+    probs = cg.generate_cl_vrnn_batch_plain(params, cfg, seeds, nsteps, eps, u, ws,
+                                            return_probs=True)
+    torch.cuda.synchronize()
+    require(torch.equal(fk, out), "the kernel's frames differ from the CLI's on its own noise")
+    frames_agree_to_near_tie("key consistency, first key", fk, fp, u[:, Tseed:], probs)
+
+    try:
+        kc.run(kc.build_parser().parse_args(["-i", MODEL, "--train_file", CORPUS, "-n", "1",
+                                             "-t", "1"]))
+    except ValueError as e:
+        print(f"jsball_vrnn4 (K=10) on {CORPUS} raises: {e}")
+        require("n_classes=10" in str(e), f"unexpected message: {e}")
+    else:
+        require(False, "a key past n_classes did not raise")
+
+    argv = lambda model, seed, *extra: ["-i", model, "--train_file", CORPUS, "--n_samples",
+                                        str(EVAL_SAMPLES), "--batch_size", str(EVAL_B),
+                                        "--seed", str(seed), *extra]
+    _reset_dense_counts()
+    out3, counts3, nll3, _, wall3 = _evaluate_counted(argv(C3_MODEL, SEED))
+    dense3 = _dense_counts()
+    out5, counts5, nll5, _, wall5 = _evaluate_counted(argv(KC_MODEL, SEED, "--lstm_backend",
+                                                           "pallas"))
+    n_test = out5["n_test_examples"]
+    print(f"launches: c3 (cl_vae, plain dense layers as in JAX) dense-stack "
+          f"{dense3} (f32 fwd, bwd, bf16 fwd, bwd), LSTM {nonzero(counts3)}; c5m "
+          f"{nonzero(counts5)} (expected FWD {2 * -(-n_test // EVAL_B)}, every other 0)")
+    require(counts5 == lstm_expected(FWD=2 * -(-n_test // EVAL_B)), f"c5m launches {counts5}")
+    for name, model, extra, first, nll, wall in (
+            ("c3", C3_MODEL, (), out3, nll3, wall3),
+            ("c5m", KC_MODEL, ("--lstm_backend", "pallas"), out5, nll5, wall5)):
+        nlls = [nll] + [_evaluate_counted(argv(model, s, *extra))[2]
+                        for s in range(SEED + 1, SEED + NLL_SEEDS)]
+        mean, ref = float(np.mean(nlls)), JAX_NLL[name]
+        print(f"evaluate {name} on {CORPUS} ({first['n_test_examples']} test examples, "
+              f"{EVAL_SAMPLES} samples; one run {wall:.3f} s): seed {SEED} NLL {nlls[0]!r} "
+              f"nats/frame (printed {first['test_nll_nats_per_frame']}; the JAX package's seed "
+              f"{SEED} on the CPU {JAX_NLL_SEED0[name]}, |difference| "
+              f"{abs(nlls[0] - JAX_NLL_SEED0[name]):.4f}); seeds {SEED}-{SEED + NLL_SEEDS - 1} "
+              f"{[round(v, 5) for v in nlls]}, mean {mean:.5f}, spread "
+              f"{max(nlls) - min(nlls):.4f}; the JAX package's mean of those seeds {ref}: "
+              f"|difference| {abs(mean - ref):.4f} (limit {NLL_LIMIT})")
+        require(all(map(math.isfinite, nlls)) and abs(mean - ref) <= NLL_LIMIT,
+                f"{name} NLL mean {mean} vs {ref}")
+
+    # the H=88 inference forward at the evaluation shape (both cells' shape: the encoder's)
+    raw, cfg5, _ = common.load_model(KC_MODEL, "cl_vrnn")
+    rng = np.random.default_rng(SEED + 32)
+    ins = _lstm_inputs(rng, dev, raw["encoder_h"], EVAL_SAMPLES * EVAL_B, TRAIN_T,
+                       cfg5.original_dim, cfg5.intermediate_dim)
+    got, ref = ls.lstm_seq_fwd(*ins), ls.lstm_seq_fwd_plain(*ins)
+    torch.cuda.synchronize()
+    errs = {n: (k - p).abs().max().item() for n, k, p in zip(("h", "c"), got, ref)}
+    require(not fwd_outside(errs, {"h": ref[0], "c": ref[1]}), f"H=88 forward differs: {errs}")
+    T, Bv, IN = ins[0].shape
+    H = cfg5.intermediate_dim
+    k_ms = time_ms(lambda: ls.lstm_seq_fwd(*ins), reps=10, warm=2)
+    p_ms = time_ms(lambda: ls.lstm_seq_fwd_plain(*ins), reps=3, warm=1)
+    b_ms, b_by = roofline_ms(T * Bv * (IN + H) * 4 * H, _nbytes(ins) + _nbytes(got))
+    print(f"lstm_seq inference forward at c5m's evaluation shape (B={Bv} T={T} IN={IN} H={H}; "
+          f"{fwd_layout(ls, Bv, IN, H)}): max |kernel - plain| h {errs['h']:.3e}, c "
+          f"{errs['c']:.3e}; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms "
+          f"({b_by})")
+    return launches, counts5["FWD"]
+
+
+STREAM_STEPS = 40  # batches of the streamed-vs-synchronous comparison
+
+
+def phase_train_flags(model_dir):
+    """``cli.cl_vrnn_train`` at the jsball_vrnn4 width through the two-cell
+    kernels with ``--data_init --check_numerics --do_log --trace_dir
+    --streaming``, 2 epochs: the numerics line and a NaN leaf named, the
+    card's data-based init against the CPU plain init on its noise, a
+    streamed epoch's step losses bitwise those of the same batches copied
+    synchronously, the JSONL and events of every epoch, the trace naming
+    the two-cell kernels. Returns the two-cell forward and backward
+    launches."""
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.data.loader import batch_iterator
+    from classifying_vae_lstm_tpu_torch.ops import two_cell as tc
+    from classifying_vae_lstm_tpu_torch.optim import data_init
+    from classifying_vae_lstm_tpu_torch.train import debug, loop
+    from classifying_vae_lstm_tpu_torch.utils.tb_events import read_scalar_events
+
+    log_dir, trace_dir = os.path.join(model_dir, "logs"), os.path.join(model_dir, "trace")
+    inits, real_core = [], data_init.data_based_init_cl_vrnn_noise
+    stream_s, real_stream = [], loop.Trainer.train_epoch_streaming
+
+    def core(*a):
+        inits.append((a, real_core(*a)))
+        return inits[-1][1]
+
+    def streamed(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = real_stream(self, *a, **k)
+        torch.cuda.synchronize()
+        stream_s.append(time.perf_counter() - t0)
+        return m
+
+    def reset():
+        tc.FWD_LAUNCHES = tc.BWD_LAUNCHES = 0
+
+    flags = ["--num_epochs", "2", "--data_init", "--check_numerics", "--do_log", "--log_dir",
+             log_dir, "--trace_dir", trace_dir, "--streaming"]
+    tee, plain_on_cuda = _Tee(sys.stdout), []
+    data_init.data_based_init_cl_vrnn_noise = core
+    loop.Trainer.train_epoch_streaming = streamed
+    try:
+        with contextlib.redirect_stdout(tee), \
+                plain_guard(tc, ("two_cell_fwd_plain", "two_cell_bwd_plain"), plain_on_cuda):
+            args, (fwd, bwd), seen, _, wall = run_train(
+                "flags", flags, model_dir, reset, lambda: (tc.FWD_LAUNCHES, tc.BWD_LAUNCHES))
+    finally:
+        data_init.data_based_init_cl_vrnn_noise = real_core
+        loop.Trainer.train_epoch_streaming = real_stream
+    E, n_train, n_val = _report_train("training flags", args, seen, stream_s, wall)
+    print(f"training flags: two-cell launches forward {fwd} (expected {E * (n_train + n_val) + 1}"
+          f", the check's first batch among them), backward {bwd} (expected "
+          f"{2 * E * n_train + 2})")
+    require(fwd == E * (n_train + n_val) + 1 and bwd == 2 * E * n_train + 2,
+            f"two-cell launches {fwd}, {bwd}")
+    require(not plain_on_cuda, f"plain two-cell versions ran on CUDA tensors: {plain_on_cuda}")
+    require(len(stream_s) == E, f"{len(stream_s)} streamed epochs of {E}")
+
+    # 1. --check_numerics: its line, and a NaN leaf named
+    require("check_numerics: first batch loss/grads finite" in "".join(tee.text),
+            "the check_numerics line was not printed")
+    trainer, train = seen["trainer"], seen["train"]
+    bad = loop.copy_params(seen["best_params"])
+    bad["decoder_h"]["recurrent_kernel"][3, 7] = float("nan")
+    first = {k: v[: args.batch_size] for k, v in train.items()}
+    try:
+        debug.check_first_batch(trainer.loss_fn, bad, first, torch.Generator(device=first[
+            "x"].device).manual_seed(0), 1.0, args.class_weight, 1.0)
+    except FloatingPointError as e:
+        print(f"check_first_batch with one NaN: {e}")
+        require("decoder_h/recurrent_kernel (1/" in str(e), f"leaf not named: {e}")
+    else:
+        require(False, "a NaN parameter did not raise")
+
+    # 2. --data_init: the card's init against the CPU plain init on the same noise
+    require(len(inits) == 1, f"{len(inits)} data-based inits")
+    (p0, cfg, batch, eps_w, eps_z), got = inits[0]
+    cpu = lambda t: {k: cpu(v) for k, v in t.items()} if isinstance(t, dict) else t.cpu()
+    want = real_core(cpu(p0), cfg, cpu(batch), eps_w.cpu(), eps_z.cpu())
+    rel = 0.0
+    for name, layer in want.items():
+        for leaf, v in layer.items():
+            g = got[name][leaf].cpu()
+            torch.testing.assert_close(g, v, rtol=1e-5, atol=1e-6, msg=f"{name}/{leaf}")
+            rel = max(rel, ((g - v).abs() / v.abs().clamp_min(1e-6)).max().item())
+    print(f"data-based init on the card ({batch['x'].shape[0]} rows, noise from a generator "
+          f"seeded {args.seed + 1}) vs the CPU plain init on that noise: every leaf within rtol "
+          f"1e-5 / atol 1e-6 (max relative {rel:.2e})")
+
+    # 3. --streaming: the prefetch stream's batches vs synchronous copies, bitwise
+    dev = first["x"].device
+    host = {k: v.cpu().numpy()[: STREAM_STEPS * args.batch_size] for k, v in train.items()}
+    cw = float(np.float32(args.class_weight))
+
+    def step_losses(prefetch):
+        p = loop.copy_params(seen["best_params"], requires_grad=True)
+        opt, g = trainer.init_optimizer(p), torch.Generator(device=dev).manual_seed(SEED)
+        losses, real_step = [], trainer.train_step
+
+        def step(*a):
+            m = real_step(*a)
+            losses.append(m["loss"])
+            return m
+
+        trainer.train_step = step
+        try:
+            if prefetch:
+                trainer.train_epoch_streaming(p, opt, host, g, 1.0, cw, 1.0,
+                                              np.random.default_rng(SEED))
+            else:
+                for b in batch_iterator(host, args.batch_size, np.random.default_rng(SEED)):
+                    step(p, opt, {k: torch.from_numpy(v).to(dev) for k, v in b.items()}, g,
+                         1.0, cw, 1.0)
+        finally:
+            del trainer.train_step
+        return torch.stack(losses).cpu()
+
+    ls_p, ls_s = step_losses(True), step_losses(False)
+    print(f"streamed vs synchronous copies, {len(ls_p)} steps: losses bitwise equal "
+          f"{torch.equal(ls_p, ls_s)} (first {ls_p[0].item()!r}, last {ls_p[-1].item()!r})")
+    require(len(ls_p) == STREAM_STEPS and torch.equal(ls_p, ls_s),
+            "streamed step losses differ from synchronous copies")
+    # warm epochs in turns, streamed / resident / resident / streamed (the CLI's first
+    # epoch carries the run's warm-up, its second the profiler)
+    p = loop.copy_params(seen["best_params"], requires_grad=True)
+    opt, g = trainer.init_optimizer(p), torch.Generator(device=dev).manual_seed(SEED)
+    host_all = {k: v.cpu().numpy() for k, v in train.items()}
+    turns = {"streamed": [], "resident": []}
+    for kind in ("streamed", "resident", "resident", "streamed"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "streamed":
+            trainer.train_epoch_streaming(p, opt, host_all, g, 1.0, cw, 1.0,
+                                          np.random.default_rng(SEED))
+        else:
+            trainer.train_epoch(p, opt, train, g, 1.0, cw, 1.0)
+        torch.cuda.synchronize()
+        turns[kind].append(round(time.perf_counter() - t0, 3))
+    print(f"epoch wall time (host clock, synchronised; a record, no claim), {n_train} steps "
+          f"each: the CLI's streamed epochs {[round(s, 3) for s in stream_s]} s (the first "
+          f"with the warm-up, the second under the profiler); warm epochs in turns "
+          f"streamed {turns['streamed']} s, resident {turns['resident']} s")
+
+    # 4. --do_log: a JSONL line and an event an epoch, the same scalars
+    with open(os.path.join(log_dir, "flags.jsonl")) as f:
+        lines = [json.loads(x) for x in f]
+    (events,) = [os.path.join(log_dir, "flags", n) for n in os.listdir(os.path.join(log_dir,
+                                                                                    "flags"))]
+    back = read_scalar_events(events)
+    require([d["epoch"] for d in lines] == list(range(E)), f"JSONL epochs {lines}")
+    require(back == [(d["epoch"], {k: float(np.float32(v)) for k, v in d.items() if k != "epoch"})
+                     for d in lines], "the event file's scalars differ from the JSONL")
+    print(f"--do_log: {len(lines)} JSONL lines, {len(back)} events read back equal "
+          f"({len(back[0][1])} scalars each)")
+
+    # 5. --trace_dir: one trace, naming the two-cell kernels' launches
+    traces = [n for n in os.listdir(trace_dir) if n.endswith(".pt.trace.json")]
+    require(len(traces) == 1, f"traces {traces}")
+    with open(os.path.join(trace_dir, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = collections.Counter(e["name"] for e in events if e.get("cat") == "kernel")
+    two_cell = {n: c for n, c in kernels.items() if "two_cell" in n}
+    launch_api = sum(1 for e in events if e.get("cat") == "cuda_runtime"
+                     and "Launch" in e.get("name", ""))
+    print(f"--trace_dir: {traces[0]}, {len(events)} events, {sum(kernels.values())} kernel "
+          f"events ({launch_api} launch calls); two-cell kernels {two_cell}")
+    require(any("two_cell_step" in n for n in two_cell)
+            and any("two_cell_walk" in n for n in two_cell),
+            f"the trace names no two-cell forward and backward kernels: {sorted(kernels)[:20]}")
+    return fwd, bwd
+
+
 NEEDS = {7: (6,), 9: (6,), 10: (9,), 13: (12,), 16: (15,), 22: (10, 21), 25: (24,), 28: (9,)}
 
 
@@ -4185,9 +4540,9 @@ def selected_phases(spec):
     """The phases to run: every one for ``None``, else the comma-separated
     numbers in ``spec``, phase 1 (the build) and what they read from."""
     if spec is None:
-        return set(range(1, 32))
+        return set(range(1, 34))
     run = {1} | {int(n) for n in spec.split(",") if n.strip()}
-    require(run <= set(range(1, 32)), f"phases are 1 .. 31, got {spec}")
+    require(run <= set(range(1, 34)), f"phases are 1 .. 33, got {spec}")
     while True:
         more = {d for n in run for d in NEEDS.get(n, ())} - run
         if not more:
@@ -4348,7 +4703,14 @@ def main(argv=None) -> int:
     if want(31):
         phase_lstm_bf16_sweep(dev)
         took(31)
-    if len(run) < 31:
+    if want(32):
+        kc_launches, kc_eval_launches = phase_key_consistency(dev)
+        took(32)
+    if want(33):
+        with tempfile.TemporaryDirectory() as model_dir:
+            flags_fwd, flags_bwd = phase_train_flags(model_dir)
+            took(33)
+    if len(run) < 33:
         print(f"chip_smoke: phases {', '.join(map(str, sorted(run)))} passed in "
               f"{time.perf_counter() - t_start:.1f} s")
         return 0
@@ -4364,19 +4726,19 @@ def main(argv=None) -> int:
         "name": "generate_cl_vrnn", "route": "cuda",
         "source": "classifying_vae_lstm_tpu_torch/csrc/generate_cl_vrnn.cu",
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_generate.py:153",
-        "launches": launches, **f32, "library_ms": None,
+        "launches": launches + kc_launches, **f32, "library_ms": None,
     }, {
         "name": "two_cell_fwd", "route": "cuda", "source": source,
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_two_cell.py:129",
-        "launches": fwd_launches, **fwd, "library_ms": None,
+        "launches": fwd_launches + flags_fwd, **fwd, "library_ms": None,
     }, {
         "name": "two_cell_bwd", "route": "cuda", "source": two_cell_bwd_source,
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_two_cell.py:295",
-        "launches": bwd_launches, **bwd, "library_ms": None,
+        "launches": bwd_launches + flags_bwd, **bwd, "library_ms": None,
     }, {
         "name": "lstm_seq_fwd", "route": "cuda", "source": lstm_source,
-        "replaces": f"{pallas_lstm}:632", "launches": eval_launches, **lstm["fwd"],
-        "library_ms": None,
+        "replaces": f"{pallas_lstm}:632", "launches": eval_launches + kc_eval_launches,
+        **lstm["fwd"], "library_ms": None,
     }, {
         "name": "lstm_seq_train_fwd", "route": "cuda", "source": lstm_source,
         "replaces": f"{pallas_lstm}:730", "launches": train_fwd_launches, **lstm["train_fwd"],
@@ -4486,7 +4848,7 @@ def main(argv=None) -> int:
     alive = [t.name for t in threading.enumerate()
              if t is not threading.main_thread() and not t.daemon]
     require(not alive, f"threads still running: {alive}")
-    print(f"chip_smoke: all 31 phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: all 33 phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

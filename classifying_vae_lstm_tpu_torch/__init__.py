@@ -17,7 +17,11 @@ serving at every width and without hidden layers (the two kernels of
 evaluation (the model's ``apply`` and losses, the ``cl_vae_train`` CLI,
 whose ``pallas`` backend runs the dense-stack CUDA kernels of
 ``csrc/vae_dense.cu``, in f32 or, with ``--bf16_compute``, in their bf16
-mode, and ``evaluate --family cl_vae``).
+mode, and ``evaluate --family cl_vae``), key consistency
+(``cli.key_consistency``), the train CLIs' data-based init, numerics check,
+logs, profiler trace and host-streamed batches (with the C++ host runtime
+of ``runtime/``), and a directory of MIDI files as the corpus. Data
+parallelism is not ported yet.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 ``cuda`` requested and no card present they raise (:func:`resolve_device`).

@@ -13,7 +13,7 @@ wherever they accept the config, and falls to ``xla`` where they do not (a
 backend is printed and recorded in args.json. The checkpoint triple
 ``<model_dir>/<run>.{json,yaml,npz}`` loads in both packages, and so do
 ``--save_last``'s ``<run>.last.npz`` and ``<run>.last.opt.npz``, which
-``--resume`` reads. Flags whose modules are not ported yet raise.
+``--resume`` reads. ``--dp`` (data parallelism) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from ..data import PianoData
 from ..models import cl_vae
 from ..ops.vae_dense import should_use
 from ..optim import init_optimizer
+from ..optim.data_init import data_based_init_cl_vae
 from ..train import Trainer, fit, save_model_in_pieces
 from . import common
 
@@ -79,9 +80,19 @@ def train(args):
     params = cl_vae.init(generator, cfg)
     ckpt_path = save_model_in_pieces(params, args)
     data = common.build_cl_vae_datasets(P, args.n_classes, args.use_x_prev, device)
+    if args.data_init:
+        # the weight-norm data-dependent init of every dense layer on the first
+        # 100 training rows (the reference's call site, cl_vae/train.py:65),
+        # its draws seeded seed + 1, as in the JAX CLI
+        first = {k: v[:100] for k, v in data["train"].items()}
+        params = data_based_init_cl_vae(
+            params, cfg, first, torch.Generator(device=device).manual_seed(args.seed + 1))
     params, resume_kwargs = common.maybe_resume(args, ckpt_path, params)
+    loss_fn = functools.partial(_loss, cfg)
+    if args.check_numerics:
+        common.check_first_batch(loss_fn, params, data["train"], args)
 
-    trainer = Trainer(functools.partial(_loss, cfg), optimizer, batch_size=args.batch_size)
+    trainer = Trainer(loss_fn, optimizer, batch_size=args.batch_size)
     _, best_params, _, best_loss = fit(
         trainer,
         params,
@@ -95,7 +106,11 @@ def train(args):
         patience=args.patience,
         min_epoch=min_epoch,
         checkpoint_path=ckpt_path,
+        log_fn=common.make_log_fn(args) if args.do_log else None,
         save_last=args.save_last or args.resume,
+        trace_dir=args.trace_dir,
+        streaming=args.streaming,
+        stream_seed=args.seed,
         **resume_kwargs,
     )
     print({k: round(v, 4) for k, v in best_loss.items()})
@@ -121,7 +136,8 @@ def build_parser():
     parser.add_argument("--w_log_var_prior", type=float, default=0.0, help="w log var prior")
     parser.add_argument("--intermediate_class_dim", type=int, default=88,
                         help="intermediate dims for classes")
-    parser.add_argument("--do_log", action="store_true", help="save log files (not ported)")
+    parser.add_argument("--do_log", action="store_true",
+                        help="save log files: <log_dir>/<run>.jsonl and TensorBoard events")
     parser.add_argument("--predict_next", action="store_true",
                         help="use x_t to 'autoencode' x_{t+1}")
     parser.add_argument("--use_x_prev", action="store_true",
@@ -142,14 +158,18 @@ def build_parser():
                         help="resume from <run>.last.npz with optimizer state (extension)")
     parser.add_argument("--save_last", action="store_true",
                         help="write <run>.last.npz (+opt state) every epoch for resume (extension)")
-    parser.add_argument("--trace_dir", type=str, default=None, help="not ported: raises")
-    parser.add_argument("--check_numerics", action="store_true", help="not ported: raises")
-    parser.add_argument("--streaming", action="store_true", help="not ported: raises")
+    parser.add_argument("--trace_dir", type=str, default=None,
+                        help="write a torch.profiler trace of one epoch (the second) here")
+    parser.add_argument("--check_numerics", action="store_true",
+                        help="fail fast on NaN/Inf in the first batch's loss/grads")
+    parser.add_argument("--streaming", action="store_true",
+                        help="stream training batches from the host with device prefetch")
     parser.add_argument("--bf16_compute", action="store_true",
                         help="bf16 matmul operands (f32 accumulation): on xla the hidden "
                              "layers and the frame head; on pallas every layer, through the "
                              "dense-stack kernels' bf16 mode")
-    parser.add_argument("--data_init", action="store_true", help="not ported: raises")
+    parser.add_argument("--data_init", action="store_true",
+                        help="weight-norm data-dependent init (the reference's was a no-op)")
     parser.add_argument("--vanilla", action="store_true",
                         help="vanilla VAE: drop the key latent (trains on xla)")
     parser.add_argument("--dp", type=int, default=0, help="not ported: nonzero raises")

@@ -14,8 +14,8 @@ resolves to it) trains through plain PyTorch.
 The checkpoint triple ``<model_dir>/<run>.{json,yaml,npz}`` loads in both
 packages, and so do ``--save_last``'s ``<run>.last.npz`` and its optimizer
 state ``<run>.last.opt.npz``, which ``--resume`` reads: a run started by
-either package goes on in the other. Flags whose modules are not ported yet
-raise.
+either package goes on in the other. ``--dp`` (data parallelism) is not
+ported yet and raises.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from ..models import cl_vrnn
 from ..ops.lstm import resolve_fusion
 from ..ops.two_cell import should_use
 from ..optim import init_optimizer
+from ..optim.data_init import data_based_init_cl_vrnn
 from ..train import Trainer, fit, save_model_in_pieces
 from . import common
 
@@ -90,9 +91,18 @@ def train(args):
     ckpt_path = save_model_in_pieces(params, args)
     data = common.build_cl_vrnn_datasets(P, args.n_classes, args.use_x_prev, device)
     print((P.x_train.shape, P.y_train.shape))
+    if args.data_init:
+        # the weight-norm data-dependent init on the first 100 training rows,
+        # its draws seeded seed + 1, as in the JAX CLI
+        first = {k: v[:100] for k, v in data["train"].items()}
+        params = data_based_init_cl_vrnn(
+            params, cfg, first, torch.Generator(device=device).manual_seed(args.seed + 1))
     params, resume_kwargs = common.maybe_resume(args, ckpt_path, params)
+    loss_fn = functools.partial(_loss, cfg)
+    if args.check_numerics:
+        common.check_first_batch(loss_fn, params, data["train"], args)
 
-    trainer = Trainer(functools.partial(_loss, cfg), optimizer, batch_size=args.batch_size)
+    trainer = Trainer(loss_fn, optimizer, batch_size=args.batch_size)
     _, best_params, history, _ = fit(
         trainer,
         params,
@@ -106,7 +116,11 @@ def train(args):
         patience=args.patience,
         min_epoch=min_epoch_cb,
         checkpoint_path=ckpt_path,
+        log_fn=common.make_log_fn(args) if args.do_log else None,
         save_last=args.save_last or args.resume,
+        trace_dir=args.trace_dir,
+        streaming=args.streaming,
+        stream_seed=args.seed,
         **resume_kwargs,
     )
     val_losses = history.get("val_loss", [])
@@ -136,7 +150,8 @@ def build_parser():
                         help="relative weight on classifying key")
     parser.add_argument("--predict_next", action="store_true",
                         help="use x_t to 'autoencode' x_{t+1}")
-    parser.add_argument("--do_log", action="store_true", help="save log files (not ported)")
+    parser.add_argument("--do_log", action="store_true",
+                        help="save log files: <log_dir>/<run>.jsonl and TensorBoard events")
     parser.add_argument("--w_log_var_prior", type=float, default=0.0,
                         help="log variance prior on w")
     parser.add_argument("--kl_anneal", type=int, default=0,
@@ -157,14 +172,18 @@ def build_parser():
                         help="resume from <run>.last.npz with optimizer state (extension)")
     parser.add_argument("--save_last", action="store_true",
                         help="write <run>.last.npz (+opt state) every epoch for resume (extension)")
-    parser.add_argument("--trace_dir", type=str, default=None, help="not ported: raises")
-    parser.add_argument("--check_numerics", action="store_true", help="not ported: raises")
+    parser.add_argument("--trace_dir", type=str, default=None,
+                        help="write a torch.profiler trace of one epoch (the second) here")
+    parser.add_argument("--check_numerics", action="store_true",
+                        help="fail fast on NaN/Inf in the first batch's loss/grads")
     parser.add_argument("--lstm_backend", type=str, default="xla",
                         choices=["xla", "pallas", "auto"],
                         help="xla: plain PyTorch; pallas: the CUDA kernels (plain "
                              "versions on the CPU); auto: xla")
-    parser.add_argument("--streaming", action="store_true", help="not ported: raises")
-    parser.add_argument("--data_init", action="store_true", help="not ported: raises")
+    parser.add_argument("--streaming", action="store_true",
+                        help="stream training batches from the host with device prefetch")
+    parser.add_argument("--data_init", action="store_true",
+                        help="weight-norm data-dependent init (the reference's was a no-op)")
     parser.add_argument("--dp", type=int, default=0, help="not ported: nonzero raises")
     parser.add_argument("--two_cell", type=str, default="auto", choices=["auto", "on", "off"],
                         help="pallas backend: 'auto' takes the two-cell kernels wherever "

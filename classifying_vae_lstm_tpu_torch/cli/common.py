@@ -8,6 +8,7 @@ holds the weights.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 
 import numpy as np
@@ -26,13 +27,6 @@ DEFAULT_TRAIN_FILE = "data/input/Piano-midi_all.pickle"
 # flags of the JAX train CLIs whose modules the port does not have yet
 UNPORTED_FLAGS = {
     "dp": "--dp (data parallelism) is not ported yet: ROADMAP Queue 1 item 14",
-    "streaming": "--streaming (host-streamed batches, data/loader.py) is not ported yet: "
-                 "ROADMAP Queue 1 item 7",
-    "data_init": "--data_init (optim/data_init.py) is not ported yet: ROADMAP Queue 1 item 6",
-    "check_numerics": "--check_numerics (train/debug.py) is not ported yet: "
-                      "ROADMAP Queue 1 item 7",
-    "do_log": "--do_log (utils/tb_events.py) is not ported yet: ROADMAP Queue 1 item 12",
-    "trace_dir": "--trace_dir (profiler traces) is not ported yet: ROADMAP Queue 1 item 7",
 }
 
 
@@ -216,6 +210,37 @@ def maybe_resume(args, ckpt_path: str, params):
         kwargs = {"opt_state": opt_state, "initial_epoch": epoch}
         print(f"resuming from {last} at epoch {epoch}")
     return params, kwargs
+
+
+def make_log_fn(args):
+    """The ``--do_log`` sink, as the JAX package's: each epoch's logs as a
+    line of ``<log_dir>/<run_name>.jsonl`` and as scalars of a TensorBoard
+    event file under ``<log_dir>/<run_name>/`` (:mod:`..utils.tb_events`)."""
+    from ..utils.tb_events import ScalarEventWriter
+
+    os.makedirs(args.log_dir, exist_ok=True)
+    f = open(os.path.join(args.log_dir, args.run_name + ".jsonl"), "a")
+    tb = ScalarEventWriter(os.path.join(args.log_dir, args.run_name))
+
+    def log_fn(epoch, logs):
+        f.write(json.dumps({"epoch": epoch, **logs}) + "\n")
+        f.flush()
+        tb.add_scalars(epoch, {k: v for k, v in logs.items() if isinstance(v, (int, float))})
+
+    return log_fn
+
+
+def check_first_batch(loss_fn, params, train: dict, args):
+    """``--check_numerics``: one loss and gradient evaluation on the first
+    ``batch_size`` training rows (generator seeded 0, the full KL and w-KL
+    weights, as the JAX CLIs), raising on any non-finite value."""
+    from ..train.debug import check_first_batch as check
+
+    first = {k: v[: args.batch_size] for k, v in train.items()}
+    device = next(iter(train.values())).device
+    check(loss_fn, params, first, torch.Generator(device=device).manual_seed(0), 1.0,
+          float(np.float32(args.class_weight)), 1.0)
+    print("check_numerics: first batch loss/grads finite")
 
 
 def load_model(model_file: str, family: str, no_x_prev: bool = False):

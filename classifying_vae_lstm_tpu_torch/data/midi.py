@@ -7,7 +7,10 @@ diffing, pitch offset +21, tick step 120, resolution 480, velocity 100),
 :func:`write_sample` (``<fnm>.mid``, frames doubled for JSB corpora), the
 round-trip parser :func:`read_midi_roll`, and the general SMF input path
 (:func:`parse_smf`, :func:`quantize_notes`, :func:`roll_from_smf_bytes`,
-:func:`midi_to_roll`) that seeds generation from a user's MIDI file.
+:func:`midi_to_roll`) that seeds generation from a user's MIDI file, and the
+key labelling of a parsed file (:func:`key_from_midi`: its key-signature
+meta, else the Krumhansl-Schmuckler estimate :func:`estimate_key`) that a
+corpus built from a MIDI directory uses (:mod:`.corpus`).
 """
 
 from __future__ import annotations
@@ -293,3 +296,48 @@ def midi_to_roll(path: str, frames_per_beat: int = 2, offset: int = 21,
     MIDI-input path: seeding generation from a user's MIDI)."""
     with open(path, "rb") as f:
         return roll_from_smf_bytes(f.read(), frames_per_beat, offset, note_range)
+
+
+# --- key labeling (MIDI input side) -----------------------------------------
+
+# key-signature meta (sf, mi) -> reference key names (lowercase = minor,
+# '-' = flat; the vocabulary of utils/pianoroll.py:7-25)
+MAJOR_BY_SF = {0: "C", 1: "G", 2: "D", 3: "A", 4: "E", 5: "B", 6: "F#", 7: "C#",
+               -1: "F", -2: "B-", -3: "E-", -4: "A-", -5: "D-", -6: "G-", -7: "C-"}
+MINOR_BY_SF = {0: "a", 1: "e", 2: "b", 3: "f#", 4: "c#", 5: "g#", 6: "d#", 7: "a#",
+               -1: "d", -2: "g", -3: "c", -4: "f", -5: "b-", -6: "e-", -7: "a-"}
+
+# Krumhansl-Kessler major/minor pitch-class profiles
+_KS_MAJOR = np.array([6.35, 2.23, 3.48, 2.33, 4.38, 4.09, 2.52, 5.19, 2.39, 3.66, 2.29, 2.88])
+_KS_MINOR = np.array([6.33, 2.68, 3.52, 5.38, 2.60, 3.53, 2.54, 4.75, 3.98, 2.69, 3.34, 3.17])
+_MAJOR_NAMES = ["C", "D-", "D", "E-", "E", "F", "F#", "G", "A-", "A", "B-", "B"]
+_MINOR_NAMES = ["c", "c#", "d", "e-", "e", "f", "f#", "g", "g#", "a", "b-", "b"]
+
+
+def estimate_key(notes) -> str:
+    """Krumhansl-Schmuckler: correlate the duration-weighted pitch-class
+    histogram against all 24 rotated profiles."""
+    hist = np.zeros(12)
+    for start, endt, pitch in notes:
+        hist[pitch % 12] += endt - start
+    if hist.sum() == 0:
+        return "C"
+    best, best_r = "C", -2.0
+    for rot in range(12):
+        h = np.roll(hist, -rot)
+        for prof, names in ((_KS_MAJOR, _MAJOR_NAMES), (_KS_MINOR, _MINOR_NAMES)):
+            r = np.corrcoef(h, prof)[0, 1]
+            if r > best_r:
+                best_r, best = r, names[rot]
+    return best
+
+
+def key_from_midi(key_sig, notes) -> str:
+    """Key label for a parsed file: the key-signature meta when present,
+    else the Krumhansl-Schmuckler estimate."""
+    if key_sig is not None:
+        sf, mi = key_sig
+        table = MINOR_BY_SF if mi else MAJOR_BY_SF
+        if sf in table:
+            return table[sf]
+    return estimate_key(notes)

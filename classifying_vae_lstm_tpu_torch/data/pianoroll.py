@@ -9,8 +9,8 @@ window arrays, keeping the reference pipeline's two quirks:
   drops the final valid window of each song;
 * minor keys map through the relative-major table.
 
-The C++ windowing runtime and the MIDI-directory corpus wait for a later
-slice: a directory ``train_file`` raises ``NotImplementedError``.
+A directory ``train_file`` of ``.mid`` files becomes a corpus in memory
+(:func:`.corpus.corpus_from_midi_dir`), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -113,11 +113,13 @@ class PianoData:
         use_rel_major=True,
     ):
         if os.path.isdir(train_file):
-            raise NotImplementedError(
-                "a directory of MIDI files as train_file needs data/corpus.py, "
-                "not ported yet (ROADMAP Queue 1 item 2)")
-        with open(train_file, "rb") as f:
-            D = pickle.load(f, encoding="latin1")
+            # a directory of raw .mid files: the pickles' schema built in memory
+            from .corpus import corpus_from_midi_dir
+
+            D = corpus_from_midi_dir(train_file)
+        else:
+            with open(train_file, "rb") as f:
+                D = pickle.load(f, encoding="latin1")
         self.train_file = train_file
         self.batch_size = batch_size  # truncates so nsamples % batch_size == 0
         self.seq_length = seq_length

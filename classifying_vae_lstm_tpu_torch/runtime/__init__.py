@@ -1,0 +1,3 @@
+from .native import build, gather_rows, sliding_window_native, song_to_roll_native
+
+__all__ = ["build", "gather_rows", "sliding_window_native", "song_to_roll_native"]

@@ -11,6 +11,11 @@ mean of Logistic-Normal points over seq_length-sized chunks of its time
 axis. cl_vae: the seed is one frame, w is inferred once from it (the
 deterministic mean-logit point unless ``w_sample``), and the decoder's
 history input lags one step.
+
+The per-song samplers (:func:`generate_cl_vrnn`, :func:`generate_cl_vae`)
+are the JAX package's per-song scans: plain PyTorch on whatever device
+their inputs are on (no kernel: the JAX scans never reach Pallas), each a
+``torch.Generator`` wrapper over a noise-explicit core.
 """
 
 from __future__ import annotations
@@ -166,3 +171,58 @@ def generate_cl_vae_batch(params, cfg: cl_vae.Config, x_seeds, nsteps: int,
                                    device=x_seeds.device)
     return generate_cl_vae_batch_cuda(params, cfg, x_seeds, nsteps, eps, u, w_vals,
                                       use_z_prior=use_z_prior, return_probs=return_probs)
+
+
+def generate_cl_vrnn_noise(params, cfg: cl_vrnn.Config, x_seed, nsteps: int, eps, u, w,
+                           return_probs: bool = False):
+    """One song with explicit noise: teacher-force ``x_seed [Tseed, D]``,
+    then free-run ``nsteps`` frames; ``eps [Tseed + nsteps, L]`` Gaussian
+    draws for z, ``u [Tseed + nsteps, D]`` uniforms for the frames, ``w
+    [K]`` a simplex point (one-hot true key, or :func:`infer_w_cl_vrnn`).
+    Returns ``[nsteps, D]``, the post-seed frames (probabilities with
+    ``return_probs``)."""
+    return generate_cl_vrnn_batch_noise(params, cfg, x_seed[None], nsteps, eps[None], u[None],
+                                        w[None], return_probs)[0]
+
+
+def generate_cl_vrnn(params, cfg: cl_vrnn.Config, x_seed, nsteps: int,
+                     generator: torch.Generator, w, return_probs: bool = False):
+    """:func:`generate_cl_vrnn_noise` with its draws from ``generator`` (on
+    the seed's device)."""
+    total, D = x_seed.shape[0] + nsteps, x_seed.shape[-1]
+    eps = torch.randn((total, cfg.latent_dim), generator=generator, device=x_seed.device)
+    u = torch.rand((total, D), generator=generator, device=x_seed.device)
+    return generate_cl_vrnn_noise(params, cfg, x_seed, nsteps, eps, u, w, return_probs)
+
+
+def generate_cl_vae_noise(params, cfg: cl_vae.Config, x_seed, nsteps: int, eps, u,
+                          w_val=None, eps_w=None, use_z_prior: bool = False,
+                          w_sample: bool = False, return_probs: bool = False):
+    """One song from one seed frame ``x_seed [D]`` with explicit noise:
+    ``eps [nsteps, L]`` Gaussian draws for z (the prior sample itself under
+    ``use_z_prior``), ``u [nsteps, D]`` uniforms for the frames. ``w_val
+    [K]`` conditions the song; ``None`` infers w from the seed frame, the
+    mean-logit point, or with ``w_sample`` the Logistic-Normal point of the
+    logit noise ``eps_w [K-1]``. Returns ``[nsteps, D]``."""
+    if w_val is None:
+        w_mean, w_log_var = cl_vae.encode_w(params, x_seed[None])
+        w = logistic_normal_from_eps(w_mean, w_log_var, eps_w[None] if w_sample else None,
+                                     add_noise=w_sample)
+    else:
+        w = w_val[None]
+    return generate_cl_vae_batch_noise(params, cfg, x_seed[None], nsteps, eps[None], u[None], w,
+                                       use_z_prior=use_z_prior, return_probs=return_probs)[0]
+
+
+def generate_cl_vae(params, cfg: cl_vae.Config, x_seed, nsteps: int,
+                    generator: torch.Generator, w_val=None, use_z_prior: bool = False,
+                    w_sample: bool = False, return_probs: bool = False):
+    """:func:`generate_cl_vae_noise` with its draws from ``generator`` (on
+    the seed's device)."""
+    dev, D = x_seed.device, x_seed.shape[-1]
+    eps_w = (torch.randn((cfg.n_classes - 1,), generator=generator, device=dev)
+             if w_val is None and w_sample else None)
+    eps = torch.randn((nsteps, cfg.latent_dim), generator=generator, device=dev)
+    u = torch.rand((nsteps, D), generator=generator, device=dev)
+    return generate_cl_vae_noise(params, cfg, x_seed, nsteps, eps, u, w_val, eps_w,
+                                 use_z_prior, w_sample, return_probs)

@@ -12,13 +12,15 @@ after it, validation in order without shuffling.
 :func:`fit` reproduces the reference driver: annealing, save-best
 checkpointing and early stopping inert until ``min_epoch``, the Keras-style
 history dict and best-epoch selection, and the JAX package's mid-training
-resume (``opt_state``, ``initial_epoch``, ``save_last``). The JAX package's
-whole-run program (``train_epochs``), host streaming, data parallelism and
-profiler tracing are not ported yet.
+resume (``opt_state``, ``initial_epoch``, ``save_last``), the per-epoch
+``log_fn``, host streaming (``streaming``: :meth:`Trainer.train_epoch_streaming`)
+and a profiler trace of one epoch (``trace_dir``). The JAX package's
+whole-run program (``train_epochs``) and data parallelism are not ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable
 
@@ -87,6 +89,23 @@ class Trainer:
                                            w_kl_w))
         return _mean(metrics)
 
+    def train_epoch_streaming(self, params, opt, host_data: dict, generator, kl_w, class_w,
+                              w_kl_w, rng: np.random.Generator, prefetch: int = 2) -> dict:
+        """One epoch over host-side ``host_data`` (dict of [N, ...] NumPy
+        arrays), for corpora that do not fit on the card: ``rng`` shuffles
+        and slices the batches on the host (:mod:`..data.loader`), which
+        stream to ``generator``'s device ``prefetch`` batches ahead; one
+        :meth:`train_step` a batch, its noise from ``generator``. The
+        semantics of :meth:`train_epoch`; only the data's residence and the
+        shuffle's generator differ."""
+        from ..data.loader import batch_iterator, device_prefetch
+
+        batches = device_prefetch(batch_iterator(host_data, self.batch_size, rng), prefetch,
+                                  generator.device)
+        metrics = [self.train_step(params, opt, batch, generator, kl_w, class_w, w_kl_w)
+                   for batch in batches]
+        return _mean(metrics)
+
     @torch.no_grad()
     def eval_epoch(self, params, data: dict, generator, kl_w, class_w, w_kl_w) -> dict:
         n = next(iter(data.values())).shape[0]
@@ -96,6 +115,17 @@ class Trainer:
             batch = {k: v[i * B:(i + 1) * B] for k, v in data.items()}
             metrics.append(self.loss_fn(params, batch, generator, kl_w, class_w, w_kl_w)[1])
         return _mean(metrics)
+
+
+def _profiled(trace_dir: str, device: torch.device):
+    """A ``torch.profiler.profile`` context that writes its Chrome trace
+    into ``trace_dir`` when it closes."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities, on_trace_ready=tensorboard_trace_handler(trace_dir))
 
 
 def fit(
@@ -116,6 +146,9 @@ def fit(
     opt_state: list | None = None,
     initial_epoch: int = 0,
     save_last: bool = False,
+    trace_dir: str | None = None,
+    streaming: bool = False,
+    stream_seed: int = 0,
 ):
     """Run the full training schedule; returns (params, best_params,
     history, best_loss).
@@ -134,6 +167,15 @@ def fit(
     replayed by a ``torch.Generator``, and a run resumed in either package
     draws other permutations and noise than the uninterrupted run would
     have (the CLIs seed a new generator from ``--seed``).
+
+    ``log_fn(epoch, logs)`` is called once an epoch (``--do_log``).
+    ``trace_dir`` profiles one epoch, the run's second (``initial_epoch +
+    1``; the first carries the warm-up), with CPU activity and, on the
+    card, CUDA activity, and writes its Chrome trace into ``trace_dir``
+    (``tensorboard_trace_handler``: TensorBoard's profile view opens it).
+    ``streaming`` trains through :meth:`Trainer.train_epoch_streaming`:
+    ``train_data`` moves to host NumPy arrays and one NumPy generator seeded
+    ``stream_seed`` shuffles every epoch, as in the JAX package.
     """
     params = copy_params(params, requires_grad=True)
     opt = trainer.init_optimizer(params)
@@ -146,16 +188,27 @@ def fit(
     ckpt = CheckpointPolicy(min_epoch=min_epoch)
     history: dict[str, list] = {}
     best_params = params
+    stream_rng = np.random.default_rng(stream_seed) if streaming else None
+    if streaming:
+        train_data = {k: v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+                      for k, v in train_data.items()}
 
     for epoch in range(initial_epoch, num_epochs):
         t0 = time.perf_counter()
         kl_w = float(np.float32(kl_sched(epoch)))
         w_kl_w = float(np.float32(w_kl_sched(epoch)))
         class_w = float(np.float32(class_weight))
-        m = trainer.train_epoch(params, opt, train_data, generator, kl_w, class_w, w_kl_w)
-        vm = trainer.eval_epoch(params, val_data, generator, kl_w, class_w, w_kl_w)
-        logs = {k: float(v) for k, v in m.items()}
-        logs.update({f"val_{k}": float(v) for k, v in vm.items()})
+        trace = trace_dir is not None and epoch == initial_epoch + 1
+        with _profiled(trace_dir, generator.device) if trace else contextlib.nullcontext():
+            if streaming:
+                m = trainer.train_epoch_streaming(params, opt, train_data, generator, kl_w,
+                                                  class_w, w_kl_w, stream_rng)
+            else:
+                m = trainer.train_epoch(params, opt, train_data, generator, kl_w, class_w,
+                                        w_kl_w)
+            vm = trainer.eval_epoch(params, val_data, generator, kl_w, class_w, w_kl_w)
+            logs = {k: float(v) for k, v in m.items()}  # reads the device: the epoch's end
+            logs.update({f"val_{k}": float(v) for k, v in vm.items()})
         for k, v in logs.items():
             history.setdefault(k, []).append(v)
         if verbose:

@@ -191,7 +191,7 @@ def test_vanilla_trains_on_xla(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flag", sorted(tcommon.UNPORTED_FLAGS))
 def test_unported_flags_raise(flag):
-    extra = {"dp": ["--dp", "2"], "trace_dir": ["--trace_dir", "t"]}.get(flag, [f"--{flag}"])
+    extra = {"dp": ["--dp", "2"]}.get(flag, [f"--{flag}"])
     args = tcli.build_parser().parse_args(["r", "--device", "cpu", *extra])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcli.train(args)

@@ -1741,3 +1741,52 @@ def test_generate_kernel_buckets_and_widths(dev, case):
         assert d.max().item() <= 2e-2 and d.mean().item() <= 2e-3, (d.max(), d.mean())
     else:
         assert d.max().item() <= 1e-5, d.max()
+
+
+def test_device_prefetch_equals_synchronous_copies(dev):
+    """The streamed batches (pinned memory, non-blocking copies on a side
+    stream, the consumer waiting on an event a batch) equal synchronous
+    ``.to(dev)`` copies, while the consuming stream works on each batch
+    before the next is taken."""
+    from classifying_vae_lstm_tpu_torch.data.loader import batch_iterator, device_prefetch
+
+    rng = np.random.default_rng(0)
+    data = {"x": rng.random((2000, 16, 88)).astype(np.float32),
+            "w": np.eye(13, dtype=np.float32)[rng.integers(0, 13, 2000)]}
+    got = []
+    for b in device_prefetch(batch_iterator(data, 200, np.random.default_rng(1)), 2, dev):
+        assert all(t.is_cuda for t in b.values())
+        got.append({k: (v @ v.transpose(-1, -2) if v.ndim == 3 else v).sum().item()
+                    for k, v in b.items()})
+    want = [{k: (v @ v.transpose(-1, -2) if v.ndim == 3 else v).sum().item()
+             for k, v in ((k, torch.from_numpy(a).to(dev)) for k, a in b.items())}
+            for b in batch_iterator(data, 200, np.random.default_rng(1))]
+    assert len(got) == len(want) == 10 and got == want
+
+
+def test_key_consistency_kernel_matches_plain(dev):
+    """``cli.key_consistency`` on the card: one generation launch a key
+    with test songs; its kernel against the plain version on c5m's weights
+    and one key's seeds (probabilities with u = 1 within 1e-5)."""
+    from classifying_vae_lstm_tpu_torch.cli import common
+    from classifying_vae_lstm_tpu_torch.cli import key_consistency as kc
+    from classifying_vae_lstm_tpu_torch.data import PianoData
+
+    args = kc.build_parser().parse_args(["-i", "artifacts/pm_configs/c5m.npz", "-n", "4", "-t",
+                                         "32"])
+    before = cg.LAUNCHES
+    rep = kc.run(args)
+    torch.cuda.synchronize()
+    P = PianoData(args.train_file, batch_size=1, seq_length=args.seed_len, squeeze_x=False)
+    assert cg.LAUNCHES - before == len(np.unique(P.test_song_keys)) == 13
+    assert rep["n_songs"] == 52 and rep["margin"] > 0
+    raw, cfg, margs = common.load_model(args.model_file, "cl_vrnn")
+    params = params_from_numpy(raw, dev)
+    seeds = torch.from_numpy(P.x_test[np.where(P.test_song_keys == 3)[0][:4]]).to(dev)
+    ws = torch.eye(margs["n_classes"], device=dev)[[3] * 4]
+    g = torch.Generator(device=dev).manual_seed(3)
+    eps = torch.randn((4, 64, cfg.latent_dim), generator=g, device=dev)
+    u1 = torch.ones((4, 64, cfg.original_dim), device=dev)
+    run = lambda f: f(params, cfg, seeds, 32, eps, u1, ws, return_probs=True)
+    d = (run(cg.generate_cl_vrnn_batch_cuda) - run(cg.generate_cl_vrnn_batch_plain)).abs()
+    assert d.max().item() <= 1e-5, d.max()

@@ -45,19 +45,16 @@ def test_cuda_requested_without_a_card_raises():
 
 def test_unported_paths_raise_naming_the_roadmap():
     from classifying_vae_lstm_tpu_torch.cli import cl_vae_sample, cl_vrnn_sample, serve
-    from classifying_vae_lstm_tpu_torch.data import PianoData
 
     for model in ("artifacts/jsball_vrnn4.npz", "artifacts/jsball_vae.npz"):
         args = serve.build_parser().parse_args(["-i", model, "--device", "cpu", "--dp", "2"])
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             serve.build_engine(args)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PianoData("data/input")
     assert serve.build_parser().parse_args(["-i", "m.npz"]).device == "cuda"
     for cli in (cl_vae_sample, cl_vrnn_sample):
         assert cli.build_parser().parse_args(["r"]).device == "cuda"
 
-    # training: the train flags whose modules are not ported raise; every
+    # training: the train flags whose modules are not ported (--dp) raise; every
     # fusion rung of the whole-sequence LSTM kernels runs (the proj-only rung
     # that JAX auto pins at H >= 1,579 gives, without a gradient, the default
     # rung's output: every proj rung shares its forward)
@@ -82,7 +79,7 @@ def test_unported_paths_raise_naming_the_roadmap():
                             torch.Generator().manual_seed(1))
         assert torch.isfinite(out["X_decoded_mean"]).all()
     for flag in common.UNPORTED_FLAGS:
-        extra = {"dp": ["--dp", "2"], "trace_dir": ["--trace_dir", "t"]}.get(flag, [f"--{flag}"])
+        extra = {"dp": ["--dp", "2"]}.get(flag, [f"--{flag}"])
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cl_vrnn_train.train(cl_vrnn_train.build_parser().parse_args(["r", *extra]))
     assert cl_vrnn_train.build_parser().parse_args(["r"]).device == "cuda"
