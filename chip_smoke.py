@@ -332,7 +332,38 @@ failure:
    of the same batches and noise copied synchronously; a JSONL line and an
    event an epoch, the events' scalars the JSONL's in f32; one Chrome
    trace, naming the two-cell forward and backward kernels; the wall time
-   of warm streamed and resident epochs in turns (a record).
+   of warm streamed and resident epochs in turns (a record);
+34. sampling at every width: the f32 / bf16 cl_vrnn generation kernel
+   past 20 hidden units a block (H = 2,688 and 4,096 at D=88, L=2, 13
+   keys: blocks of two unit groups, ``gen_grid``) and the bf16 cl_vae
+   wide kernel past the cooperative kernel's latent width (D=1,024,
+   H=5,120, L=106), seeded weights, 8 songs x 32 steps (cl_vrnn after a
+   32-frame seed), each driven through its sampling entry point
+   (``generate_cl_vrnn_batch`` / ``generate_cl_vae_batch``, the counts set
+   to 0 just before: one launch a call) and held against its plain version
+   on the same noise with u = 1: f32 within 1e-5, bf16 with no output
+   ``bf16_outside`` and max 2e-2 / mean 2e-3; each timed beside its bound;
+35. data-parallel training through NCCL at world size 1:
+   ``cli.cl_vrnn_train --lstm_backend pallas --dp 1`` and
+   ``cli.cl_vae_train --train_backend pallas --dp 1`` (the CLI spawns the
+   rank) against the same runs without ``--dp``: epoch losses within rtol
+   1e-5 and final parameters within rtol 1e-4 / atol 1e-6, and the rank's
+   two-cell and dense-stack launch counts (set to 0 in the rank just
+   before its run) those of the run without ``--dp``. NCCL refuses two
+   ranks on one card, so more ranks are held on the CPU (gloo,
+   ``tests/test_torch_parallel.py``);
+36. one process over a two-shard mesh of the one card (``make_mesh(2,
+   devices=[card, card])``): ``generate_cl_vrnn_batch_dp`` (jsball_vrnn4,
+   64 songs x (32 + 64)) and ``generate_cl_vae_batch_dp`` (jsball_vae, 64
+   x 64, keys inferred) bitwise equal to the single-device kernel calls on
+   each shard's songs and noise (two launches a call), and their frames
+   beside the whole batch's single-device call; ``iw_nll_dataset_dp`` of
+   jsball_vrnn4 on ``Piano-midi_Cs`` through ``--lstm_backend pallas``
+   (``cli.evaluate --dp 2``: two inference launches a shard and batch)
+   within 1e-4 of the single-device NLL; then ``cli.serve --dp 2`` on that
+   mesh answering requests through ``generate_cl_vrnn_batch_dp`` (both
+   CLIs' ``dp_mesh`` given the two-shard mesh: ``--dp`` past the card
+   count raises).
 
 The run prints each phase's wall time, and fails if a thread it started is
 still running at the end.
@@ -636,17 +667,19 @@ def generation_line(label, params, cfg, seeds, nsteps, eps, u, ws, mode, reps=3)
     peak = PEAK_BF16_FLOPS if mode == "bf16" else PEAK_F32_FLOPS
     b_ms, b_by = bound_ms(cfg, B, Tseed, nsteps, wbytes, peak)
     n_sm = torch.cuda.get_device_properties(seeds.device).multi_processor_count
-    nu, blocks = cg.int8_grid(H, n_sm)
-    res = cg.resident_bytes(D, H, L, nu, B, cfg.use_x_prev, mode)
+    nu, nv, blocks = cg.gen_grid(H, n_sm)
+    res = cg.resident_bytes(D, H, L, nu, B, cfg.use_x_prev, mode, nv)
     split = cg.phase_ms(params, cfg, seeds, nsteps, eps, u, ws, mode)
     print(f"{label} generation: a call's parts (block 0's clock, ms; a wait is the slowest "
           "block's lag and the grid barrier) "
           + "; ".join(f"{n} {v:.3f}" for n, v in split.items()))
     print(f"{label} generation, {B} x ({Tseed} + {nsteps}), H={H}: kernel {k_ms:.3f} ms a call "
           f"(CUDA events), device {dv[0] if dv else 'not measured'} ms in generate_kernel "
-          f"(profiler); bound {b_ms:.4f} ms ({b_by}, {mode} rate); {blocks} blocks of {nu} units, "
+          f"(profiler); bound {b_ms:.4f} ms ({b_by}, {mode} rate); {blocks} blocks of {nv} "
+          f"group(s) of {nu} units, "
           f"weights {'resident, ' + str(res) + ' B a block' if res else 'streamed from L2'}, "
-          f"{cg.gen_smem(nu, B, L, res)} B of shared memory a block")
+          f"{cg.gen_smem(nu, min(B, cg.launch_songs(nu, nv, L)), L, res, nv)} B of shared "
+          "memory a block")
     return k_ms, (dv[0] if dv else None), b_ms, b_by
 
 
@@ -1036,7 +1069,7 @@ def run_train(run, flags, model_dir, reset, read, cli=None, base_flags=TRAIN_FLA
     def fit(trainer, params, train_data, val_data, **kw):
         seen.update(trainer=trainer, train=train_data, val=val_data, fit_kw=kw)
         out = real_fit(trainer, params, train_data, val_data, **kw)
-        seen.update(best_params=out[1], history=out[2])
+        seen.update(final_params=out[0], best_params=out[1], history=out[2])
         return out
 
     def train_epoch(self, *a, **k):
@@ -4533,16 +4566,369 @@ def phase_train_flags(model_dir):
     return fwd, bwd
 
 
+WIDE_VRNN = ((2688, "f32"), (2688, "bf16"), (4096, "f32"), (4096, "bf16"))  # past 20 units a block
+WIDE_VAE = (1024, 5120, 106)  # D, H, L: past the cooperative kernel's latent width
+
+
+def _vrnn_raw_on(dev, seed, D, H, L, K):
+    """Seeded glorot-scale cl_vrnn weights drawn on the card (torch), zero
+    biases but the frame head's (-1: sparse frames)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def glorot(i, o):
+        lim = math.sqrt(6.0 / (i + o))
+        return (torch.rand((i, o), generator=g, device=dev) * 2 - 1) * lim
+
+    z = lambda n, v=0.0: torch.full((n,), v, device=dev)
+    return {
+        "encoder_h": {"kernel": glorot(D + K, 4 * H), "recurrent_kernel": glorot(H, 4 * H),
+                      "bias": z(4 * H)},
+        "decoder_h": {"kernel": glorot(D + L + K, 4 * H), "recurrent_kernel": glorot(H, 4 * H),
+                      "bias": z(4 * H)},
+        "Z_mean": {"kernel": glorot(H, L), "bias": z(L)},
+        "Z_log_var": {"kernel": glorot(H, L), "bias": z(L)},
+        "X_decoded_mean": {"kernel": glorot(H, D), "bias": z(D, -1.0)},
+    }
+
+
+def _probs_against_plain(label, mode, pk, pp):
+    """Kernel probabilities (u = 1) against the plain version's: f32 within
+    1e-5; bf16 with no output ``bf16_outside`` and max 2e-2 / mean 2e-3.
+    Returns the max abs error."""
+    import torch
+
+    require(torch.isfinite(pk).all().item() and pk.shape == pp.shape,
+            f"{label}: probabilities not finite or misshapen")
+    d = (pk - pp).abs()
+    mx, mean = d.max().item(), d.mean().item()
+    if mode == "f32":
+        print(f"{label} probs, u=1: max |kernel - plain| = {mx:.3e} (limit 1e-5)")
+        require(mx <= 1e-5, f"{label}: f32 probabilities differ by {mx}")
+    else:
+        errs, bad = bf16_outside((pk,), (pp,))
+        print(f"{label} probs, u=1: max {mx:.3e} (limit 2e-2), mean {mean:.3e} (limit 2e-3); "
+              f"{_fmt_errs(errs)}")
+        require(not bad and mx <= 2e-2 and mean <= 2e-3, f"{label}: bf16 probabilities differ: "
+                                                          f"{bad}, max {mx}, mean {mean}")
+    return mx
+
+
+def phase_wide_sampling(dev):
+    """Phase 34: the widths where the port raised before the generation
+    kernels took every config the JAX package samples. Returns the kernel
+    table's rows of the cl_vrnn unit-group layout (times at bf16 H=4,096)
+    and of the bf16 wide cl_vae kernel."""
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.models import cl_vae, cl_vrnn
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate as cg
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae as cgv
+    from classifying_vae_lstm_tpu_torch.sampling import (draw_generation_noise,
+                                                          generate_cl_vae_batch,
+                                                          generate_cl_vrnn_batch)
+    from classifying_vae_lstm_tpu_torch.weights import params_from_numpy
+
+    B, nsteps, K = 8, 32, TRAIN_K
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    seeds = torch.from_numpy(seed_windows(B)).to(dev)
+    Tseed = seeds.shape[1]
+    ws = torch.eye(K, device=dev)[torch.arange(B, device=dev) % K]
+    errs, launches, rows = [], 0, {}
+    for i, (H, mode) in enumerate(WIDE_VRNN):
+        cfg = cl_vrnn.Config(original_dim=88, intermediate_dim=H, latent_dim=2, seq_length=16,
+                             n_classes=K, use_x_prev=True, bf16_compute=mode == "bf16")
+        nu, nv, G = cg.gen_grid(H, n_sm)
+        require(cg.pick_mode(cfg) == mode and cg.fits(cfg) and nv > 1,
+                f"cl_vrnn H={H} {mode}: mode {cg.pick_mode(cfg)}, fits {cg.fits(cfg)}, nv {nv}")
+        params = _vrnn_raw_on(dev, SEED + 40 + i, 88, H, 2, K)
+        cg.LAUNCHES = cg.INT8_LAUNCHES = 0  # the entry point's launches
+        frames = generate_cl_vrnn_batch(params, cfg, seeds, nsteps,
+                                        torch.Generator(device=dev).manual_seed(SEED), ws)
+        torch.cuda.synchronize()
+        launches += cg.LAUNCHES
+        require(cg.LAUNCHES == 1 and cg.INT8_LAUNCHES == 0,
+                f"cl_vrnn H={H} {mode}: {cg.LAUNCHES} launches")
+        require(frames.shape == (B, nsteps, 88) and set(torch.unique(frames).tolist()) <= {0, 1},
+                f"cl_vrnn H={H} {mode}: frames")
+        eps, _ = draw_generation_noise(torch.Generator(device=dev).manual_seed(SEED + 1), B,
+                                       Tseed + nsteps, 2, 88)
+        u1 = torch.ones((B, Tseed + nsteps, 88), device=dev)
+        run = lambda f: f(params, cfg, seeds, nsteps, eps, u1, ws, return_probs=True, mode=mode)
+        label = f"generate_kernel {mode} H={H} ({G} blocks of {nv} groups of {nu} units)"
+        errs.append(_probs_against_plain(label, mode, run(cg.generate_cl_vrnn_batch_cuda),
+                                         run(cg.generate_cl_vrnn_batch_plain)))
+        k_ms = time_ms(lambda: run(cg.generate_cl_vrnn_batch_cuda), reps=3)
+        p_ms = time_ms(lambda: run(cg.generate_cl_vrnn_batch_plain), reps=1)
+        w = cg._pack(params, cfg, ws, 88, mode)
+        wbytes = sum(w[k].numel() * w[k].element_size()
+                     for k in ("wke_x", "rke", "wz_t", "wkd_x", "wkd_z", "rkd", "wx_t"))
+        b_ms, b_by = bound_ms(cfg, B, Tseed, nsteps, wbytes,
+                              PEAK_BF16_FLOPS if mode == "bf16" else PEAK_F32_FLOPS)
+        print(f"{label}, {B} x ({Tseed} + {nsteps}): kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}, {mode} rate); "
+              f"{cg.launch_songs(nu, nv, 2)} songs a launch")
+        rows[(H, mode)] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
+    groups_row = {"launches": launches, "max_abs_err": max(errs), **rows[WIDE_VRNN[-1]]}
+
+    D, H, L = WIDE_VAE
+    cfg = cl_vae.Config(original_dim=D, intermediate_dim=H, latent_dim=L,
+                        intermediate_class_dim=88, n_classes=K, bf16_compute=True)
+    require(cgv.pick_mode(cfg) == "bf16" and cgv.kernel_for(cfg) == "generate_cl_vae_wide",
+            f"cl_vae D={D} H={H} L={L}: {cgv.pick_mode(cfg)}, {cgv.kernel_for(cfg)}")
+    rng = np.random.default_rng(SEED + 45)
+    params = params_from_numpy(glorot_vae_raw(rng, D, H, L, K, False), dev)
+    vseeds = torch.from_numpy((rng.random((B, D)) < 0.1).astype(np.float32)).to(dev)
+    cgv.LAUNCHES = cgv.WIDE_LAUNCHES = cgv.COOP_LAUNCHES = cgv.CLUSTER_LAUNCHES = 0
+    frames = generate_cl_vae_batch(params, cfg, vseeds, nsteps,
+                                   torch.Generator(device=dev).manual_seed(SEED), w_vals=ws)
+    torch.cuda.synchronize()
+    require(cgv.LAUNCHES == cgv.WIDE_LAUNCHES == 1 and frames.shape == (B, nsteps, D),
+            f"cl_vae wide bf16: {cgv.LAUNCHES} launches, {cgv.WIDE_LAUNCHES} wide")
+    vae_launches = cgv.WIDE_LAUNCHES
+    eps = torch.from_numpy(rng.standard_normal((B, nsteps, L), dtype=np.float32)).to(dev)
+    u1 = torch.ones((B, nsteps, D), device=dev)
+    run = lambda f: f(params, cfg, vseeds, nsteps, eps, u1, ws, return_probs=True)
+    label = f"generate_wide_kernel bf16 D={D} H={H} L={L}"
+    err = _probs_against_plain(label, "bf16", run(cgv.generate_cl_vae_batch_cuda),
+                               run(cgv.generate_cl_vae_batch_plain))
+    k_ms = time_ms(lambda: run(cgv.generate_cl_vae_batch_cuda), reps=3)
+    p_ms = time_ms(lambda: run(cgv.generate_cl_vae_batch_plain), reps=1)
+    w = cgv._pack(params, cfg, ws, "bf16")
+    wbytes = sum(v.numel() * v.element_size() for n, v in w.items()
+                 if v is not None and n not in ("encb", "decb", "zb", "xb"))
+    b_ms, b_by = vae_bound_ms(cfg, B, nsteps, wbytes, PEAK_BF16_FLOPS)
+    print(f"{label}, {B} x {nsteps}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}, bf16 rate); {wbytes / 1e6:.3f} MB of bf16 weights read "
+          "from L2 every step")
+    return groups_row, {"launches": vae_launches, "max_abs_err": err, "ms": k_ms,
+                        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def _dp_counted_rank(rank, args):
+    """A ``--dp`` rank of a train CLI (spawned by the CLI in place of its
+    ``_train_rank``): the kernels' launch counts set to 0 just before the
+    rank's run and read just after, beside its losses and final parameters."""
+    from classifying_vae_lstm_tpu_torch.cli import cl_vae_train, cl_vrnn_train, common
+    from classifying_vae_lstm_tpu_torch.ops import two_cell as tc
+
+    cli = cl_vae_train if hasattr(args, "intermediate_class_dim") else cl_vrnn_train
+    seen, real_fit = {}, cli.fit
+
+    def fit(*a, **k):
+        out = real_fit(*a, **k)
+        seen.update(final=common.tree_to_cpu(out[0]), history=out[2])
+        return out
+
+    cli.fit = fit
+    tc.FWD_LAUNCHES = tc.BWD_LAUNCHES = 0
+    _reset_dense_counts()
+    try:
+        best, best_loss = cli._train_rank(rank, args)
+    finally:
+        cli.fit = real_fit
+    return {"best_loss": best_loss, "counts": (tc.FWD_LAUNCHES, tc.BWD_LAUNCHES,
+                                               *_dense_counts()[:2]), **seen}
+
+
+def phase_dp_train(model_dir):
+    """Phase 35: both train CLIs through ``--dp 1`` (NCCL, world size 1)
+    against the same runs without it. Returns the two-cell forward and
+    backward and the dense-stack forward and backward launches of the DP
+    runs."""
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.cli import cl_vae_train, cl_vrnn_train, common
+    from classifying_vae_lstm_tpu_torch.ops import two_cell as tc
+
+    totals = []
+    for cli, flags, base in ((cl_vrnn_train, ["--num_epochs", "2"], TRAIN_FLAGS),
+                             (cl_vae_train, ["--num_epochs", "2", "--train_backend", "pallas"],
+                              VAE_TRAIN_FLAGS)):
+        name = cli.__name__.rsplit(".", 1)[1]
+        counts = lambda: (tc.FWD_LAUNCHES, tc.BWD_LAUNCHES, *_dense_counts()[:2])
+
+        def reset():
+            tc.FWD_LAUNCHES = tc.BWD_LAUNCHES = 0
+            _reset_dense_counts()
+
+        args, one_counts, seen, _, wall = run_train(f"{name}_one", flags, model_dir, reset,
+                                                    counts, cli=cli, base_flags=base)
+        dargs = cli.build_parser().parse_args([f"{name}_dp", *base, *flags, "--dp", "1",
+                                               "--model_dir", model_dir])
+        real_rank = cli._train_rank
+        cli._train_rank = _dp_counted_rank  # the CLI spawns it; its module is this script
+        t0 = time.perf_counter()
+        try:
+            out = cli.train(dargs)
+        finally:
+            cli._train_rank = real_rank
+        dp_wall = time.perf_counter() - t0
+        hist, dp_hist = seen["history"], out["history"]
+        print(f"{name} --dp 1 (NCCL, world size 1; {dp_wall:.2f} s with the rank's start, "
+              f"without --dp {wall:.2f} s): losses {[round(v, 6) for v in dp_hist['loss']]} "
+              f"against {[round(v, 6) for v in hist['loss']]}; launches (two-cell fwd, bwd, "
+              f"dense fwd, bwd) {out['counts']} against {one_counts}")
+        for k, v in hist.items():
+            require(np.allclose(dp_hist[k], v, rtol=1e-5, atol=0), f"{name}: {k} {dp_hist[k]} "
+                                                                  f"vs {v}")
+        final = common.tree_to_cpu(seen["final_params"])
+        worst, bitwise = 0.0, True
+        for layer in final:
+            for leaf in final[layer]:
+                a, b = out["final"][layer][leaf], final[layer][leaf]
+                bitwise &= torch.equal(a, b)
+                worst = max(worst, ((a - b).abs() - 1e-4 * b.abs()).max().item())
+        print(f"{name} --dp 1 final parameters: bitwise {'equal' if bitwise else 'unequal'}, "
+              f"max(|dp - one| - 1e-4 |one|) {worst:.3e} (limit 1e-6)")
+        require(worst <= 1e-6, f"{name}: final parameters differ ({worst})")
+        require(out["counts"] == one_counts and sum(one_counts) > 0,
+                f"{name}: --dp 1 launches {out['counts']}, without --dp {one_counts}")
+        totals.append(out["counts"])
+    (fwd, bwd, _, _), (_, _, dfwd, dbwd) = totals
+    return fwd, bwd, dfwd, dbwd
+
+
+def phase_dp_sharded(dev):
+    """Phase 36: the one-process DP paths over a two-shard mesh of the one
+    card. Returns the cl_vrnn generation, cl_vae generation and LSTM
+    inference-forward launches of the DP calls (serving's included)."""
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.cli import common, evaluate, serve
+    from classifying_vae_lstm_tpu_torch.evaluation import nll
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate as cg
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate_vae as cgv
+    from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
+    from classifying_vae_lstm_tpu_torch.parallel import make_mesh, replicate
+    from classifying_vae_lstm_tpu_torch.sampling import (draw_generation_noise,
+                                                          generate_cl_vae_batch,
+                                                          generate_cl_vae_batch_dp,
+                                                          generate_cl_vrnn_batch,
+                                                          generate_cl_vrnn_batch_dp,
+                                                          infer_w_cl_vae, infer_w_cl_vrnn)
+    from classifying_vae_lstm_tpu_torch.weights import params_from_numpy
+
+    mesh = make_mesh(2, devices=[dev, dev])
+    gen = lambda: torch.Generator(device=dev).manual_seed(SEED + 50)
+
+    def against_shards(label, kmod, dp_call, one_call, shard_call, draw):
+        kmod.LAUNCHES = 0
+        out = dp_call()
+        torch.cuda.synchronize()
+        launches = kmod.LAUNCHES
+        require(launches == 2, f"{label}: {launches} launches for two shards")
+        eps, u = draw()
+        b = out.shape[0] // 2
+        for r in range(2):
+            rows = slice(r * b, (r + 1) * b)
+            require(torch.equal(out[rows], shard_call(rows, eps, u)),
+                    f"{label}: shard {r} differs from the single-device call on its songs")
+        whole = one_call()
+        agree = (out == whole).float().mean().item()
+        print(f"{label} on a two-shard mesh of the card: 2 launches, each shard bitwise the "
+              f"single-device call on its songs; {agree:.6f} of the frames equal the whole "
+              f"batch's single-device call (another song count a launch: another sum order)")
+        require(agree >= 0.99, f"{label}: frames agree {agree}")
+        return launches
+
+    raw, cfg, _ = common.load_model(MODEL, "cl_vrnn")
+    params = params_from_numpy(raw, dev)
+    seeds = torch.from_numpy(seed_windows(64)).to(dev)
+    ws = infer_w_cl_vrnn(params, cfg, seeds)
+    T, n = seeds.shape[1], 64
+    draw = lambda: draw_generation_noise(gen(), 64, T + n, cfg.latent_dim, 88)
+    dp_gen = against_shards(
+        "generate_cl_vrnn_batch_dp (jsball_vrnn4, 64 x (32 + 64))", cg,
+        lambda: generate_cl_vrnn_batch_dp(params, cfg, seeds, n, gen(), ws, mesh),
+        lambda: generate_cl_vrnn_batch(params, cfg, seeds, n, gen(), ws),
+        lambda rows, eps, u: cg.generate_cl_vrnn_batch_cuda(
+            params, cfg, seeds[rows].contiguous(), n, eps[rows].contiguous(),
+            u[rows].contiguous(), ws[rows].contiguous()), draw)
+
+    vraw, vcfg, _ = common.load_model(VAE_MODEL, "cl_vae")
+    vparams = params_from_numpy(vraw, dev)
+    vseeds = torch.from_numpy(np.ascontiguousarray(seed_windows(64)[:, 0])).to(dev)
+    vws = infer_w_cl_vae(vparams, vseeds)
+    vdraw = lambda: draw_generation_noise(gen(), 64, 64, vcfg.latent_dim, 88)
+    dp_vae = against_shards(
+        "generate_cl_vae_batch_dp (jsball_vae, 64 x 64, keys inferred)", cgv,
+        lambda: generate_cl_vae_batch_dp(replicate(vparams, mesh), vcfg, vseeds, 64, gen(),
+                                         None, mesh),
+        lambda: generate_cl_vae_batch(vparams, vcfg, vseeds, 64, gen()),
+        lambda rows, eps, u: cgv.generate_cl_vae_batch_cuda(
+            vparams, vcfg, vseeds[rows].contiguous(), 64, eps[rows].contiguous(),
+            u[rows].contiguous(), vws[rows].contiguous()), vdraw)
+
+    # the CLIs with --dp 2, their mesh the two shards of the one card (a
+    # --dp past the card count raises)
+    real_mesh, dp_calls = common.dp_mesh, []
+    common.dp_mesh = lambda args: (dp_calls.append(args.dp), mesh)[1]
+    argv = ["-i", MODEL, "--train_file", EVAL_CORPUS, "--lstm_backend", "pallas", "--n_samples",
+            str(EVAL_SAMPLES), "--batch_size", str(EVAL_B)]
+    calls, real_one, real_dp = [], nll.iw_nll_dataset, nll.iw_nll_dataset_dp
+
+    def spy(fn):
+        def spied(*a, **k):
+            calls.append(fn(*a, **k))
+            return calls[-1]
+        return spied
+
+    evaluate.iw_nll_dataset, evaluate.iw_nll_dataset_dp = spy(real_one), spy(real_dp)
+    try:
+        one = evaluate.evaluate(evaluate.build_parser().parse_args(argv))
+        _reset_lstm_counts()
+        t0 = time.perf_counter()
+        two = evaluate.evaluate(evaluate.build_parser().parse_args([*argv, "--dp", "2"]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dp_eval = _lstm_counts()["FWD"]
+        plain_on_cuda = []
+        args = serve.build_parser().parse_args(["-i", MODEL, "--train_file", CORPUS, "--dp",
+                                                "2", "--warmup", "off", "--port", "0"])
+        with sampler_plain_guard(cg, "generate_cl_vrnn_batch_plain", plain_on_cuda):
+            cg.LAUNCHES = 0
+            httpd, engine = serve.make_server(args)
+            require(engine.mesh is mesh, "serve --dp 2 did not take the two-shard mesh")
+            stats = exercise_server(httpd)
+            served = cg.LAUNCHES
+    finally:
+        common.dp_mesh = real_mesh
+        evaluate.iw_nll_dataset, evaluate.iw_nll_dataset_dp = real_one, real_dp
+    nb = -(-EVAL_WINDOWS // EVAL_B)
+    diff = (calls[1].double() - calls[0].double()).abs()
+    print(f"evaluate --dp 2 (jsball_vrnn4 on {EVAL_CORPUS}, pallas, two shards of the card): "
+          f"{two['test_nll_nats_per_frame']} against one device's "
+          f"{one['test_nll_nats_per_frame']}; {dp_eval} inference-forward launches (expected "
+          f"{4 * nb}), {wall:.3f} s; per-window |difference| max {diff.max().item():.3e}, mean "
+          f"NLLs {abs(calls[1].double().mean() - calls[0].double().mean()).item():.3e} apart "
+          "(limit 1e-4)")
+    require(dp_calls == [2, 2], f"dp_mesh calls {dp_calls}")
+    require(dp_eval == 4 * nb, f"evaluation launches {dp_eval}")
+    require(abs(calls[1].double().mean() - calls[0].double().mean()).item() <= 1e-4,
+            f"DP evaluation differs: {one}, {two}")
+    print(f"serve --dp 2 (two shards of the card): {stats['requests']} requests, {served} "
+          "launches")
+    require(served > 0 and not plain_on_cuda, f"serve --dp 2: {served} launches, "
+                                               f"plain on CUDA {plain_on_cuda}")
+    return dp_gen + served, dp_vae, dp_eval
+
+
 NEEDS = {7: (6,), 9: (6,), 10: (9,), 13: (12,), 16: (15,), 22: (10, 21), 25: (24,), 28: (9,)}
+N_PHASES = 36
 
 
 def selected_phases(spec):
     """The phases to run: every one for ``None``, else the comma-separated
     numbers in ``spec``, phase 1 (the build) and what they read from."""
     if spec is None:
-        return set(range(1, 34))
+        return set(range(1, N_PHASES + 1))
     run = {1} | {int(n) for n in spec.split(",") if n.strip()}
-    require(run <= set(range(1, 34)), f"phases are 1 .. 33, got {spec}")
+    require(run <= set(range(1, N_PHASES + 1)), f"phases are 1 .. {N_PHASES}, got {spec}")
     while True:
         more = {d for n in run for d in NEEDS.get(n, ())} - run
         if not more:
@@ -4710,7 +5096,17 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as model_dir:
             flags_fwd, flags_bwd = phase_train_flags(model_dir)
             took(33)
-    if len(run) < 33:
+    if want(34):
+        groups_row, vae_wide16_row = phase_wide_sampling(dev)
+        took(34)
+    if want(35):
+        with tempfile.TemporaryDirectory() as model_dir:
+            dp_fwd, dp_bwd, dp_dense_fwd, dp_dense_bwd = phase_dp_train(model_dir)
+            took(35)
+    if want(36):
+        dp_gen, dp_vae, dp_eval = phase_dp_sharded(dev)
+        took(36)
+    if len(run) < N_PHASES:
         print(f"chip_smoke: phases {', '.join(map(str, sorted(run)))} passed in "
               f"{time.perf_counter() - t_start:.1f} s")
         return 0
@@ -4726,18 +5122,26 @@ def main(argv=None) -> int:
         "name": "generate_cl_vrnn", "route": "cuda",
         "source": "classifying_vae_lstm_tpu_torch/csrc/generate_cl_vrnn.cu",
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_generate.py:153",
-        "launches": launches + kc_launches, **f32, "library_ms": None,
+        "launches": launches + kc_launches + dp_gen, **f32, "library_ms": None,
+    }, {
+        # the same kernel past 20 units a block (phase 34: blocks of two unit
+        # groups; bf16 at H=4,096)
+        "name": "generate_cl_vrnn_unit_groups", "route": "cuda",
+        "source": "classifying_vae_lstm_tpu_torch/csrc/generate_cl_vrnn.cu",
+        "replaces": "classifying_vae_lstm_tpu/ops/pallas_generate.py:153", **groups_row,
+        "library_ms": None,
     }, {
         "name": "two_cell_fwd", "route": "cuda", "source": source,
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_two_cell.py:129",
-        "launches": fwd_launches + flags_fwd, **fwd, "library_ms": None,
+        "launches": fwd_launches + flags_fwd + dp_fwd, **fwd, "library_ms": None,
     }, {
         "name": "two_cell_bwd", "route": "cuda", "source": two_cell_bwd_source,
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_two_cell.py:295",
-        "launches": bwd_launches + flags_bwd, **bwd, "library_ms": None,
+        "launches": bwd_launches + flags_bwd + dp_bwd, **bwd, "library_ms": None,
     }, {
         "name": "lstm_seq_fwd", "route": "cuda", "source": lstm_source,
-        "replaces": f"{pallas_lstm}:632", "launches": eval_launches + kc_eval_launches,
+        "replaces": f"{pallas_lstm}:632",
+        "launches": eval_launches + kc_eval_launches + dp_eval,
         **lstm["fwd"], "library_ms": None,
     }, {
         "name": "lstm_seq_train_fwd", "route": "cuda", "source": lstm_source,
@@ -4751,15 +5155,15 @@ def main(argv=None) -> int:
         "name": "generate_cl_vae", "route": "cuda",
         "source": "classifying_vae_lstm_tpu_torch/csrc/generate_cl_vae.cu",
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_generate_vae.py:141",
-        "launches": vae_launches, **vae, "library_ms": None,
+        "launches": vae_launches + dp_vae, **vae, "library_ms": None,
     }, {
         "name": "vae_dense_fwd", "route": "cuda", "source": dense_source,
-        "replaces": "classifying_vae_lstm_tpu/ops/pallas_vae.py:133", "launches": dense_fwd,
-        **dense["fwd"], "library_ms": None,
+        "replaces": "classifying_vae_lstm_tpu/ops/pallas_vae.py:133",
+        "launches": dense_fwd + dp_dense_fwd, **dense["fwd"], "library_ms": None,
     }, {
         "name": "vae_dense_bwd", "route": "cuda", "source": dense_source,
-        "replaces": "classifying_vae_lstm_tpu/ops/pallas_vae.py:230", "launches": dense_bwd,
-        **dense["bwd"], "library_ms": None,
+        "replaces": "classifying_vae_lstm_tpu/ops/pallas_vae.py:230",
+        "launches": dense_bwd + dp_dense_bwd, **dense["bwd"], "library_ms": None,
     }, {
         # the same cluster kernel past one block (phase 19's bf16 H=512 model,
         # two blocks a cluster; times from phase 17 at its width)
@@ -4780,6 +5184,12 @@ def main(argv=None) -> int:
         "source": "classifying_vae_lstm_tpu_torch/csrc/generate_cl_vae.cu",
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_generate_vae.py:141",
         "launches": wide_launches, **wide_row, "library_ms": None,
+    }, {
+        # its bf16 mode, past the cooperative kernel's latent width (phase 34)
+        "name": "generate_cl_vae_wide_bf16", "route": "cuda",
+        "source": "classifying_vae_lstm_tpu_torch/csrc/generate_cl_vae.cu",
+        "replaces": "classifying_vae_lstm_tpu/ops/pallas_generate_vae.py:141", **vae_wide16_row,
+        "library_ms": None,
     }, {
         "name": "generate_cl_vae_coop", "route": "cuda",
         "source": "classifying_vae_lstm_tpu_torch/csrc/generate_cl_vae.cu",
@@ -4848,7 +5258,7 @@ def main(argv=None) -> int:
     alive = [t.name for t in threading.enumerate()
              if t is not threading.main_thread() and not t.daemon]
     require(not alive, f"threads still running: {alive}")
-    print(f"chip_smoke: all 33 phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: all {N_PHASES} phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -20,8 +20,9 @@ whose ``pallas`` backend runs the dense-stack CUDA kernels of
 mode, and ``evaluate --family cl_vae``), key consistency
 (``cli.key_consistency``), the train CLIs' data-based init, numerics check,
 logs, profiler trace and host-streamed batches (with the C++ host runtime
-of ``runtime/``), and a directory of MIDI files as the corpus. Data
-parallelism is not ported yet.
+of ``runtime/``), a directory of MIDI files as the corpus, and data
+parallelism (``parallel/``: ``--dp`` in the train, evaluate and serve
+CLIs). Tensor-parallel column sharding is not ported.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 ``cuda`` requested and no card present they raise (:func:`resolve_device`).

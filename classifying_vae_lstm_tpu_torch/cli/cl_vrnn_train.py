@@ -14,8 +14,11 @@ resolves to it) trains through plain PyTorch.
 The checkpoint triple ``<model_dir>/<run>.{json,yaml,npz}`` loads in both
 packages, and so do ``--save_last``'s ``<run>.last.npz`` and its optimizer
 state ``<run>.last.opt.npz``, which ``--resume`` reads: a run started by
-either package goes on in the other. ``--dp`` (data parallelism) is not
-ported yet and raises.
+either package goes on in the other. ``--dp N`` trains data-parallel on N
+devices: the CLI starts N ranks itself (``torch.multiprocessing.spawn``,
+NCCL on the first N cards, gloo with ``--device cpu``), each training its
+row shard of every batch through the same kernels and averaging the
+gradients; rank 0 alone prints and writes the files.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import os
 
 import numpy as np
 import torch
@@ -39,9 +43,26 @@ from . import common
 
 
 def train(args):
-    """Train from parsed flags; returns (best_params, best_loss)."""
-    common.check_ported(args)
+    """Train from parsed flags; returns (best_params, best_loss). With
+    ``--dp N`` the N ranks train (:func:`common.spawn_dp`) and rank 0's
+    result comes back, its parameters on the CPU."""
+    if args.dp:
+        return common.spawn_dp(_train_rank, args)
+    return _train(args)
+
+
+def _train_rank(rank, args):
+    best_params, best_loss = _train(args, rank)
+    return common.tree_to_cpu(best_params), best_loss
+
+
+def _train(args, rank=None):
+    """The run; ``rank`` is this process's rank of a ``--dp`` world (None
+    without one)."""
+    lead = rank in (None, 0)  # prints and writes the files
     device = resolve_device(args.device)
+    if rank is not None:
+        device = torch.device(device.type, rank) if device.type == "cuda" else device
     P = PianoData(
         args.train_file,
         batch_size=args.batch_size,
@@ -88,7 +109,12 @@ def train(args):
 
     generator = torch.Generator(device=device).manual_seed(args.seed)
     params = cl_vrnn.init(generator, cfg)
-    ckpt_path = save_model_in_pieces(params, args)
+    mesh, noise_fn = common.make_dp_mesh(args, cfg, cl_vrnn.draw_apply_noise)
+    if mesh is not None:
+        print(f"data-parallel training over {args.dp} devices ({mesh.data_devices[0].type}; "
+              "all_reduce of the gradients)")
+    ckpt_path = (save_model_in_pieces(params, args) if lead
+                 else os.path.join(args.model_dir, args.run_name + ".npz"))
     data = common.build_cl_vrnn_datasets(P, args.n_classes, args.use_x_prev, device)
     print((P.x_train.shape, P.y_train.shape))
     if args.data_init:
@@ -98,11 +124,14 @@ def train(args):
         params = data_based_init_cl_vrnn(
             params, cfg, first, torch.Generator(device=device).manual_seed(args.seed + 1))
     params, resume_kwargs = common.maybe_resume(args, ckpt_path, params)
+    if mesh is not None:
+        common.broadcast_params(params)
     loss_fn = functools.partial(_loss, cfg)
-    if args.check_numerics:
+    if args.check_numerics and lead:
         common.check_first_batch(loss_fn, params, data["train"], args)
 
-    trainer = Trainer(loss_fn, optimizer, batch_size=args.batch_size)
+    trainer = Trainer(loss_fn, optimizer, batch_size=args.batch_size, mesh=mesh,
+                      noise_fn=noise_fn)
     _, best_params, history, _ = fit(
         trainer,
         params,
@@ -115,10 +144,11 @@ def train(args):
         class_weight=args.class_weight,
         patience=args.patience,
         min_epoch=min_epoch_cb,
-        checkpoint_path=ckpt_path,
-        log_fn=common.make_log_fn(args) if args.do_log else None,
-        save_last=args.save_last or args.resume,
-        trace_dir=args.trace_dir,
+        checkpoint_path=ckpt_path if lead else None,
+        verbose=lead,
+        log_fn=common.make_log_fn(args) if args.do_log and lead else None,
+        save_last=(args.save_last or args.resume) and lead,
+        trace_dir=args.trace_dir if lead else None,
         streaming=args.streaming,
         stream_seed=args.seed,
         **resume_kwargs,
@@ -184,7 +214,9 @@ def build_parser():
                         help="stream training batches from the host with device prefetch")
     parser.add_argument("--data_init", action="store_true",
                         help="weight-norm data-dependent init (the reference's was a no-op)")
-    parser.add_argument("--dp", type=int, default=0, help="not ported: nonzero raises")
+    parser.add_argument("--dp", type=int, default=0,
+                        help="data-parallel over N devices (N ranks, one a card; gloo "
+                             "ranks with --device cpu); 0: one device")
     parser.add_argument("--two_cell", type=str, default="auto", choices=["auto", "on", "off"],
                         help="pallas backend: 'auto' takes the two-cell kernels wherever "
                              "they accept the config, 'off' the whole-sequence LSTM "

@@ -14,6 +14,7 @@ import os
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..data import PianoData
 from ..data.pianoroll import to_categorical
 from ..models import cl_vae, cl_vrnn
@@ -24,17 +25,131 @@ from ..weights import params_from_numpy
 DEFAULT_TRAIN_FILE = "data/input/Piano-midi_all.pickle"
 
 
-# flags of the JAX train CLIs whose modules the port does not have yet
-UNPORTED_FLAGS = {
-    "dp": "--dp (data parallelism) is not ported yet: ROADMAP Queue 1 item 14",
-}
+def dp_device_count(device: torch.device) -> int:
+    """The devices a ``--dp`` run may spread over: the cards, or on the CPU
+    its cores (a gloo rank a core)."""
+    return torch.cuda.device_count() if device.type == "cuda" else (os.cpu_count() or 1)
 
 
-def check_ported(args):
-    """Raise ``NotImplementedError`` for a set flag of :data:`UNPORTED_FLAGS`."""
-    for flag, msg in UNPORTED_FLAGS.items():
-        if getattr(args, flag):
-            raise NotImplementedError(msg)
+def _dp_devices(args) -> list:
+    """The devices of ``--dp N``: the first N cards, or the CPU N times with
+    ``--device cpu``; raises, as the JAX package does, where N passes the
+    devices there are."""
+    dp, device = args.dp, resolve_device(getattr(args, "device", "cuda"))
+    n_dev = dp_device_count(device)
+    if dp > n_dev:
+        raise ValueError(f"--dp {dp}: only {n_dev} devices available")
+    return [torch.device("cuda", i) for i in range(dp)] if device.type == "cuda" else [device] * dp
+
+
+def dp_mesh(args):
+    """The mesh of ``--dp N`` (:func:`_dp_devices` on its data axis). The
+    evaluate and serve CLIs split each batch over it in one process (from
+    N = 2, as in the JAX package; the train CLIs from N = 1)."""
+    from ..parallel import make_mesh
+
+    return make_mesh(n_data=args.dp, n_model=1, devices=_dp_devices(args))
+
+
+def check_dp(args):
+    """``--dp N``'s errors, the JAX package's: more ranks than devices,
+    ``N`` not dividing ``--batch_size``, and ``--dp`` with
+    ``--streaming``."""
+    dp = args.dp
+    _dp_devices(args)
+    if args.batch_size % dp != 0:
+        raise ValueError(f"--dp {dp} must divide --batch_size {args.batch_size}")
+    if getattr(args, "streaming", False):
+        raise ValueError("--dp does not combine with --streaming (host-side batches)")
+
+
+def make_dp_mesh(args, cfg, draw_apply_noise):
+    """``--dp N`` plumbing shared by both train CLIs, as the JAX package's.
+
+    Returns ``(mesh, noise_fn)`` for :class:`..train.Trainer`: a mesh of N
+    devices on its ``data`` axis (the first N cards, or the CPU N times)
+    and the model's global-batch noise hook, ``noise_fn(generator) =
+    draw_apply_noise(generator, cfg, batch_size)``, which keeps a DP epoch
+    the single-device one; ``(None, None)`` without ``--dp``. Raises as
+    :func:`check_dp`. ``args.dp`` rides into args.json with the rest of the
+    namespace."""
+    if not getattr(args, "dp", 0):
+        return None, None
+    check_dp(args)
+    noise_fn = lambda g: draw_apply_noise(g, cfg, args.batch_size)  # noqa: E731
+    return dp_mesh(args), noise_fn
+
+
+def _dp_rank(rank: int, rank_fn, args, store: str, result: str, threads: int):
+    """One rank of :func:`spawn_dp`: its device (card ``rank``, or the
+    CPU), its ``threads`` intra-op threads, the process group (NCCL on the
+    card, gloo on the CPU) through the file store, then ``rank_fn(rank,
+    args)``, whose value rank 0 saves to ``result``. Every rank but 0 prints
+    nothing."""
+    import sys
+
+    import torch.distributed as dist
+
+    if rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    device = resolve_device(args.device)
+    torch.set_num_threads(threads)
+    if device.type == "cuda":
+        torch.cuda.set_device(rank)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method="file://" + store, rank=rank, world_size=args.dp)
+    try:
+        out = rank_fn(rank, args)
+        if rank == 0:
+            torch.save(out, result)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_dp(rank_fn, args):
+    """``--dp N``: run ``rank_fn(rank, args)`` in N processes of one
+    ``torch.distributed`` world (``torch.multiprocessing.spawn``, a rank a
+    device), which meet through a ``FileStore`` in ``--model_dir`` (no
+    port, so parallel runs never race for one). The ranks split the
+    parent's intra-op threads, so N CPU ranks share the parent's cores.
+    Returns rank 0's value. A rank that raises ends the run with the
+    others, and the exception reaches the caller."""
+    import torch.multiprocessing as mp
+
+    check_dp(args)
+    os.makedirs(args.model_dir, exist_ok=True)
+    base = os.path.join(os.path.abspath(args.model_dir), f".{args.run_name}.dp{os.getpid()}")
+    store, result = base + ".store", base + ".result.pt"
+    for f in (store, result):
+        if os.path.exists(f):
+            os.remove(f)
+    try:
+        threads = max(1, torch.get_num_threads() // args.dp)
+        mp.spawn(_dp_rank, args=(rank_fn, args, store, result, threads),
+                 nprocs=args.dp, join=True)
+        return torch.load(result, weights_only=False)
+    finally:
+        for f in (store, result):
+            if os.path.exists(f):
+                os.remove(f)
+
+
+def tree_to_cpu(tree):
+    """A parameter tree's tensors moved to the CPU."""
+    if isinstance(tree, dict):
+        return {k: tree_to_cpu(v) for k, v in tree.items()}
+    return tree.detach().cpu()
+
+
+def broadcast_params(params):
+    """Rank 0's parameters on every rank (a DP run's replicas start equal)."""
+    import torch.distributed as dist
+
+    for leaf in sorted_leaves(params):
+        buf = leaf.data.contiguous()  # NCCL takes contiguous tensors only
+        dist.broadcast(buf, 0)
+        if buf.data_ptr() != leaf.data.data_ptr():
+            leaf.data.copy_(buf)
 
 
 def active_pitch_mask(P: PianoData) -> np.ndarray:

@@ -11,8 +11,12 @@ the CPU), ``xla`` through plain PyTorch, ``keep`` (the default) as the
 checkpoint trained. The cl_vae estimator runs the model's plain dense
 layers, as the JAX one does; a seq-concat checkpoint is pruned with the
 mask of its training-time batching, and a vanilla one (``n_classes == 1``)
-has its key labels collapsed to 0. ``--dp > 1`` is not ported yet and
-raises. Prints one JSON line, the JAX package's.
+has its key labels collapsed to 0. ``--dp N`` (N > 1) splits each batch
+over N devices (``iw_nll_dataset_dp``: the first N cards, or the CPU N times with
+``--device cpu``), each shard keeping the checkpoint's route; the JAX
+package turns ``pallas`` into ``xla`` there because XLA cannot partition
+its Pallas call, a limit the port does not have. Prints one JSON line, the
+JAX package's.
 """
 
 from __future__ import annotations
@@ -25,15 +29,14 @@ import torch
 
 from .. import resolve_device
 from ..data import PianoData
-from ..evaluation.nll import DP_TODO, iw_nll_dataset
+from ..evaluation.nll import iw_nll_dataset, iw_nll_dataset_dp
 from ..train.checkpoint import load_model_args
 from ..weights import params_from_numpy
 from . import common
 
 
 def evaluate(args):
-    if args.dp > 1:
-        raise NotImplementedError(DP_TODO)
+    mesh = common.dp_mesh(args) if args.dp > 1 else None
     if args.family == "auto":
         # cl_vae checkpoints carry intermediate_class_dim; cl_vrnn ones don't
         margs_probe = load_model_args(args.model_file)
@@ -67,8 +70,13 @@ def evaluate(args):
         data = common.build_cl_vrnn_datasets(P, margs["n_classes"], cfg.use_x_prev, device)
     data = {k: v for k, v in data["test"].items() if k in ("x", "y", "x_prev")}
     generator = torch.Generator(device=device).manual_seed(args.seed)
-    nlls = iw_nll_dataset(params_from_numpy(raw, device), cfg, data, generator, args.n_samples,
-                          args.batch_size, args.family)
+    params = params_from_numpy(raw, device)
+    if mesh is not None:
+        nlls = iw_nll_dataset_dp(params, cfg, data, generator, args.n_samples, args.batch_size,
+                                 args.family, mesh)
+    else:
+        nlls = iw_nll_dataset(params, cfg, data, generator, args.n_samples, args.batch_size,
+                              args.family)
     out = {
         "test_nll_nats_per_frame": round(float(nlls.mean()), 4),
         "n_importance_samples": args.n_samples,
@@ -89,7 +97,9 @@ def build_parser():
     parser.add_argument("--batch_size", type=int, default=200)
     parser.add_argument("--train_file", type=str, default=common.DEFAULT_TRAIN_FILE)
     parser.add_argument("--seed", type=int, default=0, help="seed of the torch.Generator")
-    parser.add_argument("--dp", type=int, default=1, help="not ported: > 1 raises")
+    parser.add_argument("--dp", type=int, default=1,
+                        help="split each batch over N > 1 devices (the first N cards, or the "
+                             "CPU N times with --device cpu); 1: one device")
     parser.add_argument("--lstm_backend", type=str, default="keep",
                         choices=["keep", "auto", "xla", "pallas"],
                         help="'keep' = the checkpoint's setting; 'pallas' = the whole-sequence "

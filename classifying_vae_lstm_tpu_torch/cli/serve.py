@@ -59,9 +59,6 @@ def build_engine(args) -> tuple[GenerationEngine, dict, common.SeqConcat | None]
     family = args.family
     if family == "auto":
         family = "cl_vae" if "intermediate_class_dim" in load_model_args(args.model_file) else "cl_vrnn"
-    if getattr(args, "dp", 1) > 1:
-        raise NotImplementedError("--dp > 1 (songs sharded over several cards) is not "
-                                  "ported yet (ROADMAP Queue 1 item 14)")
     params, cfg, margs = common.load_model(args.model_file, family)
     layout = None
     if family == "cl_vae":
@@ -81,6 +78,7 @@ def build_engine(args) -> tuple[GenerationEngine, dict, common.SeqConcat | None]
         seeds = P.x_test[:, 0] if squeeze and P.x_test.ndim == 3 else P.x_test
     engine = GenerationEngine(params, cfg, seeds, P.test_song_keys,
                               device=getattr(args, "device", "cuda"),
+                              mesh=common.dp_mesh(args) if getattr(args, "dp", 1) > 1 else None,
                               dynamic_batching=getattr(args, "dynamic_batching", False),
                               batch_window_ms=getattr(args, "batch_window_ms",
                                                       DynamicBatcher.DEFAULT_WINDOW_MS))
@@ -243,7 +241,8 @@ def build_parser():
                              "'pallas' picks int8 weights for a bf16 checkpoint where the "
                              "JAX package does")
     parser.add_argument("--dp", type=int, default=1,
-                        help="shard generation over N cards (not ported yet: > 1 raises)")
+                        help="split each batch's songs over N > 1 devices (the first N cards, "
+                             "or the CPU N times with --device cpu); 1: one device")
     parser.add_argument("--dynamic_batching", action="store_true",
                         help="coalesce concurrent /generate requests into one "
                              "bucketed launch (bounded wait window)")

@@ -1,7 +1,7 @@
 // Whole-generation cl_vae sampler for Hopper (sm_90a): one kernel for f32 or
 // bf16 weights split over a thread-block cluster (`generate_cluster_kernel`),
-// the f32 kernel that reads its weights from L2 (`generate_wide_kernel`) for
-// the few configs the first refuses, and one cooperative kernel for int8,
+// the kernel that reads its f32 or bf16 weights from L2 (`generate_wide_kernel`)
+// for the few configs the first and the last refuse, and one cooperative kernel for int8,
 // bf16 or f32 operands (`generate_vae_coop_kernel<E>`, at the end).
 //
 // Replaces: classifying_vae_lstm_tpu/ops/pallas_generate_vae.py:141
@@ -84,12 +84,13 @@
 // are written with __fadd_rn / __fmul_rn in the JAX kernel's order, so nvcc
 // contracts nothing there into an FMA.
 //
-// `generate_wide_kernel`, f32 only, keeps the configs whose weights do not
-// fit 8 blocks of a cluster and that the cooperative kernel does not take:
-// models without hidden layers with x_prev from D ~ 670 (D x D f32 rows of
-// the frame head), or with a z-head width past 8 blocks. It computes what
-// the cluster kernel computes in f32 from the same operands (the wrapper's
-// `_pack`). Each block owns two songs and reads every weight from L2 every
+// `generate_wide_kernel` keeps the configs whose weights do not fit 8
+// blocks of a cluster and that the cooperative kernel does not take: models
+// without hidden layers with x_prev from D ~ 670 (D x D f32 rows of the
+// frame head), or with a z-head width past 8 blocks, and f32 or bf16 models
+// with hidden layers past the cooperative kernel's latent width (L past ~105
+// at D=1,024, H=5,120). It computes what the cluster kernel computes, in
+// f32 or bf16, from the same operands (the wrapper's `_pack`). Each block owns two songs and reads every weight from L2 every
 // step: per song-step it does D*H*(1 + use_x_prev) + 3*L*H + H*D FMAs (with
 // hidden layers) and its time is the L2-to-SM transfer of the weights each
 // step, far above that bound. A layer with few output columns splits its K
@@ -1073,20 +1074,22 @@ constexpr int kWideWarps = kWideThreads / 32;
 constexpr int kMaxSlices = 16;  // K-split groups of a layer with few columns
 constexpr size_t kPartialFloats = (size_t)kWideThreads * kSongs;
 
+// WT: the type of the large weights (f32, or bf16 with hidden layers)
+template <typename WT>
 struct WideArgs {
   const float* seed;   // [B, D]
   const float* eps;    // [B, nsteps, L]
   const float* u;      // [B, nsteps, D]
-  const float* wke;    // [D, H]  encoder x rows (hidden layers only)
+  const WT* wke;       // [D, H]  encoder x rows (hidden layers only)
   const float* encb;   // [B, H]  w rows . w + bias, per song
-  const float* wkd_x;  // [D, H]  decoder x_prev rows (hidden layers and use_x_prev)
+  const WT* wkd_x;     // [D, H]  decoder x_prev rows (hidden layers and use_x_prev)
   const float* wkd_z;  // [L, H]  decoder z rows, f32
   const float* decb;   // [B, H]
-  const float* wz_t;   // [2L, E] z heads over e (h_e, E = H; without hidden layers x_prev, E = D)
+  const WT* wz_t;      // [2L, E] z heads over e (h_e, E = H; without hidden layers x_prev, E = D)
   const float* zb;     // z-head bias: [2L] (zb_stride 0) or the per-song fold [B, 2L]
-  const float* wx;     // [H, D]  frame head (hidden layers only)
+  const WT* wx;        // [H, D]  frame head (hidden layers only)
   const float* wx_z;   // [L, D]  frame head z rows, f32 (no hidden layers)
-  const float* wx_xp;  // [D, D]  frame head x_prev rows (no hidden layers, use_x_prev)
+  const WT* wx_xp;     // [D, D]  frame head x_prev rows (no hidden layers, use_x_prev)
   const float* xb;     // frame-head bias: [D] (xb_stride 0) or the per-song fold [B, D]
   float* out;          // [B, nsteps, D]
   float* state;        // null: per-song state in shared memory; else [grid, state floats]
@@ -1102,21 +1105,29 @@ __host__ __device__ constexpr size_t wide_state_floats(int D, int H, int L, int 
 }
 
 // One operand of a layer: a [k][kSongs] tile (shared or scratch memory)
-// times a [k, N] row-major f32 weight in global memory; k = 0 skips it.
+// times a [k, N] row-major weight in global memory (f32, or bf16 widened to
+// f32); k = 0 skips it.
+template <typename W>
 struct Op {
   const float* a;
-  const float* w;
+  const W* w;
   int k;
 };
 
+__device__ __forceinline__ float ldg_w(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_w(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
 // acc[b] += sum_{k0 <= k < k1} a[k][b] * w[k * N + n]
-__device__ __forceinline__ void mac_rows(float (&acc)[kSongs], const Op& o, int N, int n,
+template <typename W>
+__device__ __forceinline__ void mac_rows(float (&acc)[kSongs], const Op<W>& o, int N, int n,
                                          int k0, int k1) {
   if (k0 >= k1) return;
-  const float* wp = o.w + (size_t)k0 * N + n;
+  const W* wp = o.w + (size_t)k0 * N + n;
 #pragma unroll 16
   for (int k = k0; k < k1; ++k, wp += N) {
-    const float wv = __ldg(wp);
+    const float wv = ldg_w(wp);
 #pragma unroll
     for (int b = 0; b < kSongs; ++b) acc[b] = fmaf(o.a[k * kSongs + b], wv, acc[b]);
   }
@@ -1134,8 +1145,8 @@ __device__ __forceinline__ int slices_for(int N) {
 // operand across S groups, whose partial sums meet in `partial` after a
 // barrier and are added in group order. The caller syncs before the next
 // layer reads what epi stored.
-template <typename Epi>
-__device__ __forceinline__ void cols_layer(const Op& o1, const Op& o2, int N,
+template <typename W1, typename W2, typename Epi>
+__device__ __forceinline__ void cols_layer(const Op<W1>& o1, const Op<W2>& o2, int N,
                                            float* partial, Epi epi) {
   const int S = slices_for(N);
   if (S == 1) {
@@ -1171,9 +1182,10 @@ __device__ __forceinline__ void cols_layer(const Op& o1, const Op& o2, int N,
 
 // z = m + exp(v/2) * eps (or eps under use_z_prior) for the tile's songs,
 // the heads over e [E][kSongs]; one warp per latent, its lanes splitting E
-__device__ __forceinline__ void z_draw(const WideArgs& a, const float* e, int E, float* zs,
+template <typename WT>
+__device__ __forceinline__ void z_draw(const WideArgs<WT>& a, const float* e, int E, float* zs,
                                        int t, int s0) {
-  const float* wz = a.wz_t;
+  const WT* wz = a.wz_t;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, L = a.L;
   for (int l = warp; l < L; l += kWideWarps) {
     const float zm = warp_dot(e, wz + (size_t)l * E, E, lane);
@@ -1191,7 +1203,12 @@ __device__ __forceinline__ void z_draw(const WideArgs& a, const float* e, int E,
   }
 }
 
-__global__ void __launch_bounds__(kWideThreads) generate_wide_kernel(const WideArgs a) {
+// bf16 mode: the weights are read as bf16 and h_e, h_d are stored rounded
+// to bf16 (`operand`), as they are only ever read as operands; the frames
+// are binary, z, the z rows and every bias f32, every sum f32 (the cluster
+// kernel's rounding points).
+template <typename WT>
+__global__ void __launch_bounds__(kWideThreads) generate_wide_kernel(const WideArgs<WT> a) {
   extern __shared__ float4 smem4[];
   float* partial = reinterpret_cast<float*>(smem4);  // [kPartialFloats]
   const int D = a.D, H = a.H, L = a.L;
@@ -1217,33 +1234,34 @@ __global__ void __launch_bounds__(kWideThreads) generate_wide_kernel(const WideA
   }
   __syncthreads();
 
-  const Op none{nullptr, nullptr, 0};
+  const Op<float> none{nullptr, nullptr, 0};
   const auto prob = [&](int d, int b, float acc) {
     pm[d * kSongs + b] = 1.f / (1.f + expf(-(acc + fold(a.xb, a.xb_stride, b, d))));
   };
   for (int t = 0; t < a.nsteps; ++t) {
     if (a.has_hidden) {
       // z-encoder hidden: h_e = relu(x_prev @ Wke + encb)
-      cols_layer(Op{xp, a.wke, D}, none, H, partial, [&](int n, int b, float acc) {
-                   he[n * kSongs + b] = fmaxf(acc + fold(a.encb, H, b, n), 0.f);
+      cols_layer(Op<WT>{xp, a.wke, D}, none, H, partial, [&](int n, int b, float acc) {
+                   he[n * kSongs + b] = operand<WT>(fmaxf(acc + fold(a.encb, H, b, n), 0.f));
                  });
       __syncthreads();
       z_draw(a, he, H, zs, t, s0);
       __syncthreads();
       // decoder hidden: h_d = relu(decb + sum_l z_l Wkd_z[l] (+ x_prev_t @ Wkd_x))
-      cols_layer(Op{zs, a.wkd_z, L}, Op{xpt, a.wkd_x, a.use_x_prev ? D : 0}, H, partial,
-                 [&](int n, int b, float acc) {
-                   hd[n * kSongs + b] = fmaxf(acc + fold(a.decb, H, b, n), 0.f);
+      cols_layer(Op<float>{zs, a.wkd_z, L}, Op<WT>{xpt, a.wkd_x, a.use_x_prev ? D : 0}, H,
+                 partial, [&](int n, int b, float acc) {
+                   hd[n * kSongs + b] = operand<WT>(fmaxf(acc + fold(a.decb, H, b, n), 0.f));
                  });
       __syncthreads();
       // frame head: p = sigmoid(h_d @ Wx + bx)
-      cols_layer(Op{hd, a.wx, H}, none, D, partial, prob);
+      cols_layer(Op<WT>{hd, a.wx, H}, none, D, partial, prob);
     } else {
       // z heads over x_prev (w rows folded into zb)
       z_draw(a, xp, D, zs, t, s0);
       __syncthreads();
       // frame head: p = sigmoid(xb + sum_l z_l Wx_z[l] (+ x_prev_t @ Wx_xp))
-      cols_layer(Op{zs, a.wx_z, L}, Op{xpt, a.wx_xp, a.use_x_prev ? D : 0}, D, partial, prob);
+      cols_layer(Op<float>{zs, a.wx_z, L}, Op<WT>{xpt, a.wx_xp, a.use_x_prev ? D : 0}, D, partial,
+                 prob);
     }
     __syncthreads();
     // Bernoulli draw, both carries (the lagged frame takes the old x_prev
@@ -1266,13 +1284,14 @@ size_t wide_smem_bytes(int D, int H, int L, int has_hidden, int state_in_smem) {
          sizeof(float);
 }
 
-int launch_wide(const WideArgs& a, cudaStream_t stream) {
+template <typename WT>
+int launch_wide(const WideArgs<WT>& a, cudaStream_t stream) {
   const size_t smem = wide_smem_bytes(a.D, a.H, a.L, a.has_hidden, a.state == nullptr);
   cudaError_t err = cudaFuncSetAttribute(
-      generate_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      generate_wide_kernel<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.B + kSongs - 1) / kSongs);
-  generate_wide_kernel<<<grid, kWideThreads, smem, stream>>>(a);
+  generate_wide_kernel<WT><<<grid, kWideThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1958,20 +1977,33 @@ extern "C" long long cvl_generate_cl_vae_wide_smem_bytes(int D, int H, int L, in
 }
 
 // Launches the wide sampler on `stream`; returns the cudaError_t of the
-// launch. Pointers a structure does not use are null; `state` is null when
-// the per-song state fits shared memory.
+// launch. `eb` is the bytes of the large weights (wke, wkd_x, wz_t, wx,
+// wx_xp): 4 f32, 2 bf16. Pointers a structure does not use are null;
+// `state` is null when the per-song state fits shared memory.
 extern "C" int cvl_generate_cl_vae_wide(
-    const float* seed, const float* eps, const float* u, const float* wke,
-    const float* encb, const float* wkd_x, const float* wkd_z, const float* decb,
-    const float* wz_t, const float* zb, const float* wx, const float* wx_z, const float* wx_xp,
+    int eb, const float* seed, const float* eps, const float* u, const void* wke,
+    const float* encb, const void* wkd_x, const float* wkd_z, const float* decb,
+    const void* wz_t, const float* zb, const void* wx, const float* wx_z, const void* wx_xp,
     const float* xb, float* out, float* state, int zb_stride, int xb_stride, int B, int nsteps,
     int D, int H, int L, int has_hidden, int use_x_prev, int use_z_prior, int return_probs,
     void* stream) {
-  const WideArgs a{seed, eps,   u,         wke,        encb,        wkd_x, wkd_z,
-                   decb, wz_t,  zb,        wx,         wx_z,        wx_xp, xb,
-                   out,  state, zb_stride, xb_stride,  B,           nsteps, D,
-                   H,    L,     has_hidden, use_x_prev, use_z_prior, return_probs};
-  return launch_wide(a, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (eb == 2) {
+    using T = __nv_bfloat16;
+    const WideArgs<T> a{seed, eps, u, static_cast<const T*>(wke), encb,
+                        static_cast<const T*>(wkd_x), wkd_z, decb, static_cast<const T*>(wz_t),
+                        zb, static_cast<const T*>(wx), wx_z, static_cast<const T*>(wx_xp), xb,
+                        out, state, zb_stride, xb_stride, B, nsteps, D, H, L, has_hidden,
+                        use_x_prev, use_z_prior, return_probs};
+    return launch_wide(a, st);
+  }
+  using T = float;
+  const WideArgs<T> a{seed, eps, u, static_cast<const T*>(wke), encb,
+                      static_cast<const T*>(wkd_x), wkd_z, decb, static_cast<const T*>(wz_t),
+                      zb, static_cast<const T*>(wx), wx_z, static_cast<const T*>(wx_xp), xb,
+                      out, state, zb_stride, xb_stride, B, nsteps, D, H, L, has_hidden,
+                      use_x_prev, use_z_prior, return_probs};
+  return launch_wide(a, st);
 }
 
 // Bytes of dynamic shared memory one block of the cooperative kernel needs:

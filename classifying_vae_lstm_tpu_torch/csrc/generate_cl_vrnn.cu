@@ -1,5 +1,5 @@
 // Whole-generation cl_vrnn sampler for Hopper (sm_90a): f32 or bf16 weights
-// (`generate_kernel<WT>`), or int8 weights (`generate_int8_kernel`). Both
+// (`generate_kernel<WT, kGroups>`), or int8 weights (`generate_int8_kernel`). Both
 // are one persistent cooperative launch whose blocks own hidden units.
 //
 // Replaces: classifying_vae_lstm_tpu/ops/pallas_generate.py:153 `_make_kernel`
@@ -24,7 +24,14 @@
 //   the call (passes of 64 songs, any B). cdiv(H, nu) blocks with nu = 2
 //   cdiv(H, 2 SMs): 128 blocks of 2 units at H=256, of 12 at H=1,536. The
 //   first design gave each block 4 songs and every weight from L2 each step
-//   (16 SMs of 132 busy at 64 songs, one SM for one song).
+//   (16 SMs of 132 busy at 64 songs, one SM for one song). Past 20 units a
+//   block (H > 2,640 on 132 SMs) a block owns nv > 1 groups of nu <= 20
+//   units, each group a slice of its own, and runs a cell phase group after
+//   group (the kGroups instance; one group a block keeps its own instance,
+//   whose code is the one-group kernel's); its c of both cells is nv groups
+//   of [nu][songs] in shared memory, so a launch takes the songs that fit
+//   beside the ring (the wrapper's `launch_songs`), a call more in several
+//   launches.
 // * Weight residency: the wrapper packs each block's slice of each cell
 //   ([x rows | recurrent rows] x its 4 nu columns) contiguously; where both
 //   slices fit in shared memory beside the state (f32 at H=256, 23 KB; bf16
@@ -679,8 +686,9 @@ struct GenArgs {
   unsigned* bar;       // arrivals at the grid barrier
   unsigned long long* clock;  // [kLaps] or null: block 0's ns per part of a step (PhaseClock)
   int B, Tseed, total, D, H, L, use_x_prev, return_probs;
-  int nu;              // hidden units a block owns (even, at most 2 kGMaxNT)
-  int resident;        // the block's weight slices are copied into shared memory
+  int nu;              // hidden units of a unit group (even, at most 2 kGMaxNT)
+  int nv;              // unit groups a block owns: groups blockIdx.x nv .. + nv - 1
+  int resident;        // the block's weight slices are copied into shared memory (nv == 1)
 };
 
 // Rows of a cell's slice: x rows padded to Kx = round16(D) (none for the
@@ -707,12 +715,14 @@ __host__ __device__ inline size_t gen_ring_bytes(int nu, bool resident) {
   return ring > partial ? ring : partial;
 }
 
-// dynamic shared memory of a block: the resident slices (or none), the
-// ring, c of both cells ([nu][Bp] each), the block's columns of the
-// decoder's z rows ([L][4 nu]) and a pass's z ([64][L])
-__host__ __device__ inline size_t gen_smem_bytes(int nu, int Bp, int L, size_t resident) {
+// dynamic shared memory of a block owning nv groups of nu units: the
+// resident slices (or none), the ring, c of both cells ([nv][nu][Bp] each),
+// the groups' columns of the decoder's z rows ([nv][L][4 nu]) and a pass's
+// z ([64][L])
+__host__ __device__ inline size_t gen_smem_bytes(int nu, int Bp, int L, size_t resident,
+                                                 int nv) {
   return resident + gen_ring_bytes(nu, resident > 0) +
-         ((size_t)2 * nu * Bp + (size_t)4 * nu * L + (size_t)kGPass * L) * 4;
+         ((size_t)2 * nv * nu * Bp + (size_t)4 * nv * nu * L + (size_t)kGPass * L) * 4;
 }
 
 __device__ __forceinline__ float hard_sigmoid_g(float x) {
@@ -723,26 +733,29 @@ __device__ __forceinline__ float ldf(const bf16* p) { return __bfloat162float(*p
 __device__ __forceinline__ void stf(float* p, float v) { *p = v; }
 __device__ __forceinline__ void stf(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-// The bias of (song s, unit u0 + j), its four gate columns of the per-song
-// fold [B, 4H] (loaded ahead of the products, whose time covers the load)
+// The bias of (song s, unit j of the block's unit group v of nv), its four
+// gate columns of the per-song fold [B, 4H] (loaded ahead of the products,
+// whose time covers the load). The unit is computed here from blockIdx.x,
+// as in every epilogue: with one group a block (v = 0, nv = 1, constants)
+// the code is the one-group kernel's.
 __device__ __forceinline__ void load_bias(const float* bias, int s, int j, int B, int H, int nu,
-                                          float (&bb)[4]) {
-  const int u = blockIdx.x * nu + j;
+                                          int v, int nv, float (&bb)[4]) {
+  const int u = (blockIdx.x * nv + v) * nu + j;
 #pragma unroll
   for (int g = 0; g < 4; ++g)
     bb[g] = s < B && u < H ? __ldg(bias + (size_t)s * 4 * H + g * H + u) : 0.f;
 }
 
-// The epilogue of one (song s, unit u0 + j), its four gate sums and bias
-// given: z = bias + sums (+ the decoder's z rows, L rank-1 f32 terms on the
+// The epilogue of one (song s, unit j of group v of nv), its four gate
+// sums and bias given: z = bias + sums (+ the decoder's z rows, L rank-1 f32 terms on the
 // pass's z), the Keras-2.0 gates, c in shared memory ([unit][song]) and h,
 // as the products' operand, into `hout` [Bp][Kh]
 template <typename WT>
 __device__ __forceinline__ void cell_epilogue(const GenArgs<WT>& a, bool decoder, int s, int r,
-                                              int j, const float (&sum)[4], const float (&bb)[4],
-                                              float* c, const float* wzd, const float* zst,
-                                              WT* hout) {
-  const int H = a.H, u = blockIdx.x * a.nu + j, L = a.L;
+                                              int j, int v, int nv, const float (&sum)[4],
+                                              const float (&bb)[4], float* c, const float* wzd,
+                                              const float* zst, WT* hout) {
+  const int H = a.H, u = (blockIdx.x * nv + v) * a.nu + j, L = a.L;
   if (s >= a.B || u >= H) return;
   float z[4];
 #pragma unroll
@@ -901,18 +914,18 @@ __device__ __forceinline__ void gen_products(const WT* w, bool streamed, int kcx
   __syncthreads();  // the ring is free
 }
 
-// One LSTM cell for the block's units and every song, in passes of kGPass
-// songs: the products (`gen_products`), then the epilogue of each (song,
-// unit): bf16, one thread per (song, unit) adds the warps' partial sums in
-// order; f32, after the butterfly, lane b % S of each item song b's. A
-// operands (x, h) come from L2 through the ring (`cp.async.cg`: other
-// blocks rewrite them every step); the slice from shared memory where
-// resident, else through the ring.
+// One LSTM cell for the units of the block's unit group v of nv and every
+// song, in passes of kGPass songs: the products (`gen_products`), then the
+// epilogue of each (song, unit): bf16, one thread per (song, unit) adds the
+// warps' partial sums in order; f32, after the butterfly, lane b % S of
+// each item song b's. A operands (x, h) come from L2 through the ring
+// (`cp.async.cg`: other blocks rewrite them every step); the slice from
+// shared memory where resident, else through the ring.
 template <typename WT>
-__device__ __forceinline__ void gen_cell(const GenArgs<WT>& a, bool decoder, const WT* w,
-                                         const float* bias, const WT* hcur, WT* hnxt, float* c,
-                                         unsigned char* ring, const float* wzd, float* zst,
-                                         PhaseClock* clk, int lap) {
+__device__ __forceinline__ void gen_cell(const GenArgs<WT>& a, bool decoder, int v, int nv,
+                                         const WT* w, const float* bias, const WT* hcur,
+                                         WT* hnxt, float* c, unsigned char* ring, const float* wzd,
+                                         float* zst, PhaseClock* clk, int lap) {
   const int nu = a.nu, NT = nu / 2, Bp = round16(a.B), L = a.L;
   const int Kx = round16(a.D), Kh = round16(a.H), kx = (decoder && !a.use_x_prev) ? 0 : Kx;
   const int kcx = kx * (int)sizeof(WT) / 32, kch = Kh * (int)sizeof(WT) / 32;
@@ -932,7 +945,7 @@ __device__ __forceinline__ void gen_cell(const GenArgs<WT>& a, bool decoder, con
 #pragma unroll
       for (int q = 0; q < kItems; ++q) {
         const int i = threadIdx.x + q * kGThreads, r = i / nu;
-        load_bias(bias, i < rows * nu ? m0 + r : a.B, i - r * nu, a.B, a.H, nu, bb[q]);
+        load_bias(bias, i < rows * nu ? m0 + r : a.B, i - r * nu, a.B, a.H, nu, v, nv, bb[q]);
       }
       gen_products(w, streamed, kcx, kch, a.x, Kx, hcur, Kh, m0, rows, NT, nu, S, ring, acc);
       // the warps' partial sums [nks][rows][8 NT] into the ring: row g (+8),
@@ -965,7 +978,7 @@ __device__ __forceinline__ void gen_cell(const GenArgs<WT>& a, bool decoder, con
           for (int k = 0; k < nks; ++k) v += stg[((size_t)k * rows + r) * cols + 4 * j + g];
           sum[g] = v;
         }
-        cell_epilogue(a, decoder, m0 + r, r, j, sum, bb[q], c, wzd, zst, hnxt);
+        cell_epilogue(a, decoder, m0 + r, r, j, v, nv, sum, bb[q], c, wzd, zst, hnxt);
       }
       __syncthreads();  // the staged sums are read
     } else {
@@ -975,8 +988,8 @@ __device__ __forceinline__ void gen_cell(const GenArgs<WT>& a, bool decoder, con
       float bb[4][4];
 #pragma unroll
       for (int b = 0; b < 4; ++b)
-        load_bias(bias, item < items && b % S == ks ? m0 + 4 * q + b : a.B, j, a.B, a.H, nu,
-                  bb[b]);
+        load_bias(bias, item < items && b % S == ks ? m0 + 4 * q + b : a.B, j, a.B, a.H, nu, v,
+                  nv, bb[b]);
       gen_products(w, streamed, kcx, kch, a.x, Kx, hcur, Kh, m0, rows, NT, nu, S, ring, acc);
 #pragma unroll
       for (int b = 0; b < 4; ++b)
@@ -989,8 +1002,8 @@ __device__ __forceinline__ void gen_cell(const GenArgs<WT>& a, bool decoder, con
 #pragma unroll
         for (int b = 0; b < 4; ++b)
           if (b % S == ks)
-            cell_epilogue(a, decoder, m0 + 4 * q + b, 4 * q + b, j, acc[b], bb[b], c, wzd, zst,
-                          hnxt);
+            cell_epilogue(a, decoder, m0 + 4 * q + b, 4 * q + b, j, v, nv, acc[b], bb[b], c,
+                          wzd, zst, hnxt);
       __syncthreads();  // zst is read
     }
     if (clk) clk->lap(lap + 1);
@@ -1115,18 +1128,26 @@ __device__ __forceinline__ void gen_frame_head(const GenArgs<WT>& a, const WT* h
   }
 }
 
-// One persistent cooperative launch for the whole song: every block owns nu
-// hidden units of both cells (all four gate columns of each) for every song;
-// a step is four phases with a grid barrier after each.
-template <typename WT>
+// One persistent cooperative launch for the whole song: every block owns nv
+// groups of nu hidden units of both cells (all four gate columns of each)
+// for every song; a step is four phases with a grid barrier after each.
+// kGroups = false is the instance of one group a block (a.nv == 1, every
+// width up to 2,640 on 132 SMs): its group count is a constant, so the
+// group loops compile away and it runs the one-group code as it did before
+// the groups existed; kGroups = true takes a.nv >= 1 groups.
+template <typename WT, bool kGroups>
 __global__ void __launch_bounds__(kGThreads, 1) generate_kernel(const GenArgs<WT> a) {
   extern __shared__ int4 smem_g[];
   unsigned char* base = reinterpret_cast<unsigned char*>(smem_g);
+  const int nv = kGroups ? a.nv : 1;
   const int D = a.D, H = a.H, L = a.L, nu = a.nu, Bp = round16(a.B);
   const int Kx = round16(D), Kh = round16(H);
   const size_t encn = slice_elems(D, H, nu, true), decn = slice_elems(D, H, nu, a.use_x_prev);
-  const WT* encw = a.enc_w + blockIdx.x * encn;
-  const WT* decw = a.dec_w + blockIdx.x * decn;
+  const unsigned v0 = blockIdx.x * nv;  // the block's first unit group
+  // its groups holding units (the last block's may hold fewer)
+  const int nvb = kGroups ? min(nv, cdiv(H, nu) - (int)v0) : 1;
+  const WT* encw = a.enc_w + v0 * encn;
+  const WT* decw = a.dec_w + v0 * decn;
   size_t off = 0;
   if (a.resident) {  // the block's slices, copied once (16-byte pieces)
     WT* ws = reinterpret_cast<WT*>(base);
@@ -1140,15 +1161,17 @@ __global__ void __launch_bounds__(kGThreads, 1) generate_kernel(const GenArgs<WT
     off = slices_bytes(D, H, nu, a.use_x_prev, sizeof(WT));
   }
   unsigned char* ring = base + off;
-  float* ce = reinterpret_cast<float*>(ring + gen_ring_bytes(nu, a.resident));  // [nu][Bp] each
-  float* cd = ce + (size_t)nu * Bp;
-  float* wzd = cd + (size_t)nu * Bp;         // [L][4 nu]
-  float* zst = wzd + L * 4 * nu;              // [kGPass][L]
-  for (int i = threadIdx.x; i < 2 * nu * Bp; i += kGThreads) ce[i] = 0.f;
-  for (int i = threadIdx.x; i < 4 * nu; i += kGThreads) {
-    const int u = blockIdx.x * nu + i / 4, col = (i % 4) * H + u;
+  // [nv][nu][Bp] each
+  float* ce = reinterpret_cast<float*>(ring + gen_ring_bytes(nu, a.resident));
+  float* cd = ce + (size_t)nv * nu * Bp;
+  float* wzd = cd + (size_t)nv * nu * Bp;    // [nv][L][4 nu]
+  float* zst = wzd + nv * L * 4 * nu;         // [kGPass][L]
+  for (int i = threadIdx.x; i < 2 * nv * nu * Bp; i += kGThreads) ce[i] = 0.f;
+  for (int i = threadIdx.x; i < nv * 4 * nu; i += kGThreads) {
+    const int v = kGroups ? i / (4 * nu) : 0, iv = i - v * 4 * nu;
+    const int u = (v0 + v) * nu + iv / 4, col = (iv % 4) * H + u;
     for (int l = 0; l < L; ++l)
-      wzd[l * 4 * nu + i] = u < H ? a.wkd_z[(size_t)l * 4 * H + col] : 0.f;
+      wzd[(v * L + l) * 4 * nu + iv] = u < H ? a.wkd_z[(size_t)l * 4 * H + col] : 0.f;
   }
   // the first input: the seed's first frame
   for (int i = blockIdx.x * kGThreads + threadIdx.x; i < a.B * D; i += gridDim.x * kGThreads) {
@@ -1166,9 +1189,11 @@ __global__ void __launch_bounds__(kGThreads, 1) generate_kernel(const GenArgs<WT
   const size_t hbuf = (size_t)Bp * Kh;
   for (int t = 0; t < a.total; ++t) {
     const int cur = t & 1, nxt = cur ^ 1;
-    // 1. encoder cell: z_e = encb + [x_in | h_e] . [Wke_x ; Rke]
-    gen_cell(a, false, encw, a.encb, a.he + cur * hbuf, a.he + nxt * hbuf, ce, ring, wzd, zst,
-             timer ? &clk : nullptr, 0);
+    // 1. encoder cell: z_e = encb + [x_in | h_e] . [Wke_x ; Rke], group by group
+    for (int v = 0; v < nvb; ++v)
+      gen_cell(a, false, v, nv, encw + v * encn, a.encb, a.he + cur * hbuf,
+               a.he + nxt * hbuf, ce + (size_t)v * nu * Bp, ring, wzd + v * L * 4 * nu, zst,
+               timer ? &clk : nullptr, 0);
     grid_sync(a.bar, rounds);
     if (timer) clk.lap(2);
     // 2. z heads on h_e and the reparameterized draw (z stays f32)
@@ -1177,8 +1202,10 @@ __global__ void __launch_bounds__(kGThreads, 1) generate_kernel(const GenArgs<WT
     grid_sync(a.bar, rounds);
     if (timer) clk.lap(4);
     // 3. decoder cell: z_d = decb + [x_in | h_d] . [Wkd_x ; Rkd] + z . Wkd_z
-    gen_cell(a, true, decw, a.decb, a.hd + cur * hbuf, a.hd + nxt * hbuf, cd, ring, wzd, zst,
-             timer ? &clk : nullptr, 5);
+    for (int v = 0; v < nvb; ++v)
+      gen_cell(a, true, v, nv, decw + v * decn, a.decb, a.hd + cur * hbuf,
+               a.hd + nxt * hbuf, cd + (size_t)v * nu * Bp, ring, wzd + v * L * 4 * nu, zst,
+               timer ? &clk : nullptr, 5);
     grid_sync(a.bar, rounds);
     if (timer) clk.lap(7);
     // 4. frame head on h_d, the draw, the output, the next input
@@ -1193,15 +1220,17 @@ __global__ void __launch_bounds__(kGThreads, 1) generate_kernel(const GenArgs<WT
 template <typename WT>
 int launch_gen(const GenArgs<WT>& a, cudaStream_t stream) {
   const size_t res = a.resident ? slices_bytes(a.D, a.H, a.nu, a.use_x_prev, sizeof(WT)) : 0;
-  const size_t smem = gen_smem_bytes(a.nu, round16(a.B), a.L, res);
-  cudaError_t err = cudaFuncSetAttribute(generate_kernel<WT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = gen_smem_bytes(a.nu, round16(a.B), a.L, res, a.nv);
+  const void* kernel = a.nv > 1 ? (const void*)generate_kernel<WT, true>
+                                : (const void*)generate_kernel<WT, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   // cooperative: every block co-resident (the grid barrier needs it), or the
   // launch fails
   void* args[] = {const_cast<GenArgs<WT>*>(&a)};
-  err = cudaLaunchCooperativeKernel((const void*)generate_kernel<WT>, dim3(cdiv(a.H, a.nu)),
-                                    dim3(kGThreads), args, smem, stream);
+  err = cudaLaunchCooperativeKernel(kernel, dim3(cdiv(cdiv(a.H, a.nu), a.nv)), dim3(kGThreads),
+                                    args, smem, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -1226,14 +1255,14 @@ __host__ __device__ inline GenState gen_state(int B, int D, int H, int L, int wb
 }  // namespace
 
 // Bytes of dynamic shared memory one block of the f32 / bf16 kernel needs: a
-// block owning nu hidden units, for B songs and L latents, with its weight
-// slices resident in shared memory or not (the wrapper checks the limit and
-// picks residency where it fits).
+// block owning nv groups of nu hidden units, for B songs and L latents, with
+// its weight slices resident in shared memory or not (the wrapper checks the
+// limit and picks residency where it fits).
 extern "C" long long cvl_generate_cl_vrnn_smem_bytes(int nu, int B, int D, int H, int L,
                                                      int use_x_prev, int bf16_weights,
-                                                     int resident) {
+                                                     int resident, int nv) {
   const size_t res = resident ? slices_bytes(D, H, nu, use_x_prev, bf16_weights ? 2 : 4) : 0;
-  return (long long)gen_smem_bytes(nu, round16(B), L, res);
+  return (long long)gen_smem_bytes(nu, round16(B), L, res, nv);
 }
 
 // Bytes of the state the f32 / bf16 kernel's blocks share in global memory
@@ -1244,7 +1273,8 @@ extern "C" long long cvl_generate_cl_vrnn_state_bytes(int B, int D, int H, int L
 }
 
 // Launches the f32 / bf16 sampler on `stream`: one cooperative launch of
-// cdiv(H, nu) blocks, each owning nu hidden units; enc_w, dec_w and head_w
+// cdiv(cdiv(H, nu), nv) blocks, each owning nv groups of nu hidden units
+// (resident only with nv == 1); enc_w, dec_w and head_w
 // packed by the wrapper (`pack_slices`, `pack_head`), wz_t [2L, H] in the
 // weight type, wkd_z [L, 4H] f32; `state` holds
 // cvl_generate_cl_vrnn_state_bytes zeroed bytes; `clock` (kLaps counts, or
@@ -1259,7 +1289,7 @@ extern "C" int cvl_generate_cl_vrnn(
     const void* dec_w, const void* head_w, const float* encb, const void* wz_t, const float* bz,
     const float* wkd_z, const float* decb, const float* bx, float* out, void* state,
     unsigned long long* clock, int B, int Tseed, int total, int D, int H, int L, int use_x_prev,
-    int return_probs, int nu, int resident, void* stream) {
+    int return_probs, int nu, int nv, int resident, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const GenState g = gen_state(B, D, H, L, bf16_weights ? 2 : 4);
   unsigned char* sb = static_cast<unsigned char*>(state);
@@ -1271,7 +1301,8 @@ extern "C" int cvl_generate_cl_vrnn(
                        static_cast<const T*>(head_w), encb, static_cast<const T*>(wz_t), bz,
                        wkd_z, decb, bx, out, reinterpret_cast<T*>(sb + g.x),
                        reinterpret_cast<T*>(sb + g.he), reinterpret_cast<T*>(sb + g.hd), zs, bar,
-                       clock, B, Tseed, total, D, H, L, use_x_prev, return_probs, nu, resident};
+                       clock, B, Tseed, total, D, H, L, use_x_prev, return_probs, nu, nv,
+                       resident};
     return launch_gen(a, st);
   }
   using T = float;
@@ -1279,7 +1310,8 @@ extern "C" int cvl_generate_cl_vrnn(
                      static_cast<const T*>(head_w), encb, static_cast<const T*>(wz_t), bz,
                      wkd_z, decb, bx, out, reinterpret_cast<T*>(sb + g.x),
                      reinterpret_cast<T*>(sb + g.he), reinterpret_cast<T*>(sb + g.hd), zs, bar,
-                     clock, B, Tseed, total, D, H, L, use_x_prev, return_probs, nu, resident};
+                     clock, B, Tseed, total, D, H, L, use_x_prev, return_probs, nu, nv,
+                     resident};
   return launch_gen(a, st);
 }
 

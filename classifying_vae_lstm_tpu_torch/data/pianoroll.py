@@ -45,6 +45,11 @@ def relative_major(k: str) -> str:
     return k if k.isupper() else rel_keys[k]
 
 
+def pianoroll_to_song(roll: np.ndarray, offset: int = 21) -> list:
+    """Binary roll [T, 88] -> list of per-step MIDI note lists (reference :27-29)."""
+    return [(np.where(s)[0] + offset).tolist() for s in roll]
+
+
 def song_to_pianoroll(song, offset: int = 21) -> np.ndarray:
     """List of note-number tuples -> [T, 88] binary roll (reference :31-47).
 

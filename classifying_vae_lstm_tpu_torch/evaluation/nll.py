@@ -18,7 +18,8 @@ whole-sequence inference kernel per LSTM when the backend is ``pallas``; the
 cl_vae estimator, like the JAX one, runs the plain dense layers). Noise
 comes from a ``torch.Generator`` (:func:`iw_nll_cl_vrnn`,
 :func:`iw_nll_cl_vae`) or is given explicitly (the ``*_noise`` forms), for
-parity with the JAX package's draws.
+parity with the JAX package's draws. :func:`iw_nll_dataset_dp` splits each
+batch over a mesh's devices.
 """
 
 from __future__ import annotations
@@ -28,9 +29,9 @@ import math
 import torch
 
 from ..models import cl_vae, cl_vrnn
+from ..parallel import make_mesh, replicate
 
 _LOG2PI = math.log(2 * math.pi)
-DP_TODO = "data-parallel evaluation is not ported yet (ROADMAP Queue 1 item 14)"
 
 
 def _log_normal(x, mean, log_var):
@@ -47,6 +48,15 @@ def _logmeanexp_neg(log_w):
     """-log mean_s exp(log_w[s]) over the leading sample axis."""
     m = torch.max(log_w, dim=0).values
     return -(m + torch.log(torch.mean(torch.exp(log_w - m[None, :]), dim=0)))
+
+
+def _draw_batch_noise(cfg, family: str, x, generator, n_samples: int):
+    """A batch's (eps_u, eps_z), drawn as :func:`iw_nll_cl_vrnn` /
+    :func:`iw_nll_cl_vae` draw them."""
+    B, dev = x.shape[0], generator.device
+    eps_u = torch.randn((n_samples, B, cfg.n_classes - 1), generator=generator, device=dev)
+    z_shape = (n_samples, B) + ((x.shape[1],) if family != "cl_vae" else ()) + (cfg.latent_dim,)
+    return eps_u, torch.randn(z_shape, generator=generator, device=dev)
 
 
 def iw_nll_cl_vrnn_noise(params, cfg: cl_vrnn.Config, x, y, eps_u, eps_z, x_prev=None):
@@ -79,10 +89,7 @@ def iw_nll_cl_vrnn(params, cfg: cl_vrnn.Config, x, y, generator: torch.Generator
     """IW test NLL for a cl_vrnn batch, noise drawn from ``generator`` (eps_u
     ``[S, B, K-1]``, then eps_z ``[S, B, T, L]``); returns ``[B]``
     nats/frame."""
-    B, T = x.shape[:2]
-    dev = generator.device
-    eps_u = torch.randn((n_samples, B, cfg.n_classes - 1), generator=generator, device=dev)
-    eps_z = torch.randn((n_samples, B, T, cfg.latent_dim), generator=generator, device=dev)
+    eps_u, eps_z = _draw_batch_noise(cfg, "cl_vrnn", x, generator, n_samples)
     return iw_nll_cl_vrnn_noise(params, cfg, x, y, eps_u, eps_z, x_prev)
 
 
@@ -111,10 +118,7 @@ def iw_nll_cl_vae(params, cfg: cl_vae.Config, x, y, generator: torch.Generator,
                   n_samples: int = 64, x_prev=None):
     """IW test NLL for a cl_vae batch, noise drawn from ``generator`` (eps_u
     ``[S, B, K-1]``, then eps_z ``[S, B, L]``); returns ``[B]`` nats/frame."""
-    B = x.shape[0]
-    dev = generator.device
-    eps_u = torch.randn((n_samples, B, cfg.n_classes - 1), generator=generator, device=dev)
-    eps_z = torch.randn((n_samples, B, cfg.latent_dim), generator=generator, device=dev)
+    eps_u, eps_z = _draw_batch_noise(cfg, "cl_vae", x, generator, n_samples)
     return iw_nll_cl_vae_noise(params, cfg, x, y, eps_u, eps_z, x_prev)
 
 
@@ -125,9 +129,36 @@ def iw_nll_dataset(params, cfg, data: dict, generator: torch.Generator, n_sample
     ``data`` holds ``x``/``y`` (and optionally ``x_prev``) tensors [N, ...].
     The final partial batch is padded with wrap-around indices and the pad
     rows dropped afterwards, so the returned [N] per-example NLLs cover the
-    whole split."""
-    fn = iw_nll_cl_vae if family == "cl_vae" else iw_nll_cl_vrnn
-    n = data["x"].shape[0]
+    whole split. :func:`iw_nll_dataset_dp` on a one-device mesh (the data's
+    device, ``params`` where they lie)."""
+    return iw_nll_dataset_dp([params], cfg, data, generator, n_samples, batch_size, family,
+                             make_mesh(1, devices=[data["x"].device]))
+
+
+def iw_nll_dataset_dp(params, cfg, data: dict, generator: torch.Generator, n_samples: int,
+                      batch_size: int, family: str = "cl_vae", mesh=None):
+    """:func:`iw_nll_dataset` with each batch split over ``mesh``'s data
+    axis, in one process and with zero collectives (the estimator is
+    independent per window): the batch's noise is drawn globally from
+    ``generator``, as the single-device call draws it, then every shard's
+    windows and noise go to its device, which runs the estimator on them
+    (``params`` replicated once a device, or already a list of the
+    replicas ``parallel.replicate`` gives), and the per-window NLLs are
+    gathered on the mesh's first device and trimmed to N. The same
+    numbers as :func:`iw_nll_dataset` for the same generator.
+
+    ``batch_size`` must divide by the data axis. Each shard keeps the
+    checkpoint's route: a cl_vrnn with ``lstm_backend == "pallas"`` runs the
+    whole-sequence inference kernel on every card (the JAX package forces
+    ``xla`` under ``--dp`` only because XLA cannot partition its Pallas
+    call)."""
+    n_data = mesh.shape["data"]
+    if batch_size % n_data != 0:
+        raise ValueError(f"batch_size {batch_size} not divisible by data axis {n_data}")
+    noise_fn = iw_nll_cl_vae_noise if family == "cl_vae" else iw_nll_cl_vrnn_noise
+    devices = mesh.data_devices
+    reps = params if isinstance(params, list) else replicate(params, mesh)
+    n, b = data["x"].shape[0], batch_size // n_data
     nb = -(-n // batch_size)  # ceil: last batch padded, not dropped
     idx = torch.arange(nb * batch_size, device=data["x"].device) % n
     nlls = []
@@ -135,10 +166,13 @@ def iw_nll_dataset(params, cfg, data: dict, generator: torch.Generator, n_sample
         for i in range(nb):
             batch = {k: v.index_select(0, idx[i * batch_size:(i + 1) * batch_size])
                      for k, v in data.items()}
-            nlls.append(fn(params, cfg, batch["x"], batch["y"], generator, n_samples,
-                           batch.get("x_prev")))
+            eps_u, eps_z = _draw_batch_noise(cfg, family, batch["x"], generator, n_samples)
+            parts = []
+            for r, dev in enumerate(devices):
+                rows = slice(r * b, (r + 1) * b)
+                shard = {k: v[rows].to(dev) for k, v in batch.items()}
+                parts.append(noise_fn(reps[r], cfg, shard["x"], shard["y"],
+                                      eps_u[:, rows].to(dev), eps_z[:, rows].to(dev),
+                                      shard.get("x_prev")))
+            nlls.append(torch.cat([p.to(devices[0]) for p in parts]))
     return torch.cat(nlls)[:n]
-
-
-def iw_nll_dataset_dp(*args, **kwargs):
-    raise NotImplementedError(DP_TODO)

@@ -51,6 +51,12 @@ def sample_w_discrete_from_u(u, w):
     return F.one_hot(idx, w.shape[-1]).to(w.dtype)
 
 
+def sample_w_discrete(generator: torch.Generator, w):
+    """One-hot categorical draw from w (reference cl_vrnn/model.py:65-69)."""
+    u = torch.rand(w.shape[:-1], generator=generator, device=w.device, dtype=w.dtype)
+    return sample_w_discrete_from_u(u, w)
+
+
 def gaussian_kl(mean, log_var):
     """KL(N(mean, exp(log_var)) || N(0, I)), summed over the last axis."""
     return -0.5 * torch.sum(1 + log_var - torch.square(mean) - torch.exp(log_var), dim=-1)

@@ -1,3 +1,3 @@
-from .lstm import lstm_step
+from .lstm import lstm_sequence, lstm_step
 
-__all__ = ["lstm_step"]
+__all__ = ["lstm_sequence", "lstm_step"]

@@ -46,10 +46,13 @@ _H100_SMS = 132           # the grid fits() sizes the int8 kernel for
 # weights; a launch takes at most _I8_MAX_SONGS songs (c of both cells in
 # shared memory), a call more in several launches
 _I8_MAX_UNITS, _I8_RING, _I8_CPS, _I8_GROUP_ROWS, _I8_MAX_SONGS = 16, 4, 8, 64, 256
-# the f32 / bf16 kernel: a block owns at most _G_MAX_UNITS hidden units
-# (kGMaxNT n8 tiles); a launch takes at most _G_MAX_SONGS songs (c of both
-# cells in shared memory), a call more in several launches; its ring holds
-# _G_RING stages of _G_CPS 32-byte chunks of _G_PASS song rows
+# the f32 / bf16 kernel: a unit group holds at most _G_MAX_UNITS hidden
+# units (kGMaxNT n8 tiles), a block one group, or past 20 units a block on
+# the card's SMs several (:func:`gen_grid`); a launch takes at most
+# _G_MAX_SONGS songs (c of both cells in shared memory; fewer where a block
+# owns several groups, :func:`launch_songs`), a call more in several
+# launches; its ring holds _G_RING stages of _G_CPS 32-byte chunks of
+# _G_PASS song rows
 _G_MAX_UNITS, _G_MAX_SONGS, _G_PASS, _G_RING, _G_CPS = 20, 256, 64, 4, 8
 _MODES = ("f32", "bf16", "int8")
 
@@ -100,13 +103,18 @@ def pick_mode(cfg) -> str:
     return "bf16"
 
 
+def cdiv(a: int, b: int) -> int:
+    """a / b rounded up."""
+    return -(-a // b)
+
+
 def int8_grid(H: int, n_sm: int) -> tuple[int, int]:
     """The int8 kernel's grid on a card of ``n_sm`` SMs: (nu, blocks), each
     block owning nu hidden units of both cells (nu even: two units, eight
     gate columns, to an n8 tile), cdiv(H, nu) <= n_sm blocks. At H=1,536
     on 132 SMs: 128 blocks of 12 units; at H=1,752: 126 of 14."""
-    nu = 2 * -(-H // (2 * n_sm))
-    return nu, -(-H // nu)
+    nu = 2 * cdiv(H, 2 * n_sm)
+    return nu, cdiv(H, nu)
 
 
 def _int8_smem(nu: int, B: int, L: int) -> int:
@@ -117,6 +125,22 @@ def _int8_smem(nu: int, B: int, L: int) -> int:
     decoder's z rows, and the z of 64 songs."""
     ring = _I8_RING * (_I8_CPS * _I8_GROUP_ROWS * 32 + _I8_CPS * (nu // 2) * 256)
     return ring + (2 * nu * (-(-B // 16) * 16) + (4 + L) * 4 * nu + _I8_GROUP_ROWS * L) * 4
+
+
+def gen_grid(H: int, n_sm: int) -> tuple[int, int, int]:
+    """The f32 / bf16 kernel's grid on a card of ``n_sm`` SMs: (nu, nv,
+    blocks), each block owning nv groups of nu hidden units of both cells
+    (nu even, at most _G_MAX_UNITS), each group a slice of its own. Where
+    :func:`int8_grid` gives at most 20 units a block (H <= 2,640 on 132
+    SMs) it is that grid with nv = 1; past it a block owns nv = cdiv(nu,
+    20) groups of nu = 2 cdiv(H, 2 nv n_sm) units: at H=2,688, 112 blocks
+    of 2 groups of 12; at H=4,096, 128 blocks of 2 groups of 16."""
+    nu, G = int8_grid(H, n_sm)
+    if nu <= _G_MAX_UNITS:
+        return nu, 1, G
+    nv = cdiv(nu, _G_MAX_UNITS)
+    nu = 2 * cdiv(H, 2 * nv * n_sm)
+    return nu, nv, cdiv(cdiv(H, nu), nv)
 
 
 def round16(n: int) -> int:
@@ -133,49 +157,66 @@ def slices_bytes(D: int, H: int, nu: int, use_x_prev: bool, wbytes: int) -> int:
     return -(-rows * 4 * nu * wbytes // 16) * 16
 
 
-def gen_smem(nu: int, B: int, L: int, resident: int = 0) -> int:
-    """Shared memory of one f32 / bf16 block owning nu units, for B songs
-    and L latents: the resident slices (``resident`` bytes, 0 where they
-    stream), the cp.async ring (_G_RING stages of _G_CPS 32-byte chunks of
-    64 song rows, and of the slice where it streams; at least the bf16
-    warps' partial sums, 8 KB a pair of units), c of both cells ([nu][B
-    rounded to 16] each), the block's columns of the decoder's z rows and
+def gen_smem(nu: int, B: int, L: int, resident: int = 0, nv: int = 1) -> int:
+    """Shared memory of one f32 / bf16 block owning nv groups of nu units,
+    for B songs and L latents: the resident slices (``resident`` bytes, 0
+    where they stream), the cp.async ring (_G_RING stages of _G_CPS 32-byte
+    chunks of 64 song rows, and of the slice where it streams; at least the
+    bf16 warps' partial sums, 8 KB a pair of units), c of both cells ([nv][nu]
+    [B rounded to 16] each), the groups' columns of the decoder's z rows and
     the z of 64 songs."""
     nt = nu // 2
     ring = max(_G_RING * (_G_CPS * _G_PASS * 32 + (0 if resident else _G_CPS * nt * 256)),
                8192 * nt)
-    return resident + ring + (2 * nu * round16(B) + 4 * nu * L + _G_PASS * L) * 4
+    return resident + ring + (2 * nv * nu * round16(B) + 4 * nv * nu * L + _G_PASS * L) * 4
 
 
-def resident_bytes(D: int, H: int, L: int, nu: int, B: int, use_x_prev: bool, mode: str) -> int:
-    """The residency rule: the block's slices are copied into shared memory
-    once per launch where they fit beside the state (:func:`gen_smem`);
-    returns their bytes then, else 0 (they stream from L2)."""
+def launch_songs(nu: int, nv: int, L: int) -> int:
+    """The most songs one launch of the f32 / bf16 kernel takes: _G_MAX_SONGS
+    with one unit group a block; with several, the largest multiple of 16
+    whose c of both cells fits beside the streamed ring (:func:`gen_smem`);
+    0 where not even 16 songs fit (a call then raises)."""
+    if nv == 1:
+        return _G_MAX_SONGS
+    return next((b for b in range(_G_MAX_SONGS, 0, -16)
+                 if gen_smem(nu, b, L, 0, nv) <= _SMEM_LIMIT), 0)
+
+
+def resident_bytes(D: int, H: int, L: int, nu: int, B: int, use_x_prev: bool, mode: str,
+                   nv: int = 1) -> int:
+    """The residency rule: with one unit group a block, the block's slices
+    are copied into shared memory once per launch where they fit beside the
+    state (:func:`gen_smem`); returns their bytes then, else 0 (they stream
+    from L2, as they always do with several groups)."""
+    if nv != 1:
+        return 0
     res = slices_bytes(D, H, nu, use_x_prev, 2 if mode == "bf16" else 4)
     return res if gen_smem(nu, min(B, _G_MAX_SONGS), L, res) <= _SMEM_LIMIT else 0
 
 
 def _smem_bytes(D: int, H: int, L: int, mode: str = "f32") -> int:
-    nu = int8_grid(H, _H100_SMS)[0]  # a launch of the most songs, on an H100's grid
     if mode == "int8":
-        return _int8_smem(nu, _I8_MAX_SONGS, L)
-    return gen_smem(nu, _G_MAX_SONGS, L)
+        return _int8_smem(int8_grid(H, _H100_SMS)[0], _I8_MAX_SONGS, L)
+    nu, nv, _ = gen_grid(H, _H100_SMS)  # a launch of the most songs, on an H100's grid
+    return gen_smem(nu, max(launch_songs(nu, nv, L), 16), L, 0, nv)
 
 
 def smem_bytes(cfg, mode: str | None = None) -> int:
     """Shared memory of one block at a launch of the most songs on an
-    H100's grid, the weights streamed (:func:`gen_smem`; in int8 mode
-    :func:`_int8_smem`)."""
+    H100's grid, the weights streamed (:func:`gen_smem`, at least 16 songs;
+    in int8 mode :func:`_int8_smem`)."""
     return _smem_bytes(cfg.original_dim, cfg.intermediate_dim, cfg.latent_dim,
                        mode or pick_mode(cfg))
 
 
 def fits(cfg, mode: str | None = None) -> bool:
-    """Do an H100's 132 blocks cover the units (at most 20 a block, 16 in
-    int8 mode), and does one block's state fit Hopper's shared memory?"""
+    """Does the kernel take the config on an H100's 132 SMs? In f32 / bf16
+    at any width whose unit groups' c of 16 songs fits a block's shared
+    memory beside the ring (:func:`gen_grid`, :func:`launch_songs`; past
+    H ~ 80,000 at L=2); in int8 mode where the blocks cover the units with
+    at most 16 a block and one block's state fits."""
     mode = mode or pick_mode(cfg)
-    cap = _I8_MAX_UNITS if mode == "int8" else _G_MAX_UNITS
-    if int8_grid(cfg.intermediate_dim, _H100_SMS)[0] > cap:
+    if mode == "int8" and int8_grid(cfg.intermediate_dim, _H100_SMS)[0] > _I8_MAX_UNITS:
         return False
     return smem_bytes(cfg, mode) <= _SMEM_LIMIT
 
@@ -444,25 +485,30 @@ def _kernels():
             lib = _build.load("generate_cl_vrnn")
             P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             fn = lib.cvl_generate_cl_vrnn_smem_bytes
-            fn.argtypes, fn.restype = [I] * 8, LL
+            fn.argtypes, fn.restype = [I] * 9, LL
             i8 = lib.cvl_generate_cl_vrnn_int8_smem_bytes
             i8.argtypes, i8.restype = [I] * 3, LL
             lib.cvl_generate_cl_vrnn_int8_state_words.argtypes = [I] * 4
             lib.cvl_generate_cl_vrnn_int8_state_words.restype = LL
             lib.cvl_generate_cl_vrnn_state_bytes.argtypes = [I] * 5
             lib.cvl_generate_cl_vrnn_state_bytes.restype = LL
-            for nu, B, D, H, L, xp, b in ((2, 64, 88, 256, 8, 1, 0), (8, 256, 88, 1024, 2, 1, 1),
-                                          (2, 1, 13, 7, 3, 0, 1), (16, 100, 88, 2048, 2, 0, 0)):
-                for res in (0, 1):
-                    want = gen_smem(nu, B, L, slices_bytes(D, H, nu, xp, 2 if b else 4) * res)
-                    if fn(nu, B, D, H, L, xp, b, res) != want:
+            for nu, B, D, H, L, xp, b, nv in ((2, 64, 88, 256, 8, 1, 0, 1),
+                                              (8, 256, 88, 1024, 2, 1, 1, 1),
+                                              (2, 1, 13, 7, 3, 0, 1, 1),
+                                              (16, 100, 88, 2048, 2, 0, 0, 1),
+                                              (16, 256, 88, 4096, 2, 1, 1, 2),
+                                              (12, 48, 13, 2688, 5, 0, 0, 3)):
+                for res in (0, 1) if nv == 1 else (0,):
+                    want = gen_smem(nu, B, L, slices_bytes(D, H, nu, xp, 2 if b else 4) * res,
+                                    nv)
+                    if fn(nu, B, D, H, L, xp, b, res, nv) != want:
                         raise RuntimeError("shared-memory layout of csrc/generate_cl_vrnn.cu "
                                            f"differs from gen_smem at nu={nu}, B={B}, H={H}")
             for nu, B, L in ((2, 1, 3), (12, 64, 2), (14, 100, 2), (16, 256, 16)):
                 if i8(nu, B, L) != _int8_smem(nu, B, L):
                     raise RuntimeError("shared-memory layout of the int8 kernel differs from "
                                        f"_int8_smem at nu={nu}, B={B}, L={L}")
-            lib.cvl_generate_cl_vrnn.argtypes = [I] + [P] * 15 + [I] * 10 + [P]
+            lib.cvl_generate_cl_vrnn.argtypes = [I] + [P] * 15 + [I] * 11 + [P]
             lib.cvl_generate_cl_vrnn_int8.argtypes = [P] * 20 + [I] * 9 + [P]
             lib.cvl_generate_cl_vrnn.restype = lib.cvl_generate_cl_vrnn_int8.restype = I
             _lib = lib
@@ -481,8 +527,9 @@ def _check(params, cfg, x_seeds, nsteps, eps, u, ws, mode=None):
     if D != cfg.original_dim:
         raise ValueError(f"seed width {D} != original_dim {cfg.original_dim}")
     if not fits(cfg, mode):
-        raise ValueError(f"state of one block needs {smem_bytes(cfg, mode)} B of shared memory "
-                         f"(limit {_SMEM_LIMIT}); hidden {H} is too wide for this kernel")
+        raise ValueError(f"the state of one block at the fewest songs a launch takes needs "
+                         f"{smem_bytes(cfg, mode)} B of shared memory, past the limit of "
+                         f"{_SMEM_LIMIT} B: hidden {H}, latent {L}")
     dev = x_seeds.device
     if mode == "int8":
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -492,10 +539,11 @@ def _check(params, cfg, x_seeds, nsteps, eps, u, ws, mode=None):
                              f"kernel takes at most {_I8_MAX_UNITS}")
     elif dev.type == "cuda":
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        nu = int8_grid(H, n_sm)[0]
-        if nu > _G_MAX_UNITS or gen_smem(nu, min(B, _G_MAX_SONGS), L) > _SMEM_LIMIT:
-            raise ValueError(f"hidden {H} needs {nu} units a block on {n_sm} SMs; the kernel "
-                             f"takes at most {_G_MAX_UNITS}: hidden {H} is too wide")
+        nu, nv, _ = gen_grid(H, n_sm)
+        if launch_songs(nu, nv, L) == 0:
+            raise ValueError(f"hidden {H} needs {nv} groups of {nu} units a block on {n_sm} "
+                             f"SMs, whose c of 16 songs needs {gen_smem(nu, 16, L, 0, nv)} B "
+                             f"of shared memory, past the limit of {_SMEM_LIMIT} B")
     n_xp = D if cfg.use_x_prev else 0
     expect = {
         "x_seeds": (x_seeds, (B, Tseed, D)), "eps": (eps, (B, total, L)),
@@ -555,24 +603,25 @@ def _launch_int8(lib, w, cfg, x_seeds, eps, u, out, return_probs, stream, clock=
 
 def _launch_gen(lib, w, cfg, x_seeds, eps, u, out, return_probs, stream, mode, clock=None):
     """The f32 / bf16 kernel on :func:`_pack`'s operands: the slices packed
-    per block (:func:`pack_slices`, :func:`pack_head`), then one
-    cooperative launch per _G_MAX_SONGS songs, each with its zeroed global
-    state and the slices resident where :func:`resident_bytes` says they
-    fit (``clock``, 10 int64 or None: the clock of :func:`phase_ms`).
+    per unit group (:func:`pack_slices`, :func:`pack_head`), then one
+    cooperative launch per :func:`launch_songs` songs, each with its zeroed
+    global state and the slices resident where :func:`resident_bytes` says
+    they fit (``clock``, 10 int64 or None: the clock of :func:`phase_ms`).
     Returns the first nonzero CUDA error."""
     B, Tseed, D = x_seeds.shape
     H, L, total = cfg.intermediate_dim, cfg.latent_dim, eps.shape[1]
     dev, bf16 = x_seeds.device, mode == "bf16"
-    nu = int8_grid(H, torch.cuda.get_device_properties(dev).multi_processor_count)[0]
+    nu, nv, _ = gen_grid(H, torch.cuda.get_device_properties(dev).multi_processor_count)
+    per = launch_songs(nu, nv, L)
     # held by name until the launches are queued
     enc = pack_slices(w["wke_x"], w["rke"], H, nu, D, bf16)
     dec = pack_slices(w["wkd_x"], w["rkd"], H, nu, D, bf16)
     head = pack_head(w["wx_t"], bf16)
     wkd_z = w["wkd_z"].float().contiguous()  # the z rows widened: z stays f32
-    for b0 in range(0, B, _G_MAX_SONGS):
-        b = slice(b0, min(B, b0 + _G_MAX_SONGS))
+    for b0 in range(0, B, per):
+        b = slice(b0, min(B, b0 + per))
         nb = b.stop - b0
-        res = resident_bytes(D, H, L, nu, nb, cfg.use_x_prev, mode)
+        res = resident_bytes(D, H, L, nu, nb, cfg.use_x_prev, mode, nv)
         state = torch.zeros(lib.cvl_generate_cl_vrnn_state_bytes(nb, D, H, L, int(bf16)),
                             dtype=torch.uint8, device=dev)
         rows = [t[b] for t in (x_seeds, eps, u)]  # leading rows: contiguous views
@@ -582,7 +631,7 @@ def _launch_gen(lib, w, cfg, x_seeds, eps, u, out, return_probs, stream, mode, c
             head.data_ptr(), encb.data_ptr(), w["wz_t"].data_ptr(), w["bz"].data_ptr(),
             wkd_z.data_ptr(), decb.data_ptr(), w["bx"].data_ptr(), out[b].data_ptr(),
             state.data_ptr(), None if clock is None else clock.data_ptr(), nb, Tseed, total, D, H,
-            L, int(cfg.use_x_prev), int(return_probs), nu, int(res > 0), stream)
+            L, int(cfg.use_x_prev), int(return_probs), nu, nv, int(res > 0), stream)
         if err != 0:
             return err
     return 0
@@ -596,7 +645,8 @@ PHASE_PARTS = ("encoder products", "encoder epilogue", "encoder wait", "z heads"
 
 def phase_ms(params, cfg, x_seeds, nsteps: int, eps, u, ws, mode: str) -> dict:
     """One launch of ``mode``'s kernel (counted, as the wrapper counts it)
-    on at most 256 songs on CUDA tensors, timed part by part on the card by
+    on the songs one launch takes (256, or :func:`launch_songs`) on CUDA
+    tensors, timed part by part on the card by
     block 0 (``%globaltimer``): ms of each of :data:`PHASE_PARTS` summed
     over the steps (a wait is the slowest block's lag and the barrier
     itself)."""
@@ -604,9 +654,12 @@ def phase_ms(params, cfg, x_seeds, nsteps: int, eps, u, ws, mode: str) -> dict:
     mode = _resolve_mode(cfg, mode)
     _check(params, cfg, x_seeds, nsteps, eps, u, ws, mode)
     B, Tseed, D = x_seeds.shape
-    if B > _I8_MAX_SONGS:
-        raise ValueError(f"one launch takes at most {_I8_MAX_SONGS} songs, got {B}")
     dev = x_seeds.device
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    nu, nv, _ = gen_grid(cfg.intermediate_dim, n_sm)
+    most = _I8_MAX_SONGS if mode == "int8" else launch_songs(nu, nv, cfg.latent_dim)
+    if B > most:
+        raise ValueError(f"one launch takes at most {most} songs, got {B}")
     lib = _kernels()
     with torch.cuda.device(dev):
         w = _pack(params, cfg, ws, D, mode)
@@ -634,8 +687,9 @@ def generate_cl_vrnn_batch_cuda(params, cfg, x_seeds, nsteps: int, eps, u, ws,
     x_seeds [B, Tseed, D]; eps [B, total, L]; u [B, total, D]; ws [B, K];
     returns [B, nsteps, D]. CUDA tensors launch a kernel on the current
     stream (or raise: there is no fallback): ``generate_kernel`` in f32 and
-    bf16 mode, ``generate_int8_kernel`` in int8 mode (each one cooperative
-    launch per 256 songs, counted as one call; a grid that cannot be
+    bf16 mode (at any width, :func:`gen_grid`), ``generate_int8_kernel`` in
+    int8 mode (each one cooperative launch per 256 songs, fewer where
+    :func:`launch_songs` says so, counted as one call; a grid that cannot be
     co-resident raises); CPU tensors take
     :func:`generate_cl_vrnn_batch_plain`. ``mode`` is ``"f32"``, ``"bf16"``
     or ``"int8"`` (default :func:`pick_mode`).

@@ -16,8 +16,8 @@ hidden units (:func:`coop_grid`) and pitch tiles of the frame head
 (:func:`head_split`), for the wider configs with hidden layers, in f32 /
 bf16 and with the three large weights as per-column int8 codes where the
 JAX package's precision rule says int8 (:func:`pick_mode`); and
-``generate_wide_kernel``, which reads f32 weights from L2 every step, for
-what neither takes (:func:`kernel_for`). The sampler is a pure function of
+``generate_wide_kernel``, which reads f32 or bf16 weights from L2 every
+step, for what neither takes (:func:`kernel_for`). The sampler is a pure function of
 its pre-drawn noise (``eps`` for z, ``u`` for the frames), so the kernels
 are held against :func:`generate_cl_vae_batch_plain` on the card and the
 plain version against the JAX package on the CPU, with the same noise.
@@ -283,24 +283,24 @@ def kernel_for(cfg, mode: str | None = None) -> str:
     serving bucket where both apply (PERF.md §6); the cooperative kernel in
     f32 / bf16 (``generate_cl_vae_coop``) for the other configs with hidden
     layers that it lays out (:func:`coop_plan`); and ``generate_cl_vae_wide``
-    for what neither takes: models without hidden layers whose weights do
-    not fit 8 blocks (f32 with x_prev from D ~ 670, whose D x D frame-head
-    rows do not; or a z-head width 2L x D past one block), and configs with
-    hidden layers past the cooperative kernel's latent width.
+    (f32 or bf16 weights) for what neither takes: models without hidden
+    layers whose weights do not fit 8 blocks (f32 with x_prev from D ~ 670,
+    whose D x D frame-head rows do not; or a z-head width 2L x D past one
+    block), and configs with hidden layers past the cooperative kernel's
+    latent width, in f32 and in bf16.
 
     The cooperative kernel keeps each block's columns of the z heads (in
     double) and of the decoder's z rows, and the songs' z, in shared
     memory, so it refuses a latent width past what one block holds beside
     its ring (:func:`coop_plan` raises): L <= 105 at D=1,024, H=5,120 on an
     H100, L <= 366 at D=88 from H=512, L <= 52 at H=7,808; the port's
-    checkpoints have L = 2 ... 16."""
+    checkpoints have L = 2 ... 16. Every config gets a kernel: none
+    raises here."""
     mode = mode or pick_mode(cfg)
     if mode == "int8":
         return "generate_cl_vae_int8"
     if fits(cfg, mode):
         return "generate_cl_vae_cluster"
-    if cfg.has_hidden and mode == "bf16":
-        return "generate_cl_vae_coop"  # the wide kernel takes f32 weights only
     if cfg.has_hidden:
         try:
             for B in (1, _COOP_ROWS):
@@ -684,7 +684,7 @@ def _kernels():
             lib.cvl_generate_cl_vae_coop_state_words.argtypes = [I] * 5
             lib.cvl_generate_cl_vae_coop_state_words.restype = LL
             lib.cvl_generate_cl_vae_cluster.argtypes = [P] * 18 + [I] * 18 + [P, P]
-            lib.cvl_generate_cl_vae_wide.argtypes = [P] * 16 + [I] * 11 + [P]
+            lib.cvl_generate_cl_vae_wide.argtypes = [I] + [P] * 16 + [I] * 11 + [P]
             lib.cvl_generate_cl_vae_coop.argtypes = [I] + [P] * 18 + [I] * 13 + [P]
             lib.cvl_generate_cl_vae_cluster_max_active.argtypes = [I] * 5 + [P]
             lib.cvl_generate_cl_vae_cluster_max_active.restype = I
@@ -936,9 +936,9 @@ def generate_cl_vae_batch_cuda(params, cfg, x_seeds, nsteps: int, eps, u, ws,
                                     dtype=torch.float32, device=dev)
             g = w.get
             err = lib.cvl_generate_cl_vae_wide(
-                *seeds, ptr(g("wke")), ptr(g("encb")), ptr(g("wkd_x")), ptr(g("wkd_z")),
-                ptr(g("decb")), ptr(w["wz_t"]), ptr(w["bz"] if hh else w["zb"]), ptr(g("wx")),
-                ptr(g("wx_z")), ptr(g("wx_xp")), ptr(w["bx"] if hh else w["xb"]),
+                _EBYTES[mode], *seeds, ptr(g("wke")), ptr(g("encb")), ptr(g("wkd_x")),
+                ptr(g("wkd_z")), ptr(g("decb")), ptr(w["wz_t"]), ptr(w["bz"] if hh else w["zb"]),
+                ptr(g("wx")), ptr(g("wx_z")), ptr(g("wx_xp")), ptr(w["bx"] if hh else w["xb"]),
                 out.data_ptr(), ptr(state), 0 if hh else 2 * L, 0 if hh else D, B, nsteps, D,
                 H, L, int(hh), *flags, stream)
     if err != 0:

@@ -79,6 +79,15 @@ def _load():
         return _lib
 
 
+def is_available() -> bool:
+    """Whether the library builds here (g++ at first use) and loads."""
+    try:
+        _load()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def sliding_window_native(roll: np.ndarray, seq_length: int, step_length: int = 1):
     """Sliding windows with the semantics of ``data.pianoroll.sliding_window``
     (quirk Q1: the final valid window is dropped), as float32."""

@@ -16,6 +16,10 @@ The per-song samplers (:func:`generate_cl_vrnn`, :func:`generate_cl_vae`)
 are the JAX package's per-song scans: plain PyTorch on whatever device
 their inputs are on (no kernel: the JAX scans never reach Pallas), each a
 ``torch.Generator`` wrapper over a noise-explicit core.
+
+The ``*_batch_dp`` samplers split the songs over a mesh's devices
+(:mod:`..parallel`): one process, zero collectives, each shard one call of
+the generation kernel on its device.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from ..models import cl_vae, cl_vrnn
 from ..nn.distributions import logistic_normal_from_eps, sample_w_discrete_from_u
 from ..ops.cuda_generate import generate_cl_vrnn_batch_cuda
 from ..ops.cuda_generate_vae import generate_cl_vae_batch_cuda
+from ..parallel import replicate
 
 
 def draw_generation_noise(generator: torch.Generator, B: int, total: int, latent_dim: int,
@@ -226,3 +231,68 @@ def generate_cl_vae(params, cfg: cl_vae.Config, x_seed, nsteps: int,
     u = torch.rand((nsteps, D), generator=generator, device=dev)
     return generate_cl_vae_noise(params, cfg, x_seed, nsteps, eps, u, w_val, eps_w,
                                  use_z_prior, w_sample, return_probs)
+
+
+def _dp_shards(x_seeds, mesh, params):
+    """(the mesh's data devices, the parameters' replica on each, rows a
+    shard); raises unless the songs divide by the data axis."""
+    B, n_data = x_seeds.shape[0], mesh.shape["data"]
+    if B % n_data != 0:
+        raise ValueError(f"batch {B} not divisible by data axis {n_data}")
+    reps = params if isinstance(params, list) else replicate(params, mesh)
+    return mesh.data_devices, reps, B // n_data
+
+
+def _run_shards(kernel, reps, devices, b, cfg, nsteps: int, x_seeds, eps, u, ws):
+    """``kernel(replica, cfg, seeds, nsteps, eps, u, ws)`` on each shard's
+    ``b`` rows, moved to its device; the frames gathered on the first
+    device."""
+    parts = []
+    for r, dev in enumerate(devices):
+        rows = slice(r * b, (r + 1) * b)
+        seeds_r, eps_r, u_r, ws_r = (t[rows].to(dev).contiguous() for t in (x_seeds, eps, u, ws))
+        parts.append(kernel(reps[r], cfg, seeds_r, nsteps, eps_r, u_r, ws_r))
+    return torch.cat([p.to(devices[0]) for p in parts])
+
+
+def generate_cl_vrnn_batch_dp(params, cfg: cl_vrnn.Config, x_seeds, nsteps: int,
+                              generator: torch.Generator, ws, mesh):
+    """Data-parallel batched generation over ``mesh``'s data axis.
+
+    The sampler is independent per song, so the songs split over the
+    mesh's devices with zero collectives, in one process: the noise is
+    drawn for all B songs from ``generator`` (on the seeds' device), as
+    :func:`generate_cl_vrnn_batch` draws it, and split with them; each
+    shard runs the generation kernel on its device (its plain version on
+    the CPU) with the parameters' replica there (``params`` a tree, copied
+    once a device, or the list ``parallel.replicate`` gave); the frames are
+    gathered on the mesh's first device. So the output is the single-device
+    sampler's for the same generator. ``x_seeds.shape[0]`` must divide by
+    the data axis.
+    """
+    B, Tseed, D = x_seeds.shape
+    devices, reps, b = _dp_shards(x_seeds, mesh, params)
+    eps, u = draw_generation_noise(generator, B, Tseed + nsteps, cfg.latent_dim, D,
+                                   device=x_seeds.device)
+    return _run_shards(generate_cl_vrnn_batch_cuda, reps, devices, b, cfg, nsteps,
+                       x_seeds, eps, u, ws)
+
+
+def generate_cl_vae_batch_dp(params, cfg: cl_vae.Config, x_seeds, nsteps: int,
+                             generator: torch.Generator, ws, mesh):
+    """Data-parallel cl_vae batched generation over ``mesh``'s data axis,
+    as :func:`generate_cl_vrnn_batch_dp`: the noise drawn for all B songs
+    (as :func:`generate_cl_vae_batch` draws it) and split with them, each
+    shard one call of the generation kernel on its device, the frames
+    gathered on the first device; exactly the single-device sampler's for
+    the same generator. ``ws=None`` infers each seed's deterministic
+    mean-logit key point (the sampler's ``w_vals=None``). ``x_seeds.shape[0]``
+    must divide by the data axis."""
+    B, D = x_seeds.shape
+    devices, reps, b = _dp_shards(x_seeds, mesh, params)
+    if ws is None:
+        ws = infer_w_cl_vae(reps[0], x_seeds.to(devices[0])).to(x_seeds.device)
+    eps, u = draw_generation_noise(generator, B, nsteps, cfg.latent_dim, D,
+                                   device=x_seeds.device)
+    return _run_shards(generate_cl_vae_batch_cuda, reps, devices, b, cfg, nsteps,
+                       x_seeds, eps, u, ws)

@@ -12,8 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from ..nn.distributions import (logistic_normal_from_eps, sample_gaussian,
-                                sample_w_discrete_from_u)
+from ..nn.distributions import logistic_normal_from_eps, sample_gaussian, sample_w_discrete
 
 
 def sample_x_from_u(u, x_mean):
@@ -42,7 +41,4 @@ def sample_z(generator: torch.Generator, args):
     return sample_gaussian(generator, z_mean, z_log_var)
 
 
-def sample_w_discrete(generator: torch.Generator, w):
-    """One-hot categorical draw from w (reference cl_vrnn/model.py:65-69)."""
-    u = torch.rand(w.shape[:-1], generator=generator, device=w.device, dtype=w.dtype)
-    return sample_w_discrete_from_u(u, w)
+__all__ = ["sample_w", "sample_w_discrete", "sample_x", "sample_x_from_u", "sample_z"]

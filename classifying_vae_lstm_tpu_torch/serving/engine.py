@@ -8,7 +8,9 @@ all touched by :meth:`GenerationEngine.warmup` before traffic (on the card
 the first call also builds the CUDA kernel). Each request is one launch of
 the family's whole-generation kernel (:mod:`..ops.cuda_generate`,
 :mod:`..ops.cuda_generate_vae`) on the engine's device; on the CPU, its
-plain version.
+plain version. With a mesh, a batch whose songs divide by its data axis
+splits over the mesh's devices (``generate_cl_*_batch_dp``: one launch a
+device), the others run on the first device alone, as in the JAX engine.
 
 :class:`DynamicBatcher` coalesces concurrent requests into one bucketed
 launch: the oldest request's arrival anchors the coalescing window, groups
@@ -31,7 +33,9 @@ from ..models import cl_vae
 from ..ops import cuda_generate, cuda_generate_vae
 from ..sampling.generate import (
     generate_cl_vae_batch,
+    generate_cl_vae_batch_dp,
     generate_cl_vrnn_batch,
+    generate_cl_vrnn_batch_dp,
     infer_w_cl_vae,
     infer_w_cl_vrnn,
 )
@@ -198,7 +202,11 @@ class GenerationEngine:
     frames (cl_vae); ``seed_keys``: optional key index per seed
     (key-filtered and true-key requests); ``seed``: seeds the engine's
     ``torch.Generator`` (sampling noise) and its host RNG (seed choice);
-    ``device``: ``"cuda"`` (the default; raises without a card) or ``"cpu"``.
+    ``device``: ``"cuda"`` (the default; raises without a card) or ``"cpu"``;
+    ``mesh``: a :class:`..parallel.Mesh` whose data axis the songs of a
+    batch split over (the engine then lives on its first device, and the
+    parameters are replicated once a device at construction); it must
+    divide some batch bucket.
     """
 
     BATCH_BUCKETS = (1, 4, 16, 64)
@@ -207,7 +215,15 @@ class GenerationEngine:
     def __init__(self, params, cfg, seed_bank: np.ndarray,
                  seed_keys: np.ndarray | None = None, seed: int = 0, device="cuda",
                  dynamic_batching: bool = False,
-                 batch_window_ms: float = DynamicBatcher.DEFAULT_WINDOW_MS):
+                 batch_window_ms: float = DynamicBatcher.DEFAULT_WINDOW_MS, mesh=None):
+        self.mesh = mesh
+        if mesh is not None:
+            n_data = mesh.shape["data"]
+            if not any(b % n_data == 0 for b in self.BATCH_BUCKETS):
+                raise ValueError(
+                    f"dp={n_data} divides no batch bucket {self.BATCH_BUCKETS}: "
+                    "every request would silently fall back to single-device")
+            device = mesh.data_devices[0]
         self.device = resolve_device(device)
         self.family = "cl_vae" if isinstance(cfg, cl_vae.Config) else "cl_vrnn"
         kernel = cuda_generate_vae if self.family == "cl_vae" else cuda_generate
@@ -218,6 +234,12 @@ class GenerationEngine:
         self.cfg = cfg
         self.mode = kernel.pick_mode(cfg)
         self.params = params_from_numpy(params, self.device)
+        # one replica a mesh device, made once (the first is self.params)
+        self._replicas = None
+        if mesh is not None:
+            from ..parallel import replicate
+
+            self._replicas = replicate(self.params, mesh)
         self.seed_bank = np.asarray(seed_bank, dtype=np.float32)
         self.seed_keys = seed_keys
         self._generator = torch.Generator(device=self.device)
@@ -285,9 +307,17 @@ class GenerationEngine:
         return out
 
     def _run(self, seeds, t, ws):
+        # with a mesh, a batch that divides by its data axis splits over it
+        dp = self.mesh is not None and seeds.shape[0] % self.mesh.shape["data"] == 0
         if self.family == "cl_vae":
+            if dp:
+                return generate_cl_vae_batch_dp(self._replicas, self.cfg, seeds, t,
+                                                self._generator, ws, self.mesh)
             return generate_cl_vae_batch(self.params, self.cfg, seeds, t, self._generator,
                                          w_vals=ws)
+        if dp:
+            return generate_cl_vrnn_batch_dp(self._replicas, self.cfg, seeds, t,
+                                             self._generator, ws, self.mesh)
         return generate_cl_vrnn_batch(self.params, self.cfg, seeds, t, self._generator, ws)
 
     def _infer_ws(self, seeds, m: int):

@@ -14,8 +14,18 @@ checkpointing and early stopping inert until ``min_epoch``, the Keras-style
 history dict and best-epoch selection, and the JAX package's mid-training
 resume (``opt_state``, ``initial_epoch``, ``save_last``), the per-epoch
 ``log_fn``, host streaming (``streaming``: :meth:`Trainer.train_epoch_streaming`)
-and a profiler trace of one epoch (``trace_dir``). The JAX package's
-whole-run program (``train_epochs``) and data parallelism are not ported.
+and a profiler trace of one epoch (``trace_dir``). :meth:`Trainer.train_epochs`
+runs E epochs in one call, as the JAX package's whole-run program does (here
+a loop over the epoch bodies).
+
+Data parallelism (``mesh``): one process a device under ``torch.distributed``,
+each rank holding the data and the parameters (see :mod:`..parallel`). Every
+rank draws the same permutation and, from the same generator calls as the
+single-device epoch, the global batch's noise (``noise_fn``, the model's
+``draw_apply_noise``); it keeps its rows of both, runs the model's loss on
+them and averages the gradients over the ranks before the optimizer's step
+(:func:`..parallel.shard_map_step.all_reduce_mean`). So a DP epoch equals
+the single-device epoch up to the order of the gradient mean, as in JAX.
 """
 
 from __future__ import annotations
@@ -29,6 +39,10 @@ import torch
 
 from .callbacks import AnnealSchedule, CheckpointPolicy, EarlyStoppingAfterEpoch
 from .checkpoint import save_checkpoint, sorted_leaves
+
+
+def _stack_epochs(metrics: list[dict]) -> dict:
+    return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
 
 
 def _leaves(tree) -> list:
@@ -58,12 +72,30 @@ class Trainer:
     element of :func:`..optim.init_optimizer`). Parameters are updated in
     place; ``generator`` (on the data's device) draws the shuffles and the
     model's noise.
+
+    ``mesh`` (a :class:`..parallel.Mesh` whose data axis is the world of an
+    initialised ``torch.distributed`` process group, this process one rank)
+    makes the epochs data-parallel; ``noise_fn(generator) -> dict`` then
+    draws the global batch's noise (the model's ``draw_apply_noise`` at the
+    batch size), and the data axis must divide the batch size.
     """
 
-    def __init__(self, loss_fn: Callable, optimizer: Callable, batch_size: int):
+    def __init__(self, loss_fn: Callable, optimizer: Callable, batch_size: int, mesh=None,
+                 noise_fn: Callable | None = None):
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.batch_size = batch_size
+        self.mesh = mesh
+        self.noise_fn = noise_fn
+        if mesh is not None:
+            from ..parallel import make_shard_map_train_step
+
+            if noise_fn is None:
+                raise ValueError("DP training needs the model's draw_apply_noise (noise_fn)")
+            n_data = mesh.shape["data"]
+            if batch_size % n_data != 0:
+                raise ValueError(f"--dp {n_data} must divide batch_size {batch_size}")
+            self._dp_step = make_shard_map_train_step(loss_fn, None, mesh)
 
     def init_optimizer(self, params) -> torch.optim.Optimizer:
         return self.optimizer(_leaves(params))
@@ -75,15 +107,37 @@ class Trainer:
         opt.step()
         return {k: v.detach() for k, v in metrics.items()}
 
+    def _rank_rows(self, batch_size: int) -> slice:
+        """This rank's rows of a global batch (its shard of the data axis)."""
+        import torch.distributed as dist
+
+        b = batch_size // self.mesh.shape["data"]
+        r = dist.get_rank()
+        return slice(r * b, (r + 1) * b)
+
+    def _dp_batch(self, data: dict, idx, generator) -> dict:
+        """This rank's rows of the global batch ``idx`` and of the global
+        batch's noise, drawn from ``generator`` where the single-device loss
+        draws it."""
+        noise = self.noise_fn(generator)
+        mine = self._rank_rows(len(idx))
+        local = {k: v.index_select(0, idx[mine]) for k, v in data.items()}
+        return {**local, **{k: v[mine] for k, v in noise.items()}}
+
     def train_epoch(self, params, opt, data: dict, generator, kl_w, class_w, w_kl_w) -> dict:
         """One shuffled pass over ``data`` (dict of [N, ...] tensors); returns
-        the mean of each metric, as device scalars."""
+        the mean of each metric, as device scalars (with a mesh: this rank's
+        shard of each batch, the metrics averaged over the ranks)."""
         n = next(iter(data.values())).shape[0]
         perm = torch.randperm(n, generator=generator, device=generator.device)
         B = self.batch_size
         metrics = []
         for i in range(n // B):
             idx = perm[i * B:(i + 1) * B]
+            if self.mesh is not None:
+                batch = self._dp_batch(data, idx, generator)
+                metrics.append(self._dp_step(params, opt, batch, None, kl_w, class_w, w_kl_w))
+                continue
             batch = {k: v.index_select(0, idx) for k, v in data.items()}
             metrics.append(self.train_step(params, opt, batch, generator, kl_w, class_w,
                                            w_kl_w))
@@ -108,13 +162,40 @@ class Trainer:
 
     @torch.no_grad()
     def eval_epoch(self, params, data: dict, generator, kl_w, class_w, w_kl_w) -> dict:
+        """The batches of ``data`` in order; the mean of each metric (with a
+        mesh: each rank's shard, the metrics averaged over the ranks)."""
         n = next(iter(data.values())).shape[0]
         B = self.batch_size
         metrics = []
         for i in range(n // B):
-            batch = {k: v[i * B:(i + 1) * B] for k, v in data.items()}
+            if self.mesh is not None:
+                idx = torch.arange(i * B, (i + 1) * B, device=generator.device)
+                batch = self._dp_batch(data, idx, generator)
+            else:
+                batch = {k: v[i * B:(i + 1) * B] for k, v in data.items()}
             metrics.append(self.loss_fn(params, batch, generator, kl_w, class_w, w_kl_w)[1])
-        return _mean(metrics)
+        m = _mean(metrics)
+        if self.mesh is not None:
+            from ..parallel.shard_map_step import average_metrics
+
+            m = average_metrics(m)
+        return m
+
+    def train_epochs(self, params, opt, data: dict, val_data: dict, generator, kl_ws, class_w,
+                     w_kl_ws):
+        """E epochs in one call, E = ``len(kl_ws)``: each a training epoch
+        (:meth:`train_epoch`) and a validation pass (:meth:`eval_epoch`) with
+        that epoch's anneal weights ``kl_ws[e]``, ``w_kl_ws[e]``, their draws
+        from ``generator`` in turn. Returns (params, opt, train metrics,
+        validation metrics), each metric a [E] tensor; the parameters are
+        updated in place. Best-epoch selection and early stopping stay with
+        the caller, as in the JAX package's ``train_epochs``."""
+        ms, vms = [], []
+        for kl_w, w_kl_w in zip(kl_ws, w_kl_ws):
+            kl_w, w_kl_w = float(kl_w), float(w_kl_w)
+            ms.append(self.train_epoch(params, opt, data, generator, kl_w, class_w, w_kl_w))
+            vms.append(self.eval_epoch(params, val_data, generator, kl_w, class_w, w_kl_w))
+        return params, opt, _stack_epochs(ms), _stack_epochs(vms)
 
 
 def _profiled(trace_dir: str, device: torch.device):

@@ -18,8 +18,8 @@
   route on it equals the port's (1e-5: the same rounding points). Its IW-NLL
   rounds no layer, in either package (JAX ``iw_nll_cl_vae`` passes no
   dtype).
-* ``--vanilla`` resolves ``pallas`` to ``xla``; every flag whose module is
-  not ported raises, naming the ROADMAP.
+* ``--vanilla`` resolves ``pallas`` to ``xla``; ``--dp`` past the devices
+  there are, or with ``--streaming``, raises the JAX package's message.
 """
 
 import argparse
@@ -189,11 +189,20 @@ def test_vanilla_trains_on_xla(tmp_path, monkeypatch, capsys):
     assert hist["w_acc"] == [1.0] and hist["w_loss"] == [0.0]
 
 
-@pytest.mark.parametrize("flag", sorted(tcommon.UNPORTED_FLAGS))
-def test_unported_flags_raise(flag):
-    extra = {"dp": ["--dp", "2"]}.get(flag, [f"--{flag}"])
-    args = tcli.build_parser().parse_args(["r", "--device", "cpu", *extra])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("flag", ["dp"])
+def test_unported_flags_raise(flag, tmp_path):
+    """--dp is ported (tests/test_torch_parallel.py trains through it); what
+    still raises is the JAX package's guard: more ranks than the devices
+    there are (on the CPU, its cores), and --dp with --streaming, before any
+    rank starts."""
+    n = tcommon.dp_device_count(torch.device("cpu"))
+    args = tcli.build_parser().parse_args(["r", "--device", "cpu", f"--{flag}", str(n + 1),
+                                           "--model_dir", str(tmp_path)])
+    with pytest.raises(ValueError, match=f"--dp {n + 1}: only {n} devices available"):
+        tcli.train(args)
+    args = tcli.build_parser().parse_args(["r", "--device", "cpu", f"--{flag}", "1",
+                                           "--streaming", "--model_dir", str(tmp_path)])
+    with pytest.raises(ValueError, match="--streaming"):
         tcli.train(args)
 
 

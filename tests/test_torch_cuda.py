@@ -1242,6 +1242,32 @@ def test_vae_coop_kernel_matches_plain(dev, case, zp, monkeypatch):
     assert torch.equal(fk, run(cgv.generate_cl_vae_batch_cuda, u, False))
 
 
+@pytest.mark.parametrize("use_x_prev", [False, True])
+def test_vae_wide_kernel_matches_plain_bf16(dev, use_x_prev):
+    """bf16 with hidden layers past the cooperative kernel's latent width
+    (D=1,024, H=5,120, L=106): the wide kernel's bf16 mode, probabilities
+    with u = 1 within max 2e-2 / mean 2e-3 of the plain version, frames
+    equal in >= 99.9% of entries, each call counted as the wide kernel's."""
+    params, cfg, (seeds, nsteps, eps, u, ws) = _vae_problem(
+        dev, B=5, nsteps=8, H=5120, D=1024, L=106, K=13, seed=12, use_x_prev=use_x_prev,
+        bf16=True)
+    assert cgv.pick_mode(cfg) == "bf16" and cgv.kernel_for(cfg) == "generate_cl_vae_wide"
+    before = (cgv.LAUNCHES, cgv.WIDE_LAUNCHES)
+    run = lambda f, uu, rp: f(params, cfg, seeds, nsteps, eps, uu, ws, return_probs=rp)
+    u1 = torch.ones_like(u)
+    pk, fk = run(cgv.generate_cl_vae_batch_cuda, u1, True), run(cgv.generate_cl_vae_batch_cuda,
+                                                                 u, False)
+    torch.cuda.synchronize()
+    assert (cgv.LAUNCHES, cgv.WIDE_LAUNCHES) == (before[0] + 2, before[1] + 2)
+    d = (pk - run(cgv.generate_cl_vae_batch_plain, u1, True)).abs()
+    assert d.max().item() <= 2e-2 and d.mean().item() <= 2e-3, (d.max(), d.mean())
+    frames_mostly_equal(fk, run(cgv.generate_cl_vae_batch_plain, u, False))
+    # bf16 really ran: the f32 weights give other probabilities
+    pf = cgv.generate_cl_vae_batch_cuda(params, cfg, seeds, nsteps, eps, u1, ws,
+                                        return_probs=True, mode="f32")
+    assert (pk - pf).abs().max().item() > 1e-6
+
+
 def test_vae_wrapper_raises_instead_of_falling_back(dev):
     params, cfg, (seeds, nsteps, eps, u, ws) = _vae_problem(dev, B=4, nsteps=4, H=16)
     before = cgv.LAUNCHES
@@ -1715,6 +1741,10 @@ GEN_CASES = {
     "bf16_b256_h512": dict(B=256, Tseed=3, nsteps=6, H=512, D=88, L=2, K=13, seed=8, bf16=True),
     # more songs than one launch takes (two cooperative launches, one call)
     "f32_b300": dict(B=300, Tseed=2, nsteps=4, H=64, seed=9),
+    # past 20 units a block on 132 SMs: blocks of two unit groups (gen_grid)
+    **{f"{m}_b8_h{H}": dict(B=8, Tseed=3, nsteps=6, H=H, D=88, L=2, K=13, seed=10,
+                            bf16=m == "bf16")
+       for m in ("f32", "bf16") for H in (2688, 4096)},
 }
 
 
@@ -1737,6 +1767,33 @@ def test_generate_kernel_buckets_and_widths(dev, case):
     assert torch.equal(pk, again)
     pp = run(cg.generate_cl_vrnn_batch_plain)
     d = (pk - pp).abs()
+    if bf16:
+        assert d.max().item() <= 2e-2 and d.mean().item() <= 2e-3, (d.max(), d.mean())
+    else:
+        assert d.max().item() <= 1e-5, d.max()
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_generate_kernel_unit_groups_across_launches(dev, bf16, monkeypatch):
+    """Blocks of two unit groups (H=2,688) where one launch takes only 16
+    songs (the shared-memory limit lowered to the state of 16): 40 songs
+    in three launches of one counted call, against the plain version with
+    the bounds of :func:`test_generate_kernel_buckets_and_widths`."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    nu, nv, _ = cg.gen_grid(2688, n_sm)
+    assert nv > 1
+    monkeypatch.setattr(cg, "_SMEM_LIMIT", cg.gen_smem(nu, 16, 2, 0, nv))
+    assert cg.launch_songs(nu, nv, 2) == 16
+    params, cfg, (seeds, nsteps, eps, u, ws) = _problem(dev, B=40, Tseed=2, nsteps=4, H=2688,
+                                                        D=88, L=2, K=13, seed=11, bf16=bf16)
+    mode = "bf16" if bf16 else "f32"
+    run = lambda f: f(params, cfg, seeds, nsteps, eps, torch.ones_like(u), ws,
+                      return_probs=True, mode=mode)
+    before = cg.LAUNCHES
+    pk = run(cg.generate_cl_vrnn_batch_cuda)
+    torch.cuda.synchronize()
+    assert cg.LAUNCHES == before + 1
+    d = (pk - run(cg.generate_cl_vrnn_batch_plain)).abs()
     if bf16:
         assert d.max().item() <= 2e-2 and d.mean().item() <= 2e-3, (d.max(), d.mean())
     else:

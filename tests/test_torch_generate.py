@@ -147,4 +147,5 @@ def test_modes_and_kernel_input_checks():
         u_t = _t(np.ascontiguousarray(a["u"].transpose(1, 0, 2))).transpose(0, 1)
         cuda_generate._check(tparams, tcfg, targs[0], nsteps, targs[2], u_t, targs[4])
     assert cuda_generate.fits(tcl.Config(intermediate_dim=2048))
-    assert not cuda_generate.fits(tcl.Config(intermediate_dim=4096))
+    assert cuda_generate.fits(tcl.Config(intermediate_dim=4096))
+    assert not cuda_generate.fits(tcl.Config(intermediate_dim=100_000))

@@ -76,7 +76,7 @@ def _emulated(params, cfg, seeds, nsteps, eps, u, ws, mode, return_probs, n_sm=1
     B, Tseed, D = seeds.shape
     H, L = cfg.intermediate_dim, cfg.latent_dim
     w = cg._pack(params, cfg, ws, D, mode)
-    nu = cg.int8_grid(H, n_sm)[0]
+    nu = cg.gen_grid(H, n_sm)[0]  # a unit group's units (a block's, where it owns one)
     cols = cg._slice_cols(H, nu)                       # [G, 4 nu]
     keep = (cols < 4 * H).reshape(-1)
     Kx, Kh, Bp = cg.round16(D), cg.round16(H), cg.round16(B)
@@ -231,8 +231,9 @@ def test_residency_and_width_rule():
     serving bucket; the slices stream from L2 at bf16 H=1,536 and 2,048.
     Every H the first kernel took (one block's 4-song state in shared
     memory, up to H ~ 2,230) still fits, the JAX auto bf16 checkpoints at
-    H=1,024 and 2,048 included; H=4,096 does not (more than 20 units a
-    block on 132 SMs)."""
+    H=1,024 and 2,048 included; so does H=4,096 (blocks of two unit groups,
+    ``gen_grid``), and only a width whose groups' c of 16 songs passes a
+    block's shared memory does not."""
     for B in (1, 4, 16, 64, 256):
         assert cg.resident_bytes(88, 256, 8, 2, B, True, "f32") == 22528
         assert cg.resident_bytes(88, 512, 2, 4, B, True, "bf16") == 38912
@@ -250,18 +251,20 @@ def test_residency_and_width_rule():
                 cfg = tcl.Config(original_dim=D, intermediate_dim=H, latent_dim=L,
                                  bf16_compute=bf16)
                 assert cg.fits(cfg, "bf16" if bf16 else "f32"), (D, H, L)
-    assert not cg.fits(tcl.Config(intermediate_dim=4096))
+    assert cg.fits(tcl.Config(intermediate_dim=4096))
+    assert not cg.fits(tcl.Config(intermediate_dim=100_000))
 
 
 @pytest.mark.parametrize("mode", ["f32", "bf16"])
 @pytest.mark.parametrize("shape", [dict(), dict(B=1, H=8, use_x_prev=False),
                                    dict(B=20, H=70, D=88, L=2, seed=1),
-                                   dict(B=5, H=24, n_sm=3)])
+                                   dict(B=5, H=24, n_sm=3), dict(B=5, H=48, n_sm=2)])
 def test_emulated_kernel_matches_plain(mode, shape):
     """The kernel's order on the packed operands against
     ``generate_cl_vrnn_batch_plain``: f32 frames equal and probabilities
     within 1e-5; bf16 probabilities with u = 1 within 2e-3. ``n_sm=3``
-    gives blocks of many units (nu = 8 at H=24)."""
+    gives blocks of many units (nu = 8 at H=24); ``n_sm=2`` blocks of two
+    unit groups of 12 (24 units a block at H=48, past 20)."""
     n_sm = shape.pop("n_sm", 132)
     bf16 = mode == "bf16"
     jcfg, params, tcfg, a, nsteps = _setup(bf16=bf16, **shape)

@@ -121,11 +121,11 @@ def _routing_grid():
 def test_routing_gives_every_config_a_kernel():
     """Every f32 / bf16 config takes a kernel: the cluster one wherever its
     plan fits (the committed checkpoints at C = 1), else with hidden layers
-    the cooperative one (bf16 always; f32 where it lays the config out),
-    else the wide one, which takes f32 weights only. The wide kernel keeps
-    exactly these configs: without hidden layers and past 8 blocks (x_prev
-    from D ~ 670), and f32 with hidden layers past the cooperative kernel's
-    latent width."""
+    the cooperative one where it lays the config out, else the wide one
+    (f32 or bf16 weights). The wide kernel keeps exactly these configs:
+    without hidden layers and past 8 blocks (x_prev from D ~ 670), and f32
+    or bf16 with hidden layers past the cooperative kernel's latent
+    width."""
     seen = set()
     for cfg, mode in _routing_grid():
         assert cgv.pick_mode(cfg) == mode
@@ -136,17 +136,17 @@ def test_routing_gives_every_config_a_kernel():
             assert plan is not None and plan["C"] in (1, 2, 4, 8)
         elif kernel == "generate_cl_vae_coop":
             assert cfg.has_hidden and plan is None
-            if mode == "f32":
-                cgv.coop_plan(cfg, 64, 132, mode)
+            cgv.coop_plan(cfg, 64, 132, mode)
         else:
             assert kernel == "generate_cl_vae_wide" and mode == "f32" and plan is None
             assert not cfg.has_hidden, (cfg, mode)
             assert cfg.original_dim >= 670 and cfg.use_x_prev
     assert seen == {"generate_cl_vae_cluster", "generate_cl_vae_coop", "generate_cl_vae_wide"}
-    # past the cooperative kernel's latent width, f32 with hidden layers
+    # past the cooperative kernel's latent width, with hidden layers: the
+    # wide kernel in f32 and in bf16
     wide_l = _cfg(1024, 5120, 106, False, "f32")
     assert cgv.kernel_for(wide_l) == "generate_cl_vae_wide"
-    assert cgv.kernel_for(dataclasses.replace(wide_l, bf16_compute=True)) == "generate_cl_vae_coop"
+    assert cgv.kernel_for(dataclasses.replace(wide_l, bf16_compute=True)) == "generate_cl_vae_wide"
     for name in CHECKPOINTS:
         _, cfg, _ = tcommon.load_model(f"artifacts/{name}.npz", "cl_vae")
         mode = cgv.pick_mode(cfg)

@@ -22,6 +22,9 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"]
     assert len(files) >= 25
+    # the data-parallel package too
+    assert {"__init__.py", "mesh.py", "shard_map_step.py"} <= {
+        f.name for f in files if f.parent.name == "parallel"}
     bad = [(str(f.relative_to(PORT.parent)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "classifying_vae_lstm_tpu")]
     assert not bad, bad
@@ -46,15 +49,20 @@ def test_cuda_requested_without_a_card_raises():
 def test_unported_paths_raise_naming_the_roadmap():
     from classifying_vae_lstm_tpu_torch.cli import cl_vae_sample, cl_vrnn_sample, serve
 
+    # --dp is ported: serve builds an engine over a two-way CPU mesh, and a
+    # --dp past the devices there are raises the JAX package's message
     for model in ("artifacts/jsball_vrnn4.npz", "artifacts/jsball_vae.npz"):
         args = serve.build_parser().parse_args(["-i", model, "--device", "cpu", "--dp", "2"])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            serve.build_engine(args)
+        engine = serve.build_engine(args)[0]
+        assert engine.mesh.shape == {"data": 2, "model": 1} and engine.device.type == "cpu"
+    args = serve.build_parser().parse_args(["-i", model, "--device", "cpu", "--dp", "100000"])
+    with pytest.raises(ValueError, match="--dp 100000: only .* devices available"):
+        serve.build_engine(args)
     assert serve.build_parser().parse_args(["-i", "m.npz"]).device == "cuda"
     for cli in (cl_vae_sample, cl_vrnn_sample):
         assert cli.build_parser().parse_args(["r"]).device == "cuda"
 
-    # training: the train flags whose modules are not ported (--dp) raise; every
+    # training: --dp needs its devices (the card by default); every
     # fusion rung of the whole-sequence LSTM kernels runs (the proj-only rung
     # that JAX auto pins at H >= 1,579 gives, without a gradient, the default
     # rung's output: every proj rung shares its forward)
@@ -78,8 +86,11 @@ def test_unported_paths_raise_naming_the_roadmap():
                                                         two_cell=two_cell), x,
                             torch.Generator().manual_seed(1))
         assert torch.isfinite(out["X_decoded_mean"]).all()
-    for flag in common.UNPORTED_FLAGS:
-        extra = {"dp": ["--dp", "2"]}.get(flag, [f"--{flag}"])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cl_vrnn_train.train(cl_vrnn_train.build_parser().parse_args(["r", *extra]))
+    # --dp on the default device: the card, which this machine may lack
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            cl_vrnn_train.train(cl_vrnn_train.build_parser().parse_args(["r", "--dp", "2"]))
+    with pytest.raises(ValueError, match="--dp 2 must divide --batch_size 201"):
+        common.check_dp(cl_vrnn_train.build_parser().parse_args(
+            ["r", "--dp", "2", "--batch_size", "201", "--device", "cpu"]))
     assert cl_vrnn_train.build_parser().parse_args(["r"]).device == "cuda"

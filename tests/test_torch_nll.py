@@ -202,12 +202,24 @@ def test_cli_evaluates_a_proj_only_checkpoint_to_the_jax_nll(tmp_path, monkeypat
 
 
 def test_unported_options_raise_naming_the_roadmap():
-    for model in ("artifacts/jsball_vrnn4.npz", "artifacts/jsbcs_vae.npz"):
-        args = teval.build_parser().parse_args(["-i", model, "--device", "cpu", "--dp", "2"])
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
-            teval.evaluate(args)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
-        tnll.iw_nll_dataset_dp()
+    """--dp is ported: ``evaluate --dp 2`` splits each batch over a two-way
+    CPU mesh and prints the single-device run's NLL; a --dp past the
+    devices there are raises, and ``iw_nll_dataset_dp`` wants a batch
+    size that the data axis divides."""
+    for model, family in (("artifacts/jsball_vrnn4.npz", "cl_vrnn"),
+                          ("artifacts/jsbcs_vae.npz", "cl_vae")):
+        argv = ["-i", model, "--device", "cpu", "--train_file", "data/input/Piano-midi_Cs.pickle",
+                "--n_samples", "2", "--batch_size", "1000"]
+        one = teval.evaluate(teval.build_parser().parse_args(argv))
+        two = teval.evaluate(teval.build_parser().parse_args([*argv, "--dp", "2"]))
+        assert two == one and one["family"] == family
+        with pytest.raises(ValueError, match="--dp 100000: only .* devices available"):
+            teval.evaluate(teval.build_parser().parse_args([*argv, "--dp", "100000"]))
+    from classifying_vae_lstm_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="batch_size 5 not divisible by data axis 2"):
+        tnll.iw_nll_dataset_dp({}, None, {"x": torch.zeros(4, 2)}, torch.Generator(), 2, 5,
+                               "cl_vae", make_mesh(2, devices=["cpu"] * 2))
     assert not hasattr(tnll, "CL_VAE_TODO")  # the cl_vae estimator is ported
     assert teval.build_parser().parse_args(["-i", "m.npz"]).device == "cuda"
 

@@ -307,7 +307,8 @@ def test_cl_vae_engine_takes_wide_and_no_hidden_checkpoints(tmp_path, hidden, mo
     in f32: the cluster kernel on two blocks), or without hidden layers,
     serves on the CPU, and on a card the engine does not refuse it before
     any request (the cl_vrnn engine still refuses a model too wide for its
-    kernel)."""
+    kernel: past H ~ 80,000, where a block's unit groups no longer hold 16
+    songs' state)."""
     from classifying_vae_lstm_tpu_torch.cli import cl_vae_train
     from classifying_vae_lstm_tpu_torch.ops import cuda_generate
     from classifying_vae_lstm_tpu_torch.serving import engine as engine_mod
@@ -339,7 +340,7 @@ def test_cl_vae_engine_takes_wide_and_no_hidden_checkpoints(tmp_path, hidden, mo
     with pytest.raises(Exception) as e:
         GenerationEngine(eng.params, eng.cfg, eng.seed_bank, device="cuda")
     assert "too wide" not in str(e.value)
-    wide_vrnn = tcl.Config(original_dim=88, intermediate_dim=4096, latent_dim=2, n_classes=2)
+    wide_vrnn = tcl.Config(original_dim=88, intermediate_dim=100_000, latent_dim=2, n_classes=2)
     assert not cuda_generate.fits(wide_vrnn)
     with pytest.raises(ValueError, match="too wide"):
         GenerationEngine({}, wide_vrnn, eng.seed_bank, device="cuda")

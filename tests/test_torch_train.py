@@ -13,7 +13,8 @@
   package loads (``cli/common.load_model``) and that gives the same loss
   under the same noise in both packages (rtol 1e-5, f32 summation order),
   and that the port's serving engine generates from.
-* Every flag whose module is not ported raises, naming the ROADMAP.
+* ``--dp`` past the devices there are, or with ``--streaming``, raises the
+  JAX package's message.
 """
 
 import argparse
@@ -121,11 +122,20 @@ def test_cli_run_checkpoint_loads_in_both_packages(tmp_path):
     assert rolls.shape == (2, 8, 88) and set(np.unique(rolls).tolist()) <= {0.0, 1.0}
 
 
-@pytest.mark.parametrize("flag", sorted(tcommon.UNPORTED_FLAGS))
-def test_unported_flags_raise(flag):
-    extra = {"dp": ["--dp", "2"]}.get(flag, [f"--{flag}"])
-    args = tcli.build_parser().parse_args(["r", "--device", "cpu", *extra])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("flag", ["dp"])
+def test_unported_flags_raise(flag, tmp_path):
+    """--dp is ported (tests/test_torch_parallel.py trains through it); what
+    still raises is the JAX package's guard: more ranks than the devices
+    there are (on the CPU, its cores), and --dp with --streaming, before any
+    rank starts."""
+    n = tcommon.dp_device_count(torch.device("cpu"))
+    args = tcli.build_parser().parse_args(["r", "--device", "cpu", f"--{flag}", str(n + 1),
+                                           "--model_dir", str(tmp_path)])
+    with pytest.raises(ValueError, match=f"--dp {n + 1}: only {n} devices available"):
+        tcli.train(args)
+    args = tcli.build_parser().parse_args(["r", "--device", "cpu", f"--{flag}", "1",
+                                           "--streaming", "--model_dir", str(tmp_path)])
+    with pytest.raises(ValueError, match="--streaming"):
         tcli.train(args)
 
 
