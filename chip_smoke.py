@@ -363,7 +363,26 @@ failure:
    within 1e-4 of the single-device NLL; then ``cli.serve --dp 2`` on that
    mesh answering requests through ``generate_cl_vrnn_batch_dp`` (both
    CLIs' ``dp_mesh`` given the two-shard mesh: ``--dp`` past the card
-   count raises).
+   count raises);
+37. tensor parallelism on a ``(1, 2)`` mesh that repeats the card, each run
+   once with the parameters replicated and once column-sharded over the
+   two model devices (``weights.params_on_model_axis``): (a) 4 steps of the
+   f32 two-cell cl_vrnn at phase 6's width, (b) 3 steps of phase 21's bf16
+   H=1,024 cl_vrnn (``--two_cell off``), (c) 6 steps of the f32 cl_vae
+   through the dense-stack kernels, (d) ``iw_nll_dataset`` of c5m through
+   the H=88 inference kernel (two batches of 200 test windows), (e)
+   ``generate_cl_vrnn_batch`` of jsball_vrnn4 (64 x (32 + 64)), (f) run (a)
+   through ``Trainer(mesh=make_mesh(1, 2, [card, card]))`` in a one-rank
+   NCCL group; losses within rtol 1e-5 (phase 35's), final parameters
+   within 1e-5 as each leaf's relative norm of the difference and, element
+   by element, within JAX ``tests/test_parallel.py``'s TP bound (rtol
+   1e-3, atol 1e-5) ((b): phase 21's relative 1e-2, on the losses and each
+   leaf's norm), NLLs per window within rtol 1e-5, generation bitwise equal; every
+   launch count (set to 0 just before each run) equal to the replicated
+   run's and > 0 for the run's kernels, the shard-product count
+   (``parallel.columns.SHARD_PRODUCTS``: the heads' column-parallel
+   products) > 0 on the TP runs that have plain products; ms per step TP
+   against replicated (the median after each run's first step).
 
 The run prints each phase's wall time, and fails if a thread it started is
 still running at the end.
@@ -385,6 +404,7 @@ import functools
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -4918,8 +4938,286 @@ def phase_dp_sharded(dev):
     return dp_gen + served, dp_vae, dp_eval
 
 
+def _tp_counts() -> dict:
+    """Every launch count a phase-37 run can move: the LSTM and two-cell
+    counts, the dense-stack counts and the cl_vrnn generation count."""
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate as cg
+
+    counts = _lstm_counts()
+    counts.update(zip(("DENSE_FWD", "DENSE_BWD", "DENSE_BF16_FWD", "DENSE_BF16_BWD"),
+                      _dense_counts()))
+    counts["GENERATE"] = cg.LAUNCHES
+    return counts
+
+
+def _reset_tp_counts():
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate as cg
+    from classifying_vae_lstm_tpu_torch.parallel import columns
+
+    _reset_lstm_counts()
+    _reset_dense_counts()
+    cg.LAUNCHES = 0
+    columns.SHARD_PRODUCTS = 0
+
+
+def _params_apart(tp, one, rel):
+    """(bitwise equal, max(|tp - one| - rel |one|), the largest relative
+    norm ||tp - one|| / ||one|| of a leaf) over two parameter trees, read on
+    the host (column shards gathered)."""
+    from classifying_vae_lstm_tpu_torch.cli.common import tree_to_cpu
+
+    tp, one = tree_to_cpu(tp), tree_to_cpu(one)
+    worst, norm, bitwise = 0.0, 0.0, True
+    for layer in one:
+        for leaf in one[layer]:
+            a, b = tp[layer][leaf], one[layer][leaf]
+            bitwise &= bool((a == b).all())
+            worst = max(worst, ((a - b).abs() - rel * b.abs()).max().item())
+            norm = max(norm, ((a - b).norm() / b.norm().clamp_min(1e-30)).item())
+    return bitwise, worst, norm
+
+
+def _tp_train(dev, mod, cfg, raw, data, B, placing, mesh=None):
+    """One training epoch of ``data`` (its rows / B steps) through a
+    ``Trainer``, from ``raw`` placed by ``placing`` (``"replicated"`` on the
+    card, ``"tp"`` column-sharded over ``[dev, dev]``, ``"mesh"``: the
+    Trainer's own placement on ``mesh``, a DP rank); every count set to 0
+    just before the epoch and read just after. Returns the loss, the final
+    parameters, the counts, the shard products and ms per step."""
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.optim import init_optimizer
+    from classifying_vae_lstm_tpu_torch.parallel import columns
+    from classifying_vae_lstm_tpu_torch.train import Trainer
+    from classifying_vae_lstm_tpu_torch.train.loop import copy_params
+    from classifying_vae_lstm_tpu_torch.weights import params_from_numpy, params_on_model_axis
+
+    def loss_fn(p, b, g, kl_w, class_w, w_kl_w):
+        return mod.loss_and_metrics(p, cfg, b, g, kl_w, class_w, w_kl_w)
+
+    noise_fn = (lambda g: mod.draw_apply_noise(g, cfg, B)) if mesh is not None else None
+    trainer = Trainer(loss_fn, init_optimizer("adam-wn")[0], B, mesh=mesh, noise_fn=noise_fn)
+    params = (params_on_model_axis(raw, [dev, dev]) if placing == "tp"
+              else trainer.place(params_from_numpy(raw, dev)))
+    params = copy_params(params, requires_grad=True)
+    opt = trainer.init_optimizer(params)
+    g = torch.Generator(device=dev).manual_seed(SEED + 37)
+    name = "train_step" if mesh is None else "_dp_step"  # the epoch's step of this path
+    real_step, ends = getattr(trainer, name), []
+
+    def timed_step(*a, **k):
+        out = real_step(*a, **k)
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        return out
+
+    setattr(trainer, name, timed_step)
+    torch.cuda.synchronize()
+    _reset_tp_counts()
+    t0 = time.perf_counter()
+    m = trainer.train_epoch(params, opt, data, g, 1.0, 1.0, 1.0)
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    step_ms = [(b - a) * 1e3 for a, b in zip([t0] + ends, ends)]
+    # ms per step: the median after the first step, which carries the warm-up
+    return {"loss": loss, "params": params, "counts": _tp_counts(),
+            "shard": columns.SHARD_PRODUCTS, "ms": statistics.median(step_ms[1:]),
+            "first_ms": step_ms[0]}
+
+
+def _tp_pair(label, runs, need, ms_rows, heads=True, bf16=False):
+    """Hold a TP run against the replicated one: losses (rtol 1e-5; bf16:
+    phase 21's 1e-2); final parameters, each leaf's relative norm of the
+    difference within 1e-5 (bf16: phase 21's 1e-2) and, in f32, every
+    element within JAX ``tests/test_parallel.py``'s bound for its TP epoch
+    against one device (rtol 1e-3, atol 1e-5); every launch count (equal,
+    the ``need``ed ones > 0) and the shard products (0 on the replicated
+    run; on the TP run > 0 where plain products, the heads', sit outside the
+    kernels, else 0). Phase 35's elementwise metric is printed beside: the
+    column-split products sum in another order, and AdamWN turns an
+    ulp-level gradient difference of a near-zero gradient into a visible
+    step, so a few elements move past its 1e-6 (``PERF.md`` §6 has the figures)."""
+    one, tp = runs["replicated"], runs["tp"]
+    loss_rtol, norm_limit = (1e-2, 1e-2) if bf16 else (1e-5, 1e-5)
+    rel = abs(tp["loss"] - one["loss"]) / abs(one["loss"])
+    bitwise, worst, norm = _params_apart(tp["params"], one["params"], 1e-4)
+    _, jax_tp, _ = _params_apart(tp["params"], one["params"], 1e-3)
+    print(f"{label}: loss TP {tp['loss']!r}, replicated {one['loss']!r} (relative "
+          f"{rel:.3e}, limit {loss_rtol}); final parameters bitwise "
+          f"{'equal' if bitwise else 'unequal'}, largest relative norm of a leaf's "
+          f"difference {norm:.3e} (limit {norm_limit}), max(|tp - one| - 1e-3 |one|) "
+          f"{jax_tp:.3e}{' (limit 1e-5)' if not bf16 else ''}, max(|tp - one| - 1e-4 |one|) "
+          f"{worst:.3e}; launches {nonzero(tp['counts'])} against {nonzero(one['counts'])}; "
+          f"shard products {tp['shard']} (replicated {one['shard']}); ms per step (median "
+          f"after the first) TP {tp['ms']:.3f}, replicated {one['ms']:.3f} (first step "
+          f"{tp['first_ms']:.3f} / {one['first_ms']:.3f})")
+    require(rel <= loss_rtol, f"{label}: losses {tp['loss']} vs {one['loss']}")
+    require(norm <= norm_limit and (bf16 or jax_tp <= 1e-5),
+            f"{label}: final parameters differ ({norm}, {jax_tp})")
+    require(tp["counts"] == one["counts"] and all(tp["counts"][n] > 0 for n in need),
+            f"{label}: launches {tp['counts']} vs {one['counts']}")
+    require((tp["shard"] > 0) == heads and one["shard"] == 0,
+            f"{label}: shard products {tp['shard']}, replicated {one['shard']}")
+    ms_rows[label.split(" ", 1)[0]] = (round(tp["ms"], 3), round(one["ms"], 3))
+    return tp["counts"]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_tensor_parallel(dev):
+    """Phase 37: tensor parallelism on a (1, 2) mesh that repeats the card;
+    each run once replicated and once column-sharded. Returns the TP runs'
+    launches: two-cell forward and backward, bf16 LSTM training forward and
+    backward, f32 LSTM inference forward, dense-stack forward and backward,
+    cl_vrnn generation."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from classifying_vae_lstm_tpu_torch.cli import common
+    from classifying_vae_lstm_tpu_torch.data import PianoData
+    from classifying_vae_lstm_tpu_torch.evaluation.nll import iw_nll_dataset
+    from classifying_vae_lstm_tpu_torch.models import cl_vae, cl_vrnn
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate as cg
+    from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
+    from classifying_vae_lstm_tpu_torch.ops import two_cell as tc
+    from classifying_vae_lstm_tpu_torch.ops import vae_dense as vd
+    from classifying_vae_lstm_tpu_torch.parallel import columns, make_mesh
+    from classifying_vae_lstm_tpu_torch.sampling import generate_cl_vrnn_batch, infer_w_cl_vrnn
+    from classifying_vae_lstm_tpu_torch.weights import params_from_numpy, params_on_model_axis
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 37)
+    to = lambda a: torch.from_numpy(a).to(dev)
+    init = lambda mod, cfg, seed: common.tree_to_cpu(
+        mod.init(torch.Generator(device=dev).manual_seed(seed), cfg))
+
+    def windows(n, T, D, K):
+        f = (rng.random((n, T + 2, D)) < 0.1).astype(np.float32)
+        w = np.eye(K, dtype=np.float32)[rng.integers(0, K, n)]
+        return {"x_prev": to(f[:, :T]), "x": to(f[:, 1:T + 1]), "y": to(f[:, 2:]), "w": to(w)}
+
+    ms_rows, plain_on_cuda, out = {}, [], {}
+    with plain_guard(tc, ("two_cell_fwd_plain", "two_cell_bwd_plain"), plain_on_cuda), \
+            plain_guard(ls, LSTM_SEQ_PLAIN, plain_on_cuda), \
+            plain_guard(vd, VAE_DENSE_PLAIN, plain_on_cuda):
+        # (a) f32 two-cell cl_vrnn at TRAIN_FLAGS width, 3 steps
+        cfg_a = cl_vrnn.Config(original_dim=88, intermediate_dim=256, latent_dim=8,
+                               seq_length=TRAIN_T, n_classes=TRAIN_K, use_x_prev=True,
+                               lstm_backend="pallas")
+        raw_a, data_a = init(cl_vrnn, cfg_a, SEED + 1), windows(4 * TRAIN_B, TRAIN_T, 88, TRAIN_K)
+        runs_a = {p: _tp_train(dev, cl_vrnn, cfg_a, raw_a, data_a, TRAIN_B, p)
+                  for p in ("replicated", "tp")}
+        out["a"] = _tp_pair("(a) f32 two-cell cl_vrnn, H=256 B=200, 4 steps", runs_a,
+                            ("TWO_CELL_FWD", "TWO_CELL_BWD"), ms_rows)
+        # (b) bf16 cl_vrnn at BF16_FLAGS (H=1,024, B=1,024, --two_cell off), 3 steps
+        cfg_b = cl_vrnn.Config(original_dim=88, intermediate_dim=BF16_H, latent_dim=BF16_L,
+                               seq_length=TRAIN_T, n_classes=TRAIN_K, use_x_prev=True,
+                               lstm_backend="pallas", bf16_compute=True,
+                               fusion=(True, True, True), two_cell=False)
+        raw_b, data_b = init(cl_vrnn, cfg_b, SEED + 2), windows(3 * BF16_B, TRAIN_T, 88, TRAIN_K)
+        runs_b = {p: _tp_train(dev, cl_vrnn, cfg_b, raw_b, data_b, BF16_B, p)
+                  for p in ("replicated", "tp")}
+        out["b"] = _tp_pair("(b) bf16 cl_vrnn, H=1,024 B=1,024 --two_cell off, 3 steps",
+                            runs_b, ("BF16_TRAIN_FWD", "BF16_BWD"), ms_rows, bf16=True)
+        # (c) f32 cl_vae at VAE_TRAIN_FLAGS, --train_backend pallas, 6 steps
+        cfg_c = cl_vae.Config(original_dim=88, intermediate_dim=88, latent_dim=4,
+                              intermediate_class_dim=88, n_classes=TRAIN_K, use_x_prev=True,
+                              train_backend="pallas")
+        f = (rng.random((6 * VAE_TRAIN_B + 1, 88)) < 0.1).astype(np.float32)
+        data_c = {"x_prev": to(f[:-1]), "x": to(f[1:]), "y": to(f[1:]),
+                  "w": to(np.eye(TRAIN_K, dtype=np.float32)[rng.integers(0, TRAIN_K,
+                                                                          len(f) - 1)])}
+        raw_c = init(cl_vae, cfg_c, SEED + 3)
+        runs_c = {p: _tp_train(dev, cl_vae, cfg_c, raw_c, data_c, VAE_TRAIN_B, p)
+                  for p in ("replicated", "tp")}
+        # (the kernels take the whole graph: no plain product is left to split)
+        out["c"] = _tp_pair("(c) f32 cl_vae, D=H=88 B=100, dense-stack kernels, 6 steps",
+                            runs_c, ("DENSE_FWD", "DENSE_BWD"), ms_rows, heads=False)
+        require(out["c"]["DENSE_FWD"] == 6 and out["c"]["DENSE_BWD"] == 6,
+                f"(c) dense-stack launches {out['c']}")
+
+        # (d) IW-NLL of c5m through the H=88 inference kernel, two batches of 200
+        raw_d, cfg_d, margs = common.load_model(KC_MODEL, "cl_vrnn")
+        cfg_d = common.resolve_lstm_backend(cfg_d, "pallas")
+        P = PianoData(CORPUS, batch_size=1, seq_length=margs["seq_length"],
+                      return_y_next=True, return_y_hist=True, squeeze_x=False,
+                      squeeze_y=False)
+        test = common.build_cl_vrnn_datasets(P, margs["n_classes"], cfg_d.use_x_prev,
+                                             dev)["test"]
+        data_d = {k: v[:2 * EVAL_B] for k, v in test.items() if k in ("x", "y", "x_prev")}
+        nll = {}
+        for placing, params in (("replicated", params_from_numpy(raw_d, dev)),
+                                ("tp", params_on_model_axis(raw_d, [dev, dev]))):
+            _reset_tp_counts()
+            nll[placing] = (iw_nll_dataset(params, cfg_d, data_d,
+                                           torch.Generator(device=dev).manual_seed(SEED),
+                                           EVAL_SAMPLES, EVAL_B, "cl_vrnn"),
+                            _tp_counts(), columns.SHARD_PRODUCTS)
+        (one, c_one, s_one), (tp, c_tp, s_tp) = nll["replicated"], nll["tp"]
+        rel = ((tp - one).abs() / one.abs()).max().item()
+        print(f"(d) iw_nll_dataset of c5m (H=88, {2 * EVAL_B} test windows of {CORPUS}, "
+              f"{EVAL_SAMPLES} samples, pallas): mean NLL TP {tp.mean().item()!r}, replicated "
+              f"{one.mean().item()!r}; per window max relative difference {rel:.3e} (limit "
+              f"1e-5); launches {nonzero(c_tp)} against {nonzero(c_one)}; shard products "
+              f"{s_tp} (replicated {s_one})")
+        require(torch.isfinite(tp).all() and rel <= 1e-5, f"(d) NLLs differ by {rel}")
+        require(c_tp == c_one and c_tp["FWD"] == 4 and s_tp > 0 and s_one == 0,
+                f"(d) launches {c_tp} vs {c_one}, shard products {s_tp}")
+        out["d"] = c_tp
+
+        # (e) cl_vrnn generation at jsball_vrnn4 width: 64 songs x (32 + 64)
+        raw_e, cfg_e, _ = common.load_model(MODEL, "cl_vrnn")
+        seeds = torch.from_numpy(seed_windows(64)).to(dev)
+        frames = {}
+        for placing, params in (("replicated", params_from_numpy(raw_e, dev)),
+                                ("tp", params_on_model_axis(raw_e, [dev, dev]))):
+            ws = infer_w_cl_vrnn(params, cfg_e, seeds)
+            _reset_tp_counts()
+            got = generate_cl_vrnn_batch(params, cfg_e, seeds, 64,
+                                         torch.Generator(device=dev).manual_seed(SEED + 7), ws)
+            torch.cuda.synchronize()
+            frames[placing] = (got, _tp_counts())
+        (one, c_one), (tp, c_tp) = frames["replicated"], frames["tp"]
+        print(f"(e) generate_cl_vrnn_batch (jsball_vrnn4, 64 x (32 + 64)): TP frames "
+              f"{'bitwise equal to' if torch.equal(tp, one) else 'unlike'} the replicated "
+              f"call's; launches {nonzero(c_tp)} against {nonzero(c_one)}")
+        require(torch.equal(tp, one), "(e) TP generation differs")
+        require(c_tp == c_one and c_tp["GENERATE"] == 1, f"(e) launches {c_tp} vs {c_one}")
+        out["e"] = c_tp
+
+        # (f) run (a) through Trainer(mesh=make_mesh(1, 2, [dev, dev])), a
+        # one-rank NCCL group: the DP step over column-sharded parameters
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                                world_size=1)
+        try:
+            mesh = make_mesh(1, 2, devices=[dev, dev])
+            runs_f = {"replicated": runs_a["replicated"],
+                      "tp": _tp_train(dev, cl_vrnn, cfg_a, raw_a, data_a, TRAIN_B, "mesh",
+                                      mesh)}
+        finally:
+            dist.destroy_process_group()
+        out["f"] = _tp_pair("(f) run (a) through Trainer(mesh=make_mesh(1, 2, [card, card])), "
+                            "NCCL world size 1", runs_f, ("TWO_CELL_FWD", "TWO_CELL_BWD"),
+                            ms_rows)
+    require(not plain_on_cuda, f"plain versions ran on CUDA tensors: {plain_on_cuda}")
+    print(f"tensor parallelism (phase 37): ms per step (TP, replicated) {ms_rows}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    a, b, c, d, e, f = (out[k] for k in "abcdef")
+    return (a["TWO_CELL_FWD"] + f["TWO_CELL_FWD"], a["TWO_CELL_BWD"] + f["TWO_CELL_BWD"],
+            b["BF16_TRAIN_FWD"], b["BF16_BWD"], d["FWD"], c["DENSE_FWD"], c["DENSE_BWD"],
+            e["GENERATE"])
+
+
 NEEDS = {7: (6,), 9: (6,), 10: (9,), 13: (12,), 16: (15,), 22: (10, 21), 25: (24,), 28: (9,)}
-N_PHASES = 36
+N_PHASES = 37
 
 
 def selected_phases(spec):
@@ -5106,6 +5404,10 @@ def main(argv=None) -> int:
     if want(36):
         dp_gen, dp_vae, dp_eval = phase_dp_sharded(dev)
         took(36)
+    if want(37):
+        (tp_fwd, tp_bwd, tp16_fwd, tp16_bwd, tp_eval, tp_dense_fwd, tp_dense_bwd,
+         tp_gen) = phase_tensor_parallel(dev)
+        took(37)
     if len(run) < N_PHASES:
         print(f"chip_smoke: phases {', '.join(map(str, sorted(run)))} passed in "
               f"{time.perf_counter() - t_start:.1f} s")
@@ -5122,7 +5424,7 @@ def main(argv=None) -> int:
         "name": "generate_cl_vrnn", "route": "cuda",
         "source": "classifying_vae_lstm_tpu_torch/csrc/generate_cl_vrnn.cu",
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_generate.py:153",
-        "launches": launches + kc_launches + dp_gen, **f32, "library_ms": None,
+        "launches": launches + kc_launches + dp_gen + tp_gen, **f32, "library_ms": None,
     }, {
         # the same kernel past 20 units a block (phase 34: blocks of two unit
         # groups; bf16 at H=4,096)
@@ -5133,15 +5435,15 @@ def main(argv=None) -> int:
     }, {
         "name": "two_cell_fwd", "route": "cuda", "source": source,
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_two_cell.py:129",
-        "launches": fwd_launches + flags_fwd + dp_fwd, **fwd, "library_ms": None,
+        "launches": fwd_launches + flags_fwd + dp_fwd + tp_fwd, **fwd, "library_ms": None,
     }, {
         "name": "two_cell_bwd", "route": "cuda", "source": two_cell_bwd_source,
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_two_cell.py:295",
-        "launches": bwd_launches + flags_bwd + dp_bwd, **bwd, "library_ms": None,
+        "launches": bwd_launches + flags_bwd + dp_bwd + tp_bwd, **bwd, "library_ms": None,
     }, {
         "name": "lstm_seq_fwd", "route": "cuda", "source": lstm_source,
         "replaces": f"{pallas_lstm}:632",
-        "launches": eval_launches + kc_eval_launches + dp_eval,
+        "launches": eval_launches + kc_eval_launches + dp_eval + tp_eval,
         **lstm["fwd"], "library_ms": None,
     }, {
         "name": "lstm_seq_train_fwd", "route": "cuda", "source": lstm_source,
@@ -5159,11 +5461,11 @@ def main(argv=None) -> int:
     }, {
         "name": "vae_dense_fwd", "route": "cuda", "source": dense_source,
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_vae.py:133",
-        "launches": dense_fwd + dp_dense_fwd, **dense["fwd"], "library_ms": None,
+        "launches": dense_fwd + dp_dense_fwd + tp_dense_fwd, **dense["fwd"], "library_ms": None,
     }, {
         "name": "vae_dense_bwd", "route": "cuda", "source": dense_source,
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_vae.py:230",
-        "launches": dense_bwd + dp_dense_bwd, **dense["bwd"], "library_ms": None,
+        "launches": dense_bwd + dp_dense_bwd + tp_dense_bwd, **dense["bwd"], "library_ms": None,
     }, {
         # the same cluster kernel past one block (phase 19's bf16 H=512 model,
         # two blocks a cluster; times from phase 17 at its width)
@@ -5209,11 +5511,13 @@ def main(argv=None) -> int:
         "library_ms": None,
     }, {
         "name": "lstm_seq_train_fwd_bf16", "route": "cuda", "source": tc_source,
-        "replaces": f"{pallas_lstm}:730", "launches": bf16_train_fwd, **lstm16["train_fwd"],
+        "replaces": f"{pallas_lstm}:730", "launches": bf16_train_fwd + tp16_fwd,
+        **lstm16["train_fwd"],
         "library_ms": None,
     }, {
         "name": "lstm_seq_bwd_bf16", "route": "cuda", "source": tc_source,
-        "replaces": f"{pallas_lstm}:986", "launches": bf16_bwd_launches, **lstm16["bwd"],
+        "replaces": f"{pallas_lstm}:986", "launches": bf16_bwd_launches + tp16_bwd,
+        **lstm16["bwd"],
         "library_ms": None,
     }, {
         "name": "two_cell_fwd_bf16", "route": "cuda", "source": source,

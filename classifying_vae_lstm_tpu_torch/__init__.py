@@ -22,7 +22,8 @@ mode, and ``evaluate --family cl_vae``), key consistency
 logs, profiler trace and host-streamed batches (with the C++ host runtime
 of ``runtime/``), a directory of MIDI files as the corpus, and data
 parallelism (``parallel/``: ``--dp`` in the train, evaluate and serve
-CLIs). Tensor-parallel column sharding is not ported.
+CLIs) and tensor-parallel column sharding over a mesh's ``model`` axis
+(``parallel/columns.py``; the library API only, as in the JAX package).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 ``cuda`` requested and no card present they raise (:func:`resolve_device`).

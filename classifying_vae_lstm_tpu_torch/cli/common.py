@@ -18,6 +18,7 @@ from .. import resolve_device
 from ..data import PianoData
 from ..data.pianoroll import to_categorical
 from ..models import cl_vae, cl_vrnn
+from ..parallel.columns import gather_tree
 from ..train.checkpoint import load_checkpoint, load_model_args, load_opt_state, sorted_leaves
 from ..weights import params_from_numpy
 
@@ -135,10 +136,11 @@ def spawn_dp(rank_fn, args):
 
 
 def tree_to_cpu(tree):
-    """A parameter tree's tensors moved to the CPU."""
+    """A parameter tree's tensors moved to the CPU (column shards gathered
+    whole there)."""
     if isinstance(tree, dict):
         return {k: tree_to_cpu(v) for k, v in tree.items()}
-    return tree.detach().cpu()
+    return gather_tree(tree, "cpu").detach().cpu()
 
 
 def broadcast_params(params):

@@ -20,7 +20,9 @@ runs the whole graph through the dense-stack kernels
 (``ops/vae_dense.py``: hand-written CUDA on the card, its plain versions on
 the CPU) wherever they accept the config; otherwise the model functions run
 as plain PyTorch. Noise comes from a ``torch.Generator`` or, for parity with
-the JAX package, from the batch (``eps_w``/``eps_z``).
+the JAX package, from the batch (``eps_w``/``eps_z``). Column-sharded
+parameters (``parallel.columns``) run the plain layers column-parallel and
+reach the dense-stack kernels gathered on x's device, once a step.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from ..nn import losses as L
 from ..nn.core import dense, init_dense
 from ..nn.distributions import logistic_normal_from_eps
 from ..ops.vae_dense import should_use, vae_apply_core
+from ..parallel.columns import gather_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,7 +134,7 @@ def apply(params, cfg: Config, x, generator=None, x_prev=None, noise=None):
         noise = draw_apply_noise(generator, cfg, x.shape[0])
     eps_w, eps_z = noise["eps_w"].to(x.dtype), noise["eps_z"].to(x.dtype)
     if should_use(cfg):
-        return vae_apply_core(params, cfg, x, x_prev, eps_w, eps_z)
+        return vae_apply_core(gather_tree(params, x.device), cfg, x, x_prev, eps_w, eps_z)
     cd = torch.bfloat16 if cfg.bf16_compute else None
     w_mean, w_log_var = encode_w(params, x, dtype=cd)
     w = logistic_normal_from_eps(w_mean, w_log_var, eps_w)

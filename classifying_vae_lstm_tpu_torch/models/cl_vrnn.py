@@ -16,6 +16,10 @@ remat or ``two_cell=False`` the two-loop path, whose two LSTMs on
 ``pallas`` run the whole-sequence kernels (``ops/lstm_seq.py``). Noise comes
 from a ``torch.Generator`` or, for parity with the JAX package, from the
 batch (``eps_w``/``eps_z``).
+
+Column-sharded parameters (``parallel.columns``, tensor parallelism) run
+every plain product column-parallel; the kernels take the weights they read
+gathered on the data's device, once a step.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from ..nn import losses as L
 from ..nn.core import dense, hard_sigmoid, init_dense, init_lstm, random_normal_init
 from ..nn.distributions import logistic_normal_from_eps
 from ..ops.lstm import _gates, bf16_operand, lstm_sequence, lstm_step
+from ..parallel.columns import gather_tree, matmul
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,7 +168,7 @@ def _apply_fused(params, cfg: Config, x, generator, x_prev=None, noise=None):
     B, T, D = x.shape
     H, Ld = cfg.intermediate_dim, cfg.latent_dim
     op = bf16_operand if cfg.bf16_compute else (lambda a: a)
-    mm = lambda a, b: torch.matmul(op(a), op(b))
+    mm = lambda a, b: matmul(op(a), op(b))
     W_mean, W_log_var, W, eps = _w_and_eps(params, cfg, x, generator, noise)
     xw = torch.cat([x, _repeat_w(W, T)], dim=-1)
     enc, dec = params["encoder_h"], params["decoder_h"]
@@ -204,7 +209,9 @@ def _apply_two_cell(params, cfg: Config, x, generator, x_prev=None, noise=None):
     from ..ops.two_cell import two_cell_sequence
 
     W_mean, W_log_var, W, eps = _w_and_eps(params, cfg, x, generator, noise)
-    hd, zm, zlv, z = two_cell_sequence(params, cfg, x, x_prev, W, eps,
+    core = gather_tree({k: params[k] for k in ("encoder_h", "decoder_h", "Z_mean",
+                                               "Z_log_var")}, x.device)
+    hd, zm, zlv, z = two_cell_sequence(core, cfg, x, x_prev, W, eps,
                                        compute_dtype=_compute_dtype(cfg))
     return {
         "X_decoded_mean": dense(params["X_decoded_mean"], hd, torch.sigmoid),

@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from ..parallel.columns import matmul
+
 
 def dense(params, x, activation=None, dtype=None):
     """y = act(x @ kernel + bias) in float32.
@@ -20,12 +22,14 @@ def dense(params, x, activation=None, dtype=None):
     ``dtype=torch.bfloat16`` rounds x, the kernel and the bias to bf16 and
     multiplies in f32, as the JAX ``dense(dtype=bf16)`` does with
     ``preferred_element_type=f32`` (a CPU bf16 matmul would round its output
-    to bf16)."""
+    to bf16). A column-sharded kernel (``parallel.columns.ColumnShards``)
+    multiplies slice by slice on its devices, the outputs gathered on x's
+    device before the bias and the activation (column parallelism)."""
     kernel, bias = params["kernel"], params["bias"]
     if dtype is not None:
         op = lambda a: a.to(dtype).to(torch.float32)
         x, kernel, bias = op(x), op(kernel), op(bias)
-    y = torch.matmul(x, kernel) + bias
+    y = matmul(x, kernel) + bias
     if activation is not None:
         y = activation(y)
     return y

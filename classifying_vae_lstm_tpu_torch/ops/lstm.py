@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..nn.core import hard_sigmoid
+from ..parallel.columns import ColumnShards, gather_tree, matmul, matmul_sum
 
 def _gates(z, c_prev, hidden_dim, recurrent_activation=hard_sigmoid, activation=torch.tanh):
     H = hidden_dim
@@ -43,10 +44,11 @@ def _gate_grads(z, c, c_prev, dh, dc_in):
 
 def lstm_step(params, x, h_prev, c_prev, recurrent_activation=hard_sigmoid,
               activation=torch.tanh):
-    """One LSTM cell step: x [B, in], h/c [B, H] -> (h, c)."""
-    z = (torch.matmul(x, params["kernel"])
-         + torch.matmul(h_prev, params["recurrent_kernel"])
-         + params["bias"])
+    """One LSTM cell step: x [B, in], h/c [B, H] -> (h, c). Column-sharded
+    kernels (``parallel.columns``) give each slice's gates on its device,
+    gathered into z before the bias."""
+    z = matmul_sum([(x, params["kernel"]), (h_prev, params["recurrent_kernel"])]) \
+        + params["bias"]
     return _gates(z, c_prev, h_prev.shape[-1], recurrent_activation, activation)
 
 
@@ -96,6 +98,8 @@ def lstm_sequence(params, x, h0=None, c0=None, recurrent_activation=hard_sigmoid
     way, so the flag is accepted and has no effect on ``xla``.
     ``backend="pallas"`` runs :func:`.lstm_seq.lstm_sequence_kernel`; as in
     the JAX package it refuses dropout masks and ``remat`` (``ValueError``).
+    Column-sharded kernels (``parallel.columns``) reach the kernels gathered
+    on x's device, once a call; on ``xla`` every product is column-parallel.
     """
     B, T, _ = x.shape
     H = params["recurrent_kernel"].shape[0]
@@ -111,8 +115,8 @@ def lstm_sequence(params, x, h0=None, c0=None, recurrent_activation=hard_sigmoid
             raise ValueError("remat is not supported on the pallas backend")
         from .lstm_seq import lstm_sequence_kernel
 
-        return lstm_sequence_kernel(params, x, h0, c0, compute_dtype=compute_dtype,
-                                    fusion=fusion)
+        return lstm_sequence_kernel(gather_tree(params, x.device), x, h0, c0,
+                                    compute_dtype=compute_dtype, fusion=fusion)
     if backend != "xla":
         raise ValueError(f"unknown LSTM backend {backend!r} (xla or pallas)")
     if fusion is not None:
@@ -124,15 +128,17 @@ def lstm_sequence(params, x, h0=None, c0=None, recurrent_activation=hard_sigmoid
     xo = op(x)
     if dropout > 0 and dropout_generator is not None:
         masks = keras_lstm_dropout_masks(dropout_generator, dropout, B, x.shape[-1], x.dtype)
-        xz = torch.cat([torch.matmul(op(x * masks[g][:, None, :]), kernel[:, g * H:(g + 1) * H])
+        cols = kernel.columns if isinstance(kernel, ColumnShards) else (
+            lambda lo, hi: kernel[:, lo:hi])
+        xz = torch.cat([matmul(op(x * masks[g][:, None, :]), cols(g * H, (g + 1) * H))
                         for g in range(4)], dim=-1) + params["bias"]
     else:
-        xz = torch.matmul(xo, kernel) + params["bias"]
+        xz = matmul(xo, kernel) + params["bias"]
     rk = op(params["recurrent_kernel"])
     h, c = h0, c0
     hs = []
     for t in range(T):
-        z = xz[:, t] + torch.matmul(op(h), rk)
+        z = xz[:, t] + matmul(op(h), rk)
         h, c = _gates(z, c, H, recurrent_activation, activation)
         hs.append(h)
     return torch.stack(hs, dim=1), (h, c)

@@ -21,6 +21,12 @@ hyper-defaults and return a constructor that takes the parameters.
 Each optimizer maps its state to the leaves of the JAX optimizer's state
 and back (:meth:`LeafOptimizer.state_leaves`, ``load_state_leaves``), the
 layout of ``<run>.opt.npz``, so a training run resumes in either package.
+
+A column-sharded parameter (``parallel.columns.ColumnShards``, tensor
+parallelism) is one optimizer parameter per slice, its state on the slice's
+device: every reduction of the g/V split runs over all-but-last axes, so a
+slice's update is the whole update's columns. The ``.opt.npz`` layout stays
+whole: saving concatenates the slices' state, loading splits it.
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ import functools
 
 import numpy as np
 import torch
+
+from ..parallel.columns import ColumnShards
 
 
 def _decayed_lr(lr, decay, step: int) -> float:
@@ -66,24 +74,31 @@ class LeafOptimizer(torch.optim.Optimizer):
 
     def state_leaves(self, params: list) -> list[np.ndarray]:
         """The state as the leaves of the JAX optimizer's state, for
-        ``params`` (this optimizer's parameter tensors) in ``jax.tree.leaves``
-        order of their tree (:func:`..train.checkpoint.sorted_leaves`); a
-        parameter without state yet contributes its initial state."""
-        states = [self.state[p] or {"step": 0, **self._init_state(p)} for p in params]
+        ``params`` (this optimizer's parameter tensors, or column shards of
+        them) in ``jax.tree.leaves`` order of their tree
+        (:func:`..train.checkpoint.sorted_leaves`); a parameter without state
+        yet contributes its initial state, column shards their slices'
+        states concatenated over the last axis."""
+        state = lambda p: self.state[p] or {"step": 0, **self._init_state(p)}
+        states = [[state(s) for s in p.slices] if isinstance(p, ColumnShards) else [state(p)]
+                  for p in params]
+        host = lambda parts: np.concatenate([t.detach().cpu().numpy() for t in parts], -1)
         out = []
         for field in self.STATE_FIELDS:
             if field in self._SCALARS:
-                value = states[0]["step"] if field == "count" else states[0][field]
+                value = states[0][0]["step"] if field == "count" else states[0][0][field]
                 out.append(np.asarray(value, self._SCALARS[field]))
             else:
-                out += [st[field].detach().cpu().numpy() for st in states]
+                out += [host([st[field] for st in sts]) for sts in states]
         return out
 
     def load_state_leaves(self, params: list, leaves: list) -> None:
         """Set the state from the leaves of :meth:`state_leaves` (or of the
         JAX optimizer's state, as ``<run>.opt.npz`` holds them). An
         optimizer whose JAX state has no ``count`` (RMSprop, Adagrad,
-        Adadelta) reads no step count, and its ``step`` restarts at 0."""
+        Adadelta) reads no step count, and its ``step`` restarts at 0. A
+        column-sharded parameter takes its whole-shape state split over its
+        slices (a leaf given as column shards is gathered first)."""
         fields = self.STATE_FIELDS
         want = sum(1 if f in self._SCALARS else len(params) for f in fields)
         if len(leaves) != want:
@@ -99,15 +114,25 @@ class LeafOptimizer(torch.optim.Optimizer):
             else:
                 per[field] = [next(it) for _ in params]
         for i, p in enumerate(params):
-            init = self._init_state(p)
-            st = dict(shared)
-            for field, values in per.items():
-                v = torch.from_numpy(np.array(values[i])).to(device=p.device, dtype=p.dtype)
-                if v.shape != init[field].shape:
-                    raise ValueError(f"{field} of parameter {i}: shape {tuple(v.shape)}, "
-                                     f"expected {tuple(init[field].shape)}")
-                st[field] = v
-            self.state[p] = st
+            whole = {f: _host(values[i]) for f, values in per.items()}
+            if isinstance(p, ColumnShards):
+                cuts = np.cumsum(p.widths)[:-1]
+                for j, s in enumerate(p.slices):
+                    self._load_one(s, shared, {f: np.split(v, cuts, axis=-1)[j]
+                                               for f, v in whole.items()}, i)
+            else:
+                self._load_one(p, shared, whole, i)
+
+    def _load_one(self, p, shared: dict, fields: dict, i: int) -> None:
+        init = self._init_state(p)
+        st = dict(shared)
+        for field, value in fields.items():
+            v = torch.from_numpy(np.ascontiguousarray(value)).to(device=p.device, dtype=p.dtype)
+            if v.shape != init[field].shape:
+                raise ValueError(f"{field} of parameter {i}: shape {tuple(v.shape)}, "
+                                 f"expected {tuple(init[field].shape)}")
+            st[field] = v
+        self.state[p] = st
 
     def _init_state(self, p) -> dict:
         raise NotImplementedError
@@ -130,6 +155,14 @@ class LeafOptimizer(torch.optim.Optimizer):
                 g = p.grad if p.grad is not None else torch.zeros_like(p)
                 self._update(p, g, st, group)
         return loss
+
+
+def _host(leaf) -> np.ndarray:
+    """A state leaf (array, tensor on any device, or column shards) as a
+    whole NumPy array."""
+    if isinstance(leaf, ColumnShards):
+        return leaf.numpy()
+    return leaf.detach().cpu().numpy().copy() if torch.is_tensor(leaf) else np.array(leaf)
 
 
 def _g_shaped(p):

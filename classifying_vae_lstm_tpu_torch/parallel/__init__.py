@@ -1,3 +1,4 @@
+from .columns import ColumnShards, gather_tree
 from .mesh import (
     Mesh,
     make_mesh,
@@ -20,4 +21,6 @@ __all__ = [
     "Mesh",
     "fold_in",
     "shard_opt_state",
+    "ColumnShards",
+    "gather_tree",
 ]

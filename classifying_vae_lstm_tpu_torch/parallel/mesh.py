@@ -1,4 +1,5 @@
-"""Device meshes for data parallelism: the batch split over a ``data`` axis.
+"""Device meshes: the batch split over a ``data`` axis, the parameters'
+columns over a ``model`` axis.
 
 Counterpart of ``classifying_vae_lstm_tpu/parallel/mesh.py``. The JAX
 package drives every device from one controller (``jax.sharding.Mesh``,
@@ -11,22 +12,30 @@ idiom:
   (:mod:`.shard_map_step`, :class:`..train.Trainer`'s mesh path);
 * generation, evaluation and serving run in one process over the mesh's
   devices with zero collectives: each shard is one call of the
-  single-device function on its device, the results gathered on the first.
+  single-device function on its device, the results gathered on the first;
+* the ``model`` axis (tensor parallelism) lives inside the process that
+  owns a data shard: a parameter whose placement JAX's rule column-shards
+  becomes a :class:`.columns.ColumnShards`, slice j on the row's model
+  device j; the plain products run column-parallel and the fused kernels
+  take their weights gathered (:mod:`.columns`). No collective runs over
+  the model axis, so one card repeated in a row stands in for it.
 
 A :class:`Mesh` is the ``('data', 'model')`` grid of ``torch.device``s that
 both read. Its device list may repeat a device, so a CPU or one card can
 stand in for several. With ``n_model == 1`` (every CLI's mesh) the
 parameters are replicated and the batch split along its first axis, as
-JAX's rules give them; column sharding over ``model`` (tensor parallelism)
-is not ported (ROADMAP Queue 1 item 17) and raises.
+JAX's rules give them.
+
+Weight-norm interplay, as in JAX: the optimizer's g/V split reduces over
+all-but-last axes of each kernel (``..optim.adamwn``), so a column slice's
+update needs no other slice.
 """
 
 from __future__ import annotations
 
 import torch
 
-TP_TODO = ("tensor-parallel column sharding over the mesh's 'model' axis is not ported "
-           "(ROADMAP Queue 1 item 17)")
+from .columns import ColumnShards, column_sharded
 
 
 class Mesh:
@@ -86,11 +95,6 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def _check_model_axis(mesh: Mesh, shard_model_axis: bool):
-    if shard_model_axis and mesh.shape["model"] > 1:
-        raise NotImplementedError(TP_TODO)
-
-
 def shard_batch(mesh: Mesh, data: dict) -> list:
     """Split [N, ...] tensors along their first axis over the mesh's data
     axis: one dict a shard, on the shard's device. N must divide by the
@@ -104,45 +108,68 @@ def shard_batch(mesh: Mesh, data: dict) -> list:
             for i, dev in enumerate(mesh.data_devices)]
 
 
+def _placed(leaf, row, shard: bool):
+    """One leaf on a mesh row (its model devices): column shards where
+    ``shard`` and JAX's rule say so, else whole on the row's data device."""
+    if isinstance(leaf, ColumnShards):
+        if len(leaf.slices) == len(row):
+            return ColumnShards(s.to(dev) for s, dev in zip(leaf.slices, row))
+        leaf = leaf.gather(row[0])
+    if not (torch.is_tensor(leaf) or hasattr(leaf, "shape")):
+        return leaf
+    leaf = torch.as_tensor(leaf)
+    if shard and column_sharded(leaf.shape, len(row)):
+        return ColumnShards.split(leaf, row)
+    return leaf.to(row[0])
+
+
 def param_sharding_rules(params, mesh: Mesh, shard_model_axis: bool = True):
-    """The placement of each parameter: ``"replicated"`` over the data axis
-    (a tree of the parameters' shape). With ``n_model > 1`` and
-    ``shard_model_axis`` the JAX package shards kernels by columns, which is
-    not ported: that raises."""
-    _check_model_axis(mesh, shard_model_axis)
-    return _tree_map(lambda _: "replicated", params)
+    """The placement of each parameter, a tree of the parameters' shape:
+    ``(None, ..., "model")`` (JAX's ``PartitionSpec``) for a leaf of rank
+    >= 2 whose last dimension divides by the model axis, when that axis is
+    longer than 1 and ``shard_model_axis``; ``"replicated"`` otherwise."""
+    n_model = mesh.shape["model"] if shard_model_axis else 1
+    return _tree_map(lambda p: (None,) * (len(p.shape) - 1) + ("model",)
+                     if column_sharded(p.shape, n_model) else "replicated", params)
+
+
+def _place(tree, mesh: Mesh, shard: bool) -> list:
+    """One copy of ``tree`` a data shard, on the shard's row of the mesh
+    (:func:`_placed`); rows of the same devices share one copy, and tensors
+    already where they belong are not copied for it."""
+    copies = {}
+    for row in mesh.devices:
+        key = tuple(row)
+        if key not in copies:
+            copies[key] = _tree_map(lambda a: _placed(a, row, shard), tree)
+    return [copies[tuple(row)] for row in mesh.devices]
 
 
 def _replicate(tree, mesh: Mesh) -> list:
-    """One copy of ``tree`` a data shard, on the shard's device; a device
-    the mesh repeats gets one copy, which its shards share, and tensors
-    already on a device are not copied for it."""
-    copies = {}
-    for dev in mesh.data_devices:
-        if dev not in copies:
-            copies[dev] = _tree_map(
-                lambda a: torch.as_tensor(a).to(dev) if torch.is_tensor(a) or hasattr(a, "shape")
-                else a, tree)
-    return [copies[dev] for dev in mesh.data_devices]
+    """One copy of ``tree`` a data shard, its plain tensors on the shard's
+    device and its column shards on the shard's model devices."""
+    return _place(tree, mesh, shard=False)
 
 
 def shard_params(params, mesh: Mesh, shard_model_axis: bool = True) -> list:
-    """Place ``params`` as :func:`param_sharding_rules` says: one replica a
-    data shard (:func:`_replicate`)."""
-    _check_model_axis(mesh, shard_model_axis)
-    return _replicate(params, mesh)
+    """Place ``params`` as :func:`param_sharding_rules` says: one copy a data
+    shard, its column-sharded leaves :class:`.columns.ColumnShards` over the
+    shard's model devices, the rest on the shard's device."""
+    return _place(params, mesh, shard_model_axis)
 
 
 def shard_opt_state(opt_state, mesh: Mesh) -> list:
-    """Replicate an optimizer's state leaves (the moments have their
-    parameters' shapes, which are replicated) over the data axis."""
-    _check_model_axis(mesh, True)
-    return _replicate(opt_state, mesh)
+    """Place an optimizer's state leaves (a tree or list of them, e.g.
+    :meth:`..optim.adamwn.LeafOptimizer.state_leaves`) as JAX does: the
+    moments have their parameters' shapes and the same rule applies, the
+    rest (counts, per-column vectors) replicated."""
+    return _place(opt_state, mesh, True)
 
 
 def shard_training_state(mesh: Mesh, params, train_data: dict, val_data: dict,
                          shard_model_axis: bool = True):
-    """A training run's inputs on ``mesh``: (replicated params, train shards,
-    val shards), as the JAX function returns them placed."""
+    """A training run's inputs on ``mesh``: (params placed by
+    :func:`shard_params`, train shards, val shards), as the JAX function
+    returns them placed."""
     params = shard_params(params, mesh, shard_model_axis)
     return params, shard_batch(mesh, train_data), shard_batch(mesh, val_data)

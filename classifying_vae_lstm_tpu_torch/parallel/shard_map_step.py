@@ -10,7 +10,9 @@ on its shard (which reaches the same kernel wrappers as a single-device
 step), one ``all_reduce`` of the flattened gradients divided by the world
 size, the same for the metrics, then the optimizer's step, which every rank
 takes on equal gradients. No ``DistributedDataParallel`` wrapper: the
-parameters are dict trees, not an ``nn.Module``.
+parameters are dict trees, not an ``nn.Module``. A rank whose parameters
+are column-sharded over its model devices (:mod:`.columns`) averages every
+slice's gradient: the slices are leaves like any other.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from .columns import tensor_leaves
 from .mesh import Mesh, _replicate
 
 
@@ -30,10 +33,13 @@ def fold_in(seed: int, index: int) -> int:
 def all_reduce_mean(tensors: list) -> None:
     """Average ``tensors`` in place over the default process group: one
     ``all_reduce`` (sum) of their concatenation, then a division by the
-    world size; JAX's ``pmean``."""
+    world size; JAX's ``pmean``. The buffer lies on the first tensor's
+    device (a rank's data device; column slices on its other model devices
+    are copied there and back)."""
     if not tensors:
         return
-    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dev = tensors[0].device
+    flat = torch.cat([t.reshape(-1).to(dev) for t in tensors])
     dist.all_reduce(flat)
     flat /= dist.get_world_size()
     i = 0
@@ -51,9 +57,8 @@ def average_metrics(metrics: dict) -> dict:
 
 
 def _grad_leaves(params) -> list:
-    if isinstance(params, dict):
-        return [g for v in params.values() for g in _grad_leaves(v)]
-    return [params.grad] if params.grad is not None else []
+    """The gradients of every tensor of ``params``, column slices included."""
+    return [t.grad for t in tensor_leaves(params) if t.grad is not None]
 
 
 def make_shard_map_train_step(loss_fn, optimizer, mesh: Mesh):

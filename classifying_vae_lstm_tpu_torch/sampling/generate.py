@@ -19,7 +19,9 @@ their inputs are on (no kernel: the JAX scans never reach Pallas), each a
 
 The ``*_batch_dp`` samplers split the songs over a mesh's devices
 (:mod:`..parallel`): one process, zero collectives, each shard one call of
-the generation kernel on its device.
+the generation kernel on its device. Column-sharded parameters (tensor
+parallelism) reach the generation kernels gathered on the seeds' device,
+once a call.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from ..models import cl_vae, cl_vrnn
 from ..nn.distributions import logistic_normal_from_eps, sample_w_discrete_from_u
 from ..ops.cuda_generate import generate_cl_vrnn_batch_cuda
 from ..ops.cuda_generate_vae import generate_cl_vae_batch_cuda
-from ..parallel import replicate
+from ..parallel import gather_tree, replicate
 
 
 def draw_generation_noise(generator: torch.Generator, B: int, total: int, latent_dim: int,
@@ -119,7 +121,8 @@ def generate_cl_vrnn_batch(params, cfg: cl_vrnn.Config, x_seeds, nsteps: int,
     B, Tseed, D = x_seeds.shape
     eps, u = draw_generation_noise(generator, B, Tseed + nsteps, cfg.latent_dim, D,
                                    device=x_seeds.device)
-    return generate_cl_vrnn_batch_cuda(params, cfg, x_seeds, nsteps, eps, u, ws)
+    return generate_cl_vrnn_batch_cuda(gather_tree(params, x_seeds.device), cfg, x_seeds,
+                                       nsteps, eps, u, ws)
 
 
 def generate_cl_vae_batch_noise(params, cfg: cl_vae.Config, x_seeds, nsteps: int, eps, u, ws,
@@ -167,6 +170,7 @@ def generate_cl_vae_batch(params, cfg: cl_vae.Config, x_seeds, nsteps: int,
     the CUDA kernel for CUDA tensors, its plain version for CPU tensors.
     """
     B, D = x_seeds.shape
+    params = gather_tree(params, x_seeds.device)
     if w_vals is None:
         w_mean, w_log_var = cl_vae.encode_w(params, x_seeds)
         eps_w = (torch.randn(w_mean.shape, generator=generator, device=x_seeds.device)
@@ -251,7 +255,7 @@ def _run_shards(kernel, reps, devices, b, cfg, nsteps: int, x_seeds, eps, u, ws)
     for r, dev in enumerate(devices):
         rows = slice(r * b, (r + 1) * b)
         seeds_r, eps_r, u_r, ws_r = (t[rows].to(dev).contiguous() for t in (x_seeds, eps, u, ws))
-        parts.append(kernel(reps[r], cfg, seeds_r, nsteps, eps_r, u_r, ws_r))
+        parts.append(kernel(gather_tree(reps[r], dev), cfg, seeds_r, nsteps, eps_r, u_r, ws_r))
     return torch.cat([p.to(devices[0]) for p in parts])
 
 

@@ -9,7 +9,9 @@ dicts of NumPy arrays; :func:`..weights.params_from_numpy` turns it into
 tensors on a device. The optimizer state of a resumable run goes to
 ``<run>.opt.npz`` in the JAX layout too: ``leaf_0 … leaf_n`` in the order of
 ``jax.tree.leaves`` of the JAX optimizer's state, and ``__epoch__``, so a
-run moves between the packages in both directions. The orbax variants of
+run moves between the packages in both directions. Column-sharded
+parameters and their optimizer state are written whole, so a
+tensor-parallel run's files are the replicated run's. The orbax variants of
 the JAX module are not ported.
 """
 
@@ -21,12 +23,16 @@ import os
 import numpy as np
 import torch
 
+from ..parallel.columns import ColumnShards
+
 
 def _flatten(tree, prefix="") -> dict:
     out = {}
     if isinstance(tree, dict):
         for k, v in tree.items():
             out.update(_flatten(v, f"{prefix}{k}/"))
+    elif isinstance(tree, ColumnShards):  # tensor-parallel: written whole
+        out[prefix[:-1]] = tree.numpy()
     else:
         out[prefix[:-1]] = (tree.detach().cpu().numpy() if isinstance(tree, torch.Tensor)
                             else np.asarray(tree))

@@ -26,6 +26,13 @@ single-device epoch, the global batch's noise (``noise_fn``, the model's
 them and averages the gradients over the ranks before the optimizer's step
 (:func:`..parallel.shard_map_step.all_reduce_mean`). So a DP epoch equals
 the single-device epoch up to the order of the gradient mean, as in JAX.
+
+Tensor parallelism: parameters column-sharded over a mesh row's model
+devices (``parallel.shard_params``; :class:`..parallel.ColumnShards`
+leaves) train in every method as replicated ones do, in one process
+without a mesh, or as each rank's share of a DP mesh whose model axis is
+longer than 1 (:meth:`Trainer.place`). The optimizer takes each slice as a
+parameter on its device.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..parallel.columns import ColumnShards, tensor_leaves
 from .callbacks import AnnealSchedule, CheckpointPolicy, EarlyStoppingAfterEpoch
 from .checkpoint import save_checkpoint, sorted_leaves
 
@@ -45,18 +53,13 @@ def _stack_epochs(metrics: list[dict]) -> dict:
     return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
 
 
-def _leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in _leaves(v)]
-    return [tree]
-
-
 def copy_params(tree, requires_grad: bool = False):
     """A deep copy of a parameter tree (detached; leaves optionally
-    requiring grad)."""
+    requiring grad; column shards copied slice by slice where they lie)."""
     if isinstance(tree, dict):
         return {k: copy_params(v, requires_grad) for k, v in tree.items()}
-    return tree.detach().clone().requires_grad_(requires_grad)
+    copy = lambda t: t.detach().clone().requires_grad_(requires_grad)
+    return tree.map(copy) if isinstance(tree, ColumnShards) else copy(tree)
 
 
 def _mean(metrics: list[dict]) -> dict:
@@ -77,7 +80,9 @@ class Trainer:
     initialised ``torch.distributed`` process group, this process one rank)
     makes the epochs data-parallel; ``noise_fn(generator) -> dict`` then
     draws the global batch's noise (the model's ``draw_apply_noise`` at the
-    batch size), and the data axis must divide the batch size.
+    batch size), and the data axis must divide the batch size. With a
+    model axis longer than 1 each rank's parameters are column-sharded over
+    its row of the mesh (:meth:`place`).
     """
 
     def __init__(self, loss_fn: Callable, optimizer: Callable, batch_size: int, mesh=None,
@@ -98,7 +103,22 @@ class Trainer:
             self._dp_step = make_shard_map_train_step(loss_fn, None, mesh)
 
     def init_optimizer(self, params) -> torch.optim.Optimizer:
-        return self.optimizer(_leaves(params))
+        """The optimizer over every tensor of ``params`` (each column slice
+        one parameter)."""
+        return self.optimizer(tensor_leaves(params))
+
+    def place(self, params):
+        """``params`` placed for this process: with a mesh, this rank's row
+        (its data device and, where the model axis is longer than 1, the
+        column shards over its model devices; ``parallel.shard_params`` over
+        that row alone); without one, as given."""
+        if self.mesh is None:
+            return params
+        import torch.distributed as dist
+
+        from ..parallel.mesh import Mesh, shard_params
+
+        return shard_params(params, Mesh([self.mesh.devices[dist.get_rank()]]))[0]
 
     def train_step(self, params, opt, batch, generator, kl_w, class_w, w_kl_w) -> dict:
         opt.zero_grad(set_to_none=True)

@@ -24,3 +24,17 @@ def params_from_numpy(tree, device, dtype=torch.float32) -> dict:
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
     t = tree if isinstance(tree, torch.Tensor) else torch.from_numpy(np.array(tree))
     return t.to(device=device, dtype=dtype).contiguous()
+
+
+def params_on_model_axis(tree, devices, dtype=torch.float32) -> dict:
+    """Nested dict of arrays -> the tensor-parallel placement of one mesh
+    row whose model devices are ``devices``: each leaf that JAX's rule
+    column-shards (rank >= 2, last dimension divisible by
+    ``len(devices)``) a :class:`.parallel.ColumnShards`, slice j on
+    ``devices[j]``; the rest on ``devices[0]``. What
+    ``parallel.shard_params`` gives on ``make_mesh(1, len(devices),
+    devices)``, made from the host arrays."""
+    from .parallel import make_mesh, shard_params
+
+    return shard_params(params_from_numpy(tree, "cpu", dtype),
+                        make_mesh(1, len(devices), devices))[0]

@@ -134,10 +134,16 @@ def test_mesh_shapes_and_sharding_rules():
     params = {"h": {"kernel": torch.ones(3, 4), "bias": torch.zeros(4)}}
     assert param_sharding_rules(params, _cpu_mesh(2)) == {
         "h": {"kernel": "replicated", "bias": "replicated"}}
-    for fn in (lambda: param_sharding_rules(params, mesh), lambda: shard_params(params, mesh),
-               lambda: shard_opt_state([torch.ones(2)], mesh)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 17"):
-            fn()
+    # n_model 2: the kernel column-sharded over each row's two devices
+    assert param_sharding_rules(params, mesh) == {
+        "h": {"kernel": (None, "model"), "bias": "replicated"}}
+    placed = shard_params(params, mesh)
+    kernel = placed[0]["h"]["kernel"]
+    assert len(placed) == 4 and kernel.widths == [2, 2] and kernel.devices == [
+        torch.device("cpu")] * 2 and placed[0]["h"]["bias"] is params["h"]["bias"]
+    assert torch.equal(kernel.gather(), params["h"]["kernel"])
+    state = shard_opt_state([torch.ones(2), torch.ones(3, 4), torch.ones(3, 3)], mesh)[0]
+    assert [type(leaf).__name__ for leaf in state] == ["Tensor", "ColumnShards", "Tensor"]
     assert param_sharding_rules(params, mesh, shard_model_axis=False)["h"]["bias"] == "replicated"
     # a repeated device gets one replica, which its shards share
     reps = shard_params(params, _cpu_mesh(4))

@@ -2,7 +2,10 @@
 process of a gloo world on the CPU (``torch.multiprocessing.spawn``), so
 this module imports the port and never JAX (the spawned processes import
 it by name). The test process calls :func:`single_epoch` for the reference
-and :func:`run_world` for the ranks."""
+and :func:`run_world` for the ranks. A spec with ``n_model`` > 1 (from
+``tests/test_torch_tensor_parallel.py``) runs each rank tensor-parallel:
+its parameters column-sharded over its row of a ``world x n_model`` mesh
+of the CPU."""
 
 from __future__ import annotations
 
@@ -15,7 +18,11 @@ import torch.multiprocessing as mp
 
 from classifying_vae_lstm_tpu_torch.models import cl_vae, cl_vrnn
 from classifying_vae_lstm_tpu_torch.optim import init_optimizer
-from classifying_vae_lstm_tpu_torch.parallel import make_mesh, make_shard_map_train_step
+from classifying_vae_lstm_tpu_torch.parallel import (
+    ColumnShards,
+    make_mesh,
+    make_shard_map_train_step,
+)
 from classifying_vae_lstm_tpu_torch.train import Trainer
 from classifying_vae_lstm_tpu_torch.train.loop import copy_params
 from classifying_vae_lstm_tpu_torch.weights import params_from_numpy
@@ -27,6 +34,10 @@ ONE = 1.0
 def to_numpy(tree):
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, ColumnShards):
+        return tree.numpy()
+    if not torch.is_tensor(tree):
+        return np.array(tree)
     return tree.detach().cpu().numpy().copy()
 
 
@@ -40,8 +51,10 @@ def _trainer(spec, mesh=None, noise_fn=None):
         return mod.loss_and_metrics(p, cfg, b, g, kl_w, class_w, w_kl_w)
 
     opt, _ = init_optimizer("adam-wn")
-    params = copy_params(params_from_numpy(spec["raw"], "cpu"), requires_grad=True)
-    return Trainer(loss_fn, opt, spec["B"], mesh=mesh, noise_fn=noise_fn), cfg, mod, params
+    trainer = Trainer(loss_fn, opt, spec["B"], mesh=mesh, noise_fn=noise_fn)
+    params = copy_params(trainer.place(params_from_numpy(spec["raw"], "cpu")),
+                         requires_grad=True)
+    return trainer, cfg, mod, params
 
 
 def _data(spec):
@@ -122,13 +135,17 @@ def _fed_epoch(spec, mesh):
 
 
 def _rank_job(rank, world, spec):
-    mesh = make_mesh(world, devices=["cpu"] * world)
+    n_model = spec.get("n_model", 1)
+    mesh = make_mesh(world, n_model, devices=["cpu"] * (world * n_model))
     mod = MODELS[spec["family"]]
     cfg = mod.Config(**spec["cfg"])
     trainer, _, _, params = _trainer(spec, mesh, lambda g: mod.draw_apply_noise(g, cfg,
                                                                                 spec["B"]))
     out = {"epoch": _epoch(trainer, params, _data(spec),
                            torch.Generator().manual_seed(spec["seed"]))}
+    if n_model > 1:  # the devices of a kernel's slices
+        layer = "h_w" if spec["family"] == "cl_vae" else "encoder_h"
+        out["placed"] = [str(d) for d in params[layer]["kernel"].devices]
     if "fed" in spec:
         out["fed"] = _fed_epoch(spec, mesh)
     if spec.get("step_check"):
