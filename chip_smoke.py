@@ -382,7 +382,25 @@ failure:
    run's and > 0 for the run's kernels, the shard-product count
    (``parallel.columns.SHARD_PRODUCTS``: the heads' column-parallel
    products) > 0 on the TP runs that have plain products; ms per step TP
-   against replicated (the median after each run's first step).
+   against replicated (the median after each run's first step);
+38. the route ``--two_cell auto`` picks for fresh bf16 training at the
+   scaled widths: ``cli.cl_vrnn_train --lstm_backend pallas`` with
+   ``bf16_compute`` and no ``--two_cell`` flag, 1 epoch each at H=1,024 and
+   H=2,048 (B=1,024, phases 21's and 27's flags otherwise): args.json
+   records ``two_cell: true``; the bf16 two-cell counts (set to 0 just
+   before, read just after) are one forward launch a train and eval batch
+   and two backward launches a train batch, and the whole-sequence LSTM
+   kernels launch 0 times; the first epoch's train loss within 1e-2
+   relative of the ``xla`` epoch phases 21 and 27 ran from the same seed;
+39. ``tools/torch_converged_parity.py`` (BASELINE configs 3 and 5 trained,
+   evaluated and sampled through the kernels) at ``--epochs 7`` on the
+   pallas route, seed 0, each config: a checkpoint, four finite NLLs
+   (evaluation seeds 0-3, 64 samples), the MIDI files (and config 5's WAV
+   files) read back with notes, no plain version on a CUDA tensor, and the
+   launch counts of its stages (set to 0 just before each) > 0 for the
+   two-cell forward and backward, the f32 inference forward and the
+   cl_vrnn generation kernel (config 5), the dense-stack forward and
+   backward and the cl_vae generation kernel (config 3).
 
 The run prints each phase's wall time, and fails if a thread it started is
 still running at the end.
@@ -2953,6 +2971,7 @@ def phase_train_bf16(model_dir):
           f"{epoch_x[0] * 1e3 / n_train:.3f}; epoch s: pallas {[round(v, 3) for v in epoch_s]}, "
           f"xla {[round(v, 3) for v in epoch_x]}")
     require(rel <= 1e-2, f"first-epoch losses differ by {rel}")
+    seen.update(xla_loss=loss_x)
     return counts["BF16_TRAIN_FWD"], counts["BF16_BWD"], seen
 
 
@@ -3609,6 +3628,7 @@ def phase_train_h2048(model_dir):
           f"difference {rel:.3e} (limit 1e-2: the routes round at different places); ms per "
           f"step: pallas {epoch_s[0] * 1e3 / n_train:.3f}, xla {epoch_x[0] * 1e3 / n_train:.3f}")
     require(rel <= 1e-2, f"first-epoch losses differ by {rel}")
+    seen.update(xla_loss=loss_x)
     return counts["BF16_WALK"], counts["BF16_TRAIN_FWD"], seen
 
 
@@ -5216,8 +5236,84 @@ def phase_tensor_parallel(dev):
             e["GENERATE"])
 
 
-NEEDS = {7: (6,), 9: (6,), 10: (9,), 13: (12,), 16: (15,), 22: (10, 21), 25: (24,), 28: (9,)}
-N_PHASES = 37
+NEEDS = {7: (6,), 9: (6,), 10: (9,), 13: (12,), 16: (15,), 22: (10, 21), 25: (24,), 28: (9,),
+         38: (21, 27)}
+N_PHASES = 39
+
+
+def phase_two_cell_auto(model_dir, xla_loss):
+    """The ``--two_cell auto`` route of fresh bf16 training at H=1,024 and
+    H=2,048: 1 epoch each of ``cli.cl_vrnn_train --lstm_backend pallas``
+    with ``bf16_compute`` (set on the namespace, as the JAX package's
+    ``--lstm_backend auto`` sets it) and no ``--two_cell`` flag, phases 21's
+    and 27's flags otherwise. ``xla_loss`` maps H to the first-epoch train
+    loss of the ``xla`` epoch those phases ran from the same seed. Returns
+    the bf16 two-cell forward and backward launches."""
+    from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
+    from classifying_vae_lstm_tpu_torch.ops import two_cell as tc
+    from classifying_vae_lstm_tpu_torch.train.checkpoint import load_model_args
+
+    plain_on_cuda, fwd, bwd = [], 0, 0
+    for H, flags in ((BF16_H, BF16_FLAGS), (H2048_H, H2048_FLAGS)):
+        i = flags.index("--two_cell")
+        base = flags[:i] + flags[i + 2:]  # the flag left at its default, auto
+        with plain_guard(tc, TWO_CELL_PLAIN, plain_on_cuda), \
+                plain_guard(ls, LSTM_SEQ_PLAIN, plain_on_cuda):
+            args, counts, seen, epoch_s, wall = run_train(
+                f"auto_h{H}", ["--num_epochs", "1", "--lstm_backend", "pallas"], model_dir,
+                _reset_h512_counts, _h512_counts, base_flags=base,
+                overrides={"bf16_compute": True})
+        label = f"bf16 H={H} --two_cell auto"
+        E, n_train, n_val = _report_train(label, args, seen, epoch_s, wall)
+        expected = {**lstm_expected(), "BF16_TWO_CELL_FWD": E * (n_train + n_val),
+                    "BF16_TWO_CELL_BWD": 2 * E * n_train}
+        margs = load_model_args(seen["ckpt"])
+        loss_k, loss_x = seen["history"]["loss"][0], xla_loss[H]
+        rel = abs(loss_k - loss_x) / abs(loss_x)
+        print(f"{label}: args.json two_cell {margs.get('two_cell')!r}, fusion "
+              f"{margs.get('fusion')}; launches {nonzero(counts)} (expected {nonzero(expected)}, "
+              f"every other count 0: no whole-sequence LSTM kernel); first epoch train loss "
+              f"{loss_k!r} against xla {loss_x!r} (phase {21 if H == BF16_H else 27}), relative "
+              f"difference {rel:.3e} (limit 1e-2); ms per step "
+              f"{epoch_s[0] * 1e3 / n_train:.3f}")
+        require(margs.get("two_cell") is True and margs.get("bf16_compute") is True,
+                f"{label}: args.json {margs}")
+        require(counts == expected, f"{label}: launches {counts} != {expected}")
+        require(rel <= 1e-2, f"{label}: first-epoch losses differ by {rel}")
+        fwd += counts["BF16_TWO_CELL_FWD"]
+        bwd += counts["BF16_TWO_CELL_BWD"]
+    require(not plain_on_cuda, f"plain versions ran on CUDA tensors: {plain_on_cuda}")
+    return fwd, bwd
+
+
+CONVERGED_EPOCHS = 7  # the least run that writes a best-epoch checkpoint
+
+
+def phase_converged_tool(work_dir):
+    """``tools/torch_converged_parity.py`` for configs 3 and 5 at
+    ``--epochs 7``, pallas route, seed 0, through its ``run`` (which checks
+    its kernels' launches, the NLLs, the songs and the plain versions);
+    returns each config's entry."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import torch_converged_parity as tcp
+
+    entries = {}
+    for config in ("5", "3"):
+        out = os.path.join(work_dir, f"c{config}")
+        e = tcp.run(config, 0, "pallas", CONVERGED_EPOCHS, "cuda", work_dir=out)
+        ckpt = os.path.join(out, tcp.RECIPES[config][1] + ".npz")
+        files = sorted(os.listdir(os.path.join(out, "samples")))
+        print(f"converged-parity tool, config {config} ({CONVERGED_EPOCHS} epochs): checkpoint "
+              f"of epoch {e['checkpoint_epoch']} ({os.path.getsize(ckpt)} bytes), NLLs "
+              f"{e['eval_nlls']} (mean {e['nll']:.4f}), s per epoch {e['s_per_epoch_median']:.3f}, "
+              f"wall {e['wall_s']:.1f} s; launches {e['launches']}; songs "
+              f"{[(k, [s['notes'] for s in v['songs']]) for k, v in e['samples'].items()]}; "
+              f"files {files}")
+        wavs = [f for f in files if f.endswith(".wav")]
+        require(e["checkpoint_epoch"] == CONVERGED_EPOCHS, f"config {config}: no checkpoint")
+        require(len(wavs) == (6 if config == "5" else 0), f"config {config}: WAV files {wavs}")
+        entries[config] = e
+    return entries
 
 
 def selected_phases(spec):
@@ -5408,10 +5504,21 @@ def main(argv=None) -> int:
         (tp_fwd, tp_bwd, tp16_fwd, tp16_bwd, tp_eval, tp_dense_fwd, tp_dense_bwd,
          tp_gen) = phase_tensor_parallel(dev)
         took(37)
+    if want(38):
+        with tempfile.TemporaryDirectory() as model_dir:
+            auto_fwd, auto_bwd = phase_two_cell_auto(
+                model_dir, {BF16_H: seen_h["xla_loss"], H2048_H: seen_w["xla_loss"]})
+            took(38)
+    if want(39):
+        with tempfile.TemporaryDirectory() as work_dir:
+            conv = phase_converged_tool(work_dir)
+            took(39)
     if len(run) < N_PHASES:
         print(f"chip_smoke: phases {', '.join(map(str, sorted(run)))} passed in "
               f"{time.perf_counter() - t_start:.1f} s")
         return 0
+    # the converged-parity tool's launches on its paths (phase 39)
+    tool = lambda config, stage, count: conv[config]["launches"][stage].get(count, 0)  # noqa: E731
     source = "classifying_vae_lstm_tpu_torch/csrc/two_cell.cu"
     two_cell_bwd_source = "classifying_vae_lstm_tpu_torch/csrc/two_cell_tc.cu"
     lstm_source = "classifying_vae_lstm_tpu_torch/csrc/lstm_seq.cu"
@@ -5424,7 +5531,8 @@ def main(argv=None) -> int:
         "name": "generate_cl_vrnn", "route": "cuda",
         "source": "classifying_vae_lstm_tpu_torch/csrc/generate_cl_vrnn.cu",
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_generate.py:153",
-        "launches": launches + kc_launches + dp_gen + tp_gen, **f32, "library_ms": None,
+        "launches": launches + kc_launches + dp_gen + tp_gen
+        + tool("5", "sample", "cuda_generate.LAUNCHES"), **f32, "library_ms": None,
     }, {
         # the same kernel past 20 units a block (phase 34: blocks of two unit
         # groups; bf16 at H=4,096)
@@ -5435,15 +5543,18 @@ def main(argv=None) -> int:
     }, {
         "name": "two_cell_fwd", "route": "cuda", "source": source,
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_two_cell.py:129",
-        "launches": fwd_launches + flags_fwd + dp_fwd + tp_fwd, **fwd, "library_ms": None,
+        "launches": fwd_launches + flags_fwd + dp_fwd + tp_fwd
+        + tool("5", "train", "two_cell.FWD_LAUNCHES"), **fwd, "library_ms": None,
     }, {
         "name": "two_cell_bwd", "route": "cuda", "source": two_cell_bwd_source,
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_two_cell.py:295",
-        "launches": bwd_launches + flags_bwd + dp_bwd + tp_bwd, **bwd, "library_ms": None,
+        "launches": bwd_launches + flags_bwd + dp_bwd + tp_bwd
+        + tool("5", "train", "two_cell.BWD_LAUNCHES"), **bwd, "library_ms": None,
     }, {
         "name": "lstm_seq_fwd", "route": "cuda", "source": lstm_source,
         "replaces": f"{pallas_lstm}:632",
-        "launches": eval_launches + kc_eval_launches + dp_eval + tp_eval,
+        "launches": eval_launches + kc_eval_launches + dp_eval + tp_eval
+        + tool("5", "evaluate", "lstm_seq.FWD_LAUNCHES"),
         **lstm["fwd"], "library_ms": None,
     }, {
         "name": "lstm_seq_train_fwd", "route": "cuda", "source": lstm_source,
@@ -5457,15 +5568,18 @@ def main(argv=None) -> int:
         "name": "generate_cl_vae", "route": "cuda",
         "source": "classifying_vae_lstm_tpu_torch/csrc/generate_cl_vae.cu",
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_generate_vae.py:141",
-        "launches": vae_launches + dp_vae, **vae, "library_ms": None,
+        "launches": vae_launches + dp_vae + tool("3", "sample", "cuda_generate_vae.LAUNCHES"),
+        **vae, "library_ms": None,
     }, {
         "name": "vae_dense_fwd", "route": "cuda", "source": dense_source,
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_vae.py:133",
-        "launches": dense_fwd + dp_dense_fwd + tp_dense_fwd, **dense["fwd"], "library_ms": None,
+        "launches": dense_fwd + dp_dense_fwd + tp_dense_fwd
+        + tool("3", "train", "vae_dense.FWD_LAUNCHES"), **dense["fwd"], "library_ms": None,
     }, {
         "name": "vae_dense_bwd", "route": "cuda", "source": dense_source,
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_vae.py:230",
-        "launches": dense_bwd + dp_dense_bwd + tp_dense_bwd, **dense["bwd"], "library_ms": None,
+        "launches": dense_bwd + dp_dense_bwd + tp_dense_bwd
+        + tool("3", "train", "vae_dense.BWD_LAUNCHES"), **dense["bwd"], "library_ms": None,
     }, {
         # the same cluster kernel past one block (phase 19's bf16 H=512 model,
         # two blocks a cluster; times from phase 17 at its width)
@@ -5522,11 +5636,11 @@ def main(argv=None) -> int:
     }, {
         "name": "two_cell_fwd_bf16", "route": "cuda", "source": source,
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_two_cell.py:129",
-        "launches": tc16_fwd, **tc16[0], "library_ms": None,
+        "launches": tc16_fwd + auto_fwd, **tc16[0], "library_ms": None,
     }, {
         "name": "two_cell_bwd_bf16", "route": "cuda", "source": two_cell_bwd_source,
         "replaces": "classifying_vae_lstm_tpu/ops/pallas_two_cell.py:295",
-        "launches": tc16_bwd, **tc16[1], "library_ms": None,
+        "launches": tc16_bwd + auto_bwd, **tc16[1], "library_ms": None,
     }]
     # the other rungs: launches on their paths (phase 28; the bf16 walk on the
     # H=2,048 main path, phase 27), times from phase 26

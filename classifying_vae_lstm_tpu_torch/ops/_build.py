@@ -73,11 +73,12 @@ def _finish(name: str, job) -> str:
     return log
 
 
-def build_all(extra_flags=()) -> dict[str, str]:
-    """Build every source that is not built yet, one nvcc per source, all
-    started together. Returns the compiler output per source built."""
+def build_all(extra_flags=(), names=None) -> dict[str, str]:
+    """Build every source (or those in ``names``) that is not built yet, one
+    nvcc per source, all started together. Returns the compiler output per
+    source built."""
     with _lock:
-        jobs = {n: _start(n, extra_flags) for n in sources()}
+        jobs = {n: _start(n, extra_flags) for n in (names or sources())}
         return {n: _finish(n, j) for n, j in jobs.items() if j is not None}
 
 

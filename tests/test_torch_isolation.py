@@ -20,7 +20,8 @@ def _imports(path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    files = sorted(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py",
+                                          PORT.parent / "tools" / "torch_converged_parity.py"]
     assert len(files) >= 25
     # the data-parallel package too
     assert {"__init__.py", "mesh.py", "shard_map_step.py"} <= {

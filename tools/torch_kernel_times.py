@@ -7,7 +7,8 @@ turns.
 
     python3 tools/torch_kernel_times.py [--root CHECKOUT] [--reps 5]
         [--parts two_cell,cluster_vae,cluster_vae_sweep,generation,vae_dense,
-                 vae_dense_f32,int8_vae,wide_vae,wide_vae_buckets,lstm_f32_fwd]
+                 vae_dense_f32,int8_vae,wide_vae,wide_vae_buckets,lstm_f32_fwd,
+                 rungs_bf16,generation_plain]
         [--against PARENT]
 
 Runs the kernels of the checkout at ``--root`` (default: this one; run each
@@ -47,6 +48,11 @@ forward (``lstm_f32_fwd``: the training and inference forwards and both xz
 forwards at B=200, T=16, H=256, IN=105, the inference forward and the xz
 one at 12,800 rows, with the layout where the checkout plans one; the
 kernel reads every weight as stored, so the wrapper packs nothing); the
+bf16 kernels of the other fusion rungs at phase 28's shape (``rungs_bf16``:
+both unfused forwards, the dz-only and the drk walk at B=200, T=16, H=256,
+IN=101, each with its plain version's time and its bound at the bf16 rate);
+the plain version of bf16 cl_vrnn generation at the kernel's shapes
+(``generation_plain``: H=512, 1,536 and 2,048, 64 songs x (32 + 256)); the
 cl_vae generation shapes of the cluster kernel (``cluster_vae``: the
 trained jsball_vae in f32 and its serving buckets, bf16 H=256, f32 H=256
 and a model without hidden layers, 64 songs x 256 steps, through the
@@ -643,6 +649,102 @@ def _lstm_f32_fwd(reps):
             _line(f"lstm f32 {name}", fn, reps, **shape, **plan)
 
 
+PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12  # H100 SXM: dense bf16, HBM3
+
+
+def _bound(fmas, nbytes, peak=PEAK_BF16_FLOPS):
+    """``chip_smoke.roofline_ms``: the larger of the operations (2 a FMA) over
+    the peak rate and the bytes (each input read once, each output written
+    once) over HBM bandwidth, in ms, and which one it is."""
+    t_ops, t_bytes = 2 * fmas / peak, nbytes / PEAK_HBM_BYTES
+    return round(max(t_ops, t_bytes) * 1e3, 4), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _rungs_bf16(reps):
+    """The bf16 kernels of the non-default rungs at phase 28's shape (B=200,
+    T=16, H=256, the encoder's IN=101): the unfused inference and training
+    forwards (``pallas_lstm.py:387`` / ``:414``, ``:1070``) on xz = x @ W +
+    b rounded as ``lstm_sequence_pallas`` hoists it, the dz-only walk and
+    the drk walk (``:1251``, ``:1306``) on the plain forward's residuals;
+    each beside its plain version and its bound at the bf16 rate."""
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
+    from classifying_vae_lstm_tpu_torch.ops.lstm import bf16_operand
+
+    dev = torch.device("cuda", 0)
+    B, T, IN, H = 200, 16, 101, 256
+    rng = np.random.default_rng(SEED + 28)
+    f = lambda *s, scale=1.0: torch.from_numpy(  # noqa: E731
+        (scale * rng.standard_normal(s)).astype(np.float32)).to(dev)
+    x = ((torch.rand(T, B, IN, generator=torch.Generator().manual_seed(SEED)) < 0.1).float()
+         .to(dev).bfloat16())
+    w, b, rk = f(IN, 4 * H, scale=0.1), f(4 * H, scale=0.1), f(H, 4 * H, scale=0.06).bfloat16()
+    h0 = c0 = torch.zeros(B, H, device=dev)
+    xz = (x.float() @ bf16_operand(w) + b).bfloat16().contiguous()
+    xins = (xz, rk, h0, c0)
+    h, c, z = ls.lstm_seq_xz_train_fwd_plain(*xins)
+    dh = f(*h.shape, scale=1e-2)
+    dc = torch.zeros_like(dh)
+    dc[-1] = f(B, H, scale=1e-2)
+    cp, hp = torch.cat([c0[None], c[:-1]]), torch.cat([h0[None], h[:-1]]).to(z.dtype)
+    res = (z, cp, c, hp, dh, dc, rk.T.contiguous())
+    walk_res = res[:3] + res[4:]
+    nb = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    fwd_fmas, walk_fmas = T * B * H * 4 * H, T * B * 4 * H * H
+    cases = {
+        "xz_fwd (:387 / :414)": (ls.lstm_seq_xz_fwd, ls.lstm_seq_xz_fwd_plain, xins, fwd_fmas),
+        "xz_train_fwd (:1070)": (ls.lstm_seq_xz_train_fwd, ls.lstm_seq_xz_train_fwd_plain, xins,
+                                 fwd_fmas),
+        "walk (:1251)": (ls.lstm_seq_walk, ls.lstm_seq_walk_plain, walk_res, walk_fmas),
+        "walk_drk (:1306)": (ls.lstm_seq_walk_drk, ls.lstm_seq_walk_drk_plain, res,
+                             2 * walk_fmas),
+    }
+    for name, (kernel, plain, ins, fmas) in cases.items():
+        got, want = kernel(*ins), plain(*ins)
+        err = max((g.float() - p.float()).abs().max().item() for g, p in zip(got, want))
+        bound, by = _bound(fmas, nb(ins) + nb(got))
+        print(json.dumps({"name": f"lstm bf16 {name}", "B": B, "T": T, "H": H, "IN": IN,
+                          "ms": round(_time(lambda: kernel(*ins), reps), 4),
+                          "device_ms": _device_ms(lambda: kernel(*ins)),
+                          "plain_ms": round(_time(lambda: plain(*ins), reps), 4),
+                          "bound_ms": bound, "bound_by": by, "max_abs_err": err}), flush=True)
+
+
+def _generation_plain(reps):
+    """The plain version of bf16 cl_vrnn generation at the kernel row's
+    shapes (64 songs x (32 + 256) steps, u = 1, probabilities; seeded glorot
+    weights at H=512, L=8, 10 keys and H=1,536 and 2,048, L=2, 13 keys, as
+    ``_generation``), beside the kernel on the same inputs."""
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.models import cl_vrnn
+    from classifying_vae_lstm_tpu_torch.ops import cuda_generate as cg
+
+    dev = torch.device("cuda", 0)
+    B, Tseed, nsteps, D = 64, 32, 256, 88
+    rng = np.random.default_rng(SEED)
+    seeds = torch.from_numpy((rng.random((B, Tseed, D)) < 0.1).astype(np.float32)).to(dev)
+    for H, L, K in ((512, 8, 10), (1536, 2, 13), (2048, 2, 13)):
+        cfg = cl_vrnn.Config(original_dim=D, intermediate_dim=H, latent_dim=L, seq_length=16,
+                             n_classes=K, use_x_prev=True, bf16_compute=True)
+        params = _glorot_params(rng, D, H, L, K, dev)
+        eps = torch.from_numpy(rng.standard_normal((B, Tseed + nsteps, L)).astype(np.float32))
+        eps, u = eps.to(dev), torch.ones((B, Tseed + nsteps, D), device=dev)
+        ws = torch.eye(K, device=dev)[torch.arange(B, device=dev) % K]
+        run = lambda fn: fn(params, cfg, seeds, nsteps, eps, u, ws,  # noqa: E731
+                            return_probs=True, mode="bf16")
+        pk, pp = run(cg.generate_cl_vrnn_batch_cuda), run(cg.generate_cl_vrnn_batch_plain)
+        print(json.dumps({"name": "generation bf16 plain", "B": B, "Tseed": Tseed,
+                          "nsteps": nsteps, "H": H,
+                          "plain_ms": round(_time(lambda: run(cg.generate_cl_vrnn_batch_plain),
+                                                  max(1, reps // 2)), 3),
+                          "ms": round(_time(lambda: run(cg.generate_cl_vrnn_batch_cuda), reps), 4),
+                          "max_abs_err": (pk - pp).abs().max().item()}), flush=True)
+
+
 PARTS = {"two_cell": lambda reps, root: _two_cell(reps),
          "cluster_vae": lambda reps, root: _cluster_vae(reps),
          "cluster_vae_sweep": lambda reps, root: _cluster_vae_sweep(reps),
@@ -652,7 +754,9 @@ PARTS = {"two_cell": lambda reps, root: _two_cell(reps),
          "int8_vae": lambda reps, root: _int8_vae(reps),
          "wide_vae": lambda reps, root: _wide_vae(reps),
          "wide_vae_buckets": lambda reps, root: _wide_vae_buckets(reps),
-         "lstm_f32_fwd": lambda reps, root: _lstm_f32_fwd(reps)}
+         "lstm_f32_fwd": lambda reps, root: _lstm_f32_fwd(reps),
+         "rungs_bf16": lambda reps, root: _rungs_bf16(reps),
+         "generation_plain": lambda reps, root: _generation_plain(reps)}
 
 
 def main(argv=None) -> int:
