@@ -400,7 +400,27 @@ failure:
    launch counts of its stages (set to 0 just before each) > 0 for the
    two-cell forward and backward, the f32 inference forward and the
    cl_vrnn generation kernel (config 5), the dense-stack forward and
-   backward and the cl_vae generation kernel (config 3).
+   backward and the cl_vae generation kernel (config 3);
+40. the step-decomposition probes of ``tools/`` (``ops/exp_lstm.py``,
+   ``csrc/exp_lstm.cu``): their tools' paths with the counts set to 0
+   just before and read just after (``tools/torch_exp_h512_ablation.py``'s
+   microkernels at B=1,024, H=512, bb=256, ``tools/torch_exp_lstm_interleave.py``
+   at H=512, B=1,024, and ``tools/torch_repro_full_bwd_fault.py``'s ten
+   cases, each in its own process, all at once: the six mini walks at
+   B=40 (a partial 16-row tile), the bf16 and f32 walk-drk and full
+   backwards called directly and through autograd at B=500, H=512, each
+   finite and within 1e-2 (bf16) or 1e-4 (f32) of its plain version); then
+   each kernel against its plain version at the tests' shape (64, 128, 32)
+   and the tool's (1,024, 512, 256), the chains within 1e-2 of each output
+   block's largest entry (from the state the kernel carried,
+   ``exp_lstm.chain_plain_blockwise``), the gates and the off-chain product
+   within 1e-4, the interleave bitwise equal to the port's bf16 training
+   forward and within 1e-3 relative Frobenius of its plain version, the
+   mini walk's f32 sums within 1e-4 and its dx within 1e-2; CUDA-event and
+   device times of each at the tool's shape beside its bound, its plain
+   version's time and, for the off-chain product, one ``torch.mm`` of the
+   same operations; phase 1's SASS check finds HMMA in the chain, pair,
+   off-chain and interleave kernels.
 
 The run prints each phase's wall time, and fails if a thread it started is
 still running at the end.
@@ -536,7 +556,8 @@ def phase_build():
     for name, log in logs.items():
         print(f"--- nvcc csrc/{name}.cu ---\n{log.strip()}")
     print(f"kernel build: {build_s:.2f} s for {sorted(logs) or 'no sources (already built)'}")
-    require(set(_build.sources()) == {"generate_cl_vae", "generate_cl_vrnn", "lstm_bwd_f32",
+    require(set(_build.sources()) == {"exp_lstm", "generate_cl_vae", "generate_cl_vrnn",
+                                      "lstm_bwd_f32",
                                       "lstm_seq", "lstm_seq_tc", "two_cell", "two_cell_tc",
                                       "vae_dense", "vae_dense_tc"},
             f"sources {_build.sources()}")
@@ -569,6 +590,8 @@ VAE_CLUSTER = ("generate_cluster_kernelIf", "generate_cluster_kernelI13__nv_bflo
 # the bf16 dense-stack backward's product kernels (csrc/vae_dense_tc.cu), on
 # the tensor cores; the f32 LSTM full backward's (csrc/lstm_bwd_f32.cu), FFMA
 VAE_TC = ("vae_tc_product_kernel", "vae_tc_dw_kernel")
+# the product kernels of the tools' probes (csrc/exp_lstm.cu), on the tensor cores
+EXP_TC = ("chain_kernel", "pair_kernel", "offchain_kernel", "interleave_kernel")
 LSTM_BWD_F32 = ("lstm_bwd_walk_kernel", "lstm_bwd_dx_kernel", "wgrad_kernel")
 
 
@@ -598,9 +621,10 @@ def phase_tensor_cores():
     none; the int8 generation kernels of ``csrc/generate_cl_vrnn.cu`` and
     ``csrc/generate_cl_vae.cu`` hold int8 tensor-core (IMMA) instructions
     and no ``__dp4a`` (IDP), the cooperative cl_vae kernel's bf16 instance
-    HMMA and its f32 instance none, and the f32 LSTM forward none."""
+    HMMA and its f32 instance none, the f32 LSTM forward none, and the
+    product kernels of ``csrc/exp_lstm.cu`` HMMA."""
     sources = ("lstm_seq_tc", "two_cell_tc", "two_cell", "generate_cl_vrnn", "generate_cl_vae",
-               "vae_dense_tc", "lstm_bwd_f32", "lstm_seq")
+               "vae_dense_tc", "lstm_bwd_f32", "lstm_seq", "exp_lstm")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:  # one cuobjdump each
         list(pool.map(lib_sass, sources))
     counts = {n: c["hmma"] for n, c in lib_sass("lstm_seq_tc").items()}
@@ -659,6 +683,10 @@ def phase_tensor_cores():
             f"a product kernel of csrc/vae_dense_tc.cu runs without tensor cores: {vae16}")
     require(all(v and not any(v) for v in lstm32.values()),
             f"a kernel of csrc/lstm_bwd_f32.cu holds tensor-core instructions: {lstm32}")
+    exp16 = hmma_counts("exp_lstm", EXP_TC)
+    print(f"tensor-core instructions in csrc/exp_lstm.cu's products {exp16}")
+    require(all(v and all(c > 0 for c in v) for v in exp16.values()),
+            f"a product kernel of csrc/exp_lstm.cu runs without tensor cores: {exp16}")
 
 
 GEN_BUCKETS = ((1, 4, 16, 64), (32, 64, 128, 256))  # serving buckets: songs x steps
@@ -5236,9 +5264,248 @@ def phase_tensor_parallel(dev):
             e["GENERATE"])
 
 
+EXP_SHAPES = ((64, 128, 32), (1024, 512, 256))  # (B, H, bb): the tests' and the h512 tool's
+EXP_ILV = (512, 1024)  # (H, B) of the interleave's first row
+EXP_TOL = {"chain_mm": 1e-2, "chain_mm_x2": 1e-2, "chain_mm_x2_fullwidth": 1e-2,
+           "chain_mm_encdec": 1e-2, "gates_fwd": 1e-4, "gates_bwd": 1e-4, "offchain_mm": 1e-4}
+EXP_STEP_TOL = 1e-4  # a chain's single step: f32 sums of the same bf16 operands
+# f32 operations an element and step of the gates kernels, a tanh counted as one
+EXP_GATE_OPS = {"gates_fwd": 22, "gates_bwd": 45}
+EXP_REPLACES = {"chain_mm": "exp_h512_ablation.py:315", "chain_mm_x2": "exp_h512_ablation.py:315",
+                "chain_mm_x2_fullwidth": "exp_h512_ablation.py:338",
+                "chain_mm_encdec": "exp_h512_ablation.py:338",
+                "gates_fwd": "exp_h512_ablation.py:375", "gates_bwd": "exp_h512_ablation.py:375",
+                "offchain_mm": "exp_h512_ablation.py:401",
+                "interleave": "exp_lstm_interleave.py:118",
+                "mini_walk": "repro_full_bwd_fault.py:140"}
+
+
+def exp_bound_ms(name, B, H, bb, T=16, IN=128) -> tuple[float, str]:
+    """Least time of a probe at (B, H, bb): its tensor-core operations at
+    the bf16 rate (the gates' f32 operations at the f32 rate) against its
+    bytes, each input read once (the chains read h0's first bb rows, the
+    off-chain product block 0's rows of dz), each output written once."""
+    H4 = 4 * H
+    if name in ("chain_mm", "chain_mm_x2"):
+        return roofline_ms(B * H * H4 * T, 4 * bb * H + 2 * H * H4 + 4 * B * H, PEAK_BF16_FLOPS)
+    if name.startswith("chain_mm"):
+        return roofline_ms(2 * B * H * H4 * T, 8 * bb * H + 4 * H * H4 + 8 * B * H,
+                           PEAK_BF16_FLOPS)
+    if name in EXP_GATE_OPS:
+        return roofline_ms(EXP_GATE_OPS[name] * B * H * T / 2, 4 * B * H4 + 4 * B * H)
+    return roofline_ms(B * (H + IN) * H4 * T, 2 * (B * H + bb * H4 + B * IN) + 4 * (H + IN) * H4,
+                       PEAK_BF16_FLOPS)
+
+
+def _first(pair):
+    return None if pair is None else pair[0]
+
+
+# the kernel each probe launches, as the profiler names it
+EXP_KERNEL = {"chain_mm": "chain_kernel", "chain_mm_x2": "chain_kernel",
+              "chain_mm_x2_fullwidth": "pair_kernel", "chain_mm_encdec": "pair_kernel",
+              "gates_fwd": "gates_fwd_kernel", "gates_bwd": "gates_bwd_kernel",
+              "offchain_mm": "offchain_kernel"}
+
+
+def queued_ms(fn, reps: int = 20) -> float:
+    """Device ms a call of ``fn`` with the host's work between calls hidden:
+    a spinning kernel holds the stream while the host queues ``reps`` calls,
+    so the CUDA events bracket only their kernels, run back to back (the
+    wrapper's own fills included). Back-to-back calls of a ~30 us kernel are
+    otherwise paced by the wrapper's host work (``time_ms``), and the
+    profiler keeps no device time late in a run of every phase."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for margin in (4, 16, 64):  # the spin in cycles: margin x the host's time at <= 2 GHz
+        ev[0].record()
+        torch.cuda._sleep(int(margin * host_ms * 2e6) + 10_000)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        queued = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        torch.cuda.synchronize()
+        spin = ev[0].elapsed_time(ev[1])
+        if queued < spin:
+            return ev[1].elapsed_time(ev[2]) / reps
+    require(False, f"the host took {queued:.3f} ms to queue the calls, past the {spin:.3f} ms "
+                   "spin that hides it")
+
+
+def phase_exp_probes(dev):
+    """The step-decomposition probes of ``tools/`` (phase 40): the three
+    tools' paths, counted, then each kernel against its plain version and
+    timed. Returns the kernel table's rows of the nine kernels."""
+    import numpy as np
+    import torch
+
+    from classifying_vae_lstm_tpu_torch.ops import exp_lstm as ex
+    from tools import torch_exp_h512_ablation as abl
+    from tools import torch_exp_lstm_interleave as ilv
+    from tools import torch_repro_full_bwd_fault as ladder
+
+    t0 = time.perf_counter()
+    B, H, bb = EXP_SHAPES[1]
+    ex.reset_counts()
+    micro = abl.run_micro(B, H, bb, dev, reps=2, profile=False)
+    ilv_row = ilv.run(*EXP_ILV, dev, reps=2)
+    torch.cuda.synchronize()
+    counts = ex.counts()
+    print(f"probe tools' paths (h512 microkernels at B={B} H={H} bb={bb}, interleave at "
+          f"(H, B)={EXP_ILV}): launches {counts}; micro rows {micro}; interleave {ilv_row}")
+    t1 = time.perf_counter()
+    rows = ladder.run_ladder("cuda", ladder.CASES, timeout=300)
+    counts["mini_walk"] = sum(r.get("launches", {}).get("exp_lstm.MINI_WALK_LAUNCHES", 0)
+                              for r in rows)
+    failed = [r["case"] for r in rows if not (r["ok"] and r["finite"]) or r["crashed"]]
+    print(f"fault ladder: {len(rows) - len(failed)}/{len(rows)} cases finite and within "
+          f"tolerance, {time.perf_counter() - t1:.1f} s (the tools' paths before it "
+          f"{t1 - t0:.1f} s)")
+    require(not failed, f"fault ladder cases failed: {failed}")
+    require(all(v > 0 for v in counts.values()), f"a probe kernel was not launched: {counts}")
+    require(all(r["launches"] for r in rows if r["case"][:4] in ("real", "jit_")),
+            "a ladder case at B=500 launched no LSTM kernel")
+    require(ilv_row["bitwise_equal_to_baseline"], "the interleave differs from the baseline")
+
+    out = {}
+    for shape in EXP_SHAPES:
+        Bs, Hs, bbs = shape
+        a = abl.micro_inputs(Bs, Hs, dev)
+        calls, plains = abl.micro_calls(ex, a, bbs), abl.micro_calls(ex, a, bbs, plain=True)
+        for name in abl.MICRO:
+            got = calls[name]()
+            want = abl.reference(ex, name, got, a, bbs)
+            got, want = (got if isinstance(got, tuple) else (got,),
+                         want if isinstance(want, tuple) else (want,))
+            err = max((g - w).abs().max().item() for g, w in zip(got, want))
+            top = min(w.abs().max().item() for w in want)
+            require(all(torch.isfinite(g).all() for g in got) and 1e-3 < top < 1e6,
+                    f"{name} at {shape}: outputs not finite or of size {top}")
+            # the outputs that carry a state from block to block, block by block
+            parts = ([slice(None)] if name == "offchain_mm"
+                     else [slice(b * bbs, (b + 1) * bbs) for b in range(Bs // bbs)])
+            rels = []
+            for g, w in zip(got, want):
+                for s in parts:
+                    e = (g[s] - w[s]).abs().max().item()
+                    rels.append(e / w[s].abs().max().item())
+                    require(e <= EXP_TOL[name] * w[s].abs().max().item(),
+                            f"{name} at {shape}: {e} past {EXP_TOL[name]} of its largest entry")
+            print(f"{name} at B={Bs} H={Hs} bb={bbs}: relative error of each output block "
+                  f"{['%.2e' % r for r in rels]} (limit {EXP_TOL[name]})")
+            if shape != EXP_SHAPES[1]:
+                continue
+            row = {"max_abs_err": err, "ms": queued_ms(calls[name]),
+                   "event_ms": time_ms(calls[name], 20), "plain_ms": time_ms(plains[name], 3),
+                   "device_ms": _first(device_ms_per_call(calls[name], 3, EXP_KERNEL[name],
+                                                          launches=1))}
+            row["bound_ms"], row["bound_by"] = exp_bound_ms(name, Bs, Hs, bbs)
+            row["library_ms"] = None
+            if name == "offchain_mm":  # one product of the same operations (bf16 out)
+                lhs = torch.cat([a["hp"], a["xp"]], 1).repeat(16, 1).T
+                rhs = a["dz"][:bbs].repeat(16 * Bs // bbs, 1)
+                require(torch.allclose(torch.mm(lhs, rhs).float(), torch.cat(got), rtol=2e-2,
+                                       atol=2e-2 * got[0].abs().max().item()),
+                        "the library product computes another function")
+                row["library_ms"] = queued_ms(lambda: torch.mm(lhs, rhs))
+            out[name] = row
+            print(f"{name} at B={Bs} H={Hs} bb={bbs}: {row}")
+
+    # the chains one step a block (T=1), each step from the kernel's own
+    # state: a bias a step would show here, where 16 steps of roundings
+    # cannot hide it (two correct f32 sum orders part by ~3e-7 a step)
+    a = abl.micro_inputs(B, H, dev)
+    for name in EXP_KERNEL:
+        if not name.startswith("chain"):
+            continue
+        ins = ((a["h0"], a["rkA"]) if name in ("chain_mm", "chain_mm_x2")
+               else (a["h0"], a["g0"], a["rkA"], a["rkB"]))
+        got = getattr(ex, name)(*ins, bb, 1)
+        want = ex.chain_plain_blockwise(name, got, *ins, bb=bb, T=1)
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        worst = max((g[s] - w[s]).abs().max().item() / w[s].abs().max().item()
+                    for g, w in zip(got, want)
+                    for s in (slice(b * bb, (b + 1) * bb) for b in range(B // bb)))
+        print(f"{name} one step a block at B={B} H={H} bb={bb}: largest relative error "
+              f"{worst:.2e} (limit {EXP_STEP_TOL})")
+        require(worst <= EXP_STEP_TOL, f"{name}: one step {worst} past {EXP_STEP_TOL}")
+
+    # the interleave at (H, B) = (512, 1024) beside its plain version
+    args = ilv.inputs(*EXP_ILV, dev)
+    got = ex.lstm_interleave_train_fwd(*args)
+    plain = ex.lstm_interleave_train_fwd_plain(*args)
+    rel = max(ilv.rel_frob(g, p) for g, p in zip(got, plain))
+    require(rel <= 1e-3, f"the interleave is {rel} from its plain version")
+    Hi, Bi = EXP_ILV
+    T, H4 = 16, 4 * Hi
+    out["interleave"] = {
+        "max_abs_err": max((g.float() - p.float()).abs().max().item() for g, p in zip(got, plain)),
+        "ms": queued_ms(lambda: ex.lstm_interleave_train_fwd(*args)),
+        "event_ms": time_ms(lambda: ex.lstm_interleave_train_fwd(*args), 20),
+        "plain_ms": time_ms(lambda: ex.lstm_interleave_train_fwd_plain(*args), 3),
+        "device_ms": _first(device_ms_per_call(lambda: ex.lstm_interleave_train_fwd(*args), 3,
+                                               "interleave_kernel", launches=1)),
+        "baseline_ms": ilv_row.get("baseline_ms"), "rel_frob": rel}
+    out["interleave"]["bound_ms"], out["interleave"]["bound_by"] = roofline_ms(
+        Bi * T * Hi * H4, 2 * T * Bi * H4 * 2 + 2 * Hi * H4 + 8 * Bi * Hi + 8 * T * Bi * Hi,
+        PEAK_BF16_FLOPS)
+    out["interleave"]["library_ms"] = None
+    print(f"interleave at (H, B)={EXP_ILV}: {out['interleave']}")
+
+    # the mini walk, every case, at the tool's MINI shape; min_all timed
+    Tm, Bm, Hm, INm = (ladder.MINI[k] for k in ("T", "B", "H", "IN"))
+    rng = np.random.default_rng(0)
+    b16 = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(dev).bfloat16()
+    z, h, x = b16(Tm, Bm, 4 * Hm), b16(Tm, Bm, Hm), b16(Tm, Bm, INm)
+    worst = 0.0
+    for case in ex.MINI_CASES:
+        got, want = ex.mini_walk(case, z, h, x), ex.mini_walk_plain(case, z, h, x)
+        for i, (g, w) in enumerate(zip(got, want)):
+            if w is None:
+                continue
+            for gs, ws in (zip(g, w) if i == 0 else [(g, w)]):
+                e = (gs.float() - ws.float()).abs().max().item()
+                require(e <= (1e-2 if i == 0 else 1e-4) * ws.float().abs().max().item(),
+                        f"mini walk {case}: output {i} off by {e}")
+                worst = max(worst, e / ws.float().abs().max().item())
+    call = lambda: ex.mini_walk("min_all", z, h, x)  # noqa: E731
+    H4m = 4 * Hm
+    rd = Tm * Bm
+    out["mini_walk"] = {
+        "max_abs_err": max((g.float() - w.float()).abs().max().item()
+                           for g, w in zip(call(), ex.mini_walk_plain("min_all", z, h, x))),
+        "max_rel_err": worst, "ms": queued_ms(call), "event_ms": time_ms(call, 20),
+        "plain_ms": time_ms(lambda: ex.mini_walk_plain("min_all", z, h, x), 3),
+        # the walk and its three sums (drk, dw, db)
+        "device_ms": _first(device_ms_per_call(call, 3, "mini_", launches=4)),
+        "library_ms": None}
+    out["mini_walk"]["bound_ms"], out["mini_walk"]["bound_by"] = roofline_ms(
+        rd * (Hm + INm) * H4m + rd * (2 * H4m + Hm + INm + H4m) / 2,
+        2 * rd * (H4m + Hm + 2 * INm) + 4 * (Hm + INm + 1) * H4m)
+    print(f"mini walk (min_all at T={Tm} B={Bm} H={Hm} IN={INm}): {out['mini_walk']}")
+    print(f"phase 40: {time.perf_counter() - t0:.1f} s")
+    return [{"name": f"exp_{name}", "route": "cuda",
+             "source": "classifying_vae_lstm_tpu_torch/csrc/exp_lstm.cu",
+             "replaces": f"tools/{EXP_REPLACES[name]}", "launches": counts[name],
+             **{k: v for k, v in out[name].items()
+                if k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+            for name in ex.KERNELS]
+
+
 NEEDS = {7: (6,), 9: (6,), 10: (9,), 13: (12,), 16: (15,), 22: (10, 21), 25: (24,), 28: (9,),
          38: (21, 27)}
-N_PHASES = 39
+N_PHASES = 40
 
 
 def phase_two_cell_auto(model_dir, xla_loss):
@@ -5513,6 +5780,9 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as work_dir:
             conv = phase_converged_tool(work_dir)
             took(39)
+    if want(40):
+        exp_rows = phase_exp_probes(dev)
+        took(40)
     if len(run) < N_PHASES:
         print(f"chip_smoke: phases {', '.join(map(str, sorted(run)))} passed in "
               f"{time.perf_counter() - t_start:.1f} s")
@@ -5671,6 +5941,7 @@ def main(argv=None) -> int:
                         **{k: v for k, v in row.items()
                            if k not in ("bf16_ms", "device_ms", "pack_ms")},
                         "library_ms": None})
+    kernels += exp_rows  # the tools' probes (phase 40)
     # every thread this run started has ended (the servers' threads are
     # daemons and shut down), so the interpreter exits with main's code
     alive = [t.name for t in threading.enumerate()

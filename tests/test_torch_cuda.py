@@ -1847,3 +1847,147 @@ def test_key_consistency_kernel_matches_plain(dev):
     run = lambda f: f(params, cfg, seeds, 32, eps, u1, ws, return_probs=True)
     d = (run(cg.generate_cl_vrnn_batch_cuda) - run(cg.generate_cl_vrnn_batch_plain)).abs()
     assert d.max().item() <= 1e-5, d.max()
+
+
+# ---- the tools' step-decomposition probes (ops/exp_lstm.py, csrc/exp_lstm.cu)
+# Tolerances: the chains (bf16 operands, f32 sums) within 1e-2 of each
+# output block's largest entry, each block against the plain version started
+# from the state the kernel carried out of the block before
+# (``chain_plain_blockwise``: h is rounded to bf16 every step, so another
+# summation order flips a rounding now and then, and over 64 steps at H=512
+# two correct sum orders part by more than 1e-2, 16 steps by ~6e-3:
+# tests/test_torch_exp_lstm.py test_two_correct_chains_part_by_about_a_percent),
+# and one step a block within 1e-4 (one step of two sum orders parts by
+# ~3e-7); the gates
+# kernels (f32, another tanh and FMA contraction) and the f32 sums of the
+# off-chain product and the mini walk within 1e-4 of each output's largest
+# entry; the mini walk's bf16 dx within 1e-2 of each step's largest entry;
+# the interleaved forward bitwise equal to the port's bf16 training forward
+# (the same products and epilogue) and within 1e-3 relative Frobenius of the
+# plain version (phase 20's bound for the bf16 streams).
+
+def _exp_inputs(dev, B, H, seed=0):
+    rng = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0: torch.from_numpy(  # noqa: E731
+        (scale * rng.standard_normal(s)).astype(np.float32)).to(dev)
+    # rk scaled to keep |h| of O(1) over every step of the chain
+    return f(B, H), f(B, H), f(H, 4 * H, scale=50 / H ** 0.5).bfloat16(), \
+        f(H, 4 * H, scale=50 / H ** 0.5).bfloat16()
+
+
+def _close_per_block(got, want, bb, tol):
+    for b in range(want.shape[0] // bb):
+        g, w = got[b * bb:(b + 1) * bb], want[b * bb:(b + 1) * bb]
+        assert torch.isfinite(g).all() and w.abs().max() > 1e-3
+        err = (g - w).abs().max().item()
+        assert err <= tol * w.abs().max().item(), (b, err, w.abs().max().item())
+
+
+@pytest.mark.parametrize("B,H,bb", [(64, 128, 32), (1024, 512, 256), (96, 136, 48),
+                                    (256, 256, 256)])
+def test_exp_chain_kernels_match_plain(dev, B, H, bb):
+    from classifying_vae_lstm_tpu_torch.ops import exp_lstm as ex
+
+    h0, g0, rkA, rkB = _exp_inputs(dev, B, H)
+    for name in ("chain_mm", "chain_mm_x2"):
+        before = ex.counts()[name]
+        got = getattr(ex, name)(h0, rkA, bb)
+        torch.cuda.synchronize()
+        assert ex.counts()[name] == before + 1
+        _close_per_block(got, ex.chain_plain_blockwise(name, got, h0, rkA, bb=bb), bb, 1e-2)
+    for name in ("chain_mm_x2_fullwidth", "chain_mm_encdec"):
+        got = getattr(ex, name)(h0, g0, rkA, rkB, bb)
+        want = ex.chain_plain_blockwise(name, got, h0, g0, rkA, rkB, bb=bb)
+        for g, w in zip(got, want):
+            _close_per_block(g, w, bb, 1e-2)
+
+
+@pytest.mark.parametrize("B,H,bb", [(16384, 512, 256), (96, 136, 48)])
+def test_exp_chain_kernels_hold_each_single_step(dev, B, H, bb):
+    """The chains at T=1: each block is one step from the state the kernel
+    carried out of the block before (64 steps at H=512), each held within
+    1e-4 of its largest entry, so a bias a step cannot hide inside the
+    blockwise comparison's 16 steps (two correct f32 sum orders part by ~3e-7
+    a step: tests/test_torch_exp_lstm.py
+    test_two_correct_chains_part_by_about_a_percent)."""
+    from classifying_vae_lstm_tpu_torch.ops import exp_lstm as ex
+
+    h0, g0, rkA, rkB = _exp_inputs(dev, B, H)
+    for name in ("chain_mm", "chain_mm_x2", "chain_mm_x2_fullwidth", "chain_mm_encdec"):
+        ins = (h0, rkA) if name in ("chain_mm", "chain_mm_x2") else (h0, g0, rkA, rkB)
+        got = getattr(ex, name)(*ins, bb, 1)
+        want = ex.chain_plain_blockwise(name, got, *ins, bb=bb, T=1)
+        for g, w in (zip(got, want) if isinstance(got, tuple) else [(got, want)]):
+            _close_per_block(g, w, bb, 1e-4)
+
+
+@pytest.mark.parametrize("B,H,bb", [(64, 128, 32), (1024, 512, 256), (96, 136, 48)])
+def test_exp_gates_and_offchain_kernels_match_plain(dev, B, H, bb):
+    from classifying_vae_lstm_tpu_torch.ops import exp_lstm as ex
+
+    rng = np.random.default_rng(1)
+    z0 = torch.from_numpy(rng.standard_normal((B, 4 * H)).astype(np.float32)).to(dev)
+    for name in ("gates_fwd", "gates_bwd"):
+        _close_per_block(getattr(ex, name)(z0, bb), getattr(ex, f"{name}_plain")(z0, bb), bb,
+                         1e-4)
+    b16 = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(dev).bfloat16()
+    hp, dz, xp = b16(B, H), b16(B, 4 * H), b16(B, 128)
+    for g, w in zip(ex.offchain_mm(hp, dz, xp, bb), ex.offchain_mm_plain(hp, dz, xp, bb)):
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+@pytest.mark.parametrize("T,B,H", [(16, 200, 512), (5, 33, 20)])
+def test_exp_interleave_matches_the_training_forward(dev, T, B, H):
+    from classifying_vae_lstm_tpu_torch.ops import exp_lstm as ex
+    from classifying_vae_lstm_tpu_torch.ops import lstm_seq as ls
+
+    rng = np.random.default_rng(2)
+    f = lambda *s, scale=1.0: torch.from_numpy(  # noqa: E731
+        (scale * rng.standard_normal(s)).astype(np.float32)).to(dev)
+    xz, rk = f(T, B, 4 * H).bfloat16(), f(H, 4 * H, scale=0.05).bfloat16()
+    h0, c0 = f(B, H, scale=0.1), f(B, H, scale=0.1)
+    got = ex.lstm_interleave_train_fwd(xz, rk, h0, c0)
+    base = ls.lstm_seq_xz_train_fwd(xz, rk, h0, c0)
+    plain = ex.lstm_interleave_train_fwd_plain(xz, rk, h0, c0)
+    for g, k, p in zip(got, base, plain):
+        assert torch.equal(g, k)
+        assert (g.float() - p.float()).norm() <= 1e-3 * p.float().norm()
+
+
+@pytest.mark.parametrize("case", ["min_base", "min_dx_in", "min_dx_out", "min_dw", "min_db",
+                                  "min_all"])
+def test_exp_mini_walk_matches_plain_on_a_partial_tile(dev, case):
+    from classifying_vae_lstm_tpu_torch.ops import exp_lstm as ex
+
+    rng = np.random.default_rng(3)
+    T, B, H, IN = 8, 40, 256, 128  # 40 rows: the last 16-row tile holds 8
+    b16 = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(dev).bfloat16()
+    z, h, x = b16(T, B, 4 * H), b16(T, B, H), b16(T, B, IN)
+    got, want = ex.mini_walk(case, z, h, x), ex.mini_walk_plain(case, z, h, x)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert (g is None) == (w is None)
+        if w is None:
+            continue
+        g, w = g.float(), w.float()
+        assert torch.isfinite(g).all()
+        for gs, ws in (zip(g, w) if i == 0 else [(g, w)]):  # dx: each step apart
+            tol = 1e-2 if i == 0 else 1e-4
+            assert (gs - ws).abs().max().item() <= tol * ws.abs().max().item(), (case, i)
+
+
+def test_exp_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from classifying_vae_lstm_tpu_torch.ops import exp_lstm as ex
+
+    h0, g0, rk, _ = _exp_inputs(dev, 64, 128)
+    with pytest.raises(ValueError, match="multiple of bb"):
+        ex.chain_mm(h0, rk, 48)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ex.chain_mm(h0, rk.float(), 32)
+    with pytest.raises(ValueError, match="case"):
+        ex.mini_walk("min_none", *(torch.zeros(2, 16, s, device=dev, dtype=torch.bfloat16)
+                                   for s in (16, 4, 4)))
+    with pytest.raises(ValueError, match="shared memory"):  # a tile past 227 KiB at H=1,024
+        ex.mini_walk("min_base", *(torch.zeros(1, 16, s, device=dev, dtype=torch.bfloat16)
+                                   for s in (4096, 1024, 4)))

@@ -20,9 +20,12 @@ def _imports(path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    files = sorted(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py",
-                                          PORT.parent / "tools" / "torch_converged_parity.py"]
-    assert len(files) >= 25
+    tools = PORT.parent / "tools"
+    files = sorted(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"] + [
+        tools / f"{name}.py" for name in ("torch_converged_parity", "torch_exp_h512_ablation",
+                                          "torch_exp_lstm_interleave",
+                                          "torch_repro_full_bwd_fault")]
+    assert len(files) >= 25 and all(f.exists() for f in files)
     # the data-parallel package too
     assert {"__init__.py", "mesh.py", "shard_map_step.py"} <= {
         f.name for f in files if f.parent.name == "parallel"}
